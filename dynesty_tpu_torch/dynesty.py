@@ -1,7 +1,9 @@
 """User-facing factory: argument resolution for the static nested sampler
 (counterpart of ``dynesty_tpu.dynesty``).
 
-``device`` is required: the port never picks one by itself.
+``device`` defaults to ``'cuda'``: the sampler runs on the card unless the
+caller asks for the CPU, and raises where CUDA is absent rather than fall
+back.
 ``likelihood_mode`` is ``'torch'`` (per-point torch functions batched
 with ``torch.func.vmap``) or ``'vectorized'``.  ``queue_size`` is the
 proposal batch width.  The dynamic sampler, pools and host-mode
@@ -55,8 +57,8 @@ def _resolve_update_interval(update_interval, internal_sampler, nlive):
 
 def _resolve_device(device):
     if device is None:
-        raise ValueError("NestedSampler needs an explicit device "
-                         "(e.g. device='cuda')")
+        raise ValueError("NestedSampler needs a device: 'cuda' (the "
+                         "default) or 'cpu'")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
@@ -68,7 +70,7 @@ class NestedSampler(Sampler):
     """Static nested sampler factory."""
 
     def __init__(self, loglikelihood, prior_transform, ndim, nlive=500,
-                 bound="multi", sample="auto", *, device,
+                 bound="multi", sample="auto", *, device="cuda",
                  update_interval=None, first_update=None, rstate=None,
                  queue_size=None, live_points=None, logl_args=None,
                  logl_kwargs=None, ptform_args=None, ptform_kwargs=None,

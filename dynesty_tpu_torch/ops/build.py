@@ -44,15 +44,16 @@ def _nvcc():
     return found
 
 
-def load_library(name):
-    """The loaded ``ctypes`` library built from ``csrc/<name>.cu``."""
+def load_library(name, src=None):
+    """The loaded ``ctypes`` library built from ``src`` (by default
+    ``csrc/<name>.cu``)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     if os.environ.get("DYNESTY_TPU_TORCH_NO_BUILD"):
         raise RuntimeError(f"building kernel '{name}' is disabled "
                            "(DYNESTY_TPU_TORCH_NO_BUILD is set)")
-    src = SRC_DIR / f"{name}.cu"
+    src = Path(src) if src is not None else SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"

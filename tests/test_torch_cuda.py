@@ -4,6 +4,8 @@ one.  This file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -33,24 +35,89 @@ def test_cuda_call_without_build_raises(cuda, monkeypatch):
     assert hk.pairwise_min_dist.launches == launches
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2048, 3), (1000, 8), (129, 64), (2, 1)])
-def test_cuda_kernel_matches_plain(cuda, shape):
-    pts = torch.from_numpy(
-        get_rstate().normal(size=shape).astype(np.float32)).to(cuda)
-    launches = hk.pairwise_min_dist.launches
-    got = hk.pairwise_min_dist(pts)
+def _points(shape, cuda, shift=0.0):
+    return torch.from_numpy(
+        (get_rstate().normal(size=shape) + shift).astype(np.float32)).to(cuda)
+
+
+def _counts():
+    k = hk.pairwise_min_dist
+    return k.launches, k.launches_exact, k.launches_tc
+
+
+def _check(cuda, shape, p=2, path=None, shift=0.0):
+    """One call against the plain version; returns the path's launches."""
+    pts = _points(shape, cuda, shift)
+    before = _counts()
+    got = hk.pairwise_min_dist(pts, p=p, path=path)
     torch.cuda.synchronize()
-    assert hk.pairwise_min_dist.launches == launches + 1
-    ref = hk.pairwise_min_dist_plain(pts)
-    # both take exact float32 differences; summation order differs
+    after = _counts()
+    ref = hk.pairwise_min_dist_plain(pts, p=p)
+    # the exact path takes float32 differences in another order; the
+    # tensor-core path re-ranks its candidate by exact differences
     assert torch.allclose(got, ref, rtol=1e-5, atol=1e-6)
+    assert after[0] == before[0] + 1
+    return after[1] - before[1], after[2] - before[2]
+
+
+# (4096, 100) and (2048, 65): any d runs through a kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 3), (1000, 8), (129, 64), (2, 1),
+                                   (4096, 100), (2048, 65)])
+def test_cuda_kernel_matches_plain(cuda, shape):
+    exact, tc = _check(cuda, shape)
+    assert (exact, tc) == ((0, 1) if hk.kernel_path(*shape) == "tc"
+                           else (1, 0))
+
+
+# ragged N for each path, and both sides of the tensor-core switch point
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["exact", "tc"])
+@pytest.mark.parametrize("shape", [
+    (2, 64), (129, 64), (2049, 64), (2049, 5), (300, hk.TC_MAX_D),
+    (2048, 47), (2048, 48)])
+def test_cuda_paths_match_plain(cuda, path, shape):
+    exact, tc = _check(cuda, shape, path=path)
+    assert (exact, tc) == ((1, 0) if path == "exact" else (0, 1))
+
+
+# a cloud whose mean sits far from the origin, as whitened late-run live
+# points do: the tensor-core path centres before its expansion
+@pytest.mark.cuda
+@pytest.mark.parametrize("path, shape", [("exact", (2048, 3)),
+                                         ("tc", (4096, 64)),
+                                         ("tc", (2049, 17))])
+def test_cuda_shifted_cloud(cuda, path, shape):
+    _check(cuda, shape, path=path, shift=50.0)
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_rejects_wide_points(cuda):
-    with pytest.raises(ValueError, match="d <= 64"):
-        hk.pairwise_min_dist(torch.zeros((10, 65), device=cuda))
+@pytest.mark.parametrize("shape", [(2, 1), (129, 5), (2049, 3), (1000, 70)])
+def test_cuda_linf_matches_plain(cuda, shape):
+    assert _check(cuda, shape, p=math.inf) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, path", [(2, "exact"), (2, "tc"),
+                                     (math.inf, "exact")])
+def test_cuda_kernel_deterministic(cuda, p, path):
+    # column splits meet in atomicMin, whose result is order-free
+    pts = _points((4096, 32), cuda)
+    a = hk.pairwise_min_dist(pts, p=p, path=path)
+    b = hk.pairwise_min_dist(pts, p=p, path=path)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_default_device(cuda):
+    import dynesty_tpu_torch as dyt
+
+    s = dyt.NestedSampler(lambda x: -0.5 * (x @ x), lambda u: 2.0 * u - 1.0,
+                          2, nlive=64, bound="none", sample="rslice",
+                          rstate=get_rstate(56432))
+    assert s.device.type == "cuda"
+    s.run_nested(print_progress=False, maxiter=100)
+    assert np.isfinite(s.results.logz[-1])
 
 
 @pytest.mark.cuda

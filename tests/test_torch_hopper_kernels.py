@@ -7,6 +7,7 @@ tests/test_torch_cuda.py and chip_smoke.py."""
 
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -44,6 +45,25 @@ def test_l2_matches_pallas_interpret(n, d):
     # order differs
     ref = np.asarray(pairwise_min_dist_reference(pts, p=2))
     assert np.abs(got - ref).max() < 1e-6
+
+
+def test_l2_wide_matches_pallas_interpret():
+    # any d: the plain version (what a CPU tensor runs) at d = 100, where
+    # nearest-neighbour distances are ~10, not ~1 as at d = 3 or 8
+    n, d = 2048, 100
+    pts = _points(n, d)
+    got = hk.pairwise_min_dist(torch.from_numpy(pts)).numpy()
+    assert got.dtype == np.float32 and got.shape == (n,)
+    pallas = np.asarray(jax_pairwise_min_dist(pts, p=2, interpret=True))
+    # the 1e-5 on distances above 0.1 holds as it stands; the Pallas form's
+    # error in a SQUARED distance scales with |a|^2, i.e. with d, so the
+    # 1e-5 that bounds it at d <= 8 becomes 1e-5 * d / 8
+    assert np.abs(got - pallas).max() < 1e-5
+    assert np.abs(got ** 2 - pallas ** 2).max() < 1e-5 * d / 8
+    # exact differences on both sides, summed in another order: 1e-6 of
+    # the distance (jit fuses the reference's (N, N, d) differences)
+    ref = np.asarray(jax.jit(pairwise_min_dist_reference)(pts))
+    assert np.all(np.abs(got - ref) < 1e-6 * ref)
 
 
 @pytest.mark.parametrize("n", [300, 1000, 2048])
@@ -84,3 +104,31 @@ def test_wrapper_counts_and_checks():
         hk.pairwise_min_dist(pts.t())
     with pytest.raises(ValueError):
         hk.pairwise_min_dist(pts, p=1)
+
+
+def test_wrapper_checks_paths():
+    pts = torch.from_numpy(_points(50, 3))
+    for kw in ({"path": "mma"}, {"path": "tc", "p": math.inf}):
+        with pytest.raises(ValueError, match="no path"):
+            hk.pairwise_min_dist(pts, **kw)
+    wide = torch.zeros((50, hk.TC_MAX_D + 1))
+    with pytest.raises(ValueError, match="no path"):
+        hk.pairwise_min_dist(wide, path="tc")
+    with pytest.raises(ValueError, match="d >= 1"):
+        hk.pairwise_min_dist(torch.zeros((50, 0)))
+    # a forced path is legal on the CPU, where the plain version runs
+    assert torch.equal(hk.pairwise_min_dist(pts, path="exact"),
+                       hk.pairwise_min_dist_plain(pts))
+
+
+# both sides of each limit of the switch: N, d, N * d, the widest d
+@pytest.mark.parametrize("n, d, p, path", [
+    (2048, 3, 2, "exact"),
+    (2047, 64, 2, "exact"), (2048, 64, 2, "tc"),
+    (16384, 11, 2, "exact"), (16384, 12, 2, "tc"),
+    (2048, 47, 2, "exact"), (2048, 48, 2, "tc"),
+    (16384, hk.TC_MAX_D, 2, "tc"), (16384, hk.TC_MAX_D + 1, 2, "exact"),
+    (16384, 64, math.inf, "exact"),
+])
+def test_kernel_path_switch(n, d, p, path):
+    assert hk.kernel_path(n, d, p) == path

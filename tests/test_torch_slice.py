@@ -117,6 +117,14 @@ def test_unported_entry_points_raise():
                               bound=bound, sample=sample, device="cpu")
 
 
+def test_default_device_is_the_card(monkeypatch):
+    # without CUDA the default device raises; it never falls back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                          bound="none", sample="rslice")
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, dynesty_tpu_torch; "
             "assert 'jax' not in sys.modules; "
