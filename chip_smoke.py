@@ -2,7 +2,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py [--out results.json] [--profile [balls|heavy]]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -21,7 +21,16 @@ Phases, in order; any failure raises and exits non-zero:
 5. A friends refit (``RadFriends.update``) of a live set at the
    tensor-core path's switch point: the tensor-core path must run.
 6. A drive with ``bound='single'`` (nlive=500): no kernel may run.
-7. Device-only times (profiler kernel durations) of every comparison.
+7. The default path at the JAX package's heavy-bench width:
+   ``NestedSampler(nlive=3000, bound='multi', sample='unif',
+   queue_size=256, rounds_per_dispatch=12)`` on the 3-D correlated
+   Gaussian plus a float32 tanh matvec chain (width 256, depth 384,
+   weights from seed 1234), against the analytic -3 ln 20.  No kernel
+   may run (multi-ellipsoid bounds never reach one).
+8. ``NestedSampler(loglike, ptform, 3)`` with every other argument at
+   its default (multi / unif / bootstrap 5) on the 3-D Gaussian.
+9. Device-only times (profiler kernel durations) of every comparison,
+   and of one 256-lane evaluation of the heavy likelihood.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +62,7 @@ REFIT_SHAPE = (2048, 48)
 # (N, d, p, mean of every coordinate, forced path or None)
 COMPARES = [
     (2048, 3, 2, 0.0, None), (1000, 8, 2, 0.0, None),
+    (2048, 48, 2, 0.0, None),
     (2048, 64, 2, 0.0, None), (16384, 64, 2, 0.0, None),
     (16384, 64, 2, 0.0, "exact"), (4096, 100, 2, 0.0, None),
     (2048, 65, 2, 0.0, None),
@@ -62,6 +72,10 @@ COMPARES = [
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12
 SOURCE = "dynesty_tpu_torch/csrc/pairwise_min_dist.cu"
+# the JAX package's heavy bench (bench.py): a 3-D correlated Gaussian plus
+# a tanh matvec chain of this width and depth, at this live-point count
+H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
+H_TRUTH = -NDIM * math.log(20.0)  # the 1e-6 chain term is negligible
 REPLACES = {2: "dynesty_tpu/ops/pallas_kernels.py:31",
             math.inf: "dynesty_tpu/ops/pallas_kernels.py:80"}
 
@@ -228,6 +242,139 @@ def drive(dyt, nlive, bound, profile=None):
     return summary
 
 
+def heavy_weights():
+    """The heavy bench's chain weights (seed 1234): an orthogonal matrix
+    scaled to spectral norm 0.9, an input map, and the Gaussian's
+    precision and normalization."""
+    rng = np.random.Generator(np.random.PCG64(1234))
+    q, _ = np.linalg.qr(rng.standard_normal((H_WIDTH, H_WIDTH)))
+    a = 0.9 * q
+    w = rng.standard_normal((H_WIDTH, NDIM)) / np.sqrt(NDIM)
+    cov = np.identity(NDIM)
+    cov[cov == 0] = 0.95
+    lnorm = -0.5 * (np.log(2 * np.pi) * NDIM + np.log(np.linalg.det(cov)))
+    return a, w, np.linalg.inv(cov), lnorm
+
+
+def heavy_loglike():
+    """The heavy likelihood on the card: the Gaussian in float64 plus
+    1e-6 times the sum of a float32 tanh chain (TF32 off)."""
+    a, w, cinv, lnorm = heavy_weights()
+    a_t = torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    w_t = torch.as_tensor(w, dtype=torch.float32, device="cuda")
+    cinv_t = torch.as_tensor(cinv, device="cuda")
+
+    def loglike(x):
+        h = torch.tanh(w_t @ x.to(torch.float32))
+        for _ in range(H_LAYERS):
+            h = torch.tanh(a_t @ h)
+        return -0.5 * (x @ cinv_t @ x) + lnorm + 1e-6 * h.sum().to(x.dtype)
+
+    return loglike
+
+
+def heavy_loglike_plain():
+    """The same likelihood in float64 numpy on the host, for a check."""
+    a, w, cinv, lnorm = heavy_weights()
+
+    def loglike(x):
+        h = np.tanh(w @ x)
+        for _ in range(H_LAYERS):
+            h = np.tanh(a @ h)
+        return -0.5 * x @ cinv @ x + lnorm + 1e-6 * h.sum()
+
+    return loglike
+
+
+def unif_drive(dyt, loglike, truth, profile=None, **kw):
+    """One ``NestedSampler(loglike, ptform, 3, **kw)`` run on the card's
+    default device through the evidence gate (under ``profile`` if
+    given); returns its summary."""
+    def ptform(u):
+        return 10.0 * (2.0 * u - 1.0)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = dyt.NestedSampler(
+        loglike, ptform, NDIM,
+        rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
+    if sampler.device.type != "cuda":
+        raise RuntimeError(f"the default device is {sampler.device}")
+    with profile or contextlib.nullcontext():
+        sampler.run_nested(print_progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = sampler.results
+    logz, err = float(res.logz[-1]), float(res.logzerr[-1])
+    expands = [b.last_expand for b in sampler.bound_list
+               if hasattr(b, "last_expand")]
+    summary = {
+        "config": dict(kw, ndim=NDIM, seed=SEED,
+                       bound=sampler.bounding,
+                       sample=sampler.internal_sampler.name,
+                       bootstrap=sampler.bound_bootstrap,
+                       queue_size=sampler.queue_size,
+                       rounds_per_dispatch=sampler.rounds_per_dispatch),
+        "wall_s": wall, "niter": int(res.niter),
+        "ncall": int(sampler.ncall), "logz": logz, "logzerr": err,
+        "truth": truth, "nells": int(getattr(sampler.bound, "nells", 1)),
+        "nbound": int(sampler.nbound),
+        "max_last_expand": max(expands) if expands else None,
+        "timings": {k: v for k, v in sampler.timings.items()},
+    }
+    ok = (np.isfinite(logz) and err > 0 and
+          abs(logz - truth) < 4 * err and
+          res.samples.shape == (res.niter + sampler.nlive, NDIM) and
+          np.all(np.isfinite(res.logwt)) and
+          int(np.sum(res.ncall)) == sampler.ncall)
+    if not ok:
+        raise RuntimeError(f"unif drive {kw} failed the evidence gate: "
+                           f"{summary}")
+    return summary
+
+
+def _print_unif_drive(name, s, card):
+    t = s["timings"]
+    print(f"{name}: wall {s['wall_s']:.2f} s  niter {s['niter']}  ncall "
+          f"{s['ncall']}  logz {s['logz']:.3f} +/- {s['logzerr']:.3f} "
+          f"(truth {s['truth']:.3f})  nells {s['nells']}  n_refit "
+          f"{t.get('n_refit', 0)}  max last_expand "
+          f"{s['max_last_expand']}  [{card}]")
+    print(f"  split: dispatch {t.get('dispatch', 0.0):.3f} s  consume "
+          f"{t.get('consume', 0.0):.3f} s  refit {t.get('refit', 0.0):.3f} s"
+          f"  mirror {t.get('mirror', 0.0):.3f} s  total "
+          f"{t.get('total', 0.0):.3f} s  n_dispatch {t.get('n_dispatch', 0)}"
+          f"  sync_wave {t.get('sync_wave', 0)}  sync_round "
+          f"{t.get('sync_round', 0)}  nc_launched {t.get('nc_launched', 0)}")
+
+
+def new_profile(on):
+    """A profiler of host ops and device kernels, or None when off."""
+    if not on:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def report_profile(prof, summary):
+    """Print the profiled drive's ops by device time and its device-busy
+    seconds, and keep both in ``summary``."""
+    if prof is None:
+        return
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    dev = "device" if hasattr(avgs[0], "self_device_time_total") else "cuda"
+    table = avgs.table(sort_by=f"self_{dev}_time_total", row_limit=25)
+    # one stream: kernels do not overlap, their durations add up
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    summary["profile_device_busy_s"] = busy / 1e6
+    summary["profile_table"] = table
+    print(table)
+    print(f"device busy (sum of kernel self time): {busy / 1e6:.3f} s "
+          f"of {summary['wall_s']:.3f} s wall (profiled run)")
+
+
 def _print_drive(name, s, counts, card):
     print(f"{name}: wall {s['wall_s']:.2f} s  niter {s['niter']}  ncall "
           f"{s['ncall']}  logz {s['logz']:.3f} +/- {s['logzerr']:.3f}  "
@@ -298,8 +445,10 @@ def refit_drive(dyt, hk):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
-    ap.add_argument("--profile", action="store_true",
-                    help="profile the main drive (device time by kernel)")
+    ap.add_argument("--profile", nargs="?", const="balls",
+                    choices=["balls", "heavy"],
+                    help="profile one drive (device time by kernel): the "
+                    "balls drive (the default) or the heavy one")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -339,11 +488,7 @@ def main():
               f"[{card}]")
 
     # phase 3: the main path, with launch counts zeroed just before
-    prof = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+    prof = new_profile(args.profile == "balls")
     _zero_counts(hk)
     with recording_refits(dyt, hk) as calls:
         main = drive(dyt, 2048, "balls", profile=prof)
@@ -356,20 +501,7 @@ def main():
     print(f"balls refits against the plain version: max abs err "
           f"{main['refit_max_abs_err']:.3e}")
     print(f"timings: {json.dumps(main['timings'])}")
-    if prof is not None:
-        from torch.autograd import DeviceType
-        avgs = prof.key_averages()
-        dev = "device" if hasattr(avgs[0], "self_device_time_total") \
-            else "cuda"
-        table = avgs.table(sort_by=f"self_{dev}_time_total", row_limit=25)
-        # one stream: kernels do not overlap, their durations add up
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-        main["profile_device_busy_s"] = busy / 1e6
-        main["profile_table"] = table
-        print(table)
-        print(f"device busy (sum of kernel self time): {busy / 1e6:.3f} s "
-              f"of {main['wall_s']:.3f} s wall (profiled run)")
+    report_profile(prof, main)
 
     # phase 4: cubes, whose refit takes the exact L-inf path
     _zero_counts(hk)
@@ -397,7 +529,45 @@ def main():
                            "friends kernel")
     _print_drive("single/rslice nlive=500", single, _counts(hk), card)
 
-    # phase 7: device-only times, last: a profiler session slows the
+    # phase 7: the default path at the heavy bench's width; the heavy
+    # likelihood checked against a float64 host version first
+    like = heavy_loglike()
+    xs = np.random.Generator(np.random.PCG64(SEED)).uniform(
+        -10.0, 10.0, (8, NDIM))
+    got = torch.func.vmap(like)(torch.as_tensor(xs, device="cuda")).cpu()
+    ref = np.array([heavy_loglike_plain()(x) for x in xs])
+    if not np.allclose(got.numpy(), ref, rtol=1e-12, atol=1e-9):
+        raise RuntimeError(f"heavy likelihood disagrees with its host "
+                           f"version: {got.numpy()} vs {ref}")
+    prof = new_profile(args.profile == "heavy")
+    _zero_counts(hk)
+    heavy = unif_drive(dyt, like, H_TRUTH, profile=prof, nlive=H_NLIVE,
+                       bound="multi", sample="unif", queue_size=H_QUEUE,
+                       rounds_per_dispatch=H_ROUNDS)
+    heavy["launches"] = _counts(hk)
+    if hk.pairwise_min_dist.launches != 0:
+        raise RuntimeError("the multi/unif drive launched the friends "
+                           "kernel")
+    _print_unif_drive(f"heavy multi/unif nlive={H_NLIVE} (width {H_WIDTH}, "
+                      f"depth {H_LAYERS})", heavy, card)
+    report_profile(prof, heavy)
+
+    # phase 8: the defaults (multi / unif / bootstrap 5 for ndim < 10)
+    cov = np.identity(NDIM)
+    cov[cov == 0] = 0.95
+    cinv = torch.as_tensor(np.linalg.inv(cov), device="cuda")
+    lnorm = -0.5 * (np.log(2 * np.pi) * NDIM + np.log(np.linalg.det(cov)))
+    _zero_counts(hk)
+    default = unif_drive(dyt, lambda x: -0.5 * (x @ cinv @ x) + lnorm,
+                         LOGZ_TRUTH)
+    default["launches"] = _counts(hk)
+    if (default["config"]["sample"], default["config"]["bootstrap"]) != \
+            ("unif", 5) or hk.pairwise_min_dist.launches != 0:
+        raise RuntimeError(f"the default drive ran {default['config']}")
+    _print_unif_drive("default arguments (multi/unif, bootstrap 5, "
+                      "nlive=500)", default, card)
+
+    # phase 9: device-only times, last: a profiler session slows the
     # launches of everything that runs after it in the process
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -413,6 +583,15 @@ def main():
               f"{c['library_device_ms']:.4f} ms  bound "
               f"{c['bound_ms']:.5f} ms  exact ceiling "
               f"{c['exact_ceiling_ms']:.5f} ms  [{card}]")
+    batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
+    heavy_eval = torch.func.vmap(like)
+    heavy["eval_device_ms"] = _device_ms(lambda: heavy_eval(batch), 5)
+    heavy["eval_ms"] = _time_ms(lambda: heavy_eval(batch), 5)
+    waves_s = heavy["eval_device_ms"] * heavy["timings"]["sync_wave"] / 1e3
+    print(f"heavy likelihood, {H_QUEUE} lanes per call: device only "
+          f"{heavy['eval_device_ms']:.3f} ms, events {heavy['eval_ms']:.3f} "
+          f"ms; x {heavy['timings']['sync_wave']} waves = {waves_s:.2f} s of "
+          f"the drive's {heavy['wall_s']:.2f} s wall  [{card}]")
 
     def entry(name, shape, p, path, launches):
         c = next(c for c in compares if tuple(c["shape"]) == shape and
@@ -439,7 +618,8 @@ def main():
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "compare": compares,
                        "main": main, "cubes": cubes, "refit": refit,
-                       "single": single, "build_seconds": log["seconds"]},
+                       "single": single, "heavy": heavy,
+                       "default": default, "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """
 dynesty_tpu_torch — the PyTorch/CUDA port of ``dynesty_tpu``.
 
-Static nested sampling on a torch device: the unit-cube phase, RadFriends,
-SupFriends or single-ellipsoid bounds, and rslice proposals, with the
+Static nested sampling on a torch device: the unit-cube phase, single-
+and multi-ellipsoid, RadFriends and SupFriends bounds with bootstrap
+expansion, and uniform ('unif') and rslice proposals, with the
 leave-one-out nearest-neighbour distance of the friends bounds as
 hand-written CUDA kernels for Hopper (``csrc/pairwise_min_dist.cu``).
 Imports neither ``jax`` nor ``dynesty_tpu``.  Entry point:

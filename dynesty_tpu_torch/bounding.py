@@ -1,29 +1,47 @@
-"""Bounding distributions: the unit cube, a single ellipsoid, and
-friends-type unions of balls/cubes centred on the live points.
+"""Bounding distributions: the unit cube, single and multiple ellipsoids,
+and friends-type unions of balls/cubes centred on the live points.
 
-Host-side geometry in float64 numpy, as in ``dynesty_tpu.bounding``.  The
-one device step is the leave-one-out nearest-neighbour distance that
-sets the friends radius: at or above 2048 points it runs in float32 on
-the sampler's device through :func:`..ops.hopper_kernels.pairwise_min_dist`
-(the CUDA kernel on a card); below that it stays on the host in float64.
-Multi-ellipsoid bounds and bootstrap expansion are not yet ported.
+Host-side geometry in float64 numpy, copied from ``dynesty_tpu.bounding``
+so that the same points and bootstrap seeds give bit-identical bounds:
+the recursive BIC-guided ellipsoid splitter (and its batched
+breadth-first form, which fits the main decomposition and every
+bootstrap realization as one forest), bootstrap expansion, and friends
+radii from leave-one-out or bootstrap nearest neighbours.  The one
+device step is the leave-one-out nearest-neighbour distance that sets
+the friends radius without bootstrap: at or above 2048 points it runs in
+float32 on the sampler's device through
+:func:`..ops.hopper_kernels.pairwise_min_dist` (the CUDA kernel on a
+card); below that it stays on the host in float64.  Bootstrap radii stay
+on the host, as in the JAX package.
 """
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
-from .ops.geometry import improve_covar_mat, logvol_prefactor, unitcheck
+from .ops.geometry import (improve_covar_mat, logvol_prefactor, rand_choice,
+                           unitcheck)
 from .ops.hopper_kernels import pairwise_min_dist
+from .utils.misc import get_random_generator, get_seed_sequence
 
-__all__ = ["Bound", "UnitCube", "Ellipsoid", "RadFriends", "SupFriends",
-           "bounding_ellipsoid", "get_bound", "FRIENDS_DEVICE_MIN_POINTS"]
+__all__ = ["Bound", "UnitCube", "Ellipsoid", "MultiEllipsoid", "RadFriends",
+           "SupFriends", "bounding_ellipsoid", "bounding_ellipsoids",
+           "get_bound", "FRIENDS_DEVICE_MIN_POINTS"]
 
 # live sets at least this large take the device NN-distance path
 FRIENDS_DEVICE_MIN_POINTS = 2048
 
 _SQRTM_EPS = 1e-300
+
+
+def _logsumexp(x):
+    x = np.asarray(x, dtype=np.float64)
+    m = x.max()
+    if not np.isfinite(m):
+        return m
+    return m + np.log(np.exp(x - m).sum())
 
 
 def _sym_eigh_funcs(mat):
@@ -41,12 +59,6 @@ def _slogdet_checked(mat):
         raise np.linalg.LinAlgError(
             "The matrix is not positive definite; cannot take log-det.")
     return logdet
-
-
-def _no_bootstrap(bootstrap):
-    if bootstrap:
-        raise NotImplementedError("bootstrap expansion of bounds is not "
-                                  "yet ported; use bootstrap=0")
 
 
 class Bound:
@@ -139,20 +151,36 @@ class Ellipsoid(Bound):
             self.axes = self.axes * fax
         self.logvol = logvol
 
+    def major_axis_endpoints(self):
+        i = np.argmax(self.axlens)
+        v = self.axes[:, i]
+        return self.ctr - v, self.ctr + v
+
     def distance(self, x):
         d = x - self.ctr
         return np.sqrt(d @ self.am @ d)
+
+    def distance_many(self, x):
+        d = x - self.ctr[None, :]
+        return np.sqrt(np.einsum("ij,jk,ik->i", d, self.am, d))
 
     def contains(self, x):
         return self.distance(x) <= 1.0
 
     def update(self, points, rstate=None, bootstrap=0):
-        """Refit to bound ``points``."""
-        _no_bootstrap(bootstrap)
+        """Refit to bound ``points``, expanded by the worst bootstrap
+        leave-out distance when ``bootstrap > 0``."""
         ell = bounding_ellipsoid(points)
         for attr in ("ndim", "ctr", "cov", "am", "logvol", "axlens", "axes"):
             setattr(self, attr, getattr(ell, attr))
         self.last_expand = 1.0
+        if bootstrap > 0:
+            expand = max(_ellipsoid_bootstrap_expand(False, points, s)
+                         for s in get_seed_sequence(rstate, bootstrap))
+            if expand > 1.0:
+                self.last_expand = expand
+                self.scale_to_logvol(self.logvol +
+                                     self.ndim * np.log(expand))
 
     def device_spec(self):
         return ("ellipsoids", {
@@ -160,6 +188,103 @@ class Ellipsoid(Bound):
             "axes": self.axes[None, :, :],
             "ams": self.am[None, :, :],
             "logvols": np.array([self.logvol]),
+        })
+
+
+class MultiEllipsoid(Bound):
+    """A union of ellipsoids stored both as objects and as stacked arrays
+    (``ctrs (M,d)``, ``covs``/``ams (M,d,d)``) for batched membership."""
+
+    def __init__(self, ndim, ells=None, ctrs=None, covs=None):
+        super().__init__(ndim)
+        if ells is None and ctrs is None:
+            ells = [Ellipsoid(ndim)]
+        if ells is not None:
+            if ctrs is not None or covs is not None:
+                raise ValueError("Give either `ells` or (`ctrs`, `covs`), "
+                                 "not both.")
+            self.ells = list(ells)
+        else:
+            if covs is None:
+                raise ValueError("Need `covs` along with `ctrs`.")
+            self.ells = [Ellipsoid(ndim, ctr=c, cov=v)
+                         for c, v in zip(ctrs, covs)]
+        self.nells = len(self.ells)
+        self._sync_arrays()
+        self.logvol = _logsumexp(self.logvol_ells)
+
+    def _sync_arrays(self):
+        self.ctrs = np.array([e.ctr for e in self.ells])
+        self.covs = np.array([e.cov for e in self.ells])
+        self.ams = np.array([e.am for e in self.ells])
+        self.logvol_ells = np.array([e.logvol for e in self.ells])
+
+    def scale_to_logvol(self, logvol):
+        """Scale each ellipsoid to per-ellipsoid targets (iterable) or
+        shift the whole union to a new total volume (scalar)."""
+        if np.iterable(logvol):
+            targets = np.asarray(logvol)
+        else:
+            targets = self.logvol_ells + (logvol - self.logvol)
+        for ell, t in zip(self.ells, targets):
+            ell.scale_to_logvol(t)
+        self._sync_arrays()
+        self.logvol = _logsumexp(self.logvol_ells)
+
+    def _sq_distances(self, x):
+        d = x[None, :] - self.ctrs
+        return np.einsum("ai,aij,aj->a", d, self.ams, d)
+
+    def contains(self, x):
+        return bool(np.any(self._sq_distances(x) < 1))
+
+    def contains_many(self, xs):
+        """Vectorized membership for (n, ndim) points."""
+        d = xs[:, None, :] - self.ctrs[None, :, :]
+        sq = np.einsum("nai,aij,naj->na", d, self.ams, d)
+        return np.any(sq < 1, axis=1)
+
+    def update(self, points, rstate=None, bootstrap=0):
+        """Refit by BIC-guided splitting (the batched breadth-first
+        splitter: the main fit and every bootstrap realization as one
+        forest), with the all-points-contained invariant and optional
+        bootstrap expansion."""
+        npoints, ndim = points.shape
+        if npoints == 1:
+            raise RuntimeError("Cannot bound a single point.")
+        seeds = get_seed_sequence(rstate, bootstrap) if bootstrap > 0 \
+            else ()
+        ells, expands = _fit_multi_batched(points, seeds)
+        self.nells = len(ells)
+        self.ells = ells
+        self._sync_arrays()
+        if not self.contains_many(points).all():
+            raise RuntimeError("Rejecting invalid MultiEllipsoid region")
+        self.logvol = _logsumexp(self.logvol_ells)
+        self.last_expand = 1.0
+        if bootstrap > 0:
+            expand = max(expands)
+            self.last_expand = max(expand, 1.0)
+            if np.log10(expand) * ndim > 2:
+                warnings.warn(
+                    "Very large bootstrap enlargement of the ellipsoid "
+                    "bounds; the posterior is probably hard to bound. "
+                    "Consider more live points, rslice sampling, or "
+                    "bootstrap=0.")
+            if expand > 1.0:
+                self.scale_to_logvol(self.logvol_ells +
+                                     ndim * np.log(expand))
+
+    def get_random_axes(self, rstate):
+        probs = np.exp(self.logvol_ells - self.logvol)
+        return self.ells[rand_choice(probs, rstate)].axes
+
+    def device_spec(self):
+        return ("ellipsoids", {
+            "ctrs": self.ctrs,
+            "axes": np.array([e.axes for e in self.ells]),
+            "ams": self.ams,
+            "logvols": self.logvol_ells,
         })
 
 
@@ -213,12 +338,17 @@ class _FriendsBase(Bound):
 
     def update(self, points, rstate=None, bootstrap=0):
         """Refit the kernel covariance (from re-centred single-linkage
-        clusters) and the common radius (leave-one-out NN distances)."""
-        _no_bootstrap(bootstrap)
+        clusters) and the common radius (leave-one-out NN distances, or
+        the worst of ``bootstrap`` bootstrap NN distances, on the
+        host)."""
         self._set_cov(np.atleast_2d(self._covariance_from_clusters(points)))
         points_t = points @ self.axes_inv
-        radii = _friends_leaveoneout_radius(points_t, self.ftype,
-                                            self.device)
+        if bootstrap == 0:
+            radii = _friends_leaveoneout_radius(points_t, self.ftype,
+                                                self.device)
+        else:
+            radii = [_friends_bootstrap_radius(points_t, self.ftype, s)
+                     for s in get_seed_sequence(rstate, bootstrap)]
         rmax = max(np.max(radii), 1e-10)
         self.cov *= rmax ** 2
         self.am /= rmax ** 2
@@ -293,6 +423,328 @@ def bounding_ellipsoid(points):
                      eig=(evals, evecs))
 
 
+def _kmeans2(points, start_ctrs, niter=10):
+    """Plain Lloyd's k-means (k=2) from given start centres; empty
+    clusters keep their previous centroid.  The halfspace form of
+    :func:`_batched_kmeans2`, so both give bit-identical labels."""
+    ctrs = np.array(start_ctrs, dtype=np.float64)
+    k, ndim = ctrs.shape
+    if k != 2:
+        raise ValueError(f"_kmeans2 takes 2 start centres, got {k}")
+    labels = None
+    for _ in range(niter):
+        dc = ctrs[0] - ctrs[1]
+        thresh = 0.5 * ((ctrs[0] ** 2).sum() - (ctrs[1] ** 2).sum())
+        new_labels = (points @ dc < thresh).astype(np.int64)
+        if labels is not None and np.array_equal(new_labels, labels):
+            break
+        labels = new_labels
+        counts = np.bincount(labels, minlength=k).astype(np.float64)
+        sums = np.empty((k, ndim))
+        for d in range(ndim):
+            sums[:, d] = np.bincount(labels, weights=points[:, d],
+                                     minlength=k)
+        nonempty = counts > 0
+        ctrs[nonempty] = sums[nonempty] / counts[nonempty, None]
+    return ctrs, labels
+
+
+def _bounding_ellipsoids(points, ell, scale=None):
+    """Recursively split ``ell`` while the k=2 split (seeded at the
+    major-axis endpoints) decreases the total volume by at least the
+    BIC-motivated decrement ndim(ndim+3)/2 * ln(N)/N."""
+    npoints, ndim = points.shape
+    min_size = 2 * ndim
+    if npoints < min_size * 2:
+        return [ell]
+    p1, p2 = ell.major_axis_endpoints()
+    start_ctrs = np.vstack((p1, p2))
+    if scale is None:
+        scale = points.std(axis=0)[None, :]
+        scale = np.where(scale > 0, scale, 1.0)
+    _, labels = _kmeans2(points / scale, start_ctrs / scale, niter=10)
+    points_k = [points[labels == k] for k in (0, 1)]
+    if min(len(points_k[0]), len(points_k[1])) < min_size:
+        return [ell]
+    try:
+        ells = [bounding_ellipsoid(pk) for pk in points_k]
+    except (np.linalg.LinAlgError, RuntimeError):
+        return [ell]
+    nparam = (ndim * (ndim + 3)) // 2
+    log_vol_dec = nparam * np.log(npoints) / npoints
+    out_ells = (_bounding_ellipsoids(points_k[0], ells[0], scale=scale) +
+                _bounding_ellipsoids(points_k[1], ells[1], scale=scale))
+    if (np.logaddexp(ells[0].logvol, ells[1].logvol) -
+            ell.logvol) < -log_vol_dec:
+        return out_ells
+    if (_logsumexp([e.logvol for e in out_ells]) - ell.logvol) < \
+            -log_vol_dec * (len(out_ells) - 1):
+        return out_ells
+    return [ell]
+
+
+def bounding_ellipsoids(points):
+    """A MultiEllipsoid fitted to ``points`` by the recursive splitter."""
+    ell = bounding_ellipsoid(points)
+    return MultiEllipsoid(points.shape[1],
+                          ells=_bounding_ellipsoids(points, ell))
+
+
+def _bootstrap_points(points, rseed):
+    """Bootstrap-resample points into (selected, left-out) subsets,
+    padding degenerate draws so both are non-empty."""
+    rstate = get_random_generator(rseed)
+    npoints = points.shape[0]
+    idxs = rstate.integers(npoints, size=npoints)
+    sel = np.zeros(npoints, dtype=bool)
+    sel[np.unique(idxs)] = True
+    if sel.sum() < 2:
+        sel[:2] = True
+    if sel.sum() > npoints - 1:
+        sel[0] = False
+    return points[sel], points[~sel]
+
+
+def _ellipsoid_bootstrap_expand(multi, points, rseed):
+    """Expansion factor from one bootstrap realization: fit on the
+    sampled subset (one ellipsoid, or the recursive split when
+    ``multi``), then the worst normalized distance of the left-out
+    points, at least 1."""
+    points_in, points_out = _bootstrap_points(points, rseed)
+    ell = bounding_ellipsoid(points_in)
+    if not multi:
+        dists = ell.distance_many(points_out)
+    else:
+        ells = _bounding_ellipsoids(points_in, ell)
+        dists = np.min([e.distance_many(points_out) for e in ells], axis=0)
+    return max(1.0, float(np.max(dists)))
+
+
+# --------------------------------------------------------------------------
+# batched (breadth-first) recursive splitter: the algorithm of
+# `_bounding_ellipsoids` (identical k-means seeding and accept tests) with
+# every fit and k-means of a tree level batched into vectorized numpy calls
+
+
+def _batched_fit(points_list):
+    """Batched ``bounding_ellipsoid`` over a list of point arrays.
+
+    Returns per-set dicts (ctr, cov, am, axes, evals, evecs, logvol), None
+    where the fit failed.  The fast path is the scalar routine's
+    no-repair branch; sets that need covariance repair take the scalar
+    routine."""
+    one_minus = 1.0 - 1e-3
+    B = len(points_list)
+    d = points_list[0].shape[1]
+    nmax = max(len(p) for p in points_list)
+    P = np.zeros((B, nmax, d))
+    M = np.zeros((B, nmax), dtype=bool)
+    for b, p in enumerate(points_list):
+        P[b, :len(p)] = p
+        M[b, :len(p)] = True
+    n = M.sum(axis=1).astype(np.float64)
+    ctr = P.sum(axis=1) / n[:, None]
+    delta = (P - ctr[:, None, :]) * M[:, :, None]
+    cov = (delta.transpose(0, 2, 1) @ delta) / n[:, None, None]
+    out = [None] * B
+    evals = None
+    try:
+        evals, evecs = np.linalg.eigh(cov)
+    except np.linalg.LinAlgError:
+        pass
+    fast = np.zeros(B, dtype=bool)
+    if evals is not None:
+        finite = np.isfinite(evals).all(axis=1)
+        vmax = np.where(finite, evals[:, -1], 1.0)
+        vmin = np.where(finite, evals[:, 0], 0.0)
+        fast = finite & (vmax > 0) & (vmin >= vmax / 1e12)
+    idx_fast = np.nonzero(fast)[0]
+    if len(idx_fast):
+        ev = evals[idx_fast]
+        eV = evecs[idx_fast]
+        am = np.einsum("bij,bj,bkj->bik", eV, 1.0 / ev, eV)
+        dlt = delta[idx_fast]
+        f = ((dlt @ am) * dlt).sum(axis=2)
+        fmax = f.max(axis=1)
+        mult = np.where(fmax > one_minus, fmax / one_minus, 1.0)
+        cov_s = cov[idx_fast] * mult[:, None, None]
+        am = am / mult[:, None, None]
+        ev = ev * mult[:, None]
+        axes = eV * np.sqrt(ev)[:, None, :]
+        lv = logvol_prefactor(d) + 0.5 * np.log(ev).sum(axis=1)
+        for k, b in enumerate(idx_fast):
+            out[b] = dict(ctr=ctr[b], cov=cov_s[k], am=am[k],
+                          axes=axes[k], evals=ev[k], evecs=eV[k],
+                          logvol=float(lv[k]))
+    for b in np.nonzero(~fast)[0]:
+        try:
+            e = bounding_ellipsoid(points_list[b])
+        except (np.linalg.LinAlgError, RuntimeError, ValueError):
+            continue
+        out[b] = dict(ctr=e.ctr, cov=e.cov, am=e.am, axes=e.axes,
+                      evals=e.axlens ** 2,
+                      evecs=e.axes / e.axlens[None, :],
+                      logvol=float(e.logvol))
+    return out
+
+
+def _batched_kmeans2(P, M, ctrs0, niter=10):
+    """Batched Lloyd's k-means, k=2, over padded point sets (P (B,n,d),
+    mask M (B,n), start centres ctrs0 (B,2,d)).  Converged sets are
+    stationary under further iterations, so batching keeps the scalar
+    routine's early-exit labels."""
+    ctrs = np.array(ctrs0, dtype=np.float64)
+    labels = None
+    # a point belongs to cluster 1 iff P.(c0-c1) < (|c0|^2-|c1|^2)/2
+    for _ in range(niter):
+        dc = ctrs[:, 0, :] - ctrs[:, 1, :]
+        thresh = 0.5 * ((ctrs[:, 0, :] ** 2).sum(axis=1) -
+                        (ctrs[:, 1, :] ** 2).sum(axis=1))
+        proj = np.einsum("bnd,bd->bn", P, dc)
+        new_labels = (proj < thresh[:, None]).astype(np.int64)
+        if labels is not None and np.array_equal(new_labels, labels):
+            break
+        labels = new_labels
+        w1 = (labels & M).astype(np.float64)
+        w0 = (~labels.astype(bool) & M).astype(np.float64)
+        c0 = w0.sum(axis=1)
+        c1 = w1.sum(axis=1)
+        s0 = np.einsum("bn,bnd->bd", w0, P)
+        s1 = np.einsum("bn,bnd->bd", w1, P)
+        ne0 = c0 > 0
+        ne1 = c1 > 0
+        ctrs[ne0, 0] = s0[ne0] / c0[ne0, None]
+        ctrs[ne1, 1] = s1[ne1] / c1[ne1, None]
+    return labels
+
+
+class _SplitNode:
+    __slots__ = ("pts", "ell", "scale", "children", "out")
+
+    def __init__(self, pts, ell, scale):
+        self.pts = pts
+        self.ell = ell
+        self.scale = scale
+        self.children = None
+        self.out = None
+
+
+def _split_forest(points_list, root_fits):
+    """Breadth-first batched `_bounding_ellipsoids` over a forest, one
+    tree per (points, fitted root) pair.  Returns one list of ellipsoid
+    dicts per root: the accepted decomposition."""
+    d = points_list[0].shape[1]
+    min_size = 2 * d
+    nodes = []
+    level = []
+    for pts, fit in zip(points_list, root_fits):
+        scale = pts.std(axis=0)[None, :]
+        scale = np.where(scale > 0, scale, 1.0)
+        node = _SplitNode(pts, fit, scale)
+        nodes.append(node)
+        level.append(node)
+    while level:
+        cand = [nd for nd in level if len(nd.pts) >= 2 * min_size]
+        next_level = []
+        if not cand:
+            break
+        nmax = max(len(nd.pts) for nd in cand)
+        B = len(cand)
+        P = np.zeros((B, nmax, d))
+        M = np.zeros((B, nmax), dtype=bool)
+        C0 = np.zeros((B, 2, d))
+        for b, nd in enumerate(cand):
+            P[b, :len(nd.pts)] = nd.pts / nd.scale
+            M[b, :len(nd.pts)] = True
+            i = int(np.argmax(nd.ell["evals"]))
+            v = nd.ell["axes"][:, i]
+            C0[b, 0] = (nd.ell["ctr"] - v) / nd.scale[0]
+            C0[b, 1] = (nd.ell["ctr"] + v) / nd.scale[0]
+        labels = _batched_kmeans2(P, M, C0)
+        child_pts = []
+        child_owner = []
+        for b, nd in enumerate(cand):
+            lab = labels[b, :len(nd.pts)]
+            p0 = nd.pts[lab == 0]
+            p1 = nd.pts[lab == 1]
+            if min(len(p0), len(p1)) < min_size:
+                continue
+            child_pts.extend([p0, p1])
+            child_owner.append(nd)
+        if not child_pts:
+            break
+        fits = _batched_fit(child_pts)
+        for j, nd in enumerate(child_owner):
+            f0, f1 = fits[2 * j], fits[2 * j + 1]
+            if f0 is None or f1 is None:
+                continue  # a failed fit rejects the split
+            c0 = _SplitNode(child_pts[2 * j], f0, nd.scale)
+            c1 = _SplitNode(child_pts[2 * j + 1], f1, nd.scale)
+            nd.children = (c0, c1)
+            nodes.extend([c0, c1])
+            next_level.extend([c0, c1])
+        level = next_level
+    # bottom-up accept: children come after their parents in `nodes`
+    nparam = (d * (d + 3)) // 2
+    for nd in reversed(nodes):
+        if nd.children is None:
+            nd.out = [nd.ell]
+            continue
+        c0, c1 = nd.children
+        npoints = len(nd.pts)
+        log_vol_dec = nparam * np.log(npoints) / npoints
+        out_ells = c0.out + c1.out
+        if (np.logaddexp(c0.ell["logvol"], c1.ell["logvol"]) -
+                nd.ell["logvol"]) < -log_vol_dec:
+            nd.out = out_ells
+        elif (_logsumexp([e["logvol"] for e in out_ells]) -
+                nd.ell["logvol"]) < -log_vol_dec * (len(out_ells) - 1):
+            nd.out = out_ells
+        else:
+            nd.out = [nd.ell]
+    return [nodes[k].out for k in range(len(points_list))]
+
+
+def _fit_multi_batched(points, seeds=()):
+    """The main multi-ellipsoid decomposition plus one bootstrap
+    expansion factor per seed, as ONE batched breadth-first forest.
+    Returns ``(ells, expands)``: a list of :class:`Ellipsoid` and the
+    per-realization factors (empty without seeds)."""
+    d = points.shape[1]
+    pts_list = [points]
+    outs = [None]
+    for s in seeds:
+        pin, pout = _bootstrap_points(points, s)
+        pts_list.append(pin)
+        outs.append(pout)
+    root_fits = _batched_fit(pts_list)
+    if root_fits[0] is None:
+        # raise as the scalar routine does on an unfittable root
+        bounding_ellipsoid(points)
+        raise RuntimeError("Could not fit the root bounding ellipsoid.")
+    keep = [k for k in range(len(pts_list)) if root_fits[k] is not None]
+    forest = _split_forest([pts_list[k] for k in keep],
+                           [root_fits[k] for k in keep])
+    by_root = dict(zip(keep, forest))
+    ells = [Ellipsoid(d, ctr=e["ctr"], cov=e["cov"], am=e["am"],
+                      axes=e["axes"], eig=(e["evals"], e["evecs"]))
+            for e in by_root[0]]
+    expands = []
+    for k in range(1, len(pts_list)):
+        if k not in by_root:
+            # an unfittable realization carries no information
+            expands.append(1.0)
+            continue
+        pout = outs[k]
+        dmin = None
+        for e in by_root[k]:
+            dd = pout - e["ctr"][None, :]
+            dist = np.sqrt(np.einsum("ij,jk,ik->i", dd, e["am"], dd))
+            dmin = dist if dmin is None else np.minimum(dmin, dist)
+        expands.append(max(1.0, float(np.max(dmin))))
+    return ells, expands
+
+
 def _pairwise_dist(a, b, ftype):
     """Brute-force pairwise distances (n_a, n_b); p=2 for balls, p=inf
     for cubes."""
@@ -302,6 +754,14 @@ def _pairwise_dist(a, b, ftype):
     if ftype == "cubes":
         return np.abs(delta).max(axis=2)
     raise ValueError(f"Unknown friends type {ftype}")
+
+
+def _friends_bootstrap_radius(points, ftype, rseed):
+    """Kernel radius from one bootstrap: the largest distance from a
+    left-out point to its nearest selected point (host, float64)."""
+    points_in, points_out = _bootstrap_points(points, rseed)
+    return float(_pairwise_dist(points_out, points_in, ftype)
+                 .min(axis=1).max())
 
 
 def _friends_leaveoneout_radius(points, ftype, device):
@@ -345,9 +805,12 @@ def _connected_components(adjacency):
 
 
 def get_bound(bound, ndim, device=None):
-    """Resolve a bound name to an instance ('multi' is not yet
-    ported)."""
+    """Resolve a bound name (or a Bound instance) to an instance;
+    ``device`` is where friends bounds take their NN distances."""
     if isinstance(bound, Bound):
+        if bound.device_spec() is None:
+            raise NotImplementedError("custom bounds (a Bound without a "
+                                      "device_spec) are not yet ported")
         return bound
     if bound == "none":
         return UnitCube(ndim)
@@ -358,5 +821,5 @@ def get_bound(bound, ndim, device=None):
     if bound == "cubes":
         return SupFriends(ndim, device=device)
     if bound == "multi":
-        raise NotImplementedError("bound='multi' is not yet ported")
+        return MultiEllipsoid(ndim)
     raise ValueError(f"Unknown bound option '{bound}'")

@@ -6,8 +6,15 @@ caller asks for the CPU, and raises where CUDA is absent rather than fall
 back.
 ``likelihood_mode`` is ``'torch'`` (per-point torch functions batched
 with ``torch.func.vmap``) or ``'vectorized'``.  ``queue_size`` is the
-proposal batch width.  The dynamic sampler, pools and host-mode
-likelihoods are not yet ported.
+proposal batch width.
+
+Ported: bounds ``none``, ``single``, ``multi`` (the default), ``balls``
+and ``cubes``, with bootstrap expansion; samplers ``unif`` and
+``rslice``, and ``auto`` where it resolves to one of them (``unif`` for
+ndim < 10, ``rslice`` above 20).  So the defaults run: for ndim < 10,
+``bound='multi', sample='unif'`` with ``bootstrap=5``.  ``rwalk``,
+``slice``, custom bounds, blobs, pools, host-mode likelihoods and the
+dynamic sampler are not yet ported and raise ``NotImplementedError``.
 """
 
 import torch
@@ -77,7 +84,9 @@ class NestedSampler(Sampler):
                  enlarge=None, bootstrap=None, slices=None, ncdim=None,
                  blob=False, likelihood_mode="torch",
                  rounds_per_dispatch=None, proposal_mode="batch",
-                 dtype=torch.float64):
+                 dtype=torch.float64, pool=None):
+        if pool is not None:
+            raise NotImplementedError("pools are not yet ported")
         device = _resolve_device(device)
         ncdim = ncdim or ndim
         if ncdim != ndim:
@@ -108,6 +117,7 @@ class NestedSampler(Sampler):
             first_bound_update=first_update, bound_bootstrap=bootstrap,
             bound_enlarge=enlarge, logvol_init=logvol_init,
             rounds_per_dispatch=rounds_per_dispatch or 8,
+            rounds_explicit=rounds_per_dispatch is not None,
             proposal_mode=proposal_mode, dtype=dtype)
         self.ncall = init_ncalls
 

@@ -4,8 +4,10 @@
 One round draws ``q`` independent constrained proposals at a fixed
 likelihood threshold ``loglstar``:
 
-* ``make_unif_round(bound_kind='cube')`` — rejection waves from the whole
-  unit cube, successes compacted into output slots;
+* ``make_unif_round`` — rejection waves drawn uniformly from the unit
+  cube, a union of ellipsoids (``make_ellipsoid_refit`` re-fits the stack
+  to the live points before each chained round) or a union of
+  balls/cubes, successes compacted into output slots;
 * ``make_slice_round(kind='rslice')`` — the per-lane slice-sampling state
   machine along random axes-transformed directions.
 
@@ -21,10 +23,10 @@ import math
 import numpy as np
 import torch
 
-from ..ops.geometry import unitcheck_batch
+from ..ops.geometry import randsphere_batch, unitcheck_batch
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
-           "make_slice_round", "pad_ellipsoids"]
+           "make_ellipsoid_refit", "make_slice_round", "pad_ellipsoids"]
 
 _NEG_INF = -math.inf
 
@@ -98,24 +100,182 @@ def pad_ellipsoids(ctrs, axes, ams, logvols, min_pad=1):
 
 
 # ==========================================================================
-# uniform-in-cube kernel
+# bound sampling (device side)
+
+
+def _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype):
+    """Draw ``q`` candidates from a union of ellipsoids: volume-weighted
+    ellipsoid choice, a ball sample mapped through its axes, 1/q overlap
+    rejection (with the q==0 round-off rescue).  Random numbers come from
+    ``gen`` in a fixed order: choice, ball, acceptance.  Returns (points
+    (q, ncdim), valid (q,))."""
+    ctrs = arrays["ctrs"].to(dtype)
+    axes = arrays["axes"].to(dtype)
+    ams = arrays["ams"].to(dtype)
+    mask = arrays["mask"]
+    device = ctrs.device
+    # masked slots get weight exp(-inf) = 0
+    logp = torch.where(mask, arrays["logvols"].to(dtype), _NEG_INF)
+    idx = torch.multinomial(torch.exp(logp - logp.max()), q,
+                            replacement=True, generator=gen)
+    ball = randsphere_batch(gen, (q,), ncdim, dtype, device)
+    x = ctrs[idx] + torch.einsum("qij,qj->qi", axes[idx], ball)
+
+    # membership count over all (masked) ellipsoids
+    d = x[:, None, :] - ctrs[None, :, :]
+    sq = torch.einsum("qmi,mij,qmj->qm", d, ams, d)
+    sq = torch.where(mask[None, :], sq, math.inf)
+    nin = (sq < 1.0).sum(dim=1)
+    nin_loose = (sq <= 1.0 + 1e-3).sum(dim=1)
+    nin = torch.where(nin > 0, nin, nin_loose)  # round-off rescue
+    accept = torch.rand((q,), generator=gen, dtype=dtype, device=device) < \
+        1.0 / nin.clamp_min(1).to(dtype)
+    return x, accept & (nin > 0)
+
+
+def _sample_friends_union(gen, arrays, q, ncdim, dtype, ftype):
+    """Draw ``q`` candidates from a union of identical balls/cubes centred
+    at ``arrays['ctrs']`` (the live points of the last refit), with 1/q
+    overlap rejection.  Random numbers from ``gen`` in a fixed order:
+    centre, offset, acceptance."""
+    ctrs = arrays["ctrs"].to(dtype)
+    axes = arrays["axes"].to(dtype)
+    axes_inv = arrays["axes_inv"].to(dtype)
+    device = ctrs.device
+    idx = torch.randint(0, ctrs.shape[0], (q,), generator=gen,
+                        device=device)
+    if ftype == "balls":
+        offset = randsphere_batch(gen, (q,), ncdim, dtype, device)
+    else:
+        offset = torch.rand((q, ncdim), generator=gen, dtype=dtype,
+                            device=device) * 2.0 - 1.0
+    x = ctrs[idx] + offset @ axes  # axes is symmetric (sqrtm)
+
+    dt = torch.einsum("qmi,ij->qmj", ctrs[None, :, :] - x[:, None, :],
+                      axes_inv)
+    if ftype == "balls":
+        dist = torch.linalg.vector_norm(dt, dim=-1)
+    else:
+        dist = dt.abs().amax(dim=-1)
+    nin = (dist <= 1.0).sum(dim=1).clamp_min(1)  # the chosen centre holds x
+    accept = torch.rand((q,), generator=gen, dtype=dtype, device=device) < \
+        1.0 / nin.to(dtype)
+    return x, accept
+
+
+def make_ellipsoid_refit(ncdim, dtype=torch.float64):
+    """One-step refit of a padded ellipsoid stack from the current live
+    points, so that chained uniform rounds sample from a fresh bound (the
+    host's BIC resplit and bootstrap still run between dispatches).
+
+    Each live point joins its nearest ellipsoid (Mahalanobis under the
+    previous fit); each slot takes its members' mean and MLE covariance,
+    inflated so the worst member sits at distance ``1 - 1e-3``, then
+    scaled by ``arrays['expand']`` (the host's bootstrap x enlarge linear
+    factor).  A slot with fewer than ``ncdim + 1`` members, or whose
+    Cholesky factorization fails, keeps its previous fit.
+
+    Returns ``refit(u_live, arrays) -> arrays`` (the same padded
+    schema)."""
+    d = ncdim
+    eps_contain = 1e-3
+    # d-ball log-volume prefactor: device log-volumes on the host fit's
+    # scale (the two mix when a slot keeps its previous fit)
+    logvol_pref = (d / 2.0) * math.log(math.pi) - math.lgamma(d / 2.0 + 1.0)
+
+    def refit(u, arrays):
+        ctrs0 = arrays["ctrs"].to(dtype)
+        axes0 = arrays["axes"].to(dtype)
+        ams0 = arrays["ams"].to(dtype)
+        logvols0 = arrays["logvols"].to(dtype)
+        mask = arrays["mask"]
+        expand = arrays.get("expand")
+        expand = 1.0 if expand is None else expand.to(dtype)
+        m = ctrs0.shape[0]
+        u = u.to(dtype)
+
+        diff = u[:, None, :] - ctrs0[None, :, :]
+        d2 = torch.einsum("nmi,mij,nmj->nm", diff, ams0, diff)
+        d2 = torch.where(mask[None, :], d2, math.inf)
+        idx = torch.argmin(d2, dim=1)
+        onehot = torch.nn.functional.one_hot(idx, m).to(dtype)
+        counts = onehot.sum(dim=0)
+        safe = counts.clamp_min(1.0)
+        ctr = (onehot.T @ u) / safe[:, None]
+        cent = u[:, None, :] - ctr[None, :, :]
+        cov = torch.einsum("nm,nmi,nmj->mij", onehot, cent,
+                           cent) / safe[:, None, None]
+        # conditioning floor keeps degenerate clusters factorizable
+        tr = torch.diagonal(cov, dim1=1, dim2=2).sum(dim=1) / d
+        eye = torch.eye(d, dtype=dtype, device=u.device)
+        cov = cov + (1e-10 * tr.clamp_min(1e-30))[:, None, None] * eye
+        # cholesky_ex reports a failed factorization in `info` instead of
+        # raising (jnp.linalg.cholesky returns NaN there)
+        chol, info = torch.linalg.cholesky_ex(cov)
+        ok = (info == 0) & torch.isfinite(chol.reshape(m, -1)).all(dim=1) \
+            & (counts >= d + 1)
+        chol_safe = torch.where(ok[:, None, None], chol, eye[None])
+        linv = torch.linalg.solve_triangular(
+            chol_safe, eye.expand(m, d, d), upper=False)
+        am = torch.einsum("mki,mkj->mij", linv, linv)  # cov^-1
+
+        # inflate to contain every member, then the host's calibration
+        dd = u - ctr[idx]
+        d2o = torch.einsum("ni,nij,nj->n", dd, am[idx], dd)
+        fmax = torch.zeros((m,), dtype=dtype, device=u.device).scatter_reduce(
+            0, idx, d2o, reduce="amax", include_self=True)
+        f = torch.sqrt(fmax.clamp_min(1e-30) / (1.0 - eps_contain)) * expand
+        axes = chol_safe * f[:, None, None]
+        am = am / (f ** 2)[:, None, None]
+        logvol = torch.log(torch.diagonal(chol_safe, dim1=1, dim2=2)
+                           .abs()).sum(dim=1) + d * torch.log(f) + \
+            logvol_pref
+
+        keep = mask & ok
+        k1, k3 = keep[:, None], keep[:, None, None]
+        return {
+            "ctrs": torch.where(k1, ctr, ctrs0),
+            "axes": torch.where(k3, axes, axes0),
+            "ams": torch.where(k3, am, ams0),
+            "logvols": torch.where(keep, logvol, logvols0),
+            "mask": mask,
+        }
+
+    return refit
+
+
+# ==========================================================================
+# uniform-in-bound kernel
 
 
 def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
                     max_waves=100000, timings=None):
-    """Uniform rejection sampling from the unit cube.
+    """Uniform rejection sampling from the unit cube (``bound_kind``
+    'cube'), a union of ellipsoids ('ellipsoids') or a union of
+    balls/cubes ('balls'/'cubes').
 
-    Returns ``fn(gen, loglstar) -> packed (q, ndim + npdim + 5)`` with
-    columns ``u | v | logl | nc | nc_total | n_proposals | n_filled``:
-    per-slot ``nc`` splits the round's evaluations exactly (its sum is
-    ``nc_total``); unfilled slots carry logl = -inf."""
-    if bound_kind != "cube":
+    Returns ``fn(gen, loglstar, arrays) -> packed (q, ndim + npdim + 5)``
+    with columns ``u | v | logl | nc | nc_total | n_proposals |
+    n_filled``: per-slot ``nc`` splits the round's evaluations exactly
+    (its sum is ``nc_total``); unfilled slots carry logl = -inf.
+    ``arrays`` is the bound's device dict (ignored for the cube)."""
+    if bound_kind not in ("cube", "ellipsoids", "balls", "cubes"):
         raise NotImplementedError(
             f"uniform sampling from '{bound_kind}' bounds is not yet ported")
     device = torch.device(device)
     f32 = np.float32
 
-    def round_fn(gen, loglstar):
+    def draw_cluster(gen, arrays):
+        if bound_kind == "cube":
+            u = torch.rand((q, ndim), generator=gen, dtype=dtype,
+                           device=device)
+            return u, None
+        if bound_kind == "ellipsoids":
+            return _sample_ellipsoid_union(gen, arrays, q, ndim, dtype)
+        return _sample_friends_union(gen, arrays, q, ndim, dtype,
+                                     bound_kind)
+
+    def round_fn(gen, loglstar, arrays):
         # one dump row (index q) takes the writes JAX drops with
         # mode="drop"; it is sliced off at the end
         bu, bv, bl = _zeros_like_batch(like, q + 1, ndim, dtype, device)
@@ -123,8 +283,7 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
         lanes = torch.arange(q, device=device)
         n_filled = waves = nc = n_prop = pending = 0
         while n_filled < q and waves < max_waves:
-            u_prop = torch.rand((q, ndim), generator=gen, dtype=dtype,
-                                device=device)
+            u_prop, drawn = draw_cluster(gen, arrays)
             # adaptive wave width (float32 arithmetic, as in the JAX
             # kernel): after the first wave only ~1.25 need/eff + 4 lanes
             # count as launched proposals
@@ -137,6 +296,8 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
             else:
                 width = q
             valid = (lanes < width) & unitcheck_batch(u_prop)
+            if drawn is not None:
+                valid = valid & drawn
             v_prop, logl_prop = _masked_eval(like, u_prop, valid)
             success = valid & (logl_prop > loglstar)
             n_succ, nc_wave = torch.stack(
@@ -164,6 +325,7 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
         # a failed fill (max_waves hit) leaves unflushed evaluations:
         # charge them to slot 0 so sum(per-slot nc) == total nc
         bnc[0] += pending
+        # partial fill: unfilled slots read as rejected proposals
         bl = torch.where(lanes < n_filled, bl[:q], _NEG_INF)
         return pack_columns(q, dtype, bu[:q], bv[:q], bl, bnc, nc, n_prop,
                             n_filled, device=device)

@@ -2,18 +2,21 @@
 
 Each class owns the tuning state (proposal ``scale``) and a cache of
 built fused round functions from :mod:`.fused`.  Counterpart of
-``dynesty_tpu.internal.samplers``; only the unit-cube phase and rslice
-are ported so far.  ``launch_fused`` runs the dispatch synchronously.
+``dynesty_tpu.internal.samplers``; the unit-cube phase, uniform sampling
+from the bound ('unif') and rslice are ported so far.  ``launch_fused``
+runs the dispatch synchronously.
 """
+
+import warnings
 
 import numpy as np
 import torch
 
 from .fused import make_fused_round, select_starts, unpack_flat
-from .kernels import make_slice_round, make_unif_round
+from .kernels import make_ellipsoid_refit, make_slice_round, make_unif_round
 
-__all__ = ["InternalSampler", "UnitCubeSampler", "RSliceSampler",
-           "get_internal_sampler"]
+__all__ = ["InternalSampler", "UnitCubeSampler", "UniformBoundSampler",
+           "RSliceSampler", "get_internal_sampler"]
 
 
 class InternalSampler:
@@ -24,6 +27,8 @@ class InternalSampler:
     max_rounds_per_dispatch = None
     # skip chained rounds past an in-flight stop (rejection kernels)
     gate_rounds_on_done = False
+    # stop the chain once the host's ncall-cadence refit is due (ctrl[21])
+    chain_stop_on_refit_due = False
     name = "?"
 
     def __init__(self, **kwargs):
@@ -43,11 +48,27 @@ class InternalSampler:
     def _fused_cfg_key(self):
         return ()
 
+    def _max_rounds(self, ns, bound_kind):
+        """Per-configuration cap on chained rounds (None = no cap)."""
+        return self.max_rounds_per_dispatch
+
+    def _refit_due_ncall(self, ns):
+        """ctrl[21]: the absolute ncall at which the next host refit is
+        due, or 2^30 (gate disarmed).  Armed only where the kernel opted
+        in, after the unit-cube phase, and while the bound holds more than
+        one ellipsoid.  A pure function of the sampler state at launch."""
+        if (not self.chain_stop_on_refit_due or ns.unit_cube_sampling
+                or getattr(ns.bound, "nells", 1) <= 1):
+            return 2.0 ** 30
+        return float(min(ns.ncall_at_last_update +
+                         ns.bound_update_interval, 2.0 ** 30))
+
     def get_fused(self, ns, bound_kind):
         """(fused_fn, layout) for the current configuration, cached."""
         rounds = ns.rounds_per_dispatch
-        if self.max_rounds_per_dispatch is not None:
-            rounds = min(rounds, self.max_rounds_per_dispatch)
+        cap = self._max_rounds(ns, bound_kind)
+        if cap is not None:
+            rounds = min(rounds, cap)
         cfg = ("fused", bound_kind, ns.queue_size, ns.nlive, rounds,
                ns.proposal_mode, self._fused_cfg_key())
         entry = self._round_cache.get(cfg)
@@ -81,9 +102,8 @@ class InternalSampler:
              # launch, min_ncall, min_eff
              float(ns.ncall), float(ns.first_bound_update_ncall),
              float(ns.first_bound_update_eff),
-             # [21] refit-due ncall (disarmed: only the unported
-             # multi-ellipsoid unif kernel arms it)
-             2.0 ** 30]])
+             # [21] the ncall at which the next host refit is due
+             self._refit_due_ncall(ns)]])
         flat, proposals, live_out = fused_fn(gen, live, axes_args, ctrl)
         return {"flat": flat, "proposals": proposals, "live": live_out,
                 "layout": layout, "rounds_active": rounds_active}
@@ -117,9 +137,54 @@ class InternalSampler:
         if self.device_tune_fn() is not None:
             self.scale = float(out["scale_final"])
             self._post_fused_stats(out.get("stats"))
+        elif out.get("stats") is not None:
+            self.consume_tuning(out["stats"])
 
     def _post_fused_stats(self, stats):
         """Kernel-specific bookkeeping from the dispatch's stats."""
+
+    def consume_tuning(self, stats):
+        """Host bookkeeping from the dispatch's stats for kernels without
+        a device scale update."""
+
+    def row_stats(self, a, b):
+        """Per-record proposal_stats from the two lane-stat columns."""
+        return {"n_proposals": max(int(a), 1)}
+
+
+def _warn_unif_inefficiency(n_prop, q):
+    """Warn when a uniform fill took 10000 or more candidates per slot
+    (one wave is one candidate per lane)."""
+    if n_prop >= 10000 * q:
+        warnings.warn("Uniform bound sampling is extremely inefficient "
+                      f"({n_prop} candidates for {q} accepted points)",
+                      category=RuntimeWarning)
+
+
+def _unif_propose_fn(sampler, ns, bound_kind):
+    """The propose function of the uniform kernels.  Ellipsoid stacks are
+    re-fitted to the live points before every chained round."""
+    like = ns.loglikelihood
+    ndim, q = sampler.ndim, ns.queue_size
+    il = ndim + like.npdim
+    inner = make_unif_round(like, ndim=ndim, q=q, bound_kind=bound_kind,
+                            dtype=ns.dtype, device=ns.device,
+                            timings=ns.timings)
+    refit = make_ellipsoid_refit(ndim, dtype=ns.dtype) \
+        if bound_kind == "ellipsoids" else None
+
+    def propose(gen, live, axes_args, scale, loglstar):
+        if refit is not None:
+            axes_args = dict(axes_args, **refit(live[:, :ndim], axes_args))
+        packed = inner(gen, loglstar, axes_args)
+        qnc = packed[:, il + 1].to(torch.int64)
+        stats = (packed[0, il + 2], packed[0, il + 3], packed[0, il + 4])
+        lane_stats = torch.stack(
+            [qnc.to(packed.dtype), torch.zeros_like(packed[:, 0])], dim=1)
+        return (packed[:, :ndim], packed[:, ndim:il], packed[:, il], qnc,
+                stats, lane_stats)
+
+    return propose
 
 
 class UnitCubeSampler(InternalSampler):
@@ -130,25 +195,7 @@ class UnitCubeSampler(InternalSampler):
     max_rounds_per_dispatch = 8
 
     def _build_propose_fn(self, ns, bound_kind):
-        like = ns.loglikelihood
-        ndim, q = self.ndim, ns.queue_size
-        il = ndim + like.npdim
-        inner = make_unif_round(like, ndim=ndim, q=q, bound_kind="cube",
-                                dtype=ns.dtype, device=ns.device,
-                                timings=ns.timings)
-
-        def propose(gen, live, axes_args, scale, loglstar):
-            packed = inner(gen, loglstar)
-            qnc = packed[:, il + 1].to(torch.int64)
-            stats = (packed[0, il + 2], packed[0, il + 3],
-                     packed[0, il + 4])
-            lane_stats = torch.stack(
-                [qnc.to(packed.dtype), torch.zeros_like(packed[:, 0])],
-                dim=1)
-            return (packed[:, :ndim], packed[:, ndim:il], packed[:, il],
-                    qnc, stats, lane_stats)
-
-        return propose
+        return _unif_propose_fn(self, ns, "cube")
 
     def device_chain_stop_fn(self):
         """First-bound-update trigger: stop chaining once the efficiency
@@ -161,6 +208,46 @@ class UnitCubeSampler(InternalSampler):
                 ncall_now.clamp_min(1.0)
             return (eff < float(ctrl[20])) & (ncall_now >= float(ctrl[19]))
         return gate
+
+
+class UniformBoundSampler(InternalSampler):
+    """Uniform sampling within the current bounding distribution
+    ('unif').
+
+    Ellipsoid stacks chain up to ``unif_max_chain`` rounds per dispatch
+    (each re-fitted to the live points on the device first), or the
+    sampler's whole ``rounds_per_dispatch`` where the user set it;
+    friends bounds take fresh centres from the host every dispatch and
+    run one round.  The chain stops at the first round boundary where
+    the cumulative ncall reaches the host refit cadence (ctrl[21])."""
+
+    name = "unif"
+    gate_rounds_on_done = True
+    chain_stop_on_refit_due = True
+    unif_max_chain = 8
+
+    def _max_rounds(self, ns, bound_kind):
+        if bound_kind == "ellipsoids":
+            # an explicit rounds_per_dispatch (expensive likelihoods:
+            # dispatch amortization beats bound staleness) is honoured
+            return None if ns.rounds_explicit else self.unif_max_chain
+        return 1
+
+    def _build_propose_fn(self, ns, bound_kind):
+        return _unif_propose_fn(self, ns, bound_kind)
+
+    def device_chain_stop_fn(self):
+        """Host-refit-due trigger: stop the chain at the first round
+        boundary whose cumulative ncall reaches ctrl[21]."""
+        def gate(integ, counters, ctrl):
+            ncall_now = float(ctrl[18]) + counters["nc_used"].to(
+                integ["logz"].dtype)
+            return ncall_now >= float(ctrl[21])
+        return gate
+
+    def consume_tuning(self, stats):
+        # stats = (nc_total, n_proposals, n_filled) summed over rounds
+        _warn_unif_inefficiency(int(stats[1]), max(int(stats[2]), 1))
 
 
 class _SliceBase(InternalSampler):
@@ -231,8 +318,9 @@ class RSliceSampler(_SliceBase):
 
 
 def get_internal_sampler(sample, ndim, **kwargs):
-    """Resolve a sampler name ('auto' or 'rslice'; the other kernels are
-    not yet ported) to an instance, with the JAX package's auto rules."""
+    """Resolve a sampler name ('auto', 'unif' or 'rslice'; rwalk and slice
+    are not yet ported) to an instance, with the JAX package's auto
+    rules."""
     if isinstance(sample, InternalSampler):
         return sample
     if sample == "auto":
@@ -242,7 +330,9 @@ def get_internal_sampler(sample, ndim, **kwargs):
         if kwargs.get("slices") is None:
             kwargs["slices"] = 3 + ndim
         return RSliceSampler(**dict(kwargs, ndim=ndim))
-    if sample in ("unif", "rwalk", "slice"):
+    if sample == "unif":
+        return UniformBoundSampler(ndim=ndim)
+    if sample in ("rwalk", "slice"):
         raise NotImplementedError(f"sample='{sample}' is not yet ported")
     raise ValueError(f"Unknown sample option '{sample}'")
 

@@ -1,5 +1,5 @@
-"""Geometry primitives: unit-cube checks, sphere sampling, covariance
-conditioning.
+"""Geometry primitives: unit-cube checks, sphere sampling, weighted
+choice, covariance conditioning.
 
 Host (numpy) versions serve the bound fits; the ``_batch`` versions run
 on device tensors inside the proposal rounds.  Semantics follow
@@ -11,8 +11,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "unitcheck", "unitcheck_batch", "randsphere_batch", "logvol_prefactor",
-    "improve_covar_mat",
+    "unitcheck", "unitcheck_batch", "randsphere", "randsphere_batch",
+    "logvol_prefactor", "rand_choice", "improve_covar_mat",
 ]
 
 
@@ -44,6 +44,14 @@ def unitcheck_batch(u, nonbounded=None):
     return ((u > lo) & (u < hi)).all(dim=-1)
 
 
+def randsphere(n, rstate):
+    """Host: one point uniform in the n-ball (Gaussian direction times a
+    U^{1/n} radius)."""
+    z = rstate.standard_normal(size=n)
+    r = rstate.random() ** (1.0 / n)
+    return z * (r / np.linalg.norm(z))
+
+
 def randsphere_batch(gen, shape_prefix, n, dtype, device):
     """Device: points uniform in the n-ball, shape ``shape_prefix + (n,)``,
     drawn from the ``torch.Generator`` ``gen``."""
@@ -62,6 +70,12 @@ def logvol_prefactor(n, p=2.0):
     p = float(p)
     return (n * math.log(2.0) + n * math.lgamma(1.0 / p + 1.0) -
             math.lgamma(n / p + 1.0))
+
+
+def rand_choice(probs, rstate):
+    """Host: index drawn with probabilities ``probs`` (must sum to ~1)."""
+    cum = np.cumsum(probs)
+    return min(int(np.searchsorted(cum, rstate.random())), len(probs) - 1)
 
 
 def improve_covar_mat(covar0, ntries=100, max_condition_number=1e12):

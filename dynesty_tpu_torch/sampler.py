@@ -110,8 +110,8 @@ class Sampler:
                  *, device, ncdim=None, rstate=None, queue_size=None,
                  bound_update_interval=None, first_bound_update=None,
                  bound_bootstrap=0, bound_enlarge=1.0, logvol_init=0.0,
-                 rounds_per_dispatch=1, proposal_mode="batch",
-                 dtype=torch.float64):
+                 rounds_per_dispatch=1, rounds_explicit=False,
+                 proposal_mode="batch", dtype=torch.float64):
         f32_precision()
         self.device = torch.device(device)
         self.dtype = dtype
@@ -164,6 +164,8 @@ class Sampler:
         self.bound_next = get_bound(bounding, self.ncdim, device=self.device)
         self.timings = Timings()
         self.rounds_per_dispatch = max(int(rounds_per_dispatch), 1)
+        # the user chose the chain depth: the unif kernel's cap defers to it
+        self.rounds_explicit = bool(rounds_explicit)
         self._live_dev = None
         self._mirror_stale = False
         self._bound_upload = None
@@ -245,16 +247,28 @@ class Sampler:
         return spec[0]
 
     def device_bound_arrays(self):
-        """Device upload of the active bound's arrays, cached per refit."""
+        """Device upload of the active bound's arrays, cached per refit.
+        Ellipsoid stacks carry ``expand``, the host's latest bootstrap x
+        enlarge calibration as a linear factor, for the device refit;
+        friends centres are uploaded anew every dispatch."""
         kind = self.device_bound_kind()
         cached = self._bound_upload
         if cached is None or cached[0] != self.bound_version or \
                 cached[1] != kind:
-            arrays = {} if kind == "cube" else self.bound.device_spec()[1]
+            arrays = {} if kind == "cube" else \
+                dict(self.bound.device_spec()[1])
+            if kind == "ellipsoids":
+                arrays["expand"] = getattr(self.bound, "last_expand", 1.0) \
+                    * self.bound_enlarge ** (1.0 / self.ncdim)
             dev = bound_arrays_to_torch(kind, arrays, self.device,
                                         self.dtype)
             self._bound_upload = cached = (self.bound_version, kind, dev)
-        return cached[2]
+        dev = cached[2]
+        if kind in ("balls", "cubes"):
+            dev = dict(dev, ctrs=torch.as_tensor(
+                np.asarray(self.bound.ctrs), dtype=self.dtype,
+                device=self.device))
+        return dev
 
     def _live_packed(self):
         """Host live mirrors packed as u | v | logl | it | bound | birth."""

@@ -12,7 +12,7 @@ start from identical state.
 import numpy as np
 import torch
 
-from ..bounding import Ellipsoid, RadFriends, SupFriends
+from ..bounding import Ellipsoid, MultiEllipsoid, RadFriends, SupFriends
 from ..internal.kernels import pad_ellipsoids
 
 __all__ = ["live_to_torch", "bound_arrays_to_torch", "bound_from_arrays",
@@ -37,13 +37,17 @@ def live_to_torch(live_packed, device, dtype=torch.float64, ndim=None,
 
 def bound_arrays_to_torch(kind, arrays, device, dtype=torch.float64):
     """A bound's ``device_spec()`` arrays as the device dict the fused
-    rounds take (ellipsoid stacks are padded to a power of two with a
-    validity mask)."""
+    rounds take.  Ellipsoid stacks are padded to a power of two with a
+    validity mask; an optional scalar ``expand`` (the linear bootstrap x
+    enlarge factor of the device refit) is carried as a 0-d tensor."""
     if kind == "cube":
         return {}
     if kind == "ellipsoids":
-        arrays = pad_ellipsoids(arrays["ctrs"], arrays["axes"],
+        padded = pad_ellipsoids(arrays["ctrs"], arrays["axes"],
                                 arrays["ams"], arrays["logvols"])
+        if "expand" in arrays:
+            padded["expand"] = np.float64(arrays["expand"])
+        arrays = padded
     out = {}
     for k, v in arrays.items():
         v = np.asarray(v)
@@ -57,12 +61,17 @@ def bound_from_arrays(kind, ndim, arrays, device=None):
     """The port's bound object from numpy arrays of a fitted bound.
 
     ``kind='ellipsoids'`` takes ``ctr``, ``cov``, ``am``, ``axes``;
-    ``'balls'``/``'cubes'`` take ``cov``, ``am``, ``axes``, ``axes_inv``,
-    ``ctrs`` (the attributes of the JAX package's bounds).  An optional
-    ``logvol`` is carried as is; otherwise it is recomputed."""
+    ``'multi'`` takes the stacked ``ctrs`` and ``covs`` of a
+    multi-ellipsoid bound; ``'balls'``/``'cubes'`` take ``cov``, ``am``,
+    ``axes``, ``axes_inv``, ``ctrs`` (the attributes of the JAX package's
+    bounds).  An optional ``logvol`` is carried as is; otherwise it is
+    recomputed."""
     if kind == "ellipsoids":
         bound = Ellipsoid(ndim, ctr=arrays["ctr"], cov=arrays["cov"],
                           am=arrays["am"], axes=arrays["axes"])
+    elif kind == "multi":
+        bound = MultiEllipsoid(ndim, ctrs=arrays["ctrs"],
+                               covs=arrays["covs"])
     else:
         cls = {"balls": RadFriends, "cubes": SupFriends}[kind]
         bound = cls(ndim, device=device)

@@ -12,8 +12,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "get_random_generator", "get_torch_generator", "torch_generator",
-    "resample_equal", "IteratorResult", "IteratorBlock", "Timings",
+    "get_random_generator", "get_seed_sequence", "get_torch_generator",
+    "torch_generator", "resample_equal", "IteratorResult", "IteratorBlock", "Timings",
     "get_print_func", "print_fn_fallback",
 ]
 
@@ -58,6 +58,12 @@ def get_random_generator(seed=None):
     if isinstance(seed, np.random.Generator):
         return seed
     return np.random.Generator(np.random.PCG64(seed))
+
+
+def get_seed_sequence(rstate, nitems):
+    """Spawn ``nitems`` independent child seeds from a Generator's
+    underlying SeedSequence (no draw from ``rstate`` itself)."""
+    return rstate.bit_generator.seed_seq.spawn(nitems)
 
 
 def get_torch_generator(rstate, device):

@@ -89,7 +89,13 @@ def test_bound_state_carried_across(kind):
 
 
 def test_unported_bounds_raise():
+    # a custom bound (no device export) is not ported; every named bound
+    # is, bootstrap included
     with pytest.raises(NotImplementedError):
-        tb.get_bound("multi", NDIM)
-    with pytest.raises(NotImplementedError):
-        tb.RadFriends(NDIM, device="cpu").update(_points(50), bootstrap=5)
+        tb.get_bound(tb.Bound(NDIM), NDIM)
+    with pytest.raises(ValueError, match="Unknown bound"):
+        tb.get_bound("ellipse", NDIM)
+    assert isinstance(tb.get_bound("multi", NDIM), tb.MultiEllipsoid)
+    bound = tb.RadFriends(NDIM, device="cpu")
+    bound.update(_points(50), rstate=get_rstate(), bootstrap=5)
+    assert all(bound.contains(p) for p in _points(50))

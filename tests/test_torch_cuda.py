@@ -138,3 +138,80 @@ def test_cuda_run_reproducible(cuda):
         runs.append(s.results)
     for key in ("logl", "logz", "ncall", "samples", "samples_n"):
         assert np.array_equal(runs[0][key], runs[1][key]), key
+
+
+def _refit_stack():
+    """A 3-ellipsoid stack (padded to 4) with expand, and live points that
+    leave slot 2 with fewer than d+1 members."""
+    from dynesty_tpu_torch.bounding import MultiEllipsoid
+
+    rs = get_rstate(11)
+    ctrs = np.array([[0.3, 0.3, 0.3], [0.7, 0.7, 0.7], [0.3, 0.8, 0.5]])
+    mb = MultiEllipsoid(3, ctrs=ctrs, covs=np.array([np.eye(3) * 0.01] * 3))
+    arrays = dict(mb.device_spec()[1], expand=1.1)
+    u = np.vstack([ctrs[0] + 0.05 * rs.normal(size=(600, 3)),
+                   ctrs[1] + 0.05 * rs.normal(size=(600, 3)),
+                   ctrs[2] + 0.01 * rs.normal(size=(2, 3))])
+    return u, arrays
+
+
+@pytest.mark.cuda
+def test_cuda_ellipsoid_refit_matches_cpu(cuda):
+    from dynesty_tpu_torch.internal.kernels import make_ellipsoid_refit
+    from dynesty_tpu_torch.utils.convert import bound_arrays_to_torch
+
+    u, arrays = _refit_stack()
+    refit = make_ellipsoid_refit(3)
+    outs = [refit(torch.from_numpy(u).to(dev),
+                  bound_arrays_to_torch("ellipsoids", arrays, dev))
+            for dev in ("cpu", cuda)]
+    for k in ("ctrs", "axes", "ams", "logvols"):
+        np.testing.assert_allclose(outs[1][k].cpu().numpy(),
+                                   outs[0][k].numpy(), rtol=1e-10, atol=0,
+                                   err_msg=k)
+    # the degenerate slot kept its host fit on the card too
+    assert torch.equal(outs[1]["ctrs"][2].cpu(), outs[0]["ctrs"][2])
+
+
+@pytest.mark.cuda
+def test_cuda_ellipsoid_union_sampling_uniform(cuda):
+    from dynesty_tpu_torch.bounding import MultiEllipsoid
+    from dynesty_tpu_torch.internal.kernels import _sample_ellipsoid_union
+    from dynesty_tpu_torch.utils.convert import bound_arrays_to_torch
+    from dynesty_tpu_torch.utils.misc import torch_generator
+
+    ctrs = np.array([[0.0, 0.0], [1.0, 0.0]])
+    mb = MultiEllipsoid(2, ctrs=ctrs, covs=np.array([np.eye(2)] * 2))
+    arrays = bound_arrays_to_torch("ellipsoids", mb.device_spec()[1], cuda)
+    x, valid = _sample_ellipsoid_union(torch_generator(56432, cuda), arrays,
+                                       40000, 2, torch.float64)
+    xs = x[valid].cpu().numpy()
+    n = len(xs)
+    d2 = ((xs[:, None, :] - ctrs) ** 2).sum(-1)
+    assert np.all(d2.min(axis=1) < 1.0)
+    left, right = np.sum(xs[:, 0] < 0.5), np.sum(xs[:, 0] > 0.5)
+    assert abs(left - right) < 5 * np.sqrt(n)
+    lens = 2 * np.arccos(0.5) - 0.5 * np.sqrt(3.0)
+    p = lens / (2 * np.pi - lens)
+    share = np.mean(np.all(d2 < 1.0, axis=1))
+    assert abs(share - p) < 4 * np.sqrt(p * (1 - p) / n)
+
+
+@pytest.mark.cuda
+def test_cuda_default_arguments_pass_the_gate(cuda):
+    import dynesty_tpu_torch as dyt
+
+    cinv = torch.linalg.inv(torch.full((3, 3), 0.95, dtype=torch.float64,
+                                       device=cuda) +
+                            0.05 * torch.eye(3, dtype=torch.float64,
+                                             device=cuda))
+    lnorm = -0.5 * (3 * math.log(2 * math.pi) +
+                    math.log(np.linalg.det(cinv.inverse().cpu().numpy())))
+    s = dyt.NestedSampler(lambda x: -0.5 * (x @ cinv @ x) + lnorm,
+                          lambda u: 10.0 * (2.0 * u - 1.0), 3, nlive=500,
+                          rstate=get_rstate(56432))
+    assert s.device.type == "cuda"
+    assert s.internal_sampler_next.name == "unif" and s.bound_bootstrap == 5
+    s.run_nested(print_progress=False)
+    res = s.results
+    assert abs(res.logz[-1] + 8.987) < 4 * res.logzerr[-1]

@@ -77,7 +77,7 @@ def test_unit_cube_round_uniformity_and_nc():
     fn = make_unif_round(like, ndim=3, q=Q, bound_kind="cube",
                          dtype=torch.float64, device="cpu",
                          timings=timings)
-    packed = fn(torch_generator(7, "cpu"), -0.3).numpy()
+    packed = fn(torch_generator(7, "cpu"), -0.3, {}).numpy()
     u, logl = packed[:, :3], packed[:, 6]
     nc, nc_total, n_prop, n_filled = (packed[:, 7], packed[0, 8],
                                       packed[0, 9], packed[0, 10])
@@ -96,6 +96,7 @@ def test_unported_kernels_raise():
     with pytest.raises(NotImplementedError):
         make_slice_round(like, ndim=2, q=8, slices=2, kind="slice",
                          dtype=torch.float64, device="cpu")
+    # host-sampled custom bounds are not ported
     with pytest.raises(NotImplementedError):
-        make_unif_round(like, ndim=2, q=8, bound_kind="ellipsoids",
+        make_unif_round(like, ndim=2, q=8, bound_kind="custom",
                         dtype=torch.float64, device="cpu")

@@ -110,11 +110,17 @@ def test_progress_printing_path(capsys):
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="device"):
         dyt.NestedSampler(lambda x: x.sum(), lambda u: u, 2, device=None)
-    for bound, sample in (("multi", "rslice"), ("balls", "unif"),
-                          ("balls", "rwalk"), ("balls", "slice")):
+    for bound, sample, kw in (("multi", "rwalk", {}), ("balls", "slice", {}),
+                              ("multi", "auto", {"blob": True}),
+                              ("multi", "auto", {"pool": object()}),
+                              (dyt.bounding.Bound(2), "unif", {})):
         with pytest.raises(NotImplementedError):
             dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
-                              bound=bound, sample=sample, device="cpu")
+                              bound=bound, sample=sample, device="cpu", **kw)
+    # 'auto' resolves to rwalk for 10 <= ndim <= 20
+    with pytest.raises(NotImplementedError, match="rwalk"):
+        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 12, nlive=20,
+                          device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):
