@@ -29,8 +29,20 @@ Phases, in order; any failure raises and exits non-zero:
    may run (multi-ellipsoid bounds never reach one).
 8. ``NestedSampler(loglike, ptform, 3)`` with every other argument at
    its default (multi / unif / bootstrap 5) on the 3-D Gaussian.
-9. Device-only times (profiler kernel durations) of every comparison,
-   and of one 256-lane evaluation of the heavy likelihood.
+9. The default in 10 to 20 dimensions: ``NestedSampler(loglike, ptform,
+   15, nlive=1000)`` (multi / rwalk, walks 35, enlarge 1.25) on a 15-D
+   standard normal under a uniform prior on +-10, truth -15 ln 20.  No
+   kernel may run.
+10. ``NestedSampler(nlive=2048, bound='balls', sample='slice')`` on the
+    3-D Gaussian: the exact L2 path must run, and every refit must agree
+    with the plain version.
+11. The single/rslice nlive=500 drive with the sampler given as
+    ``RSliceSampler(slice_doubling=True)``: the doubling barrier form.
+12. Resume on the card: the balls/rslice drive of phase 3 stopped at half
+    its iterations, saved, restored and resumed must equal phase 3's
+    uninterrupted run bit for bit (niter, ncall, logl, logz, samples).
+13. Device-only times (profiler kernel durations) of every comparison,
+    and of one 256-lane evaluation of the heavy likelihood.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +55,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,6 +89,8 @@ SOURCE = "dynesty_tpu_torch/csrc/pairwise_min_dist.cu"
 # a tanh matvec chain of this width and depth, at this live-point count
 H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
 H_TRUTH = -NDIM * math.log(20.0)  # the 1e-6 chain term is negligible
+R_NDIM, R_NLIVE = 15, 1000
+R_TRUTH = -R_NDIM * math.log(20.0)
 REPLACES = {2: "dynesty_tpu/ops/pallas_kernels.py:31",
             math.inf: "dynesty_tpu/ops/pallas_kernels.py:80"}
 
@@ -194,52 +209,195 @@ def _counts(hk):
             "tc": k.launches_tc}
 
 
-def drive(dyt, nlive, bound, profile=None):
+# the 3-D correlated Gaussian at module level, so that a sampler over it
+# pickles; its precision matrix goes to the card once CUDA is known to exist
+_GAUSS = {}
+
+
+def _gauss_setup():
     cov = np.identity(NDIM)
     cov[cov == 0] = 0.95
-    cinv = torch.as_tensor(np.linalg.inv(cov), device="cuda")
-    lnorm = -0.5 * (np.log(2 * np.pi) * NDIM + np.log(np.linalg.det(cov)))
+    _GAUSS["cinv"] = torch.as_tensor(np.linalg.inv(cov), device="cuda")
+    _GAUSS["lnorm"] = -0.5 * (np.log(2 * np.pi) * NDIM +
+                              np.log(np.linalg.det(cov)))
 
-    def loglike(x):
-        return -0.5 * (x @ cinv @ x) + lnorm
 
-    def ptform(u):
-        return 10.0 * (2.0 * u - 1.0)
+def gauss_loglike(x):
+    return -0.5 * (x @ _GAUSS["cinv"] @ x) + _GAUSS["lnorm"]
 
+
+def box_ptform(u):
+    return 10.0 * (2.0 * u - 1.0)
+
+
+def normal_loglike(x):
+    """Standard normal in any dimension, normalised."""
+    return -0.5 * (x @ x) - 0.5 * x.shape[-1] * math.log(2.0 * math.pi)
+
+
+def _summary(sampler, wall, truth, **config):
+    res = sampler.results
+    stats = [p for p in res.proposal_stats if p]
+    return {
+        "config": dict(config, nlive=sampler.nlive, ndim=sampler.ndim,
+                       bound=sampler.bounding,
+                       sample=sampler.internal_sampler.name, seed=SEED,
+                       queue_size=sampler.queue_size),
+        "wall_s": wall, "niter": int(res.niter),
+        "ncall": int(sampler.ncall), "logz": float(res.logz[-1]),
+        "logzerr": float(res.logzerr[-1]), "truth": truth,
+        "nbound": int(sampler.nbound),
+        "scale": float(sampler.internal_sampler.scale),
+        "proposal_stats": {k: int(sum(p[k] for p in stats))
+                           for k in (stats[0] if stats else {})},
+        "timings": {k: v for k, v in sampler.timings.items()},
+    }
+
+
+def _gate(sampler, s, what):
+    """The evidence gate of every drive; raises on a miss."""
+    res = sampler.results
+    ok = (np.isfinite(s["logz"]) and s["logzerr"] > 0 and
+          abs(s["logz"] - s["truth"]) < 4 * s["logzerr"] and
+          res.samples.shape == (res.niter + sampler.nlive, sampler.ndim) and
+          np.all(np.isfinite(res.logwt)) and
+          int(np.sum(res.ncall)) == sampler.ncall)
+    if not ok:
+        raise RuntimeError(f"{what} failed the evidence gate: {s}")
+
+
+def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None):
+    """One run on the 3-D Gaussian on the card's default device, through
+    the evidence gate; with ``maxiter`` the run is stopped there without
+    its live points and returned ungated.  Returns (summary, sampler)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # no device argument: the port runs on the card by default
     sampler = dyt.NestedSampler(
-        loglike, ptform, NDIM, nlive=nlive, bound=bound, sample="rslice",
-        rstate=np.random.Generator(np.random.PCG64(SEED)))
+        gauss_loglike, box_ptform, NDIM, nlive=nlive, bound=bound,
+        sample=sample, rstate=np.random.Generator(np.random.PCG64(SEED)))
     if sampler.device.type != "cuda":
         raise RuntimeError(f"the default device is {sampler.device}")
-    if profile is not None:
-        with profile:
+    with profile or contextlib.nullcontext():
+        if maxiter is None:
             sampler.run_nested(print_progress=False)
-    else:
-        sampler.run_nested(print_progress=False)
+        else:
+            sampler.run_nested(print_progress=False, maxiter=maxiter,
+                               add_live=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    res = sampler.results
-    logz, err = float(res.logz[-1]), float(res.logzerr[-1])
-    summary = {
-        "config": {"nlive": nlive, "bound": bound, "sample": "rslice",
-                   "ndim": NDIM, "seed": SEED,
-                   "queue_size": sampler.queue_size},
-        "wall_s": wall, "niter": int(res.niter),
-        "ncall": int(np.sum(res.ncall)), "logz": logz, "logzerr": err,
-        "nbound": int(sampler.nbound),
-        "timings": {k: v for k, v in sampler.timings.items()},
-    }
-    ok = (np.isfinite(logz) and err > 0 and
-          abs(logz - LOGZ_TRUTH) < 4 * err and
-          res.samples.shape == (res.niter + nlive, NDIM) and
-          np.all(np.isfinite(res.logwt)))
-    if not ok:
-        raise RuntimeError(f"drive {bound}/rslice nlive={nlive} failed the "
-                           f"evidence gate: {summary}")
+    if maxiter is not None:
+        return {"wall_s": wall, "niter": sampler.it - 1}, sampler
+    summary = _summary(sampler, wall, LOGZ_TRUTH)
+    _gate(sampler, summary, f"drive {bound}/{summary['config']['sample']} "
+          f"nlive={nlive}")
+    return summary, sampler
+
+
+def rwalk_drive(dyt):
+    """The default in 10 to 20 dimensions: every argument but nlive at its
+    default, on the 15-D standard normal."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = dyt.NestedSampler(
+        normal_loglike, box_ptform, R_NDIM, nlive=R_NLIVE,
+        rstate=np.random.Generator(np.random.PCG64(SEED)))
+    inner = sampler.internal_sampler_next
+    got = (sampler.device.type, sampler.bounding, inner.name, inner.walks,
+           sampler.bound_enlarge, sampler.bound_bootstrap)
+    if got != ("cuda", "multi", "rwalk", R_NDIM + 20, 1.25, 0):
+        raise RuntimeError(f"the 15-D defaults resolved to {got}")
+    sampler.run_nested(print_progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = _summary(sampler, wall, R_TRUTH, walks=inner.walks)
+    _gate(sampler, summary, "rwalk drive")
     return summary
+
+
+def rwalk_round_times(dyt):
+    """Per-call times (CUDA events, host-paced) of the parts of one round
+    of the rwalk drive at its widths (256 lanes, 35 steps, 15-D, nlive
+    1000): the random-walk round alone, one batched likelihood call, and
+    one propose-free consume round on the thin path."""
+    from dynesty_tpu_torch.internal.fused import make_fused_round
+    from dynesty_tpu_torch.internal.kernels import make_rwalk_round
+    from dynesty_tpu_torch.internal.likelihood import LogLikelihood
+
+    q, il, kw = 256, 2 * R_NDIM, dict(dtype=torch.float64, device="cuda")
+    like = LogLikelihood(normal_loglike, box_ptform, R_NDIM, device="cuda")
+    rng = np.random.Generator(np.random.PCG64(SEED))
+    u = 0.5 + 0.02 * rng.standard_normal((R_NLIVE, R_NDIM))
+    v, logl, _ = like.eval_host(u)
+    walk = make_rwalk_round(like, ndim=R_NDIM, ncdim=R_NDIM, q=q,
+                            walks=R_NDIM + 20, **kw)
+    axes = np.tile(0.01 * np.eye(R_NDIM).ravel(), (q, 1))
+    packed_in = torch.as_tensor(np.concatenate(
+        [u[:q], v[:q], logl[:q, None], axes], axis=1), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    u_dev = packed_in[:, :R_NDIM].contiguous()
+    # a fixed block of proposals above every live point: the thin path
+    prop = torch.cat([packed_in[:, :il], packed_in[:, il:il + 1] + 100.0,
+                      torch.full((q, 3), 35.0, **kw)], dim=1)
+
+    def propose(gen_, live_, axes_args, scale, loglstar):
+        return (prop[:, :R_NDIM], prop[:, R_NDIM:il], prop[:, il],
+                prop[:, il + 1].to(torch.int64), (prop[:, il + 2].sum(),),
+                prop[:, il + 2:il + 4])
+
+    consume, _ = make_fused_round(propose, nlive=R_NLIVE, ndim=R_NDIM,
+                                  npdim=R_NDIM, q=q, **kw)
+    live = torch.as_tensor(np.concatenate(
+        [u, v, logl[:, None], np.zeros((R_NLIVE, 2)),
+         np.full((R_NLIVE, 1), -1e30)], axis=1), device="cuda")
+    ctrl = np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0, -np.inf,
+                     np.inf, 2.0 ** 30, 2.0 ** 30, 1.0, 0.0, 1.0, -1e30, 0.0,
+                     0.0, 0.0, 0.0, 2.0 ** 30])
+    return {
+        "rwalk_round_ms": _time_ms(
+            lambda: walk(gen, packed_in, 1.0, -1e30), 5),
+        "likelihood_call_ms": _time_ms(lambda: like.batch_eval(u_dev), 50),
+        "consume_round_ms": _time_ms(
+            lambda: consume(SEED, live, {}, ctrl), 5)}
+
+
+def resume_drive(dyt, full, maxiter):
+    """The balls/rslice drive stopped at ``maxiter``, saved, restored and
+    resumed, held bit for bit to ``full`` (the uninterrupted sampler)."""
+    first, sampler = drive(dyt, 2048, "balls", maxiter=maxiter)
+    if not sampler.interrupted_budget:
+        raise RuntimeError("the stopped run did not report its stop")
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "balls.pkl")
+        sampler.save(fname)
+        size = os.path.getsize(fname)
+        del sampler
+        restored = dyt.NestedSampler.restore(fname)
+    if restored.device.type != "cuda":
+        raise RuntimeError(f"restored on {restored.device}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.run_nested(resume=True, print_progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a, b = full.results, restored.results
+    same = {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+            for k in ("logl", "logz", "samples", "ncall", "logvol",
+                      "samples_u", "samples_it")}
+    same["niter"] = a.niter == b.niter
+    same["ncall_total"] = full.ncall == restored.ncall
+    t = restored.timings
+    out = {"maxiter": maxiter, "niter_first": first["niter"],
+           "wall_first_s": first["wall_s"], "wall_resumed_s": wall,
+           "checkpoint_bytes": size, "niter": int(b.niter),
+           "ncall": int(restored.ncall), "same": same,
+           "n_replay": t.get("n_replay", 0),
+           "n_continuation": t.get("n_continuation", 0)}
+    if not all(same.values()) or out["n_replay"] < 1:
+        raise RuntimeError(f"the resumed run differs from the "
+                           f"uninterrupted one: {out}")
+    return out
 
 
 def heavy_weights():
@@ -290,13 +448,10 @@ def unif_drive(dyt, loglike, truth, profile=None, **kw):
     """One ``NestedSampler(loglike, ptform, 3, **kw)`` run on the card's
     default device through the evidence gate (under ``profile`` if
     given); returns its summary."""
-    def ptform(u):
-        return 10.0 * (2.0 * u - 1.0)
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sampler = dyt.NestedSampler(
-        loglike, ptform, NDIM,
+        loglike, box_ptform, NDIM,
         rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
     if sampler.device.type != "cuda":
         raise RuntimeError(f"the default device is {sampler.device}")
@@ -304,32 +459,14 @@ def unif_drive(dyt, loglike, truth, profile=None, **kw):
         sampler.run_nested(print_progress=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    res = sampler.results
-    logz, err = float(res.logz[-1]), float(res.logzerr[-1])
     expands = [b.last_expand for b in sampler.bound_list
                if hasattr(b, "last_expand")]
-    summary = {
-        "config": dict(kw, ndim=NDIM, seed=SEED,
-                       bound=sampler.bounding,
-                       sample=sampler.internal_sampler.name,
-                       bootstrap=sampler.bound_bootstrap,
-                       queue_size=sampler.queue_size,
-                       rounds_per_dispatch=sampler.rounds_per_dispatch),
-        "wall_s": wall, "niter": int(res.niter),
-        "ncall": int(sampler.ncall), "logz": logz, "logzerr": err,
-        "truth": truth, "nells": int(getattr(sampler.bound, "nells", 1)),
-        "nbound": int(sampler.nbound),
-        "max_last_expand": max(expands) if expands else None,
-        "timings": {k: v for k, v in sampler.timings.items()},
-    }
-    ok = (np.isfinite(logz) and err > 0 and
-          abs(logz - truth) < 4 * err and
-          res.samples.shape == (res.niter + sampler.nlive, NDIM) and
-          np.all(np.isfinite(res.logwt)) and
-          int(np.sum(res.ncall)) == sampler.ncall)
-    if not ok:
-        raise RuntimeError(f"unif drive {kw} failed the evidence gate: "
-                           f"{summary}")
+    summary = _summary(sampler, wall, truth, **dict(
+        kw, bootstrap=sampler.bound_bootstrap,
+        rounds_per_dispatch=sampler.rounds_per_dispatch))
+    summary["nells"] = int(getattr(sampler.bound, "nells", 1))
+    summary["max_last_expand"] = max(expands) if expands else None
+    _gate(sampler, summary, f"unif drive {kw}")
     return summary
 
 
@@ -376,10 +513,18 @@ def report_profile(prof, summary):
 
 
 def _print_drive(name, s, counts, card):
+    t = s["timings"]
     print(f"{name}: wall {s['wall_s']:.2f} s  niter {s['niter']}  ncall "
-          f"{s['ncall']}  logz {s['logz']:.3f} +/- {s['logzerr']:.3f}  "
-          f"refits {s['timings'].get('n_refit', 0)}  launches {counts}  "
-          f"[{card}]")
+          f"{s['ncall']}  logz {s['logz']:.3f} +/- {s['logzerr']:.3f} "
+          f"(truth {s['truth']:.3f})  refits {t.get('n_refit', 0)}  "
+          f"launches {counts}  [{card}]")
+    print(f"  split: dispatch {t.get('dispatch', 0.0):.3f} s  consume "
+          f"{t.get('consume', 0.0):.3f} s  refit {t.get('refit', 0.0):.3f} s"
+          f"  total {t.get('total', 0.0):.3f} s  n_dispatch "
+          f"{t.get('n_dispatch', 0)}  sync_slice {t.get('sync_slice', 0)}  "
+          f"sync_wave {t.get('sync_wave', 0)}  sync_round "
+          f"{t.get('sync_round', 0)}  final scale {s['scale']:.4f}  "
+          f"proposal stats {s['proposal_stats']}")
 
 
 @contextlib.contextmanager
@@ -488,10 +633,11 @@ def main():
               f"[{card}]")
 
     # phase 3: the main path, with launch counts zeroed just before
+    _gauss_setup()
     prof = new_profile(args.profile == "balls")
     _zero_counts(hk)
     with recording_refits(dyt, hk) as calls:
-        main = drive(dyt, 2048, "balls", profile=prof)
+        main, main_sampler = drive(dyt, 2048, "balls", profile=prof)
     main["launches"] = _counts(hk)
     main["refit_max_abs_err"] = check_refits(hk, calls, "balls drive")
     if main["launches"]["exact"] < 1:
@@ -506,7 +652,7 @@ def main():
     # phase 4: cubes, whose refit takes the exact L-inf path
     _zero_counts(hk)
     with recording_refits(dyt, hk) as calls:
-        cubes = drive(dyt, 2048, "cubes")
+        cubes, _ = drive(dyt, 2048, "cubes")
     cubes["launches"] = _counts(hk)
     cubes["refit_max_abs_err"] = check_refits(hk, calls, "cubes drive")
     if cubes["launches"]["exact"] < 1:
@@ -523,7 +669,7 @@ def main():
 
     # phase 6: single ellipsoid (no kernel on its path)
     _zero_counts(hk)
-    single = drive(dyt, 500, "single")
+    single, _ = drive(dyt, 500, "single")
     if hk.pairwise_min_dist.launches != 0:
         raise RuntimeError("the single-ellipsoid drive launched the "
                            "friends kernel")
@@ -553,13 +699,8 @@ def main():
     report_profile(prof, heavy)
 
     # phase 8: the defaults (multi / unif / bootstrap 5 for ndim < 10)
-    cov = np.identity(NDIM)
-    cov[cov == 0] = 0.95
-    cinv = torch.as_tensor(np.linalg.inv(cov), device="cuda")
-    lnorm = -0.5 * (np.log(2 * np.pi) * NDIM + np.log(np.linalg.det(cov)))
     _zero_counts(hk)
-    default = unif_drive(dyt, lambda x: -0.5 * (x @ cinv @ x) + lnorm,
-                         LOGZ_TRUTH)
+    default = unif_drive(dyt, gauss_loglike, LOGZ_TRUTH)
     default["launches"] = _counts(hk)
     if (default["config"]["sample"], default["config"]["bootstrap"]) != \
             ("unif", 5) or hk.pairwise_min_dist.launches != 0:
@@ -567,8 +708,69 @@ def main():
     _print_unif_drive("default arguments (multi/unif, bootstrap 5, "
                       "nlive=500)", default, card)
 
-    # phase 9: device-only times, last: a profiler session slows the
-    # launches of everything that runs after it in the process
+    # phase 9: the default in 10 to 20 dimensions (multi / rwalk)
+    _zero_counts(hk)
+    rwalk = rwalk_drive(dyt)
+    rwalk["launches"] = _counts(hk)
+    if hk.pairwise_min_dist.launches != 0:
+        raise RuntimeError("the rwalk drive launched the friends kernel")
+    ps = rwalk["proposal_stats"]
+    rwalk["accept_fraction"] = ps["n_accept"] / (ps["n_accept"] +
+                                                 ps["n_reject"])
+    _print_drive(f"default in {R_NDIM}-D (multi/rwalk nlive={R_NLIVE})",
+                 rwalk, rwalk["launches"], card)
+    print(f"  walks {rwalk['config']['walks']}  accept fraction "
+          f"{rwalk['accept_fraction']:.4f}")
+    # the parts of one of its rounds, timed before the profiler has run
+    rwalk.update(rwalk_round_times(dyt))
+    rounds = rwalk["niter"] / rwalk["config"]["queue_size"]
+    print(f"rwalk drive, per round of {rwalk['config']['queue_size']} lanes "
+          f"(events, host-paced): {rwalk['config']['walks']} walk steps "
+          f"{rwalk['rwalk_round_ms']:.1f} ms (one likelihood call "
+          f"{rwalk['likelihood_call_ms']:.3f} ms), thin consume "
+          f"{rwalk['consume_round_ms']:.1f} ms; x {rounds:.0f} rounds = "
+          f"{rounds * rwalk['rwalk_round_ms'] / 1e3:.2f} s + "
+          f"{rounds * rwalk['consume_round_ms'] / 1e3:.2f} s of the drive's "
+          f"{rwalk['timings']['dispatch']:.2f} s dispatch  [{card}]")
+
+    # phase 10: slice over RadFriends: the slice drive's refits reach the
+    # exact L2 path
+    _zero_counts(hk)
+    with recording_refits(dyt, hk) as calls:
+        sl, _ = drive(dyt, 2048, "balls", sample="slice")
+    sl["launches"] = _counts(hk)
+    sl["refit_max_abs_err"] = check_refits(hk, calls, "slice drive")
+    if sl["launches"]["exact"] < 1:
+        raise RuntimeError("the slice drive never launched the exact path")
+    _print_drive("balls/slice nlive=2048", sl, sl["launches"], card)
+    print(f"slice refits against the plain version: max abs err "
+          f"{sl['refit_max_abs_err']:.3e}")
+
+    # phase 11: the doubling barrier form
+    _zero_counts(hk)
+    doubling, dsampler = drive(
+        dyt, 500, "single",
+        sample=dyt.internal.samplers.RSliceSampler(slice_doubling=True))
+    if not dsampler.internal_sampler.sampler_kwargs["slice_doubling"]:
+        raise RuntimeError("the doubling drive ran in stepping-out mode")
+    _print_drive("single/rslice doubling nlive=500", doubling, _counts(hk),
+                 card)
+
+    # phase 12: stop, save, restore, resume on the card, against phase 3
+    _zero_counts(hk)
+    resumed = resume_drive(dyt, main_sampler, main["niter"] // 2)
+    resumed["launches"] = _counts(hk)
+    print(f"resume balls/rslice nlive=2048: stopped at "
+          f"{resumed['niter_first']} of {resumed['niter']} iterations "
+          f"({resumed['wall_first_s']:.2f} s), checkpoint "
+          f"{resumed['checkpoint_bytes']} bytes, resumed "
+          f"{resumed['wall_resumed_s']:.2f} s, replays "
+          f"{resumed['n_replay']}, continuations "
+          f"{resumed['n_continuation']}, bit-identical: {resumed['same']}  "
+          f"[{card}]")
+
+    # phase 13: device-only times, last: once a profiler has run, every
+    # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
         c["device_ms"] = _device_ms(
@@ -619,7 +821,9 @@ def main():
                        "cuda": torch.version.cuda, "compare": compares,
                        "main": main, "cubes": cubes, "refit": refit,
                        "single": single, "heavy": heavy,
-                       "default": default, "build_seconds": log["seconds"]},
+                       "default": default, "rwalk": rwalk, "slice": sl,
+                       "doubling": doubling, "resume": resumed,
+                       "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,23 @@ with ``torch.func.vmap``) or ``'vectorized'``.  ``queue_size`` is the
 proposal batch width.
 
 Ported: bounds ``none``, ``single``, ``multi`` (the default), ``balls``
-and ``cubes``, with bootstrap expansion; samplers ``unif`` and
-``rslice``, and ``auto`` where it resolves to one of them (``unif`` for
-ndim < 10, ``rslice`` above 20).  So the defaults run: for ndim < 10,
-``bound='multi', sample='unif'`` with ``bootstrap=5``.  ``rwalk``,
-``slice``, custom bounds, blobs, pools, host-mode likelihoods and the
-dynamic sampler are not yet ported and raise ``NotImplementedError``.
+and ``cubes``, with bootstrap expansion; samplers ``unif``, ``rwalk``,
+``slice`` and ``rslice`` (``auto``: ``unif`` for ndim < 10, ``rwalk`` up to
+20, ``rslice`` above) or an ``InternalSampler`` instance, with
+``periodic`` and ``reflective`` dimensions, ``walks``, ``facc``,
+``slices`` and ``ncdim`` (the bound spans the first ``ncdim`` dimensions;
+not with the slice samplers).  A run stopped by ``maxiter``/``maxcall``
+goes on with ``run_nested(resume=True)``; ``save``/``restore`` and
+``run_nested(checkpoint_file=...)`` keep it across processes, bit for bit.
+A checkpoint restores on the device it was written on and raises where
+that is absent, unless ``restore(fname, device='cpu')`` asks otherwise.
+Custom bounds, blobs, pools, host-mode likelihoods and the dynamic sampler
+are not yet ported and raise ``NotImplementedError``.
 """
 
 import torch
+
+import numpy as np
 
 from .internal.likelihood import LogLikelihood
 from .internal.samplers import get_internal_sampler
@@ -50,6 +58,24 @@ def _get_enlarge_bootstrap(sample, enlarge, bootstrap):
                      "bootstrap=0 or enlarge=1")
 
 
+def _get_nonbounded(ndim, periodic, reflective):
+    """Mask that is True for dimensions with hard unit-cube boundaries;
+    None when no dimension is periodic or reflective."""
+    if periodic is not None and reflective is not None:
+        if np.intersect1d(periodic, reflective).size > 0:
+            raise ValueError("A parameter cannot be both periodic and "
+                             "reflective.")
+    if periodic is None and reflective is None:
+        return None
+    nonbounded = np.ones(ndim, dtype=bool)
+    for idx in (periodic, reflective):
+        if idx is not None:
+            if np.max(idx) >= ndim:
+                raise ValueError("periodic/reflective index >= ndim")
+            nonbounded[np.asarray(idx)] = False
+    return nonbounded
+
+
 def _resolve_update_interval(update_interval, internal_sampler, nlive):
     if update_interval is None:
         ratio = internal_sampler.update_bound_interval_ratio
@@ -78,10 +104,11 @@ class NestedSampler(Sampler):
 
     def __init__(self, loglikelihood, prior_transform, ndim, nlive=500,
                  bound="multi", sample="auto", *, device="cuda",
-                 update_interval=None, first_update=None, rstate=None,
+                 periodic=None, reflective=None, update_interval=None, first_update=None, rstate=None,
                  queue_size=None, live_points=None, logl_args=None,
                  logl_kwargs=None, ptform_args=None, ptform_kwargs=None,
-                 enlarge=None, bootstrap=None, slices=None, ncdim=None,
+                 enlarge=None, bootstrap=None, walks=None, facc=0.5,
+                 slices=None, ncdim=None,
                  blob=False, likelihood_mode="torch",
                  rounds_per_dispatch=None, proposal_mode="batch",
                  dtype=torch.float64, pool=None):
@@ -89,9 +116,13 @@ class NestedSampler(Sampler):
             raise NotImplementedError("pools are not yet ported")
         device = _resolve_device(device)
         ncdim = ncdim or ndim
-        if ncdim != ndim:
-            raise NotImplementedError("ncdim != ndim is not yet ported")
-        internal_sampler = get_internal_sampler(sample, ndim, slices=slices)
+        if ncdim != ndim and sample in ("slice", "rslice"):
+            raise ValueError("ncdim unsupported for slice sampling")
+        nonbounded = _get_nonbounded(ndim, periodic, reflective)
+        internal_sampler = get_internal_sampler(
+            sample, ndim, ncdim=ncdim, nonbounded=nonbounded,
+            periodic=periodic, reflective=reflective, walks=walks,
+            facc=facc, slices=slices)
         enlarge, bootstrap = _get_enlarge_bootstrap(internal_sampler,
                                                    enlarge, bootstrap)
         first_update = dict(first_update or {})

@@ -13,6 +13,12 @@ whose every step stays on the device (0-d tensors, no host reads); the
 packed stop bitmask is read once per dispatch.  Choosing the thin or the
 general scan (JAX's ``lax.cond``) and the per-round skip gates read one
 flag from the device per round (``Timings['sync_round']``).
+
+Every chained round draws from its own ``torch.Generator``, seeded from
+the dispatch's integer seed and the round's index (:func:`round_seed`), as
+the JAX dispatch splits its key into one key per round: a continuation
+that skips the first rounds of an interrupted dispatch gives the later
+rounds the streams they had.
 """
 
 import math
@@ -22,9 +28,10 @@ import torch
 
 from ..ops.integrals import progress_integration_torch
 from ..utils.convert import integ_from_vector
+from ..utils.misc import torch_generator
 
 __all__ = ["make_fused_round", "unpack_flat", "record_columns",
-           "select_starts"]
+           "select_starts", "round_seed"]
 
 # Test knob: build fused rounds without the thin scalar consume path
 # (batch mode then always runs the general scan).  Read per round.
@@ -41,9 +48,18 @@ def record_columns(ndim, npdim):
              "worst_it", "boundidx", "n", "birth"])
 
 
+def round_seed(seed, ridx):
+    """The 63-bit generator seed of round ``ridx`` of the dispatch seeded
+    with ``seed``: a pure function of both, so a round's stream does not
+    depend on which rounds ran before it."""
+    state = np.random.SeedSequence([int(seed), int(ridx)]).generate_state(
+        1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
 def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
-                     rounds=1, tune_fn=None, mode="batch",
-                     chain_stop_fn=None, gate_on_done=False, timings=None):
+                     kind="?", rounds=1, tune_fn=None, mode="batch",
+                     chain_stop_fn=None, timings=None):
     """Wrap a proposal round into a chained propose+consume call.
 
     ``propose_fn(gen, live, axes_args, scale, loglstar) -> (qu, qv, qlogl,
@@ -53,12 +69,22 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
     rising threshold at constant live count.  ``tune_fn(scale, stats)``
     updates the proposal scale between rounds; ``chain_stop_fn(integ,
     counters, ctrl)`` skips the round it fires at and all later ones
-    (bit 32 of the reported reason); ``gate_on_done`` skips rounds after
-    a stop.
+    (bit 32 of the reported reason).  Every round past an in-flight stop
+    is skipped too, whatever the kernel: the round loop runs on the host,
+    so the gate costs one flag read per round, and a dispatch stopped by
+    maxiter/maxcall then strands no round (an interrupted and resumed run
+    bills exactly the evaluations of the uninterrupted one).
 
-    Returns ``(fused, layout)`` with ``fused(gen, live, axes_args, ctrl)
-    -> (flat, proposals, live_out)``; ``ctrl`` is the host (numpy)
-    control vector of ``InternalSampler.launch_fused``.
+    ``kind='replay'`` marks a consume-only round whose proposals are given
+    (the leftover tail of an interrupted round): its refills are born at
+    ``birth0`` (ctrl[16], the interrupted round's threshold), its kill
+    count starts at ``kills0`` (ctrl[14]), and it never takes the thin
+    path.
+
+    Returns ``(fused, layout)`` with ``fused(seed, live, axes_args, ctrl)
+    -> (flat, proposals, live_out)``; ``seed`` is the dispatch's integer
+    seed and ``ctrl`` the host (numpy) control vector of
+    ``InternalSampler.launch_fused``.
     """
     assert mode in ("batch", "queue")
     if mode == "batch" and q >= nlive:
@@ -192,7 +218,7 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
             + outs
 
     def one_round(gen, live, integ, counters, limits, scale, axes_args,
-                  kills0):
+                  kills0, birth0):
         """One propose+consume round; integrator state and counters flow
         in and out."""
         live_logl0 = live[:, il]
@@ -208,7 +234,10 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
             loglstar0 = torch.where(cand < lmax, cand, fallback)
         else:
             loglstar0 = live_logl0.min()
-        birth_new = loglstar0
+        # replayed entries were proposed at the interrupted round's
+        # threshold; the live set here is already partly refilled, so its
+        # own threshold would overstate the births
+        birth_new = birth0 if kind == "replay" else loglstar0
 
         qu, qv, qlogl, qnc, stats, lane_stats = propose_fn(
             gen, live, axes_args, scale, loglstar0)
@@ -218,7 +247,8 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
             kills0, dtype=i64, device=device))
         del st["it"]
         use_thin = False
-        if mode == "batch" and not _FORCE_GENERAL_CONSUME:
+        if mode == "batch" and kind != "replay" and \
+                not _FORCE_GENERAL_CONSUME:
             # every proposal beats every victim: thin scalar scan
             thin_ok = (cand < lmax) & (qlogl.min() > loglstar0)
             use_thin = bool(thin_ok)
@@ -290,13 +320,15 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                 z((4,), dtype=dtype, device=device),
                 z((), dtype=dtype, device=device))
 
-    def fused(gen, live, axes_args, ctrl):
+    def fused(seed, live, axes_args, ctrl):
         ctrl = np.asarray(ctrl, dtype=np.float64)
         integ = integ_from_vector(ctrl, device, dtype)
         limits = {"dlogz": float(ctrl[9]), "logl_max": float(ctrl[10]),
                   "max_accepts": int(ctrl[11]), "max_nc": int(ctrl[12])}
         scale = torch.tensor(ctrl[13], dtype=dtype, device=device)
         kills0 = int(ctrl[14])
+        birth0 = torch.tensor(ctrl[16] if len(ctrl) > 16 else ctrl[4],
+                              dtype=dtype, device=device)
         rounds_active = int(ctrl[15])
         rounds_skip = int(ctrl[17]) if len(ctrl) > 17 else 0
         zi = torch.zeros((), dtype=i64, device=device)
@@ -310,9 +342,7 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         outs = []
         for ridx in range(rounds):
             off = ridx >= rounds_active or ridx < rounds_skip
-            gate = None
-            if gate_on_done and chain_stop_fn is None:
-                gate = counters["done"]
+            gate = counters["done"]
             if chain_stop_fn is not None:
                 # evaluated at every round boundary; once fired, the
                 # round and all later rounds run and bill nothing
@@ -320,7 +350,7 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                     chain_stop_fn(integ, counters, ctrl)
                 counters = dict(counters, chain_stop=trig)
                 gate = trig | counters["done"]
-            if not off and gate is not None:
+            if not off:
                 off = bool(gate)
                 if timings is not None:
                     timings.count("sync_round")
@@ -330,8 +360,9 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
             was_done = counters["done"]
             chain_flag = counters.get("chain_stop")
             live, integ, counters, round_out = one_round(
-                gen, live, integ, counters, limits, scale, axes_args,
-                kills0 if ridx == 0 else 0)
+                torch_generator(round_seed(seed, ridx), device), live,
+                integ, counters, limits, scale, axes_args,
+                kills0 if ridx == 0 else 0, birth0)
             if chain_flag is not None:
                 counters["chain_stop"] = chain_flag
             if tune_fn is not None:

@@ -8,14 +8,19 @@ likelihood threshold ``loglstar``:
   cube, a union of ellipsoids (``make_ellipsoid_refit`` re-fits the stack
   to the live points before each chained round) or a union of
   balls/cubes, successes compacted into output slots;
-* ``make_slice_round(kind='rslice')`` — the per-lane slice-sampling state
-  machine along random axes-transformed directions.
+* ``make_rwalk_round`` — ``walks`` fixed random-walk steps per lane inside
+  the lane's scaled ellipsoid (no data-dependent loop, so no host read);
+* ``make_slice_round`` — slice sampling along random axes-transformed
+  directions (``kind='rslice'``) or along the principal axes in a per-lane
+  shuffled order (``kind='slice'``): the per-lane state machine in
+  stepping-out mode, the barrier form with Neal's (2003) doubling
+  procedure when ``doubling`` is set.
 
 JAX's ``lax.while_loop`` over ``jnp.any(active)`` becomes a Python loop
 that reads its condition from the device once per iteration; each read is
 counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).
 Random numbers come from one explicit ``torch.Generator`` per round, drawn
-in a fixed order, so a seed reproduces the round.
+in a fixed order and in the kernel's dtype, so a seed reproduces the round.
 """
 
 import math
@@ -23,10 +28,11 @@ import math
 import numpy as np
 import torch
 
-from ..ops.geometry import randsphere_batch, unitcheck_batch
+from ..ops.geometry import apply_reflect, randsphere_batch, unitcheck_batch
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
-           "make_ellipsoid_refit", "make_slice_round", "pad_ellipsoids"]
+           "make_ellipsoid_refit", "make_rwalk_round", "make_slice_round",
+           "slice_directions", "doubling_accept", "pad_ellipsoids"]
 
 _NEG_INF = -math.inf
 
@@ -48,6 +54,31 @@ def f32_precision():
 def _count(timings, key):
     if timings is not None:
         timings.count(key)
+
+
+def _bool_mask(mask, device):
+    """A bool vector (or None) as a device tensor."""
+    if mask is None:
+        return None
+    return torch.as_tensor(np.asarray(mask, dtype=bool), device=device)
+
+
+def _mask_from_indices(indices, ndim, device=None):
+    """Bool mask (ndim,) that is True at ``indices``; None for None."""
+    if indices is None:
+        return None
+    mask = np.zeros(ndim, dtype=bool)
+    mask[np.asarray(indices)] = True
+    return torch.as_tensor(mask, device=device)
+
+
+def _wrap_boundaries(u, periodic_mask, reflective_mask):
+    """Apply periodic wrapping / reflection on the marked dimensions."""
+    if periodic_mask is not None:
+        u = torch.where(periodic_mask, torch.remainder(u, 1.0), u)
+    if reflective_mask is not None:
+        u = torch.where(reflective_mask, apply_reflect(u), u)
+    return u
 
 
 def _masked_eval(like, u, incube):
@@ -249,7 +280,8 @@ def make_ellipsoid_refit(ncdim, dtype=torch.float64):
 
 
 def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
-                    max_waves=100000, timings=None):
+                    ncdim=None, nonbounded=None, max_waves=100000,
+                    timings=None):
     """Uniform rejection sampling from the unit cube (``bound_kind``
     'cube'), a union of ellipsoids ('ellipsoids') or a union of
     balls/cubes ('balls'/'cubes').
@@ -258,21 +290,28 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
     with columns ``u | v | logl | nc | nc_total | n_proposals |
     n_filled``: per-slot ``nc`` splits the round's evaluations exactly
     (its sum is ``nc_total``); unfilled slots carry logl = -inf.
-    ``arrays`` is the bound's device dict (ignored for the cube)."""
+    ``arrays`` is the bound's device dict (ignored for the cube).  The
+    bound lives in the first ``ncdim`` dimensions (checked against the
+    cube there, loosely where ``nonbounded`` is False); the other
+    ``ndim - ncdim`` are drawn uniformly."""
     if bound_kind not in ("cube", "ellipsoids", "balls", "cubes"):
         raise NotImplementedError(
             f"uniform sampling from '{bound_kind}' bounds is not yet ported")
     device = torch.device(device)
     f32 = np.float32
+    ncdim = ncdim or ndim
+    n_extra = ndim - ncdim
+    nb_cluster = None if nonbounded is None else \
+        _bool_mask(np.asarray(nonbounded, dtype=bool)[:ncdim], device)
 
     def draw_cluster(gen, arrays):
         if bound_kind == "cube":
-            u = torch.rand((q, ndim), generator=gen, dtype=dtype,
+            u = torch.rand((q, ncdim), generator=gen, dtype=dtype,
                            device=device)
             return u, None
         if bound_kind == "ellipsoids":
-            return _sample_ellipsoid_union(gen, arrays, q, ndim, dtype)
-        return _sample_friends_union(gen, arrays, q, ndim, dtype,
+            return _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype)
+        return _sample_friends_union(gen, arrays, q, ncdim, dtype,
                                      bound_kind)
 
     def round_fn(gen, loglstar, arrays):
@@ -283,7 +322,10 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
         lanes = torch.arange(q, device=device)
         n_filled = waves = nc = n_prop = pending = 0
         while n_filled < q and waves < max_waves:
-            u_prop, drawn = draw_cluster(gen, arrays)
+            uc, drawn = draw_cluster(gen, arrays)
+            u_prop = uc if n_extra == 0 else torch.cat([
+                uc, torch.rand((q, n_extra), generator=gen, dtype=dtype,
+                               device=device)], dim=1)
             # adaptive wave width (float32 arithmetic, as in the JAX
             # kernel): after the first wave only ~1.25 need/eff + 4 lanes
             # count as launched proposals
@@ -295,7 +337,7 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
                 width = int(min(est, f32(q)))
             else:
                 width = q
-            valid = (lanes < width) & unitcheck_batch(u_prop)
+            valid = (lanes < width) & unitcheck_batch(uc, nb_cluster)
             if drawn is not None:
                 valid = valid & drawn
             v_prop, logl_prop = _masked_eval(like, u_prop, valid)
@@ -334,45 +376,242 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
 
 
 # ==========================================================================
-# rslice kernel (persistent-lane state machine)
+# random-walk kernel
+
+
+def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
+                     nonbounded=None, periodic=None, reflective=None):
+    """Random-walk round: each of the ``q`` lanes makes exactly ``walks``
+    proposals inside its scaled ellipsoid (axes per lane, in the first
+    ``ncdim`` dimensions; the other dimensions are drawn uniformly),
+    accepting moves with ``logl > loglstar``.  Periodic and reflective
+    dimensions are wrapped before the cube check.  The loop has a fixed
+    length, so the round never reads the device from the host.
+
+    Returns ``fn(gen, packed_in, scale, loglstar) -> packed (q, ndim +
+    npdim + 3)`` with columns ``u | v | logl | n_accept | n_reject``;
+    ``packed_in`` is ``u | v | logl | axes (ncdim*ncdim)`` of the start
+    points.  A lane that never accepts keeps its start point."""
+    device = torch.device(device)
+    npdim = like.npdim
+    nb = _bool_mask(nonbounded, device)
+    pm = _mask_from_indices(periodic, ndim, device)
+    rm = _mask_from_indices(reflective, ndim, device)
+    n_extra = ndim - ncdim
+
+    def round_fn(gen, packed_in, scale, loglstar):
+        u = packed_in[:, :ndim].to(dtype)
+        v = packed_in[:, ndim:ndim + npdim].to(dtype)
+        logl = packed_in[:, ndim + npdim].to(dtype)
+        axes = packed_in[:, ndim + npdim + 1:].reshape(
+            q, ncdim, ncdim).to(dtype)
+        n_acc = n_rej = torch.zeros((q,), dtype=torch.int64, device=device)
+        for _ in range(walks):
+            dr = randsphere_batch(gen, (q,), ncdim, dtype, device)
+            u_prop = u[:, :ncdim] + \
+                torch.einsum("qij,qj->qi", axes, dr) * scale
+            if n_extra > 0:
+                u_prop = torch.cat([u_prop, torch.rand(
+                    (q, n_extra), generator=gen, dtype=dtype,
+                    device=device)], dim=1)
+            u_prop = _wrap_boundaries(u_prop, pm, rm)
+            ok = unitcheck_batch(u_prop, nb)
+            v_prop, logl_prop = _masked_eval(like, u_prop, ok)
+            accept = ok & (logl_prop > loglstar)
+            u = torch.where(accept[:, None], u_prop, u)
+            v = torch.where(accept[:, None], v_prop, v)
+            logl = torch.where(accept, logl_prop, logl)
+            n_acc = n_acc + accept
+            n_rej = n_rej + ~accept
+        return pack_columns(q, dtype, u, v, logl, n_acc, n_rej,
+                            device=device)
+
+    return round_fn
+
+
+# ==========================================================================
+# slice kernels
 
 PH_INIT_L, PH_INIT_R, PH_EXP_L, PH_EXP_R, PH_SHRINK = 0, 1, 2, 3, 4
+
+
+def slice_directions(gen, axes, scale, kind, slices):
+    """Per-lane slice directions, shape ``(q, n_steps, ndim)``, drawn in
+    the dtype of ``axes``.
+
+    ``kind='rslice'``: ``slices`` random isotropic directions per lane,
+    transformed by the lane's axes.  ``kind='slice'``: ``slices`` passes
+    over all ``ndim`` principal axes (the columns of the lane's axes) in an
+    order shuffled per lane and pass.  The shuffle is the ``argsort`` of
+    uniform draws: a tie, which would bias it, has probability ~ndim^2
+    2^-53 per pass in float64 and ~ndim^2 2^-24 in float32."""
+    q, ndim = axes.shape[0], axes.shape[-1]
+    if kind == "rslice":
+        drhat = torch.randn((q, slices, ndim), generator=gen,
+                            dtype=axes.dtype, device=axes.device)
+        drhat = drhat / torch.linalg.vector_norm(drhat, dim=-1,
+                                                 keepdim=True)
+        return torch.einsum("qij,qsj->qsi", axes, drhat) * scale
+    keys = torch.rand((q, slices, ndim), generator=gen, dtype=axes.dtype,
+                      device=axes.device)
+    perm = torch.argsort(keys, dim=-1).reshape(q, slices * ndim)
+    # axis i is column i of axes: gather rows of axes^T in shuffled order
+    rows = perm[:, :, None].expand(q, slices * ndim, ndim)
+    return torch.gather(axes.transpose(1, 2), 1, rows) * scale
+
+
+def doubling_accept(feval, x1, loglstar, left, right, f_left, f_right,
+                    timings=None):
+    """Batched acceptance test of Neal (2003), algorithm 6: would the
+    doubling procedure started from ``x1`` have reached the interval
+    ``(left, right)`` that was built from 0?  ``feval(x) -> logl`` evaluates
+    the lanes' positions.  Returns ``(accept (q,), nc (q,))`` with ``nc``
+    the evaluations each lane spent.  One host read per halving
+    (``sync_slice``)."""
+    active = (right - left) > 1.1
+    lhat, rhat, f_lhat, f_rhat = left, right, f_left, f_right
+    dflag = torch.zeros_like(active)
+    reject = torch.zeros_like(active)
+    nc = torch.zeros(active.shape, dtype=torch.int64, device=active.device)
+    while True:
+        _count(timings, "sync_slice")
+        if not bool(active.any()):
+            break
+        mid = 0.5 * (lhat + rhat)
+        dflag = dflag | (((0.0 < mid) & (mid <= x1)) |
+                         ((x1 < mid) & (mid <= 0.0)))
+        go_right = x1 < mid  # shrink the right side toward x1
+        logl_mid = feval(mid)
+        nc = nc + active
+        f_rhat = torch.where(active & go_right, logl_mid, f_rhat)
+        rhat = torch.where(active & go_right, mid, rhat)
+        f_lhat = torch.where(active & ~go_right, logl_mid, f_lhat)
+        lhat = torch.where(active & ~go_right, mid, lhat)
+        newly_rejected = active & dflag & (loglstar >= f_lhat) & \
+            (loglstar >= f_rhat)
+        reject = reject | newly_rejected
+        active = active & ~newly_rejected & ((rhat - lhat) > 1.1)
+    return ~reject, nc
 
 
 def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
                      nonperiodic=None, doubling=False,
                      max_shrink_iters=10000, timings=None):
-    """Slice-sampling round, kind ``'rslice'``: ``slices`` slice updates
-    per lane along random directions transformed by the lane's axes and
-    multiplied by ``scale``, stepping-out mode.
+    """Slice-sampling round.  ``kind='rslice'``: ``slices`` slice updates
+    per lane along random directions transformed by the lane's axes.
+    ``kind='slice'``: ``slices`` passes over all ``ndim`` principal axes in
+    a per-lane shuffled order.  Directions are multiplied by ``scale``.
+
+    Stepping-out mode runs the per-lane state machine (every lane advances
+    its own phase through its whole budget of slice updates); with
+    ``doubling`` the barrier form runs instead: all lanes take one slice
+    update at a time, expanding by Neal's (2003) doubling procedure and
+    shrinking with its acceptance test.
 
     Returns ``fn(gen, packed_in, scale, loglstar) -> packed (q, ndim +
     npdim + 5)`` with columns ``u | v | logl | nc | n_expand | n_contract
     | warn``; ``packed_in`` is ``u | v | logl | axes (ndim*ndim)`` of the
-    start points."""
-    if kind != "rslice" or doubling:
-        raise NotImplementedError(
-            f"slice kind '{kind}' (doubling={doubling}) is not yet ported")
+    start points.  ``nc`` counts out-of-cube probes too; ``warn`` flags an
+    interval stepped out more than 1000 times (the host then switches to
+    doubling)."""
+    if kind not in ("slice", "rslice"):
+        raise ValueError(f"Unknown slice kind '{kind}'")
     device = torch.device(device)
     npdim = like.npdim
-    nb = None if nonperiodic is None else \
-        torch.as_tensor(np.asarray(nonperiodic, dtype=bool), device=device)
+    nb = _bool_mask(nonperiodic, device)
     maxlen = math.sqrt(ndim) / 2.0
-    n_steps = slices
+    n_steps = slices * ndim if kind == "slice" else slices
 
-    def _make_directions(gen, axes, scale):
-        drhat = torch.randn((q, n_steps, ndim), generator=gen, dtype=dtype,
-                            device=device)
-        drhat = drhat / torch.linalg.vector_norm(drhat, dim=-1,
-                                                 keepdim=True)
-        return torch.einsum("qij,qsj->qsi", axes, drhat) * scale
+    def one_doubling_step(gen, u0, v0, logl0, direction, loglstar):
+        """One slice update of all lanes along per-lane ``direction``."""
+        dirlen = torch.linalg.vector_norm(direction, dim=1)
+        dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
+        direction = direction / dirnorm[:, None]
+
+        def feval(x):
+            u = u0 + x[:, None] * direction
+            v, logl = _masked_eval(like, u, unitcheck_batch(u, nb))
+            return u, v, logl
+
+        r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
+        left, right = -r0, 1.0 - r0
+        fl, fr = feval(left)[2], feval(right)[2]
+        nc = torch.full((q,), 2, dtype=torch.int64, device=device)
+        n_exp = torch.zeros_like(nc)
+        grow = torch.ones_like(nc)
+        # doubling expansion: a random side doubles the interval until both
+        # ends are outside the slice
+        active = (fl > loglstar) | (fr > loglstar)
+        while True:
+            _count(timings, "sync_slice")
+            if not bool(active.any()):
+                break
+            go_left = torch.rand((q,), generator=gen, dtype=dtype,
+                                 device=device) < 0.5
+            width = right - left
+            left = torch.where(active & go_left, left - width, left)
+            right = torch.where(active & ~go_left, right + width, right)
+            logl_new = feval(torch.where(go_left, left, right))[2]
+            fl = torch.where(active & go_left, logl_new, fl)
+            fr = torch.where(active & ~go_left, logl_new, fr)
+            nc = nc + active
+            n_exp = n_exp + active * grow
+            grow = torch.where(active, (grow * 2).clamp(max=1 << 30), grow)
+            active = active & ((fl > loglstar) | (fr > loglstar))
+        big = (left, right, fl, fr)
+
+        # shrinkage, each candidate held to the doubling acceptance test
+        u, v, logl = u0, v0, logl0
+        n_con = torch.zeros_like(nc)
+        active = torch.ones((q,), dtype=torch.bool, device=device)
+        for _ in range(max_shrink_iters):
+            _count(timings, "sync_slice")
+            if not bool(active.any()):
+                break
+            x = left + torch.rand((q,), generator=gen, dtype=dtype,
+                                  device=device) * (right - left)
+            u_prop, v_prop, logl_prop = feval(x)
+            nc = nc + active
+            n_con = n_con + active
+            good = logl_prop > loglstar
+            d_acc, d_nc = doubling_accept(lambda xm: feval(xm)[2], x,
+                                          loglstar, *big, timings=timings)
+            nc = nc + torch.where(active & good, d_nc, 0)
+            good = good & d_acc
+            newly = active & good
+            u = torch.where(newly[:, None], u_prop, u)
+            v = torch.where(newly[:, None], v_prop, v)
+            logl = torch.where(newly, logl_prop, logl)
+            bad = active & ~good
+            left = torch.where(bad & (x < 0), x, left)
+            right = torch.where(bad & (x > 0), x, right)
+            active = bad
+        return u, v, logl, nc, n_exp, n_con
 
     def round_fn(gen, packed_in, scale, loglstar):
+        u = packed_in[:, :ndim].to(dtype)
+        v = packed_in[:, ndim:ndim + npdim].to(dtype)
+        logl = packed_in[:, ndim + npdim].to(dtype)
+        axes = packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim)
+        directions = slice_directions(gen, axes.to(dtype), scale, kind,
+                                      slices)
+        nc = n_exp = n_con = torch.zeros((q,), dtype=torch.int64,
+                                         device=device)
+        for s in range(n_steps):
+            u, v, logl, nc1, ne1, ncon1 = one_doubling_step(
+                gen, u, v, logl, directions[:, s], loglstar)
+            nc, n_exp, n_con = nc + nc1, n_exp + ne1, n_con + ncon1
+        # the doubling procedure has no expansion warning
+        return pack_columns(q, dtype, u, v, logl, nc, n_exp, n_con, False,
+                            device=device)
+
+    def round_fn_sm(gen, packed_in, scale, loglstar):
         start_u = packed_in[:, :ndim].to(dtype)
         start_v = packed_in[:, ndim:ndim + npdim].to(dtype)
         start_logl = packed_in[:, ndim + npdim].to(dtype)
         axes = packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim)
-        directions = _make_directions(gen, axes.to(dtype), scale)
+        directions = slice_directions(gen, axes.to(dtype), scale, kind,
+                                      slices)
         # cap each direction's length at the cube diagonal
         dirlen = torch.linalg.vector_norm(directions, dim=-1)
         dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
@@ -463,4 +702,4 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
         return pack_columns(q, dtype, u, v, logl, nc, n_exp, n_con, warn,
                             device=device)
 
-    return round_fn
+    return round_fn if doubling else round_fn_sm

@@ -37,11 +37,31 @@ class LogLikelihood:
         self.ndim = ndim
         self.device = torch.device(device)
         self.dtype = dtype
-        la, lk = tuple(logl_args or ()), dict(logl_kwargs or {})
-        pa, pk = tuple(ptform_args or ()), dict(ptform_kwargs or {})
-        self._logl = lambda x: loglikelihood(x, *la, **lk)
-        self._ptform = lambda u: prior_transform(u, *pa, **pk)
+        # the user's functions and their extra arguments are kept as they
+        # came, so the wrapper pickles whenever they do
+        self.loglikelihood = loglikelihood
+        self.prior_transform = prior_transform
+        self.logl_args = tuple(logl_args or ())
+        self.logl_kwargs = dict(logl_kwargs or {})
+        self.ptform_args = tuple(ptform_args or ())
+        self.ptform_kwargs = dict(ptform_kwargs or {})
         self.npdim = None  # learned at the first (host-driven) evaluation
+
+    def _logl(self, x):
+        return self.loglikelihood(x, *self.logl_args, **self.logl_kwargs)
+
+    def _ptform(self, u):
+        return self.prior_transform(u, *self.ptform_args,
+                                    **self.ptform_kwargs)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["device"] = str(self.device)  # stored by name
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__ = state
+        self.device = torch.device(state["device"])
 
     def _batch(self, u):
         if self.mode == "vectorized":

@@ -1,41 +1,67 @@
 """Host-side drivers of the proposal kernels ("internal samplers").
 
-Each class owns the tuning state (proposal ``scale``) and a cache of
-built fused round functions from :mod:`.fused`.  Counterpart of
-``dynesty_tpu.internal.samplers``; the unit-cube phase, uniform sampling
-from the bound ('unif') and rslice are ported so far.  ``launch_fused``
-runs the dispatch synchronously.
+Each class owns the tuning state (proposal ``scale``, accept/expand
+histories) and a cache of built fused round functions from :mod:`.fused`.
+Counterpart of ``dynesty_tpu.internal.samplers``: the unit-cube phase,
+uniform sampling from the bound ('unif'), random walks ('rwalk'), and
+slice sampling along principal axes ('slice') or random directions
+('rslice').  ``launch_fused`` runs the dispatch synchronously.  The
+non-fused ``propose_round`` path serves only the dynamic sampler's batch
+seeding and comes with it.
 """
 
+import math
 import warnings
 
 import numpy as np
 import torch
 
 from .fused import make_fused_round, select_starts, unpack_flat
-from .kernels import make_ellipsoid_refit, make_slice_round, make_unif_round
+from .kernels import (make_ellipsoid_refit, make_rwalk_round,
+                      make_slice_round, make_unif_round)
 
 __all__ = ["InternalSampler", "UnitCubeSampler", "UniformBoundSampler",
-           "RSliceSampler", "get_internal_sampler"]
+           "RWalkSampler", "SliceSampler", "RSliceSampler",
+           "INTERNAL_SAMPLER_LIST", "get_internal_sampler"]
+
+INTERNAL_SAMPLER_LIST = ["rwalk", "unif", "rslice", "slice"]
 
 
 class InternalSampler:
-    """Base class: kwargs, the proposal scale and the fused-round cache."""
+    """Base class: kwargs (the periodic/reflective/nonbounded masks, ndim
+    and ncdim), the proposal scale and the fused-round cache."""
 
     # cap on fused rounds chained per dispatch (None = the sampler's
     # rounds_per_dispatch)
     max_rounds_per_dispatch = None
-    # skip chained rounds past an in-flight stop (rejection kernels)
-    gate_rounds_on_done = False
     # stop the chain once the host's ncall-cadence refit is due (ctrl[21])
     chain_stop_on_refit_due = False
     name = "?"
 
     def __init__(self, **kwargs):
         self.scale = 1.0
+        self.input_kwargs = kwargs
         self.ndim = kwargs.get("ndim")
-        self.sampler_kwargs = {"nonperiodic": kwargs.get("nonperiodic")}
+        self.ncdim = kwargs.get("ncdim") or self.ndim
+        self.sampler_kwargs = {
+            k: kwargs.get(k)
+            for k in ("nonbounded", "periodic", "reflective", "nonperiodic")}
         self._round_cache = {}
+
+    def _new_from_template(self, template_kwargs):
+        """A fresh instance of this class from its own kwargs plus the
+        factory's defaults (boundary masks, ndim), so that two samplers
+        never share tuning state."""
+        merged = dict(self.input_kwargs)
+        for k, v in template_kwargs.items():
+            if k not in merged:
+                merged[k] = v
+        return self.__class__(**merged)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_round_cache"] = {}
+        return state
 
     @property
     def update_bound_interval_ratio(self):
@@ -77,19 +103,27 @@ class InternalSampler:
                 self._build_propose_fn(ns, bound_kind), nlive=ns.nlive,
                 ndim=self.ndim, npdim=ns.loglikelihood.npdim,
                 q=ns.queue_size, dtype=ns.dtype, device=ns.device,
-                rounds=rounds, tune_fn=self.device_tune_fn(),
+                kind=self.name, rounds=rounds,
+                tune_fn=self.device_tune_fn(),
                 mode=ns.proposal_mode,
                 chain_stop_fn=self.device_chain_stop_fn(),
-                gate_on_done=self.gate_rounds_on_done, timings=ns.timings)
+                timings=ns.timings)
             self._round_cache[cfg] = entry
         return entry
 
-    def launch_fused(self, ns, gen, live, axes_args, integ, limits,
-                     rounds_active=None, rounds_skip=0):
+    def launch_fused(self, ns, seed, live, axes_args, integ, limits,
+                     rounds_active=None, rounds_skip=0,
+                     refit_due_ncall=None):
         """Run one fused dispatch (synchronously: the device work is
-        enqueued here and waited for in :meth:`finish_fused`).  ``integ``
-        and ``limits`` are the host vectors of the JAX package's
-        ``launch_fused``; the control vector keeps its layout."""
+        enqueued here and waited for in :meth:`finish_fused`).  ``seed``
+        is the dispatch's integer seed; ``integ`` and ``limits`` are the
+        host vectors of the JAX package's ``launch_fused``, and the
+        control vector keeps its layout.  ``rounds_skip`` skips the
+        leading rounds (the continuation of an interrupted dispatch, with
+        its original seed).  ``refit_due_ncall`` is the ctrl[21] the
+        dispatch was planned with; None reads it from the sampler now."""
+        if refit_due_ncall is None:
+            refit_due_ncall = self._refit_due_ncall(ns)
         fused_fn, layout = self.get_fused(ns, ns.device_bound_kind())
         if rounds_active is None:
             rounds_active = layout["rounds"]
@@ -103,8 +137,8 @@ class InternalSampler:
              float(ns.ncall), float(ns.first_bound_update_ncall),
              float(ns.first_bound_update_eff),
              # [21] the ncall at which the next host refit is due
-             self._refit_due_ncall(ns)]])
-        flat, proposals, live_out = fused_fn(gen, live, axes_args, ctrl)
+             float(refit_due_ncall)]])
+        flat, proposals, live_out = fused_fn(seed, live, axes_args, ctrl)
         return {"flat": flat, "proposals": proposals, "live": live_out,
                 "layout": layout, "rounds_active": rounds_active}
 
@@ -115,12 +149,52 @@ class InternalSampler:
         out["proposals_dev"] = handle["proposals"]
         return out, handle["live"]
 
-    def run_fused(self, ns, gen, live, axes_args, integ, limits,
-                  rounds_active=None, rounds_skip=0):
+    def run_fused(self, ns, seed, live, axes_args, integ, limits,
+                  rounds_active=None, rounds_skip=0, refit_due_ncall=None):
         """Launch and finish one fused dispatch."""
         return self.finish_fused(self.launch_fused(
-            ns, gen, live, axes_args, integ, limits,
-            rounds_active=rounds_active, rounds_skip=rounds_skip))
+            ns, seed, live, axes_args, integ, limits,
+            rounds_active=rounds_active, rounds_skip=rounds_skip,
+            refit_due_ncall=refit_due_ncall))
+
+    def get_replay(self, ns):
+        """(fused_fn, layout) of the consume-only round that replays given
+        proposal entries (the leftover tail of an interrupted round)."""
+        cfg = ("replay", ns.queue_size, ns.nlive, ns.proposal_mode)
+        entry = self._round_cache.get(cfg)
+        if entry is None:
+            ndim, il = self.ndim, self.ndim + ns.loglikelihood.npdim
+
+            def propose(gen, live, axes_args, scale, loglstar):
+                prop = axes_args["prop"]
+                stats = (torch.zeros((), dtype=ns.dtype, device=ns.device),)
+                return (prop[:, :ndim], prop[:, ndim:il], prop[:, il],
+                        prop[:, il + 1].to(torch.int64), stats,
+                        prop[:, il + 2:il + 4])
+
+            entry = make_fused_round(
+                propose, kind="replay", nlive=ns.nlive, ndim=ndim,
+                npdim=ns.loglikelihood.npdim, q=ns.queue_size,
+                dtype=ns.dtype, device=ns.device, mode=ns.proposal_mode,
+                timings=ns.timings)
+            self._round_cache[cfg] = entry
+        return entry
+
+    def run_replay(self, ns, live, prop, integ, limits, kills0=0,
+                   birth0=-1e30):
+        """Consume the (queue_size, ndim + npdim + 4) proposal block
+        ``prop`` against ``live``; no random number is drawn.  Returns
+        (unpacked dict, live)."""
+        fused_fn, layout = self.get_replay(ns)
+        ctrl = np.concatenate([integ, limits,
+                               [self.scale, float(kills0), 1.0,
+                                max(float(birth0), -1e30), 0.0,
+                                0.0, 0.0, 0.0]])
+        flat, proposals, live_out = fused_fn(0, live, {"prop": prop}, ctrl)
+        out = unpack_flat(flat.cpu().numpy(), layout)
+        out["stats"] = None
+        out["proposals_dev"] = proposals
+        return out, live_out
 
     def device_tune_fn(self):
         """``(scale, stats_vec) -> scale`` on device tensors, applied
@@ -138,14 +212,21 @@ class InternalSampler:
             self.scale = float(out["scale_final"])
             self._post_fused_stats(out.get("stats"))
         elif out.get("stats") is not None:
-            self.consume_tuning(out["stats"])
+            tinfo = self.consume_tuning(out["stats"])
+            if tinfo is not None:
+                self.tune(tinfo, update=True)
 
     def _post_fused_stats(self, stats):
         """Kernel-specific bookkeeping from the dispatch's stats."""
 
     def consume_tuning(self, stats):
-        """Host bookkeeping from the dispatch's stats for kernels without
-        a device scale update."""
+        """The dispatch's stats vector as a tuning_info dict (kernel
+        specific); None if the kernel has no tuning."""
+        return None
+
+    def tune(self, tuning_info, update=False):
+        """Accumulate round statistics; apply the scale update if
+        ``update``."""
 
     def row_stats(self, a, b):
         """Per-record proposal_stats from the two lane-stat columns."""
@@ -167,15 +248,20 @@ def _unif_propose_fn(sampler, ns, bound_kind):
     like = ns.loglikelihood
     ndim, q = sampler.ndim, ns.queue_size
     il = ndim + like.npdim
-    inner = make_unif_round(like, ndim=ndim, q=q, bound_kind=bound_kind,
+    # the unit cube spans every dimension; a bound only the clustered ones
+    ncdim = ndim if bound_kind == "cube" else sampler.ncdim
+    nonbounded = None if bound_kind == "cube" else \
+        sampler.sampler_kwargs.get("nonbounded")
+    inner = make_unif_round(like, ndim=ndim, ncdim=ncdim, q=q,
+                            bound_kind=bound_kind, nonbounded=nonbounded,
                             dtype=ns.dtype, device=ns.device,
                             timings=ns.timings)
-    refit = make_ellipsoid_refit(ndim, dtype=ns.dtype) \
+    refit = make_ellipsoid_refit(ncdim, dtype=ns.dtype) \
         if bound_kind == "ellipsoids" else None
 
     def propose(gen, live, axes_args, scale, loglstar):
         if refit is not None:
-            axes_args = dict(axes_args, **refit(live[:, :ndim], axes_args))
+            axes_args = dict(axes_args, **refit(live[:, :ncdim], axes_args))
         packed = inner(gen, loglstar, axes_args)
         qnc = packed[:, il + 1].to(torch.int64)
         stats = (packed[0, il + 2], packed[0, il + 3], packed[0, il + 4])
@@ -222,7 +308,6 @@ class UniformBoundSampler(InternalSampler):
     the cumulative ncall reaches the host refit cadence (ctrl[21])."""
 
     name = "unif"
-    gate_rounds_on_done = True
     chain_stop_on_refit_due = True
     unif_max_chain = 8
 
@@ -246,14 +331,97 @@ class UniformBoundSampler(InternalSampler):
         return gate
 
     def consume_tuning(self, stats):
-        # stats = (nc_total, n_proposals, n_filled) summed over rounds
+        # stats = (nc_total, n_proposals, n_filled) summed over rounds: no
+        # scale tuning, only the rejection-inefficiency warning
         _warn_unif_inefficiency(int(stats[1]), max(int(stats[2]), 1))
+        return None
+
+
+class RWalkSampler(InternalSampler):
+    """Random walks within the scaled bounding ellipsoid ('rwalk')."""
+
+    name = "rwalk"
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        walks = max(2, kwargs.get("walks") or 25)
+        facc = kwargs.get("facc") or 0.5
+        self.walks = walks
+        self.facc = min(1.0, max(1.0 / walks, facc))
+        self.rwalk_history = {"n_accept": 0, "n_reject": 0}
+
+    @property
+    def update_bound_interval_ratio(self):
+        return self.walks
+
+    def _fused_cfg_key(self):
+        return (self.walks, self.facc, self.ncdim)
+
+    def device_tune_fn(self):
+        facc0, ncdim = self.facc, self.ncdim
+
+        def tune_fn(scale, stats):  # stats = (n_accept, n_reject, ...)
+            facc = stats[0] / (stats[0] + stats[1]).clamp_min(1.0)
+            return scale * torch.exp((facc - facc0) / ncdim / facc0)
+
+        return tune_fn
+
+    def _build_propose_fn(self, ns, bound_kind):
+        like = ns.loglikelihood
+        ndim, ncdim, q = self.ndim, self.ncdim, ns.queue_size
+        il = ndim + like.npdim
+        walks = self.walks
+        inner = make_rwalk_round(
+            like, ndim=ndim, ncdim=ncdim, q=q, walks=walks,
+            nonbounded=self.sampler_kwargs.get("nonbounded"),
+            periodic=self.sampler_kwargs.get("periodic"),
+            reflective=self.sampler_kwargs.get("reflective"),
+            dtype=ns.dtype, device=ns.device)
+
+        def propose(gen, live, axes_args, scale, loglstar):
+            idxs, starts, axes = select_starts(
+                gen, live, il, q, bound_kind, axes_args, ns.dtype,
+                eye_dim=ncdim, loglstar=loglstar)
+            packed_in = torch.cat([starts[:, :il + 1], axes.reshape(q, -1)],
+                                  dim=1)
+            packed = inner(gen, packed_in, scale, loglstar)
+            qnc = torch.full((q,), walks, dtype=torch.int64,
+                             device=packed.device)
+            stats = (packed[:, il + 1].sum(), packed[:, il + 2].sum())
+            return (packed[:, :ndim], packed[:, ndim:il], packed[:, il],
+                    qnc, stats, packed[:, il + 1:il + 3])
+
+        return propose
+
+    def consume_tuning(self, stats):
+        return {"accept": int(stats[0]), "reject": int(stats[1]),
+                "scale": self.scale}
+
+    def row_stats(self, a, b):
+        """Per-record proposal_stats from the two lane-stat columns."""
+        return {"n_accept": int(a), "n_reject": int(b)}
+
+    def tune(self, tuning_info, update=True):
+        """Newton-like scale update toward the target acceptance rate
+        (the host form of :meth:`device_tune_fn`)."""
+        self.scale = tuning_info["scale"]
+        hist = self.rwalk_history
+        hist["n_accept"] += tuning_info["accept"]
+        hist["n_reject"] += tuning_info["reject"]
+        if not update:
+            return
+        accept, reject = hist["n_accept"], hist["n_reject"]
+        facc = accept / max(accept + reject, 1)
+        self.scale *= math.exp((facc - self.facc) / self.ncdim / self.facc)
+        hist["n_accept"] = 0
+        hist["n_reject"] = 0
 
 
 class _SliceBase(InternalSampler):
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
         self.slices = kwargs.get("slices") or 5
+        self.slice_history = {"n_expand": 0, "n_contract": 0}
         self.sampler_kwargs.setdefault("slice_doubling",
                                        kwargs.get("slice_doubling", False))
 
@@ -271,7 +439,6 @@ class _SliceBase(InternalSampler):
     def _post_fused_stats(self, stats):
         if stats is not None and bool(stats[2] > 0) and \
                 not self.sampler_kwargs.get("slice_doubling", False):
-            import warnings
             self.sampler_kwargs["slice_doubling"] = True
             warnings.warn("Slice interval expanded > 1000 times; enabling "
                           "Neal (2003) doubling strategy.")
@@ -301,9 +468,40 @@ class _SliceBase(InternalSampler):
 
         return propose
 
+    def consume_tuning(self, stats):
+        return {"n_expand": int(stats[0]), "n_contract": int(stats[1]),
+                "expansion_warning_set": bool(stats[2] > 0)}
+
     def row_stats(self, a, b):
         """Per-record proposal_stats from the two lane-stat columns."""
         return {"n_expand": int(a), "n_contract": int(b)}
+
+    def tune(self, tuning_info, update=True):
+        """Multiplicative scale update from the balance of expansions and
+        contractions (the host form of :meth:`device_tune_fn`)."""
+        hist = self.slice_history
+        hist["n_expand"] += tuning_info["n_expand"]
+        hist["n_contract"] += tuning_info["n_contract"]
+        if tuning_info.get("expansion_warning_set"):
+            self.sampler_kwargs["slice_doubling"] = True
+        if not update:
+            return
+        n_expand = max(hist["n_expand"], 1)
+        mult = n_expand * 2.0 / (n_expand + hist["n_contract"])
+        self.scale = self.scale * min(max(mult, 0.5), 2.0)
+        hist["n_expand"] = 0
+        hist["n_contract"] = 0
+
+
+class SliceSampler(_SliceBase):
+    """Gibbs-style multivariate slice sampling along shuffled principal
+    axes ('slice')."""
+
+    name = "slice"
+
+    @property
+    def update_bound_interval_ratio(self):
+        return self.slices * self.ndim
 
 
 class RSliceSampler(_SliceBase):
@@ -318,21 +516,29 @@ class RSliceSampler(_SliceBase):
 
 
 def get_internal_sampler(sample, ndim, **kwargs):
-    """Resolve a sampler name ('auto', 'unif' or 'rslice'; rwalk and slice
-    are not yet ported) to an instance, with the JAX package's auto
-    rules."""
+    """Resolve a sampler spec ('auto', a name or an instance) to a fresh
+    instance, with the reference's auto rules: unif for ndim < 10, rwalk
+    for 10 <= ndim <= 20, rslice above."""
     if isinstance(sample, InternalSampler):
-        return sample
+        return sample._new_from_template(dict(kwargs, ndim=ndim))
     if sample == "auto":
         sample = "unif" if ndim < 10 else "rwalk" if ndim <= 20 \
             else "rslice"
+    kwargs = dict(kwargs, ndim=ndim)
+    if sample == "unif":
+        return UniformBoundSampler(**kwargs)
+    if sample == "rwalk":
+        if kwargs.get("walks") is None:
+            kwargs["walks"] = ndim + 20
+        return RWalkSampler(**kwargs)
+    if sample == "slice":
+        if kwargs.get("slices") is None:
+            kwargs["slices"] = 3
+        return SliceSampler(**kwargs)
     if sample == "rslice":
         if kwargs.get("slices") is None:
             kwargs["slices"] = 3 + ndim
-        return RSliceSampler(**dict(kwargs, ndim=ndim))
-    if sample == "unif":
-        return UniformBoundSampler(ndim=ndim)
-    if sample in ("rwalk", "slice"):
-        raise NotImplementedError(f"sample='{sample}' is not yet ported")
-    raise ValueError(f"Unknown sample option '{sample}'")
-
+        return RSliceSampler(**kwargs)
+    raise ValueError(f"Unknown sample option '{sample}' (choose from "
+                     f"{INTERNAL_SAMPLER_LIST} or pass an InternalSampler "
+                     "instance)")

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "unitcheck", "unitcheck_batch", "randsphere", "randsphere_batch",
+    "unitcheck", "unitcheck_batch", "apply_reflect", "randsphere",
+    "randsphere_batch",
     "logvol_prefactor", "rand_choice", "improve_covar_mat",
 ]
 
@@ -42,6 +43,13 @@ def unitcheck_batch(u, nonbounded=None):
     lo = torch.where(nb, 0.0, -0.5).to(u.dtype)
     hi = torch.where(nb, 1.0, 1.5).to(u.dtype)
     return ((u > lo) & (u < hi)).all(dim=-1)
+
+
+def apply_reflect(u):
+    """Device: map values to [0, 1] by repeated reflection at both edges
+    (elementwise, any shape): 2n + x and 2n - x both map to x."""
+    m2 = torch.remainder(u, 2.0)
+    return torch.where(m2 < 1.0, m2, 2.0 - m2)
 
 
 def randsphere(n, rstate):

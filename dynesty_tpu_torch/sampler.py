@@ -5,9 +5,16 @@ Each dispatch runs up to ``rounds_per_dispatch`` chained propose+consume
 rounds on the device (``internal/fused.py``); between dispatches the host
 appends the records, applies the proposal tuning, and refits the bound
 when its cadence is due.  The live points stay on the device between
-dispatches and are mirrored to the host only for a refit and at the end.
-Pipelined pre-launch, leftover replay and checkpoint/resume are not yet
-ported.
+dispatches and are mirrored to the host only for a refit, a checkpoint and
+at the end.
+
+A run stopped by ``maxiter``/``maxcall`` can be re-entered with
+``sample(resume=True)``, before or after a pickle round trip
+(:meth:`Sampler.save`, :meth:`Sampler.restore`), and then continues bit
+for bit as the uninterrupted run would have: the interrupted round's
+unconsumed proposals are kept and replayed (consume only), and the
+interrupted dispatch's remaining rounds are regenerated from its seed.
+The pipelined pre-launch of the next dispatch is not ported.
 """
 
 import copy
@@ -23,10 +30,10 @@ from .bounding import UnitCube, get_bound
 from .internal.kernels import f32_precision
 from .internal.samplers import UnitCubeSampler
 from .ops.integrals import LOWL_VAL, compute_integrals, progress_integration
+from .utils.checkpoint import restore_sampler, save_sampler
 from .utils.convert import bound_arrays_to_torch, live_to_torch
-from .utils.misc import (IteratorBlock, IteratorResult, Timings,
-                         get_print_func, get_random_generator,
-                         get_torch_generator)
+from .utils.misc import (DelayTimer, IteratorBlock, IteratorResult, Timings,
+                         get_print_func, get_random_generator)
 from .utils.results import Results, RunRecord
 
 __all__ = ["Sampler", "initialize_live_points"]
@@ -169,8 +176,110 @@ class Sampler:
         self._live_dev = None
         self._mirror_stale = False
         self._bound_upload = None
+        self._init_resume_state()
+
+    def _init_resume_state(self):
+        """The state that lets an interrupted run continue exactly; all
+        of it is host data and pickled."""
         self._last_delta_logz = None
         self._nc_carry = 0
+        # integrator carry after the last consumed dispatch
+        self._integ = None
+        # per-record yields staged but not yet drained
+        self._pending_records = []
+        # unconsumed tail of an interrupted round: {prop, kills, birth0,
+        # cont}
+        self._leftover = None
+        # remaining rounds of an interrupted dispatch: {key_seed, skip,
+        # rounds, queue_size, refit_due_ncall}
+        self._continuation = None
+        # evaluations of entries discarded since the last death, at the
+        # point where an interrupted dispatch stopped: the device carries
+        # this count from entry to entry within a dispatch, the host
+        # carries it into the replay and the continuation
+        self._nc_accum_carry = 0
+        # the planned, not yet consumed dispatch
+        self._next_spec = None
+        self._terminal_done = False
+        self.interrupted_budget = False
+
+    # ------------------------------------------------------------------
+    # persistence
+
+    def save(self, fname):
+        """Write the whole sampler to ``fname`` (atomically)."""
+        save_sampler(self, fname)
+
+    @staticmethod
+    def restore(fname, device=None):
+        """The sampler saved in ``fname``, on the device it was saved
+        from unless ``device`` names another; a ``cuda`` checkpoint raises
+        where CUDA is absent."""
+        return restore_sampler(fname, device=device)
+
+    def __getstate__(self):
+        self._ensure_live_mirror()
+        state = self.__dict__.copy()
+        for k in ("_live_dev", "_bound_upload", "_mirror_stale"):
+            state.pop(k, None)
+        state["device"] = str(self.device)  # stored by name
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__ = state
+        self.device = torch.device(state["device"])
+        self._live_dev = None
+        self._bound_upload = None
+        self._mirror_stale = False
+
+    def set_device(self, device):
+        """Move the sampler to ``device``: the host mirrors are brought up
+        to date, and every device tensor and built round is dropped, to be
+        made anew there."""
+        self._ensure_live_mirror()
+        self.device = torch.device(device)
+        self.loglikelihood.device = self.device
+        for b in [self.bound, self.bound_next] + list(self.bound_list):
+            if hasattr(b, "device"):
+                b.device = self.device
+        for s in (self.internal_sampler, self.internal_sampler_next):
+            s._round_cache = {}
+        self._live_dev = None
+        self._bound_upload = None
+
+    def reset(self):
+        """Re-initialize: fresh live points from the prior and a cleared
+        run state."""
+        live_points, logvol_init, init_ncalls = initialize_live_points(
+            None, self.loglikelihood, self.nlive, self.ndim, self.rstate)
+        self.live_u, self.live_v, self.live_logl = live_points[:3]
+        self.live_bound = np.zeros(self.nlive, dtype=int)
+        self.live_it = np.zeros(self.nlive, dtype=int)
+        self.live_birth = np.full(self.nlive, -np.inf)
+        self.logvol_init = logvol_init
+        self.it = 1
+        self.ncall = init_ncalls
+        self.added_live = False
+        self.eff = 0.0
+        self.unit_cube_sampling = True
+        self.bound = UnitCube(self.ncdim)
+        self.bound_list = [self.bound]
+        self.nbound = 1
+        self.bound_version += 1
+        self.logl_first_update = None
+        self.ncall_at_last_update = 0
+        self.bound_next = get_bound(self.bounding, self.ncdim,
+                                    device=self.device)
+        self.internal_sampler = UnitCubeSampler(ndim=self.ndim)
+        self.plateau_mode = False
+        self.plateau_counter = None
+        self.plateau_logdvol = None
+        self.saved_run = RunRecord()
+        self.timings = Timings()
+        self._live_dev = None
+        self._mirror_stale = False
+        self._bound_upload = None
+        self._init_resume_state()
 
     # ------------------------------------------------------------------
     # bound management
@@ -316,22 +425,34 @@ class Sampler:
         return None
 
     def _make_dispatch_spec(self, dlogz_eff, loglstar):
-        """Run the refit trigger (the only place host refits fire), size
-        the dispatch's active rounds from the remaining-work estimate,
-        and draw the dispatch's generator from the host stream."""
+        """Plan one fused dispatch: run the refit trigger (the only place
+        host refits fire), size the dispatch's active rounds from the
+        remaining-work estimate, and draw the dispatch's seed from the
+        host stream.
+
+        The spec is kept as ``_next_spec`` until its dispatch is consumed,
+        so the dispatch structure is a pure function of pickled state.  It
+        records the refit-due ncall (ctrl[21]) it was planned with, and
+        the launch uses the recorded value: a spec launched after the
+        sampler's counters have moved (a pre-launched dispatch, once those
+        exist) still runs the gate it was planned with.  The
+        maxiter/maxcall budgets must not shape the dispatch, for the same
+        reason."""
         self.update_bound_if_needed(max(loglstar, np.float64(LOWL_VAL)),
                                     ncall=self.ncall)
         est = self._estimate_remaining(dlogz_eff)
         q = self.queue_size
-        gated = self.internal_sampler.gate_rounds_on_done and \
-            not self.unit_cube_sampling
-        if gated or est is None:
+        if not self.unit_cube_sampling or est is None:
+            # the device skips every chained round past a stop, so an
+            # overshoot proposes and bills nothing: chain the full depth
             rounds_active = None
         else:
             rounds_active = max(1, int(math.ceil(
                 (min(est, 2**30) + q // 2) / q)))
-        return {"gen": get_torch_generator(self.rstate, self.device),
-                "rounds_active": rounds_active}
+        return {"key_seed": int(self.rstate.integers(0, 2**63 - 1)),
+                "queue_size": q, "rounds_active": rounds_active,
+                "refit_due_ncall":
+                    self.internal_sampler._refit_due_ncall(self)}
 
     # ------------------------------------------------------------------
     # results
@@ -371,37 +492,69 @@ class Sampler:
     # the main loop
 
     def sample(self, maxiter=None, maxcall=None, dlogz=0.01,
-               logl_max=np.inf, save_bounds=True, per_dispatch=False):
+               logl_max=np.inf, add_live=True, save_bounds=True,
+               resume=False, per_dispatch=False):
         """Generator yielding one dead point per iteration, or one
         :class:`IteratorBlock` per dispatch with ``per_dispatch=True``.
 
         Synchronous: launch a dispatch, wait for its flat result, append
-        its records, then run the refit trigger before the next one."""
+        its records, then run the refit trigger before the next one.
+
+        A stop by ``maxiter``/``maxcall`` sets ``interrupted_budget`` and
+        keeps what the stopped dispatch left: ``sample(resume=True)``
+        first replays the interrupted round's unconsumed proposals (no
+        random number is drawn), then regenerates the dispatch's remaining
+        rounds from its seed, and goes on as the uninterrupted run would.
+        ``add_live`` is accepted for the callers' convention; the live
+        points are added by :meth:`add_live_points`."""
         if maxcall is None:
             maxcall = sys.maxsize
         if maxiter is None:
             maxiter = sys.maxsize
         self.save_bounds = save_bounds
+        self.interrupted_budget = False
         ncall = 0
         if self.it == 1 or len(self.saved_run["logl"]) == 0:
             h, logz, logzvar = 0.0, LOWL_VAL, 0.0
             logvol, loglstar = self.logvol_init, LOWL_VAL
         else:
-            if self.added_live:
+            if self.added_live and not resume:
+                warnings.warn("Repeatedly running sample() or run_nested() "
+                              "(not resuming) is deprecated",
+                              DeprecationWarning)
                 self._remove_live_points()
             h, logz, logzvar, logvol, loglstar = [
                 self.saved_run[k][-1]
                 for k in ("h", "logz", "logzvar", "logvol", "logl")]
         ndim, npdim = self.ndim, self.loglikelihood.npdim
-        rec_off = 1 + ndim + npdim
+        il = ndim + npdim
+        nc_col = il + 1  # nc column of the proposals block
+        rec_off = 1 + il
         dlogz_eff = -np.inf if dlogz is None else dlogz
         accepted = 0
-        terminal = False
-        pending, pending_block = [], None
+        # a natural stop can leave pending yields to drain, and a
+        # checkpoint can fall into that drain: the stop is pickled state,
+        # or a resumed run would plan a dispatch (and draw a seed) that
+        # the uninterrupted run never made
+        if not resume:
+            self._terminal_done = False
+        terminal = bool(self._terminal_done) and resume
+        if self._integ is not None and resume:
+            st = self._integ
+            logz, logzvar = st["logz"], st["logzvar"]
+            h, logvol, loglstar = st["h"], st["logvol"], st["loglstar"]
+        pending_block = None
+
+        def upload_live():
+            if self._live_dev is None:
+                self._live_dev = live_to_torch(
+                    self._live_packed(), self.device, self.dtype,
+                    ndim=ndim, npdim=npdim)
 
         while True:
-            while pending:
-                row = pending.pop(0)
+            # drain the staged yields (their rows are in saved_run already)
+            while self._pending_records:
+                row = self._pending_records.pop(0)
                 accepted += 1
                 ncall += row["nc"]
                 yield IteratorResult(**row)
@@ -411,15 +564,16 @@ class Sampler:
                 yield pending_block
                 pending_block = None
             if terminal:
+                self.interrupted_budget = False
                 break
             if accepted >= maxiter or ncall >= maxcall:
+                self.interrupted_budget = True
                 warnings.warn(
                     "Sampling stopped short by maxiter/maxcall before "
                     "reaching the dlogz criterion; posterior may be "
                     "poorly sampled.")
                 break
 
-            spec = self._make_dispatch_spec(dlogz_eff, loglstar)
             bounditer = 0 if self.unit_cube_sampling else self.nbound - 1
             # f32-safe clamp of the -1e300 sentinel
             integ = np.array([
@@ -431,31 +585,137 @@ class Sampler:
                 float(dlogz_eff), float(logl_max),
                 float(min(maxiter - accepted, 2**30)),
                 float(min(maxcall - ncall, 2**30))])
-            axes_args = self.device_bound_arrays()
-            if self._live_dev is None:
-                self._live_dev = live_to_torch(
-                    self._live_packed(), self.device, self.dtype,
-                    ndim=ndim, npdim=npdim)
+
             t0 = time.perf_counter()
-            handle = self.internal_sampler.launch_fused(
-                self, spec["gen"], self._live_dev, axes_args, integ, limits,
-                rounds_active=spec["rounds_active"])
-            out, live_out = self.internal_sampler.finish_fused(handle)
+            if self._leftover is not None:
+                # consume-only replay of an interrupted round's tail, one
+                # queue_size chunk at a time, padded with rows that lose
+                # every comparison (logl = -1e30, nc = 0)
+                upload_live()
+                qsz = self.queue_size
+                prop = self._leftover["prop"][:qsz]
+                n_real_limit = len(prop)
+                pad = np.zeros((qsz - n_real_limit, prop.shape[1]))
+                pad[:, il] = -1e30
+                prop_dev = torch.as_tensor(
+                    np.concatenate([prop, pad]), dtype=self.dtype,
+                    device=self.device)
+                out, live_out = self.internal_sampler.run_replay(
+                    self, self._live_dev, prop_dev, integ, limits,
+                    kills0=self._leftover["kills"],
+                    birth0=self._leftover["birth0"])
+                skip_off = 0
+                dispatch_spec = None
+                self.timings.count("n_replay")
+            elif self._continuation is not None:
+                # the interrupted dispatch's remaining rounds, from its own
+                # seed with the consumed rounds skipped: the replay has
+                # brought the live set to where those rounds start.  No
+                # refit and no draw from the host stream here.
+                cont = self._continuation
+                self._continuation = None
+                self.queue_size = cont["queue_size"]
+                upload_live()
+                out, live_out = self.internal_sampler.run_fused(
+                    self, cont["key_seed"], self._live_dev,
+                    self.device_bound_arrays(), integ, limits,
+                    rounds_active=cont["rounds"], rounds_skip=cont["skip"],
+                    refit_due_ncall=cont["refit_due_ncall"])
+                skip_off = cont["skip"] * self.queue_size
+                dispatch_spec = cont
+                n_real_limit = min(len(out["accepts"]),
+                                   cont["rounds"] * self.queue_size)
+                if out["done_reason"] & 32 and not out["done_reason"] & 31:
+                    # chain-stop gate: the gated rounds never ran
+                    n_real_limit = skip_off + out["n_consumed"]
+                self.timings.count("n_continuation")
+            else:
+                spec = self._next_spec
+                if spec is None:
+                    spec = self._make_dispatch_spec(dlogz_eff, loglstar)
+                    self._next_spec = spec
+                    # a refit may have run: the first one swaps the bound
+                    bounditer = 0 if self.unit_cube_sampling \
+                        else self.nbound - 1
+                self.queue_size = spec["queue_size"]
+                axes_args = self.device_bound_arrays()
+                upload_live()
+                t0 = time.perf_counter()
+                handle = self.internal_sampler.launch_fused(
+                    self, spec["key_seed"], self._live_dev, axes_args,
+                    integ, limits, rounds_active=spec["rounds_active"],
+                    refit_due_ncall=spec["refit_due_ncall"])
+                out, live_out = self.internal_sampler.finish_fused(handle)
+                # consumed below: this spec is no longer the next one
+                self._next_spec = None
+                skip_off = 0
+                dispatch_spec = spec
+                n_real_limit = min(len(out["accepts"]),
+                                   handle["rounds_active"] * self.queue_size)
+                if out["done_reason"] & 32 and not out["done_reason"] & 31:
+                    n_real_limit = out["n_consumed"]  # chain-stop gate
             self.timings.add("dispatch", time.perf_counter() - t0)
             self.timings.count("n_dispatch")
             self.timings.count("sync_flat")
             t_cons0 = time.perf_counter()
             self.timings.count("nc_launched", out["nc_launched"])
 
+            # ---- what the dispatch left unconsumed
+            n_cons = min(out["n_consumed"], n_real_limit - skip_off)
+            kept_nc = 0
+            if self._leftover is not None:
+                # chunked replay: drop the consumed prefix; the kill offset
+                # advances by this chunk's deaths
+                lo = self._leftover
+                prop_rest = lo["prop"][n_cons:]
+                if len(prop_rest):
+                    kept_nc = int(prop_rest[:, nc_col].sum())
+                    self._leftover = dict(
+                        lo, prop=prop_rest,
+                        kills=lo["kills"] + out["n_accepted"])
+                else:
+                    # tail replayed: the interrupted dispatch's remaining
+                    # rounds come next
+                    self._continuation = lo["cont"]
+                    self._leftover = None
+            elif n_cons < n_real_limit - skip_off:
+                # the dispatch ended early.  Only the interrupted round's
+                # own tail can be replayed as it is; later rounds propose
+                # from a live set that the replay still has to advance, so
+                # they are recorded as a continuation.
+                qr = self.queue_size
+                g = skip_off + n_cons  # global entry index of the stop
+                r0 = g // qr
+                lo_end = min(n_real_limit, (r0 + 1) * qr)
+                kills = int(np.sum(out["accepts"][r0 * qr:g])) \
+                    if self.proposal_mode == "batch" else 0
+                props = out["proposals_dev"][g:lo_end].cpu().numpy().astype(
+                    np.float64)
+                n_rounds_exec = n_real_limit // qr
+                cont = None
+                if r0 + 1 < n_rounds_exec:
+                    cont = {"key_seed": dispatch_spec["key_seed"],
+                            "skip": r0 + 1, "rounds": n_rounds_exec,
+                            "queue_size": qr,
+                            "refit_due_ncall":
+                                dispatch_spec["refit_due_ncall"]}
+                if len(props):
+                    kept_nc = int(props[:, nc_col].sum())
+                    # births of the refills made while replaying the tail:
+                    # the interrupted round's threshold
+                    self._leftover = {
+                        "prop": props, "kills": kills, "cont": cont,
+                        "birth0": float(out["round_thresholds"][r0])}
+                else:
+                    self._continuation = cont
+
+            # ---- adopt the device-side state
             self._live_dev = live_out
             self._mirror_stale = True
             self._mirror_bounditer = bounditer
-            n_real = min(len(out["accepts"]),
-                         handle["rounds_active"] * self.queue_size)
-            if out["done_reason"] & 32 and not out["done_reason"] & 31:
-                n_real = out["n_consumed"]  # chain-stop gate fired
             if out["n_consumed"] > 0:
-                last_i = min(out["n_consumed"], n_real) - 1
+                last_i = min(skip_off + out["n_consumed"],
+                             len(out["delta_logz"])) - 1
                 self._last_delta_logz = float(out["delta_logz"][last_i])
             ig = out["integ"]
             logz, logzvar = float(ig["logz"]), float(ig["logzvar"])
@@ -465,19 +725,25 @@ class Sampler:
             self.plateau_counter = ig["plateau_counter"]
             self.plateau_logdvol = float(ig["plateau_logdvol"])
             self.it = ig["it"]
+            self._integ = dict(logz=logz, logzvar=logzvar, h=h,
+                               logvol=logvol, loglstar=loglstar)
             nc_round = out["nc_used"]
-            # evaluations launched but not consumed are billed now (no
-            # leftover replay in this port yet)
-            extra_nc = max(out["nc_launched"] - nc_round, 0)
+            # exact billing: evaluations launched by this dispatch that
+            # were neither consumed nor kept for the replay are charged now
+            extra_nc = max(out["nc_launched"] - nc_round - kept_nc, 0)
             self.ncall += nc_round + extra_nc
+            has_records = bool(out["accepts"].any())
+            staged_nc = int(np.sum(
+                out["records"][out["accepts"], rec_off + 6]))
+            carry_in = self._nc_accum_carry if has_records else 0
             if per_dispatch:
                 pending_block = IteratorBlock(n=0, nc=nc_round + extra_nc)
             else:
-                staged_nc = int(np.sum(
-                    out["records"][out["accepts"], rec_off + 6]))
-                ncall += nc_round - staged_nc
+                # the yields bring staged_nc and carry_in: add the rest
+                # (the discarded entries' calls) here
+                ncall += nc_round - staged_nc - carry_in
             self.eff = 100.0 * (self.it - 1) / max(self.ncall, 1)
-            if not self.unit_cube_sampling:
+            if out["stats"] is not None and not self.unit_cube_sampling:
                 self.internal_sampler.apply_fused_tuning(out)
 
             # terminal causes: 1=dlogz, 2=logl_max, 4=live plateau
@@ -486,18 +752,35 @@ class Sampler:
                     warnings.warn("A likelihood plateau was reached; "
                                   "stopping the run.")
                 terminal = True
+                self._terminal_done = True
+                if self._leftover is not None:
+                    # the run is over: bill the kept evaluations, drop them
+                    lo_nc = int(self._leftover["prop"][:, nc_col].sum())
+                    self.ncall += lo_nc
+                    extra_nc += lo_nc
+                    self._leftover = None
+                # a continuation is work never launched: nothing to bill
+                self._continuation = None
+                self._next_spec = None
+            if self._leftover is None and self._continuation is None:
+                self._nc_accum_carry = 0  # the dispatch is over
+            elif has_records:
+                self._nc_accum_carry = nc_round - staged_nc
+            else:
+                self._nc_accum_carry += nc_round
 
-            pend, n_new = self._append_records(out, bounditer, extra_nc,
-                                               per_dispatch)
-            pending.extend(pend)
+            n_new = self._append_records(out, bounditer, extra_nc, carry_in,
+                                         per_dispatch)
             if per_dispatch:
                 pending_block = IteratorBlock(n=n_new, nc=pending_block.nc)
             self.timings.add("consume", time.perf_counter() - t_cons0)
         self._ensure_live_mirror()
 
-    def _append_records(self, out, bounditer, extra_nc, per_dispatch):
-        """Append one dispatch's accepted records to ``saved_run``;
-        returns (per-record yield rows, number of records)."""
+    def _append_records(self, out, bounditer, extra_nc, carry_in,
+                        per_dispatch):
+        """Append one dispatch's accepted records to ``saved_run`` and,
+        unless ``per_dispatch``, stage their per-record yields; returns the
+        number of records."""
         ndim, npdim = self.ndim, self.loglikelihood.npdim
         rec_off = 1 + ndim + npdim
         recs = np.asarray(out["records"], dtype=np.float64)
@@ -508,9 +791,11 @@ class Sampler:
         extra_nc += self._nc_carry
         self._nc_carry = 0 if n_new else extra_nc
         if not n_new:
-            return [], 0
+            return 0
         tail = recs[acc_idx, rec_off:rec_off + 11]
         tail[-1, 6] += extra_nc
+        # discarded entries of the interrupted dispatch's earlier part
+        tail[0, 6] += carry_in
         worsts = recs[acc_idx, 0].astype(int)
         bidx = tail[:, 8].astype(int)
         bidx[bidx < 0] = bounditer
@@ -538,19 +823,19 @@ class Sampler:
         D["blob"].extend([None] * n_new)
         D["proposal_stats"].extend(row_stats)
         if per_dispatch:
-            return [], n_new
+            return n_new
         dlz = out["delta_logz"]
-        rows = [dict(worst=int(worsts[j]), ustar=recs[i, 1:1 + ndim],
-                     vstar=recs[i, 1 + ndim:rec_off], loglstar=tail[j, 0],
-                     logvol=tail[j, 1], logwt=tail[j, 2], logz=tail[j, 3],
-                     logzvar=tail[j, 4], h=tail[j, 5], nc=int(tail[j, 6]),
-                     n=int(tail[j, 9]), birth=tail[j, 10], blob=None,
-                     worst_it=int(tail[j, 7]), boundidx=int(bidx[j]),
-                     bounditer=bounditer, eff=self.eff,
-                     delta_logz=float(dlz[i]),
-                     proposal_stats=row_stats[j])
-                for j, i in enumerate(acc_idx)]
-        return rows, n_new
+        self._pending_records.extend(
+            dict(worst=int(worsts[j]), ustar=recs[i, 1:1 + ndim],
+                 vstar=recs[i, 1 + ndim:rec_off], loglstar=tail[j, 0],
+                 logvol=tail[j, 1], logwt=tail[j, 2], logz=tail[j, 3],
+                 logzvar=tail[j, 4], h=tail[j, 5], nc=int(tail[j, 6]),
+                 n=int(tail[j, 9]), birth=tail[j, 10], blob=None,
+                 worst_it=int(tail[j, 7]), boundidx=int(bidx[j]),
+                 bounditer=bounditer, eff=self.eff,
+                 delta_logz=float(dlz[i]), proposal_stats=row_stats[j])
+            for j, i in enumerate(acc_idx))
+        return n_new
 
     def add_live_points(self):
         """Recycle the final live points as dead points over the remaining
@@ -629,21 +914,34 @@ class Sampler:
 
     def run_nested(self, maxiter=None, maxcall=None, dlogz=None,
                    logl_max=np.inf, add_live=True, print_progress=True,
-                   print_func=None, save_bounds=True):
-        """Run the full static fit (driver around :meth:`sample`)."""
+                   print_func=None, save_bounds=True, checkpoint_file=None,
+                   checkpoint_every=60, resume=False):
+        """Run the full static fit (a loop around :meth:`sample`).  With
+        ``checkpoint_file`` the sampler is saved there every
+        ``checkpoint_every`` seconds and at the end; ``resume=True``
+        continues a stopped (and possibly restored) run."""
+        if resume and self.added_live:
+            warnings.warn("Cannot resume a successfully finished run; "
+                          "no sampling performed.", RuntimeWarning)
+            return
         if dlogz is None:
             dlogz = 1e-3 * (self.nlive - 1.0) + 0.01 if add_live else 0.01
         print_func = get_print_func(print_func, print_progress)
+        if checkpoint_file is not None:
+            timer = DelayTimer(checkpoint_every)
         t_run0 = time.perf_counter()
         try:
             ncall = self.ncall
             for results in self.sample(maxiter=maxiter, maxcall=maxcall,
                                        dlogz=dlogz, logl_max=logl_max,
                                        save_bounds=save_bounds,
+                                       resume=resume, add_live=add_live,
                                        per_dispatch=not print_progress):
                 ncall += results.nc
                 if print_progress:
                     print_func(results, self.it - 1, ncall, dlogz=dlogz)
+                if checkpoint_file is not None and timer.is_time():
+                    self.save(checkpoint_file)
             if add_live:
                 t_al0 = time.perf_counter()
                 for it, results in enumerate(self.add_live_points(), 1):
@@ -662,6 +960,8 @@ class Sampler:
             self.saved_run["logzvar"] = new_logzvar.tolist()
             self.saved_run["h"] = new_h.tolist()
             self.timings.add("integrals", time.perf_counter() - t_int0)
+            if checkpoint_file is not None:
+                self.save(checkpoint_file)
         finally:
             self.timings.add("total", time.perf_counter() - t_run0)
             if print_progress:

@@ -6,6 +6,7 @@ host stream (:func:`get_torch_generator`), so a seed reproduces a run.
 """
 
 import sys
+import time
 from collections import namedtuple
 
 import numpy as np
@@ -13,8 +14,8 @@ import torch
 
 __all__ = [
     "get_random_generator", "get_seed_sequence", "get_torch_generator",
-    "torch_generator", "resample_equal", "IteratorResult", "IteratorBlock", "Timings",
-    "get_print_func", "print_fn_fallback",
+    "torch_generator", "resample_equal", "IteratorResult", "IteratorBlock",
+    "Timings", "DelayTimer", "get_print_func", "print_fn_fallback",
 ]
 
 
@@ -29,10 +30,14 @@ class Timings(dict):
 
     Counts (int): ``n_dispatch``, ``n_refit``, ``nc_launched`` and the
     host synchronisations forced by data-dependent loops:
-    ``sync_wave`` (one per unit-cube rejection wave), ``sync_slice``
-    (one per rslice state-machine iteration), ``sync_round`` (per-round
-    thin-path and skip gates) and ``sync_flat`` (one result download per
-    dispatch).
+    ``sync_wave`` (one per rejection wave of the uniform kernels),
+    ``sync_slice`` (one per slice state-machine iteration; in doubling
+    mode one per expansion, per shrink and per halving of the acceptance
+    test), ``sync_round`` (per-round thin-path and skip gates) and
+    ``sync_flat`` (one result download per dispatch).  The random-walk
+    kernel adds none.  ``n_replay`` and ``n_continuation`` count the
+    consume-only replays and the continuation dispatches of a resumed
+    run.
     """
 
     def add(self, key, dt):
@@ -40,6 +45,21 @@ class Timings(dict):
 
     def count(self, key, n=1):
         self[key] = self.get(key, 0) + n
+
+
+class DelayTimer:
+    """Tells whether ``delay`` seconds have elapsed since the last
+    affirmative check; paces checkpoint writes."""
+
+    def __init__(self, delay):
+        self.delay = delay
+        self.last_time = time.time()
+
+    def is_time(self):
+        if time.time() - self.last_time > self.delay:
+            self.last_time = time.time()
+            return True
+        return False
 
 
 IteratorResult = namedtuple("IteratorResult", [

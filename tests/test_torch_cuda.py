@@ -215,3 +215,134 @@ def test_cuda_default_arguments_pass_the_gate(cuda):
     s.run_nested(print_progress=False)
     res = s.results
     assert abs(res.logz[-1] + 8.987) < 4 * res.logzerr[-1]
+
+
+# --------------------------------------------------------------------------
+# the remaining proposal kernels and resume
+
+
+def normal_loglike(x):  # module level: a sampler over it pickles
+    return -0.5 * (x @ x)
+
+
+def box_ptform(u):
+    return 10.0 * (2.0 * u - 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rwalk", "slice", "rslice-doubling"])
+def test_cuda_kernel_uniformity(cuda, kind):
+    """The distributional gate of tests/test_sampling.py on the card:
+    chains inside a diamond stay uniform."""
+    from scipy.stats import kstest
+
+    from dynesty_tpu_torch.internal.kernels import (make_rwalk_round,
+                                                    make_slice_round)
+    from dynesty_tpu_torch.internal.likelihood import LogLikelihood
+    from dynesty_tpu_torch.utils.misc import Timings, torch_generator
+
+    def loglike(x):
+        inside = (x[0] - 0.5).abs() + (x[1] - 0.5).abs() < 0.5
+        return torch.where(inside, 0.0, -torch.inf).to(x.dtype)
+
+    q = 512
+    like = LogLikelihood(loglike, lambda u: u, 2, device=cuda)
+    like.eval_host(np.full((2, 2), 0.5))
+    rstate = get_rstate()
+    starts = []
+    while len(starts) < q:
+        pts = rstate.random((4 * q, 2))
+        ok = np.abs(pts[:, 0] - 0.5) + np.abs(pts[:, 1] - 0.5) < 0.5
+        starts.extend(pts[ok][:q - len(starts)])
+    u = np.array(starts)
+    v, logl = u.copy(), np.zeros(q)
+    axes = np.tile(np.eye(2) * 0.5, (q, 1, 1))
+    timings = Timings()
+    if kind == "rwalk":
+        fn = make_rwalk_round(like, ndim=2, ncdim=2, q=q, walks=20,
+                              dtype=torch.float64, device=cuda)
+    else:
+        name, _, doubling = kind.partition("-")
+        fn = make_slice_round(like, ndim=2, q=q, slices=3, kind=name,
+                              doubling=bool(doubling), dtype=torch.float64,
+                              device=cuda, timings=timings)
+    for _ in range(3):
+        packed_in = torch.from_numpy(np.concatenate(
+            [u, v, logl[:, None], axes.reshape(q, -1)], axis=1)).to(cuda)
+        gen = torch_generator(int(rstate.integers(2**63)), cuda)
+        packed = fn(gen, packed_in, 1.0, -0.5)
+        assert packed.device.type == "cuda"
+        packed = packed.cpu().numpy()
+        u, v, logl = packed[:, :2], packed[:, 2:4], packed[:, 4]
+    assert np.all(np.abs(u[:, 0] - 0.5) + np.abs(u[:, 1] - 0.5) < 0.5)
+    a = (u[:, 0] - 0.5) + (u[:, 1] - 0.5)
+    b = (u[:, 0] - 0.5) - (u[:, 1] - 0.5)
+    for coord in (a, b):
+        assert kstest(coord + 0.5, "uniform").pvalue > 1e-4
+    assert abs(np.corrcoef(a, b)[0, 1]) < 0.15
+    assert ("sync_slice" in timings) == (kind != "rwalk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound, sample", [("single", "rwalk"),
+                                           ("balls", "slice"),
+                                           ("multi", "unif")])
+def test_cuda_resume_bit_identical(cuda, bound, sample, tmp_path):
+    """A run stopped on the card, saved, restored and resumed equals its
+    uninterrupted twin bit for bit."""
+    import dynesty_tpu_torch as dyt
+
+    def sampler():
+        return dyt.NestedSampler(normal_loglike, box_ptform, 3, nlive=200,
+                                 bound=bound, sample=sample, queue_size=64,
+                                 rstate=get_rstate(56432))
+
+    full = sampler()
+    full.run_nested(print_progress=False)
+    s = sampler()
+    s.run_nested(print_progress=False, maxiter=700, add_live=False)
+    fname = str(tmp_path / "cuda.pkl")
+    s.save(fname)
+    del s
+    s2 = dyt.NestedSampler.restore(fname)
+    assert s2.device.type == "cuda"
+    s2.run_nested(print_progress=False, resume=True)
+    assert s2.timings["n_replay"] >= 1
+    a, b = s2.results, full.results
+    assert a.niter == b.niter and s2.ncall == full.ncall
+    for k in ("logl", "logz", "samples", "ncall", "samples_u"):
+        assert np.array_equal(a[k], b[k]), k
+    # the same checkpoint goes on on the CPU when asked to
+    s3 = dyt.NestedSampler.restore(fname, device="cpu")
+    assert s3.device.type == "cpu"
+    s3.run_nested(print_progress=False, resume=True)
+    assert abs(s3.results.logz[-1] - b.logz[-1]) < \
+        4 * np.hypot(s3.results.logzerr[-1], b.logzerr[-1])
+
+
+def test_restore_of_a_cuda_checkpoint_needs_cuda(tmp_path, monkeypatch):
+    """Runs without a card: a checkpoint whose device is 'cuda' raises
+    where CUDA is absent, and restores on the CPU only when asked to."""
+    import dynesty_tpu_torch as dyt
+
+    s = dyt.NestedSampler(normal_loglike, box_ptform, 3, nlive=100,
+                          bound="single", sample="rslice", queue_size=32,
+                          device="cpu", rstate=get_rstate(56432))
+    s.run_nested(print_progress=False, maxiter=450, add_live=False)
+    it = s.it
+    # as a run on the card would have written it: the device by name
+    s.set_device("cpu")
+    s.device = s.loglikelihood.device = torch.device("cuda")
+    fname = str(tmp_path / "cuda.pkl")
+    s.save(fname)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dyt.NestedSampler.restore(fname)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dyt.NestedSampler.restore(fname, device="cuda:0")
+    s2 = dyt.NestedSampler.restore(fname, device="cpu")
+    assert s2.device == s2.loglikelihood.device == torch.device("cpu")
+    assert s2.it == it
+    s2.run_nested(print_progress=False, resume=True)
+    res = s2.results
+    assert np.isfinite(res.logz[-1]) and res.niter > it

@@ -22,7 +22,6 @@ import torch
 import dynesty_tpu.internal.fused as jfused
 import dynesty_tpu_torch.internal.fused as tfused
 from dynesty_tpu_torch.utils.convert import live_to_torch, to_numpy
-from dynesty_tpu_torch.utils.misc import torch_generator
 
 from utils import get_rstate
 
@@ -91,8 +90,7 @@ def _torch_run(live, prop, rounds, mode, ctrl):
     fn, layout = tfused.make_fused_round(
         propose, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
         dtype=torch.float64, device="cpu", rounds=rounds, mode=mode)
-    flat, _, live_out = fn(torch_generator(0, "cpu"),
-                           live_to_torch(live, "cpu"),
+    flat, _, live_out = fn(0, live_to_torch(live, "cpu"),
                            {"prop": torch.from_numpy(prop)}, ctrl)
     return to_numpy(flat), to_numpy(live_out), layout
 

@@ -380,9 +380,8 @@ def test_chain_stops_at_first_boundary_past_refit_due(due_rounds):
         tprop, nlive=nlive, ndim=ndim, npdim=npdim, q=q,
         dtype=torch.float64, device="cpu", rounds=rounds,
         chain_stop_fn=tsam.UniformBoundSampler(
-            ndim=ndim).device_chain_stop_fn(), gate_on_done=True)
-    tflat, _, tlive = tfn(tmisc.torch_generator(0, "cpu"),
-                          torch.from_numpy(live),
+            ndim=ndim).device_chain_stop_fn())
+    tflat, _, tlive = tfn(0, torch.from_numpy(live),
                           {"prop": torch.from_numpy(prop)}, ctrl)
     assert layout == tlayout
     out = _compare(np.asarray(jflat), to_numpy(tflat), np.asarray(jlive),

@@ -93,8 +93,9 @@ def test_unit_cube_round_uniformity_and_nc():
 
 def test_unported_kernels_raise():
     like = _diamond_like()
-    with pytest.raises(NotImplementedError):
-        make_slice_round(like, ndim=2, q=8, slices=2, kind="slice",
+    # both slice kinds are ported; any other is refused
+    with pytest.raises(ValueError, match="slice kind"):
+        make_slice_round(like, ndim=2, q=8, slices=2, kind="hslice",
                          dtype=torch.float64, device="cpu")
     # host-sampled custom bounds are not ported
     with pytest.raises(NotImplementedError):

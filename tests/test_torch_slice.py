@@ -110,17 +110,21 @@ def test_progress_printing_path(capsys):
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="device"):
         dyt.NestedSampler(lambda x: x.sum(), lambda u: u, 2, device=None)
-    for bound, sample, kw in (("multi", "rwalk", {}), ("balls", "slice", {}),
-                              ("multi", "auto", {"blob": True}),
+    for bound, sample, kw in (("multi", "auto", {"blob": True}),
                               ("multi", "auto", {"pool": object()}),
+                              ("multi", "auto", {"likelihood_mode": "host"}),
                               (dyt.bounding.Bound(2), "unif", {})):
         with pytest.raises(NotImplementedError):
             dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
                               bound=bound, sample=sample, device="cpu", **kw)
-    # 'auto' resolves to rwalk for 10 <= ndim <= 20
-    with pytest.raises(NotImplementedError, match="rwalk"):
-        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 12, nlive=20,
-                          device="cpu")
+    # every sampler name is ported; an unknown one is a ValueError, and so
+    # is ncdim with the slice samplers
+    with pytest.raises(ValueError, match="Unknown sample"):
+        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                          sample="hslice", device="cpu")
+    with pytest.raises(ValueError, match="ncdim"):
+        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 3, nlive=20,
+                          sample="rslice", ncdim=2, device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -132,10 +136,37 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, dynesty_tpu_torch; "
+    # every module of the port, imported in a fresh interpreter
+    code = ("import sys, pkgutil, importlib, dynesty_tpu_torch as p; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "assert 'dynesty_tpu_torch.utils.checkpoint' in sys.modules; "
             "assert 'jax' not in sys.modules; "
             "assert 'dynesty_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def test_sources_name_no_jax_import():
+    """No file of the port, nor the GPU smoke test, imports ``jax`` or the
+    JAX package (comments and docstrings may name them)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(dyt.__file__).resolve().parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py",
+                                          root.parent / "bench_nn_kernel.py"]
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "dynesty_tpu"), \
+                    (str(path), name)
 
 
 @pytest.mark.parametrize("bound", ["none", "cubes", "balls"])
