@@ -41,10 +41,26 @@ Phases, in order; any failure raises and exits non-zero:
 12. Resume on the card: the balls/rslice drive of phase 3 stopped at half
     its iterations, saved, restored and resumed must equal phase 3's
     uninterrupted run bit for bit (niter, ncall, logl, logz, samples).
-13. Device-only times (profiler kernel durations) of every comparison,
+13. dynamic3, the JAX package's dynamic bench row:
+    ``DynamicNestedSampler(loglike, ptform, 3, bound='multi',
+    sample='unif', queue_size=256).run_nested()`` with every other
+    argument at its default (nlive 500, n_effective 10,000, the stopping
+    function on).  Gate: evidence within 5 sigma, n_effective >= 10,000,
+    at least one batch.  No kernel may run.
+14. dynamic-balls, the main drive under the dynamic layer:
+    ``bound='balls', sample='rslice', nlive=2048`` with
+    ``run_nested(nlive_init=2048, nlive_batch=2048, maxbatch=2)``.  The
+    base run and both batches refit RadFriends at 2048 points: the exact
+    L2 path must be launched from the base run and from a batch, and
+    every refit must agree with the plain version.
+15. dynamic-resume: dynamic3 with ``maxbatch=3``, once uninterrupted and
+    once stopped inside its first batch by ``maxiter``, saved, restored
+    onto the card and resumed; the two must be equal bit for bit.
+16. Device-only times (profiler kernel durations) of every comparison,
     and of one 256-lane evaluation of the heavy likelihood.
 
-The line before the last is a JSON object of the kernels; the last line is
+Each dynamic phase prints one JSON line of its own.  The line before the
+last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -400,6 +416,189 @@ def resume_drive(dyt, full, maxiter):
     return out
 
 
+# states of a dynamic sampler in which a refit belongs to the base run
+_BASE_STATES = ("INIT", "LIVEPOINTSINIT", "INBASE", "INBASEADDLIVE")
+DYN_NEFF = 10000
+
+
+def _dyn_summary(dns, wall, **config):
+    """Counts, evidence and the wall's split of one dynamic run."""
+    res = dns.results
+    t = dict(dns.timings)
+    inner = sum(t.get(k, 0.0) for k in ("dispatch", "consume", "refit",
+                                        "mirror", "dyn_seeding"))
+    # what the record-by-record loops of the base run and the batches
+    # cost outside the inner samplers' own work
+    per_record = (t.get("dyn_base", 0.0) + t.get("dyn_batch", 0.0) -
+                  inner) / max(int(res.niter), 1)
+    return {
+        "config": dict(config, ndim=dns.ndim, bound=dns.bounding,
+                       sample=dns.sampling.name, seed=SEED,
+                       queue_size=dns.queue_size),
+        "wall_s": wall, "niter": int(res.niter), "ncall": int(dns.ncall),
+        "batches": int(dns.batch),
+        "batch_nlive": [int(n) for n in res.batch_nlive],
+        "batch_logl_bounds": [[float(a), float(b)]
+                              for a, b in res.batch_logl_bounds],
+        "logz": float(res.logz[-1]), "logzerr": float(res.logzerr[-1]),
+        "truth": LOGZ_TRUTH, "n_effective": float(dns.n_effective),
+        "nc_waste": int(dns.nc_waste_total),
+        "per_record_host_us": 1e6 * per_record, "timings": t,
+    }
+
+
+def _dyn_gate(dns, s, what, neff=None):
+    """The gate of a dynamic drive: evidence within 5 sigma, a dynamic
+    result of the right shape, at least one batch, and the effective
+    sample size where the run was to reach one."""
+    res = dns.results
+    ok = (res.isdynamic() and np.isfinite(s["logz"]) and s["logzerr"] > 0
+          and abs(s["logz"] - s["truth"]) < 5 * s["logzerr"]
+          and s["batches"] >= 1
+          and len(res.batch_nlive) == s["batches"] + 1
+          and res.samples.shape == (res.niter, dns.ndim)
+          and np.all(np.isfinite(res.logwt)) and np.ptp(res.samples_n) > 0
+          and dns.batch_sampler is None
+          and (neff is None or s["n_effective"] >= neff))
+    if not ok:
+        raise RuntimeError(f"{what} failed its gate: {s}")
+
+
+def dynamic_drive(dyt, run_kw, **kw):
+    """One ``DynamicNestedSampler(...).run_nested(**run_kw)`` on the 3-D
+    Gaussian on the card's default device; returns (summary, sampler)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dns = dyt.DynamicNestedSampler(
+        gauss_loglike, box_ptform, NDIM,
+        rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
+    if dns.device.type != "cuda":
+        raise RuntimeError(f"the default device is {dns.device}")
+    dns.run_nested(print_progress=False, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return _dyn_summary(dns, wall, **dict(kw, **run_kw)), dns
+
+
+def dynamic_balls_drive(dyt, hk):
+    """The main drive under the dynamic layer, with every friends refit
+    recorded, held against the plain version and attributed to the base
+    run or to a batch (its seeding or its rounds)."""
+    holder, tags = {}, []
+
+    def tag():
+        # the sampler exists before its first refit; a batch's seeding
+        # refits before the batch sampler is handed over
+        state = holder["dns"].internal_state.name
+        return "base" if state in _BASE_STATES else "batch"
+
+    class Factory:
+        """``DynamicNestedSampler`` that keeps the sampler it made."""
+
+        bounding = dyt.bounding
+
+        @staticmethod
+        def DynamicNestedSampler(*a, **kw):
+            holder["dns"] = dyt.DynamicNestedSampler(*a, **kw)
+            return holder["dns"]
+
+    _zero_counts(hk)
+    with recording_refits(dyt, hk, tags=tags, tag=tag) as calls:
+        s, dns = dynamic_drive(
+            Factory, dict(nlive_init=2048, nlive_batch=2048, maxbatch=2),
+            nlive=2048, bound="balls", sample="rslice")
+    s["launches"] = _counts(hk)
+    s["launches_from"] = {k: tags.count(k) for k in ("base", "batch")}
+    s["refit_max_abs_err"] = check_refits(hk, calls, "dynamic-balls drive")
+    _dyn_gate(dns, s, "dynamic-balls drive")
+    if s["launches"]["exact"] != len(tags) or \
+            min(s["launches_from"].values()) < 1:
+        raise RuntimeError(f"the dynamic-balls drive did not launch the "
+                           f"exact path from the base run and from a "
+                           f"batch: {s['launches']} {s['launches_from']}")
+    return s
+
+
+def dynamic_resume_drive(dyt):
+    """dynamic3 with three batches, uninterrupted and stopped inside its
+    first batch by ``maxiter``, saved, restored onto the card and resumed:
+    equal bit for bit, or raises."""
+    kw = dict(bound="multi", sample="unif", queue_size=256)
+    full_s, full = dynamic_drive(dyt, dict(maxbatch=3), **kw)
+    _dyn_gate(full, full_s, "dynamic-resume (uninterrupted)")
+    batch_of = full.results.samples_batch
+    n_base = int(np.sum(batch_of == 0))
+    nlive = full.nlive0
+    n_b1 = int(np.sum(batch_of == 1)) - nlive  # the first batch's rounds
+    # a batch's seeds count against its budget but not against the run's,
+    # so a run stopped inside a batch takes it up once more with what the
+    # seeds left over: the first batch gets extra + nlive records in all
+    extra = n_b1 // 8
+    if extra < 1 or extra + nlive >= n_b1:
+        raise RuntimeError(f"the first batch ({n_b1} records) is too short "
+                           f"to stop inside")
+    maxiter = n_base + nlive + extra
+    first_s, dns = dynamic_drive(dyt, dict(maxbatch=3, maxiter=maxiter),
+                                 **kw)
+    if dns.batch_sampler is None or dns.batch != 0 or \
+            dns.internal_state.name != "INBATCH":
+        raise RuntimeError(f"maxiter={maxiter} did not suspend the first "
+                           f"batch: batch {dns.batch}, state "
+                           f"{dns.internal_state}")
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "dynamic.pkl")
+        dns.save(fname)
+        size = os.path.getsize(fname)
+        del dns
+        restored = dyt.DynamicNestedSampler.restore(fname)
+    devices = {str(x.device) for x in (restored, restored.sampler,
+                                       restored.batch_sampler,
+                                       restored.loglikelihood)}
+    if devices != {"cuda"}:
+        raise RuntimeError(f"restored on {devices}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.run_nested(resume=True, print_progress=False, maxbatch=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a, b = full.results, restored.results
+    same = {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+            for k in ("logl", "logz", "logzerr", "logvol", "logwt",
+                      "samples", "samples_u", "samples_batch", "samples_it",
+                      "samples_n", "ncall", "batch_nlive",
+                      "batch_logl_bounds")}
+    same["niter"] = a.niter == b.niter
+    same["ncall_total"] = full.ncall == restored.ncall
+    same["batches"] = full.batch == restored.batch
+    t = restored.timings
+    out = {"phase": "dynamic-resume", "maxiter": maxiter,
+           "niter_first": first_s["niter"], "niter": int(b.niter),
+           "ncall": int(restored.ncall), "batches": int(restored.batch),
+           "logz": float(b.logz[-1]), "logzerr": float(b.logzerr[-1]),
+           "n_effective": float(restored.n_effective),
+           "wall_full_s": full_s["wall_s"],
+           "wall_first_s": first_s["wall_s"], "wall_resumed_s": wall,
+           "checkpoint_bytes": size, "same": same,
+           "n_replay": t.get("n_replay", 0),
+           "n_continuation": t.get("n_continuation", 0),
+           "timings_full": full_s["timings"]}
+    if not all(same.values()) or out["n_replay"] < 1 or \
+            restored.internal_state.name != "RUN_DONE":
+        raise RuntimeError(f"the resumed dynamic run differs from the "
+                           f"uninterrupted one: {out}")
+    return out
+
+
+def _print_dynamic(name, s, card):
+    """One JSON line of a dynamic drive, the card beside it."""
+    keys = ("niter", "ncall", "batches", "batch_nlive", "logz", "logzerr",
+            "truth", "n_effective", "wall_s", "per_record_host_us",
+            "nc_waste", "launches", "launches_from", "refit_max_abs_err",
+            "timings")
+    print(json.dumps(dict({"phase": name, "card": card},
+                          **{k: s[k] for k in keys if k in s})))
+
+
 def heavy_weights():
     """The heavy bench's chain weights (seed 1234): an orthogonal matrix
     scaled to spectral norm 0.9, an input map, and the Gaussian's
@@ -528,14 +727,17 @@ def _print_drive(name, s, counts, card):
 
 
 @contextlib.contextmanager
-def recording_refits(dyt, hk):
+def recording_refits(dyt, hk, tags=None, tag=None):
     """Keep every input and output of the friends refit's NN-distance call
-    (``dynesty_tpu_torch.bounding.pairwise_min_dist``) while it is open."""
+    (``dynesty_tpu_torch.bounding.pairwise_min_dist``) while it is open;
+    with ``tags`` and ``tag``, also what ``tag()`` says at each call."""
     calls = []
 
     def record(points, p=2, path=None):
         out = hk.pairwise_min_dist(points, p=p, path=path)
         calls.append((points.clone(), p, out.clone()))
+        if tags is not None:
+            tags.append(tag())
         return out
 
     dyt.bounding.pairwise_min_dist = record
@@ -769,7 +971,28 @@ def main():
           f"{resumed['n_continuation']}, bit-identical: {resumed['same']}  "
           f"[{card}]")
 
-    # phase 13: device-only times, last: once a profiler has run, every
+    # phase 13: the dynamic bench row, nothing cut
+    _zero_counts(hk)
+    dyn3, dyn3_sampler = dynamic_drive(dyt, {}, bound="multi",
+                                       sample="unif", queue_size=256)
+    dyn3["launches"] = _counts(hk)
+    _dyn_gate(dyn3_sampler, dyn3, "dynamic3 drive", neff=DYN_NEFF)
+    if hk.pairwise_min_dist.launches != 0:
+        raise RuntimeError("the dynamic3 drive launched the friends kernel")
+    del dyn3_sampler
+    _print_dynamic("dynamic3", dyn3, card)
+
+    # phase 14: the main drive under the dynamic layer
+    dynballs = dynamic_balls_drive(dyt, hk)
+    _print_dynamic("dynamic-balls", dynballs, card)
+
+    # phase 15: a dynamic run stopped inside a batch, resumed on the card
+    _zero_counts(hk)
+    dynresume = dynamic_resume_drive(dyt)
+    dynresume["launches"] = _counts(hk)
+    print(json.dumps(dict(dynresume, card=card)))
+
+    # phase 16: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -795,23 +1018,30 @@ def main():
           f"ms; x {heavy['timings']['sync_wave']} waves = {waves_s:.2f} s of "
           f"the drive's {heavy['wall_s']:.2f} s wall  [{card}]")
 
-    def entry(name, shape, p, path, launches):
+    def entry(name, shape, p, path, by_drive):
+        """One kernel's line: ``launches`` sums the drives that reach it,
+        each counted from zero just before the drive to just after."""
         c = next(c for c in compares if tuple(c["shape"]) == shape and
                  c["p"] == (2 if p == 2 else "inf") and c["shift"] == 0 and
                  c["path"] == path)
         return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[p], "launches": launches,
+                "replaces": REPLACES[p],
+                "launches": sum(by_drive.values()),
+                "launches_by_drive": by_drive,
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
 
     kernels = {"kernels": [
         entry("pairwise_min_dist_l2_exact", MAIN_SHAPE, 2, "exact",
-              main["launches"]["exact"]),
+              {"balls": main["launches"]["exact"],
+               "slice": sl["launches"]["exact"],
+               "resume": resumed["launches"]["exact"],
+               "dynamic-balls": dynballs["launches"]["exact"]}),
         entry("pairwise_min_dist_linf_exact", MAIN_SHAPE, math.inf, "exact",
-              cubes["launches"]["exact"]),
+              {"cubes": cubes["launches"]["exact"]}),
         entry("pairwise_min_dist_l2_tc", TC_SHAPE, 2, "tc",
-              refit["launches"]["tc"]),
+              {"refit": refit["launches"]["tc"]}),
     ]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -823,6 +1053,8 @@ def main():
                        "single": single, "heavy": heavy,
                        "default": default, "rwalk": rwalk, "slice": sl,
                        "doubling": doubling, "resume": resumed,
+                       "dynamic3": dyn3, "dynamic_balls": dynballs,
+                       "dynamic_resume": dynresume,
                        "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))

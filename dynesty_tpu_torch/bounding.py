@@ -79,6 +79,10 @@ class Bound:
     def update(self, points, rstate=None, bootstrap=0):
         raise NotImplementedError
 
+    def get_random_axes(self, rstate):
+        """Axes of a proposal started inside the bound (host rounds)."""
+        raise NotImplementedError
+
     def device_spec(self):
         """(kind, arrays) export of the bound for the device rounds."""
         return None
@@ -95,6 +99,9 @@ class UnitCube(Bound):
 
     def update(self, points, rstate=None, bootstrap=0):
         pass
+
+    def get_random_axes(self, rstate):
+        return np.eye(self.ndim)
 
     def device_spec(self):
         return ("cube", {})
@@ -181,6 +188,9 @@ class Ellipsoid(Bound):
                 self.last_expand = expand
                 self.scale_to_logvol(self.logvol +
                                      self.ndim * np.log(expand))
+
+    def get_random_axes(self, rstate):
+        return self.axes
 
     def device_spec(self):
         return ("ellipsoids", {
@@ -370,6 +380,9 @@ class _FriendsBase(Bound):
             grp = points[labels == lab]
             centered[labels == lab] = grp - grp.mean(axis=0)
         return np.cov(centered, rowvar=False)
+
+    def get_random_axes(self, rstate):
+        return self.axes
 
     def device_spec(self):
         return (self.ftype, {"axes": self.axes, "axes_inv": self.axes_inv})

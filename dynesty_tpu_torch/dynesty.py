@@ -1,5 +1,5 @@
-"""User-facing factory: argument resolution for the static nested sampler
-(counterpart of ``dynesty_tpu.dynesty``).
+"""User-facing factories: argument resolution for the static and the
+dynamic nested sampler (counterpart of ``dynesty_tpu.dynesty``).
 
 ``device`` defaults to ``'cuda'``: the sampler runs on the card unless the
 caller asks for the CPU, and raises where CUDA is absent rather than fall
@@ -19,8 +19,10 @@ goes on with ``run_nested(resume=True)``; ``save``/``restore`` and
 ``run_nested(checkpoint_file=...)`` keep it across processes, bit for bit.
 A checkpoint restores on the device it was written on and raises where
 that is absent, unless ``restore(fname, device='cpu')`` asks otherwise.
-Custom bounds, blobs, pools, host-mode likelihoods and the dynamic sampler
-are not yet ported and raise ``NotImplementedError``.
+``DynamicNestedSampler`` takes the same arguments and allocates its live
+points batch by batch (:mod:`.dynamicsampler`).  Custom bounds, blobs,
+pools and host-mode likelihoods are not yet ported and raise
+``NotImplementedError``.
 """
 
 import torch
@@ -32,7 +34,7 @@ from .internal.samplers import get_internal_sampler
 from .sampler import Sampler, initialize_live_points
 from .utils.misc import get_random_generator
 
-__all__ = ["NestedSampler"]
+__all__ = ["NestedSampler", "DynamicNestedSampler"]
 
 _DEFAULT_ENLARGE = 1.25
 _DEFAULT_UNIF_BOOTSTRAP = 5
@@ -90,8 +92,8 @@ def _resolve_update_interval(update_interval, internal_sampler, nlive):
 
 def _resolve_device(device):
     if device is None:
-        raise ValueError("NestedSampler needs a device: 'cuda' (the "
-                         "default) or 'cpu'")
+        raise ValueError("a sampler needs a device: 'cuda' (the default) "
+                         "or 'cpu'")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
@@ -99,56 +101,119 @@ def _resolve_device(device):
     return device
 
 
+def _common_init(loglikelihood, prior_transform, ndim, nlive, sample,
+                 device, periodic, reflective, walks, facc, slices, ncdim,
+                 blob, likelihood_mode, pool, queue_size, rstate, logl_args,
+                 logl_kwargs, ptform_args, ptform_kwargs, enlarge, bootstrap,
+                 update_interval, first_update, dtype):
+    """Argument resolution shared by the static and the dynamic factory:
+    the device, the internal sampler, the bound expansion, the wrapped
+    likelihood, the round width and the refit cadence."""
+    if pool is not None:
+        raise NotImplementedError("pools are not yet ported")
+    device = _resolve_device(device)
+    ncdim = ncdim or ndim
+    if ncdim != ndim and sample in ("slice", "rslice"):
+        raise ValueError("ncdim unsupported for slice sampling")
+    nonbounded = _get_nonbounded(ndim, periodic, reflective)
+    internal_sampler = get_internal_sampler(
+        sample, ndim, ncdim=ncdim, nonbounded=nonbounded,
+        periodic=periodic, reflective=reflective, walks=walks,
+        facc=facc, slices=slices)
+    enlarge, bootstrap = _get_enlarge_bootstrap(internal_sampler,
+                                               enlarge, bootstrap)
+    first_update = dict(first_update or {})
+    for k in first_update:
+        if k not in ("min_ncall", "min_eff"):
+            raise ValueError(f"Unrecognized first_update key {k}")
+    like = LogLikelihood(loglikelihood, prior_transform, ndim,
+                         device=device, mode=likelihood_mode, blob=blob,
+                         logl_args=logl_args, logl_kwargs=logl_kwargs,
+                         ptform_args=ptform_args,
+                         ptform_kwargs=ptform_kwargs, dtype=dtype)
+    if queue_size is None:
+        queue_size = max(32, min(nlive, 256))
+    return dict(like=like, device=device,
+                internal_sampler=internal_sampler, enlarge=enlarge,
+                bootstrap=bootstrap, first_update=first_update,
+                rstate=get_random_generator(rstate), queue_size=queue_size,
+                ncdim=ncdim,
+                bound_update_interval=_resolve_update_interval(
+                    update_interval, internal_sampler, nlive))
+
+
 class NestedSampler(Sampler):
     """Static nested sampler factory."""
 
     def __init__(self, loglikelihood, prior_transform, ndim, nlive=500,
                  bound="multi", sample="auto", *, device="cuda",
-                 periodic=None, reflective=None, update_interval=None, first_update=None, rstate=None,
-                 queue_size=None, live_points=None, logl_args=None,
-                 logl_kwargs=None, ptform_args=None, ptform_kwargs=None,
-                 enlarge=None, bootstrap=None, walks=None, facc=0.5,
-                 slices=None, ncdim=None,
-                 blob=False, likelihood_mode="torch",
+                 periodic=None, reflective=None, update_interval=None,
+                 first_update=None, rstate=None, queue_size=None,
+                 live_points=None, logl_args=None, logl_kwargs=None,
+                 ptform_args=None, ptform_kwargs=None, enlarge=None,
+                 bootstrap=None, walks=None, facc=0.5, slices=None,
+                 ncdim=None, blob=False, likelihood_mode="torch",
                  rounds_per_dispatch=None, proposal_mode="batch",
                  dtype=torch.float64, pool=None):
-        if pool is not None:
-            raise NotImplementedError("pools are not yet ported")
-        device = _resolve_device(device)
-        ncdim = ncdim or ndim
-        if ncdim != ndim and sample in ("slice", "rslice"):
-            raise ValueError("ncdim unsupported for slice sampling")
-        nonbounded = _get_nonbounded(ndim, periodic, reflective)
-        internal_sampler = get_internal_sampler(
-            sample, ndim, ncdim=ncdim, nonbounded=nonbounded,
-            periodic=periodic, reflective=reflective, walks=walks,
-            facc=facc, slices=slices)
-        enlarge, bootstrap = _get_enlarge_bootstrap(internal_sampler,
-                                                   enlarge, bootstrap)
-        first_update = dict(first_update or {})
-        for k in first_update:
-            if k not in ("min_ncall", "min_eff"):
-                raise ValueError(f"Unrecognized first_update key {k}")
-        rstate = get_random_generator(rstate)
-        like = LogLikelihood(loglikelihood, prior_transform, ndim,
-                             device=device, mode=likelihood_mode, blob=blob,
-                             logl_args=logl_args, logl_kwargs=logl_kwargs,
-                             ptform_args=ptform_args,
-                             ptform_kwargs=ptform_kwargs, dtype=dtype)
-        if queue_size is None:
-            queue_size = max(32, min(nlive, 256))
+        cfg = _common_init(loglikelihood, prior_transform, ndim, nlive,
+                           sample, device, periodic, reflective,
+                           walks, facc, slices, ncdim, blob, likelihood_mode,
+                           pool, queue_size, rstate, logl_args, logl_kwargs,
+                           ptform_args, ptform_kwargs, enlarge, bootstrap,
+                           update_interval, first_update, dtype)
         live_points, logvol_init, init_ncalls = initialize_live_points(
-            live_points, like, nlive, ndim, rstate)
+            live_points, cfg["like"], nlive, ndim, cfg["rstate"])
         super().__init__(
-            loglikelihood=like, ndim=ndim, live_points=live_points,
-            sampling=internal_sampler, bounding=bound, device=device,
-            ncdim=ncdim, rstate=rstate, queue_size=queue_size,
-            bound_update_interval=_resolve_update_interval(
-                update_interval, internal_sampler, nlive),
-            first_bound_update=first_update, bound_bootstrap=bootstrap,
-            bound_enlarge=enlarge, logvol_init=logvol_init,
+            loglikelihood=cfg["like"], ndim=ndim, live_points=live_points,
+            sampling=cfg["internal_sampler"], bounding=bound,
+            device=cfg["device"], ncdim=cfg["ncdim"], rstate=cfg["rstate"],
+            queue_size=cfg["queue_size"],
+            bound_update_interval=cfg["bound_update_interval"],
+            first_bound_update=cfg["first_update"],
+            bound_bootstrap=cfg["bootstrap"], bound_enlarge=cfg["enlarge"],
+            logvol_init=logvol_init,
             rounds_per_dispatch=rounds_per_dispatch or 8,
             rounds_explicit=rounds_per_dispatch is not None,
             proposal_mode=proposal_mode, dtype=dtype)
         self.ncall = init_ncalls
 
+
+def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
+                         bound="multi", sample="auto", *, device="cuda",
+                         periodic=None, reflective=None,
+                         update_interval=None, first_update=None,
+                         rstate=None, queue_size=None, logl_args=None,
+                         logl_kwargs=None, ptform_args=None,
+                         ptform_kwargs=None, enlarge=None, bootstrap=None,
+                         walks=None, facc=0.5, slices=None, ncdim=None,
+                         blob=False, likelihood_mode="torch",
+                         rounds_per_dispatch=None, proposal_mode="batch",
+                         dtype=torch.float64, pool=None):
+    """Dynamic nested sampler factory; the arguments are those of
+    :class:`NestedSampler` less ``live_points`` (``run_nested`` takes
+    them).  The implementation lives in
+    :mod:`dynesty_tpu_torch.dynamicsampler`, imported here to avoid a
+    cycle."""
+    from .dynamicsampler import DynamicSampler
+    return DynamicSampler.create(
+        loglikelihood, prior_transform, ndim, nlive=nlive, bound=bound,
+        sample=sample, device=device, periodic=periodic,
+        reflective=reflective, update_interval=update_interval,
+        first_update=first_update, rstate=rstate, queue_size=queue_size,
+        logl_args=logl_args, logl_kwargs=logl_kwargs,
+        ptform_args=ptform_args, ptform_kwargs=ptform_kwargs,
+        enlarge=enlarge, bootstrap=bootstrap, walks=walks, facc=facc,
+        slices=slices, ncdim=ncdim, blob=blob,
+        likelihood_mode=likelihood_mode,
+        rounds_per_dispatch=rounds_per_dispatch,
+        proposal_mode=proposal_mode, dtype=dtype, pool=pool)
+
+
+def _dynamic_restore(fname, device=None):
+    """The dynamic sampler saved in ``fname`` (see
+    :meth:`DynamicSampler.restore`)."""
+    from .dynamicsampler import DynamicSampler
+    return DynamicSampler.restore(fname, device=device)
+
+
+DynamicNestedSampler.restore = _dynamic_restore

@@ -5,9 +5,10 @@ histories) and a cache of built fused round functions from :mod:`.fused`.
 Counterpart of ``dynesty_tpu.internal.samplers``: the unit-cube phase,
 uniform sampling from the bound ('unif'), random walks ('rwalk'), and
 slice sampling along principal axes ('slice') or random directions
-('rslice').  ``launch_fused`` runs the dispatch synchronously.  The
-non-fused ``propose_round`` path serves only the dynamic sampler's batch
-seeding and comes with it.
+('rslice').  ``launch_fused`` runs the dispatch synchronously.
+``propose_round`` is the non-fused form: one device round of ``q``
+proposals whose rows come back to the host, where the dynamic sampler's
+batch seeding pops them one at a time.
 """
 
 import math
@@ -67,6 +68,38 @@ class InternalSampler:
     def update_bound_interval_ratio(self):
         """Bound-update cadence in units of ncall per live point."""
         return 1
+
+    def _cached_round(self, key, make):
+        fn = self._round_cache.get(key)
+        if fn is None:
+            fn = self._round_cache[key] = make()
+        return fn
+
+    def _gather_starts(self, ns, loglstar, q):
+        """``q`` start points among the live points above ``loglstar`` and
+        per-lane axes from the current bound, drawn from the host stream
+        and packed ``u | v | logl | axes`` for a non-fused round.  A start
+        outside the bound forces a refit first."""
+        valid = np.nonzero(ns.live_logl > loglstar)[0]
+        if len(valid) == 0:
+            raise RuntimeError(
+                "No live points are above loglstar. Do you have a "
+                "likelihood plateau, or are you sampling excessively "
+                "around the peak of the posterior?")
+        idxs = valid[ns.rstate.integers(0, len(valid), size=q)]
+        ns.ensure_startpoints_bounded(idxs)
+        axes = np.array([ns.bound.get_random_axes(ns.rstate)
+                         for _ in range(q)])
+        packed = np.concatenate([
+            ns.live_u[idxs], ns.live_v[idxs], ns.live_logl[idxs][:, None],
+            axes.reshape(q, -1)], axis=1)
+        return torch.as_tensor(packed, dtype=ns.dtype, device=ns.device)
+
+    def propose_round(self, ns, loglstar, q, gen):
+        """One device round of ``q`` proposals above ``loglstar`` drawn
+        from ``gen``; returns (list of per-proposal dicts ``{u, v, logl,
+        nc, blob, proposal_stats}``, the round's tuning_info or None)."""
+        raise NotImplementedError
 
     def _build_propose_fn(self, ns, bound_kind):
         raise NotImplementedError
@@ -233,6 +266,36 @@ class InternalSampler:
         return {"n_proposals": max(int(a), 1)}
 
 
+def _unpack_rows(packed, ndim, npdim, extra_names, stats_fn, nc_from):
+    """Split the packed (q, W) output of a round, columns ``u | v | logl |
+    extras``, into a first-in-first-out list of proposal dicts; also
+    returns the extras columns by name."""
+    packed = packed.cpu().numpy().astype(np.float64)
+    il = ndim + npdim
+    extras = {name: packed[:, il + 1 + j]
+              for j, name in enumerate(extra_names)}
+    rows = [{"u": packed[i, :ndim], "v": packed[i, ndim:il],
+             "logl": packed[i, il], "nc": int(nc_from(i, extras)),
+             "blob": None, "proposal_stats": stats_fn(i, extras)}
+            for i in range(packed.shape[0])]
+    return rows, extras
+
+
+def _unif_rows(packed, ndim, npdim, q):
+    """Rows of a uniform round (columns ``... | nc | nc_total |
+    n_proposals | n_filled``); raises if the round did not fill."""
+    rows, extras = _unpack_rows(
+        packed, ndim, npdim, ("nc", "nc_total", "n_prop", "n_filled"),
+        lambda i, e: {"n_proposals": max(int(e["n_prop"][0]) // q, 1)},
+        nc_from=lambda i, e: e["nc"][i])
+    n_filled = int(extras["n_filled"][0])
+    if n_filled < q:
+        raise RuntimeError("Uniform sampling failed to find enough "
+                           f"points above loglstar ({n_filled}/{q}).")
+    _warn_unif_inefficiency(int(extras["n_prop"][0]), q)
+    return rows, None
+
+
 def _warn_unif_inefficiency(n_prop, q):
     """Warn when a uniform fill took 10000 or more candidates per slot
     (one wave is one candidate per lane)."""
@@ -283,6 +346,15 @@ class UnitCubeSampler(InternalSampler):
     def _build_propose_fn(self, ns, bound_kind):
         return _unif_propose_fn(self, ns, "cube")
 
+    def propose_round(self, ns, loglstar, q, gen):
+        like = ns.loglikelihood
+        fn = self._cached_round(
+            ("cube", q),
+            lambda: make_unif_round(like, ndim=self.ndim, ncdim=self.ndim,
+                                    q=q, bound_kind="cube", dtype=ns.dtype,
+                                    device=ns.device, timings=ns.timings))
+        return _unif_rows(fn(gen, loglstar, {}), self.ndim, like.npdim, q)
+
     def device_chain_stop_fn(self):
         """First-bound-update trigger: stop chaining once the efficiency
         drops below min_eff with at least min_ncall calls spent (inputs
@@ -315,11 +387,28 @@ class UniformBoundSampler(InternalSampler):
         if bound_kind == "ellipsoids":
             # an explicit rounds_per_dispatch (expensive likelihoods:
             # dispatch amortization beats bound staleness) is honoured
-            return None if ns.rounds_explicit else self.unif_max_chain
+            if ns.rounds_explicit:
+                return None
+            # a dynamic batch runs narrow bracketed rounds and chains
+            # deeper: its configurator sets the sampler's unif_chain_cap
+            return ns.unif_chain_cap or self.unif_max_chain
         return 1
 
     def _build_propose_fn(self, ns, bound_kind):
         return _unif_propose_fn(self, ns, bound_kind)
+
+    def propose_round(self, ns, loglstar, q, gen):
+        like = ns.loglikelihood
+        kind = ns.device_bound_kind()
+        fn = self._cached_round(
+            (kind, q),
+            lambda: make_unif_round(
+                like, ndim=self.ndim, ncdim=self.ncdim, q=q,
+                bound_kind=kind,
+                nonbounded=self.sampler_kwargs.get("nonbounded"),
+                dtype=ns.dtype, device=ns.device, timings=ns.timings))
+        return _unif_rows(fn(gen, loglstar, ns.device_bound_arrays()),
+                          self.ndim, like.npdim, q)
 
     def device_chain_stop_fn(self):
         """Host-refit-due trigger: stop the chain at the first round
@@ -392,6 +481,27 @@ class RWalkSampler(InternalSampler):
                     qnc, stats, packed[:, il + 1:il + 3])
 
         return propose
+
+    def propose_round(self, ns, loglstar, q, gen):
+        like = ns.loglikelihood
+        packed_in = self._gather_starts(ns, loglstar, q)
+        fn = self._cached_round(
+            ("rwalk", q, self.walks),
+            lambda: make_rwalk_round(
+                like, ndim=self.ndim, ncdim=self.ncdim, q=q,
+                walks=self.walks,
+                nonbounded=self.sampler_kwargs.get("nonbounded"),
+                periodic=self.sampler_kwargs.get("periodic"),
+                reflective=self.sampler_kwargs.get("reflective"),
+                dtype=ns.dtype, device=ns.device))
+        rows, extras = _unpack_rows(
+            fn(gen, packed_in, self.scale, loglstar), self.ndim, like.npdim,
+            ("n_accept", "n_reject"),
+            lambda i, e: self.row_stats(e["n_accept"][i], e["n_reject"][i]),
+            nc_from=lambda i, e: self.walks)
+        return rows, {"accept": int(extras["n_accept"].sum()),
+                      "reject": int(extras["n_reject"].sum()),
+                      "scale": self.scale}
 
     def consume_tuning(self, stats):
         return {"accept": int(stats[0]), "reject": int(stats[1]),
@@ -467,6 +577,32 @@ class _SliceBase(InternalSampler):
                     qnc, stats, packed[:, il + 2:il + 4])
 
         return propose
+
+    def propose_round(self, ns, loglstar, q, gen):
+        like = ns.loglikelihood
+        packed_in = self._gather_starts(ns, loglstar, q)
+        doubling = bool(self.sampler_kwargs.get("slice_doubling", False))
+        fn = self._cached_round(
+            (self.name, q, self.slices, doubling),
+            lambda: make_slice_round(
+                like, ndim=self.ndim, q=q, slices=self.slices,
+                kind=self.name,
+                nonperiodic=self.sampler_kwargs.get("nonperiodic"),
+                doubling=doubling, dtype=ns.dtype, device=ns.device,
+                timings=ns.timings))
+        rows, extras = _unpack_rows(
+            fn(gen, packed_in, self.scale, loglstar), self.ndim, like.npdim,
+            ("nc", "n_expand", "n_contract", "warn"),
+            lambda i, e: self.row_stats(e["n_expand"][i],
+                                        e["n_contract"][i]),
+            nc_from=lambda i, e: e["nc"][i])
+        tuning_info = self.consume_tuning(
+            (extras["n_expand"].sum(), extras["n_contract"].sum(),
+             extras["warn"][0]))
+        if tuning_info["expansion_warning_set"]:
+            warnings.warn("Slice interval expanded > 1000 times; enabling "
+                          "Neal (2003) doubling strategy.")
+        return rows, tuning_info
 
     def consume_tuning(self, stats):
         return {"n_expand": int(stats[0]), "n_contract": int(stats[1]),

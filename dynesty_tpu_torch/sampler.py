@@ -29,11 +29,13 @@ import torch
 from .bounding import UnitCube, get_bound
 from .internal.kernels import f32_precision
 from .internal.samplers import UnitCubeSampler
-from .ops.integrals import LOWL_VAL, compute_integrals, progress_integration
+from .ops.integrals import (LOWL_VAL, compute_integrals,
+                            get_neff_from_logwt, progress_integration)
 from .utils.checkpoint import restore_sampler, save_sampler
 from .utils.convert import bound_arrays_to_torch, live_to_torch
 from .utils.misc import (DelayTimer, IteratorBlock, IteratorResult, Timings,
-                         get_print_func, get_random_generator)
+                         get_print_func, get_random_generator,
+                         get_torch_generator)
 from .utils.results import Results, RunRecord
 
 __all__ = ["Sampler", "initialize_live_points"]
@@ -137,10 +139,8 @@ class Sampler:
         if proposal_mode not in ("batch", "queue"):
             raise ValueError(f"Unknown proposal_mode '{proposal_mode}'")
         self.proposal_mode = proposal_mode
-        q = max(int(queue_size or 64), 1)
-        # batch rounds kill queue_size points at once: cap at nlive/2
-        self.queue_size = max(1, min(q, self.nlive // 2)) \
-            if proposal_mode == "batch" else q
+        self.queue_size_req = max(int(queue_size or 64), 1)
+        self._apply_queue_clamp()
 
         self.it = 1
         self.ncall = self.nlive
@@ -173,10 +173,44 @@ class Sampler:
         self.rounds_per_dispatch = max(int(rounds_per_dispatch), 1)
         # the user chose the chain depth: the unif kernel's cap defers to it
         self.rounds_explicit = bool(rounds_explicit)
+        # a deeper cap on chained unif rounds, set on a dynamic batch's
+        # sampler (None: the kernel's own)
+        self.unif_chain_cap = None
         self._live_dev = None
         self._mirror_stale = False
         self._bound_upload = None
         self._init_resume_state()
+
+    def _apply_queue_clamp(self):
+        """The width of a round from ``queue_size_req`` and the current
+        ``nlive``; run again whenever ``nlive`` changes.  Batch rounds
+        kill ``queue_size`` points at once, so the width is capped at half
+        the live count.  ``_q_narrow`` is the width of a bracketed run's
+        last dispatches (see :meth:`_make_dispatch_spec`)."""
+        if self.proposal_mode == "batch":
+            self.queue_size = max(1, min(self.queue_size_req,
+                                         self.nlive // 2))
+        else:
+            self.queue_size = self.queue_size_req
+        self._q_full = self.queue_size
+        self._q_narrow = min(max(16, self.queue_size // 8), self.queue_size)
+
+    def set_live_points(self, live_u, live_v, live_logl, live_birth=None):
+        """Replace the live set of a built sampler (the dynamic sampler
+        seeds its batches this way) by points from no bound and no
+        iteration of this sampler, born at ``live_birth`` (the prior by
+        default).  Whatever was cached from the old set is dropped: the
+        device copy, and the mark that would have refreshed the host
+        arrays from it."""
+        self.live_u, self.live_v, self.live_logl = live_u, live_v, live_logl
+        self.nlive = len(live_u)
+        self.live_bound = np.zeros(self.nlive, dtype=int)
+        self.live_it = np.zeros(self.nlive, dtype=int)
+        self.live_birth = np.full(self.nlive, -np.inf) \
+            if live_birth is None else live_birth
+        self._live_dev = None
+        self._mirror_stale = False
+        self._apply_queue_clamp()
 
     def _init_resume_state(self):
         """The state that lets an interrupted run continue exactly; all
@@ -202,6 +236,23 @@ class Sampler:
         self._next_spec = None
         self._terminal_done = False
         self.interrupted_budget = False
+        # bracket progress of a run with a finite logl_max: where it
+        # started, and the length its caller expects of it
+        self._bracket_start = None
+        self._bracket_it0 = None
+        self._bracket_est_total = None
+        # evaluations billed for proposals that were never consumed
+        self.nc_waste_total = 0
+        # rows of the non-fused round (the dynamic sampler's batch seeding
+        # draws its points through them, one at a time)
+        self.queue = []
+        self._pending_tuning = None
+        # set by the dynamic sampler on a batch's sampler: the seeds still
+        # to be shown (popped as they are yielded, so that a resumed batch
+        # does not replay them), and the combined run's iteration at which
+        # the batch began
+        self.first_points = []
+        self.it0 = 0
 
     # ------------------------------------------------------------------
     # persistence
@@ -414,21 +465,43 @@ class Sampler:
     # ------------------------------------------------------------------
     # dispatch planning
 
-    def _estimate_remaining(self, dlogz_eff):
-        """Accepts remaining before the dlogz criterion (delta_logz decays
-        ~exp(-i/nlive)), or None."""
+    def _estimate_remaining(self, dlogz_eff, loglstar, logl_max=np.inf):
+        """Accepts remaining before a stop, or None.  delta_logz decays
+        ~exp(-i/nlive), which gives the accepts left to the dlogz
+        criterion; a run bracketed by a finite ``logl_max`` (a dynamic
+        batch) also extrapolates its progress through the bracket, and
+        takes the length its configurator read off the saved run
+        (``_bracket_est_total``), known from its first round on."""
+        est = None
         last = self._last_delta_logz
         if last is not None and np.isfinite(dlogz_eff) and dlogz_eff > 0 \
                 and last > 0:
-            return 1.1 * self.nlive * max(np.log(last) - np.log(dlogz_eff),
-                                          0.0)
-        return None
+            est = 1.1 * self.nlive * max(np.log(last) - np.log(dlogz_eff),
+                                         0.0)
+        if np.isfinite(logl_max):
+            if self._bracket_start is None and np.isfinite(loglstar) \
+                    and loglstar > LOWL_VAL / 2:
+                self._bracket_start = float(loglstar)
+                self._bracket_it0 = int(self.it)
+            start = self._bracket_start
+            if start is not None and loglstar > start and logl_max > start:
+                prog = min((loglstar - start) / (logl_max - start), 0.999)
+                done_iters = max(self.it - self._bracket_it0, 1)
+                est2 = 1.2 * done_iters * (1.0 - prog) / prog
+                est = est2 if est is None else min(est, est2)
+            if self._bracket_est_total is not None:
+                est3 = 1.2 * max(self._bracket_est_total - (self.it - 1),
+                                 0.0)
+                est = est3 if est is None else min(est, est3)
+        return est
 
-    def _make_dispatch_spec(self, dlogz_eff, loglstar):
+    def _make_dispatch_spec(self, dlogz_eff, loglstar, logl_max=np.inf):
         """Plan one fused dispatch: run the refit trigger (the only place
-        host refits fire), size the dispatch's active rounds from the
-        remaining-work estimate, and draw the dispatch's seed from the
-        host stream.
+        host refits fire), choose the dispatch's width and active rounds
+        from the remaining-work estimate, and draw the dispatch's seed
+        from the host stream.  A bracketed run with less than three
+        quarters of a full round left takes the narrow width, so that the
+        stop at ``logl_max`` strands few proposals.
 
         The spec is kept as ``_next_spec`` until its dispatch is consumed,
         so the dispatch structure is a pure function of pickled state.  It
@@ -440,8 +513,11 @@ class Sampler:
         reason."""
         self.update_bound_if_needed(max(loglstar, np.float64(LOWL_VAL)),
                                     ncall=self.ncall)
-        est = self._estimate_remaining(dlogz_eff)
-        q = self.queue_size
+        est = self._estimate_remaining(dlogz_eff, loglstar, logl_max)
+        q = self._q_full
+        if est is not None and est < 0.75 * q and self._q_narrow < q \
+                and np.isfinite(logl_max):
+            q = self._q_narrow
         if not self.unit_cube_sampling or est is None:
             # the device skips every chained round past a stop, so an
             # overshoot proposes and bills nothing: chain the full depth
@@ -455,7 +531,54 @@ class Sampler:
                     self.internal_sampler._refit_due_ncall(self)}
 
     # ------------------------------------------------------------------
+    # proposal queue (non-fused rounds)
+
+    def _fill_queue(self, loglstar):
+        """Run one proposal round of width ``queue_size`` on the device
+        and queue its rows on the host."""
+        gen = get_torch_generator(self.rstate, self.device)
+        self.queue, self._pending_tuning = \
+            self.internal_sampler.propose_round(self, loglstar,
+                                                self.queue_size, gen)
+
+    def _get_point_value(self, loglstar):
+        if not self.queue:
+            self._fill_queue(loglstar)
+        return self.queue.pop(0)
+
+    def _new_point(self, loglstar):
+        """Pop proposals until one beats ``loglstar``; when the queue
+        drains, apply its round's tuning and run the refit trigger.
+        Returns ``(u, v, logl, nc, blob, proposal_stats)`` with ``nc`` the
+        evaluations of every popped row."""
+        ncall = self.ncall
+        ncall_accum = 0
+        while True:
+            ret = self._get_point_value(loglstar)
+            ncall_accum += ret["nc"]
+            ncall += ret["nc"]
+            if not self.queue:
+                if self._pending_tuning is not None \
+                        and not self.unit_cube_sampling:
+                    self.internal_sampler.tune(self._pending_tuning,
+                                               update=True)
+                self._pending_tuning = None
+                self.update_bound_if_needed(loglstar, ncall=ncall)
+            if ret["logl"] > loglstar:
+                break
+        return (ret["u"], ret["v"], ret["logl"], ncall_accum, ret["blob"],
+                ret["proposal_stats"])
+
+    # ------------------------------------------------------------------
     # results
+
+    @property
+    def n_effective(self):
+        """Kish effective sample size of the current weights."""
+        logwt = np.asarray(self.saved_run["logwt"])
+        if len(logwt) == 0 or np.max(logwt) == -np.inf:
+            return 0
+        return get_neff_from_logwt(logwt)
 
     @property
     def results(self):
@@ -632,7 +755,8 @@ class Sampler:
             else:
                 spec = self._next_spec
                 if spec is None:
-                    spec = self._make_dispatch_spec(dlogz_eff, loglstar)
+                    spec = self._make_dispatch_spec(dlogz_eff, loglstar,
+                                                    logl_max)
                     self._next_spec = spec
                     # a refit may have run: the first one swaps the bound
                     bounditer = 0 if self.unit_cube_sampling \
@@ -732,6 +856,7 @@ class Sampler:
             # were neither consumed nor kept for the replay are charged now
             extra_nc = max(out["nc_launched"] - nc_round - kept_nc, 0)
             self.ncall += nc_round + extra_nc
+            self.nc_waste_total += extra_nc
             has_records = bool(out["accepts"].any())
             staged_nc = int(np.sum(
                 out["records"][out["accepts"], rec_off + 6]))

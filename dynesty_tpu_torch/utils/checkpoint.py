@@ -1,6 +1,9 @@
 """Whole-sampler checkpointing: a pickle with a format version, written
 atomically (tmp + rename).  Counterpart of ``dynesty_tpu.utils.checkpoint``
-without its pool and mesh parts.
+without its pool and mesh parts.  Serves the static ``Sampler`` and the
+``DynamicSampler`` alike: either is one object graph that shares one
+``LogLikelihood`` and one ``rstate``, and moves as a whole with its
+``set_device``.
 
 The sampler's state is host data (numpy arrays, Python scalars, the run
 record, integer seeds of the device generators), so pickling is exact and
@@ -22,7 +25,10 @@ __all__ = ["save_sampler", "restore_sampler", "FORMAT_VERSION"]
 
 # 1: static sampler with leftover/continuation records and a dispatch spec
 #    that carries its refit-due ncall
-FORMAT_VERSION = 1
+# 2: the static sampler carries its bracket progress, its non-fused queue
+#    and a batch's first points; a dynamic sampler holds its base sampler
+#    and, while a batch is suspended, that batch's sampler
+FORMAT_VERSION = 2
 
 
 def save_sampler(sampler, fname):

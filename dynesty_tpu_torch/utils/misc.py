@@ -5,6 +5,7 @@ work draws from explicit ``torch.Generator`` objects seeded from the same
 host stream (:func:`get_torch_generator`), so a seed reproduces a run.
 """
 
+import shutil
 import sys
 import time
 from collections import namedtuple
@@ -14,7 +15,8 @@ import torch
 
 __all__ = [
     "get_random_generator", "get_seed_sequence", "get_torch_generator",
-    "torch_generator", "resample_equal", "IteratorResult", "IteratorBlock",
+    "torch_generator", "resample_equal", "IteratorResult",
+    "IteratorResultShort", "IteratorBlock",
     "Timings", "DelayTimer", "get_print_func", "print_fn_fallback",
 ]
 
@@ -46,6 +48,13 @@ class Timings(dict):
     def count(self, key, n=1):
         self[key] = self.get(key, 0) + n
 
+    def merge(self, other):
+        """Add another run's timings to these (the dynamic sampler sums
+        its base run and every batch into one view)."""
+        for k, v in (other or {}).items():
+            self[k] = self.get(k, type(v)(0)) + v
+        return self
+
 
 class DelayTimer:
     """Tells whether ``delay`` seconds have elapsed since the last
@@ -67,6 +76,14 @@ IteratorResult = namedtuple("IteratorResult", [
     "logzvar", "h", "nc", "blob", "worst_it", "boundidx", "bounditer",
     "eff", "delta_logz", "proposal_stats", "n", "birth"
 ], defaults=[None, None])
+
+# reduced record of dynamic batch sampling, where the global evidence
+# fields are not updated per iteration; the logz/logzvar defaults let the
+# printer take either record type
+IteratorResultShort = namedtuple("IteratorResultShort", [
+    "worst", "ustar", "vstar", "loglstar", "nc", "worst_it", "boundidx",
+    "bounditer", "eff", "delta_logz", "proposal_stats", "logz", "logzvar"
+], defaults=[-np.inf, 0.0])
 
 # coarse-grained yield of Sampler.sample(per_dispatch=True): one fused
 # dispatch worth of iterations (n accepted records, nc likelihood calls)
@@ -119,20 +136,40 @@ def resample_equal(samples, weights, rstate=None):
     return resampled
 
 
-def print_fn_fallback(results, niter, ncall, add_live_it=None, dlogz=None):
-    """Carriage-return stderr status line."""
+def _terminal_width(default=200):
+    """Display width of the status line."""
+    try:
+        return max(shutil.get_terminal_size((default, 20)).columns, 40)
+    except (ValueError, OSError):
+        return default
+
+
+def print_fn_fallback(results, niter, ncall, add_live_it=None, dlogz=None,
+                      stop_val=None, nbatch=None, logl_min=-np.inf,
+                      logl_max=np.inf):
+    """Carriage-return stderr status line, cut to the terminal's width.
+    Dynamic runs add the batch index, the batch's logl bracket and the
+    stopping value."""
     logzerr = np.sqrt(max(results.logzvar, 0.0))
     bits = [f"iter: {niter:d}"]
     if add_live_it is not None:
         bits.append(f"+{add_live_it:d}")
+    if nbatch is not None:
+        bits.append(f"batch: {nbatch:d}")
     bits += [f"nc: {results.nc:d}", f"ncall: {ncall:d}",
-             f"eff(%): {results.eff:6.3f}",
-             f"loglstar: {results.loglstar:.3f}",
-             f"logz: {results.logz:.3f} +/- {logzerr:.3f}"]
+             f"eff(%): {results.eff:6.3f}"]
+    if logl_min > -np.inf or logl_max < np.inf:
+        bits.append(f"loglstar: {logl_min:.3f} < {results.loglstar:.3f} "
+                    f"< {logl_max:.3f}")
+    else:
+        bits.append(f"loglstar: {results.loglstar:.3f}")
+    bits.append(f"logz: {results.logz:.3f} +/- {logzerr:.3f}")
     if dlogz is not None:
         bits.append(f"dlogz: {min(results.delta_logz, 1e10):.3f} > "
                     f"{dlogz:.3f}")
-    sys.stderr.write("\r" + " | ".join(bits))
+    if stop_val is not None:
+        bits.append(f"stop: {stop_val:.3f}")
+    sys.stderr.write("\r" + " | ".join(bits)[:_terminal_width() - 1])
     sys.stderr.flush()
 
 

@@ -7,13 +7,17 @@ import numpy as np
 
 from .misc import get_random_generator, resample_equal
 
-__all__ = ["RunRecord", "Results"]
+__all__ = ["RunRecord", "Results", "results_substitute"]
 
 _STATIC_KEYS = [
     "id", "u", "v", "logl", "logvol", "logwt", "logz", "logzvar", "h",
     "nc", "boundidx", "it", "n", "birth", "bounditer", "scale", "blob",
     "proposal_stats",
 ]
+
+# extra columns of a dynamic run: the batch index of each sample, and per
+# batch its live-point count and its logl bounds
+_DYNAMIC_KEYS = ["batch", "batch_nlive", "batch_logl_bounds"]
 
 _RESULTS_KEYS = [
     "logl", "samples_it", "samples_id", "samples_n", "samples_birth",
@@ -27,8 +31,9 @@ _RESULTS_KEYS = [
 class RunRecord:
     """Append-only accumulator of per-iteration nested sampling output."""
 
-    def __init__(self):
-        self.D = {k: [] for k in _STATIC_KEYS}
+    def __init__(self, dynamic=False):
+        keys = _STATIC_KEYS + (_DYNAMIC_KEYS if dynamic else [])
+        self.D = {k: [] for k in keys}
 
     def append(self, row):
         for k, val in row.items():
@@ -48,7 +53,7 @@ class RunRecord:
 
 
 class Results:
-    """Immutable record of a nested sampling run."""
+    """Immutable record of a (static or dynamic) nested sampling run."""
 
     _ALLOWED = set(_RESULTS_KEYS)
 
@@ -81,6 +86,12 @@ class Results:
         if not name.startswith("_") and self.__dict__.get("_initialized"):
             raise RuntimeError("Results is immutable")
         super().__setattr__(name, value)
+
+    def __copy__(self):
+        return Results(self.asdict().items())
+
+    def copy(self):
+        return self.__copy__()
 
     def __getitem__(self, name):
         if name in self._keys:
@@ -126,3 +137,9 @@ class Results:
             f"logz: {self['logz'][-1]:6.3f} +/- {self['logzerr'][-1]:6.3f}",
         ]
         print("Summary\n=======\n" + "\n".join(lines))
+
+
+def results_substitute(results, substitutions):
+    """A copy of ``results`` with existing keys overridden; substitutions
+    for keys absent from ``results`` are ignored."""
+    return Results({k: substitutions.get(k, v) for k, v in results.items()})

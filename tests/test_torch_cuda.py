@@ -346,3 +346,116 @@ def test_restore_of_a_cuda_checkpoint_needs_cuda(tmp_path, monkeypatch):
     s2.run_nested(print_progress=False, resume=True)
     res = s2.results
     assert np.isfinite(res.logz[-1]) and res.niter > it
+
+
+def _dynamic(**kw):
+    import dynesty_tpu_torch as dyt
+
+    return dyt.DynamicNestedSampler(normal_loglike, box_ptform, 3,
+                                    bound="multi", sample="unif",
+                                    queue_size=64, rstate=get_rstate(56432),
+                                    **kw)
+
+
+_DYN_RUN = dict(nlive_init=200, nlive_batch=100, maxbatch=2,
+                print_progress=False)
+# the normal above is not normalised
+_DYN_TRUTH = 1.5 * math.log(2.0 * math.pi) - 3 * math.log(20.0)
+
+
+@pytest.mark.cuda
+def test_cuda_dynamic_run_reproducible(cuda):
+    """A small dynamic run on the card (the default device) passes the
+    evidence gate, and the same seed gives the same run twice."""
+    runs = []
+    for _ in range(2):
+        d = _dynamic()
+        assert d.device.type == "cuda"
+        d.run_nested(**_DYN_RUN)
+        assert d.sampler.device.type == "cuda"
+        runs.append(d)
+    a, b = runs[0].results, runs[1].results
+    assert a.isdynamic() and runs[0].batch == 2
+    assert len(a.batch_nlive) == 3 and np.ptp(a.samples_n) > 0
+    assert abs(a.logz[-1] - _DYN_TRUTH) < 5 * a.logzerr[-1]
+    assert a.niter == b.niter and runs[0].ncall == runs[1].ncall
+    for k in ("logl", "logz", "samples", "samples_batch", "ncall",
+              "batch_logl_bounds"):
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_dynamic_friends_batch_reaches_the_kernel(cuda):
+    """A dynamic run over RadFriends with 2048 live points refits through
+    the NN-distance kernel in the base run and in its batch."""
+    import dynesty_tpu_torch as dyt
+
+    d = dyt.DynamicNestedSampler(normal_loglike, box_ptform, 3, nlive=2048,
+                                 bound="balls", sample="rslice",
+                                 rstate=get_rstate(56432))
+    d.run_nested(maxiter_init=4000, maxbatch=0, print_progress=False)
+    before = hk.pairwise_min_dist.launches_exact
+    assert before >= 1
+    d.add_batch(nlive=2048, maxiter=2048 + 600, print_progress=False)
+    assert hk.pairwise_min_dist.launches_exact > before
+
+
+@pytest.mark.cuda
+def test_cuda_dynamic_resume_bit_identical(cuda, tmp_path):
+    """A dynamic run stopped inside a batch on the card, saved, restored
+    (onto the card, and onto the CPU when asked) and resumed."""
+    import dynesty_tpu_torch as dyt
+
+    full = _dynamic()
+    full.run_nested(**_DYN_RUN)
+    d = _dynamic()
+    d.run_nested(**dict(_DYN_RUN, maxbatch=0))
+    d.add_batch(nlive=100, maxiter=100 + 40, print_progress=False)
+    assert d.batch_sampler is not None and d.batch == 0
+    fname = str(tmp_path / "dyn.pkl")
+    d.save(fname)
+    del d
+    d2 = dyt.DynamicNestedSampler.restore(fname)
+    assert {x.device.type for x in (d2, d2.sampler, d2.batch_sampler,
+                                    d2.loglikelihood)} == {"cuda"}
+    d2.run_nested(resume=True, **_DYN_RUN)
+    a, b = d2.results, full.results
+    assert a.niter == b.niter and d2.ncall == full.ncall and d2.batch == 2
+    for k in ("logl", "logz", "samples", "samples_batch", "ncall",
+              "batch_logl_bounds"):
+        assert np.array_equal(a[k], b[k]), k
+    d3 = dyt.DynamicNestedSampler.restore(fname, device="cpu")
+    assert {x.device.type for x in (d3, d3.sampler, d3.batch_sampler,
+                                    d3.loglikelihood)} == {"cpu"}
+    d3.run_nested(resume=True, **_DYN_RUN)
+    assert d3.batch == 2
+    assert abs(d3.results.logz[-1] - _DYN_TRUTH) < \
+        5 * d3.results.logzerr[-1]
+
+
+def test_restore_of_a_cuda_dynamic_checkpoint_needs_cuda(tmp_path,
+                                                         monkeypatch):
+    """Runs without a card: a dynamic checkpoint whose device is 'cuda',
+    with a batch suspended in it, raises where CUDA is absent, and
+    restores on the CPU, base and batch sampler alike, when asked to."""
+    import dynesty_tpu_torch as dyt
+
+    d = _dynamic(device="cpu")
+    d.run_nested(**dict(_DYN_RUN, maxbatch=0))
+    d.add_batch(nlive=100, maxiter=100 + 40, print_progress=False)
+    assert d.batch_sampler is not None
+    # as a run on the card would have written it: the devices by name
+    for x in (d, d.sampler, d.batch_sampler, d.loglikelihood):
+        x.device = torch.device("cuda")
+    fname = str(tmp_path / "dyn.pkl")
+    d.save(fname)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dyt.DynamicNestedSampler.restore(fname)
+    d2 = dyt.DynamicNestedSampler.restore(fname, device="cpu")
+    assert {x.device.type for x in (d2, d2.sampler, d2.batch_sampler,
+                                    d2.loglikelihood)} == {"cpu"}
+    d2.run_nested(resume=True, **_DYN_RUN)
+    assert d2.batch == 2 and d2.batch_sampler is None
+    assert abs(d2.results.logz[-1] - _DYN_TRUTH) < \
+        5 * d2.results.logzerr[-1]

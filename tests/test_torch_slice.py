@@ -117,6 +117,12 @@ def test_unported_entry_points_raise():
         with pytest.raises(NotImplementedError):
             dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
                               bound=bound, sample=sample, device="cpu", **kw)
+        with pytest.raises(NotImplementedError):
+            # the dynamic factory builds its bound with its first sampler
+            d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2,
+                                         nlive=20, bound=bound,
+                                         sample=sample, device="cpu", **kw)
+            d.run_nested(maxbatch=0, print_progress=False)
     # every sampler name is ported; an unknown one is a ValueError, and so
     # is ncdim with the slice samplers
     with pytest.raises(ValueError, match="Unknown sample"):
