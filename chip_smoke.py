@@ -56,12 +56,29 @@ Phases, in order; any failure raises and exits non-zero:
 15. dynamic-resume: dynamic3 with ``maxbatch=3``, once uninterrupted and
     once stopped inside its first batch by ``maxiter``, saved, restored
     onto the card and resumed; the two must be equal bit for bit.
-16. Device-only times (profiler kernel durations) of every comparison,
+16. blob-balls: the main drive with ``blob=True``, the blob ``(logl,
+    v[0])``.  Gates: the evidence, every sample's blob its own, the same
+    run as phase 3 (a blob changes no proposal), the exact L2 path
+    launched and every refit held against the plain version.
+17. host-balls: the main drive with the Gaussian as a numpy function in
+    ``likelihood_mode='host'``.  Gates: the evidence, every call of the
+    user's function counted by the wrapper (``ncall`` is the calls plus the
+    out-of-cube probes rslice bills), the exact L2 path launched and held
+    against the plain version; the cost of a host round trip.
+18. host-pool: the default path (multi / unif / bootstrap 5, nlive 500) in
+    host mode over a spawn ``Pool(2)``, each point's blob its evaluating
+    PID.  Gates: the evidence, two worker PIDs and not the parent's,
+    ``ncall`` equal to the points mapped through the log-likelihood, the
+    bootstrap realisations in the workers, no worker that touched CUDA.
+19. blob-resume: blob-balls stopped at half its iterations, saved,
+    restored onto the card, resumed: equal to phase 16's run bit for bit,
+    blobs included.
+20. Device-only times (profiler kernel durations) of every comparison,
     and of one 256-lane evaluation of the heavy likelihood.
 
-Each dynamic phase prints one JSON line of its own.  The line before the
-last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+Each dynamic, blob, host and pool phase prints one JSON line of its
+own.  The line before the last is a JSON object of the kernels; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -282,16 +299,20 @@ def _gate(sampler, s, what):
         raise RuntimeError(f"{what} failed the evidence gate: {s}")
 
 
-def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None):
+def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None,
+          loglike=None, ptform=None, **kw):
     """One run on the 3-D Gaussian on the card's default device, through
     the evidence gate; with ``maxiter`` the run is stopped there without
-    its live points and returned ungated.  Returns (summary, sampler)."""
+    its live points and returned ungated.  ``loglike``/``ptform`` replace
+    the Gaussian's (a blob or host-mode form of it), ``kw`` goes to the
+    sampler.  Returns (summary, sampler)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # no device argument: the port runs on the card by default
     sampler = dyt.NestedSampler(
-        gauss_loglike, box_ptform, NDIM, nlive=nlive, bound=bound,
-        sample=sample, rstate=np.random.Generator(np.random.PCG64(SEED)))
+        loglike or gauss_loglike, ptform or box_ptform, NDIM, nlive=nlive,
+        bound=bound, sample=sample,
+        rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
     if sampler.device.type != "cuda":
         raise RuntimeError(f"the default device is {sampler.device}")
     with profile or contextlib.nullcontext():
@@ -357,8 +378,8 @@ def rwalk_round_times(dyt):
     prop = torch.cat([packed_in[:, :il], packed_in[:, il:il + 1] + 100.0,
                       torch.full((q, 3), 35.0, **kw)], dim=1)
 
-    def propose(gen_, live_, axes_args, scale, loglstar):
-        return (prop[:, :R_NDIM], prop[:, R_NDIM:il], prop[:, il],
+    def propose(gen_, live_, live_blob, axes_args, scale, loglstar):
+        return (prop[:, :R_NDIM], prop[:, R_NDIM:il], prop[:, il], None,
                 prop[:, il + 1].to(torch.int64), (prop[:, il + 2].sum(),),
                 prop[:, il + 2:il + 4])
 
@@ -372,16 +393,17 @@ def rwalk_round_times(dyt):
                      0.0, 0.0, 0.0, 2.0 ** 30])
     return {
         "rwalk_round_ms": _time_ms(
-            lambda: walk(gen, packed_in, 1.0, -1e30), 5),
+            lambda: walk(gen, packed_in, None, 1.0, -1e30), 5),
         "likelihood_call_ms": _time_ms(lambda: like.batch_eval(u_dev), 50),
         "consume_round_ms": _time_ms(
-            lambda: consume(SEED, live, {}, ctrl), 5)}
+            lambda: consume(SEED, live, None, {}, ctrl), 5)}
 
 
-def resume_drive(dyt, full, maxiter):
-    """The balls/rslice drive stopped at ``maxiter``, saved, restored and
-    resumed, held bit for bit to ``full`` (the uninterrupted sampler)."""
-    first, sampler = drive(dyt, 2048, "balls", maxiter=maxiter)
+def resume_drive(dyt, full, maxiter, **kw):
+    """The balls/rslice drive (``kw`` as for :func:`drive`) stopped at
+    ``maxiter``, saved, restored and resumed, held bit for bit to ``full``
+    (the uninterrupted sampler), blobs included."""
+    first, sampler = drive(dyt, 2048, "balls", maxiter=maxiter, **kw)
     if not sampler.interrupted_budget:
         raise RuntimeError("the stopped run did not report its stop")
     with tempfile.TemporaryDirectory() as tmp:
@@ -403,6 +425,8 @@ def resume_drive(dyt, full, maxiter):
                       "samples_u", "samples_it")}
     same["niter"] = a.niter == b.niter
     same["ncall_total"] = full.ncall == restored.ncall
+    if full.blob:
+        same["blob"] = bool(np.array_equal(_blobs(a), _blobs(b)))
     t = restored.timings
     out = {"maxiter": maxiter, "niter_first": first["niter"],
            "wall_first_s": first["wall_s"], "wall_resumed_s": wall,
@@ -414,6 +438,211 @@ def resume_drive(dyt, full, maxiter):
         raise RuntimeError(f"the resumed run differs from the "
                            f"uninterrupted one: {out}")
     return out
+
+
+# the 3-D Gaussian in numpy for the host-mode drives, at module level so
+# that a pool's workers find it; a worker imports this script and never
+# touches the card
+_COV_NP = np.identity(NDIM)
+_COV_NP[_COV_NP == 0] = 0.95
+_CINV_NP = np.linalg.inv(_COV_NP)
+_LNORM_NP = -0.5 * (np.log(2 * np.pi) * NDIM + np.log(np.linalg.det(_COV_NP)))
+
+
+def np_gauss_loglike(x):
+    return -0.5 * (x @ _CINV_NP @ x) + _LNORM_NP
+
+
+def np_box_ptform(u):
+    return 10.0 * (2.0 * u - 1.0)
+
+
+def np_pid_loglike(x):
+    """The numpy Gaussian, with the evaluating process's PID as its blob."""
+    return np_gauss_loglike(x), float(os.getpid())
+
+
+def blob_loglike(x):
+    """The Gaussian on the card, with the blob ``(logl, v[0])``."""
+    logl = gauss_loglike(x)
+    return logl, torch.stack([logl, x[0]])
+
+
+def worker_state(_):
+    """Whether this process has initialised CUDA, and its PID."""
+    time.sleep(0.01)
+    return torch.cuda.is_initialized(), os.getpid()
+
+
+class HostCounter:
+    """The numpy Gaussian, counting its own calls."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, x):
+        self.n += 1
+        return np_gauss_loglike(x)
+
+
+class CountingPool:
+    """A pool that counts the points mapped through each site."""
+
+    def __init__(self, pool):
+        self.pool, self.njobs, self.points = pool, pool.njobs, {}
+
+    def map(self, fn, items):
+        items = list(items)
+        # a wrapped user function by its site, any other by its name
+        name = getattr(fn, "name", None) or fn.__name__
+        self.points[name] = self.points.get(name, 0) + len(items)
+        return self.pool.map(fn, items)
+
+
+def _blobs(res):
+    return np.array([np.asarray(b) for b in res.blob])
+
+
+def blob_balls_drive(dyt, hk, main):
+    """The balls drive with ``blob=True``: every sample's blob must be its
+    own ``(logl, v[0])``, and a blob changes no proposal, so the run must
+    equal the balls drive's.  Returns (summary, sampler)."""
+    _zero_counts(hk)
+    with recording_refits(dyt, hk) as calls:
+        s, sampler = drive(dyt, 2048, "balls", loglike=blob_loglike,
+                           blob=True)
+    s["launches"] = _counts(hk)
+    s["refit_max_abs_err"] = check_refits(hk, calls, "blob-balls drive")
+    res = sampler.results
+    blobs = _blobs(res)
+    s["blob_shape"] = list(blobs.shape)
+    s["blob_is_logl_and_v0"] = bool(
+        blobs.shape == (len(res.logl), 2) and
+        np.array_equal(blobs[:, 0], res.logl) and
+        np.array_equal(blobs[:, 1], res.samples[:, 0]))
+    s["same_as_balls"] = {k: s[k] == main[k]
+                          for k in ("niter", "ncall", "logz")}
+    if not s["blob_is_logl_and_v0"] or s["launches"]["exact"] < 1 or \
+            not all(s["same_as_balls"].values()):
+        got = {k: s[k] for k in ("blob_is_logl_and_v0", "launches",
+                                 "same_as_balls")}
+        raise RuntimeError(f"the blob-balls drive failed its gate: {got}")
+    return s, sampler
+
+
+def host_balls_drive(dyt, hk):
+    """The balls drive with the Gaussian as a numpy function in host mode:
+    the rounds, the consume loop and the NN kernel stay on the card, each
+    slice iteration takes its counted lanes to the host and back.  Every
+    call of the user's function must be one the wrapper counted; rslice
+    bills its out-of-cube probes too (as the reference does), so ``ncall``
+    is the calls plus those probes."""
+    counter = HostCounter()
+    _zero_counts(hk)
+    with recording_refits(dyt, hk) as calls:
+        s, sampler = drive(dyt, 2048, "balls", loglike=counter,
+                           ptform=np_box_ptform, likelihood_mode="host")
+    s["launches"] = _counts(hk)
+    s["refit_max_abs_err"] = check_refits(hk, calls, "host-balls drive")
+    s["user_calls"] = counter.n
+    s["ncall_launched"] = sampler.loglikelihood.ncall_launched
+    s["probes_outside_cube"] = sampler.ncall - counter.n
+    if counter.n != s["ncall_launched"] or counter.n > sampler.ncall or \
+            s["launches"]["exact"] < 1:
+        raise RuntimeError(f"the host-balls drive failed its gate: "
+                           f"calls {counter.n}, counted "
+                           f"{s['ncall_launched']}, ncall {sampler.ncall}, "
+                           f"launches {s['launches']}")
+    return s
+
+
+def host_round_trip(dyt):
+    """Wall ms of one host-mode evaluation of 256 lanes on the card (copy
+    the counted lanes to the host, map the numpy Gaussian, copy ``v`` and
+    ``logl`` back): all lanes counted, and one lane counted (the copies
+    and the scatter alone)."""
+    from dynesty_tpu_torch.internal.likelihood import LogLikelihood
+
+    like = LogLikelihood(np_gauss_loglike, np_box_ptform, NDIM,
+                         device="cuda", mode="host")
+    like.eval_host(np.full((2, NDIM), 0.5))
+    u = torch.rand((256, NDIM), dtype=torch.float64, device="cuda")
+    one = torch.zeros(256, dtype=torch.bool, device="cuda")
+    one[0] = True
+    every = torch.ones(256, dtype=torch.bool, device="cuda")
+    return {"lanes": 256,
+            "all_counted_ms": _time_ms(lambda: like.batch_eval(u, every),
+                                       20),
+            "one_counted_ms": _time_ms(lambda: like.batch_eval(u, one), 50)}
+
+
+def host_pool_drive(dyt):
+    """The default path (multi / unif / bootstrap 5, nlive 500) in host
+    mode over a spawn pool of two workers, each point's blob the PID that
+    evaluated it.  Gates: the evidence, at least two worker PIDs and none
+    of the parent's, ``ncall`` equal to the points mapped through the
+    log-likelihood, the bootstrap realisations in the workers, and no
+    worker that initialised CUDA."""
+    from dynesty_tpu_torch.pool import Pool
+
+    t0 = time.perf_counter()
+    with Pool(2, np_pid_loglike, np_box_ptform) as pool:
+        # the workers start (import this script, cache the functions)
+        # before the first task: timed apart from the run
+        pool.map(worker_state, range(4))
+        pool_start = time.perf_counter() - t0
+        counting = CountingPool(pool)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = dyt.NestedSampler(
+            pool.loglike, pool.prior_transform, NDIM, nlive=500,
+            likelihood_mode="host", pool=counting, blob=True,
+            rstate=np.random.Generator(np.random.PCG64(SEED)))
+        if sampler.device.type != "cuda":
+            raise RuntimeError(f"the default device is {sampler.device}")
+        sampler.run_nested(print_progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        state = pool.map(worker_state, range(16))
+    s = _summary(sampler, wall, LOGZ_TRUTH, likelihood_mode="host",
+                 pool_workers=2, bootstrap=sampler.bound_bootstrap)
+    _gate(sampler, s, "host-pool drive")
+    pids = np.unique(_blobs(sampler.results).astype(np.int64))
+    boot = getattr(sampler.bound, "last_bootstrap_pids", [])
+    s.update({"pool_start_s": pool_start, "worker_pids": len(pids),
+              "parent_pid_in_blobs": bool(os.getpid() in pids),
+              "mapped_points": counting.points,
+              "bootstrap_in_workers": bool(boot) and
+              os.getpid() not in boot,
+              "workers_initialised_cuda": any(i for i, _ in state)})
+    ok = (len(pids) >= 2 and not s["parent_pid_in_blobs"] and
+          counting.points.get("loglikelihood") == sampler.ncall and
+          s["bootstrap_in_workers"] and not s["workers_initialised_cuda"]
+          and (sampler.bounding, sampler.internal_sampler.name) ==
+          ("multi", "unif"))
+    if not ok:
+        got = {k: s[k] for k in ("worker_pids", "parent_pid_in_blobs",
+                                 "mapped_points", "ncall",
+                                 "bootstrap_in_workers",
+                                 "workers_initialised_cuda")}
+        raise RuntimeError(f"the host-pool drive failed its gate: {got}")
+    return s
+
+
+def _print_phase(name, s, card):
+    """One JSON line of a phase, the card beside it."""
+    keys = ("config", "niter", "ncall", "logz", "logzerr", "truth", "wall_s",
+            "launches", "refit_max_abs_err", "blob_shape",
+            "blob_is_logl_and_v0", "same_as_balls", "user_calls",
+            "ncall_launched", "probes_outside_cube", "round_trip",
+            "host_ms_per_sync_slice", "pool_start_s", "worker_pids",
+            "parent_pid_in_blobs",
+            "mapped_points", "bootstrap_in_workers",
+            "workers_initialised_cuda", "maxiter", "niter_first",
+            "wall_first_s", "wall_resumed_s", "checkpoint_bytes", "same",
+            "n_replay", "n_continuation", "timings")
+    print(json.dumps(dict({"phase": name, "card": card},
+                          **{k: s[k] for k in keys if k in s})))
 
 
 # states of a dynamic sampler in which a refit belongs to the base run
@@ -992,7 +1221,42 @@ def main():
     dynresume["launches"] = _counts(hk)
     print(json.dumps(dict(dynresume, card=card)))
 
-    # phase 16: device-only times, last: once a profiler has run, every
+    # phase 16: blob-balls, the main drive with a blob on every point
+    blobballs, blob_sampler = blob_balls_drive(dyt, hk, main)
+    _print_phase("blob-balls", blobballs, card)
+
+    # phase 17: host-balls, the main drive with a host-mode likelihood
+    hostballs = host_balls_drive(dyt, hk)
+    hostballs["round_trip"] = host_round_trip(dyt)
+    # what host mode adds to each slice iteration, against the balls drive
+    # of this call (the same iterations would differ: host and card round
+    # the Gaussian differently)
+    hostballs["host_ms_per_sync_slice"] = 1e3 * (
+        hostballs["timings"]["dispatch"] / hostballs["timings"]["sync_slice"]
+        - main["timings"]["dispatch"] / main["timings"]["sync_slice"])
+    _print_phase("host-balls", hostballs, card)
+
+    # phase 18: host-pool, the default path over a pool of two workers
+    _zero_counts(hk)
+    hostpool = host_pool_drive(dyt)
+    hostpool["launches"] = _counts(hk)
+    if hk.pairwise_min_dist.launches != 0:
+        raise RuntimeError("the host-pool drive launched the friends kernel")
+    _print_phase("host-pool", hostpool, card)
+
+    # phase 19: blob-resume, blob-balls stopped at half, saved, restored
+    # onto the card and resumed, against phase 16's sampler
+    _zero_counts(hk)
+    blobresume = resume_drive(dyt, blob_sampler, blobballs["niter"] // 2,
+                              loglike=blob_loglike, blob=True)
+    blobresume["launches"] = _counts(hk)
+    if blobresume["launches"]["exact"] < 1:
+        raise RuntimeError("the blob-resume drive never launched the exact "
+                           "path")
+    del blob_sampler
+    _print_phase("blob-resume", blobresume, card)
+
+    # phase 20: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -1037,7 +1301,10 @@ def main():
               {"balls": main["launches"]["exact"],
                "slice": sl["launches"]["exact"],
                "resume": resumed["launches"]["exact"],
-               "dynamic-balls": dynballs["launches"]["exact"]}),
+               "dynamic-balls": dynballs["launches"]["exact"],
+               "blob-balls": blobballs["launches"]["exact"],
+               "host-balls": hostballs["launches"]["exact"],
+               "blob-resume": blobresume["launches"]["exact"]}),
         entry("pairwise_min_dist_linf_exact", MAIN_SHAPE, math.inf, "exact",
               {"cubes": cubes["launches"]["exact"]}),
         entry("pairwise_min_dist_l2_tc", TC_SHAPE, 2, "tc",
@@ -1055,6 +1322,8 @@ def main():
                        "doubling": doubling, "resume": resumed,
                        "dynamic3": dyn3, "dynamic_balls": dynballs,
                        "dynamic_resume": dynresume,
+                       "blob_balls": blobballs, "host_balls": hostballs,
+                       "host_pool": hostpool, "blob_resume": blobresume,
                        "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))

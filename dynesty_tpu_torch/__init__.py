@@ -8,6 +8,9 @@ rslice proposals, batch allocation by weight function with a stopping
 function, run merging (``utils.runs``), and bit-exact save/restore/resume,
 with the leave-one-out nearest-neighbour distance of the friends bounds
 as hand-written CUDA kernels for Hopper (``csrc/pairwise_min_dist.cu``).
+The likelihood may return blobs, may be any Python callable evaluated on
+the host (``likelihood_mode='host'``, over a :class:`pool.Pool`), and may
+record its evaluation history.
 Imports neither ``jax`` nor ``dynesty_tpu``.  Entry points:
 ``NestedSampler(...)`` and ``DynamicNestedSampler(...)``, on the card
 unless ``device='cpu'`` is given.
@@ -15,8 +18,10 @@ unless ``device='cpu'`` is given.
 
 from ._version import __version__
 from .dynesty import DynamicNestedSampler, NestedSampler
-from . import bounding, dynamicsampler, internal, ops, utils
+from .internal.likelihood import LoglOutput
+from . import bounding, dynamicsampler, internal, ops, pool, utils
 from .utils import runs
 
-__all__ = ["NestedSampler", "DynamicNestedSampler", "bounding",
-           "dynamicsampler", "internal", "ops", "utils", "__version__"]
+__all__ = ["NestedSampler", "DynamicNestedSampler", "LoglOutput",
+           "bounding", "dynamicsampler", "internal", "ops", "pool", "utils",
+           "__version__"]

@@ -13,9 +13,15 @@ float32 on the sampler's device through
 :func:`..ops.hopper_kernels.pairwise_min_dist` (the CUDA kernel on a
 card); below that it stays on the host in float64.  Bootstrap radii stay
 on the host, as in the JAX package.
+
+Every ``update`` takes a ``pool``: the bootstrap realisations then map over
+its workers as numpy tasks (the multi-ellipsoid fit takes the recursive
+splitter there, the batched forest without a pool), and the processes
+that ran them are kept in ``last_bootstrap_pids``.
 """
 
 import math
+import os
 import warnings
 
 import numpy as np
@@ -76,7 +82,7 @@ class Bound:
     def scale_to_logvol(self, logvol):
         raise NotImplementedError
 
-    def update(self, points, rstate=None, bootstrap=0):
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
         raise NotImplementedError
 
     def get_random_axes(self, rstate):
@@ -97,7 +103,7 @@ class UnitCube(Bound):
     def scale_to_logvol(self, logvol):
         pass
 
-    def update(self, points, rstate=None, bootstrap=0):
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
         pass
 
     def get_random_axes(self, rstate):
@@ -174,16 +180,19 @@ class Ellipsoid(Bound):
     def contains(self, x):
         return self.distance(x) <= 1.0
 
-    def update(self, points, rstate=None, bootstrap=0):
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
         """Refit to bound ``points``, expanded by the worst bootstrap
-        leave-out distance when ``bootstrap > 0``."""
+        leave-out distance when ``bootstrap > 0`` (realisations over
+        ``pool`` when given)."""
         ell = bounding_ellipsoid(points)
         for attr in ("ndim", "ctr", "cov", "am", "logvol", "axlens", "axes"):
             setattr(self, attr, getattr(ell, attr))
         self.last_expand = 1.0
         if bootstrap > 0:
-            expand = max(_ellipsoid_bootstrap_expand(False, points, s)
-                         for s in get_seed_sequence(rstate, bootstrap))
+            expand = _mapped_bootstrap(
+                self, pool, _ellipsoid_expand_task,
+                [(False, points, s)
+                 for s in get_seed_sequence(rstate, bootstrap)])
             if expand > 1.0:
                 self.last_expand = expand
                 self.scale_to_logvol(self.logvol +
@@ -254,17 +263,27 @@ class MultiEllipsoid(Bound):
         sq = np.einsum("nai,aij,naj->na", d, self.ams, d)
         return np.any(sq < 1, axis=1)
 
-    def update(self, points, rstate=None, bootstrap=0):
-        """Refit by BIC-guided splitting (the batched breadth-first
-        splitter: the main fit and every bootstrap realization as one
-        forest), with the all-points-contained invariant and optional
-        bootstrap expansion."""
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
+        """Refit by BIC-guided splitting, with the all-points-contained
+        invariant and optional bootstrap expansion.  Without a pool the
+        batched breadth-first splitter fits the main decomposition and
+        every bootstrap realization as one forest; with one, the recursive
+        splitter fits the main decomposition and each realization is a
+        task for the workers.  Both give the same fit."""
         npoints, ndim = points.shape
         if npoints == 1:
             raise RuntimeError("Cannot bound a single point.")
         seeds = get_seed_sequence(rstate, bootstrap) if bootstrap > 0 \
             else ()
-        ells, expands = _fit_multi_batched(points, seeds)
+        if pool is None:
+            ells, expands = _fit_multi_batched(points, seeds)
+            if bootstrap > 0:
+                self.last_bootstrap_pids = [os.getpid()] * bootstrap
+        else:
+            ells = _bounding_ellipsoids(points, bounding_ellipsoid(points))
+            expands = [_mapped_bootstrap(
+                self, pool, _ellipsoid_expand_task,
+                [(True, points, s) for s in seeds])] if bootstrap > 0 else []
         self.nells = len(ells)
         self.ells = ells
         self._sync_arrays()
@@ -346,19 +365,21 @@ class _FriendsBase(Bound):
     def contains(self, x):
         return len(self.within(x)) > 0
 
-    def update(self, points, rstate=None, bootstrap=0):
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
         """Refit the kernel covariance (from re-centred single-linkage
         clusters) and the common radius (leave-one-out NN distances, or
-        the worst of ``bootstrap`` bootstrap NN distances, on the
-        host)."""
+        the worst of ``bootstrap`` bootstrap NN distances, on the host or
+        over ``pool``)."""
         self._set_cov(np.atleast_2d(self._covariance_from_clusters(points)))
         points_t = points @ self.axes_inv
         if bootstrap == 0:
             radii = _friends_leaveoneout_radius(points_t, self.ftype,
                                                 self.device)
         else:
-            radii = [_friends_bootstrap_radius(points_t, self.ftype, s)
-                     for s in get_seed_sequence(rstate, bootstrap)]
+            radii = _mapped_bootstrap(
+                self, pool, _friends_radius_task,
+                [(points_t, self.ftype, s)
+                 for s in get_seed_sequence(rstate, bootstrap)])
         rmax = max(np.max(radii), 1e-10)
         self.cov *= rmax ** 2
         self.am /= rmax ** 2
@@ -775,6 +796,27 @@ def _friends_bootstrap_radius(points, ftype, rseed):
     points_in, points_out = _bootstrap_points(points, rseed)
     return float(_pairwise_dist(points_out, points_in, ftype)
                  .min(axis=1).max())
+
+
+def _ellipsoid_expand_task(args):
+    """:func:`_ellipsoid_bootstrap_expand` as a pool task: ``args`` is
+    ``(multi, points, rseed)``; returns ``(expand, pid)``."""
+    return _ellipsoid_bootstrap_expand(*args), os.getpid()
+
+
+def _friends_radius_task(args):
+    """:func:`_friends_bootstrap_radius` as a pool task (numpy only, on
+    the host): ``args`` is ``(points, ftype, rseed)``; returns ``(radius,
+    pid)``."""
+    return _friends_bootstrap_radius(*args), os.getpid()
+
+
+def _mapped_bootstrap(bound, pool, task, args):
+    """Map ``task`` over ``args`` (over ``pool`` when given), record the
+    processes that ran it on ``bound``, and return the largest result."""
+    out = list(map(task, args) if pool is None else pool.map(task, args))
+    bound.last_bootstrap_pids = [pid for _, pid in out]
+    return max(r for r, _ in out)
 
 
 def _friends_leaveoneout_radius(points, ftype, device):

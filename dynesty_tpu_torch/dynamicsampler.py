@@ -12,8 +12,9 @@ batch is a ``Sampler.sample(logl_max=..., resume=...)`` over live points
 seeded from the saved run; the merge, the weights and the stopping value
 are float64 numpy on the host.  A batch stopped by ``maxiter``/``maxcall``
 stays suspended in the pickled state and finishes bit for bit with
-``add_batch(resume=True)``.  Pools are not yet ported: ``mapper`` is
-``map``.
+``add_batch(resume=True)``.  Blobs ride with the seeds and the records;
+the pool passes to every inner sampler, and the Monte Carlo realisations
+of ``stopping_function`` map over it where ``use_pool['stop_function']``.
 """
 
 import copy
@@ -31,7 +32,7 @@ from .sampler import Sampler, initialize_live_points
 from .utils.checkpoint import restore_sampler, save_sampler
 from .utils.misc import (DelayTimer, IteratorResult, IteratorResultShort,
                          Timings, get_print_func, get_random_generator,
-                         get_seed_sequence)
+                         get_seed_sequence, stack_blob_rows)
 from .utils.results import Results, RunRecord
 from .utils.runs import _kld_error
 
@@ -202,6 +203,8 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
     saved_logl = np.array(main_sampler.saved_run["logl"])
     saved_logvol = np.array(main_sampler.saved_run["logvol"])
     saved_scale = np.array(main_sampler.saved_run["scale"])
+    saved_blobs = main_sampler.saved_run["blob"]
+    blob = main_sampler.blob
     first_points = []
 
     # main_sampler.live_init is a placeholder: the live set is replaced
@@ -224,10 +227,10 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
     psel = np.all(saved_logl > logl_min)
     if psel:
         # bracket reaches below all samples: fresh points from the prior
-        (live_u, live_v, live_logl), logvol0, init_ncalls = \
+        (live_u, live_v, live_logl, live_blobs), logvol0, init_ncalls = \
             initialize_live_points(None, main_sampler.loglikelihood,
                                    nlive_new, main_sampler.ndim,
-                                   main_sampler.rstate)
+                                   main_sampler.rstate, blob=blob)
         ncall += init_ncalls
         for i in range(nlive_new):
             first_points.append(
@@ -267,9 +270,11 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
         if cur_nlive == 1:
             raise RuntimeError("Only one live point selected for the "
                                "batch seed; please report.")
-        batch_sampler.set_live_points(saved_u[subset].copy(),
-                                      saved_v[subset].copy(),
-                                      saved_logl[subset].copy())
+        batch_sampler.set_live_points(
+            saved_u[subset].copy(), saved_v[subset].copy(),
+            saved_logl[subset].copy(),
+            live_blobs=stack_blob_rows(saved_blobs[i] for i in subset)
+            if blob else None)
         batch_sampler.update_bound_if_needed(logl_min)
         # the parent's scale at the join, for whichever proposal kernel is
         # active now or becomes so at the first bound update
@@ -285,11 +290,13 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
         live_u = np.empty((nlive_new, main_sampler.ndim))
         live_v = np.empty((nlive_new, saved_v.shape[1]))
         live_logl = np.empty(nlive_new)
+        seed_blobs = []
 
         # constrained sampling of the batch's starting live points
         for i in range(nlive_new):
-            (live_u[i], live_v[i], live_logl[i], nc_i, _,
+            (live_u[i], live_v[i], live_logl[i], nc_i, blob_i,
              pstats_i) = batch_sampler._new_point(logl_min)
+            seed_blobs.append(blob_i)
             ncall += nc_i
             first_points.append(
                 IteratorResultShort(worst=-i - 1, ustar=live_u[i],
@@ -299,6 +306,7 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
                                     eff=main_sampler.eff,
                                     delta_logz=np.nan,
                                     proposal_stats=pstats_i))
+        live_blobs = stack_blob_rows(seed_blobs) if blob else None
     # bill and drop any proposals left in the seeding queue: the fused
     # batch loop below never consumes them, but their evaluations
     # happened (exact invocation accounting)
@@ -331,7 +339,8 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
     # fresh prior-sampled batch, else the batch's lower bracket
     batch_sampler.set_live_points(
         live_u, live_v, live_logl,
-        live_birth=np.full(nlive_new, -np.inf if psel else logl_min))
+        live_birth=np.full(nlive_new, -np.inf if psel else logl_min),
+        live_blobs=live_blobs)
     if psel:
         batch_sampler.logvol_init = logvol0
 
@@ -368,9 +377,10 @@ class DynamicSampler:
                  bound_update_interval_ratio=None, first_bound_update=None,
                  bound_bootstrap=0, bound_enlarge=1.0,
                  rounds_per_dispatch=None, proposal_mode="batch",
-                 dtype=torch.float64):
+                 dtype=torch.float64, blob=False):
         self.device = torch.device(device)
         self.loglikelihood = loglikelihood
+        self.blob = bool(blob)
         self.ndim = ndim
         self.ncdim = ncdim or ndim
         self.bounding = bounding
@@ -388,7 +398,11 @@ class DynamicSampler:
         self.rounds_per_dispatch = rounds_per_dispatch or 8
         self.proposal_mode = proposal_mode
         self.dtype = dtype
+        # the pool, its map and the per-site flags (set by the factory;
+        # not pickled)
+        self.pool = None
         self.mapper = map
+        self.use_pool = {}
 
         self.it = 1
         self.batch = 0
@@ -435,7 +449,9 @@ class DynamicSampler:
                ptform_kwargs=None, enlarge=None, bootstrap=None, walks=None,
                facc=0.5, slices=None, ncdim=None, blob=False,
                likelihood_mode="torch", rounds_per_dispatch=None,
-               proposal_mode="batch", dtype=torch.float64, pool=None):
+               proposal_mode="batch", dtype=torch.float64, pool=None,
+               use_pool=None, save_evaluation_history=False,
+               history_filename=None):
         """Factory with the ``DynamicNestedSampler`` signature."""
         from .dynesty import _common_init
         cfg = _common_init(loglikelihood, prior_transform, ndim, nlive,
@@ -443,8 +459,11 @@ class DynamicSampler:
                            walks, facc, slices, ncdim, blob, likelihood_mode,
                            pool, queue_size, rstate, logl_args, logl_kwargs,
                            ptform_args, ptform_kwargs, enlarge, bootstrap,
-                           update_interval, first_update, dtype)
-        return cls(cfg["like"], ndim, cfg["internal_sampler"], bound,
+                           update_interval, first_update, dtype,
+                           use_pool=use_pool,
+                           save_evaluation_history=save_evaluation_history,
+                           history_filename=history_filename)
+        obj = cls(cfg["like"], ndim, cfg["internal_sampler"], bound,
                    device=cfg["device"], nlive0=nlive, ncdim=cfg["ncdim"],
                    rstate=cfg["rstate"], queue_size=cfg["queue_size"],
                    bound_update_interval_ratio=(
@@ -453,16 +472,22 @@ class DynamicSampler:
                    bound_bootstrap=cfg["bootstrap"],
                    bound_enlarge=cfg["enlarge"],
                    rounds_per_dispatch=rounds_per_dispatch,
-                   proposal_mode=proposal_mode, dtype=dtype)
+                   proposal_mode=proposal_mode, dtype=dtype, blob=blob)
+        obj.pool = pool
+        obj.use_pool = cfg["use_pool"]
+        if pool is not None:
+            obj.mapper = pool.map
+        return obj
 
     def _new_sampler(self, live_points, update_interval, first_update=None,
                      logvol_init=0.0):
         """An inner static sampler (the base run's or a batch's) with this
         sampler's configuration, its likelihood and its ``rstate``, and a
-        fresh proposal kernel made from the ``sampling`` template."""
+        fresh proposal kernel made from the ``sampling`` template, and the
+        pool."""
         if first_update is None:
             first_update = self.first_bound_update
-        return Sampler(
+        sampler = Sampler(
             self.loglikelihood, self.ndim, live_points,
             self.sampling._new_from_template({}), self.bounding,
             device=self.device, bound_update_interval=update_interval,
@@ -472,7 +497,11 @@ class DynamicSampler:
             bound_enlarge=self.bound_enlarge, logvol_init=logvol_init,
             rounds_per_dispatch=self.rounds_per_dispatch,
             rounds_explicit=self.rounds_explicit,
-            proposal_mode=self.proposal_mode, dtype=self.dtype)
+            proposal_mode=self.proposal_mode, dtype=self.dtype,
+            blob=self.blob)
+        sampler.pool = self.pool
+        sampler.use_pool = self.use_pool
+        return sampler
 
     def _bill_unyielded(self, sampler):
         """Add to ``ncall`` the evaluations that an inner sampler made in
@@ -488,12 +517,17 @@ class DynamicSampler:
     def __getstate__(self):
         state = self.__dict__.copy()
         state.pop("mapper", None)
+        state.pop("pool", None)
         state["device"] = str(self.device)  # stored by name
         return state
 
     def __setstate__(self, state):
+        # checkpoints written before blobs and pools existed
+        for k, v in (("blob", False), ("use_pool", {})):
+            state.setdefault(k, v)
         self.__dict__ = state
         self.device = torch.device(state["device"])
+        self.pool = None
         self.mapper = map
 
     def save(self, fname):
@@ -502,11 +536,12 @@ class DynamicSampler:
         save_sampler(self, fname)
 
     @staticmethod
-    def restore(fname, device=None):
+    def restore(fname, device=None, pool=None):
         """The sampler saved in ``fname``, on the device it was saved from
-        unless ``device`` names another; a ``cuda`` checkpoint raises
-        where CUDA is absent."""
-        return restore_sampler(fname, device=device)
+        unless ``device`` names another (a ``cuda`` checkpoint raises
+        where CUDA is absent), with ``pool`` attached to it and to its
+        inner samplers."""
+        return restore_sampler(fname, device=device, pool=pool)
 
     def set_device(self, device):
         """Move the run to ``device``: the likelihood, the proposal
@@ -542,7 +577,8 @@ class DynamicSampler:
             bound_enlarge=self.bound_enlarge,
             rounds_per_dispatch=(self.rounds_per_dispatch
                                  if self.rounds_explicit else None),
-            proposal_mode=self.proposal_mode, dtype=self.dtype)
+            proposal_mode=self.proposal_mode, dtype=self.dtype,
+            blob=self.blob)
 
     @property
     def results(self):
@@ -622,8 +658,8 @@ class DynamicSampler:
         if not resume:
             live, logvol_init, init_ncalls = initialize_live_points(
                 live_points, self.loglikelihood, nlive, self.ndim,
-                self.rstate)
-            self.live_init = [np.array(a) for a in live]
+                self.rstate, blob=self.blob)
+            self.live_init = [np.array(a) for a in live[:3]] + [live[3]]
             self.nlive_init = len(self.live_init[0])
             self.ncall += init_ncalls
 
@@ -775,7 +811,7 @@ class DynamicSampler:
                 resume=resume):
             D = dict(id=results.worst, u=results.ustar, v=results.vstar,
                      logl=results.loglstar, nc=results.nc,
-                     it=results.worst_it + it0, blob=None,
+                     it=results.worst_it + it0, blob=results.blob,
                      n=results.n, birth=results.birth,
                      boundidx=results.boundidx,
                      bounditer=results.bounditer,
@@ -843,7 +879,7 @@ class DynamicSampler:
                      logl=results.loglstar, nc=results.nc,
                      it=results.worst_it + it0, n=results.n,
                      birth=results.birth,
-                     blob=None, boundidx=results.boundidx,
+                     blob=results.blob, boundidx=results.boundidx,
                      bounditer=results.bounditer,
                      scale=batch_sampler.internal_sampler.scale,
                      proposal_stats=None)
@@ -1068,9 +1104,13 @@ class DynamicSampler:
                 if mcall > 0 and miter > 0 and use_stop \
                         and self.batch_sampler is None:
                     t0 = time.perf_counter()
+                    # the Monte Carlo realisations map over the pool where
+                    # use_pool['stop_function']
+                    stop_mapper = self.mapper if self.use_pool.get(
+                        "stop_function", True) else map
                     stop, stop_vals = stop_function(res, stop_kwargs,
                                                     rstate=self.rstate,
-                                                    mapper=self.mapper,
+                                                    mapper=stop_mapper,
                                                     return_vals=True)
                     self.timings_closed.add("dyn_stop",
                                             time.perf_counter() - t0)
@@ -1098,6 +1138,7 @@ class DynamicSampler:
                 self.save(checkpoint_file)
         finally:
             self.timings_closed.add("total", time.perf_counter() - t_run0)
+            self.loglikelihood.finalize_history()
             if print_progress:
                 sys.stderr.write("\n")
 
@@ -1148,9 +1189,12 @@ class DynamicSampler:
             if cur.worst >= 0:
                 ncall += cur.nc
                 niter += 1
+            # a record's blob is the batch run's row just appended
+            blob = self.new_run["blob"][-1] if cur.worst >= 0 and \
+                self.new_run is not None else None
             results = IteratorResult(
                 worst=cur.worst, ustar=cur.ustar, vstar=cur.vstar,
-                loglstar=cur.loglstar, blob=None, logvol=np.nan,
+                loglstar=cur.loglstar, blob=blob, logvol=np.nan,
                 logwt=np.nan, logz=logz, logzvar=logzvar, h=np.nan,
                 nc=cur.nc, worst_it=cur.worst_it, boundidx=cur.boundidx,
                 bounditer=cur.bounditer, eff=cur.eff,

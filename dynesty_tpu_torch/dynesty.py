@@ -5,8 +5,15 @@ dynamic nested sampler (counterpart of ``dynesty_tpu.dynesty``).
 caller asks for the CPU, and raises where CUDA is absent rather than fall
 back.
 ``likelihood_mode`` is ``'torch'`` (per-point torch functions batched
-with ``torch.func.vmap``) or ``'vectorized'``.  ``queue_size`` is the
-proposal batch width.
+with ``torch.func.vmap``), ``'vectorized'``, or ``'host'`` (any Python
+callables on numpy rows, mapped on the host, over ``pool`` when one is
+given: a :class:`dynesty_tpu_torch.pool.Pool`).  ``use_pool`` switches the
+pool off per site (``prior_transform``, ``loglikelihood``,
+``propose_point``, ``update_bound``, ``stop_function``).  ``blob=True``:
+the log-likelihood returns ``(logl, blob)`` and every sample keeps its
+blob (``results.blob``).  ``save_evaluation_history`` writes every
+counted evaluation to the HDF5 file ``history_filename``.  ``queue_size``
+is the proposal batch width.
 
 Ported: bounds ``none``, ``single``, ``multi`` (the default), ``balls``
 and ``cubes``, with bootstrap expansion; samplers ``unif``, ``rwalk``,
@@ -20,9 +27,8 @@ goes on with ``run_nested(resume=True)``; ``save``/``restore`` and
 A checkpoint restores on the device it was written on and raises where
 that is absent, unless ``restore(fname, device='cpu')`` asks otherwise.
 ``DynamicNestedSampler`` takes the same arguments and allocates its live
-points batch by batch (:mod:`.dynamicsampler`).  Custom bounds, blobs,
-pools and host-mode likelihoods are not yet ported and raise
-``NotImplementedError``.
+points batch by batch (:mod:`.dynamicsampler`).  Custom bounds are not
+yet ported and raise ``NotImplementedError``.
 """
 
 import torch
@@ -90,6 +96,23 @@ def _resolve_update_interval(update_interval, internal_sampler, nlive):
     return max(1, int(round(ratio * nlive)))
 
 
+_USE_POOL_KEYS = ("prior_transform", "loglikelihood", "propose_point",
+                  "update_bound", "stop_function")
+
+
+def _parse_use_pool(use_pool):
+    """Check and default the per-site pool flags.  ``propose_point`` is
+    accepted for the reference's interface and has no meaning of its own:
+    a round's proposals are one batch, whose host-mode likelihood calls
+    follow the ``loglikelihood`` flag."""
+    use_pool = dict(use_pool or {})
+    for k in use_pool:
+        if k not in _USE_POOL_KEYS:
+            raise ValueError(
+                f"Unknown use_pool key '{k}' (valid: {_USE_POOL_KEYS})")
+    return {k: bool(use_pool.get(k, True)) for k in _USE_POOL_KEYS}
+
+
 def _resolve_device(device):
     if device is None:
         raise ValueError("a sampler needs a device: 'cuda' (the default) "
@@ -105,12 +128,11 @@ def _common_init(loglikelihood, prior_transform, ndim, nlive, sample,
                  device, periodic, reflective, walks, facc, slices, ncdim,
                  blob, likelihood_mode, pool, queue_size, rstate, logl_args,
                  logl_kwargs, ptform_args, ptform_kwargs, enlarge, bootstrap,
-                 update_interval, first_update, dtype):
+                 update_interval, first_update, dtype, use_pool=None,
+                 save_evaluation_history=False, history_filename=None):
     """Argument resolution shared by the static and the dynamic factory:
     the device, the internal sampler, the bound expansion, the wrapped
-    likelihood, the round width and the refit cadence."""
-    if pool is not None:
-        raise NotImplementedError("pools are not yet ported")
+    likelihood, the pool flags, the round width and the refit cadence."""
     device = _resolve_device(device)
     ncdim = ncdim or ndim
     if ncdim != ndim and sample in ("slice", "rslice"):
@@ -126,14 +148,25 @@ def _common_init(loglikelihood, prior_transform, ndim, nlive, sample,
     for k in first_update:
         if k not in ("min_ncall", "min_eff"):
             raise ValueError(f"Unrecognized first_update key {k}")
+    use_pool = _parse_use_pool(use_pool)
     like = LogLikelihood(loglikelihood, prior_transform, ndim,
                          device=device, mode=likelihood_mode, blob=blob,
+                         pool=pool, use_pool_logl=use_pool["loglikelihood"],
+                         use_pool_ptform=use_pool["prior_transform"],
                          logl_args=logl_args, logl_kwargs=logl_kwargs,
                          ptform_args=ptform_args,
-                         ptform_kwargs=ptform_kwargs, dtype=dtype)
+                         ptform_kwargs=ptform_kwargs, dtype=dtype,
+                         save_evaluation_history=save_evaluation_history,
+                         history_filename=history_filename)
     if queue_size is None:
-        queue_size = max(32, min(nlive, 256))
-    return dict(like=like, device=device,
+        pool_size = getattr(pool, "njobs", None) or \
+            getattr(pool, "_processes", None)
+        if likelihood_mode == "host" and pool_size:
+            # host mode: a round is as wide as a few tasks per worker
+            queue_size = max(32, min(nlive, 8 * pool_size))
+        else:
+            queue_size = max(32, min(nlive, 256))
+    return dict(like=like, device=device, use_pool=use_pool,
                 internal_sampler=internal_sampler, enlarge=enlarge,
                 bootstrap=bootstrap, first_update=first_update,
                 rstate=get_random_generator(rstate), queue_size=queue_size,
@@ -154,15 +187,19 @@ class NestedSampler(Sampler):
                  bootstrap=None, walks=None, facc=0.5, slices=None,
                  ncdim=None, blob=False, likelihood_mode="torch",
                  rounds_per_dispatch=None, proposal_mode="batch",
-                 dtype=torch.float64, pool=None):
+                 dtype=torch.float64, pool=None, use_pool=None,
+                 save_evaluation_history=False, history_filename=None):
         cfg = _common_init(loglikelihood, prior_transform, ndim, nlive,
                            sample, device, periodic, reflective,
                            walks, facc, slices, ncdim, blob, likelihood_mode,
                            pool, queue_size, rstate, logl_args, logl_kwargs,
                            ptform_args, ptform_kwargs, enlarge, bootstrap,
-                           update_interval, first_update, dtype)
+                           update_interval, first_update, dtype,
+                           use_pool=use_pool,
+                           save_evaluation_history=save_evaluation_history,
+                           history_filename=history_filename)
         live_points, logvol_init, init_ncalls = initialize_live_points(
-            live_points, cfg["like"], nlive, ndim, cfg["rstate"])
+            live_points, cfg["like"], nlive, ndim, cfg["rstate"], blob=blob)
         super().__init__(
             loglikelihood=cfg["like"], ndim=ndim, live_points=live_points,
             sampling=cfg["internal_sampler"], bounding=bound,
@@ -174,8 +211,10 @@ class NestedSampler(Sampler):
             logvol_init=logvol_init,
             rounds_per_dispatch=rounds_per_dispatch or 8,
             rounds_explicit=rounds_per_dispatch is not None,
-            proposal_mode=proposal_mode, dtype=dtype)
+            proposal_mode=proposal_mode, dtype=dtype, blob=blob)
         self.ncall = init_ncalls
+        self.pool = pool
+        self.use_pool = cfg["use_pool"]
 
 
 def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
@@ -188,7 +227,9 @@ def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
                          walks=None, facc=0.5, slices=None, ncdim=None,
                          blob=False, likelihood_mode="torch",
                          rounds_per_dispatch=None, proposal_mode="batch",
-                         dtype=torch.float64, pool=None):
+                         dtype=torch.float64, pool=None, use_pool=None,
+                         save_evaluation_history=False,
+                         history_filename=None):
     """Dynamic nested sampler factory; the arguments are those of
     :class:`NestedSampler` less ``live_points`` (``run_nested`` takes
     them).  The implementation lives in
@@ -206,14 +247,16 @@ def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
         slices=slices, ncdim=ncdim, blob=blob,
         likelihood_mode=likelihood_mode,
         rounds_per_dispatch=rounds_per_dispatch,
-        proposal_mode=proposal_mode, dtype=dtype, pool=pool)
+        proposal_mode=proposal_mode, dtype=dtype, pool=pool,
+        use_pool=use_pool, save_evaluation_history=save_evaluation_history,
+        history_filename=history_filename)
 
 
-def _dynamic_restore(fname, device=None):
+def _dynamic_restore(fname, device=None, pool=None):
     """The dynamic sampler saved in ``fname`` (see
     :meth:`DynamicSampler.restore`)."""
     from .dynamicsampler import DynamicSampler
-    return DynamicSampler.restore(fname, device=device)
+    return DynamicSampler.restore(fname, device=device, pool=pool)
 
 
 DynamicNestedSampler.restore = _dynamic_restore

@@ -14,6 +14,12 @@ packed stop bitmask is read once per dispatch.  Choosing the thin or the
 general scan (JAX's ``lax.cond``) and the per-round skip gates read one
 flag from the device per round (``Timings['sync_round']``).
 
+Blobs live in tensors of their own beside the float64 live matrix and
+records (a blob's dtype is the user's): the live set's blob flows from
+round to round, and every round yields the blob of each dead point and
+of each proposal, gathered and scattered with the indices of the live
+matrix.
+
 Every chained round draws from its own ``torch.Generator``, seeded from
 the dispatch's integer seed and the round's index (:func:`round_seed`), as
 the JAX dispatch splits its key into one key per round: a continuation
@@ -28,7 +34,7 @@ import torch
 
 from ..ops.integrals import progress_integration_torch
 from ..utils.convert import integ_from_vector
-from ..utils.misc import torch_generator
+from ..utils.misc import blob_where, torch_generator, tree_map
 
 __all__ = ["make_fused_round", "unpack_flat", "record_columns",
            "select_starts", "round_seed"]
@@ -62,18 +68,19 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                      chain_stop_fn=None, timings=None):
     """Wrap a proposal round into a chained propose+consume call.
 
-    ``propose_fn(gen, live, axes_args, scale, loglstar) -> (qu, qv, qlogl,
-    qnc, stats, lane_stats)``.  ``mode='batch'`` kills the ``q`` worst
-    live points per round and refills them at the shared threshold (needs
-    ``q < nlive``); ``mode='queue'`` consumes the proposals against the
-    rising threshold at constant live count.  ``tune_fn(scale, stats)``
-    updates the proposal scale between rounds; ``chain_stop_fn(integ,
-    counters, ctrl)`` skips the round it fires at and all later ones
-    (bit 32 of the reported reason).  Every round past an in-flight stop
-    is skipped too, whatever the kernel: the round loop runs on the host,
-    so the gate costs one flag read per round, and a dispatch stopped by
-    maxiter/maxcall then strands no round (an interrupted and resumed run
-    bills exactly the evaluations of the uninterrupted one).
+    ``propose_fn(gen, live, live_blob, axes_args, scale, loglstar) -> (qu,
+    qv, qlogl, qblob, qnc, stats, lane_stats)``.  ``mode='batch'`` kills
+    the ``q`` worst live points per round and refills them at the shared
+    threshold (needs ``q < nlive``); ``mode='queue'`` consumes the
+    proposals against the rising threshold at constant live count.
+    ``tune_fn(scale, stats)`` updates the proposal scale between rounds;
+    ``chain_stop_fn(integ, counters, ctrl)`` skips the round it fires at
+    and all later ones (bit 32 of the reported reason).  Every round past
+    an in-flight stop is skipped too, whatever the kernel: the round loop
+    runs on the host, so the gate costs one flag read per round, and a
+    dispatch stopped by maxiter/maxcall then strands no round (an
+    interrupted and resumed run bills exactly the evaluations of the
+    uninterrupted one).
 
     ``kind='replay'`` marks a consume-only round whose proposals are given
     (the leftover tail of an interrupted round): its refills are born at
@@ -81,10 +88,14 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
     count starts at ``kills0`` (ctrl[14]), and it never takes the thin
     path.
 
-    Returns ``(fused, layout)`` with ``fused(seed, live, axes_args, ctrl)
-    -> (flat, proposals, live_out)``; ``seed`` is the dispatch's integer
-    seed and ``ctrl`` the host (numpy) control vector of
-    ``InternalSampler.launch_fused``.
+    Returns ``(fused, layout)`` with ``fused(seed, live, live_blob,
+    axes_args, ctrl) -> (flat, proposals, live_out, live_blob_out,
+    old_blobs, qblobs)``; ``seed`` is the dispatch's integer seed and
+    ``ctrl`` the host (numpy) control vector of
+    ``InternalSampler.launch_fused``.  ``live_blob`` is the live points'
+    blob (None without blobs); ``old_blobs`` holds the blob of each
+    record's dead point and ``qblobs`` that of each proposal, row for row
+    with the records and the proposals block.
     """
     assert mode in ("batch", "queue")
     if mode == "batch" and q >= nlive:
@@ -217,8 +228,8 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         return [victims, torch.full((q,), -1, dtype=i64, device=device)] \
             + outs
 
-    def one_round(gen, live, integ, counters, limits, scale, axes_args,
-                  kills0, birth0):
+    def one_round(gen, live, live_blob, integ, counters, limits, scale,
+                  axes_args, kills0, birth0):
         """One propose+consume round; integrator state and counters flow
         in and out."""
         live_logl0 = live[:, il]
@@ -239,8 +250,8 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         # own threshold would overstate the births
         birth_new = birth0 if kind == "replay" else loglstar0
 
-        qu, qv, qlogl, qnc, stats, lane_stats = propose_fn(
-            gen, live, axes_args, scale, loglstar0)
+        qu, qv, qlogl, qblob, qnc, stats, lane_stats = propose_fn(
+            gen, live, live_blob, axes_args, scale, loglstar0)
         qnc = qnc.to(i64)
         it0 = integ["it"]
         st = dict(integ, **counters, racc=torch.as_tensor(
@@ -295,6 +306,14 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                          birth_new.to(dtype).expand(nlive)], dim=1),
         ], dim=1)
         live_out = torch.where(replaced[:, None], new_rows, live)
+        # blobs take the same gathers: the dead point's from the live set
+        # or from the proposal that refilled its slot, the refills'
+        old_blobs = blob_where(from_orig,
+                               tree_map(lambda b: b[worsts], live_blob),
+                               tree_map(lambda b: b[srcc], qblob))
+        live_blob_out = blob_where(replaced,
+                                   tree_map(lambda b: b[lastc], qblob),
+                                   live_blob)
 
         integ_out = {k: st[k] for k in (
             "logz", "logzvar", "h", "logvol", "loglstar", "plateau_mode",
@@ -308,19 +327,21 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         proposals = torch.cat([qu, qv, qlogl[:, None], qnc.to(dtype)[:, None],
                                lane_stats.to(dtype)], dim=1)
         round_out = (recs, accepts, r_dlogz, proposals, stats_vec,
-                     loglstar0.to(dtype))
-        return live_out, integ_out, counters_out, round_out
+                     loglstar0.to(dtype), old_blobs, qblob)
+        return live_out, live_blob_out, integ_out, counters_out, round_out
 
-    def skipped_round():
+    def skipped_round(live_blob):
         z = torch.zeros
+        zero_blob = tree_map(lambda b: z((q,) + b.shape[1:], dtype=b.dtype,
+                                         device=device), live_blob)
         return (z((q, width), dtype=dtype, device=device),
                 z((q,), dtype=torch.bool, device=device),
                 z((q,), dtype=dtype, device=device),
                 z((q, ndim + npdim + 4), dtype=dtype, device=device),
                 z((4,), dtype=dtype, device=device),
-                z((), dtype=dtype, device=device))
+                z((), dtype=dtype, device=device), zero_blob, zero_blob)
 
-    def fused(seed, live, axes_args, ctrl):
+    def fused(seed, live, live_blob, axes_args, ctrl):
         ctrl = np.asarray(ctrl, dtype=np.float64)
         integ = integ_from_vector(ctrl, device, dtype)
         limits = {"dlogz": float(ctrl[9]), "logl_max": float(ctrl[10]),
@@ -355,13 +376,13 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                 if timings is not None:
                     timings.count("sync_round")
             if off:
-                outs.append(skipped_round())
+                outs.append(skipped_round(live_blob))
                 continue
             was_done = counters["done"]
             chain_flag = counters.get("chain_stop")
-            live, integ, counters, round_out = one_round(
+            live, live_blob, integ, counters, round_out = one_round(
                 torch_generator(round_seed(seed, ridx), device), live,
-                integ, counters, limits, scale, axes_args,
+                live_blob, integ, counters, limits, scale, axes_args,
                 kills0 if ridx == 0 else 0, birth0)
             if chain_flag is not None:
                 counters["chain_stop"] = chain_flag
@@ -370,9 +391,11 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                                     tune_fn(scale, round_out[4]).to(dtype))
             outs.append(round_out)
 
+        old_blobs, qblobs = [tree_map(lambda *bs: torch.cat(bs), *x)
+                             for x in list(zip(*outs))[6:]]
         recs, accepts, r_dlogz, proposals, stats_vecs, thresholds = \
             [torch.cat(x) if x[0].dim() else torch.stack(x)
-             for x in zip(*outs)]
+             for x in list(zip(*outs))[:6]]
         lane_stats = proposals[:, -2:]
         integ_vec = torch.stack([
             integ["logz"], integ["logzvar"], integ["h"], integ["logvol"],
@@ -391,7 +414,7 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         flat = torch.cat([recs.reshape(-1), integ_vec, info_vec, stats_vec,
                           accepts.to(dtype), r_dlogz,
                           lane_stats.reshape(-1), thresholds.reshape(-1)])
-        return flat, proposals, live
+        return flat, proposals, live, live_blob, old_blobs, qblobs
 
     layout = {
         "rec_shape": (rounds * q, width),

@@ -16,6 +16,11 @@ likelihood threshold ``loglstar``:
   stepping-out mode, the barrier form with Neal's (2003) doubling
   procedure when ``doubling`` is set.
 
+Every round carries the proposals' blobs beside ``packed`` (a tensor, or
+a tuple, list or dict of them, leading axis over lanes; ``None`` without
+blobs) and passes each likelihood call the mask of the lanes it counts,
+so that a host-mode likelihood sees exactly those.
+
 JAX's ``lax.while_loop`` over ``jnp.any(active)`` becomes a Python loop
 that reads its condition from the device once per iteration; each read is
 counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.geometry import apply_reflect, randsphere_batch, unitcheck_batch
+from ..utils.misc import blob_where, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
            "make_ellipsoid_refit", "make_rwalk_round", "make_slice_round",
@@ -82,19 +88,22 @@ def _wrap_boundaries(u, periodic_mask, reflective_mask):
 
 
 def _masked_eval(like, u, incube):
-    """Evaluate the batched likelihood at ``u`` clamped into the cube and
-    mask out-of-cube lanes to -inf."""
-    v, logl, _ = like.batch_eval(u.clamp(0.0, 1.0), mask=incube)
+    """Evaluate the batched likelihood at ``u`` clamped into the cube,
+    counting the lanes of ``incube``, and mask the others to -inf.
+    Returns ``(v, logl, blob)``."""
+    v, logl, blob = like.batch_eval(u.clamp(0.0, 1.0), mask=incube)
     logl = torch.where(incube, logl, _NEG_INF).to(u.dtype)
-    return v.to(u.dtype), logl
+    return v.to(u.dtype), logl, blob
 
 
 def _zeros_like_batch(like, q, ndim, dtype, device):
-    """Empty result buffers (u, v, logl) for ``q`` lanes."""
+    """Empty result buffers (u, v, logl, blob) for ``q`` lanes."""
     u = torch.full((q, ndim), 0.5, dtype=dtype, device=device)
     v = torch.zeros((q, like.npdim), dtype=dtype, device=device)
     logl = torch.full((q,), _NEG_INF, dtype=dtype, device=device)
-    return u, v, logl
+    blob = like.blob_zeros(q, device) if getattr(like, "blob", False) \
+        else None
+    return u, v, logl, blob
 
 
 def pack_columns(q, dtype, *cols, device=None):
@@ -286,8 +295,8 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
     'cube'), a union of ellipsoids ('ellipsoids') or a union of
     balls/cubes ('balls'/'cubes').
 
-    Returns ``fn(gen, loglstar, arrays) -> packed (q, ndim + npdim + 5)``
-    with columns ``u | v | logl | nc | nc_total | n_proposals |
+    Returns ``fn(gen, loglstar, arrays) -> (packed (q, ndim + npdim + 5),
+    blob)`` with columns ``u | v | logl | nc | nc_total | n_proposals |
     n_filled``: per-slot ``nc`` splits the round's evaluations exactly
     (its sum is ``nc_total``); unfilled slots carry logl = -inf.
     ``arrays`` is the bound's device dict (ignored for the cube).  The
@@ -317,7 +326,8 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
     def round_fn(gen, loglstar, arrays):
         # one dump row (index q) takes the writes JAX drops with
         # mode="drop"; it is sliced off at the end
-        bu, bv, bl = _zeros_like_batch(like, q + 1, ndim, dtype, device)
+        bu, bv, bl, bb = _zeros_like_batch(like, q + 1, ndim, dtype,
+                                           device)
         bnc = torch.zeros((q + 1,), dtype=torch.int64, device=device)
         lanes = torch.arange(q, device=device)
         n_filled = waves = nc = n_prop = pending = 0
@@ -340,7 +350,8 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
             valid = (lanes < width) & unitcheck_batch(uc, nb_cluster)
             if drawn is not None:
                 valid = valid & drawn
-            v_prop, logl_prop = _masked_eval(like, u_prop, valid)
+            v_prop, logl_prop, blob_prop = _masked_eval(like, u_prop,
+                                                        valid)
             success = valid & (logl_prop > loglstar)
             n_succ, nc_wave = torch.stack(
                 [success.sum(), valid.sum()]).tolist()
@@ -351,6 +362,7 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
             bu[dest] = u_prop
             bv[dest] = v_prop
             bl[dest] = logl_prop
+            tree_map(lambda b, p: b.__setitem__(dest, p), bb, blob_prop)
             n_new = min(n_succ, q - n_filled)
             # exact per-slot attribution of the evaluations since the
             # last successful wave (remainder to the lowest ranks)
@@ -370,7 +382,8 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
         # partial fill: unfilled slots read as rejected proposals
         bl = torch.where(lanes < n_filled, bl[:q], _NEG_INF)
         return pack_columns(q, dtype, bu[:q], bv[:q], bl, bnc, nc, n_prop,
-                            n_filled, device=device)
+                            n_filled, device=device), \
+            tree_map(lambda b: b[:q], bb)
 
     return round_fn
 
@@ -388,10 +401,11 @@ def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
     dimensions are wrapped before the cube check.  The loop has a fixed
     length, so the round never reads the device from the host.
 
-    Returns ``fn(gen, packed_in, scale, loglstar) -> packed (q, ndim +
-    npdim + 3)`` with columns ``u | v | logl | n_accept | n_reject``;
-    ``packed_in`` is ``u | v | logl | axes (ncdim*ncdim)`` of the start
-    points.  A lane that never accepts keeps its start point."""
+    Returns ``fn(gen, packed_in, start_blob, scale, loglstar) -> (packed
+    (q, ndim + npdim + 3), blob)`` with columns ``u | v | logl | n_accept
+    | n_reject``; ``packed_in`` is ``u | v | logl | axes (ncdim*ncdim)``
+    of the start points, ``start_blob`` their blobs.  A lane that never
+    accepts keeps its start point."""
     device = torch.device(device)
     npdim = like.npdim
     nb = _bool_mask(nonbounded, device)
@@ -399,10 +413,11 @@ def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
     rm = _mask_from_indices(reflective, ndim, device)
     n_extra = ndim - ncdim
 
-    def round_fn(gen, packed_in, scale, loglstar):
+    def round_fn(gen, packed_in, start_blob, scale, loglstar):
         u = packed_in[:, :ndim].to(dtype)
         v = packed_in[:, ndim:ndim + npdim].to(dtype)
         logl = packed_in[:, ndim + npdim].to(dtype)
+        blob = start_blob
         axes = packed_in[:, ndim + npdim + 1:].reshape(
             q, ncdim, ncdim).to(dtype)
         n_acc = n_rej = torch.zeros((q,), dtype=torch.int64, device=device)
@@ -416,15 +431,16 @@ def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
                     device=device)], dim=1)
             u_prop = _wrap_boundaries(u_prop, pm, rm)
             ok = unitcheck_batch(u_prop, nb)
-            v_prop, logl_prop = _masked_eval(like, u_prop, ok)
+            v_prop, logl_prop, blob_prop = _masked_eval(like, u_prop, ok)
             accept = ok & (logl_prop > loglstar)
             u = torch.where(accept[:, None], u_prop, u)
             v = torch.where(accept[:, None], v_prop, v)
             logl = torch.where(accept, logl_prop, logl)
+            blob = blob_where(accept, blob_prop, blob)
             n_acc = n_acc + accept
             n_rej = n_rej + ~accept
         return pack_columns(q, dtype, u, v, logl, n_acc, n_rej,
-                            device=device)
+                            device=device), blob
 
     return round_fn
 
@@ -461,14 +477,18 @@ def slice_directions(gen, axes, scale, kind, slices):
 
 
 def doubling_accept(feval, x1, loglstar, left, right, f_left, f_right,
-                    timings=None):
+                    timings=None, lanes=None):
     """Batched acceptance test of Neal (2003), algorithm 6: would the
     doubling procedure started from ``x1`` have reached the interval
-    ``(left, right)`` that was built from 0?  ``feval(x) -> logl`` evaluates
-    the lanes' positions.  Returns ``(accept (q,), nc (q,))`` with ``nc``
-    the evaluations each lane spent.  One host read per halving
+    ``(left, right)`` that was built from 0?  ``feval(x, mask) -> logl``
+    evaluates the lanes' positions, counting the lanes of ``mask``; only
+    the lanes of ``lanes`` (default: all) are tested, the others accept
+    untested.  Returns ``(accept (q,), nc (q,))`` with ``nc`` the
+    evaluations each lane spent.  One host read per halving
     (``sync_slice``)."""
     active = (right - left) > 1.1
+    if lanes is not None:
+        active = active & lanes
     lhat, rhat, f_lhat, f_rhat = left, right, f_left, f_right
     dflag = torch.zeros_like(active)
     reject = torch.zeros_like(active)
@@ -481,7 +501,7 @@ def doubling_accept(feval, x1, loglstar, left, right, f_left, f_right,
         dflag = dflag | (((0.0 < mid) & (mid <= x1)) |
                          ((x1 < mid) & (mid <= 0.0)))
         go_right = x1 < mid  # shrink the right side toward x1
-        logl_mid = feval(mid)
+        logl_mid = feval(mid, active)
         nc = nc + active
         f_rhat = torch.where(active & go_right, logl_mid, f_rhat)
         rhat = torch.where(active & go_right, mid, rhat)
@@ -508,12 +528,13 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
     update at a time, expanding by Neal's (2003) doubling procedure and
     shrinking with its acceptance test.
 
-    Returns ``fn(gen, packed_in, scale, loglstar) -> packed (q, ndim +
-    npdim + 5)`` with columns ``u | v | logl | nc | n_expand | n_contract
-    | warn``; ``packed_in`` is ``u | v | logl | axes (ndim*ndim)`` of the
-    start points.  ``nc`` counts out-of-cube probes too; ``warn`` flags an
-    interval stepped out more than 1000 times (the host then switches to
-    doubling)."""
+    Returns ``fn(gen, packed_in, start_blob, scale, loglstar) -> (packed
+    (q, ndim + npdim + 5), blob)`` with columns ``u | v | logl | nc |
+    n_expand | n_contract | warn``; ``packed_in`` is ``u | v | logl | axes
+    (ndim*ndim)`` of the start points, ``start_blob`` their blobs.
+    ``nc`` counts out-of-cube probes too; ``warn`` flags an interval
+    stepped out more than 1000 times (the host then switches to doubling
+    when the dispatch is over)."""
     if kind not in ("slice", "rslice"):
         raise ValueError(f"Unknown slice kind '{kind}'")
     device = torch.device(device)
@@ -522,16 +543,19 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
     maxlen = math.sqrt(ndim) / 2.0
     n_steps = slices * ndim if kind == "slice" else slices
 
-    def one_doubling_step(gen, u0, v0, logl0, direction, loglstar):
-        """One slice update of all lanes along per-lane ``direction``."""
+    def one_doubling_step(gen, u0, v0, logl0, blob0, direction, loglstar):
+        """One slice update of all lanes along per-lane ``direction``;
+        each evaluation counts the in-cube lanes of its ``mask``."""
         dirlen = torch.linalg.vector_norm(direction, dim=1)
         dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
         direction = direction / dirnorm[:, None]
 
-        def feval(x):
+        def feval(x, mask=None):
             u = u0 + x[:, None] * direction
-            v, logl = _masked_eval(like, u, unitcheck_batch(u, nb))
-            return u, v, logl
+            incube = unitcheck_batch(u, nb)
+            if mask is not None:
+                incube = incube & mask
+            return (u,) + _masked_eval(like, u, incube)
 
         r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
         left, right = -r0, 1.0 - r0
@@ -551,7 +575,8 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
             width = right - left
             left = torch.where(active & go_left, left - width, left)
             right = torch.where(active & ~go_left, right + width, right)
-            logl_new = feval(torch.where(go_left, left, right))[2]
+            logl_new = feval(torch.where(go_left, left, right),
+                             active)[2]
             fl = torch.where(active & go_left, logl_new, fl)
             fr = torch.where(active & ~go_left, logl_new, fr)
             nc = nc + active
@@ -561,7 +586,7 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
         big = (left, right, fl, fr)
 
         # shrinkage, each candidate held to the doubling acceptance test
-        u, v, logl = u0, v0, logl0
+        u, v, logl, blob = u0, v0, logl0, blob0
         n_con = torch.zeros_like(nc)
         active = torch.ones((q,), dtype=torch.bool, device=device)
         for _ in range(max_shrink_iters):
@@ -570,42 +595,46 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
                 break
             x = left + torch.rand((q,), generator=gen, dtype=dtype,
                                   device=device) * (right - left)
-            u_prop, v_prop, logl_prop = feval(x)
+            u_prop, v_prop, logl_prop, blob_prop = feval(x, active)
             nc = nc + active
             n_con = n_con + active
             good = logl_prop > loglstar
-            d_acc, d_nc = doubling_accept(lambda xm: feval(xm)[2], x,
-                                          loglstar, *big, timings=timings)
+            # only the lanes whose evaluations are billed are tested
+            d_acc, d_nc = doubling_accept(
+                lambda xm, m: feval(xm, m)[2], x, loglstar, *big,
+                timings=timings, lanes=active & good)
             nc = nc + torch.where(active & good, d_nc, 0)
             good = good & d_acc
             newly = active & good
             u = torch.where(newly[:, None], u_prop, u)
             v = torch.where(newly[:, None], v_prop, v)
             logl = torch.where(newly, logl_prop, logl)
+            blob = blob_where(newly, blob_prop, blob)
             bad = active & ~good
             left = torch.where(bad & (x < 0), x, left)
             right = torch.where(bad & (x > 0), x, right)
             active = bad
-        return u, v, logl, nc, n_exp, n_con
+        return u, v, logl, blob, nc, n_exp, n_con
 
-    def round_fn(gen, packed_in, scale, loglstar):
+    def round_fn(gen, packed_in, start_blob, scale, loglstar):
         u = packed_in[:, :ndim].to(dtype)
         v = packed_in[:, ndim:ndim + npdim].to(dtype)
         logl = packed_in[:, ndim + npdim].to(dtype)
+        blob = start_blob
         axes = packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim)
         directions = slice_directions(gen, axes.to(dtype), scale, kind,
                                       slices)
         nc = n_exp = n_con = torch.zeros((q,), dtype=torch.int64,
                                          device=device)
         for s in range(n_steps):
-            u, v, logl, nc1, ne1, ncon1 = one_doubling_step(
-                gen, u, v, logl, directions[:, s], loglstar)
+            u, v, logl, blob, nc1, ne1, ncon1 = one_doubling_step(
+                gen, u, v, logl, blob, directions[:, s], loglstar)
             nc, n_exp, n_con = nc + nc1, n_exp + ne1, n_con + ncon1
         # the doubling procedure has no expansion warning
         return pack_columns(q, dtype, u, v, logl, nc, n_exp, n_con, False,
-                            device=device)
+                            device=device), blob
 
-    def round_fn_sm(gen, packed_in, scale, loglstar):
+    def round_fn_sm(gen, packed_in, start_blob, scale, loglstar):
         start_u = packed_in[:, :ndim].to(dtype)
         start_v = packed_in[:, ndim:ndim + npdim].to(dtype)
         start_logl = packed_in[:, ndim + npdim].to(dtype)
@@ -622,6 +651,7 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
         lane = torch.arange(q, device=device)
         s, phase = zi, torch.full_like(zi, PH_INIT_L)
         u, v, logl, u0 = start_u, start_v, start_logl, start_u
+        blob = start_blob
         left, right = -r0, 1.0 - r0
         fl = torch.full((q,), _NEG_INF, dtype=dtype, device=device)
         fr = fl
@@ -648,7 +678,7 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
                                                     (right - left)))))
             upos = u0 + x[:, None] * dirc
             incube = unitcheck_batch(upos, nb) & active
-            v_x, logl_x = _masked_eval(like, upos, incube)
+            v_x, logl_x, blob_x = _masked_eval(like, upos, incube)
             nc = nc + active
 
             is_il = active & (phase == PH_INIT_L)
@@ -689,6 +719,7 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
             u = torch.where(acc2, upos, u)
             v = torch.where(acc2, v_x, v)
             logl = torch.where(acc, logl_x, logl)
+            blob = blob_where(acc, blob_x, blob)
             u0 = torch.where(acc2, upos, u0)
             s = s + acc
             left = torch.where(acc, -u_r0, left)
@@ -700,6 +731,6 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
             exp_step = torch.where(acc, 0, exp_step)
             it += 1
         return pack_columns(q, dtype, u, v, logl, nc, n_exp, n_con, warn,
-                            device=device)
+                            device=device), blob
 
     return round_fn if doubling else round_fn_sm

@@ -17,6 +17,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils.misc import blob_row, tree_map
 from .fused import make_fused_round, select_starts, unpack_flat
 from .kernels import (make_ellipsoid_refit, make_rwalk_round,
                       make_slice_round, make_unif_round)
@@ -78,8 +79,9 @@ class InternalSampler:
     def _gather_starts(self, ns, loglstar, q):
         """``q`` start points among the live points above ``loglstar`` and
         per-lane axes from the current bound, drawn from the host stream
-        and packed ``u | v | logl | axes`` for a non-fused round.  A start
-        outside the bound forces a refit first."""
+        and packed ``u | v | logl | axes`` for a non-fused round, with the
+        starts' blobs (None without blobs).  A start outside the bound
+        forces a refit first."""
         valid = np.nonzero(ns.live_logl > loglstar)[0]
         if len(valid) == 0:
             raise RuntimeError(
@@ -93,7 +95,11 @@ class InternalSampler:
         packed = np.concatenate([
             ns.live_u[idxs], ns.live_v[idxs], ns.live_logl[idxs][:, None],
             axes.reshape(q, -1)], axis=1)
-        return torch.as_tensor(packed, dtype=ns.dtype, device=ns.device)
+        start_blob = tree_map(
+            lambda b: torch.as_tensor(np.asarray(b)[idxs], device=ns.device),
+            ns.live_blobs)
+        return torch.as_tensor(packed, dtype=ns.dtype,
+                               device=ns.device), start_blob
 
     def propose_round(self, ns, loglstar, q, gen):
         """One device round of ``q`` proposals above ``loglstar`` drawn
@@ -144,12 +150,13 @@ class InternalSampler:
             self._round_cache[cfg] = entry
         return entry
 
-    def launch_fused(self, ns, seed, live, axes_args, integ, limits,
-                     rounds_active=None, rounds_skip=0,
+    def launch_fused(self, ns, seed, live, live_blob, axes_args, integ,
+                     limits, rounds_active=None, rounds_skip=0,
                      refit_due_ncall=None):
         """Run one fused dispatch (synchronously: the device work is
         enqueued here and waited for in :meth:`finish_fused`).  ``seed``
-        is the dispatch's integer seed; ``integ`` and ``limits`` are the
+        is the dispatch's integer seed, ``live_blob`` the live points'
+        blob (None without blobs); ``integ`` and ``limits`` are the
         host vectors of the JAX package's ``launch_fused``, and the
         control vector keeps its layout.  ``rounds_skip`` skips the
         leading rounds (the continuation of an interrupted dispatch, with
@@ -171,22 +178,29 @@ class InternalSampler:
              float(ns.first_bound_update_eff),
              # [21] the ncall at which the next host refit is due
              float(refit_due_ncall)]])
-        flat, proposals, live_out = fused_fn(seed, live, axes_args, ctrl)
+        flat, proposals, live_out, blob_out, old_blobs, qblobs = fused_fn(
+            seed, live, live_blob, axes_args, ctrl)
         return {"flat": flat, "proposals": proposals, "live": live_out,
-                "layout": layout, "rounds_active": rounds_active}
+                "live_blob": blob_out, "old_blobs": old_blobs,
+                "qblobs": qblobs, "layout": layout,
+                "rounds_active": rounds_active}
 
     def finish_fused(self, handle):
-        """Download the flat result; returns (unpacked dict, live)."""
+        """Download the flat result; returns (unpacked dict, live, live
+        blob).  The dict keeps the device proposals block and blobs
+        (``proposals_dev``, ``old_blobs_dev``, ``qblob_dev``)."""
         flat = handle["flat"].cpu().numpy()
         out = unpack_flat(flat, handle["layout"])
         out["proposals_dev"] = handle["proposals"]
-        return out, handle["live"]
+        out["old_blobs_dev"] = handle["old_blobs"]
+        out["qblob_dev"] = handle["qblobs"]
+        return out, handle["live"], handle["live_blob"]
 
-    def run_fused(self, ns, seed, live, axes_args, integ, limits,
+    def run_fused(self, ns, seed, live, live_blob, axes_args, integ, limits,
                   rounds_active=None, rounds_skip=0, refit_due_ncall=None):
         """Launch and finish one fused dispatch."""
         return self.finish_fused(self.launch_fused(
-            ns, seed, live, axes_args, integ, limits,
+            ns, seed, live, live_blob, axes_args, integ, limits,
             rounds_active=rounds_active, rounds_skip=rounds_skip,
             refit_due_ncall=refit_due_ncall))
 
@@ -198,10 +212,11 @@ class InternalSampler:
         if entry is None:
             ndim, il = self.ndim, self.ndim + ns.loglikelihood.npdim
 
-            def propose(gen, live, axes_args, scale, loglstar):
+            def propose(gen, live, live_blob, axes_args, scale, loglstar):
                 prop = axes_args["prop"]
                 stats = (torch.zeros((), dtype=ns.dtype, device=ns.device),)
                 return (prop[:, :ndim], prop[:, ndim:il], prop[:, il],
+                        axes_args.get("prop_blob"),
                         prop[:, il + 1].to(torch.int64), stats,
                         prop[:, il + 2:il + 4])
 
@@ -213,21 +228,25 @@ class InternalSampler:
             self._round_cache[cfg] = entry
         return entry
 
-    def run_replay(self, ns, live, prop, integ, limits, kills0=0,
-                   birth0=-1e30):
+    def run_replay(self, ns, live, live_blob, prop, prop_blob, integ, limits,
+                   kills0=0, birth0=-1e30):
         """Consume the (queue_size, ndim + npdim + 4) proposal block
-        ``prop`` against ``live``; no random number is drawn.  Returns
-        (unpacked dict, live)."""
+        ``prop`` (with its blob ``prop_blob``) against ``live``; no random
+        number is drawn.  Returns (unpacked dict, live, live blob)."""
         fused_fn, layout = self.get_replay(ns)
         ctrl = np.concatenate([integ, limits,
                                [self.scale, float(kills0), 1.0,
                                 max(float(birth0), -1e30), 0.0,
                                 0.0, 0.0, 0.0]])
-        flat, proposals, live_out = fused_fn(0, live, {"prop": prop}, ctrl)
+        flat, proposals, live_out, blob_out, old_blobs, qblobs = fused_fn(
+            0, live, live_blob, {"prop": prop, "prop_blob": prop_blob},
+            ctrl)
         out = unpack_flat(flat.cpu().numpy(), layout)
         out["stats"] = None
         out["proposals_dev"] = proposals
-        return out, live_out
+        out["old_blobs_dev"] = old_blobs
+        out["qblob_dev"] = qblobs
+        return out, live_out, blob_out
 
     def device_tune_fn(self):
         """``(scale, stats_vec) -> scale`` on device tensors, applied
@@ -252,6 +271,10 @@ class InternalSampler:
     def _post_fused_stats(self, stats):
         """Kernel-specific bookkeeping from the dispatch's stats."""
 
+    def end_dispatch(self):
+        """Apply what a whole dispatch decided, once it is over: after its
+        continuation, when it was interrupted."""
+
     def consume_tuning(self, stats):
         """The dispatch's stats vector as a tuning_info dict (kernel
         specific); None if the kernel has no tuning."""
@@ -266,26 +289,30 @@ class InternalSampler:
         return {"n_proposals": max(int(a), 1)}
 
 
-def _unpack_rows(packed, ndim, npdim, extra_names, stats_fn, nc_from):
-    """Split the packed (q, W) output of a round, columns ``u | v | logl |
-    extras``, into a first-in-first-out list of proposal dicts; also
-    returns the extras columns by name."""
+def _unpack_rows(out, ndim, npdim, extra_names, stats_fn, nc_from):
+    """Split the output ``(packed (q, W), blob)`` of a round, columns ``u
+    | v | logl | extras``, into a first-in-first-out list of proposal
+    dicts (the blob row by row); also returns the extras columns by
+    name."""
+    packed, blob = out
     packed = packed.cpu().numpy().astype(np.float64)
+    blob = tree_map(lambda b: b.cpu().numpy(), blob)
     il = ndim + npdim
     extras = {name: packed[:, il + 1 + j]
               for j, name in enumerate(extra_names)}
     rows = [{"u": packed[i, :ndim], "v": packed[i, ndim:il],
              "logl": packed[i, il], "nc": int(nc_from(i, extras)),
-             "blob": None, "proposal_stats": stats_fn(i, extras)}
+             "blob": blob_row(blob, i),
+             "proposal_stats": stats_fn(i, extras)}
             for i in range(packed.shape[0])]
     return rows, extras
 
 
-def _unif_rows(packed, ndim, npdim, q):
+def _unif_rows(out, ndim, npdim, q):
     """Rows of a uniform round (columns ``... | nc | nc_total |
     n_proposals | n_filled``); raises if the round did not fill."""
     rows, extras = _unpack_rows(
-        packed, ndim, npdim, ("nc", "nc_total", "n_prop", "n_filled"),
+        out, ndim, npdim, ("nc", "nc_total", "n_prop", "n_filled"),
         lambda i, e: {"n_proposals": max(int(e["n_prop"][0]) // q, 1)},
         nc_from=lambda i, e: e["nc"][i])
     n_filled = int(extras["n_filled"][0])
@@ -322,16 +349,16 @@ def _unif_propose_fn(sampler, ns, bound_kind):
     refit = make_ellipsoid_refit(ncdim, dtype=ns.dtype) \
         if bound_kind == "ellipsoids" else None
 
-    def propose(gen, live, axes_args, scale, loglstar):
+    def propose(gen, live, live_blob, axes_args, scale, loglstar):
         if refit is not None:
             axes_args = dict(axes_args, **refit(live[:, :ncdim], axes_args))
-        packed = inner(gen, loglstar, axes_args)
+        packed, blob = inner(gen, loglstar, axes_args)
         qnc = packed[:, il + 1].to(torch.int64)
         stats = (packed[0, il + 2], packed[0, il + 3], packed[0, il + 4])
         lane_stats = torch.stack(
             [qnc.to(packed.dtype), torch.zeros_like(packed[:, 0])], dim=1)
-        return (packed[:, :ndim], packed[:, ndim:il], packed[:, il], qnc,
-                stats, lane_stats)
+        return (packed[:, :ndim], packed[:, ndim:il], packed[:, il], blob,
+                qnc, stats, lane_stats)
 
     return propose
 
@@ -467,24 +494,26 @@ class RWalkSampler(InternalSampler):
             reflective=self.sampler_kwargs.get("reflective"),
             dtype=ns.dtype, device=ns.device)
 
-        def propose(gen, live, axes_args, scale, loglstar):
+        def propose(gen, live, live_blob, axes_args, scale, loglstar):
             idxs, starts, axes = select_starts(
                 gen, live, il, q, bound_kind, axes_args, ns.dtype,
                 eye_dim=ncdim, loglstar=loglstar)
             packed_in = torch.cat([starts[:, :il + 1], axes.reshape(q, -1)],
                                   dim=1)
-            packed = inner(gen, packed_in, scale, loglstar)
+            packed, blob = inner(gen, packed_in,
+                                 tree_map(lambda b: b[idxs], live_blob),
+                                 scale, loglstar)
             qnc = torch.full((q,), walks, dtype=torch.int64,
                              device=packed.device)
             stats = (packed[:, il + 1].sum(), packed[:, il + 2].sum())
             return (packed[:, :ndim], packed[:, ndim:il], packed[:, il],
-                    qnc, stats, packed[:, il + 1:il + 3])
+                    blob, qnc, stats, packed[:, il + 1:il + 3])
 
         return propose
 
     def propose_round(self, ns, loglstar, q, gen):
         like = ns.loglikelihood
-        packed_in = self._gather_starts(ns, loglstar, q)
+        packed_in, start_blob = self._gather_starts(ns, loglstar, q)
         fn = self._cached_round(
             ("rwalk", q, self.walks),
             lambda: make_rwalk_round(
@@ -495,8 +524,8 @@ class RWalkSampler(InternalSampler):
                 reflective=self.sampler_kwargs.get("reflective"),
                 dtype=ns.dtype, device=ns.device))
         rows, extras = _unpack_rows(
-            fn(gen, packed_in, self.scale, loglstar), self.ndim, like.npdim,
-            ("n_accept", "n_reject"),
+            fn(gen, packed_in, start_blob, self.scale, loglstar), self.ndim,
+            like.npdim, ("n_accept", "n_reject"),
             lambda i, e: self.row_stats(e["n_accept"][i], e["n_reject"][i]),
             nc_from=lambda i, e: self.walks)
         return rows, {"accept": int(extras["n_accept"].sum()),
@@ -532,6 +561,8 @@ class _SliceBase(InternalSampler):
         super().__init__(**kwargs)
         self.slices = kwargs.get("slices") or 5
         self.slice_history = {"n_expand": 0, "n_contract": 0}
+        # a dispatch asked for the doubling procedure (end_dispatch)
+        self._doubling_due = False
         self.sampler_kwargs.setdefault("slice_doubling",
                                        kwargs.get("slice_doubling", False))
 
@@ -547,11 +578,18 @@ class _SliceBase(InternalSampler):
         return tune_fn
 
     def _post_fused_stats(self, stats):
-        if stats is not None and bool(stats[2] > 0) and \
+        # the switch waits for the end of the dispatch: the continuation of
+        # an interrupted one runs the kernel that the dispatch started with
+        if stats is not None and bool(stats[2] > 0):
+            self._doubling_due = True
+
+    def end_dispatch(self):
+        if getattr(self, "_doubling_due", False) and \
                 not self.sampler_kwargs.get("slice_doubling", False):
             self.sampler_kwargs["slice_doubling"] = True
             warnings.warn("Slice interval expanded > 1000 times; enabling "
                           "Neal (2003) doubling strategy.")
+        self._doubling_due = False
 
     def _build_propose_fn(self, ns, bound_kind):
         like = ns.loglikelihood
@@ -563,24 +601,26 @@ class _SliceBase(InternalSampler):
             doubling=bool(self.sampler_kwargs.get("slice_doubling", False)),
             dtype=ns.dtype, device=ns.device, timings=ns.timings)
 
-        def propose(gen, live, axes_args, scale, loglstar):
+        def propose(gen, live, live_blob, axes_args, scale, loglstar):
             idxs, starts, axes = select_starts(
                 gen, live, il, q, bound_kind, axes_args, ns.dtype,
                 eye_dim=ndim, loglstar=loglstar)
             packed_in = torch.cat([starts[:, :il + 1], axes.reshape(q, -1)],
                                   dim=1)
-            packed = inner(gen, packed_in, scale, loglstar)
+            packed, blob = inner(gen, packed_in,
+                                 tree_map(lambda b: b[idxs], live_blob),
+                                 scale, loglstar)
             qnc = packed[:, il + 1].to(torch.int64)
             stats = (packed[:, il + 2].sum(), packed[:, il + 3].sum(),
                      packed[:, il + 4].max())
             return (packed[:, :ndim], packed[:, ndim:il], packed[:, il],
-                    qnc, stats, packed[:, il + 2:il + 4])
+                    blob, qnc, stats, packed[:, il + 2:il + 4])
 
         return propose
 
     def propose_round(self, ns, loglstar, q, gen):
         like = ns.loglikelihood
-        packed_in = self._gather_starts(ns, loglstar, q)
+        packed_in, start_blob = self._gather_starts(ns, loglstar, q)
         doubling = bool(self.sampler_kwargs.get("slice_doubling", False))
         fn = self._cached_round(
             (self.name, q, self.slices, doubling),
@@ -591,8 +631,8 @@ class _SliceBase(InternalSampler):
                 doubling=doubling, dtype=ns.dtype, device=ns.device,
                 timings=ns.timings))
         rows, extras = _unpack_rows(
-            fn(gen, packed_in, self.scale, loglstar), self.ndim, like.npdim,
-            ("nc", "n_expand", "n_contract", "warn"),
+            fn(gen, packed_in, start_blob, self.scale, loglstar), self.ndim,
+            like.npdim, ("nc", "n_expand", "n_contract", "warn"),
             lambda i, e: self.row_stats(e["n_expand"][i],
                                         e["n_contract"][i]),
             nc_from=lambda i, e: e["nc"][i])

@@ -15,6 +15,13 @@ for bit as the uninterrupted run would have: the interrupted round's
 unconsumed proposals are kept and replayed (consume only), and the
 interrupted dispatch's remaining rounds are regenerated from its seed.
 The pipelined pre-launch of the next dispatch is not ported.
+
+With blobs (``blob=True``) the live points' blobs ride beside the live
+matrix (``live_blobs`` on the host, stacked; a device copy between
+dispatches), and every record carries the blob of its dead point.  A
+``pool`` is used for host-mode evaluations (through the likelihood) and,
+where ``use_pool['update_bound']``, for the bounds' bootstrap
+realisations; it is dropped when the sampler is pickled.
 """
 
 import copy
@@ -34,30 +41,37 @@ from .ops.integrals import (LOWL_VAL, compute_integrals,
 from .utils.checkpoint import restore_sampler, save_sampler
 from .utils.convert import bound_arrays_to_torch, live_to_torch
 from .utils.misc import (DelayTimer, IteratorBlock, IteratorResult, Timings,
-                         get_print_func, get_random_generator,
-                         get_torch_generator)
+                         blob_row, get_print_func, get_random_generator,
+                         get_torch_generator, stack_blob_rows, tree_map)
 from .utils.results import Results, RunRecord
 
 __all__ = ["Sampler", "initialize_live_points"]
 
 
-def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate):
+def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate,
+                           blob=False):
     """Draw the initial live points by batched rejection sampling from the
     unit cube until enough have finite log-likelihood.
 
-    Returns ``(live_u, live_v, live_logl), logvol_init, ncalls``."""
+    Returns ``(live_u, live_v, live_logl, live_blobs), logvol_init,
+    ncalls``; ``live_blobs`` is the points' blob stacked along its first
+    axis (None without ``blob``).  Given ``live_points``, their fourth
+    entry holds the blobs, one per point."""
     logvol_init = 0.0
     ncalls = 0
+    live_blobs = None
     if live_points is None:
         n_attempts = 1000
         min_npoints = min(nlive, max(ndim + 1, min(nlive - 20, 100)))
         live_u = np.zeros((nlive, ndim))
         live_logl = np.zeros(nlive)
         live_v = None
+        # the blob of each live slot, in slot order
+        picks = []
         ngoods = 0
         for iattempt in range(1, n_attempts + 1):
             cur_u = rstate.random(size=(nlive, ndim))
-            cur_v, cur_logl, _ = loglikelihood.eval_host(cur_u)
+            cur_v, cur_logl, cur_blob = loglikelihood.eval_host(cur_u)
             if live_v is None:
                 live_v = np.zeros((nlive, cur_v.shape[1]))
             ncalls += nlive
@@ -70,6 +84,7 @@ def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate):
                 live_u[sl] = cur_u[sel]
                 live_v[sl] = cur_v[sel]
                 live_logl[sl] = cur_logl[sel]
+                picks += [blob_row(cur_blob, i) for i in sel]
                 ngoods += nextra
             if ngoods >= min_npoints:
                 nextra = nlive - ngoods
@@ -79,6 +94,7 @@ def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate):
                     live_u[sl] = cur_u[sel]
                     live_v[sl] = cur_v[sel]
                     live_logl[sl] = LOWL_VAL
+                    picks += [blob_row(cur_blob, i) for i in sel]
                 # k finite points out of N*n draws: the volume above the
                 # -inf region is 1/N
                 logvol_init = -np.log(iattempt)
@@ -92,10 +108,17 @@ def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate):
                     f"After {n_attempts} attempts, fewer than "
                     f"{min_npoints} points with valid log-likelihood were "
                     "found; initial sampling is very inefficient!")
+        if blob:
+            # slots left empty after the last attempt take a zero blob
+            picks += [tree_map(np.zeros_like, picks[0])] * (nlive -
+                                                            len(picks))
+            live_blobs = stack_blob_rows(picks)
     else:
         live_u, live_v = np.array(live_points[0]), np.array(live_points[1])
         live_logl = np.array(live_points[2], dtype=np.float64)
         loglikelihood.eval_host(live_u[:1])
+        if blob:
+            live_blobs = stack_blob_rows(live_points[3])
         bad = ~np.isfinite(live_logl)
         if np.any(bad & (live_logl > 0)):
             raise ValueError("A provided live point has an invalid "
@@ -109,7 +132,7 @@ def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate):
             "All initial likelihood values are identical: likely a "
             "likelihood plateau; nested sampling may be inefficient.",
             RuntimeWarning)
-    return (live_u, live_v, live_logl), logvol_init, ncalls
+    return (live_u, live_v, live_logl, live_blobs), logvol_init, ncalls
 
 
 class Sampler:
@@ -120,14 +143,16 @@ class Sampler:
                  bound_update_interval=None, first_bound_update=None,
                  bound_bootstrap=0, bound_enlarge=1.0, logvol_init=0.0,
                  rounds_per_dispatch=1, rounds_explicit=False,
-                 proposal_mode="batch", dtype=torch.float64):
+                 proposal_mode="batch", dtype=torch.float64, blob=False):
         f32_precision()
         self.device = torch.device(device)
         self.dtype = dtype
         self.loglikelihood = loglikelihood
         self.ndim = ndim
         self.ncdim = ncdim or ndim
+        self.blob = bool(blob)
         self.live_u, self.live_v, self.live_logl = live_points[:3]
+        self.live_blobs = live_points[3] if self.blob else None
         self.nlive = len(self.live_u)
         self.live_bound = np.zeros(self.nlive, dtype=int)
         self.live_it = np.zeros(self.nlive, dtype=int)
@@ -177,8 +202,13 @@ class Sampler:
         # sampler (None: the kernel's own)
         self.unif_chain_cap = None
         self._live_dev = None
+        self._live_blob_dev = None
         self._mirror_stale = False
         self._bound_upload = None
+        # a pool for host-mode evaluations and bootstrap realisations, and
+        # the per-site flags (set by the factories; not pickled)
+        self.pool = None
+        self.use_pool = {}
         self._init_resume_state()
 
     def _apply_queue_clamp(self):
@@ -195,20 +225,23 @@ class Sampler:
         self._q_full = self.queue_size
         self._q_narrow = min(max(16, self.queue_size // 8), self.queue_size)
 
-    def set_live_points(self, live_u, live_v, live_logl, live_birth=None):
+    def set_live_points(self, live_u, live_v, live_logl, live_birth=None,
+                        live_blobs=None):
         """Replace the live set of a built sampler (the dynamic sampler
         seeds its batches this way) by points from no bound and no
         iteration of this sampler, born at ``live_birth`` (the prior by
-        default).  Whatever was cached from the old set is dropped: the
-        device copy, and the mark that would have refreshed the host
-        arrays from it."""
+        default), with their stacked blobs.  Whatever was cached from the
+        old set is dropped: the device copies, and the mark that would
+        have refreshed the host arrays from them."""
         self.live_u, self.live_v, self.live_logl = live_u, live_v, live_logl
+        self.live_blobs = live_blobs
         self.nlive = len(live_u)
         self.live_bound = np.zeros(self.nlive, dtype=int)
         self.live_it = np.zeros(self.nlive, dtype=int)
         self.live_birth = np.full(self.nlive, -np.inf) \
             if live_birth is None else live_birth
         self._live_dev = None
+        self._live_blob_dev = None
         self._mirror_stale = False
         self._apply_queue_clamp()
 
@@ -262,26 +295,33 @@ class Sampler:
         save_sampler(self, fname)
 
     @staticmethod
-    def restore(fname, device=None):
+    def restore(fname, device=None, pool=None):
         """The sampler saved in ``fname``, on the device it was saved
-        from unless ``device`` names another; a ``cuda`` checkpoint raises
-        where CUDA is absent."""
-        return restore_sampler(fname, device=device)
+        from unless ``device`` names another (a ``cuda`` checkpoint raises
+        where CUDA is absent), with ``pool`` attached."""
+        return restore_sampler(fname, device=device, pool=pool)
 
     def __getstate__(self):
         self._ensure_live_mirror()
         state = self.__dict__.copy()
-        for k in ("_live_dev", "_bound_upload", "_mirror_stale"):
+        for k in ("_live_dev", "_live_blob_dev", "_bound_upload",
+                  "_mirror_stale", "pool"):
             state.pop(k, None)
         state["device"] = str(self.device)  # stored by name
         return state
 
     def __setstate__(self, state):
+        # checkpoints written before blobs and pools existed
+        for k, v in (("blob", False), ("live_blobs", None),
+                     ("use_pool", {})):
+            state.setdefault(k, v)
         self.__dict__ = state
         self.device = torch.device(state["device"])
         self._live_dev = None
+        self._live_blob_dev = None
         self._bound_upload = None
         self._mirror_stale = False
+        self.pool = None
 
     def set_device(self, device):
         """Move the sampler to ``device``: the host mirrors are brought up
@@ -296,14 +336,17 @@ class Sampler:
         for s in (self.internal_sampler, self.internal_sampler_next):
             s._round_cache = {}
         self._live_dev = None
+        self._live_blob_dev = None
         self._bound_upload = None
 
     def reset(self):
         """Re-initialize: fresh live points from the prior and a cleared
         run state."""
         live_points, logvol_init, init_ncalls = initialize_live_points(
-            None, self.loglikelihood, self.nlive, self.ndim, self.rstate)
+            None, self.loglikelihood, self.nlive, self.ndim, self.rstate,
+            blob=self.blob)
         self.live_u, self.live_v, self.live_logl = live_points[:3]
+        self.live_blobs = live_points[3]
         self.live_bound = np.zeros(self.nlive, dtype=int)
         self.live_it = np.zeros(self.nlive, dtype=int)
         self.live_birth = np.full(self.nlive, -np.inf)
@@ -328,6 +371,7 @@ class Sampler:
         self.saved_run = RunRecord()
         self.timings = Timings()
         self._live_dev = None
+        self._live_blob_dev = None
         self._mirror_stale = False
         self._bound_upload = None
         self._init_resume_state()
@@ -336,10 +380,14 @@ class Sampler:
     # bound management
 
     def update_bound(self, subset=slice(None)):
-        """Refit the bound to the current live points."""
+        """Refit the bound to the current live points; the bootstrap
+        realisations map over the pool where ``use_pool['update_bound']``
+        (the default when a pool is given)."""
+        pool = self.pool if self.use_pool.get("update_bound", True) \
+            else None
         self.bound.update(self.live_u[subset, :self.ncdim],
                           rstate=self.rstate,
-                          bootstrap=self.bound_bootstrap)
+                          bootstrap=self.bound_bootstrap, pool=pool)
         self.bound_version += 1
         if self.bound_enlarge != 1.0:
             self.bound.scale_to_logvol(self.bound.logvol +
@@ -459,6 +507,9 @@ class Sampler:
             t0 = time.perf_counter()
             self._sync_live(self._live_dev.cpu().numpy(),
                             self._mirror_bounditer)
+            if self._live_blob_dev is not None:
+                self.live_blobs = tree_map(lambda b: b.cpu().numpy(),
+                                           self._live_blob_dev)
             self._mirror_stale = False
             self.timings.add("mirror", time.perf_counter() - t0)
 
@@ -673,6 +724,10 @@ class Sampler:
                 self._live_dev = live_to_torch(
                     self._live_packed(), self.device, self.dtype,
                     ndim=ndim, npdim=npdim)
+                self._live_blob_dev = tree_map(
+                    lambda b: torch.as_tensor(np.asarray(b),
+                                              device=self.device),
+                    self.live_blobs)
 
         while True:
             # drain the staged yields (their rows are in saved_run already)
@@ -723,8 +778,14 @@ class Sampler:
                 prop_dev = torch.as_tensor(
                     np.concatenate([prop, pad]), dtype=self.dtype,
                     device=self.device)
-                out, live_out = self.internal_sampler.run_replay(
-                    self, self._live_dev, prop_dev, integ, limits,
+                # the padded rows' blobs are zeros
+                prop_blob = tree_map(lambda b: torch.as_tensor(
+                    np.concatenate([b[:qsz], np.zeros(
+                        (qsz - n_real_limit,) + b.shape[1:], b.dtype)]),
+                    device=self.device), self._leftover.get("blob"))
+                out, live_out, blob_out = self.internal_sampler.run_replay(
+                    self, self._live_dev, self._live_blob_dev, prop_dev,
+                    prop_blob, integ, limits,
                     kills0=self._leftover["kills"],
                     birth0=self._leftover["birth0"])
                 skip_off = 0
@@ -739,9 +800,10 @@ class Sampler:
                 self._continuation = None
                 self.queue_size = cont["queue_size"]
                 upload_live()
-                out, live_out = self.internal_sampler.run_fused(
+                out, live_out, blob_out = self.internal_sampler.run_fused(
                     self, cont["key_seed"], self._live_dev,
-                    self.device_bound_arrays(), integ, limits,
+                    self._live_blob_dev, self.device_bound_arrays(), integ,
+                    limits,
                     rounds_active=cont["rounds"], rounds_skip=cont["skip"],
                     refit_due_ncall=cont["refit_due_ncall"])
                 skip_off = cont["skip"] * self.queue_size
@@ -766,10 +828,12 @@ class Sampler:
                 upload_live()
                 t0 = time.perf_counter()
                 handle = self.internal_sampler.launch_fused(
-                    self, spec["key_seed"], self._live_dev, axes_args,
-                    integ, limits, rounds_active=spec["rounds_active"],
+                    self, spec["key_seed"], self._live_dev,
+                    self._live_blob_dev, axes_args, integ, limits,
+                    rounds_active=spec["rounds_active"],
                     refit_due_ncall=spec["refit_due_ncall"])
-                out, live_out = self.internal_sampler.finish_fused(handle)
+                out, live_out, blob_out = \
+                    self.internal_sampler.finish_fused(handle)
                 # consumed below: this spec is no longer the next one
                 self._next_spec = None
                 skip_off = 0
@@ -796,6 +860,7 @@ class Sampler:
                     kept_nc = int(prop_rest[:, nc_col].sum())
                     self._leftover = dict(
                         lo, prop=prop_rest,
+                        blob=tree_map(lambda b: b[n_cons:], lo.get("blob")),
                         kills=lo["kills"] + out["n_accepted"])
                 else:
                     # tail replayed: the interrupted dispatch's remaining
@@ -829,12 +894,16 @@ class Sampler:
                     # the interrupted round's threshold
                     self._leftover = {
                         "prop": props, "kills": kills, "cont": cont,
-                        "birth0": float(out["round_thresholds"][r0])}
+                        "birth0": float(out["round_thresholds"][r0]),
+                        "blob": tree_map(
+                            lambda b: b[g:lo_end].cpu().numpy(),
+                            out["qblob_dev"])}
                 else:
                     self._continuation = cont
 
             # ---- adopt the device-side state
             self._live_dev = live_out
+            self._live_blob_dev = blob_out
             self._mirror_stale = True
             self._mirror_bounditer = bounditer
             if out["n_consumed"] > 0:
@@ -889,6 +958,7 @@ class Sampler:
                 self._next_spec = None
             if self._leftover is None and self._continuation is None:
                 self._nc_accum_carry = 0  # the dispatch is over
+                self.internal_sampler.end_dispatch()
             elif has_records:
                 self._nc_accum_carry = nc_round - staged_nc
             else:
@@ -903,9 +973,9 @@ class Sampler:
 
     def _append_records(self, out, bounditer, extra_nc, carry_in,
                         per_dispatch):
-        """Append one dispatch's accepted records to ``saved_run`` and,
-        unless ``per_dispatch``, stage their per-record yields; returns the
-        number of records."""
+        """Append one dispatch's accepted records to ``saved_run`` (each
+        with the blob of its dead point) and, unless ``per_dispatch``,
+        stage their per-record yields; returns the number of records."""
         ndim, npdim = self.ndim, self.loglikelihood.npdim
         rec_off = 1 + ndim + npdim
         recs = np.asarray(out["records"], dtype=np.float64)
@@ -945,7 +1015,10 @@ class Sampler:
         D["bounditer"].extend([bounditer] * n_new)
         D["boundidx"].extend(bidx.tolist())
         D["scale"].extend([scale_now] * n_new)
-        D["blob"].extend([None] * n_new)
+        old_blobs = tree_map(lambda b: b.cpu().numpy()[acc_idx],
+                             out["old_blobs_dev"])
+        blobs = [blob_row(old_blobs, j) for j in range(n_new)]
+        D["blob"].extend(blobs)
         D["proposal_stats"].extend(row_stats)
         if per_dispatch:
             return n_new
@@ -955,7 +1028,7 @@ class Sampler:
                  vstar=recs[i, 1 + ndim:rec_off], loglstar=tail[j, 0],
                  logvol=tail[j, 1], logwt=tail[j, 2], logz=tail[j, 3],
                  logzvar=tail[j, 4], h=tail[j, 5], nc=int(tail[j, 6]),
-                 n=int(tail[j, 9]), birth=tail[j, 10], blob=None,
+                 n=int(tail[j, 9]), birth=tail[j, 10], blob=blobs[j],
                  worst_it=int(tail[j, 7]), boundidx=int(bidx[j]),
                  bounditer=bounditer, eff=self.eff,
                  delta_logz=float(dlz[i]), proposal_stats=row_stats[j])
@@ -1005,6 +1078,7 @@ class Sampler:
             logvol, dlv = logvols[i], dlvs[i]
             ustar = self.live_u[idx].copy()
             vstar = self.live_v[idx].copy()
+            old_blob = tree_map(copy.copy, blob_row(self.live_blobs, idx))
             loglstar_new = self.live_logl[idx]
             n = int(ramp_n[i]) if not self.plateau_mode else self.nlive - i
             logwt, logz, logzvar, h = progress_integration(
@@ -1014,7 +1088,7 @@ class Sampler:
             row = dict(worst=idx, ustar=ustar, vstar=vstar,
                        loglstar=loglstar, logvol=logvol, logwt=logwt,
                        logz=logz, logzvar=logzvar, h=h, nc=1, n=n,
-                       birth=births[idx], blob=None,
+                       birth=births[idx], blob=old_blob,
                        worst_it=self.live_it[idx],
                        boundidx=self.live_bound[idx], bounditer=bounditer)
             self.saved_run.append(dict(
@@ -1022,7 +1096,7 @@ class Sampler:
                 logwt=logwt, logz=logz, logzvar=logzvar, h=h, nc=1, n=n,
                 birth=births[idx], boundidx=row["boundidx"],
                 it=row["worst_it"], bounditer=bounditer,
-                scale=self.internal_sampler.scale, blob=None,
+                scale=self.internal_sampler.scale, blob=old_blob,
                 proposal_stats=None))
             self.eff = 100.0 * (self.it + i) / self.ncall
             yield IteratorResult(eff=self.eff, delta_logz=delta_logz,
@@ -1089,5 +1163,6 @@ class Sampler:
                 self.save(checkpoint_file)
         finally:
             self.timings.add("total", time.perf_counter() - t_run0)
+            self.loglikelihood.finalize_history()
             if print_progress:
                 sys.stderr.write("\n")

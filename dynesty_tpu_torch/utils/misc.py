@@ -18,6 +18,7 @@ __all__ = [
     "torch_generator", "resample_equal", "IteratorResult",
     "IteratorResultShort", "IteratorBlock",
     "Timings", "DelayTimer", "get_print_func", "print_fn_fallback",
+    "tree_map", "blob_row", "blob_where", "stack_blob_rows",
 ]
 
 
@@ -116,6 +117,39 @@ def torch_generator(seed, device):
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(int(seed))
     return gen
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf by leaf over a blob: a tensor or array, or a
+    tuple, list or dict of them (nested), with ``rest`` of the same
+    structure; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def blob_row(blobs, i):
+    """Row ``i`` of a stacked blob (leading axis over points)."""
+    return tree_map(lambda b: b[i], blobs)
+
+
+def blob_where(cond, new, old):
+    """Lane-wise select between two blobs of one structure (``cond`` is
+    per lane, the blobs' leading axis)."""
+    return tree_map(lambda a, b: torch.where(
+        cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b), new, old)
+
+
+def stack_blob_rows(rows):
+    """Per-point blobs stacked along a new leading axis (numpy)."""
+    rows = list(rows)
+    return tree_map(lambda *bs: np.stack([np.asarray(b) for b in bs]),
+                    *rows)
 
 
 def resample_equal(samples, weights, rstate=None):

@@ -270,7 +270,7 @@ def test_cuda_kernel_uniformity(cuda, kind):
         packed_in = torch.from_numpy(np.concatenate(
             [u, v, logl[:, None], axes.reshape(q, -1)], axis=1)).to(cuda)
         gen = torch_generator(int(rstate.integers(2**63)), cuda)
-        packed = fn(gen, packed_in, 1.0, -0.5)
+        packed = fn(gen, packed_in, None, 1.0, -0.5)[0]
         assert packed.device.type == "cuda"
         packed = packed.cpu().numpy()
         u, v, logl = packed[:, :2], packed[:, 2:4], packed[:, 4]
@@ -459,3 +459,96 @@ def test_restore_of_a_cuda_dynamic_checkpoint_needs_cuda(tmp_path,
     assert d2.batch == 2 and d2.batch_sampler is None
     assert abs(d2.results.logz[-1] - _DYN_TRUTH) < \
         5 * d2.results.logzerr[-1]
+
+
+def blob_normal_loglike(x):
+    logl = normal_loglike(x)
+    return logl, torch.stack([logl, x[0]])
+
+
+def np_normal_loglike(x):
+    return -0.5 * float(np.dot(x, x))
+
+
+def np_box_ptform(u):
+    return 10.0 * (2.0 * u - 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", ["unif", "rwalk", "rslice"])
+def test_cuda_blob_belongs_to_its_point(cuda, sample):
+    """On the card every sample's blob is its own ``(logl, v[0])``, and a
+    blob changes no proposal."""
+    import dynesty_tpu_torch as dyt
+
+    runs = []
+    for loglike, blob in ((normal_loglike, False),
+                          (blob_normal_loglike, True)):
+        s = dyt.NestedSampler(loglike, box_ptform, 3, nlive=200,
+                              bound="single", sample=sample, queue_size=64,
+                              blob=blob, rstate=get_rstate(56432))
+        s.run_nested(print_progress=False)
+        runs.append(s)
+    a, b = runs[0].results, runs[1].results
+    blobs = np.array([np.asarray(x) for x in b.blob])
+    assert np.array_equal(blobs[:, 0], b.logl)
+    assert np.array_equal(blobs[:, 1], b.samples[:, 0])
+    for k in ("logl", "samples", "ncall"):
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_host_mode_evaluates_only_the_counted_lanes(cuda):
+    from dynesty_tpu_torch.internal.likelihood import LogLikelihood
+
+    calls = []
+
+    def counted(x):
+        calls.append(x)
+        return np_normal_loglike(x), np.array([1.0, x[0]])
+
+    like = LogLikelihood(counted, np_box_ptform, 3, device="cuda",
+                         mode="host", blob=True)
+    like.eval_host(np.full((2, 3), 0.5))
+    calls.clear()
+    u = torch.rand((64, 3), dtype=torch.float64, device=cuda)
+    mask = torch.rand(64, device=cuda) < 0.5
+    v, logl, blob = like.batch_eval(u, mask=mask)
+    assert v.device.type == logl.device.type == blob.device.type == "cuda"
+    assert len(calls) == int(mask.sum())
+    assert torch.all(logl[~mask] == -math.inf)
+    assert torch.equal(blob[mask, 1], v[mask, 0])
+
+
+@pytest.mark.cuda
+def test_cuda_blob_host_mode_resume_bit_identical(cuda, tmp_path):
+    """A blob + host-mode run on the card stopped, saved, restored and
+    resumed equals its uninterrupted twin, blobs included."""
+    import dynesty_tpu_torch as dyt
+
+    def sampler():
+        return dyt.NestedSampler(_np_blob_loglike, np_box_ptform, 3,
+                                 nlive=200, bound="balls", sample="rslice",
+                                 queue_size=64, blob=True,
+                                 likelihood_mode="host",
+                                 rstate=get_rstate(56432))
+
+    full = sampler()
+    full.run_nested(print_progress=False)
+    s = sampler()
+    s.run_nested(print_progress=False, maxiter=700, add_live=False)
+    fname = str(tmp_path / "cuda_host.pkl")
+    s.save(fname)
+    s2 = dyt.NestedSampler.restore(fname)
+    assert s2.device.type == "cuda"
+    s2.run_nested(print_progress=False, resume=True)
+    a, b = s2.results, full.results
+    assert a.niter == b.niter and s2.ncall == full.ncall
+    for k in ("logl", "logz", "samples", "ncall"):
+        assert np.array_equal(a[k], b[k]), k
+    assert np.array_equal(np.array(a.blob), np.array(b.blob))
+
+
+def _np_blob_loglike(x):
+    logl = np_normal_loglike(x)
+    return logl, np.array([logl, x[0]])

@@ -686,11 +686,12 @@ def test_bench_25d_configuration_capped():
 
 
 def test_dynamic_factory_refuses_what_is_not_ported(monkeypatch):
-    for kw in ({"blob": True}, {"pool": object()},
-               {"likelihood_mode": "host"}):
-        with pytest.raises(NotImplementedError):
-            dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
-                                     device="cpu", **kw)
+    # a custom bound is the one argument not yet ported
+    with pytest.raises(NotImplementedError):
+        d = dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
+                                     bound=dyt.bounding.Bound(NDIM),
+                                     device="cpu")
+        d.run_nested(maxbatch=0, print_progress=False)
     with pytest.raises(ValueError, match="device"):
         dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM, device=None)
     # the card is the default; without CUDA it raises and never falls back

@@ -81,17 +81,17 @@ def _jax_run(live, prop, rounds, mode, ctrl):
 
 
 def _torch_run(live, prop, rounds, mode, ctrl):
-    def propose(gen, live_, axes_args, scale, loglstar):
+    def propose(gen, live_, live_blob, axes_args, scale, loglstar):
         p = axes_args["prop"]
-        return (p[:, :NDIM], p[:, NDIM:IL], p[:, IL],
+        return (p[:, :NDIM], p[:, NDIM:IL], p[:, IL], None,
                 p[:, IL + 1].to(torch.int64), (p[:, IL + 2].sum(),),
                 p[:, IL + 2:IL + 4])
 
     fn, layout = tfused.make_fused_round(
         propose, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
         dtype=torch.float64, device="cpu", rounds=rounds, mode=mode)
-    flat, _, live_out = fn(0, live_to_torch(live, "cpu"),
-                           {"prop": torch.from_numpy(prop)}, ctrl)
+    flat, _, live_out, _, _, _ = fn(0, live_to_torch(live, "cpu"), None,
+                                    {"prop": torch.from_numpy(prop)}, ctrl)
     return to_numpy(flat), to_numpy(live_out), layout
 
 

@@ -290,7 +290,7 @@ def test_unif_round_over_ellipsoids_per_slot_nc():
                             device="cpu")
     loglstar = -2.0
     packed = fn(tmisc.torch_generator(SEED, "cpu"), loglstar,
-                arrays).numpy()
+                arrays)[0].numpy()
     slot_nc = packed[:, il + 1].astype(np.int64)
     nc_total, n_filled = int(packed[0, il + 2]), int(packed[0, il + 4])
     assert n_filled == q
@@ -303,7 +303,8 @@ def test_unif_round_over_ellipsoids_per_slot_nc():
     fn1 = tk.make_unif_round(_StubLike(), ndim=2, q=q,
                              bound_kind="ellipsoids", dtype=torch.float64,
                              device="cpu", max_waves=1)
-    packed = fn1(tmisc.torch_generator(SEED, "cpu"), -0.3, arrays).numpy()
+    packed = fn1(tmisc.torch_generator(SEED, "cpu"), -0.3,
+                 arrays)[0].numpy()
     n_filled = int(packed[0, il + 4])
     assert 0 < n_filled < q
     assert np.all(packed[n_filled:, il] == -np.inf)
@@ -362,9 +363,9 @@ def test_chain_stops_at_first_boundary_past_refit_due(due_rounds):
                 p[:, il + 1].astype(jnp.int32), (p[:, il + 2].sum(),),
                 p[:, il + 2:il + 4])
 
-    def tprop(gen, live_, axes_args, scale, loglstar):
+    def tprop(gen, live_, live_blob, axes_args, scale, loglstar):
         p = axes_args["prop"]
-        return (p[:, :ndim], p[:, ndim:il], p[:, il],
+        return (p[:, :ndim], p[:, ndim:il], p[:, il], None,
                 p[:, il + 1].to(torch.int64), (p[:, il + 2].sum(),),
                 p[:, il + 2:il + 4])
 
@@ -381,8 +382,8 @@ def test_chain_stops_at_first_boundary_past_refit_due(due_rounds):
         dtype=torch.float64, device="cpu", rounds=rounds,
         chain_stop_fn=tsam.UniformBoundSampler(
             ndim=ndim).device_chain_stop_fn())
-    tflat, _, tlive = tfn(0, torch.from_numpy(live),
-                          {"prop": torch.from_numpy(prop)}, ctrl)
+    tflat, _, tlive, _, _, _ = tfn(0, torch.from_numpy(live), None,
+                                   {"prop": torch.from_numpy(prop)}, ctrl)
     assert layout == tlayout
     out = _compare(np.asarray(jflat), to_numpy(tflat), np.asarray(jlive),
                    to_numpy(tlive), layout)

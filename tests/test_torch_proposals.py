@@ -157,9 +157,9 @@ def test_doubling_accept_matches_jax():
     tl.eval_host(u0[:2])
     u0_t, dir_t = torch.from_numpy(u0), torch.from_numpy(direction)
 
-    def feval(x):
+    def feval(x, mask):
         u = u0_t + x[:, None] * dir_t
-        return tk._masked_eval(tl, u, tgeo.unitcheck_batch(u))[1]
+        return tk._masked_eval(tl, u, tgeo.unitcheck_batch(u) & mask)[1]
 
     timings = Timings()
     tacc, tnc = tk.doubling_accept(
@@ -299,9 +299,9 @@ def test_replay_round_matches_jax(mode, case):
         jnp.asarray(prop), None, integ, limits, kills0=kills0,
         birth0=birth0)
     tns = _replay_ns(mode, "torch")
-    tout, tlive = ts.run_replay(tns, live_to_torch(live, "cpu"),
-                                torch.from_numpy(prop), integ, limits,
-                                kills0=kills0, birth0=birth0)
+    tout, tlive, _ = ts.run_replay(tns, live_to_torch(live, "cpu"), None,
+                                   torch.from_numpy(prop), None, integ,
+                                   limits, kills0=kills0, birth0=birth0)
     jlayout, tlayout = js.get_replay(_replay_ns(mode, "jax"))[1], \
         ts.get_replay(tns)[1]
     assert jlayout == tlayout
@@ -351,10 +351,10 @@ def test_replay_round_never_takes_the_thin_path():
     live, prop = _state()
     timings = Timings()
 
-    def propose(gen, live_, axes_args, scale, loglstar):
+    def propose(gen, live_, live_blob, axes_args, scale, loglstar):
         p = axes_args["prop"]
-        return (p[:, :NDIM], p[:, NDIM:4], p[:, 4], p[:, 5].to(torch.int64),
-                (p[:, 6].sum(),), p[:, 6:8])
+        return (p[:, :NDIM], p[:, NDIM:4], p[:, 4], None,
+                p[:, 5].to(torch.int64), (p[:, 6].sum(),), p[:, 6:8])
 
     ctrl = np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0, 0.01,
                      np.inf, 2.0 ** 30, 2.0 ** 30, 1.0, 0.0, 1.0, -1e30, 0.0,
@@ -366,8 +366,8 @@ def test_replay_round_never_takes_the_thin_path():
         fn, _ = tfused.make_fused_round(
             propose, kind=kind, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
             dtype=torch.float64, device="cpu", timings=timings)
-        fn(0, live_to_torch(live, "cpu"), {"prop": torch.from_numpy(prop)},
-           ctrl)
+        fn(0, live_to_torch(live, "cpu"), None,
+           {"prop": torch.from_numpy(prop)}, ctrl)
         assert timings.get("sync_round", 0) == reads
 
 
@@ -381,18 +381,19 @@ def test_round_seeds_do_not_depend_on_skipped_rounds():
     assert tfused.round_seed(124, 0) != seeds[0]
     draws = []
 
-    def propose(gen, live_, axes_args, scale, loglstar):
+    def propose(gen, live_, live_blob, axes_args, scale, loglstar):
         draws.append(float(torch.rand((), generator=gen,
                                       dtype=torch.float64)))
         p = axes_args["prop"]
-        return (p[:, :NDIM], p[:, NDIM:4], p[:, 4], p[:, 5].to(torch.int64),
-                (p[:, 6].sum(),), p[:, 6:8])
+        return (p[:, :NDIM], p[:, NDIM:4], p[:, 4], None,
+                p[:, 5].to(torch.int64), (p[:, 6].sum(),), p[:, 6:8])
 
     live, prop = _state()
     fn, _ = tfused.make_fused_round(
         propose, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
         dtype=torch.float64, device="cpu", rounds=4)
-    args = (live_to_torch(live, "cpu"), {"prop": torch.from_numpy(prop)})
+    args = (live_to_torch(live, "cpu"), None,
+            {"prop": torch.from_numpy(prop)})
     ctrl = np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0,
                      -np.inf, np.inf, 2.0 ** 30, 2.0 ** 30, 1.0, 0.0, 4.0,
                      -1e30, 0.0, 0.0, 0.0, 0.0, 2.0 ** 30])
@@ -443,7 +444,7 @@ def _run_kernel(kind, timings, nsteps=3):
         packed_in = torch.from_numpy(np.concatenate(
             [u, v, logl[:, None], axes.reshape(QK, -1)], axis=1))
         gen = torch_generator(int(rstate.integers(2**63)), "cpu")
-        packed = fn(gen, packed_in, 1.0, -0.5).numpy()
+        packed = fn(gen, packed_in, None, 1.0, -0.5)[0].numpy()
         u, v, logl = packed[:, :2], packed[:, 2:4], packed[:, 4]
     return u, packed
 
@@ -497,7 +498,8 @@ def test_doubling_counts_on_a_one_dimensional_slice():
     packed_in = torch.from_numpy(np.concatenate(
         [u, u, np.zeros((q, 1)), np.full((q, 1), 0.05)], axis=1))
     loglstar = -0.5 * (0.3 / sigma) ** 2  # the slice is (0.2, 0.8)
-    out = fn(torch_generator(SEED, "cpu"), packed_in, 1.0, loglstar).numpy()
+    out = fn(torch_generator(SEED, "cpu"), packed_in, None, 1.0,
+             loglstar)[0].numpy()
     x, nc, n_exp, n_con = out[:, 0], out[:, 3], out[:, 4], out[:, 5]
     assert np.all((x > 0.2) & (x < 0.8))
     assert kstest((x - 0.2) / 0.6, "uniform").pvalue > 1e-4
@@ -629,8 +631,8 @@ def test_auto_in_twelve_dimensions_runs_rwalk():
 
 def test_automatic_switch_to_doubling_continues_the_run():
     """An expansion warning in a dispatch's stats flips the sampler to
-    doubling; the next dispatch builds the doubling kernel and the run
-    goes on to the gate."""
+    doubling once that dispatch is over; the next dispatch builds the
+    doubling kernel and the run goes on to the gate."""
     s = dyt.NestedSampler(_gauss("torch", 3), _ptform, 3, nlive=100,
                           bound="single", sample="rslice", queue_size=32,
                           device="cpu", rstate=get_rstate(SEED))
@@ -640,9 +642,13 @@ def test_automatic_switch_to_doubling_continues_the_run():
     inner = s.internal_sampler
     assert inner.name == "rslice"
     assert not inner.sampler_kwargs["slice_doubling"]
+    inner._post_fused_stats(np.array([10.0, 10.0, 1.0, 0.0]))
+    assert inner._doubling_due
+    assert not inner.sampler_kwargs["slice_doubling"]
     with pytest.warns(UserWarning, match="doubling"):
-        inner._post_fused_stats(np.array([10.0, 10.0, 1.0, 0.0]))
+        inner.end_dispatch()
     assert inner.sampler_kwargs["slice_doubling"]
+    assert not inner._doubling_due
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         s.run_nested(print_progress=False, resume=True)
@@ -672,7 +678,8 @@ def test_unif_round_honours_ncdim_and_nonbounded():
         fn = tk.make_unif_round(Like(), ndim=3, ncdim=2, q=256,
                                 bound_kind="balls", nonbounded=nb,
                                 dtype=torch.float64, device="cpu")
-        out[name] = fn(torch_generator(SEED, "cpu"), -1.0, arrays).numpy()
+        out[name] = fn(torch_generator(SEED, "cpu"), -1.0,
+                       arrays)[0].numpy()
         u = out[name][:, :3]
         assert np.all(np.hypot(u[:, 0] - 0.05, u[:, 1] - 0.5) <= 0.3)
         assert kstest(u[:, 2], "uniform").pvalue > 1e-4

@@ -318,9 +318,9 @@ def test_dispatch_spec_carries_its_refit_due_ncall():
     seen = []
     fused_fn, layout = s.internal_sampler.get_fused(s, "ellipsoids")
 
-    def spy(seed, live, axes_args, ctrl):
+    def spy(seed, live, live_blob, axes_args, ctrl):
         seen.append((seed, float(ctrl[21])))
-        return fused_fn(seed, live, axes_args, ctrl)
+        return fused_fn(seed, live, live_blob, axes_args, ctrl)
 
     cfg = next(k for k in s.internal_sampler._round_cache
                if k[0] == "fused" and k[1] == "ellipsoids")
@@ -380,3 +380,100 @@ def test_set_device_drops_device_state():
     assert s.bound.device == s.loglikelihood.device == torch.device("cpu")
     _run(s, resume=True)
     _assert_same(s, _run(_sampler("balls", "rslice", "batch")))
+
+
+class TinyScaleRSlice(tsam.RSliceSampler):
+    """rslice (one slice a proposal) that starts from so small a scale
+    that its first round steps an interval out more than 1000 times: the
+    dispatch that runs it switches the sampler to doubling."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.scale = 7e-4
+
+
+def normal_loglike(x):
+    return -0.5 * (x @ x)
+
+
+def _switching(dynamic):
+    kw = dict(nlive=60, bound="single", sample=TinyScaleRSlice(slices=1),
+              queue_size=16, rounds_per_dispatch=4, device="cpu",
+              rstate=get_rstate(SEED))
+    if dynamic:
+        return dyt.DynamicNestedSampler(normal_loglike, gau_ptform, 2, **kw)
+    return dyt.NestedSampler(normal_loglike, gau_ptform, 2, **kw)
+
+
+def _dispatch_start(scales):
+    """Index of the first record of the first rslice dispatch: its scale
+    is no longer the unit-cube phase's."""
+    return int(np.nonzero(np.asarray(scales) != 1.0)[0][0])
+
+
+def _assert_suspended_before_the_switch(s):
+    assert s._leftover is not None and s._leftover["cont"]
+    assert s.internal_sampler._doubling_due
+    assert not s.internal_sampler.sampler_kwargs["slice_doubling"]
+
+
+def _assert_switched_after_continuation(s):
+    assert s.timings["n_continuation"] >= 1
+    assert s.internal_sampler.sampler_kwargs["slice_doubling"]
+    assert not s.internal_sampler._doubling_due
+
+
+def test_switch_to_doubling_inside_an_interrupted_dispatch(tmp_path):
+    """The dispatch that sets off the switch to doubling is stopped in its
+    second round: its continuation must run the stepping-out kernel it
+    started with, and the switch come after it, as in the uninterrupted
+    run."""
+    full = _switching(False)
+    with pytest.warns(UserWarning, match="doubling"):
+        full.run_nested(print_progress=False)
+    assert full.internal_sampler.sampler_kwargs["slice_doubling"]
+    i0 = _dispatch_start(full.saved_run["scale"])
+    s = _run(_switching(False), maxiter=i0 + 16 + 5, add_live=False)
+    _assert_suspended_before_the_switch(s)
+    fname = str(tmp_path / "switch.pkl")
+    s.save(fname)
+    s2 = _run(dyt.NestedSampler.restore(fname), resume=True)
+    _assert_switched_after_continuation(s2)
+    _assert_same(s2, full)
+
+
+def test_switch_to_doubling_inside_an_interrupted_batch(tmp_path):
+    """The same inside a dynamic batch: a batch from the prior
+    (``logl_bounds`` from -inf) gets a fresh kernel at the template's
+    scale, and its first rslice dispatch sets off the switch; stopped
+    there by ``maxiter``, saved, restored and resumed, the batch equals
+    the uninterrupted one."""
+    batch_kw = dict(nlive=60, mode="manual", logl_bounds=(-np.inf, np.inf),
+                    print_progress=False)
+
+    base = _switching(True)
+    _quiet_run(base.run_nested, maxbatch=0, print_progress=False)
+    full = pickle.loads(pickle.dumps(base))
+    with pytest.warns(UserWarning, match="doubling"):
+        full.add_batch(**batch_kw)
+    batch = np.asarray(full.saved_run["batch"]) == 1
+    k = _dispatch_start(np.asarray(full.saved_run["scale"])[batch])
+    d = base
+    _quiet_run(d.add_batch, maxiter=60 + k + 16 + 5, **batch_kw)
+    assert d.batch_sampler is not None
+    _assert_suspended_before_the_switch(d.batch_sampler)
+    fname = str(tmp_path / "switch.pkl")
+    d.save(fname)
+    d2 = dyt.DynamicNestedSampler.restore(fname)
+    _quiet_run(d2.add_batch, resume=True, **batch_kw)
+    assert d2.batch_sampler is None and d2.batch == full.batch == 1
+    assert d2.ncall == full.ncall
+    ra, rb = d2.results, full.results
+    for k in KEYS + ("samples_batch",):
+        assert np.array_equal(np.asarray(ra[k]), np.asarray(rb[k])), k
+
+
+def _quiet_run(fn, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return fn(**kw)

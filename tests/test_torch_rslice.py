@@ -51,7 +51,7 @@ def test_rslice_chain_uniformity(mode):
         packed_in = torch.from_numpy(np.concatenate(
             [u, v, logl[:, None], axes.reshape(Q, -1)], axis=1))
         gen = torch_generator(int(rstate.integers(2**63)), "cpu")
-        packed = fn(gen, packed_in, 1.0, -0.5).numpy()
+        packed = fn(gen, packed_in, None, 1.0, -0.5)[0].numpy()
         u, v, logl = packed[:, :2], packed[:, 2:4], packed[:, 4]
         nc, n_exp, n_con = packed[:, 5], packed[:, 6], packed[:, 7]
         # each of the 3 slice updates costs 2 initial evaluations, its
@@ -77,7 +77,7 @@ def test_unit_cube_round_uniformity_and_nc():
     fn = make_unif_round(like, ndim=3, q=Q, bound_kind="cube",
                          dtype=torch.float64, device="cpu",
                          timings=timings)
-    packed = fn(torch_generator(7, "cpu"), -0.3, {}).numpy()
+    packed = fn(torch_generator(7, "cpu"), -0.3, {})[0].numpy()
     u, logl = packed[:, :3], packed[:, 6]
     nc, nc_total, n_prop, n_filled = (packed[:, 7], packed[0, 8],
                                       packed[0, 9], packed[0, 10])

@@ -110,19 +110,37 @@ def test_progress_printing_path(capsys):
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="device"):
         dyt.NestedSampler(lambda x: x.sum(), lambda u: u, 2, device=None)
-    for bound, sample, kw in (("multi", "auto", {"blob": True}),
-                              ("multi", "auto", {"pool": object()}),
-                              ("multi", "auto", {"likelihood_mode": "host"}),
-                              (dyt.bounding.Bound(2), "unif", {})):
-        with pytest.raises(NotImplementedError):
-            dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
-                              bound=bound, sample=sample, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):
-            # the dynamic factory builds its bound with its first sampler
-            d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2,
-                                         nlive=20, bound=bound,
-                                         sample=sample, device="cpu", **kw)
-            d.run_nested(maxbatch=0, print_progress=False)
+    # only a custom bound is still refused
+    with pytest.raises(NotImplementedError):
+        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                          bound=dyt.bounding.Bound(2), sample="unif",
+                          device="cpu")
+    with pytest.raises(NotImplementedError):
+        # the dynamic factory builds its bound with its first sampler
+        d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2,
+                                     nlive=20, bound=dyt.bounding.Bound(2),
+                                     sample="unif", device="cpu")
+        d.run_nested(maxbatch=0, print_progress=False)
+    # blobs, host mode, a pool and the history arguments are taken by both
+    # factories; a host-mode round over a pool of two is 32 wide
+    class TwoJobs:
+        njobs = 2
+
+        def map(self, fn, items):
+            return list(map(fn, items))
+
+    kw = dict(blob=True, likelihood_mode="host", pool=TwoJobs(),
+              use_pool={"update_bound": False},
+              save_evaluation_history=False, history_filename=None)
+    s = dyt.NestedSampler(lambda x: (-x @ x, x[0]), lambda u: u, 2,
+                          nlive=500, device="cpu", **kw)
+    assert s.blob and s.loglikelihood.mode == "host"
+    assert s.live_blobs.shape == (500,) and s.queue_size == 32
+    assert s.pool is s.loglikelihood.pool is kw["pool"]
+    d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2,
+                                 nlive=500, device="cpu", **kw)
+    assert d.blob and d.use_pool["update_bound"] is False
+    assert d.queue_size == 32 and d.mapper == kw["pool"].map
     # every sampler name is ported; an unknown one is a ValueError, and so
     # is ncdim with the slice samplers
     with pytest.raises(ValueError, match="Unknown sample"):
@@ -147,6 +165,7 @@ def test_import_leaves_jax_out():
             "[importlib.import_module(m.name) for m in "
             "pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             "assert 'dynesty_tpu_torch.utils.checkpoint' in sys.modules; "
+            "assert 'dynesty_tpu_torch.pool' in sys.modules; "
             "assert 'jax' not in sys.modules; "
             "assert 'dynesty_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
