@@ -73,16 +73,34 @@ Phases, in order; any failure raises and exits non-zero:
 19. blob-resume: blob-balls stopped at half its iterations, saved,
     restored onto the card, resumed: equal to phase 16's run bit for bit,
     blobs included.
-20. Device-only times (profiler kernel durations) of every comparison,
+20. custom-unif: ``NestedSampler(..., nlive=500, bound=Box(3),
+    sample='unif')`` with a user's bound (``Box`` below, sampled on the
+    host between device waves), printing its progress through the stderr
+    fallback printer at a pinned width.  Gates: the evidence, no NN-kernel
+    launch, a last status line with the iteration count and logz.
+21. custom-rslice: the main drive with ``Box(3)`` in place of RadFriends
+    (nlive 2048, rslice, width 256): the box's axes go to the card once a
+    dispatch.  Gates: the evidence, no NN-kernel launch.
+22. custom-resume: custom-unif stopped at half its iterations, saved,
+    restored onto the card, resumed: equal to phase 20's run bit for bit,
+    the saved boxes included.
+23. plots: from the results of phases 3 and 13, ``runplot``,
+    ``traceplot``, ``cornerplot``, ``boundplot`` and ``cornerbound`` into
+    a temporary directory under ``Agg``, the bound plots from a saved
+    RadFriends bound of the card run through 5,000 host draws.  Where
+    matplotlib is not installed the draws and their checks still run and
+    the line says that no figure was drawn.
+24. Device-only times (profiler kernel durations) of every comparison,
     and of one 256-lane evaluation of the heavy likelihood.
 
-Each dynamic, blob, host and pool phase prints one JSON line of its
-own.  The line before the last is a JSON object of the kernels; the last
-line is ``{"ok": true, "device": {...}}``.
+Each dynamic, blob, host, pool, custom and plot phase prints one JSON
+line of its own.  The line before the last is a JSON object of the
+kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -93,6 +111,9 @@ import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from dynesty_tpu_torch.bounding import Bound  # noqa: E402
 
 NDIM = 3
 SEED = 56432
@@ -268,12 +289,18 @@ def normal_loglike(x):
     return -0.5 * (x @ x) - 0.5 * x.shape[-1] * math.log(2.0 * math.pi)
 
 
+def _bound_name(bounding):
+    """A bound's name, or a user's bound by its class."""
+    return bounding if isinstance(bounding, str) else \
+        type(bounding).__name__
+
+
 def _summary(sampler, wall, truth, **config):
     res = sampler.results
     stats = [p for p in res.proposal_stats if p]
     return {
         "config": dict(config, nlive=sampler.nlive, ndim=sampler.ndim,
-                       bound=sampler.bounding,
+                       bound=_bound_name(sampler.bounding),
                        sample=sampler.internal_sampler.name, seed=SEED,
                        queue_size=sampler.queue_size),
         "wall_s": wall, "niter": int(res.niter),
@@ -326,8 +353,8 @@ def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None,
     if maxiter is not None:
         return {"wall_s": wall, "niter": sampler.it - 1}, sampler
     summary = _summary(sampler, wall, LOGZ_TRUTH)
-    _gate(sampler, summary, f"drive {bound}/{summary['config']['sample']} "
-          f"nlive={nlive}")
+    _gate(sampler, summary, f"drive {_bound_name(bound)}/"
+          f"{summary['config']['sample']} nlive={nlive}")
     return summary, sampler
 
 
@@ -399,11 +426,12 @@ def rwalk_round_times(dyt):
             lambda: consume(SEED, live, None, {}, ctrl), 5)}
 
 
-def resume_drive(dyt, full, maxiter, **kw):
-    """The balls/rslice drive (``kw`` as for :func:`drive`) stopped at
-    ``maxiter``, saved, restored and resumed, held bit for bit to ``full``
-    (the uninterrupted sampler), blobs included."""
-    first, sampler = drive(dyt, 2048, "balls", maxiter=maxiter, **kw)
+def resume_drive(dyt, full, maxiter, nlive=2048, bound="balls", **kw):
+    """The balls/rslice drive (``nlive``, ``bound``, ``kw`` as for
+    :func:`drive`) stopped at ``maxiter``, saved, restored and resumed,
+    held bit for bit to ``full`` (the uninterrupted sampler), blobs and a
+    user's saved bounds included."""
+    first, sampler = drive(dyt, nlive, bound, maxiter=maxiter, **kw)
     if not sampler.interrupted_budget:
         raise RuntimeError("the stopped run did not report its stop")
     with tempfile.TemporaryDirectory() as tmp:
@@ -422,11 +450,15 @@ def resume_drive(dyt, full, maxiter, **kw):
     a, b = full.results, restored.results
     same = {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
             for k in ("logl", "logz", "samples", "ncall", "logvol",
-                      "samples_u", "samples_it")}
+                      "samples_u", "samples_it", "scale")}
     same["niter"] = a.niter == b.niter
     same["ncall_total"] = full.ncall == restored.ncall
     if full.blob:
         same["blob"] = bool(np.array_equal(_blobs(a), _blobs(b)))
+    if isinstance(bound, Box):
+        same["boxes"] = len(a.bound) == len(b.bound) and all(
+            type(x) is type(y) and np.array_equal(x.cen, y.cen) and
+            x.size == y.size for x, y in zip(a.bound[1:], b.bound[1:]))
     t = restored.timings
     out = {"maxiter": maxiter, "niter_first": first["niter"],
            "wall_first_s": first["wall_s"], "wall_resumed_s": wall,
@@ -629,6 +661,199 @@ def host_pool_drive(dyt):
     return s
 
 
+class Box(Bound):
+    """A user's bound: an axis-aligned box around the live points (the
+    JAX package's test bound, ``tests/test_interface.py``).  It has no
+    device export, so the sampler calls it 'custom': ``unif`` draws its
+    waves through ``samples`` on the host, the other kernels take the axes
+    of ``get_random_axes`` once a dispatch."""
+
+    def __init__(self, ndim):
+        super().__init__(ndim)
+        self.cen = np.zeros(ndim) + 0.5
+        self.size = 0.5
+
+    def contains(self, x):
+        return bool((np.abs(x - self.cen) < self.size).all())
+
+    def sample(self, rstate=None):
+        return rstate.uniform(np.maximum(self.cen - self.size, 0),
+                              np.minimum(self.cen + self.size, 1))
+
+    def samples(self, nsamples, rstate=None):
+        lo = np.maximum(self.cen - self.size, 0)
+        hi = np.minimum(self.cen + self.size, 1)
+        return rstate.uniform(lo, hi, size=(nsamples, self.ndim))
+
+    def get_random_axes(self, rstate):
+        return np.eye(self.ndim) * self.size
+
+    def scale_to_logvol(self, logvol):
+        self.size = np.exp(logvol / self.ndim)
+
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
+        self.cen = points.mean(axis=0)
+        self.size = np.abs(points - self.cen).max() * 2
+        self.logvol = np.log(self.size) * self.ndim
+
+
+@contextlib.contextmanager
+def counting_box_calls(name):
+    """Count the calls of ``Box.<name>`` while open, and their host
+    seconds: yields ``[calls, seconds]``."""
+    orig = getattr(Box, name)
+    tally = [0, 0.0]
+
+    def counted(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        tally[0] += 1
+        tally[1] += time.perf_counter() - t0
+        return out
+
+    setattr(Box, name, counted)
+    try:
+        yield tally
+    finally:
+        setattr(Box, name, orig)
+
+
+def custom_unif_drive(dyt, hk, misc):
+    """The 3-D Gaussian under ``Box(3)`` with ``unif`` (every other
+    argument at its default: nlive 500, width 256, bootstrap 5, which a
+    user's bound may ignore), its progress printed through the stderr
+    fallback printer at a pinned width of 200 columns.  Returns (summary,
+    sampler)."""
+    _zero_counts(hk)
+    err = io.StringIO()
+    width = misc._terminal_width
+    misc._terminal_width = lambda default=200: 200
+    try:
+        with counting_box_calls("samples") as tally, \
+                contextlib.redirect_stderr(err):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampler = dyt.NestedSampler(
+                gauss_loglike, box_ptform, NDIM, nlive=500, bound=Box(NDIM),
+                sample="unif",
+                rstate=np.random.Generator(np.random.PCG64(SEED)))
+            if sampler.device.type != "cuda":
+                raise RuntimeError(f"the default device is {sampler.device}")
+            sampler.run_nested(print_progress=True,
+                               print_func=misc._FallbackPrinter())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        misc._terminal_width = width
+    s = _summary(sampler, wall, LOGZ_TRUTH)
+    _gate(sampler, s, "custom-unif drive")
+    s["launches"] = _counts(hk)
+    s["bound_kind"] = sampler.device_bound_kind()
+    s["samples_calls"] = tally[0]
+    s["host_ms_per_samples_call"] = 1e3 * tally[1] / max(tally[0], 1)
+    lines = [ln.strip() for ln in err.getvalue().split("\r") if ln.strip()]
+    s["last_status_line"] = lines[-1] if lines else ""
+    # the last line is the last recycled live point's: iteration niter +
+    # nlive, the final evidence
+    last = s["last_status_line"]
+    nlive = sampler.nlive
+    printed_ok = (last.startswith(f"iter: {s['niter'] + nlive} | +{nlive} ")
+                  and f"logz: {s['logz']:.3f}" in last)
+    if s["launches"]["launches"] != 0 or s["bound_kind"] != "custom" or \
+            not printed_ok or s["samples_calls"] < 1:
+        got = {k: s[k] for k in ("launches", "bound_kind", "samples_calls",
+                                 "last_status_line")}
+        raise RuntimeError(f"the custom-unif drive failed its gate: {got}")
+    return s, sampler
+
+
+def custom_rslice_drive(dyt, hk):
+    """The main drive (nlive 2048, rslice, width 256) with ``Box(3)`` in
+    place of RadFriends: the rounds take the box's axes, uploaded once a
+    dispatch, and no refit reaches the NN kernel."""
+    _zero_counts(hk)
+    with counting_box_calls("get_random_axes") as tally:
+        s, sampler = drive(dyt, 2048, Box(NDIM))
+    s["launches"] = _counts(hk)
+    s["bound_kind"] = sampler.device_bound_kind()
+    s["axes_uploads"] = tally[0]
+    t = s["timings"]
+    if s["launches"]["launches"] != 0 or s["bound_kind"] != "custom" or \
+            tally[0] < 1 or tally[0] > t.get("n_dispatch", 0):
+        got = {k: s[k] for k in ("launches", "bound_kind", "axes_uploads")}
+        raise RuntimeError(f"the custom-rslice drive failed its gate: {got}")
+    return s
+
+
+def plots_phase(dyt, balls_res, dyn_res):
+    """The five plots of the card's results: a static run (the balls
+    drive, whose saved RadFriends bounds launched the kernel) and a
+    dynamic one (dynamic3).  The bound plots draw 5,000 points from the
+    last saved RadFriends bound through its host ``samples`` and the
+    sampler's torch prior transform; every draw must lie in the bound.
+    With matplotlib each figure goes to a file under ``Agg`` that must
+    not be empty; without it no figure is drawn, and the line says so."""
+    from dynesty_tpu_torch import plotting
+
+    it = int(np.nonzero(np.asarray(balls_res.bound_iter) ==
+                        max(balls_res.bound_iter))[0][0])
+    bound = balls_res.bound[balls_res.bound_iter[it]]
+    if type(bound).__name__ != "RadFriends" or len(bound.ctrs) != 2048:
+        raise RuntimeError(f"saved bound at iteration {it}: {bound}")
+    t0 = time.perf_counter()
+    raw = plotting._sample_bound(balls_res, it=it, ndraws=5000,
+                                 rstate=np.random.Generator(
+                                     np.random.PCG64(SEED)))
+    draw_s = time.perf_counter() - t0
+    pts = plotting._sample_bound(balls_res, it=it, ndraws=5000,
+                                 prior_transform=box_ptform,
+                                 rstate=np.random.Generator(
+                                     np.random.PCG64(SEED)))
+    inside = sum(bound.contains(x) for x in raw)
+    out = {"bound_iter": it, "bound": type(bound).__name__,
+           "bound_centres": len(bound.ctrs), "draws": len(raw),
+           "draws_in_bound": int(inside), "draw_s": draw_s,
+           "transform_exact": bool(np.array_equal(pts, 10.0 * (2.0 * raw
+                                                              - 1.0)))}
+    if inside != len(raw) or pts.shape != (5000, NDIM) or \
+            not out["transform_exact"]:
+        raise RuntimeError(f"the bound draws failed their check: {out}")
+    try:
+        import matplotlib
+    except ImportError:
+        out["figures"] = "not drawn: matplotlib is not installed here"
+        return out
+    matplotlib.use("Agg")
+    figures = {
+        "runplot": lambda: plotting.runplot(balls_res, lnz_truth=LOGZ_TRUTH),
+        "runplot_dynamic": lambda: plotting.runplot(dyn_res),
+        "traceplot": lambda: plotting.traceplot(balls_res, show_titles=True),
+        "cornerplot": lambda: plotting.cornerplot(balls_res),
+        "cornerplot_dynamic": lambda: plotting.cornerplot(dyn_res),
+        "boundplot": lambda: plotting.boundplot(
+            balls_res, dims=(0, 1), it=it, ndraws=5000,
+            prior_transform=box_ptform,
+            rstate=np.random.Generator(np.random.PCG64(SEED))),
+        "cornerbound": lambda: plotting.cornerbound(
+            balls_res, it=it, ndraws=5000,
+            rstate=np.random.Generator(np.random.PCG64(SEED))),
+    }
+    out["figures"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, make in figures.items():
+            t0 = time.perf_counter()
+            fig = make()[0]
+            path = os.path.join(tmp, name + ".png")
+            fig.savefig(path)
+            plotting.pl.close(fig)
+            size = os.path.getsize(path)
+            out["figures"][name] = {"bytes": size,
+                                    "seconds": time.perf_counter() - t0}
+            if size == 0:
+                raise RuntimeError(f"the {name} figure is empty")
+    return out
+
+
 def _print_phase(name, s, card):
     """One JSON line of a phase, the card beside it."""
     keys = ("config", "niter", "ncall", "logz", "logzerr", "truth", "wall_s",
@@ -640,7 +865,9 @@ def _print_phase(name, s, card):
             "mapped_points", "bootstrap_in_workers",
             "workers_initialised_cuda", "maxiter", "niter_first",
             "wall_first_s", "wall_resumed_s", "checkpoint_bytes", "same",
-            "n_replay", "n_continuation", "timings")
+            "n_replay", "n_continuation", "bound_kind", "samples_calls",
+            "host_ms_per_samples_call", "last_status_line", "axes_uploads",
+            "timings")
     print(json.dumps(dict({"phase": name, "card": card},
                           **{k: s[k] for k in keys if k in s})))
 
@@ -795,7 +1022,7 @@ def dynamic_resume_drive(dyt):
             for k in ("logl", "logz", "logzerr", "logvol", "logwt",
                       "samples", "samples_u", "samples_batch", "samples_it",
                       "samples_n", "ncall", "batch_nlive",
-                      "batch_logl_bounds")}
+                      "batch_logl_bounds", "scale")}
     same["niter"] = a.niter == b.niter
     same["ncall_total"] = full.ncall == restored.ncall
     same["batches"] = full.batch == restored.batch
@@ -1208,6 +1435,7 @@ def main():
     _dyn_gate(dyn3_sampler, dyn3, "dynamic3 drive", neff=DYN_NEFF)
     if hk.pairwise_min_dist.launches != 0:
         raise RuntimeError("the dynamic3 drive launched the friends kernel")
+    dyn3_results = dyn3_sampler.results
     del dyn3_sampler
     _print_dynamic("dynamic3", dyn3, card)
 
@@ -1256,7 +1484,32 @@ def main():
     del blob_sampler
     _print_phase("blob-resume", blobresume, card)
 
-    # phase 20: device-only times, last: once a profiler has run, every
+    # phase 20: custom-unif, a user's bound sampled on the host between
+    # device waves, its progress printed
+    from dynesty_tpu_torch.utils import misc
+    customunif, cu_sampler = custom_unif_drive(dyt, hk, misc)
+    _print_phase("custom-unif", customunif, card)
+
+    # phase 21: custom-rslice, the main drive under the user's bound
+    customrslice = custom_rslice_drive(dyt, hk)
+    _print_phase("custom-rslice", customrslice, card)
+
+    # phase 22: custom-resume, custom-unif stopped at half, saved, restored
+    # onto the card and resumed, against phase 20's sampler
+    _zero_counts(hk)
+    customresume = resume_drive(dyt, cu_sampler, customunif["niter"] // 2,
+                                nlive=500, bound=Box(NDIM), sample="unif")
+    customresume["launches"] = _counts(hk)
+    if customresume["launches"]["launches"] != 0:
+        raise RuntimeError("the custom-resume drive launched the NN kernel")
+    del cu_sampler
+    _print_phase("custom-resume", customresume, card)
+
+    # phase 23: the plots of the balls drive and of dynamic3
+    plots = plots_phase(dyt, main_sampler.results, dyn3_results)
+    print(json.dumps(dict({"phase": "plots", "card": card}, **plots)))
+
+    # phase 24: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -1324,6 +1577,9 @@ def main():
                        "dynamic_resume": dynresume,
                        "blob_balls": blobballs, "host_balls": hostballs,
                        "host_pool": hostpool, "blob_resume": blobresume,
+                       "custom_unif": customunif,
+                       "custom_rslice": customrslice,
+                       "custom_resume": customresume, "plots": plots,
                        "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))

@@ -17,9 +17,19 @@ on the host, as in the JAX package.
 Every ``update`` takes a ``pool``: the bootstrap realisations then map over
 its workers as numpy tasks (the multi-ellipsoid fit takes the recursive
 splitter there, the batched forest without a pool), and the processes
-that ran them are kept in ``last_bootstrap_pids``.
+that ran them are kept in ``last_bootstrap_pids``.  ``mc_integrate=True``
+also estimates the bound's volume and its share inside the unit cube
+(``funit``) by Monte Carlo.
+
+Every bound also draws on the host from a caller's numpy ``rstate``
+(``sample``, ``samples``, the Monte Carlo volumes), with the JAX package's
+code, so that the same fitted bound and seed give the same bits; plots of
+saved bounds and a user's own ``Bound`` subclass (a bound without a
+``device_spec``, sampled through ``samples`` between device waves) rest on
+them.
 """
 
+import copy
 import math
 import os
 import warnings
@@ -28,7 +38,7 @@ import numpy as np
 import torch
 
 from .ops.geometry import (improve_covar_mat, logvol_prefactor, rand_choice,
-                           unitcheck)
+                           randsphere, unitcheck)
 from .ops.hopper_kernels import pairwise_min_dist
 from .utils.misc import get_random_generator, get_seed_sequence
 
@@ -68,16 +78,27 @@ def _slogdet_checked(mat):
 
 
 class Bound:
-    """Common interface of all bounding distributions."""
+    """Common interface of all bounding distributions.  A user's subclass
+    implements ``contains``, ``samples`` (or ``sample``),
+    ``get_random_axes``, ``scale_to_logvol`` and ``update``; without a
+    ``device_spec`` the sampler calls it a 'custom' bound."""
 
     need_centers = False
 
     def __init__(self, ndim):
         self.ndim = ndim
         self.logvol = 0.0
+        self.funit = 1.0
 
     def contains(self, x):
         raise NotImplementedError
+
+    def sample(self, rstate=None):
+        raise NotImplementedError
+
+    def samples(self, nsamples, rstate=None):
+        return np.array([self.sample(rstate=rstate)
+                         for _ in range(nsamples)])
 
     def scale_to_logvol(self, logvol):
         raise NotImplementedError
@@ -90,7 +111,8 @@ class Bound:
         raise NotImplementedError
 
     def device_spec(self):
-        """(kind, arrays) export of the bound for the device rounds."""
+        """(kind, arrays) export of the bound for the device rounds; None
+        for a bound that is sampled on the host (``samples``)."""
         return None
 
 
@@ -99,6 +121,12 @@ class UnitCube(Bound):
 
     def contains(self, x):
         return unitcheck(x)
+
+    def sample(self, rstate=None):
+        return rstate.random(size=self.ndim)
+
+    def samples(self, nsamples, rstate=None):
+        return rstate.random(size=(nsamples, self.ndim))
 
     def scale_to_logvol(self, logvol):
         pass
@@ -180,10 +208,25 @@ class Ellipsoid(Bound):
     def contains(self, x):
         return self.distance(x) <= 1.0
 
-    def update(self, points, rstate=None, bootstrap=0, pool=None):
+    def sample(self, rstate=None):
+        return self.ctr + self.axes @ randsphere(self.ndim, rstate)
+
+    def samples(self, nsamples, rstate=None):
+        z = rstate.standard_normal(size=(nsamples, self.ndim))
+        z /= np.linalg.norm(z, axis=1, keepdims=True)
+        r = rstate.random(size=(nsamples, 1)) ** (1.0 / self.ndim)
+        return self.ctr + (z * r) @ self.axes.T
+
+    def unitcube_overlap(self, ndraws=10000, rstate=None):
+        """Monte Carlo share of the ellipsoid inside the unit cube."""
+        xs = self.samples(ndraws, rstate=rstate)
+        return np.sum(np.all((xs > 0) & (xs < 1), axis=1)) / ndraws
+
+    def update(self, points, rstate=None, bootstrap=0, pool=None,
+               mc_integrate=False):
         """Refit to bound ``points``, expanded by the worst bootstrap
         leave-out distance when ``bootstrap > 0`` (realisations over
-        ``pool`` when given)."""
+        ``pool`` when given); ``mc_integrate`` sets ``funit``."""
         ell = bounding_ellipsoid(points)
         for attr in ("ndim", "ctr", "cov", "am", "logvol", "axlens", "axes"):
             setattr(self, attr, getattr(ell, attr))
@@ -197,6 +240,8 @@ class Ellipsoid(Bound):
                 self.last_expand = expand
                 self.scale_to_logvol(self.logvol +
                                      self.ndim * np.log(expand))
+        if mc_integrate:
+            self.funit = self.unitcube_overlap(rstate=rstate)
 
     def get_random_axes(self, rstate):
         return self.axes
@@ -250,9 +295,22 @@ class MultiEllipsoid(Bound):
         self._sync_arrays()
         self.logvol = _logsumexp(self.logvol_ells)
 
+    def major_axis_endpoints(self):
+        return np.array([e.major_axis_endpoints() for e in self.ells])
+
     def _sq_distances(self, x):
         d = x[None, :] - self.ctrs
         return np.einsum("ai,aij,aj->a", d, self.ams, d)
+
+    def within(self, x, j=None):
+        """Indices of the ellipsoids holding ``x`` (leaving out ``j``)."""
+        mask = self._sq_distances(x) < 1
+        if j is not None:
+            mask[j] = False
+        return np.nonzero(mask)[0]
+
+    def overlap(self, x, j=None):
+        return len(self.within(x, j=j))
 
     def contains(self, x):
         return bool(np.any(self._sq_distances(x) < 1))
@@ -263,13 +321,59 @@ class MultiEllipsoid(Bound):
         sq = np.einsum("nai,aij,naj->na", d, self.ams, d)
         return np.any(sq < 1, axis=1)
 
-    def update(self, points, rstate=None, bootstrap=0, pool=None):
+    def sample(self, rstate=None, return_q=False):
+        """A point uniform in the union (a volume-weighted ellipsoid, a
+        point in it, 1/q overlap rejection); returns ``(x, idx)``, or
+        ``(x, idx, q)`` without the rejection when ``return_q``."""
+        if self.nells == 1:
+            x = self.ells[0].sample(rstate=rstate)
+            return (x, 0, 1) if return_q else (x, 0)
+        probs = np.exp(self.logvol_ells - self.logvol)
+        while True:
+            idx = rand_choice(probs, rstate)
+            x = self.ells[idx].sample(rstate=rstate)
+            sq = self._sq_distances(x)
+            q = int((sq < 1).sum())
+            if q == 0:
+                # round-off rescue: accept boundary-grazing membership
+                q = int((sq <= 1 + 1e-3).sum())
+                if q == 0:
+                    raise RuntimeError(
+                        f"Ellipsoid membership check failed (min={sq.min()})")
+                warnings.warn("Numerical inaccuracies in ellipsoidal "
+                              "sampling; posteriors may be very elongated.")
+            if return_q:
+                return x, idx, q
+            if q == 1 or rstate.random() < 1.0 / q:
+                return x, idx
+
+    def samples(self, nsamples, rstate=None):
+        return np.array([self.sample(rstate=rstate)[0]
+                         for _ in range(nsamples)])
+
+    def monte_carlo_logvol(self, ndraws=10000, rstate=None,
+                           return_overlap=True):
+        """Monte Carlo log-volume of the union, and with
+        ``return_overlap`` its share inside the unit cube."""
+        draws = [self.sample(rstate=rstate, return_q=True)
+                 for _ in range(ndraws)]
+        qsum = sum(1.0 / q for (_, _, q) in draws)
+        logvol = np.log(qsum / ndraws) + self.logvol
+        if return_overlap:
+            qin = sum(1.0 / q * unitcheck(x) for (x, _, q) in draws)
+            return logvol, qin / qsum
+        return logvol
+
+    def update(self, points, rstate=None, bootstrap=0, pool=None,
+               mc_integrate=False):
         """Refit by BIC-guided splitting, with the all-points-contained
         invariant and optional bootstrap expansion.  Without a pool the
         batched breadth-first splitter fits the main decomposition and
         every bootstrap realization as one forest; with one, the recursive
         splitter fits the main decomposition and each realization is a
-        task for the workers.  Both give the same fit."""
+        task for the workers.  Both give the same fit.  ``mc_integrate``
+        replaces ``logvol`` by its Monte Carlo estimate and sets
+        ``funit``."""
         npoints, ndim = points.shape
         if npoints == 1:
             raise RuntimeError("Cannot bound a single point.")
@@ -303,6 +407,9 @@ class MultiEllipsoid(Bound):
             if expand > 1.0:
                 self.scale_to_logvol(self.logvol_ells +
                                      ndim * np.log(expand))
+        if mc_integrate:
+            self.logvol, self.funit = self.monte_carlo_logvol(
+                rstate=rstate, return_overlap=True)
 
     def get_random_axes(self, rstate):
         probs = np.exp(self.logvol_ells - self.logvol)
@@ -347,6 +454,10 @@ class _FriendsBase(Bound):
         return logvol_prefactor(self.ndim, p=p) - \
             0.5 * _slogdet_checked(self.am)
 
+    def _offset(self, rstate):
+        """A point in the unit kernel (ball or cube)."""
+        raise NotImplementedError
+
     def _norm(self, dx_t, axis=None):
         raise NotImplementedError
 
@@ -362,15 +473,59 @@ class _FriendsBase(Bound):
         dt = (np.asarray(self.ctrs) - x) @ self.axes_inv
         return np.where(self._norm(dt, axis=1) <= 1.0)[0]
 
-    def contains(self, x):
-        return len(self.within(x)) > 0
+    def overlap(self, x):
+        return len(self.within(x))
 
-    def update(self, points, rstate=None, bootstrap=0, pool=None):
+    def contains(self, x):
+        return self.overlap(x) > 0
+
+    def sample(self, rstate=None, return_q=False):
+        """A point uniform in the union (a random centre, a kernel offset,
+        1/q overlap rejection); ``(x, q)`` without the rejection when
+        ``return_q``."""
+        nctrs = len(self.ctrs)
+        while True:
+            dx = self._offset(rstate) @ self.axes
+            if nctrs == 1:
+                q = 1
+                x = self.ctrs[0] + dx
+            else:
+                idx = rstate.integers(nctrs)
+                x = self.ctrs[idx] + dx
+                q = self.overlap(x)
+            if q == 1 or return_q or rstate.random() < 1.0 / q:
+                if return_q:
+                    return x, q
+                return x
+
+    def samples(self, nsamples, rstate=None):
+        return np.array([self.sample(rstate=rstate)
+                         for _ in range(nsamples)])
+
+    def monte_carlo_logvol(self, ndraws=10000, rstate=None,
+                           return_overlap=True):
+        """Monte Carlo log-volume of the union, and with
+        ``return_overlap`` its share inside the unit cube."""
+        draws = [self.sample(rstate=rstate, return_q=True)
+                 for _ in range(ndraws)]
+        qs = np.array([q for (_, q) in draws])
+        qsum = np.sum(1.0 / qs)
+        logvol = np.log(qsum / ndraws * len(self.ctrs)) + self.logvol
+        if return_overlap:
+            qin = sum(1.0 / q * unitcheck(x) for (x, q) in draws)
+            return logvol, qin / qsum
+        return logvol
+
+    def update(self, points, rstate=None, bootstrap=0, pool=None,
+               mc_integrate=False, use_clustering=True):
         """Refit the kernel covariance (from re-centred single-linkage
-        clusters) and the common radius (leave-one-out NN distances, or
-        the worst of ``bootstrap`` bootstrap NN distances, on the host or
-        over ``pool``)."""
-        self._set_cov(np.atleast_2d(self._covariance_from_clusters(points)))
+        clusters, or of the points as they are without
+        ``use_clustering``) and the common radius (leave-one-out NN
+        distances, or the worst of ``bootstrap`` bootstrap NN distances, on
+        the host or over ``pool``); ``mc_integrate`` sets ``funit``."""
+        cov = self._covariance_from_clusters(points) if use_clustering \
+            else np.cov(points, rowvar=False)
+        self._set_cov(np.atleast_2d(cov))
         points_t = points @ self.axes_inv
         if bootstrap == 0:
             radii = _friends_leaveoneout_radius(points_t, self.ftype,
@@ -387,6 +542,9 @@ class _FriendsBase(Bound):
         self.axes_inv /= rmax
         self.ctrs = np.array(points)
         self.logvol = self._kernel_logvol()
+        if mc_integrate:
+            self.funit = self.monte_carlo_logvol(rstate=rstate,
+                                                 return_overlap=True)[1]
 
     def _covariance_from_clusters(self, points):
         """Covariance of points re-centred on their single-linkage
@@ -414,6 +572,9 @@ class RadFriends(_FriendsBase):
 
     ftype = "balls"
 
+    def _offset(self, rstate):
+        return randsphere(self.ndim, rstate)
+
     def _norm(self, dx_t, axis=None):
         return np.linalg.norm(dx_t, axis=axis)
 
@@ -422,6 +583,9 @@ class SupFriends(_FriendsBase):
     """Union of identical n-cubes centred on the live points."""
 
     ftype = "cubes"
+
+    def _offset(self, rstate):
+        return rstate.random(self.ndim) * 2.0 - 1.0
 
     def _norm(self, dx_t, axis=None):
         return np.abs(dx_t).max(axis=axis)
@@ -860,12 +1024,15 @@ def _connected_components(adjacency):
 
 
 def get_bound(bound, ndim, device=None):
-    """Resolve a bound name (or a Bound instance) to an instance;
-    ``device`` is where friends bounds take their NN distances."""
+    """Resolve a bound name or a Bound instance to the instance a sampler
+    refits; ``device`` is where friends bounds take their NN distances.
+    An instance is a template: each sampler gets its own deep copy of it,
+    so that no sampler's refit moves another's bound (nor the caller's
+    object)."""
     if isinstance(bound, Bound):
-        if bound.device_spec() is None:
-            raise NotImplementedError("custom bounds (a Bound without a "
-                                      "device_spec) are not yet ported")
+        bound = copy.deepcopy(bound)
+        if isinstance(bound, _FriendsBase) and device is not None:
+            bound.device = device
         return bound
     if bound == "none":
         return UnitCube(ndim)

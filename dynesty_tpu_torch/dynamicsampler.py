@@ -368,6 +368,15 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
     return batch_sampler, ncall, niter, logl_min, logl_max
 
 
+def _take_scales(run, sampler):
+    """Give the records that ``run`` holds of ``sampler`` (its first ones,
+    in order) the scale ``sampler`` saved for them: the records of a
+    dispatch that was interrupted take the scale of the whole dispatch
+    once it is over."""
+    n = len(run["scale"])
+    run["scale"][:] = sampler.saved_run["scale"][:n]
+
+
 class DynamicSampler:
     """Adaptive-allocation nested sampler on ``device`` (reference
     ``dynamicsampler.py:625``)."""
@@ -377,12 +386,15 @@ class DynamicSampler:
                  bound_update_interval_ratio=None, first_bound_update=None,
                  bound_bootstrap=0, bound_enlarge=1.0,
                  rounds_per_dispatch=None, proposal_mode="batch",
-                 dtype=torch.float64, blob=False):
+                 dtype=torch.float64, blob=False, cite=None):
         self.device = torch.device(device)
         self.loglikelihood = loglikelihood
         self.blob = bool(blob)
+        self.cite = cite or ""
         self.ndim = ndim
         self.ncdim = ncdim or ndim
+        # a name, or a user's Bound as a template of which every inner
+        # sampler refits its own copy (bounding.get_bound)
         self.bounding = bounding
         # a template: every inner sampler gets a fresh instance of it, so
         # that no tuning state passes from one run or batch to the next
@@ -442,24 +454,24 @@ class DynamicSampler:
 
     @classmethod
     def create(cls, loglikelihood, prior_transform, ndim, nlive=500,
-               bound="multi", sample="auto", *, device="cuda",
-               periodic=None, reflective=None, update_interval=None,
-               first_update=None, rstate=None, queue_size=None,
-               logl_args=None, logl_kwargs=None, ptform_args=None,
-               ptform_kwargs=None, enlarge=None, bootstrap=None, walks=None,
-               facc=0.5, slices=None, ncdim=None, blob=False,
-               likelihood_mode="torch", rounds_per_dispatch=None,
-               proposal_mode="batch", dtype=torch.float64, pool=None,
-               use_pool=None, save_evaluation_history=False,
-               history_filename=None):
+               bound="multi", sample="auto", periodic=None, reflective=None,
+               update_interval=None, first_update=None, rstate=None,
+               queue_size=None, pool=None, use_pool=None, logl_args=None,
+               logl_kwargs=None, ptform_args=None, ptform_kwargs=None,
+               enlarge=None, bootstrap=None, walks=None, facc=0.5,
+               slices=None, ncdim=None, blob=False, likelihood_mode="torch",
+               rounds_per_dispatch=None, proposal_mode="batch",
+               dtype=torch.float64, mesh=None,
+               save_evaluation_history=False, history_filename=None, *,
+               device="cuda"):
         """Factory with the ``DynamicNestedSampler`` signature."""
         from .dynesty import _common_init
         cfg = _common_init(loglikelihood, prior_transform, ndim, nlive,
-                           sample, device, periodic, reflective,
+                           bound, sample, device, periodic, reflective,
                            walks, facc, slices, ncdim, blob, likelihood_mode,
                            pool, queue_size, rstate, logl_args, logl_kwargs,
                            ptform_args, ptform_kwargs, enlarge, bootstrap,
-                           update_interval, first_update, dtype,
+                           update_interval, first_update, dtype, mesh,
                            use_pool=use_pool,
                            save_evaluation_history=save_evaluation_history,
                            history_filename=history_filename)
@@ -472,7 +484,8 @@ class DynamicSampler:
                    bound_bootstrap=cfg["bootstrap"],
                    bound_enlarge=cfg["enlarge"],
                    rounds_per_dispatch=rounds_per_dispatch,
-                   proposal_mode=proposal_mode, dtype=dtype, blob=blob)
+                   proposal_mode=proposal_mode, dtype=dtype, blob=blob,
+                   cite=cfg["cite"]("dynamic"))
         obj.pool = pool
         obj.use_pool = cfg["use_pool"]
         if pool is not None:
@@ -498,7 +511,7 @@ class DynamicSampler:
             rounds_per_dispatch=self.rounds_per_dispatch,
             rounds_explicit=self.rounds_explicit,
             proposal_mode=self.proposal_mode, dtype=self.dtype,
-            blob=self.blob)
+            blob=self.blob, cite=self.cite)
         sampler.pool = self.pool
         sampler.use_pool = self.use_pool
         return sampler
@@ -522,8 +535,8 @@ class DynamicSampler:
         return state
 
     def __setstate__(self, state):
-        # checkpoints written before blobs and pools existed
-        for k, v in (("blob", False), ("use_pool", {})):
+        # checkpoints written before blobs, pools and citations existed
+        for k, v in (("blob", False), ("use_pool", {}), ("cite", "")):
             state.setdefault(k, v)
         self.__dict__ = state
         self.device = torch.device(state["device"])
@@ -578,7 +591,12 @@ class DynamicSampler:
             rounds_per_dispatch=(self.rounds_per_dispatch
                                  if self.rounds_explicit else None),
             proposal_mode=self.proposal_mode, dtype=self.dtype,
-            blob=self.blob)
+            blob=self.blob, cite=self.cite)
+
+    @property
+    def citations(self):
+        """The references of this configuration, printable."""
+        return self.cite
 
     @property
     def results(self):
@@ -703,6 +721,8 @@ class DynamicSampler:
                                  delta_logz=results.delta_logz,
                                  proposal_stats=results.proposal_stats)
 
+        for run in (self.base_run, self.saved_run):
+            _take_scales(run, self.sampler)
         self._bill_unyielded(self.sampler)
         self.internal_state = DynamicSamplerStatesEnum.INBASEADDLIVE
         for it, results in enumerate(self.sampler.add_live_points()):
@@ -837,6 +857,7 @@ class DynamicSampler:
                                       delta_logz=results.delta_logz,
                                       proposal_stats=results.proposal_stats)
 
+        _take_scales(self.new_run, batch_sampler)
         if batch_sampler.interrupted_budget and iterated_batch:
             # maxiter/maxcall stopped the batch mid-flight: SUSPEND
             # instead of truncating.  The batch sampler (with its
@@ -1066,7 +1087,7 @@ class DynamicSampler:
                               RuntimeWarning)
                 return
 
-        print_func = get_print_func(print_func, print_progress)
+        pbar, print_func = get_print_func(print_func, print_progress)
         self.checkpoint_timer = DelayTimer(checkpoint_every)
         results = None
         t_run0 = time.perf_counter()
@@ -1138,6 +1159,8 @@ class DynamicSampler:
                 self.save(checkpoint_file)
         finally:
             self.timings_closed.add("total", time.perf_counter() - t_run0)
+            if pbar is not None:
+                pbar.close()
             self.loglikelihood.finalize_history()
             if print_progress:
                 sys.stderr.write("\n")
@@ -1178,37 +1201,41 @@ class DynamicSampler:
         if maxcall <= 0 or maxiter <= 0:
             raise RuntimeError("add_batch called with no remaining calls "
                                "or iterations")
-        print_func = get_print_func(print_func, print_progress)
+        pbar, print_func = get_print_func(print_func, print_progress)
         results = None
         t_batch0 = time.perf_counter()
-        for cur in self.sample_batch(nlive_new=nlive, dlogz=dlogz,
-                                     logl_bounds=logl_bounds,
-                                     maxiter=maxiter, maxcall=maxcall,
-                                     save_bounds=save_bounds,
-                                     resume=resume):
-            if cur.worst >= 0:
-                ncall += cur.nc
-                niter += 1
-            # a record's blob is the batch run's row just appended
-            blob = self.new_run["blob"][-1] if cur.worst >= 0 and \
-                self.new_run is not None else None
-            results = IteratorResult(
-                worst=cur.worst, ustar=cur.ustar, vstar=cur.vstar,
-                loglstar=cur.loglstar, blob=blob, logvol=np.nan,
-                logwt=np.nan, logz=logz, logzvar=logzvar, h=np.nan,
-                nc=cur.nc, worst_it=cur.worst_it, boundidx=cur.boundidx,
-                bounditer=cur.bounditer, eff=cur.eff,
-                delta_logz=cur.delta_logz,
-                proposal_stats=cur.proposal_stats)
-            if print_progress:
-                print_func(results, niter, ncall, nbatch=n + 1,
-                           dlogz=dlogz, stop_val=stop_val,
-                           logl_min=logl_min, logl_max=logl_max)
-            if (checkpoint_file is not None and self.internal_state
-                    not in (DynamicSamplerStatesEnum.INBATCHADDLIVE,
-                            DynamicSamplerStatesEnum.BATCH_DONE)
-                    and timer.is_time()):
-                self.save(checkpoint_file)
+        try:
+            for cur in self.sample_batch(nlive_new=nlive, dlogz=dlogz,
+                                         logl_bounds=logl_bounds,
+                                         maxiter=maxiter, maxcall=maxcall,
+                                         save_bounds=save_bounds,
+                                         resume=resume):
+                if cur.worst >= 0:
+                    ncall += cur.nc
+                    niter += 1
+                # a record's blob is the batch run's row just appended
+                blob = self.new_run["blob"][-1] if cur.worst >= 0 and \
+                    self.new_run is not None else None
+                results = IteratorResult(
+                    worst=cur.worst, ustar=cur.ustar, vstar=cur.vstar,
+                    loglstar=cur.loglstar, blob=blob, logvol=np.nan,
+                    logwt=np.nan, logz=logz, logzvar=logzvar, h=np.nan,
+                    nc=cur.nc, worst_it=cur.worst_it, boundidx=cur.boundidx,
+                    bounditer=cur.bounditer, eff=cur.eff,
+                    delta_logz=cur.delta_logz,
+                    proposal_stats=cur.proposal_stats)
+                if print_progress:
+                    print_func(results, niter, ncall, nbatch=n + 1,
+                               dlogz=dlogz, stop_val=stop_val,
+                               logl_min=logl_min, logl_max=logl_max)
+                if (checkpoint_file is not None and self.internal_state
+                        not in (DynamicSamplerStatesEnum.INBATCHADDLIVE,
+                                DynamicSamplerStatesEnum.BATCH_DONE)
+                        and timer.is_time()):
+                    self.save(checkpoint_file)
+        finally:
+            if pbar is not None:
+                pbar.close()
         # seeding (dyn_seeding) and the batch's rounds together
         self.timings_closed.add("dyn_batch", time.perf_counter() - t_batch0)
 

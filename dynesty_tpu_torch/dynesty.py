@@ -27,8 +27,18 @@ goes on with ``run_nested(resume=True)``; ``save``/``restore`` and
 A checkpoint restores on the device it was written on and raises where
 that is absent, unless ``restore(fname, device='cpu')`` asks otherwise.
 ``DynamicNestedSampler`` takes the same arguments and allocates its live
-points batch by batch (:mod:`.dynamicsampler`).  Custom bounds are not
-yet ported and raise ``NotImplementedError``.
+points batch by batch (:mod:`.dynamicsampler`).  ``bound`` may also be a
+user's :class:`~.bounding.Bound` subclass: without a device export it is
+sampled through its ``samples`` on the host ('unif', static runs only, as
+in the JAX package) or gives the proposals its ``get_random_axes``; each
+sampler refits its own deep copy of it.
+
+Both factories take the JAX package's arguments in its positional order.
+The differences: ``likelihood_mode`` defaults to ``'torch'`` and ``dtype``
+to ``torch.float64``, and ``device`` (keyword only) comes last.  ``mesh``
+is accepted as ``None``; a device mesh is not ported yet and raises
+``NotImplementedError``.  ``citations`` lists the references of the
+chosen configuration.
 """
 
 import torch
@@ -41,6 +51,55 @@ from .sampler import Sampler, initialize_live_points
 from .utils.misc import get_random_generator
 
 __all__ = ["NestedSampler", "DynamicNestedSampler"]
+
+_CORE_REFS = [
+    ("Speagle (2020)", "ui.adsabs.harvard.edu/abs/2020MNRAS.493.3132S"),
+    ("Koposov et al. (2024)", "doi.org/10.5281/zenodo.3348367"),
+]
+_NESTED_REFS = [
+    ("Skilling (2004)", "ui.adsabs.harvard.edu/abs/2004AIPC..735..395S"),
+    ("Skilling (2006)", "projecteuclid.org/euclid.ba/1340370944"),
+]
+_DYNAMIC_REFS = [
+    ("Higson et al. (2019)", "doi.org/10.1007/s11222-018-9844-0"),
+]
+_BOUND_REFS = {
+    "none": [],
+    "single": [("Mukherjee, Parkinson & Liddle (2006)",
+                "ui.adsabs.harvard.edu/abs/2006ApJ...638L..51M")],
+    "multi": [("Feroz, Hobson & Bridges (2009)",
+               "ui.adsabs.harvard.edu/abs/2009MNRAS.398.1601F")],
+    "balls": [("Buchner (2016)",
+               "ui.adsabs.harvard.edu/abs/2014arXiv1407.5459B"),
+              ("Buchner (2017)",
+               "ui.adsabs.harvard.edu/abs/2017arXiv170704476B")],
+    "cubes": [("Buchner (2016)",
+               "ui.adsabs.harvard.edu/abs/2014arXiv1407.5459B"),
+              ("Buchner (2017)",
+               "ui.adsabs.harvard.edu/abs/2017arXiv170704476B")],
+}
+
+
+def _get_citations(nested_type, bound, internal_sampler):
+    """Printable references of a configuration: the code, nested
+    sampling, dynamic sampling for ``nested_type='dynamic'``, the named
+    bound's and the proposal kernel's."""
+    def fmt(refs):
+        return "\n".join(f"{name}: {url}" for name, url in refs)
+
+    blocks = [("Code and Methods", _CORE_REFS),
+              ("Nested Sampling", _NESTED_REFS)]
+    if nested_type == "dynamic":
+        blocks.append(("Dynamic Nested Sampling", _DYNAMIC_REFS))
+    bound_refs = _BOUND_REFS.get(bound if isinstance(bound, str) else "",
+                                 [])
+    if bound_refs:
+        blocks.append(("Bounding Method", bound_refs))
+    sampler_refs = list(getattr(internal_sampler, "citations", []) or [])
+    if sampler_refs:
+        blocks.append(("Sampling Method", sampler_refs))
+    return "\n\n".join(f"{title}:\n{fmt(refs)}" for title, refs in blocks)
+
 
 _DEFAULT_ENLARGE = 1.25
 _DEFAULT_UNIF_BOOTSTRAP = 5
@@ -124,15 +183,21 @@ def _resolve_device(device):
     return device
 
 
-def _common_init(loglikelihood, prior_transform, ndim, nlive, sample,
-                 device, periodic, reflective, walks, facc, slices, ncdim,
-                 blob, likelihood_mode, pool, queue_size, rstate, logl_args,
-                 logl_kwargs, ptform_args, ptform_kwargs, enlarge, bootstrap,
-                 update_interval, first_update, dtype, use_pool=None,
-                 save_evaluation_history=False, history_filename=None):
+def _common_init(loglikelihood, prior_transform, ndim, nlive, bound,
+                 sample, device, periodic, reflective, walks, facc, slices,
+                 ncdim, blob, likelihood_mode, pool, queue_size, rstate,
+                 logl_args, logl_kwargs, ptform_args, ptform_kwargs, enlarge,
+                 bootstrap, update_interval, first_update, dtype, mesh,
+                 use_pool=None, save_evaluation_history=False,
+                 history_filename=None):
     """Argument resolution shared by the static and the dynamic factory:
     the device, the internal sampler, the bound expansion, the wrapped
-    likelihood, the pool flags, the round width and the refit cadence."""
+    likelihood, the pool flags, the round width, the refit cadence and
+    the citations (``cite(kind)``)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh (mesh=) is not ported yet: the lane split over "
+            "several GPUs is parallel/ in ROADMAP.md's Queue 1, item 10")
     device = _resolve_device(device)
     ncdim = ncdim or ndim
     if ncdim != ndim and sample in ("slice", "rslice"):
@@ -172,29 +237,32 @@ def _common_init(loglikelihood, prior_transform, ndim, nlive, sample,
                 rstate=get_random_generator(rstate), queue_size=queue_size,
                 ncdim=ncdim,
                 bound_update_interval=_resolve_update_interval(
-                    update_interval, internal_sampler, nlive))
+                    update_interval, internal_sampler, nlive),
+                cite=lambda kind: _get_citations(kind, bound,
+                                                 internal_sampler))
 
 
 class NestedSampler(Sampler):
     """Static nested sampler factory."""
 
     def __init__(self, loglikelihood, prior_transform, ndim, nlive=500,
-                 bound="multi", sample="auto", *, device="cuda",
-                 periodic=None, reflective=None, update_interval=None,
-                 first_update=None, rstate=None, queue_size=None,
+                 bound="multi", sample="auto", periodic=None,
+                 reflective=None, update_interval=None, first_update=None,
+                 rstate=None, queue_size=None, pool=None, use_pool=None,
                  live_points=None, logl_args=None, logl_kwargs=None,
                  ptform_args=None, ptform_kwargs=None, enlarge=None,
                  bootstrap=None, walks=None, facc=0.5, slices=None,
                  ncdim=None, blob=False, likelihood_mode="torch",
-                 rounds_per_dispatch=None, proposal_mode="batch",
-                 dtype=torch.float64, pool=None, use_pool=None,
-                 save_evaluation_history=False, history_filename=None):
+                 mesh=None, rounds_per_dispatch=None,
+                 proposal_mode="batch", dtype=torch.float64,
+                 save_evaluation_history=False, history_filename=None, *,
+                 device="cuda"):
         cfg = _common_init(loglikelihood, prior_transform, ndim, nlive,
-                           sample, device, periodic, reflective,
+                           bound, sample, device, periodic, reflective,
                            walks, facc, slices, ncdim, blob, likelihood_mode,
                            pool, queue_size, rstate, logl_args, logl_kwargs,
                            ptform_args, ptform_kwargs, enlarge, bootstrap,
-                           update_interval, first_update, dtype,
+                           update_interval, first_update, dtype, mesh,
                            use_pool=use_pool,
                            save_evaluation_history=save_evaluation_history,
                            history_filename=history_filename)
@@ -211,25 +279,26 @@ class NestedSampler(Sampler):
             logvol_init=logvol_init,
             rounds_per_dispatch=rounds_per_dispatch or 8,
             rounds_explicit=rounds_per_dispatch is not None,
-            proposal_mode=proposal_mode, dtype=dtype, blob=blob)
+            proposal_mode=proposal_mode, dtype=dtype, blob=blob,
+            cite=cfg["cite"]("static"))
         self.ncall = init_ncalls
         self.pool = pool
         self.use_pool = cfg["use_pool"]
 
 
 def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
-                         bound="multi", sample="auto", *, device="cuda",
-                         periodic=None, reflective=None,
-                         update_interval=None, first_update=None,
-                         rstate=None, queue_size=None, logl_args=None,
+                         bound="multi", sample="auto", periodic=None,
+                         reflective=None, update_interval=None,
+                         first_update=None, rstate=None, queue_size=None,
+                         pool=None, use_pool=None, logl_args=None,
                          logl_kwargs=None, ptform_args=None,
                          ptform_kwargs=None, enlarge=None, bootstrap=None,
                          walks=None, facc=0.5, slices=None, ncdim=None,
                          blob=False, likelihood_mode="torch",
                          rounds_per_dispatch=None, proposal_mode="batch",
-                         dtype=torch.float64, pool=None, use_pool=None,
+                         dtype=torch.float64, mesh=None,
                          save_evaluation_history=False,
-                         history_filename=None):
+                         history_filename=None, *, device="cuda"):
     """Dynamic nested sampler factory; the arguments are those of
     :class:`NestedSampler` less ``live_points`` (``run_nested`` takes
     them).  The implementation lives in
@@ -238,18 +307,18 @@ def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
     from .dynamicsampler import DynamicSampler
     return DynamicSampler.create(
         loglikelihood, prior_transform, ndim, nlive=nlive, bound=bound,
-        sample=sample, device=device, periodic=periodic,
-        reflective=reflective, update_interval=update_interval,
-        first_update=first_update, rstate=rstate, queue_size=queue_size,
-        logl_args=logl_args, logl_kwargs=logl_kwargs,
+        sample=sample, periodic=periodic, reflective=reflective,
+        update_interval=update_interval, first_update=first_update,
+        rstate=rstate, queue_size=queue_size, pool=pool,
+        use_pool=use_pool, logl_args=logl_args, logl_kwargs=logl_kwargs,
         ptform_args=ptform_args, ptform_kwargs=ptform_kwargs,
         enlarge=enlarge, bootstrap=bootstrap, walks=walks, facc=facc,
         slices=slices, ncdim=ncdim, blob=blob,
         likelihood_mode=likelihood_mode,
         rounds_per_dispatch=rounds_per_dispatch,
-        proposal_mode=proposal_mode, dtype=dtype, pool=pool,
-        use_pool=use_pool, save_evaluation_history=save_evaluation_history,
-        history_filename=history_filename)
+        proposal_mode=proposal_mode, dtype=dtype, mesh=mesh,
+        save_evaluation_history=save_evaluation_history,
+        history_filename=history_filename, device=device)
 
 
 def _dynamic_restore(fname, device=None, pool=None):

@@ -470,7 +470,8 @@ def select_starts(gen, live, logl_col, q, bound_kind, axes_args, dtype,
                   eye_dim=None, loglstar=None):
     """Pick ``q`` start rows among live points above ``loglstar`` (default:
     the live minimum) and per-lane axes from the bound (a volume-weighted
-    ellipsoid choice for ellipsoid stacks)."""
+    ellipsoid choice for ellipsoid stacks; the dispatch's one set of axes,
+    broadcast, for friends and custom bounds)."""
     live_logl = live[:, logl_col]
     if loglstar is None:
         loglstar = live_logl.min()
@@ -486,7 +487,7 @@ def select_starts(gen, live, logl_col, q, bound_kind, axes_args, dtype,
         ell_idx = torch.multinomial(torch.exp(logp - logp.max()), q,
                                     replacement=True, generator=gen)
         axes = axes_args["axes"].to(dtype)[ell_idx]
-    elif bound_kind in ("balls", "cubes"):
+    elif bound_kind in ("balls", "cubes", "custom"):
         a = axes_args["axes"].to(dtype)
         axes = a.expand((q,) + tuple(a.shape))
     else:  # unit cube: identity axes

@@ -6,8 +6,9 @@ likelihood threshold ``loglstar``:
 
 * ``make_unif_round`` — rejection waves drawn uniformly from the unit
   cube, a union of ellipsoids (``make_ellipsoid_refit`` re-fits the stack
-  to the live points before each chained round) or a union of
-  balls/cubes, successes compacted into output slots;
+  to the live points before each chained round), a union of
+  balls/cubes, or a user's bound drawn on the host between waves
+  (``host_sampler``), successes compacted into output slots;
 * ``make_rwalk_round`` — ``walks`` fixed random-walk steps per lane inside
   the lane's scaled ellipsoid (no data-dependent loop, so no host read);
 * ``make_slice_round`` — slice sampling along random axes-transformed
@@ -290,10 +291,12 @@ def make_ellipsoid_refit(ncdim, dtype=torch.float64):
 
 def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
                     ncdim=None, nonbounded=None, max_waves=100000,
-                    timings=None):
+                    timings=None, host_sampler=None):
     """Uniform rejection sampling from the unit cube (``bound_kind``
-    'cube'), a union of ellipsoids ('ellipsoids') or a union of
-    balls/cubes ('balls'/'cubes').
+    'cube'), a union of ellipsoids ('ellipsoids'), a union of
+    balls/cubes ('balls'/'cubes'), or a user's bound ('custom'), whose
+    ``host_sampler()`` gives each wave's ``(q, ncdim)`` points as a host
+    array: a plain call between waves, every lane a draw.
 
     Returns ``fn(gen, loglstar, arrays) -> (packed (q, ndim + npdim + 5),
     blob)`` with columns ``u | v | logl | nc | nc_total | n_proposals |
@@ -303,9 +306,10 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
     bound lives in the first ``ncdim`` dimensions (checked against the
     cube there, loosely where ``nonbounded`` is False); the other
     ``ndim - ncdim`` are drawn uniformly."""
-    if bound_kind not in ("cube", "ellipsoids", "balls", "cubes"):
-        raise NotImplementedError(
-            f"uniform sampling from '{bound_kind}' bounds is not yet ported")
+    if bound_kind not in ("cube", "ellipsoids", "balls", "cubes", "custom"):
+        raise ValueError(f"unknown bound kind '{bound_kind}'")
+    if bound_kind == "custom" and host_sampler is None:
+        raise ValueError("a custom bound needs a host_sampler")
     device = torch.device(device)
     f32 = np.float32
     ncdim = ncdim or ndim
@@ -320,6 +324,9 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
             return u, None
         if bound_kind == "ellipsoids":
             return _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype)
+        if bound_kind == "custom":
+            return torch.as_tensor(np.asarray(host_sampler()), dtype=dtype,
+                                   device=device), None
         return _sample_friends_union(gen, arrays, q, ncdim, dtype,
                                      bound_kind)
 

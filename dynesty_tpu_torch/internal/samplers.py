@@ -288,6 +288,11 @@ class InternalSampler:
         """Per-record proposal_stats from the two lane-stat columns."""
         return {"n_proposals": max(int(a), 1)}
 
+    @property
+    def citations(self):
+        """(name, link) pairs of the method's references."""
+        return []
+
 
 def _unpack_rows(out, ndim, npdim, extra_names, stats_fn, nc_from):
     """Split the output ``(packed (q, W), blob)`` of a round, columns ``u
@@ -342,10 +347,18 @@ def _unif_propose_fn(sampler, ns, bound_kind):
     ncdim = ndim if bound_kind == "cube" else sampler.ncdim
     nonbounded = None if bound_kind == "cube" else \
         sampler.sampler_kwargs.get("nonbounded")
+
+    def host_sampler():
+        # a user's bound may give float64 points outside the cube, or
+        # every dimension where it bounds the first ncdim
+        return np.asarray(ns.bound.samples(q, rstate=ns.rstate))[:, :ncdim]
+
     inner = make_unif_round(like, ndim=ndim, ncdim=ncdim, q=q,
                             bound_kind=bound_kind, nonbounded=nonbounded,
                             dtype=ns.dtype, device=ns.device,
-                            timings=ns.timings)
+                            timings=ns.timings,
+                            host_sampler=host_sampler
+                            if bound_kind == "custom" else None)
     refit = make_ellipsoid_refit(ncdim, dtype=ns.dtype) \
         if bound_kind == "ellipsoids" else None
 
@@ -403,8 +416,10 @@ class UniformBoundSampler(InternalSampler):
     (each re-fitted to the live points on the device first), or the
     sampler's whole ``rounds_per_dispatch`` where the user set it;
     friends bounds take fresh centres from the host every dispatch and
-    run one round.  The chain stops at the first round boundary where
-    the cumulative ncall reaches the host refit cadence (ctrl[21])."""
+    run one round, and so does a custom bound, whose waves draw through
+    its ``samples`` on the host.  The chain stops at the first round
+    boundary where the cumulative ncall reaches the host refit cadence
+    (ctrl[21])."""
 
     name = "unif"
     chain_stop_on_refit_due = True
@@ -427,6 +442,12 @@ class UniformBoundSampler(InternalSampler):
     def propose_round(self, ns, loglstar, q, gen):
         like = ns.loglikelihood
         kind = ns.device_bound_kind()
+        if kind == "custom":
+            # as in the JAX package: the non-fused round (a dynamic
+            # batch's seeding) has no host-sampled form
+            raise RuntimeError(
+                f"Bound {type(ns.bound).__name__} has no device sampling "
+                "spec; use rwalk/rslice/slice with custom bounds.")
         fn = self._cached_round(
             (kind, q),
             lambda: make_unif_round(
@@ -540,6 +561,10 @@ class RWalkSampler(InternalSampler):
         """Per-record proposal_stats from the two lane-stat columns."""
         return {"n_accept": int(a), "n_reject": int(b)}
 
+    @property
+    def citations(self):
+        return [("Skilling (2006)", "projecteuclid.org/euclid.ba/1340370944")]
+
     def tune(self, tuning_info, update=True):
         """Newton-like scale update toward the target acceptance rate
         (the host form of :meth:`device_tune_fn`)."""
@@ -651,6 +676,12 @@ class _SliceBase(InternalSampler):
     def row_stats(self, a, b):
         """Per-record proposal_stats from the two lane-stat columns."""
         return {"n_expand": int(a), "n_contract": int(b)}
+
+    @property
+    def citations(self):
+        return [("Neal (2003)", "projecteuclid.org/euclid.aos/1056562461"),
+                ("Handley, Hobson & Lasenby (2015)",
+                 "ui.adsabs.harvard.edu/abs/2015MNRAS.453.4384H")]
 
     def tune(self, tuning_info, update=True):
         """Multiplicative scale update from the balance of expansions and

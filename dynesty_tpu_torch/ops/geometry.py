@@ -13,7 +13,7 @@ import torch
 __all__ = [
     "unitcheck", "unitcheck_batch", "apply_reflect", "randsphere",
     "randsphere_batch",
-    "logvol_prefactor", "rand_choice", "improve_covar_mat",
+    "logvol_prefactor", "rand_choice", "mle_cov", "improve_covar_mat",
 ]
 
 
@@ -84,6 +84,14 @@ def rand_choice(probs, rstate):
     """Host: index drawn with probabilities ``probs`` (must sum to ~1)."""
     cum = np.cumsum(probs)
     return min(int(np.searchsorted(cum, rstate.random())), len(probs) - 1)
+
+
+def mle_cov(points):
+    """Host: maximum-likelihood (1/N) covariance of points (npoints,
+    ndim)."""
+    points = np.asarray(points, dtype=np.float64)
+    delta = points - points.mean(axis=0)
+    return delta.T @ delta / len(points)
 
 
 def improve_covar_mat(covar0, ntries=100, max_condition_number=1e12):

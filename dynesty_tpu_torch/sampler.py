@@ -143,10 +143,12 @@ class Sampler:
                  bound_update_interval=None, first_bound_update=None,
                  bound_bootstrap=0, bound_enlarge=1.0, logvol_init=0.0,
                  rounds_per_dispatch=1, rounds_explicit=False,
-                 proposal_mode="batch", dtype=torch.float64, blob=False):
+                 proposal_mode="batch", dtype=torch.float64, blob=False,
+                 cite=None):
         f32_precision()
         self.device = torch.device(device)
         self.dtype = dtype
+        self.cite = cite or ""
         self.loglikelihood = loglikelihood
         self.ndim = ndim
         self.ncdim = ncdim or ndim
@@ -258,8 +260,12 @@ class Sampler:
         # cont}
         self._leftover = None
         # remaining rounds of an interrupted dispatch: {key_seed, skip,
-        # rounds, queue_size, refit_due_ncall}
+        # rounds, queue_size, refit_due_ncall}, and under a custom bound
+        # the dispatch's custom_axes
         self._continuation = None
+        # first saved record of an interrupted dispatch: its records take
+        # the scale of the whole dispatch once it is over
+        self._dispatch_rec0 = None
         # evaluations of entries discarded since the last death, at the
         # point where an interrupted dispatch stopped: the device carries
         # this count from entry to entry within a dispatch, the host
@@ -311,9 +317,10 @@ class Sampler:
         return state
 
     def __setstate__(self, state):
-        # checkpoints written before blobs and pools existed
+        # checkpoints written before blobs, pools and citations existed
         for k, v in (("blob", False), ("live_blobs", None),
-                     ("use_pool", {})):
+                     ("use_pool", {}), ("cite", ""),
+                     ("_dispatch_rec0", None)):
             state.setdefault(k, v)
         self.__dict__ = state
         self.device = torch.device(state["device"])
@@ -446,20 +453,24 @@ class Sampler:
 
     def device_bound_kind(self):
         """Bound kind of the device rounds ('cube' before the first
-        update)."""
+        update; 'custom' for a bound without a device export, which is
+        sampled on the host)."""
         if self.unit_cube_sampling:
             return "cube"
         spec = self.bound.device_spec()
-        if spec is None:
-            raise NotImplementedError("custom bounds are not yet ported")
-        return spec[0]
+        return "custom" if spec is None else spec[0]
 
-    def device_bound_arrays(self):
+    def device_bound_arrays(self, spec=None):
         """Device upload of the active bound's arrays, cached per refit.
         Ellipsoid stacks carry ``expand``, the host's latest bootstrap x
         enlarge calibration as a linear factor, for the device refit;
-        friends centres are uploaded anew every dispatch."""
+        friends centres are uploaded anew every dispatch.  A custom bound
+        gives the axes its ``get_random_axes`` drew for the dispatch
+        ``spec`` (a planned dispatch or a continuation)."""
         kind = self.device_bound_kind()
+        if kind == "custom":
+            return bound_arrays_to_torch(
+                kind, {"axes": spec["custom_axes"]}, self.device, self.dtype)
         cached = self._bound_upload
         if cached is None or cached[0] != self.bound_version or \
                 cached[1] != kind:
@@ -561,7 +572,8 @@ class Sampler:
         sampler's counters have moved (a pre-launched dispatch, once those
         exist) still runs the gate it was planned with.  The
         maxiter/maxcall budgets must not shape the dispatch, for the same
-        reason."""
+        reason.  Under a custom bound the spec also holds the axes drawn
+        from the host stream for the dispatch's proposals."""
         self.update_bound_if_needed(max(loglstar, np.float64(LOWL_VAL)),
                                     ncall=self.ncall)
         est = self._estimate_remaining(dlogz_eff, loglstar, logl_max)
@@ -576,10 +588,16 @@ class Sampler:
         else:
             rounds_active = max(1, int(math.ceil(
                 (min(est, 2**30) + q // 2) / q)))
-        return {"key_seed": int(self.rstate.integers(0, 2**63 - 1)),
+        spec = {"key_seed": int(self.rstate.integers(0, 2**63 - 1)),
                 "queue_size": q, "rounds_active": rounds_active,
                 "refit_due_ncall":
                     self.internal_sampler._refit_due_ncall(self)}
+        if self.device_bound_kind() == "custom":
+            # the dispatch's axes are part of its plan: a continuation of
+            # the dispatch runs with them and draws none of its own
+            spec["custom_axes"] = np.asarray(
+                self.bound.get_random_axes(self.rstate))
+        return spec
 
     # ------------------------------------------------------------------
     # proposal queue (non-fused rounds)
@@ -630,6 +648,11 @@ class Sampler:
         if len(logwt) == 0 or np.max(logwt) == -np.inf:
             return 0
         return get_neff_from_logwt(logwt)
+
+    @property
+    def citations(self):
+        """The references of this configuration, printable."""
+        return self.cite
 
     @property
     def results(self):
@@ -802,7 +825,8 @@ class Sampler:
                 upload_live()
                 out, live_out, blob_out = self.internal_sampler.run_fused(
                     self, cont["key_seed"], self._live_dev,
-                    self._live_blob_dev, self.device_bound_arrays(), integ,
+                    self._live_blob_dev, self.device_bound_arrays(cont),
+                    integ,
                     limits,
                     rounds_active=cont["rounds"], rounds_skip=cont["skip"],
                     refit_due_ncall=cont["refit_due_ncall"])
@@ -824,7 +848,7 @@ class Sampler:
                     bounditer = 0 if self.unit_cube_sampling \
                         else self.nbound - 1
                 self.queue_size = spec["queue_size"]
-                axes_args = self.device_bound_arrays()
+                axes_args = self.device_bound_arrays(spec)
                 upload_live()
                 t0 = time.perf_counter()
                 handle = self.internal_sampler.launch_fused(
@@ -888,6 +912,8 @@ class Sampler:
                             "queue_size": qr,
                             "refit_due_ncall":
                                 dispatch_spec["refit_due_ncall"]}
+                    if "custom_axes" in dispatch_spec:
+                        cont["custom_axes"] = dispatch_spec["custom_axes"]
                 if len(props):
                     kept_nc = int(props[:, nc_col].sum())
                     # births of the refills made while replaying the tail:
@@ -964,8 +990,20 @@ class Sampler:
             else:
                 self._nc_accum_carry += nc_round
 
+            rec0 = len(self.saved_run.D["scale"])
             n_new = self._append_records(out, bounditer, extra_nc, carry_in,
                                          per_dispatch)
+            if self._leftover is not None or self._continuation is not None:
+                if self._dispatch_rec0 is None:
+                    self._dispatch_rec0 = rec0
+            elif self._dispatch_rec0 is not None:
+                # as in the uninterrupted run, every record of the dispatch
+                # carries the scale after its last round
+                scales = self.saved_run.D["scale"]
+                scales[self._dispatch_rec0:] = \
+                    [self.internal_sampler.scale] * \
+                    (len(scales) - self._dispatch_rec0)
+                self._dispatch_rec0 = None
             if per_dispatch:
                 pending_block = IteratorBlock(n=n_new, nc=pending_block.nc)
             self.timings.add("consume", time.perf_counter() - t_cons0)
@@ -1125,7 +1163,7 @@ class Sampler:
             return
         if dlogz is None:
             dlogz = 1e-3 * (self.nlive - 1.0) + 0.01 if add_live else 0.01
-        print_func = get_print_func(print_func, print_progress)
+        pbar, print_func = get_print_func(print_func, print_progress)
         if checkpoint_file is not None:
             timer = DelayTimer(checkpoint_every)
         t_run0 = time.perf_counter()
@@ -1163,6 +1201,8 @@ class Sampler:
                 self.save(checkpoint_file)
         finally:
             self.timings.add("total", time.perf_counter() - t_run0)
+            if pbar is not None:
+                pbar.close()
             self.loglikelihood.finalize_history()
             if print_progress:
                 sys.stderr.write("\n")

@@ -7,7 +7,9 @@ without its mesh part.  Serves the static ``Sampler`` and the
 
 The sampler's state is host data (numpy arrays, Python scalars, the run
 record, integer seeds of the device generators), so pickling is exact and
-a resumed run is bit-identical to the uninterrupted one.  Device tensors
+a resumed run is bit-identical to the uninterrupted one.  A user's bound
+is pickled with it, live and in ``bound_list``, by reference to its class,
+which must be importable where the checkpoint is restored.  Device tensors
 are never written: the sampler mirrors its live points to the host first
 and stores its device by name.  A pool is never written (its workers
 belong to one process): ``restore_sampler(..., pool=)`` attaches one to

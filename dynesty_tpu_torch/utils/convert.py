@@ -36,10 +36,11 @@ def live_to_torch(live_packed, device, dtype=torch.float64, ndim=None,
 
 
 def bound_arrays_to_torch(kind, arrays, device, dtype=torch.float64):
-    """A bound's ``device_spec()`` arrays as the device dict the fused
-    rounds take.  Ellipsoid stacks are padded to a power of two with a
-    validity mask; an optional scalar ``expand`` (the linear bootstrap x
-    enlarge factor of the device refit) is carried as a 0-d tensor."""
+    """A bound's ``device_spec()`` arrays (or a custom bound's ``axes``)
+    as the device dict the fused rounds take.  Ellipsoid stacks are padded
+    to a power of two with a validity mask; an optional scalar ``expand``
+    (the linear bootstrap x enlarge factor of the device refit) is carried
+    as a 0-d tensor."""
     if kind == "cube":
         return {}
     if kind == "ellipsoids":
@@ -65,7 +66,16 @@ def bound_from_arrays(kind, ndim, arrays, device=None):
     multi-ellipsoid bound; ``'balls'``/``'cubes'`` take ``cov``, ``am``,
     ``axes``, ``axes_inv``, ``ctrs`` (the attributes of the JAX package's
     bounds).  An optional ``logvol`` is carried as is; otherwise it is
-    recomputed."""
+    recomputed.  A custom bound (a user's subclass of the JAX package's
+    ``Bound``, kind ``'custom'``) has no arrays to carry and is refused:
+    give the port an instance of the same class written on the port's
+    :class:`~dynesty_tpu_torch.bounding.Bound`."""
+    if kind not in ("ellipsoids", "multi", "balls", "cubes"):
+        raise ValueError(
+            f"cannot convert a bound of kind '{kind}': only the built-in "
+            "bounds carry over; a custom bound (a subclass of the JAX "
+            "package's Bound) must be written again on "
+            "dynesty_tpu_torch.bounding.Bound")
     if kind == "ellipsoids":
         bound = Ellipsoid(ndim, ctr=arrays["ctr"], cov=arrays["cov"],
                           am=arrays["am"], axes=arrays["axes"])

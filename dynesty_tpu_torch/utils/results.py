@@ -101,6 +101,11 @@ class Results:
     def __contains__(self, key):
         return key in self._keys
 
+    def __repr__(self):
+        width = max(map(len, self._keys)) + 1
+        return "\n".join(k.rjust(width) + ": " + repr(getattr(self, k))
+                         for k in self._keys)
+
     def keys(self):
         return self._keys
 

@@ -89,10 +89,15 @@ def test_bound_state_carried_across(kind):
 
 
 def test_unported_bounds_raise():
-    # a custom bound (no device export) is not ported; every named bound
-    # is, bootstrap included
-    with pytest.raises(NotImplementedError):
-        tb.get_bound(tb.Bound(NDIM), NDIM)
+    # every bound is ported, a custom one (no device export) included: an
+    # instance resolves to a deep copy of itself, a friends instance takes
+    # the sampler's device; only an unknown name is refused
+    user = tb.Bound(NDIM)
+    got = tb.get_bound(user, NDIM)
+    assert type(got) is tb.Bound and got is not user
+    assert got.device_spec() is None and got.funit == 1.0
+    friends = tb.get_bound(tb.RadFriends(NDIM), NDIM, device="cpu")
+    assert friends.device == "cpu"
     with pytest.raises(ValueError, match="Unknown bound"):
         tb.get_bound("ellipse", NDIM)
     assert isinstance(tb.get_bound("multi", NDIM), tb.MultiEllipsoid)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynesty_tpu_torch.bounding import Bound
 from dynesty_tpu_torch.ops import build
 from dynesty_tpu_torch.ops import hopper_kernels as hk
 
@@ -310,7 +311,7 @@ def test_cuda_resume_bit_identical(cuda, bound, sample, tmp_path):
     assert s2.timings["n_replay"] >= 1
     a, b = s2.results, full.results
     assert a.niter == b.niter and s2.ncall == full.ncall
-    for k in ("logl", "logz", "samples", "ncall", "samples_u"):
+    for k in ("logl", "logz", "samples", "ncall", "samples_u", "scale"):
         assert np.array_equal(a[k], b[k]), k
     # the same checkpoint goes on on the CPU when asked to
     s3 = dyt.NestedSampler.restore(fname, device="cpu")
@@ -422,7 +423,7 @@ def test_cuda_dynamic_resume_bit_identical(cuda, tmp_path):
     a, b = d2.results, full.results
     assert a.niter == b.niter and d2.ncall == full.ncall and d2.batch == 2
     for k in ("logl", "logz", "samples", "samples_batch", "ncall",
-              "batch_logl_bounds"):
+              "batch_logl_bounds", "scale"):
         assert np.array_equal(a[k], b[k]), k
     d3 = dyt.DynamicNestedSampler.restore(fname, device="cpu")
     assert {x.device.type for x in (d3, d3.sampler, d3.batch_sampler,
@@ -544,7 +545,7 @@ def test_cuda_blob_host_mode_resume_bit_identical(cuda, tmp_path):
     s2.run_nested(print_progress=False, resume=True)
     a, b = s2.results, full.results
     assert a.niter == b.niter and s2.ncall == full.ncall
-    for k in ("logl", "logz", "samples", "ncall"):
+    for k in ("logl", "logz", "samples", "ncall", "scale"):
         assert np.array_equal(a[k], b[k]), k
     assert np.array_equal(np.array(a.blob), np.array(b.blob))
 
@@ -552,3 +553,90 @@ def test_cuda_blob_host_mode_resume_bit_identical(cuda, tmp_path):
 def _np_blob_loglike(x):
     logl = np_normal_loglike(x)
     return logl, np.array([logl, x[0]])
+
+
+# --------------------------------------------------------------------------
+# a user's bound
+
+
+class CardBox(Bound):
+    """An axis-aligned box around the live points, sampled on the host
+    (module level, so that a sampler over it pickles)."""
+
+    def __init__(self, ndim):
+        super().__init__(ndim)
+        self.cen = np.zeros(ndim) + 0.5
+        self.size = 0.5
+
+    def contains(self, x):
+        return bool((np.abs(x - self.cen) < self.size).all())
+
+    def samples(self, nsamples, rstate=None):
+        lo = np.maximum(self.cen - self.size, 0)
+        hi = np.minimum(self.cen + self.size, 1)
+        return rstate.uniform(lo, hi, size=(nsamples, self.ndim))
+
+    def get_random_axes(self, rstate):
+        return np.eye(self.ndim) * self.size
+
+    def scale_to_logvol(self, logvol):
+        self.size = np.exp(logvol / self.ndim)
+
+    def update(self, points, rstate=None, bootstrap=0, pool=None):
+        self.cen = points.mean(axis=0)
+        self.size = np.abs(points - self.cen).max() * 2
+        self.logvol = np.log(self.size) * self.ndim
+
+
+def _box_sampler(device=None):
+    import dynesty_tpu_torch as dyt
+
+    kw = {} if device is None else {"device": device}
+    return dyt.NestedSampler(normal_loglike, box_ptform, 3, nlive=200,
+                             bound=CardBox(3), sample="unif",
+                             queue_size=64, rstate=get_rstate(56432), **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_custom_bound_run_reproducible(cuda):
+    runs = []
+    for _ in range(2):
+        s = _box_sampler()
+        assert s.device.type == "cuda"
+        s.run_nested(print_progress=False)
+        assert s.device_bound_kind() == "custom"
+        runs.append(s)
+    a, b = runs[0].results, runs[1].results
+    assert a.niter == b.niter and runs[0].ncall == runs[1].ncall
+    for k in ("logl", "logz", "samples", "ncall"):
+        assert np.array_equal(a[k], b[k]), k
+    truth = 1.5 * math.log(2.0 * math.pi) - 3 * math.log(20.0)
+    assert abs(a.logz[-1] - truth) < 4 * a.logzerr[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_cuda_custom_bound_resume_bit_identical(cuda, device, tmp_path):
+    """custom-unif stopped, saved, restored and resumed equals the
+    uninterrupted run bit for bit: on the card, and on the CPU
+    (``device='cpu'``) for a run made there."""
+    import dynesty_tpu_torch as dyt
+
+    full = _box_sampler(device)
+    full.run_nested(print_progress=False)
+    s = _box_sampler(device)
+    s.run_nested(print_progress=False, maxiter=full.results.niter // 2,
+                 add_live=False)
+    assert s.interrupted_budget
+    fname = str(tmp_path / "box.pkl")
+    s.save(fname)
+    del s
+    s2 = dyt.NestedSampler.restore(fname, device=device)
+    assert s2.device.type == (device or "cuda")
+    s2.run_nested(print_progress=False, resume=True)
+    a, b = s2.results, full.results
+    assert a.niter == b.niter and s2.ncall == full.ncall
+    for k in ("logl", "logz", "samples", "ncall", "samples_u", "scale"):
+        assert np.array_equal(a[k], b[k]), k
+    for x, y in zip(a.bound[1:], b.bound[1:]):
+        assert np.array_equal(x.cen, y.cen) and x.size == y.size

@@ -624,8 +624,9 @@ def test_estimate_remaining_in_a_bracket():
 
 
 def test_dynamic_progress_line(monkeypatch):
-    """The plain printer with the dynamic arguments, at a pinned terminal
-    width."""
+    """The width-adaptive printer with the dynamic arguments, at a pinned
+    terminal width: the long tier, a batch's stopping value in place of
+    the dlogz margin."""
     monkeypatch.setattr(shutil, "get_terminal_size",
                         lambda fallback=None: os.terminal_size((200, 20)))
     res = tmisc.IteratorResult(
@@ -638,9 +639,9 @@ def test_dynamic_progress_line(monkeypatch):
         tmisc.print_fn_fallback(res, 10, 80, nbatch=2, dlogz=0.01,
                                 stop_val=1.234, logl_min=-3.0, logl_max=-1.0)
     line = buf.getvalue()
-    assert line == ("\riter: 10 | batch: 2 | nc: 3 | ncall: 80 | eff(%): "
-                    "12.500 | loglstar: -3.000 < -2.500 < -1.000 | logz: "
-                    "-9.000 +/- 0.200 | dlogz: 0.500 > 0.010 | stop: 1.234")
+    assert line == ("\riter: 10 | batch: 2 | bound: 0 | nc: 3 | ncall: 80 "
+                    "| eff(%): 12.500 | loglstar: -3.000 < -2.500 < -1.000 "
+                    "| logz: -9.000 +/-  0.200 | stop:  1.234")
     monkeypatch.setattr(shutil, "get_terminal_size",
                         lambda fallback=None: os.terminal_size((50, 20)))
     buf = io.StringIO()
@@ -686,12 +687,16 @@ def test_bench_25d_configuration_capped():
 
 
 def test_dynamic_factory_refuses_what_is_not_ported(monkeypatch):
-    # a custom bound is the one argument not yet ported
-    with pytest.raises(NotImplementedError):
-        d = dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
-                                     bound=dyt.bounding.Bound(NDIM),
-                                     device="cpu")
-        d.run_nested(maxbatch=0, print_progress=False)
+    # a device mesh is the one argument not yet ported; a custom bound is
+    # taken (dynamic 'unif' over one is refused at the first batch's
+    # seeding, as in the JAX package: test_torch_custom_bound.py)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
+                                 mesh=object(), device="cpu")
+    d = dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
+                                 bound=dyt.bounding.Bound(NDIM),
+                                 device="cpu")
+    assert isinstance(d.bounding, dyt.bounding.Bound)
     with pytest.raises(ValueError, match="device"):
         dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM, device=None)
     # the card is the default; without CUDA it raises and never falls back
@@ -881,7 +886,7 @@ def test_dynamic_ncall_is_exact(bound, sample):
 _EXACT_KEYS = ("logl", "logz", "logzerr", "logwt", "logvol", "samples",
                "samples_u", "samples_batch", "samples_n", "samples_it",
                "samples_id", "samples_birth", "ncall", "batch_nlive",
-               "batch_logl_bounds", "information")
+               "batch_logl_bounds", "information", "scale")
 
 
 def _assert_same_run(a, b):

@@ -82,7 +82,7 @@ def _full(bound, sample, mode):
 
 KEYS = ("logz", "logzerr", "logl", "logvol", "logwt", "samples",
         "samples_u", "samples_it", "samples_id", "samples_n",
-        "samples_birth", "ncall")
+        "samples_birth", "ncall", "scale")
 
 
 def _assert_same(resumed, full):

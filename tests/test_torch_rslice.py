@@ -97,7 +97,27 @@ def test_unported_kernels_raise():
     with pytest.raises(ValueError, match="slice kind"):
         make_slice_round(like, ndim=2, q=8, slices=2, kind="hslice",
                          dtype=torch.float64, device="cpu")
-    # host-sampled custom bounds are not ported
-    with pytest.raises(NotImplementedError):
+    # a custom bound's waves draw through its host sampler, which the
+    # round cannot do without; an unknown kind is refused
+    with pytest.raises(ValueError, match="host_sampler"):
         make_unif_round(like, ndim=2, q=8, bound_kind="custom",
                         dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="unknown bound kind"):
+        make_unif_round(like, ndim=2, q=8, bound_kind="hull",
+                        dtype=torch.float64, device="cpu")
+    rstate = get_rstate()
+    draws = []
+
+    def host_sampler():
+        draws.append(rstate.uniform(0.25, 0.75, size=(8, 2)))
+        return draws[-1]
+
+    fn = make_unif_round(like, ndim=2, q=8, bound_kind="custom",
+                         dtype=torch.float64, device="cpu",
+                         host_sampler=host_sampler)
+    packed, _ = fn(torch_generator(7, "cpu"), -1e30, {})
+    u = packed[:, :2].numpy()
+    # every filled slot is a host draw inside the diamond, in draw order
+    flat = np.concatenate(draws)
+    inside = np.abs(flat - 0.5).sum(axis=1) < 0.5
+    assert np.array_equal(u, flat[inside][:8])

@@ -100,27 +100,36 @@ def test_single_rslice_reproducible():
 
 
 def test_progress_printing_path(capsys):
+    # the default printer is a tqdm bar where tqdm is installed (its
+    # counter in place of the iter field), else the stderr line
+    try:
+        import tqdm  # noqa: F401
+        counter = "it/s"
+    except ImportError:
+        counter = "iter:"
     s = _torch_sampler(64, "single", queue_size=16)
     s.run_nested(print_progress=True, maxiter=200)
     err = capsys.readouterr().err
-    assert "iter:" in err and "logz:" in err
+    assert counter in err and "logz:" in err
     assert s.results.niter >= 200
 
 
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="device"):
         dyt.NestedSampler(lambda x: x.sum(), lambda u: u, 2, device=None)
-    # only a custom bound is still refused
-    with pytest.raises(NotImplementedError):
-        dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
-                          bound=dyt.bounding.Bound(2), sample="unif",
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        # the dynamic factory builds its bound with its first sampler
-        d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2,
-                                     nlive=20, bound=dyt.bounding.Bound(2),
-                                     sample="unif", device="cpu")
-        d.run_nested(maxbatch=0, print_progress=False)
+    # a custom bound is taken by both factories; a device mesh is the one
+    # argument still refused
+    user = dyt.bounding.Bound(2)
+    s = dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                          bound=user, sample="unif", device="cpu")
+    assert s.bounding is user and s.bound_next is not user
+    d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                                 bound=user, sample="unif", device="cpu")
+    assert d.bounding is user
+    for factory in (dyt.NestedSampler, dyt.DynamicNestedSampler):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            factory(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                    mesh=object(), device="cpu")
     # blobs, host mode, a pool and the history arguments are taken by both
     # factories; a host-mode round over a pool of two is 32 wide
     class TwoJobs:
@@ -166,6 +175,10 @@ def test_import_leaves_jax_out():
             "pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             "assert 'dynesty_tpu_torch.utils.checkpoint' in sys.modules; "
             "assert 'dynesty_tpu_torch.pool' in sys.modules; "
+            "assert {'dynesty_tpu_torch.plotting', "
+            "'dynesty_tpu_torch.results', "
+            "'dynesty_tpu_torch.internal_samplers', "
+            "'dynesty_tpu_torch.utils'} <= set(sys.modules); "
             "assert 'jax' not in sys.modules; "
             "assert 'dynesty_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
