@@ -90,12 +90,35 @@ Phases, in order; any failure raises and exits non-zero:
     RadFriends bound of the card run through 5,000 host draws.  Where
     matplotlib is not installed the draws and their checks still run and
     the line says that no figure was drawn.
-24. Device-only times (profiler kernel durations) of every comparison,
+24. eggbox: the JAX package's eggbox baseline row
+    (``examples/baseline_suite.py``): ``Eggbox()`` from
+    ``dynesty_tpu_torch.models``, nlive 1000, multi / unif, width 256,
+    dlogz 0.01.  Gate: the evidence within 5 logzerr; no kernel launch.
+25. shells: the Gaussian-shells row, ``GaussianShells()``, the same
+    sampler with dlogz 0.05, the same gate.
+26. eggbox-balls: ``Eggbox()`` under ``bound='balls', sample='rslice',
+    nlive=2048``: every refit launches the exact L2 path and is held
+    against the plain version; the evidence within 5 logzerr.
+27. priors: a ``PriorTransform`` of the six priors (``Beta(2, 5)`` among
+    them) on 2^20 seeded uniforms on the card, against scipy's quantiles
+    (1e-8 absolute); ``_betainc`` on the card against its CPU value and
+    ``scipy.special.betainc`` (1e-10 absolute); ms per million points.
+28. mesh-balls: phase 3's drive with ``mesh=make_mesh()`` (the one card):
+    equal to phase 3's run bit for bit (niter, ncall, logl, logz,
+    samples, scale) with the same launches, every lane of the last
+    dispatch on the card, and a mesh of more devices than the machine
+    has refused.
+29. mesh-dynamic3: phase 13's drive with the mesh: equal to it bit for
+    bit (records, batches, ncall), no kernel launched.
+30. scaling: ``scaling_report(..., q=4096, sizes=(1,))`` for the 3-D
+    Gaussian and the heavy likelihood: evaluations/s of the one card.
+31. Device-only times (profiler kernel durations) of every comparison,
     and of one 256-lane evaluation of the heavy likelihood.
 
-Each dynamic, blob, host, pool, custom and plot phase prints one JSON
-line of its own.  The line before the last is a JSON object of the
-kernels; the last line is ``{"ok": true, "device": {...}}``.
+Each dynamic, blob, host, pool, custom, plot, model, prior, mesh and
+scaling phase prints one JSON line of its own.  The line before the last
+is a JSON object of the kernels; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import argparse
@@ -854,6 +877,227 @@ def plots_phase(dyt, balls_res, dyn_res):
     return out
 
 
+# the JAX package's baseline rows (examples/baseline_suite.py): a problem
+# from dynesty_tpu_torch.models, nlive 1000, multi / unif, width 256, at
+# the row's dlogz, gated at 5 logzerr
+MODEL_ROWS = (("eggbox", "Eggbox", 0.01), ("shells", "GaussianShells", 0.05))
+# the priors phase: one prior of each kind, on this many seeded uniforms
+PRIOR_POINTS = 2 ** 20
+BETAINC_AB = (0.5, 1.0, 2.0, 5.0, 30.0)
+
+
+def model_drive(dyt, models, hk, cls_name, dlogz):
+    """One baseline row on the card's default device: its evidence within
+    5 logzerr of the truth, no NN-kernel launch."""
+    prob = getattr(models, cls_name)()
+    _zero_counts(hk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = dyt.NestedSampler(
+        prob.loglike, prob.ptform, prob.ndim, nlive=1000, bound="multi",
+        sample="unif", queue_size=256,
+        rstate=np.random.Generator(np.random.PCG64(SEED)))
+    if sampler.device.type != "cuda":
+        raise RuntimeError(f"the default device is {sampler.device}")
+    sampler.run_nested(print_progress=False, dlogz=dlogz)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = _summary(sampler, wall, prob.logz_truth, dlogz=dlogz,
+                 problem=cls_name)
+    s["launches"] = _counts(hk)
+    s["pull"] = (s["logz"] - s["truth"]) / s["logzerr"]
+    res = sampler.results
+    if not (np.isfinite(s["logz"]) and s["logzerr"] > 0 and
+            abs(s["pull"]) < 5 and np.all(np.isfinite(res.logwt)) and
+            int(np.sum(res.ncall)) == sampler.ncall and
+            s["launches"]["launches"] == 0):
+        raise RuntimeError(f"the {cls_name} row failed its gate: {s}")
+    return s
+
+
+def eggbox_balls_drive(dyt, models, hk):
+    """The eggbox under RadFriends and rslice at nlive 2048: each refit
+    launches the exact L2 path and is held against the plain version;
+    the evidence within 5 logzerr (the eggbox rows' gate)."""
+    prob = models.Eggbox()
+    _zero_counts(hk)
+    with recording_refits(dyt, hk) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = dyt.NestedSampler(
+            prob.loglike, prob.ptform, prob.ndim, nlive=2048, bound="balls",
+            sample="rslice",
+            rstate=np.random.Generator(np.random.PCG64(SEED)))
+        sampler.run_nested(print_progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s = _summary(sampler, wall, prob.logz_truth, problem="Eggbox")
+    s["launches"] = _counts(hk)
+    s["refit_max_abs_err"] = check_refits(hk, calls, "eggbox-balls drive")
+    s["pull"] = (s["logz"] - s["truth"]) / s["logzerr"]
+    if not (np.isfinite(s["logz"]) and abs(s["pull"]) < 5 and
+            s["launches"]["exact"] >= 1 and
+            s["launches"]["exact"] == len(calls)):
+        raise RuntimeError(f"the eggbox-balls drive failed its gate: {s}")
+    return s
+
+
+def _prior_transform(models):
+    """One prior of each kind, and the same quantiles from scipy."""
+    import scipy.stats as st
+
+    pt = models.PriorTransform([
+        models.TopHat(-5.0, 5.0), models.Normal(1.0, 2.0),
+        models.ClippedNormal(0.0, 1.0, -1.0, 2.0),
+        models.LogNormal(0.0, 0.5), models.LogUniform(1e-3, 1e3),
+        models.Beta(2.0, 5.0)])
+
+    def ppf(u):
+        return np.stack([
+            -5.0 + 10.0 * u[:, 0], st.norm.ppf(u[:, 1], 1.0, 2.0),
+            st.truncnorm.ppf(u[:, 2], -1.0, 2.0),
+            st.lognorm.ppf(u[:, 3], 0.5, scale=1.0),
+            st.loguniform.ppf(u[:, 4], 1e-3, 1e3),
+            st.beta.ppf(u[:, 5], 2.0, 5.0)], axis=1)
+
+    return pt, ppf
+
+
+def priors_phase(models):
+    """The six priors on the card against scipy's quantiles (1e-8
+    absolute), and ``_betainc`` on the card against its CPU value and
+    ``scipy.special.betainc`` (1e-10 absolute); the transform's time per
+    million points (CUDA events, one call after a warm-up)."""
+    import scipy.special as sp
+    from dynesty_tpu_torch.models.priors import _betainc
+
+    pt, ppf = _prior_transform(models)
+    u = np.random.Generator(np.random.PCG64(SEED)).random((PRIOR_POINTS, 6))
+    u_dev = torch.as_tensor(u, device="cuda")
+    batched = torch.func.vmap(pt)
+    batched(u_dev[:1024])  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = batched(u_dev)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    err = np.abs(got.cpu().numpy() - ppf(u)).max(axis=0)
+    x = np.concatenate([[1e-12, 1e-6, 1e-3], np.linspace(0.01, 0.99, 99),
+                        [1 - 1e-3, 1 - 1e-6, 1 - 1e-12]])
+    x_cpu = torch.as_tensor(x)
+    bi_cpu = bi_scipy = 0.0
+    for a in BETAINC_AB:
+        for b in BETAINC_AB:
+            card = _betainc(a, b, x_cpu.to("cuda")).cpu().numpy()
+            bi_cpu = max(bi_cpu, float(np.abs(
+                card - _betainc(a, b, x_cpu).numpy()).max()))
+            bi_scipy = max(bi_scipy, float(np.abs(
+                card - sp.betainc(a, b, x)).max()))
+    out = {"points": PRIOR_POINTS, "ms": ms,
+           "ms_per_million": ms / (PRIOR_POINTS / 1e6),
+           "max_abs_err_by_prior": dict(zip(
+               ("TopHat", "Normal", "ClippedNormal", "LogNormal",
+                "LogUniform", "Beta"), err.tolist())),
+           "betainc_max_abs_err_cpu": bi_cpu,
+           "betainc_max_abs_err_scipy": bi_scipy}
+    if not (np.all(err < 1e-8) and bi_cpu < 1e-10 and bi_scipy < 1e-10):
+        raise RuntimeError(f"the priors disagree: {out}")
+    return out
+
+
+def _mesh_checks(dyt, sampler, mesh):
+    """The lanes of the last dispatch all on the card, and a mesh larger
+    than the machine refused."""
+    sh = sampler.last_proposals_sharding
+    q = sampler.queue_size
+    lanes = set(sh.device_of_lane((q, 11)))
+    n = torch.cuda.device_count()
+    try:
+        dyt.parallel.make_mesh(n + 1)
+        refused = False
+    except ValueError:
+        refused = True
+    out = {"mesh": [str(d) for d in mesh.devices],
+           "shard_shape": list(sh.shard_shape((q, 11))),
+           "lane_devices": sorted(str(d) for d in lanes),
+           "larger_mesh_refused": refused}
+    if out["shard_shape"] != [q, 11] or lanes != {mesh.devices[0]} or \
+            not refused:
+        raise RuntimeError(f"the mesh's lanes are not all on the card: "
+                           f"{out}")
+    return out
+
+
+def mesh_balls_drive(dyt, hk, main, full):
+    """The balls drive with ``mesh=make_mesh()`` (the one card): equal to
+    phase 3's run bit for bit, with the same kernel launches."""
+    mesh = dyt.parallel.make_mesh()
+    _zero_counts(hk)
+    with recording_refits(dyt, hk) as calls:
+        s, sampler = drive(dyt, 2048, "balls", mesh=mesh)
+    s["launches"] = _counts(hk)
+    s["refit_max_abs_err"] = check_refits(hk, calls, "mesh-balls drive")
+    a, b = full.results, sampler.results
+    same = {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+            for k in ("logl", "logz", "samples", "ncall", "scale")}
+    same["niter"] = a.niter == b.niter
+    same["ncall_total"] = full.ncall == sampler.ncall
+    same["launches"] = s["launches"] == main["launches"]
+    s["same"] = same
+    s.update(_mesh_checks(dyt, sampler, mesh))
+    if not all(same.values()):
+        raise RuntimeError(f"the mesh-balls drive differs from the balls "
+                           f"drive: {same} {s['launches']} "
+                           f"{main['launches']}")
+    return s
+
+
+def mesh_dynamic3_drive(dyt, hk, dyn3, dyn3_results):
+    """dynamic3 with ``mesh=make_mesh()``: equal to phase 13's run bit
+    for bit (records and batches), no kernel launched."""
+    mesh = dyt.parallel.make_mesh()
+    _zero_counts(hk)
+    s, dns = dynamic_drive(dyt, {}, bound="multi", sample="unif",
+                           queue_size=256, mesh=mesh)
+    s["config"]["mesh"] = [str(d) for d in mesh.devices]
+    s["launches"] = _counts(hk)
+    _dyn_gate(dns, s, "mesh-dynamic3 drive", neff=DYN_NEFF)
+    a, b = dyn3_results, dns.results
+    same = {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+            for k in ("logl", "logz", "logzerr", "samples", "samples_batch",
+                      "samples_n", "ncall", "batch_nlive",
+                      "batch_logl_bounds", "scale")}
+    same["niter"] = a.niter == b.niter
+    same["ncall_total"] = dyn3["ncall"] == s["ncall"]
+    same["batches"] = dyn3["batches"] == s["batches"]
+    same["launches"] = s["launches"] == dyn3["launches"]
+    s["same"] = same
+    s["batch_mesh"] = dns.sampler.mesh is mesh
+    s.update(_mesh_checks(dyt, dns.sampler, mesh))
+    if not all(same.values()) or not s["batch_mesh"]:
+        raise RuntimeError(f"the mesh-dynamic3 drive differs from "
+                           f"dynamic3: {same}")
+    return s
+
+
+def scaling_phase(dyt, heavy_like):
+    """``scaling_report`` on the one card (``sizes=(1,)``) for the 3-D
+    Gaussian and the heavy likelihood at q = 4096: evaluations/s of one
+    device, no scaling."""
+    out = {}
+    for name, fn in (("gauss3", gauss_loglike), ("heavy", heavy_like)):
+        rep = dyt.parallel.scaling_report(
+            fn, NDIM, q=4096, sizes=(1,),
+            rstate=np.random.Generator(np.random.PCG64(SEED)))[0]
+        if not (rep["partitioned"] and rep["platform"] == "gpu" and
+                np.isfinite(rep["evals_per_s"]) and rep["evals_per_s"] > 0):
+            raise RuntimeError(f"scaling_report on {name}: {rep}")
+        out[name] = rep
+    return out
+
+
 def _print_phase(name, s, card):
     """One JSON line of a phase, the card beside it."""
     keys = ("config", "niter", "ncall", "logz", "logzerr", "truth", "wall_s",
@@ -867,7 +1111,8 @@ def _print_phase(name, s, card):
             "wall_first_s", "wall_resumed_s", "checkpoint_bytes", "same",
             "n_replay", "n_continuation", "bound_kind", "samples_calls",
             "host_ms_per_samples_call", "last_status_line", "axes_uploads",
-            "timings")
+            "pull", "batches", "n_effective", "mesh", "batch_mesh",
+            "shard_shape", "lane_devices", "larger_mesh_refused", "timings")
     print(json.dumps(dict({"phase": name, "card": card},
                           **{k: s[k] for k in keys if k in s})))
 
@@ -1509,7 +1754,32 @@ def main():
     plots = plots_phase(dyt, main_sampler.results, dyn3_results)
     print(json.dumps(dict({"phase": "plots", "card": card}, **plots)))
 
-    # phase 24: device-only times, last: once a profiler has run, every
+    # phases 24 and 25: the JAX package's eggbox and shells rows, problems
+    # from dynesty_tpu_torch.models
+    rows = {}
+    for name, cls_name, dlogz in MODEL_ROWS:
+        rows[name] = model_drive(dyt, dyt.models, hk, cls_name, dlogz)
+        _print_phase(name, rows[name], card)
+
+    # phase 26: eggbox-balls, the eggbox through the friends refit's kernel
+    eggballs = eggbox_balls_drive(dyt, dyt.models, hk)
+    _print_phase("eggbox-balls", eggballs, card)
+
+    # phase 27: the six priors on the card against scipy, betainc
+    priors = priors_phase(dyt.models)
+    print(json.dumps(dict({"phase": "priors", "card": card}, **priors)))
+
+    # phases 28 and 29: the balls drive and dynamic3 under mesh=make_mesh()
+    meshballs = mesh_balls_drive(dyt, hk, main, main_sampler)
+    _print_phase("mesh-balls", meshballs, card)
+    meshdyn3 = mesh_dynamic3_drive(dyt, hk, dyn3, dyn3_results)
+    _print_phase("mesh-dynamic3", meshdyn3, card)
+
+    # phase 30: the split likelihood's throughput on the one card
+    scaling = scaling_phase(dyt, like)
+    print(json.dumps({"phase": "scaling", "card": card, **scaling}))
+
+    # phase 31: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -1557,7 +1827,9 @@ def main():
                "dynamic-balls": dynballs["launches"]["exact"],
                "blob-balls": blobballs["launches"]["exact"],
                "host-balls": hostballs["launches"]["exact"],
-               "blob-resume": blobresume["launches"]["exact"]}),
+               "blob-resume": blobresume["launches"]["exact"],
+               "eggbox-balls": eggballs["launches"]["exact"],
+               "mesh-balls": meshballs["launches"]["exact"]}),
         entry("pairwise_min_dist_linf_exact", MAIN_SHAPE, math.inf, "exact",
               {"cubes": cubes["launches"]["exact"]}),
         entry("pairwise_min_dist_l2_tc", TC_SHAPE, 2, "tc",
@@ -1580,6 +1852,10 @@ def main():
                        "custom_unif": customunif,
                        "custom_rslice": customrslice,
                        "custom_resume": customresume, "plots": plots,
+                       "eggbox": rows["eggbox"], "shells": rows["shells"],
+                       "eggbox_balls": eggballs, "priors": priors,
+                       "mesh_balls": meshballs,
+                       "mesh_dynamic3": meshdyn3, "scaling": scaling,
                        "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))

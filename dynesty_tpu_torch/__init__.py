@@ -12,7 +12,9 @@ The likelihood may return blobs, may be any Python callable evaluated on
 the host (``likelihood_mode='host'``, over a :class:`pool.Pool`), and may
 record its evaluation history.  A user's own ``bounding.Bound`` subclass
 runs under every proposal kernel.  ``plotting`` draws a run's results and
-its saved bounds with matplotlib.
+its saved bounds with matplotlib.  ``models`` holds the analytic test
+problems and the prior transforms; ``parallel`` the device mesh that
+splits the batched likelihood by lane (``mesh=``).
 Imports neither ``jax`` nor ``dynesty_tpu``.  Entry points:
 ``NestedSampler(...)`` and ``DynamicNestedSampler(...)``, on the card
 unless ``device='cpu'`` is given.
@@ -24,10 +26,11 @@ from ._version import __version__
 from . import utils
 from .dynesty import DynamicNestedSampler, NestedSampler
 from .internal.likelihood import LoglOutput
-from . import (bounding, dynamicsampler, internal, internal_samplers, ops,
-               plotting, pool, results)
+from . import (bounding, dynamicsampler, internal, internal_samplers,
+               models, ops, parallel, plotting, pool, results)
 from .utils import runs
 
 __all__ = ["NestedSampler", "DynamicNestedSampler", "LoglOutput",
            "bounding", "dynamicsampler", "internal", "internal_samplers",
-           "ops", "plotting", "pool", "results", "utils", "__version__"]
+           "models", "ops", "parallel", "plotting", "pool", "results",
+           "utils", "__version__"]

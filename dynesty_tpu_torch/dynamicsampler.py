@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .ops.integrals import compute_integrals, get_neff_from_logwt
-from .sampler import Sampler, initialize_live_points
+from .sampler import (Sampler, check_mesh_support,
+                      initialize_live_points)
 from .utils.checkpoint import restore_sampler, save_sampler
 from .utils.misc import (DelayTimer, IteratorResult, IteratorResultShort,
                          Timings, get_print_func, get_random_generator,
@@ -286,7 +287,13 @@ def _configure_batch_sampler(main_sampler, nlive_new, update_interval,
         # full-width fill is consumed completely: no stranded (billed)
         # leftovers, and the whole seeding runs as a single device round
         # instead of nlive_new/queue_size round trips
-        batch_sampler.queue_size = nlive_new
+        # (rounded up to the mesh size under a mesh; the few stranded rows
+        # are billed by the drain below)
+        qseed = nlive_new
+        mesh = main_sampler.mesh
+        if mesh is not None and mesh.size > 1:
+            qseed = -(-qseed // mesh.size) * mesh.size
+        batch_sampler.queue_size = qseed
         live_u = np.empty((nlive_new, main_sampler.ndim))
         live_v = np.empty((nlive_new, saved_v.shape[1]))
         live_logl = np.empty(nlive_new)
@@ -386,7 +393,7 @@ class DynamicSampler:
                  bound_update_interval_ratio=None, first_bound_update=None,
                  bound_bootstrap=0, bound_enlarge=1.0,
                  rounds_per_dispatch=None, proposal_mode="batch",
-                 dtype=torch.float64, blob=False, cite=None):
+                 dtype=torch.float64, blob=False, cite=None, mesh=None):
         self.device = torch.device(device)
         self.loglikelihood = loglikelihood
         self.blob = bool(blob)
@@ -410,6 +417,13 @@ class DynamicSampler:
         self.rounds_per_dispatch = rounds_per_dispatch or 8
         self.proposal_mode = proposal_mode
         self.dtype = dtype
+        # a parallel.mesh.Mesh for the base run and every batch sampler
+        # (not pickled)
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh_support(mesh, loglikelihood.mode, bounding,
+                               sampling.name)
+            loglikelihood.mesh = mesh
         # the pool, its map and the per-site flags (set by the factory;
         # not pickled)
         self.pool = None
@@ -485,7 +499,7 @@ class DynamicSampler:
                    bound_enlarge=cfg["enlarge"],
                    rounds_per_dispatch=rounds_per_dispatch,
                    proposal_mode=proposal_mode, dtype=dtype, blob=blob,
-                   cite=cfg["cite"]("dynamic"))
+                   cite=cfg["cite"]("dynamic"), mesh=mesh)
         obj.pool = pool
         obj.use_pool = cfg["use_pool"]
         if pool is not None:
@@ -511,7 +525,7 @@ class DynamicSampler:
             rounds_per_dispatch=self.rounds_per_dispatch,
             rounds_explicit=self.rounds_explicit,
             proposal_mode=self.proposal_mode, dtype=self.dtype,
-            blob=self.blob, cite=self.cite)
+            blob=self.blob, cite=self.cite, mesh=self.mesh)
         sampler.pool = self.pool
         sampler.use_pool = self.use_pool
         return sampler
@@ -529,8 +543,8 @@ class DynamicSampler:
 
     def __getstate__(self):
         state = self.__dict__.copy()
-        state.pop("mapper", None)
-        state.pop("pool", None)
+        for k in ("mapper", "pool", "mesh"):
+            state.pop(k, None)
         state["device"] = str(self.device)  # stored by name
         return state
 
@@ -542,6 +556,7 @@ class DynamicSampler:
         self.device = torch.device(state["device"])
         self.pool = None
         self.mapper = map
+        self.mesh = None
 
     def save(self, fname):
         """Write the whole sampler, a suspended batch included, to
@@ -549,12 +564,12 @@ class DynamicSampler:
         save_sampler(self, fname)
 
     @staticmethod
-    def restore(fname, device=None, pool=None):
+    def restore(fname, device=None, pool=None, mesh=None):
         """The sampler saved in ``fname``, on the device it was saved from
         unless ``device`` names another (a ``cuda`` checkpoint raises
-        where CUDA is absent), with ``pool`` attached to it and to its
-        inner samplers."""
-        return restore_sampler(fname, device=device, pool=pool)
+        where CUDA is absent), with ``pool`` and ``mesh`` attached to it
+        and to its inner samplers."""
+        return restore_sampler(fname, device=device, pool=pool, mesh=mesh)
 
     def set_device(self, device):
         """Move the run to ``device``: the likelihood, the proposal
@@ -591,7 +606,7 @@ class DynamicSampler:
             rounds_per_dispatch=(self.rounds_per_dispatch
                                  if self.rounds_explicit else None),
             proposal_mode=self.proposal_mode, dtype=self.dtype,
-            blob=self.blob, cite=self.cite)
+            blob=self.blob, cite=self.cite, mesh=self.mesh)
 
     @property
     def citations(self):

@@ -36,9 +36,11 @@ sampler refits its own deep copy of it.
 Both factories take the JAX package's arguments in its positional order.
 The differences: ``likelihood_mode`` defaults to ``'torch'`` and ``dtype``
 to ``torch.float64``, and ``device`` (keyword only) comes last.  ``mesh``
-is accepted as ``None``; a device mesh is not ported yet and raises
-``NotImplementedError``.  ``citations`` lists the references of the
-chosen configuration.
+(:func:`dynesty_tpu_torch.parallel.make_mesh`) splits each batched
+likelihood call by lane over its devices, the rest of a round staying on
+the mesh's first device, which must be ``device``; the run's records are
+those of the run without the mesh.  ``citations`` lists the references of
+the chosen configuration.
 """
 
 import torch
@@ -47,6 +49,7 @@ import numpy as np
 
 from .internal.likelihood import LogLikelihood
 from .internal.samplers import get_internal_sampler
+from .parallel.mesh import check_mesh_device
 from .sampler import Sampler, initialize_live_points
 from .utils.misc import get_random_generator
 
@@ -194,11 +197,9 @@ def _common_init(loglikelihood, prior_transform, ndim, nlive, bound,
     the device, the internal sampler, the bound expansion, the wrapped
     likelihood, the pool flags, the round width, the refit cadence and
     the citations (``cite(kind)``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (mesh=) is not ported yet: the lane split over "
-            "several GPUs is parallel/ in ROADMAP.md's Queue 1, item 10")
     device = _resolve_device(device)
+    if mesh is not None:
+        check_mesh_device(mesh, device)
     ncdim = ncdim or ndim
     if ncdim != ndim and sample in ("slice", "rslice"):
         raise ValueError("ncdim unsupported for slice sampling")
@@ -280,7 +281,7 @@ class NestedSampler(Sampler):
             rounds_per_dispatch=rounds_per_dispatch or 8,
             rounds_explicit=rounds_per_dispatch is not None,
             proposal_mode=proposal_mode, dtype=dtype, blob=blob,
-            cite=cfg["cite"]("static"))
+            cite=cfg["cite"]("static"), mesh=mesh)
         self.ncall = init_ncalls
         self.pool = pool
         self.use_pool = cfg["use_pool"]
@@ -321,11 +322,12 @@ def DynamicNestedSampler(loglikelihood, prior_transform, ndim, nlive=500,
         history_filename=history_filename, device=device)
 
 
-def _dynamic_restore(fname, device=None, pool=None):
+def _dynamic_restore(fname, device=None, pool=None, mesh=None):
     """The dynamic sampler saved in ``fname`` (see
     :meth:`DynamicSampler.restore`)."""
     from .dynamicsampler import DynamicSampler
-    return DynamicSampler.restore(fname, device=device, pool=pool)
+    return DynamicSampler.restore(fname, device=device, pool=pool,
+                                  mesh=mesh)
 
 
 DynamicNestedSampler.restore = _dynamic_restore

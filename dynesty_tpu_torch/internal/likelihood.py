@@ -17,7 +17,11 @@ Three modes:
   reach the user's functions and read ``logl = -inf``.
 
 In the first two modes the functions must create any constant tensors
-they use on the sampler's device.
+they use on the device of the points they are given.  Under a device mesh
+(``mesh``, set by the sampler) a device-mode batch is split by lane over
+the mesh's devices and gathered back in lane order
+(:func:`~dynesty_tpu_torch.parallel.mesh.mesh_eval`), blobs with it; host
+mode is refused under a mesh larger than one device.
 
 Blobs: with ``blob=True`` the log-likelihood returns ``(logl, blob)``,
 ``blob`` a tensor (or array) of fixed shape, or a tuple, list or dict of
@@ -34,6 +38,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..parallel.mesh import mesh_eval
 from ..utils.misc import stack_blob_rows, tree_map
 
 __all__ = ["LogLikelihood", "LoglOutput", "ShapeDtype"]
@@ -148,6 +153,9 @@ class LogLikelihood:
         self.device = torch.device(device)
         self.dtype = dtype
         self.pool = pool
+        # a parallel.mesh.Mesh that splits the device modes' batches by
+        # lane (set by the sampler; not pickled)
+        self.mesh = None
         # the per-site pool flags of host mode (use_pool)
         self.use_pool_logl = use_pool_logl
         self.use_pool_ptform = use_pool_ptform
@@ -194,6 +202,7 @@ class LogLikelihood:
         state = self.__dict__.copy()
         state["device"] = str(self.device)  # stored by name
         state["pool"] = None
+        state["mesh"] = None
         state["save_evaluation_history"] = False
         state["_history_buffer"] = []
         for k in ("_logl", "_ptform"):
@@ -202,7 +211,8 @@ class LogLikelihood:
 
     def __setstate__(self, state):
         # checkpoints written before blobs, host mode and history existed
-        for k, v in (("blob", False), ("pool", None), ("use_pool_logl", True),
+        for k, v in (("blob", False), ("pool", None), ("mesh", None),
+                     ("use_pool_logl", True),
                      ("use_pool_ptform", True), ("blob_shape_dtype", None),
                      ("ncall_launched", 0), ("save_evaluation_history", False),
                      ("history_filename", None), ("save_every", 10000),
@@ -217,7 +227,11 @@ class LogLikelihood:
 
     def _eval_device(self, u):
         """``(v, logl, blob)`` of an (N, ndim) device batch, every lane
-        evaluated."""
+        evaluated, the lanes split over the mesh where there is one."""
+        return mesh_eval(self.mesh, self._eval_lanes, u)
+
+    def _eval_lanes(self, u):
+        """``(v, logl, blob)`` of a batch on one device."""
         ptform, logl_fn, blob_flag = self._ptform, self._logl, self.blob
         if self.mode == "vectorized":
             v = ptform(u)

@@ -22,6 +22,13 @@ dispatches), and every record carries the blob of its dead point.  A
 ``pool`` is used for host-mode evaluations (through the likelihood) and,
 where ``use_pool['update_bound']``, for the bounds' bootstrap
 realisations; it is dropped when the sampler is pickled.
+
+A device mesh (``mesh``, a :class:`~dynesty_tpu_torch.parallel.mesh.Mesh`)
+splits every batched likelihood call by lane over its devices; the round
+widths are kept divisible by its size, and host mode and a host-sampled
+user's bound under ``unif`` are refused under a mesh of more than one
+device.  The mesh is dropped when the sampler is pickled and attached
+again by ``restore(..., mesh=)``.
 """
 
 import copy
@@ -33,11 +40,12 @@ import warnings
 import numpy as np
 import torch
 
-from .bounding import UnitCube, get_bound
+from .bounding import Bound, UnitCube, get_bound
 from .internal.kernels import f32_precision
 from .internal.samplers import UnitCubeSampler
 from .ops.integrals import (LOWL_VAL, compute_integrals,
                             get_neff_from_logwt, progress_integration)
+from .parallel.mesh import batch_sharding
 from .utils.checkpoint import restore_sampler, save_sampler
 from .utils.convert import bound_arrays_to_torch, live_to_torch
 from .utils.misc import (DelayTimer, IteratorBlock, IteratorResult, Timings,
@@ -135,6 +143,28 @@ def initialize_live_points(live_points, loglikelihood, nlive, ndim, rstate,
     return (live_u, live_v, live_logl, live_blobs), logvol_init, ncalls
 
 
+def check_mesh_support(mesh, likelihood_mode, bound, sample_name):
+    """Refuse what has no meaning with a lane split over several devices
+    (the JAX package's checks): a host-mode likelihood, and ``unif`` over
+    a user's bound that is sampled on the host."""
+    if mesh is None or mesh.size <= 1:
+        return
+    if likelihood_mode == "host":
+        raise ValueError(
+            "likelihood_mode='host' cannot run under a device mesh: a "
+            "host-mode likelihood is mapped on the host, not split over "
+            "devices. Use a torch likelihood ('torch'/'vectorized') or "
+            "drop the mesh.")
+    custom = isinstance(bound, Bound) and \
+        type(bound).device_spec is Bound.device_spec
+    if custom and sample_name == "unif":
+        raise ValueError(
+            "sample='unif' with a custom host-sampled Bound cannot run "
+            "under a device mesh: the bound's samples are drawn on the "
+            "host between device waves. Use rwalk/rslice/slice, a built-in "
+            "bound, or drop the mesh.")
+
+
 class Sampler:
     """Static nested sampler over fused device dispatches on ``device``."""
 
@@ -144,7 +174,7 @@ class Sampler:
                  bound_bootstrap=0, bound_enlarge=1.0, logvol_init=0.0,
                  rounds_per_dispatch=1, rounds_explicit=False,
                  proposal_mode="batch", dtype=torch.float64, blob=False,
-                 cite=None):
+                 cite=None, mesh=None):
         f32_precision()
         self.device = torch.device(device)
         self.dtype = dtype
@@ -166,6 +196,15 @@ class Sampler:
         if proposal_mode not in ("batch", "queue"):
             raise ValueError(f"Unknown proposal_mode '{proposal_mode}'")
         self.proposal_mode = proposal_mode
+        # a parallel.mesh.Mesh splitting the likelihood's lanes (not
+        # pickled); the likelihood holds it too
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh_support(mesh, loglikelihood.mode, bounding,
+                               sampling.name)
+            loglikelihood.mesh = mesh
+        # the lane split of the last dispatch's proposal block
+        self.last_proposals_sharding = None
         self.queue_size_req = max(int(queue_size or 64), 1)
         self._apply_queue_clamp()
 
@@ -218,14 +257,21 @@ class Sampler:
         ``nlive``; run again whenever ``nlive`` changes.  Batch rounds
         kill ``queue_size`` points at once, so the width is capped at half
         the live count.  ``_q_narrow`` is the width of a bracketed run's
-        last dispatches (see :meth:`_make_dispatch_spec`)."""
+        last dispatches (see :meth:`_make_dispatch_spec`).  Under a mesh
+        both are multiples of its size."""
         if self.proposal_mode == "batch":
             self.queue_size = max(1, min(self.queue_size_req,
                                          self.nlive // 2))
         else:
             self.queue_size = self.queue_size_req
+        n = self.mesh.size if self.mesh is not None else 1
+        if n > 1:
+            self.queue_size = max(n, self.queue_size // n * n)
         self._q_full = self.queue_size
-        self._q_narrow = min(max(16, self.queue_size // 8), self.queue_size)
+        qn = max(16, self.queue_size // 8)
+        if n > 1:
+            qn = max(n, qn // n * n)
+        self._q_narrow = min(qn, self.queue_size)
 
     def set_live_points(self, live_u, live_v, live_logl, live_birth=None,
                         live_blobs=None):
@@ -301,17 +347,18 @@ class Sampler:
         save_sampler(self, fname)
 
     @staticmethod
-    def restore(fname, device=None, pool=None):
+    def restore(fname, device=None, pool=None, mesh=None):
         """The sampler saved in ``fname``, on the device it was saved
         from unless ``device`` names another (a ``cuda`` checkpoint raises
-        where CUDA is absent), with ``pool`` attached."""
-        return restore_sampler(fname, device=device, pool=pool)
+        where CUDA is absent), with ``pool`` and ``mesh`` attached."""
+        return restore_sampler(fname, device=device, pool=pool, mesh=mesh)
 
     def __getstate__(self):
         self._ensure_live_mirror()
         state = self.__dict__.copy()
         for k in ("_live_dev", "_live_blob_dev", "_bound_upload",
-                  "_mirror_stale", "pool"):
+                  "_mirror_stale", "pool", "mesh",
+                  "last_proposals_sharding"):
             state.pop(k, None)
         state["device"] = str(self.device)  # stored by name
         return state
@@ -329,6 +376,8 @@ class Sampler:
         self._bound_upload = None
         self._mirror_stale = False
         self.pool = None
+        self.mesh = None
+        self.last_proposals_sharding = None
 
     def set_device(self, device):
         """Move the sampler to ``device``: the host mirrors are brought up
@@ -867,6 +916,11 @@ class Sampler:
                 if out["done_reason"] & 32 and not out["done_reason"] & 31:
                     n_real_limit = out["n_consumed"]  # chain-stop gate
             self.timings.add("dispatch", time.perf_counter() - t0)
+            if self.mesh is not None:
+                # each round's lanes were split over the mesh in equal
+                # chunks (the likelihood's mesh_eval)
+                self.last_proposals_sharding = batch_sharding(
+                    self.mesh, out["proposals_dev"].dim())
             self.timings.count("n_dispatch")
             self.timings.count("sync_flat")
             t_cons0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Whole-sampler checkpointing: a pickle with a format version, written
-atomically (tmp + rename).  Counterpart of ``dynesty_tpu.utils.checkpoint``
-without its mesh part.  Serves the static ``Sampler`` and the
+atomically (tmp + rename).  Counterpart of ``dynesty_tpu.utils.checkpoint``.
+Serves the static ``Sampler`` and the
 ``DynamicSampler`` alike: either is one object graph that shares one
 ``LogLikelihood`` and one ``rstate``, and moves as a whole with its
 ``set_device``.
@@ -13,7 +13,9 @@ which must be importable where the checkpoint is restored.  Device tensors
 are never written: the sampler mirrors its live points to the host first
 and stores its device by name.  A pool is never written (its workers
 belong to one process): ``restore_sampler(..., pool=)`` attaches one to
-the sampler, its inner samplers and their likelihood.  An evaluation
+the sampler, its inner samplers and their likelihood.  Nor is a device
+mesh: ``restore_sampler(..., mesh=)`` attaches one, once every round width
+the run may use divides by its size.  An evaluation
 history is flushed to its file before the write and is off in the
 restored sampler.
 """
@@ -26,6 +28,7 @@ import sys
 import torch
 
 from .._version import __version__
+from ..parallel.mesh import check_mesh_device
 
 __all__ = ["save_sampler", "restore_sampler", "FORMAT_VERSION"]
 
@@ -66,14 +69,18 @@ def save_sampler(sampler, fname):
         raise
 
 
-def restore_sampler(fname, device=None, pool=None):
+def restore_sampler(fname, device=None, pool=None, mesh=None):
     """Unpickle a sampler saved by :func:`save_sampler`.
 
     The sampler comes back on the device it was saved from, by name.  A
     checkpoint written on ``cuda`` raises where CUDA is absent; pass
     ``device='cpu'`` (or any other device) to move the run there.
-    ``pool`` is attached to the sampler, to its inner and batch samplers
-    and to their likelihood."""
+    ``pool`` and ``mesh`` are attached to the sampler, to its inner and
+    batch samplers and to their likelihood.  The mesh's first device must
+    be the sampler's, and every width a sampler may dispatch
+    (``queue_size`` and the endgame widths ``_q_full``/``_q_narrow``) must
+    divide by its size, or the resume would not be the run it continues:
+    a ``ValueError`` names the width that does not."""
     with open(fname, "rb") as fp:
         payload = pickle.load(fp)
     format_version = payload.get("format_version")
@@ -91,12 +98,28 @@ def restore_sampler(fname, device=None, pool=None):
         raise RuntimeError(
             f"the checkpoint's device is {target} but CUDA is not "
             "available; pass device='cpu' to restore it on the CPU")
+    if mesh is not None:
+        check_mesh_device(mesh, target)
+    objs = _samplers_to_rebind(sampler)
+    if mesh is not None and mesh.size > 1:
+        for obj in objs:
+            widths = {"queue_size": getattr(obj, "queue_size", None),
+                      "_q_full": getattr(obj, "_q_full", None),
+                      "_q_narrow": getattr(obj, "_q_narrow", None)}
+            for name, q in widths.items():
+                if q and q % mesh.size:
+                    raise ValueError(
+                        f"Saved {name} {q} does not divide by the mesh "
+                        f"size {mesh.size}; restore with a compatible "
+                        "mesh (or none) to keep the resume bit-exact.")
     sampler.set_device(target)
-    for obj in _samplers_to_rebind(sampler):
+    for obj in objs:
         obj.pool = pool
         if hasattr(obj, "mapper"):
             obj.mapper = map if pool is None else pool.map
+        obj.mesh = mesh
         obj.loglikelihood.pool = pool
+        obj.loglikelihood.mesh = mesh
     return sampler
 
 

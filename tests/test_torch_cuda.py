@@ -640,3 +640,101 @@ def test_cuda_custom_bound_resume_bit_identical(cuda, device, tmp_path):
         assert np.array_equal(a[k], b[k]), k
     for x, y in zip(a.bound[1:], b.bound[1:]):
         assert np.array_equal(x.cen, y.cen) and x.size == y.size
+
+
+# --------------------------------------------------------------------------
+# models and the mesh on the card
+
+_CARD_PROBLEMS = [("CorrelatedGaussian", {"ndim": 3}), ("Eggbox", {}),
+                  ("GaussianShells", {}), ("Rosenbrock", {"ndim": 5}),
+                  ("WeddingCake", {}), ("LogGamma", {"ndim": 5})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", _CARD_PROBLEMS,
+                         ids=[n for n, _ in _CARD_PROBLEMS])
+def test_cuda_models_match_cpu(cuda, name, kw):
+    """Each problem on the card against the CPU at 1e-12 relative (the
+    card's transcendental functions differ from the host's by ulps), its
+    constants made on the card; the wedding cake's centre reads -0.0."""
+    from dynesty_tpu_torch import models
+
+    prob = getattr(models, name)(**kw)
+    u = torch.as_tensor(get_rstate().random((1000, prob.ndim)))
+    u[0] = 0.5
+    f = torch.func.vmap(lambda x: prob.loglike(prob.ptform(x)))
+    want = f(u)
+    got = f(u.to(cuda))
+    assert got.device.type == "cuda"
+    assert torch.allclose(got.cpu(), want, rtol=1e-12, atol=0)
+    # a problem with constants made them on the card too
+    assert all(any(k[1].type == "cuda" for k in consts)
+               for consts in [getattr(prob, "_consts", None)] if consts)
+    if name == "WeddingCake":
+        assert got[0].item() == 0.0 and torch.signbit(got[0]).item()
+
+
+@pytest.mark.cuda
+def test_cuda_priors_match_cpu(cuda):
+    from dynesty_tpu_torch import models
+    from dynesty_tpu_torch.models.priors import _betainc
+
+    pt = models.PriorTransform([
+        models.TopHat(-5.0, 5.0), models.Normal(1.0, 2.0),
+        models.ClippedNormal(0.0, 1.0, -1.0, 2.0),
+        models.LogNormal(0.0, 0.5), models.LogUniform(1e-3, 1e3),
+        models.Beta(2.0, 5.0)])
+    u = torch.as_tensor(get_rstate().random((4096, 6)))
+    want = torch.func.vmap(pt)(u)
+    got = torch.func.vmap(pt)(u.to(cuda)).cpu()
+    assert torch.allclose(got[:, :5], want[:, :5], rtol=1e-12, atol=0)
+    assert (got[:, 5] - want[:, 5]).abs().max().item() < 1e-8
+    x = torch.linspace(1e-6, 1 - 1e-6, 1001, dtype=torch.float64)
+    for a, b in [(0.5, 0.5), (2.0, 5.0), (30.0, 1.0)]:
+        diff = _betainc(a, b, x.to(cuda)).cpu() - _betainc(a, b, x)
+        assert diff.abs().max().item() < 1e-12
+
+
+def _mesh_sampler(mesh):
+    import dynesty_tpu_torch as dyt
+
+    return dyt.NestedSampler(normal_loglike, box_ptform, 3, nlive=200,
+                             bound="single", sample="rslice", queue_size=64,
+                             rstate=get_rstate(56432), mesh=mesh)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_of_one_device_equals_no_mesh(cuda):
+    """``mesh=make_mesh()`` on one card gives the run without a mesh bit
+    for bit, every lane on the card; a mesh of more devices than the
+    machine has raises."""
+    from dynesty_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="devices"):
+        make_mesh(n + 1)
+    mesh = make_mesh(1)
+    runs = []
+    for m in (mesh, None):
+        s = _mesh_sampler(m)
+        s.run_nested(print_progress=False)
+        runs.append(s)
+    a, b = runs[0].results, runs[1].results
+    assert a.niter == b.niter and runs[0].ncall == runs[1].ncall
+    for k in ("logl", "logz", "samples", "ncall", "scale"):
+        assert np.array_equal(a[k], b[k]), k
+    sh = runs[0].last_proposals_sharding
+    q = runs[0].queue_size
+    assert sh.shard_shape((q, 11)) == (q, 11)
+    assert set(sh.device_of_lane((q, 11))) == {torch.device("cuda", 0)}
+
+
+@pytest.mark.cuda
+def test_cuda_scaling_report(cuda):
+    from dynesty_tpu_torch.parallel import scaling_report
+
+    rep = scaling_report(normal_loglike, 3, q=4096, sizes=(1,), reps=5,
+                         chain=4, rstate=get_rstate())
+    assert len(rep) == 1 and rep[0]["n_devices"] == 1
+    assert rep[0]["platform"] == "gpu" and rep[0]["partitioned"]
+    assert np.isfinite(rep[0]["evals_per_s"]) and rep[0]["evals_per_s"] > 0

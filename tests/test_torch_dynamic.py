@@ -687,12 +687,22 @@ def test_bench_25d_configuration_capped():
 
 
 def test_dynamic_factory_refuses_what_is_not_ported(monkeypatch):
-    # a device mesh is the one argument not yet ported; a custom bound is
-    # taken (dynamic 'unif' over one is refused at the first batch's
-    # seeding, as in the JAX package: test_torch_custom_bound.py)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # every argument is ported: a device mesh is taken (the lane split,
+    # tests/test_torch_parallel.py), what is not a Mesh refused, and a
+    # mesh that does not start on the sampler's device refused; a custom
+    # bound is taken (dynamic 'unif' over one is refused at the first
+    # batch's seeding, as in the JAX package: test_torch_custom_bound.py)
+    with pytest.raises(TypeError, match="Mesh"):
         dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
                                  mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="first device"):
+        dyt.DynamicNestedSampler(
+            gau_loglike, gau_ptform, NDIM, device="cpu",
+            mesh=dyt.parallel.make_mesh(devices=["meta", "cpu"]))
+    mesh = dyt.parallel.make_mesh(devices=["cpu"] * 4)
+    d = dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM, mesh=mesh,
+                                 device="cpu")
+    assert d.mesh is mesh and d.loglikelihood.mesh is mesh
     d = dyt.DynamicNestedSampler(gau_loglike, gau_ptform, NDIM,
                                  bound=dyt.bounding.Bound(NDIM),
                                  device="cpu")

@@ -78,6 +78,11 @@ def test_factory_signatures_match_jax(name):
     device = tparams[-1]
     assert device.kind == inspect.Parameter.KEYWORD_ONLY
     assert device.default == "cuda"
+    # restore takes the JAX package's pool and mesh, and a device
+    jres = list(inspect.signature(getattr(dytpu, name).restore).parameters)
+    tres = list(inspect.signature(getattr(dyt, name).restore).parameters)
+    assert jres == ["fname", "pool", "mesh"]
+    assert tres == ["fname", "device", "pool", "mesh"]
 
 
 def test_positional_arguments_as_in_jax():
@@ -89,13 +94,17 @@ def test_positional_arguments_as_in_jax():
 
 
 def test_mesh_none_accepted_and_a_mesh_refused():
+    # mesh=None and a parallel.Mesh are taken; anything else is refused
     s = _sampler(mesh=None)
     s.run_nested(maxiter=50, print_progress=False)
+    assert s.mesh is None
     d = dyt.DynamicNestedSampler(loglike, ptform, NDIM, mesh=None,
                                  device="cpu")
-    assert d.device == torch.device("cpu")
+    assert d.device == torch.device("cpu") and d.mesh is None
+    mesh = dyt.parallel.make_mesh(devices=["cpu"] * 2)
+    assert _sampler(mesh=mesh).mesh is mesh
     for factory in (dyt.NestedSampler, dyt.DynamicNestedSampler):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="Mesh"):
             factory(loglike, ptform, NDIM, mesh="a mesh", device="cpu")
 
 

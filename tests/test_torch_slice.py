@@ -117,8 +117,8 @@ def test_progress_printing_path(capsys):
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="device"):
         dyt.NestedSampler(lambda x: x.sum(), lambda u: u, 2, device=None)
-    # a custom bound is taken by both factories; a device mesh is the one
-    # argument still refused
+    # a custom bound and a device mesh are taken by both factories; a
+    # mesh must be a parallel.Mesh
     user = dyt.bounding.Bound(2)
     s = dyt.NestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
                           bound=user, sample="unif", device="cpu")
@@ -126,10 +126,13 @@ def test_unported_entry_points_raise():
     d = dyt.DynamicNestedSampler(lambda x: -x @ x, lambda u: u, 2, nlive=20,
                                  bound=user, sample="unif", device="cpu")
     assert d.bounding is user
+    mesh = dyt.parallel.make_mesh(devices=["cpu"] * 2)
     for factory in (dyt.NestedSampler, dyt.DynamicNestedSampler):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="Mesh"):
             factory(lambda x: -x @ x, lambda u: u, 2, nlive=20,
                     mesh=object(), device="cpu")
+        assert factory(lambda x: -x @ x, lambda u: u, 2, nlive=20,
+                       mesh=mesh, device="cpu").mesh is mesh
     # blobs, host mode, a pool and the history arguments are taken by both
     # factories; a host-mode round over a pool of two is 32 wide
     class TwoJobs:
@@ -178,7 +181,12 @@ def test_import_leaves_jax_out():
             "assert {'dynesty_tpu_torch.plotting', "
             "'dynesty_tpu_torch.results', "
             "'dynesty_tpu_torch.internal_samplers', "
-            "'dynesty_tpu_torch.utils'} <= set(sys.modules); "
+            "'dynesty_tpu_torch.utils', 'dynesty_tpu_torch.models', "
+            "'dynesty_tpu_torch.models.priors', "
+            "'dynesty_tpu_torch.models.problems', "
+            "'dynesty_tpu_torch.parallel', "
+            "'dynesty_tpu_torch.parallel.mesh', "
+            "'dynesty_tpu_torch.parallel.telemetry'} <= set(sys.modules); "
             "assert 'jax' not in sys.modules; "
             "assert 'dynesty_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
