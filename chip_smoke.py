@@ -112,11 +112,24 @@ Phases, in order; any failure raises and exits non-zero:
     bit (records, batches, ncall), no kernel launched.
 30. scaling: ``scaling_report(..., q=4096, sizes=(1,))`` for the 3-D
     Gaussian and the heavy likelihood: evaluations/s of the one card.
-31. Device-only times (profiler kernel durations) of every comparison,
+31. pipeline-resume: the default path (multi / unif / bootstrap 5, nlive
+    500) stopped by ``maxiter`` right after a deferred refit moved the
+    bound (the dispatch planned ahead of it holds the bound it was planned
+    on), saved, restored onto the card and resumed: equal to the
+    uninterrupted run bit for bit (records, ``scale``, ``ncall``,
+    ``bound_iter``).  The eggbox under ``multi`` runs instead where the
+    default path has no refit after its first planned dispatch.
+32. example-quickstart: ``examples/torch_quickstart.py`` on the card, its
+    static run within 4 and its dynamic run within 5 logzerr of the truth.
+33. Device-only times (profiler kernel durations) of every comparison,
     and of one 256-lane evaluation of the heavy likelihood.
 
-Each dynamic, blob, host, pool, custom, plot, model, prior, mesh and
-scaling phase prints one JSON line of its own.  The line before the last
+Every drive over ellipsoids prints its refits and the dispatches planned
+ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
+
+Each dynamic, blob, host, pool, custom, plot, model, prior, mesh,
+scaling, pipeline-resume and example phase prints one JSON line of its
+own.  The line before the last
 is a JSON object of the kernels; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -127,6 +140,7 @@ import io
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1290,6 +1304,150 @@ def dynamic_resume_drive(dyt):
     return out
 
 
+@contextlib.contextmanager
+def recording_plans():
+    """Record each dispatch the port plans ahead of its refit: the records
+    so far, and whether the refit that followed moved the bound (the spec
+    then keeps a copy of the bound it was planned on)."""
+    from dynesty_tpu_torch.sampler import Sampler
+    plan = Sampler._plan_ahead
+    plans = []
+
+    def spy(s, *a):
+        plan(s, *a)
+        plans.append((s.it - 1, "bound_used" in s._next_spec))
+    Sampler._plan_ahead = spy
+    try:
+        yield plans
+    finally:
+        Sampler._plan_ahead = plan
+
+
+PIPE_KEYS = ("logl", "logvol", "logwt", "logz", "samples", "samples_u",
+             "samples_it", "samples_id", "samples_n", "samples_birth",
+             "ncall", "bound_iter", "samples_bound", "scale")
+
+
+def pipeline_resume_drive(dyt):
+    """The default path (``NestedSampler(loglike, ptform, 3)``: multi /
+    unif / bootstrap 5) stopped by ``maxiter`` right after a deferred refit
+    moved the bound, its planned spec holding the bound it was planned on;
+    saved, restored onto the card, resumed: equal to the uninterrupted run
+    bit for bit, or raises.  Where the default path has no such refit
+    after its first planned dispatch, the eggbox under ``multi`` runs."""
+    from dynesty_tpu_torch.models import Eggbox
+
+    egg = Eggbox()
+    problems = {"default": (gauss_loglike, box_ptform, NDIM, {}),
+                "eggbox": (egg.loglike, egg.ptform, egg.ndim,
+                           {"bound": "multi"})}
+
+    def make(name):
+        loglike, ptform, ndim, kw = problems[name]
+        return dyt.NestedSampler(
+            loglike, ptform, ndim,
+            rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
+
+    for name in problems:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_plans() as plans:
+            full = make(name)
+            full.run_nested(print_progress=False)
+        torch.cuda.synchronize()
+        wall_full = time.perf_counter() - t0
+        moved = [it for it, snap in plans if snap]
+        if len(moved) >= 2:
+            break
+    else:
+        raise RuntimeError("no refit moved the bound after the first "
+                           "planned dispatch")
+    maxiter = moved[1]
+    # the dlogz of the uninterrupted run's default (with add_live)
+    dlogz = 1e-3 * (full.nlive - 1) + 0.01
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = make(name)
+    s.run_nested(print_progress=False, maxiter=maxiter, add_live=False,
+                 dlogz=dlogz)
+    wall_first = time.perf_counter() - t0
+    spec = pickle.loads(pickle.dumps(s._next_spec))
+    stop = {"at_boundary": s.it - 1 == maxiter and s._leftover is None and
+            s._continuation is None,
+            "spec_keeps_bound": type(spec.get("bound_used")) is
+            type(s.bound) and spec["bound_version_used"] < s.bound_version
+            and spec["bounditer"] == s.nbound - 2}
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "pipeline.pkl")
+        s.save(fname)
+        size = os.path.getsize(fname)
+        del s
+        restored = dyt.NestedSampler.restore(fname)
+    if restored.device.type != "cuda":
+        raise RuntimeError(f"restored on {restored.device}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.run_nested(resume=True, print_progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a, b = full.results, restored.results
+    same = {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+            for k in PIPE_KEYS}
+    same["niter"] = a.niter == b.niter
+    same["ncall_total"] = full.ncall == restored.ncall
+    t = full.timings
+    out = {"problem": name, "config": {
+               "bound": full.bounding, "sample": full.internal_sampler.name,
+               "nlive": full.nlive, "bootstrap": full.bound_bootstrap,
+               "queue_size": full.queue_size, "seed": SEED},
+           "maxiter": maxiter, "boundaries_moved": moved,
+           "niter": int(b.niter), "ncall": int(restored.ncall),
+           "logz": float(b.logz[-1]), "logzerr": float(b.logzerr[-1]),
+           "n_prelaunch": t.get("n_prelaunch", 0),
+           "prelaunch_s": t.get("prelaunch", 0.0),
+           "n_refit": t.get("n_refit", 0), "refit_s": t.get("refit", 0.0),
+           "wall_full_s": wall_full, "wall_first_s": wall_first,
+           "wall_resumed_s": wall, "checkpoint_bytes": size, "stop": stop,
+           "same": same}
+    if not all(same.values()) or not all(stop.values()):
+        raise RuntimeError(f"the pipeline-resume drive differs from the "
+                           f"uninterrupted run: {out}")
+    return out
+
+
+def example_quickstart_phase():
+    """``examples/torch_quickstart.py`` on the card, through its own
+    ``main``: the static run within 4 and the dynamic run within 5 of their
+    errors of the truth.  Its progress bars go to a buffer."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stderr(io.StringIO()):
+        sampler, dns = mod.main(["--outdir", tmp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res, dres = sampler.results, dns.results
+    pulls = [float((r.logz[-1] - mod.logz_truth) / r.logzerr[-1])
+             for r in (res, dres)]
+    out = {"wall_s": wall, "devices": [str(sampler.device),
+                                       str(dns.device)],
+           "niter": int(res.niter), "ncall": int(sampler.ncall),
+           "pull": pulls[0], "dynamic_niter": int(dres.niter),
+           "dynamic_ncall": int(dns.ncall), "dynamic_pull": pulls[1],
+           "batches": int(dns.batch),
+           "n_prelaunch": sampler.timings.get("n_prelaunch", 0)}
+    if out["devices"] != ["cuda", "cuda"] or abs(pulls[0]) >= 4 or \
+            abs(pulls[1]) >= 5:
+        raise RuntimeError(f"the quickstart example failed: {out}")
+    return out
+
+
 def _print_dynamic(name, s, card):
     """One JSON line of a dynamic drive, the card beside it."""
     keys = ("niter", "ncall", "batches", "batch_nlive", "logz", "logzerr",
@@ -1383,6 +1541,15 @@ def _print_unif_drive(name, s, card):
           f"{t.get('total', 0.0):.3f} s  n_dispatch {t.get('n_dispatch', 0)}"
           f"  sync_wave {t.get('sync_wave', 0)}  sync_round "
           f"{t.get('sync_round', 0)}  nc_launched {t.get('nc_launched', 0)}")
+    _print_planning(t)
+
+
+def _print_planning(t):
+    """The refits and the dispatches planned ahead of them."""
+    print(f"  planning: n_prelaunch {t.get('n_prelaunch', 0)}  prelaunch "
+          f"{t.get('prelaunch', 0.0):.4f} s  n_refit {t.get('n_refit', 0)}"
+          f"  refit {t.get('refit', 0.0):.3f} s  refit share of total "
+          f"{t.get('refit', 0.0) / max(t.get('total', 0.0), 1e-9):.4f}")
 
 
 def new_profile(on):
@@ -1425,6 +1592,7 @@ def _print_drive(name, s, counts, card):
           f"sync_wave {t.get('sync_wave', 0)}  sync_round "
           f"{t.get('sync_round', 0)}  final scale {s['scale']:.4f}  "
           f"proposal stats {s['proposal_stats']}")
+    _print_planning(t)
 
 
 @contextlib.contextmanager
@@ -1779,7 +1947,23 @@ def main():
     scaling = scaling_phase(dyt, like)
     print(json.dumps({"phase": "scaling", "card": card, **scaling}))
 
-    # phase 31: device-only times, last: once a profiler has run, every
+    # phase 31: pipeline-resume, the default path stopped right after a
+    # deferred refit moved the bound, resumed on the card
+    _zero_counts(hk)
+    piperesume = pipeline_resume_drive(dyt)
+    piperesume["launches"] = _counts(hk)
+    if hk.pairwise_min_dist.launches != 0:
+        raise RuntimeError("the pipeline-resume drive launched the NN "
+                           "kernel")
+    print(json.dumps(dict({"phase": "pipeline-resume", "card": card},
+                          **piperesume)))
+
+    # phase 32: the quickstart example on the card
+    example = example_quickstart_phase()
+    print(json.dumps(dict({"phase": "example-quickstart", "card": card},
+                          **example)))
+
+    # phase 33: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -1856,6 +2040,8 @@ def main():
                        "eggbox_balls": eggballs, "priors": priors,
                        "mesh_balls": meshballs,
                        "mesh_dynamic3": meshdyn3, "scaling": scaling,
+                       "pipeline_resume": piperesume,
+                       "example_quickstart": example,
                        "build_seconds": log["seconds"]},
                       f, indent=1)
     print(json.dumps(kernels))

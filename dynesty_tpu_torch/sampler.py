@@ -14,7 +14,18 @@ A run stopped by ``maxiter``/``maxcall`` can be re-entered with
 for bit as the uninterrupted run would have: the interrupted round's
 unconsumed proposals are kept and replayed (consume only), and the
 interrupted dispatch's remaining rounds are regenerated from its seed.
-The pipelined pre-launch of the next dispatch is not ported.
+
+Over an ellipsoid bound with a torch likelihood (the JAX package's rule,
+:meth:`Sampler._pipeline_capable`) the sampler plans the next dispatch as
+soon as one is over, on the bound that dispatch ran on, and then runs the
+refit trigger: the refit lags by one dispatch, and the host stream gives the
+dispatch's seed before any bootstrap draw, as in the JAX package's
+pipelined pre-launch.  The planned spec keeps a copy of its bound where
+the refit moved it, and is launched at the loop top like a restored spec,
+so nothing is launched early and a stop wastes no work.  Whether a run
+plans ahead depends only on its dispatches, never on ``maxiter``,
+``maxcall`` or a stop, so a stopped and resumed run stays the
+uninterrupted one.
 
 With blobs (``blob=True``) the live points' blobs ride beside the live
 matrix (``live_blobs`` on the host, stacked; a device copy between
@@ -187,6 +198,7 @@ class Sampler:
         self.live_blobs = live_points[3] if self.blob else None
         self.nlive = len(self.live_u)
         self.live_bound = np.zeros(self.nlive, dtype=int)
+        self._live_bound_marked = np.zeros(self.nlive, dtype=bool)
         self.live_it = np.zeros(self.nlive, dtype=int)
         self.live_birth = np.full(self.nlive, -np.inf)
 
@@ -285,6 +297,7 @@ class Sampler:
         self.live_blobs = live_blobs
         self.nlive = len(live_u)
         self.live_bound = np.zeros(self.nlive, dtype=int)
+        self._live_bound_marked = np.zeros(self.nlive, dtype=bool)
         self.live_it = np.zeros(self.nlive, dtype=int)
         self.live_birth = np.full(self.nlive, -np.inf) \
             if live_birth is None else live_birth
@@ -367,7 +380,9 @@ class Sampler:
         # checkpoints written before blobs, pools and citations existed
         for k, v in (("blob", False), ("live_blobs", None),
                      ("use_pool", {}), ("cite", ""),
-                     ("_dispatch_rec0", None)):
+                     ("_dispatch_rec0", None),
+                     ("_live_bound_marked",
+                      np.zeros(len(state["live_u"]), dtype=bool))):
             state.setdefault(k, v)
         self.__dict__ = state
         self.device = torch.device(state["device"])
@@ -404,6 +419,7 @@ class Sampler:
         self.live_u, self.live_v, self.live_logl = live_points[:3]
         self.live_blobs = live_points[3]
         self.live_bound = np.zeros(self.nlive, dtype=int)
+        self._live_bound_marked = np.zeros(self.nlive, dtype=bool)
         self.live_it = np.zeros(self.nlive, dtype=int)
         self.live_birth = np.full(self.nlive, -np.inf)
         self.logvol_init = logvol_init
@@ -449,22 +465,24 @@ class Sampler:
             self.bound.scale_to_logvol(self.bound.logvol +
                                        np.log(self.bound_enlarge))
 
+    def _refit_due(self, loglstar, ncall):
+        """Whether the refit trigger fires: the first update once
+        unit-cube sampling becomes inefficient, then every
+        ``bound_update_interval`` calls."""
+        if self.unit_cube_sampling:
+            return bool((self.eff < self.first_bound_update_eff
+                         and ncall >= self.first_bound_update_ncall)
+                        or (self.logl_first_update is not None
+                            and loglstar > self.logl_first_update))
+        return ncall >= self.bound_update_interval + \
+            self.ncall_at_last_update
+
     def update_bound_if_needed(self, loglstar, ncall=None, force=False):
-        """First update once unit-cube sampling becomes inefficient, then
-        every ``bound_update_interval`` calls (checked between
-        dispatches)."""
+        """Refit the bound where :meth:`_refit_due` (checked between
+        dispatches) or ``force``."""
         if ncall is None:
             ncall = self.ncall
-        call_check_first = ncall >= self.first_bound_update_ncall
-        call_check = ncall >= self.bound_update_interval + \
-            self.ncall_at_last_update
-        efficiency_check = self.eff < self.first_bound_update_eff
-        if ((self.unit_cube_sampling and efficiency_check
-             and call_check_first)
-                or (not self.unit_cube_sampling and call_check)
-                or (self.unit_cube_sampling
-                    and self.logl_first_update is not None
-                    and loglstar > self.logl_first_update) or force):
+        if force or self._refit_due(loglstar, ncall):
             self._ensure_live_mirror()
             t0 = time.perf_counter()
             subset = self.live_logl > loglstar if loglstar == LOWL_VAL \
@@ -515,7 +533,12 @@ class Sampler:
         enlarge calibration as a linear factor, for the device refit;
         friends centres are uploaded anew every dispatch.  A custom bound
         gives the axes its ``get_random_axes`` drew for the dispatch
-        ``spec`` (a planned dispatch or a continuation)."""
+        ``spec`` (a planned dispatch or a continuation).  A dispatch
+        planned ahead of a refit that moved the bound runs on the copy
+        its spec keeps (``bound_used``), uploaded past the cache."""
+        if spec is not None and spec.get("bound_used") is not None and \
+                spec["bound_version_used"] != self.bound_version:
+            return self._upload_bound(spec["bound_used"], "ellipsoids")
         kind = self.device_bound_kind()
         if kind == "custom":
             return bound_arrays_to_torch(
@@ -523,13 +546,7 @@ class Sampler:
         cached = self._bound_upload
         if cached is None or cached[0] != self.bound_version or \
                 cached[1] != kind:
-            arrays = {} if kind == "cube" else \
-                dict(self.bound.device_spec()[1])
-            if kind == "ellipsoids":
-                arrays["expand"] = getattr(self.bound, "last_expand", 1.0) \
-                    * self.bound_enlarge ** (1.0 / self.ncdim)
-            dev = bound_arrays_to_torch(kind, arrays, self.device,
-                                        self.dtype)
+            dev = self._upload_bound(self.bound, kind)
             self._bound_upload = cached = (self.bound_version, kind, dev)
         dev = cached[2]
         if kind in ("balls", "cubes"):
@@ -538,12 +555,21 @@ class Sampler:
                 device=self.device))
         return dev
 
+    def _upload_bound(self, bound, kind):
+        """``bound``'s arrays on the device, for a bound of ``kind``."""
+        arrays = {} if kind == "cube" else dict(bound.device_spec()[1])
+        if kind == "ellipsoids":
+            arrays["expand"] = getattr(bound, "last_expand", 1.0) \
+                * self.bound_enlarge ** (1.0 / self.ncdim)
+        return bound_arrays_to_torch(kind, arrays, self.device, self.dtype)
+
     def _live_packed(self):
         """Host live mirrors packed as u | v | logl | it | bound | birth."""
         return np.concatenate([
             self.live_u, self.live_v, self.live_logl[:, None],
             self.live_it[:, None].astype(np.float64),
-            self.live_bound[:, None].astype(np.float64),
+            np.where(self._live_bound_marked, -1,
+                     self.live_bound)[:, None].astype(np.float64),
             np.asarray(self.live_birth, dtype=np.float64)[:, None],
         ], axis=1)
 
@@ -556,6 +582,11 @@ class Sampler:
         self.live_logl = np.array(live[:, ndim + npdim], dtype=np.float64)
         self.live_it = live[:, ndim + npdim + 1].astype(int)
         lb = live[:, ndim + npdim + 2].astype(int)
+        # the device keeps the mark on a point born since the last upload,
+        # and a record resolves it to the bound of the dispatch the point
+        # dies in; a re-upload (a restored run) marks it again, so that
+        # its record is the uninterrupted run's
+        self._live_bound_marked = lb < 0
         lb[lb < 0] = bounditer
         self.live_bound = lb
         self.live_birth = np.array(live[:, ndim + npdim + 3],
@@ -606,9 +637,11 @@ class Sampler:
                 est = est3 if est is None else min(est, est3)
         return est
 
-    def _make_dispatch_spec(self, dlogz_eff, loglstar, logl_max=np.inf):
+    def _make_dispatch_spec(self, dlogz_eff, loglstar, logl_max=np.inf,
+                            refit=True):
         """Plan one fused dispatch: run the refit trigger (the only place
-        host refits fire), choose the dispatch's width and active rounds
+        host refits fire; ``refit=False`` leaves it to the caller, who plans
+        ahead of it), choose the dispatch's width and active rounds
         from the remaining-work estimate, and draw the dispatch's seed
         from the host stream.  A bracketed run with less than three
         quarters of a full round left takes the narrow width, so that the
@@ -618,13 +651,14 @@ class Sampler:
         so the dispatch structure is a pure function of pickled state.  It
         records the refit-due ncall (ctrl[21]) it was planned with, and
         the launch uses the recorded value: a spec launched after the
-        sampler's counters have moved (a pre-launched dispatch, once those
-        exist) still runs the gate it was planned with.  The
+        sampler's counters have moved (one planned ahead of its refit)
+        still runs the gate it was planned with.  The
         maxiter/maxcall budgets must not shape the dispatch, for the same
         reason.  Under a custom bound the spec also holds the axes drawn
         from the host stream for the dispatch's proposals."""
-        self.update_bound_if_needed(max(loglstar, np.float64(LOWL_VAL)),
-                                    ncall=self.ncall)
+        if refit:
+            self.update_bound_if_needed(max(loglstar, np.float64(LOWL_VAL)),
+                                        ncall=self.ncall)
         est = self._estimate_remaining(dlogz_eff, loglstar, logl_max)
         q = self._q_full
         if est is not None and est < 0.75 * q and self._q_narrow < q \
@@ -647,6 +681,35 @@ class Sampler:
             spec["custom_axes"] = np.asarray(
                 self.bound.get_random_axes(self.rstate))
         return spec
+
+    def _pipeline_capable(self):
+        """Whether a dispatch that is over plans the next one ahead of the
+        refit trigger (the JAX package's rule): not in the unit-cube phase
+        (its first refit swaps the proposal kernel), not with a host-mode
+        likelihood, and only over ellipsoids (friends and custom bounds
+        take fresh host centres or axes at launch)."""
+        if self.unit_cube_sampling or self.loglikelihood.mode == "host":
+            return False
+        return self.device_bound_kind() == "ellipsoids"
+
+    def _plan_ahead(self, dlogz_eff, loglstar, logl_max):
+        """Plan the next dispatch on the current bound, then run the refit
+        trigger: the JAX package's pre-launch order (the seed is drawn
+        before any bootstrap draw).  Where the refit will move the bound,
+        the spec keeps a copy of the bound it was planned on.  The spec
+        waits in ``_next_spec`` and is launched at the loop top."""
+        t0 = time.perf_counter()
+        loglstar_round = max(loglstar, np.float64(LOWL_VAL))
+        spec = self._make_dispatch_spec(dlogz_eff, loglstar, logl_max,
+                                        refit=False)
+        spec["bounditer"] = self.nbound - 1
+        if self._refit_due(loglstar_round, self.ncall):
+            spec["bound_used"] = copy.deepcopy(self.bound)
+            spec["bound_version_used"] = self.bound_version
+        self._next_spec = spec
+        self.timings.add("prelaunch", time.perf_counter() - t0)
+        self.timings.count("n_prelaunch")
+        self.update_bound_if_needed(loglstar_round, ncall=self.ncall)
 
     # ------------------------------------------------------------------
     # proposal queue (non-fused rounds)
@@ -744,7 +807,9 @@ class Sampler:
         :class:`IteratorBlock` per dispatch with ``per_dispatch=True``.
 
         Synchronous: launch a dispatch, wait for its flat result, append
-        its records, then run the refit trigger before the next one.
+        its records and run the refit trigger before the next one; over
+        ellipsoids the next one is planned before that refit
+        (:meth:`_plan_ahead`).
 
         A stop by ``maxiter``/``maxcall`` sets ``interrupted_budget`` and
         keeps what the stopped dispatch left: ``sample(resume=True)``
@@ -860,6 +925,9 @@ class Sampler:
                     prop_blob, integ, limits,
                     kills0=self._leftover["kills"],
                     birth0=self._leftover["birth0"])
+                # the interrupted dispatch's bound, which a refit planned
+                # behind it may have moved on from
+                bounditer = self._leftover.get("bounditer", bounditer)
                 skip_off = 0
                 dispatch_spec = None
                 self.timings.count("n_replay")
@@ -871,6 +939,7 @@ class Sampler:
                 cont = self._continuation
                 self._continuation = None
                 self.queue_size = cont["queue_size"]
+                bounditer = cont.get("bounditer", bounditer)
                 upload_live()
                 out, live_out, blob_out = self.internal_sampler.run_fused(
                     self, cont["key_seed"], self._live_dev,
@@ -896,6 +965,10 @@ class Sampler:
                     # a refit may have run: the first one swaps the bound
                     bounditer = 0 if self.unit_cube_sampling \
                         else self.nbound - 1
+                else:
+                    # a spec planned ahead names the bound it runs on,
+                    # which the refit behind it may have moved on from
+                    bounditer = spec.get("bounditer", bounditer)
                 self.queue_size = spec["queue_size"]
                 axes_args = self.device_bound_arrays(spec)
                 upload_live()
@@ -966,14 +1039,19 @@ class Sampler:
                             "queue_size": qr,
                             "refit_due_ncall":
                                 dispatch_spec["refit_due_ncall"]}
-                    if "custom_axes" in dispatch_spec:
-                        cont["custom_axes"] = dispatch_spec["custom_axes"]
+                    # the dispatch's own bound: axes drawn for it, or the
+                    # copy of the bound it was planned on
+                    for k in ("custom_axes", "bounditer", "bound_used",
+                              "bound_version_used"):
+                        if k in dispatch_spec:
+                            cont[k] = dispatch_spec[k]
                 if len(props):
                     kept_nc = int(props[:, nc_col].sum())
                     # births of the refills made while replaying the tail:
                     # the interrupted round's threshold
                     self._leftover = {
                         "prop": props, "kills": kills, "cont": cont,
+                        "bounditer": bounditer,
                         "birth0": float(out["round_thresholds"][r0]),
                         "blob": tree_map(
                             lambda b: b[g:lo_end].cpu().numpy(),
@@ -1036,9 +1114,15 @@ class Sampler:
                 # a continuation is work never launched: nothing to bill
                 self._continuation = None
                 self._next_spec = None
+                # nothing is launched ahead of its turn, so none strands
+                self.timings.count("nc_stranded_pipeline", 0)
             if self._leftover is None and self._continuation is None:
                 self._nc_accum_carry = 0  # the dispatch is over
                 self.internal_sampler.end_dispatch()
+                if not terminal and self._pipeline_capable():
+                    # whatever stopped inside this dispatch has been
+                    # replayed by now: the state is the uninterrupted run's
+                    self._plan_ahead(dlogz_eff, loglstar, logl_max)
             elif has_records:
                 self._nc_accum_carry = nc_round - staged_nc
             else:

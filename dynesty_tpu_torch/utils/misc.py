@@ -34,11 +34,16 @@ class Timings(dict):
     Seconds (float): ``dispatch`` (blocked in fused device calls,
     device execution and the flat-result download included),
     ``consume`` (host record bookkeeping), ``refit`` (host bound refits),
-    ``mirror`` (device->host live-state downloads), ``add_live``,
-    ``integrals``, ``total``.
+    ``prelaunch`` (planning a dispatch ahead of its refit and keeping a
+    copy of its bound), ``mirror`` (device->host live-state downloads),
+    ``add_live``, ``integrals``, ``total``.
 
-    Counts (int): ``n_dispatch``, ``n_refit``, ``nc_launched`` and the
-    host synchronisations forced by data-dependent loops:
+    Counts (int): ``n_dispatch``, ``n_refit``, ``n_prelaunch``
+    (dispatches planned ahead of their refit), ``nc_stranded_pipeline``
+    (evaluations of a planned dispatch stranded by a terminal stop: always
+    0, since a planned dispatch is launched only in its turn),
+    ``nc_launched`` and the host synchronisations forced by data-dependent
+    loops:
     ``sync_wave`` (one per rejection wave of the uniform kernels),
     ``sync_slice`` (one per slice state-machine iteration; in doubling
     mode one per expansion, per shrink and per halving of the acceptance

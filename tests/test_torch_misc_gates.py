@@ -1,7 +1,8 @@
 """End-to-end gates of ``tests/test_misc.py`` held on the port, on the
 CPU: an early first bound update, the refit cadence of
-``update_interval``, the cost of repeated full batches, and batches whose
-live count differs from the base run's.  Each test keeps the JAX
+``update_interval``, the cost of repeated full batches, batches whose
+live count differs from the base run's, and dispatches planned ahead of
+their refit.  Each test keeps the JAX
 package's name, configuration and gate; the problem is the 3-D correlated
 Gaussian written in torch.
 """
@@ -97,3 +98,20 @@ def test_update_interval_semantics():
         sampler.run_nested(print_progress=False)
         nbounds.append(sampler.nbound)
     assert nbounds[0] > nbounds[1]
+
+
+def test_pipelining_engages():
+    """Regression gate for ``_pipeline_capable``: an ellipsoid-bound run
+    with a traceable likelihood plans dispatches ahead of their refit, and
+    a natural (dlogz-terminated) stop strands no planned work."""
+    loglike, ptform = _gau()
+    s = dyt.NestedSampler(loglike, ptform, NDIM, nlive=200, bound="single",
+                          sample="unif", rstate=get_rstate(), queue_size=32,
+                          device="cpu")
+    s.run_nested(print_progress=False)
+    t = s.timings
+    assert t.get("n_prelaunch", 0) >= 1, \
+        f"dispatches were never planned ahead: {dict(t)}"
+    assert t["prelaunch"] >= 0.0
+    # the run above terminated on dlogz: no planned dispatch was stranded
+    assert t.get("nc_stranded_pipeline", 0) == 0

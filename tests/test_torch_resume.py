@@ -6,6 +6,7 @@ uninterrupted run bit for bit (the invariant of ``tests/test_resume.py``),
 Tolerance: none.  Every comparison below is ``np.array_equal`` or ``==``.
 """
 
+import copy
 import os
 import pickle
 import warnings
@@ -139,8 +140,13 @@ def test_stop_inside_a_chained_dispatch(mode):
     cont = s._leftover["cont"]
     assert cont is not None and cont["skip"] >= 1
     assert cont["rounds"] > cont["skip"]
+    # the dispatch was planned ahead of the refit that followed it: the
+    # continuation runs on the copy of the bound it was planned on
     assert set(cont) == {"key_seed", "skip", "rounds", "queue_size",
-                         "refit_due_ncall"}
+                         "refit_due_ncall", "bounditer", "bound_used",
+                         "bound_version_used"}
+    assert cont["bound_version_used"] < s.bound_version
+    assert cont["bounditer"] == s.nbound - 2
     assert 0 < len(s._leftover["prop"]) < s.queue_size
     ncall_stop = s.ncall
     s2 = pickle.loads(pickle.dumps(s))
@@ -281,6 +287,18 @@ def test_format_version_is_checked(tmp_path):
                      "format_version": checkpoint.FORMAT_VERSION + 1}, fp)
     with pytest.raises(ValueError, match="format version"):
         dyt.NestedSampler.restore(fname)
+    # format 3 stays: a spec planned ahead of its refit is a pickled dict
+    # that carries the copy of its bound, and loads with it
+    assert checkpoint.FORMAT_VERSION == 3 and checkpoint._READABLE == (2, 3)
+    s._next_spec = {"key_seed": 1, "queue_size": 32, "rounds_active": None,
+                    "refit_due_ncall": 2.0 ** 30, "bounditer": 0,
+                    "bound_used": copy.deepcopy(s.bound),
+                    "bound_version_used": s.bound_version - 1}
+    s.save(fname)
+    with open(fname, "rb") as fp:
+        assert pickle.load(fp)["format_version"] == 3
+    snap = dyt.NestedSampler.restore(fname)._next_spec["bound_used"]
+    assert type(snap) is type(s.bound) and snap is not s.bound
     # a failed write leaves neither the file nor its temporary behind
     bad = str(tmp_path / "bad.pkl")
     s.loglikelihood.loglikelihood = lambda x: x  # a lambda does not pickle
@@ -300,7 +318,14 @@ def test_dispatch_spec_carries_its_refit_due_ncall():
             # stop between two dispatches, once the bound has split
             if getattr(s.bound, "nells", 1) > 1 and s.it > 400:
                 break
-    assert s._leftover is None and s._next_spec is None
+    # over ellipsoids the next dispatch was planned before its refit,
+    # with the refit-due ncall of that moment
+    planned = s._next_spec
+    assert s._leftover is None and planned is not None
+    assert planned["refit_due_ncall"] <= s.ncall_at_last_update + \
+        s.bound_update_interval
+    # plan it again, as the loop top would without a planned spec
+    s._next_spec = None
     loglstar = s._integ["loglstar"]
     spec = s._make_dispatch_spec(0.01, loglstar)
     assert set(spec) == {"key_seed", "queue_size", "rounds_active",
@@ -329,7 +354,9 @@ def test_dispatch_spec_carries_its_refit_due_ncall():
         warnings.simplefilter("ignore")
         next(s.sample(dlogz=0.01, resume=True, per_dispatch=True))
     assert seen == [(spec["key_seed"], spec["refit_due_ncall"])]
-    assert s._next_spec is None
+    # consumed: the spec waiting now is the next dispatch's own
+    assert s._next_spec is not None and \
+        s._next_spec["key_seed"] != spec["key_seed"]
     # the other kernels never arm the gate
     r = _sampler("single", "rwalk", "batch")
     assert r._make_dispatch_spec(0.01, -1e300)["refit_due_ncall"] == 2.0 ** 30
