@@ -7,11 +7,29 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Require CUDA; print the card's name and power limit, the torch/CUDA
-   versions, and build the CUDA kernels from ``dynesty_tpu_torch/csrc``.
+   versions, and build the CUDA kernels from ``dynesty_tpu_torch/csrc``
+   (one ``nvcc`` for each source, all started together).
 2. Compare each kernel path with its plain PyTorch version on the card at
    the shapes the main path gives it and beyond (a shifted cloud, as
    whitened late-run live points look, and p=inf among them), timing the
    kernel, the plain version and a library yardstick with CUDA events.
+   Then the consume scan (``consume_phase``): fused rounds over a fixed
+   proposal block, each run through the ``consume_scan`` kernel and
+   through the plain loop on the same CUDA tensors, at (nlive, q) = (64,
+   16), (2048, 256) and (3000, 256) in batch mode and (64, 16), (1000,
+   256) in queue mode: thin, thin on a plateau, a proposal below the
+   threshold, two rounds, one of two rounds active, a ``max_accepts``
+   stop, a ``dlogz`` stop at the first and at the middle step, a replay
+   round (``kills0`` 5, ``birth0``) and a live set of -inf; every batch
+   round that does not stop also with the thin path forbidden
+   (``_FORCE_GENERAL_CONSUME``), which must give the thin path's bits;
+   two float32 rounds.  Every column, counter and the live matrix must be
+   bit-identical (the integrator columns counted, and held to 1e-12
+   relative where a bit differs).  The kernel's integrator step against
+   ``progress_integration_torch`` on 10^6 states, a quarter at the edges
+   (-inf, -1e300), in float64 and float32: the bit-identical share.  The
+   time of one consume round (events, warm), kernel and plain, at the
+   full-width shapes, thin and general.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -126,6 +144,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
+Every drive counts the consume kernel's launches, split into thin and
+general on the device, from zero just before it to just after: they must
+equal the fused rounds its samplers consumed (their ``n_round``), and be
+at least one; one JSON line lists them by drive.
 
 Each dynamic, blob, host, pool, custom, plot, model, prior, mesh,
 scaling, pipeline-resume and example phase prints one JSON line of its
@@ -145,12 +167,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from dynesty_tpu_torch.bounding import Bound  # noqa: E402
+from dynesty_tpu_torch.ops import consume as cs  # noqa: E402
 
 NDIM = 3
 SEED = 56432
@@ -176,6 +200,7 @@ COMPARES = [
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12
 SOURCE = "dynesty_tpu_torch/csrc/pairwise_min_dist.cu"
+CONSUME_SOURCE = "dynesty_tpu_torch/csrc/consume_scan.cu"
 # the JAX package's heavy bench (bench.py): a 3-D correlated Gaussian plus
 # a tanh matvec chain of this width and depth, at this live-point count
 H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
@@ -289,15 +314,45 @@ def time_compare(hk, rec, n, d, p, shift, path):
                                  20 if big else 200)
 
 
+# fused rounds consumed since the counts were last zeroed, tallied from
+# every sampler's Timings (its 'n_round' count) by count_rounds()
+_ROUNDS = [0]
+
+
+def count_rounds():
+    """Tally into ``_ROUNDS`` every fused round any sampler consumes."""
+    from dynesty_tpu_torch.utils.misc import Timings
+    count = Timings.count
+
+    def counting(self, key, n=1):
+        if key == "n_round":
+            _ROUNDS[0] += n
+        count(self, key, n)
+
+    Timings.count = counting
+
+
 def _zero_counts(hk):
     k = hk.pairwise_min_dist
     k.launches = k.launches_exact = k.launches_tc = 0
+    cs.zero_counts()
+    _ROUNDS[0] = 0
 
 
 def _counts(hk):
+    """Every kernel's launches since :func:`_zero_counts`; raises unless
+    every fused round consumed since went through the consume kernel."""
     k = hk.pairwise_min_dist
-    return {"launches": k.launches, "exact": k.launches_exact,
-            "tc": k.launches_tc}
+    paths = cs.path_counts()
+    out = {"launches": k.launches, "exact": k.launches_exact,
+           "tc": k.launches_tc, "consume": cs.consume_round.launches,
+           "consume_thin": paths["thin"],
+           "consume_general": paths["general"], "rounds": _ROUNDS[0]}
+    if out["consume"] != out["rounds"] or \
+            paths["thin"] + paths["general"] != out["consume"]:
+        raise RuntimeError(f"fused rounds and consume kernel launches "
+                           f"differ: {out}")
+    return out
 
 
 # the 3-D correlated Gaussian at module level, so that a sampler over it
@@ -1658,6 +1713,343 @@ def refit_drive(dyt, hk):
             "refit_max_abs_err": check_refits(hk, calls, "refit drive")}
 
 
+# --------------------------------------------------------------------------
+# the consume scan: the kernel against its plain version, round by round
+
+C_NDIM = C_NPDIM = 2
+C_IL = C_NDIM + C_NPDIM
+# (nlive, q, mode) of the comparisons: the port's test size, then the
+# drives' widths (balls 2048 / 256, heavy 3000 / 256, queue mode at 1000)
+CONSUME_SHAPES = [(64, 16, "batch"), (2048, 256, "batch"),
+                  (3000, 256, "batch"), (64, 16, "queue"),
+                  (1000, 256, "queue")]
+# name: (state kwargs, rounds, ctrl kwargs); every batch case that does
+# not stop also runs with the thin path forbidden
+# (_FORCE_GENERAL_CONSUME), which must give the same bits
+CONSUME_CASES = {
+    "batch": {
+        "thin": ({}, 1, {}),
+        "thin_plateau": ({"plateau": True}, 1, {}),
+        "below_threshold": ({"below": True}, 1, {}),
+        "two_rounds": ({}, 2, {}),
+        "one_of_two_rounds_active": ({}, 2, {"rounds_active": 1}),
+        "max_accepts_stop": ({}, 1, {"max_accepts": 5}),
+        "dlogz_stop": ({}, 1, {"dlogz": 1e3}),
+        "dlogz_stop_mid_round": ({}, 1, {"dlogz": "mid"}),
+        "replay": ({"below": True}, 1, {"kills0": 5}),
+        "all_neg_inf": ({"neg_inf": True}, 1, {"dlogz": -np.inf}),
+    },
+    "queue": {
+        "queue": ({"below": True}, 1, {}),
+        "queue_replay": ({"below": True}, 1, {"replay": True}),
+        "queue_dlogz_stop_mid_round": ({}, 1, {"dlogz": "mid"}),
+        "queue_all_neg_inf": ({"neg_inf": True}, 1, {"dlogz": -np.inf}),
+    },
+}
+# the integrator columns of the records, compared bit for bit and, where a
+# bit differs, to this relative tolerance
+CONSUME_FLOAT_COLS = ("logvol", "logwt", "logz", "logzvar", "h")
+CONSUME_RTOL = 1e-12
+INTEGRATOR_SWEEP = 10 ** 6
+
+
+def consume_state(nlive, q, plateau=False, below=False, neg_inf=False):
+    """A live matrix (u | v | logl | it | bound | birth) and a proposal
+    block (u | v | logl | nc | 2 lane stats) above the round's threshold,
+    from the seed with numpy (``tests/test_torch_fused.py``'s state)."""
+    rs = np.random.Generator(np.random.PCG64(SEED))
+    logl = rs.normal(size=nlive) * 2.0
+    if plateau:
+        logl = np.round(logl)  # ties everywhere, into the kill set
+    if neg_inf:
+        logl[:] = -np.inf
+    u = rs.random((nlive, C_NDIM))
+    live = np.concatenate([
+        u, 10.0 * u, logl[:, None],
+        rs.integers(0, 50, nlive)[:, None].astype(float),
+        np.zeros((nlive, 1)), np.full((nlive, 1), -1e30)], axis=1)
+    srt = np.sort(logl)
+    if neg_inf:
+        thr = -1e30
+    elif srt[q - 1] < srt[-1]:
+        thr = srt[q - 1]
+    else:
+        thr = srt[srt < srt[-1]][-1]
+    qlogl = thr + np.abs(rs.normal(size=q)) * 3.0 + 1e-3
+    if below:
+        qlogl[q // 3] = thr - 1.0  # one proposal under the threshold
+    qu = rs.random((q, C_NDIM))
+    prop = np.concatenate([qu, 10.0 * qu, qlogl[:, None],
+                           rs.integers(1, 30, q)[:, None].astype(float),
+                           rs.integers(0, 9, (q, 2)).astype(float)], axis=1)
+    return live, prop
+
+
+def consume_ctrl(rounds_active=1, dlogz=0.01, max_accepts=2 ** 30, kills0=0,
+                 birth0=-1e30):
+    """The control vector of ``launch_fused`` (fresh integrator)."""
+    return np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0,
+                     dlogz, np.inf, float(max_accepts), 2.0 ** 30, 1.0,
+                     float(kills0), float(rounds_active), birth0, 0.0, 0.0,
+                     0.0, 0.0, 2.0 ** 30])
+
+
+def run_fixed_round(live, prop, rounds, mode, ctrl, kind="fixed",
+                    dtype=torch.float64, plain=False, force_general=False):
+    """One fused dispatch on the card over a fixed proposal block (the
+    pattern of the replay round): the consume kernel, or with ``plain``
+    the eager loop on the same CUDA tensors.  Returns (flat, live out) on
+    the host and the layout."""
+    import dynesty_tpu_torch.internal.fused as fused_mod
+    from dynesty_tpu_torch.ops import consume as cs
+
+    q, nlive = prop.shape[0], live.shape[0]
+    prop_t = torch.as_tensor(prop, dtype=dtype, device="cuda")
+
+    def propose(gen, live_, live_blob, axes_args, scale, loglstar):
+        p = axes_args["prop"]
+        return (p[:, :C_NDIM], p[:, C_NDIM:C_IL], p[:, C_IL], None,
+                p[:, C_IL + 1].to(torch.int64), (p[:, C_IL + 2].sum(),),
+                p[:, C_IL + 2:C_IL + 4])
+
+    fn, layout = fused_mod.make_fused_round(
+        propose, nlive=nlive, ndim=C_NDIM, npdim=C_NPDIM, q=q, dtype=dtype,
+        device="cuda", kind=kind, rounds=rounds, mode=mode)
+    saved = fused_mod.consume_round, fused_mod._FORCE_GENERAL_CONSUME
+    if plain:
+        fused_mod.consume_round = cs.consume_round_plain
+    fused_mod._FORCE_GENERAL_CONSUME = force_general
+    try:
+        flat, _, live_out, _, _, _ = fn(
+            0, torch.as_tensor(live, dtype=dtype, device="cuda"), None,
+            {"prop": prop_t}, ctrl)
+        torch.cuda.synchronize()
+    finally:
+        fused_mod.consume_round, fused_mod._FORCE_GENERAL_CONSUME = saved
+    return flat.cpu().numpy(), live_out.cpu().numpy(), layout
+
+
+def _same_bits(a, b):
+    """Elementwise: the same bits, or both NaN."""
+    ints = np.int64 if a.dtype == np.float64 else np.int32
+    return (a.view(ints) == b.view(ints)) | (np.isnan(a) & np.isnan(b))
+
+
+def compare_flat(got, ref, layout):
+    """Kernel against plain: every integer and copied column, the counters
+    and the live matrix bit for bit; the integrator columns counted bit
+    for bit and held to :data:`CONSUME_RTOL` where a bit differs.
+    ``got``/``ref`` are (flat, live).  Raises on a miss."""
+    from dynesty_tpu_torch.internal.fused import record_columns, unpack_flat
+
+    g, r = unpack_flat(got[0], layout), unpack_flat(ref[0], layout)
+    cols = record_columns(C_NDIM, C_NPDIM)
+    fcols = [i for i, c in enumerate(cols) if c in CONSUME_FLOAT_COLS]
+    ecols = [i for i in range(len(cols)) if i not in fcols]
+    exact = {
+        "records": bool(_same_bits(g["records"][:, ecols],
+                                   r["records"][:, ecols]).all()),
+        "live": bool(_same_bits(got[1], ref[1]).all()),
+        "accepts": bool(np.array_equal(g["accepts"], r["accepts"])),
+        "counters": all(g[k] == r[k] for k in (
+            "n_accepted", "nc_used", "done", "n_consumed", "done_reason",
+            "scale_final", "nc_launched")),
+        "integ_counts": all(g["integ"][k] == r["integ"][k] for k in (
+            "plateau_mode", "plateau_counter", "it")),
+    }
+    fg = np.concatenate([g["records"][:, fcols].ravel(), g["delta_logz"],
+                         [g["integ"][k] for k in ("logz", "logzvar", "h",
+                                                  "logvol", "loglstar",
+                                                  "plateau_logdvol")]])
+    fr = np.concatenate([r["records"][:, fcols].ravel(), r["delta_logz"],
+                         [r["integ"][k] for k in ("logz", "logzvar", "h",
+                                                  "logvol", "loglstar",
+                                                  "plateau_logdvol")]])
+    fg, fr = fg.astype(got[0].dtype), fr.astype(got[0].dtype)
+    same = _same_bits(fg, fr)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        diff = np.abs(fg.astype(np.float64) - fr)
+        rel = np.where(same, 0.0, diff / np.abs(fr.astype(np.float64)))
+    rel = np.nan_to_num(rel, nan=np.inf)
+    out = {"exact": exact, "float_identical": int(same.sum()),
+           "float_total": int(same.size),
+           "max_rel_err": float(rel.max()),
+           "max_abs_err": float(np.where(same, 0.0, diff).max()),
+           "done_reason": int(g["done_reason"]),
+           "n_accepted": int(g["n_accepted"])}
+    if not all(exact.values()) or out["max_rel_err"] > CONSUME_RTOL:
+        raise RuntimeError(f"the consume kernel disagrees with its plain "
+                           f"version: {out}")
+    return out
+
+
+def consume_case(nlive, q, mode, name, dtype=torch.float64):
+    """One case at one shape: the kernel against the plain version, and in
+    batch mode (but replay) the kernel's general path against its thin
+    path.  Returns the comparison record."""
+    kw, rounds, ckw = CONSUME_CASES[mode][name]
+    ckw = dict(ckw)
+    live, prop = consume_state(nlive, q, **kw)
+    kind = "replay" if "kills0" in ckw or ckw.pop("replay", False) \
+        else "fixed"
+    if kind == "replay":
+        srt = np.sort(live[:, C_IL])
+        ckw["birth0"] = float(srt[q - 1] if mode == "batch" else srt[0])
+    if ckw.get("dlogz") == "mid":
+        # stop where the round's delta_logz first falls below its value at
+        # the middle step: lands one step elsewhere on any bit of drift
+        ckw["dlogz"] = -np.inf
+        flat, _, layout = run_fixed_round(live, prop, rounds, mode,
+                                          consume_ctrl(**ckw), kind, dtype,
+                                          plain=True)
+        from dynesty_tpu_torch.internal.fused import unpack_flat
+        ckw["dlogz"] = float(np.nextafter(
+            unpack_flat(flat, layout)["delta_logz"][q // 2], np.inf))
+    ctrl = consume_ctrl(**ckw)
+    ref = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype,
+                          plain=True)
+    got = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype)
+    out = {"nlive": nlive, "q": q, "mode": mode, "case": name,
+           "dtype": str(dtype).split(".")[-1]}
+    out.update(compare_flat(got[:2], ref[:2], got[2]))
+    if mode == "batch" and kind != "replay" and "stop" not in name:
+        # past a stop the two paths fill the unaccepted rows differently
+        gen = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype,
+                              force_general=True)
+        ref_gen = run_fixed_round(live, prop, rounds, mode, ctrl, kind,
+                                  dtype, plain=True, force_general=True)
+        compare_flat(gen[:2], ref_gen[:2], gen[2])
+        out["general_equals_thin"] = bool(
+            _same_bits(gen[0], got[0]).all() and
+            _same_bits(gen[1], got[1]).all())
+        if not out["general_equals_thin"]:
+            raise RuntimeError(f"the consume kernel's general path differs "
+                               f"from its thin path: {out}")
+    return out
+
+
+def integrator_sweep(dtype=torch.float64, n=INTEGRATOR_SWEEP):
+    """``n`` random integrator states, a share of them at the edges (-inf
+    logl, -inf logz, equal infinities, a first step from -1e300), through
+    the kernel's device integrator step and through
+    ``progress_integration_torch`` on the card: the bit-identical share."""
+    from dynesty_tpu_torch.ops import consume as cs
+    from dynesty_tpu_torch.ops.integrals import progress_integration_torch
+
+    rs = np.random.Generator(np.random.PCG64(SEED))
+    loglstar = rs.normal(size=n) * 30.0
+    loglstar_new = loglstar + np.abs(rs.normal(size=n)) * 3.0
+    logvol = -np.abs(rs.normal(size=n)) * 20.0
+    dlogvol = 10.0 ** rs.uniform(-7.0, 0.5, size=n)
+    logz = loglstar + rs.normal(size=n) * 5.0
+    logzvar = np.abs(rs.normal(size=n)) * 0.1
+    h = np.abs(rs.normal(size=n)) * 5.0
+    edge = rs.integers(0, 20, size=n)  # a quarter at the edges
+    loglstar[edge == 1] = -np.inf
+    loglstar_new[edge == 2] = -np.inf
+    loglstar[edge == 2] = -np.inf
+    logz[edge == 3] = -1e300
+    logz[edge == 4] = -np.inf
+    loglstar[edge == 5] = -1e300
+    args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in (
+        loglstar, loglstar_new, logz, logzvar, logvol, dlogvol, h)]
+    got = cs.integrator_step(*args)
+    ref = progress_integration_torch(*args)
+    torch.cuda.synchronize()
+    same = [_same_bits(g.cpu().numpy(), r.cpu().numpy())
+            for g, r in zip(got, ref)]
+    out = {"states": n, "dtype": str(dtype).split(".")[-1],
+           "identical_share": {k: float(s.mean()) for k, s in zip(
+               ("logwt", "logz", "logzvar", "h"), same)},
+           "edge_states": int(((edge > 0) & (edge < 6)).sum())}
+    return out
+
+
+def consume_times(nlive, q, mode, thin, iters=20):
+    """Per-call times (CUDA events, warm) of one consume round through the
+    kernel's wrapper and through the plain version, on the state of the
+    'thin' case (``thin``: the round may take the thin path)."""
+    from dynesty_tpu_torch.ops import consume as cs
+
+    live, prop = consume_state(nlive, q)
+    live_logl = torch.as_tensor(live[:, C_IL], device="cuda")
+    qlogl = torch.as_tensor(prop[:, C_IL], device="cuda")
+    qnc = torch.as_tensor(prop[:, C_IL + 1], device="cuda").to(torch.int64)
+    f = torch.zeros((), dtype=torch.float64, device="cuda")
+    i = torch.zeros((), dtype=torch.int64, device="cuda")
+    b = torch.zeros((), dtype=torch.bool, device="cuda")
+    st = {k: (f - 1e30 if k in ("logz", "loglstar") else f)
+          for k in cs.FLOAT_KEYS}
+    st.update({k: (b if k in cs.BOOL_KEYS else i) for k in cs.INT_KEYS})
+    limits = {"dlogz": -math.inf, "logl_max": math.inf,
+              "max_accepts": 2 ** 30, "max_nc": 2 ** 30}
+    sorted_logl, sort_idx = torch.sort(live_logl, stable=True)
+    th = (sort_idx, sorted_logl, torch.ones((), dtype=torch.bool,
+                                            device="cuda")) if thin else None
+    kw = dict(batch=mode == "batch",
+              dlv_default=float(np.log1p(1.0 / nlive)), thin=th)
+    ms = _time_ms(lambda: cs.consume_round(st, live_logl, qlogl, qnc,
+                                           limits, **kw), iters)
+    plain_ms = _time_ms(lambda: cs.consume_round_plain(
+        st, live_logl, qlogl, qnc, limits, **kw), 2)
+    return {"nlive": nlive, "q": q, "mode": mode,
+            "path": "thin" if thin else "general", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": consume_bound_ms(nlive, q)}
+
+
+def consume_bound_ms(nlive, q):
+    """Bytes in (the live logl, the proposals' logl and nc, the sorted
+    logl and indices and tie counts of the thin path) and out (the 12
+    per-step columns) at the card's memory rate; the operations (a few
+    dozen a step and nlive compares a step) are far below.  The real
+    limit is the chain of q dependent steps, which this does not see."""
+    by = nlive * 8 + q * 16 + nlive * 16 + q * 8 + q * (8 * 8 + 3 * 8 + 1)
+    return 1e3 * by / HBM_BYTES
+
+
+def consume_phase(card):
+    """Every case at every shape (float64), a float32 round at the main
+    width, the integrator sweep and the times; prints one line each and
+    returns the records."""
+    cases = []
+    for nlive, q, mode in CONSUME_SHAPES:
+        for name in CONSUME_CASES[mode]:
+            rec = consume_case(nlive, q, mode, name)
+            cases.append(rec)
+            print(f"consume {mode} ({nlive}, {q}) {name}: float columns "
+                  f"bit-identical {rec['float_identical']}/"
+                  f"{rec['float_total']}  max rel err "
+                  f"{rec['max_rel_err']:.3e}  reason {rec['done_reason']}"
+                  f"  accepted {rec['n_accepted']}"
+                  + (f"  general == thin {rec['general_equals_thin']}"
+                     if "general_equals_thin" in rec else "") + f"  [{card}]")
+    for name in ("thin", "below_threshold"):
+        rec = consume_case(2048, 256, "batch", name, dtype=torch.float32)
+        cases.append(rec)
+        print(f"consume float32 batch (2048, 256) {name}: bit-identical "
+              f"{rec['float_identical']}/{rec['float_total']}  [{card}]")
+    sweep = [integrator_sweep(dt) for dt in (torch.float64, torch.float32)]
+    for s in sweep:
+        print(f"integrator step, {s['states']} states ({s['edge_states']} "
+              f"at the edges), {s['dtype']}: bit-identical share "
+              f"{s['identical_share']}  [{card}]")
+    times = [consume_times(nlive, q, mode, thin)
+             for nlive, q, mode in CONSUME_SHAPES[1:] if q == 256
+             for thin in ((True, False) if mode == "batch" else (False,))]
+    for t in times:
+        print(f"consume round {t['mode']} ({t['nlive']}, {t['q']}) "
+              f"{t['path']}: kernel {t['ms']:.4f} ms  plain "
+              f"{t['plain_ms']:.1f} ms  bound {t['bound_ms']:.6f} ms "
+              f"(bytes)  [{card}]")
+    ident = sum(c["float_identical"] for c in cases)
+    total = sum(c["float_total"] for c in cases)
+    print(f"consume: {len(cases)} rounds, float columns bit-identical "
+          f"{ident}/{total}  [{card}]")
+    return {"cases": cases, "integrator_sweep": sweep, "times": times,
+            "float_identical": ident, "float_total": total,
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
@@ -1682,13 +2074,20 @@ def main():
     # the library yardstick's matmul form in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # phase 1: build every kernel of the path from the checkout's sources
+    # phase 1: build every kernel of the path from the checkout's sources,
+    # one nvcc for each, all started together
     t0 = time.perf_counter()
-    build.load_library("pairwise_min_dist")
-    log = build.build_log["pairwise_min_dist"]
-    print(f"build pairwise_min_dist: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {log['seconds']:.2f} s)")
-    print(log["output"].strip())
+    libs = {"pairwise_min_dist": (), "consume_scan": cs.NVCC_FLAGS}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        for fut in [ex.submit(build.load_library, name, flags=flags)
+                    for name, flags in libs.items()]:
+            fut.result()
+    for name in libs:
+        log = build.build_log[name]
+        print(f"build {name}: nvcc {log['seconds']:.2f} s")
+        print(log["output"].strip())
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    count_rounds()
 
     # phase 2: each kernel path against its plain version on the card, all
     # checked (and so warmed up) before any is timed
@@ -1703,6 +2102,10 @@ def main():
               f"{c['library_ms']:.4f} ms  bound {c['bound_ms']:.5f} ms  "
               f"[{card}]")
 
+    # phase 2b: the consume scan against its plain version, round by
+    # round, on the same inputs
+    consume = consume_phase(card)
+
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
     prof = new_profile(args.profile == "balls")
@@ -1711,8 +2114,9 @@ def main():
         main, main_sampler = drive(dyt, 2048, "balls", profile=prof)
     main["launches"] = _counts(hk)
     main["refit_max_abs_err"] = check_refits(hk, calls, "balls drive")
-    if main["launches"]["exact"] < 1:
-        raise RuntimeError("the balls drive never launched the exact path")
+    if main["launches"]["exact"] < 1 or main["launches"]["consume"] < 1:
+        raise RuntimeError(f"the balls drive did not launch every kernel "
+                           f"of its path: {main['launches']}")
     _print_drive("main balls/rslice nlive=2048", main, main["launches"],
                  card)
     print(f"balls refits against the plain version: max abs err "
@@ -1744,7 +2148,8 @@ def main():
     if hk.pairwise_min_dist.launches != 0:
         raise RuntimeError("the single-ellipsoid drive launched the "
                            "friends kernel")
-    _print_drive("single/rslice nlive=500", single, _counts(hk), card)
+    single["launches"] = _counts(hk)
+    _print_drive("single/rslice nlive=500", single, single["launches"], card)
 
     # phase 7: the default path at the heavy bench's width; the heavy
     # likelihood checked against a float64 host version first
@@ -1824,8 +2229,9 @@ def main():
         sample=dyt.internal.samplers.RSliceSampler(slice_doubling=True))
     if not dsampler.internal_sampler.sampler_kwargs["slice_doubling"]:
         raise RuntimeError("the doubling drive ran in stepping-out mode")
-    _print_drive("single/rslice doubling nlive=500", doubling, _counts(hk),
-                 card)
+    doubling["launches"] = _counts(hk)
+    _print_drive("single/rslice doubling nlive=500", doubling,
+                 doubling["launches"], card)
 
     # phase 12: stop, save, restore, resume on the card, against phase 3
     _zero_counts(hk)
@@ -1959,7 +2365,9 @@ def main():
                           **piperesume)))
 
     # phase 32: the quickstart example on the card
+    _zero_counts(hk)
     example = example_quickstart_phase()
+    example["launches"] = _counts(hk)
     print(json.dumps(dict({"phase": "example-quickstart", "card": card},
                           **example)))
 
@@ -2003,6 +2411,32 @@ def main():
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
 
+    # every drive consumed each of its fused rounds through the kernel
+    drives = {"balls": main, "cubes": cubes, "single": single,
+              "heavy": heavy, "default": default, "rwalk": rwalk,
+              "slice": sl, "doubling": doubling, "resume": resumed,
+              "dynamic3": dyn3, "dynamic-balls": dynballs,
+              "dynamic-resume": dynresume, "blob-balls": blobballs,
+              "host-balls": hostballs, "host-pool": hostpool,
+              "blob-resume": blobresume, "custom-unif": customunif,
+              "custom-rslice": customrslice, "custom-resume": customresume,
+              "eggbox": rows["eggbox"], "shells": rows["shells"],
+              "eggbox-balls": eggballs, "mesh-balls": meshballs,
+              "mesh-dynamic3": meshdyn3, "pipeline-resume": piperesume,
+              "example-quickstart": example}
+    consume_by_drive = {name: {
+        "launches": d["launches"]["consume"],
+        "thin": d["launches"]["consume_thin"],
+        "general": d["launches"]["consume_general"],
+        "rounds": d["launches"]["rounds"]} for name, d in drives.items()}
+    print(json.dumps({"consume_launches_by_drive": consume_by_drive,
+                      "card": card}))
+    idle = [k for k, c in consume_by_drive.items() if c["launches"] < 1]
+    if idle:
+        raise RuntimeError(f"drives that never launched the consume "
+                           f"kernel: {idle}")
+    main_round = next(t for t in consume["times"]
+                      if (t["nlive"], t["path"]) == (2048, "thin"))
     kernels = {"kernels": [
         entry("pairwise_min_dist_l2_exact", MAIN_SHAPE, 2, "exact",
               {"balls": main["launches"]["exact"],
@@ -2018,6 +2452,17 @@ def main():
               {"cubes": cubes["launches"]["exact"]}),
         entry("pairwise_min_dist_l2_tc", TC_SHAPE, 2, "tc",
               {"refit": refit["launches"]["tc"]}),
+        {"name": "consume_scan", "route": "cuda", "source": CONSUME_SOURCE,
+         "replaces": "dynesty_tpu/internal/fused.py:212",
+         "replaces_also": ["dynesty_tpu/internal/fused.py:333",
+                           "dynesty_tpu/internal/fused.py:423"],
+         "launches": sum(c["launches"] for c in consume_by_drive.values()),
+         "launches_by_drive": {k: c["launches"]
+                               for k, c in consume_by_drive.items()},
+         "max_abs_err": consume["max_abs_err"], "ms": main_round["ms"],
+         "plain_ms": main_round["plain_ms"],
+         "bound_ms": main_round["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": [2048, 256], "path": "thin"},
     ]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -2042,7 +2487,10 @@ def main():
                        "mesh_dynamic3": meshdyn3, "scaling": scaling,
                        "pipeline_resume": piperesume,
                        "example_quickstart": example,
-                       "build_seconds": log["seconds"]},
+                       "consume": consume,
+                       "consume_by_drive": consume_by_drive,
+                       "build_seconds": {k: build.build_log[k]["seconds"]
+                                         for k in libs}},
                       f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,14 @@ trapezoid evidence update, live-point replacement and the stopping
 checks.  ``fused`` chains ``rounds`` such rounds and packs everything into
 one flat float vector with the JAX package's layout (:func:`unpack_flat`).
 
-JAX's ``lax.scan`` consume becomes a Python loop over the ``q`` entries
-whose every step stays on the device (0-d tensors, no host reads); the
-packed stop bitmask is read once per dispatch.  Choosing the thin or the
-general scan (JAX's ``lax.cond``) and the per-round skip gates read one
-flag from the device per round (``Timings['sync_round']``).
+JAX's ``lax.scan`` consume is ``ops.consume.consume_round``: on
+the card one launch of the hand-written ``consume_scan`` kernel a round,
+which also chooses the thin or the general scan (JAX's ``lax.cond``) on
+the device; on the CPU the plain loop over 0-d tensors, which reads that
+choice from the device once a round.  The per-round skip gates read one
+flag a round (``Timings['sync_round']``, which also counts the CPU's
+choice); ``Timings['n_round']`` counts the rounds consumed.  The packed
+stop bitmask is read once per dispatch.
 
 Blobs live in tensors of their own beside the float64 live matrix and
 records (a blob's dtype is the user's): the live set's blob flows from
@@ -32,15 +35,16 @@ import math
 import numpy as np
 import torch
 
-from ..ops.integrals import progress_integration_torch
+from ..ops.consume import consume_round
 from ..utils.convert import integ_from_vector
 from ..utils.misc import blob_where, torch_generator, tree_map
 
 __all__ = ["make_fused_round", "unpack_flat", "record_columns",
            "select_starts", "round_seed"]
 
-# Test knob: build fused rounds without the thin scalar consume path
-# (batch mode then always runs the general scan).  Read per round.
+# Test knob: fused rounds without the thin scalar consume path (batch
+# mode then always runs the general scan; the kernel is told so).  Read
+# per round.
 _FORCE_GENERAL_CONSUME = False
 
 _NEG_INF = -math.inf
@@ -106,133 +110,15 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
     ii, ib, ibirth = il + 1, il + 2, il + 3
     width = 1 + ndim + npdim + 11
     i64 = torch.int64
-    pow2 = torch.tensor([1, 2, 4, 8, 16], dtype=i64, device=device)
-    zero = torch.zeros((), dtype=dtype, device=device)
     lanes = torch.arange(q, dtype=i64, device=device)
-    dlv_default = torch.tensor(float(np.log1p(1.0 / nlive)), dtype=dtype,
-                               device=device)
-    nlive_f = torch.tensor(float(nlive), dtype=dtype, device=device)
-
-    def _causes(delta_logz, loglstar, plateau, n_acc, nc_used, limits):
-        return torch.stack([
-            delta_logz < limits["dlogz"],
-            loglstar > limits["logl_max"],
-            plateau,
-            n_acc >= limits["max_accepts"],
-            nc_used >= limits["max_nc"],
-        ])
-
-    def _stop(causes, done, reason):
-        stop = causes.any()
-        reason = torch.where(stop & ~done, (causes.to(i64) * pow2).sum(),
-                             reason)
-        return done | stop, reason
-
-    def _kill(st, loglstar_new, npl, n_now, dlv_now, accept, consumed,
-              e_nc):
-        """One death at ``loglstar_new`` (``npl`` live points tied at it):
-        plateau entry and exit, the shrinkage, the evidence update and
-        the counters, applied where ``accept``.  Returns the step's
-        (logvol, logwt, logz, logzvar, h, nc) record values."""
-        p_mode, pc = st["plateau_mode"], st["plateau_counter"]
-        enter = ~p_mode & (npl > 1) & ~st["done"]
-        pc = torch.where(enter, npl, pc)
-        st["plateau_logdvol"] = torch.where(
-            enter, -torch.log(n_now + 1.0) + st["logvol"],
-            st["plateau_logdvol"])
-        p_mode = p_mode | enter
-        cur_dlv = torch.where(
-            p_mode, -torch.log1p(-torch.exp(st["plateau_logdvol"] -
-                                            st["logvol"])), dlv_now)
-        nc_entry = torch.where(consumed, e_nc, 0)
-        nc_this = st["nc_accum"] + nc_entry
-        logvol_new = st["logvol"] - cur_dlv
-        logwt, logz_new, logzvar_new, h_new = progress_integration_torch(
-            st["loglstar"], loglstar_new, st["logz"], st["logzvar"],
-            logvol_new, cur_dlv, st["h"])
-        for k, new in (("logz", logz_new), ("logzvar", logzvar_new),
-                       ("h", h_new), ("logvol", logvol_new),
-                       ("loglstar", loglstar_new)):
-            st[k] = torch.where(accept, new, st[k])
-        st["n_acc"] = st["n_acc"] + accept
-        st["n_cons"] = st["n_cons"] + consumed
-        st["nc_used"] = st["nc_used"] + nc_entry
-        st["nc_accum"] = torch.where(accept, 0, nc_this)
-        pc = torch.where(accept & p_mode, pc - 1, pc)
-        st["plateau_counter"] = pc
-        st["plateau_mode"] = p_mode & ~(p_mode & (pc == 0))
-        st["racc"] = st["racc"] + accept
-        return logvol_new, logwt, logz_new, logzvar_new, h_new, nc_this
-
-    def run_general(st, live_logl0, qlogl, qnc, limits):
-        live_logl = live_logl0.clone()
-        occupant = torch.full((nlive,), -1, dtype=i64, device=device)
-        outs = []
-        for i in range(q):
-            e_logl, e_nc = qlogl[i], qnc[i]
-            n_now = (nlive - st["racc"]).to(dtype) if mode == "batch" \
-                else nlive_f
-            lmax = live_logl.max()
-            delta_logz = torch.logaddexp(zero, lmax + st["logvol"] -
-                                         st["logz"])
-            causes = _causes(delta_logz, st["loglstar"],
-                             (lmax - live_logl.min()) == 0, st["n_acc"],
-                             st["nc_used"], limits)
-            done, st["reason"] = _stop(causes, st["done"], st["reason"])
-            st["done"] = done
-
-            worst = torch.argmin(live_logl)
-            # a 0-d index tensor indexes like an int (a view): copy before
-            # the in-place writes below
-            loglstar_new = live_logl[worst].clone()
-            nplateau = (live_logl == loglstar_new).sum()
-            dlv_now = torch.log1p(1.0 / n_now) if mode == "batch" \
-                else dlv_default
-            accept = ~done & (e_logl > loglstar_new)
-            vals = _kill(st, loglstar_new, nplateau, n_now, dlv_now, accept,
-                         ~done, e_nc)
-            src = occupant[worst].clone()
-            live_logl[worst] = torch.where(accept, e_logl, loglstar_new)
-            occupant[worst] = torch.where(accept, i, src)
-            outs.append((worst, src, accept, loglstar_new) + vals +
-                        (delta_logz, n_now))
-        return [torch.stack(c) for c in zip(*outs)]
-
-    def run_thin(st, sort_idx, sorted_logl, lmax, qlogl, qnc, limits):
-        # deaths are exactly the q sorted-worst originals, in order, and
-        # every proposal is accepted while the run is not done
-        victims = sort_idx[:q]
-        vict_logl = sorted_logl[:q]
-        # ties among the current live points at each kill: refills sit
-        # strictly above every victim, so only originals count
-        npl_pre = torch.searchsorted(sorted_logl, vict_logl,
-                                     right=True) - lanes
-        rmax = lmax
-        outs = []
-        for i in range(q):
-            e_logl, e_nc = qlogl[i], qnc[i]
-            v_logl = vict_logl[i]
-            n_now = (nlive - st["racc"]).to(dtype)
-            delta_logz = torch.logaddexp(zero, rmax + st["logvol"] -
-                                         st["logz"])
-            causes = _causes(delta_logz, st["loglstar"], rmax == v_logl,
-                             st["n_acc"], st["nc_used"], limits)
-            done, st["reason"] = _stop(causes, st["done"], st["reason"])
-            st["done"] = done
-            accept = ~done
-            vals = _kill(st, v_logl, npl_pre[i], n_now,
-                         torch.log1p(1.0 / n_now), accept, accept, e_nc)
-            rmax = torch.where(accept, torch.maximum(rmax, e_logl), rmax)
-            outs.append((accept, v_logl) + vals + (delta_logz, n_now))
-        outs = [torch.stack(c) for c in zip(*outs)]
-        return [victims, torch.full((q,), -1, dtype=i64, device=device)] \
-            + outs
+    # queue mode's shrinkage, computed on the host as the JAX package does
+    dlv_default = float(np.log1p(1.0 / nlive))
 
     def one_round(gen, live, live_blob, integ, counters, limits, scale,
                   axes_args, kills0, birth0):
         """One propose+consume round; integrator state and counters flow
         in and out."""
-        live_logl0 = live[:, il]
+        live_logl0 = live[:, il].contiguous()
         if mode == "batch":
             # shared kill threshold: the q-th smallest live logl, or the
             # largest value strictly below the maximum when a plateau
@@ -257,19 +143,23 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         st = dict(integ, **counters, racc=torch.as_tensor(
             kills0, dtype=i64, device=device))
         del st["it"]
-        use_thin = False
+        thin = None
         if mode == "batch" and kind != "replay" and \
                 not _FORCE_GENERAL_CONSUME:
-            # every proposal beats every victim: thin scalar scan
+            # every proposal beats every victim: thin scalar scan.  The
+            # kernel reads the flag on the card, the plain loop on the host
             thin_ok = (cand < lmax) & (qlogl.min() > loglstar0)
-            use_thin = bool(thin_ok)
-            if timings is not None:
-                timings.count("sync_round")
-        if use_thin:
-            outs = run_thin(st, sort_idx, sorted_logl, lmax, qlogl, qnc,
-                            limits)
-        else:
-            outs = run_general(st, live_logl0, qlogl, qnc, limits)
+            if device.type != "cuda":
+                thin_ok = bool(thin_ok)
+                if timings is not None:
+                    timings.count("sync_round")
+            thin = (sort_idx, sorted_logl, thin_ok)
+        if timings is not None:
+            timings.count("n_round")
+        outs, st = consume_round(st, live_logl0, qlogl.contiguous(),
+                                 qnc.contiguous(), limits,
+                                 batch=mode == "batch",
+                                 dlv_default=dlv_default, thin=thin)
         (worsts, srcs, accepts, r_logl, r_logvol, r_logwt, r_logz,
          r_logzvar, r_h, r_nc, r_dlogz, r_n) = outs
 

@@ -38,7 +38,8 @@ class Timings(dict):
     copy of its bound), ``mirror`` (device->host live-state downloads),
     ``add_live``, ``integrals``, ``total``.
 
-    Counts (int): ``n_dispatch``, ``n_refit``, ``n_prelaunch``
+    Counts (int): ``n_dispatch``, ``n_round`` (fused rounds consumed: on
+    the card, one consume-kernel launch each), ``n_refit``, ``n_prelaunch``
     (dispatches planned ahead of their refit), ``nc_stranded_pipeline``
     (evaluations of a planned dispatch stranded by a terminal stop: always
     0, since a planned dispatch is launched only in its turn),
@@ -47,7 +48,8 @@ class Timings(dict):
     ``sync_wave`` (one per rejection wave of the uniform kernels),
     ``sync_slice`` (one per slice state-machine iteration; in doubling
     mode one per expansion, per shrink and per halving of the acceptance
-    test), ``sync_round`` (per-round thin-path and skip gates) and
+    test), ``sync_round`` (per-round skip gates, and on the CPU the
+    thin-path choice) and
     ``sync_flat`` (one result download per dispatch).  The random-walk
     kernel adds none.  ``n_replay`` and ``n_continuation`` count the
     consume-only replays and the continuation dispatches of a resumed
