@@ -320,7 +320,13 @@ _ROUNDS = [0]
 
 
 def count_rounds():
-    """Tally into ``_ROUNDS`` every fused round any sampler consumes."""
+    """Tally into ``_ROUNDS`` every fused round any sampler consumes.
+
+    ``one_round`` counts ``n_round`` on the line before it calls the
+    consume wrapper, so ``launches == rounds`` in :func:`_counts` catches
+    one fault only: a fused round that consumes through the plain loop on
+    the card (a wrapper that gave way to it, or a call of the plain loop
+    swapped in), which launches nothing."""
     from dynesty_tpu_torch.utils.misc import Timings
     count = Timings.count
 
@@ -1994,16 +2000,23 @@ def consume_times(nlive, q, mode, thin, iters=20):
         st, live_logl, qlogl, qnc, limits, **kw), 2)
     return {"nlive": nlive, "q": q, "mode": mode,
             "path": "thin" if thin else "general", "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": consume_bound_ms(nlive, q)}
+            "plain_ms": plain_ms,
+            "bound_ms": consume_bound_ms(nlive, q, thin)}
 
 
-def consume_bound_ms(nlive, q):
-    """Bytes in (the live logl, the proposals' logl and nc, the sorted
-    logl and indices and tie counts of the thin path) and out (the 12
-    per-step columns) at the card's memory rate; the operations (a few
-    dozen a step and nlive compares a step) are far below.  The real
-    limit is the chain of q dependent steps, which this does not see."""
-    by = nlive * 8 + q * 16 + nlive * 16 + q * 8 + q * (8 * 8 + 3 * 8 + 1)
+def consume_bound_ms(nlive, q, thin, fsize=8):
+    """The bytes one launch must move on its path, at the card's memory
+    rate: in, the proposals' logl and nc and the carried state, and on the
+    thin path the first q sorted logl, indices and tie counts, the largest
+    live logl and the thin flag, on the general path the whole live logl;
+    out, the 12 per-step columns and the state (``fsize`` the float type's
+    bytes).  The operations (a few dozen a step, and nlive compares a step
+    on the general path) are far below.  The real limit is the chain of q
+    dependent steps, which this does not see."""
+    state = 6 * fsize + 9 * 8 + 8          # floats, ints, path count
+    by = q * (fsize + 8) + state
+    by += q * (fsize + 16) + fsize + 1 if thin else nlive * fsize
+    by += q * (8 * fsize + 3 * 8 + 1) + state
     return 1e3 * by / HBM_BYTES
 
 
@@ -2039,7 +2052,7 @@ def consume_phase(card):
     for t in times:
         print(f"consume round {t['mode']} ({t['nlive']}, {t['q']}) "
               f"{t['path']}: kernel {t['ms']:.4f} ms  plain "
-              f"{t['plain_ms']:.1f} ms  bound {t['bound_ms']:.6f} ms "
+              f"{t['plain_ms']:.1f} ms  bound {t['bound_ms']:.3e} ms "
               f"(bytes)  [{card}]")
     ident = sum(c["float_identical"] for c in cases)
     total = sum(c["float_total"] for c in cases)
@@ -2077,10 +2090,9 @@ def main():
     # phase 1: build every kernel of the path from the checkout's sources,
     # one nvcc for each, all started together
     t0 = time.perf_counter()
-    libs = {"pairwise_min_dist": (), "consume_scan": cs.NVCC_FLAGS}
+    libs = ("pairwise_min_dist", "consume_scan")
     with ThreadPoolExecutor(len(libs)) as ex:
-        for fut in [ex.submit(build.load_library, name, flags=flags)
-                    for name, flags in libs.items()]:
+        for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
     for name in libs:
         log = build.build_log[name]

@@ -30,10 +30,11 @@
 //
 // Rounding: the eager loop runs each operation as its own torch kernel,
 // so each rounds once.  Every product and sum here is an explicit
-// round-to-nearest intrinsic (no contraction into an FMA), exp, log and
-// log1p are the CUDA math library's (the functions torch's kernels call),
-// 1/n is a correctly rounded division as torch's reciprocal, and
-// logaddexp follows torch's CUDA kernel, equal infinities included.
+// round-to-nearest intrinsic, which nvcc never contracts into an FMA, so
+// the library needs no build flag of its own.  exp, log and log1p are
+// the CUDA math library's (the functions torch's kernels call), 1/n is
+// a correctly rounded division as torch's reciprocal, and logaddexp
+// follows torch's CUDA kernel, equal infinities included.
 // argmin breaks ties by the first index and treats NaN as smallest, max
 // and min propagate NaN, as torch's reductions do.
 
@@ -322,7 +323,6 @@ __global__ void consume_scan_kernel(
   ist_out[0] = s.p_mode; ist_out[1] = s.pc; ist_out[2] = s.n_acc;
   ist_out[3] = s.n_cons; ist_out[4] = s.nc_used; ist_out[5] = s.nc_accum;
   ist_out[6] = s.done; ist_out[7] = s.reason; ist_out[8] = s.racc;
-  ist_out[9] = thin ? 0 : 1;
   path_counts[thin ? 0 : 1] += 1;
 }
 

@@ -4,8 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C entry point; ``nvcc`` compiles it
 for Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at
 the root of the checkout, loaded with ``ctypes``.  The library name
 carries a hash of the source and the flags, so an edited source is
-rebuilt.  A library may add flags of its own to :data:`NVCC_FLAGS`.
-Nothing is compiled at import time: the first CUDA call builds.
+rebuilt.  Nothing is compiled at import time: the first CUDA call builds.
 
 Set ``DYNESTY_TPU_TORCH_NO_BUILD=1`` to forbid building (a kernel call on
 a CUDA tensor then raises).
@@ -45,10 +44,9 @@ def _nvcc():
     return found
 
 
-def load_library(name, src=None, flags=()):
+def load_library(name, src=None):
     """The loaded ``ctypes`` library built from ``src`` (by default
-    ``csrc/<name>.cu``) with :data:`NVCC_FLAGS` and the library's own
-    ``flags``."""
+    ``csrc/<name>.cu``)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -56,15 +54,14 @@ def load_library(name, src=None, flags=()):
         raise RuntimeError(f"building kernel '{name}' is disabled "
                            "(DYNESTY_TPU_TORCH_NO_BUILD is set)")
     src = Path(src) if src is not None else SRC_DIR / f"{name}.cu"
-    cmd_flags = NVCC_FLAGS + list(flags)
     digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(cmd_flags).encode()).hexdigest()[:16]
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *cmd_flags, "-o", str(tmp),
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                                str(src)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src.name}:\n"

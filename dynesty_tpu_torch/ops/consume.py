@@ -211,9 +211,6 @@ _ARGTYPES = {
     "scan": [_PTR] * 17 + [_I] * 4 + [_D, _D, _LL, _LL, _D, _I, _PTR],
     "integrator": [_PTR] * 11 + [_I, _PTR],
 }
-# the consume library's own nvcc flags: no contraction of a*b+c into an
-# FMA outside the math library, so each product rounds as torch's does
-NVCC_FLAGS = ("-fmad=false",)
 _PATH_COUNTS = {}
 
 
@@ -221,7 +218,7 @@ def _entry(fn, tag):
     key = (fn, tag)
     f = _ENTRY.get(key)
     if f is None:
-        lib = build.load_library("consume_scan", flags=NVCC_FLAGS)
+        lib = build.load_library("consume_scan")
         f = getattr(lib, f"dynesty_consume_{fn}_{tag}")
         f.argtypes = _ARGTYPES[fn]
         f.restype = ctypes.c_int
@@ -290,7 +287,7 @@ def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
     iout = torch.empty((3, q), dtype=i64, device=dev)
     accepts = torch.empty(q, dtype=torch.bool, device=dev)
     fst_out = torch.empty_like(fst)
-    ist_out = torch.empty(len(INT_KEYS) + 1, dtype=i64, device=dev)
+    ist_out = torch.empty(len(INT_KEYS), dtype=i64, device=dev)
     # the comparisons of the eager loop take the limits in the state's
     # type
     rnd = float if dtype == torch.float64 else (
@@ -311,10 +308,9 @@ def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
                            f"{err}) for nlive={nlive}, q={q}")
     consume_round.launches += 1
     new = dict(zip(FLOAT_KEYS, fst_out.unbind()))
-    new.update(zip(INT_KEYS, ist_out[:len(INT_KEYS)].unbind()))
+    new.update(zip(INT_KEYS, ist_out.unbind()))
     for k in BOOL_KEYS:
         new[k] = new[k].to(torch.bool)
-    new["path"] = ist_out[len(INT_KEYS)]
     (r_logl, r_logvol, r_logwt, r_logz, r_logzvar, r_h, r_dlogz,
      r_n) = fout.unbind()
     worsts, srcs, r_nc = iout.unbind()
