@@ -29,7 +29,16 @@ Phases, in order; any failure raises and exits non-zero:
    ``progress_integration_torch`` on 10^6 states, a quarter at the edges
    (-inf, -1e300), in float64 and float32: the bit-identical share.  The
    time of one consume round (events, warm), kernel and plain, at the
-   full-width shapes, thin and general.
+   full-width shapes, thin and general.  Then the proposal steps
+   (``proposal_steps_phase``): the four per-step kernels of the proposal
+   loops (``slice_propose``, ``slice_advance``, ``rwalk_propose``,
+   ``rwalk_accept``) against their plain versions on hand-made states of
+   256 lanes that visit every phase of the slice state machine, accepted
+   and rejected steps, done lanes and +-inf likelihoods, at 3, 15 and 48
+   dimensions (the walk's at 3 and 15, and 15 with 12 bounded, periodic,
+   reflective and unbounded dimensions), in float64 and float32: every
+   output bit-identical, the kernel's and the plain version's time per
+   call (events, warm) and the bound (bytes at 3.35 TB/s).
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -140,10 +149,16 @@ Phases, in order; any failure raises and exits non-zero:
 32. example-quickstart: ``examples/torch_quickstart.py`` on the card, its
     static run within 4 and its dynamic run within 5 logzerr of the truth.
 33. Device-only times (profiler kernel durations) of every comparison,
-    and of one 256-lane evaluation of the heavy likelihood.
+    of the four proposal-step kernels at the main drives' shapes, and of
+    one 256-lane evaluation of the heavy likelihood.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
+Every drive counts the proposal-step kernels' launches and the loops'
+own draws (one an iteration of the slice state machine, one a walk
+step): ``slice_propose`` == ``slice_advance`` == the state machine's
+iterations, and ``rwalk_propose`` == ``rwalk_accept`` == walks x rwalk
+rounds, or the drive fails; one JSON line lists them by drive.
 Every drive counts the consume kernel's launches, split into thin and
 general on the device, from zero just before it to just after: they must
 equal the fused rounds its samplers consumed (their ``n_round``), and be
@@ -175,6 +190,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from dynesty_tpu_torch.bounding import Bound  # noqa: E402
 from dynesty_tpu_torch.ops import consume as cs  # noqa: E402
+from dynesty_tpu_torch.ops import proposals as pr  # noqa: E402
 
 NDIM = 3
 SEED = 56432
@@ -201,6 +217,8 @@ COMPARES = [
 TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12
 SOURCE = "dynesty_tpu_torch/csrc/pairwise_min_dist.cu"
 CONSUME_SOURCE = "dynesty_tpu_torch/csrc/consume_scan.cu"
+SLICE_SOURCE = "dynesty_tpu_torch/csrc/slice_step.cu"
+RWALK_SOURCE = "dynesty_tpu_torch/csrc/rwalk_step.cu"
 # the JAX package's heavy bench (bench.py): a 3-D correlated Gaussian plus
 # a tanh matvec chain of this width and depth, at this live-point count
 H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
@@ -338,26 +356,79 @@ def count_rounds():
     Timings.count = counting
 
 
+# rounds of the slice state machine and of the random walk, the draws
+# their loops took (one an iteration, one a step) and the walk steps due
+# (walks x rounds) since the counts were last zeroed, tallied by
+# count_proposal_loops()
+_LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
+                        "rwalk_steps", "rwalk_due"), 0)
+# the per-step kernels' launch counts in a drive's counts
+STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
+                "rwalk_accept")
+
+
+def count_proposal_loops():
+    """Tally into ``_LOOPS`` every round of the stepping-out state machine
+    and of the random walk, and each ``draw`` its loop takes: the loops
+    draw once an iteration or step, before its kernels, so ``launches ==
+    draws`` in :func:`_counts` catches a step that went through a plain
+    version on the card or skipped its kernel."""
+    from dynesty_tpu_torch.internal import kernels as tk
+    machine, walk = tk.slice_state_machine, tk.rwalk_walk
+
+    def counted(draw, key):
+        def fn(i):
+            _LOOPS[key] += 1
+            return draw(i)
+        return fn
+
+    def slice_state_machine(like, directions, r0, draw, *a, **kw):
+        _LOOPS["slice_rounds"] += 1
+        return machine(like, directions, r0, counted(draw, "slice_iters"),
+                       *a, **kw)
+
+    def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, *a,
+                   walks, **kw):
+        _LOOPS["rwalk_rounds"] += 1
+        _LOOPS["rwalk_due"] += walks
+        return walk(like, u, v, logl, axes, scale, loglstar,
+                    counted(draw, "rwalk_steps"), *a, walks=walks, **kw)
+
+    tk.slice_state_machine, tk.rwalk_walk = slice_state_machine, rwalk_walk
+
+
 def _zero_counts(hk):
     k = hk.pairwise_min_dist
     k.launches = k.launches_exact = k.launches_tc = 0
     cs.zero_counts()
+    pr.zero_counts()
     _ROUNDS[0] = 0
+    for key in _LOOPS:
+        _LOOPS[key] = 0
 
 
 def _counts(hk):
     """Every kernel's launches since :func:`_zero_counts`; raises unless
-    every fused round consumed since went through the consume kernel."""
+    every fused round consumed since went through the consume kernel and
+    every step of the proposal loops through its two kernels."""
     k = hk.pairwise_min_dist
     paths = cs.path_counts()
     out = {"launches": k.launches, "exact": k.launches_exact,
            "tc": k.launches_tc, "consume": cs.consume_round.launches,
            "consume_thin": paths["thin"],
            "consume_general": paths["general"], "rounds": _ROUNDS[0]}
+    out.update({w.__name__: w.launches for w in pr.WRAPPERS})
+    out.update(_LOOPS)
     if out["consume"] != out["rounds"] or \
             paths["thin"] + paths["general"] != out["consume"]:
         raise RuntimeError(f"fused rounds and consume kernel launches "
                            f"differ: {out}")
+    if not (out["slice_propose"] == out["slice_advance"] ==
+            out["slice_iters"]) or not (
+                out["rwalk_propose"] == out["rwalk_accept"] ==
+                out["rwalk_steps"] == out["rwalk_due"]):
+        raise RuntimeError(f"proposal-step kernel launches and the loops' "
+                           f"iterations differ: {out}")
     return out
 
 
@@ -1649,7 +1720,9 @@ def _print_drive(name, s, counts, card):
     print(f"  split: dispatch {t.get('dispatch', 0.0):.3f} s  consume "
           f"{t.get('consume', 0.0):.3f} s  refit {t.get('refit', 0.0):.3f} s"
           f"  total {t.get('total', 0.0):.3f} s  n_dispatch "
-          f"{t.get('n_dispatch', 0)}  sync_slice {t.get('sync_slice', 0)}  "
+          f"{t.get('n_dispatch', 0)}  sync_slice {t.get('sync_slice', 0)}"
+          + (f" ({1e3 * t['dispatch'] / t['sync_slice']:.3f} ms dispatch "
+             f"each)" if t.get("sync_slice") else "") + "  "
           f"sync_wave {t.get('sync_wave', 0)}  sync_round "
           f"{t.get('sync_round', 0)}  final scale {s['scale']:.4f}  "
           f"proposal stats {s['proposal_stats']}")
@@ -2063,6 +2136,274 @@ def consume_phase(card):
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
+# --------------------------------------------------------------------------
+# the proposal loops' per-step kernels against their plain versions
+
+
+STEP_Q = 256
+# (loop, ndim, ncdim): the slice kernels at the main drive's 3-D, the
+# rwalk drive's 15-D and 48-D; the walk's at 3-D without masks, and at
+# 15-D with every mask, all dimensions bounded or 12 of them
+STEP_CASES = [("slice", 3, None), ("slice", 15, None), ("slice", 48, None),
+              ("rwalk", 3, 3), ("rwalk", 15, 15), ("rwalk", 15, 12)]
+# slice updates per lane (rslice's default)
+STEP_NSTEPS = 5
+STEP_LOGLSTAR = 0.25
+
+
+def _cuda_t(a, dtype):
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
+
+
+def step_slice_state(q, ndim, npdim, dtype, seed=SEED):
+    """A hand-made state machine state and one iteration's inputs on the
+    card: every phase, lanes done, intervals on both sides of 0, exp
+    counts at the warning's 1000, likelihood values above, below and at
+    the threshold, +-inf among them."""
+    rs = np.random.Generator(np.random.PCG64(seed))
+    lane = np.arange(q)
+    i64 = torch.int64
+    choice = [-math.inf, -1.0, STEP_LOGLSTAR, 1.0]
+    st = {
+        "s": _cuda_t(np.where(lane % 7 == 6, STEP_NSTEPS,
+                              (lane // 5) % STEP_NSTEPS), i64),
+        "phase": _cuda_t(lane % 5, i64),
+        "left": _cuda_t(-rs.random(q) * 2.0, dtype),
+        "right": _cuda_t(rs.random(q) * 2.0, dtype),
+        "fl": _cuda_t(rs.choice(choice, size=q), dtype),
+        "fr": _cuda_t(rs.choice(choice, size=q), dtype),
+        "u": _cuda_t(rs.random((q, ndim)), dtype),
+        "v": _cuda_t(rs.random((q, npdim)), dtype),
+        "logl": _cuda_t(rs.normal(size=q), dtype),
+        "u0": _cuda_t(rs.random((q, ndim)), dtype),
+        "nc": _cuda_t(rs.integers(0, 50, q), i64),
+        "n_exp": _cuda_t(rs.integers(0, 50, q), i64),
+        "n_con": _cuda_t(rs.integers(0, 50, q), i64),
+        "exp_step": _cuda_t(np.where(lane % 3 == 0, 1000,
+                                     rs.integers(0, 999, q)), i64),
+        "warn": _cuda_t(False, torch.bool),
+        "any_active": _cuda_t(True, torch.bool)}
+    inp = {
+        "u_sh": _cuda_t(rs.random(q), dtype),
+        "u_r0": _cuda_t(rs.random(q), dtype),
+        "directions": _cuda_t(rs.normal(size=(q, STEP_NSTEPS, ndim)) * 0.3,
+                              dtype),
+        "logl_x": _cuda_t(rs.choice([-math.inf, -2.0, STEP_LOGLSTAR, 0.5,
+                                     3.0, math.inf], size=q), dtype),
+        "v_x": _cuda_t(rs.random((q, npdim)), dtype),
+        "loglstar": _cuda_t(STEP_LOGLSTAR, dtype),
+        "strict": _cuda_t(rs.random(ndim) < 0.7, torch.bool)}
+    return st, inp
+
+
+def step_rwalk_state(q, ndim, ncdim, npdim, dtype, seed=SEED):
+    """A hand-made walk state and one step's inputs on the card: step
+    lengths from well inside the cube to well beyond it, likelihood
+    values above, below and at the threshold, +-inf among them."""
+    rs = np.random.Generator(np.random.PCG64(seed))
+    st = {"u": _cuda_t(rs.random((q, ndim)), dtype),
+          "v": _cuda_t(rs.random((q, npdim)), dtype),
+          "logl": _cuda_t(rs.normal(size=q), dtype),
+          "n_acc": _cuda_t(rs.integers(0, 9, q), torch.int64),
+          "n_rej": _cuda_t(rs.integers(0, 9, q), torch.int64)}
+
+    def mask(idx):
+        m = np.zeros(ndim, dtype=bool)
+        m[idx] = True
+        return _cuda_t(m, torch.bool)
+
+    inp = {
+        "du": _cuda_t(rs.normal(size=(q, ncdim)) *
+                      np.geomspace(1e-3, 2.0, q)[:, None], dtype),
+        "scale": _cuda_t(0.7, dtype),
+        "u_ex": _cuda_t(rs.random((q, ndim - ncdim)), dtype)
+        if ncdim < ndim else None,
+        # masks at 15-D: wrapped, reflected, both, and loose dimensions
+        "masks": [mask([0, ndim - 1]), mask([1, ndim - 1]),
+                  _cuda_t(np.arange(ndim) % 3 != 2, torch.bool)]
+        if ndim > 3 else [None, None, None],
+        "logl_prop": _cuda_t(rs.choice([-math.inf, -1.0, STEP_LOGLSTAR, 2.0,
+                                        math.inf], size=q), dtype),
+        "v_prop": _cuda_t(rs.random((q, npdim)), dtype),
+        "loglstar": _cuda_t(STEP_LOGLSTAR, dtype)}
+    return st, inp
+
+
+def _clone(st):
+    return {k: v.clone() for k, v in st.items()}
+
+
+def _bit_record(name, shape, dtype, pairs):
+    """Bit-identical elements of each (output, kernel, plain) pair, and
+    the largest absolute difference (0 where bit-identical)."""
+    outputs, err = {}, 0.0
+    for out, got, ref in pairs:
+        if got.dtype.is_floating_point:
+            same = (got == ref) | (got.isnan() & ref.isnan())
+            diff = torch.where(same, 0.0, (got.double() - ref.double()).abs())
+        else:
+            same = got == ref
+            diff = (got.long() - ref.long()).abs().double()
+        outputs[out] = [int(same.sum()), same.numel()]
+        if diff.numel():
+            err = max(err, float(diff.max()))
+    return {"kernel": name, "shape": list(shape),
+            "dtype": str(dtype).replace("torch.", ""), "outputs": outputs,
+            "identical": sum(o[0] for o in outputs.values()),
+            "total": sum(o[1] for o in outputs.values()),
+            "max_abs_err": err}
+
+
+def _step_time(rec, kernel, plain, bound_bytes):
+    """Per-call µs (events, warm, through the wrapper) of the kernel and
+    the plain version on the compared inputs, and the bound."""
+    rec["us"] = 1e3 * _time_ms(kernel, 200)
+    rec["plain_us"] = 1e3 * _time_ms(plain, 50)
+    rec["bound_bytes"] = bound_bytes
+    rec["bound_us"] = 1e6 * bound_bytes / HBM_BYTES
+
+
+def slice_step_cases(ndim, dtype):
+    """``slice_propose`` and ``slice_advance`` against their plain
+    versions on one hand-made state; returns their records and the
+    kernels' calls at these inputs."""
+    q, npdim, n = STEP_Q, ndim, STEP_NSTEPS
+    st, inp = step_slice_state(q, ndim, npdim, dtype)
+    tb = torch.finfo(dtype).bits // 8
+    args = (inp["u_sh"], inp["directions"], inp["strict"])
+    st_k = _clone(st)
+    got = pr.slice_propose(st_k, *args)
+    ref = pr.slice_propose_plain(_clone(st), *args)
+    torch.cuda.synchronize()
+    prop = _bit_record("slice_propose", (q, ndim), dtype,
+                       zip(("x", "upos", "incube"), got, ref))
+    if bool(st_k["any_active"]):
+        raise RuntimeError("slice_propose left any_active set")
+    _step_time(prop, lambda: pr.slice_propose(st_k, *args),
+               lambda: pr.slice_propose_plain(st, *args),
+               q * (16 + 4 * tb + 3 * ndim * tb + 1) + ndim + 1)
+
+    # slice_advance on the plain proposal, from the flag slice_propose
+    # leaves
+    x, upos, _ = ref
+    adv_args = (x, upos, inp["v_x"], inp["logl_x"], inp["u_r0"],
+                inp["loglstar"], n)
+    st_k = _clone(st)
+    st_k["any_active"].zero_()
+    acc = pr.slice_advance(st_k, *adv_args)
+    st_p = _clone(st)
+    acc_p = pr.slice_advance_plain(st_p, *adv_args)
+    torch.cuda.synchronize()
+    adv = _bit_record("slice_advance", (q, ndim), dtype,
+                      [("acc", acc, acc_p)] +
+                      [(k, st_k[k], st_p[k]) for k in sorted(st)])
+    active = st["s"] < n
+    shrink = active & (st["phase"] == 4)
+    covered = (set(st["phase"][active].tolist()) == set(range(5)) and
+               bool((~active).any()) and bool(acc_p.any()) and
+               bool((shrink & ~acc_p).any()) and bool(st_p["warn"]))
+    if not covered:
+        raise RuntimeError(f"the hand-made slice state misses a phase or "
+                           f"an outcome at ndim {ndim}")
+    n_acc = int(acc_p.sum())
+    st_t = _clone(st)
+    _step_time(adv, lambda: pr.slice_advance(st_t, *adv_args),
+               lambda: pr.slice_advance_plain(dict(st), *adv_args),
+               q * (96 + 11 * tb + 1) + tb + 2 +
+               n_acc * (3 * ndim + 2 * npdim + 1) * tb)
+    calls = {"slice_propose": lambda: pr.slice_propose(st_k, *args),
+             "slice_advance": lambda: pr.slice_advance(st_t, *adv_args)}
+    return [prop, adv], calls
+
+
+def rwalk_step_cases(ndim, ncdim, dtype):
+    """``rwalk_propose`` and ``rwalk_accept`` against their plain
+    versions on one hand-made state; returns their records and the
+    kernels' calls at these inputs."""
+    q, npdim = STEP_Q, ndim
+    st, inp = step_rwalk_state(q, ndim, ncdim, npdim, dtype)
+    tb = torch.finfo(dtype).bits // 8
+    args = (inp["du"], inp["scale"], inp["u_ex"], *inp["masks"])
+    got = pr.rwalk_propose(st, *args)
+    ref = pr.rwalk_propose_plain(st, *args)
+    torch.cuda.synchronize()
+    prop = _bit_record("rwalk_propose", (q, ndim), dtype,
+                       zip(("u_prop", "ok"), got, ref))
+    prop["ncdim"] = ncdim
+    n_masks = sum(m is not None for m in inp["masks"])
+    _step_time(prop, lambda: pr.rwalk_propose(st, *args),
+               lambda: pr.rwalk_propose_plain(st, *args),
+               q * ((ncdim + ndim + ndim) * tb + 1) + tb + n_masks * ndim)
+
+    u_prop, ok = ref
+    acc_args = (u_prop, ok, inp["v_prop"], inp["logl_prop"],
+                inp["loglstar"])
+    st_k, st_p = _clone(st), _clone(st)
+    acc = pr.rwalk_accept(st_k, *acc_args)
+    acc_p = pr.rwalk_accept_plain(st_p, *acc_args)
+    torch.cuda.synchronize()
+    accr = _bit_record("rwalk_accept", (q, ndim), dtype,
+                       [("accept", acc, acc_p)] +
+                       [(k, st_k[k], st_p[k]) for k in sorted(st)])
+    accr["ncdim"] = ncdim
+    if not (bool(ok.any()) and bool((~ok).any()) and bool(acc_p.any()) and
+            bool((ok & ~acc_p).any())):
+        raise RuntimeError(f"the hand-made walk state misses an outcome at "
+                           f"ndim {ndim}")
+    n_acc = int(acc_p.sum())
+    st_t = _clone(st)
+    _step_time(accr, lambda: pr.rwalk_accept(st_t, *acc_args),
+               lambda: pr.rwalk_accept_plain(dict(st), *acc_args),
+               q * (tb + 34) + tb + n_acc * (2 * ndim + 2 * npdim + 1) * tb)
+    calls = {"rwalk_propose": lambda: pr.rwalk_propose(st, *args),
+             "rwalk_accept": lambda: pr.rwalk_accept(st_t, *acc_args)}
+    return [prop, accr], calls
+
+
+def main_step(steps, name):
+    """The record of kernel ``name`` at its main drive's shape in float64:
+    the slice kernels at 3-D (balls), the walk's at 15-D (rwalk)."""
+    shape = (STEP_Q, NDIM) if name.startswith("slice") else (STEP_Q, R_NDIM)
+    return next(c for c in steps if c["kernel"] == name and
+                c["dtype"] == "float64" and tuple(c["shape"]) == shape and
+                c.get("ncdim", R_NDIM) == R_NDIM)
+
+
+def proposal_steps_phase(card):
+    """Every case in float64 and float32; prints one line each, raises
+    unless every output is bit-identical, and returns the records and the
+    kernels' calls at the main drives' shapes (float64: the slice kernels
+    at 3-D, the walk's at 15-D)."""
+    cases, main_calls = [], {}
+    for loop, ndim, ncdim in STEP_CASES:
+        for dtype in (torch.float64, torch.float32):
+            if loop == "slice":
+                recs, calls = slice_step_cases(ndim, dtype)
+            else:
+                recs, calls = rwalk_step_cases(ndim, ncdim, dtype)
+            cases += recs
+            if dtype == torch.float64 and (loop, ndim, ncdim) in (
+                    ("slice", NDIM, None), ("rwalk", R_NDIM, R_NDIM)):
+                main_calls.update(calls)
+    for c in cases:
+        shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
+                           c["outputs"].items())
+        print(f"proposal step {c['kernel']} {tuple(c['shape'])}"
+              + (f" ncdim {c['ncdim']}" if "ncdim" in c else "") +
+              f" {c['dtype']}: bit-identical {c['identical']}/"
+              f"{c['total']} ({shares})  kernel {c['us']:.2f} us  plain "
+              f"{c['plain_us']:.2f} us  bound {c['bound_us']:.5f} us "
+              f"(bytes)  [{card}]")
+    bad = [c for c in cases if c["identical"] != c["total"]]
+    if bad:
+        raise RuntimeError(f"proposal-step kernels differ from their plain "
+                           f"versions: {bad}")
+    print(f"proposal steps: {len(cases)} cases, outputs bit-identical "
+          f"{sum(c['identical'] for c in cases)}/"
+          f"{sum(c['total'] for c in cases)}  [{card}]")
+    return cases, main_calls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
@@ -2090,7 +2431,7 @@ def main():
     # phase 1: build every kernel of the path from the checkout's sources,
     # one nvcc for each, all started together
     t0 = time.perf_counter()
-    libs = ("pairwise_min_dist", "consume_scan")
+    libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step")
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
@@ -2100,6 +2441,7 @@ def main():
         print(log["output"].strip())
     print(f"build: {time.perf_counter() - t0:.2f} s")
     count_rounds()
+    count_proposal_loops()
 
     # phase 2: each kernel path against its plain version on the card, all
     # checked (and so warmed up) before any is timed
@@ -2117,6 +2459,10 @@ def main():
     # phase 2b: the consume scan against its plain version, round by
     # round, on the same inputs
     consume = consume_phase(card)
+
+    # phase 2c: the proposal loops' per-step kernels against their plain
+    # versions, output by output
+    steps, step_calls = proposal_steps_phase(card)
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -2399,6 +2745,13 @@ def main():
               f"{c['library_device_ms']:.4f} ms  bound "
               f"{c['bound_ms']:.5f} ms  exact ceiling "
               f"{c['exact_ceiling_ms']:.5f} ms  [{card}]")
+    for name, fn in step_calls.items():
+        rec = main_step(steps, name)
+        rec["device_us"] = 1e3 * _device_ms(fn)
+        print(f"proposal step {name} {tuple(rec['shape'])} float64 device "
+              f"only: kernel {rec['device_us']:.3f} us  events (through "
+              f"the wrapper) {rec['us']:.2f} us  bound "
+              f"{rec['bound_us']:.5f} us  [{card}]")
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
     heavy["eval_device_ms"] = _device_ms(lambda: heavy_eval(batch), 5)
@@ -2447,6 +2800,42 @@ def main():
     if idle:
         raise RuntimeError(f"drives that never launched the consume "
                            f"kernel: {idle}")
+    steps_by_drive = {name: {k: d["launches"][k] for k in STEP_KERNELS +
+                             tuple(_LOOPS)} for name, d in drives.items()}
+    print(json.dumps({"proposal_step_launches_by_drive": steps_by_drive,
+                      "card": card}))
+    idle = [k for k, c in steps_by_drive.items() if
+            (c["slice_rounds"] and c["slice_propose"] < 1) or
+            (c["rwalk_rounds"] and c["rwalk_propose"] < 1)]
+    if idle:
+        raise RuntimeError(f"drives whose proposal loops never launched "
+                           f"their kernels: {idle}")
+    if not any(c["slice_propose"] for c in steps_by_drive.values()) or \
+            not any(c["rwalk_propose"] for c in steps_by_drive.values()):
+        raise RuntimeError("no drive ran the stepping-out state machine or "
+                           "the random walk through their kernels")
+
+    def step_entry(name):
+        """A proposal-step kernel's line: its main drive's shape in
+        float64 (the slice kernels at 3-D, the walk's at 15-D), the
+        largest difference over every case."""
+        rec = main_step(steps, name)
+        by_drive = {k: c[name] for k, c in steps_by_drive.items() if c[name]}
+        slice_ = name.startswith("slice")
+        return {"name": name, "route": "cuda",
+                "source": SLICE_SOURCE if slice_ else RWALK_SOURCE,
+                "replaces": "dynesty_tpu/internal/kernels.py:801" if slice_
+                else "dynesty_tpu/internal/kernels.py:486",
+                "launches": sum(by_drive.values()),
+                "launches_by_drive": by_drive,
+                "max_abs_err": max(c["max_abs_err"] for c in steps
+                                   if c["kernel"] == name),
+                "ms": rec["us"] / 1e3, "plain_ms": rec["plain_us"] / 1e3,
+                "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes this step",
+                "shape": rec["shape"], "dtype": "float64"}
+
     main_round = next(t for t in consume["times"]
                       if (t["nlive"], t["path"]) == (2048, "thin"))
     kernels = {"kernels": [
@@ -2475,7 +2864,7 @@ def main():
          "plain_ms": main_round["plain_ms"],
          "bound_ms": main_round["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "shape": [2048, 256], "path": "thin"},
-    ]}
+    ] + [step_entry(name) for name in STEP_KERNELS]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2501,6 +2890,8 @@ def main():
                        "example_quickstart": example,
                        "consume": consume,
                        "consume_by_drive": consume_by_drive,
+                       "proposal_steps": steps,
+                       "proposal_steps_by_drive": steps_by_drive,
                        "build_seconds": {k: build.build_log[k]["seconds"]
                                          for k in libs}},
                       f, indent=1)

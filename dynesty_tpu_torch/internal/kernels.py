@@ -24,7 +24,9 @@ so that a host-mode likelihood sees exactly those.
 
 JAX's ``lax.while_loop`` over ``jnp.any(active)`` becomes a Python loop
 that reads its condition from the device once per iteration; each read is
-counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).
+counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).  The
+slice state machine's and the random walk's per-step updates around each
+likelihood call are the kernels of ``ops/proposals.py`` on the card.
 Random numbers come from one explicit ``torch.Generator`` per round, drawn
 in a fixed order and in the kernel's dtype, so a seed reproduces the round.
 """
@@ -34,12 +36,15 @@ import math
 import numpy as np
 import torch
 
-from ..ops.geometry import apply_reflect, randsphere_batch, unitcheck_batch
+from ..ops.geometry import randsphere_batch, unitcheck_batch
+from ..ops.proposals import (rwalk_accept, rwalk_init, rwalk_propose,
+                             slice_advance, slice_init, slice_propose)
 from ..utils.misc import blob_where, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
-           "make_ellipsoid_refit", "make_rwalk_round", "make_slice_round",
-           "slice_directions", "doubling_accept", "pad_ellipsoids"]
+           "make_ellipsoid_refit", "make_rwalk_round", "rwalk_walk",
+           "make_slice_round", "slice_state_machine", "slice_directions",
+           "doubling_accept", "pad_ellipsoids"]
 
 _NEG_INF = -math.inf
 
@@ -77,15 +82,6 @@ def _mask_from_indices(indices, ndim, device=None):
     mask = np.zeros(ndim, dtype=bool)
     mask[np.asarray(indices)] = True
     return torch.as_tensor(mask, device=device)
-
-
-def _wrap_boundaries(u, periodic_mask, reflective_mask):
-    """Apply periodic wrapping / reflection on the marked dimensions."""
-    if periodic_mask is not None:
-        u = torch.where(periodic_mask, torch.remainder(u, 1.0), u)
-    if reflective_mask is not None:
-        u = torch.where(reflective_mask, apply_reflect(u), u)
-    return u
 
 
 def _masked_eval(like, u, incube):
@@ -399,6 +395,31 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
 # random-walk kernel
 
 
+def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, blob=None, *,
+               walks, periodic=None, reflective=None, nonbounded=None):
+    """``walks`` random-walk steps of every lane from ``u, v, logl``
+    (q lanes, their blobs ``blob``): each proposes ``u[:, :ncdim] + axes
+    @ dr * scale`` (``axes`` (q, ncdim, ncdim)) with the uniform draws
+    ``u_ex`` in the other dimensions, where ``draw(step) -> (dr, u_ex)``
+    (``u_ex`` None when ``ncdim == ndim``), and moves where the proposal
+    is in the cube and above ``loglstar``.  The per-step updates are the
+    kernels of ``ops/proposals.py`` on the card.  Returns ``(state,
+    blob)``, the state ``u, v, logl, n_acc, n_rej``."""
+    st = rwalk_init(u, v, logl)
+    # what the eager ops compare and multiply in, made once a round
+    loglstar = torch.as_tensor(loglstar, dtype=u.dtype, device=u.device)
+    scale = torch.as_tensor(scale, dtype=u.dtype, device=u.device)
+    for step in range(walks):
+        dr, u_ex = draw(step)
+        du = torch.einsum("qij,qj->qi", axes, dr)
+        u_prop, ok = rwalk_propose(st, du, scale, u_ex, periodic, reflective,
+                                   nonbounded)
+        v_prop, logl_prop, blob_prop = _masked_eval(like, u_prop, ok)
+        accept = rwalk_accept(st, u_prop, ok, v_prop, logl_prop, loglstar)
+        blob = blob_where(accept, blob_prop, blob)
+    return st, blob
+
+
 def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
                      nonbounded=None, periodic=None, reflective=None):
     """Random-walk round: each of the ``q`` lanes makes exactly ``walks``
@@ -421,41 +442,29 @@ def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
     n_extra = ndim - ncdim
 
     def round_fn(gen, packed_in, start_blob, scale, loglstar):
-        u = packed_in[:, :ndim].to(dtype)
-        v = packed_in[:, ndim:ndim + npdim].to(dtype)
-        logl = packed_in[:, ndim + npdim].to(dtype)
-        blob = start_blob
         axes = packed_in[:, ndim + npdim + 1:].reshape(
             q, ncdim, ncdim).to(dtype)
-        n_acc = n_rej = torch.zeros((q,), dtype=torch.int64, device=device)
-        for _ in range(walks):
+
+        def draw(step):
             dr = randsphere_batch(gen, (q,), ncdim, dtype, device)
-            u_prop = u[:, :ncdim] + \
-                torch.einsum("qij,qj->qi", axes, dr) * scale
-            if n_extra > 0:
-                u_prop = torch.cat([u_prop, torch.rand(
-                    (q, n_extra), generator=gen, dtype=dtype,
-                    device=device)], dim=1)
-            u_prop = _wrap_boundaries(u_prop, pm, rm)
-            ok = unitcheck_batch(u_prop, nb)
-            v_prop, logl_prop, blob_prop = _masked_eval(like, u_prop, ok)
-            accept = ok & (logl_prop > loglstar)
-            u = torch.where(accept[:, None], u_prop, u)
-            v = torch.where(accept[:, None], v_prop, v)
-            logl = torch.where(accept, logl_prop, logl)
-            blob = blob_where(accept, blob_prop, blob)
-            n_acc = n_acc + accept
-            n_rej = n_rej + ~accept
-        return pack_columns(q, dtype, u, v, logl, n_acc, n_rej,
-                            device=device), blob
+            u_ex = torch.rand((q, n_extra), generator=gen, dtype=dtype,
+                              device=device) if n_extra > 0 else None
+            return dr, u_ex
+
+        st, blob = rwalk_walk(
+            like, packed_in[:, :ndim].to(dtype),
+            packed_in[:, ndim:ndim + npdim].to(dtype),
+            packed_in[:, ndim + npdim].to(dtype), axes, scale, loglstar,
+            draw, start_blob, walks=walks, periodic=pm, reflective=rm,
+            nonbounded=nb)
+        return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
+                            st["n_acc"], st["n_rej"], device=device), blob
 
     return round_fn
 
 
 # ==========================================================================
 # slice kernels
-
-PH_INIT_L, PH_INIT_R, PH_EXP_L, PH_EXP_R, PH_SHRINK = 0, 1, 2, 3, 4
 
 
 def slice_directions(gen, axes, scale, kind, slices):
@@ -519,6 +528,43 @@ def doubling_accept(feval, x1, loglstar, left, right, f_left, f_right,
         reject = reject | newly_rejected
         active = active & ~newly_rejected & ((rhat - lhat) > 1.1)
     return ~reject, nc
+
+
+def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
+                        start_v, start_logl, start_blob=None, *, strict=None,
+                        max_shrink_iters=10000, timings=None):
+    """The per-lane slice state machine in stepping-out mode: every lane
+    advances its own phase (init left, init right, expand left, expand
+    right, shrink) through its ``n_steps`` slice updates along
+    ``directions`` (q, n_steps, ndim, lengths capped), starting on the
+    interval ``(-r0, 1 - r0)``.  Each iteration takes ``draw(it) -> (u_sh,
+    u_r0)`` (q,) each: the shrink positions and the next intervals'
+    offsets.  One batched likelihood call an iteration between the
+    kernels of ``ops/proposals.py`` on the card, and one host read of
+    whether any lane is short of its last update (``sync_slice``).
+    ``strict`` is the cube check's bool mask (None: every dimension).
+    Returns ``(state, blob)``, the state as ``ops.proposals.slice_init``
+    lays it out (``u, v, logl, nc, n_exp, n_con, warn`` among its
+    entries)."""
+    n_steps = directions.shape[1]
+    st = slice_init(start_u, start_v, start_logl, r0)
+    # what the eager ops compare in, made once a round
+    loglstar = torch.as_tensor(loglstar, dtype=r0.dtype, device=r0.device)
+    blob = start_blob
+    it = 0
+    max_total = n_steps * max_shrink_iters
+    while it < max_total:
+        _count(timings, "sync_slice")
+        if not bool(st["any_active"]):
+            break
+        u_sh, u_r0 = draw(it)
+        x, upos, incube = slice_propose(st, u_sh, directions, strict)
+        v_x, logl_x, blob_x = _masked_eval(like, upos, incube)
+        acc = slice_advance(st, x, upos, v_x, logl_x, u_r0, loglstar,
+                            n_steps)
+        blob = blob_where(acc, blob_x, blob)
+        it += 1
+    return st, blob
 
 
 def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
@@ -652,92 +698,18 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
         dirlen = torch.linalg.vector_norm(directions, dim=-1)
         dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
         directions = directions / dirnorm[..., None]
-
         r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
-        zi = torch.zeros((q,), dtype=torch.int64, device=device)
-        lane = torch.arange(q, device=device)
-        s, phase = zi, torch.full_like(zi, PH_INIT_L)
-        u, v, logl, u0 = start_u, start_v, start_logl, start_u
-        blob = start_blob
-        left, right = -r0, 1.0 - r0
-        fl = torch.full((q,), _NEG_INF, dtype=dtype, device=device)
-        fr = fl
-        nc = n_exp = n_con = exp_step = zi
-        warn = torch.zeros((), dtype=torch.bool, device=device)
 
-        it = 0
-        max_total = n_steps * max_shrink_iters
-        while it < max_total:
-            active = s < n_steps
-            _count(timings, "sync_slice")
-            if not bool(active.any()):
-                break
-            u_sh, u_r0 = torch.rand((2, q), generator=gen, dtype=dtype,
-                                    device=device)
-            dirc = directions[lane, s.clamp(max=n_steps - 1)]
-            x = torch.where(
-                phase == PH_INIT_L, left,
-                torch.where(phase == PH_INIT_R, right,
-                            torch.where(phase == PH_EXP_L, left - 1.0,
-                                        torch.where(phase == PH_EXP_R,
-                                                    right + 1.0,
-                                                    left + u_sh *
-                                                    (right - left)))))
-            upos = u0 + x[:, None] * dirc
-            incube = unitcheck_batch(upos, nb) & active
-            v_x, logl_x, blob_x = _masked_eval(like, upos, incube)
-            nc = nc + active
+        def draw(it):
+            return torch.rand((2, q), generator=gen, dtype=dtype,
+                              device=device)
 
-            is_il = active & (phase == PH_INIT_L)
-            is_ir = active & (phase == PH_INIT_R)
-            is_el = active & (phase == PH_EXP_L)
-            is_er = active & (phase == PH_EXP_R)
-            is_sh = active & (phase == PH_SHRINK)
-
-            fl = torch.where(is_il | is_el, logl_x, fl)
-            fr = torch.where(is_ir | is_er, logl_x, fr)
-            left = torch.where(is_el, x, left)
-            right = torch.where(is_er, x, right)
-            expanding = is_el | is_er
-            n_exp = n_exp + expanding
-            exp_step = exp_step + expanding
-            n_con = n_con + is_sh
-
-            acc = is_sh & (logl_x > loglstar)
-            rej = is_sh & ~acc
-            left = torch.where(rej & (x < 0), x, left)
-            right = torch.where(rej & (x > 0), x, right)
-
-            # phase transitions (using the updated fl/fr)
-            after_ir = torch.where(
-                fl > loglstar, PH_EXP_L,
-                torch.where(fr > loglstar, PH_EXP_R, PH_SHRINK))
-            nphase = torch.where(is_il, PH_INIT_R, phase)
-            nphase = torch.where(is_ir, after_ir, nphase)
-            el_done = is_el & (logl_x <= loglstar)
-            nphase = torch.where(
-                el_done, torch.where(fr > loglstar, PH_EXP_R, PH_SHRINK),
-                nphase)
-            er_done = is_er & (logl_x <= loglstar)
-            nphase = torch.where(er_done, PH_SHRINK, nphase)
-
-            # acceptance: record the point and enter the next slice step
-            acc2 = acc[:, None]
-            u = torch.where(acc2, upos, u)
-            v = torch.where(acc2, v_x, v)
-            logl = torch.where(acc, logl_x, logl)
-            blob = blob_where(acc, blob_x, blob)
-            u0 = torch.where(acc2, upos, u0)
-            s = s + acc
-            left = torch.where(acc, -u_r0, left)
-            right = torch.where(acc, 1.0 - u_r0, right)
-            fl = torch.where(acc, _NEG_INF, fl)
-            fr = torch.where(acc, _NEG_INF, fr)
-            phase = torch.where(acc, PH_INIT_L, nphase)
-            warn = warn | (exp_step > 1000).any()
-            exp_step = torch.where(acc, 0, exp_step)
-            it += 1
-        return pack_columns(q, dtype, u, v, logl, nc, n_exp, n_con, warn,
+        st, blob = slice_state_machine(
+            like, directions, r0, draw, loglstar, start_u, start_v,
+            start_logl, start_blob, strict=nb,
+            max_shrink_iters=max_shrink_iters, timings=timings)
+        return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
+                            st["nc"], st["n_exp"], st["n_con"], st["warn"],
                             device=device), blob
 
     return round_fn if doubling else round_fn_sm

@@ -11,8 +11,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "unitcheck", "unitcheck_batch", "apply_reflect", "randsphere",
-    "randsphere_batch",
+    "unitcheck", "unitcheck_batch", "apply_reflect", "wrap_boundaries",
+    "randsphere", "randsphere_batch",
     "logvol_prefactor", "rand_choice", "mle_cov", "improve_covar_mat",
 ]
 
@@ -50,6 +50,17 @@ def apply_reflect(u):
     (elementwise, any shape): 2n + x and 2n - x both map to x."""
     m2 = torch.remainder(u, 2.0)
     return torch.where(m2 < 1.0, m2, 2.0 - m2)
+
+
+def wrap_boundaries(u, periodic_mask, reflective_mask):
+    """Device: wrap the dimensions marked in ``periodic_mask`` into [0, 1)
+    and reflect those marked in ``reflective_mask`` (bool vectors (ndim,)
+    or None) into [0, 1]."""
+    if periodic_mask is not None:
+        u = torch.where(periodic_mask, torch.remainder(u, 1.0), u)
+    if reflective_mask is not None:
+        u = torch.where(reflective_mask, apply_reflect(u), u)
+    return u
 
 
 def randsphere(n, rstate):

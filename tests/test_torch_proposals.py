@@ -59,9 +59,9 @@ def test_wrap_boundaries_bit_identical():
         j = jk._wrap_boundaries(jnp.asarray(u),
                                 jk._mask_from_indices(per, 4),
                                 jk._mask_from_indices(ref, 4))
-        t = tk._wrap_boundaries(torch.from_numpy(u),
-                                tk._mask_from_indices(per, 4),
-                                tk._mask_from_indices(ref, 4))
+        t = tgeo.wrap_boundaries(torch.from_numpy(u),
+                                 tk._mask_from_indices(per, 4),
+                                 tk._mask_from_indices(ref, 4))
         assert np.array_equal(np.asarray(j), t.numpy())
     wrapped = t.numpy()
     assert np.all((wrapped[:, [0, 1, 3]] >= 0) &

@@ -99,9 +99,14 @@ def test_single_rslice_reproducible():
     assert a.niter == b.niter
 
 
-def test_progress_printing_path(capsys):
+def test_progress_printing_path(capsys, monkeypatch):
     # the default printer is a tqdm bar where tqdm is installed (its
-    # counter in place of the iter field), else the stderr line
+    # counter in place of the iter field), else the stderr line; tqdm and
+    # the line's width tiers read the terminal's size from COLUMNS/LINES
+    # when stderr is captured, so the width is pinned (a bar cut at 80
+    # columns loses the status fields)
+    monkeypatch.setenv("COLUMNS", "200")
+    monkeypatch.setenv("LINES", "20")
     try:
         import tqdm  # noqa: F401
         counter = "it/s"
