@@ -16,19 +16,26 @@ Phases, in order; any failure raises and exits non-zero:
    Then the consume scan (``consume_phase``): fused rounds over a fixed
    proposal block, each run through the ``consume_scan`` kernel and
    through the plain loop on the same CUDA tensors, at (nlive, q) = (64,
-   16), (2048, 256) and (3000, 256) in batch mode and (64, 16), (1000,
-   256) in queue mode: thin, thin on a plateau, a proposal below the
-   threshold, two rounds, one of two rounds active, a ``max_accepts``
-   stop, a ``dlogz`` stop at the first and at the middle step, a replay
-   round (``kills0`` 5, ``birth0``) and a live set of -inf; every batch
-   round that does not stop also with the thin path forbidden
-   (``_FORCE_GENERAL_CONSUME``), which must give the thin path's bits;
-   two float32 rounds.  Every column, counter and the live matrix must be
-   bit-identical (the integrator columns counted, and held to 1e-12
-   relative where a bit differs).  The kernel's integrator step against
+   16), (2048, 256), (3000, 256), (64, 1) and (700, 300) in batch mode
+   and (64, 16), (1000, 256), (2048, 256), (64, 1), (700, 300) and
+   (16384, 256: the live logl past the kernel's shared memory) in queue
+   mode: thin, thin on a plateau, a proposal below the threshold, two
+   rounds, one of two rounds active, a ``max_accepts`` stop, a ``dlogz``
+   stop at the first and at the middle step, ``max_nc`` and ``logl_max``
+   stops at the middle step, a plateau that first appears at the middle
+   kill, a state that enters the round in plateau mode, a NaN in the live
+   logl, a replay round (``kills0`` 5, ``birth0``) and a live set of
+   -inf; the queue path at the largest live set resident in shared
+   memory and at one point more; every batch round that does not stop
+   also with the thin path forbidden (``_FORCE_GENERAL_CONSUME``), which
+   must give the thin path's bits; five float32 rounds, thin and general.
+   Every column, counter and the live matrix must be bit-identical (the
+   integrator columns counted, and held to 1e-12 relative where a bit
+   differs).  The kernel's integrator step against
    ``progress_integration_torch`` on 10^6 states, a quarter at the edges
    (-inf, -1e300), in float64 and float32: the bit-identical share.  The
-   time of one consume round (events, warm), kernel and plain, at the
+   chain probe (one thread, dependent logaddexps) against its plain loop.
+   The time of one consume round (events, warm), kernel and plain, at the
    full-width shapes, thin and general.  Then the proposal steps
    (``proposal_steps_phase``): the four per-step kernels of the proposal
    loops (``slice_propose``, ``slice_advance``, ``rwalk_propose``,
@@ -148,9 +155,16 @@ Phases, in order; any failure raises and exits non-zero:
     default path has no refit after its first planned dispatch.
 32. example-quickstart: ``examples/torch_quickstart.py`` on the card, its
     static run within 4 and its dynamic run within 5 logzerr of the truth.
-33. Device-only times (profiler kernel durations) of every comparison,
-    of the four proposal-step kernels at the main drives' shapes, and of
-    one 256-lane evaluation of the heavy likelihood.
+33. queue-balls: the balls drive with ``proposal_mode='queue'`` (q =
+    256): every consume launch on the general path at nlive 2048, the
+    evidence gate; then the same drive with every round's consume sent
+    through the plain loop, whose records and state must be bit for bit
+    the kernel run's.
+34. Device-only times (profiler kernel durations) of every comparison,
+    of the consume rounds with their chain bound (the device time of a
+    step of a one-thread chain of dependent logaddexps, times q), of the
+    four proposal-step kernels at the main drives' shapes, and of one
+    256-lane evaluation of the heavy likelihood.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
@@ -496,12 +510,13 @@ def _gate(sampler, s, what):
 
 
 def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None,
-          loglike=None, ptform=None, **kw):
+          loglike=None, ptform=None, gate=None, **kw):
     """One run on the 3-D Gaussian on the card's default device, through
-    the evidence gate; with ``maxiter`` the run is stopped there without
-    its live points and returned ungated.  ``loglike``/``ptform`` replace
-    the Gaussian's (a blob or host-mode form of it), ``kw`` goes to the
-    sampler.  Returns (summary, sampler)."""
+    the evidence gate (``gate``, by default :func:`_gate`); with
+    ``maxiter`` the run is stopped there without its live points and
+    returned ungated.  ``loglike``/``ptform`` replace the Gaussian's (a
+    blob or host-mode form of it), ``kw`` goes to the sampler.  Returns
+    (summary, sampler)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # no device argument: the port runs on the card by default
@@ -522,8 +537,8 @@ def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None,
     if maxiter is not None:
         return {"wall_s": wall, "niter": sampler.it - 1}, sampler
     summary = _summary(sampler, wall, LOGZ_TRUTH)
-    _gate(sampler, summary, f"drive {_bound_name(bound)}/"
-          f"{summary['config']['sample']} nlive={nlive}")
+    (gate or _gate)(sampler, summary, f"drive {_bound_name(bound)}/"
+                    f"{summary['config']['sample']} nlive={nlive}")
     return summary, sampler
 
 
@@ -639,6 +654,83 @@ def resume_drive(dyt, full, maxiter, nlive=2048, bound="balls", **kw):
         raise RuntimeError(f"the resumed run differs from the "
                            f"uninterrupted one: {out}")
     return out
+
+
+def _queue_gate(sampler, s, what):
+    """The queue drive's gate: |logz - truth| < 4 logzerr, every record's
+    weight finite, one sample a record and live point.  A queue-mode run
+    bills the evaluations of the proposals consumed after its last
+    accepted one to no record, so its ``ncall`` column sums to less than
+    the sampler's ``ncall``: the difference is recorded, not gated."""
+    res = sampler.results
+    s["ncall_unrecorded"] = int(sampler.ncall) - int(np.sum(res.ncall))
+    ok = (np.isfinite(s["logz"]) and s["logzerr"] > 0 and
+          abs(s["logz"] - s["truth"]) < 4 * s["logzerr"] and
+          res.samples.shape == (res.niter + sampler.nlive, sampler.ndim) and
+          np.all(np.isfinite(res.logwt)) and s["ncall_unrecorded"] >= 0)
+    if not ok:
+        raise RuntimeError(f"{what} failed the evidence gate: {s}")
+
+
+def queue_balls_drive(dyt, hk):
+    """The balls drive in queue mode (``proposal_mode='queue'``, q = 256):
+    every consume launch takes the general path.  Then the same drive
+    with every round's consume sent through the plain loop (the harness's
+    monkeypatch, as :func:`run_fixed_round` with ``plain`` does), whose
+    records and state must be the kernel run's bit for bit."""
+    import dynesty_tpu_torch.internal.fused as fused_mod
+
+    kernel = fused_mod.consume_round
+    shapes = set()
+
+    def spy(st, live_logl, qlogl, *a, **kw):
+        shapes.add((live_logl.shape[0], qlogl.shape[0]))
+        return kernel(st, live_logl, qlogl, *a, **kw)
+
+    _zero_counts(hk)
+    fused_mod.consume_round = spy
+    try:
+        with recording_refits(dyt, hk) as calls:
+            s, sampler = drive(dyt, 2048, "balls", proposal_mode="queue",
+                               gate=_queue_gate)
+    finally:
+        fused_mod.consume_round = kernel
+    s["launches"] = c = _counts(hk)
+    s["refit_max_abs_err"] = check_refits(hk, calls, "queue-balls drive")
+    s["consume_shapes"] = sorted(shapes)
+    if sampler.queue_size != 256 or c["consume"] < 1 or \
+            c["consume_general"] != c["consume"] or c["exact"] < 1 or \
+            any(n != 2048 for n, _ in shapes):
+        raise RuntimeError(f"the queue-balls drive did not consume every "
+                           f"round on the general path at nlive 2048: "
+                           f"{s['launches']}, shapes {s['consume_shapes']}")
+    launches = cs.consume_round.launches
+    fused_mod.consume_round = cs.consume_round_plain
+    try:
+        plain, psampler = drive(dyt, 2048, "balls", proposal_mode="queue",
+                                gate=_queue_gate)
+    finally:
+        fused_mod.consume_round = kernel
+    if cs.consume_round.launches != launches:
+        raise RuntimeError("the plain replay launched the consume kernel")
+    a, b = sampler.results, psampler.results
+    same = {k: bool(_same_bits(np.asarray(a[k], dtype=np.float64),
+                               np.asarray(b[k], dtype=np.float64)).all())
+            for k in ("logl", "logvol", "logwt", "logz", "logzerr",
+                      "information", "samples", "samples_u", "samples_it",
+                      "samples_id", "samples_n", "ncall", "scale")}
+    same["niter"] = a.niter == b.niter
+    same["ncall_total"] = sampler.ncall == psampler.ncall
+    same["n_round"] = sampler.timings["n_round"] == \
+        psampler.timings["n_round"]
+    same["ncall_unrecorded"] = s["ncall_unrecorded"] == \
+        plain["ncall_unrecorded"]
+    s["plain_replay"] = {"wall_s": plain["wall_s"], "same": same,
+                         "n_round": psampler.timings["n_round"]}
+    if not all(same.values()):
+        raise RuntimeError(f"the queue-balls drive through the plain loop "
+                           f"differs from the kernel's: {same}")
+    return s
 
 
 # the 3-D Gaussian in numpy for the host-mode drives, at module level so
@@ -1798,10 +1890,16 @@ def refit_drive(dyt, hk):
 C_NDIM = C_NPDIM = 2
 C_IL = C_NDIM + C_NPDIM
 # (nlive, q, mode) of the comparisons: the port's test size, then the
-# drives' widths (balls 2048 / 256, heavy 3000 / 256, queue mode at 1000)
+# drives' widths (balls 2048 / 256, heavy 3000 / 256, queue mode at 1000
+# and 2048), q = 1, q = 300 (not a multiple of 32: two chunks of the
+# kernel, the second ragged) and a live set past the kernel's
+# shared-memory limit in float64 (16384: its logl in global memory)
 CONSUME_SHAPES = [(64, 16, "batch"), (2048, 256, "batch"),
-                  (3000, 256, "batch"), (64, 16, "queue"),
-                  (1000, 256, "queue")]
+                  (3000, 256, "batch"), (64, 1, "batch"),
+                  (700, 300, "batch"), (64, 16, "queue"),
+                  (1000, 256, "queue"), (2048, 256, "queue"),
+                  (64, 1, "queue"), (700, 300, "queue"),
+                  (16384, 256, "queue")]
 # name: (state kwargs, rounds, ctrl kwargs); every batch case that does
 # not stop also runs with the thin path forbidden
 # (_FORCE_GENERAL_CONSUME), which must give the same bits
@@ -1817,14 +1915,38 @@ CONSUME_CASES = {
         "dlogz_stop_mid_round": ({}, 1, {"dlogz": "mid"}),
         "replay": ({"below": True}, 1, {"kills0": 5}),
         "all_neg_inf": ({"neg_inf": True}, 1, {"dlogz": -np.inf}),
+        "max_nc_stop_mid_round": ({}, 1, {"max_nc": "mid"}),
+        "logl_max_stop_mid_round": ({}, 1, {"logl_max": "mid"}),
+        "plateau_at_step": ({"tie_at": "mid"}, 1, {}),
+        "enters_in_plateau": ({}, 1, {"plateau": 3}),
+        "nan_live": ({"nan_at": 3}, 1, {}),
     },
     "queue": {
         "queue": ({"below": True}, 1, {}),
         "queue_replay": ({"below": True}, 1, {"replay": True}),
         "queue_dlogz_stop_mid_round": ({}, 1, {"dlogz": "mid"}),
         "queue_all_neg_inf": ({"neg_inf": True}, 1, {"dlogz": -np.inf}),
+        "queue_max_nc_stop_mid_round": ({"below": True}, 1,
+                                        {"max_nc": "mid"}),
+        "queue_plateau_at_step": ({"tie_at": "mid"}, 1, {}),
+        "queue_enters_in_plateau": ({}, 1, {"plateau": 3}),
+        "queue_nan_live": ({"nan_at": 3}, 1, {}),
     },
 }
+# float32 rounds: (nlive, q, mode, case)
+CONSUME_F32 = [(2048, 256, "batch", "thin"),
+               (2048, 256, "batch", "below_threshold"),
+               (2048, 256, "batch", "plateau_at_step"),
+               (1000, 256, "queue", "queue"),
+               (2048, 256, "queue", "queue_plateau_at_step")]
+# the timed rounds (float64): (nlive, q, mode, thin allowed)
+CONSUME_TIMED = [(2048, 256, "batch", True), (2048, 256, "batch", False),
+                 (3000, 256, "batch", True), (3000, 256, "batch", False),
+                 (1000, 256, "queue", False), (2048, 256, "queue", False),
+                 (16384, 256, "queue", False)]
+# passes of the chain probe over a round's q steps, whose device time per
+# step sizes the chain bound
+CHAIN_PROBE_REPS = 64
 # the integrator columns of the records, compared bit for bit and, where a
 # bit differs, to this relative tolerance
 CONSUME_FLOAT_COLS = ("logvol", "logwt", "logz", "logzvar", "h")
@@ -1832,16 +1954,24 @@ CONSUME_RTOL = 1e-12
 INTEGRATOR_SWEEP = 10 ** 6
 
 
-def consume_state(nlive, q, plateau=False, below=False, neg_inf=False):
+def consume_state(nlive, q, plateau=False, below=False, neg_inf=False,
+                  tie_at=None, nan_at=None):
     """A live matrix (u | v | logl | it | bound | birth) and a proposal
     block (u | v | logl | nc | 2 lane stats) above the round's threshold,
-    from the seed with numpy (``tests/test_torch_fused.py``'s state)."""
+    from the seed with numpy (``tests/test_torch_fused.py``'s state).
+    ``tie_at``: three points tied at that rank of the sorted logl ('mid':
+    q // 2), a plateau that first appears at that kill; ``nan_at``: a NaN
+    logl at that row."""
     rs = np.random.Generator(np.random.PCG64(SEED))
     logl = rs.normal(size=nlive) * 2.0
     if plateau:
         logl = np.round(logl)  # ties everywhere, into the kill set
     if neg_inf:
         logl[:] = -np.inf
+    if tie_at is not None:
+        rank = q // 2 if tie_at == "mid" else tie_at
+        order = np.argsort(logl)
+        logl[order[rank:rank + 3]] = logl[order[rank]]
     u = rs.random((nlive, C_NDIM))
     live = np.concatenate([
         u, 10.0 * u, logl[:, None],
@@ -1857,6 +1987,8 @@ def consume_state(nlive, q, plateau=False, below=False, neg_inf=False):
     qlogl = thr + np.abs(rs.normal(size=q)) * 3.0 + 1e-3
     if below:
         qlogl[q // 3] = thr - 1.0  # one proposal under the threshold
+    if nan_at is not None:
+        live[nan_at, C_IL] = np.nan
     qu = rs.random((q, C_NDIM))
     prop = np.concatenate([qu, 10.0 * qu, qlogl[:, None],
                            rs.integers(1, 30, q)[:, None].astype(float),
@@ -1865,12 +1997,16 @@ def consume_state(nlive, q, plateau=False, below=False, neg_inf=False):
 
 
 def consume_ctrl(rounds_active=1, dlogz=0.01, max_accepts=2 ** 30, kills0=0,
-                 birth0=-1e30):
-    """The control vector of ``launch_fused`` (fresh integrator)."""
-    return np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0,
-                     dlogz, np.inf, float(max_accepts), 2.0 ** 30, 1.0,
-                     float(kills0), float(rounds_active), birth0, 0.0, 0.0,
-                     0.0, 0.0, 2.0 ** 30])
+                 birth0=-1e30, max_nc=2 ** 30, logl_max=np.inf,
+                 plateau=None):
+    """The control vector of ``launch_fused`` (fresh integrator, or one
+    that enters in plateau mode: ``plateau`` = (counter, logdvol))."""
+    pmode, pc, pld = (0.0, 0.0, 0.0) if plateau is None else \
+        (1.0, float(plateau[0]), float(plateau[1]))
+    return np.array([-1e30, 0.0, 0.0, 0.0, -1e30, pmode, pc, pld, 1.0,
+                     dlogz, logl_max, float(max_accepts), float(max_nc),
+                     1.0, float(kills0), float(rounds_active), birth0, 0.0,
+                     0.0, 0.0, 0.0, 2.0 ** 30])
 
 
 def run_fixed_round(live, prop, rounds, mode, ctrl, kind="fixed",
@@ -1971,9 +2107,19 @@ def consume_case(nlive, q, mode, name, dtype=torch.float64):
     live, prop = consume_state(nlive, q, **kw)
     kind = "replay" if "kills0" in ckw or ckw.pop("replay", False) \
         else "fixed"
+    srt = np.sort(live[:, C_IL])
     if kind == "replay":
-        srt = np.sort(live[:, C_IL])
         ckw["birth0"] = float(srt[q - 1] if mode == "batch" else srt[0])
+    if ckw.get("max_nc") == "mid":
+        # the evaluations of the first half: the stop falls mid-round
+        ckw["max_nc"] = int(prop[:q // 2, C_IL + 1].sum())
+    if ckw.get("logl_max") == "mid":
+        # loglstar passes the middle victim's logl after the middle kill
+        ckw["logl_max"] = float(srt[q // 2])
+    if "plateau" in ckw:
+        # a state in plateau mode: its counter, and a shrinkage the
+        # round's own would not give
+        ckw["plateau"] = (ckw["plateau"], -np.log(nlive + 1.0) - 0.5)
     if ckw.get("dlogz") == "mid":
         # stop where the round's delta_logz first falls below its value at
         # the middle step: lands one step elsewhere on any bit of drift
@@ -2047,7 +2193,8 @@ def integrator_sweep(dtype=torch.float64, n=INTEGRATOR_SWEEP):
 def consume_times(nlive, q, mode, thin, iters=20):
     """Per-call times (CUDA events, warm) of one consume round through the
     kernel's wrapper and through the plain version, on the state of the
-    'thin' case (``thin``: the round may take the thin path)."""
+    'thin' case (``thin``: the round may take the thin path).  Returns the
+    record and the kernel's call, for its device-only time."""
     from dynesty_tpu_torch.ops import consume as cs
 
     live, prop = consume_state(nlive, q)
@@ -2067,73 +2214,149 @@ def consume_times(nlive, q, mode, thin, iters=20):
                                             device="cuda")) if thin else None
     kw = dict(batch=mode == "batch",
               dlv_default=float(np.log1p(1.0 / nlive)), thin=th)
-    ms = _time_ms(lambda: cs.consume_round(st, live_logl, qlogl, qnc,
-                                           limits, **kw), iters)
+
+    def call():
+        return cs.consume_round(st, live_logl, qlogl, qnc, limits, **kw)
+
+    ms = _time_ms(call, iters)
     plain_ms = _time_ms(lambda: cs.consume_round_plain(
         st, live_logl, qlogl, qnc, limits, **kw), 2)
+    # the round's own evidence chain, for its bound: its logwt column and
+    # the logz it starts from
+    chain_in = (call()[0][5].clone(), st["logz"])
     return {"nlive": nlive, "q": q, "mode": mode,
-            "path": "thin" if thin else "general", "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": consume_bound_ms(nlive, q, thin)}
+            "path": "thin" if thin else "general",
+            "resident": cs.smem_layout(nlive, torch.float64)["resident"],
+            "ms": ms, "plain_ms": plain_ms,
+            "byte_bound_ms": consume_bound_ms(nlive, q, thin)}, \
+        (call, chain_in)
 
 
 def consume_bound_ms(nlive, q, thin, fsize=8):
     """The bytes one launch must move on its path, at the card's memory
     rate: in, the proposals' logl and nc and the carried state, and on the
-    thin path the first q sorted logl, indices and tie counts, the largest
-    live logl and the thin flag, on the general path the whole live logl;
-    out, the 12 per-step columns and the state (``fsize`` the float type's
-    bytes).  The operations (a few dozen a step, and nlive compares a step
-    on the general path) are far below.  The real limit is the chain of q
-    dependent steps, which this does not see."""
+    thin path the first q sorted logl and indices, the largest live logl
+    and the thin flag (the tie counts are found in the kernel), on the
+    general path the whole live logl; out, the 11 per-step columns, the
+    accepts and the state (``fsize`` the float type's bytes).  The
+    operations (a few dozen a step, and on the general path a segment's
+    compares a step) are far below; the chain of q dependent steps is
+    :func:`chain_step_ms`'s bound."""
     state = 6 * fsize + 9 * 8 + 8          # floats, ints, path count
     by = q * (fsize + 8) + state
-    by += q * (fsize + 16) + fsize + 1 if thin else nlive * fsize
-    by += q * (8 * fsize + 3 * 8 + 1) + state
+    by += q * (fsize + 8) + fsize + 1 if thin else nlive * fsize
+    by += q * (8 * fsize + 3 * 8 + 1) + state + 2
     return 1e3 * by / HBM_BYTES
 
 
+def chain_probe_check(chain_in):
+    """The chain probe against its plain loop on a round's own chain
+    inputs, bit for bit, in float64 and float32."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        logwt, logz0 = (t.to(dtype) for t in chain_in)
+        got = cs.chain_probe(logwt, logz0)
+        ref = cs.chain_probe_plain(logwt, logz0)
+        torch.cuda.synchronize()
+        out[str(dtype).split(".")[-1]] = bool(torch.equal(got, ref))
+    if not all(out.values()):
+        raise RuntimeError(f"the chain probe differs from its plain loop: "
+                           f"{out}")
+    return out
+
+
+def chain_step_ms(chain_in, reps=CHAIN_PROBE_REPS):
+    """Device time (profiler) of one step of a round's evidence chain
+    alone, ``reps`` passes over its q dependent logaddexps on one thread:
+    the least a step of the consume scan can take on this card; q of them
+    are the round's chain bound."""
+    logwt, logz0 = chain_in
+    return _device_ms(lambda: cs.chain_probe(logwt, logz0, reps), 5) / (
+        logwt.shape[0] * reps)
+
+
 def consume_phase(card):
-    """Every case at every shape (float64), a float32 round at the main
-    width, the integrator sweep and the times; prints one line each and
-    returns the records."""
+    """Every case at every shape (float64), the layout boundary, the
+    float32 rounds, the integrator sweep, the chain probe and the times;
+    prints one line each and returns the records and the timed calls."""
     cases = []
+
+    def show(rec, what):
+        print(f"consume {what} ({rec['nlive']}, {rec['q']}) {rec['case']}: "
+              f"float columns bit-identical {rec['float_identical']}/"
+              f"{rec['float_total']}  max rel err "
+              f"{rec['max_rel_err']:.3e}  reason {rec['done_reason']}"
+              f"  accepted {rec['n_accepted']}"
+              + (f"  general == thin {rec['general_equals_thin']}"
+                 if "general_equals_thin" in rec else "")
+              + (f"  resident {rec['resident']}" if "resident" in rec
+                 else "") + f"  [{card}]")
+
     for nlive, q, mode in CONSUME_SHAPES:
         for name in CONSUME_CASES[mode]:
             rec = consume_case(nlive, q, mode, name)
             cases.append(rec)
-            print(f"consume {mode} ({nlive}, {q}) {name}: float columns "
-                  f"bit-identical {rec['float_identical']}/"
-                  f"{rec['float_total']}  max rel err "
-                  f"{rec['max_rel_err']:.3e}  reason {rec['done_reason']}"
-                  f"  accepted {rec['n_accepted']}"
-                  + (f"  general == thin {rec['general_equals_thin']}"
-                     if "general_equals_thin" in rec else "") + f"  [{card}]")
-    for name in ("thin", "below_threshold"):
-        rec = consume_case(2048, 256, "batch", name, dtype=torch.float32)
+            show(rec, mode)
+    # the general path's layouts at their boundary: the largest live set
+    # resident in shared memory, and one point more
+    limit = cs.resident_limit(torch.float64)
+    for nlive in (limit, limit + 1):
+        rec = consume_case(nlive, 64, "queue", "queue")
+        rec["resident"] = cs.smem_layout(nlive, torch.float64)["resident"]
+        if rec["resident"] != (nlive == limit):
+            raise RuntimeError(f"the layout at nlive={nlive}: {rec}")
         cases.append(rec)
-        print(f"consume float32 batch (2048, 256) {name}: bit-identical "
-              f"{rec['float_identical']}/{rec['float_total']}  [{card}]")
+        show(rec, "queue, layout boundary")
+    for nlive, q, mode, name in CONSUME_F32:
+        rec = consume_case(nlive, q, mode, name, dtype=torch.float32)
+        cases.append(rec)
+        show(rec, f"float32 {mode}")
     sweep = [integrator_sweep(dt) for dt in (torch.float64, torch.float32)]
     for s in sweep:
         print(f"integrator step, {s['states']} states ({s['edge_states']} "
               f"at the edges), {s['dtype']}: bit-identical share "
               f"{s['identical_share']}  [{card}]")
-    times = [consume_times(nlive, q, mode, thin)
-             for nlive, q, mode in CONSUME_SHAPES[1:] if q == 256
-             for thin in ((True, False) if mode == "batch" else (False,))]
+    timed = [consume_times(*t) for t in CONSUME_TIMED]
+    times = [t for t, _ in timed]
+    probe = chain_probe_check(timed[0][1][1])
+    print(f"chain probe against its plain loop on the (2048, 256) thin "
+          f"round's chain: bit-identical {probe}  [{card}]")
     for t in times:
         print(f"consume round {t['mode']} ({t['nlive']}, {t['q']}) "
-              f"{t['path']}: kernel {t['ms']:.4f} ms  plain "
-              f"{t['plain_ms']:.1f} ms  bound {t['bound_ms']:.3e} ms "
-              f"(bytes)  [{card}]")
+              f"{t['path']}: kernel {t['ms']:.4f} ms (events, through the "
+              f"wrapper)  plain {t['plain_ms']:.1f} ms  byte bound "
+              f"{t['byte_bound_ms']:.3e} ms  [{card}]")
     ident = sum(c["float_identical"] for c in cases)
     total = sum(c["float_total"] for c in cases)
     print(f"consume: {len(cases)} rounds, float columns bit-identical "
           f"{ident}/{total}  [{card}]")
     return {"cases": cases, "integrator_sweep": sweep, "times": times,
-            "float_identical": ident, "float_total": total,
-            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+            "chain_probe": probe, "float_identical": ident,
+            "float_total": total,
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}, \
+        [c for _, c in timed]
+
+
+def consume_device_times(consume, calls, card):
+    """Phase 34's part: each timed round's device-only time (profiler),
+    the chain bound (the round's own q dependent logaddexps on one thread,
+    timed here), the byte bound, the larger of the two and the share of it
+    the kernel reaches."""
+    for t, (call, chain_in) in zip(consume["times"], calls):
+        t["device_ms"] = _device_ms(call)
+        t["chain_step_ms"] = chain_step_ms(chain_in)
+        t["chain_bound_ms"] = t["q"] * t["chain_step_ms"]
+        t["bound_ms"] = max(t["chain_bound_ms"], t["byte_bound_ms"])
+        t["bound_by"] = "operations" if t["chain_bound_ms"] >= \
+            t["byte_bound_ms"] else "bytes"
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        print(f"consume round {t['mode']} ({t['nlive']}, {t['q']}) "
+              f"{t['path']} device only: kernel {t['device_ms']:.4f} ms  "
+              f"events {t['ms']:.4f} ms  chain bound "
+              f"{t['chain_bound_ms']:.4f} ms ({1e6 * t['chain_step_ms']:.1f} "
+              f"ns a step)  byte bound "
+              f"{t['byte_bound_ms']:.3e} ms  share "
+              f"{100 * t['bound_share']:.1f} %  [{card}]")
 
 
 # --------------------------------------------------------------------------
@@ -2458,7 +2681,7 @@ def main():
 
     # phase 2b: the consume scan against its plain version, round by
     # round, on the same inputs
-    consume = consume_phase(card)
+    consume, consume_calls = consume_phase(card)
 
     # phase 2c: the proposal loops' per-step kernels against their plain
     # versions, output by output
@@ -2729,7 +2952,17 @@ def main():
     print(json.dumps(dict({"phase": "example-quickstart", "card": card},
                           **example)))
 
-    # phase 33: device-only times, last: once a profiler has run, every
+    # phase 33: queue-balls, the balls drive in queue mode: the consume
+    # kernel's general path on a drive, held against the plain loop
+    queueballs = queue_balls_drive(dyt, hk)
+    _print_drive("queue-balls balls/rslice queue nlive=2048", queueballs,
+                 queueballs["launches"], card)
+    print(json.dumps({"phase": "queue-balls", "card": card,
+                      "consume_shapes": queueballs["consume_shapes"],
+                      "ncall_unrecorded": queueballs["ncall_unrecorded"],
+                      "plain_replay": queueballs["plain_replay"]}))
+
+    # phase 34: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
         pts = _points(n, d, shift)
@@ -2752,6 +2985,7 @@ def main():
               f"only: kernel {rec['device_us']:.3f} us  events (through "
               f"the wrapper) {rec['us']:.2f} us  bound "
               f"{rec['bound_us']:.5f} us  [{card}]")
+    consume_device_times(consume, consume_calls, card)
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
     heavy["eval_device_ms"] = _device_ms(lambda: heavy_eval(batch), 5)
@@ -2788,7 +3022,7 @@ def main():
               "eggbox": rows["eggbox"], "shells": rows["shells"],
               "eggbox-balls": eggballs, "mesh-balls": meshballs,
               "mesh-dynamic3": meshdyn3, "pipeline-resume": piperesume,
-              "example-quickstart": example}
+              "example-quickstart": example, "queue-balls": queueballs}
     consume_by_drive = {name: {
         "launches": d["launches"]["consume"],
         "thin": d["launches"]["consume_thin"],
@@ -2836,8 +3070,11 @@ def main():
                 "library_note": "no one PyTorch call computes this step",
                 "shape": rec["shape"], "dtype": "float64"}
 
-    main_round = next(t for t in consume["times"]
-                      if (t["nlive"], t["path"]) == (2048, "thin"))
+    def round_at(nlive, mode, path):
+        return next(t for t in consume["times"] if (
+            t["nlive"], t["mode"], t["path"]) == (nlive, mode, path))
+
+    main_round = round_at(2048, "batch", "thin")
     kernels = {"kernels": [
         entry("pairwise_min_dist_l2_exact", MAIN_SHAPE, 2, "exact",
               {"balls": main["launches"]["exact"],
@@ -2848,7 +3085,8 @@ def main():
                "host-balls": hostballs["launches"]["exact"],
                "blob-resume": blobresume["launches"]["exact"],
                "eggbox-balls": eggballs["launches"]["exact"],
-               "mesh-balls": meshballs["launches"]["exact"]}),
+               "mesh-balls": meshballs["launches"]["exact"],
+               "queue-balls": queueballs["launches"]["exact"]}),
         entry("pairwise_min_dist_linf_exact", MAIN_SHAPE, math.inf, "exact",
               {"cubes": cubes["launches"]["exact"]}),
         entry("pairwise_min_dist_l2_tc", TC_SHAPE, 2, "tc",
@@ -2862,7 +3100,19 @@ def main():
                                for k, c in consume_by_drive.items()},
          "max_abs_err": consume["max_abs_err"], "ms": main_round["ms"],
          "plain_ms": main_round["plain_ms"],
-         "bound_ms": main_round["bound_ms"], "bound_by": "bytes",
+         "bound_ms": main_round["bound_ms"],
+         "bound_by": main_round["bound_by"],
+         "bound_note": "the larger of the byte bound and the chain bound, "
+                       "the round's own q dependent logaddexps timed on "
+                       "one thread of this card (an operations bound of "
+                       "latency, not of rate)",
+         "device_ms": main_round["device_ms"],
+         "byte_bound_ms": main_round["byte_bound_ms"],
+         "chain_bound_ms": main_round["chain_bound_ms"],
+         "bound_share": main_round["bound_share"],
+         "general": {k: round_at(2048, "batch", "general")[k] for k in (
+             "ms", "device_ms", "plain_ms", "byte_bound_ms",
+             "chain_bound_ms", "bound_ms", "bound_by", "bound_share")},
          "library_ms": None, "shape": [2048, 256], "path": "thin"},
     ] + [step_entry(name) for name in STEP_KERNELS]}
     if args.out:
@@ -2888,6 +3138,7 @@ def main():
                        "mesh_dynamic3": meshdyn3, "scaling": scaling,
                        "pipeline_resume": piperesume,
                        "example_quickstart": example,
+                       "queue_balls": queueballs,
                        "consume": consume,
                        "consume_by_drive": consume_by_drive,
                        "proposal_steps": steps,

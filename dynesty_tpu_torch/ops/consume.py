@@ -11,7 +11,10 @@ body, ``:423`` the ``lax.cond`` between them).
 :func:`consume_round` on a CUDA tensor launches
 ``csrc/consume_scan.cu`` (built lazily by :mod:`.build`; the design notes
 are in that source): one block consumes the whole round and picks the
-thin or the general path on the device.  On a CPU tensor it runs
+thin or the general path on the device; one thread runs the evidence
+chain while the rest of the block computes everything off it, and the
+general path keeps the live logl in shared memory where it fits
+(:func:`smem_layout`).  On a CPU tensor it runs
 :func:`consume_round_plain`, the eager loop over 0-d tensors that the
 kernel is held against bit for bit.
 
@@ -22,6 +25,7 @@ srcs, accepts, logl, logvol, logwt, logz, logzvar, h, nc, delta_logz,
 n): int64, int64, bool, then the state's type but nc (int64).
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -30,7 +34,8 @@ from . import build
 from .integrals import progress_integration_torch
 
 __all__ = ["consume_round", "consume_round_plain", "integrator_step",
-           "path_counts", "zero_counts", "STATE_KEYS"]
+           "chain_probe", "chain_probe_plain", "smem_layout",
+           "resident_limit", "path_counts", "zero_counts", "STATE_KEYS"]
 
 # the carried state: float (the sampler's dtype), then integer (int64) and
 # boolean entries, in the order the kernel packs them
@@ -42,8 +47,8 @@ BOOL_KEYS = ("plateau_mode", "done")
 STATE_KEYS = FLOAT_KEYS + INT_KEYS
 PATHS = ("thin", "general")
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
-# threads of the one block (a multiple of 32, at most 1024)
-BLOCK = 512
+# threads of the one block, and steps of a chunk (the kernel's CHUNK)
+BLOCK = 256
 
 
 def _causes(delta_logz, loglstar, plateau, n_acc, nc_used, limits):
@@ -208,10 +213,55 @@ _ENTRY = {}
 _PTR, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
     ctypes.c_longlong
 _ARGTYPES = {
-    "scan": [_PTR] * 17 + [_I] * 4 + [_D, _D, _LL, _LL, _D, _I, _PTR],
+    "scan": [_PTR] * 17 + [_I] * 7 + [_D, _D, _LL, _LL, _D, _I, _PTR],
     "integrator": [_PTR] * 11 + [_I, _PTR],
+    "chain_probe": [_PTR] * 3 + [_I, _I, _PTR],
 }
 _PATH_COUNTS = {}
+# None, or an int64 CUDA tensor of STAGES entries: each launch then writes
+# the SM clock at its stages there (the kernel's Stage enum), a trace for
+# timing its parts (bench_consume.py --stages); it changes no result
+STAGE_CLOCKS = None
+STAGES = ("start", "init", "prologue", "select", "terms", "chain",
+          "delta", "info", "end")
+_FSIZE = {torch.float64: 8, torch.float32: 4}
+# the dynamic shared memory the kernel may take on Hopper: a block's 227
+# KB less 1 KB kept for the kernel's static shared memory (under 300 bytes)
+SMEM_MAX = 227 * 1024 - 1024
+
+
+def _up16(n):
+    return (n + 15) // 16 * 16
+
+
+def smem_layout(nlive, dtype):
+    """The kernel's dynamic shared memory for a round over ``nlive`` live
+    points of ``dtype``: a chunk's per-step values (:data:`BLOCK` + 1
+    steps), the partial reductions of the live logl's segments and, where
+    they fit in :data:`SMEM_MAX`, the live logl and its occupant
+    (``resident``); where they do not, those two stay in global memory.
+    ``seg`` is the segment's length: the shortest multiple of 32 that
+    cuts the live set into at most 32 segments, one partial for each lane
+    of the warp that selects.  A pure function; ``csrc/consume_scan.cu``
+    carves the same layout.  Returns ``{"bytes", "resident", "seg",
+    "nseg"}``."""
+    fsize = _FSIZE[dtype]
+    chunk = _up16((BLOCK + 1) * (2 * 8 + 18 * fsize + 3 * 4 + 2))
+    seg = 32 * max(1, -(-nlive // (32 * 32)))
+    nseg = -(-nlive // seg)
+    base = chunk + _up16(nseg * 16)
+    resident = base + nlive * (fsize + 4) <= SMEM_MAX
+    return {"bytes": base + nlive * (fsize + 4) if resident else base,
+            "resident": resident, "seg": seg, "nseg": nseg}
+
+
+def resident_limit(dtype):
+    """The largest live set whose logl and occupant stay in shared
+    memory (:func:`smem_layout`)."""
+    n = SMEM_MAX // (_FSIZE[dtype] + 4)
+    while not smem_layout(n, dtype)["resident"]:
+        n -= 1
+    return n
 
 
 def _entry(fn, tag):
@@ -267,40 +317,64 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"consume_round: {name} must be contiguous")
 
 
+@contextlib.contextmanager
+def _on_device(dev):
+    """The device made current, and its current stream's handle."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def _outputs(q, dtype, dev):
+    """Every output of a launch in one buffer: the 8 float and 3 integer
+    columns, the accepts, and the new state (6 floats, 9 integers, and
+    plateau_mode and done once more as bools)."""
+    fsize = _FSIZE[dtype]
+    off_i = 8 * q * fsize
+    off_acc = off_i + 24 * q
+    off_st = _up16(off_acc + q)
+    buf = torch.empty(off_st + 128, dtype=torch.uint8, device=dev)
+    return (buf[:off_i].view(dtype).view(8, q),
+            buf[off_i:off_acc].view(torch.int64).view(3, q),
+            buf[off_acc:off_acc + q].view(torch.bool),
+            buf[off_st:off_st + 6 * fsize].view(dtype),
+            buf[off_st + 48:off_st + 120].view(torch.int64),
+            buf[off_st + 120:off_st + 122].view(torch.bool))
+
+
 def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
     nlive, q = live_logl.shape[0], qlogl.shape[0]
     dtype, dev = live_logl.dtype, live_logl.device
-    i64 = torch.int64
     f = _entry("scan", _DTYPES[dtype])
-    fst = torch.stack([st[k] for k in FLOAT_KEYS])
-    ist = torch.stack([st[k].to(i64) for k in INT_KEYS])
+    # the state goes in as a table of its tensors' addresses, by value
+    state_in = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[st[k].data_ptr() for k in STATE_KEYS])
     if thin is not None:
-        sort_idx, sorted_logl, thin_ok = thin
-        npl_pre = thin_ties(sorted_logl, q)
-        thin_ptrs = (sort_idx.data_ptr(), sorted_logl.data_ptr(),
-                     npl_pre.data_ptr(), thin_ok.data_ptr())
+        thin_ptrs = tuple(t.data_ptr() for t in thin)
     else:
-        thin_ptrs = (None,) * 4
-    scratch = torch.empty(nlive, dtype=dtype, device=dev)
-    occupant = torch.empty(nlive, dtype=i64, device=dev)
-    fout = torch.empty((8, q), dtype=dtype, device=dev)
-    iout = torch.empty((3, q), dtype=i64, device=dev)
-    accepts = torch.empty(q, dtype=torch.bool, device=dev)
-    fst_out = torch.empty_like(fst)
-    ist_out = torch.empty(len(INT_KEYS), dtype=i64, device=dev)
+        thin_ptrs = (None,) * 3
+    lay = smem_layout(nlive, dtype)
+    if lay["resident"]:
+        scratch = occupant = None
+    else:
+        scratch = torch.empty(nlive, dtype=dtype, device=dev)
+        occupant = torch.empty(nlive, dtype=torch.int32, device=dev)
+    fout, iout, accepts, fst_out, ist_out, bst_out = _outputs(q, dtype, dev)
     # the comparisons of the eager loop take the limits in the state's
     # type
     rnd = float if dtype == torch.float64 else (
         lambda x: float(torch.tensor(x, dtype=dtype)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on_device(dev) as stream:
         err = f(live_logl.data_ptr(), qlogl.data_ptr(), qnc.data_ptr(),
-                *thin_ptrs, fst.data_ptr(), ist.data_ptr(),
-                scratch.data_ptr(), occupant.data_ptr(), fout.data_ptr(),
-                iout.data_ptr(), accepts.data_ptr(), fst_out.data_ptr(),
-                ist_out.data_ptr(), _path_counts(dev).data_ptr(),
-                nlive, q, int(batch), int(thin is not None),
-                rnd(limits["dlogz"]), rnd(limits["logl_max"]),
+                *thin_ptrs, state_in,
+                None if scratch is None else scratch.data_ptr(),
+                None if occupant is None else occupant.data_ptr(),
+                fout.data_ptr(), iout.data_ptr(), accepts.data_ptr(),
+                fst_out.data_ptr(), ist_out.data_ptr(), bst_out.data_ptr(),
+                _path_counts(dev).data_ptr(),
+                None if STAGE_CLOCKS is None else STAGE_CLOCKS.data_ptr(),
+                nlive, q, int(batch),
+                int(thin is not None), int(lay["resident"]), lay["seg"],
+                lay["bytes"], rnd(limits["dlogz"]), rnd(limits["logl_max"]),
                 int(limits["max_accepts"]), int(limits["max_nc"]),
                 rnd(dlv_default), BLOCK, stream)
     if err != 0:
@@ -309,8 +383,7 @@ def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
     consume_round.launches += 1
     new = dict(zip(FLOAT_KEYS, fst_out.unbind()))
     new.update(zip(INT_KEYS, ist_out.unbind()))
-    for k in BOOL_KEYS:
-        new[k] = new[k].to(torch.bool)
+    new.update(zip(BOOL_KEYS, bst_out.unbind()))
     (r_logl, r_logvol, r_logwt, r_logz, r_logzvar, r_h, r_dlogz,
      r_n) = fout.unbind()
     worsts, srcs, r_nc = iout.unbind()
@@ -395,10 +468,47 @@ def integrator_step(loglstar, loglstar_new, logz, logzvar, logvol, dlogvol,
         _check(name, t, (n,), loglstar.dtype, loglstar.device)
     outs = [torch.empty_like(loglstar) for _ in range(4)]
     f = _entry("integrator", _DTYPES[loglstar.dtype])
-    with torch.cuda.device(loglstar.device):
-        stream = torch.cuda.current_stream(loglstar.device).cuda_stream
+    with _on_device(loglstar.device) as stream:
         err = f(*(t.data_ptr() for t in args + tuple(outs)), n, stream)
     if err != 0:
         raise RuntimeError(f"consume integrator kernel launch failed "
                            f"(cudaError {err})")
     return tuple(outs)
+
+
+def chain_probe(logwt, logz0, reps=1):
+    """The kernel's chain alone, for its bound: the ``q`` dependent
+    evidence updates ``logz = logaddexp(logz, logwt[j])`` from ``logz0``
+    on one thread, as the chain thread runs them, ``reps`` times in
+    series.  ``logwt`` is a (q,) CUDA tensor (q <= :data:`BLOCK`) of
+    float64 or float32, ``logz0`` a 0-d one of its type.  Returns the
+    final logz (a 0-d tensor); :func:`chain_probe_plain` is its plain
+    version."""
+    q = logwt.shape[0] if logwt.dim() == 1 else 0
+    for name, t, shape in (("logwt", logwt, (q,)), ("logz0", logz0, ())):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError("chain_probe runs on CUDA tensors only")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"chain_probe takes float64 or float32, got "
+                            f"{t.dtype}")
+        _check(name, t, shape, logwt.dtype, logwt.device)
+    if not 1 <= q <= BLOCK or reps < 1:
+        raise ValueError(f"chain_probe needs 1 <= q <= {BLOCK} and reps >= "
+                         f"1, got q={q}, reps={reps}")
+    out = torch.empty((), dtype=logwt.dtype, device=logwt.device)
+    f = _entry("chain_probe", _DTYPES[logwt.dtype])
+    with _on_device(logwt.device) as stream:
+        err = f(logwt.data_ptr(), logz0.data_ptr(), out.data_ptr(), q, reps,
+                stream)
+    if err != 0:
+        raise RuntimeError(f"consume chain probe launch failed (cudaError "
+                           f"{err})")
+    return out
+
+
+def chain_probe_plain(logwt, logz0):
+    """:func:`chain_probe` as an eager loop (one pass)."""
+    logz = logz0
+    for j in range(logwt.shape[0]):
+        logz = torch.logaddexp(logz, logwt[j])
+    return logz

@@ -10,6 +10,14 @@ because XLA's and torch's exp/log1p/logaddexp differ by an ulp at some
 inputs.  On the card the kernel and the plain version run the same
 operations with the same rounding: everything bit for bit.
 
+The cases include the seams of the kernel's stages: stops by ``max_nc``
+and ``logl_max`` mid-round, a plateau that first appears mid-round, a
+state that enters the round in plateau mode, a NaN live logl, q = 1 and
+a round of two chunks (q = 300); on the card also float32 at the main
+width, a live set past the kernel's shared memory and the layout's
+boundary, and the kernel's chain probe.  The wrapper's shared-memory
+layout is a pure function, tested on the CPU.
+
 The JAX package is imported by a fixture, and its comparisons run only
 under ``tests/conftest.py`` (JAX on the CPU in float64), so that the card
 tests of this file run on a machine with a card:
@@ -55,43 +63,56 @@ def cuda():
     return torch.device("cuda")
 
 
-def _state(plateau=False, below=False, neg_inf=False, seed=None):
+def _state(plateau=False, below=False, neg_inf=False, seed=None,
+           nlive=NLIVE, q=Q, tie_at=None, nan_at=None):
     """Live matrix (u | v | logl | it | bound | birth) and a proposal block
-    (u | v | logl | nc | 2 lane stats) above the round threshold."""
+    (u | v | logl | nc | 2 lane stats) above the round threshold.
+    ``tie_at``: three live points tied at the ``tie_at``-th smallest logl
+    (a plateau that first appears at that kill); ``nan_at``: a NaN logl at
+    that row."""
     rs = get_rstate(seed)
-    logl = rs.normal(size=NLIVE) * 2.0
+    logl = rs.normal(size=nlive) * 2.0
     if plateau:
         logl = np.round(logl)  # ties everywhere, into the kill set
     if neg_inf:
         logl[:] = -np.inf
-    u = rs.random((NLIVE, NDIM))
+    if tie_at is not None:
+        order = np.argsort(logl)
+        logl[order[tie_at:tie_at + 3]] = logl[order[tie_at]]
+    u = rs.random((nlive, NDIM))
     live = np.concatenate([
         u, 10.0 * u, logl[:, None],
-        rs.integers(0, 50, NLIVE)[:, None].astype(float),
-        np.zeros((NLIVE, 1)), np.full((NLIVE, 1), -1e30)], axis=1)
+        rs.integers(0, 50, nlive)[:, None].astype(float),
+        np.zeros((nlive, 1)), np.full((nlive, 1), -1e30)], axis=1)
     srt = np.sort(logl)
     if neg_inf:
         thr = -1e30
-    elif srt[Q - 1] < srt[-1]:
-        thr = srt[Q - 1]
+    elif srt[q - 1] < srt[-1]:
+        thr = srt[q - 1]
     else:
         thr = srt[srt < srt[-1]][-1]
-    qlogl = thr + np.abs(rs.normal(size=Q)) * 3.0 + 1e-3
+    qlogl = thr + np.abs(rs.normal(size=q)) * 3.0 + 1e-3
     if below:
-        qlogl[5] = thr - 1.0  # one proposal under the threshold
-    qu = rs.random((Q, NDIM))
+        qlogl[5 % q] = thr - 1.0  # one proposal under the threshold
+    if nan_at is not None:
+        live[nan_at, IL] = np.nan
+    qu = rs.random((q, NDIM))
     prop = np.concatenate([qu, 10.0 * qu, qlogl[:, None],
-                           rs.integers(1, 30, Q)[:, None].astype(float),
-                           rs.integers(0, 9, (Q, 2)).astype(float)], axis=1)
+                           rs.integers(1, 30, q)[:, None].astype(float),
+                           rs.integers(0, 9, (q, 2)).astype(float)], axis=1)
     return live, prop
 
 
 def _ctrl(rounds_active=1, dlogz=0.01, max_accepts=2 ** 30, kills0=0,
-          birth0=-1e30):
-    return np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0,
-                     dlogz, np.inf, float(max_accepts), 2.0 ** 30, 1.0,
-                     float(kills0), float(rounds_active), birth0, 0.0, 0.0,
-                     0.0, 0.0, 2.0 ** 30])
+          birth0=-1e30, max_nc=2 ** 30, logl_max=np.inf, plateau=None):
+    """The control vector; ``plateau``: (counter, logdvol) of a state that
+    enters the round in plateau mode."""
+    pmode, pc, pld = (0.0, 0.0, 0.0) if plateau is None else \
+        (1.0, float(plateau[0]), float(plateau[1]))
+    return np.array([-1e30, 0.0, 0.0, 0.0, -1e30, pmode, pc, pld, 1.0,
+                     dlogz, logl_max, float(max_accepts), float(max_nc),
+                     1.0, float(kills0), float(rounds_active), birth0, 0.0,
+                     0.0, 0.0, 0.0, 2.0 ** 30])
 
 
 # name: (state kwargs, rounds, mode, kind, ctrl kwargs)
@@ -111,6 +132,27 @@ CASES = {
                     {"dlogz": -np.inf}),
     "queue_all_neg_inf": ({"neg_inf": True}, 1, "queue", "fixed",
                           {"dlogz": -np.inf}),
+    # the seams of the kernel's stages: stops the selection finds
+    # mid-round, plateaus met by the chain, NaN, and ragged widths
+    "max_nc_stop": ({}, 1, "batch", "fixed", {"max_nc": 100}),
+    "logl_max_stop": ({}, 1, "batch", "fixed", {"logl_max": "mid"}),
+    "queue_max_nc_stop": ({"below": True}, 1, "queue", "fixed",
+                          {"max_nc": 100}),
+    "plateau_at_step": ({"tie_at": Q // 2}, 1, "batch", "fixed", {}),
+    "queue_plateau_at_step": ({"tie_at": Q // 2}, 1, "queue", "fixed", {}),
+    "enters_in_plateau": ({}, 1, "batch", "fixed",
+                          {"plateau": (3, -np.log(NLIVE + 1.0) - 0.5)}),
+    "queue_enters_in_plateau": ({}, 1, "queue", "fixed",
+                                {"plateau": (3, -np.log(NLIVE + 1.0) - 0.5)}),
+    "nan_live": ({"nan_at": 3}, 1, "batch", "fixed", {}),
+    "queue_nan_live": ({"nan_at": 3}, 1, "queue", "fixed", {}),
+    "q1": ({"q": 1}, 1, "batch", "fixed", {}),
+    "queue_q1": ({"q": 1, "below": True}, 1, "queue", "fixed", {}),
+    "q37": ({"nlive": 100, "q": 37, "below": True}, 1, "batch", "fixed",
+            {}),
+    "two_chunks": ({"nlive": 700, "q": 300}, 1, "batch", "fixed", {}),
+    "queue_two_chunks_stop": ({"nlive": 700, "q": 300, "below": True}, 1,
+                              "queue", "fixed", {"max_nc": 4000}),
 }
 
 
@@ -119,10 +161,14 @@ def _case(name):
     are born at the interrupted round's threshold."""
     kw, rounds, mode, kind, ckw = CASES[name]
     live, prop = _state(**kw)
+    q = prop.shape[0]
+    srt = np.sort(live[:, IL])
     if kind == "replay":
-        srt = np.sort(live[:, IL])
-        ckw = dict(ckw, birth0=float(srt[Q - 1] if mode == "batch"
+        ckw = dict(ckw, birth0=float(srt[q - 1] if mode == "batch"
                                      else srt[0]))
+    if ckw.get("logl_max") == "mid":
+        # loglstar passes the middle victim's logl after the middle kill
+        ckw = dict(ckw, logl_max=float(srt[q // 2]))
     return live, prop, rounds, mode, kind, _ctrl(**ckw)
 
 
@@ -135,8 +181,9 @@ def _torch_run(live, prop, rounds, mode, kind, ctrl, device="cpu",
                 p[:, IL + 2:IL + 4])
 
     fn, layout = tfused.make_fused_round(
-        propose, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q, dtype=dtype,
-        device=device, kind=kind, rounds=rounds, mode=mode)
+        propose, nlive=live.shape[0], ndim=NDIM, npdim=NPDIM,
+        q=prop.shape[0], dtype=dtype, device=device, kind=kind,
+        rounds=rounds, mode=mode)
     flat, _, live_out, _, _, _ = fn(
         0, live_to_torch(live, device, dtype), None,
         {"prop": torch.as_tensor(prop, dtype=dtype, device=device)}, ctrl)
@@ -155,8 +202,8 @@ def _jax_run(jx, live, prop, rounds, mode, kind, ctrl):
                 p[:, IL + 2:IL + 4])
 
     fn, layout = jfused.make_fused_round(
-        propose, kind=kind, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
-        dtype=jnp.float64, rounds=rounds, mode=mode)
+        propose, kind=kind, nlive=live.shape[0], ndim=NDIM, npdim=NPDIM,
+        q=prop.shape[0], dtype=jnp.float64, rounds=rounds, mode=mode)
     flat, _, live_out, _, _, _ = fn(jax.random.key(0), jnp.asarray(live),
                                     None, {"prop": jnp.asarray(prop)},
                                     jnp.asarray(ctrl))
@@ -359,6 +406,51 @@ def test_wrapper_checks_raise():
     assert new is not st and all(torch.equal(st[k], before[k]) for k in st)
 
 
+def test_shared_memory_layout_is_a_pure_function_of_the_shape():
+    """The wrapper's byte count of the kernel's dynamic shared memory:
+    the chunk, the segments' partials and, where they fit, the live logl
+    and occupant; the kernel carves the same layout."""
+    src = (build.SRC_DIR / "consume_scan.cu").read_text()
+    assert f"CHUNK = {cs.BLOCK};" in src
+    assert "(CHUNK + 1) * (2 * 8 + 18 * sizeof(T) + 3 * 4 + 2)" in src
+    for dtype, fsize in ((torch.float64, 8), (torch.float32, 4)):
+        step = 2 * 8 + 18 * fsize + 3 * 4 + 2
+        chunk = -(-(cs.BLOCK + 1) * step // 16) * 16
+        for nlive in (1, 2, 64, 1000, 2048, 3000, 16384, 10 ** 6, 2 ** 31 - 1):
+            lay = cs.smem_layout(nlive, dtype)
+            assert lay == cs.smem_layout(nlive, dtype)
+            seg, nseg = lay["seg"], lay["nseg"]
+            assert seg % 32 == 0 and nseg == -(-nlive // seg) <= 32
+            # the shortest such segment: one 32 shorter needs more than 32
+            assert seg == 32 or (seg - 32) * 32 < nlive
+            base = chunk + nseg * 16
+            live = nlive * (fsize + 4)
+            assert lay["resident"] == (base + live <= cs.SMEM_MAX)
+            assert lay["bytes"] == base + live * lay["resident"] <= \
+                cs.SMEM_MAX
+        limit = cs.resident_limit(dtype)
+        assert cs.smem_layout(limit, dtype)["resident"]
+        assert not cs.smem_layout(limit + 1, dtype)["resident"]
+    assert cs.smem_layout(2048, torch.float64) == {
+        "bytes": 69808, "resident": True, "seg": 64, "nseg": 32}
+    assert cs.resident_limit(torch.float64) < 16384 < \
+        cs.resident_limit(torch.float32)
+
+
+def test_chain_probe_plain_and_checks():
+    gen = np.random.Generator(np.random.PCG64(1))
+    logwt = torch.as_tensor(gen.normal(size=256) * 3.0 - 8.0)
+    logz0 = torch.tensor(-1e30, dtype=torch.float64)
+    ref = -1e30
+    for w in logwt.tolist():
+        ref = np.logaddexp(ref, w)
+    got = cs.chain_probe_plain(logwt, logz0)
+    assert got.dtype == torch.float64 and got.shape == ()
+    np.testing.assert_allclose(got.item(), ref, rtol=1e-14)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cs.chain_probe(logwt, logz0)
+
+
 def test_source_names_the_jax_code_it_replaces():
     src = (build.SRC_DIR / "consume_scan.cu").read_text()
     for ref in ("dynesty_tpu/internal/fused.py:212", ":333", ":423",
@@ -374,7 +466,9 @@ def test_source_names_the_jax_code_it_replaces():
 
 
 def _card_run(case, plain, force_general=False, dtype=torch.float64):
-    args = _case(case)
+    """A case (a name of :data:`CASES`, or its ``_case`` tuple) through the
+    kernel, or with ``plain`` through the plain loop, on the card."""
+    args = _case(case) if isinstance(case, str) else case
     saved = tfused.consume_round, tfused._FORCE_GENERAL_CONSUME
     if plain:
         tfused.consume_round = cs.consume_round_plain
@@ -408,6 +502,71 @@ def test_kernel_float32_matches_plain_on_the_card(cuda):
     for case in ("thin", "below_threshold", "queue"):
         _assert_same(_card_run(case, False, dtype=torch.float32),
                      _card_run(case, True, dtype=torch.float32), rtol=0)
+
+
+def _wide(nlive, q, mode, **kw):
+    """A fixed round of ``q`` proposals over ``nlive`` live points."""
+    live, prop = _state(nlive=nlive, q=q, **kw)
+    return live, prop, 1, mode, "fixed", _ctrl()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+def test_kernel_float32_at_the_main_width(general, cuda):
+    """float32 at (2048, 256): the thin path, and the general path with
+    the thin path forbidden."""
+    args = _wide(2048, 256, "batch")
+    _assert_same(_card_run(args, False, general, torch.float32),
+                 _card_run(args, True, general, torch.float32), rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_general_past_the_shared_memory_limit(cuda):
+    """(16384, 256) float64 in queue mode: the live logl stays in global
+    memory, bit for bit all the same."""
+    assert not cs.smem_layout(16384, torch.float64)["resident"]
+    args = _wide(16384, 256, "queue", below=True)
+    _assert_same(_card_run(args, False), _card_run(args, True), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [False, True])
+def test_kernel_layout_switch_at_its_boundary(past, cuda):
+    """The general path at the largest resident live set and one point
+    past it: shared and global memory, both the plain loop's bits."""
+    nlive = cs.resident_limit(torch.float64) + past
+    assert cs.smem_layout(nlive, torch.float64)["resident"] is not past
+    args = _wide(nlive, 64, "queue", below=True)
+    _assert_same(_card_run(args, False), _card_run(args, True), rtol=0)
+
+
+@pytest.mark.cuda
+def test_chain_probe_matches_its_plain_loop(cuda):
+    gen = np.random.Generator(np.random.PCG64(1))
+    for dtype in (torch.float64, torch.float32):
+        logwt = torch.as_tensor(gen.normal(size=256) * 3.0 - 8.0,
+                                dtype=dtype, device=cuda)
+        logz0 = torch.tensor(-1e30, dtype=dtype, device=cuda)
+        for q, reps in ((1, 1), (256, 1), (256, 3)):
+            got = cs.chain_probe(logwt[:q], logz0, reps)
+            assert torch.equal(got, cs.chain_probe_plain(logwt[:q], logz0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+def test_stage_clocks_trace_a_round_and_change_nothing(general, cuda,
+                                                       monkeypatch):
+    """With ``STAGE_CLOCKS`` set, a launch stamps each stage of its first
+    chunk in order, and its results are those of a launch without."""
+    args = _wide(2048, 256, "batch")
+    ref = _card_run(args, False, general)
+    clocks = torch.zeros(len(cs.STAGES), dtype=torch.int64, device=cuda)
+    monkeypatch.setattr(cs, "STAGE_CLOCKS", clocks)
+    got = _card_run(args, False, general)
+    _assert_same(got, ref, rtol=0)
+    stamp = clocks.tolist()
+    assert all(a < b for a, b in zip(stamp, stamp[1:])), \
+        dict(zip(cs.STAGES, stamp))
 
 
 @pytest.mark.cuda
