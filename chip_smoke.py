@@ -45,7 +45,16 @@ Phases, in order; any failure raises and exits non-zero:
    dimensions (the walk's at 3 and 15, and 15 with 12 bounded, periodic,
    reflective and unbounded dimensions), in float64 and float32: every
    output bit-identical, the kernel's and the plain version's time per
-   call (events, warm) and the bound (bytes at 3.35 TB/s).
+   call (events, warm) and the bound (bytes at 3.35 TB/s).  Then
+   captured-slice (``captured_slice_phase``): slice rounds whose
+   iteration is captured as a CUDA graph and replayed against the same
+   rounds launched eagerly (a likelihood the capture rule keeps out),
+   rslice and slice, float64 and float32, at the main width (256) and the
+   narrow width (32), three rounds each on one round cache, with a blob
+   and a strict mask with one loose dimension: every column, the blob and
+   the generator's offset bit for bit, every iteration but one warm-up a
+   replay; the host time of one replay with its wait and flag read
+   against an eager iteration's, and events around back-to-back replays.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -159,20 +168,29 @@ Phases, in order; any failure raises and exits non-zero:
     256): every consume launch on the general path at nlive 2048, the
     evidence gate; then the same drive with every round's consume sent
     through the plain loop, whose records and state must be bit for bit
-    the kernel run's.
+    the kernel run's.  Queue mode bills the evaluations of the proposals
+    consumed after the last accepted one to no record, in the JAX package
+    too (``tests/test_torch_queue_billing.py``), so the difference is
+    printed, not gated.
 34. Device-only times (profiler kernel durations) of every comparison,
     of the consume rounds with their chain bound (the device time of a
     step of a one-thread chain of dependent logaddexps, times q), of the
-    four proposal-step kernels at the main drives' shapes, and of one
-    256-lane evaluation of the heavy likelihood.
+    four proposal-step kernels at the main drives' shapes, of one replay
+    of the captured slice iteration at (256, 3), and of one 256-lane
+    evaluation of the heavy likelihood.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
-Every drive counts the proposal-step kernels' launches and the loops'
-own draws (one an iteration of the slice state machine, one a walk
-step): ``slice_propose`` == ``slice_advance`` == the state machine's
-iterations, and ``rwalk_propose`` == ``rwalk_accept`` == walks x rwalk
-rounds, or the drive fails; one JSON line lists them by drive.
+Every drive counts the proposal-step kernels' launches, the state
+machine's iterations (its flag reads less one a round) and the walk's
+draws (one a step): ``slice_propose`` == ``slice_advance`` == the state
+machine's iterations (a replay launches each once), and
+``rwalk_propose`` == ``rwalk_accept`` == walks x rwalk rounds, or the
+drive fails.  Every slice drive with its likelihood on the card must
+replay every iteration but one warm-up per captured graph
+(``n_slice_replay + n_slice_graph`` == the iterations) with
+``n_uncaptured`` 0; host-balls must run every round eagerly, none
+replayed.  One JSON line lists them by drive.
 Every drive counts the consume kernel's launches, split into thin and
 general on the device, from zero just before it to just after: they must
 equal the fused rounds its samplers consumed (their ``n_round``), and be
@@ -365,17 +383,24 @@ def count_rounds():
     def counting(self, key, n=1):
         if key == "n_round":
             _ROUNDS[0] += n
+        elif key in CAPTURE_COUNTS:
+            _LOOPS[key] += n
         count(self, key, n)
 
     Timings.count = counting
 
 
-# rounds of the slice state machine and of the random walk, the draws
-# their loops took (one an iteration, one a step) and the walk steps due
-# (walks x rounds) since the counts were last zeroed, tallied by
-# count_proposal_loops()
+# the slice state machine's captured iterations: replays, graphs captured
+# (one warm-up iteration each, eager) and rounds that replayed nothing,
+# tallied from every sampler's Timings by count_rounds()
+CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_uncaptured")
+# rounds of the slice state machine and its iterations (its flag reads,
+# less the one that ends each round), the random walk's rounds and draws
+# (one a step) and the walk steps due (walks x rounds), and the capture
+# counts, since the counts were last zeroed, tallied by
+# count_proposal_loops() and count_rounds()
 _LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
-                        "rwalk_steps", "rwalk_due"), 0)
+                        "rwalk_steps", "rwalk_due") + CAPTURE_COUNTS, 0)
 # the per-step kernels' launch counts in a drive's counts
 STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
                 "rwalk_accept")
@@ -383,10 +408,12 @@ STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
 
 def count_proposal_loops():
     """Tally into ``_LOOPS`` every round of the stepping-out state machine
-    and of the random walk, and each ``draw`` its loop takes: the loops
-    draw once an iteration or step, before its kernels, so ``launches ==
-    draws`` in :func:`_counts` catches a step that went through a plain
-    version on the card or skipped its kernel."""
+    and its iterations (its ``sync_slice`` flag reads less the one that
+    ends the round: a replay reads the flag as an eager iteration does),
+    and every round of the random walk with each ``draw`` it takes (one a
+    step, before its kernels), so ``launches == iterations`` in
+    :func:`_counts` catches a step that went through a plain version on
+    the card or skipped its kernel."""
     from dynesty_tpu_torch.internal import kernels as tk
     machine, walk = tk.slice_state_machine, tk.rwalk_walk
 
@@ -396,10 +423,12 @@ def count_proposal_loops():
             return draw(i)
         return fn
 
-    def slice_state_machine(like, directions, r0, draw, *a, **kw):
+    def slice_state_machine(*a, timings, **kw):
         _LOOPS["slice_rounds"] += 1
-        return machine(like, directions, r0, counted(draw, "slice_iters"),
-                       *a, **kw)
+        n0 = timings.get("sync_slice", 0)
+        out = machine(*a, timings=timings, **kw)
+        _LOOPS["slice_iters"] += timings["sync_slice"] - n0 - 1
+        return out
 
     def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, *a,
                    walks, **kw):
@@ -421,10 +450,13 @@ def _zero_counts(hk):
         _LOOPS[key] = 0
 
 
-def _counts(hk):
+def _counts(hk, eager=False):
     """Every kernel's launches since :func:`_zero_counts`; raises unless
-    every fused round consumed since went through the consume kernel and
-    every step of the proposal loops through its two kernels."""
+    every fused round consumed since went through the consume kernel,
+    every step of the proposal loops through its two kernels, and every
+    slice round as the capture rule says: replayed, every iteration but
+    one warm-up per graph (a likelihood on the card), or all eager with
+    none replayed where ``eager`` (host mode)."""
     k = hk.pairwise_min_dist
     paths = cs.path_counts()
     out = {"launches": k.launches, "exact": k.launches_exact,
@@ -443,6 +475,18 @@ def _counts(hk):
                 out["rwalk_steps"] == out["rwalk_due"]):
         raise RuntimeError(f"proposal-step kernel launches and the loops' "
                            f"iterations differ: {out}")
+    if out["slice_rounds"]:
+        if eager:
+            ok = out["n_slice_replay"] == out["n_slice_graph"] == 0 and \
+                out["n_uncaptured"] == out["slice_rounds"]
+        else:
+            ok = out["n_uncaptured"] == 0 and out["n_slice_replay"] > 0 and \
+                out["n_slice_replay"] + out["n_slice_graph"] == \
+                out["slice_iters"]
+        if not ok:
+            mode = "eager" if eager else "captured"
+            raise RuntimeError(f"the slice rounds did not run as the "
+                               f"capture rule says ({mode}): {out}")
     return out
 
 
@@ -835,7 +879,8 @@ def host_balls_drive(dyt, hk):
     with recording_refits(dyt, hk) as calls:
         s, sampler = drive(dyt, 2048, "balls", loglike=counter,
                            ptform=np_box_ptform, likelihood_mode="host")
-    s["launches"] = _counts(hk)
+    # host mode maps the user's function on the host: every round eager
+    s["launches"] = _counts(hk, eager=True)
     s["refit_max_abs_err"] = check_refits(hk, calls, "host-balls drive")
     s["user_calls"] = counter.n
     s["ncall_launched"] = sampler.loglikelihood.ncall_launched
@@ -2486,6 +2531,21 @@ def _step_time(rec, kernel, plain, bound_bytes):
     rec["bound_us"] = 1e6 * bound_bytes / HBM_BYTES
 
 
+def step_slice_round(st, inp):
+    """A ``SliceRound`` on the card holding the hand-made state and one
+    iteration's inputs."""
+    q, n_steps, ndim = inp["directions"].shape
+    rb = pr.SliceRound(q, n_steps, ndim, st["v"].shape[1],
+                       inp["directions"].dtype, "cuda", inp["strict"])
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.directions.copy_(inp["directions"])
+    rb.draws[0].copy_(inp["u_sh"])
+    rb.draws[1].copy_(inp["u_r0"])
+    rb.loglstar.copy_(inp["loglstar"])
+    return rb
+
+
 def slice_step_cases(ndim, dtype):
     """``slice_propose`` and ``slice_advance`` against their plain
     versions on one hand-made state; returns their records and the
@@ -2494,48 +2554,65 @@ def slice_step_cases(ndim, dtype):
     st, inp = step_slice_state(q, ndim, npdim, dtype)
     tb = torch.finfo(dtype).bits // 8
     args = (inp["u_sh"], inp["directions"], inp["strict"])
-    st_k = _clone(st)
-    got = pr.slice_propose(st_k, *args)
+    rb_p = step_slice_round(st, inp)
+    pr.slice_propose(rb_p)
     ref = pr.slice_propose_plain(_clone(st), *args)
     torch.cuda.synchronize()
     prop = _bit_record("slice_propose", (q, ndim), dtype,
-                       zip(("x", "upos", "incube"), got, ref))
-    if bool(st_k["any_active"]):
+                       zip(("x", "upos", "uclamp", "incube"),
+                           (rb_p.x, rb_p.upos, rb_p.uclamp, rb_p.incube),
+                           ref))
+    if bool(rb_p.st["any_active"]):
         raise RuntimeError("slice_propose left any_active set")
-    _step_time(prop, lambda: pr.slice_propose(st_k, *args),
+    if torch.equal(ref[1], ref[2]):
+        raise RuntimeError(f"the hand-made slice state clamps no point at "
+                           f"ndim {ndim}")
+    _step_time(prop, lambda: pr.slice_propose(rb_p),
                lambda: pr.slice_propose_plain(st, *args),
-               q * (16 + 4 * tb + 3 * ndim * tb + 1) + ndim + 1)
+               q * (16 + 4 * tb + 4 * ndim * tb + 1) + ndim + 1)
 
-    # slice_advance on the plain proposal, from the flag slice_propose
-    # leaves
-    x, upos, _ = ref
-    adv_args = (x, upos, inp["v_x"], inp["logl_x"], inp["u_r0"],
+    # slice_advance on the plain proposal and the raw likelihood values,
+    # from the flag slice_propose leaves
+    x, upos, _, incube = ref
+    adv_args = (x, upos, incube, inp["v_x"], inp["logl_x"], inp["u_r0"],
                 inp["loglstar"], n)
-    st_k = _clone(st)
-    st_k["any_active"].zero_()
-    acc = pr.slice_advance(st_k, *adv_args)
+
+    def advance_round():
+        r = step_slice_round(st, inp)
+        r.x.copy_(x)
+        r.upos.copy_(upos)
+        r.incube.copy_(incube)
+        r.st["any_active"].zero_()
+        return r
+
+    rb = advance_round()
+    pr.slice_advance(rb, inp["v_x"], inp["logl_x"])
     st_p = _clone(st)
     acc_p = pr.slice_advance_plain(st_p, *adv_args)
     torch.cuda.synchronize()
     adv = _bit_record("slice_advance", (q, ndim), dtype,
-                      [("acc", acc, acc_p)] +
-                      [(k, st_k[k], st_p[k]) for k in sorted(st)])
+                      [("acc", rb.acc, acc_p)] +
+                      [(k, rb.st[k], st_p[k]) for k in sorted(st)])
     active = st["s"] < n
     shrink = active & (st["phase"] == 4)
     covered = (set(st["phase"][active].tolist()) == set(range(5)) and
                bool((~active).any()) and bool(acc_p.any()) and
-               bool((shrink & ~acc_p).any()) and bool(st_p["warn"]))
+               bool((shrink & ~acc_p).any()) and bool(st_p["warn"]) and
+               bool((active & ~incube & torch.isfinite(inp["logl_x"]))
+                    .any()))
     if not covered:
         raise RuntimeError(f"the hand-made slice state misses a phase or "
                            f"an outcome at ndim {ndim}")
     n_acc = int(acc_p.sum())
-    st_t = _clone(st)
-    _step_time(adv, lambda: pr.slice_advance(st_t, *adv_args),
+    rb_t = advance_round()
+    _step_time(adv, lambda: pr.slice_advance(rb_t, inp["v_x"],
+                                             inp["logl_x"]),
                lambda: pr.slice_advance_plain(dict(st), *adv_args),
-               q * (96 + 11 * tb + 1) + tb + 2 +
+               q * (96 + 11 * tb + 2) + tb + 2 +
                n_acc * (3 * ndim + 2 * npdim + 1) * tb)
-    calls = {"slice_propose": lambda: pr.slice_propose(st_k, *args),
-             "slice_advance": lambda: pr.slice_advance(st_t, *adv_args)}
+    calls = {"slice_propose": lambda: pr.slice_propose(rb_p),
+             "slice_advance": lambda: pr.slice_advance(rb_t, inp["v_x"],
+                                                       inp["logl_x"])}
     return [prop, adv], calls
 
 
@@ -2627,6 +2704,153 @@ def proposal_steps_phase(card):
     return cases, main_calls
 
 
+def capture_loglike(x):
+    """The balls drive's Gaussian with the blob ``(logl, v[0])``, in the
+    points' dtype."""
+    logl = -0.5 * (x @ _GAUSS["cinv"].to(x.dtype) @ x) + _GAUSS["lnorm"]
+    return logl, torch.stack([logl, x[0]])
+
+
+def _capture_like(eager, dtype):
+    """The likelihood of the captured-slice phase; ``eager``: one that the
+    capture rule keeps out of a graph, so that its rounds launch every
+    iteration eagerly through the same two kernels (the reference a
+    captured round is held against)."""
+    from dynesty_tpu_torch.internal.likelihood import LogLikelihood
+    like = LogLikelihood(capture_loglike, box_ptform, NDIM, device="cuda",
+                         blob=True, dtype=dtype)
+    if eager:
+        like.capturable = lambda: False
+    like.eval_host(np.full((2, NDIM), 0.5))
+    return like
+
+
+def _capture_rounds(like, kind, slices, q, dtype, seeds, cache, timings):
+    """``len(seeds)`` slice rounds of ``q`` lanes on one round cache: the
+    balls drive's Gaussian with a blob, a ``nonperiodic`` (strict) mask
+    with one loose dimension, starts around the peak above the round's
+    threshold.  Returns each round's packed columns, blob and generator
+    offset."""
+    from dynesty_tpu_torch.internal import kernels as tk
+    fn = tk.make_slice_round(like, ndim=NDIM, q=q, slices=slices, kind=kind,
+                             dtype=dtype, device="cuda",
+                             nonperiodic=[True, False, True],
+                             timings=timings, rounds=cache)
+    outs = []
+    for seed in seeds:
+        rs = np.random.Generator(np.random.PCG64(seed))
+        u = 0.5 + 0.02 * rs.standard_normal((q, NDIM))
+        v, logl, blob = like.eval_host(u)
+        axes = 0.04 * (np.eye(NDIM) + 0.2 * rs.standard_normal(
+            (q, NDIM, NDIM)))
+        packed = torch.as_tensor(np.concatenate(
+            [u, v, logl[:, None], axes.reshape(q, -1)], axis=1),
+            dtype=dtype, device="cuda")
+        start_blob = torch.as_tensor(np.asarray(blob), device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        out, out_blob = fn(gen, packed, start_blob, 1.0,
+                           float(logl.min() - 1.0))
+        torch.cuda.synchronize()
+        outs.append((out, out_blob, gen.get_offset()))
+    return outs
+
+
+def captured_slice_phase(card):
+    """Captured rounds against eager-launched rounds on the same inputs:
+    rslice and slice at their default slices, float64 and float32, the
+    main width (256) and the narrow width (32), three rounds each on one
+    round cache (the first warms up and captures, the others replay from
+    their start), with a blob and a strict mask: every column, the blob
+    and the generator's offset bit for bit.  Then, at the balls drive's
+    shape (rslice, (256, 3), float64), the host time of one replay and its
+    flag read against one eager iteration's, and CUDA events around
+    back-to-back replays; the replay's device-only time comes in the last
+    phase.  Returns the records and the timed graph."""
+    from dynesty_tpu_torch.utils.misc import Timings
+    _gauss_setup()
+    cases, timed = [], None
+    for kind, slices in (("rslice", NDIM + 3), ("slice", 3)):
+        for dtype in (torch.float64, torch.float32):
+            for q in (STEP_Q, 32):
+                seeds = (SEED, SEED + 1, SEED + 2)
+                tg, te, cache = Timings(), Timings(), {}
+                got = _capture_rounds(_capture_like(False, dtype), kind,
+                                      slices, q, dtype, seeds, cache, tg)
+                ref = _capture_rounds(_capture_like(True, dtype), kind,
+                                      slices, q, dtype, seeds, {}, te)
+                same = {"packed": 0, "blob": 0, "offset": 0}
+                for (p, b, off), (pe, be, offe) in zip(got, ref):
+                    same["packed"] += int(_same_bits(
+                        p.cpu().numpy(), pe.cpu().numpy()).all())
+                    same["blob"] += int(_same_bits(
+                        b.cpu().numpy(), be.cpu().numpy()).all())
+                    same["offset"] += int(off == offe)
+                iters = te["sync_slice"] - len(seeds)
+                rec = {"kind": kind, "q": q, "ndim": NDIM,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "rounds": len(seeds), "same": same,
+                       "iterations": iters,
+                       "n_slice_replay": tg.get("n_slice_replay", 0),
+                       "n_slice_graph": tg.get("n_slice_graph", 0),
+                       "n_uncaptured": tg.get("n_uncaptured", 0),
+                       "eager_uncaptured": te.get("n_uncaptured", 0)}
+                cases.append(rec)
+                ok = (all(v == len(seeds) for v in same.values()) and
+                      rec["n_slice_graph"] == 1 and
+                      rec["n_uncaptured"] == 0 and
+                      rec["n_slice_replay"] + 1 == iters and
+                      rec["eager_uncaptured"] == len(seeds) and
+                      tg["sync_slice"] == te["sync_slice"])
+                if not ok:
+                    raise RuntimeError(f"a captured slice round differs from "
+                                       f"the eager-launched one: {rec}")
+                if (kind, dtype, q) == ("rslice", torch.float64, STEP_Q):
+                    timed = next(iter(cache.values()))
+                print(f"captured-slice {kind} q {q} {rec['dtype']}: "
+                      f"{len(seeds)} rounds bit-identical (columns, blob, "
+                      f"generator offset), iterations {iters} = replays "
+                      f"{rec['n_slice_replay']} + warm-up 1  [{card}]")
+    # the host's cost of an iteration, replayed and eager, at the balls
+    # drive's shape: each call waits for the device and reads the flag
+    eager, cache = _capture_like(True, torch.float64), {}
+    _capture_rounds(eager, "rslice", NDIM + 3, STEP_Q, torch.float64,
+                    (SEED,), cache, Timings())
+    eager_entry = next(iter(cache.values()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def eager_iteration():
+        eager_entry.iterate(
+            lambda: eager_entry.rb.draws.uniform_(generator=gen))
+        return bool(eager_entry.rb.st["any_active"])
+
+    def host_us(fn, n=200):
+        for _ in range(5):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    timing = {"shape": [STEP_Q, NDIM], "kind": "rslice", "dtype": "float64",
+              "replay_host_us": host_us(timed.replay),
+              "eager_iteration_host_us": host_us(eager_iteration),
+              "replay_events_us": 1e3 * _time_ms(timed.graph.replay, 200),
+              "eager_iteration_events_us": 1e3 * _time_ms(
+                  lambda: eager_entry.iterate(
+                      lambda: eager_entry.rb.draws.uniform_(generator=gen)),
+                  200)}
+    print(f"captured-slice (256, 3) float64: one iteration, host time with "
+          f"its wait and flag read: replay {timing['replay_host_us']:.2f} "
+          f"us, eager {timing['eager_iteration_host_us']:.2f} us; events "
+          f"(back to back): replay {timing['replay_events_us']:.2f} us, "
+          f"eager {timing['eager_iteration_events_us']:.2f} us  [{card}]")
+    print(json.dumps({"phase": "captured-slice", "card": card,
+                      "cases": cases, "timing": timing}))
+    return {"cases": cases, "timing": timing}, timed
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
@@ -2686,6 +2910,9 @@ def main():
     # phase 2c: the proposal loops' per-step kernels against their plain
     # versions, output by output
     steps, step_calls = proposal_steps_phase(card)
+
+    # phase 2d: captured slice rounds against eager-launched rounds
+    captured, captured_graph = captured_slice_phase(card)
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -2985,6 +3212,17 @@ def main():
               f"only: kernel {rec['device_us']:.3f} us  events (through "
               f"the wrapper) {rec['us']:.2f} us  bound "
               f"{rec['bound_us']:.5f} us  [{card}]")
+    ct = captured["timing"]
+    ct["replay_device_us"] = 1e3 * _device_ms(captured_graph.graph.replay)
+    ev = {k: main_step(steps, k)["us"] for k in ("slice_propose",
+                                                  "slice_advance")}
+    print(f"captured-slice replay (256, 3) float64 device only: "
+          f"{ct['replay_device_us']:.3f} us (every kernel of one "
+          f"iteration, the likelihood's included); host with its wait and "
+          f"flag read {ct['replay_host_us']:.2f} us, eager iteration "
+          f"{ct['eager_iteration_host_us']:.2f} us; per launch through the "
+          f"wrapper (events): slice_propose {ev['slice_propose']:.2f} us, "
+          f"slice_advance {ev['slice_advance']:.2f} us  [{card}]")
     consume_device_times(consume, consume_calls, card)
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
@@ -3068,7 +3306,9 @@ def main():
                 "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
                 "library_ms": None,
                 "library_note": "no one PyTorch call computes this step",
-                "shape": rec["shape"], "dtype": "float64"}
+                "shape": rec["shape"], "dtype": "float64",
+                **({"captured_iteration": captured["timing"]} if slice_
+                   else {})}
 
     def round_at(nlive, mode, path):
         return next(t for t in consume["times"] if (
@@ -3142,6 +3382,7 @@ def main():
                        "consume": consume,
                        "consume_by_drive": consume_by_drive,
                        "proposal_steps": steps,
+                       "captured_slice": captured,
                        "proposal_steps_by_drive": steps_by_drive,
                        "build_seconds": {k: build.build_log[k]["seconds"]
                                          for k in libs}},

@@ -14,21 +14,31 @@
 // Two kernels an iteration, one thread a lane:
 //   slice_propose: the lane's position x by its phase (the interval's
 //     ends, one step beyond them, or a uniform point inside), the lane's
-//     current slice direction, upos = u0 + x * dirc and its cube check;
-//     zeroes the any_active flag.
-//   slice_advance: after the likelihood at upos, the whole update of the
-//     lane's state (interval ends and their values, counters, acceptance
-//     and the reset into the next slice step, the phase transition, the
-//     sticky expansion warning); raises any_active where the lane is
-//     short of its last slice step.  The state lives in the round's own
-//     buffers and is updated in place.
+//     current slice direction, upos = u0 + x * dirc, the point clamped
+//     into the cube (where the likelihood is evaluated) and the cube
+//     check; zeroes the any_active flag.
+//   slice_advance: after the likelihood at the clamped point, the lane's
+//     log-likelihood masked to -inf outside the cube, then the whole
+//     update of the lane's state (interval ends and their values,
+//     counters, acceptance and the reset into the next slice step, the
+//     phase transition, the sticky expansion warning); raises any_active
+//     where the lane is short of its last slice step.  The state lives in
+//     the round's own buffers and is updated in place.
 //
 // What bounds it on this card: nothing the card measures.  An iteration
 // moves ~40 bytes a lane plus a few rows of ndim values (~30 kB at q 256,
 // ndim 3: ~0.01 us at 3.35 TB/s) and does a few operations a lane; a
-// launch costs microseconds of latency.  The design answer is the count of
-// launches: two in place of ~90.  The random draws (torch.rand) and the
-// user's likelihood stay torch calls between them.
+// launch costs microseconds of latency, and the host's Python around it
+// tens.  The design answer is to take the host out of the iteration: the
+// round's buffers and the two argument tables are made once per round
+// shape, the clamp and the mask (once torch ops around the likelihood)
+// are folded in here, and where the likelihood runs on the card the whole
+// iteration -- the draws (uniform_ on the round's generator), these two
+// kernels, the user's batched likelihood, the blob select and the flag's
+// copy to pinned host memory -- is captured once as a CUDA graph and
+// replayed once an iteration, as the JAX package traces its loop body
+// once.  The kernels take only device pointers, so a replay reads the
+// round's loglstar and draws from the same buffers as an eager launch.
 //
 // Rounding: each eager op rounds once, so every product and sum here is an
 // explicit round-to-nearest intrinsic, which nvcc never contracts into an
@@ -73,6 +83,7 @@ struct ProposeArgs {
   const bool* strict;  // (ndim,) or null: all strict
   T* x;
   T* upos;
+  T* uclamp;           // upos clamped into [0, 1], NaN kept (torch.clamp)
   bool* incube;
   bool* any_active;
   int q, n_steps, ndim;
@@ -102,10 +113,13 @@ __global__ void slice_propose_kernel(ProposeArgs<T> a) {
   const T* dirc = a.dirs + ((i64)k * a.n_steps + si) * a.ndim;
   const T* u0 = a.u0 + (i64)k * a.ndim;
   T* up = a.upos + (i64)k * a.ndim;
+  T* uc = a.uclamp + (i64)k * a.ndim;
   bool in = true;
   for (int d = 0; d < a.ndim; ++d) {
     const T p = O::add(u0[d], O::mul(x, dirc[d]));
     up[d] = p;
+    // torch's CUDA clamp: NaN passes, else min(max(p, 0), 1)
+    uc[d] = isnan(p) ? p : fmin(fmax(p, (T)0.0), (T)1.0);
     const bool strict = a.strict == nullptr || a.strict[d];
     in = in && (strict ? (p > (T)0.0 && p < (T)1.0)
                        : (p > (T)-0.5 && p < (T)1.5));
@@ -134,8 +148,9 @@ struct AdvanceArgs {
   bool* acc;
   const T* x;
   const T* upos;
+  const bool* incube;
   const T* v_x;
-  const T* logl_x;
+  const T* logl_x;     // the likelihood's raw values, masked here
   const T* u_r0;
   const T* loglstar;
   int q, n_steps, ndim, npdim;
@@ -150,7 +165,8 @@ __global__ void slice_advance_kernel(AdvanceArgs<T> a) {
   i64 s = a.s[k];
   const i64 ph = a.phase[k];
   const bool active = s < a.n_steps;
-  const T lx = a.logl_x[k], x = a.x[k];
+  // the mask the eager loop applied after the likelihood call
+  const T lx = a.incube[k] ? a.logl_x[k] : (T)-INFINITY, x = a.x[k];
   T l = a.left[k], r = a.right[k], fl = a.fl[k], fr = a.fr[k];
   const bool il = active && ph == PH_INIT_L, ir = active && ph == PH_INIT_R;
   const bool el = active && ph == PH_EXP_L, er = active && ph == PH_EXP_R;
@@ -215,8 +231,9 @@ int launch_propose(void* const* p, int q, int n_steps, int ndim,
   ProposeArgs<T> a{(const i64*)p[0], (const i64*)p[1], (const T*)p[2],
                    (const T*)p[3],   (const T*)p[4],   (const T*)p[5],
                    (const T*)p[6],   (const bool*)p[7], (T*)p[8],
-                   (T*)p[9],         (bool*)p[10],     (bool*)p[11],
-                   q,                n_steps,          ndim};
+                   (T*)p[9],         (T*)p[10],        (bool*)p[11],
+                   (bool*)p[12],     q,                n_steps,
+                   ndim};
   slice_propose_kernel<T><<<(q + BLOCK - 1) / BLOCK, BLOCK, 0,
                             (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -232,8 +249,9 @@ int launch_advance(void* const* p, int q, int n_steps, int ndim, int npdim,
                    (T*)p[8],    (T*)p[9],    (i64*)p[10], (i64*)p[11],
                    (i64*)p[12], (i64*)p[13], (bool*)p[14], (bool*)p[15],
                    (bool*)p[16], (const T*)p[17], (const T*)p[18],
-                   (const T*)p[19], (const T*)p[20], (const T*)p[21],
-                   (const T*)p[22], q, n_steps, ndim, npdim};
+                   (const bool*)p[19], (const T*)p[20], (const T*)p[21],
+                   (const T*)p[22], (const T*)p[23], q, n_steps, ndim,
+                   npdim};
   slice_advance_kernel<T><<<(q + BLOCK - 1) / BLOCK, BLOCK, 0,
                             (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -576,7 +576,7 @@ class DynamicSampler:
         template, the base sampler and a suspended batch sampler."""
         self.device = torch.device(device)
         self.loglikelihood.device = self.device
-        self.sampling._round_cache = {}
+        self.sampling.drop_device_state()
         for s in (self.sampler, self.batch_sampler):
             if s is not None:
                 s.set_device(self.device)

@@ -26,24 +26,29 @@ JAX's ``lax.while_loop`` over ``jnp.any(active)`` becomes a Python loop
 that reads its condition from the device once per iteration; each read is
 counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).  The
 slice state machine's and the random walk's per-step updates around each
-likelihood call are the kernels of ``ops/proposals.py`` on the card.
+likelihood call are the kernels of ``ops/proposals.py`` on the card.  With
+a likelihood on the card the state machine's iteration is captured once
+per round shape as a CUDA graph and replayed (:class:`SliceGraph`), as
+the JAX package traces its loop body once.
 Random numbers come from one explicit ``torch.Generator`` per round, drawn
 in a fixed order and in the kernel's dtype, so a seed reproduces the round.
 """
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
 from ..ops.geometry import randsphere_batch, unitcheck_batch
-from ..ops.proposals import (rwalk_accept, rwalk_init, rwalk_propose,
-                             slice_advance, slice_init, slice_propose)
+from ..ops.proposals import (SliceRound, rwalk_accept, rwalk_init,
+                             rwalk_propose, slice_advance, slice_propose)
 from ..utils.misc import blob_where, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
            "make_ellipsoid_refit", "make_rwalk_round", "rwalk_walk",
-           "make_slice_round", "slice_state_machine", "slice_directions",
+           "make_slice_round", "slice_state_machine", "SliceGraph",
+           "slice_graph", "slice_directions",
            "doubling_accept", "pad_ellipsoids"]
 
 _NEG_INF = -math.inf
@@ -63,9 +68,9 @@ def f32_precision():
         raise RuntimeError("could not disable TF32 matmul precision")
 
 
-def _count(timings, key):
+def _count(timings, key, n=1):
     if timings is not None:
-        timings.count(key)
+        timings.count(key, n)
 
 
 def _bool_mask(mask, device):
@@ -530,46 +535,196 @@ def doubling_accept(feval, x1, loglstar, left, right, f_left, f_right,
     return ~reject, nc
 
 
+class SliceGraph:
+    """One round shape of the stepping-out state machine on one device:
+    its :class:`~dynesty_tpu_torch.ops.proposals.SliceRound` buffers, its
+    blob buffers, and on the card, for a likelihood that
+    :meth:`~.likelihood.LogLikelihood.capturable` allows, one iteration
+    captured as a CUDA graph (draws, ``slice_propose``, the batched
+    likelihood, ``slice_advance``, the blob select, the flag's copy to
+    pinned host memory) with the generator it draws from.  A sampler
+    keeps one per round shape (:func:`slice_graph`); it is never pickled
+    and goes with the sampler."""
+
+    def __init__(self, like, rb):
+        self.like, self.rb = like, rb
+        self.blob = None
+        self.graph = self.gen = self.flag = None
+        # False for good once a capture has raised (the rounds run eagerly)
+        self.capturable = rb.device.type == "cuda" and like.capturable()
+        self.stream = torch.cuda.Stream(rb.device) if self.capturable \
+            else None
+
+    def load_blob(self, start_blob):
+        """The round's blob buffers, holding ``start_blob``."""
+        if start_blob is None:
+            return None
+        if self.blob is None:
+            self.blob = tree_map(lambda b: torch.empty_like(
+                b, memory_format=torch.contiguous_format), start_blob)
+        tree_map(lambda b, s: b.copy_(s), self.blob, start_blob)
+        return self.blob
+
+    def iterate(self, fill_draws):
+        """One iteration on the round's buffers: ``fill_draws()`` fills
+        ``rb.draws``, then the two kernels around the likelihood at the
+        clamped point and the blob select, all on the current stream."""
+        rb, like = self.rb, self.like
+        fill_draws()
+        slice_propose(rb)
+        v_x, logl_x, blob_x = like.batch_eval(rb.uclamp, mask=rb.incube)
+        # the round's dtype, in the layout the kernel reads
+        v_x = v_x.to(rb.dtype).contiguous()
+        logl_x = logl_x.to(rb.dtype).contiguous()
+        if rb.device.type == "cuda":
+            rb.check_likelihood(v_x, logl_x)
+        slice_advance(rb, v_x, logl_x)
+        if self.blob is not None:
+            tree_map(lambda b, n: torch.where(
+                rb.acc.reshape(rb.acc.shape + (1,) * (b.dim() - 1)), n, b,
+                out=b), self.blob, blob_x)
+
+    def capture(self):
+        """Capture one iteration on the side stream; True when it was
+        captured.  A capture that raises leaves the round shape eager
+        (warned once, naming the error) and every count as it was."""
+        rb, like = self.rb, self.like
+        graph = torch.cuda.CUDAGraph()
+        gen = torch.Generator(device=rb.device)
+        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        saved = (like.ncall_launched, slice_propose.launches,
+                 slice_advance.launches)
+        main = torch.cuda.current_stream(rb.device)
+        self.stream.wait_stream(main)
+        try:
+            graph.register_generator_state(gen)
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.iterate(lambda: rb.draws.uniform_(generator=gen))
+                    flag.copy_(rb.st["any_active"], non_blocking=True)
+                finally:
+                    graph.capture_end()
+        except Exception as err:  # noqa: BLE001 - reported, then eager
+            self.capturable = False
+            warnings.warn(
+                f"the slice state machine's iteration could not be captured "
+                f"as a CUDA graph ({type(err).__name__}: {err}); rounds of "
+                f"shape {(rb.q, rb.n_steps, rb.ndim)} run eagerly",
+                RuntimeWarning)
+            return False
+        finally:
+            # a capture runs nothing: what it counted never happened
+            like.ncall_launched, slice_propose.launches, \
+                slice_advance.launches = saved
+            main.wait_stream(self.stream)
+        # the flag read through a numpy view of the pinned tensor
+        self.graph, self.gen, self.flag = graph, gen, (flag, flag.numpy())
+        return True
+
+    def replay(self):
+        """One iteration by replay; waits for it and returns the host
+        copy of ``any_active``."""
+        self.graph.replay()
+        torch.cuda.current_stream(self.rb.device).synchronize()
+        # the replay ran the kernels and the likelihood without Python
+        self.like.ncall_launched += self.rb.q
+        slice_propose.launches += 1
+        slice_advance.launches += 1
+        return bool(self.flag[1])
+
+
+def slice_graph(rounds, like, q, n_steps, ndim, dtype, device, strict=None):
+    """The :class:`SliceGraph` of this round shape from the cache
+    ``rounds`` (a dict a sampler keeps; None: a new one, kept nowhere)."""
+    key = (q, n_steps, ndim, like.npdim, dtype, str(device),
+           None if strict is None else tuple(strict.tolist()))
+    entry = None if rounds is None else rounds.get(key)
+    if entry is None or entry.like is not like:
+        entry = SliceGraph(like, SliceRound(q, n_steps, ndim, like.npdim,
+                                            dtype, device, strict))
+        if rounds is not None:
+            rounds[key] = entry
+    return entry
+
+
 def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
                         start_v, start_logl, start_blob=None, *, strict=None,
-                        max_shrink_iters=10000, timings=None):
+                        max_shrink_iters=10000, timings=None, rounds=None):
     """The per-lane slice state machine in stepping-out mode: every lane
     advances its own phase (init left, init right, expand left, expand
     right, shrink) through its ``n_steps`` slice updates along
     ``directions`` (q, n_steps, ndim, lengths capped), starting on the
-    interval ``(-r0, 1 - r0)``.  Each iteration takes ``draw(it) -> (u_sh,
-    u_r0)`` (q,) each: the shrink positions and the next intervals'
-    offsets.  One batched likelihood call an iteration between the
-    kernels of ``ops/proposals.py`` on the card, and one host read of
-    whether any lane is short of its last update (``sync_slice``).
-    ``strict`` is the cube check's bool mask (None: every dimension).
-    Returns ``(state, blob)``, the state as ``ops.proposals.slice_init``
-    lays it out (``u, v, logl, nc, n_exp, n_con, warn`` among its
-    entries)."""
-    n_steps = directions.shape[1]
-    st = slice_init(start_u, start_v, start_logl, r0)
-    # what the eager ops compare in, made once a round
-    loglstar = torch.as_tensor(loglstar, dtype=r0.dtype, device=r0.device)
-    blob = start_blob
-    it = 0
+    interval ``(-r0, 1 - r0)``.  Each iteration draws ``(2, q)`` uniforms:
+    the shrink positions and the next intervals' offsets.  ``draw`` is
+    the round's ``torch.Generator`` (``uniform_`` into the round's draw
+    buffer, which draws what ``torch.rand`` draws) or a function
+    ``draw(it) -> (2, q)`` (the tests feed the JAX package's draws).  One
+    batched likelihood call an iteration between the kernels of
+    ``ops/proposals.py`` on the card, and one host read of whether any
+    lane is short of its last update (``sync_slice``).
+
+    On the card, with a generator and a likelihood that may be captured
+    (:func:`~.likelihood.graph_capturable`), the iteration runs as one
+    CUDA graph replay (``n_slice_replay``): the first round of a shape
+    runs its first iteration eagerly on a side stream, then captures the
+    next (``n_slice_graph``); a round that replays nothing counts
+    ``n_uncaptured``.  ``rounds`` is the sampler's cache of round shapes
+    (:func:`slice_graph`).  ``strict`` is the cube check's bool mask
+    (None: every dimension).  Returns ``(state, blob)``, the state as
+    ``ops.proposals.slice_init`` lays it out (``u, v, logl, nc, n_exp,
+    n_con, warn`` among its entries)."""
+    q, n_steps, ndim = directions.shape
+    entry = slice_graph(rounds, like, q, n_steps, ndim, r0.dtype, r0.device,
+                        strict)
+    rb = entry.rb
+    st = rb.start(start_u, start_v, start_logl, r0, directions, loglstar)
+    blob = entry.load_blob(start_blob)
+    gen = draw if isinstance(draw, torch.Generator) else None
+    use_graph = gen is not None and entry.capturable
+    if gen is not None:
+        def fill():
+            rb.draws.uniform_(generator=gen)
+    it, flag, replays = 0, None, 0
     max_total = n_steps * max_shrink_iters
     while it < max_total:
         _count(timings, "sync_slice")
-        if not bool(st["any_active"]):
+        if not (bool(st["any_active"]) if flag is None else flag):
             break
-        u_sh, u_r0 = draw(it)
-        x, upos, incube = slice_propose(st, u_sh, directions, strict)
-        v_x, logl_x, blob_x = _masked_eval(like, upos, incube)
-        acc = slice_advance(st, x, upos, v_x, logl_x, u_r0, loglstar,
-                            n_steps)
-        blob = blob_where(acc, blob_x, blob)
+        if use_graph and entry.graph is None and it > 0:
+            use_graph = entry.capture()
+            if use_graph:
+                _count(timings, "n_slice_graph")
+        if use_graph and entry.graph is not None:
+            if not replays:
+                # the graph's generator takes the round's seed and offset
+                entry.gen.manual_seed(gen.initial_seed())
+                entry.gen.set_offset(gen.get_offset())
+            flag = entry.replay()
+            replays += 1
+        elif use_graph:
+            # the warm-up: the first iteration of a new round shape, on a
+            # side stream, before its capture
+            main = torch.cuda.current_stream(rb.device)
+            entry.stream.wait_stream(main)
+            with torch.cuda.stream(entry.stream):
+                entry.iterate(fill)
+            main.wait_stream(entry.stream)
+        else:
+            entry.iterate(fill if gen is not None else
+                          lambda: rb.draws.copy_(draw(it)))
         it += 1
-    return st, blob
+    if replays:
+        gen.set_offset(entry.gen.get_offset())
+        _count(timings, "n_slice_replay", replays)
+    elif rb.device.type == "cuda":
+        _count(timings, "n_uncaptured")
+    return st, tree_map(torch.clone, blob)
 
 
 def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
                      nonperiodic=None, doubling=False,
-                     max_shrink_iters=10000, timings=None):
+                     max_shrink_iters=10000, timings=None, rounds=None):
     """Slice-sampling round.  ``kind='rslice'``: ``slices`` slice updates
     per lane along random directions transformed by the lane's axes.
     ``kind='slice'``: ``slices`` passes over all ``ndim`` principal axes in
@@ -699,15 +854,11 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
         dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
         directions = directions / dirnorm[..., None]
         r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
-
-        def draw(it):
-            return torch.rand((2, q), generator=gen, dtype=dtype,
-                              device=device)
-
         st, blob = slice_state_machine(
-            like, directions, r0, draw, loglstar, start_u, start_v,
+            like, directions, r0, gen, loglstar, start_u, start_v,
             start_logl, start_blob, strict=nb,
-            max_shrink_iters=max_shrink_iters, timings=timings)
+            max_shrink_iters=max_shrink_iters, timings=timings,
+            rounds=rounds)
         return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
                             st["nc"], st["n_exp"], st["n_con"], st["warn"],
                             device=device), blob

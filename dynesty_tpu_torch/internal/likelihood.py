@@ -41,7 +41,19 @@ import torch
 from ..parallel.mesh import mesh_eval
 from ..utils.misc import stack_blob_rows, tree_map
 
-__all__ = ["LogLikelihood", "LoglOutput", "ShapeDtype"]
+__all__ = ["LogLikelihood", "LoglOutput", "ShapeDtype", "graph_capturable"]
+
+
+def graph_capturable(mode, save_evaluation_history, mesh_size):
+    """Whether a round may capture its calls of a likelihood so
+    configured in a CUDA graph: the device modes ('torch',
+    'vectorized'), which evaluate every lane on the card with no host
+    step, without the evaluation history (a host copy of every batch) and
+    on at most one device.  Host mode maps the user's callables on the
+    host, and a mesh of several devices gathers its lanes across them:
+    both run their rounds eagerly."""
+    return mode in ("torch", "vectorized") and \
+        not save_evaluation_history and mesh_size <= 1
 
 
 class LoglOutput:
@@ -312,6 +324,12 @@ class LogLikelihood:
         return v, logl, blob
 
     # -- public API
+
+    def capturable(self):
+        """:func:`graph_capturable` of this likelihood as it is set now."""
+        return graph_capturable(
+            self.mode, self.save_evaluation_history,
+            1 if self.mesh is None else self.mesh.size)
 
     def batch_eval(self, u, mask=None):
         """Evaluate an (N, ndim) device batch (already inside the prior

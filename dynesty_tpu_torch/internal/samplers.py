@@ -49,6 +49,9 @@ class InternalSampler:
             k: kwargs.get(k)
             for k in ("nonbounded", "periodic", "reflective", "nonperiodic")}
         self._round_cache = {}
+        # the slice state machine's buffers and CUDA graphs by round shape
+        # (kernels.slice_graph), never pickled
+        self._slice_rounds = {}
 
     def _new_from_template(self, template_kwargs):
         """A fresh instance of this class from its own kwargs plus the
@@ -63,7 +66,18 @@ class InternalSampler:
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_round_cache"] = {}
+        state["_slice_rounds"] = {}
         return state
+
+    def drop_device_state(self):
+        """Forget every built round, buffer and CUDA graph (the sampler
+        moved to another device)."""
+        self._round_cache = {}
+        self._slice_rounds = {}
+
+    def _slice_cache(self):
+        # checkpoints written before the cache existed lack it
+        return self.__dict__.setdefault("_slice_rounds", {})
 
     @property
     def update_bound_interval_ratio(self):
@@ -624,7 +638,8 @@ class _SliceBase(InternalSampler):
             like, ndim=ndim, q=q, slices=self.slices, kind=self.name,
             nonperiodic=self.sampler_kwargs.get("nonperiodic"),
             doubling=bool(self.sampler_kwargs.get("slice_doubling", False)),
-            dtype=ns.dtype, device=ns.device, timings=ns.timings)
+            dtype=ns.dtype, device=ns.device, timings=ns.timings,
+            rounds=self._slice_cache())
 
         def propose(gen, live, live_blob, axes_args, scale, loglstar):
             idxs, starts, axes = select_starts(
@@ -654,7 +669,7 @@ class _SliceBase(InternalSampler):
                 kind=self.name,
                 nonperiodic=self.sampler_kwargs.get("nonperiodic"),
                 doubling=doubling, dtype=ns.dtype, device=ns.device,
-                timings=ns.timings))
+                timings=ns.timings, rounds=self._slice_cache()))
         rows, extras = _unpack_rows(
             fn(gen, packed_in, start_blob, self.scale, loglstar), self.ndim,
             like.npdim, ("nc", "n_expand", "n_contract", "warn"),

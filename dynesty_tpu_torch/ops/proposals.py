@@ -10,8 +10,9 @@ likelihood; the lane-wise updates before and after each likelihood call
 are the kernels here:
 
 * :func:`slice_propose` (the iteration's position by phase, the lane's
-  direction, the point and its cube check) and :func:`slice_advance`
-  (the masks, the interval, the counters, acceptance, the phase
+  direction, the point, the point clamped into the cube and its cube
+  check) and :func:`slice_advance` (the likelihood's -inf mask outside
+  the cube, the masks, the interval, the counters, acceptance, the phase
   transitions and the sticky warning), ``csrc/slice_step.cu``;
 * :func:`rwalk_propose` (the step, the extra dimensions, periodic and
   reflective wrapping, the cube check) and :func:`rwalk_accept`,
@@ -22,10 +23,13 @@ streams and reduction orders are torch's own).  On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 version, the eager code the kernel is held against bit for bit.
 
-The round's state is a dict of tensors (:func:`slice_init`,
-:func:`rwalk_init`), its buffers the round's own.  Both versions update
-the dict: the plain version rebinds its entries, the kernel writes its
-tensors in place.
+A slice round runs on a :class:`SliceRound`: every tensor an iteration
+touches, allocated, checked and bound to the two kernels' argument tables
+once per round shape, so that a call does only its launch and an
+iteration can be captured as a CUDA graph (``internal/kernels.py``,
+``SliceGraph``).  The walk's state is a dict of tensors
+(:func:`rwalk_init`), its buffers the round's own: the plain version
+rebinds its entries, the kernel writes its tensors in place.
 """
 
 import ctypes
@@ -36,8 +40,9 @@ import torch
 from . import build
 from .geometry import unitcheck_batch, wrap_boundaries
 
-__all__ = ["slice_init", "slice_propose", "slice_propose_plain",
-           "slice_advance", "slice_advance_plain", "rwalk_init",
+__all__ = ["SliceRound", "slice_init", "slice_propose",
+           "slice_propose_plain", "slice_advance", "slice_advance_plain",
+           "rwalk_init",
            "rwalk_propose", "rwalk_propose_plain", "rwalk_accept",
            "rwalk_accept_plain", "zero_counts", "WRAPPERS"]
 
@@ -56,37 +61,53 @@ def _fresh(t):
 # the stepping-out state machine
 
 
-def slice_init(start_u, start_v, start_logl, r0):
+def _slice_state(q, ndim, npdim, dtype, device):
+    """The state machine's state tensors for ``q`` lanes, unfilled."""
+    def e(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    st = {k: e((q,), torch.int64)
+          for k in ("s", "phase", "nc", "n_exp", "n_con", "exp_step")}
+    st.update({k: e((q,)) for k in ("left", "right", "fl", "fr", "logl")})
+    st.update({"u": e((q, ndim)), "v": e((q, npdim)), "u0": e((q, ndim)),
+               "warn": e((), torch.bool),
+               # is any lane short of its last slice step (read once an
+               # iteration by the host loop)
+               "any_active": e((), torch.bool)})
+    return st
+
+
+def slice_init(start_u, start_v, start_logl, r0, rb=None):
     """The state machine's state at the start of a round: every lane in
-    its first slice step, phase INIT_L, interval ``(-r0, 1 - r0)``."""
-    q, device = r0.shape[0], r0.device
-
-    def zi():
-        return torch.zeros((q,), dtype=torch.int64, device=device)
-
-    return {
-        "s": zi(), "phase": torch.full((q,), PH_INIT_L, dtype=torch.int64,
-                                       device=device),
-        "left": -r0, "right": 1.0 - r0,
-        "fl": torch.full((q,), _NEG_INF, dtype=r0.dtype, device=device),
-        "fr": torch.full((q,), _NEG_INF, dtype=r0.dtype, device=device),
-        "u": _fresh(start_u), "v": _fresh(start_v),
-        "logl": _fresh(start_logl), "u0": _fresh(start_u),
-        "nc": zi(), "n_exp": zi(), "n_con": zi(), "exp_step": zi(),
-        "warn": torch.zeros((), dtype=torch.bool, device=device),
-        # is any lane short of its last slice step (read once an
-        # iteration by the host loop)
-        "any_active": torch.ones((), dtype=torch.bool, device=device),
-    }
+    its first slice step, phase INIT_L, interval ``(-r0, 1 - r0)``.
+    With ``rb`` (a :class:`SliceRound`) the round's own state buffers are
+    filled in place and returned; without, fresh tensors."""
+    q, ndim = start_u.shape
+    st = rb.st if rb is not None else _slice_state(
+        q, ndim, start_v.shape[-1], r0.dtype, r0.device)
+    for k in ("s", "nc", "n_exp", "n_con", "exp_step"):
+        st[k].zero_()
+    st["phase"].fill_(PH_INIT_L)
+    st["left"].copy_(-r0)
+    st["right"].copy_(1.0 - r0)
+    st["fl"].fill_(_NEG_INF)
+    st["fr"].fill_(_NEG_INF)
+    for k, t in (("u", start_u), ("v", start_v), ("logl", start_logl),
+                 ("u0", start_u)):
+        st[k].copy_(t)
+    st["warn"].fill_(False)
+    st["any_active"].fill_(True)
+    return st
 
 
 def slice_propose_plain(st, u_sh, directions, strict=None):
     """The iteration's position ``x`` of each lane by its phase (the
     interval's ends, one step beyond them, or a uniform point inside),
     the point ``upos = u0 + x * direction`` along the lane's current
-    slice direction (``directions`` (q, n_steps, ndim), capped), and
+    slice direction (``directions`` (q, n_steps, ndim), capped), the
+    point clamped into the cube (where the likelihood is evaluated), and
     ``incube``: ``upos`` in the cube (loosely where ``strict`` is False)
-    and the lane not done.  Returns ``(x, upos, incube)``."""
+    and the lane not done.  Returns ``(x, upos, uclamp, incube)``."""
     s, phase, left, right = st["s"], st["phase"], st["left"], st["right"]
     q, n_steps = directions.shape[:2]
     active = s < n_steps
@@ -102,15 +123,18 @@ def slice_propose_plain(st, u_sh, directions, strict=None):
                                             (right - left)))))
     upos = st["u0"] + x[:, None] * dirc
     incube = unitcheck_batch(upos, strict) & active
-    return x, upos, incube
+    return x, upos, upos.clamp(0.0, 1.0), incube
 
 
-def slice_advance_plain(st, x, upos, v_x, logl_x, u_r0, loglstar, n_steps):
-    """One step of every lane after the likelihood call at ``upos``:
-    record the interval's end values, step out or shrink, accept a point
-    above ``loglstar`` (the lane then starts its next slice step on the
+def slice_advance_plain(st, x, upos, incube, v_x, logl_x, u_r0, loglstar,
+                        n_steps):
+    """One step of every lane after the likelihood call at the clamped
+    ``upos``: mask ``logl_x`` to -inf outside ``incube``, record the
+    interval's end values, step out or shrink, accept a point above
+    ``loglstar`` (the lane then starts its next slice step on the
     interval ``(-u_r0, 1 - u_r0)``), move to the next phase, flag an
     interval stepped out more than 1000 times.  Returns ``acc`` (q,)."""
+    logl_x = torch.where(incube, logl_x, _NEG_INF)
     s, phase = st["s"], st["phase"]
     left, right, fl, fr = st["left"], st["right"], st["fl"], st["fr"]
     active = s < n_steps
@@ -166,6 +190,139 @@ def slice_advance_plain(st, x, upos, v_x, logl_x, u_r0, loglstar, n_steps):
     st["exp_step"] = torch.where(acc, 0, exp_step)
     st["any_active"] = (s < n_steps).any()
     return acc
+
+
+class SliceRound:
+    """Every tensor one iteration of the stepping-out state machine
+    touches, for one round shape ``(q, n_steps, ndim, npdim, dtype)`` on
+    one device: the state (``st``, as :func:`slice_init` lays it out), the
+    round's inputs (``directions`` (q, n_steps, ndim), ``loglstar`` 0-d,
+    the cube check's ``strict`` mask), the iteration's draws (``draws``
+    (2, q): the shrink positions, then the next intervals' offsets) and
+    its outputs (``x``, ``upos``, ``uclamp``, ``incube``, ``acc``).
+
+    Allocated, checked and, on the card, bound to the two kernels'
+    argument tables once; :func:`slice_init` and :meth:`start` load a
+    round into it, :func:`slice_propose` and :func:`slice_advance` run an
+    iteration on it.  The buffers keep their addresses for the object's
+    life, which is what lets an iteration be captured as a CUDA graph."""
+
+    def __init__(self, q, n_steps, ndim, npdim, dtype, device, strict=None):
+        fn = "SliceRound"
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{fn}: no kernel for device {device}")
+        if dtype not in _DTYPES:
+            raise TypeError(f"{fn} takes float64 or float32, got {dtype}")
+        if min(q, n_steps, ndim) < 1 or npdim < 0:
+            raise ValueError(f"{fn}: bad shape {(q, n_steps, ndim, npdim)}")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.q, self.n_steps, self.ndim, self.npdim = q, n_steps, ndim, npdim
+        self.dtype, self.device = dtype, device
+
+        def e(shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=device)
+
+        self.st = _slice_state(q, ndim, npdim, dtype, device)
+        self.directions = e((q, n_steps, ndim))
+        self.loglstar = e(())
+        self.draws = e((2, q))
+        self.x, self.upos, self.uclamp = e((q,)), e((q, ndim)), e((q, ndim))
+        self.incube = e((q,), torch.bool)
+        self.acc = e((q,), torch.bool)
+        self.strict = None
+        if strict is not None:
+            if not isinstance(strict, torch.Tensor):
+                raise TypeError(f"{fn}: strict must be a torch.Tensor")
+            self.strict = strict.to(device=device, dtype=torch.bool).clone(
+                memory_format=torch.contiguous_format)
+            _check(fn, "strict", self.strict, (ndim,), torch.bool, device)
+        self._propose_args = self._advance_args = None
+        if device.type == "cuda":
+            self._bind()
+
+    def start(self, start_u, start_v, start_logl, r0, directions, loglstar):
+        """Load a round: the start state (:func:`slice_init`), the capped
+        ``directions`` and the threshold (a number or a 0-d tensor,
+        copied once a round); returns the state."""
+        st = slice_init(start_u, start_v, start_logl, r0, rb=self)
+        self.directions.copy_(directions)
+        if isinstance(loglstar, torch.Tensor):
+            self.loglstar.copy_(loglstar)
+        else:
+            self.loglstar.fill_(float(loglstar))
+        return st
+
+    def _bind(self):
+        """Fill both kernels' argument tables; the likelihood's two outputs
+        are written into the advance table at each launch."""
+        st = self.st
+        propose = (st["s"], st["phase"], st["left"], st["right"], st["u0"],
+                   self.draws[0], self.directions, self.strict, self.x,
+                   self.upos, self.uclamp, self.incube, st["any_active"])
+        advance = (st["s"], st["phase"], st["left"], st["right"], st["fl"],
+                   st["fr"], st["u"], st["v"], st["logl"], st["u0"],
+                   st["nc"], st["n_exp"], st["n_con"], st["exp_step"],
+                   st["warn"], st["any_active"], self.acc, self.x,
+                   self.upos, self.incube, None, None, self.draws[1],
+                   self.loglstar)
+        self._propose_args = _pointer_table(propose)
+        self._advance_args = _pointer_table(advance)
+        tag = _DTYPES[self.dtype]
+        self._propose_fn = _entry("slice_step", "slice_propose", tag)
+        self._advance_fn = _entry("slice_step", "slice_advance", tag)
+
+    def check_likelihood(self, v_x, logl_x):
+        """Raise unless the likelihood's outputs are what
+        :func:`slice_advance` reads: (q, npdim) and (q,) contiguous
+        tensors of the round's dtype on its device."""
+        for name, t, shape in (("v_x", v_x, (self.q, self.npdim)),
+                               ("logl_x", logl_x, (self.q,))):
+            _check("slice_advance", name, t, shape, self.dtype, self.device)
+
+
+def slice_propose(rb):
+    """One iteration's proposal on the round ``rb`` (a
+    :class:`SliceRound`): :func:`slice_propose_plain` on the CPU (its
+    outputs copied into the round's buffers), on the card the
+    ``slice_propose`` kernel of ``csrc/slice_step.cu``, which also sets
+    ``any_active`` to False for :func:`slice_advance` to raise.  Reads
+    ``rb.draws[0]``; writes ``rb.x``, ``rb.upos``, ``rb.uclamp`` and
+    ``rb.incube``."""
+    if rb.device.type == "cpu":
+        outs = slice_propose_plain(rb.st, rb.draws[0], rb.directions,
+                                   rb.strict)
+        for buf, t in zip((rb.x, rb.upos, rb.uclamp, rb.incube), outs):
+            buf.copy_(t)
+        return
+    _run(rb._propose_fn, rb._propose_args,
+         (rb.q, rb.n_steps, rb.ndim, 0), rb.device, "slice_propose")
+    slice_propose.launches += 1
+
+
+def slice_advance(rb, v_x, logl_x):
+    """One iteration's update of the round ``rb`` after the likelihood's
+    ``v_x`` (q, npdim) and raw ``logl_x`` (q,) at ``rb.uclamp`` (in the
+    round's dtype): :func:`slice_advance_plain` on the CPU (the state
+    copied back into the round's buffers), on the card the
+    ``slice_advance`` kernel of ``csrc/slice_step.cu``, which masks
+    ``logl_x`` outside ``rb.incube``, updates the state in place and sets
+    ``any_active`` where a lane is short of its last slice step.  Reads
+    ``rb.draws[1]`` and ``rb.loglstar``; writes ``rb.acc``."""
+    if rb.device.type == "cpu":
+        st = dict(rb.st)
+        acc = slice_advance_plain(st, rb.x, rb.upos, rb.incube, v_x, logl_x,
+                                  rb.draws[1], rb.loglstar, rb.n_steps)
+        for k, buf in rb.st.items():
+            buf.copy_(st[k])
+        rb.acc.copy_(acc)
+        return
+    table = rb._advance_args
+    table[20], table[21] = v_x.data_ptr(), logl_x.data_ptr()
+    _run(rb._advance_fn, table, (rb.q, rb.n_steps, rb.ndim, rb.npdim),
+         rb.device, "slice_advance")
+    slice_advance.launches += 1
 
 
 # --------------------------------------------------------------------------
@@ -227,20 +384,31 @@ def _entry(lib, fn, tag):
     return f
 
 
+def _pointer_table(tensors):
+    """The ctypes array of the tensors' pointers (None for an absent
+    one), in the source's order."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def _run(f, ptrs, ints, device, fn):
+    """Launch entry ``f`` on ``device``'s current stream with the pointer
+    table ``ptrs`` and four ints; raises on a refused launch."""
+    if torch.cuda.current_device() != device.index:
+        with torch.cuda.device(device):
+            return _run(f, ptrs, ints, device, fn)
+    err = f(ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed (cudaError {err}) "
+                           f"at {ints}")
+
+
 def _launch(lib, fn, tensors, ints, dtype, device):
     """Launch ``fn`` of library ``lib`` on the current stream: the
     tensors' pointers (None for an absent one) in the source's order,
     then four ints."""
-    f = _entry(lib, fn, _DTYPES[dtype])
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *[None if t is None else t.data_ptr() for t in tensors])
-    ints = tuple(ints) + (0,) * (4 - len(ints))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = f(ptrs, *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed (cudaError {err}) "
-                           f"at {ints}")
+    _run(_entry(lib, fn, _DTYPES[dtype]), _pointer_table(tensors),
+         tuple(ints) + (0,) * (4 - len(ints)), device, fn)
 
 
 def _check(fn, name, t, shape, dtype, device):
@@ -287,79 +455,6 @@ def _mask(fn, name, m, ndim, device):
     if m is not None:
         _check(fn, name, m, (ndim,), torch.bool, device)
     return m
-
-
-def _check_slice_state(fn, st, q, ndim, npdim, dtype, device):
-    i64 = torch.int64
-    for k in ("s", "phase", "nc", "n_exp", "n_con", "exp_step"):
-        _check(fn, k, st[k], (q,), i64, device)
-    for k in ("left", "right", "fl", "fr", "logl"):
-        _check(fn, k, st[k], (q,), dtype, device)
-    for k in ("u", "u0"):
-        _check(fn, k, st[k], (q, ndim), dtype, device)
-    _check(fn, "v", st["v"], (q, npdim), dtype, device)
-    for k in ("warn", "any_active"):
-        _check(fn, k, st[k], (), torch.bool, device)
-
-
-def slice_propose(st, u_sh, directions, strict=None):
-    """:func:`slice_propose_plain` on a CPU tensor; on a CUDA tensor the
-    ``slice_propose`` kernel of ``csrc/slice_step.cu``, which also sets
-    ``st['any_active']`` to False for :func:`slice_advance` to raise.
-    Takes ``directions`` float64 or float32 (q, n_steps, ndim), ``u_sh``
-    (q,) of its type, the state of :func:`slice_init`, ``strict`` a bool
-    (ndim,) or None; raises on anything else."""
-    fn = "slice_propose"
-    if _route(fn, directions) == "cpu":
-        return slice_propose_plain(st, u_sh, directions, strict)
-    q, n_steps, ndim = directions.shape
-    dtype, dev = directions.dtype, directions.device
-    _check(fn, "directions", directions, (q, n_steps, ndim), dtype, dev)
-    _check(fn, "u_sh", u_sh, (q,), dtype, dev)
-    _check_slice_state(fn, st, q, ndim, st["v"].shape[-1], dtype, dev)
-    _mask(fn, "strict", strict, ndim, dev)
-    x = torch.empty((q,), dtype=dtype, device=dev)
-    upos = torch.empty((q, ndim), dtype=dtype, device=dev)
-    incube = torch.empty((q,), dtype=torch.bool, device=dev)
-    _launch("slice_step", "slice_propose",
-            (st["s"], st["phase"], st["left"], st["right"], st["u0"], u_sh,
-             directions, strict, x, upos, incube, st["any_active"]),
-            (q, n_steps, ndim), dtype, dev)
-    slice_propose.launches += 1
-    return x, upos, incube
-
-
-def slice_advance(st, x, upos, v_x, logl_x, u_r0, loglstar, n_steps):
-    """:func:`slice_advance_plain` on a CPU tensor; on a CUDA tensor the
-    ``slice_advance`` kernel of ``csrc/slice_step.cu``, which updates the
-    state's tensors in place and sets ``st['any_active']`` where a lane
-    is short of its last slice step.  ``loglstar`` is a number or a 0-d
-    tensor; the others as :func:`slice_propose` gives and the likelihood
-    returns them; raises on anything else."""
-    fn = "slice_advance"
-    if _route(fn, upos) == "cpu":
-        return slice_advance_plain(st, x, upos, v_x, logl_x, u_r0,
-                                   loglstar, n_steps)
-    (q, ndim), npdim = upos.shape, st["v"].shape[-1]
-    dtype, dev = upos.dtype, upos.device
-    # the likelihood's outputs, in whatever layout the user's function
-    # gave them
-    v_x, logl_x = v_x.contiguous(), logl_x.contiguous()
-    _check_slice_state(fn, st, q, ndim, npdim, dtype, dev)
-    for name, t, shape in (("x", x, (q,)), ("upos", upos, (q, ndim)),
-                           ("v_x", v_x, (q, npdim)),
-                           ("logl_x", logl_x, (q,)), ("u_r0", u_r0, (q,))):
-        _check(fn, name, t, shape, dtype, dev)
-    ls = _scalar(fn, "loglstar", loglstar, dtype, dev)
-    acc = torch.empty((q,), dtype=torch.bool, device=dev)
-    _launch("slice_step", "slice_advance",
-            (st["s"], st["phase"], st["left"], st["right"], st["fl"],
-             st["fr"], st["u"], st["v"], st["logl"], st["u0"], st["nc"],
-             st["n_exp"], st["n_con"], st["exp_step"], st["warn"],
-             st["any_active"], acc, x, upos, v_x, logl_x, u_r0, ls),
-            (q, n_steps, ndim, npdim), dtype, dev)
-    slice_advance.launches += 1
-    return acc
 
 
 def rwalk_propose(st, du, scale, u_ex=None, periodic=None, reflective=None,

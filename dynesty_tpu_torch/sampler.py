@@ -405,7 +405,7 @@ class Sampler:
             if hasattr(b, "device"):
                 b.device = self.device
         for s in (self.internal_sampler, self.internal_sampler_next):
-            s._round_cache = {}
+            s.drop_device_state()
         self._live_dev = None
         self._live_blob_dev = None
         self._bound_upload = None

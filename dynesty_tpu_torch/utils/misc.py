@@ -53,7 +53,12 @@ class Timings(dict):
     ``sync_flat`` (one result download per dispatch).  The random-walk
     kernel adds none.  ``n_replay`` and ``n_continuation`` count the
     consume-only replays and the continuation dispatches of a resumed
-    run.  Event lists (:meth:`mark`) hold one entry per event.
+    run.  The slice state machine on the card: ``n_slice_replay``
+    (iterations run as one CUDA graph replay), ``n_slice_graph`` (graphs
+    captured, one a round shape, each after one warm-up iteration run
+    eagerly) and ``n_uncaptured`` (rounds that replayed nothing: host
+    mode, the evaluation history, a mesh of several devices, or a capture
+    that raised).  Event lists (:meth:`mark`) hold one entry per event.
     """
 
     def add(self, key, dt):

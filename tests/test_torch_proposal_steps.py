@@ -319,7 +319,8 @@ def _eager_slice_iteration(st, u_sh, u_r0, directions, logl_x, v_x,
                            loglstar, nb):
     """One iteration of the state machine as the eager loop of
     ``make_slice_round`` wrote it before its steps were factored out, the
-    likelihood's values given."""
+    likelihood's raw values given (masked to -inf outside the cube, and
+    the point clamped into it, as the loop's ``_masked_eval`` did)."""
     s, phase, left, right = st["s"], st["phase"], st["left"], st["right"]
     fl, fr, u, v, logl, u0 = (st[k] for k in ("fl", "fr", "u", "v", "logl",
                                               "u0"))
@@ -340,6 +341,8 @@ def _eager_slice_iteration(st, u_sh, u_r0, directions, logl_x, v_x,
                                             (right - left)))))
     upos = u0 + x[:, None] * dirc
     incube = unitcheck_batch(upos, nb) & active
+    uclamp = upos.clamp(0.0, 1.0)
+    logl_x = torch.where(incube, logl_x, _NEG_INF)
     nc = nc + active
 
     is_il = active & (phase == PH_INIT_L)
@@ -390,7 +393,7 @@ def _eager_slice_iteration(st, u_sh, u_r0, directions, logl_x, v_x,
     new = dict(s=s, phase=phase, left=left, right=right, fl=fl, fr=fr, u=u,
                v=v, logl=logl, u0=u0, nc=nc, n_exp=n_exp, n_con=n_con,
                exp_step=exp_step, warn=warn, any_active=(s < n_steps).any())
-    return x, upos, incube, acc, new
+    return x, upos, uclamp, incube, acc, new
 
 
 def _same(a, b):
@@ -402,11 +405,35 @@ def _same(a, b):
 
 def _run_slice_steps(st, inp, propose, advance):
     st = {k: v.clone() for k, v in st.items()}
-    x, upos, incube = propose(st, inp["u_sh"], inp["directions"],
-                              inp["strict"])
-    acc = advance(st, x, upos, inp["v_x"], inp["logl_x"], inp["u_r0"],
-                  inp["loglstar"], inp["n_steps"])
-    return x, upos, incube, acc, st
+    x, upos, uclamp, incube = propose(st, inp["u_sh"], inp["directions"],
+                                      inp["strict"])
+    acc = advance(st, x, upos, incube, inp["v_x"], inp["logl_x"],
+                  inp["u_r0"], inp["loglstar"], inp["n_steps"])
+    return x, upos, uclamp, incube, acc, st
+
+
+def slice_round(st, inp):
+    """A :class:`SliceRound` holding the hand-made state and one
+    iteration's inputs."""
+    q, n_steps, ndim = inp["directions"].shape
+    rb = pr.SliceRound(q, n_steps, ndim, st["v"].shape[1],
+                       inp["directions"].dtype, inp["directions"].device,
+                       inp["strict"])
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.directions.copy_(inp["directions"])
+    rb.draws[0].copy_(inp["u_sh"])
+    rb.draws[1].copy_(inp["u_r0"])
+    rb.loglstar.copy_(inp["loglstar"])
+    return rb
+
+
+def _run_slice_wrappers(st, inp):
+    """One iteration through the wrappers on a round holding ``st``."""
+    rb = slice_round(st, inp)
+    pr.slice_propose(rb)
+    pr.slice_advance(rb, inp["v_x"], inp["logl_x"])
+    return rb.x, rb.upos, rb.uclamp, rb.incube, rb.acc, rb.st
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -418,31 +445,32 @@ def test_slice_plain_steps_equal_the_eager_loop(dtype, ndim):
     ref = _eager_slice_iteration(
         st, inp["u_sh"], inp["u_r0"], inp["directions"], inp["logl_x"],
         inp["v_x"], inp["loglstar"], inp["strict"])
-    for a, b in zip(got[:4], ref[:4]):
+    for a, b in zip(got[:5], ref[:5]):
         _same(a, b)
-    assert set(got[4]) == set(ref[4])
-    for k in ref[4]:
-        _same(got[4][k], ref[4][k])
+    assert set(got[5]) == set(ref[5])
+    for k in ref[5]:
+        _same(got[5][k], ref[5][k])
     # the hand-made state visits every phase, active and done, and every
     # outcome: accepted and rejected shrinks, expansions that go on and
-    # end, the warning
+    # end, the warning, points clamped into the cube
     act = st["s"] < inp["n_steps"]
     assert set(st["phase"][act].tolist()) == set(range(5))
-    assert (~act).any() and got[3].any() and (
-        (st["phase"] == pr.PH_SHRINK) & act & ~got[3]).any()
-    assert bool(got[4]["warn"]) and got[2].any() and (~got[2]).any()
+    assert (~act).any() and got[4].any() and (
+        (st["phase"] == pr.PH_SHRINK) & act & ~got[4]).any()
+    assert bool(got[5]["warn"]) and got[3].any() and (~got[3]).any()
+    assert not torch.equal(got[1], got[2])
 
 
 def test_slice_wrappers_take_the_plain_steps_on_the_cpu():
     st, inp = slice_state(16, 3, 2)
     before = [w.launches for w in pr.WRAPPERS]
-    got = _run_slice_steps(st, inp, pr.slice_propose, pr.slice_advance)
+    got = _run_slice_wrappers(st, inp)
     ref = _run_slice_steps(st, inp, pr.slice_propose_plain,
                            pr.slice_advance_plain)
-    for a, b in zip(got[:4], ref[:4]):
+    for a, b in zip(got[:5], ref[:5]):
         _same(a, b)
-    for k in ref[4]:
-        _same(got[4][k], ref[4][k])
+    for k in ref[5]:
+        _same(got[5][k], ref[5][k])
     assert [w.launches for w in pr.WRAPPERS] == before
 
 
@@ -544,11 +572,12 @@ def test_rwalk_wrappers_take_the_plain_steps_on_the_cpu():
 def test_wrappers_refuse_what_no_kernel_takes():
     st, inp = slice_state(8, 3, 1)
     with pytest.raises(TypeError, match="float64 or float32"):
-        pr.slice_propose(st, inp["u_sh"], inp["directions"].half())
-    with pytest.raises(TypeError, match="torch tensors"):
-        pr.slice_propose(st, inp["u_sh"], inp["directions"].numpy())
+        pr.SliceRound(8, 3, 3, 1, torch.float16, "cpu")
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        pr.SliceRound(8, 3, 3, 1, torch.float64, "cpu",
+                      inp["strict"].numpy())
     with pytest.raises(ValueError, match="no kernel for device"):
-        pr.slice_propose(st, inp["u_sh"], inp["directions"].to("meta"))
+        pr.SliceRound(8, 3, 3, 1, torch.float64, "meta")
     rst, rin = rwalk_state(8, 3, 3, 1)
     with pytest.raises(TypeError, match="float64 or float32"):
         pr.rwalk_propose(rst, rin["du"].to(torch.int64), 1.0)
@@ -596,26 +625,26 @@ def test_sources_name_the_jax_code_they_replace():
 def test_slice_kernels_match_plain_on_the_card(cuda, dtype, ndim):
     st, inp = slice_state(256, ndim, ndim, dtype, cuda)
     before = pr.slice_propose.launches, pr.slice_advance.launches
-    got = _run_slice_steps(st, inp, pr.slice_propose, pr.slice_advance)
+    got = _run_slice_wrappers(st, inp)
     ref = _run_slice_steps(st, inp, pr.slice_propose_plain,
                            pr.slice_advance_plain)
     torch.cuda.synchronize()
     assert (pr.slice_propose.launches, pr.slice_advance.launches) == \
         (before[0] + 1, before[1] + 1)
-    for a, b in zip(got[:4], ref[:4]):
+    for a, b in zip(got[:5], ref[:5]):
         _same(a, b)
-    for k in ref[4]:
-        _same(got[4][k], ref[4][k])
+    for k in ref[5]:
+        _same(got[5][k], ref[5][k])
     # without a mask every dimension is strict
     st2, inp2 = slice_state(256, ndim, 2, dtype, cuda, seed=8)
     inp2["strict"] = None
-    got = _run_slice_steps(st2, inp2, pr.slice_propose, pr.slice_advance)
+    got = _run_slice_wrappers(st2, inp2)
     ref = _run_slice_steps(st2, inp2, pr.slice_propose_plain,
                            pr.slice_advance_plain)
-    for a, b in zip(got[:4], ref[:4]):
+    for a, b in zip(got[:5], ref[:5]):
         _same(a, b)
-    for k in ref[4]:
-        _same(got[4][k], ref[4][k])
+    for k in ref[5]:
+        _same(got[5][k], ref[5][k])
 
 
 @pytest.mark.cuda
@@ -647,7 +676,7 @@ def test_cuda_steps_without_build_raise(cuda, monkeypatch):
     st, inp = slice_state(16, 3, 1, torch.float64, cuda)
     before = pr.slice_propose.launches
     with pytest.raises(RuntimeError, match="disabled"):
-        pr.slice_propose(st, inp["u_sh"], inp["directions"], inp["strict"])
+        slice_round(st, inp)
     assert pr.slice_propose.launches == before
 
 
@@ -656,7 +685,8 @@ def test_cuda_steps_without_build_raise(cuda, monkeypatch):
 def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
     """A whole run on the card takes every step through the kernels: no
     plain step sees a CUDA tensor, the slice kernels launch once an
-    iteration, the walk's once a step."""
+    iteration (a replay of the captured iteration counting one launch of
+    each), the walk's once a step."""
     import dynesty_tpu_torch as dyt
 
     def guarded(name):
@@ -672,20 +702,28 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
                  "rwalk_propose_plain", "rwalk_accept_plain"):
         monkeypatch.setattr(pr, name, guarded(name))
     draws = []
-    # each loop's draw(i) is called once an iteration or step
-    for fn, pos in (("slice_state_machine", 3), ("rwalk_walk", 7)):
-        real = getattr(tk, fn)
+    # the walk's draw(i) is called once a step; the state machine's
+    # iterations are its flag reads less one a round
+    real_walk, real_machine = tk.rwalk_walk, tk.slice_state_machine
 
-        def counting(*a, _real=real, _pos=pos, **kw):
-            a = list(a)
-            draw = a[_pos]
+    def walk(*a, **kw):
+        a = list(a)
+        draw = a[7]
 
-            def counted(i):
-                draws.append(i)
-                return draw(i)
-            a[_pos] = counted
-            return _real(*a, **kw)
-        monkeypatch.setattr(tk, fn, counting)
+        def counted(i):
+            draws.append(i)
+            return draw(i)
+        a[7] = counted
+        return real_walk(*a, **kw)
+
+    def machine(*a, timings, **kw):
+        n0 = timings.get("sync_slice", 0)
+        out = real_machine(*a, timings=timings, **kw)
+        draws.extend(range(timings["sync_slice"] - n0 - 1))
+        return out
+
+    monkeypatch.setattr(tk, "rwalk_walk", walk)
+    monkeypatch.setattr(tk, "slice_state_machine", machine)
     pr.zero_counts()
     s = dyt.NestedSampler(lambda x: -0.5 * (x @ x),
                           lambda u: 10.0 * (2.0 * u - 1.0), 3, nlive=200,
@@ -696,6 +734,9 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
         assert pr.slice_propose.launches == pr.slice_advance.launches == \
             len(draws) > 0
         assert pr.rwalk_propose.launches == 0
+        t = s.timings
+        assert t.get("n_uncaptured", 0) == 0 and t["n_slice_graph"] >= 1
+        assert t["n_slice_replay"] + t["n_slice_graph"] == len(draws)
     else:
         assert pr.rwalk_propose.launches == pr.rwalk_accept.launches == \
             len(draws) > 0
