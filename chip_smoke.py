@@ -42,10 +42,13 @@ Phases, in order; any failure raises and exits non-zero:
    ``rwalk_accept``) against their plain versions on hand-made states of
    256 lanes that visit every phase of the slice state machine, accepted
    and rejected steps, done lanes and +-inf likelihoods, at 3, 15 and 48
-   dimensions (the walk's at 3 and 15, and 15 with 12 bounded, periodic,
-   reflective and unbounded dimensions), in float64 and float32: every
-   output bit-identical, the kernel's and the plain version's time per
-   call (events, warm) and the bound (bytes at 3.35 TB/s).  Then
+   dimensions (the walk's at 3, 15, 15 with 12 bounded and 48, each
+   without masks and with periodic, reflective and loose dimensions), in
+   float64 and float32: every output bit-identical (the walk's clamped
+   point among them), the kernel's and the plain version's time per call
+   (events, warm, on round buffers made once) and the bound (bytes at
+   3.35 TB/s); and the launch floor, an empty kernel of
+   ``rwalk_propose``'s grid launched the same way.  Then
    captured-slice (``captured_slice_phase``): slice rounds whose
    iteration is captured as a CUDA graph and replayed against the same
    rounds launched eagerly (a likelihood the capture rule keeps out),
@@ -55,6 +58,16 @@ Phases, in order; any failure raises and exits non-zero:
    the generator's offset bit for bit, every iteration but one warm-up a
    replay; the host time of one replay with its wait and flag read
    against an eager iteration's, and events around back-to-back replays.
+   Then captured-rwalk (``captured_rwalk_phase``): random-walk rounds
+   whose whole walk is captured as one CUDA graph and replayed against
+   the same rounds launched eagerly, float64 and float32, widths 256 and
+   32, the rwalk drive's 15-D and 15-D with 12 bounded and periodic,
+   reflective and loose dimensions, three rounds each on one round cache
+   with a blob: every column, the blob and the generator's offset bit for
+   bit, every round but the warm-up a replay; then one non-fused
+   ``propose_round`` (batch seeding's round) of 32 lanes, three times, on
+   a sampler run to 3,000 iterations against the same on a sampler whose
+   likelihood the capture rule keeps out (the two runs bit for bit too).
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -75,7 +88,10 @@ Phases, in order; any failure raises and exits non-zero:
 9. The default in 10 to 20 dimensions: ``NestedSampler(loglike, ptform,
    15, nlive=1000)`` (multi / rwalk, walks 35, enlarge 1.25) on a 15-D
    standard normal under a uniform prior on +-10, truth -15 ln 20.  No
-   kernel may run.
+   NN kernel may run; every walk round but the first of its shape is one
+   graph replay.  Then one of its rounds timed alone: eager (every step
+   launched from Python) and replayed, by events and by the host clock
+   with its wait.
 10. ``NestedSampler(nlive=2048, bound='balls', sample='slice')`` on the
     3-D Gaussian: the exact L2 path must run, and every refit must agree
     with the plain version.
@@ -175,22 +191,25 @@ Phases, in order; any failure raises and exits non-zero:
 34. Device-only times (profiler kernel durations) of every comparison,
     of the consume rounds with their chain bound (the device time of a
     step of a one-thread chain of dependent logaddexps, times q), of the
-    four proposal-step kernels at the main drives' shapes, of one replay
-    of the captured slice iteration at (256, 3), and of one 256-lane
+    four proposal-step kernels at the main drives' shapes and of the
+    launch floor, of one replay of the captured slice iteration at (256,
+    3) and of the captured walk at (256, 15), and of one 256-lane
     evaluation of the heavy likelihood.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
 Every drive counts the proposal-step kernels' launches, the state
 machine's iterations (its flag reads less one a round) and the walk's
-draws (one a step): ``slice_propose`` == ``slice_advance`` == the state
-machine's iterations (a replay launches each once), and
-``rwalk_propose`` == ``rwalk_accept`` == walks x rwalk rounds, or the
-drive fails.  Every slice drive with its likelihood on the card must
-replay every iteration but one warm-up per captured graph
-(``n_slice_replay + n_slice_graph`` == the iterations) with
-``n_uncaptured`` 0; host-balls must run every round eagerly, none
-replayed.  One JSON line lists them by drive.
+steps (each eager step, and a replay's walks): ``slice_propose`` ==
+``slice_advance`` == the state machine's iterations (a replay launches
+each once), and ``rwalk_propose`` == ``rwalk_accept`` == the walk's steps
+== walks x rwalk rounds, or the drive fails.  Every slice drive with its
+likelihood on the card must replay every iteration but one warm-up per
+captured graph (``n_slice_replay + n_slice_graph`` == the iterations)
+with ``n_uncaptured`` 0; the rwalk drive must replay every round but the
+warm-up round of each shape (``n_rwalk_replay + n_uncaptured`` == the
+rounds, ``n_uncaptured`` == the shapes); host-balls must run every round
+eagerly, none replayed.  One JSON line lists them by drive.
 Every drive counts the consume kernel's launches, split into thin and
 general on the device, from zero just before it to just after: they must
 equal the fused rounds its samplers consumed (their ``n_round``), and be
@@ -390,17 +409,22 @@ def count_rounds():
     Timings.count = counting
 
 
-# the slice state machine's captured iterations: replays, graphs captured
-# (one warm-up iteration each, eager) and rounds that replayed nothing,
-# tallied from every sampler's Timings by count_rounds()
-CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_uncaptured")
+# the captured proposal loops: the slice state machine's replayed
+# iterations and graphs (one warm-up iteration each, eager), the random
+# walk's replayed rounds and graphs (one warm-up round each, eager), and
+# rounds that replayed nothing, tallied from every sampler's Timings by
+# count_rounds()
+CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_rwalk_replay",
+                  "n_rwalk_graph", "n_uncaptured")
 # rounds of the slice state machine and its iterations (its flag reads,
-# less the one that ends each round), the random walk's rounds and draws
-# (one a step) and the walk steps due (walks x rounds), and the capture
-# counts, since the counts were last zeroed, tallied by
-# count_proposal_loops() and count_rounds()
+# less the one that ends each round), the random walk's rounds, its round
+# shapes (buffers made), its steps (run eagerly one by one, or a replay's
+# walks) and the walk steps due (walks x rounds), and the capture counts,
+# since the counts were last zeroed, tallied by count_proposal_loops() and
+# count_rounds()
 _LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
-                        "rwalk_steps", "rwalk_due") + CAPTURE_COUNTS, 0)
+                        "rwalk_shapes", "rwalk_steps", "rwalk_due") +
+                       CAPTURE_COUNTS, 0)
 # the per-step kernels' launch counts in a drive's counts
 STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
                 "rwalk_accept")
@@ -410,18 +434,16 @@ def count_proposal_loops():
     """Tally into ``_LOOPS`` every round of the stepping-out state machine
     and its iterations (its ``sync_slice`` flag reads less the one that
     ends the round: a replay reads the flag as an eager iteration does),
-    and every round of the random walk with each ``draw`` it takes (one a
-    step, before its kernels), so ``launches == iterations`` in
+    and every round of the random walk with its steps: each step run
+    eagerly (``RWalkGraph.step`` outside a capture, which records without
+    running) and a replay's ``walks``, so ``launches == steps`` in
     :func:`_counts` catches a step that went through a plain version on
-    the card or skipped its kernel."""
+    the card or skipped its kernel; and the walk's round shapes (its
+    ``RWalkGraph`` buffers made), each of which warms up once."""
     from dynesty_tpu_torch.internal import kernels as tk
     machine, walk = tk.slice_state_machine, tk.rwalk_walk
-
-    def counted(draw, key):
-        def fn(i):
-            _LOOPS[key] += 1
-            return draw(i)
-        return fn
+    graph = tk.RWalkGraph
+    init, step, replay = graph.__init__, graph.step, graph.replay
 
     def slice_state_machine(*a, timings, **kw):
         _LOOPS["slice_rounds"] += 1
@@ -430,14 +452,27 @@ def count_proposal_loops():
         _LOOPS["slice_iters"] += timings["sync_slice"] - n0 - 1
         return out
 
-    def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, *a,
-                   walks, **kw):
+    def rwalk_walk(*a, walks, **kw):
         _LOOPS["rwalk_rounds"] += 1
         _LOOPS["rwalk_due"] += walks
-        return walk(like, u, v, logl, axes, scale, loglstar,
-                    counted(draw, "rwalk_steps"), *a, walks=walks, **kw)
+        return walk(*a, walks=walks, **kw)
+
+    def graph_init(self, *a, **kw):
+        _LOOPS["rwalk_shapes"] += 1
+        init(self, *a, **kw)
+
+    def counted_step(self, draw, i):
+        if not torch.cuda.is_current_stream_capturing():
+            _LOOPS["rwalk_steps"] += 1
+        return step(self, draw, i)
+
+    def counted_replay(self, gen):
+        _LOOPS["rwalk_steps"] += self.walks
+        return replay(self, gen)
 
     tk.slice_state_machine, tk.rwalk_walk = slice_state_machine, rwalk_walk
+    graph.__init__, graph.step, graph.replay = (graph_init, counted_step,
+                                                counted_replay)
 
 
 def _zero_counts(hk):
@@ -454,9 +489,11 @@ def _counts(hk, eager=False):
     """Every kernel's launches since :func:`_zero_counts`; raises unless
     every fused round consumed since went through the consume kernel,
     every step of the proposal loops through its two kernels, and every
-    slice round as the capture rule says: replayed, every iteration but
-    one warm-up per graph (a likelihood on the card), or all eager with
-    none replayed where ``eager`` (host mode)."""
+    slice and walk round as the capture rule says (a likelihood on the
+    card): the slice rounds replayed, every iteration but one warm-up per
+    graph; the walk's rounds replayed, every one but the warm-up round of
+    each shape, each shape's next round captured; or, where ``eager``
+    (host mode), all eager with none replayed."""
     k = hk.pairwise_min_dist
     paths = cs.path_counts()
     out = {"launches": k.launches, "exact": k.launches_exact,
@@ -486,6 +523,20 @@ def _counts(hk, eager=False):
         if not ok:
             mode = "eager" if eager else "captured"
             raise RuntimeError(f"the slice rounds did not run as the "
+                               f"capture rule says ({mode}): {out}")
+    if out["rwalk_rounds"]:
+        if eager:
+            ok = out["n_rwalk_replay"] == out["n_rwalk_graph"] == 0 and \
+                out["n_uncaptured"] == out["rwalk_rounds"]
+        else:
+            ok = out["n_rwalk_replay"] > 0 and \
+                out["n_rwalk_replay"] + out["n_uncaptured"] == \
+                out["rwalk_rounds"] and \
+                out["n_uncaptured"] == out["rwalk_shapes"] >= \
+                out["n_rwalk_graph"] >= 1
+        if not ok:
+            mode = "eager" if eager else "captured"
+            raise RuntimeError(f"the walk's rounds did not run as the "
                                f"capture rule says ({mode}): {out}")
     return out
 
@@ -608,21 +659,31 @@ def rwalk_drive(dyt):
 
 
 def rwalk_round_times(dyt):
-    """Per-call times (CUDA events, host-paced) of the parts of one round
-    of the rwalk drive at its widths (256 lanes, 35 steps, 15-D, nlive
-    1000): the random-walk round alone, one batched likelihood call, and
-    one propose-free consume round on the thin path."""
+    """Per-call times of the parts of one round of the rwalk drive at its
+    widths (256 lanes, 35 steps, 15-D, nlive 1000): the random-walk round
+    alone, eager (a likelihood the capture rule keeps out, so every step
+    is launched from Python) and replayed (one CUDA graph replay of the
+    whole walk, after its warm-up round and its capture), each by CUDA
+    events back to back and by the host clock with its wait; one batched
+    likelihood call; and one propose-free consume round on the thin path.
+    Returns the times and the replayed round's graph entry."""
     from dynesty_tpu_torch.internal.fused import make_fused_round
     from dynesty_tpu_torch.internal.kernels import make_rwalk_round
     from dynesty_tpu_torch.internal.likelihood import LogLikelihood
 
     q, il, kw = 256, 2 * R_NDIM, dict(dtype=torch.float64, device="cuda")
     like = LogLikelihood(normal_loglike, box_ptform, R_NDIM, device="cuda")
+    eager = LogLikelihood(normal_loglike, box_ptform, R_NDIM, device="cuda")
+    eager.capturable = lambda: False
     rng = np.random.Generator(np.random.PCG64(SEED))
     u = 0.5 + 0.02 * rng.standard_normal((R_NLIVE, R_NDIM))
     v, logl, _ = like.eval_host(u)
-    walk = make_rwalk_round(like, ndim=R_NDIM, ncdim=R_NDIM, q=q,
-                            walks=R_NDIM + 20, **kw)
+    eager.eval_host(u[:2])
+    cache = {}
+    walks = {name: make_rwalk_round(lk, ndim=R_NDIM, ncdim=R_NDIM, q=q,
+                                    walks=R_NDIM + 20, rounds={} if
+                                    name == "eager" else cache, **kw)
+             for name, lk in (("eager", eager), ("replay", like))}
     axes = np.tile(0.01 * np.eye(R_NDIM).ravel(), (q, 1))
     packed_in = torch.as_tensor(np.concatenate(
         [u[:q], v[:q], logl[:q, None], axes], axis=1), device="cuda")
@@ -646,12 +707,32 @@ def rwalk_round_times(dyt):
     ctrl = np.array([-1e30, 0.0, 0.0, 0.0, -1e30, 0.0, 0.0, 0.0, 1.0, -np.inf,
                      np.inf, 2.0 ** 30, 2.0 ** 30, 1.0, 0.0, 1.0, -1e30, 0.0,
                      0.0, 0.0, 0.0, 2.0 ** 30])
-    return {
-        "rwalk_round_ms": _time_ms(
-            lambda: walk(gen, packed_in, None, 1.0, -1e30), 5),
-        "likelihood_call_ms": _time_ms(lambda: like.batch_eval(u_dev), 50),
-        "consume_round_ms": _time_ms(
-            lambda: consume(SEED, live, None, {}, ctrl), 5)}
+
+    def host_ms(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    out = {}
+    for name, walk in walks.items():
+        call = (lambda w: lambda: w(gen, packed_in, None, 1.0, -1e30))(walk)
+        # _time_ms warms up with three rounds: the replayed form's warm-up
+        # round and its capture come first
+        out[f"{name}_round_ms"] = _time_ms(call, 5)
+        out[f"{name}_round_host_ms"] = host_ms(call)
+    entry = next(iter(cache.values()))
+    if entry.graph is None:
+        raise RuntimeError("the timed rwalk round was never captured")
+    out["rwalk_round_ms"] = out.pop("eager_round_ms")
+    out["replay_events_ms"] = _time_ms(lambda: entry.replay(gen), 20)
+    out["likelihood_call_ms"] = _time_ms(lambda: like.batch_eval(u_dev), 50)
+    out["consume_round_ms"] = _time_ms(
+        lambda: consume(SEED, live, None, {}, ctrl), 5)
+    return out, entry
 
 
 def resume_drive(dyt, full, maxiter, nlive=2048, bound="balls", **kw):
@@ -2409,11 +2490,15 @@ def consume_device_times(consume, calls, card):
 
 
 STEP_Q = 256
-# (loop, ndim, ncdim): the slice kernels at the main drive's 3-D, the
-# rwalk drive's 15-D and 48-D; the walk's at 3-D without masks, and at
-# 15-D with every mask, all dimensions bounded or 12 of them
-STEP_CASES = [("slice", 3, None), ("slice", 15, None), ("slice", 48, None),
-              ("rwalk", 3, 3), ("rwalk", 15, 15), ("rwalk", 15, 12)]
+# (loop, ndim, ncdim, masks): the slice kernels at the main drive's 3-D,
+# the rwalk drive's 15-D and 48-D; the walk's at 3-D, 15-D (all dimensions
+# bounded or 12 of them) and 48-D, each without masks (as the rwalk drive
+# runs) and with periodic, reflective and loose dimensions
+STEP_CASES = [("slice", 3, None, None), ("slice", 15, None, None),
+              ("slice", 48, None, None)] + [
+    ("rwalk", ndim, ncdim, masks)
+    for ndim, ncdim in ((3, 3), (15, 15), (15, 12), (48, 48))
+    for masks in (False, True)]
 # slice updates per lane (rslice's default)
 STEP_NSTEPS = 5
 STEP_LOGLSTAR = 0.25
@@ -2464,10 +2549,12 @@ def step_slice_state(q, ndim, npdim, dtype, seed=SEED):
     return st, inp
 
 
-def step_rwalk_state(q, ndim, ncdim, npdim, dtype, seed=SEED):
+def step_rwalk_state(q, ndim, ncdim, npdim, dtype, masks, seed=SEED):
     """A hand-made walk state and one step's inputs on the card: step
     lengths from well inside the cube to well beyond it, likelihood
-    values above, below and at the threshold, +-inf among them."""
+    values above, below and at the threshold, +-inf among them; with
+    ``masks`` the first dimension wrapped, the second reflected, past 3-D
+    the last both, every third loose."""
     rs = np.random.Generator(np.random.PCG64(seed))
     st = {"u": _cuda_t(rs.random((q, ndim)), dtype),
           "v": _cuda_t(rs.random((q, npdim)), dtype),
@@ -2486,10 +2573,10 @@ def step_rwalk_state(q, ndim, ncdim, npdim, dtype, seed=SEED):
         "scale": _cuda_t(0.7, dtype),
         "u_ex": _cuda_t(rs.random((q, ndim - ncdim)), dtype)
         if ncdim < ndim else None,
-        # masks at 15-D: wrapped, reflected, both, and loose dimensions
-        "masks": [mask([0, ndim - 1]), mask([1, ndim - 1]),
+        "masks": [mask([0] + [ndim - 1] * (ndim > 3)),
+                  mask([1] + [ndim - 1] * (ndim > 3)),
                   _cuda_t(np.arange(ndim) % 3 != 2, torch.bool)]
-        if ndim > 3 else [None, None, None],
+        if masks else [None, None, None],
         "logl_prop": _cuda_t(rs.choice([-math.inf, -1.0, STEP_LOGLSTAR, 2.0,
                                         math.inf], size=q), dtype),
         "v_prop": _cuda_t(rs.random((q, npdim)), dtype),
@@ -2616,57 +2703,105 @@ def slice_step_cases(ndim, dtype):
     return [prop, adv], calls
 
 
-def rwalk_step_cases(ndim, ncdim, dtype):
+def step_rwalk_round(st, inp):
+    """An ``RWalkRound`` on the card holding the hand-made state and one
+    step's scale, threshold and masks."""
+    q, ndim = st["u"].shape
+    rb = pr.RWalkRound(q, ndim, inp["du"].shape[1], st["v"].shape[1],
+                       inp["du"].dtype, "cuda", *inp["masks"])
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.scale.copy_(inp["scale"])
+    rb.loglstar.copy_(inp["loglstar"])
+    return rb
+
+
+def rwalk_step_cases(ndim, ncdim, dtype, masks):
     """``rwalk_propose`` and ``rwalk_accept`` against their plain
     versions on one hand-made state; returns their records and the
     kernels' calls at these inputs."""
     q, npdim = STEP_Q, ndim
-    st, inp = step_rwalk_state(q, ndim, ncdim, npdim, dtype)
+    st, inp = step_rwalk_state(q, ndim, ncdim, npdim, dtype, masks)
     tb = torch.finfo(dtype).bits // 8
     args = (inp["du"], inp["scale"], inp["u_ex"], *inp["masks"])
-    got = pr.rwalk_propose(st, *args)
-    ref = pr.rwalk_propose_plain(st, *args)
+    draws = (inp["du"], inp["u_ex"])
+    rb_p = step_rwalk_round(st, inp)
+    pr.rwalk_propose(rb_p, *draws)
+    ref = pr.rwalk_propose_plain(_clone(st), *args)
     torch.cuda.synchronize()
     prop = _bit_record("rwalk_propose", (q, ndim), dtype,
-                       zip(("u_prop", "ok"), got, ref))
-    prop["ncdim"] = ncdim
+                       zip(("u_prop", "uclamp", "ok"),
+                           (rb_p.u_prop, rb_p.uclamp, rb_p.ok), ref))
+    prop["ncdim"], prop["masks"] = ncdim, masks
+    if torch.equal(ref[0], ref[1]) and not (masks and ndim == 3):
+        raise RuntimeError(f"the hand-made walk state clamps no point at "
+                           f"ndim {ndim}")
     n_masks = sum(m is not None for m in inp["masks"])
-    _step_time(prop, lambda: pr.rwalk_propose(st, *args),
+    _step_time(prop, lambda: pr.rwalk_propose(rb_p, *draws),
                lambda: pr.rwalk_propose_plain(st, *args),
-               q * ((ncdim + ndim + ndim) * tb + 1) + tb + n_masks * ndim)
+               q * ((ncdim + 3 * ndim) * tb + 1) + tb + n_masks * ndim)
 
-    u_prop, ok = ref
-    acc_args = (u_prop, ok, inp["v_prop"], inp["logl_prop"],
-                inp["loglstar"])
-    st_k, st_p = _clone(st), _clone(st)
-    acc = pr.rwalk_accept(st_k, *acc_args)
-    acc_p = pr.rwalk_accept_plain(st_p, *acc_args)
+    # rwalk_accept on the plain proposal and the raw likelihood values
+    u_prop, _, ok = ref
+    lk = (inp["v_prop"], inp["logl_prop"])
+
+    def accept_round():
+        r = step_rwalk_round(st, inp)
+        r.u_prop.copy_(u_prop)
+        r.ok.copy_(ok)
+        return r
+
+    rb = accept_round()
+    pr.rwalk_accept(rb, *lk)
+    st_p = _clone(st)
+    acc_p = pr.rwalk_accept_plain(st_p, u_prop, ok, *lk, inp["loglstar"])
     torch.cuda.synchronize()
     accr = _bit_record("rwalk_accept", (q, ndim), dtype,
-                       [("accept", acc, acc_p)] +
-                       [(k, st_k[k], st_p[k]) for k in sorted(st)])
-    accr["ncdim"] = ncdim
+                       [("accept", rb.accept, acc_p)] +
+                       [(k, rb.st[k], st_p[k]) for k in sorted(st)])
+    accr["ncdim"], accr["masks"] = ncdim, masks
     if not (bool(ok.any()) and bool((~ok).any()) and bool(acc_p.any()) and
-            bool((ok & ~acc_p).any())):
+            bool((ok & ~acc_p).any()) and
+            bool((~ok & torch.isfinite(inp["logl_prop"])).any())):
         raise RuntimeError(f"the hand-made walk state misses an outcome at "
                            f"ndim {ndim}")
     n_acc = int(acc_p.sum())
-    st_t = _clone(st)
-    _step_time(accr, lambda: pr.rwalk_accept(st_t, *acc_args),
-               lambda: pr.rwalk_accept_plain(dict(st), *acc_args),
+    rb_t = accept_round()
+    _step_time(accr, lambda: pr.rwalk_accept(rb_t, *lk),
+               lambda: pr.rwalk_accept_plain(dict(st), u_prop, ok, *lk,
+                                             inp["loglstar"]),
                q * (tb + 34) + tb + n_acc * (2 * ndim + 2 * npdim + 1) * tb)
-    calls = {"rwalk_propose": lambda: pr.rwalk_propose(st, *args),
-             "rwalk_accept": lambda: pr.rwalk_accept(st_t, *acc_args)}
+    calls = {"rwalk_propose": lambda: pr.rwalk_propose(rb_p, *draws),
+             "rwalk_accept": lambda: pr.rwalk_accept(rb_t, *lk)}
     return [prop, accr], calls
+
+
+def launch_floor():
+    """The empty kernel of ``csrc/rwalk_step.cu`` at ``rwalk_propose``'s
+    grid at the rwalk drive's shape (256 lanes of 16 threads at 15-D: 32
+    blocks of 128), launched through the same ctypes entry and launch
+    path: the floor a launch of these kernels costs on this card.
+    Returns its call and its record, the per-call µs by events (its
+    device-only time comes in the last phase)."""
+    fn = pr._entry("rwalk_step", "rwalk_empty", "f64")
+    table = pr._pointer_table((None,))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    blocks = STEP_Q * 16 // 128
+
+    def call():
+        pr._run(fn, table, (blocks, 0, 0, 0), dev, "rwalk_empty")
+
+    return call, {"blocks": blocks, "us": 1e3 * _time_ms(call, 200)}
 
 
 def main_step(steps, name):
     """The record of kernel ``name`` at its main drive's shape in float64:
-    the slice kernels at 3-D (balls), the walk's at 15-D (rwalk)."""
+    the slice kernels at 3-D (balls), the walk's at 15-D without masks
+    (rwalk)."""
     shape = (STEP_Q, NDIM) if name.startswith("slice") else (STEP_Q, R_NDIM)
     return next(c for c in steps if c["kernel"] == name and
                 c["dtype"] == "float64" and tuple(c["shape"]) == shape and
-                c.get("ncdim", R_NDIM) == R_NDIM)
+                c.get("ncdim", R_NDIM) == R_NDIM and not c.get("masks"))
 
 
 def proposal_steps_phase(card):
@@ -2675,21 +2810,23 @@ def proposal_steps_phase(card):
     kernels' calls at the main drives' shapes (float64: the slice kernels
     at 3-D, the walk's at 15-D)."""
     cases, main_calls = [], {}
-    for loop, ndim, ncdim in STEP_CASES:
+    for loop, ndim, ncdim, masks in STEP_CASES:
         for dtype in (torch.float64, torch.float32):
             if loop == "slice":
                 recs, calls = slice_step_cases(ndim, dtype)
             else:
-                recs, calls = rwalk_step_cases(ndim, ncdim, dtype)
+                recs, calls = rwalk_step_cases(ndim, ncdim, dtype, masks)
             cases += recs
-            if dtype == torch.float64 and (loop, ndim, ncdim) in (
-                    ("slice", NDIM, None), ("rwalk", R_NDIM, R_NDIM)):
+            if dtype == torch.float64 and (loop, ndim, ncdim, masks) in (
+                    ("slice", NDIM, None, None),
+                    ("rwalk", R_NDIM, R_NDIM, False)):
                 main_calls.update(calls)
     for c in cases:
         shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
                            c["outputs"].items())
         print(f"proposal step {c['kernel']} {tuple(c['shape'])}"
               + (f" ncdim {c['ncdim']}" if "ncdim" in c else "") +
+              (" masks" if c.get("masks") else "") +
               f" {c['dtype']}: bit-identical {c['identical']}/"
               f"{c['total']} ({shares})  kernel {c['us']:.2f} us  plain "
               f"{c['plain_us']:.2f} us  bound {c['bound_us']:.5f} us "
@@ -2851,6 +2988,184 @@ def captured_slice_phase(card):
     return {"cases": cases, "timing": timing}, timed
 
 
+# (ndim, ncdim, masks) of the captured-rwalk phase: the rwalk drive's
+# shape, and 12 of its 15 dimensions bounded with periodic, reflective and
+# loose dimensions among them
+RWALK_CAPTURE_CASES = [(R_NDIM, R_NDIM, False), (R_NDIM, 12, True)]
+
+
+def rwalk_capture_loglike(x):
+    """The rwalk drive's 15-D standard normal with the blob ``(logl,
+    v[0])``."""
+    logl = normal_loglike(x)
+    return logl, torch.stack([logl, x[0]])
+
+
+def _rwalk_capture_like(eager, dtype):
+    """The likelihood of the captured-rwalk phase; ``eager``: one that the
+    capture rule keeps out of a graph, so that its rounds launch every
+    step eagerly through the same two kernels."""
+    from dynesty_tpu_torch.internal.likelihood import LogLikelihood
+    like = LogLikelihood(rwalk_capture_loglike, box_ptform, R_NDIM,
+                         device="cuda", blob=True, dtype=dtype)
+    if eager:
+        like.capturable = lambda: False
+    like.eval_host(np.full((2, R_NDIM), 0.5))
+    return like
+
+
+def _rwalk_mask_kw(ndim, masks):
+    if not masks:
+        return {}
+    return {"periodic": [0, ndim - 1], "reflective": [1, ndim - 1],
+            "nonbounded": list(np.arange(ndim) % 3 != 2)}
+
+
+def _capture_walks(like, q, ncdim, masks, dtype, seeds, cache, timings):
+    """``len(seeds)`` walk rounds of ``q`` lanes on one round cache: starts
+    across the cube (steps leave it), a threshold at the starts' 30 %
+    quantile.  Returns each round's packed columns, blob and generator
+    offset."""
+    from dynesty_tpu_torch.internal import kernels as tk
+    fn = tk.make_rwalk_round(like, ndim=R_NDIM, ncdim=ncdim, q=q,
+                             walks=R_NDIM + 20, dtype=dtype, device="cuda",
+                             timings=timings, rounds=cache,
+                             **_rwalk_mask_kw(R_NDIM, masks))
+    outs = []
+    for seed in seeds:
+        rs = np.random.Generator(np.random.PCG64(seed))
+        u = rs.uniform(0.02, 0.98, (q, R_NDIM))
+        v, logl, blob = like.eval_host(u)
+        axes = 0.05 * (np.eye(ncdim) + 0.2 * rs.standard_normal(
+            (q, ncdim, ncdim)))
+        packed = torch.as_tensor(np.concatenate(
+            [u, v, logl[:, None], axes.reshape(q, -1)], axis=1),
+            dtype=dtype, device="cuda")
+        start_blob = torch.as_tensor(np.asarray(blob), device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        out, out_blob = fn(gen, packed, start_blob, 1.0,
+                           float(np.quantile(logl, 0.3)))
+        torch.cuda.synchronize()
+        outs.append((out, out_blob, gen.get_offset()))
+    return outs
+
+
+def _propose_round_pair(dyt):
+    """One non-fused ``propose_round`` (the round of batch seeding) on the
+    card, captured against eager: two samplers over the 15-D normal, one
+    whose likelihood the capture rule keeps out, run alike to 3,000
+    iterations (their records bit for bit), then three rounds of 32 lanes
+    each from the same threshold and generator seeds."""
+    out = {}
+    samplers = []
+    for eager in (False, True):
+        s = dyt.NestedSampler(normal_loglike, box_ptform, R_NDIM, nlive=500,
+                              queue_size=64,
+                              rstate=np.random.Generator(np.random.PCG64(SEED)))
+        if eager:
+            s.loglikelihood.capturable = lambda: False
+        s.run_nested(print_progress=False, maxiter=3000, add_live=False)
+        if s.internal_sampler.name != "rwalk":
+            raise RuntimeError(f"the propose_round sampler runs "
+                               f"{s.internal_sampler.name}, not rwalk")
+        samplers.append(s)
+    res = [s.results for s in samplers]
+    out["runs_same"] = all(
+        _same_bits(np.asarray(getattr(res[0], k)),
+                   np.asarray(getattr(res[1], k))).all()
+        for k in ("logl", "samples_u", "samples"))
+    loglstar = float(np.quantile(samplers[0].live_logl, 0.2))
+    rows = []
+    for s in samplers:
+        t0 = {k: s.timings.get(k, 0) for k in CAPTURE_COUNTS}
+        got = []
+        for seed in (SEED, SEED + 1, SEED + 2):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            r, tuning = s.internal_sampler.propose_round(s, loglstar, 32, gen)
+            got.append((np.array([[*x["u"], *x["v"], x["logl"], x["nc"],
+                                   x["proposal_stats"]["n_accept"]]
+                                  for x in r]), tuning, gen.get_offset()))
+        rows.append(got)
+        out["eager" if s is samplers[1] else "captured"] = {
+            k: s.timings.get(k, 0) - t0[k] for k in CAPTURE_COUNTS}
+    out["rounds_same"] = sum(
+        int(_same_bits(a[0], b[0]).all() and a[1] == b[1] and a[2] == b[2])
+        for a, b in zip(*rows))
+    return out
+
+
+def captured_rwalk_phase(card, dyt):
+    """Captured random-walk rounds against eager-launched rounds on the
+    same inputs: float64 and float32, the main width (256) and the narrow
+    width (32), the rwalk drive's shape and 12 of 15 dimensions bounded
+    with masks, three rounds each on one round cache (the first warms up,
+    the second captures and replays, the third replays), with a blob:
+    every column, the blob and the generator's offset bit for bit.  Then
+    the non-fused ``propose_round`` (:func:`_propose_round_pair`).
+    Returns the records."""
+    from dynesty_tpu_torch.utils.misc import Timings
+    cases = []
+    seeds = (SEED, SEED + 1, SEED + 2)
+    for dtype in (torch.float64, torch.float32):
+        for q in (STEP_Q, 32):
+            for ndim, ncdim, masks in RWALK_CAPTURE_CASES:
+                tg, te = Timings(), Timings()
+                got = _capture_walks(_rwalk_capture_like(False, dtype), q,
+                                     ncdim, masks, dtype, seeds, {}, tg)
+                ref = _capture_walks(_rwalk_capture_like(True, dtype), q,
+                                     ncdim, masks, dtype, seeds, {}, te)
+                same = {"packed": 0, "blob": 0, "offset": 0}
+                moved = 0
+                for (p, b, off), (pe, be, offe) in zip(got, ref):
+                    same["packed"] += int(_same_bits(
+                        p.cpu().numpy(), pe.cpu().numpy()).all())
+                    same["blob"] += int(_same_bits(
+                        b.cpu().numpy(), be.cpu().numpy()).all())
+                    same["offset"] += int(off == offe)
+                    n_acc = int(pe[:, 2 * ndim + 1].sum())
+                    moved += int(0 < n_acc < q * (R_NDIM + 20))
+                rec = {"q": q, "ndim": ndim, "ncdim": ncdim, "masks": masks,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "rounds": len(seeds), "same": same,
+                       "moved_and_rejected": moved,
+                       "n_rwalk_replay": tg.get("n_rwalk_replay", 0),
+                       "n_rwalk_graph": tg.get("n_rwalk_graph", 0),
+                       "n_uncaptured": tg.get("n_uncaptured", 0),
+                       "eager_uncaptured": te.get("n_uncaptured", 0)}
+                cases.append(rec)
+                ok = (all(v == len(seeds) for v in same.values()) and
+                      moved == len(seeds) and rec["n_rwalk_graph"] == 1 and
+                      rec["n_uncaptured"] == 1 and
+                      rec["n_rwalk_replay"] == len(seeds) - 1 and
+                      rec["eager_uncaptured"] == len(seeds))
+                if not ok:
+                    raise RuntimeError(f"a captured walk round differs from "
+                                       f"the eager-launched one: {rec}")
+                print(f"captured-rwalk q {q} ({ndim}, {ncdim})"
+                      f"{' masks' if masks else ''} {rec['dtype']}: "
+                      f"{len(seeds)} rounds bit-identical (columns, blob, "
+                      f"generator offset), replays {rec['n_rwalk_replay']} + "
+                      f"warm-up 1  [{card}]")
+    pair = _propose_round_pair(dyt)
+    ok = (pair["runs_same"] and pair["rounds_same"] == 3 and
+          pair["captured"]["n_rwalk_replay"] == 2 and
+          pair["captured"]["n_rwalk_graph"] == 1 and
+          pair["captured"]["n_uncaptured"] == 1 and
+          pair["eager"]["n_uncaptured"] == 3)
+    if not ok:
+        raise RuntimeError(f"the non-fused rwalk round differs from its eager "
+                           f"form: {pair}")
+    print(f"captured-rwalk propose_round q 32: 3 rounds bit-identical to the "
+          f"eager sampler's (rows, tuning, generator offset), the two runs "
+          f"before them bit-identical, replays "
+          f"{pair['captured']['n_rwalk_replay']} + warm-up 1  [{card}]")
+    print(json.dumps({"phase": "captured-rwalk", "card": card,
+                      "cases": cases, "propose_round": pair}))
+    return {"cases": cases, "propose_round": pair}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
@@ -2908,11 +3223,18 @@ def main():
     consume, consume_calls = consume_phase(card)
 
     # phase 2c: the proposal loops' per-step kernels against their plain
-    # versions, output by output
+    # versions, output by output, and the floor of a launch
     steps, step_calls = proposal_steps_phase(card)
+    floor_call, floor = launch_floor()
+    print(f"launch floor: an empty kernel of one block through the step "
+          f"kernels' entry path {floor['us']:.2f} us per call (events, back "
+          f"to back)  [{card}]")
 
     # phase 2d: captured slice rounds against eager-launched rounds
     captured, captured_graph = captured_slice_phase(card)
+
+    # phase 2e: captured walk rounds against eager-launched rounds
+    captured_rwalk = captured_rwalk_phase(card, dyt)
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -3006,16 +3328,21 @@ def main():
     print(f"  walks {rwalk['config']['walks']}  accept fraction "
           f"{rwalk['accept_fraction']:.4f}")
     # the parts of one of its rounds, timed before the profiler has run
-    rwalk.update(rwalk_round_times(dyt))
-    rounds = rwalk["niter"] / rwalk["config"]["queue_size"]
+    times, rwalk_entry = rwalk_round_times(dyt)
+    rwalk.update(times)
+    rounds = rwalk["launches"]["rwalk_rounds"]
     print(f"rwalk drive, per round of {rwalk['config']['queue_size']} lanes "
-          f"(events, host-paced): {rwalk['config']['walks']} walk steps "
-          f"{rwalk['rwalk_round_ms']:.1f} ms (one likelihood call "
-          f"{rwalk['likelihood_call_ms']:.3f} ms), thin consume "
-          f"{rwalk['consume_round_ms']:.1f} ms; x {rounds:.0f} rounds = "
-          f"{rounds * rwalk['rwalk_round_ms'] / 1e3:.2f} s + "
-          f"{rounds * rwalk['consume_round_ms'] / 1e3:.2f} s of the drive's "
-          f"{rwalk['timings']['dispatch']:.2f} s dispatch  [{card}]")
+          f"(events, back to back): {rwalk['config']['walks']} walk steps "
+          f"eager {rwalk['rwalk_round_ms']:.2f} ms, replayed "
+          f"{rwalk['replay_round_ms']:.2f} ms (the replay alone "
+          f"{rwalk['replay_events_ms']:.3f} ms; one likelihood call "
+          f"{rwalk['likelihood_call_ms']:.3f} ms); host clock with its "
+          f"wait: eager {rwalk['eager_round_host_ms']:.2f} ms, replayed "
+          f"{rwalk['replay_round_host_ms']:.2f} ms; thin consume "
+          f"{rwalk['consume_round_ms']:.2f} ms; x {rounds} walk rounds = "
+          f"{rounds * rwalk['replay_round_ms'] / 1e3:.3f} s replayed "
+          f"(eager {rounds * rwalk['rwalk_round_ms'] / 1e3:.3f} s) of the "
+          f"drive's {rwalk['timings']['dispatch']:.3f} s dispatch  [{card}]")
 
     # phase 10: slice over RadFriends: the slice drive's refits reach the
     # exact L2 path
@@ -3212,6 +3539,17 @@ def main():
               f"only: kernel {rec['device_us']:.3f} us  events (through "
               f"the wrapper) {rec['us']:.2f} us  bound "
               f"{rec['bound_us']:.5f} us  [{card}]")
+    floor["device_us"] = 1e3 * _device_ms(floor_call)
+    print(f"launch floor ({floor['blocks']} empty blocks) device only: "
+          f"{floor['device_us']:.3f} us  events {floor['us']:.2f} us  "
+          f"[{card}]")
+    rwalk["replay_device_ms"] = _device_ms(rwalk_entry.graph.replay, 5)
+    print(f"captured-rwalk replay (256, 15) float64 device only: "
+          f"{rwalk['replay_device_ms']:.3f} ms (every kernel of "
+          f"{rwalk['config']['walks']} steps, the likelihood's included); "
+          f"the whole round by events {rwalk['replay_round_ms']:.3f} ms, "
+          f"host with its wait {rwalk['replay_round_host_ms']:.3f} ms, "
+          f"eager {rwalk['eager_round_host_ms']:.3f} ms  [{card}]")
     ct = captured["timing"]
     ct["replay_device_us"] = 1e3 * _device_ms(captured_graph.graph.replay)
     ev = {k: main_step(steps, k)["us"] for k in ("slice_propose",
@@ -3307,8 +3645,13 @@ def main():
                 "library_ms": None,
                 "library_note": "no one PyTorch call computes this step",
                 "shape": rec["shape"], "dtype": "float64",
+                "device_ms": rec["device_us"] / 1e3,
+                "launch_floor_ms": floor["device_us"] / 1e3,
                 **({"captured_iteration": captured["timing"]} if slice_
-                   else {})}
+                   else {"captured_walk": {k: rwalk[k] for k in (
+                       "rwalk_round_ms", "replay_round_ms",
+                       "eager_round_host_ms", "replay_round_host_ms",
+                       "replay_events_ms", "replay_device_ms")}})}
 
     def round_at(nlive, mode, path):
         return next(t for t in consume["times"] if (
@@ -3383,6 +3726,8 @@ def main():
                        "consume_by_drive": consume_by_drive,
                        "proposal_steps": steps,
                        "captured_slice": captured,
+                       "captured_rwalk": captured_rwalk,
+                       "launch_floor": floor,
                        "proposal_steps_by_drive": steps_by_drive,
                        "build_seconds": {k: build.build_log[k]["seconds"]
                                          for k in libs}},

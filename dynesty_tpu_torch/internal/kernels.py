@@ -27,9 +27,10 @@ that reads its condition from the device once per iteration; each read is
 counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).  The
 slice state machine's and the random walk's per-step updates around each
 likelihood call are the kernels of ``ops/proposals.py`` on the card.  With
-a likelihood on the card the state machine's iteration is captured once
-per round shape as a CUDA graph and replayed (:class:`SliceGraph`), as
-the JAX package traces its loop body once.
+a likelihood on the card the state machine's iteration and the random
+walk's whole walk are captured once per round shape as CUDA graphs and
+replayed (:class:`SliceGraph`, :class:`RWalkGraph`), as the JAX package
+traces its loop bodies once.
 Random numbers come from one explicit ``torch.Generator`` per round, drawn
 in a fixed order and in the kernel's dtype, so a seed reproduces the round.
 """
@@ -41,12 +42,13 @@ import numpy as np
 import torch
 
 from ..ops.geometry import randsphere_batch, unitcheck_batch
-from ..ops.proposals import (SliceRound, rwalk_accept, rwalk_init,
+from ..ops.proposals import (RWalkRound, SliceRound, rwalk_accept,
                              rwalk_propose, slice_advance, slice_propose)
 from ..utils.misc import blob_where, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
            "make_ellipsoid_refit", "make_rwalk_round", "rwalk_walk",
+           "RWalkGraph", "rwalk_graph",
            "make_slice_round", "slice_state_machine", "SliceGraph",
            "slice_graph", "slice_directions",
            "doubling_accept", "pad_ellipsoids"]
@@ -397,42 +399,262 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
 
 
 # ==========================================================================
+# round buffers captured as CUDA graphs (SliceGraph, RWalkGraph)
+
+
+class _RoundGraph:
+    """What :class:`SliceGraph` and :class:`RWalkGraph` share: the
+    likelihood, the round's buffers ``rb``, the blob buffers, and on the
+    card, for a likelihood the capture rule allows, a side stream and,
+    once captured, the graph and the generator it draws from."""
+
+    def __init__(self, like, rb):
+        self.like, self.rb = like, rb
+        self.blob = None
+        self.graph = self.gen = None
+        # False for good once a capture has raised (the rounds run eagerly)
+        self.capturable = rb.device.type == "cuda" and like.capturable()
+        self.stream = torch.cuda.Stream(rb.device) if self.capturable \
+            else None
+
+    def load_blob(self, start_blob):
+        """The round's blob buffers, holding ``start_blob``."""
+        if start_blob is None:
+            return None
+        if self.blob is None:
+            self.blob = tree_map(lambda b: torch.empty_like(
+                b, memory_format=torch.contiguous_format), start_blob)
+        tree_map(lambda b, s: b.copy_(s), self.blob, start_blob)
+        return self.blob
+
+    def select_blob(self, acc, blob_x):
+        """Take ``blob_x`` into the round's blob buffers where ``acc``."""
+        if self.blob is not None:
+            tree_map(lambda b, n: torch.where(
+                acc.reshape(acc.shape + (1,) * (b.dim() - 1)), n, b, out=b),
+                self.blob, blob_x)
+
+    def on_side_stream(self, fn):
+        """Run ``fn`` on the side stream, ordered after and before the
+        current stream's work (the warm-up before a capture)."""
+        main = torch.cuda.current_stream(self.rb.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            fn()
+        main.wait_stream(self.stream)
+
+    def _capture(self, body, wrappers, what, shape):
+        """Capture ``body(gen)`` on the side stream as a CUDA graph that
+        draws from a generator of its own; True when it was captured.  A
+        capture runs nothing, so what it counted (``ncall_launched``, the
+        ``wrappers``' launches) is put back.  A capture that raises leaves
+        the round shape eager (warned once, naming the error)."""
+        rb, like = self.rb, self.like
+        graph = torch.cuda.CUDAGraph()
+        gen = torch.Generator(device=rb.device)
+        saved = (like.ncall_launched, [w.launches for w in wrappers])
+        main = torch.cuda.current_stream(rb.device)
+        self.stream.wait_stream(main)
+        try:
+            graph.register_generator_state(gen)
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    body(gen)
+                finally:
+                    graph.capture_end()
+        except Exception as err:  # noqa: BLE001 - reported, then eager
+            self.capturable = False
+            warnings.warn(
+                f"{what} could not be captured as a CUDA graph "
+                f"({type(err).__name__}: {err}); rounds of shape {shape} "
+                f"run eagerly", RuntimeWarning)
+            return False
+        finally:
+            like.ncall_launched = saved[0]
+            for w, n in zip(wrappers, saved[1]):
+                w.launches = n
+            main.wait_stream(self.stream)
+        self.graph, self.gen = graph, gen
+        return True
+
+
+# ==========================================================================
 # random-walk kernel
 
 
+class RWalkGraph(_RoundGraph):
+    """One round shape of the random walk on one device: its
+    :class:`~dynesty_tpu_torch.ops.proposals.RWalkRound` buffers, its blob
+    buffers, and on the card, for a likelihood that
+    :meth:`~.likelihood.LogLikelihood.capturable` allows, one whole walk
+    of ``walks`` steps captured as a CUDA graph (each step's draws, the
+    axes ``einsum``, ``rwalk_propose``, the batched likelihood,
+    ``rwalk_accept``, the blob select) with the generator it draws from.
+    The walk has a fixed length, so a replay reads nothing back.  A
+    sampler keeps one per round shape (:func:`rwalk_graph`); it is never
+    pickled and goes with the sampler."""
+
+    def __init__(self, like, rb, walks):
+        super().__init__(like, rb)
+        self.walks = walks
+        # the first round of the shape ran eagerly, as the capture's
+        # warm-up
+        self.warm = False
+
+    def draws(self, gen):
+        """``draw(step) -> (dr, u_ex)`` from ``gen``: the unit-ball draws
+        of the lanes, then the extra dimensions' uniforms (None when
+        ``ncdim == ndim``), as the eager round drew them."""
+        rb = self.rb
+        n_extra = rb.ndim - rb.ncdim
+
+        def draw(step):
+            dr = randsphere_batch(gen, (rb.q,), rb.ncdim, rb.dtype,
+                                  rb.device)
+            u_ex = torch.rand((rb.q, n_extra), generator=gen,
+                              dtype=rb.dtype, device=rb.device) \
+                if n_extra > 0 else None
+            return dr, u_ex
+
+        return draw
+
+    def step(self, draw, i):
+        """Step ``i`` on the round's buffers, on the current stream: the
+        draws, the product with the lanes' axes, the two kernels around
+        the likelihood at the clamped proposals and the blob select.  The
+        draws and the likelihood's outputs are checked at step 0."""
+        rb = self.rb
+        dr, u_ex = draw(i)
+        du = torch.einsum("qij,qj->qi", rb.axes, dr)
+        if i == 0 and rb.device.type == "cuda":
+            rb.check_draws(du, u_ex)
+        rwalk_propose(rb, du, u_ex)
+        v_prop, logl_prop, blob_prop = self.like.batch_eval(rb.uclamp,
+                                                            mask=rb.ok)
+        # the round's dtype, in the layout the kernel reads
+        v_prop = v_prop.to(rb.dtype).contiguous()
+        logl_prop = logl_prop.to(rb.dtype).contiguous()
+        if i == 0 and rb.device.type == "cuda":
+            rb.check_likelihood(v_prop, logl_prop)
+        rwalk_accept(rb, v_prop, logl_prop)
+        self.select_blob(rb.accept, blob_prop)
+
+    def walk(self, draw):
+        """The round's ``walks`` steps (:meth:`step`)."""
+        for i in range(self.walks):
+            self.step(draw, i)
+
+    def capture(self):
+        """Capture one walk on the side stream; True when it was
+        captured.  A capture that raises leaves the round shape eager
+        (warned once, naming the error) and every count as it was."""
+        rb = self.rb
+        return self._capture(lambda gen: self.walk(self.draws(gen)),
+                             (rwalk_propose, rwalk_accept),
+                             "the random walk's round",
+                             (rb.q, self.walks, rb.ndim))
+
+    def replay(self, gen):
+        """One walk by replay, on the current stream, drawing from
+        ``gen``'s stream where the eager walk would: the graph's
+        generator takes ``gen``'s seed and offset before and gives the
+        offset back after.  Waits for nothing."""
+        self.gen.manual_seed(gen.initial_seed())
+        self.gen.set_offset(gen.get_offset())
+        self.graph.replay()
+        gen.set_offset(self.gen.get_offset())
+        # the replay ran the kernels and the likelihood without Python
+        self.like.ncall_launched += self.rb.q * self.walks
+        rwalk_propose.launches += self.walks
+        rwalk_accept.launches += self.walks
+
+
+def _mask_key(m):
+    """A bool mask (on the host) as part of a round shape's key."""
+    return None if m is None else tuple(m.tolist())
+
+
+def rwalk_graph(rounds, like, q, walks, ndim, axes, dtype, device,
+                periodic=None, reflective=None, nonbounded=None):
+    """The :class:`RWalkGraph` of this round shape from the cache
+    ``rounds`` (a dict a sampler keeps; None: a new one, kept nowhere).
+    The shape includes the masks (read on the host: give them there) and
+    the layout of ``axes`` (:class:`RWalkRound`'s ``axes_layout``)."""
+    ncdim = axes.shape[-1]
+    layout = (axes.stride(), axes.storage_offset())
+    key = ("rwalk", q, walks, ndim, ncdim, like.npdim, dtype, str(device),
+           layout) + tuple(_mask_key(m) for m in (periodic, reflective,
+                                                  nonbounded))
+    entry = None if rounds is None else rounds.get(key)
+    if entry is None or entry.like is not like:
+        entry = RWalkGraph(like, RWalkRound(
+            q, ndim, ncdim, like.npdim, dtype, device, periodic, reflective,
+            nonbounded, axes_layout=layout), walks)
+        if rounds is not None:
+            rounds[key] = entry
+    return entry
+
+
 def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, blob=None, *,
-               walks, periodic=None, reflective=None, nonbounded=None):
+               walks, periodic=None, reflective=None, nonbounded=None,
+               timings=None, rounds=None):
     """``walks`` random-walk steps of every lane from ``u, v, logl``
     (q lanes, their blobs ``blob``): each proposes ``u[:, :ncdim] + axes
     @ dr * scale`` (``axes`` (q, ncdim, ncdim)) with the uniform draws
-    ``u_ex`` in the other dimensions, where ``draw(step) -> (dr, u_ex)``
-    (``u_ex`` None when ``ncdim == ndim``), and moves where the proposal
-    is in the cube and above ``loglstar``.  The per-step updates are the
-    kernels of ``ops/proposals.py`` on the card.  Returns ``(state,
-    blob)``, the state ``u, v, logl, n_acc, n_rej``."""
-    st = rwalk_init(u, v, logl)
-    # what the eager ops compare and multiply in, made once a round
-    loglstar = torch.as_tensor(loglstar, dtype=u.dtype, device=u.device)
-    scale = torch.as_tensor(scale, dtype=u.dtype, device=u.device)
-    for step in range(walks):
-        dr, u_ex = draw(step)
-        du = torch.einsum("qij,qj->qi", axes, dr)
-        u_prop, ok = rwalk_propose(st, du, scale, u_ex, periodic, reflective,
-                                   nonbounded)
-        v_prop, logl_prop, blob_prop = _masked_eval(like, u_prop, ok)
-        accept = rwalk_accept(st, u_prop, ok, v_prop, logl_prop, loglstar)
-        blob = blob_where(accept, blob_prop, blob)
-    return st, blob
+    ``u_ex`` in the other dimensions, and moves where the proposal is in
+    the cube and above ``loglstar``.  ``draw`` is the round's
+    ``torch.Generator`` (:meth:`RWalkGraph.draws`) or a function
+    ``draw(step) -> (dr, u_ex)`` (``u_ex`` None when ``ncdim == ndim``;
+    the tests feed the JAX package's draws).  The per-step updates are
+    the kernels of ``ops/proposals.py`` on the card.
+
+    On the card, with a generator and a likelihood that may be captured
+    (:func:`~.likelihood.graph_capturable`), the walk runs as one CUDA
+    graph replay (``n_rwalk_replay``): the first round of a shape runs
+    eagerly on a side stream as the capture's warm-up, the next captures
+    the walk (``n_rwalk_graph``); a round that replays nothing counts
+    ``n_uncaptured``.  ``rounds`` is the sampler's cache of round shapes
+    (:func:`rwalk_graph`).  Returns ``(state, blob)``, copies of the
+    round's buffers (the next round of the shape refills them): the state
+    ``u, v, logl, n_acc, n_rej`` and the blob."""
+    q, ndim = u.shape
+    entry = rwalk_graph(rounds, like, q, walks, ndim, axes, u.dtype,
+                        u.device, periodic, reflective, nonbounded)
+    rb = entry.rb
+    st = rb.start(u, v, logl, axes, scale, loglstar)
+    blob = entry.load_blob(blob)
+    gen = draw if isinstance(draw, torch.Generator) else None
+    use_graph = gen is not None and entry.capturable
+    if use_graph and entry.graph is None and entry.warm:
+        use_graph = entry.capture()
+        if use_graph:
+            _count(timings, "n_rwalk_graph")
+    if use_graph and entry.graph is not None:
+        entry.replay(gen)
+        _count(timings, "n_rwalk_replay")
+    else:
+        steps = draw if gen is None else entry.draws(gen)
+        if use_graph:
+            entry.on_side_stream(lambda: entry.walk(steps))
+            entry.warm = True
+        else:
+            entry.walk(steps)
+        if rb.device.type == "cuda":
+            _count(timings, "n_uncaptured")
+    return {k: t.clone() for k, t in st.items()}, tree_map(torch.clone, blob)
 
 
 def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
-                     nonbounded=None, periodic=None, reflective=None):
+                     nonbounded=None, periodic=None, reflective=None,
+                     timings=None, rounds=None):
     """Random-walk round: each of the ``q`` lanes makes exactly ``walks``
     proposals inside its scaled ellipsoid (axes per lane, in the first
     ``ncdim`` dimensions; the other dimensions are drawn uniformly),
     accepting moves with ``logl > loglstar``.  Periodic and reflective
     dimensions are wrapped before the cube check.  The loop has a fixed
     length, so the round never reads the device from the host.
+    ``timings`` and ``rounds`` are the sampler's (:func:`rwalk_walk`).
 
     Returns ``fn(gen, packed_in, start_blob, scale, loglstar) -> (packed
     (q, ndim + npdim + 3), blob)`` with columns ``u | v | logl | n_accept
@@ -441,27 +663,21 @@ def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
     accepts keeps its start point."""
     device = torch.device(device)
     npdim = like.npdim
-    nb = _bool_mask(nonbounded, device)
-    pm = _mask_from_indices(periodic, ndim, device)
-    rm = _mask_from_indices(reflective, ndim, device)
-    n_extra = ndim - ncdim
+    # on the host: the round keys its buffers by them and keeps its own
+    # copy on the card
+    nb = _bool_mask(nonbounded, "cpu")
+    pm = _mask_from_indices(periodic, ndim)
+    rm = _mask_from_indices(reflective, ndim)
 
     def round_fn(gen, packed_in, start_blob, scale, loglstar):
         axes = packed_in[:, ndim + npdim + 1:].reshape(
             q, ncdim, ncdim).to(dtype)
-
-        def draw(step):
-            dr = randsphere_batch(gen, (q,), ncdim, dtype, device)
-            u_ex = torch.rand((q, n_extra), generator=gen, dtype=dtype,
-                              device=device) if n_extra > 0 else None
-            return dr, u_ex
-
         st, blob = rwalk_walk(
             like, packed_in[:, :ndim].to(dtype),
             packed_in[:, ndim:ndim + npdim].to(dtype),
-            packed_in[:, ndim + npdim].to(dtype), axes, scale, loglstar,
-            draw, start_blob, walks=walks, periodic=pm, reflective=rm,
-            nonbounded=nb)
+            packed_in[:, ndim + npdim].to(dtype), axes, scale, loglstar, gen,
+            start_blob, walks=walks, periodic=pm, reflective=rm,
+            nonbounded=nb, timings=timings, rounds=rounds)
         return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
                             st["n_acc"], st["n_rej"], device=device), blob
 
@@ -535,7 +751,7 @@ def doubling_accept(feval, x1, loglstar, left, right, f_left, f_right,
     return ~reject, nc
 
 
-class SliceGraph:
+class SliceGraph(_RoundGraph):
     """One round shape of the stepping-out state machine on one device:
     its :class:`~dynesty_tpu_torch.ops.proposals.SliceRound` buffers, its
     blob buffers, and on the card, for a likelihood that
@@ -547,23 +763,8 @@ class SliceGraph:
     and goes with the sampler."""
 
     def __init__(self, like, rb):
-        self.like, self.rb = like, rb
-        self.blob = None
-        self.graph = self.gen = self.flag = None
-        # False for good once a capture has raised (the rounds run eagerly)
-        self.capturable = rb.device.type == "cuda" and like.capturable()
-        self.stream = torch.cuda.Stream(rb.device) if self.capturable \
-            else None
-
-    def load_blob(self, start_blob):
-        """The round's blob buffers, holding ``start_blob``."""
-        if start_blob is None:
-            return None
-        if self.blob is None:
-            self.blob = tree_map(lambda b: torch.empty_like(
-                b, memory_format=torch.contiguous_format), start_blob)
-        tree_map(lambda b, s: b.copy_(s), self.blob, start_blob)
-        return self.blob
+        super().__init__(like, rb)
+        self.flag = None
 
     def iterate(self, fill_draws):
         """One iteration on the round's buffers: ``fill_draws()`` fills
@@ -579,47 +780,25 @@ class SliceGraph:
         if rb.device.type == "cuda":
             rb.check_likelihood(v_x, logl_x)
         slice_advance(rb, v_x, logl_x)
-        if self.blob is not None:
-            tree_map(lambda b, n: torch.where(
-                rb.acc.reshape(rb.acc.shape + (1,) * (b.dim() - 1)), n, b,
-                out=b), self.blob, blob_x)
+        self.select_blob(rb.acc, blob_x)
 
     def capture(self):
         """Capture one iteration on the side stream; True when it was
         captured.  A capture that raises leaves the round shape eager
         (warned once, naming the error) and every count as it was."""
-        rb, like = self.rb, self.like
-        graph = torch.cuda.CUDAGraph()
-        gen = torch.Generator(device=rb.device)
+        rb = self.rb
         flag = torch.empty((), dtype=torch.bool, pin_memory=True)
-        saved = (like.ncall_launched, slice_propose.launches,
-                 slice_advance.launches)
-        main = torch.cuda.current_stream(rb.device)
-        self.stream.wait_stream(main)
-        try:
-            graph.register_generator_state(gen)
-            with torch.cuda.stream(self.stream):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.iterate(lambda: rb.draws.uniform_(generator=gen))
-                    flag.copy_(rb.st["any_active"], non_blocking=True)
-                finally:
-                    graph.capture_end()
-        except Exception as err:  # noqa: BLE001 - reported, then eager
-            self.capturable = False
-            warnings.warn(
-                f"the slice state machine's iteration could not be captured "
-                f"as a CUDA graph ({type(err).__name__}: {err}); rounds of "
-                f"shape {(rb.q, rb.n_steps, rb.ndim)} run eagerly",
-                RuntimeWarning)
+
+        def body(gen):
+            self.iterate(lambda: rb.draws.uniform_(generator=gen))
+            flag.copy_(rb.st["any_active"], non_blocking=True)
+
+        if not self._capture(body, (slice_propose, slice_advance),
+                             "the slice state machine's iteration",
+                             (rb.q, rb.n_steps, rb.ndim)):
             return False
-        finally:
-            # a capture runs nothing: what it counted never happened
-            like.ncall_launched, slice_propose.launches, \
-                slice_advance.launches = saved
-            main.wait_stream(self.stream)
         # the flag read through a numpy view of the pinned tensor
-        self.graph, self.gen, self.flag = graph, gen, (flag, flag.numpy())
+        self.flag = (flag, flag.numpy())
         return True
 
     def replay(self):
@@ -638,7 +817,7 @@ def slice_graph(rounds, like, q, n_steps, ndim, dtype, device, strict=None):
     """The :class:`SliceGraph` of this round shape from the cache
     ``rounds`` (a dict a sampler keeps; None: a new one, kept nowhere)."""
     key = (q, n_steps, ndim, like.npdim, dtype, str(device),
-           None if strict is None else tuple(strict.tolist()))
+           _mask_key(strict))
     entry = None if rounds is None else rounds.get(key)
     if entry is None or entry.like is not like:
         entry = SliceGraph(like, SliceRound(q, n_steps, ndim, like.npdim,
@@ -705,11 +884,7 @@ def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
         elif use_graph:
             # the warm-up: the first iteration of a new round shape, on a
             # side stream, before its capture
-            main = torch.cuda.current_stream(rb.device)
-            entry.stream.wait_stream(main)
-            with torch.cuda.stream(entry.stream):
-                entry.iterate(fill)
-            main.wait_stream(entry.stream)
+            entry.on_side_stream(lambda: entry.iterate(fill))
         else:
             entry.iterate(fill if gen is not None else
                           lambda: rb.draws.copy_(draw(it)))

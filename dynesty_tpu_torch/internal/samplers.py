@@ -49,8 +49,9 @@ class InternalSampler:
             k: kwargs.get(k)
             for k in ("nonbounded", "periodic", "reflective", "nonperiodic")}
         self._round_cache = {}
-        # the slice state machine's buffers and CUDA graphs by round shape
-        # (kernels.slice_graph), never pickled
+        # the slice state machine's and the random walk's buffers and CUDA
+        # graphs by round shape (kernels.slice_graph, kernels.rwalk_graph:
+        # its keys start with "rwalk"), never pickled
         self._slice_rounds = {}
 
     def _new_from_template(self, template_kwargs):
@@ -527,7 +528,8 @@ class RWalkSampler(InternalSampler):
             nonbounded=self.sampler_kwargs.get("nonbounded"),
             periodic=self.sampler_kwargs.get("periodic"),
             reflective=self.sampler_kwargs.get("reflective"),
-            dtype=ns.dtype, device=ns.device)
+            dtype=ns.dtype, device=ns.device, timings=ns.timings,
+            rounds=self._slice_cache())
 
         def propose(gen, live, live_blob, axes_args, scale, loglstar):
             idxs, starts, axes = select_starts(
@@ -557,7 +559,8 @@ class RWalkSampler(InternalSampler):
                 nonbounded=self.sampler_kwargs.get("nonbounded"),
                 periodic=self.sampler_kwargs.get("periodic"),
                 reflective=self.sampler_kwargs.get("reflective"),
-                dtype=ns.dtype, device=ns.device))
+                dtype=ns.dtype, device=ns.device, timings=ns.timings,
+                rounds=self._slice_cache()))
         rows, extras = _unpack_rows(
             fn(gen, packed_in, start_blob, self.scale, loglstar), self.ndim,
             like.npdim, ("n_accept", "n_reject"),

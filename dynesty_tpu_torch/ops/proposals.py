@@ -15,21 +15,23 @@ are the kernels here:
   the cube, the masks, the interval, the counters, acceptance, the phase
   transitions and the sticky warning), ``csrc/slice_step.cu``;
 * :func:`rwalk_propose` (the step, the extra dimensions, periodic and
-  reflective wrapping, the cube check) and :func:`rwalk_accept`,
-  ``csrc/rwalk_step.cu``.
+  reflective wrapping, the point clamped into the cube and its cube
+  check) and :func:`rwalk_accept` (the likelihood's -inf mask outside the
+  cube, the move, the tallies), ``csrc/rwalk_step.cu``.
 
 Random draws and the matrix products stay torch calls (their Philox
 streams and reduction orders are torch's own).  On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 version, the eager code the kernel is held against bit for bit.
 
-A slice round runs on a :class:`SliceRound`: every tensor an iteration
-touches, allocated, checked and bound to the two kernels' argument tables
-once per round shape, so that a call does only its launch and an
-iteration can be captured as a CUDA graph (``internal/kernels.py``,
-``SliceGraph``).  The walk's state is a dict of tensors
-(:func:`rwalk_init`), its buffers the round's own: the plain version
-rebinds its entries, the kernel writes its tensors in place.
+A slice round runs on a :class:`SliceRound`, a random-walk round on an
+:class:`RWalkRound`: every tensor a step touches, allocated, checked and
+bound to the two kernels' argument tables once per round shape, so that
+a call does only its launch and a step can be captured in a CUDA graph
+(``internal/kernels.py``, ``SliceGraph`` and ``RWalkGraph``).  A round's
+state is a dict of the round's own tensors: the plain version rebinds
+its entries and the wrapper copies them back, the kernel writes them in
+place.
 """
 
 import ctypes
@@ -42,7 +44,7 @@ from .geometry import unitcheck_batch, wrap_boundaries
 
 __all__ = ["SliceRound", "slice_init", "slice_propose",
            "slice_propose_plain", "slice_advance", "slice_advance_plain",
-           "rwalk_init",
+           "RWalkRound", "rwalk_init",
            "rwalk_propose", "rwalk_propose_plain", "rwalk_accept",
            "rwalk_accept_plain", "zero_counts", "WRAPPERS"]
 
@@ -329,14 +331,28 @@ def slice_advance(rb, v_x, logl_x):
 # the random walk
 
 
-def rwalk_init(start_u, start_v, start_logl):
+def _rwalk_state(q, ndim, npdim, dtype, device):
+    """The walk's state tensors for ``q`` lanes, unfilled."""
+    return {"u": torch.empty((q, ndim), dtype=dtype, device=device),
+            "v": torch.empty((q, npdim), dtype=dtype, device=device),
+            "logl": torch.empty((q,), dtype=dtype, device=device),
+            "n_acc": torch.empty((q,), dtype=torch.int64, device=device),
+            "n_rej": torch.empty((q,), dtype=torch.int64, device=device)}
+
+
+def rwalk_init(start_u, start_v, start_logl, rb=None):
     """The walk's state at the start of a round: the start points and
-    zero tallies."""
-    q, device = start_logl.shape[0], start_logl.device
-    return {"u": _fresh(start_u), "v": _fresh(start_v),
-            "logl": _fresh(start_logl),
-            "n_acc": torch.zeros((q,), dtype=torch.int64, device=device),
-            "n_rej": torch.zeros((q,), dtype=torch.int64, device=device)}
+    zero tallies.  With ``rb`` (a :class:`RWalkRound`) the round's own
+    state buffers are filled in place and returned; without, fresh
+    tensors."""
+    q, ndim = start_u.shape
+    st = rb.st if rb is not None else _rwalk_state(
+        q, ndim, start_v.shape[-1], start_logl.dtype, start_logl.device)
+    for k, t in (("u", start_u), ("v", start_v), ("logl", start_logl)):
+        st[k].copy_(t)
+    st["n_acc"].zero_()
+    st["n_rej"].zero_()
+    return st
 
 
 def rwalk_propose_plain(st, du, scale, u_ex=None, periodic=None,
@@ -344,18 +360,23 @@ def rwalk_propose_plain(st, du, scale, u_ex=None, periodic=None,
     """The proposals ``u[:, :ncdim] + du * scale`` (``du`` (q, ncdim) the
     axes times the unit-ball draws), the uniform draws ``u_ex`` appended
     in the other dimensions, wrapped where ``periodic``, reflected where
-    ``reflective``, and their cube check (loosely where ``nonbounded`` is
-    False).  Returns ``(u_prop, ok)``."""
+    ``reflective``, the proposals clamped into the cube (where the
+    likelihood is evaluated), and their cube check (loosely where
+    ``nonbounded`` is False).  Returns ``(u_prop, uclamp, ok)``."""
     u_prop = st["u"][:, :du.shape[1]] + du * scale
     if u_ex is not None:
         u_prop = torch.cat([u_prop, u_ex], dim=1)
     u_prop = wrap_boundaries(u_prop, periodic, reflective)
-    return u_prop, unitcheck_batch(u_prop, nonbounded)
+    return u_prop, u_prop.clamp(0.0, 1.0), unitcheck_batch(u_prop,
+                                                           nonbounded)
 
 
 def rwalk_accept_plain(st, u_prop, ok, v_prop, logl_prop, loglstar):
-    """Move each lane whose proposal is in the cube and above
-    ``loglstar``; tally moves and rejections.  Returns ``accept`` (q,)."""
+    """After the likelihood's ``v_prop`` and raw ``logl_prop`` at the
+    clamped proposals: mask ``logl_prop`` to -inf outside the cube, move
+    each lane whose proposal is in the cube and above ``loglstar``, tally
+    moves and rejections.  Returns ``accept`` (q,)."""
+    logl_prop = torch.where(ok, logl_prop, _NEG_INF)
     accept = ok & (logl_prop > loglstar)
     st["u"] = torch.where(accept[:, None], u_prop, st["u"])
     st["v"] = torch.where(accept[:, None], v_prop, st["v"])
@@ -363,6 +384,171 @@ def rwalk_accept_plain(st, u_prop, ok, v_prop, logl_prop, loglstar):
     st["n_acc"] = st["n_acc"] + accept
     st["n_rej"] = st["n_rej"] + ~accept
     return accept
+
+
+def _strided_empty(shape, stride, offset, dtype, device):
+    """An empty tensor of ``shape`` laid out with ``stride`` at element
+    ``offset`` of its own storage."""
+    n = offset + 1 + sum((s - 1) * st for s, st in zip(shape, stride))
+    return torch.empty((n,), dtype=dtype, device=device).as_strided(
+        shape, stride, offset)
+
+
+class RWalkRound:
+    """Every tensor a step of the random walk touches and that outlives
+    the step, for one round shape ``(q, ndim, ncdim, npdim, dtype)`` on one
+    device: the state (``st``: ``u, v, logl, n_acc, n_rej``), the round's
+    inputs (``axes`` (q, ncdim, ncdim), ``scale`` and ``loglstar`` 0-d,
+    the ``periodic``, ``reflective`` and ``nonbounded`` masks) and a
+    step's outputs (``u_prop``, ``uclamp``, ``ok``, ``accept``).
+
+    ``axes_layout`` (stride, storage offset) lays ``axes`` out as the
+    round's caller lays out its own (a block of the packed start rows),
+    so that the step's ``einsum`` reads the layout it read before the
+    buffers existed, and sums in the order it summed.
+
+    Allocated, checked and, on the card, bound to the two kernels'
+    argument tables once; :meth:`start` loads a round into it,
+    :func:`rwalk_propose` and :func:`rwalk_accept` run a step on it.  The
+    buffers keep their addresses for the object's life, which is what
+    lets a walk be captured as a CUDA graph."""
+
+    def __init__(self, q, ndim, ncdim, npdim, dtype, device, periodic=None,
+                 reflective=None, nonbounded=None, axes_layout=None):
+        fn = "RWalkRound"
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{fn}: no kernel for device {device}")
+        if dtype not in _DTYPES:
+            raise TypeError(f"{fn} takes float64 or float32, got {dtype}")
+        if min(q, ncdim) < 1 or ncdim > ndim or npdim < 0:
+            raise ValueError(f"{fn}: bad shape {(q, ndim, ncdim, npdim)}")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.q, self.ndim, self.ncdim, self.npdim = q, ndim, ncdim, npdim
+        self.dtype, self.device = dtype, device
+
+        def e(shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=device)
+
+        self.st = _rwalk_state(q, ndim, npdim, dtype, device)
+        shape = (q, ncdim, ncdim)
+        self.axes = e(shape) if axes_layout is None else _strided_empty(
+            shape, *axes_layout, dtype, device)
+        self.scale, self.loglstar = e(()), e(())
+        self.u_prop, self.uclamp = e((q, ndim)), e((q, ndim))
+        self.ok, self.accept = e((q,), torch.bool), e((q,), torch.bool)
+        for name, m in (("periodic", periodic), ("reflective", reflective),
+                        ("nonbounded", nonbounded)):
+            if m is not None:
+                if not isinstance(m, torch.Tensor):
+                    raise TypeError(f"{fn}: {name} must be a torch.Tensor")
+                m = _fresh(m.to(device=device, dtype=torch.bool))
+                _check(fn, name, m, (ndim,), torch.bool, device)
+            setattr(self, name, m)
+        self._propose_args = self._accept_args = None
+        if device.type == "cuda":
+            self._bind()
+
+    def start(self, start_u, start_v, start_logl, axes, scale, loglstar):
+        """Load a round: the start state (:func:`rwalk_init`), the lanes'
+        ``axes`` and the step scale and threshold (numbers or 0-d
+        tensors, copied once a round); returns the state."""
+        st = rwalk_init(start_u, start_v, start_logl, rb=self)
+        self.axes.copy_(axes)
+        for buf, x in ((self.scale, scale), (self.loglstar, loglstar)):
+            if isinstance(x, torch.Tensor):
+                buf.copy_(x)
+            else:
+                buf.fill_(float(x))
+        return st
+
+    def _bind(self):
+        """Fill both kernels' argument tables; a step's draws (``du``,
+        ``u_ex``) and the likelihood's two outputs are written into them
+        at each launch."""
+        st = self.st
+        propose = (st["u"], None, self.scale, None, self.periodic,
+                   self.reflective, self.nonbounded, self.u_prop,
+                   self.uclamp, self.ok)
+        accept = (st["u"], st["v"], st["logl"], st["n_acc"], st["n_rej"],
+                  self.accept, self.u_prop, self.ok, None, None,
+                  self.loglstar)
+        self._propose_args = _pointer_table(propose)
+        self._accept_args = _pointer_table(accept)
+        tag = _DTYPES[self.dtype]
+        self._propose_fn = _entry("rwalk_step", "rwalk_propose", tag)
+        self._accept_fn = _entry("rwalk_step", "rwalk_accept", tag)
+
+    def check_draws(self, du, u_ex):
+        """Raise unless a step's draws are what :func:`rwalk_propose`
+        reads: ``du`` (q, ncdim) and ``u_ex`` (q, ndim - ncdim), or None
+        when ncdim == ndim, contiguous tensors of the round's dtype on its
+        device."""
+        q, ndim, ncdim = self.q, self.ndim, self.ncdim
+        if (u_ex is None) != (ncdim == ndim):
+            raise ValueError(f"rwalk_propose: u_ex must be given exactly "
+                             f"when ncdim < ndim ({ncdim} < {ndim})")
+        _check("rwalk_propose", "du", du, (q, ncdim), self.dtype,
+               self.device)
+        if u_ex is not None:
+            _check("rwalk_propose", "u_ex", u_ex, (q, ndim - ncdim),
+                   self.dtype, self.device)
+
+    def check_likelihood(self, v_prop, logl_prop):
+        """Raise unless the likelihood's outputs are what
+        :func:`rwalk_accept` reads: (q, npdim) and (q,) contiguous tensors
+        of the round's dtype on its device."""
+        for name, t, shape in (("v_prop", v_prop, (self.q, self.npdim)),
+                               ("logl_prop", logl_prop, (self.q,))):
+            _check("rwalk_accept", name, t, shape, self.dtype, self.device)
+
+
+def rwalk_propose(rb, du, u_ex=None):
+    """One step's proposal on the round ``rb`` (a :class:`RWalkRound`)
+    from ``du`` (q, ncdim), the lanes' axes times the unit-ball draws, and
+    ``u_ex`` (q, ndim - ncdim), the extra dimensions' uniform draws (None
+    when ncdim == ndim): :func:`rwalk_propose_plain` on the CPU (its
+    outputs copied into the round's buffers), on the card the
+    ``rwalk_propose`` kernel of ``csrc/rwalk_step.cu``, which takes the
+    draws as they are (:meth:`RWalkRound.check_draws` holds them once a
+    round).  Reads ``rb.st["u"]``, ``rb.scale`` and the masks; writes
+    ``rb.u_prop``, ``rb.uclamp`` and ``rb.ok``."""
+    if rb.device.type == "cpu":
+        outs = rwalk_propose_plain(rb.st, du, rb.scale, u_ex, rb.periodic,
+                                   rb.reflective, rb.nonbounded)
+        for buf, t in zip((rb.u_prop, rb.uclamp, rb.ok), outs):
+            buf.copy_(t)
+        return
+    table = rb._propose_args
+    table[1] = du.data_ptr()
+    table[3] = None if u_ex is None else u_ex.data_ptr()
+    _run(rb._propose_fn, table, (rb.q, rb.ndim, rb.ncdim, 0), rb.device,
+         "rwalk_propose")
+    rwalk_propose.launches += 1
+
+
+def rwalk_accept(rb, v_prop, logl_prop):
+    """One step's update of the round ``rb`` after the likelihood's
+    ``v_prop`` (q, npdim) and raw ``logl_prop`` (q,) at ``rb.uclamp`` (in
+    the round's dtype): :func:`rwalk_accept_plain` on the CPU (the state
+    copied back into the round's buffers), on the card the
+    ``rwalk_accept`` kernel of ``csrc/rwalk_step.cu``, which masks
+    ``logl_prop`` outside ``rb.ok`` and updates the state in place.  Reads
+    ``rb.u_prop``, ``rb.ok`` and ``rb.loglstar``; writes ``rb.accept``."""
+    if rb.device.type == "cpu":
+        st = dict(rb.st)
+        acc = rwalk_accept_plain(st, rb.u_prop, rb.ok, v_prop, logl_prop,
+                                 rb.loglstar)
+        for k, buf in rb.st.items():
+            buf.copy_(st[k])
+        rb.accept.copy_(acc)
+        return
+    table = rb._accept_args
+    table[8], table[9] = v_prop.data_ptr(), logl_prop.data_ptr()
+    _run(rb._accept_fn, table, (rb.q, rb.ndim, rb.npdim, 0), rb.device,
+         "rwalk_accept")
+    rwalk_accept.launches += 1
 
 
 # --------------------------------------------------------------------------
@@ -403,14 +589,6 @@ def _run(f, ptrs, ints, device, fn):
                            f"at {ints}")
 
 
-def _launch(lib, fn, tensors, ints, dtype, device):
-    """Launch ``fn`` of library ``lib`` on the current stream: the
-    tensors' pointers (None for an absent one) in the source's order,
-    then four ints."""
-    _run(_entry(lib, fn, _DTYPES[dtype]), _pointer_table(tensors),
-         tuple(ints) + (0,) * (4 - len(ints)), device, fn)
-
-
 def _check(fn, name, t, shape, dtype, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{fn}: {name} must be a torch.Tensor")
@@ -423,103 +601,6 @@ def _check(fn, name, t, shape, dtype, device):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
-
-
-def _route(fn, t):
-    """``'cpu'`` (the plain version) or ``'cuda'`` (the kernel) for the
-    device of ``t``; raises on any other device or type."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{fn} takes torch tensors")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn}: no kernel for device {t.device}")
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"{fn} takes float64 or float32, got {t.dtype}")
-    return t.device.type
-
-
-def _scalar(fn, name, x, dtype, device):
-    """A 0-d tensor of ``dtype`` on ``device`` (what torch compares or
-    multiplies a Python number or 0-d tensor in)."""
-    if isinstance(x, torch.Tensor):
-        if x.dim() != 0:
-            raise ValueError(f"{fn}: {name} must be a number or a 0-d "
-                             f"tensor")
-        if x.device != device:
-            raise ValueError(f"{fn}: {name} is on {x.device}, not "
-                             f"{device}")
-        return x.to(dtype)
-    return torch.tensor(float(x), dtype=dtype, device=device)
-
-
-def _mask(fn, name, m, ndim, device):
-    if m is not None:
-        _check(fn, name, m, (ndim,), torch.bool, device)
-    return m
-
-
-def rwalk_propose(st, du, scale, u_ex=None, periodic=None, reflective=None,
-                  nonbounded=None):
-    """:func:`rwalk_propose_plain` on a CPU tensor; on a CUDA tensor the
-    ``rwalk_propose`` kernel of ``csrc/rwalk_step.cu``.  Takes ``du``
-    float64 or float32 (q, ncdim), ``scale`` a number or a 0-d tensor,
-    ``u_ex`` (q, ndim - ncdim) or None, the masks bool (ndim,) or None,
-    the state of :func:`rwalk_init`; raises on anything else."""
-    fn = "rwalk_propose"
-    if _route(fn, du) == "cpu":
-        return rwalk_propose_plain(st, du, scale, u_ex, periodic,
-                                   reflective, nonbounded)
-    (q, ncdim), ndim = du.shape, st["u"].shape[-1]
-    dtype, dev = du.dtype, du.device
-    _check(fn, "du", du, (q, ncdim), dtype, dev)
-    _check(fn, "u", st["u"], (q, ndim), dtype, dev)
-    if (u_ex is None) != (ncdim == ndim):
-        raise ValueError(f"{fn}: u_ex must be given exactly when ncdim < "
-                         f"ndim ({ncdim} < {ndim})")
-    if u_ex is not None:
-        _check(fn, "u_ex", u_ex, (q, ndim - ncdim), dtype, dev)
-    masks = [_mask(fn, name, m, ndim, dev) for name, m in
-             (("periodic", periodic), ("reflective", reflective),
-              ("nonbounded", nonbounded))]
-    sc = _scalar(fn, "scale", scale, dtype, dev)
-    u_prop = torch.empty((q, ndim), dtype=dtype, device=dev)
-    ok = torch.empty((q,), dtype=torch.bool, device=dev)
-    _launch("rwalk_step", "rwalk_propose",
-            (st["u"], du, sc, u_ex, *masks, u_prop, ok), (q, ndim, ncdim),
-            dtype, dev)
-    rwalk_propose.launches += 1
-    return u_prop, ok
-
-
-def rwalk_accept(st, u_prop, ok, v_prop, logl_prop, loglstar):
-    """:func:`rwalk_accept_plain` on a CPU tensor; on a CUDA tensor the
-    ``rwalk_accept`` kernel of ``csrc/rwalk_step.cu``, which updates the
-    state's tensors in place.  ``loglstar`` is a number or a 0-d tensor;
-    raises on anything else."""
-    fn = "rwalk_accept"
-    if _route(fn, u_prop) == "cpu":
-        return rwalk_accept_plain(st, u_prop, ok, v_prop, logl_prop,
-                                  loglstar)
-    (q, ndim), npdim = u_prop.shape, st["v"].shape[-1]
-    dtype, dev = u_prop.dtype, u_prop.device
-    v_prop, logl_prop = v_prop.contiguous(), logl_prop.contiguous()
-    for name, t, shape in (("u", st["u"], (q, ndim)),
-                           ("v", st["v"], (q, npdim)),
-                           ("logl", st["logl"], (q,)),
-                           ("u_prop", u_prop, (q, ndim)),
-                           ("v_prop", v_prop, (q, npdim)),
-                           ("logl_prop", logl_prop, (q,))):
-        _check(fn, name, t, shape, dtype, dev)
-    _check(fn, "ok", ok, (q,), torch.bool, dev)
-    for k in ("n_acc", "n_rej"):
-        _check(fn, k, st[k], (q,), torch.int64, dev)
-    ls = _scalar(fn, "loglstar", loglstar, dtype, dev)
-    accept = torch.empty((q,), dtype=torch.bool, device=dev)
-    _launch("rwalk_step", "rwalk_accept",
-            (st["u"], st["v"], st["logl"], st["n_acc"], st["n_rej"], accept,
-             u_prop, ok, v_prop, logl_prop, ls), (q, ndim, npdim), dtype,
-            dev)
-    rwalk_accept.launches += 1
-    return accept
 
 
 WRAPPERS = (slice_propose, slice_advance, rwalk_propose, rwalk_accept)

@@ -56,9 +56,12 @@ class Timings(dict):
     run.  The slice state machine on the card: ``n_slice_replay``
     (iterations run as one CUDA graph replay), ``n_slice_graph`` (graphs
     captured, one a round shape, each after one warm-up iteration run
-    eagerly) and ``n_uncaptured`` (rounds that replayed nothing: host
-    mode, the evaluation history, a mesh of several devices, or a capture
-    that raised).  Event lists (:meth:`mark`) hold one entry per event.
+    eagerly); the random walk on the card: ``n_rwalk_replay`` (rounds run
+    as one replay of the whole walk), ``n_rwalk_graph`` (walks captured,
+    one a round shape, each after one warm-up round run eagerly); and
+    ``n_uncaptured`` (rounds that replayed nothing: a random walk's
+    warm-up round, host mode, the evaluation history, a mesh of several
+    devices, or a capture that raised).  Event lists (:meth:`mark`) hold one entry per event.
     """
 
     def add(self, key, dt):

@@ -509,35 +509,65 @@ def rwalk_state(q, ndim, ncdim, npdim, dtype=torch.float64, device="cpu",
     return st, inputs
 
 
-def _run_rwalk_steps(st, inp, propose, accept, masks=True):
+def _rwalk_masks(inp, masks):
+    return [inp[k] if masks else None for k in ("periodic", "reflective",
+                                                "nonbounded")]
+
+
+def _run_rwalk_steps(st, inp, masks=True):
+    """One step through the plain steps on a copy of ``st``."""
     st = {k: v.clone() for k, v in st.items()}
-    m = [inp[k] if masks else None for k in ("periodic", "reflective",
-                                             "nonbounded")]
-    u_prop, ok = propose(st, inp["du"], inp["scale"], inp["u_ex"], *m)
-    acc = accept(st, u_prop, ok, inp["v_prop"], inp["logl_prop"],
-                 inp["loglstar"])
-    return u_prop, ok, acc, st
+    u_prop, uclamp, ok = pr.rwalk_propose_plain(
+        st, inp["du"], inp["scale"], inp["u_ex"], *_rwalk_masks(inp, masks))
+    acc = pr.rwalk_accept_plain(st, u_prop, ok, inp["v_prop"],
+                                inp["logl_prop"], inp["loglstar"])
+    return u_prop, uclamp, ok, acc, st
+
+
+def rwalk_round(st, inp, masks=True):
+    """An :class:`RWalkRound` holding the hand-made state and one step's
+    scale and threshold."""
+    q, ndim = st["u"].shape
+    rb = pr.RWalkRound(q, ndim, inp["du"].shape[1], st["v"].shape[1],
+                       inp["du"].dtype, inp["du"].device,
+                       *_rwalk_masks(inp, masks))
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.scale.copy_(inp["scale"])
+    rb.loglstar.copy_(inp["loglstar"])
+    return rb
+
+
+def _run_rwalk_wrappers(st, inp, masks=True):
+    """One step through the wrappers on a round holding ``st``."""
+    rb = rwalk_round(st, inp, masks)
+    pr.rwalk_propose(rb, inp["du"], inp["u_ex"])
+    pr.rwalk_accept(rb, inp["v_prop"], inp["logl_prop"])
+    return rb.u_prop, rb.uclamp, rb.ok, rb.accept, rb.st
 
 
 def _eager_rwalk_step(st, inp, masks=True):
     """One walk step as the eager loop of ``make_rwalk_round`` wrote it
-    before its steps were factored out (the product given)."""
+    before its steps were factored out (the product given), the
+    likelihood's raw values given (masked to -inf outside the cube, and
+    the point clamped into it, as the loop's ``_masked_eval`` did)."""
     u, v, logl, n_acc, n_rej = (st[k] for k in ("u", "v", "logl", "n_acc",
                                                 "n_rej"))
     ncdim = inp["du"].shape[1]
     u_prop = u[:, :ncdim] + inp["du"] * inp["scale"]
     if inp["u_ex"] is not None:
         u_prop = torch.cat([u_prop, inp["u_ex"]], dim=1)
-    m = [inp[k] if masks else None for k in ("periodic", "reflective",
-                                             "nonbounded")]
+    m = _rwalk_masks(inp, masks)
     u_prop = wrap_boundaries(u_prop, m[0], m[1])
     ok = unitcheck_batch(u_prop, m[2])
-    accept = ok & (inp["logl_prop"] > inp["loglstar"])
+    uclamp = u_prop.clamp(0.0, 1.0)
+    logl_prop = torch.where(ok, inp["logl_prop"], _NEG_INF)
+    accept = ok & (logl_prop > inp["loglstar"])
     u = torch.where(accept[:, None], u_prop, u)
     v = torch.where(accept[:, None], inp["v_prop"], v)
-    logl = torch.where(accept, inp["logl_prop"], logl)
-    return u_prop, ok, accept, dict(u=u, v=v, logl=logl, n_acc=n_acc + accept,
-                                    n_rej=n_rej + ~accept)
+    logl = torch.where(accept, logl_prop, logl)
+    return u_prop, uclamp, ok, accept, dict(
+        u=u, v=v, logl=logl, n_acc=n_acc + accept, n_rej=n_rej + ~accept)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -545,27 +575,26 @@ def _eager_rwalk_step(st, inp, masks=True):
 @pytest.mark.parametrize("masks", [True, False])
 def test_rwalk_plain_steps_equal_the_eager_loop(dtype, ndim, ncdim, masks):
     st, inp = rwalk_state(64, ndim, ncdim, ndim + 1, dtype)
-    got = _run_rwalk_steps(st, inp, pr.rwalk_propose_plain,
-                           pr.rwalk_accept_plain, masks)
+    got = _run_rwalk_steps(st, inp, masks)
     ref = _eager_rwalk_step(st, inp, masks)
-    for a, b in zip(got[:3], ref[:3]):
+    for a, b in zip(got[:4], ref[:4]):
         _same(a, b)
-    for k in ref[3]:
-        _same(got[3][k], ref[3][k])
-    assert got[1].any() and (~got[1]).any()
-    assert got[2].any() and (~got[2] & got[1]).any()
+    for k in ref[4]:
+        _same(got[4][k], ref[4][k])
+    assert got[2].any() and (~got[2]).any()
+    assert got[3].any() and (~got[3] & got[2]).any()
+    assert not torch.equal(got[0], got[1])
 
 
 def test_rwalk_wrappers_take_the_plain_steps_on_the_cpu():
     st, inp = rwalk_state(16, 4, 3, 2)
     before = [w.launches for w in pr.WRAPPERS]
-    got = _run_rwalk_steps(st, inp, pr.rwalk_propose, pr.rwalk_accept)
-    ref = _run_rwalk_steps(st, inp, pr.rwalk_propose_plain,
-                           pr.rwalk_accept_plain)
-    for a, b in zip(got[:3], ref[:3]):
+    got = _run_rwalk_wrappers(st, inp)
+    ref = _run_rwalk_steps(st, inp)
+    for a, b in zip(got[:4], ref[:4]):
         _same(a, b)
-    for k in ref[3]:
-        _same(got[3][k], ref[3][k])
+    for k in ref[4]:
+        _same(got[4][k], ref[4][k])
     assert [w.launches for w in pr.WRAPPERS] == before
 
 
@@ -578,11 +607,14 @@ def test_wrappers_refuse_what_no_kernel_takes():
                       inp["strict"].numpy())
     with pytest.raises(ValueError, match="no kernel for device"):
         pr.SliceRound(8, 3, 3, 1, torch.float64, "meta")
-    rst, rin = rwalk_state(8, 3, 3, 1)
+    _, rin = rwalk_state(8, 3, 3, 1)
     with pytest.raises(TypeError, match="float64 or float32"):
-        pr.rwalk_propose(rst, rin["du"].to(torch.int64), 1.0)
+        pr.RWalkRound(8, 3, 3, 1, torch.int64, "cpu")
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        pr.RWalkRound(8, 3, 3, 1, torch.float64, "cpu",
+                      reflective=rin["reflective"].numpy())
     with pytest.raises(ValueError, match="no kernel for device"):
-        pr.rwalk_accept(rst, rst["u"].to("meta"), None, None, None, 0.0)
+        pr.RWalkRound(8, 3, 3, 1, torch.float64, "meta")
 
 
 def test_round_state_never_aliases_the_caller():
@@ -649,23 +681,22 @@ def test_slice_kernels_match_plain_on_the_card(cuda, dtype, ndim):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("ndim,ncdim", [(3, 3), (15, 15), (15, 12)])
+@pytest.mark.parametrize("ndim,ncdim", [(3, 3), (15, 15), (15, 12), (48, 48),
+                                        (48, 40)])
 @pytest.mark.parametrize("masks", [True, False])
 def test_rwalk_kernels_match_plain_on_the_card(cuda, dtype, ndim, ncdim,
                                                masks):
     st, inp = rwalk_state(256, ndim, ncdim, ndim, dtype, cuda)
     before = pr.rwalk_propose.launches, pr.rwalk_accept.launches
-    got = _run_rwalk_steps(st, inp, pr.rwalk_propose, pr.rwalk_accept,
-                           masks)
-    ref = _run_rwalk_steps(st, inp, pr.rwalk_propose_plain,
-                           pr.rwalk_accept_plain, masks)
+    got = _run_rwalk_wrappers(st, inp, masks)
+    ref = _run_rwalk_steps(st, inp, masks)
     torch.cuda.synchronize()
     assert (pr.rwalk_propose.launches, pr.rwalk_accept.launches) == \
         (before[0] + 1, before[1] + 1)
-    for a, b in zip(got[:3], ref[:3]):
+    for a, b in zip(got[:4], ref[:4]):
         _same(a, b)
-    for k in ref[3]:
-        _same(got[3][k], ref[3][k])
+    for k in ref[4]:
+        _same(got[4][k], ref[4][k])
 
 
 @pytest.mark.cuda
@@ -686,7 +717,8 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
     """A whole run on the card takes every step through the kernels: no
     plain step sees a CUDA tensor, the slice kernels launch once an
     iteration (a replay of the captured iteration counting one launch of
-    each), the walk's once a step."""
+    each), the walk's once a step (a replay of the captured walk counting
+    one launch of each a step)."""
     import dynesty_tpu_torch as dyt
 
     def guarded(name):
@@ -701,20 +733,15 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
     for name in ("slice_propose_plain", "slice_advance_plain",
                  "rwalk_propose_plain", "rwalk_accept_plain"):
         monkeypatch.setattr(pr, name, guarded(name))
-    draws = []
-    # the walk's draw(i) is called once a step; the state machine's
+    draws, walk_rounds = [], []
+    # the walk takes its round's walks steps; the state machine's
     # iterations are its flag reads less one a round
     real_walk, real_machine = tk.rwalk_walk, tk.slice_state_machine
 
-    def walk(*a, **kw):
-        a = list(a)
-        draw = a[7]
-
-        def counted(i):
-            draws.append(i)
-            return draw(i)
-        a[7] = counted
-        return real_walk(*a, **kw)
+    def walk(*a, walks, **kw):
+        walk_rounds.append(walks)
+        draws.extend(range(walks))
+        return real_walk(*a, walks=walks, **kw)
 
     def machine(*a, timings, **kw):
         n0 = timings.get("sync_slice", 0)
@@ -741,3 +768,8 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
         assert pr.rwalk_propose.launches == pr.rwalk_accept.launches == \
             len(draws) > 0
         assert pr.slice_propose.launches == 0
+        # every round but the first of its shape replayed the walk
+        t = s.timings
+        assert t["n_rwalk_graph"] >= 1 and t["n_rwalk_replay"] > 0
+        assert t["n_rwalk_replay"] + t["n_uncaptured"] == len(walk_rounds)
+        assert t["n_uncaptured"] == t["n_rwalk_graph"]
