@@ -1,0 +1,224 @@
+"""Time the uniform rejection waves of a checkout on the card, end to end:
+three drives of ``chip_smoke.py`` on the 3-D correlated Gaussian (rho =
+0.95, prior box +-10, seed 56432), each a default ``NestedSampler``
+whose waves are ``unif``:
+
+* heavy: the JAX package's heavy bench, ``nlive=3000, bound='multi',
+  sample='unif', queue_size=256, rounds_per_dispatch=12``, the Gaussian
+  plus 1e-6 times a float32 tanh matvec chain of width 256 and depth 384
+  (weights from seed 1234);
+* default: ``NestedSampler(loglike, ptform, 3)`` with every other
+  argument at its default (multi / unif / bootstrap 5, nlive 500);
+* balls: ``nlive=2048, bound='balls', sample='rslice'``, whose unit-cube
+  phase is its only ``unif`` work.
+
+    python3 bench_unif_graph.py [--root DIR] [--out FILE] [--no-profile]
+                                [--drives heavy,default,balls]
+
+For each drive: wall, ``Timings['dispatch']``, the waves (``sync_wave``:
+one flag read a wave in both the eager and the captured round), the
+uniform rounds and the host ms a wave spends in their calls (counted at
+``make_unif_round``'s round function, which every version has), niter,
+ncall, logz and logzerr (so that two checkouts can be held to the same
+run), and the capture counters where the checkout has them.  Then the
+drive once more under ``torch.profiler`` (device activity only): the
+device's busy time (the union of its kernels' and copies' intervals),
+over the profiled drive's wall and over the unprofiled one's, and so its
+idle share.  The profiler slows the host, so the share over the profiled
+wall is an upper bound on the unprofiled drive's.
+
+``--root`` imports ``dynesty_tpu_torch`` from another checkout (an
+earlier commit unpacked with ``git archive`` into the git-ignored
+``build/``), so that two versions run in turns in one call to the card.
+Prints the card's name and power limit and one JSON line per drive, and
+exits non-zero without CUDA.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED, NDIM = 56432, 3
+H_WIDTH, H_LAYERS = 256, 384
+_ROUNDS = {"rounds": 0, "host_s": 0.0}
+_GAUSS = {}
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+
+
+def _gauss_setup():
+    cov = np.identity(NDIM)
+    cov[cov == 0] = 0.95
+    _GAUSS["cinv"] = torch.as_tensor(np.linalg.inv(cov), device="cuda")
+    _GAUSS["lnorm"] = -0.5 * (np.log(2 * np.pi) * NDIM +
+                              np.log(np.linalg.det(cov)))
+
+
+def gauss_loglike(x):
+    return -0.5 * (x @ _GAUSS["cinv"] @ x) + _GAUSS["lnorm"]
+
+
+def box_ptform(u):
+    return 10.0 * (2.0 * u - 1.0)
+
+
+def heavy_loglike():
+    """The heavy bench's likelihood: the Gaussian in float64 plus 1e-6
+    times the sum of a float32 tanh chain (an orthogonal matrix scaled to
+    spectral norm 0.9, an input map; TF32 off)."""
+    rng = np.random.Generator(np.random.PCG64(1234))
+    q, _ = np.linalg.qr(rng.standard_normal((H_WIDTH, H_WIDTH)))
+    a = torch.as_tensor(0.9 * q, dtype=torch.float32, device="cuda")
+    w = torch.as_tensor(rng.standard_normal((H_WIDTH, NDIM)) /
+                        np.sqrt(NDIM), dtype=torch.float32, device="cuda")
+
+    def loglike(x):
+        h = torch.tanh(w @ x.to(torch.float32))
+        for _ in range(H_LAYERS):
+            h = torch.tanh(a @ h)
+        return gauss_loglike(x) + 1e-6 * h.sum().to(x.dtype)
+
+    return loglike
+
+
+def count_rounds():
+    """Count every uniform round and the host time spent in its call."""
+    from dynesty_tpu_torch.internal import kernels as tk
+    from dynesty_tpu_torch.internal import samplers as ts
+    make = tk.make_unif_round
+
+    def make_unif_round(*a, **kw):
+        fn = make(*a, **kw)
+
+        def round_fn(*ra, **rkw):
+            t0 = time.perf_counter()
+            out = fn(*ra, **rkw)
+            _ROUNDS["host_s"] += time.perf_counter() - t0
+            _ROUNDS["rounds"] += 1
+            return out
+
+        return round_fn
+
+    tk.make_unif_round = ts.make_unif_round = make_unif_round
+
+
+DRIVES = {
+    "heavy": lambda: (heavy_loglike(), dict(
+        nlive=3000, bound="multi", sample="unif", queue_size=256,
+        rounds_per_dispatch=12)),
+    "default": lambda: (gauss_loglike, {}),
+    "balls": lambda: (gauss_loglike, dict(nlive=2048, bound="balls",
+                                          sample="rslice")),
+}
+
+
+def run_drive(dyt, name, profile=False):
+    _ROUNDS.update(rounds=0, host_s=0.0)
+    loglike, kw = DRIVES[name]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = dyt.NestedSampler(
+        loglike, box_ptform, NDIM,
+        rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_
+        prof = prof_(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    sampler.run_nested(print_progress=False)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    res, t = sampler.results, sampler.timings
+    keys = ("dispatch", "refit", "consume", "total", "n_round", "sync_wave",
+            "sync_slice", "n_unif_replay", "n_unif_graph", "n_uncaptured",
+            "n_slice_replay")
+    waves = t.get("sync_wave", 0)
+    out = {"wall_s": wall, "niter": int(res.niter),
+           "ncall": int(sampler.ncall), "logz": float(res.logz[-1]),
+           "logzerr": float(res.logzerr[-1]),
+           "unif_rounds": _ROUNDS["rounds"], "waves": waves,
+           "unif_host_ms_per_wave": 1e3 * _ROUNDS["host_s"] / max(waves, 1),
+           "unif_host_s": _ROUNDS["host_s"],
+           "timings": {k: t[k] for k in keys if k in t}}
+    if prof is not None:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type.name == "CUDA")
+        busy, end = 0.0, -np.inf
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out["device_busy_s"] = busy / 1e6
+        out["device_idle_share"] = 1.0 - out["device_busy_s"] / wall
+        out["device_events"] = len(spans)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)), help="checkout whose dynesty_tpu_torch is timed")
+    ap.add_argument("--out", help="also write the records here")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="skip the profiled drives")
+    ap.add_argument("--drives", default="heavy,default,balls",
+                    help="comma-separated drives among "
+                    f"{', '.join(DRIVES)}")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_unif_graph: CUDA is not available")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import dynesty_tpu_torch as dyt
+    if not dyt.__file__.startswith(root):
+        raise SystemExit(f"imported {dyt.__file__}, not from {root}")
+    drives = args.drives.split(",")
+    if not set(drives) <= set(DRIVES):
+        raise SystemExit(f"unknown drives {drives}")
+    card = _card()
+    print(card)
+    recs = {"root": root, "card": card}
+    _gauss_setup()
+    # the kernels of the checkout built, and its path warmed up, before
+    # the drives are timed
+    from dynesty_tpu_torch.ops import build
+    for lib in sorted(p[:-3] for p in os.listdir(build.SRC_DIR)
+                      if p.endswith(".cu")):
+        build.load_library(lib)
+    dyt.NestedSampler(gauss_loglike, box_ptform, NDIM, nlive=500,
+                      rstate=np.random.Generator(np.random.PCG64(SEED))
+                      ).run_nested(print_progress=False, maxiter=3000)
+    count_rounds()
+    for name in drives:
+        recs[name] = run_drive(dyt, name)
+        print(json.dumps({"drive": name, "root": root, "card": card,
+                          **recs[name]}))
+        if not args.no_profile:
+            rec = run_drive(dyt, name, profile=True)
+            rec["device_idle_share_unprofiled_wall"] = \
+                1.0 - rec["device_busy_s"] / recs[name]["wall_s"]
+            recs[f"{name}-profiled"] = rec
+            print(json.dumps({"drive": f"{name}-profiled", "root": root,
+                              "card": card, **rec}))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(recs, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -68,6 +68,22 @@ Phases, in order; any failure raises and exits non-zero:
    ``propose_round`` (batch seeding's round) of 32 lanes, three times, on
    a sampler run to 3,000 iterations against the same on a sampler whose
    likelihood the capture rule keeps out (the two runs bit for bit too).
+   Then the uniform wave (``unif_kernels_phase``): ``unif_valid`` and
+   ``unif_place`` against their plain versions on hand-made states (a
+   wave with more successes than free slots, and one with none, whose
+   evaluations are carried) over the cube, three ellipsoids padded to
+   four slots, 64 balls, at (256, 3), (32, 3 of 4 dimensions) and 700
+   lanes (three chunks of ``unif_place``'s block), float64 and float32:
+   every output bit for bit, the kernels' and the plain versions' time
+   per call (events) and the byte bound.  Then captured-unif
+   (``captured_unif_phase``): uniform rounds whose waves are captured as
+   one CUDA graph each and replayed against the same rounds launched
+   eagerly, over the cube and over ellipsoids (a ``torch.multinomial``
+   inside the graph), float64 and float32, widths 256 and 32, three
+   rounds each on one round cache with a blob: every column, the blob and
+   the generator's offset bit for bit, every wave but the warm-up a
+   replay; the host time of one replayed wave with its wait and flag read
+   against an eager wave's.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -180,6 +196,9 @@ Phases, in order; any failure raises and exits non-zero:
     default path has no refit after its first planned dispatch.
 32. example-quickstart: ``examples/torch_quickstart.py`` on the card, its
     static run within 4 and its dynamic run within 5 logzerr of the truth.
+    Its likelihood copies a host constant to the card at every call,
+    which no CUDA graph may hold: each wave shape's capture must raise and
+    be warned, and every wave run eagerly through both wave kernels.
 33. queue-balls: the balls drive with ``proposal_mode='queue'`` (q =
     256): every consume launch on the general path at nlive 2048, the
     evidence gate; then the same drive with every round's consume sent
@@ -193,7 +212,9 @@ Phases, in order; any failure raises and exits non-zero:
     step of a one-thread chain of dependent logaddexps, times q), of the
     four proposal-step kernels at the main drives' shapes and of the
     launch floor, of one replay of the captured slice iteration at (256,
-    3) and of the captured walk at (256, 15), and of one 256-lane
+    3) and of the captured walk at (256, 15), of the two wave kernels at
+    (256, 3), of one replayed uniform wave over the cube at (256, 3) and
+    of one of the heavy drive's ellipsoid waves, and of one 256-lane
     evaluation of the heavy likelihood.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
@@ -209,7 +230,14 @@ captured graph (``n_slice_replay + n_slice_graph`` == the iterations)
 with ``n_uncaptured`` 0; the rwalk drive must replay every round but the
 warm-up round of each shape (``n_rwalk_replay + n_uncaptured`` == the
 rounds, ``n_uncaptured`` == the shapes); host-balls must run every round
-eagerly, none replayed.  One JSON line lists them by drive.
+eagerly, none replayed.  One JSON line lists them by drive.  Every
+uniform wave launches ``unif_valid`` and ``unif_place`` once and reads
+one flag (``sync_wave``): their launches equal the waves on every drive,
+and every wave but the warm-up wave of each shape is a replay
+(``n_unif_replay``), but on host-pool and host-balls (host mode: every
+wave eager) and the waves over custom-unif's box, drawn on the host; a
+wave run eagerly counts ``n_uncaptured``.  One JSON line lists them by
+drive.
 Every drive counts the consume kernel's launches, split into thin and
 general on the device, from zero just before it to just after: they must
 equal the fused rounds its samplers consumed (their ``n_round``), and be
@@ -233,6 +261,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -270,6 +299,7 @@ SOURCE = "dynesty_tpu_torch/csrc/pairwise_min_dist.cu"
 CONSUME_SOURCE = "dynesty_tpu_torch/csrc/consume_scan.cu"
 SLICE_SOURCE = "dynesty_tpu_torch/csrc/slice_step.cu"
 RWALK_SOURCE = "dynesty_tpu_torch/csrc/rwalk_step.cu"
+UNIF_SOURCE = "dynesty_tpu_torch/csrc/unif_wave.cu"
 # the JAX package's heavy bench (bench.py): a 3-D correlated Gaussian plus
 # a tanh matvec chain of this width and depth, at this live-point count
 H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
@@ -302,9 +332,10 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=20):
+def _device_ms(fn, iters=20, only=None):
     """Device time per call: the summed durations of the kernels that
-    ``iters`` calls ran, from the profiler (no host gaps)."""
+    ``iters`` calls ran, from the profiler (no host gaps); with ``only``,
+    of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -315,7 +346,8 @@ def _device_ms(fn, iters=20):
             fn()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA and
+             (only is None or only in e.name))
     return us / iters / 1e3
 
 
@@ -402,7 +434,7 @@ def count_rounds():
     def counting(self, key, n=1):
         if key == "n_round":
             _ROUNDS[0] += n
-        elif key in CAPTURE_COUNTS:
+        elif key in CAPTURE_COUNTS or key == "sync_wave":
             _LOOPS[key] += n
         count(self, key, n)
 
@@ -411,23 +443,35 @@ def count_rounds():
 
 # the captured proposal loops: the slice state machine's replayed
 # iterations and graphs (one warm-up iteration each, eager), the random
-# walk's replayed rounds and graphs (one warm-up round each, eager), and
-# rounds that replayed nothing, tallied from every sampler's Timings by
-# count_rounds()
+# walk's replayed rounds and graphs (one warm-up round each, eager), the
+# uniform waves replayed and captured (one warm-up wave each, eager), and
+# rounds and waves that replayed nothing, tallied from every sampler's
+# Timings by count_rounds(), with the uniform waves' flag reads
+# (sync_wave)
 CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_rwalk_replay",
-                  "n_rwalk_graph", "n_uncaptured")
+                  "n_rwalk_graph", "n_unif_replay", "n_unif_graph",
+                  "n_uncaptured")
 # rounds of the slice state machine and its iterations (its flag reads,
 # less the one that ends each round), the random walk's rounds, its round
 # shapes (buffers made), its steps (run eagerly one by one, or a replay's
-# walks) and the walk steps due (walks x rounds), and the capture counts,
-# since the counts were last zeroed, tallied by count_proposal_loops() and
-# count_rounds()
+# walks) and the walk steps due (walks x rounds); the uniform waves' shapes
+# that may be captured (buffers made for a bound drawn on the card and a
+# likelihood the capture rule allows), their waves (run eagerly, or
+# replayed), the waves run eagerly and the warm-up waves among them; and
+# the capture counts, since the counts were last zeroed, tallied by
+# count_proposal_loops() and count_rounds()
 _LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
-                        "rwalk_shapes", "rwalk_steps", "rwalk_due") +
-                       CAPTURE_COUNTS, 0)
+                        "rwalk_shapes", "rwalk_steps", "rwalk_due",
+                        "unif_shapes", "unif_waves", "unif_eager",
+                        "unif_warmups", "sync_wave") + CAPTURE_COUNTS, 0)
 # the per-step kernels' launch counts in a drive's counts
 STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
                 "rwalk_accept")
+# the uniform wave's kernels
+UNIF_KERNELS = ("unif_valid", "unif_place")
+# the uniform wave shapes made since the counts were last zeroed, newest
+# last (count_proposal_loops)
+_UNIF_GRAPHS = []
 
 
 def count_proposal_loops():
@@ -474,6 +518,36 @@ def count_proposal_loops():
     graph.__init__, graph.step, graph.replay = (graph_init, counted_step,
                                                 counted_replay)
 
+    # the uniform waves: every wave is one call of UnifGraph.wave outside a
+    # capture (which records without running) or one replay; a warm-up
+    # wave runs on the side stream
+    ug = tk.UnifGraph
+    u_init, u_wave, u_replay = ug.__init__, ug.wave, ug.replay
+    u_side = ug.on_side_stream
+
+    def unif_init(self, like, rb, kind):
+        u_init(self, like, rb, kind)
+        if self.capturable and kind != "custom":
+            _LOOPS["unif_shapes"] += 1
+        _UNIF_GRAPHS.append(self)
+
+    def unif_wave(self, draw, check=False):
+        if not torch.cuda.is_current_stream_capturing():
+            _LOOPS["unif_waves"] += 1
+            _LOOPS["unif_eager"] += 1
+        return u_wave(self, draw, check)
+
+    def unif_replay(self):
+        _LOOPS["unif_waves"] += 1
+        return u_replay(self)
+
+    def unif_side(self, fn):
+        _LOOPS["unif_warmups"] += 1
+        return u_side(self, fn)
+
+    ug.__init__, ug.wave, ug.replay = unif_init, unif_wave, unif_replay
+    ug.on_side_stream = unif_side
+
 
 def _zero_counts(hk):
     k = hk.pairwise_min_dist
@@ -483,17 +557,23 @@ def _zero_counts(hk):
     _ROUNDS[0] = 0
     for key in _LOOPS:
         _LOOPS[key] = 0
+    _UNIF_GRAPHS.clear()
 
 
-def _counts(hk, eager=False):
+def _counts(hk, eager=False, custom=False, raised=False):
     """Every kernel's launches since :func:`_zero_counts`; raises unless
     every fused round consumed since went through the consume kernel,
-    every step of the proposal loops through its two kernels, and every
-    slice and walk round as the capture rule says (a likelihood on the
-    card): the slice rounds replayed, every iteration but one warm-up per
-    graph; the walk's rounds replayed, every one but the warm-up round of
-    each shape, each shape's next round captured; or, where ``eager``
-    (host mode), all eager with none replayed."""
+    every step of the proposal loops through its two kernels, every
+    uniform wave through its two kernels with one flag read, and every
+    slice and walk round and uniform wave as the capture rule says (a
+    likelihood on the card): the slice rounds replayed, every iteration
+    but one warm-up per graph; the walk's rounds replayed, every one but
+    the warm-up round of each shape, each shape's next round captured;
+    every uniform wave replayed but the warm-up wave of each shape, and,
+    with ``custom``, the waves over a user's bound, drawn on the host; or,
+    where ``eager`` (host mode), all eager with none replayed; or, where
+    ``raised`` (a likelihood whose capture raises), every wave eager after
+    its shape's warm-up, none captured."""
     k = hk.pairwise_min_dist
     paths = cs.path_counts()
     out = {"launches": k.launches, "exact": k.launches_exact,
@@ -512,12 +592,35 @@ def _counts(hk, eager=False):
                 out["rwalk_steps"] == out["rwalk_due"]):
         raise RuntimeError(f"proposal-step kernel launches and the loops' "
                            f"iterations differ: {out}")
+    if not (out["unif_valid"] == out["unif_place"] == out["unif_waves"] ==
+            out["sync_wave"]):
+        raise RuntimeError(f"uniform wave kernel launches and the waves "
+                           f"differ: {out}")
+    # eager waves beside the warm-ups: host mode, or a user's bound
+    by_rule = out["unif_eager"] - out["unif_warmups"]
+    if eager:
+        ok = out["n_unif_replay"] == out["n_unif_graph"] == \
+            out["unif_warmups"] == 0 and by_rule == out["unif_waves"]
+    elif raised:
+        ok = out["n_unif_replay"] == out["n_unif_graph"] == 0 and \
+            out["unif_warmups"] == out["unif_shapes"] and \
+            out["unif_eager"] == out["unif_waves"]
+    else:
+        ok = out["unif_warmups"] == out["unif_shapes"] >= \
+            out["n_unif_graph"] and (custom or by_rule == 0) and \
+            out["n_unif_replay"] + out["unif_eager"] == out["unif_waves"]
+    if not ok:
+        mode = "eager" if eager else "captured"
+        raise RuntimeError(f"the uniform waves did not run as the capture "
+                           f"rule says ({mode}): {out}")
+    # the slice and walk rounds that replayed nothing
+    rest = out["n_uncaptured"] - out["unif_eager"]
     if out["slice_rounds"]:
         if eager:
             ok = out["n_slice_replay"] == out["n_slice_graph"] == 0 and \
-                out["n_uncaptured"] == out["slice_rounds"]
+                rest == out["slice_rounds"]
         else:
-            ok = out["n_uncaptured"] == 0 and out["n_slice_replay"] > 0 and \
+            ok = rest == 0 and out["n_slice_replay"] > 0 and \
                 out["n_slice_replay"] + out["n_slice_graph"] == \
                 out["slice_iters"]
         if not ok:
@@ -527,13 +630,11 @@ def _counts(hk, eager=False):
     if out["rwalk_rounds"]:
         if eager:
             ok = out["n_rwalk_replay"] == out["n_rwalk_graph"] == 0 and \
-                out["n_uncaptured"] == out["rwalk_rounds"]
+                rest == out["rwalk_rounds"]
         else:
             ok = out["n_rwalk_replay"] > 0 and \
-                out["n_rwalk_replay"] + out["n_uncaptured"] == \
-                out["rwalk_rounds"] and \
-                out["n_uncaptured"] == out["rwalk_shapes"] >= \
-                out["n_rwalk_graph"] >= 1
+                out["n_rwalk_replay"] + rest == out["rwalk_rounds"] and \
+                rest == out["rwalk_shapes"] >= out["n_rwalk_graph"] >= 1
         if not ok:
             mode = "eager" if eager else "captured"
             raise RuntimeError(f"the walk's rounds did not run as the "
@@ -1134,7 +1235,8 @@ def custom_unif_drive(dyt, hk, misc):
         misc._terminal_width = width
     s = _summary(sampler, wall, LOGZ_TRUTH)
     _gate(sampler, s, "custom-unif drive")
-    s["launches"] = _counts(hk)
+    # the box's waves are drawn on the host: eager, the unit cube's replayed
+    s["launches"] = _counts(hk, custom=True)
     s["bound_kind"] = sampler.device_bound_kind()
     s["samples_calls"] = tally[0]
     s["host_ms_per_samples_call"] = 1e3 * tally[1] / max(tally[0], 1)
@@ -1778,10 +1880,14 @@ def example_quickstart_phase():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
-            contextlib.redirect_stderr(io.StringIO()):
+            contextlib.redirect_stderr(io.StringIO()), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
         sampler, dns = mod.main(["--outdir", tmp])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    captures = [str(w.message) for w in caught
+                if "could not be captured" in str(w.message)]
     res, dres = sampler.results, dns.results
     pulls = [float((r.logz[-1] - mod.logz_truth) / r.logzerr[-1])
              for r in (res, dres)]
@@ -1791,9 +1897,14 @@ def example_quickstart_phase():
            "pull": pulls[0], "dynamic_niter": int(dres.niter),
            "dynamic_ncall": int(dns.ncall), "dynamic_pull": pulls[1],
            "batches": int(dns.batch),
-           "n_prelaunch": sampler.timings.get("n_prelaunch", 0)}
+           "n_prelaunch": sampler.timings.get("n_prelaunch", 0),
+           # its likelihood copies a host constant to the card at every
+           # call, which no CUDA graph may hold: each wave shape's capture
+           # raises, is warned, and its waves run eagerly
+           "capture_warnings": len(captures),
+           "capture_error": captures[0] if captures else None}
     if out["devices"] != ["cuda", "cuda"] or abs(pulls[0]) >= 4 or \
-            abs(pulls[1]) >= 5:
+            abs(pulls[1]) >= 5 or not captures:
         raise RuntimeError(f"the quickstart example failed: {out}")
     return out
 
@@ -3166,6 +3277,309 @@ def captured_rwalk_phase(card, dyt):
     return {"cases": cases, "propose_round": pair}
 
 
+# --------------------------------------------------------------------------
+# the uniform wave's kernels against their plain versions, and the captured
+# wave
+
+
+# (kind, ndim, ncdim, q) of the wave kernels' cases: the cube's wave of
+# every drive's unit-cube phase and the heavy drive's ellipsoid wave at
+# (256, 3), a friends' wave, the narrow width (32) over ellipsoids in 3 of
+# 4 dimensions, and 700 lanes (three chunks of unif_place's block)
+UNIF_CASES = [("cube", 3, 3, STEP_Q), ("ellipsoids", 3, 3, STEP_Q),
+              ("balls", 3, 3, STEP_Q), ("ellipsoids", 4, 3, 32),
+              ("cube", 3, 3, 700)]
+
+
+def unif_arrays(kind, ncdim, dtype, seed=SEED):
+    """A bound's device arrays for the wave cases: three ellipsoids around
+    the 3-D Gaussian's mass in the cube (padded to four slots, one
+    reaching past the cube), or 64 live points as friends' centres."""
+    from dynesty_tpu_torch.bounding import MultiEllipsoid
+    from dynesty_tpu_torch.utils.convert import bound_arrays_to_torch
+    rs = np.random.Generator(np.random.PCG64(seed))
+    if kind == "ellipsoids":
+        ctrs = np.array([[0.45, 0.45, 0.5], [0.55, 0.55, 0.5],
+                         [0.9, 0.5, 0.5]])[:, :ncdim]
+        covs = np.array([np.diag(rs.uniform(0.002, 0.01, ncdim))
+                         for _ in ctrs])
+        return bound_arrays_to_torch(kind, MultiEllipsoid(
+            ncdim, ctrs=ctrs, covs=covs).device_spec()[1], "cuda", dtype)
+    if kind == "balls":
+        axes = 0.06 * np.eye(ncdim)
+        return {k: torch.as_tensor(v, dtype=dtype, device="cuda")
+                for k, v in (("ctrs", rs.uniform(0.2, 0.8, (64, ncdim))),
+                             ("axes", axes),
+                             ("axes_inv", np.linalg.inv(axes)))}
+    return {}
+
+
+def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
+    """A ``UnifRound`` on the card in a hand-made state and one wave's
+    inputs: candidates in and out of the cube (one loose dimension), the
+    union's quadratic forms (one slot at the rescue's 1 + 5e-4), the
+    acceptance draws, and a likelihood that leaves more successes than
+    free slots (``situation`` 'overflow') or none ('none', the wave's
+    evaluations carried)."""
+    rs = np.random.Generator(np.random.PCG64(SEED + q + ndim))
+    arrays = unif_arrays(kind, ncdim, dtype)
+
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in pr.UNIF_ARRAYS[kind]}
+    strict = torch.tensor([True, False, True][:ncdim])
+    rb = pr.UnifRound(q, ndim, ncdim, ndim, dtype, "cuda", strict, layout)
+    rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
+    filled = q - 2 if situation == "overflow" else q // 3
+    rb.state.copy_(torch.tensor([filled, 3, 40, 3 * q, 7, q - 9, 1 << 30]))
+    m = rb.m
+    above = situation == "overflow"
+    inp = {"uc": _cuda_t(rs.uniform(-0.1, 1.1, (q, ncdim)), dtype),
+           "sq": _cuda_t(rs.uniform(0.0, 1.6, (q, m)), dtype) if m else None,
+           "ua": _cuda_t(rs.random(q), dtype) if m else None,
+           "accept": _cuda_t(rs.random(q) < 0.6, torch.bool)
+           if kind == "balls" else None,
+           "u_prop": _cuda_t(rs.random((q, ndim)), dtype),
+           "v": _cuda_t(rs.random((q, ndim)), dtype),
+           "logl": _cuda_t(rs.choice([-math.inf, -1.0, 0.5, 2.0], size=q)
+                           if above else rs.uniform(-3.0, 0.2, q), dtype)}
+    if m:
+        inp["sq"][:, 1] = 1.0 + 5e-4
+    return rb, inp
+
+
+def unif_wave_cases(ncase, dtype):
+    """``unif_valid`` and ``unif_place`` against their plain versions on
+    the case's two hand-made states; returns their records and the
+    kernels' calls at the overflow state."""
+    kind, ndim, ncdim, q = ncase
+    tb = torch.finfo(dtype).bits // 8
+    recs, calls = [], {}
+    for situation in ("overflow", "none"):
+        rb, inp = unif_wave_round(kind, q, ndim, ncdim, dtype, situation)
+        draws = (inp["uc"], inp["sq"], inp["ua"], inp["accept"])
+        mask = rb.arrays.get("mask")
+        ref = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH],
+                                  rb.strict, inp["sq"], mask, inp["ua"],
+                                  inp["accept"])
+        pr.unif_valid(rb, *draws)
+        torch.cuda.synchronize()
+        valid = _bit_record("unif_valid", (q, ncdim), dtype,
+                            [("valid", rb.valid, ref)])
+        n_valid = int(ref.sum())
+        st0, slots = rb.state.clone(), _clone(rb.slots)
+        st, dest, done = pr.unif_place_plain(st0, slots, rb.valid,
+                                             inp["u_prop"], inp["v"],
+                                             inp["logl"], rb.loglstar)
+        pr.unif_place(rb, inp["u_prop"], inp["v"], inp["logl"])
+        torch.cuda.synchronize()
+        place = _bit_record("unif_place", (q, ndim), dtype, [
+            ("state", rb.state, st), ("dest", rb.dest, dest),
+            ("done", rb.done, done)] + [
+            (k, rb.slots[k][:q], slots[k][:q]) for k in slots])
+        n_new = int(st[pr.U_FILLED] - st0[pr.U_FILLED])
+        if situation == "overflow" and not (
+                n_new == 2 and bool(done) and int((dest < q).sum()) == 2 and
+                int(((dest == q) & rb.valid & (inp["logl"] > STEP_LOGLSTAR))
+                    .sum()) > 0 and 0 < n_valid < q):
+            raise RuntimeError(f"the overflow wave case missed its outcome "
+                               f"at {ncase}: {n_new} placed")
+        if situation == "none" and not (
+                n_new == 0 and int(st[pr.U_PENDING]) == 7 + n_valid):
+            raise RuntimeError(f"the no-success wave case missed its "
+                               f"outcome at {ncase}")
+        for rec in (valid, place):
+            rec.update(kind=kind, ncdim=ncdim, situation=situation)
+        # the byte bounds of this data: each input read once, each output
+        # written once (unif_place: the valid lanes' logl, the placed
+        # rows, dest and the state)
+        m = rb.m
+        _step_time(valid, lambda: pr.unif_valid(rb, *draws),
+                   lambda: pr.unif_valid_plain(
+                       inp["uc"], rb.state[pr.U_WIDTH], rb.strict,
+                       inp["sq"], mask, inp["ua"], inp["accept"]),
+                   q * (ncdim * tb + 1) + m * (q * tb + 1) +
+                   (q * tb if m else 0) + (q if kind == "balls" else 0) +
+                   ncdim + 8)
+        if situation == "overflow":
+            # each timed call from the compared state: the state's restore
+            # is timed alone and taken off
+            def place_call():
+                rb.state.copy_(st0)
+                pr.unif_place(rb, inp["u_prop"], inp["v"], inp["logl"])
+
+            restore_us = 1e3 * _time_ms(lambda: rb.state.copy_(st0), 200)
+            _step_time(place, place_call,
+                       lambda: pr.unif_place_plain(
+                           st0, slots, rb.valid, inp["u_prop"], inp["v"],
+                           inp["logl"], rb.loglstar),
+                       q + n_valid * tb + tb + 2 * 7 * 8 + 1 + q * 8 +
+                       n_new * ((2 * ndim + 2 * ndim + 1) * tb + 8))
+            place["us"] = max(place["us"] - restore_us, 0.0)
+            place["restore_us"] = restore_us
+            calls = {"unif_valid": lambda: pr.unif_valid(rb, *draws),
+                     "unif_place": place_call}
+        recs += [valid, place]
+    return recs, calls
+
+
+def unif_kernels_phase(card):
+    """Every case in float64 and float32; prints one line each, raises
+    unless every output is bit-identical, and returns the records and the
+    kernels' calls at the main shape (the cube's wave, (256, 3),
+    float64)."""
+    cases, main_calls = [], {}
+    for ncase in UNIF_CASES:
+        for dtype in (torch.float64, torch.float32):
+            recs, calls = unif_wave_cases(ncase, dtype)
+            cases += recs
+            if ncase == UNIF_CASES[0] and dtype == torch.float64:
+                main_calls = calls
+    for c in cases:
+        shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
+                           c["outputs"].items())
+        timed = f"  kernel {c['us']:.2f} us  plain {c['plain_us']:.2f} us" \
+            f"  bound {c['bound_us']:.5f} us (bytes)" if "us" in c else ""
+        print(f"unif wave {c['kernel']} {c['kind']} {tuple(c['shape'])} "
+              f"ncdim {c['ncdim']} {c['situation']} {c['dtype']}: "
+              f"bit-identical {c['identical']}/{c['total']} ({shares})"
+              f"{timed}  [{card}]")
+    bad = [c for c in cases if c["identical"] != c["total"]]
+    if bad:
+        raise RuntimeError(f"uniform wave kernels differ from their plain "
+                           f"versions: {bad}")
+    print(f"unif wave kernels: {len(cases)} cases, outputs bit-identical "
+          f"{sum(c['identical'] for c in cases)}/"
+          f"{sum(c['total'] for c in cases)}  [{card}]")
+    return cases, main_calls
+
+
+def main_unif(cases, name):
+    """The record of wave kernel ``name`` at the main shape: the cube's
+    wave at (256, 3) in float64, the overflow state."""
+    return next(c for c in cases if c["kernel"] == name and
+                c["kind"] == "cube" and c["dtype"] == "float64" and
+                c["shape"][0] == STEP_Q and c["situation"] == "overflow")
+
+
+def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
+    """``len(seeds)`` uniform rounds of ``q`` lanes on one round cache:
+    the balls drive's Gaussian with a blob, over the cube or three
+    ellipsoids around its mass, at a threshold that 4 % (over the cube)
+    or 0.5 % (over the ellipsoids) of the cube's points beat, so that a
+    round takes several waves.  Returns each round's packed columns, blob
+    and generator offset."""
+    from dynesty_tpu_torch.internal import kernels as tk
+    arrays = unif_arrays(kind, NDIM, dtype)
+    fn = tk.make_unif_round(like, ndim=NDIM, q=q, bound_kind=kind,
+                            dtype=dtype, device="cuda", timings=timings,
+                            rounds=cache)
+    u = np.random.Generator(np.random.PCG64(SEED)).random((4000, NDIM))
+    loglstar = float(np.quantile(like.eval_host(u)[1],
+                                 0.96 if kind == "cube" else 0.995))
+    outs = []
+    for seed in seeds:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        out, out_blob = fn(gen, loglstar, arrays)
+        torch.cuda.synchronize()
+        outs.append((out, out_blob, gen.get_offset()))
+    return outs
+
+
+def captured_unif_phase(card):
+    """Captured uniform waves against eager-launched ones on the same
+    inputs: the cube's waves and the ellipsoids' (their choice a
+    ``torch.multinomial`` inside the graph), float64 and float32, the
+    main width (256) and the narrow width (32), three rounds each on one
+    round cache (the first wave warms up, the second captures, every
+    later one replays), with a blob: every column, the blob and the
+    generator's offset bit for bit.  Then, for the cube's wave at (256,
+    3) in float64, the host time of one replayed wave with its wait and
+    flag read against one eager wave's, and CUDA events around
+    back-to-back replays; the replay's device-only time comes in the last
+    phase.  Returns the records and the timed graph."""
+    from dynesty_tpu_torch.utils.misc import Timings
+    _gauss_setup()
+    cases, timed = [], None
+    seeds = (SEED, SEED + 1, SEED + 2)
+    for kind in ("cube", "ellipsoids"):
+        for dtype in (torch.float64, torch.float32):
+            for q in (STEP_Q, 32):
+                tg, te, cache = Timings(), Timings(), {}
+                got = _capture_waves(_capture_like(False, dtype), kind, q,
+                                     dtype, seeds, cache, tg)
+                ref = _capture_waves(_capture_like(True, dtype), kind, q,
+                                     dtype, seeds, {}, te)
+                same = {"packed": 0, "blob": 0, "offset": 0}
+                for (p, b, off), (pe, be, offe) in zip(got, ref):
+                    same["packed"] += int(_same_bits(
+                        p.cpu().numpy(), pe.cpu().numpy()).all())
+                    same["blob"] += int(_same_bits(
+                        b.cpu().numpy(), be.cpu().numpy()).all())
+                    same["offset"] += int(off == offe)
+                waves = te["sync_wave"]
+                rec = {"kind": kind, "q": q, "ndim": NDIM,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "rounds": len(seeds), "same": same, "waves": waves,
+                       "n_unif_replay": tg.get("n_unif_replay", 0),
+                       "n_unif_graph": tg.get("n_unif_graph", 0),
+                       "n_uncaptured": tg.get("n_uncaptured", 0),
+                       "eager_uncaptured": te.get("n_uncaptured", 0)}
+                cases.append(rec)
+                ok = (all(v == len(seeds) for v in same.values()) and
+                      waves > len(seeds) and rec["n_unif_graph"] == 1 and
+                      rec["n_uncaptured"] == 1 and
+                      rec["n_unif_replay"] + 1 == waves and
+                      rec["eager_uncaptured"] == waves and
+                      tg["sync_wave"] == waves)
+                if not ok:
+                    raise RuntimeError(f"a captured uniform wave differs from "
+                                       f"the eager-launched one: {rec}")
+                if (kind, dtype, q) == ("cube", torch.float64, STEP_Q):
+                    timed = next(iter(cache.values()))
+                print(f"captured-unif {kind} q {q} {rec['dtype']}: "
+                      f"{len(seeds)} rounds bit-identical (columns, blob, "
+                      f"generator offset), waves {waves} = replays "
+                      f"{rec['n_unif_replay']} + warm-up 1  [{card}]")
+    # the host's cost of a wave, replayed and eager, at the cube's shape:
+    # each call waits for the device and reads the flag
+    eager, cache = _capture_like(True, torch.float64), {}
+    _capture_waves(eager, "cube", STEP_Q, torch.float64, (SEED,), cache,
+                   Timings())
+    eager_entry = next(iter(cache.values()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    draw = eager_entry.draws(gen)
+
+    def eager_wave():
+        eager_entry.wave(draw)
+        return bool(eager_entry.rb.done)
+
+    def host_us(fn, n=200):
+        for _ in range(5):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    timing = {"shape": [STEP_Q, NDIM], "kind": "cube", "dtype": "float64",
+              "replay_host_us": host_us(timed.replay),
+              "eager_wave_host_us": host_us(eager_wave),
+              "replay_events_us": 1e3 * _time_ms(timed.graph.replay, 200),
+              "eager_wave_events_us": 1e3 * _time_ms(
+                  lambda: eager_entry.wave(draw), 200)}
+    print(f"captured-unif (256, 3) float64: one wave, host time with its "
+          f"wait and flag read: replay {timing['replay_host_us']:.2f} us, "
+          f"eager {timing['eager_wave_host_us']:.2f} us; events (back to "
+          f"back): replay {timing['replay_events_us']:.2f} us, eager "
+          f"{timing['eager_wave_events_us']:.2f} us  [{card}]")
+    print(json.dumps({"phase": "captured-unif", "card": card,
+                      "cases": cases, "timing": timing}))
+    return {"cases": cases, "timing": timing}, timed
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
@@ -3193,7 +3607,8 @@ def main():
     # phase 1: build every kernel of the path from the checkout's sources,
     # one nvcc for each, all started together
     t0 = time.perf_counter()
-    libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step")
+    libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step",
+            "unif_wave")
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
@@ -3235,6 +3650,11 @@ def main():
 
     # phase 2e: captured walk rounds against eager-launched rounds
     captured_rwalk = captured_rwalk_phase(card, dyt)
+
+    # phase 2f: the uniform wave's kernels against their plain versions,
+    # and captured uniform waves against eager-launched ones
+    unif_cases, unif_calls = unif_kernels_phase(card)
+    captured_unif, unif_timed = captured_unif_phase(card)
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -3300,6 +3720,11 @@ def main():
     if hk.pairwise_min_dist.launches != 0:
         raise RuntimeError("the multi/unif drive launched the friends "
                            "kernel")
+    # its ellipsoid wave, captured, for the last phase's device time
+    heavy_wave = next((g for g in reversed(_UNIF_GRAPHS) if
+                       g.kind == "ellipsoids" and g.graph is not None), None)
+    if heavy_wave is None:
+        raise RuntimeError("the heavy drive captured no ellipsoid wave")
     _print_unif_drive(f"heavy multi/unif nlive={H_NLIVE} (width {H_WIDTH}, "
                       f"depth {H_LAYERS})", heavy, card)
     report_profile(prof, heavy)
@@ -3421,7 +3846,8 @@ def main():
     # phase 18: host-pool, the default path over a pool of two workers
     _zero_counts(hk)
     hostpool = host_pool_drive(dyt)
-    hostpool["launches"] = _counts(hk)
+    # host mode: every wave eager
+    hostpool["launches"] = _counts(hk, eager=True)
     if hk.pairwise_min_dist.launches != 0:
         raise RuntimeError("the host-pool drive launched the friends kernel")
     _print_phase("host-pool", hostpool, card)
@@ -3453,7 +3879,7 @@ def main():
     _zero_counts(hk)
     customresume = resume_drive(dyt, cu_sampler, customunif["niter"] // 2,
                                 nlive=500, bound=Box(NDIM), sample="unif")
-    customresume["launches"] = _counts(hk)
+    customresume["launches"] = _counts(hk, custom=True)
     if customresume["launches"]["launches"] != 0:
         raise RuntimeError("the custom-resume drive launched the NN kernel")
     del cu_sampler
@@ -3502,7 +3928,7 @@ def main():
     # phase 32: the quickstart example on the card
     _zero_counts(hk)
     example = example_quickstart_phase()
-    example["launches"] = _counts(hk)
+    example["launches"] = _counts(hk, raised=True)
     print(json.dumps(dict({"phase": "example-quickstart", "card": card},
                           **example)))
 
@@ -3561,6 +3987,23 @@ def main():
           f"{ct['eager_iteration_host_us']:.2f} us; per launch through the "
           f"wrapper (events): slice_propose {ev['slice_propose']:.2f} us, "
           f"slice_advance {ev['slice_advance']:.2f} us  [{card}]")
+    for name, fn in unif_calls.items():
+        rec = main_unif(unif_cases, name)
+        rec["device_us"] = 1e3 * _device_ms(fn, only=name)
+        print(f"unif wave {name} cube (256, 3) float64 device only: kernel "
+              f"{rec['device_us']:.3f} us  events (through the wrapper) "
+              f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
+              f"floor {floor['device_us']:.3f} us  [{card}]")
+    cu = captured_unif["timing"]
+    cu["replay_device_us"] = 1e3 * _device_ms(unif_timed.graph.replay)
+    heavy["wave_replay_device_ms"] = _device_ms(heavy_wave.graph.replay, 5)
+    print(f"captured-unif replay (256, 3) float64 device only: "
+          f"{cu['replay_device_us']:.3f} us (every kernel of one wave, the "
+          f"likelihood's included); host with its wait and flag read "
+          f"{cu['replay_host_us']:.2f} us, eager wave "
+          f"{cu['eager_wave_host_us']:.2f} us; heavy's ellipsoid wave "
+          f"{tuple(heavy_wave.rb.arrays['ctrs'].shape)} replayed, device "
+          f"only {heavy['wave_replay_device_ms']:.3f} ms  [{card}]")
     consume_device_times(consume, consume_calls, card)
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
@@ -3624,6 +4067,41 @@ def main():
             not any(c["rwalk_propose"] for c in steps_by_drive.values()):
         raise RuntimeError("no drive ran the stepping-out state machine or "
                            "the random walk through their kernels")
+
+    unif_by_drive = {name: {k: d["launches"][k] for k in UNIF_KERNELS + (
+        "sync_wave", "unif_waves", "unif_eager", "unif_warmups",
+        "unif_shapes", "n_unif_replay", "n_unif_graph")}
+        for name, d in drives.items()}
+    print(json.dumps({"unif_wave_launches_by_drive": unif_by_drive,
+                      "card": card}))
+    if not any(c["n_unif_replay"] for c in unif_by_drive.values()):
+        raise RuntimeError("no drive replayed a uniform wave")
+
+    def unif_entry(name):
+        """A wave kernel's line: the cube's wave at (256, 3) in float64,
+        the largest difference over every case."""
+        rec = main_unif(unif_cases, name)
+        by_drive = {k: c[name] for k, c in unif_by_drive.items() if c[name]}
+        return {"name": name, "route": "cuda", "source": UNIF_SOURCE,
+                "replaces": "dynesty_tpu/internal/kernels.py:148"
+                if name == "unif_valid" else
+                "dynesty_tpu/internal/kernels.py:366",
+                **({"replaces_also": ["dynesty_tpu/internal/kernels.py:366"]}
+                   if name == "unif_valid" else {}),
+                "launches": sum(by_drive.values()),
+                "launches_by_drive": by_drive,
+                "max_abs_err": max(c["max_abs_err"] for c in unif_cases
+                                   if c["kernel"] == name),
+                "ms": rec["us"] / 1e3, "plain_ms": rec["plain_us"] / 1e3,
+                "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes this step",
+                "shape": rec["shape"], "dtype": "float64",
+                "device_ms": rec["device_us"] / 1e3,
+                "launch_floor_ms": floor["device_us"] / 1e3,
+                "captured_wave": captured_unif["timing"],
+                "heavy_wave_replay_device_ms":
+                    heavy["wave_replay_device_ms"]}
 
     def step_entry(name):
         """A proposal-step kernel's line: its main drive's shape in
@@ -3697,7 +4175,8 @@ def main():
              "ms", "device_ms", "plain_ms", "byte_bound_ms",
              "chain_bound_ms", "bound_ms", "bound_by", "bound_share")},
          "library_ms": None, "shape": [2048, 256], "path": "thin"},
-    ] + [step_entry(name) for name in STEP_KERNELS]}
+    ] + [step_entry(name) for name in STEP_KERNELS] +
+        [unif_entry(name) for name in UNIF_KERNELS]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3727,6 +4206,9 @@ def main():
                        "proposal_steps": steps,
                        "captured_slice": captured,
                        "captured_rwalk": captured_rwalk,
+                       "unif_waves": unif_cases,
+                       "captured_unif": captured_unif,
+                       "unif_by_drive": unif_by_drive,
                        "launch_floor": floor,
                        "proposal_steps_by_drive": steps_by_drive,
                        "build_seconds": {k: build.build_log[k]["seconds"]

@@ -25,12 +25,13 @@ so that a host-mode likelihood sees exactly those.
 JAX's ``lax.while_loop`` over ``jnp.any(active)`` becomes a Python loop
 that reads its condition from the device once per iteration; each read is
 counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).  The
-slice state machine's and the random walk's per-step updates around each
-likelihood call are the kernels of ``ops/proposals.py`` on the card.  With
-a likelihood on the card the state machine's iteration and the random
-walk's whole walk are captured once per round shape as CUDA graphs and
-replayed (:class:`SliceGraph`, :class:`RWalkGraph`), as the JAX package
-traces its loop bodies once.
+uniform wave's, the slice state machine's and the random walk's updates
+around each likelihood call are the kernels of ``ops/proposals.py`` on
+the card.  With a likelihood on the card the uniform wave, the state
+machine's iteration and the random walk's whole walk are captured once
+per round shape as CUDA graphs and replayed (:class:`UnifGraph`,
+:class:`SliceGraph`, :class:`RWalkGraph`), as the JAX package traces its
+loop bodies once.
 Random numbers come from one explicit ``torch.Generator`` per round, drawn
 in a fixed order and in the kernel's dtype, so a seed reproduces the round.
 """
@@ -42,11 +43,14 @@ import numpy as np
 import torch
 
 from ..ops.geometry import randsphere_batch, unitcheck_batch
-from ..ops.proposals import (RWalkRound, SliceRound, rwalk_accept,
-                             rwalk_propose, slice_advance, slice_propose)
+from ..ops.proposals import (UNIF_ARRAYS, U_FILLED, U_NC, U_PENDING, U_PROP,
+                             RWalkRound, SliceRound, UnifRound, rwalk_accept,
+                             rwalk_propose, slice_advance, slice_propose,
+                             unif_place, unif_valid)
 from ..utils.misc import blob_where, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
+           "UnifGraph", "unif_graph", "unif_waves",
            "make_ellipsoid_refit", "make_rwalk_round", "rwalk_walk",
            "RWalkGraph", "rwalk_graph",
            "make_slice_round", "slice_state_machine", "SliceGraph",
@@ -100,16 +104,6 @@ def _masked_eval(like, u, incube):
     return v.to(u.dtype), logl, blob
 
 
-def _zeros_like_batch(like, q, ndim, dtype, device):
-    """Empty result buffers (u, v, logl, blob) for ``q`` lanes."""
-    u = torch.full((q, ndim), 0.5, dtype=dtype, device=device)
-    v = torch.zeros((q, like.npdim), dtype=dtype, device=device)
-    logl = torch.full((q,), _NEG_INF, dtype=dtype, device=device)
-    blob = like.blob_zeros(q, device) if getattr(like, "blob", False) \
-        else None
-    return u, v, logl, blob
-
-
 def pack_columns(q, dtype, *cols, device=None):
     """Pack per-lane outputs into one (q, W) tensor; scalars (Python
     numbers or 0-d tensors) are broadcast to length-q columns."""
@@ -149,10 +143,12 @@ def pad_ellipsoids(ctrs, axes, ams, logvols, min_pad=1):
 
 def _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype):
     """Draw ``q`` candidates from a union of ellipsoids: volume-weighted
-    ellipsoid choice, a ball sample mapped through its axes, 1/q overlap
-    rejection (with the q==0 round-off rescue).  Random numbers come from
-    ``gen`` in a fixed order: choice, ball, acceptance.  Returns (points
-    (q, ncdim), valid (q,))."""
+    ellipsoid choice, a ball sample mapped through its axes, and what the
+    1/q overlap rejection reads.  Random numbers come from ``gen`` in a
+    fixed order: choice, ball, acceptance.  Returns (points (q, ncdim),
+    their quadratic forms in every slot ``sq`` (q, m), the acceptance
+    uniforms (q,)); :func:`~dynesty_tpu_torch.ops.proposals.unif_valid`
+    counts the slots that hold each point and applies the test."""
     ctrs = arrays["ctrs"].to(dtype)
     axes = arrays["axes"].to(dtype)
     ams = arrays["ams"].to(dtype)
@@ -164,17 +160,10 @@ def _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype):
                             replacement=True, generator=gen)
     ball = randsphere_batch(gen, (q,), ncdim, dtype, device)
     x = ctrs[idx] + torch.einsum("qij,qj->qi", axes[idx], ball)
-
-    # membership count over all (masked) ellipsoids
     d = x[:, None, :] - ctrs[None, :, :]
     sq = torch.einsum("qmi,mij,qmj->qm", d, ams, d)
-    sq = torch.where(mask[None, :], sq, math.inf)
-    nin = (sq < 1.0).sum(dim=1)
-    nin_loose = (sq <= 1.0 + 1e-3).sum(dim=1)
-    nin = torch.where(nin > 0, nin, nin_loose)  # round-off rescue
-    accept = torch.rand((q,), generator=gen, dtype=dtype, device=device) < \
-        1.0 / nin.clamp_min(1).to(dtype)
-    return x, accept & (nin > 0)
+    ua = torch.rand((q,), generator=gen, dtype=dtype, device=device)
+    return x, sq, ua
 
 
 def _sample_friends_union(gen, arrays, q, ncdim, dtype, ftype):
@@ -294,7 +283,7 @@ def make_ellipsoid_refit(ncdim, dtype=torch.float64):
 
 def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
                     ncdim=None, nonbounded=None, max_waves=100000,
-                    timings=None, host_sampler=None):
+                    timings=None, host_sampler=None, rounds=None):
     """Uniform rejection sampling from the unit cube (``bound_kind``
     'cube'), a union of ellipsoids ('ellipsoids'), a union of
     balls/cubes ('balls'/'cubes'), or a user's bound ('custom'), whose
@@ -308,105 +297,40 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
     ``arrays`` is the bound's device dict (ignored for the cube).  The
     bound lives in the first ``ncdim`` dimensions (checked against the
     cube there, loosely where ``nonbounded`` is False); the other
-    ``ndim - ncdim`` are drawn uniformly."""
-    if bound_kind not in ("cube", "ellipsoids", "balls", "cubes", "custom"):
+    ``ndim - ncdim`` are drawn uniformly.  Each wave runs through the
+    kernels of ``ops/proposals.py`` (:func:`unif_waves`); ``timings`` and
+    ``rounds`` are the sampler's (:func:`unif_graph`)."""
+    if bound_kind not in UNIF_ARRAYS:
         raise ValueError(f"unknown bound kind '{bound_kind}'")
     if bound_kind == "custom" and host_sampler is None:
         raise ValueError("a custom bound needs a host_sampler")
     device = torch.device(device)
-    f32 = np.float32
     ncdim = ncdim or ndim
-    n_extra = ndim - ncdim
-    nb_cluster = None if nonbounded is None else \
-        _bool_mask(np.asarray(nonbounded, dtype=bool)[:ncdim], device)
-
-    def draw_cluster(gen, arrays):
-        if bound_kind == "cube":
-            u = torch.rand((q, ncdim), generator=gen, dtype=dtype,
-                           device=device)
-            return u, None
-        if bound_kind == "ellipsoids":
-            return _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype)
-        if bound_kind == "custom":
-            return torch.as_tensor(np.asarray(host_sampler()), dtype=dtype,
-                                   device=device), None
-        return _sample_friends_union(gen, arrays, q, ncdim, dtype,
-                                     bound_kind)
+    # on the host: the round keys its buffers by it and keeps its own copy
+    # on the card
+    nb = None if nonbounded is None else \
+        _bool_mask(np.asarray(nonbounded, dtype=bool)[:ncdim], "cpu")
 
     def round_fn(gen, loglstar, arrays):
-        # one dump row (index q) takes the writes JAX drops with
-        # mode="drop"; it is sliced off at the end
-        bu, bv, bl, bb = _zeros_like_batch(like, q + 1, ndim, dtype,
-                                           device)
-        bnc = torch.zeros((q + 1,), dtype=torch.int64, device=device)
-        lanes = torch.arange(q, device=device)
-        n_filled = waves = nc = n_prop = pending = 0
-        while n_filled < q and waves < max_waves:
-            uc, drawn = draw_cluster(gen, arrays)
-            u_prop = uc if n_extra == 0 else torch.cat([
-                uc, torch.rand((q, n_extra), generator=gen, dtype=dtype,
-                               device=device)], dim=1)
-            # adaptive wave width (float32 arithmetic, as in the JAX
-            # kernel): after the first wave only ~1.25 need/eff + 4 lanes
-            # count as launched proposals
-            if n_filled > 0 and n_prop > 0:
-                need = f32(q - n_filled)
-                eff = f32(n_filled) / max(f32(n_prop), f32(1.0))
-                est = np.ceil(f32(1.25) * need / max(eff, f32(1e-6))) + \
-                    f32(4.0)
-                width = int(min(est, f32(q)))
-            else:
-                width = q
-            valid = (lanes < width) & unitcheck_batch(uc, nb_cluster)
-            if drawn is not None:
-                valid = valid & drawn
-            v_prop, logl_prop, blob_prop = _masked_eval(like, u_prop,
-                                                        valid)
-            success = valid & (logl_prop > loglstar)
-            n_succ, nc_wave = torch.stack(
-                [success.sum(), valid.sum()]).tolist()
-            _count(timings, "sync_wave")
-            rank = torch.cumsum(success, 0) - 1
-            dest = n_filled + rank
-            dest = torch.where(success & (dest < q), dest, q)
-            bu[dest] = u_prop
-            bv[dest] = v_prop
-            bl[dest] = logl_prop
-            tree_map(lambda b, p: b.__setitem__(dest, p), bb, blob_prop)
-            n_new = min(n_succ, q - n_filled)
-            # exact per-slot attribution of the evaluations since the
-            # last successful wave (remainder to the lowest ranks)
-            avail = pending + nc_wave
-            share = avail // max(n_new, 1)
-            rem = avail - share * max(n_new, 1)
-            bnc[dest] = share + (rank < rem).to(torch.int64)
-            pending = 0 if n_new > 0 else avail
-            n_filled += n_new
-            waves += 1
-            nc += nc_wave
-            n_prop += width
-        bnc = bnc[:q].clone()
-        # a failed fill (max_waves hit) leaves unflushed evaluations:
-        # charge them to slot 0 so sum(per-slot nc) == total nc
-        bnc[0] += pending
-        # partial fill: unfilled slots read as rejected proposals
-        bl = torch.where(lanes < n_filled, bl[:q], _NEG_INF)
-        return pack_columns(q, dtype, bu[:q], bv[:q], bl, bnc, nc, n_prop,
-                            n_filled, device=device), \
-            tree_map(lambda b: b[:q], bb)
+        entry = unif_graph(rounds, like, bound_kind, q, ndim, ncdim, dtype,
+                           device, nb, arrays)
+        return unif_waves(entry, gen, loglstar, arrays,
+                          max_waves=max_waves, timings=timings,
+                          host_sampler=host_sampler)
 
     return round_fn
 
 
 # ==========================================================================
-# round buffers captured as CUDA graphs (SliceGraph, RWalkGraph)
+# round buffers captured as CUDA graphs (UnifGraph, SliceGraph, RWalkGraph)
 
 
 class _RoundGraph:
-    """What :class:`SliceGraph` and :class:`RWalkGraph` share: the
-    likelihood, the round's buffers ``rb``, the blob buffers, and on the
-    card, for a likelihood the capture rule allows, a side stream and,
-    once captured, the graph and the generator it draws from."""
+    """What :class:`UnifGraph`, :class:`SliceGraph` and :class:`RWalkGraph`
+    share: the likelihood, the round's buffers ``rb``, the blob buffers,
+    and on the card, for a likelihood the capture rule allows, a side
+    stream and, once captured, the graph and the generator it draws
+    from."""
 
     def __init__(self, like, rb):
         self.like, self.rb = like, rb
@@ -477,6 +401,209 @@ class _RoundGraph:
             main.wait_stream(self.stream)
         self.graph, self.gen = graph, gen
         return True
+
+
+# ==========================================================================
+# uniform rejection waves
+
+
+class UnifGraph(_RoundGraph):
+    """One wave shape of the uniform rejection round on one device: its
+    :class:`~dynesty_tpu_torch.ops.proposals.UnifRound` buffers, its blob
+    slots (q + 1 rows, as the round's), and on the card, for a likelihood
+    that :meth:`~.likelihood.LogLikelihood.capturable` allows and a bound
+    drawn on the card, one wave captured as a CUDA graph (the draws, the
+    union's products, ``unif_valid``, the clamp and the batched
+    likelihood, ``unif_place``, the blob's indexed copy, the done flag's
+    copy to pinned host memory) with the generator it draws from.  A
+    sampler keeps one per wave shape (:func:`unif_graph`); it is never
+    pickled and goes with the sampler."""
+
+    def __init__(self, like, rb, kind):
+        super().__init__(like, rb)
+        self.kind = kind
+        # the first wave of the shape ran eagerly, as the capture's warm-up
+        self.warm = False
+        self.flag = None
+        self.blob = like.blob_zeros(rb.q + 1, rb.device) \
+            if getattr(like, "blob", False) else None
+
+    def draws(self, gen, host_sampler=None):
+        """``draw() -> (uc, sq, ua, accept, u_ex)``: a wave's candidates
+        in the bound's dimensions, what the lane checks read (the
+        ellipsoids' quadratic forms and acceptance uniforms, the friends'
+        acceptance), and the other dimensions' uniforms (None when
+        ``ncdim == ndim``), drawn from ``gen`` in the eager round's order,
+        or over a user's bound from ``host_sampler()``."""
+        rb, kind = self.rb, self.kind
+        q, ncdim, dtype, device = rb.q, rb.ncdim, rb.dtype, rb.device
+        n_extra = rb.ndim - ncdim
+
+        def draw():
+            sq = ua = accept = None
+            if kind == "cube":
+                uc = torch.rand((q, ncdim), generator=gen, dtype=dtype,
+                                device=device)
+            elif kind == "ellipsoids":
+                uc, sq, ua = _sample_ellipsoid_union(gen, rb.arrays, q,
+                                                     ncdim, dtype)
+                sq = sq.contiguous()
+            elif kind == "custom":
+                uc = torch.as_tensor(np.asarray(host_sampler()),
+                                     dtype=dtype, device=device).contiguous()
+            else:
+                uc, accept = _sample_friends_union(gen, rb.arrays, q, ncdim,
+                                                   dtype, kind)
+            u_ex = torch.rand((q, n_extra), generator=gen, dtype=dtype,
+                              device=device) if n_extra > 0 else None
+            return uc, sq, ua, accept, u_ex
+
+        return draw
+
+    def wave(self, draw, check=False):
+        """One wave on the round's buffers, on the current stream: the
+        draws, ``unif_valid``, the likelihood at the clamped candidates
+        (counting the valid lanes), ``unif_place`` and the blob's copy
+        into the slots; with ``check`` (on the card) the draws and the
+        likelihood's outputs are held to what the kernels read."""
+        rb = self.rb
+        uc, sq, ua, accept, u_ex = draw()
+        u_prop = uc if u_ex is None else torch.cat([uc, u_ex], dim=1)
+        check = check and rb.device.type == "cuda"
+        if check:
+            rb.check_draws(uc, sq, ua, accept, u_prop)
+        unif_valid(rb, uc, sq, ua, accept)
+        v, logl, blob = self.like.batch_eval(u_prop.clamp(0.0, 1.0),
+                                             mask=rb.valid)
+        # the round's dtype, in the layout the kernel reads
+        v = v.to(rb.dtype).contiguous()
+        logl = logl.to(rb.dtype).contiguous()
+        if check:
+            rb.check_likelihood(v, logl)
+        unif_place(rb, u_prop, v, logl)
+        if self.blob is not None:
+            tree_map(lambda b, p: b.__setitem__(rb.dest, p), self.blob,
+                     blob)
+
+    def capture(self):
+        """Capture one wave on the side stream; True when it was captured.
+        A capture that raises leaves the wave shape eager (warned once,
+        naming the error) and every count as it was."""
+        rb = self.rb
+        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+
+        def body(gen):
+            self.wave(self.draws(gen))
+            flag.copy_(rb.done, non_blocking=True)
+
+        if not self._capture(body, (unif_valid, unif_place),
+                             "the uniform rejection wave",
+                             (self.kind, rb.q, rb.ndim)):
+            return False
+        # the flag read through a numpy view of the pinned tensor
+        self.flag = (flag, flag.numpy())
+        return True
+
+    def replay(self):
+        """One wave by replay; waits for it and returns the host copy of
+        the done flag."""
+        self.graph.replay()
+        torch.cuda.current_stream(self.rb.device).synchronize()
+        # the replay ran the kernels and the likelihood without Python
+        self.like.ncall_launched += self.rb.q
+        unif_valid.launches += 1
+        unif_place.launches += 1
+        return bool(self.flag[1])
+
+    def finish(self):
+        """The round's result from the device state, no host read: the
+        packed columns (:func:`make_unif_round`) and copies of the blob
+        slots (the next round of the shape refills them).  The
+        evaluations no slot took (a fill cut by the cap on waves) are
+        charged to slot 0, and unfilled slots read logl = -inf."""
+        rb = self.rb
+        q, st, s = rb.q, rb.state, rb.slots
+        bnc = s["nc"][:q].clone()
+        bnc[0] += st[U_PENDING]
+        lanes = torch.arange(q, device=rb.device)
+        bl = torch.where(lanes < st[U_FILLED], s["logl"][:q], _NEG_INF)
+        return pack_columns(q, rb.dtype, s["u"][:q], s["v"][:q], bl, bnc,
+                            st[U_NC], st[U_PROP], st[U_FILLED],
+                            device=rb.device), \
+            tree_map(lambda b: b[:q].clone(), self.blob)
+
+
+def unif_graph(rounds, like, kind, q, ndim, ncdim, dtype, device,
+               strict=None, arrays=None):
+    """The :class:`UnifGraph` of this wave shape from the cache
+    ``rounds`` (a dict a sampler keeps; None: a new one, kept nowhere).
+    The shape includes the bound kind, the cube check's mask (read on the
+    host: give it there), the blob, and the shapes, layouts and dtypes of
+    the bound's arrays that a wave reads (the padded ellipsoid count
+    among them)."""
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in UNIF_ARRAYS[kind]}
+    key = ("unif", kind, q, ndim, ncdim, like.npdim, dtype, str(device),
+           _mask_key(strict), bool(getattr(like, "blob", False))) + \
+        tuple(sorted(layout.items()))
+    entry = None if rounds is None else rounds.get(key)
+    if entry is None or entry.like is not like:
+        entry = UnifGraph(like, UnifRound(q, ndim, ncdim, like.npdim, dtype,
+                                          device, strict, layout), kind)
+        if rounds is not None:
+            rounds[key] = entry
+    return entry
+
+
+def unif_waves(entry, gen, loglstar, arrays, *, max_waves=100000,
+               timings=None, host_sampler=None):
+    """One uniform round on the wave shape ``entry`` (a
+    :class:`UnifGraph`): rejection waves drawn from ``gen`` (over a
+    user's bound from ``host_sampler()``) until every slot is filled or
+    ``max_waves`` waves ran, one host read of the done flag a wave
+    (``sync_wave``).  On the card, with a likelihood that may be captured
+    (:func:`~.likelihood.graph_capturable`) and a bound drawn on the card,
+    each wave runs as one CUDA graph replay (``n_unif_replay``): the first
+    wave of a shape runs eagerly on a side stream as the capture's
+    warm-up, the next captures (``n_unif_graph``); a wave that replays
+    nothing counts ``n_uncaptured``.  Returns the round's ``(packed,
+    blob)`` (:meth:`UnifGraph.finish`)."""
+    rb = entry.rb
+    rb.start(loglstar, arrays, max_waves)
+    if entry.blob is not None:
+        tree_map(lambda b: b.zero_(), entry.blob)
+    on_card = rb.device.type == "cuda"
+    use_graph = host_sampler is None and entry.capturable
+    draw = entry.draws(gen, host_sampler)
+    done, first, replays = max_waves < 1, True, 0
+    while not done:
+        if use_graph and entry.graph is None and entry.warm:
+            use_graph = entry.capture()
+            if use_graph:
+                _count(timings, "n_unif_graph")
+        if use_graph and entry.graph is not None:
+            if not replays:
+                # the graph's generator takes the round's seed and offset
+                entry.gen.manual_seed(gen.initial_seed())
+                entry.gen.set_offset(gen.get_offset())
+            done = entry.replay()
+            replays += 1
+        else:
+            if use_graph:
+                entry.on_side_stream(lambda: entry.wave(draw, check=True))
+                entry.warm = True
+            else:
+                entry.wave(draw, check=first)
+            done = bool(rb.done)
+            if on_card:
+                _count(timings, "n_uncaptured")
+        first = False
+        _count(timings, "sync_wave")
+    if replays:
+        gen.set_offset(entry.gen.get_offset())
+        _count(timings, "n_unif_replay", replays)
+    return entry.finish()
 
 
 # ==========================================================================

@@ -49,9 +49,10 @@ class InternalSampler:
             k: kwargs.get(k)
             for k in ("nonbounded", "periodic", "reflective", "nonperiodic")}
         self._round_cache = {}
-        # the slice state machine's and the random walk's buffers and CUDA
-        # graphs by round shape (kernels.slice_graph, kernels.rwalk_graph:
-        # its keys start with "rwalk"), never pickled
+        # the slice state machine's, the random walk's and the uniform
+        # waves' buffers and CUDA graphs by round shape (kernels.slice_graph,
+        # kernels.rwalk_graph and kernels.unif_graph: their keys start with
+        # "rwalk" and "unif"), never pickled
         self._slice_rounds = {}
 
     def _new_from_template(self, template_kwargs):
@@ -372,6 +373,7 @@ def _unif_propose_fn(sampler, ns, bound_kind):
                             bound_kind=bound_kind, nonbounded=nonbounded,
                             dtype=ns.dtype, device=ns.device,
                             timings=ns.timings,
+                            rounds=sampler._slice_cache(),
                             host_sampler=host_sampler
                             if bound_kind == "custom" else None)
     refit = make_ellipsoid_refit(ncdim, dtype=ns.dtype) \
@@ -407,7 +409,8 @@ class UnitCubeSampler(InternalSampler):
             ("cube", q),
             lambda: make_unif_round(like, ndim=self.ndim, ncdim=self.ndim,
                                     q=q, bound_kind="cube", dtype=ns.dtype,
-                                    device=ns.device, timings=ns.timings))
+                                    device=ns.device, timings=ns.timings,
+                                    rounds=self._slice_cache()))
         return _unif_rows(fn(gen, loglstar, {}), self.ndim, like.npdim, q)
 
     def device_chain_stop_fn(self):
@@ -469,7 +472,8 @@ class UniformBoundSampler(InternalSampler):
                 like, ndim=self.ndim, ncdim=self.ncdim, q=q,
                 bound_kind=kind,
                 nonbounded=self.sampler_kwargs.get("nonbounded"),
-                dtype=ns.dtype, device=ns.device, timings=ns.timings))
+                dtype=ns.dtype, device=ns.device, timings=ns.timings,
+                rounds=self._slice_cache()))
         return _unif_rows(fn(gen, loglstar, ns.device_bound_arrays()),
                           self.ndim, like.npdim, q)
 

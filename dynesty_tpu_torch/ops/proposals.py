@@ -17,7 +17,14 @@ are the kernels here:
 * :func:`rwalk_propose` (the step, the extra dimensions, periodic and
   reflective wrapping, the point clamped into the cube and its cube
   check) and :func:`rwalk_accept` (the likelihood's -inf mask outside the
-  cube, the move, the tallies), ``csrc/rwalk_step.cu``.
+  cube, the move, the tallies), ``csrc/rwalk_step.cu``;
+* :func:`unif_valid` (a uniform wave's lane checks: the wave's width, the
+  cube check, the union of ellipsoids' membership count and overlap test
+  or the friends' acceptance) and :func:`unif_place` (the likelihood's
+  -inf mask, the successes compacted into the round's free slots, the
+  per-slot evaluations, the round's counts, the next wave's width and the
+  done flag), ``csrc/unif_wave.cu``; the JAX package's wave is the body
+  ``:366`` of ``make_unif_round``'s ``lax.while_loop``.
 
 Random draws and the matrix products stay torch calls (their Philox
 streams and reduction orders are torch's own).  On a CUDA tensor each
@@ -25,10 +32,11 @@ wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 version, the eager code the kernel is held against bit for bit.
 
 A slice round runs on a :class:`SliceRound`, a random-walk round on an
-:class:`RWalkRound`: every tensor a step touches, allocated, checked and
-bound to the two kernels' argument tables once per round shape, so that
-a call does only its launch and a step can be captured in a CUDA graph
-(``internal/kernels.py``, ``SliceGraph`` and ``RWalkGraph``).  A round's
+:class:`RWalkRound`, a uniform round on a :class:`UnifRound`: every
+tensor a step touches, allocated, checked and bound to the two kernels'
+argument tables once per round shape, so that a call does only its
+launch and a step can be captured in a CUDA graph (``internal/
+kernels.py``, ``SliceGraph``, ``RWalkGraph`` and ``UnifGraph``).  A round's
 state is a dict of the round's own tensors: the plain version rebinds
 its entries and the wrapper copies them back, the kernel writes them in
 place.
@@ -46,7 +54,9 @@ __all__ = ["SliceRound", "slice_init", "slice_propose",
            "slice_propose_plain", "slice_advance", "slice_advance_plain",
            "RWalkRound", "rwalk_init",
            "rwalk_propose", "rwalk_propose_plain", "rwalk_accept",
-           "rwalk_accept_plain", "zero_counts", "WRAPPERS"]
+           "rwalk_accept_plain", "UnifRound", "UNIF_ARRAYS",
+           "unif_width_plain", "unif_valid", "unif_valid_plain",
+           "unif_place", "unif_place_plain", "zero_counts", "WRAPPERS"]
 
 PH_INIT_L, PH_INIT_R, PH_EXP_L, PH_EXP_R, PH_SHRINK = 0, 1, 2, 3, 4
 _NEG_INF = -math.inf
@@ -552,6 +562,265 @@ def rwalk_accept(rb, v_prop, logl_prop):
 
 
 # --------------------------------------------------------------------------
+# the uniform rejection wave
+
+# the round's state vector: slots filled, waves run, evaluations, lanes
+# launched, evaluations not yet charged to a slot, the next wave's width,
+# the round's cap on waves
+(U_FILLED, U_WAVES, U_NC, U_PROP, U_PENDING, U_WIDTH,
+ U_MAX_WAVES) = range(7)
+# the bound's arrays a wave reads, by bound kind
+UNIF_ARRAYS = {"cube": (), "custom": (),
+               "ellipsoids": ("ctrs", "axes", "ams", "logvols", "mask"),
+               "balls": ("ctrs", "axes", "axes_inv"),
+               "cubes": ("ctrs", "axes", "axes_inv")}
+
+
+def unif_width_plain(q, n_filled, n_prop):
+    """The width of the next wave from the round's ``n_filled`` and
+    ``n_prop`` (int64 tensors): ``q`` until a slot is filled, then ~1.25
+    need / efficiency + 4 lanes, in float32 as the JAX package computes
+    it, so that the lanes past it are masked before their outcome is
+    seen."""
+    f32 = torch.float32
+    need = (q - n_filled).to(f32)
+    eff = n_filled.to(f32) / n_prop.to(f32).clamp_min(1.0)
+    est = torch.ceil(1.25 * need / eff.clamp_min(1e-6)) + 4.0
+    width = torch.minimum(est, torch.tensor(float(q), dtype=f32,
+                                            device=est.device))
+    return torch.where((n_filled > 0) & (n_prop > 0), width.to(torch.int64),
+                       q)
+
+
+def unif_valid_plain(uc, width, strict=None, sq=None, mask=None, ua=None,
+                     accept=None):
+    """Which lanes of a wave count as launched, valid proposals: the lane
+    is below ``width``, its candidate ``uc`` (q, ncdim) is in the cube
+    (loosely where ``strict`` is False), and over a union of ellipsoids
+    (``sq`` (q, m), the candidates' quadratic forms in every slot, ``mask``
+    (m,) the valid slots, ``ua`` (q,) the acceptance uniforms) it lies in
+    ``nin`` > 0 of them (the round-off rescue counting ``sq <= 1 + 1e-3``
+    where no ``sq < 1``) and passes the 1/nin overlap test; over balls and
+    cubes, where ``accept`` (q,) holds.  Returns ``valid`` (q,)."""
+    lanes = torch.arange(uc.shape[0], device=uc.device)
+    valid = (lanes < width) & unitcheck_batch(uc, strict)
+    if sq is not None:
+        sq = torch.where(mask[None, :], sq, math.inf)
+        nin = (sq < 1.0).sum(dim=1)
+        nin_loose = (sq <= 1.0 + 1e-3).sum(dim=1)
+        nin = torch.where(nin > 0, nin, nin_loose)  # round-off rescue
+        valid = valid & (ua < 1.0 / nin.clamp_min(1).to(ua.dtype)) & \
+            (nin > 0)
+    if accept is not None:
+        valid = valid & accept
+    return valid
+
+
+def unif_place_plain(state, slots, valid, u_prop, v_prop, logl_prop,
+                     loglstar):
+    """After the likelihood's ``v_prop`` and raw ``logl_prop`` at the
+    wave's clamped candidates ``u_prop``: mask ``logl_prop`` to -inf off
+    the ``valid`` lanes, place each success (above ``loglstar``) in the
+    next free slot of ``slots`` (``u``, ``v``, ``logl``, ``nc``; row
+    ``q`` takes what no free slot does), split the evaluations since the
+    last successful wave over the slots filled (the remainder to the
+    lowest ranks), and advance the round's ``state`` (int64, ``U_FILLED``
+    ... ``U_MAX_WAVES``).  Returns ``(state, dest, done)``: the new state,
+    each lane's row and whether the round is over."""
+    q = valid.shape[0]
+    n_filled, waves, nc, n_prop, pending, width, max_waves = state.unbind()
+    logl_prop = torch.where(valid, logl_prop, _NEG_INF)
+    success = valid & (logl_prop > loglstar)
+    n_succ, nc_wave = success.sum(), valid.sum()
+    rank = torch.cumsum(success, 0) - 1
+    dest = n_filled + rank
+    dest = torch.where(success & (dest < q), dest, q)
+    slots["u"][dest] = u_prop
+    slots["v"][dest] = v_prop
+    slots["logl"][dest] = logl_prop
+    n_new = torch.minimum(n_succ, q - n_filled)
+    # exact per-slot attribution of the evaluations since the last
+    # successful wave (remainder to the lowest ranks)
+    avail = pending + nc_wave
+    div = n_new.clamp_min(1)
+    share = avail // div
+    rem = avail - share * div
+    slots["nc"][dest] = share + (rank < rem).to(torch.int64)
+    n_filled = n_filled + n_new
+    waves = waves + 1
+    n_prop = n_prop + width
+    new = torch.stack([n_filled, waves, nc + nc_wave, n_prop,
+                       torch.where(n_new > 0, 0, avail),
+                       unif_width_plain(q, n_filled, n_prop), max_waves])
+    return new, dest, (n_filled >= q) | (waves >= max_waves)
+
+
+class UnifRound:
+    """Every tensor a wave of the uniform rejection round touches and
+    that outlives the wave, for one wave shape on one device: the round's
+    ``state`` (int64 (7,): ``U_FILLED`` ... ``U_MAX_WAVES``) and ``done``
+    flag, its threshold ``loglstar`` (0-d), the output ``slots`` (``u``,
+    ``v``, ``logl``, ``nc``, q + 1 rows: row ``q`` takes the successes
+    past the last free slot), the bound's ``arrays`` (laid out as
+    ``arrays_layout`` says: ``{name: (shape, stride, storage offset,
+    dtype)}``, the caller's own layout, so that the union's products read
+    the layout they read before the buffers existed and sum in the order
+    they summed), the cube check's ``strict`` mask, and a wave's outputs
+    (``valid``, ``dest``: each lane's row, for the blob's indexed copy).
+
+    Allocated, checked and, on the card, bound to the two kernels'
+    argument tables once; :meth:`start` loads a round into it,
+    :func:`unif_valid` and :func:`unif_place` run a wave on it.  The buffers keep their
+    addresses for the object's life, which is what lets a wave be
+    captured as a CUDA graph."""
+
+    def __init__(self, q, ndim, ncdim, npdim, dtype, device, strict=None,
+                 arrays_layout=None):
+        fn = "UnifRound"
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{fn}: no kernel for device {device}")
+        if dtype not in _DTYPES:
+            raise TypeError(f"{fn} takes float64 or float32, got {dtype}")
+        if min(q, ncdim) < 1 or ncdim > ndim or npdim < 0:
+            raise ValueError(f"{fn}: bad shape {(q, ndim, ncdim, npdim)}")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.q, self.ndim, self.ncdim, self.npdim = q, ndim, ncdim, npdim
+        self.dtype, self.device = dtype, device
+
+        def e(shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=device)
+
+        self.state = e((7,), torch.int64)
+        self.done = e((), torch.bool)
+        self.loglstar = e(())
+        self.valid, self.dest = e((q,), torch.bool), e((q,), torch.int64)
+        self.slots = {"u": e((q + 1, ndim)), "v": e((q + 1, npdim)),
+                      "logl": e((q + 1,)), "nc": e((q + 1,), torch.int64)}
+        self.arrays = {k: _strided_empty(shape, stride, offset, dt, device)
+                       for k, (shape, stride, offset, dt) in
+                       (arrays_layout or {}).items()}
+        self.m = self.arrays["mask"].shape[0] if "mask" in self.arrays \
+            else 0
+        self.strict = None
+        if strict is not None:
+            if not isinstance(strict, torch.Tensor):
+                raise TypeError(f"{fn}: strict must be a torch.Tensor")
+            self.strict = _fresh(strict.to(device=device, dtype=torch.bool))
+            _check(fn, "strict", self.strict, (ncdim,), torch.bool, device)
+        self._valid_args = self._place_args = None
+        if device.type == "cuda":
+            self._bind()
+
+    def start(self, loglstar, arrays, max_waves):
+        """Load a round: the state of no wave run (the first wave launches
+        every lane), unfilled slots (u 0.5, v 0, logl -inf, nc 0), the
+        threshold (a number or a 0-d tensor) and the bound's arrays,
+        copied once a round."""
+        self.state.copy_(torch.tensor([0, 0, 0, 0, 0, self.q, max_waves],
+                                      dtype=torch.int64))
+        self.done.fill_(max_waves < 1)
+        if isinstance(loglstar, torch.Tensor):
+            self.loglstar.copy_(loglstar)
+        else:
+            self.loglstar.fill_(float(loglstar))
+        for k, fill in (("u", 0.5), ("v", 0.0), ("logl", _NEG_INF),
+                        ("nc", 0)):
+            self.slots[k].fill_(fill)
+        for k, buf in self.arrays.items():
+            buf.copy_(arrays[k])
+
+    def _bind(self):
+        """Fill both kernels' argument tables; a wave's candidates and
+        draws and the likelihood's outputs are written into them at each
+        launch."""
+        s = self.slots
+        valid = (None, None, None, None, self.arrays.get("mask"),
+                 self.strict, self.state, self.valid)
+        place = (self.valid, None, None, None, self.loglstar, self.state,
+                 self.done, s["u"], s["v"], s["logl"], s["nc"], self.dest)
+        self._valid_args = _pointer_table(valid)
+        self._place_args = _pointer_table(place)
+        tag = _DTYPES[self.dtype]
+        self._valid_fn = _entry("unif_wave", "unif_valid", tag)
+        self._place_fn = _entry("unif_wave", "unif_place", tag)
+
+    def check_draws(self, uc, sq, ua, accept, u_prop):
+        """Raise unless a wave's candidates and draws are what the kernels
+        read: ``uc`` (q, ncdim), over ellipsoids ``sq`` (q, m) and ``ua``
+        (q,), over balls and cubes ``accept`` (q,) bool, and ``u_prop``
+        (q, ndim), contiguous tensors of the round's dtype on its
+        device."""
+        q, dt, dev = self.q, self.dtype, self.device
+        _check("unif_valid", "uc", uc, (q, self.ncdim), dt, dev)
+        if (sq is None) != (self.m == 0) or (sq is None) != (ua is None):
+            raise ValueError("unif_valid: sq and ua must be given exactly "
+                             "over a union of ellipsoids")
+        if sq is not None:
+            _check("unif_valid", "sq", sq, (q, self.m), dt, dev)
+            _check("unif_valid", "ua", ua, (q,), dt, dev)
+        if accept is not None:
+            _check("unif_valid", "accept", accept, (q,), torch.bool, dev)
+        _check("unif_place", "u_prop", u_prop, (q, self.ndim), dt, dev)
+
+    def check_likelihood(self, v_prop, logl_prop):
+        """Raise unless the likelihood's outputs are what
+        :func:`unif_place` reads: (q, npdim) and (q,) contiguous tensors
+        of the round's dtype on its device."""
+        for name, t, shape in (("v_prop", v_prop, (self.q, self.npdim)),
+                               ("logl_prop", logl_prop, (self.q,))):
+            _check("unif_place", name, t, shape, self.dtype, self.device)
+
+
+def unif_valid(rb, uc, sq=None, ua=None, accept=None):
+    """A wave's lane checks on the round ``rb`` (a :class:`UnifRound`)
+    for the candidates ``uc`` (q, ncdim), with ``sq`` and ``ua`` over a
+    union of ellipsoids and ``accept`` over balls and cubes:
+    :func:`unif_valid_plain` on the CPU (into ``rb.valid``), on the card
+    the ``unif_valid`` kernel of ``csrc/unif_wave.cu``, which takes the
+    draws as they are (:meth:`UnifRound.check_draws` holds them once a
+    round).  Reads the wave's width from ``rb.state`` and the bound's
+    mask and the cube check's from the round; writes ``rb.valid``."""
+    if rb.device.type == "cpu":
+        rb.valid.copy_(unif_valid_plain(
+            uc, rb.state[U_WIDTH], rb.strict, sq,
+            None if sq is None else rb.arrays["mask"], ua, accept))
+        return
+    table = rb._valid_args
+    for i, t in enumerate((uc, sq, ua, accept)):
+        table[i] = None if t is None else t.data_ptr()
+    _run(rb._valid_fn, table, (rb.q, rb.ncdim, rb.m, 0), rb.device,
+         "unif_valid")
+    unif_valid.launches += 1
+
+
+def unif_place(rb, u_prop, v_prop, logl_prop):
+    """A wave's placement on the round ``rb`` after the likelihood's
+    ``v_prop`` (q, npdim) and raw ``logl_prop`` (q,) at the candidates
+    ``u_prop`` (q, ndim), clamped (in the round's dtype):
+    :func:`unif_place_plain` on the CPU (the state, rows and flag copied
+    into the round's buffers), on the card the ``unif_place`` kernel of
+    ``csrc/unif_wave.cu``, one block that masks ``logl_prop`` off
+    ``rb.valid``, fills the slots and advances ``rb.state`` in place.
+    Writes ``rb.slots``, ``rb.dest``, ``rb.state`` and ``rb.done``."""
+    if rb.device.type == "cpu":
+        st, dest, done = unif_place_plain(rb.state, rb.slots, rb.valid,
+                                          u_prop, v_prop, logl_prop,
+                                          rb.loglstar)
+        rb.state.copy_(st)
+        rb.dest.copy_(dest)
+        rb.done.copy_(done)
+        return
+    table = rb._place_args
+    table[1], table[2], table[3] = (u_prop.data_ptr(), v_prop.data_ptr(),
+                                    logl_prop.data_ptr())
+    _run(rb._place_fn, table, (rb.q, rb.ndim, rb.npdim, 0), rb.device,
+         "unif_place")
+    unif_place.launches += 1
+
+
+# --------------------------------------------------------------------------
 # the kernels
 
 
@@ -603,7 +872,8 @@ def _check(fn, name, t, shape, dtype, device):
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-WRAPPERS = (slice_propose, slice_advance, rwalk_propose, rwalk_accept)
+WRAPPERS = (slice_propose, slice_advance, rwalk_propose, rwalk_accept,
+            unif_valid, unif_place)
 
 
 def zero_counts():

@@ -58,10 +58,15 @@ class Timings(dict):
     captured, one a round shape, each after one warm-up iteration run
     eagerly); the random walk on the card: ``n_rwalk_replay`` (rounds run
     as one replay of the whole walk), ``n_rwalk_graph`` (walks captured,
-    one a round shape, each after one warm-up round run eagerly); and
-    ``n_uncaptured`` (rounds that replayed nothing: a random walk's
-    warm-up round, host mode, the evaluation history, a mesh of several
-    devices, or a capture that raised).  Event lists (:meth:`mark`) hold one entry per event.
+    one a round shape, each after one warm-up round run eagerly); the
+    uniform waves on the card: ``n_unif_replay`` (waves run as one replay
+    of the whole wave), ``n_unif_graph`` (waves captured, one a wave
+    shape, each after one warm-up wave run eagerly); and ``n_uncaptured``
+    (slice and walk rounds, and uniform waves, that replayed nothing: a
+    random walk's warm-up round, a uniform warm-up wave, a wave over a
+    user's bound drawn on the host, host mode, the evaluation history, a
+    mesh of several devices, or a capture that raised).  Event lists
+    (:meth:`mark`) hold one entry per event.
     """
 
     def add(self, key, dt):

@@ -184,8 +184,14 @@ def test_cuda_ellipsoid_union_sampling_uniform(cuda):
     ctrs = np.array([[0.0, 0.0], [1.0, 0.0]])
     mb = MultiEllipsoid(2, ctrs=ctrs, covs=np.array([np.eye(2)] * 2))
     arrays = bound_arrays_to_torch("ellipsoids", mb.device_spec()[1], cuda)
-    x, valid = _sample_ellipsoid_union(torch_generator(56432, cuda), arrays,
-                                       40000, 2, torch.float64)
+    x, sq, ua = _sample_ellipsoid_union(torch_generator(56432, cuda), arrays,
+                                        40000, 2, torch.float64)
+    # the union's overlap test, as unif_valid applies it, without the cube
+    # check (these circles leave the cube)
+    mask = arrays["mask"][None, :]
+    nin = torch.where(((sq < 1.0) & mask).any(1), ((sq < 1.0) & mask).sum(1),
+                      ((sq <= 1.0 + 1e-3) & mask).sum(1))
+    valid = (nin > 0) & (ua < 1.0 / nin.clamp_min(1).to(ua.dtype))
     xs = x[valid].cpu().numpy()
     n = len(xs)
     d2 = ((xs[:, None, :] - ctrs) ** 2).sum(-1)

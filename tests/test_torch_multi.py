@@ -220,11 +220,22 @@ def _two_circles():
     return bound_arrays_to_torch("ellipsoids", mb.device_spec()[1], "cpu")
 
 
+def _union_valid(sq, mask, ua):
+    """The union's overlap test on the draws of ``_sample_ellipsoid_union``
+    (as ``unif_valid`` applies it, without the cube check: these circles
+    leave the cube): in ``nin`` > 0 slots, and ``ua < 1 / nin``."""
+    inside = (sq < 1.0) & mask[None, :]
+    nin = torch.where(inside.any(1), inside.sum(1),
+                      ((sq <= 1.0 + 1e-3) & mask[None, :]).sum(1))
+    return (nin > 0) & (ua < 1.0 / nin.clamp_min(1).to(ua.dtype))
+
+
 def test_ellipsoid_union_sampling_uniform():
     arrays = _two_circles()
     gen = tmisc.torch_generator(SEED, "cpu")
-    x, valid = tk._sample_ellipsoid_union(gen, arrays, 40000, 2,
-                                          torch.float64)
+    x, sq, ua = tk._sample_ellipsoid_union(gen, arrays, 40000, 2,
+                                           torch.float64)
+    valid = _union_valid(sq, arrays["mask"], ua)
     xs = x[valid].numpy()
     n = len(xs)
     d2 = ((xs[:, None, :] - np.array([[0.0, 0.0], [1.0, 0.0]])) ** 2).sum(-1)

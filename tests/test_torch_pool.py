@@ -11,6 +11,7 @@ hand ``loglike_pid`` itself to the sampler, which maps it over the same
 workers by reference.
 """
 
+import multiprocessing as mp
 import os
 import pickle
 import time
@@ -55,6 +56,14 @@ def worker_state(_):
     return torch.cuda.is_initialized(), os.getpid()
 
 
+def meet(barrier):
+    """Wait until every task of the map has reached a worker, then give
+    this worker's PID: with as many tasks as workers, each worker holds
+    one task until all are held, so no worker can take two."""
+    barrier.wait(timeout=60)
+    return os.getpid()
+
+
 @pytest.fixture(scope="module")
 def pool():
     with Pool(2, loglike_plain, ptform) as p:
@@ -87,14 +96,22 @@ def _host(loglike, pool, **kw):
 
 
 def test_pool_pid_distinct(pool):
-    """Evaluations run in the two workers, none in the parent."""
+    """Evaluations run in the pool's workers, none in the parent, and the
+    pool's two workers are two processes that both take tasks.  Which
+    worker takes a chunk of an evaluation map is the scheduler's choice
+    (one may take them all on a loaded host), so the two workers' PIDs
+    come from a map whose tasks wait for each other."""
+    workers = {p.pid for p in pool.pool._pool}
+    assert len(workers) == 2 and os.getpid() not in workers
     samp = _host(loglike_pid, pool, blob=True)
     _quiet(samp.run_nested, print_progress=False, maxiter=200,
            add_live=False)
-    pids = np.unique(np.asarray(samp.results.blob, dtype=np.int64))
-    assert len(pids) >= 2, pids
-    assert os.getpid() not in pids
-    assert os.getpid() not in samp.live_blobs.astype(np.int64)
+    pids = set(np.unique(np.asarray(samp.results.blob, dtype=np.int64)))
+    pids |= set(np.unique(samp.live_blobs.astype(np.int64)))
+    assert pids and pids <= workers, (pids, workers)
+    with mp.get_context("spawn").Manager() as manager:
+        barrier = manager.Barrier(2)
+        assert set(pool.map(meet, [barrier] * 2)) == workers
 
 
 def test_workers_never_initialise_cuda(pool):
