@@ -1,7 +1,7 @@
-"""Time the uniform rejection waves of a checkout on the card, end to end:
-three drives of ``chip_smoke.py`` on the 3-D correlated Gaussian (rho =
-0.95, prior box +-10, seed 56432), each a default ``NestedSampler``
-whose waves are ``unif``:
+"""Time the uniform rejection waves and the doubling slice round of a
+checkout on the card, end to end: drives of ``chip_smoke.py`` on the 3-D
+correlated Gaussian (rho = 0.95, prior box +-10, seed 56432).  Three whose
+waves are ``unif``:
 
 * heavy: the JAX package's heavy bench, ``nlive=3000, bound='multi',
   sample='unif', queue_size=256, rounds_per_dispatch=12``, the Gaussian
@@ -12,20 +12,30 @@ whose waves are ``unif``:
 * balls: ``nlive=2048, bound='balls', sample='rslice'``, whose unit-cube
   phase is its only ``unif`` work.
 
+And two with the sampler given as ``RSliceSampler(slice_doubling=True)``
+(``bench_doubling_graph.py`` runs these by default):
+
+* doubling: ``nlive=500, bound='single'`` (the smoke's phase 11);
+* doubling-balls: ``nlive=2048, bound='balls'`` (phase 11b, the main
+  path's width).
+
     python3 bench_unif_graph.py [--root DIR] [--out FILE] [--no-profile]
                                 [--drives heavy,default,balls]
 
 For each drive: wall, ``Timings['dispatch']``, the waves (``sync_wave``:
 one flag read a wave in both the eager and the captured round), the
 uniform rounds and the host ms a wave spends in their calls (counted at
-``make_unif_round``'s round function, which every version has), niter,
-ncall, logz and logzerr (so that two checkouts can be held to the same
-run), and the capture counters where the checkout has them.  Then the
-drive once more under ``torch.profiler`` (device activity only): the
-device's busy time (the union of its kernels' and copies' intervals),
-over the profiled drive's wall and over the unprofiled one's, and so its
-idle share.  The profiler slows the host, so the share over the profiled
-wall is an upper bound on the unprofiled drive's.
+``make_unif_round``'s round function, which every version has), the
+slice rounds' flag reads (``sync_slice``: one a loop turn in both the
+eager and the captured round) and the dispatch ms a read, niter, ncall,
+logz and logzerr, ``sync_round``, ``n_round``, ``n_refit`` and
+``nc_launched`` (so that two checkouts can be held to the same run), and
+the capture counters where the checkout has them.  Then the drive once
+more under ``torch.profiler`` (device activity only): the device's busy
+time (the union of its kernels' and copies' intervals), over the
+profiled drive's wall and over the unprofiled one's, and so its idle
+share.  The profiler slows the host, so the share over the profiled wall
+is an upper bound on the unprofiled drive's.
 
 ``--root`` imports ``dynesty_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive`` into the git-ignored
@@ -113,19 +123,33 @@ def count_rounds():
     tk.make_unif_round = ts.make_unif_round = make_unif_round
 
 
+def _doubling(nlive, bound):
+    def drive(dyt):
+        return gauss_loglike, dict(
+            nlive=nlive, bound=bound,
+            sample=dyt.internal.samplers.RSliceSampler(slice_doubling=True))
+    return drive
+
+
 DRIVES = {
-    "heavy": lambda: (heavy_loglike(), dict(
+    "heavy": lambda dyt: (heavy_loglike(), dict(
         nlive=3000, bound="multi", sample="unif", queue_size=256,
         rounds_per_dispatch=12)),
-    "default": lambda: (gauss_loglike, {}),
-    "balls": lambda: (gauss_loglike, dict(nlive=2048, bound="balls",
-                                          sample="rslice")),
+    "default": lambda dyt: (gauss_loglike, {}),
+    "balls": lambda dyt: (gauss_loglike, dict(nlive=2048, bound="balls",
+                                              sample="rslice")),
+    "doubling": _doubling(500, "single"),
+    "doubling-balls": _doubling(2048, "balls"),
 }
+KEYS = ("dispatch", "refit", "consume", "total", "n_round", "sync_round",
+        "sync_wave", "sync_slice", "n_refit", "nc_launched", "n_unif_replay",
+        "n_unif_graph", "n_uncaptured", "n_slice_replay",
+        "n_doubling_replay", "n_doubling_graph")
 
 
 def run_drive(dyt, name, profile=False):
     _ROUNDS.update(rounds=0, host_s=0.0)
-    loglike, kw = DRIVES[name]()
+    loglike, kw = DRIVES[name](dyt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sampler = dyt.NestedSampler(
@@ -142,17 +166,15 @@ def run_drive(dyt, name, profile=False):
         prof.__exit__(None, None, None)
     wall = time.perf_counter() - t0
     res, t = sampler.results, sampler.timings
-    keys = ("dispatch", "refit", "consume", "total", "n_round", "sync_wave",
-            "sync_slice", "n_unif_replay", "n_unif_graph", "n_uncaptured",
-            "n_slice_replay")
-    waves = t.get("sync_wave", 0)
+    waves, reads = t.get("sync_wave", 0), t.get("sync_slice", 0)
     out = {"wall_s": wall, "niter": int(res.niter),
            "ncall": int(sampler.ncall), "logz": float(res.logz[-1]),
            "logzerr": float(res.logzerr[-1]),
            "unif_rounds": _ROUNDS["rounds"], "waves": waves,
            "unif_host_ms_per_wave": 1e3 * _ROUNDS["host_s"] / max(waves, 1),
            "unif_host_s": _ROUNDS["host_s"],
-           "timings": {k: t[k] for k in keys if k in t}}
+           "dispatch_ms_per_read": 1e3 * t["dispatch"] / max(reads, 1),
+           "timings": {k: t[k] for k in KEYS if k in t}}
     if prof is not None:
         spans = sorted((e.time_range.start, e.time_range.end)
                        for e in prof.events() if e.device_type.name == "CUDA")
@@ -167,19 +189,20 @@ def run_drive(dyt, name, profile=False):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(prog="bench_unif_graph", default_drives="heavy,default,balls"):
+    ap = argparse.ArgumentParser(prog=prog,
+                                 description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="checkout whose dynesty_tpu_torch is timed")
     ap.add_argument("--out", help="also write the records here")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the profiled drives")
-    ap.add_argument("--drives", default="heavy,default,balls",
+    ap.add_argument("--drives", default=default_drives,
                     help="comma-separated drives among "
                     f"{', '.join(DRIVES)}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("bench_unif_graph: CUDA is not available")
+        raise SystemExit(f"{prog}: CUDA is not available")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import dynesty_tpu_torch as dyt
@@ -201,6 +224,12 @@ def main():
     dyt.NestedSampler(gauss_loglike, box_ptform, NDIM, nlive=500,
                       rstate=np.random.Generator(np.random.PCG64(SEED))
                       ).run_nested(print_progress=False, maxiter=3000)
+    if any(d.startswith("doubling") for d in drives):
+        dyt.NestedSampler(
+            gauss_loglike, box_ptform, NDIM, nlive=200, bound="single",
+            sample=dyt.internal.samplers.RSliceSampler(slice_doubling=True),
+            rstate=np.random.Generator(np.random.PCG64(SEED))
+        ).run_nested(print_progress=False, maxiter=300)
     count_rounds()
     for name in drives:
         recs[name] = run_drive(dyt, name)

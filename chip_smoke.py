@@ -83,7 +83,24 @@ Phases, in order; any failure raises and exits non-zero:
    rounds each on one round cache with a blob: every column, the blob and
    the generator's offset bit for bit, every wave but the warm-up a
    replay; the host time of one replayed wave with its wait and flag read
-   against an eager wave's.
+   against an eager wave's.  Then the doubling round
+   (``doubling_kernels_phase``): ``doubling_point`` (each mode),
+   ``doubling_expand``, ``doubling_halve`` and ``doubling_shrink`` against
+   their plain versions on hand-made states of 256 lanes (lanes that
+   double, shrink and halve and lanes that do not, ``grow`` at its clamp,
+   -inf and threshold values, a candidate on its interval's end) at 3 and
+   15 dimensions, without and with a strict mask, float64 and float32:
+   every entry of the state bit for bit, the kernels' and the plain
+   versions' time per call (events) and the byte bound.  Then
+   captured-doubling (``captured_doubling_phase``): doubling rounds whose
+   five segments (the step's start, a doubling, a shrink candidate, a
+   halving, a shrink's resolution) are captured as CUDA graphs sharing
+   one generator and replayed, against the same rounds launched eagerly,
+   rslice and slice, float64 and float32, widths 256 and 32, three rounds
+   each with a blob and a strict mask: every column, the blob and the
+   generator's offset bit for bit, every segment but one warm-up of each
+   kind a replay; each segment's host time replayed (with its wait and
+   flag read) against eager.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -112,7 +129,11 @@ Phases, in order; any failure raises and exits non-zero:
     3-D Gaussian: the exact L2 path must run, and every refit must agree
     with the plain version.
 11. The single/rslice nlive=500 drive with the sampler given as
-    ``RSliceSampler(slice_doubling=True)``: the doubling barrier form.
+    ``RSliceSampler(slice_doubling=True)``: the doubling barrier form,
+    every segment replayed but one warm-up of each kind.  11b.
+    doubling-balls: the same sampler at the main path's width
+    (``nlive=2048, bound='balls'``, q 256), its refits through the exact
+    L2 path; the evidence gate.
 12. Resume on the card: the balls/rslice drive of phase 3 stopped at half
     its iterations, saved, restored and resumed must equal phase 3's
     uninterrupted run bit for bit (niter, ncall, logl, logz, samples).
@@ -196,9 +217,11 @@ Phases, in order; any failure raises and exits non-zero:
     default path has no refit after its first planned dispatch.
 32. example-quickstart: ``examples/torch_quickstart.py`` on the card, its
     static run within 4 and its dynamic run within 5 logzerr of the truth.
-    Its likelihood copies a host constant to the card at every call,
+    Its likelihood keeps its constant on the card: no capture may warn,
+    and every wave but one warm-up a shape replays.  32b. uncapturable: a
+    likelihood that copies a host constant to the card at every call,
     which no CUDA graph may hold: each wave shape's capture must raise and
-    be warned, and every wave run eagerly through both wave kernels.
+    be warned once, and every wave run eagerly through both wave kernels.
 33. queue-balls: the balls drive with ``proposal_mode='queue'`` (q =
     256): every consume launch on the general path at nlive 2048, the
     evidence gate; then the same drive with every round's consume sent
@@ -214,8 +237,9 @@ Phases, in order; any failure raises and exits non-zero:
     launch floor, of one replay of the captured slice iteration at (256,
     3) and of the captured walk at (256, 15), of the two wave kernels at
     (256, 3), of one replayed uniform wave over the cube at (256, 3) and
-    of one of the heavy drive's ellipsoid waves, and of one 256-lane
-    evaluation of the heavy likelihood.
+    of one of the heavy drive's ellipsoid waves, of the four doubling
+    kernels at (256, 3) and of each replayed doubling segment, and of one
+    256-lane evaluation of the heavy likelihood.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
@@ -237,7 +261,14 @@ and every wave but the warm-up wave of each shape is a replay
 (``n_unif_replay``), but on host-pool and host-balls (host mode: every
 wave eager) and the waves over custom-unif's box, drawn on the host; a
 wave run eagerly counts ``n_uncaptured``.  One JSON line lists them by
-drive.
+drive.  Every segment of the doubling round launches its kernels once
+(``doubling_point`` twice at a step's start, none at a resolution) and
+every flag read but the shrink loop's first (always true, read from no
+device) follows one segment: on every drive ``doubling_expand +
+doubling_halve + doubling_shrink`` == the segments == ``sync_slice`` less
+one a slice step, and each kernel's launches equal its segments'; on the
+two doubling drives every segment replays but one warm-up of each kind a
+round shape.  One JSON line lists them by drive.
 Every drive counts the consume kernel's launches, split into thin and
 general on the device, from zero just before it to just after: they must
 equal the fused rounds its samplers consumed (their ``n_round``), and be
@@ -450,7 +481,7 @@ def count_rounds():
 # (sync_wave)
 CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_rwalk_replay",
                   "n_rwalk_graph", "n_unif_replay", "n_unif_graph",
-                  "n_uncaptured")
+                  "n_doubling_replay", "n_doubling_graph", "n_uncaptured")
 # rounds of the slice state machine and its iterations (its flag reads,
 # less the one that ends each round), the random walk's rounds, its round
 # shapes (buffers made), its steps (run eagerly one by one, or a replay's
@@ -458,12 +489,19 @@ CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_rwalk_replay",
 # that may be captured (buffers made for a bound drawn on the card and a
 # likelihood the capture rule allows), their waves (run eagerly, or
 # replayed), the waves run eagerly and the warm-up waves among them; and
-# the capture counts, since the counts were last zeroed, tallied by
-# count_proposal_loops() and count_rounds()
+# the capture counts; the doubling round's rounds, slice steps, flag reads,
+# round shapes that may be captured, segments by kind, segments run
+# eagerly and the warm-ups among them; since the counts were last zeroed,
+# tallied by count_proposal_loops() and count_rounds()
 _LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
                         "rwalk_shapes", "rwalk_steps", "rwalk_due",
                         "unif_shapes", "unif_waves", "unif_eager",
-                        "unif_warmups", "sync_wave") + CAPTURE_COUNTS, 0)
+                        "unif_warmups", "sync_wave", "doubling_rounds",
+                        "doubling_steps", "doubling_reads",
+                        "doubling_shapes", "seg_start", "seg_double",
+                        "seg_candidate", "seg_halve", "seg_resolve",
+                        "doubling_eager", "doubling_warmups") +
+                       CAPTURE_COUNTS, 0)
 # the per-step kernels' launch counts in a drive's counts
 STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
                 "rwalk_accept")
@@ -548,6 +586,45 @@ def count_proposal_loops():
     ug.__init__, ug.wave, ug.replay = unif_init, unif_wave, unif_replay
     ug.on_side_stream = unif_side
 
+    # the doubling round: its rounds, slice steps and flag reads; every
+    # segment is one call of DoublingGraph.run, run eagerly (a warm-up on
+    # the side stream among them) or replayed
+    d_round, dg = tk.doubling_round, tk.DoublingGraph
+    d_init, d_run, d_replay = dg.__init__, dg.run, dg.replay
+    d_side = dg.on_side_stream
+
+    def doubling_round(like, directions, draw, *a, timings=None, **kw):
+        _LOOPS["doubling_rounds"] += 1
+        _LOOPS["doubling_steps"] += directions.shape[1]
+        n0 = timings.get("sync_slice", 0) if timings is not None else 0
+        out = d_round(like, directions, draw, *a, timings=timings, **kw)
+        if timings is not None:
+            _LOOPS["doubling_reads"] += timings["sync_slice"] - n0
+        return out
+
+    def doubling_init(self, like, rb):
+        d_init(self, like, rb)
+        if self.capturable:
+            _LOOPS["doubling_shapes"] += 1
+
+    def doubling_run(self, name, *a, **kw):
+        _LOOPS["seg_" + name] += 1
+        _LOOPS["doubling_eager"] += 1
+        return d_run(self, name, *a, **kw)
+
+    def doubling_replay(self, name, gen):
+        _LOOPS["doubling_eager"] -= 1
+        return d_replay(self, name, gen)
+
+    def doubling_side(self, fn):
+        _LOOPS["doubling_warmups"] += 1
+        return d_side(self, fn)
+
+    tk.doubling_round = doubling_round
+    dg.__init__, dg.run, dg.replay = doubling_init, doubling_run, \
+        doubling_replay
+    dg.on_side_stream = doubling_side
+
 
 def _zero_counts(hk):
     k = hk.pairwise_min_dist
@@ -613,8 +690,41 @@ def _counts(hk, eager=False, custom=False, raised=False):
         mode = "eager" if eager else "captured"
         raise RuntimeError(f"the uniform waves did not run as the capture "
                            f"rule says ({mode}): {out}")
+    # the doubling round: each segment launches its kernels once (a
+    # replay counting its segment's launches), every slice step starts
+    # with one start segment, and each flag read but the shrink loop's
+    # first (always true, read from no device) follows one segment
+    segs = sum(out["seg_" + n] for n in DOUBLING_SEGMENTS)
+    if not (out["doubling_expand"] + out["doubling_halve"] +
+            out["doubling_shrink"] == segs and
+            out["doubling_point"] == segs - out["seg_resolve"] +
+            out["seg_start"] and
+            out["doubling_expand"] == out["seg_start"] + out["seg_double"] and
+            out["doubling_halve"] == out["seg_halve"] and
+            out["doubling_shrink"] == out["seg_candidate"] +
+            out["seg_resolve"] and
+            out["seg_start"] == out["doubling_steps"] and
+            out["doubling_reads"] == segs + out["doubling_steps"]):
+        raise RuntimeError(f"doubling kernel launches and the round's "
+                           f"segments and reads differ: {out}")
+    if out["doubling_rounds"]:
+        if eager:
+            ok = out["n_doubling_replay"] == out["n_doubling_graph"] == \
+                out["doubling_warmups"] == 0 and \
+                out["doubling_eager"] == segs
+        else:
+            # every segment replayed but one warm-up of each kind a shape
+            ok = out["n_doubling_replay"] > 0 and \
+                out["doubling_eager"] == out["doubling_warmups"] <= \
+                len(DOUBLING_SEGMENTS) * out["doubling_shapes"] and \
+                out["n_doubling_graph"] <= out["doubling_warmups"] and \
+                out["n_doubling_replay"] + out["doubling_eager"] == segs
+        if not ok:
+            mode = "eager" if eager else "captured"
+            raise RuntimeError(f"the doubling rounds did not run as the "
+                               f"capture rule says ({mode}): {out}")
     # the slice and walk rounds that replayed nothing
-    rest = out["n_uncaptured"] - out["unif_eager"]
+    rest = out["n_uncaptured"] - out["unif_eager"] - out["doubling_eager"]
     if out["slice_rounds"]:
         if eager:
             ok = out["n_slice_replay"] == out["n_slice_graph"] == 0 and \
@@ -651,6 +761,7 @@ def _gauss_setup():
     cov = np.identity(NDIM)
     cov[cov == 0] = 0.95
     _GAUSS["cinv"] = torch.as_tensor(np.linalg.inv(cov), device="cuda")
+    _GAUSS["cinv_host"] = _GAUSS["cinv"].cpu()
     _GAUSS["lnorm"] = -0.5 * (np.log(2 * np.pi) * NDIM +
                               np.log(np.linalg.det(cov)))
 
@@ -1870,7 +1981,9 @@ def pipeline_resume_drive(dyt):
 def example_quickstart_phase():
     """``examples/torch_quickstart.py`` on the card, through its own
     ``main``: the static run within 4 and the dynamic run within 5 of their
-    errors of the truth.  Its progress bars go to a buffer."""
+    errors of the truth, and no capture warned (its likelihood keeps its
+    constant on the card, so its waves replay; the caller holds the
+    counts to that).  Its progress bars go to a buffer."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "examples", "torch_quickstart.py")
@@ -1898,13 +2011,11 @@ def example_quickstart_phase():
            "dynamic_ncall": int(dns.ncall), "dynamic_pull": pulls[1],
            "batches": int(dns.batch),
            "n_prelaunch": sampler.timings.get("n_prelaunch", 0),
-           # its likelihood copies a host constant to the card at every
-           # call, which no CUDA graph may hold: each wave shape's capture
-           # raises, is warned, and its waves run eagerly
            "capture_warnings": len(captures),
-           "capture_error": captures[0] if captures else None}
+           "n_unif_replay": sampler.timings.get("n_unif_replay", 0) +
+           dns.timings.get("n_unif_replay", 0)}
     if out["devices"] != ["cuda", "cuda"] or abs(pulls[0]) >= 4 or \
-            abs(pulls[1]) >= 5 or not captures:
+            abs(pulls[1]) >= 5 or captures or out["n_unif_replay"] < 1:
         raise RuntimeError(f"the quickstart example failed: {out}")
     return out
 
@@ -2973,17 +3084,19 @@ def _capture_like(eager, dtype):
     return like
 
 
-def _capture_rounds(like, kind, slices, q, dtype, seeds, cache, timings):
-    """``len(seeds)`` slice rounds of ``q`` lanes on one round cache: the
-    balls drive's Gaussian with a blob, a ``nonperiodic`` (strict) mask
-    with one loose dimension, starts around the peak above the round's
-    threshold.  Returns each round's packed columns, blob and generator
-    offset."""
+def _capture_rounds(like, kind, slices, q, dtype, seeds, cache, timings,
+                    doubling=False):
+    """``len(seeds)`` slice rounds of ``q`` lanes on one round cache (in
+    the doubling form where ``doubling``): the balls drive's Gaussian with
+    a blob, a ``nonperiodic`` (strict) mask with one loose dimension,
+    starts around the peak above the round's threshold.  Returns each
+    round's packed columns, blob and generator offset."""
     from dynesty_tpu_torch.internal import kernels as tk
     fn = tk.make_slice_round(like, ndim=NDIM, q=q, slices=slices, kind=kind,
                              dtype=dtype, device="cuda",
                              nonperiodic=[True, False, True],
-                             timings=timings, rounds=cache)
+                             doubling=doubling, timings=timings,
+                             rounds=cache)
     outs = []
     for seed in seeds:
         rs = np.random.Generator(np.random.PCG64(seed))
@@ -3580,6 +3693,410 @@ def captured_unif_phase(card):
     return {"cases": cases, "timing": timing}, timed
 
 
+# --------------------------------------------------------------------------
+# the doubling slice round's kernels against their plain versions, and the
+# captured round
+
+
+DOUBLING_SOURCE = "dynesty_tpu_torch/csrc/slice_doubling.cu"
+DOUBLING_KERNELS = ("doubling_point", "doubling_expand", "doubling_halve",
+                    "doubling_shrink")
+# the JAX code each replaces (dynesty_tpu/internal/kernels.py)
+DOUBLING_REPLACES = {
+    "doubling_point": ("dynesty_tpu/internal/kernels.py:555",
+                       [":594-607", ":646-649", ":574", ":673"]),
+    "doubling_expand": ("dynesty_tpu/internal/kernels.py:640",
+                        [":594-607", ":640-655"]),
+    "doubling_halve": ("dynesty_tpu/internal/kernels.py:569",
+                       [":569-585"]),
+    "doubling_shrink": ("dynesty_tpu/internal/kernels.py:670",
+                        [":670-693", ":678-682"])}
+# (ndim, strict mask) of the kernels' cases: the doubling drives' 3-D and
+# 15-D, each without a mask and with every third dimension loose
+DOUBLING_CASES = [(3, False), (3, True), (15, False), (15, True)]
+# each kernel's calls: (mode, the flag the kernel before it clears)
+DOUBLING_CALLS = {
+    "doubling_point": [(m, None) for m in range(5)],
+    "doubling_expand": [(0, "any"), (1, "any")],
+    "doubling_halve": [(None, "any")],
+    "doubling_shrink": [(0, "any"), (1, "any_shrink")]}
+# the mode each kernel is timed in: a doubling's probe and its update, a
+# halving, a shrink candidate's outcome
+DOUBLING_TIMED = {"doubling_point": 2, "doubling_expand": 1,
+                  "doubling_halve": None, "doubling_shrink": 0}
+DOUBLING_NSTEPS = 6
+DOUBLING_SEGMENTS = ("start", "double", "candidate", "halve", "resolve")
+
+
+def doubling_state(q, ndim, npdim, dtype, seed=SEED):
+    """A hand-made doubling round state and a segment's inputs on the
+    card: lanes that double, shrink and halve and lanes that do not,
+    intervals on both sides of 0 wide enough for the points to leave the
+    cube, ``grow`` at and next to its clamp, end values of -inf and at the
+    threshold, a draw of 0 (a candidate on its interval's left end) and
+    draws of exactly 0.5 (the doubling's side)."""
+    rs = np.random.Generator(np.random.PCG64(seed))
+    lane = np.arange(q)
+    i64, ls = torch.int64, STEP_LOGLSTAR
+    vals = [-math.inf, -1.0, ls, 1.0, 3.0]
+    left, right = -rs.random(q) * 3.0, rs.random(q) * 3.0
+    st = pr._doubling_state(q, ndim, npdim, dtype, "cuda")
+
+    def t(a, dt=dtype):
+        return _cuda_t(a, dt)
+
+    def mask(p):
+        return t(rs.random(q) < p, torch.bool)
+
+    st.update({
+        "u": t(rs.random((q, ndim))), "v": t(rs.random((q, npdim))),
+        "logl": t(rs.normal(size=q)), "u0": t(rs.random((q, ndim))),
+        "dir": t(rs.normal(size=(q, ndim)) * 0.3),
+        "u_c": t(rs.random((q, ndim))), "v_c": t(rs.random((q, npdim))),
+        "logl_c": t(rs.choice(vals, q)),
+        "left": t(left), "right": t(right),
+        "fl": t(rs.choice(vals, q)), "fr": t(rs.choice(vals, q)),
+        "sl": t(left * rs.random(q)), "sr": t(right * rs.random(q)),
+        "lhat": t(left * rs.random(q)), "rhat": t(right * rs.random(q)),
+        "f_lhat": t(rs.choice(vals, q)), "f_rhat": t(rs.choice(vals, q)),
+        "x1": t(rs.uniform(-3.0, 3.0, q)), "uclamp": t(np.zeros((q, ndim))),
+        "nc": t(rs.integers(0, 50, q), i64),
+        "n_exp": t(rs.integers(0, 50, q), i64),
+        "n_con": t(rs.integers(0, 50, q), i64),
+        "grow": t(rs.choice([1, 2, 1 << 29, 1 << 30], q), i64),
+        "d_nc": t(rs.integers(0, 5, q), i64),
+        "active": mask(0.7), "s_active": mask(0.7), "h_active": mask(0.6),
+        "good": mask(0.5), "dflag": mask(0.3), "reject": mask(0.2),
+        "newly": mask(0.5), "incube": mask(0.8), "incube_l": mask(0.8),
+        "step": t([DOUBLING_NSTEPS - 2], i64)})
+    st["any"].fill_(True)
+    st["any_shrink"].fill_(True)
+    draw = rs.random(q)
+    draw[lane % 9 == 0] = 0.5
+    draw[lane % 11 == 1] = 0.0
+    inp = {"directions": t(rs.normal(size=(q, DOUBLING_NSTEPS, ndim)) * 0.4),
+           "draw": t(draw), "loglstar": t(ls),
+           "strict": t(np.arange(ndim) % 3 != 2, torch.bool),
+           "logl_x": t(rs.choice(vals + [0.5, 2.0, math.inf], q)),
+           "logl_l": t(rs.choice(vals + [0.5, 2.0], q)),
+           "v_x": t(rs.random((q, npdim)))}
+    return st, inp
+
+
+def doubling_round_on_card(st, inp, strict):
+    """A ``DoublingRound`` on the card holding the hand-made state and a
+    segment's inputs."""
+    q, n_steps, ndim = inp["directions"].shape
+    rb = pr.DoublingRound(q, n_steps, ndim, st["v"].shape[1],
+                          inp["directions"].dtype, "cuda",
+                          inp["strict"] if strict else None)
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.directions.copy_(inp["directions"])
+    rb.draw.copy_(inp["draw"])
+    rb.loglstar.copy_(inp["loglstar"])
+    return rb
+
+
+def _doubling_call(rb, name, mode, inp):
+    """Kernel ``name`` in ``mode`` through its wrapper on ``rb``."""
+    if name == "doubling_point":
+        return lambda: pr.doubling_point(rb, mode)
+    if name == "doubling_expand":
+        return lambda: pr.doubling_expand(rb, mode, inp["logl_x"],
+                                          inp["logl_l"])
+    if name == "doubling_halve":
+        return lambda: pr.doubling_halve(rb, inp["logl_x"])
+    return lambda: pr.doubling_shrink(rb, mode, inp["v_x"], inp["logl_x"])
+
+
+def _doubling_plain(st, rb, name, mode, inp):
+    """Kernel ``name``'s plain version in ``mode`` on the state ``st``,
+    with ``rb``'s inputs."""
+    if name == "doubling_point":
+        pr.doubling_point_plain(st, mode, rb.draw, rb.directions, rb.strict)
+    elif name == "doubling_expand":
+        pr.doubling_expand_plain(st, mode, inp["logl_x"], inp["logl_l"],
+                                 rb.draw, rb.loglstar)
+    elif name == "doubling_halve":
+        pr.doubling_halve_plain(st, inp["logl_x"], rb.loglstar)
+    else:
+        pr.doubling_shrink_plain(st, mode, inp["v_x"], inp["logl_x"],
+                                 rb.loglstar)
+
+
+def doubling_bytes(name, st, inp, q, ndim, npdim, tb):
+    """The bytes kernel ``name`` must move in its timed mode on the
+    hand-made state: each input read once, each output written once,
+    the per-lane counters of the active lanes and the halving's
+    rejections of the lanes it rejects only."""
+    n_act = int(st["active"].sum())
+    if name == "doubling_point":
+        # draw, ends, mask, direction and start rows in; the clamped row,
+        # the cube check and the flag out; the mask and the step index
+        return q * (3 * tb + 1) + 2 * q * ndim * tb + ndim + 8 + \
+            q * ndim * tb + q + 1
+    if name == "doubling_expand":
+        # cube check, logl, draw, ends and end values, mask in; the ends,
+        # end values, the shrink's ends and the mask out; grow, nc, n_exp
+        # in and out where the lane is active
+        return q * (6 * tb + 2) + tb + q * (6 * tb + 1) + 48 * n_act + 1
+    if name == "doubling_halve":
+        # the candidate's position, the test's ends and end values, logl,
+        # the cube check, dflag, the mask and d_nc in; the ends, end
+        # values, dflag, the mask and d_nc out, reject where it rejects
+        rej = _clone(st)
+        rej["reject"].zero_()
+        pr.doubling_halve_plain(rej, inp["logl_x"], inp["loglstar"])
+        n_rej = int(rej["reject"].sum())
+        return q * (6 * tb + 11) + tb + q * (4 * tb + 10) + n_rej + 1
+    # a candidate: cube check, v, logl, mask, the doubling's interval and
+    # end values, nc, n_con in; v, logl, nc, n_con, good, the test's start
+    # (its mask, ends, end values, dflag, reject, d_nc) out; the two flags
+    return q * (npdim * tb + 5 * tb + 18) + tb + \
+        q * (npdim * tb + 5 * tb + 28) + 2
+
+
+def doubling_kernel_cases(ndim, strict, dtype):
+    """Each of the four kernels, in each of its modes, against its plain
+    version from the hand-made state (the flag it raises cleared, as the
+    kernel before it in a segment leaves it): every entry of the state.
+    Returns the records and the kernels' calls in their timed modes."""
+    q, npdim = STEP_Q, ndim
+    st, inp = doubling_state(q, ndim, npdim, dtype)
+    tb = torch.finfo(dtype).bits // 8
+    recs, calls = [], {}
+    covered = []
+    for name, modes in DOUBLING_CALLS.items():
+        pairs = []
+        for mode, flag in modes:
+            s0 = _clone(st)
+            if flag is not None:
+                s0[flag].zero_()
+            rb = doubling_round_on_card(s0, inp, strict)
+            _doubling_call(rb, name, mode, inp)()
+            ref = _clone(s0)
+            _doubling_plain(ref, rb, name, mode, inp)
+            torch.cuda.synchronize()
+            pairs += [(f"{k}[{mode}]", rb.st[k], ref[k]) for k in sorted(ref)]
+            if (name, mode) == ("doubling_point", 2):
+                covered.append(bool((st["active"] & ~ref["incube"]).any()))
+                covered.append(bool(((ref["uclamp"] == 0.0) |
+                                     (ref["uclamp"] == 1.0)).any()))
+            if (name, mode) == ("doubling_expand", 1):
+                covered.append(bool((st["active"] &
+                                     (st["grow"] == 1 << 30)).any()))
+            if name == "doubling_halve":
+                covered.append(bool((ref["reject"] & ~st["reject"]).any()))
+            if (name, mode) == ("doubling_shrink", 1):
+                covered.append(bool(ref["newly"].any()) and
+                               bool(ref["s_active"].any()))
+        rec = _bit_record(name, (q, ndim), dtype, pairs)
+        rec["strict"] = strict
+        mode = DOUBLING_TIMED[name]
+        rb_t = doubling_round_on_card(_clone(st), inp, strict)
+        call = _doubling_call(rb_t, name, mode, inp)
+        _step_time(rec, call,
+                   lambda: _doubling_plain(dict(st), rb_t, name, mode, inp),
+                   doubling_bytes(name, st, inp, q, ndim, npdim, tb))
+        recs.append(rec)
+        calls[name] = call
+    if not all(covered):
+        raise RuntimeError(f"the hand-made doubling state misses an outcome "
+                           f"at ndim {ndim}: {covered}")
+    return recs, calls
+
+
+def main_doubling(cases, name):
+    """The record of kernel ``name`` at the doubling drives' (256, 3) in
+    float64, without a mask."""
+    return next(c for c in cases if c["kernel"] == name and
+                c["dtype"] == "float64" and
+                tuple(c["shape"]) == (STEP_Q, NDIM) and not c["strict"])
+
+
+def doubling_kernels_phase(card):
+    """Every case in float64 and float32; prints one line each, raises
+    unless every output is bit-identical, and returns the records and the
+    kernels' calls at (256, 3) float64 without a mask."""
+    cases, main_calls = [], {}
+    for ndim, strict in DOUBLING_CASES:
+        for dtype in (torch.float64, torch.float32):
+            recs, calls = doubling_kernel_cases(ndim, strict, dtype)
+            cases += recs
+            if (ndim, strict, dtype) == (NDIM, False, torch.float64):
+                main_calls = calls
+    for c in cases:
+        print(f"doubling {c['kernel']} {tuple(c['shape'])}"
+              + (" strict mask" if c["strict"] else "") +
+              f" {c['dtype']}: bit-identical {c['identical']}/"
+              f"{c['total']}  kernel {c['us']:.2f} us  plain "
+              f"{c['plain_us']:.2f} us  bound {c['bound_us']:.5f} us "
+              f"(bytes)  [{card}]")
+    bad = [c for c in cases if c["identical"] != c["total"]]
+    if bad:
+        raise RuntimeError(f"doubling kernels differ from their plain "
+                           f"versions: {bad}")
+    print(f"doubling kernels: {len(cases)} cases, outputs bit-identical "
+          f"{sum(c['identical'] for c in cases)}/"
+          f"{sum(c['total'] for c in cases)}  [{card}]")
+    return cases, main_calls
+
+
+def captured_doubling_phase(card):
+    """Captured doubling rounds against eager-launched rounds on the same
+    inputs: rslice and slice at their default slices, float64 and
+    float32, the main width (256) and the narrow width (32), three rounds
+    each on one round cache (the first warms up each of the five segments
+    once and captures the segments it runs again; every later segment
+    replays), with a blob and a strict mask: every column, the blob and
+    the generator's offset bit for bit.  Then, at the doubling drives'
+    shape (rslice, (256, 3), float64), each segment's host time (with its
+    wait and flag read) replayed and run eagerly, and CUDA events around
+    back-to-back calls; the replays' device-only times come in the last
+    phase.  Returns the records and the timed round shape."""
+    from dynesty_tpu_torch.utils.misc import Timings
+    _gauss_setup()
+    cases, timed = [], None
+    for kind, slices in (("rslice", NDIM + 3), ("slice", 3)):
+        for dtype in (torch.float64, torch.float32):
+            for q in (STEP_Q, 32):
+                seeds = (SEED, SEED + 1, SEED + 2)
+                tg, te, cache = Timings(), Timings(), {}
+                got = _capture_rounds(_capture_like(False, dtype), kind,
+                                      slices, q, dtype, seeds, cache, tg,
+                                      doubling=True)
+                ref = _capture_rounds(_capture_like(True, dtype), kind,
+                                      slices, q, dtype, seeds, {}, te,
+                                      doubling=True)
+                same = {"packed": 0, "blob": 0, "offset": 0}
+                for (p, b, off), (pe, be, offe) in zip(got, ref):
+                    same["packed"] += int(_same_bits(
+                        p.cpu().numpy(), pe.cpu().numpy()).all())
+                    same["blob"] += int(_same_bits(
+                        b.cpu().numpy(), be.cpu().numpy()).all())
+                    same["offset"] += int(off == offe)
+                rec = {"kind": kind, "q": q, "ndim": NDIM,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "rounds": len(seeds), "same": same,
+                       "segments": te.get("n_uncaptured", 0),
+                       "sync_slice": te["sync_slice"],
+                       "n_doubling_replay": tg.get("n_doubling_replay", 0),
+                       "n_doubling_graph": tg.get("n_doubling_graph", 0),
+                       "n_uncaptured": tg.get("n_uncaptured", 0)}
+                cases.append(rec)
+                ok = (all(v == len(seeds) for v in same.values()) and
+                      rec["n_doubling_graph"] == rec["n_uncaptured"] ==
+                      len(DOUBLING_SEGMENTS) and
+                      rec["n_doubling_replay"] + rec["n_uncaptured"] ==
+                      rec["segments"] and
+                      tg["sync_slice"] == te["sync_slice"])
+                if not ok:
+                    raise RuntimeError(f"a captured doubling round differs "
+                                       f"from the eager-launched one: {rec}")
+                if (kind, dtype, q) == ("rslice", torch.float64, STEP_Q):
+                    timed = next(iter(cache.values()))
+                print(f"captured-doubling {kind} q {q} {rec['dtype']}: "
+                      f"{len(seeds)} rounds bit-identical (columns, blob, "
+                      f"generator offset), segments {rec['segments']} = "
+                      f"replays {rec['n_doubling_replay']} + warm-ups "
+                      f"{rec['n_uncaptured']}  [{card}]")
+    # each segment's cost on the host, replayed and eager, at the drives'
+    # shape: each call waits for the device and reads the flag
+    eager, cache = _capture_like(True, torch.float64), {}
+    _capture_rounds(eager, "rslice", NDIM + 3, STEP_Q, torch.float64,
+                    (SEED,), cache, Timings(), doubling=True)
+    eager_entry = next(iter(cache.values()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def fill_of(entry, name):
+        if name not in entry.DRAWS:
+            return None
+        return lambda: entry.rb.draw.uniform_(generator=gen)
+
+    def eager_segment(name, read=True):
+        def call():
+            eager_entry.segment(name, fill_of(eager_entry, name))
+            if read:
+                bool(eager_entry._flag_of(name))
+        return call
+
+    def host_us(fn, n=200):
+        for _ in range(5):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    timing = {"shape": [STEP_Q, NDIM], "kind": "rslice", "dtype": "float64",
+              "segments": {}}
+    for name in DOUBLING_SEGMENTS:
+        graph = timed.graphs[name]
+        timing["segments"][name] = {
+            "replay_host_us": host_us(lambda: timed.replay(name, gen)),
+            "eager_host_us": host_us(eager_segment(name)),
+            "replay_events_us": 1e3 * _time_ms(graph.replay, 200),
+            "eager_events_us": 1e3 * _time_ms(eager_segment(name, False),
+                                              200)}
+        t = timing["segments"][name]
+        print(f"captured-doubling (256, 3) float64 segment {name}: host "
+              f"time with its wait and flag read: replay "
+              f"{t['replay_host_us']:.2f} us, eager "
+              f"{t['eager_host_us']:.2f} us; events (back to back): replay "
+              f"{t['replay_events_us']:.2f} us, eager "
+              f"{t['eager_events_us']:.2f} us  [{card}]")
+    print(json.dumps({"phase": "captured-doubling", "card": card,
+                      "cases": cases, "timing": timing}))
+    return {"cases": cases, "timing": timing}, timed
+
+
+def doubling_drive(dyt, nlive, bound):
+    """The doubling form of rslice on the 3-D Gaussian: the sampler given
+    as ``RSliceSampler(slice_doubling=True)``."""
+    s, sampler = drive(
+        dyt, nlive, bound,
+        sample=dyt.internal.samplers.RSliceSampler(slice_doubling=True))
+    if not sampler.internal_sampler.sampler_kwargs["slice_doubling"]:
+        raise RuntimeError("the doubling drive ran in stepping-out mode")
+    return s, sampler
+
+
+def uncapturable_loglike(x):
+    """The Gaussian with its precision matrix copied from the host at
+    every call, which no CUDA graph may hold."""
+    return -0.5 * (x @ _GAUSS["cinv_host"].to(x.device) @ x) + \
+        _GAUSS["lnorm"]
+
+
+def uncapturable_phase(dyt):
+    """A likelihood that copies a host constant to the card at every call:
+    each wave shape's capture raises and is warned once, and every wave
+    runs eagerly through both wave kernels (counted by the caller)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sampler = dyt.NestedSampler(
+            uncapturable_loglike, box_ptform, NDIM, nlive=250,
+            bound="single", sample="unif", queue_size=128,
+            rstate=np.random.Generator(np.random.PCG64(SEED)))
+        sampler.run_nested(print_progress=False, dlogz=0.5)
+    torch.cuda.synchronize()
+    captures = [str(w.message) for w in caught
+                if "could not be captured" in str(w.message)]
+    out = {"wall_s": time.perf_counter() - t0,
+           "niter": int(sampler.results.niter), "ncall": int(sampler.ncall),
+           "capture_warnings": len(captures),
+           "capture_error": captures[0] if captures else None,
+           "timings": dict(sampler.timings)}
+    if not captures or len(set(captures)) != len(captures):
+        raise RuntimeError(f"the uncapturable likelihood was not warned "
+                           f"once a shape: {out}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
@@ -3608,7 +4125,7 @@ def main():
     # one nvcc for each, all started together
     t0 = time.perf_counter()
     libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step",
-            "unif_wave")
+            "unif_wave", "slice_doubling")
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
@@ -3655,6 +4172,11 @@ def main():
     # and captured uniform waves against eager-launched ones
     unif_cases, unif_calls = unif_kernels_phase(card)
     captured_unif, unif_timed = captured_unif_phase(card)
+
+    # phase 2g: the doubling round's kernels against their plain versions,
+    # and captured doubling rounds against eager-launched ones
+    doubling_cases, doubling_calls = doubling_kernels_phase(card)
+    captured_doubling, doubling_timed = captured_doubling_phase(card)
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -3784,14 +4306,33 @@ def main():
 
     # phase 11: the doubling barrier form
     _zero_counts(hk)
-    doubling, dsampler = drive(
-        dyt, 500, "single",
-        sample=dyt.internal.samplers.RSliceSampler(slice_doubling=True))
-    if not dsampler.internal_sampler.sampler_kwargs["slice_doubling"]:
-        raise RuntimeError("the doubling drive ran in stepping-out mode")
+    doubling, _ = doubling_drive(dyt, 500, "single")
     doubling["launches"] = _counts(hk)
     _print_drive("single/rslice doubling nlive=500", doubling,
                  doubling["launches"], card)
+
+    # phase 11b: the doubling form at the main path's width, over
+    # RadFriends: its refits reach the exact L2 path
+    _zero_counts(hk)
+    with recording_refits(dyt, hk) as calls:
+        dballs, _ = doubling_drive(dyt, 2048, "balls")
+    dballs["launches"] = _counts(hk)
+    dballs["refit_max_abs_err"] = check_refits(hk, calls,
+                                               "doubling-balls drive")
+    if dballs["launches"]["exact"] < 1:
+        raise RuntimeError("the doubling-balls drive never launched the "
+                           "exact path")
+    _print_drive("doubling-balls balls/rslice doubling nlive=2048", dballs,
+                 dballs["launches"], card)
+    for name, d in (("doubling", doubling), ("doubling-balls", dballs)):
+        n = d["launches"]
+        print(f"{name}: segments {n['doubling_reads'] - n['doubling_steps']}"
+              f" (start {n['seg_start']}, double {n['seg_double']}, "
+              f"candidate {n['seg_candidate']}, halve {n['seg_halve']}, "
+              f"resolve {n['seg_resolve']}) = replays "
+              f"{n['n_doubling_replay']} + warm-ups {n['doubling_eager']}; "
+              f"dispatch {d['timings']['dispatch']:.3f} s over "
+              f"{d['timings']['sync_slice']} sync_slice  [{card}]")
 
     # phase 12: stop, save, restore, resume on the card, against phase 3
     _zero_counts(hk)
@@ -3925,12 +4466,20 @@ def main():
     print(json.dumps(dict({"phase": "pipeline-resume", "card": card},
                           **piperesume)))
 
-    # phase 32: the quickstart example on the card
+    # phase 32: the quickstart example on the card, its waves replayed
     _zero_counts(hk)
     example = example_quickstart_phase()
-    example["launches"] = _counts(hk, raised=True)
+    example["launches"] = _counts(hk)
     print(json.dumps(dict({"phase": "example-quickstart", "card": card},
                           **example)))
+
+    # phase 32b: a likelihood that copies a host constant at every call:
+    # warned once a wave shape, every wave eager
+    _zero_counts(hk)
+    uncapturable = uncapturable_phase(dyt)
+    uncapturable["launches"] = _counts(hk, raised=True)
+    print(json.dumps(dict({"phase": "uncapturable", "card": card},
+                          **uncapturable)))
 
     # phase 33: queue-balls, the balls drive in queue mode: the consume
     # kernel's general path on a drive, held against the plain loop
@@ -4004,6 +4553,22 @@ def main():
           f"{cu['eager_wave_host_us']:.2f} us; heavy's ellipsoid wave "
           f"{tuple(heavy_wave.rb.arrays['ctrs'].shape)} replayed, device "
           f"only {heavy['wave_replay_device_ms']:.3f} ms  [{card}]")
+    for name, fn in doubling_calls.items():
+        rec = main_doubling(doubling_cases, name)
+        rec["device_us"] = 1e3 * _device_ms(fn, only=name)
+        print(f"doubling {name} (256, 3) float64 device only: kernel "
+              f"{rec['device_us']:.3f} us  events (through the wrapper) "
+              f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
+              f"floor {floor['device_us']:.3f} us  [{card}]")
+    cd = captured_doubling["timing"]["segments"]
+    for name in DOUBLING_SEGMENTS:
+        cd[name]["replay_device_us"] = 1e3 * _device_ms(
+            doubling_timed.graphs[name].replay)
+        print(f"captured-doubling replay of segment {name} (256, 3) float64 "
+              f"device only: {cd[name]['replay_device_us']:.3f} us (every "
+              f"kernel of the segment, the likelihood's included); host "
+              f"with its wait and flag read {cd[name]['replay_host_us']:.2f}"
+              f" us, eager {cd[name]['eager_host_us']:.2f} us  [{card}]")
     consume_device_times(consume, consume_calls, card)
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
@@ -4032,8 +4597,8 @@ def main():
     # every drive consumed each of its fused rounds through the kernel
     drives = {"balls": main, "cubes": cubes, "single": single,
               "heavy": heavy, "default": default, "rwalk": rwalk,
-              "slice": sl, "doubling": doubling, "resume": resumed,
-              "dynamic3": dyn3, "dynamic-balls": dynballs,
+              "slice": sl, "doubling": doubling, "doubling-balls": dballs,
+              "resume": resumed, "dynamic3": dyn3, "dynamic-balls": dynballs,
               "dynamic-resume": dynresume, "blob-balls": blobballs,
               "host-balls": hostballs, "host-pool": hostpool,
               "blob-resume": blobresume, "custom-unif": customunif,
@@ -4041,7 +4606,8 @@ def main():
               "eggbox": rows["eggbox"], "shells": rows["shells"],
               "eggbox-balls": eggballs, "mesh-balls": meshballs,
               "mesh-dynamic3": meshdyn3, "pipeline-resume": piperesume,
-              "example-quickstart": example, "queue-balls": queueballs}
+              "example-quickstart": example, "uncapturable": uncapturable,
+              "queue-balls": queueballs}
     consume_by_drive = {name: {
         "launches": d["launches"]["consume"],
         "thin": d["launches"]["consume_thin"],
@@ -4076,6 +4642,40 @@ def main():
                       "card": card}))
     if not any(c["n_unif_replay"] for c in unif_by_drive.values()):
         raise RuntimeError("no drive replayed a uniform wave")
+
+    doubling_by_drive = {name: {k: d["launches"][k] for k in
+                                DOUBLING_KERNELS + tuple(
+                                    k for k in _LOOPS if
+                                    k.startswith(("doubling", "seg_"))) +
+                                ("n_doubling_replay", "n_doubling_graph")}
+                         for name, d in drives.items()
+                         if d["launches"]["doubling_rounds"]}
+    print(json.dumps({"doubling_launches_by_drive": doubling_by_drive,
+                      "card": card}))
+    if set(doubling_by_drive) != {"doubling", "doubling-balls"}:
+        raise RuntimeError(f"the doubling round ran on other drives than "
+                           f"the doubling drives: {list(doubling_by_drive)}")
+
+    def doubling_entry(name):
+        """A doubling kernel's line: (256, 3) in float64 without a mask,
+        the largest difference over every case."""
+        rec = main_doubling(doubling_cases, name)
+        by_drive = {k: c[name] for k, c in doubling_by_drive.items()}
+        return {"name": name, "route": "cuda", "source": DOUBLING_SOURCE,
+                "replaces": DOUBLING_REPLACES[name][0],
+                "replaces_also": DOUBLING_REPLACES[name][1],
+                "launches": sum(by_drive.values()),
+                "launches_by_drive": by_drive,
+                "max_abs_err": max(c["max_abs_err"] for c in doubling_cases
+                                   if c["kernel"] == name),
+                "ms": rec["us"] / 1e3, "plain_ms": rec["plain_us"] / 1e3,
+                "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes this step",
+                "shape": rec["shape"], "dtype": "float64",
+                "device_ms": rec["device_us"] / 1e3,
+                "launch_floor_ms": floor["device_us"] / 1e3,
+                "captured_segments": captured_doubling["timing"]}
 
     def unif_entry(name):
         """A wave kernel's line: the cube's wave at (256, 3) in float64,
@@ -4140,6 +4740,7 @@ def main():
         entry("pairwise_min_dist_l2_exact", MAIN_SHAPE, 2, "exact",
               {"balls": main["launches"]["exact"],
                "slice": sl["launches"]["exact"],
+               "doubling-balls": dballs["launches"]["exact"],
                "resume": resumed["launches"]["exact"],
                "dynamic-balls": dynballs["launches"]["exact"],
                "blob-balls": blobballs["launches"]["exact"],
@@ -4176,7 +4777,8 @@ def main():
              "chain_bound_ms", "bound_ms", "bound_by", "bound_share")},
          "library_ms": None, "shape": [2048, 256], "path": "thin"},
     ] + [step_entry(name) for name in STEP_KERNELS] +
-        [unif_entry(name) for name in UNIF_KERNELS]}
+        [unif_entry(name) for name in UNIF_KERNELS] +
+        [doubling_entry(name) for name in DOUBLING_KERNELS]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4186,7 +4788,8 @@ def main():
                        "main": main, "cubes": cubes, "refit": refit,
                        "single": single, "heavy": heavy,
                        "default": default, "rwalk": rwalk, "slice": sl,
-                       "doubling": doubling, "resume": resumed,
+                       "doubling": doubling, "doubling_balls": dballs,
+                       "resume": resumed,
                        "dynamic3": dyn3, "dynamic_balls": dynballs,
                        "dynamic_resume": dynresume,
                        "blob_balls": blobballs, "host_balls": hostballs,
@@ -4200,6 +4803,7 @@ def main():
                        "mesh_dynamic3": meshdyn3, "scaling": scaling,
                        "pipeline_resume": piperesume,
                        "example_quickstart": example,
+                       "uncapturable": uncapturable,
                        "queue_balls": queueballs,
                        "consume": consume,
                        "consume_by_drive": consume_by_drive,
@@ -4209,6 +4813,9 @@ def main():
                        "unif_waves": unif_cases,
                        "captured_unif": captured_unif,
                        "unif_by_drive": unif_by_drive,
+                       "doubling_kernels": doubling_cases,
+                       "captured_doubling": captured_doubling,
+                       "doubling_by_drive": doubling_by_drive,
                        "launch_floor": floor,
                        "proposal_steps_by_drive": steps_by_drive,
                        "build_seconds": {k: build.build_log[k]["seconds"]

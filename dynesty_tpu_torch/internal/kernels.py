@@ -25,13 +25,14 @@ so that a host-mode likelihood sees exactly those.
 JAX's ``lax.while_loop`` over ``jnp.any(active)`` becomes a Python loop
 that reads its condition from the device once per iteration; each read is
 counted in the sampler's ``Timings`` (``sync_wave``, ``sync_slice``).  The
-uniform wave's, the slice state machine's and the random walk's updates
-around each likelihood call are the kernels of ``ops/proposals.py`` on
-the card.  With a likelihood on the card the uniform wave, the state
-machine's iteration and the random walk's whole walk are captured once
-per round shape as CUDA graphs and replayed (:class:`UnifGraph`,
-:class:`SliceGraph`, :class:`RWalkGraph`), as the JAX package traces its
-loop bodies once.
+uniform wave's, the slice state machine's, the doubling round's and the
+random walk's updates around each likelihood call are the kernels of
+``ops/proposals.py`` on the card.  With a likelihood on the card the
+uniform wave, the state machine's iteration, each segment of the doubling
+round between two host reads and the random walk's whole walk are
+captured once per round shape as CUDA graphs and replayed
+(:class:`UnifGraph`, :class:`SliceGraph`, :class:`DoublingGraph`,
+:class:`RWalkGraph`), as the JAX package traces its loop bodies once.
 Random numbers come from one explicit ``torch.Generator`` per round, drawn
 in a fixed order and in the kernel's dtype, so a seed reproduces the round.
 """
@@ -42,19 +43,24 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.geometry import randsphere_batch, unitcheck_batch
-from ..ops.proposals import (UNIF_ARRAYS, U_FILLED, U_NC, U_PENDING, U_PROP,
-                             RWalkRound, SliceRound, UnifRound, rwalk_accept,
+from ..ops.geometry import randsphere_batch
+from ..ops.proposals import (P_DOUBLE, P_HALVE, P_SHRINK, P_START_L,
+                             P_START_R, S_CANDIDATE, S_RESOLVE, UNIF_ARRAYS,
+                             U_FILLED, U_NC, U_PENDING, U_PROP, X_DOUBLE,
+                             X_INIT, DoublingRound, RWalkRound, SliceRound,
+                             UnifRound, doubling_expand, doubling_halve,
+                             doubling_point, doubling_shrink, rwalk_accept,
                              rwalk_propose, slice_advance, slice_propose,
                              unif_place, unif_valid)
-from ..utils.misc import blob_where, tree_map
+from ..utils.misc import tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
            "UnifGraph", "unif_graph", "unif_waves",
            "make_ellipsoid_refit", "make_rwalk_round", "rwalk_walk",
            "RWalkGraph", "rwalk_graph",
            "make_slice_round", "slice_state_machine", "SliceGraph",
-           "slice_graph", "slice_directions",
+           "slice_graph", "slice_directions", "DoublingGraph",
+           "doubling_graph", "doubling_round",
            "doubling_accept", "pad_ellipsoids"]
 
 _NEG_INF = -math.inf
@@ -322,15 +328,16 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
 
 
 # ==========================================================================
-# round buffers captured as CUDA graphs (UnifGraph, SliceGraph, RWalkGraph)
+# round buffers captured as CUDA graphs (UnifGraph, SliceGraph,
+# DoublingGraph, RWalkGraph)
 
 
 class _RoundGraph:
-    """What :class:`UnifGraph`, :class:`SliceGraph` and :class:`RWalkGraph`
-    share: the likelihood, the round's buffers ``rb``, the blob buffers,
-    and on the card, for a likelihood the capture rule allows, a side
-    stream and, once captured, the graph and the generator it draws
-    from."""
+    """What :class:`UnifGraph`, :class:`SliceGraph`, :class:`DoublingGraph`
+    and :class:`RWalkGraph` share: the likelihood, the round's buffers
+    ``rb``, the blob buffers, and on the card, for a likelihood the
+    capture rule allows, a side stream and, once captured, the graph and
+    the generator it draws from."""
 
     def __init__(self, like, rb):
         self.like, self.rb = like, rb
@@ -367,15 +374,17 @@ class _RoundGraph:
             fn()
         main.wait_stream(self.stream)
 
-    def _capture(self, body, wrappers, what, shape):
+    def _capture(self, body, wrappers, what, shape, gen=None):
         """Capture ``body(gen)`` on the side stream as a CUDA graph that
-        draws from a generator of its own; True when it was captured.  A
-        capture runs nothing, so what it counted (``ncall_launched``, the
+        draws from a generator of its own (or from ``gen``, which several
+        graphs may share); True when it was captured.  A capture runs
+        nothing, so what it counted (``ncall_launched``, the
         ``wrappers``' launches) is put back.  A capture that raises leaves
         the round shape eager (warned once, naming the error)."""
         rb, like = self.rb, self.like
         graph = torch.cuda.CUDAGraph()
-        gen = torch.Generator(device=rb.device)
+        if gen is None:
+            gen = torch.Generator(device=rb.device)
         saved = (like.ncall_launched, [w.launches for w in wrappers])
         main = torch.cuda.current_stream(rb.device)
         self.stream.wait_stream(main)
@@ -1024,6 +1033,244 @@ def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
     return st, tree_map(torch.clone, blob)
 
 
+class DoublingGraph(_RoundGraph):
+    """One round shape of the doubling slice round on one device: its
+    :class:`~dynesty_tpu_torch.ops.proposals.DoublingRound` buffers, its
+    blob buffers (the lanes' and the shrink candidate's), and on the card,
+    for a likelihood that :meth:`~.likelihood.LogLikelihood.capturable`
+    allows, each of the round's five segments between two host reads
+    captured as a CUDA graph (``graphs``): the step's start (r0, both end
+    probes), a doubling, a shrink candidate, a halving, and a shrink's
+    resolution, each ending with its flag's copy to pinned host memory.
+    The three that draw share one generator.  A sampler keeps one per
+    round shape (:func:`doubling_graph`); it is never pickled and goes
+    with the sampler."""
+
+    # the segments that draw (r0, a doubling's side, a candidate)
+    DRAWS = ("start", "double", "candidate")
+
+    def __init__(self, like, rb):
+        super().__init__(like, rb)
+        self.graphs, self.warm = {}, set()
+        self.blob_c = None
+        if self.capturable:
+            self.gen = torch.Generator(device=rb.device)
+            # the flag a replay leaves, read through a numpy view
+            self.flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+            self.flag_np = self.flag.numpy()
+
+    def load_blob(self, start_blob):
+        """The lanes' blob buffers, holding ``start_blob``, and the shrink
+        candidate's."""
+        blob = super().load_blob(start_blob)
+        if blob is not None and self.blob_c is None:
+            self.blob_c = tree_map(torch.empty_like, blob)
+        return blob
+
+    def _eval(self, mask):
+        """The batched likelihood at the clamped probe, counting the lanes
+        of ``mask``, its outputs in the round's dtype and the layout the
+        kernels read."""
+        rb = self.rb
+        v, logl, blob = self.like.batch_eval(rb.st["uclamp"], mask=mask)
+        v = v.to(rb.dtype).contiguous()
+        logl = logl.to(rb.dtype).contiguous()
+        if rb.device.type == "cuda":
+            rb.check_likelihood(v, logl)
+        return v, logl, blob
+
+    def segment(self, name, fill=None):
+        """The segment ``name`` on the round's buffers, on the current
+        stream; ``fill()`` fills ``rb.draw`` for the segments that
+        draw."""
+        rb, st = self.rb, self.rb.st
+        if fill is not None:
+            fill()
+        if name == "start":
+            doubling_point(rb, P_START_L)
+            logl_l = self._eval(st["incube_l"])[1]
+            doubling_point(rb, P_START_R)
+            doubling_expand(rb, X_INIT, self._eval(st["incube"])[1], logl_l)
+        elif name == "double":
+            doubling_point(rb, P_DOUBLE)
+            doubling_expand(rb, X_DOUBLE, self._eval(st["incube"])[1])
+        elif name == "candidate":
+            doubling_point(rb, P_SHRINK)
+            v, logl, blob = self._eval(st["incube"])
+            doubling_shrink(rb, S_CANDIDATE, v, logl)
+            if self.blob_c is not None:
+                tree_map(lambda c, b: c.copy_(b), self.blob_c, blob)
+        elif name == "halve":
+            doubling_point(rb, P_HALVE)
+            doubling_halve(rb, self._eval(st["incube"])[1])
+        else:
+            doubling_shrink(rb, S_RESOLVE)
+            self.select_blob(st["newly"], self.blob_c)
+
+    def _flag_of(self, name):
+        return self.rb.st["any_shrink" if name == "resolve" else "any"]
+
+    def capture(self, name):
+        """Capture the segment ``name`` on the side stream; True when it
+        was captured.  A capture that raises leaves the round shape eager
+        (warned once, naming the error), its segments captured before
+        dropped, and every count as it was."""
+        rb = self.rb
+        draws = name in self.DRAWS
+
+        def body(gen):
+            self.segment(name, (lambda: rb.draw.uniform_(generator=gen))
+                         if draws else None)
+            self.flag.copy_(self._flag_of(name), non_blocking=True)
+
+        if not self._capture(
+                body, (doubling_point, doubling_expand, doubling_halve,
+                       doubling_shrink),
+                f"the doubling slice round's {name} segment",
+                (rb.q, rb.n_steps, rb.ndim), gen=self.gen):
+            self.graphs.clear()
+            return False
+        self.graphs[name] = self.graph
+        return True
+
+    def replay(self, name, gen):
+        """The segment ``name`` by replay, drawing from ``gen``'s stream
+        where the eager segment would (the shared generator takes its seed
+        and offset before and gives the offset back after); waits for it
+        and returns the host copy of its flag."""
+        if name in self.DRAWS:
+            self.gen.manual_seed(gen.initial_seed())
+            self.gen.set_offset(gen.get_offset())
+            self.graphs[name].replay()
+            gen.set_offset(self.gen.get_offset())
+        else:
+            self.graphs[name].replay()
+        torch.cuda.current_stream(self.rb.device).synchronize()
+        # the replay ran the kernels and the likelihood without Python
+        n_eval = {"start": 2, "resolve": 0}.get(name, 1)
+        self.like.ncall_launched += self.rb.q * n_eval
+        doubling_point.launches += n_eval
+        if name in ("start", "double"):
+            doubling_expand.launches += 1
+        elif name == "halve":
+            doubling_halve.launches += 1
+        else:
+            doubling_shrink.launches += 1
+        return bool(self.flag_np)
+
+    def run(self, name, draw, use_graph, timings):
+        """The segment ``name`` of a round: replayed once the shape's
+        segment is captured (``n_doubling_replay``), else run eagerly --
+        on the side stream as the capture's warm-up the first time
+        (``use_graph``), the next time captured (``n_doubling_graph``) and
+        replayed; ``draw`` is the round's ``torch.Generator`` or a
+        function of no argument that fills ``rb.draw``.  Returns the host
+        copy of the segment's flag; an eager segment on the card counts
+        ``n_uncaptured``."""
+        rb = self.rb
+        if use_graph and self.capturable and name not in self.graphs and \
+                name in self.warm:
+            if self.capture(name):
+                _count(timings, "n_doubling_graph")
+        if use_graph and name in self.graphs:
+            _count(timings, "n_doubling_replay")
+            return self.replay(name, draw)
+        fill = None
+        if name in self.DRAWS:
+            fill = (lambda: rb.draw.uniform_(generator=draw)) \
+                if isinstance(draw, torch.Generator) else draw
+        if use_graph and self.capturable:
+            self.on_side_stream(lambda: self.segment(name, fill))
+            self.warm.add(name)
+        else:
+            self.segment(name, fill)
+        if rb.device.type == "cuda":
+            _count(timings, "n_uncaptured")
+        return bool(self._flag_of(name))
+
+
+def doubling_graph(rounds, like, q, n_steps, ndim, dtype, device,
+                   strict=None):
+    """The :class:`DoublingGraph` of this round shape from the cache
+    ``rounds`` (a dict a sampler keeps; None: a new one, kept nowhere).
+    Its key is kept apart from :func:`slice_graph`'s: a sampler that
+    switches to doubling in the middle of a run keeps both."""
+    key = ("doubling", q, n_steps, ndim, like.npdim, dtype, str(device),
+           _mask_key(strict))
+    entry = None if rounds is None else rounds.get(key)
+    if entry is None or entry.like is not like:
+        entry = DoublingGraph(like, DoublingRound(
+            q, n_steps, ndim, like.npdim, dtype, device, strict))
+        if rounds is not None:
+            rounds[key] = entry
+    return entry
+
+
+def doubling_round(like, directions, draw, loglstar, start_u, start_v,
+                   start_logl, start_blob=None, *, strict=None,
+                   max_shrink_iters=10000, timings=None, rounds=None):
+    """The barrier form of the slice round with Neal's (2003) doubling
+    procedure: all lanes take their ``n_steps`` slice updates along
+    ``directions`` (q, n_steps, ndim, lengths capped) one step at a time.
+    Each step starts on the interval ``(-r0, 1 - r0)`` and probes both
+    ends; a random side of each lane's interval doubles until both ends
+    are outside the slice; shrink candidates are drawn until each lane
+    accepts one, each candidate above ``loglstar`` held to the doubling's
+    acceptance test, halving by halving.  One host read of a device flag a
+    loop turn (``sync_slice``; the shrink loop's first read, which is
+    always true, is counted without one).
+
+    ``draw`` is the round's ``torch.Generator`` (each draw a ``uniform_``
+    into the round's draw buffer, which draws what ``torch.rand`` draws:
+    r0, then each doubling's side for every lane, then each candidate) or
+    a function ``draw(what, step, i) -> (q,)``, ``what`` one of ``'r0'``,
+    ``'side'``, ``'x'`` and ``i`` the doubling's or candidate's index in
+    the step (the tests feed the JAX package's draws).  The updates around
+    each likelihood call are the kernels of ``ops/proposals.py`` on the
+    card (:class:`DoublingGraph`).  On the card, with a generator and a
+    likelihood that may be captured (:func:`~.likelihood.graph_capturable`)
+    each segment between two reads runs as one CUDA graph replay after one
+    eager warm-up of its kind; ``rounds`` is the sampler's cache of round
+    shapes (:func:`doubling_graph`), ``strict`` the cube check's bool mask
+    (None: every dimension).  Returns ``(state, blob)``, the state as
+    ``ops.proposals.DoublingRound`` lays it out (``u, v, logl, nc, n_exp,
+    n_con`` among its entries)."""
+    q, n_steps, ndim = directions.shape
+    entry = doubling_graph(rounds, like, q, n_steps, ndim, directions.dtype,
+                           directions.device, strict)
+    rb = entry.rb
+    st = rb.start(start_u, start_v, start_logl, directions, loglstar)
+    blob = entry.load_blob(start_blob)
+    gen = draw if isinstance(draw, torch.Generator) else None
+    use_graph = gen is not None
+
+    def run(name, what=None, s=0, i=0):
+        d = gen if gen is not None or what is None else \
+            (lambda: rb.draw.copy_(draw(what, s, i)))
+        return entry.run(name, d, use_graph, timings)
+
+    for s in range(n_steps):
+        flag, i = run("start", "r0", s), 0
+        while True:
+            _count(timings, "sync_slice")
+            if not flag:
+                break
+            flag, i = run("double", "side", s, i), i + 1
+        active = True
+        for j in range(max_shrink_iters):
+            _count(timings, "sync_slice")
+            if not active:
+                break
+            flag = run("candidate", "x", s, j)
+            while True:
+                _count(timings, "sync_slice")
+                if not flag:
+                    break
+                flag = run("halve")
+            active = run("resolve")
+    return st, tree_map(torch.clone, blob)
+
+
 def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
                      nonperiodic=None, doubling=False,
                      max_shrink_iters=10000, timings=None, rounds=None):
@@ -1053,108 +1300,35 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
     maxlen = math.sqrt(ndim) / 2.0
     n_steps = slices * ndim if kind == "slice" else slices
 
-    def one_doubling_step(gen, u0, v0, logl0, blob0, direction, loglstar):
-        """One slice update of all lanes along per-lane ``direction``;
-        each evaluation counts the in-cube lanes of its ``mask``."""
-        dirlen = torch.linalg.vector_norm(direction, dim=1)
+    def cap(directions):
+        """Each direction's length capped at the cube diagonal."""
+        dirlen = torch.linalg.vector_norm(directions, dim=-1)
         dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
-        direction = direction / dirnorm[:, None]
+        return directions / dirnorm[..., None]
 
-        def feval(x, mask=None):
-            u = u0 + x[:, None] * direction
-            incube = unitcheck_batch(u, nb)
-            if mask is not None:
-                incube = incube & mask
-            return (u,) + _masked_eval(like, u, incube)
-
-        r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
-        left, right = -r0, 1.0 - r0
-        fl, fr = feval(left)[2], feval(right)[2]
-        nc = torch.full((q,), 2, dtype=torch.int64, device=device)
-        n_exp = torch.zeros_like(nc)
-        grow = torch.ones_like(nc)
-        # doubling expansion: a random side doubles the interval until both
-        # ends are outside the slice
-        active = (fl > loglstar) | (fr > loglstar)
-        while True:
-            _count(timings, "sync_slice")
-            if not bool(active.any()):
-                break
-            go_left = torch.rand((q,), generator=gen, dtype=dtype,
-                                 device=device) < 0.5
-            width = right - left
-            left = torch.where(active & go_left, left - width, left)
-            right = torch.where(active & ~go_left, right + width, right)
-            logl_new = feval(torch.where(go_left, left, right),
-                             active)[2]
-            fl = torch.where(active & go_left, logl_new, fl)
-            fr = torch.where(active & ~go_left, logl_new, fr)
-            nc = nc + active
-            n_exp = n_exp + active * grow
-            grow = torch.where(active, (grow * 2).clamp(max=1 << 30), grow)
-            active = active & ((fl > loglstar) | (fr > loglstar))
-        big = (left, right, fl, fr)
-
-        # shrinkage, each candidate held to the doubling acceptance test
-        u, v, logl, blob = u0, v0, logl0, blob0
-        n_con = torch.zeros_like(nc)
-        active = torch.ones((q,), dtype=torch.bool, device=device)
-        for _ in range(max_shrink_iters):
-            _count(timings, "sync_slice")
-            if not bool(active.any()):
-                break
-            x = left + torch.rand((q,), generator=gen, dtype=dtype,
-                                  device=device) * (right - left)
-            u_prop, v_prop, logl_prop, blob_prop = feval(x, active)
-            nc = nc + active
-            n_con = n_con + active
-            good = logl_prop > loglstar
-            # only the lanes whose evaluations are billed are tested
-            d_acc, d_nc = doubling_accept(
-                lambda xm, m: feval(xm, m)[2], x, loglstar, *big,
-                timings=timings, lanes=active & good)
-            nc = nc + torch.where(active & good, d_nc, 0)
-            good = good & d_acc
-            newly = active & good
-            u = torch.where(newly[:, None], u_prop, u)
-            v = torch.where(newly[:, None], v_prop, v)
-            logl = torch.where(newly, logl_prop, logl)
-            blob = blob_where(newly, blob_prop, blob)
-            bad = active & ~good
-            left = torch.where(bad & (x < 0), x, left)
-            right = torch.where(bad & (x > 0), x, right)
-            active = bad
-        return u, v, logl, blob, nc, n_exp, n_con
+    def starts(packed_in):
+        return (packed_in[:, :ndim].to(dtype),
+                packed_in[:, ndim:ndim + npdim].to(dtype),
+                packed_in[:, ndim + npdim].to(dtype),
+                packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim))
 
     def round_fn(gen, packed_in, start_blob, scale, loglstar):
-        u = packed_in[:, :ndim].to(dtype)
-        v = packed_in[:, ndim:ndim + npdim].to(dtype)
-        logl = packed_in[:, ndim + npdim].to(dtype)
-        blob = start_blob
-        axes = packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim)
-        directions = slice_directions(gen, axes.to(dtype), scale, kind,
-                                      slices)
-        nc = n_exp = n_con = torch.zeros((q,), dtype=torch.int64,
-                                         device=device)
-        for s in range(n_steps):
-            u, v, logl, blob, nc1, ne1, ncon1 = one_doubling_step(
-                gen, u, v, logl, blob, directions[:, s], loglstar)
-            nc, n_exp, n_con = nc + nc1, n_exp + ne1, n_con + ncon1
+        start_u, start_v, start_logl, axes = starts(packed_in)
+        directions = cap(slice_directions(gen, axes.to(dtype), scale, kind,
+                                          slices))
+        st, blob = doubling_round(
+            like, directions, gen, loglstar, start_u, start_v, start_logl,
+            start_blob, strict=nb, max_shrink_iters=max_shrink_iters,
+            timings=timings, rounds=rounds)
         # the doubling procedure has no expansion warning
-        return pack_columns(q, dtype, u, v, logl, nc, n_exp, n_con, False,
+        return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
+                            st["nc"], st["n_exp"], st["n_con"], False,
                             device=device), blob
 
     def round_fn_sm(gen, packed_in, start_blob, scale, loglstar):
-        start_u = packed_in[:, :ndim].to(dtype)
-        start_v = packed_in[:, ndim:ndim + npdim].to(dtype)
-        start_logl = packed_in[:, ndim + npdim].to(dtype)
-        axes = packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim)
-        directions = slice_directions(gen, axes.to(dtype), scale, kind,
-                                      slices)
-        # cap each direction's length at the cube diagonal
-        dirlen = torch.linalg.vector_norm(directions, dim=-1)
-        dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
-        directions = directions / dirnorm[..., None]
+        start_u, start_v, start_logl, axes = starts(packed_in)
+        directions = cap(slice_directions(gen, axes.to(dtype), scale, kind,
+                                          slices))
         r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
         st, blob = slice_state_machine(
             like, directions, r0, gen, loglstar, start_u, start_v,

@@ -24,19 +24,30 @@ are the kernels here:
   -inf mask, the successes compacted into the round's free slots, the
   per-slot evaluations, the round's counts, the next wave's width and the
   done flag), ``csrc/unif_wave.cu``; the JAX package's wave is the body
-  ``:366`` of ``make_unif_round``'s ``lax.while_loop``.
+  ``:366`` of ``make_unif_round``'s ``lax.while_loop``;
+* :func:`doubling_point` (the position of each likelihood call of the
+  doubling slice round: the step's end probes, a doubling's new end, a
+  shrink candidate or a halving's mid; the point, its cube check with the
+  lane's mask and the point clamped into the cube), :func:`doubling_expand`
+  (the step's start after its end probes, and one doubling),
+  :func:`doubling_halve` (one halving of Neal's acceptance test) and
+  :func:`doubling_shrink` (a shrink candidate's outcome and its
+  resolution), ``csrc/slice_doubling.cu``; the JAX package's loop bodies
+  ``:594-607``, ``:640-655``, ``:569-585`` and ``:670-693`` of the
+  doubling ``make_slice_round``.
 
 Random draws and the matrix products stay torch calls (their Philox
 streams and reduction orders are torch's own).  On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 version, the eager code the kernel is held against bit for bit.
 
-A slice round runs on a :class:`SliceRound`, a random-walk round on an
-:class:`RWalkRound`, a uniform round on a :class:`UnifRound`: every
-tensor a step touches, allocated, checked and bound to the two kernels'
-argument tables once per round shape, so that a call does only its
-launch and a step can be captured in a CUDA graph (``internal/
-kernels.py``, ``SliceGraph``, ``RWalkGraph`` and ``UnifGraph``).  A round's
+A slice round runs on a :class:`SliceRound` (a :class:`DoublingRound` in
+doubling mode), a random-walk round on an :class:`RWalkRound`, a uniform
+round on a :class:`UnifRound`: every tensor a step touches, allocated,
+checked and bound to the kernels' argument tables once per round shape,
+so that a call does only its launch and a step can be captured in a CUDA
+graph (``internal/kernels.py``, ``SliceGraph``, ``DoublingGraph``,
+``RWalkGraph`` and ``UnifGraph``).  A round's
 state is a dict of the round's own tensors: the plain version rebinds
 its entries and the wrapper copies them back, the kernel writes them in
 place.
@@ -56,7 +67,11 @@ __all__ = ["SliceRound", "slice_init", "slice_propose",
            "rwalk_propose", "rwalk_propose_plain", "rwalk_accept",
            "rwalk_accept_plain", "UnifRound", "UNIF_ARRAYS",
            "unif_width_plain", "unif_valid", "unif_valid_plain",
-           "unif_place", "unif_place_plain", "zero_counts", "WRAPPERS"]
+           "unif_place", "unif_place_plain", "DoublingRound",
+           "doubling_point", "doubling_point_plain", "doubling_expand",
+           "doubling_expand_plain", "doubling_halve",
+           "doubling_halve_plain", "doubling_shrink",
+           "doubling_shrink_plain", "zero_counts", "WRAPPERS"]
 
 PH_INIT_L, PH_INIT_R, PH_EXP_L, PH_EXP_R, PH_SHRINK = 0, 1, 2, 3, 4
 _NEG_INF = -math.inf
@@ -821,6 +836,381 @@ def unif_place(rb, u_prop, v_prop, logl_prop):
 
 
 # --------------------------------------------------------------------------
+# the doubling slice round
+
+# doubling_point's modes: the step's left and right end probes, a
+# doubling's new end, a shrink candidate, a halving's mid
+P_START_L, P_START_R, P_DOUBLE, P_SHRINK, P_HALVE = range(5)
+# doubling_expand's: the step's start after its end probes, a doubling
+X_INIT, X_DOUBLE = 0, 1
+# doubling_shrink's: a candidate's outcome, its resolution after the test
+S_CANDIDATE, S_RESOLVE = 0, 1
+
+# the doubling round's state by kind: the lanes' points and the step's
+# start points, direction, shrink candidate and clamped probe (q, ndim);
+# v and the candidate's v (q, npdim); per-lane values (q,): the doubling's
+# interval and end values, the shrink's interval, the candidate's
+# position and logl, the halving's interval and end values; the round's
+# tallies and the doubling's growth (int64); the lanes that double,
+# shrink, halve, the candidate above the threshold, the halving's
+# divergence and rejection, the lanes that accept, the probes' cube
+# checks; the step index; and the two flags the host reads: ``any`` (does
+# a lane double on / run a halving) and ``any_shrink``
+_D_ROWS = ("u", "u0", "dir", "u_c", "uclamp")
+_D_VROWS = ("v", "v_c")
+_D_LANES = ("logl", "left", "right", "fl", "fr", "sl", "sr", "x1", "logl_c",
+            "lhat", "rhat", "f_lhat", "f_rhat")
+_D_COUNTS = ("nc", "n_exp", "n_con", "grow", "d_nc")
+_D_MASKS = ("active", "s_active", "good", "h_active", "dflag", "reject",
+            "newly", "incube", "incube_l")
+
+
+def _doubling_state(q, ndim, npdim, dtype, device):
+    """The doubling round's state tensors for ``q`` lanes, unfilled."""
+    def e(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    st = {k: e((q, ndim)) for k in _D_ROWS}
+    st.update({k: e((q, npdim)) for k in _D_VROWS})
+    st.update({k: e((q,)) for k in _D_LANES})
+    st.update({k: e((q,), torch.int64) for k in _D_COUNTS})
+    st.update({k: e((q,), torch.bool) for k in _D_MASKS})
+    st.update({"step": e((1,), torch.int64), "any": e((), torch.bool),
+               "any_shrink": e((), torch.bool)})
+    return st
+
+
+def doubling_point_plain(st, mode, draw, directions, strict=None):
+    """The position of each lane's next likelihood call by ``mode``, and
+    the point there: ``P_START_L`` takes the step's direction (row
+    ``st['step']``, at most the last, of ``directions`` (q, n_steps,
+    ndim), capped) and start points, and its interval ``(-r0, 1 - r0)`` from ``draw`` (r0), and
+    probes its left end; ``P_START_R`` its right end; ``P_DOUBLE`` doubles
+    the active lanes' intervals to the side ``draw < 0.5`` picks (left)
+    and probes the new end of that side; ``P_SHRINK`` the shrink candidate
+    ``sl + draw * (sr - sl)`` (kept as ``x1``, its point as ``u_c``);
+    ``P_HALVE`` the halving's mid ``0.5 * (lhat + rhat)``.  Sets
+    ``uclamp``, the point ``u0 + x * dir`` clamped into the cube, and its
+    cube check (loosely where ``strict`` is False) with the mode's lane
+    mask (``incube_l`` for the left end probe), and clears ``any``."""
+    if mode == P_START_L:
+        step = st["step"].clamp(max=directions.shape[1] - 1)
+        st["dir"] = directions.index_select(1, step)[:, 0]
+        st["u0"] = st["u"].clone()
+        st["left"], st["right"] = -draw, 1.0 - draw
+        x, mask = st["left"], None
+    elif mode == P_START_R:
+        x, mask = st["right"], None
+    elif mode == P_DOUBLE:
+        mask, left, right = st["active"], st["left"], st["right"]
+        go_left = draw < 0.5
+        width = right - left
+        left = torch.where(mask & go_left, left - width, left)
+        right = torch.where(mask & ~go_left, right + width, right)
+        x = torch.where(go_left, left, right)
+    elif mode == P_SHRINK:
+        x, mask = st["sl"] + draw * (st["sr"] - st["sl"]), st["s_active"]
+        st["x1"] = x
+    else:
+        x, mask = 0.5 * (st["lhat"] + st["rhat"]), st["h_active"]
+    u = st["u0"] + x[:, None] * st["dir"]
+    incube = unitcheck_batch(u, strict)
+    if mask is not None:
+        incube = incube & mask
+    if mode == P_SHRINK:
+        st["u_c"] = u
+    st["incube_l" if mode == P_START_L else "incube"] = incube
+    st["uclamp"] = u.clamp(0.0, 1.0)
+    st["any"] = torch.zeros_like(st["any"])
+
+
+def doubling_expand_plain(st, mode, logl_x, logl_l, draw, loglstar):
+    """After the likelihood's raw ``logl_x`` (q,) at the point of
+    :func:`doubling_point_plain` (each probe's logl masked to -inf outside
+    its cube check): ``X_INIT`` (after both end probes, ``logl_l`` the
+    left one's) starts the step: its end values, two evaluations a lane,
+    ``grow`` 1, the lanes with an end above ``loglstar`` active, every
+    lane shrinking, the next step's index; ``X_DOUBLE`` applies a
+    doubling: the active lanes' interval doubled to the side of ``draw``,
+    that end's value, one evaluation and ``grow`` expansions a lane, the
+    growth doubled (clamped at 2^30), the lanes with an end still above
+    ``loglstar`` active.  The shrink's interval follows the doubling's;
+    ``any`` says whether a lane is active."""
+    logl_new = torch.where(st["incube"], logl_x, _NEG_INF)
+    if mode == X_INIT:
+        fl = torch.where(st["incube_l"], logl_l, _NEG_INF)
+        fr = logl_new
+        st["nc"] = st["nc"] + 2
+        st["grow"] = torch.ones_like(st["grow"])
+        active = (fl > loglstar) | (fr > loglstar)
+        st["s_active"] = torch.ones_like(st["s_active"])
+        st["step"] = st["step"] + 1
+    else:
+        active, left, right = st["active"], st["left"], st["right"]
+        go_left = draw < 0.5
+        width = right - left
+        st["left"] = torch.where(active & go_left, left - width, left)
+        st["right"] = torch.where(active & ~go_left, right + width, right)
+        fl = torch.where(active & go_left, logl_new, st["fl"])
+        fr = torch.where(active & ~go_left, logl_new, st["fr"])
+        grow = st["grow"]
+        st["nc"] = st["nc"] + active
+        st["n_exp"] = st["n_exp"] + active * grow
+        st["grow"] = torch.where(active, (grow * 2).clamp(max=1 << 30), grow)
+        active = active & ((fl > loglstar) | (fr > loglstar))
+    st["fl"], st["fr"], st["active"] = fl, fr, active
+    st["sl"], st["sr"] = st["left"].clone(), st["right"].clone()
+    st["any"] = active.any()
+
+
+def doubling_halve_plain(st, logl_x, loglstar):
+    """One halving of Neal's (2003) acceptance test (algorithm 6) after
+    the likelihood's raw ``logl_x`` at the mid of each lane's
+    ``(lhat, rhat)``: the divergence flag (the mid between 0 and the
+    candidate ``x1``), the side toward ``x1`` moved to the mid with its
+    value, one evaluation a testing lane (``d_nc``), the lanes rejected
+    (both ends at or below ``loglstar`` after a divergence), and the lanes
+    whose interval is still wider than 1.1 testing on; ``any`` says
+    whether a lane tests on."""
+    x1, lhat, rhat = st["x1"], st["lhat"], st["rhat"]
+    active = st["h_active"]
+    mid = 0.5 * (lhat + rhat)
+    dflag = st["dflag"] | (((0.0 < mid) & (mid <= x1)) |
+                           ((x1 < mid) & (mid <= 0.0)))
+    go_right = x1 < mid  # shrink the right side toward x1
+    logl_mid = torch.where(st["incube"], logl_x, _NEG_INF)
+    st["d_nc"] = st["d_nc"] + active
+    f_rhat = torch.where(active & go_right, logl_mid, st["f_rhat"])
+    rhat = torch.where(active & go_right, mid, rhat)
+    f_lhat = torch.where(active & ~go_right, logl_mid, st["f_lhat"])
+    lhat = torch.where(active & ~go_right, mid, lhat)
+    newly = active & dflag & (loglstar >= f_lhat) & (loglstar >= f_rhat)
+    st["reject"] = st["reject"] | newly
+    active = active & ~newly & ((rhat - lhat) > 1.1)
+    st.update(dflag=dflag, lhat=lhat, rhat=rhat, f_lhat=f_lhat,
+              f_rhat=f_rhat, h_active=active, any=active.any())
+
+
+def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar):
+    """``S_CANDIDATE``, after the likelihood's ``v_x`` and raw ``logl_x``
+    at the shrink candidate: its v and masked logl kept (``v_c``,
+    ``logl_c``), one evaluation and one contraction a shrinking lane,
+    ``good`` where it is above ``loglstar``, and the acceptance test
+    started on the doubling's interval for the shrinking lanes that are
+    good and whose interval is wider than 1.1 (``any`` says whether one
+    is); ``any_shrink`` cleared.  ``S_RESOLVE``, after the test: its
+    evaluations billed to the good lanes, the lanes that pass take the
+    candidate (``newly``), the others shrink their interval to it and
+    shrink on (``any_shrink`` says whether one does)."""
+    active = st["s_active"]
+    if mode == S_CANDIDATE:
+        logl_c = torch.where(st["incube"], logl_x, _NEG_INF)
+        good = logl_c > loglstar
+        st["v_c"], st["logl_c"], st["good"] = v_x, logl_c, good
+        st["nc"] = st["nc"] + active
+        st["n_con"] = st["n_con"] + active
+        st["h_active"] = ((st["right"] - st["left"]) > 1.1) & (active & good)
+        for k, src in (("lhat", "left"), ("rhat", "right"),
+                       ("f_lhat", "fl"), ("f_rhat", "fr")):
+            st[k] = st[src].clone()
+        for k in ("dflag", "reject", "d_nc"):
+            st[k] = torch.zeros_like(st[k])
+        st["any"] = st["h_active"].any()
+        st["any_shrink"] = torch.zeros_like(st["any_shrink"])
+        return
+    good = st["good"]
+    st["nc"] = st["nc"] + torch.where(active & good, st["d_nc"], 0)
+    good = good & ~st["reject"]
+    newly = active & good
+    st["u"] = torch.where(newly[:, None], st["u_c"], st["u"])
+    st["v"] = torch.where(newly[:, None], st["v_c"], st["v"])
+    st["logl"] = torch.where(newly, st["logl_c"], st["logl"])
+    bad = active & ~good
+    x1 = st["x1"]
+    st["sl"] = torch.where(bad & (x1 < 0), x1, st["sl"])
+    st["sr"] = torch.where(bad & (x1 > 0), x1, st["sr"])
+    st.update(s_active=bad, newly=newly, any_shrink=bad.any())
+
+
+class DoublingRound:
+    """Every tensor the doubling slice round touches, for one round shape
+    ``(q, n_steps, ndim, npdim, dtype)`` on one device: the state (``st``,
+    as ``_doubling_state`` lays it out), the round's inputs
+    (``directions`` (q, n_steps, ndim), capped; ``loglstar`` 0-d; the
+    cube check's ``strict`` mask) and a segment's draws (``draw`` (q,):
+    the step's r0, a doubling's side, a shrink candidate's position).
+
+    Allocated, checked and, on the card, bound to the four kernels'
+    argument tables once; :meth:`start` loads a round into it,
+    :func:`doubling_point`, :func:`doubling_expand`,
+    :func:`doubling_halve` and :func:`doubling_shrink` run it.  The
+    buffers keep their addresses for the object's life, which is what
+    lets each segment of the round be captured as a CUDA graph."""
+
+    def __init__(self, q, n_steps, ndim, npdim, dtype, device, strict=None):
+        fn = "DoublingRound"
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{fn}: no kernel for device {device}")
+        if dtype not in _DTYPES:
+            raise TypeError(f"{fn} takes float64 or float32, got {dtype}")
+        if min(q, n_steps, ndim) < 1 or npdim < 0:
+            raise ValueError(f"{fn}: bad shape {(q, n_steps, ndim, npdim)}")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.q, self.n_steps, self.ndim, self.npdim = q, n_steps, ndim, npdim
+        self.dtype, self.device = dtype, device
+        self.st = _doubling_state(q, ndim, npdim, dtype, device)
+        self.directions = torch.empty((q, n_steps, ndim), dtype=dtype,
+                                      device=device)
+        self.loglstar = torch.empty((), dtype=dtype, device=device)
+        self.draw = torch.empty((q,), dtype=dtype, device=device)
+        self.strict = None
+        if strict is not None:
+            if not isinstance(strict, torch.Tensor):
+                raise TypeError(f"{fn}: strict must be a torch.Tensor")
+            self.strict = _fresh(strict.to(device=device, dtype=torch.bool))
+            _check(fn, "strict", self.strict, (ndim,), torch.bool, device)
+        self._args = None
+        if device.type == "cuda":
+            self._bind()
+
+    def start(self, start_u, start_v, start_logl, directions, loglstar):
+        """Load a round: the start points, zero tallies, the first step,
+        the capped ``directions`` and the threshold (a number or a 0-d
+        tensor, copied once a round); returns the state."""
+        st = self.st
+        for k, t in (("u", start_u), ("v", start_v), ("logl", start_logl)):
+            st[k].copy_(t)
+        for k in ("nc", "n_exp", "n_con", "step"):
+            st[k].zero_()
+        self.directions.copy_(directions)
+        if isinstance(loglstar, torch.Tensor):
+            self.loglstar.copy_(loglstar)
+        else:
+            self.loglstar.fill_(float(loglstar))
+        return st
+
+    def _bind(self):
+        """Fill the four kernels' argument tables; the likelihood's outputs
+        are written into them at each launch."""
+        st = self.st
+        point = (st["step"], self.directions, st["dir"], st["u"], st["u0"],
+                 self.draw, st["left"], st["right"], st["sl"], st["sr"],
+                 st["lhat"], st["rhat"], st["active"], st["s_active"],
+                 st["h_active"], self.strict, st["uclamp"], st["incube"],
+                 st["incube_l"], st["x1"], st["u_c"], st["any"])
+        expand = (st["incube_l"], st["incube"], None, None, self.draw,
+                  self.loglstar, st["left"], st["right"], st["fl"],
+                  st["fr"], st["sl"], st["sr"], st["active"],
+                  st["s_active"], st["grow"], st["nc"], st["n_exp"],
+                  st["step"], st["any"])
+        halve = (st["incube"], None, self.loglstar, st["x1"], st["lhat"],
+                 st["rhat"], st["f_lhat"], st["f_rhat"], st["dflag"],
+                 st["reject"], st["h_active"], st["d_nc"], st["any"])
+        shrink = (st["incube"], None, None, self.loglstar, st["s_active"],
+                  st["good"], st["left"], st["right"], st["fl"], st["fr"],
+                  st["lhat"], st["rhat"], st["f_lhat"], st["f_rhat"],
+                  st["dflag"], st["reject"], st["h_active"], st["d_nc"],
+                  st["v_c"], st["logl_c"], st["nc"], st["n_con"], st["u"],
+                  st["v"], st["logl"], st["u_c"], st["x1"], st["sl"],
+                  st["sr"], st["newly"], st["any"], st["any_shrink"])
+        tag = _DTYPES[self.dtype]
+        self._args = {name: (_pointer_table(t), _entry("slice_doubling",
+                                                       f"doubling_{name}",
+                                                       tag))
+                      for name, t in (("point", point), ("expand", expand),
+                                      ("halve", halve), ("shrink", shrink))}
+
+    def check_likelihood(self, v_x, logl_x):
+        """Raise unless the likelihood's outputs are what the kernels read:
+        (q, npdim) and (q,) contiguous tensors of the round's dtype on its
+        device."""
+        for name, t, shape in (("v_x", v_x, (self.q, self.npdim)),
+                               ("logl_x", logl_x, (self.q,))):
+            _check("doubling_round", name, t, shape, self.dtype,
+                   self.device)
+
+    def _plain(self, fn, *args):
+        """``fn`` on a copy of the state dict, the entries it rebinds
+        copied back into the round's buffers."""
+        st = dict(self.st)
+        fn(st, *args)
+        for k, buf in self.st.items():
+            if st[k] is not buf:
+                buf.copy_(st[k])
+
+
+def doubling_point(rb, mode):
+    """The position and point of each lane's next likelihood call on the
+    round ``rb`` (a :class:`DoublingRound`) by ``mode`` (``P_*``):
+    :func:`doubling_point_plain` on the CPU, on the card the
+    ``doubling_point`` kernel of ``csrc/slice_doubling.cu``.  Reads
+    ``rb.draw`` (``P_START_L``, ``P_DOUBLE``, ``P_SHRINK``) and
+    ``rb.directions``; writes ``uclamp`` and ``incube`` (``incube_l``) of
+    ``rb.st``."""
+    if rb.device.type == "cpu":
+        rb._plain(doubling_point_plain, mode, rb.draw, rb.directions,
+                  rb.strict)
+        return
+    table, f = rb._args["point"]
+    _run(f, table, (rb.q, rb.ndim, rb.n_steps, mode), rb.device,
+         "doubling_point")
+    doubling_point.launches += 1
+
+
+def doubling_expand(rb, mode, logl_x, logl_l=None):
+    """The step's start (``X_INIT``, after both end probes: ``logl_l``
+    the left one's raw values) or one doubling (``X_DOUBLE``) on the round
+    ``rb`` after the likelihood's raw ``logl_x`` (q,) in the round's dtype:
+    :func:`doubling_expand_plain` on the CPU, on the card the
+    ``doubling_expand`` kernel of ``csrc/slice_doubling.cu``, which masks
+    the values outside their probes' cube checks and updates the state in
+    place."""
+    if rb.device.type == "cpu":
+        rb._plain(doubling_expand_plain, mode, logl_x, logl_l, rb.draw,
+                  rb.loglstar)
+        return
+    table, f = rb._args["expand"]
+    table[2] = None if logl_l is None else logl_l.data_ptr()
+    table[3] = logl_x.data_ptr()
+    _run(f, table, (rb.q, mode, 0, 0), rb.device, "doubling_expand")
+    doubling_expand.launches += 1
+
+
+def doubling_halve(rb, logl_x):
+    """One halving of the acceptance test on the round ``rb`` after the
+    likelihood's raw ``logl_x`` (q,) at the mids: :func:`doubling_halve_plain`
+    on the CPU, on the card the ``doubling_halve`` kernel of
+    ``csrc/slice_doubling.cu``."""
+    if rb.device.type == "cpu":
+        rb._plain(doubling_halve_plain, logl_x, rb.loglstar)
+        return
+    table, f = rb._args["halve"]
+    table[1] = logl_x.data_ptr()
+    _run(f, table, (rb.q, 0, 0, 0), rb.device, "doubling_halve")
+    doubling_halve.launches += 1
+
+
+def doubling_shrink(rb, mode, v_x=None, logl_x=None):
+    """A shrink candidate's outcome (``S_CANDIDATE``, after the
+    likelihood's ``v_x`` (q, npdim) and raw ``logl_x`` (q,) at it, in the
+    round's dtype) or its resolution after the acceptance test
+    (``S_RESOLVE``) on the round ``rb``: :func:`doubling_shrink_plain` on
+    the CPU, on the card the ``doubling_shrink`` kernel of
+    ``csrc/slice_doubling.cu``."""
+    if rb.device.type == "cpu":
+        rb._plain(doubling_shrink_plain, mode, v_x, logl_x, rb.loglstar)
+        return
+    table, f = rb._args["shrink"]
+    if mode == S_CANDIDATE:
+        table[1], table[2] = v_x.data_ptr(), logl_x.data_ptr()
+    _run(f, table, (rb.q, rb.ndim, rb.npdim, mode), rb.device,
+         "doubling_shrink")
+    doubling_shrink.launches += 1
+
+
+# --------------------------------------------------------------------------
 # the kernels
 
 
@@ -873,7 +1263,8 @@ def _check(fn, name, t, shape, dtype, device):
 
 
 WRAPPERS = (slice_propose, slice_advance, rwalk_propose, rwalk_accept,
-            unif_valid, unif_place)
+            unif_valid, unif_place, doubling_point, doubling_expand,
+            doubling_halve, doubling_shrink)
 
 
 def zero_counts():

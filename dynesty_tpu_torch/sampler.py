@@ -1122,7 +1122,11 @@ class Sampler:
                 if not terminal and self._pipeline_capable():
                     # whatever stopped inside this dispatch has been
                     # replayed by now: the state is the uninterrupted run's
+                    t_plan0 = time.perf_counter()
                     self._plan_ahead(dlogz_eff, loglstar, logl_max)
+                    # the plan and its refit are timed as their own
+                    # (prelaunch, refit), not as consume
+                    t_cons0 += time.perf_counter() - t_plan0
             elif has_records:
                 self._nc_accum_carry = nc_round - staged_nc
             else:

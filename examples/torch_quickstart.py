@@ -3,13 +3,19 @@ correlated Gaussian (the reference's quickstart problem,
 ``docs/source/quickstart.rst``), the counterpart of ``quickstart.py``.
 
 Runs on the GPU by default; ``--device cpu`` runs it on the CPU.  The
-plots are drawn where matplotlib is installed.
+plots are drawn where matplotlib is installed.  ``--pulls FIRST-LAST``
+runs only the dynamic fit, once for each seed of the range, and prints
+each run's pull ``(logz - truth) / logzerr`` and then one JSON line with
+the pulls' mean, standard deviation (ddof 1) and largest magnitude: a
+scatter near 1 says the run's ``logzerr`` is the evidence's spread.
 
 Run: python examples/torch_quickstart.py [--device cpu] [--maxiter N]
+                                         [--pulls FIRST-LAST]
 """
 
 import argparse
 import importlib.util
+import json
 import os
 import sys
 
@@ -29,13 +35,45 @@ logz_truth = -ndim * np.log(20.0)
 
 
 def loglike(x):
-    # x is one point: the sampler batches the call with torch.func.vmap;
-    # a constant goes to the device the points are on
-    return -0.5 * (x @ cinv.to(x.device) @ x) + lnorm
+    # x is one point: the sampler batches the call with torch.func.vmap.
+    # cinv lies on the run's device (main moves it there once), so a call
+    # launches device work only and the sampler can capture it
+    return -0.5 * (x @ cinv @ x) + lnorm
 
 
 def ptform(u):
     return 10.0 * (2.0 * u - 1.0)
+
+
+def dynamic_run(device, seed, maxiter=None, print_progress=True):
+    """The dynamic fit, with posterior-weighted batches."""
+    dns = dyt.DynamicNestedSampler(loglike, ptform, ndim, device=device,
+                                   rstate=np.random.default_rng(seed))
+    dns.run_nested(nlive_init=500, nlive_batch=100, maxbatch=5,
+                   maxiter=maxiter, print_progress=print_progress)
+    return dns
+
+
+def pulls(device, first, last, maxiter=None):
+    """The dynamic fit's pull for each seed of ``first..last`` (each
+    printed as a JSON line) and their summary."""
+    runs = []
+    for seed in range(first, last + 1):
+        res = dynamic_run(device, seed, maxiter, False).results
+        runs.append({"seed": seed,
+                     "pull": float((res.logz[-1] - logz_truth) /
+                                   res.logzerr[-1]),
+                     "logz": float(res.logz[-1]),
+                     "logzerr": float(res.logzerr[-1]),
+                     "niter": int(res.niter)})
+        print(json.dumps(runs[-1]))
+    p = np.asarray([r["pull"] for r in runs])
+    summary = {"device": device, "seeds": [first, last], "n": len(p),
+               "mean": float(p.mean()),
+               "std": float(p.std(ddof=1)) if len(p) > 1 else None,
+               "max_abs": float(np.abs(p).max())}
+    print(json.dumps(summary))
+    return summary, runs
 
 
 def main(argv=None):
@@ -45,7 +83,15 @@ def main(argv=None):
                     help="stop each run after this many iterations")
     ap.add_argument("--seed", type=int, default=56432)
     ap.add_argument("--outdir", default=".", help="where the plots go")
+    ap.add_argument("--pulls", metavar="FIRST-LAST",
+                    help="only the dynamic fit, once for each seed, and "
+                    "the pulls' scatter")
     args = ap.parse_args(argv)
+    global cinv
+    cinv = cinv.to(args.device)
+    if args.pulls:
+        first, last = (int(s) for s in args.pulls.split("-"))
+        return pulls(args.device, first, last, args.maxiter)
 
     # static run
     sampler = dyt.NestedSampler(
@@ -64,11 +110,7 @@ def main(argv=None):
           f"{t.get('total', 0.0):.2f} s")
 
     # dynamic run with posterior-weighted batches
-    dns = dyt.DynamicNestedSampler(
-        loglike, ptform, ndim, device=args.device,
-        rstate=np.random.default_rng(args.seed + 1))
-    dns.run_nested(nlive_init=500, nlive_batch=100, maxbatch=5,
-                   maxiter=args.maxiter)
+    dns = dynamic_run(args.device, args.seed + 1, args.maxiter)
     dres = dns.results
     dres.summary()
 

@@ -4,6 +4,7 @@ a finite evidence of the expected shape (no tolerance: the runs are cut
 short, so their evidence is not held to the truth here)."""
 
 import importlib.util
+import json
 import os
 import re
 
@@ -41,6 +42,20 @@ def test_torch_quickstart(tmp_path):
     _finite(dns.results, 3)
     if importlib.util.find_spec("matplotlib") is not None:
         assert os.path.exists(tmp_path / "quickstart_corner.png")
+
+
+@pytest.mark.filterwarnings("ignore")
+def test_torch_quickstart_pulls(capsys):
+    mod = _example("torch_quickstart")
+    summary, runs = mod.main(["--device", "cpu", "--maxiter", "200",
+                              "--pulls", "3-4"])
+    assert [r["seed"] for r in runs] == [3, 4] and summary["n"] == 2
+    assert all(r["niter"] > 0 and np.isfinite(r["pull"]) for r in runs)
+    assert summary["std"] == pytest.approx(
+        np.std([r["pull"] for r in runs], ddof=1), rel=1e-12)
+    # one JSON line a run, then the summary's
+    lines = capsys.readouterr().out.strip().splitlines()[-3:]
+    assert [json.loads(x) for x in lines] == runs + [summary]
 
 
 @pytest.mark.filterwarnings("ignore")

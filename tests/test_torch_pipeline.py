@@ -431,3 +431,14 @@ def test_switching_planning_off_moves_a_capable_run(monkeypatch):
     _quiet(b.run_nested, print_progress=False)
     assert a.timings["n_prelaunch"] >= 1 and "n_prelaunch" not in b.timings
     assert not np.array_equal(a.results.bound_iter, b.results.bound_iter)
+
+
+def test_the_phase_clocks_count_a_planned_refit_once():
+    """The refit a dispatch plans ahead of runs inside the consume window;
+    it is timed as ``refit`` alone, so the phases the loop times one after
+    another sum to no more than the run's wall."""
+    s = _static("multi", "unif")
+    _quiet(s.run_nested, print_progress=False)
+    t = s.timings
+    assert t["n_prelaunch"] >= 1 and t["n_refit"] >= 2
+    assert t["dispatch"] + t["consume"] + t["refit"] <= t["total"]
