@@ -7,8 +7,10 @@ nlive=1000)``, every other argument at its default: multi / rwalk, walks
     python3 bench_rwalk_graph.py [--root DIR] [--out FILE] [--no-profile]
 
 For the drive: wall, ``Timings['dispatch']``, the walk rounds (counted
-at ``internal.kernels.rwalk_walk``, which both the eager and the captured
-walk go through) and the host ms a round spends in that call, dispatch
+at ``internal.kernels.rwalk_loop``, the walk apart from its round's
+start, or where a checkout lacks it at ``rwalk_walk``, which both the
+eager and the captured walk go through) and the host ms a round spends
+in that call, dispatch
 per round, niter, ncall and logz (so that two checkouts can be held to
 the same run), and the capture counters where the checkout has them.
 Then the drive once more under ``torch.profiler`` (device activity
@@ -60,7 +62,9 @@ def _card():
 def count_walks():
     """Count every walk round and the host time spent in its call."""
     from dynesty_tpu_torch.internal import kernels as tk
-    walk = tk.rwalk_walk
+    # the walk apart from its round's start where the checkout has it so
+    name = "rwalk_loop" if hasattr(tk, "rwalk_loop") else "rwalk_walk"
+    walk = getattr(tk, name)
 
     def rwalk_walk(*a, **kw):
         t0 = time.perf_counter()
@@ -69,7 +73,7 @@ def count_walks():
         _WALK["rounds"] += 1
         return out
 
-    tk.rwalk_walk = rwalk_walk
+    setattr(tk, name, rwalk_walk)
 
 
 def rwalk_drive(dyt, profile=False):

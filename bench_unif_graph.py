@@ -19,8 +19,13 @@ And two with the sampler given as ``RSliceSampler(slice_doubling=True)``
 * doubling-balls: ``nlive=2048, bound='balls'`` (phase 11b, the main
   path's width).
 
+And two more of the smoke's drives: rwalk (the default in 15 dimensions,
+multi/rwalk at nlive 1000 on the 15-D standard normal, phase 9) and
+eggbox (``dynesty_tpu_torch.models.Eggbox``, multi/unif at nlive 1000,
+``queue_size=256``, to dlogz 0.01, phase 24).
+
     python3 bench_unif_graph.py [--root DIR] [--out FILE] [--no-profile]
-                                [--drives heavy,default,balls]
+                                [--drives heavy,default,balls] [--split]
 
 For each drive: wall, ``Timings['dispatch']``, the waves (``sync_wave``:
 one flag read a wave in both the eager and the captured round), the
@@ -36,6 +41,10 @@ time (the union of its kernels' and copies' intervals), over the
 profiled drive's wall and over the unprofiled one's, and so its idle
 share.  The profiler slows the host, so the share over the profiled wall
 is an upper bound on the unprofiled drive's.
+
+With ``--split``, the drive once more with host timers around the parts
+of a fused round (:func:`split_round`): the host ms of each part, summed
+over the drive's dispatches, exclusive of the parts inside it.
 
 ``--root`` imports ``dynesty_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive`` into the git-ignored
@@ -103,24 +112,137 @@ def heavy_loglike():
 
 
 def count_rounds():
-    """Count every uniform round and the host time spent in its call."""
+    """Count every uniform round and the host time spent in its call: its
+    waves (``unif_loop``) where the checkout has them apart, else the
+    round function ``make_unif_round`` returns."""
     from dynesty_tpu_torch.internal import kernels as tk
     from dynesty_tpu_torch.internal import samplers as ts
-    make = tk.make_unif_round
 
-    def make_unif_round(*a, **kw):
-        fn = make(*a, **kw)
-
-        def round_fn(*ra, **rkw):
+    def timed(fn):
+        def call(*a, **kw):
             t0 = time.perf_counter()
-            out = fn(*ra, **rkw)
+            out = fn(*a, **kw)
             _ROUNDS["host_s"] += time.perf_counter() - t0
             _ROUNDS["rounds"] += 1
             return out
+        return call
 
-        return round_fn
+    if hasattr(tk, "unif_loop"):
+        tk.unif_loop = timed(tk.unif_loop)
+        return
+    make = tk.make_unif_round
+
+    def make_unif_round(*a, **kw):
+        return timed(make(*a, **kw))
 
     tk.make_unif_round = ts.make_unif_round = make_unif_round
+
+
+# the parts of a fused round timed by split_round: (module, attribute,
+# part); the proposal loops under either version's names
+SPLIT_PARTS = (
+    ("fused", "torch_generator", "generator"),
+    ("samplers", "select_starts", "select_starts"),
+    ("samplers", "make_ellipsoid_refit", None),
+    ("kernels", "slice_state_machine", "loop"),
+    ("kernels", "doubling_round", "loop"),
+    ("kernels", "unif_waves", "loop"),
+    ("kernels", "rwalk_walk", "loop"),
+    ("kernels", "slice_loop", "loop"),
+    ("kernels", "doubling_loop", "loop"),
+    ("kernels", "unif_loop", "loop"),
+    ("kernels", "rwalk_loop", "loop"),
+    ("fused", "consume_round", "consume_round"),
+)
+_SPLIT = {"stack": [], "parts": {}, "on": False}
+
+
+def _timer(fn, part):
+    """``fn`` with its host time added to ``part``, exclusive of the
+    timed parts it calls."""
+    def call(*a, **kw):
+        if not _SPLIT["on"]:
+            return fn(*a, **kw)
+        stack = _SPLIT["stack"]
+        stack.append(0.0)
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            dt = time.perf_counter() - t0
+            inner = stack.pop()
+            parts = _SPLIT["parts"]
+            parts[part] = parts.get(part, 0.0) + dt - inner
+            if stack:
+                stack[-1] += dt
+    return call
+
+
+def split_round():
+    """Host timers around the parts of a fused round, for both versions
+    (a part the checkout lacks is skipped): the round's generator, the
+    batch threshold (``torch.sort``), ``select_starts``, the proposal
+    loop, the consume scan, the device tuning and chain-stop functions,
+    the ellipsoid refit of a unif round, the captured prologue's and
+    epilogue's replays and their capture, host reads of a device flag
+    outside the loops
+    (``Tensor.__bool__``: the round gate), the flat result's download
+    (``finish_fused``) and, as ``rest``, the fused call's own time (the
+    parent's threshold and load code, record and live assembly, the dicts
+    and the final cat; the change's per-dispatch loads and finish)."""
+    from dynesty_tpu_torch.internal import fused as tf
+    from dynesty_tpu_torch.internal import kernels as tk
+    from dynesty_tpu_torch.internal import samplers as ts
+    mods = {"fused": tf, "kernels": tk, "samplers": ts}
+    for mod, attr, part in SPLIT_PARTS:
+        if not hasattr(mods[mod], attr):
+            continue
+        fn = getattr(mods[mod], attr)
+        if part is None:  # a factory: time what it makes
+            setattr(mods[mod], attr, (lambda f: lambda *a, **kw: _timer(
+                f(*a, **kw), "ell_refit"))(fn))
+        else:
+            setattr(mods[mod], attr, _timer(fn, part))
+    torch.sort = _timer(torch.sort, "threshold_sort")
+    torch.Tensor.__bool__ = _timer(torch.Tensor.__bool__, "gate_read")
+    if hasattr(tf, "RoundGraphs"):
+        g = tf.RoundGraphs
+        g.replay_prologue = _timer(g.replay_prologue, "prologue_replay")
+        g.replay_epilogue = _timer(g.replay_epilogue, "epilogue_replay")
+        g.capture = _timer(g.capture, "round_capture")
+    si = ts.InternalSampler
+    si.finish_fused = _timer(si.finish_fused, "download")
+    for cls in [si] + si.__subclasses__() + [
+            c for s_ in si.__subclasses__() for c in s_.__subclasses__()]:
+        for meth, part in (("device_tune_fn", "tune_chain"),
+                           ("device_chain_stop_fn", "tune_chain")):
+            if meth in cls.__dict__:
+                setattr(cls, meth, (lambda m, p: lambda self: (
+                    lambda f: None if f is None else _timer(f, p))(
+                        m(self)))(cls.__dict__[meth], part))
+    make = tf.make_fused_round
+
+    def make_fused_round(*a, **kw):
+        fn, layout = make(*a, **kw)
+        return _timer(fn, "rest"), layout
+
+    tf.make_fused_round = ts.make_fused_round = make_fused_round
+
+
+def normal_loglike(x):
+    """Standard normal in any dimension, normalised."""
+    return -0.5 * (x @ x) - 0.5 * x.shape[-1] * np.log(2.0 * np.pi)
+
+
+def _rwalk(dyt):
+    return normal_loglike, dict(nlive=1000, _ndim=15)
+
+
+def _eggbox(dyt):
+    prob = dyt.models.Eggbox()
+    return prob.loglike, dict(nlive=1000, bound="multi", sample="unif",
+                              queue_size=256, _ndim=prob.ndim,
+                              _ptform=prob.ptform, _run={"dlogz": 0.01})
 
 
 def _doubling(nlive, bound):
@@ -140,27 +262,32 @@ DRIVES = {
                                               sample="rslice")),
     "doubling": _doubling(500, "single"),
     "doubling-balls": _doubling(2048, "balls"),
+    "rwalk": _rwalk,
+    "eggbox": _eggbox,
 }
 KEYS = ("dispatch", "refit", "consume", "total", "n_round", "sync_round",
         "sync_wave", "sync_slice", "n_refit", "nc_launched", "n_unif_replay",
         "n_unif_graph", "n_uncaptured", "n_slice_replay",
-        "n_doubling_replay", "n_doubling_graph")
+        "n_doubling_replay", "n_doubling_graph", "n_rwalk_replay",
+        "n_dispatch", "n_round_replay", "n_round_graph")
 
 
 def run_drive(dyt, name, profile=False):
     _ROUNDS.update(rounds=0, host_s=0.0)
     loglike, kw = DRIVES[name](dyt)
+    ptform, ndim = kw.pop("_ptform", box_ptform), kw.pop("_ndim", NDIM)
+    run_kw = kw.pop("_run", {})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sampler = dyt.NestedSampler(
-        loglike, box_ptform, NDIM,
+        loglike, ptform, ndim,
         rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
     prof = None
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_
         prof = prof_(activities=[ProfilerActivity.CUDA])
         prof.__enter__()
-    sampler.run_nested(print_progress=False)
+    sampler.run_nested(print_progress=False, **run_kw)
     torch.cuda.synchronize()
     if prof is not None:
         prof.__exit__(None, None, None)
@@ -200,6 +327,9 @@ def main(prog="bench_unif_graph", default_drives="heavy,default,balls"):
     ap.add_argument("--drives", default=default_drives,
                     help="comma-separated drives among "
                     f"{', '.join(DRIVES)}")
+    ap.add_argument("--split", action="store_true",
+                    help="also run each drive with host timers around the "
+                    "parts of a fused round")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit(f"{prog}: CUDA is not available")
@@ -231,6 +361,8 @@ def main(prog="bench_unif_graph", default_drives="heavy,default,balls"):
             rstate=np.random.Generator(np.random.PCG64(SEED))
         ).run_nested(print_progress=False, maxiter=300)
     count_rounds()
+    if args.split:
+        split_round()
     for name in drives:
         recs[name] = run_drive(dyt, name)
         print(json.dumps({"drive": name, "root": root, "card": card,
@@ -241,6 +373,18 @@ def main(prog="bench_unif_graph", default_drives="heavy,default,balls"):
                 1.0 - rec["device_busy_s"] / recs[name]["wall_s"]
             recs[f"{name}-profiled"] = rec
             print(json.dumps({"drive": f"{name}-profiled", "root": root,
+                              "card": card, **rec}))
+        if args.split:
+            _SPLIT.update(parts={}, on=True)
+            rec = run_drive(dyt, name)
+            _SPLIT["on"] = False
+            rounds = rec["timings"]["n_round"]
+            rec["split_ms_per_round"] = {
+                k: 1e3 * v / rounds for k, v in sorted(
+                    _SPLIT["parts"].items())}
+            rec["split_s"] = dict(sorted(_SPLIT["parts"].items()))
+            recs[f"{name}-split"] = rec
+            print(json.dumps({"drive": f"{name}-split", "root": root,
                               "card": card, **rec}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -100,12 +100,24 @@ Phases, in order; any failure raises and exits non-zero:
    each with a blob and a strict mask: every column, the blob and the
    generator's offset bit for bit, every segment but one warm-up of each
    kind a replay; each segment's host time replayed (with its wait and
-   flag read) against eager.
+   flag read) against eager.  Then the round's assembly
+   (``round_assemble_phase``): the two kernels of ``round_assemble``
+   against ``round_assemble_plain`` on the same CUDA tensors at the
+   consume scan's four shapes, a replay round and a round whose records
+   come partly from its proposals, every output bit for bit, with their
+   times and byte bound.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
    launch count zeroed just before and read just after; check the
    evidence against the analytic -8.987 and that the exact L2 path ran.
+   On every drive from here, each fused round is assembled by
+   ``round_assemble`` and, on the card, replays its prologue and
+   epilogue but the first round of each shape; the round gate is read at
+   most once a dispatch (the walk once a round).  3b. captured-round:
+   the same drive to 3,000 iterations with the rounds' prologue and
+   epilogue eager, then captured: results, the rounds' generator offsets
+   and the counts equal; the replays' device and host times.
 4. The same drive with ``bound='cubes'``: the exact L-inf path must run.
 5. A friends refit (``RadFriends.update``) of a live set at the
    tensor-core path's switch point: the tensor-core path must run.
@@ -221,7 +233,10 @@ Phases, in order; any failure raises and exits non-zero:
     and every wave but one warm-up a shape replays.  32b. uncapturable: a
     likelihood that copies a host constant to the card at every call,
     which no CUDA graph may hold: each wave shape's capture must raise and
-    be warned once, and every wave run eagerly through both wave kernels.
+    be warned once, and every wave run eagerly through both wave kernels
+    (the rounds' prologue and epilogue, which call no likelihood, still
+    replay); then a doubling drive whose second segment capture raises:
+    warned once, no replay after it, bit for bit an eager run.
 33. queue-balls: the balls drive with ``proposal_mode='queue'`` (q =
     256): every consume launch on the general path at nlive 2048, the
     evidence gate; then the same drive with every round's consume sent
@@ -331,6 +346,7 @@ CONSUME_SOURCE = "dynesty_tpu_torch/csrc/consume_scan.cu"
 SLICE_SOURCE = "dynesty_tpu_torch/csrc/slice_step.cu"
 RWALK_SOURCE = "dynesty_tpu_torch/csrc/rwalk_step.cu"
 UNIF_SOURCE = "dynesty_tpu_torch/csrc/unif_wave.cu"
+ASSEMBLE_SOURCE = "dynesty_tpu_torch/csrc/round_assemble.cu"
 # the JAX package's heavy bench (bench.py): a 3-D correlated Gaussian plus
 # a tanh matvec chain of this width and depth, at this live-point count
 H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
@@ -481,7 +497,8 @@ def count_rounds():
 # (sync_wave)
 CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_rwalk_replay",
                   "n_rwalk_graph", "n_unif_replay", "n_unif_graph",
-                  "n_doubling_replay", "n_doubling_graph", "n_uncaptured")
+                  "n_doubling_replay", "n_doubling_graph", "n_uncaptured",
+                  "n_round_replay", "n_round_graph", "sync_round")
 # rounds of the slice state machine and its iterations (its flag reads,
 # less the one that ends each round), the random walk's rounds, its round
 # shapes (buffers made), its steps (run eagerly one by one, or a replay's
@@ -496,12 +513,17 @@ CAPTURE_COUNTS = ("n_slice_replay", "n_slice_graph", "n_rwalk_replay",
 _LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
                         "rwalk_shapes", "rwalk_steps", "rwalk_due",
                         "unif_shapes", "unif_waves", "unif_eager",
-                        "unif_warmups", "sync_wave", "doubling_rounds",
-                        "doubling_steps", "doubling_reads",
-                        "doubling_shapes", "seg_start", "seg_double",
+                        "unif_warmups", "unif_gated", "sync_wave",
+                        "doubling_rounds", "doubling_steps",
+                        "doubling_reads", "doubling_shapes",
+                        "doubling_gated", "seg_start", "seg_double",
                         "seg_candidate", "seg_halve", "seg_resolve",
-                        "doubling_eager", "doubling_warmups") +
+                        "doubling_eager", "doubling_warmups",
+                        "slice_gated", "round_shapes", "round_warm") +
                        CAPTURE_COUNTS, 0)
+# the fused rounds' graphs (their prologue and epilogue, one pair a round
+# shape) made since the counts were last zeroed (count_proposal_loops)
+_ROUND_GRAPHS = []
 # the per-step kernels' launch counts in a drive's counts
 STEP_KERNELS = ("slice_propose", "slice_advance", "rwalk_propose",
                 "rwalk_accept")
@@ -522,22 +544,28 @@ def count_proposal_loops():
     :func:`_counts` catches a step that went through a plain version on
     the card or skipped its kernel; and the walk's round shapes (its
     ``RWalkGraph`` buffers made), each of which warms up once."""
+    from dynesty_tpu_torch.internal import fused as tf
     from dynesty_tpu_torch.internal import kernels as tk
-    machine, walk = tk.slice_state_machine, tk.rwalk_walk
+    machine, walk = tk.slice_loop, tk.rwalk_loop
     graph = tk.RWalkGraph
     init, step, replay = graph.__init__, graph.step, graph.replay
 
-    def slice_state_machine(*a, timings, **kw):
-        _LOOPS["slice_rounds"] += 1
+    def slice_loop(entry, draw, *, timings, **kw):
+        # a round behind the fused round's gate reads once (sync_round)
+        # and iterates no step
         n0 = timings.get("sync_slice", 0)
-        out = machine(*a, timings=timings, **kw)
-        _LOOPS["slice_iters"] += timings["sync_slice"] - n0 - 1
-        return out
+        gated = machine(entry, draw, timings=timings, **kw)
+        if gated:
+            _LOOPS["slice_gated"] += 1
+        else:
+            _LOOPS["slice_rounds"] += 1
+            _LOOPS["slice_iters"] += timings["sync_slice"] - n0 - 1
+        return gated
 
-    def rwalk_walk(*a, walks, **kw):
+    def rwalk_loop(entry, draw, **kw):
         _LOOPS["rwalk_rounds"] += 1
-        _LOOPS["rwalk_due"] += walks
-        return walk(*a, walks=walks, **kw)
+        _LOOPS["rwalk_due"] += entry.walks
+        return walk(entry, draw, **kw)
 
     def graph_init(self, *a, **kw):
         _LOOPS["rwalk_shapes"] += 1
@@ -552,9 +580,18 @@ def count_proposal_loops():
         _LOOPS["rwalk_steps"] += self.walks
         return replay(self, gen)
 
-    tk.slice_state_machine, tk.rwalk_walk = slice_state_machine, rwalk_walk
+    tk.slice_loop, tk.rwalk_loop = slice_loop, rwalk_loop
     graph.__init__, graph.step, graph.replay = (graph_init, counted_step,
                                                 counted_replay)
+
+    # the fused rounds' graphs, one a round shape
+    r_init = tf.RoundGraphs.__init__
+
+    def round_init(self, *a, **kw):
+        r_init(self, *a, **kw)
+        _ROUND_GRAPHS.append(self)
+
+    tf.RoundGraphs.__init__ = round_init
 
     # the uniform waves: every wave is one call of UnifGraph.wave outside a
     # capture (which records without running) or one replay; a warm-up
@@ -585,22 +622,39 @@ def count_proposal_loops():
 
     ug.__init__, ug.wave, ug.replay = unif_init, unif_wave, unif_replay
     ug.on_side_stream = unif_side
+    u_loop = tk.unif_loop
+
+    def unif_loop(*a, **kw):
+        # a round behind the fused round's gate runs one wave of no lane,
+        # whose read counts as sync_round; over a user's bound the gate is
+        # read before the first wave, and such a round runs none
+        gated = u_loop(*a, **kw)
+        _LOOPS["unif_gated"] += gated and kw.get("host_sampler") is None
+        return gated
+
+    tk.unif_loop = unif_loop
 
     # the doubling round: its rounds, slice steps and flag reads; every
     # segment is one call of DoublingGraph.run, run eagerly (a warm-up on
     # the side stream among them) or replayed
-    d_round, dg = tk.doubling_round, tk.DoublingGraph
+    d_loop, dg = tk.doubling_loop, tk.DoublingGraph
     d_init, d_run, d_replay = dg.__init__, dg.run, dg.replay
     d_side = dg.on_side_stream
 
-    def doubling_round(like, directions, draw, *a, timings=None, **kw):
-        _LOOPS["doubling_rounds"] += 1
-        _LOOPS["doubling_steps"] += directions.shape[1]
+    def doubling_loop(entry, draw, *, timings=None, **kw):
+        # a round behind the fused round's gate runs its first start
+        # segment (no lane probed) and reads once (sync_round)
         n0 = timings.get("sync_slice", 0) if timings is not None else 0
-        out = d_round(like, directions, draw, *a, timings=timings, **kw)
+        gated = d_loop(entry, draw, timings=timings, **kw)
+        if gated:
+            _LOOPS["doubling_gated"] += 1
+            _LOOPS["doubling_reads"] += 1
+            return gated
+        _LOOPS["doubling_rounds"] += 1
+        _LOOPS["doubling_steps"] += entry.rb.n_steps
         if timings is not None:
             _LOOPS["doubling_reads"] += timings["sync_slice"] - n0
-        return out
+        return gated
 
     def doubling_init(self, like, rb):
         d_init(self, like, rb)
@@ -620,7 +674,7 @@ def count_proposal_loops():
         _LOOPS["doubling_warmups"] += 1
         return d_side(self, fn)
 
-    tk.doubling_round = doubling_round
+    tk.doubling_loop = doubling_loop
     dg.__init__, dg.run, dg.replay = doubling_init, doubling_run, \
         doubling_replay
     dg.on_side_stream = doubling_side
@@ -635,6 +689,7 @@ def _zero_counts(hk):
     for key in _LOOPS:
         _LOOPS[key] = 0
     _UNIF_GRAPHS.clear()
+    _ROUND_GRAPHS.clear()
 
 
 def _counts(hk, eager=False, custom=False, raised=False):
@@ -658,11 +713,23 @@ def _counts(hk, eager=False, custom=False, raised=False):
            "consume_thin": paths["thin"],
            "consume_general": paths["general"], "rounds": _ROUNDS[0]}
     out.update({w.__name__: w.launches for w in pr.WRAPPERS})
+    out["round_assemble"] = cs.round_assemble.launches
+    _LOOPS["round_shapes"] = len(_ROUND_GRAPHS)
+    _LOOPS["round_warm"] = sum(g.warm for g in _ROUND_GRAPHS)
     out.update(_LOOPS)
     if out["consume"] != out["rounds"] or \
             paths["thin"] + paths["general"] != out["consume"]:
         raise RuntimeError(f"fused rounds and consume kernel launches "
                            f"differ: {out}")
+    # the fused rounds: each assembled by the kernel; on the card every
+    # round's prologue and epilogue replayed but the first round of each
+    # shape (the capture's warm-up), whatever the likelihood
+    if not (out["round_assemble"] == out["rounds"] and
+            out["n_round_replay"] + out["round_warm"] == out["rounds"] and
+            out["n_round_graph"] <= out["round_warm"] <=
+            out["round_shapes"]):
+        raise RuntimeError(f"the fused rounds did not run as the capture "
+                           f"rule says: {out}")
     if not (out["slice_propose"] == out["slice_advance"] ==
             out["slice_iters"]) or not (
                 out["rwalk_propose"] == out["rwalk_accept"] ==
@@ -670,7 +737,7 @@ def _counts(hk, eager=False, custom=False, raised=False):
         raise RuntimeError(f"proposal-step kernel launches and the loops' "
                            f"iterations differ: {out}")
     if not (out["unif_valid"] == out["unif_place"] == out["unif_waves"] ==
-            out["sync_wave"]):
+            out["sync_wave"] + out["unif_gated"]):
         raise RuntimeError(f"uniform wave kernel launches and the waves "
                            f"differ: {out}")
     # eager waves beside the warm-ups: host mode, or a user's bound
@@ -703,7 +770,8 @@ def _counts(hk, eager=False, custom=False, raised=False):
             out["doubling_halve"] == out["seg_halve"] and
             out["doubling_shrink"] == out["seg_candidate"] +
             out["seg_resolve"] and
-            out["seg_start"] == out["doubling_steps"] and
+            out["seg_start"] == out["doubling_steps"] +
+            out["doubling_gated"] and
             out["doubling_reads"] == segs + out["doubling_steps"]):
         raise RuntimeError(f"doubling kernel launches and the round's "
                            f"segments and reads differ: {out}")
@@ -881,6 +949,7 @@ def rwalk_round_times(dyt):
     Returns the times and the replayed round's graph entry."""
     from dynesty_tpu_torch.internal.fused import make_fused_round
     from dynesty_tpu_torch.internal.kernels import make_rwalk_round
+    from dynesty_tpu_torch.internal.samplers import _ReplayProposer
     from dynesty_tpu_torch.internal.likelihood import LogLikelihood
 
     q, il, kw = 256, 2 * R_NDIM, dict(dtype=torch.float64, device="cuda")
@@ -906,13 +975,9 @@ def rwalk_round_times(dyt):
     prop = torch.cat([packed_in[:, :il], packed_in[:, il:il + 1] + 100.0,
                       torch.full((q, 3), 35.0, **kw)], dim=1)
 
-    def propose(gen_, live_, live_blob, axes_args, scale, loglstar):
-        return (prop[:, :R_NDIM], prop[:, R_NDIM:il], prop[:, il], None,
-                prop[:, il + 1].to(torch.int64), (prop[:, il + 2].sum(),),
-                prop[:, il + 2:il + 4])
-
-    consume, _ = make_fused_round(propose, nlive=R_NLIVE, ndim=R_NDIM,
-                                  npdim=R_NDIM, q=q, **kw)
+    consume, _ = make_fused_round(_ReplayProposer(kw["dtype"], "cuda", il),
+                                  nlive=R_NLIVE, ndim=R_NDIM, npdim=R_NDIM,
+                                  q=q, capture=False, **kw)
     live = torch.as_tensor(np.concatenate(
         [u, v, logl[:, None], np.zeros((R_NLIVE, 2)),
          np.full((R_NLIVE, 1), -1e30)], axis=1), device="cuda")
@@ -943,7 +1008,7 @@ def rwalk_round_times(dyt):
     out["replay_events_ms"] = _time_ms(lambda: entry.replay(gen), 20)
     out["likelihood_call_ms"] = _time_ms(lambda: like.batch_eval(u_dev), 50)
     out["consume_round_ms"] = _time_ms(
-        lambda: consume(SEED, live, None, {}, ctrl), 5)
+        lambda: consume(SEED, live, None, {"prop": prop}, ctrl), 5)
     return out, entry
 
 
@@ -1043,11 +1108,16 @@ def queue_balls_drive(dyt, hk):
                            f"{s['launches']}, shapes {s['consume_shapes']}")
     launches = cs.consume_round.launches
     fused_mod.consume_round = cs.consume_round_plain
+    # the plain loop reads the device: its rounds stay eager
+    import dynesty_tpu_torch.internal.samplers as ts
+    capture_rule = ts._capture_rounds
+    ts._capture_rounds = lambda ns: False
     try:
         plain, psampler = drive(dyt, 2048, "balls", proposal_mode="queue",
                                 gate=_queue_gate)
     finally:
         fused_mod.consume_round = kernel
+        ts._capture_rounds = capture_rule
     if cs.consume_round.launches != launches:
         raise RuntimeError("the plain replay launched the consume kernel")
     a, b = sampler.results, psampler.results
@@ -2360,27 +2430,25 @@ def consume_ctrl(rounds_active=1, dlogz=0.01, max_accepts=2 ** 30, kills0=0,
 def run_fixed_round(live, prop, rounds, mode, ctrl, kind="fixed",
                     dtype=torch.float64, plain=False, force_general=False):
     """One fused dispatch on the card over a fixed proposal block (the
-    pattern of the replay round): the consume kernel, or with ``plain``
-    the eager loop on the same CUDA tensors.  Returns (flat, live out) on
-    the host and the layout."""
+    pattern of the replay round): the consume and assembly kernels, or
+    with ``plain`` their plain versions on the same CUDA tensors.
+    Returns (flat, live out) on the host and the layout."""
     import dynesty_tpu_torch.internal.fused as fused_mod
+    from dynesty_tpu_torch.internal.samplers import _ReplayProposer
     from dynesty_tpu_torch.ops import consume as cs
 
     q, nlive = prop.shape[0], live.shape[0]
     prop_t = torch.as_tensor(prop, dtype=dtype, device="cuda")
-
-    def propose(gen, live_, live_blob, axes_args, scale, loglstar):
-        p = axes_args["prop"]
-        return (p[:, :C_NDIM], p[:, C_NDIM:C_IL], p[:, C_IL], None,
-                p[:, C_IL + 1].to(torch.int64), (p[:, C_IL + 2].sum(),),
-                p[:, C_IL + 2:C_IL + 4])
-
+    # the replay round's proposer over the block, every round eager
     fn, layout = fused_mod.make_fused_round(
-        propose, nlive=nlive, ndim=C_NDIM, npdim=C_NPDIM, q=q, dtype=dtype,
-        device="cuda", kind=kind, rounds=rounds, mode=mode)
-    saved = fused_mod.consume_round, fused_mod._FORCE_GENERAL_CONSUME
+        _ReplayProposer(dtype, "cuda", C_IL), nlive=nlive, ndim=C_NDIM,
+        npdim=C_NPDIM, q=q, dtype=dtype, device="cuda", kind=kind,
+        rounds=rounds, mode=mode, capture=False)
+    saved = (fused_mod.consume_round, fused_mod.round_assemble,
+             fused_mod._FORCE_GENERAL_CONSUME)
     if plain:
         fused_mod.consume_round = cs.consume_round_plain
+        fused_mod.round_assemble = cs.round_assemble_plain_into
     fused_mod._FORCE_GENERAL_CONSUME = force_general
     try:
         flat, _, live_out, _, _, _ = fn(
@@ -2388,7 +2456,8 @@ def run_fixed_round(live, prop, rounds, mode, ctrl, kind="fixed",
             {"prop": prop_t}, ctrl)
         torch.cuda.synchronize()
     finally:
-        fused_mod.consume_round, fused_mod._FORCE_GENERAL_CONSUME = saved
+        (fused_mod.consume_round, fused_mod.round_assemble,
+         fused_mod._FORCE_GENERAL_CONSUME) = saved
     return flat.cpu().numpy(), live_out.cpu().numpy(), layout
 
 
@@ -2724,6 +2793,245 @@ STEP_CASES = [("slice", 3, None, None), ("slice", 15, None, None),
 # slice updates per lane (rslice's default)
 STEP_NSTEPS = 5
 STEP_LOGLSTAR = 0.25
+
+# --------------------------------------------------------------------------
+# the round's assembly and the captured round
+
+# (nlive, q, mode, path) of the assembly's cases: the consume scan's four
+# main shapes, a replay round (five kills before it, its refills born at
+# birth0) and a general round whose proposals straddle the threshold
+# (some rejected, some accepted and killed later in the round: records
+# taken from the proposals)
+ASSEMBLE_CASES = ((2048, 256, "batch", "thin"), (2048, 256, "batch",
+                                                  "general"),
+                  (3000, 256, "batch", "thin"), (1000, 256, "queue",
+                                                 "general"),
+                  (2048, 256, "batch", "replay"),
+                  (2048, 256, "batch", "mixed"))
+ASSEMBLE_ROUNDS = 3
+
+
+def assemble_inputs(nlive, q, mode, path):
+    """``consume_state``'s live matrix and proposals on the card, the
+    consume kernel's columns for them, and the round's it0, birth and
+    threshold."""
+    live, prop = consume_state(nlive, q)
+    if path == "mixed":
+        rs = np.random.Generator(np.random.PCG64(SEED + 1))
+        prop[:, C_IL] = np.sort(live[:, C_IL])[q - 1] + rs.normal(size=q)
+    live_t = torch.as_tensor(live, device="cuda")
+    prop_t = torch.as_tensor(prop, device="cuda")
+    f = torch.zeros((), dtype=torch.float64, device="cuda")
+    i = torch.zeros((), dtype=torch.int64, device="cuda")
+    b = torch.zeros((), dtype=torch.bool, device="cuda")
+    st = {k: (f - 1e30 if k in ("logz", "loglstar") else f)
+          for k in cs.FLOAT_KEYS}
+    st.update({k: (b if k in cs.BOOL_KEYS else i) for k in cs.INT_KEYS})
+    if path == "replay":
+        st["racc"] = i + 5
+    live_logl = live_t[:, C_IL].contiguous()
+    qnc = prop_t[:, C_IL + 1].to(torch.int64)
+    sorted_logl, sort_idx = torch.sort(live_logl, stable=True)
+    thin = (sort_idx, sorted_logl, torch.ones((), dtype=torch.bool,
+                                              device="cuda")) \
+        if path == "thin" else None
+    limits = {"dlogz": -math.inf, "logl_max": math.inf,
+              "max_accepts": 2 ** 30, "max_nc": 2 ** 30}
+    outs, _ = cs.consume_round(st, live_logl, prop_t[:, C_IL].contiguous(),
+                               qnc, limits, batch=mode == "batch",
+                               dlv_default=float(np.log1p(1.0 / nlive)),
+                               thin=thin)
+    thr = sorted_logl[q - 1] if mode == "batch" else live_logl.min()
+    birth = thr if path != "replay" else torch.tensor(
+        -3.5, dtype=torch.float64, device="cuda")
+    it0 = torch.tensor(987654, device="cuda")
+    return outs, live_t, prop_t, qnc, it0, birth, thr
+
+
+def assemble_bytes(outs, last, nlive, q, il, fsize=8):
+    """The bytes one assembly must move on these inputs: in, the scan's
+    columns, every proposal's ``u | v | logl``, nc and lane stats, what
+    the record reads of a dead original's live row (``u | v``, it, bound
+    and birth: its logl comes from the scan) and the round's scalars
+    (it0, the round's index, the birth and the threshold); out, the
+    record, proposal, accept, delta_logz and lane-stat rows, the
+    threshold, ``last`` and the refilled live rows."""
+    lw = il + 4
+    n_orig = int((outs[1] < 0).sum())
+    n_repl = int((last >= 0).sum())
+    by = q * (2 * 8 + 1 + 8 * fsize + 8)          # the scan's columns
+    by += q * ((il + 1) * fsize + 8 + 2 * fsize)  # the proposals
+    by += n_orig * (il + 3) * fsize + 2 * 8 + 2 * fsize
+    by += q * ((il + 12) + (il + 4) + 4) * fsize + fsize
+    by += nlive * 8 + n_repl * lw * fsize
+    return by
+
+
+def assemble_case(nlive, q, mode, path):
+    """The kernels against ``round_assemble_plain`` on the same CUDA
+    tensors (the plain version writing the same buffers), every output
+    bit for bit, and both timed; the byte bound from this case's data."""
+    outs, live, prop, qnc, it0, birth, thr = assemble_inputs(nlive, q, mode,
+                                                             path)
+    ridx = torch.tensor(1, device="cuda")
+    lane = prop[:, C_IL + 2:]
+    res = {}
+    for name, fn in (("kernel", cs.round_assemble),
+                     ("plain", cs.round_assemble_plain_into)):
+        out = cs.assemble_buffers(ASSEMBLE_ROUNDS, q, nlive, C_NDIM, C_NPDIM,
+                                  torch.float64, "cuda")
+        for t in out.values():
+            t.zero_()
+        lv = live.clone()
+        fn(outs, lv, prop, qnc, lane, it0, birth, thr, out, ridx,
+           ndim=C_NDIM)
+        torch.cuda.synchronize()
+        out.pop("entry_it")
+        res[name] = dict(out, live=lv)
+    same, err = {}, 0.0
+    for k, a in res["kernel"].items():
+        a, b = a.cpu().numpy(), res["plain"][k].cpu().numpy()
+        same[k] = bool(_same_bits(a, b).all()) if a.dtype.kind == "f" \
+            else bool(np.array_equal(a, b))
+        if a.dtype.kind == "f":
+            with np.errstate(invalid="ignore"):
+                d = np.abs(a - b)
+            err = max(err, float(np.nanmax(d)) if d.size else 0.0)
+    rec = {"nlive": nlive, "q": q, "mode": mode, "path": path,
+           "same": same, "max_abs_err": err,
+           "accepted": int(outs[2].sum()),
+           "from_originals": int((outs[1] < 0).sum()),
+           "refilled": int((res["kernel"]["last"] >= 0).sum())}
+    if not all(same.values()):
+        raise RuntimeError(f"round_assemble differs from its plain version: "
+                           f"{rec}")
+    out = cs.assemble_buffers(ASSEMBLE_ROUNDS, q, nlive, C_NDIM, C_NPDIM,
+                              torch.float64, "cuda")
+    lv = live.clone()
+
+    def call(fn):
+        return lambda: fn(outs, lv, prop, qnc, lane, it0, birth, thr, out,
+                          ridx, ndim=C_NDIM)
+
+    n0 = cs.round_assemble.launches
+    rec["ms"] = _time_ms(call(cs.round_assemble), 50)
+    rec["device_ms"] = _device_ms(call(cs.round_assemble), 20,
+                                  only="assemble")
+    rec["plain_ms"] = _time_ms(call(cs.round_assemble_plain_into), 5)
+    cs.round_assemble.launches = n0
+    rec["bytes"] = assemble_bytes(outs, res["kernel"]["last"], nlive, q,
+                                  C_IL)
+    rec["bound_ms"] = 1e3 * rec["bytes"] / HBM_BYTES
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    return rec
+
+
+def round_assemble_phase(card):
+    """The assembly's kernels against their plain version at the consume
+    scan's four main shapes and on a replay round; one line each."""
+    cases = []
+    for nlive, q, mode, path in ASSEMBLE_CASES:
+        rec = assemble_case(nlive, q, mode, path)
+        cases.append(rec)
+        print(f"round_assemble ({nlive}, {q}) {mode} {path}: bit-identical "
+              f"{all(rec['same'].values())} ({len(rec['same'])} outputs, "
+              f"{rec['accepted']} accepted, {rec['from_originals']} dead "
+              f"originals, {rec['refilled']} slots refilled)  max_abs_err "
+              f"{rec['max_abs_err']:.3e}  per call: kernels (two launches) "
+              f"{rec['ms']:.4f} ms events, {rec['device_ms']:.5f} ms device "
+              f"only; plain {rec['plain_ms']:.4f} ms  bound "
+              f"{rec['bound_ms']:.6f} ms ({rec['bytes']} bytes, "
+              f"{100 * rec['bound_share']:.1f} % of device)  [{card}]")
+    return cases
+
+
+def captured_round_phase(dyt, card):
+    """The balls drive's path (nlive 2048, balls/rslice, to 3,000
+    iterations) run with every fused round's prologue and epilogue eager,
+    then captured: every result bit for bit, every round's generator at
+    the same offset, the same counts but the replays; then the captured
+    prologue's and epilogue's replay, device only and by the host clock
+    with its wait."""
+    import dynesty_tpu_torch.internal.fused as tf
+    import dynesty_tpu_torch.internal.samplers as ts
+    make, capture_rule = tf.torch_generator, ts._capture_rounds
+    runs = {}
+    for name in ("eager", "captured"):
+        gens = []
+
+        def recorded(seed, device):
+            g = make(seed, device)
+            gens.append(g)
+            return g
+
+        tf.torch_generator = recorded
+        if name == "eager":
+            ts._capture_rounds = lambda ns: False
+        try:
+            s, sampler = drive(dyt, 2048, "balls", maxiter=3000)
+        finally:
+            tf.torch_generator, ts._capture_rounds = make, capture_rule
+        runs[name] = (sampler, [g.get_offset() for g in gens])
+    (se, oe), (sc, oc) = runs["eager"], runs["captured"]
+    a, b = se.results, sc.results
+    same = {k: bool(_same_bits(np.asarray(a[k], dtype=np.float64),
+                               np.asarray(b[k], dtype=np.float64)).all())
+            for k in ("logl", "logvol", "logwt", "logz", "logzerr",
+                      "samples", "samples_u", "samples_it", "samples_n",
+                      "samples_birth", "ncall")}
+    same["generator_offsets"] = oe == oc
+    te, tc = se.timings, sc.timings
+    for k in ("n_round", "sync_slice", "sync_wave", "n_dispatch",
+              "nc_launched"):
+        same[k] = te.get(k, 0) == tc.get(k, 0)
+    out = {"same": same, "rounds": tc["n_round"],
+           "n_round_replay": tc.get("n_round_replay", 0),
+           "n_round_graph": tc.get("n_round_graph", 0),
+           "sync_round": {"eager": te.get("sync_round", 0),
+                          "captured": tc.get("sync_round", 0)},
+           "dispatch_s": {"eager": te["dispatch"],
+                          "captured": tc["dispatch"]}}
+    if not all(same.values()) or "n_round_replay" in te or \
+            out["n_round_replay"] < 1:
+        raise RuntimeError(f"the captured round differs from the eager "
+                           f"round: {out}")
+    st, g = [(st, g) for k, st in sc.internal_sampler._slice_rounds.items()
+             if k[0] == "round" for g in st.graphs.values()
+             if g.prologue is not None][-1]
+
+    def epilogue():
+        # the epilogue advances the round index: each replay writes the
+        # dispatch's first round
+        st.ridx.zero_()
+        g.epilogue.replay()
+
+    def host_ms(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for part, fn in (("prologue", lambda: g.replay_prologue(gen)),
+                     ("epilogue", epilogue)):
+        out[f"{part}_device_ms"] = _device_ms(fn, 20)
+        out[f"{part}_host_ms"] = host_ms(fn)
+    print(f"captured-round balls/rslice nlive=2048 q=256: {out['rounds']} "
+          f"rounds bit-identical eager and captured (generators, counts), "
+          f"{out['n_round_replay']} replayed, {out['n_round_graph']} "
+          f"captured; sync_round eager {out['sync_round']['eager']} "
+          f"captured {out['sync_round']['captured']}; prologue replay "
+          f"{out['prologue_device_ms']:.4f} ms device, "
+          f"{out['prologue_host_ms']:.4f} ms host with its wait; epilogue "
+          f"replay {out['epilogue_device_ms']:.4f} ms device, "
+          f"{out['epilogue_host_ms']:.4f} ms host (each with the round "
+          f"index's reset)  [{card}]")
+    return out
+
 
 
 def _cuda_t(a, dtype):
@@ -4097,14 +4405,148 @@ def uncapturable_phase(dyt):
     return out
 
 
+def partial_capture_phase(dyt):
+    """A doubling drive (single, nlive 250) whose second segment capture
+    raises after its first was captured and replayed: warned once, no
+    replay after the raise (the shape wholly eager from there), and the
+    run bit for bit a run whose likelihood no graph may hold."""
+    import dynesty_tpu_torch.internal.kernels as tk
+    from dynesty_tpu_torch.internal.samplers import RSliceSampler
+    segment, replay = tk.DoublingGraph.segment, tk.DoublingGraph.replay
+    capture = tk.DoublingGraph.capture
+    late, attempts = [], []
+
+    def counted(self, name):
+        attempts.append(name)
+        return capture(self, name)
+
+    def failing(self, name, fill=None):
+        # the shape's second capture raises
+        if len(attempts) == 2 and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the second segment cannot be captured")
+        return segment(self, name, fill)
+
+    def checked(self, name, gen):
+        if not self.capturable:
+            late.append(name)
+        return replay(self, name, gen)
+
+    runs = {}
+    for name in ("raised", "eager"):
+        tk.DoublingGraph.segment = failing if name == "raised" else segment
+        tk.DoublingGraph.replay = checked
+        tk.DoublingGraph.capture = counted
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sampler = dyt.NestedSampler(
+                    gauss_loglike, box_ptform, NDIM, nlive=250,
+                    bound="single",
+                    sample=RSliceSampler(slice_doubling=True),
+                    queue_size=64,
+                    rstate=np.random.Generator(np.random.PCG64(SEED)))
+                if name == "eager":
+                    sampler.loglikelihood.capturable = lambda: False
+                sampler.run_nested(print_progress=False, dlogz=0.5)
+        finally:
+            tk.DoublingGraph.segment, tk.DoublingGraph.replay = \
+                segment, replay
+            tk.DoublingGraph.capture = capture
+        runs[name] = (sampler, [str(w.message) for w in caught
+                                if "could not be captured" in
+                                str(w.message)])
+    (sr, wr), (se, _) = runs["raised"], runs["eager"]
+    a, b = sr.results, se.results
+    same = all(bool(_same_bits(np.asarray(a[k], dtype=np.float64),
+                               np.asarray(b[k], dtype=np.float64)).all())
+               for k in ("logl", "logwt", "logz", "samples", "ncall"))
+    t = sr.timings
+    out = {"same": same, "warnings": wr, "replays_after_raise": late,
+           "captures_tried": attempts[:2],
+           "n_doubling_graph": t.get("n_doubling_graph", 0),
+           "n_doubling_replay": t.get("n_doubling_replay", 0)}
+    if not same or len(wr) != 1 or attempts[1] not in wr[0] or late or \
+            out["n_doubling_graph"] != 1 or out["n_doubling_replay"] < 1:
+        raise RuntimeError(f"a doubling segment's capture that raised did "
+                           f"not leave its shape wholly eager: {out}")
+    return out
+
+
+STAY = ("niter", "ncall", "logz", "logzerr")
+
+
+def record_drives(rec):
+    """A ``--out`` record's drives: ``{name: entry}`` for every entry with
+    a ``niter``."""
+    return {k: v for k, v in rec.items()
+            if isinstance(v, dict) and "niter" in v}
+
+
+def compare_records(parent, change, moving):
+    """Two ``--out`` records (a parent's and a change's, from the same
+    card type) drive by drive: for every drive of the parent, ``niter``,
+    ``ncall``, ``logz`` and ``logzerr`` (exactly: the runs are
+    deterministic on one kind of card) and every integer count in its
+    ``timings`` and ``launches``.  Counts named in ``moving`` may differ.
+    Returns (fields compared, {drive: {field: (parent, change)}} of the
+    fields that must stay, the same of the moving ones)."""
+    n, bad, moved = 0, {}, {}
+    for name, p in record_drives(parent).items():
+        c = record_drives(change).get(name)
+        if c is None:
+            bad[name] = {"drive": ("present", "absent")}
+            continue
+        pairs = [(k, p[k], c.get(k)) for k in STAY if k in p]
+        for group in ("timings", "launches"):
+            for k, v in p.get(group, {}).items():
+                if isinstance(v, int) and not isinstance(v, bool):
+                    pairs.append((f"{group}.{k}", v,
+                                  c.get(group, {}).get(k)))
+        for k, a, b in pairs:
+            n += 1
+            if a != b:
+                out = moved if k.split(".")[-1] in moving else bad
+                out.setdefault(name, {})[k] = (a, b)
+    return n, bad, moved
+
+
+def report_compare(parent, change, moving):
+    """:func:`compare_records`, printed: one line a drive that differs
+    and one JSON line of the totals.  Returns whether a field that must
+    stay differs."""
+    n, bad, moved = compare_records(parent, change, set(moving.split(",")))
+    for what, diffs in (("differs", bad), ("moved", moved)):
+        for name, fields in diffs.items():
+            print(f"compare: {name} {what}: {json.dumps(fields)}")
+    print(json.dumps({"compare": {
+        "drives": len(record_drives(parent)), "fields": n,
+        "differ": sum(len(v) for v in bad.values()),
+        "moved": sum(len(v) for v in moved.values())}}))
+    return bool(bad)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement here")
+    ap.add_argument("--compare", nargs="+", metavar="RECORD",
+                    help="PARENT.json: hold this run's drives against a "
+                    "parent's --out record and fail where a field that "
+                    "must stay differs; PARENT.json CHANGE.json: compare "
+                    "two records only, with no card (compare_records)")
+    ap.add_argument("--moving", default="sync_round",
+                    help="with --compare: comma-separated counts that may "
+                    "differ (listed with both values)")
     ap.add_argument("--profile", nargs="?", const="balls",
                     choices=["balls", "heavy"],
                     help="profile one drive (device time by kernel): the "
                     "balls drive (the default) or the heavy one")
     args = ap.parse_args()
+    if args.compare and len(args.compare) > 1:
+        records = []
+        for path in args.compare[:2]:
+            with open(path) as f:
+                records.append(json.load(f))
+        sys.exit(1 if report_compare(*records, args.moving) else 0)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -4125,7 +4567,7 @@ def main():
     # one nvcc for each, all started together
     t0 = time.perf_counter()
     libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step",
-            "unif_wave", "slice_doubling")
+            "unif_wave", "slice_doubling", "round_assemble")
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
@@ -4178,6 +4620,10 @@ def main():
     doubling_cases, doubling_calls = doubling_kernels_phase(card)
     captured_doubling, doubling_timed = captured_doubling_phase(card)
 
+    # phase 2h: the round's record and live assembly against its plain
+    # version
+    assemble_cases = round_assemble_phase(card)
+
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
     prof = new_profile(args.profile == "balls")
@@ -4195,6 +4641,10 @@ def main():
           f"{main['refit_max_abs_err']:.3e}")
     print(f"timings: {json.dumps(main['timings'])}")
     report_profile(prof, main)
+
+    # phase 3b: the main path's fused rounds with their prologue and
+    # epilogue eager, then captured
+    captured_round = captured_round_phase(dyt, card)
 
     # phase 4: cubes, whose refit takes the exact L-inf path
     _zero_counts(hk)
@@ -4478,6 +4928,10 @@ def main():
     _zero_counts(hk)
     uncapturable = uncapturable_phase(dyt)
     uncapturable["launches"] = _counts(hk, raised=True)
+    # and a doubling segment whose capture raises after another's was
+    # captured (outside the counted window: its shape mixes by design
+    # until the raise)
+    uncapturable["partial_capture"] = partial_capture_phase(dyt)
     print(json.dumps(dict({"phase": "uncapturable", "card": card},
                           **uncapturable)))
 
@@ -4735,6 +5189,44 @@ def main():
         return next(t for t in consume["times"] if (
             t["nlive"], t["mode"], t["path"]) == (nlive, mode, path))
 
+    # every drive assembled each fused round through the kernel, and on
+    # the card replayed every round's prologue and epilogue but the first
+    # of each shape (checked by _counts); the round gate read at most once
+    # a dispatch where the loop reads a flag (the walk reads it a round)
+    round_by_drive = {name: dict({k: d["launches"][k] for k in (
+        "rounds", "round_assemble", "n_round_replay", "n_round_graph",
+        "round_shapes", "round_warm", "sync_round")},
+        n_dispatch=d.get("timings", {}).get("n_dispatch"))
+        for name, d in drives.items()}
+    print(json.dumps({"round_launches_by_drive": round_by_drive,
+                      "card": card}))
+    many = [k for k, c in round_by_drive.items() if k != "rwalk" and
+            c["n_dispatch"] is not None and c["sync_round"] > c["n_dispatch"]]
+    if many:
+        raise RuntimeError(f"drives that read the round gate more than once "
+                           f"a dispatch: {many}")
+    main_asm = assemble_cases[0]
+    assemble_entry = {
+        "name": "round_assemble", "route": "cuda", "source": ASSEMBLE_SOURCE,
+        "replaces": "dynesty_tpu/internal/fused.py:146",
+        "launches": sum(c["round_assemble"] for c in round_by_drive.values()),
+        "launches_by_drive": {k: c["round_assemble"]
+                              for k, c in round_by_drive.items()},
+        "launches_note": "one call, two kernels (records, refill)",
+        "max_abs_err": max(c["max_abs_err"] for c in assemble_cases),
+        "ms": main_asm["ms"], "plain_ms": main_asm["plain_ms"],
+        "bound_ms": main_asm["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no one PyTorch call computes this step",
+        "device_ms": main_asm["device_ms"],
+        "bound_share": main_asm["bound_share"], "shape": [2048, 256],
+        "path": "thin",
+        "cases": [{k: c[k] for k in ("nlive", "q", "mode", "path", "ms",
+                                     "device_ms", "plain_ms", "bound_ms",
+                                     "bound_share", "max_abs_err")}
+                  for c in assemble_cases],
+        "captured_round": captured_round}
+
     main_round = round_at(2048, "batch", "thin")
     kernels = {"kernels": [
         entry("pairwise_min_dist_l2_exact", MAIN_SHAPE, 2, "exact",
@@ -4778,49 +5270,58 @@ def main():
          "library_ms": None, "shape": [2048, 256], "path": "thin"},
     ] + [step_entry(name) for name in STEP_KERNELS] +
         [unif_entry(name) for name in UNIF_KERNELS] +
-        [doubling_entry(name) for name in DOUBLING_KERNELS]}
+        [doubling_entry(name) for name in DOUBLING_KERNELS] +
+        [assemble_entry]}
+    record = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "compare": compares,
+              "main": main, "cubes": cubes, "refit": refit,
+              "single": single, "heavy": heavy,
+              "default": default, "rwalk": rwalk, "slice": sl,
+              "doubling": doubling, "doubling_balls": dballs,
+              "resume": resumed,
+              "dynamic3": dyn3, "dynamic_balls": dynballs,
+              "dynamic_resume": dynresume,
+              "blob_balls": blobballs, "host_balls": hostballs,
+              "host_pool": hostpool, "blob_resume": blobresume,
+              "custom_unif": customunif,
+              "custom_rslice": customrslice,
+              "custom_resume": customresume, "plots": plots,
+              "eggbox": rows["eggbox"], "shells": rows["shells"],
+              "eggbox_balls": eggballs, "priors": priors,
+              "mesh_balls": meshballs,
+              "mesh_dynamic3": meshdyn3, "scaling": scaling,
+              "pipeline_resume": piperesume,
+              "example_quickstart": example,
+              "uncapturable": uncapturable,
+              "queue_balls": queueballs,
+              "consume": consume,
+              "consume_by_drive": consume_by_drive,
+              "proposal_steps": steps,
+              "captured_slice": captured,
+              "captured_rwalk": captured_rwalk,
+              "unif_waves": unif_cases,
+              "captured_unif": captured_unif,
+              "unif_by_drive": unif_by_drive,
+              "doubling_kernels": doubling_cases,
+              "captured_doubling": captured_doubling,
+              "doubling_by_drive": doubling_by_drive,
+              "launch_floor": floor,
+              "round_assemble": assemble_cases,
+              "captured_round": captured_round,
+              "round_by_drive": round_by_drive,
+              "proposal_steps_by_drive": steps_by_drive,
+              "build_seconds": {k: build.build_log[k]["seconds"]
+                                for k in libs}}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "torch": torch.__version__,
-                       "cuda": torch.version.cuda, "compare": compares,
-                       "main": main, "cubes": cubes, "refit": refit,
-                       "single": single, "heavy": heavy,
-                       "default": default, "rwalk": rwalk, "slice": sl,
-                       "doubling": doubling, "doubling_balls": dballs,
-                       "resume": resumed,
-                       "dynamic3": dyn3, "dynamic_balls": dynballs,
-                       "dynamic_resume": dynresume,
-                       "blob_balls": blobballs, "host_balls": hostballs,
-                       "host_pool": hostpool, "blob_resume": blobresume,
-                       "custom_unif": customunif,
-                       "custom_rslice": customrslice,
-                       "custom_resume": customresume, "plots": plots,
-                       "eggbox": rows["eggbox"], "shells": rows["shells"],
-                       "eggbox_balls": eggballs, "priors": priors,
-                       "mesh_balls": meshballs,
-                       "mesh_dynamic3": meshdyn3, "scaling": scaling,
-                       "pipeline_resume": piperesume,
-                       "example_quickstart": example,
-                       "uncapturable": uncapturable,
-                       "queue_balls": queueballs,
-                       "consume": consume,
-                       "consume_by_drive": consume_by_drive,
-                       "proposal_steps": steps,
-                       "captured_slice": captured,
-                       "captured_rwalk": captured_rwalk,
-                       "unif_waves": unif_cases,
-                       "captured_unif": captured_unif,
-                       "unif_by_drive": unif_by_drive,
-                       "doubling_kernels": doubling_cases,
-                       "captured_doubling": captured_doubling,
-                       "doubling_by_drive": doubling_by_drive,
-                       "launch_floor": floor,
-                       "proposal_steps_by_drive": steps_by_drive,
-                       "build_seconds": {k: build.build_log[k]["seconds"]
-                                         for k in libs}},
-                      f, indent=1)
+            json.dump(record, f, indent=1)
+    if args.compare:
+        with open(args.compare[0]) as f:
+            if report_compare(json.load(f), record, args.moving):
+                raise SystemExit("chip_smoke: a drive's fields differ from "
+                                 "the parent's record")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -173,6 +173,9 @@ struct Args {
   bool *accepts, *bst_out;
   int nlive, q, batch, allow_thin, resident, seg;
   Limits lim;
+  // null, or the limits in device memory (read at the kernel's start in
+  // place of lim): a captured launch then takes each dispatch's limits
+  const Limits* lim_dev;
 };
 
 // the stage clocks (an optional trace of the first chunk), each read by
@@ -580,7 +583,7 @@ consume_scan_kernel(Args a) {
   const int nwarps = blockDim.x >> 5;
   const int nlive = a.nlive, q = a.q, seg = a.seg;
   const int nseg = (nlive + seg - 1) / seg;
-  const Limits lim = a.lim;
+  const Limits lim = a.lim_dev ? *a.lim_dev : a.lim;
   const bool thin = a.allow_thin && *a.thin_ok;
   const T* live_logl = (const T*)a.live_logl;
   const T* qlogl = (const T*)a.qlogl;
@@ -905,7 +908,8 @@ int launch_scan(const void* live_logl, const void* qlogl, const void* qnc,
                 int batch,
                 int allow_thin, int resident, int seg, int smem_bytes,
                 double dlogz, double logl_max, i64 max_accepts, i64 max_nc,
-                double dlv_default, int block, void* stream) {
+                double dlv_default, int block, const void* limits_dev,
+                void* stream) {
   const size_t nseg = seg > 0 ? ((size_t)nlive + seg - 1) / seg : 0;
   const size_t need = chunk_bytes<T>() +
                       (nseg * sizeof(Red) + 15) / 16 * 16 +
@@ -933,6 +937,7 @@ int launch_scan(const void* live_logl, const void* qlogl, const void* qnc,
   a.nlive = nlive; a.q = q; a.batch = batch; a.allow_thin = allow_thin;
   a.resident = resident; a.seg = seg;
   a.lim = Limits{dlogz, logl_max, dlv_default, max_accepts, max_nc};
+  a.lim_dev = (const Limits*)limits_dev;
   consume_scan_kernel<T><<<1, CHUNK, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -969,13 +974,15 @@ int launch_chain_probe(const void* logwt, const void* logz0, void* out,
       void* bst_out, void* path_counts, void* stage_clocks, int nlive,       \
       int q, int batch, int allow_thin, int resident, int seg,               \
       int smem_bytes, double dlogz, double logl_max, i64 max_accepts,        \
-      i64 max_nc, double dlv_default, int block, void* stream) {             \
+      i64 max_nc, double dlv_default, int block, const void* limits_dev,    \
+      void* stream) {                                                        \
     return launch_scan<T>(live_logl, qlogl, qnc, sort_idx, sorted_logl,      \
                           thin_ok, state_in, scratch, occupant, fout, iout,  \
                           accepts, fst_out, ist_out, bst_out, path_counts,   \
                           stage_clocks, nlive, q, batch, allow_thin,         \
                           resident, seg, smem_bytes, dlogz, logl_max,        \
-                          max_accepts, max_nc, dlv_default, block, stream);  \
+                          max_accepts, max_nc, dlv_default, block,           \
+                          limits_dev, stream);                               \
   }                                                                          \
   extern "C" int dynesty_consume_integrator_##TAG(                           \
       const void* a, const void* b, const void* c, const void* d,            \

@@ -8,14 +8,34 @@ trapezoid evidence update, live-point replacement and the stopping
 checks.  ``fused`` chains ``rounds`` such rounds and packs everything into
 one flat float vector with the JAX package's layout (:func:`unpack_flat`).
 
-JAX's ``lax.scan`` consume is ``ops.consume.consume_round``: on
-the card one launch of the hand-written ``consume_scan`` kernel a round,
-which also chooses the thin or the general scan (JAX's ``lax.cond``) on
-the device; on the CPU the plain loop over 0-d tensors, which reads that
-choice from the device once a round.  The per-round skip gates read one
-flag a round (``Timings['sync_round']``, which also counts the CPU's
-choice); ``Timings['n_round']`` counts the rounds consumed.  The packed
-stop bitmask is read once per dispatch.
+A round is three parts (the JAX package's ``one_round``, ``:146``, run
+under its ``lax.cond`` gate, ``:629``):
+
+* the prologue: the round gate (the dispatch's sticky ``done`` and
+  chain-stop flags), the batch threshold or the queue minimum, and the
+  proposal's start (:meth:`Proposer.begin`: ``select_starts``, the start
+  rows packed into the proposal loop's buffers, their blobs, the draws
+  the loop starts from), all device work;
+* the proposal loop (:meth:`Proposer.loop`), from the host, whose first
+  flag read also reports the gate (the walk reads the gate on its own);
+* the epilogue: the proposals packed, the consume scan
+  (``ops.consume.consume_round``, which chooses the thin or the general
+  scan on the device), the record and live assembly
+  (``ops.consume.round_assemble``, writing straight into the dispatch's
+  output buffers), the blob gathers, the integrator and counter updates,
+  the tuning, all device work.
+
+The dispatch's state (live set, integrator, counters, scale) and outputs
+live in device buffers made once per dispatch shape (:class:`RoundState`).
+On the card the prologue and the epilogue are each captured once per
+round shape as a CUDA graph and replayed (``n_round_graph``,
+``n_round_replay``), after one eager round of the shape; a mesh of
+several devices, a proposer that may not be captured, and a capture
+that raises keep the eager round.  The gate is sticky, so once a
+read finds it set the host skips the dispatch's later rounds without a
+read (``Timings['sync_round']`` counts the reads that found it, and on
+the CPU the thin-path choice); ``Timings['n_round']`` counts the rounds
+consumed.  The packed stop bitmask is read once per dispatch.
 
 Blobs live in tensors of their own beside the float64 live matrix and
 records (a blob's dtype is the user's): the live set's blob flows from
@@ -31,16 +51,19 @@ rounds the streams they had.
 """
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
-from ..ops.consume import consume_round
+from ..ops import consume as _consume
+from ..ops.consume import (STATE_KEYS, assemble_buffers, consume_round,
+                           device_limits, round_assemble)
 from ..utils.convert import integ_from_vector
 from ..utils.misc import blob_where, torch_generator, tree_map
 
 __all__ = ["make_fused_round", "unpack_flat", "record_columns",
-           "select_starts", "round_seed"]
+           "select_starts", "round_seed", "Proposer", "RoundState"]
 
 # Test knob: fused rounds without the thin scalar consume path (batch
 # mode then always runs the general scan; the kernel is told so).  Read
@@ -48,6 +71,10 @@ __all__ = ["make_fused_round", "unpack_flat", "record_columns",
 _FORCE_GENERAL_CONSUME = False
 
 _NEG_INF = -math.inf
+_INTEG_KEYS = ("logz", "logzvar", "h", "logvol", "loglstar",
+               "plateau_mode", "plateau_counter", "plateau_logdvol", "it")
+_COUNTER_KEYS = ("n_acc", "n_cons", "nc_accum", "nc_used", "done",
+                 "reason")
 
 
 def record_columns(ndim, npdim):
@@ -67,30 +94,207 @@ def round_seed(seed, ridx):
     return int(state[0] >> np.uint64(1))
 
 
+class Proposer:
+    """A round's proposals in the parts :func:`make_fused_round` runs
+    apart.  ``prepare(live, axes_args)`` runs on the host's command
+    before the prologue (the loop's round shape; work that cannot be
+    captured) and returns the loop's round-shape object, which keys the
+    round's graphs; ``begin(gen, live, live_blob, axes_args, scale,
+    loglstar, gate)`` and ``finish(axes_args) -> (packed, qblob, qnc,
+    stats, lane_stats)`` do device work only (``packed[:, :ndim + npdim
+    + 1]`` the proposals' ``u | v | logl``); ``loop(gen)`` runs the
+    proposal loop and returns whether its first read found the round gate
+    set (``gate_read``; False: the loop reads no flag and the round reads
+    the gate itself).  ``capturable``: begin and finish may be captured."""
+
+    gate_read = False
+    capturable = False
+
+
+class RoundState:
+    """The device state and outputs of a dispatch's rounds, made once per
+    dispatch shape: the live matrix (``live``) and its blob
+    (``live_blob``), the bound's arrays (``axes``), the integrator and
+    counter 0-d tensors (``integ``, ``counters``, the sticky
+    ``chain_stop``, the round's first kill count ``racc``), ``scale``,
+    ``birth0``, the round index ``ridx`` (the epilogue advances it), the
+    control vector in the live matrix's type (``ctrl``), the consume
+    scan's device limits (``limits``), the assembly's output buffers
+    (``out``, :func:`~dynesty_tpu_torch.ops.consume.assemble_buffers`),
+    each round's stats (``stats``) and the dead points' and proposals'
+    blobs (``old_blobs``, ``qblobs``); and the round graphs by the fused
+    function that captured them and the loop's round shape (``graphs``).
+    Fused functions of one shape share a state: each loads it whole at
+    the start of its dispatch."""
+
+    def __init__(self, nlive, ndim, npdim, q, rounds, dtype, device,
+                 live_blob, axes_args, n_ctrl):
+        i64 = torch.int64
+
+        def e(shape=(), dt=dtype):
+            return torch.empty(shape, dtype=dt, device=device)
+
+        def like(t):
+            return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+        def rows(b):
+            return torch.empty((rounds * q,) + tuple(b.shape[1:]),
+                               dtype=b.dtype, device=device)
+
+        self.live = e((nlive, ndim + npdim + 4))
+        self.live_blob = tree_map(like, live_blob)
+        self.axes = tree_map(like, axes_args)
+        self.integ = {k: e((), torch.bool if k == "plateau_mode" else
+                           i64 if k in ("plateau_counter", "it") else dtype)
+                      for k in _INTEG_KEYS}
+        self.counters = {k: e((), torch.bool if k == "done" else i64)
+                         for k in _COUNTER_KEYS}
+        self.chain_stop = e((), torch.bool)
+        self.racc, self.ridx = e((), i64), e((), i64)
+        self.scale, self.birth0 = e(), e()
+        self.ctrl = e((n_ctrl,))
+        self.limits = e((5,), i64)
+        # the limits as numbers, for the consume scan's plain loop
+        self.limit_values = None
+        self.out = assemble_buffers(rounds, q, nlive, ndim, npdim, dtype,
+                                    device)
+        self.stats = e((rounds, 4))
+        self.old_blobs = tree_map(rows, live_blob)
+        self.qblobs = tree_map(rows, live_blob)
+        self.graphs = {}
+
+    def consume_state(self):
+        """The consume scan's carried state (``STATE_KEYS``): views of
+        the buffers."""
+        st = dict(self.integ, **self.counters, racc=self.racc)
+        return {k: st[k] for k in STATE_KEYS}
+
+
+def _shape_key(tree):
+    """The shapes and dtypes of a blob or a dict of arrays, as a key."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return tuple(_shape_key(t) for t in tree)
+    if isinstance(tree, dict):
+        return tuple((k, _shape_key(v)) for k, v in sorted(tree.items()))
+    return (tuple(tree.shape), tree.dtype)
+
+
+class RoundGraphs:
+    """The prologue and epilogue of one round shape (a dispatch shape and
+    the loop's round-shape object ``entry``) of one fused function
+    (``owner``: a capture bakes in its proposer, tuning and chain-stop
+    functions) on the card, captured as CUDA
+    graphs once the shape has run one round eagerly (``warm``), on a
+    side stream, with the generator the prologue draws from.  A capture
+    that raises leaves the shape eager for good (warned once, naming the
+    error).  ``P`` holds the captured prologue's outputs, which the
+    epilogue reads."""
+
+    def __init__(self, owner, entry, device, capturable):
+        self.owner, self.entry = owner, entry
+        self.capturable = capturable
+        self.warm = False
+        self.prologue = self.epilogue = self.P = None
+        self.stream = torch.cuda.Stream(device) if capturable else None
+        self.gen = torch.Generator(device=device) if capturable else None
+
+    def on_side_stream(self, fn):
+        """``fn()`` on the side stream, ordered after and before the
+        current stream's work (the eager round before the capture)."""
+        main = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        main.wait_stream(self.stream)
+        return out
+
+    def capture(self, prologue, epilogue, counted, shape):
+        """Capture ``prologue(gen)`` and ``epilogue(P)`` (``P`` what the
+        captured prologue returns); True when both were.  A capture runs
+        nothing, so what it counted (the ``counted`` wrappers'
+        ``launches`` and ``calls``) is put back."""
+        main = torch.cuda.current_stream(self.stream.device)
+        saved = [(w, dict(w.__dict__)) for w in counted]
+        pro, epi = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        self.stream.wait_stream(main)
+        try:
+            pro.register_generator_state(self.gen)
+            with torch.cuda.stream(self.stream):
+                pro.capture_begin(capture_error_mode="thread_local")
+                try:
+                    P = prologue(self.gen)
+                finally:
+                    pro.capture_end()
+                epi.capture_begin(capture_error_mode="thread_local")
+                try:
+                    epilogue(P)
+                finally:
+                    epi.capture_end()
+        except Exception as err:  # noqa: BLE001 - reported, then eager
+            self.capturable = False
+            warnings.warn(
+                f"the fused round's prologue and epilogue could not be "
+                f"captured as CUDA graphs ({type(err).__name__}: {err}); "
+                f"rounds of shape {shape} run eagerly", RuntimeWarning)
+            return False
+        finally:
+            for w, d in saved:
+                for k in ("launches", "calls"):
+                    if k in d:
+                        setattr(w, k, d[k])
+            main.wait_stream(self.stream)
+        self.prologue, self.epilogue, self.P = pro, epi, P
+        return True
+
+    def replay_prologue(self, gen):
+        """The prologue by replay, drawing from ``gen``'s stream where the
+        eager prologue would (the graph's generator takes its seed and
+        offset before and gives the offset back after); waits for
+        nothing.  Returns the captured prologue's outputs."""
+        self.gen.manual_seed(gen.initial_seed())
+        self.gen.set_offset(gen.get_offset())
+        self.prologue.replay()
+        gen.set_offset(self.gen.get_offset())
+        return self.P
+
+    def replay_epilogue(self):
+        """The epilogue by replay; waits for nothing."""
+        self.epilogue.replay()
+
+
 def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
                      kind="?", rounds=1, tune_fn=None, mode="batch",
-                     chain_stop_fn=None, timings=None):
+                     chain_stop_fn=None, timings=None, cache=None,
+                     capture=True):
     """Wrap a proposal round into a chained propose+consume call.
 
-    ``propose_fn(gen, live, live_blob, axes_args, scale, loglstar) -> (qu,
-    qv, qlogl, qblob, qnc, stats, lane_stats)``.  ``mode='batch'`` kills
+    ``propose_fn`` is a :class:`Proposer`.  ``mode='batch'`` kills
     the ``q`` worst live points per round and refills them at the shared
     threshold (needs ``q < nlive``); ``mode='queue'`` consumes the
     proposals against the rising threshold at constant live count.
     ``tune_fn(scale, stats)`` updates the proposal scale between rounds;
-    ``chain_stop_fn(integ, counters, ctrl)`` skips the round it fires at
-    and all later ones (bit 32 of the reported reason).  Every round past
-    an in-flight stop is skipped too, whatever the kernel: the round loop
-    runs on the host, so the gate costs one flag read per round, and a
-    dispatch stopped by maxiter/maxcall then strands no round (an
-    interrupted and resumed run bills exactly the evaluations of the
-    uninterrupted one).
+    ``chain_stop_fn(integ, counters, ctrl)`` (``ctrl`` the control vector
+    as a device tensor of the live matrix's type) skips the round it fires
+    at and all later ones (bit 32 of the reported reason).  Every round
+    past an in-flight stop is skipped too, whatever the kernel: a round
+    that starts behind the gate proposes nothing, its loop's first read
+    (or, for a loop that reads no flag, the round's own read) tells the
+    host, and the host skips the dispatch's later rounds; a dispatch
+    stopped by maxiter/maxcall then strands no round (an interrupted and
+    resumed run bills exactly the evaluations of the uninterrupted one).
 
     ``kind='replay'`` marks a consume-only round whose proposals are given
     (the leftover tail of an interrupted round): its refills are born at
     ``birth0`` (ctrl[16], the interrupted round's threshold), its kill
     count starts at ``kills0`` (ctrl[14]), and it never takes the thin
     path.
+
+    ``cache`` keeps the dispatch shapes' :class:`RoundState` and graphs
+    (a dict the sampler keeps, never pickled; None: a dict of this
+    function's own).  ``capture`` False keeps every round eager (a mesh
+    of several devices).
 
     Returns ``(fused, layout)`` with ``fused(seed, live, live_blob,
     axes_args, ctrl) -> (flat, proposals, live_out, live_blob_out,
@@ -106,19 +310,44 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         raise ValueError(
             f"batch mode needs q < nlive (got q={q}, nlive={nlive})")
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if not isinstance(propose_fn, Proposer):
+        raise TypeError(f"make_fused_round takes a Proposer, got "
+                        f"{type(propose_fn).__name__}")
+    proposer = propose_fn
+    # the key of this function's graphs in a shared state
+    owner = object()
+    capture = capture and proposer.capturable and device.type == "cuda"
+    cache = {} if cache is None else cache
     il = ndim + npdim  # logl column
-    ii, ib, ibirth = il + 1, il + 2, il + 3
     width = 1 + ndim + npdim + 11
     i64 = torch.int64
     lanes = torch.arange(q, dtype=i64, device=device)
     # queue mode's shrinkage, computed on the host as the JAX package does
     dlv_default = float(np.log1p(1.0 / nlive))
+    # the wrappers whose counts a capture puts back and a replay adds to
+    # (the wrappers themselves: a caller may swap the names this module
+    # calls for its own spies)
+    counted = (_consume.consume_round, _consume.round_assemble)
 
-    def one_round(gen, live, live_blob, integ, counters, limits, scale,
-                  axes_args, kills0, birth0):
-        """One propose+consume round; integrator state and counters flow
-        in and out."""
-        live_logl0 = live[:, il].contiguous()
+    def count(key, n=1):
+        if timings is not None:
+            timings.count(key, n)
+
+    def prologue(S, gen):
+        """The round gate, the threshold and the proposal's start; device
+        work only.  Returns what the loop and the epilogue read."""
+        gate = S.counters["done"]
+        if chain_stop_fn is not None:
+            # evaluated at every round boundary; once fired, the round
+            # and all later rounds run and bill nothing
+            integ = dict(S.integ)
+            trig = S.chain_stop | chain_stop_fn(integ, S.counters, S.ctrl)
+            S.chain_stop.copy_(trig)
+            gate = trig | S.counters["done"]
+        live_logl0 = S.live[:, il].contiguous()
+        P = {"gate": gate, "live_logl0": live_logl0}
         if mode == "batch":
             # shared kill threshold: the q-th smallest live logl, or the
             # largest value strictly below the maximum when a plateau
@@ -129,182 +358,211 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
             fallback = torch.where(live_logl0 < lmax, live_logl0,
                                    _NEG_INF).max()
             loglstar0 = torch.where(cand < lmax, cand, fallback)
+            P.update(sorted_logl=sorted_logl, sort_idx=sort_idx, lmax=lmax,
+                     cand=cand)
         else:
             loglstar0 = live_logl0.min()
         # replayed entries were proposed at the interrupted round's
         # threshold; the live set here is already partly refilled, so its
         # own threshold would overstate the births
-        birth_new = birth0 if kind == "replay" else loglstar0
+        P["loglstar0"] = loglstar0
+        P["birth_new"] = S.birth0 if kind == "replay" else loglstar0
+        proposer.begin(gen, S.live, S.live_blob, S.axes, S.scale, loglstar0,
+                       gate)
+        return P
 
-        qu, qv, qlogl, qblob, qnc, stats, lane_stats = propose_fn(
-            gen, live, live_blob, axes_args, scale, loglstar0)
+    def epilogue(S, P):
+        """The proposals packed, the consume scan, the assembly, the blob
+        gathers, the state's updates and the tuning; device work only."""
+        packed, qblob, qnc, stats, lane_stats = proposer.finish(S.axes)
         qnc = qnc.to(i64)
-        it0 = integ["it"]
-        st = dict(integ, **counters, racc=torch.as_tensor(
-            kills0, dtype=i64, device=device))
-        del st["it"]
+        qlogl = packed[:, il]
+        loglstar0 = P["loglstar0"]
         thin = None
         if mode == "batch" and kind != "replay" and \
                 not _FORCE_GENERAL_CONSUME:
             # every proposal beats every victim: thin scalar scan.  The
             # kernel reads the flag on the card, the plain loop on the host
-            thin_ok = (cand < lmax) & (qlogl.min() > loglstar0)
+            thin_ok = (P["cand"] < P["lmax"]) & (qlogl.min() > loglstar0)
             if device.type != "cuda":
                 thin_ok = bool(thin_ok)
-                if timings is not None:
-                    timings.count("sync_round")
-            thin = (sort_idx, sorted_logl, thin_ok)
-        if timings is not None:
-            timings.count("n_round")
-        outs, st = consume_round(st, live_logl0, qlogl.contiguous(),
+                count("sync_round")
+            thin = (P["sort_idx"], P["sorted_logl"], thin_ok)
+        st0 = S.consume_state()
+        was_done = S.counters["done"].clone()
+        it0 = S.integ["it"].clone()
+        n_acc0 = S.counters["n_acc"].clone()
+        limits = {"dlogz": S.limit_values[0], "logl_max": S.limit_values[1],
+                  "max_accepts": S.limit_values[2],
+                  "max_nc": S.limit_values[3], "device": S.limits}
+        outs, st = consume_round(st0, P["live_logl0"], qlogl.contiguous(),
                                  qnc.contiguous(), limits,
                                  batch=mode == "batch",
                                  dlv_default=dlv_default, thin=thin)
-        (worsts, srcs, accepts, r_logl, r_logvol, r_logwt, r_logz,
-         r_logzvar, r_h, r_nc, r_dlogz, r_n) = outs
-
-        # -- vectorized record/live assembly -----------------------------
-        acc_i = accepts.to(i64)
-        acc_before = torch.cumsum(acc_i, 0) - acc_i
-        entry_it = (it0 + acc_before).to(dtype)
-        from_orig = srcs < 0
-        srcc = srcs.clamp(min=0)
-        fo2 = from_orig[:, None]
-        u_dead = torch.where(fo2, live[worsts, :ndim], qu[srcc])
-        v_dead = torch.where(fo2, live[worsts, ndim:il], qv[srcc])
-        it_dead = torch.where(from_orig, live[worsts, ii], entry_it[srcc])
-        bound_dead = torch.where(from_orig, live[worsts, ib], -1.0)
-        birth_dead = torch.where(from_orig, live[worsts, ibirth], birth_new)
-        recs = torch.cat([
-            worsts.to(dtype)[:, None], u_dead, v_dead,
-            torch.stack([r_logl, r_logvol, r_logwt, r_logz, r_logzvar, r_h,
-                         r_nc.to(dtype), it_dead, bound_dead,
-                         r_n.to(dtype), birth_dead], dim=1),
-        ], dim=1)
-
-        # last accepted entry per live slot (slot nlive is the dump row)
-        idx = torch.where(accepts, worsts, nlive)
-        last = torch.full((nlive + 1,), -1, dtype=i64, device=device)
-        last = last.scatter_reduce(0, idx, lanes, reduce="amax")[:nlive]
-        replaced = last >= 0
-        lastc = last.clamp(min=0)
-        new_rows = torch.cat([
-            qu[lastc], qv[lastc],
-            torch.stack([qlogl[lastc], entry_it[lastc],
-                         torch.full((nlive,), -1.0, dtype=dtype,
-                                    device=device),
-                         birth_new.to(dtype).expand(nlive)], dim=1),
-        ], dim=1)
-        live_out = torch.where(replaced[:, None], new_rows, live)
-        # blobs take the same gathers: the dead point's from the live set
-        # or from the proposal that refilled its slot, the refills'
-        old_blobs = blob_where(from_orig,
-                               tree_map(lambda b: b[worsts], live_blob),
-                               tree_map(lambda b: b[srcc], qblob))
-        live_blob_out = blob_where(replaced,
-                                   tree_map(lambda b: b[lastc], qblob),
-                                   live_blob)
-
-        integ_out = {k: st[k] for k in (
-            "logz", "logzvar", "h", "logvol", "loglstar", "plateau_mode",
-            "plateau_counter", "plateau_logdvol")}
-        integ_out["it"] = it0 + (st["n_acc"] - counters["n_acc"])
-        counters_out = {k: st[k] for k in (
-            "n_acc", "n_cons", "nc_accum", "nc_used", "done", "reason")}
+        worsts, srcs = outs[0], outs[1]
+        if S.live_blob is not None:
+            # blobs take the same gathers: the dead point's from the live
+            # set or from the proposal that refilled its slot (before the
+            # live set's blob is refilled)
+            from_orig = srcs < 0
+            srcc = srcs.clamp(min=0)
+            old = blob_where(from_orig,
+                             tree_map(lambda b: b[worsts], S.live_blob),
+                             tree_map(lambda b: b[srcc], qblob))
+            rows = S.ridx * q + lanes
+            tree_map(lambda d, b: d.index_copy_(0, rows, b), S.old_blobs,
+                     old)
+            tree_map(lambda d, b: d.index_copy_(0, rows, b), S.qblobs,
+                     qblob)
+        round_assemble(outs, S.live, packed, qnc, lane_stats, it0,
+                       P["birth_new"], loglstar0, S.out, S.ridx, ndim=ndim)
+        if S.live_blob is not None:
+            last = S.out["last"]
+            lastc = last.clamp(min=0)
+            new = blob_where(last >= 0, tree_map(lambda b: b[lastc], qblob),
+                             S.live_blob)
+            tree_map(lambda d, b: d.copy_(b), S.live_blob, new)
+        S.integ["it"].copy_(it0 + (st["n_acc"] - n_acc0))
+        for k in _INTEG_KEYS[:-1]:
+            S.integ[k].copy_(st[k])
+        for k in _COUNTER_KEYS:
+            S.counters[k].copy_(st[k])
+        S.racc.zero_()
         stats_vec = torch.zeros((4,), dtype=dtype, device=device)
         stats_vec[:len(stats)] = torch.stack(
             [torch.as_tensor(s, device=device).to(dtype) for s in stats])
-        proposals = torch.cat([qu, qv, qlogl[:, None], qnc.to(dtype)[:, None],
-                               lane_stats.to(dtype)], dim=1)
-        round_out = (recs, accepts, r_dlogz, proposals, stats_vec,
-                     loglstar0.to(dtype), old_blobs, qblob)
-        return live_out, live_blob_out, integ_out, counters_out, round_out
+        S.stats.index_copy_(0, S.ridx.view(1), stats_vec.view(1, 4))
+        if tune_fn is not None:
+            S.scale.copy_(torch.where(was_done, S.scale,
+                                      tune_fn(S.scale, stats_vec).to(dtype)))
+        S.ridx.add_(1)
 
-    def skipped_round(live_blob):
-        z = torch.zeros
-        zero_blob = tree_map(lambda b: z((q,) + b.shape[1:], dtype=b.dtype,
-                                         device=device), live_blob)
-        return (z((q, width), dtype=dtype, device=device),
-                z((q,), dtype=torch.bool, device=device),
-                z((q,), dtype=dtype, device=device),
-                z((q, ndim + npdim + 4), dtype=dtype, device=device),
-                z((4,), dtype=dtype, device=device),
-                z((), dtype=dtype, device=device), zero_blob, zero_blob)
+    def state_for(live_blob, axes_args, n_ctrl):
+        key = ("round", kind, mode, nlive, ndim, npdim, q, rounds, dtype,
+               str(device), _shape_key(live_blob), _shape_key(axes_args),
+               n_ctrl)
+        S = cache.get(key)
+        if S is None:
+            S = cache[key] = RoundState(nlive, ndim, npdim, q, rounds, dtype,
+                                        device, live_blob, axes_args, n_ctrl)
+        return S
+
+    def load(S, live, live_blob, axes_args, ctrl, rounds_skip):
+        """The dispatch's inputs into the state's buffers, the outputs
+        zeroed; once a dispatch."""
+        S.live.copy_(live)
+        tree_map(lambda d, b: d.copy_(b), S.live_blob, live_blob)
+        tree_map(lambda d, b: d.copy_(b), S.axes, axes_args)
+        integ = integ_from_vector(ctrl, device, dtype)
+        for k in _INTEG_KEYS:
+            S.integ[k].copy_(integ[k])
+        for t in (*S.counters.values(), S.chain_stop):
+            t.zero_()
+        S.racc.fill_(int(ctrl[14]) if rounds_skip == 0 else 0)
+        S.ridx.fill_(rounds_skip)
+        S.scale.fill_(float(ctrl[13]))
+        S.birth0.fill_(float(ctrl[16] if len(ctrl) > 16 else ctrl[4]))
+        S.ctrl.copy_(torch.as_tensor(ctrl, dtype=dtype))
+        S.limit_values = (float(ctrl[9]), float(ctrl[10]), int(ctrl[11]),
+                          int(ctrl[12]))
+        limits = dict(zip(("dlogz", "logl_max", "max_accepts", "max_nc"),
+                          S.limit_values))
+        S.limits.copy_(device_limits(limits, dlv_default, dtype))
+        for t in (*S.out.values(), S.stats):
+            t.zero_()
+        tree_map(torch.Tensor.zero_, S.old_blobs)
+        tree_map(torch.Tensor.zero_, S.qblobs)
+
+    def run_round(S, ridx, seed):
+        """One round; returns whether the round gate was found set."""
+        gen = torch_generator(round_seed(seed, ridx), device)
+        entry = proposer.prepare(S.live, S.axes)
+        gkey = (id(owner), id(entry))
+        g = S.graphs.get(gkey)
+        if g is None or g.owner is not owner or g.entry is not entry:
+            g = S.graphs[gkey] = RoundGraphs(owner, entry, device, capture)
+        if g.capturable and g.warm and g.prologue is None:
+            if g.capture(lambda gen_: prologue(S, gen_),
+                         lambda P_: epilogue(S, P_), counted,
+                         (nlive, q, rounds, mode)):
+                count("n_round_graph")
+        replay = g.capturable and g.prologue is not None
+        if replay:
+            P = g.replay_prologue(gen)
+        elif g.capturable:
+            P = g.on_side_stream(lambda: prologue(S, gen))
+        else:
+            P = prologue(S, gen)
+        if proposer.gate_read:
+            gated = proposer.loop(gen)
+        else:
+            # a loop that reads no flag: the round reads its gate
+            gated = bool(P["gate"])
+            count("sync_round")
+            if not gated:
+                proposer.loop(gen)
+        if gated:
+            return True
+        count("n_round")
+        if replay:
+            g.replay_epilogue()
+            # the replay ran the kernels without Python
+            counted[0].calls += 1
+            for w in counted:
+                w.launches += 1
+            count("n_round_replay")
+        elif g.capturable:
+            g.on_side_stream(lambda: epilogue(S, P))
+            g.warm = True
+        else:
+            epilogue(S, P)
+        return False
 
     def fused(seed, live, live_blob, axes_args, ctrl):
         ctrl = np.asarray(ctrl, dtype=np.float64)
-        integ = integ_from_vector(ctrl, device, dtype)
-        limits = {"dlogz": float(ctrl[9]), "logl_max": float(ctrl[10]),
-                  "max_accepts": int(ctrl[11]), "max_nc": int(ctrl[12])}
-        scale = torch.tensor(ctrl[13], dtype=dtype, device=device)
-        kills0 = int(ctrl[14])
-        birth0 = torch.tensor(ctrl[16] if len(ctrl) > 16 else ctrl[4],
-                              dtype=dtype, device=device)
         rounds_active = int(ctrl[15])
         rounds_skip = int(ctrl[17]) if len(ctrl) > 17 else 0
-        zi = torch.zeros((), dtype=i64, device=device)
-        counters = {"n_acc": zi, "n_cons": zi, "nc_accum": zi,
-                    "nc_used": zi,
-                    "done": torch.zeros((), dtype=torch.bool, device=device),
-                    "reason": zi}
-        if chain_stop_fn is not None:
-            counters["chain_stop"] = counters["done"]
+        S = state_for(live_blob, axes_args, len(ctrl))
+        load(S, live, live_blob, axes_args, ctrl, rounds_skip)
+        gated, ran = False, False
+        for ridx in range(rounds_skip, min(rounds, rounds_active)):
+            gated = run_round(S, ridx, seed)
+            ran = True
+            if gated:
+                break
+        if chain_stop_fn is not None and not gated and \
+                (not ran or min(rounds, rounds_active) < rounds):
+            # the gate is evaluated at every round boundary, the skipped
+            # rounds' too
+            S.chain_stop.copy_(S.chain_stop | chain_stop_fn(
+                dict(S.integ), S.counters, S.ctrl))
+        return finish(S, ctrl)
 
-        outs = []
-        for ridx in range(rounds):
-            off = ridx >= rounds_active or ridx < rounds_skip
-            gate = counters["done"]
-            if chain_stop_fn is not None:
-                # evaluated at every round boundary; once fired, the
-                # round and all later rounds run and bill nothing
-                trig = counters["chain_stop"] | \
-                    chain_stop_fn(integ, counters, ctrl)
-                counters = dict(counters, chain_stop=trig)
-                gate = trig | counters["done"]
-            if not off:
-                off = bool(gate)
-                if timings is not None:
-                    timings.count("sync_round")
-            if off:
-                outs.append(skipped_round(live_blob))
-                continue
-            was_done = counters["done"]
-            chain_flag = counters.get("chain_stop")
-            live, live_blob, integ, counters, round_out = one_round(
-                torch_generator(round_seed(seed, ridx), device), live,
-                live_blob, integ, counters, limits, scale, axes_args,
-                kills0 if ridx == 0 else 0, birth0)
-            if chain_flag is not None:
-                counters["chain_stop"] = chain_flag
-            if tune_fn is not None:
-                scale = torch.where(was_done, scale,
-                                    tune_fn(scale, round_out[4]).to(dtype))
-            outs.append(round_out)
-
-        old_blobs, qblobs = [tree_map(lambda *bs: torch.cat(bs), *x)
-                             for x in list(zip(*outs))[6:]]
-        recs, accepts, r_dlogz, proposals, stats_vecs, thresholds = \
-            [torch.cat(x) if x[0].dim() else torch.stack(x)
-             for x in list(zip(*outs))[:6]]
-        lane_stats = proposals[:, -2:]
+    def finish(S, ctrl):
+        integ, counters, out = S.integ, S.counters, S.out
         integ_vec = torch.stack([
             integ["logz"], integ["logzvar"], integ["h"], integ["logvol"],
             integ["loglstar"], integ["plateau_mode"].to(dtype),
             integ["plateau_counter"].to(dtype), integ["plateau_logdvol"],
             (int(ctrl[8]) + counters["n_acc"]).to(dtype)])
+        proposals = out["props"]
         # likelihood evaluations launched this dispatch, consumed or not
         nc_launched = proposals[:, ndim + npdim + 1].sum()
         reason_out = counters["reason"]
         if chain_stop_fn is not None:
-            reason_out = reason_out + 32 * counters["chain_stop"].to(i64)
+            reason_out = reason_out + 32 * S.chain_stop.to(i64)
         info_vec = torch.stack([x.to(dtype) for x in (
             counters["n_acc"], counters["nc_used"], counters["done"],
-            counters["n_cons"], reason_out, scale, nc_launched)])
-        stats_vec = stats_vecs.reshape(rounds, 4).sum(dim=0)
-        flat = torch.cat([recs.reshape(-1), integ_vec, info_vec, stats_vec,
-                          accepts.to(dtype), r_dlogz,
-                          lane_stats.reshape(-1), thresholds.reshape(-1)])
-        return flat, proposals, live, live_blob, old_blobs, qblobs
+            counters["n_cons"], reason_out, S.scale, nc_launched)])
+        stats_vec = S.stats.sum(dim=0)
+        flat = torch.cat([out["recs"].reshape(-1), integ_vec, info_vec,
+                          stats_vec, out["accepts"], out["dlogz"],
+                          out["lane"].reshape(-1), out["thresholds"]])
+        # copies: the next dispatch of the shape refills the buffers
+        return (flat, proposals.clone(), S.live.clone(),
+                tree_map(torch.clone, S.live_blob),
+                tree_map(torch.clone, S.old_blobs),
+                tree_map(torch.clone, S.qblobs))
 
     layout = {
         "rec_shape": (rounds * q, width),

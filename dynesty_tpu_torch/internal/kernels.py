@@ -55,12 +55,14 @@ from ..ops.proposals import (P_DOUBLE, P_HALVE, P_SHRINK, P_START_L,
 from ..utils.misc import tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
-           "UnifGraph", "unif_graph", "unif_waves",
-           "make_ellipsoid_refit", "make_rwalk_round", "rwalk_walk",
-           "RWalkGraph", "rwalk_graph",
-           "make_slice_round", "slice_state_machine", "SliceGraph",
-           "slice_graph", "slice_directions", "DoublingGraph",
-           "doubling_graph", "doubling_round",
+           "UnifRoundFn", "UnifGraph", "unif_graph", "unif_waves",
+           "unif_start", "unif_loop", "make_ellipsoid_refit",
+           "make_rwalk_round", "RWalkRoundFn", "rwalk_walk", "rwalk_start",
+           "rwalk_loop", "rwalk_result", "RWalkGraph", "rwalk_graph",
+           "make_slice_round", "SliceRoundFn", "slice_state_machine",
+           "slice_start", "slice_loop", "SliceGraph", "slice_graph",
+           "slice_directions", "DoublingGraph", "doubling_graph",
+           "doubling_round", "doubling_start", "doubling_loop",
            "doubling_accept", "pad_ellipsoids"]
 
 _NEG_INF = -math.inf
@@ -99,6 +101,15 @@ def _mask_from_indices(indices, ndim, device=None):
     mask = np.zeros(ndim, dtype=bool)
     mask[np.asarray(indices)] = True
     return torch.as_tensor(mask, device=device)
+
+
+def _device_of(device):
+    """``device`` with its index (the current card's where none is
+    given), as a tensor on it reports it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _masked_eval(like, u, incube):
@@ -296,35 +307,73 @@ def make_unif_round(like, *, ndim, q, bound_kind, dtype, device,
     ``host_sampler()`` gives each wave's ``(q, ncdim)`` points as a host
     array: a plain call between waves, every lane a draw.
 
-    Returns ``fn(gen, loglstar, arrays) -> (packed (q, ndim + npdim + 5),
-    blob)`` with columns ``u | v | logl | nc | nc_total | n_proposals |
-    n_filled``: per-slot ``nc`` splits the round's evaluations exactly
-    (its sum is ``nc_total``); unfilled slots carry logl = -inf.
-    ``arrays`` is the bound's device dict (ignored for the cube).  The
-    bound lives in the first ``ncdim`` dimensions (checked against the
-    cube there, loosely where ``nonbounded`` is False); the other
-    ``ndim - ncdim`` are drawn uniformly.  Each wave runs through the
-    kernels of ``ops/proposals.py`` (:func:`unif_waves`); ``timings`` and
-    ``rounds`` are the sampler's (:func:`unif_graph`)."""
+    Returns a :class:`UnifRoundFn`, called as ``fn(gen, loglstar, arrays)
+    -> (packed (q, ndim + npdim + 5), blob)`` with columns ``u | v | logl
+    | nc | nc_total | n_proposals | n_filled``: per-slot ``nc`` splits the
+    round's evaluations exactly (its sum is ``nc_total``); unfilled slots
+    carry logl = -inf.  ``arrays`` is the bound's device dict (ignored for
+    the cube).  The bound lives in the first ``ncdim`` dimensions (checked
+    against the cube there, loosely where ``nonbounded`` is False); the
+    other ``ndim - ncdim`` are drawn uniformly.  Each wave runs through
+    the kernels of ``ops/proposals.py`` (:func:`unif_waves`); ``timings``
+    and ``rounds`` are the sampler's (:func:`unif_graph`)."""
     if bound_kind not in UNIF_ARRAYS:
         raise ValueError(f"unknown bound kind '{bound_kind}'")
     if bound_kind == "custom" and host_sampler is None:
         raise ValueError("a custom bound needs a host_sampler")
-    device = torch.device(device)
-    ncdim = ncdim or ndim
-    # on the host: the round keys its buffers by it and keeps its own copy
-    # on the card
-    nb = None if nonbounded is None else \
-        _bool_mask(np.asarray(nonbounded, dtype=bool)[:ncdim], "cpu")
+    return UnifRoundFn(like, ndim, ncdim or ndim, q, bound_kind, dtype,
+                       device, nonbounded, max_waves, timings, host_sampler,
+                       rounds)
 
-    def round_fn(gen, loglstar, arrays):
-        entry = unif_graph(rounds, like, bound_kind, q, ndim, ncdim, dtype,
-                           device, nb, arrays)
-        return unif_waves(entry, gen, loglstar, arrays,
-                          max_waves=max_waves, timings=timings,
-                          host_sampler=host_sampler)
 
-    return round_fn
+class UnifRoundFn:
+    """The uniform round of :func:`make_unif_round` in the parts a fused
+    round runs apart: :meth:`prepare` (the wave shape's buffers and the
+    bound's arrays, on the host's command), :meth:`begin` (the round's
+    start, device work only: a fused round's prologue captures it),
+    :meth:`loop` (the waves, one host read each) and :meth:`finish` (the
+    packed result, device work only: the epilogue captures it).  Calling
+    it runs all four with the gate open."""
+
+    def __init__(self, like, ndim, ncdim, q, bound_kind, dtype, device,
+                 nonbounded, max_waves, timings, host_sampler, rounds):
+        self.like, self.ndim, self.ncdim, self.q = like, ndim, ncdim, q
+        self.kind, self.dtype = bound_kind, dtype
+        self.device = torch.device(device)
+        self.max_waves, self.timings = max_waves, timings
+        self.host_sampler, self.rounds = host_sampler, rounds
+        # on the host: the round keys its buffers by it and keeps its own
+        # copy on the card
+        self.nb = None if nonbounded is None else _bool_mask(
+            np.asarray(nonbounded, dtype=bool)[:ncdim], "cpu")
+        self.entry = None
+
+    def prepare(self, arrays):
+        """The wave shape of ``arrays`` (its :class:`UnifGraph`, kept as
+        ``entry`` and returned), with the arrays copied into its
+        buffers."""
+        self.entry = unif_graph(self.rounds, self.like, self.kind, self.q,
+                                self.ndim, self.ncdim, self.dtype,
+                                self.device, self.nb, arrays)
+        self.entry.rb.load_arrays(arrays)
+        return self.entry
+
+    def begin(self, loglstar, gate=None):
+        unif_start(self.entry, loglstar, self.max_waves, gate)
+
+    def loop(self, gen, gate_read=False):
+        return unif_loop(self.entry, gen, max_waves=self.max_waves,
+                         timings=self.timings,
+                         host_sampler=self.host_sampler, gate_read=gate_read)
+
+    def finish(self):
+        return self.entry.finish()
+
+    def __call__(self, gen, loglstar, arrays):
+        self.prepare(arrays)
+        self.begin(loglstar)
+        self.loop(gen)
+        return self.finish()
 
 
 # ==========================================================================
@@ -499,11 +548,11 @@ class UnifGraph(_RoundGraph):
         A capture that raises leaves the wave shape eager (warned once,
         naming the error) and every count as it was."""
         rb = self.rb
-        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        flag = torch.empty((2,), dtype=torch.bool, pin_memory=True)
 
         def body(gen):
             self.wave(self.draws(gen))
-            flag.copy_(rb.done, non_blocking=True)
+            flag.copy_(rb.flags, non_blocking=True)
 
         if not self._capture(body, (unif_valid, unif_place),
                              "the uniform rejection wave",
@@ -515,14 +564,14 @@ class UnifGraph(_RoundGraph):
 
     def replay(self):
         """One wave by replay; waits for it and returns the host copy of
-        the done flag."""
+        the done flag and the round gate."""
         self.graph.replay()
         torch.cuda.current_stream(self.rb.device).synchronize()
         # the replay ran the kernels and the likelihood without Python
         self.like.ncall_launched += self.rb.q
         unif_valid.launches += 1
         unif_place.launches += 1
-        return bool(self.flag[1])
+        return bool(self.flag[1][0]), bool(self.flag[1][1])
 
     def finish(self):
         """The round's result from the device state, no host read: the
@@ -568,24 +617,54 @@ def unif_graph(rounds, like, kind, q, ndim, ncdim, dtype, device,
 def unif_waves(entry, gen, loglstar, arrays, *, max_waves=100000,
                timings=None, host_sampler=None):
     """One uniform round on the wave shape ``entry`` (a
-    :class:`UnifGraph`): rejection waves drawn from ``gen`` (over a
-    user's bound from ``host_sampler()``) until every slot is filled or
-    ``max_waves`` waves ran, one host read of the done flag a wave
-    (``sync_wave``).  On the card, with a likelihood that may be captured
+    :class:`UnifGraph`): :func:`unif_start` with the bound's ``arrays``,
+    then :func:`unif_loop`.  Returns the round's ``(packed, blob)``
+    (:meth:`UnifGraph.finish`)."""
+    entry.rb.load_arrays(arrays)
+    unif_start(entry, loglstar, max_waves)
+    unif_loop(entry, gen, max_waves=max_waves, timings=timings,
+              host_sampler=host_sampler)
+    return entry.finish()
+
+
+def unif_start(entry, loglstar, max_waves, gate=None):
+    """Start a round on the wave shape ``entry`` (a :class:`UnifGraph`)
+    at ``loglstar``, its blob slots zeroed, behind the round gate ``gate``
+    (:meth:`UnifRound.start`); device work only."""
+    entry.rb.start(loglstar, None, max_waves, gate)
+    if entry.blob is not None:
+        tree_map(lambda b: b.zero_(), entry.blob)
+
+
+def unif_loop(entry, gen, *, max_waves=100000, timings=None,
+              host_sampler=None, gate_read=False):
+    """The rejection waves of a round started on ``entry``
+    (:func:`unif_start`), drawn from ``gen`` (over a user's bound from
+    ``host_sampler()``) until every slot is filled or ``max_waves`` waves
+    ran, one host read of the done flag a wave (``sync_wave``).  On the
+    card, with a likelihood that may be captured
     (:func:`~.likelihood.graph_capturable`) and a bound drawn on the card,
     each wave runs as one CUDA graph replay (``n_unif_replay``): the first
     wave of a shape runs eagerly on a side stream as the capture's
     warm-up, the next captures (``n_unif_graph``); a wave that replays
-    nothing counts ``n_uncaptured``.  Returns the round's ``(packed,
-    blob)`` (:meth:`UnifGraph.finish`)."""
+    nothing counts ``n_uncaptured``.
+
+    With ``gate_read`` the first read also reports the round gate: where
+    it is set (the first wave launched no lane) the read counts as
+    ``sync_round`` and the loop stops.  Waves over a user's bound draw on
+    the host, from the sampler's stream, so there the gate is read
+    (``sync_round``) before the first draw, and a round behind it draws
+    nothing.  Returns whether it was set."""
     rb = entry.rb
-    rb.start(loglstar, arrays, max_waves)
-    if entry.blob is not None:
-        tree_map(lambda b: b.zero_(), entry.blob)
+    if gate_read and host_sampler is not None:
+        _count(timings, "sync_round")
+        if bool(rb.gate):
+            return True
+        gate_read = False
     on_card = rb.device.type == "cuda"
     use_graph = host_sampler is None and entry.capturable
     draw = entry.draws(gen, host_sampler)
-    done, first, replays = max_waves < 1, True, 0
+    done, first, replays, gated = max_waves < 1, True, 0, False
     while not done:
         if use_graph and entry.graph is None and entry.warm:
             use_graph = entry.capture()
@@ -596,7 +675,7 @@ def unif_waves(entry, gen, loglstar, arrays, *, max_waves=100000,
                 # the graph's generator takes the round's seed and offset
                 entry.gen.manual_seed(gen.initial_seed())
                 entry.gen.set_offset(gen.get_offset())
-            done = entry.replay()
+            done, gated = entry.replay()
             replays += 1
         else:
             if use_graph:
@@ -604,15 +683,18 @@ def unif_waves(entry, gen, loglstar, arrays, *, max_waves=100000,
                 entry.warm = True
             else:
                 entry.wave(draw, check=first)
-            done = bool(rb.done)
+            done, gated = rb.flags.tolist()
             if on_card:
                 _count(timings, "n_uncaptured")
+        if first and gate_read and gated:
+            _count(timings, "sync_round")
+            break
         first = False
         _count(timings, "sync_wave")
     if replays:
         gen.set_offset(entry.gen.get_offset())
         _count(timings, "n_unif_replay", replays)
-    return entry.finish()
+    return bool(gate_read and gated)
 
 
 # ==========================================================================
@@ -743,23 +825,42 @@ def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, blob=None, *,
     ``torch.Generator`` (:meth:`RWalkGraph.draws`) or a function
     ``draw(step) -> (dr, u_ex)`` (``u_ex`` None when ``ncdim == ndim``;
     the tests feed the JAX package's draws).  The per-step updates are
-    the kernels of ``ops/proposals.py`` on the card.
-
-    On the card, with a generator and a likelihood that may be captured
-    (:func:`~.likelihood.graph_capturable`), the walk runs as one CUDA
-    graph replay (``n_rwalk_replay``): the first round of a shape runs
-    eagerly on a side stream as the capture's warm-up, the next captures
-    the walk (``n_rwalk_graph``); a round that replays nothing counts
-    ``n_uncaptured``.  ``rounds`` is the sampler's cache of round shapes
+    the kernels of ``ops/proposals.py`` on the card (:func:`rwalk_loop`).
+    ``rounds`` is the sampler's cache of round shapes
     (:func:`rwalk_graph`).  Returns ``(state, blob)``, copies of the
     round's buffers (the next round of the shape refills them): the state
     ``u, v, logl, n_acc, n_rej`` and the blob."""
     q, ndim = u.shape
     entry = rwalk_graph(rounds, like, q, walks, ndim, axes, u.dtype,
                         u.device, periodic, reflective, nonbounded)
+    rwalk_start(entry, u, v, logl, axes, scale, loglstar, blob)
+    rwalk_loop(entry, draw, timings=timings)
+    return rwalk_result(entry)
+
+
+def rwalk_start(entry, u, v, logl, axes, scale, loglstar, blob=None):
+    """Load a walk into the round shape ``entry`` (a
+    :class:`RWalkGraph`); device work only."""
+    entry.rb.start(u, v, logl, axes, scale, loglstar)
+    entry.load_blob(blob)
+
+
+def rwalk_result(entry):
+    """Copies of the round's state and blob (the next round of the shape
+    refills its buffers)."""
+    return ({k: t.clone() for k, t in entry.rb.st.items()},
+            tree_map(torch.clone, entry.blob))
+
+
+def rwalk_loop(entry, draw, *, timings=None):
+    """The walk of a round loaded into ``entry`` (:func:`rwalk_start`).
+    On the card, with a generator and a likelihood that may be captured
+    (:func:`~.likelihood.graph_capturable`), the walk runs as one CUDA
+    graph replay (``n_rwalk_replay``): the first round of a shape runs
+    eagerly on a side stream as the capture's warm-up, the next captures
+    the walk (``n_rwalk_graph``); a round that replays nothing counts
+    ``n_uncaptured``.  The walk reads nothing back."""
     rb = entry.rb
-    st = rb.start(u, v, logl, axes, scale, loglstar)
-    blob = entry.load_blob(blob)
     gen = draw if isinstance(draw, torch.Generator) else None
     use_graph = gen is not None and entry.capturable
     if use_graph and entry.graph is None and entry.warm:
@@ -778,7 +879,6 @@ def rwalk_walk(like, u, v, logl, axes, scale, loglstar, draw, blob=None, *,
             entry.walk(steps)
         if rb.device.type == "cuda":
             _count(timings, "n_uncaptured")
-    return {k: t.clone() for k, t in st.items()}, tree_map(torch.clone, blob)
 
 
 def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
@@ -792,32 +892,80 @@ def make_rwalk_round(like, *, ndim, ncdim, q, walks, dtype, device,
     length, so the round never reads the device from the host.
     ``timings`` and ``rounds`` are the sampler's (:func:`rwalk_walk`).
 
-    Returns ``fn(gen, packed_in, start_blob, scale, loglstar) -> (packed
-    (q, ndim + npdim + 3), blob)`` with columns ``u | v | logl | n_accept
-    | n_reject``; ``packed_in`` is ``u | v | logl | axes (ncdim*ncdim)``
-    of the start points, ``start_blob`` their blobs.  A lane that never
-    accepts keeps its start point."""
-    device = torch.device(device)
-    npdim = like.npdim
-    # on the host: the round keys its buffers by them and keeps its own
-    # copy on the card
-    nb = _bool_mask(nonbounded, "cpu")
-    pm = _mask_from_indices(periodic, ndim)
-    rm = _mask_from_indices(reflective, ndim)
+    Returns an :class:`RWalkRoundFn`, called as ``fn(gen, packed_in,
+    start_blob, scale, loglstar) -> (packed (q, ndim + npdim + 3), blob)``
+    with columns ``u | v | logl | n_accept | n_reject``; ``packed_in`` is
+    ``u | v | logl | axes (ncdim*ncdim)`` of the start points,
+    ``start_blob`` their blobs.  A lane that never accepts keeps its
+    start point."""
+    return RWalkRoundFn(like, ndim, ncdim, q, walks, dtype, device,
+                        nonbounded, periodic, reflective, timings, rounds)
 
-    def round_fn(gen, packed_in, start_blob, scale, loglstar):
-        axes = packed_in[:, ndim + npdim + 1:].reshape(
-            q, ncdim, ncdim).to(dtype)
-        st, blob = rwalk_walk(
-            like, packed_in[:, :ndim].to(dtype),
-            packed_in[:, ndim:ndim + npdim].to(dtype),
-            packed_in[:, ndim + npdim].to(dtype), axes, scale, loglstar, gen,
-            start_blob, walks=walks, periodic=pm, reflective=rm,
-            nonbounded=nb, timings=timings, rounds=rounds)
-        return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
-                            st["n_acc"], st["n_rej"], device=device), blob
 
-    return round_fn
+class RWalkRoundFn:
+    """The walk round of :func:`make_rwalk_round` in the parts a fused
+    round runs apart: :meth:`prepare` (the round shape's buffers),
+    :meth:`begin` (the walk's start, device work only: a fused round's
+    prologue captures it), :meth:`loop` (the walk) and :meth:`finish`
+    (the packed result, device work only: the epilogue captures it).  The
+    walk reads no flag, so a fused round reads its gate on the host
+    (``gate_read`` False).  Calling it runs all four."""
+
+    gate_read = False
+
+    def __init__(self, like, ndim, ncdim, q, walks, dtype, device,
+                 nonbounded, periodic, reflective, timings, rounds):
+        self.like, self.ndim, self.ncdim, self.q = like, ndim, ncdim, q
+        self.walks, self.dtype = walks, dtype
+        self.device = _device_of(device)
+        self.timings, self.rounds = timings, rounds
+        # on the host: the round keys its buffers by them and keeps its
+        # own copy on the card
+        self.masks = (_mask_from_indices(periodic, ndim),
+                      _mask_from_indices(reflective, ndim),
+                      _bool_mask(nonbounded, "cpu"))
+        self.entry = None
+
+    def _split(self, packed_in):
+        il = self.ndim + self.like.npdim
+        return (packed_in[:, :self.ndim].to(self.dtype),
+                packed_in[:, self.ndim:il].to(self.dtype),
+                packed_in[:, il].to(self.dtype),
+                packed_in[:, il + 1:].reshape(
+                    self.q, self.ncdim, self.ncdim).to(self.dtype))
+
+    def prepare(self):
+        """The round shape's :class:`RWalkGraph` (kept as ``entry`` and
+        returned), keyed by the layout the lanes' axes have in
+        ``packed_in`` (a fresh contiguous block)."""
+        il = self.ndim + self.like.npdim
+        block = torch.empty((self.q, il + 1 + self.ncdim ** 2),
+                            dtype=self.dtype, device="meta")
+        axes = self._split(block)[3]
+        self.entry = rwalk_graph(self.rounds, self.like, self.q, self.walks,
+                                 self.ndim, axes, self.dtype, self.device,
+                                 *self.masks)
+        return self.entry
+
+    def begin(self, gen, packed_in, start_blob, scale, loglstar, gate=None):
+        rwalk_start(self.entry, *self._split(packed_in), scale, loglstar,
+                    start_blob)
+
+    def loop(self, gen, gate_read=False):
+        rwalk_loop(self.entry, gen, timings=self.timings)
+        return False
+
+    def finish(self):
+        st, blob = rwalk_result(self.entry)
+        return pack_columns(self.q, self.dtype, st["u"], st["v"], st["logl"],
+                            st["n_acc"], st["n_rej"],
+                            device=self.device), blob
+
+    def __call__(self, gen, packed_in, start_blob, scale, loglstar):
+        self.prepare()
+        self.begin(gen, packed_in, start_blob, scale, loglstar)
+        self.loop(gen)
+        return self.finish()
 
 
 # ==========================================================================
@@ -923,11 +1071,11 @@ class SliceGraph(_RoundGraph):
         captured.  A capture that raises leaves the round shape eager
         (warned once, naming the error) and every count as it was."""
         rb = self.rb
-        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        flag = torch.empty((2,), dtype=torch.bool, pin_memory=True)
 
         def body(gen):
             self.iterate(lambda: rb.draws.uniform_(generator=gen))
-            flag.copy_(rb.st["any_active"], non_blocking=True)
+            flag.copy_(rb.flags, non_blocking=True)
 
         if not self._capture(body, (slice_propose, slice_advance),
                              "the slice state machine's iteration",
@@ -946,7 +1094,7 @@ class SliceGraph(_RoundGraph):
         self.like.ncall_launched += self.rb.q
         slice_propose.launches += 1
         slice_advance.launches += 1
-        return bool(self.flag[1])
+        return bool(self.flag[1][0])
 
 
 def slice_graph(rounds, like, q, n_steps, ndim, dtype, device, strict=None):
@@ -977,14 +1125,8 @@ def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
     ``draw(it) -> (2, q)`` (the tests feed the JAX package's draws).  One
     batched likelihood call an iteration between the kernels of
     ``ops/proposals.py`` on the card, and one host read of whether any
-    lane is short of its last update (``sync_slice``).
-
-    On the card, with a generator and a likelihood that may be captured
-    (:func:`~.likelihood.graph_capturable`), the iteration runs as one
-    CUDA graph replay (``n_slice_replay``): the first round of a shape
-    runs its first iteration eagerly on a side stream, then captures the
-    next (``n_slice_graph``); a round that replays nothing counts
-    ``n_uncaptured``.  ``rounds`` is the sampler's cache of round shapes
+    lane is short of its last update (``sync_slice``; :func:`slice_loop`).
+    ``rounds`` is the sampler's cache of round shapes
     (:func:`slice_graph`).  ``strict`` is the cube check's bool mask
     (None: every dimension).  Returns ``(state, blob)``, the state as
     ``ops.proposals.slice_init`` lays it out (``u, v, logl, nc, n_exp,
@@ -992,19 +1134,54 @@ def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
     q, n_steps, ndim = directions.shape
     entry = slice_graph(rounds, like, q, n_steps, ndim, r0.dtype, r0.device,
                         strict)
+    st = slice_start(entry, directions, r0, loglstar, start_u, start_v,
+                     start_logl, start_blob)
+    slice_loop(entry, draw, max_shrink_iters=max_shrink_iters,
+               timings=timings)
+    return st, tree_map(torch.clone, entry.blob)
+
+
+def slice_start(entry, directions, r0, loglstar, start_u, start_v,
+                start_logl, start_blob=None, gate=None):
+    """Load a round into the round shape ``entry`` (a
+    :class:`SliceGraph`) behind the round gate ``gate``
+    (:meth:`SliceRound.start`); device work only.  Returns the state."""
+    st = entry.rb.start(start_u, start_v, start_logl, r0, directions,
+                        loglstar, gate)
+    entry.load_blob(start_blob)
+    return st
+
+
+def slice_loop(entry, draw, *, max_shrink_iters=10000, timings=None,
+               gate_read=False):
+    """The iterations of a round loaded into ``entry``
+    (:func:`slice_start`), one host read of the flags before each
+    (``sync_slice``).  On the card, with a generator and a likelihood
+    that may be captured (:func:`~.likelihood.graph_capturable`), the
+    iteration runs as one CUDA graph replay (``n_slice_replay``): the
+    first round of a shape runs its first iteration eagerly on a side
+    stream, then captures the next (``n_slice_graph``); a round that
+    replays nothing counts ``n_uncaptured``.
+
+    With ``gate_read`` the first read also reports the round gate: where
+    it is set (no lane active) the read counts as ``sync_round`` and the
+    loop stops.  Returns whether it was set."""
     rb = entry.rb
-    st = rb.start(start_u, start_v, start_logl, r0, directions, loglstar)
-    blob = entry.load_blob(start_blob)
     gen = draw if isinstance(draw, torch.Generator) else None
     use_graph = gen is not None and entry.capturable
     if gen is not None:
         def fill():
             rb.draws.uniform_(generator=gen)
     it, flag, replays = 0, None, 0
-    max_total = n_steps * max_shrink_iters
+    max_total = rb.n_steps * max_shrink_iters
     while it < max_total:
+        if flag is None:
+            flag, gated = rb.flags.tolist()
+            if gate_read and gated:
+                _count(timings, "sync_round")
+                return True
         _count(timings, "sync_slice")
-        if not (bool(st["any_active"]) if flag is None else flag):
+        if not flag:
             break
         if use_graph and entry.graph is None and it > 0:
             use_graph = entry.capture()
@@ -1021,16 +1198,19 @@ def slice_state_machine(like, directions, r0, draw, loglstar, start_u,
             # the warm-up: the first iteration of a new round shape, on a
             # side stream, before its capture
             entry.on_side_stream(lambda: entry.iterate(fill))
+            flag = bool(rb.st["any_active"])
         else:
+            step = it
             entry.iterate(fill if gen is not None else
-                          lambda: rb.draws.copy_(draw(it)))
+                          lambda: rb.draws.copy_(draw(step)))
+            flag = bool(rb.st["any_active"])
         it += 1
     if replays:
         gen.set_offset(entry.gen.get_offset())
         _count(timings, "n_slice_replay", replays)
     elif rb.device.type == "cuda":
         _count(timings, "n_uncaptured")
-    return st, tree_map(torch.clone, blob)
+    return False
 
 
 class DoublingGraph(_RoundGraph):
@@ -1053,10 +1233,13 @@ class DoublingGraph(_RoundGraph):
         super().__init__(like, rb)
         self.graphs, self.warm = {}, set()
         self.blob_c = None
+        # the round gate as the step's start segment last read it
+        self.gated = False
         if self.capturable:
             self.gen = torch.Generator(device=rb.device)
-            # the flag a replay leaves, read through a numpy view
-            self.flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+            # the flag a replay leaves (and, after a start segment, the
+            # round gate), read through a numpy view
+            self.flag = torch.empty((2,), dtype=torch.bool, pin_memory=True)
             self.flag_np = self.flag.numpy()
 
     def load_blob(self, start_blob):
@@ -1087,9 +1270,12 @@ class DoublingGraph(_RoundGraph):
         if fill is not None:
             fill()
         if name == "start":
+            # behind a set round gate the end probes count no lane
             doubling_point(rb, P_START_L)
+            st["incube_l"].masked_fill_(rb.gate, False)
             logl_l = self._eval(st["incube_l"])[1]
             doubling_point(rb, P_START_R)
+            st["incube"].masked_fill_(rb.gate, False)
             doubling_expand(rb, X_INIT, self._eval(st["incube"])[1], logl_l)
         elif name == "double":
             doubling_point(rb, P_DOUBLE)
@@ -1121,7 +1307,10 @@ class DoublingGraph(_RoundGraph):
         def body(gen):
             self.segment(name, (lambda: rb.draw.uniform_(generator=gen))
                          if draws else None)
-            self.flag.copy_(self._flag_of(name), non_blocking=True)
+            if name == "start":
+                self.flag.copy_(rb.flags, non_blocking=True)
+            else:
+                self.flag[0].copy_(self._flag_of(name), non_blocking=True)
 
         if not self._capture(
                 body, (doubling_point, doubling_expand, doubling_halve,
@@ -1156,7 +1345,9 @@ class DoublingGraph(_RoundGraph):
             doubling_halve.launches += 1
         else:
             doubling_shrink.launches += 1
-        return bool(self.flag_np)
+        if name == "start":
+            self.gated = bool(self.flag_np[1])
+        return bool(self.flag_np[0])
 
     def run(self, name, draw, use_graph, timings):
         """The segment ``name`` of a round: replayed once the shape's
@@ -1172,7 +1363,7 @@ class DoublingGraph(_RoundGraph):
                 name in self.warm:
             if self.capture(name):
                 _count(timings, "n_doubling_graph")
-        if use_graph and name in self.graphs:
+        if use_graph and self.capturable and name in self.graphs:
             _count(timings, "n_doubling_replay")
             return self.replay(name, draw)
         fill = None
@@ -1186,6 +1377,9 @@ class DoublingGraph(_RoundGraph):
             self.segment(name, fill)
         if rb.device.type == "cuda":
             _count(timings, "n_uncaptured")
+        if name == "start":
+            flag, self.gated = rb.flags.tolist()
+            return flag
         return bool(self._flag_of(name))
 
 
@@ -1238,9 +1432,34 @@ def doubling_round(like, directions, draw, loglstar, start_u, start_v,
     q, n_steps, ndim = directions.shape
     entry = doubling_graph(rounds, like, q, n_steps, ndim, directions.dtype,
                            directions.device, strict)
+    st = doubling_start(entry, directions, loglstar, start_u, start_v,
+                        start_logl, start_blob)
+    doubling_loop(entry, draw, max_shrink_iters=max_shrink_iters,
+                  timings=timings)
+    return st, tree_map(torch.clone, entry.blob)
+
+
+def doubling_start(entry, directions, loglstar, start_u, start_v,
+                   start_logl, start_blob=None, gate=None):
+    """Load a round into the round shape ``entry`` (a
+    :class:`DoublingGraph`) behind the round gate ``gate``
+    (:meth:`DoublingRound.start`); device work only.  Returns the
+    state."""
+    st = entry.rb.start(start_u, start_v, start_logl, directions, loglstar,
+                        gate)
+    entry.load_blob(start_blob)
+    return st
+
+
+def doubling_loop(entry, draw, *, max_shrink_iters=10000, timings=None,
+                  gate_read=False):
+    """The segments of a round loaded into ``entry``
+    (:func:`doubling_start`), as :func:`doubling_round` describes.  With
+    ``gate_read`` the read after the first step's start also reports the
+    round gate: where it is set (no lane probed, none doubles) the read
+    counts as ``sync_round`` and the loop stops.  Returns whether it was
+    set."""
     rb = entry.rb
-    st = rb.start(start_u, start_v, start_logl, directions, loglstar)
-    blob = entry.load_blob(start_blob)
     gen = draw if isinstance(draw, torch.Generator) else None
     use_graph = gen is not None
 
@@ -1249,8 +1468,11 @@ def doubling_round(like, directions, draw, loglstar, start_u, start_v,
             (lambda: rb.draw.copy_(draw(what, s, i)))
         return entry.run(name, d, use_graph, timings)
 
-    for s in range(n_steps):
+    for s in range(rb.n_steps):
         flag, i = run("start", "r0", s), 0
+        if gate_read and s == 0 and entry.gated:
+            _count(timings, "sync_round")
+            return True
         while True:
             _count(timings, "sync_slice")
             if not flag:
@@ -1268,7 +1490,7 @@ def doubling_round(like, directions, draw, loglstar, start_u, start_v,
                     break
                 flag = run("halve")
             active = run("resolve")
-    return st, tree_map(torch.clone, blob)
+    return False
 
 
 def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
@@ -1285,58 +1507,95 @@ def make_slice_round(like, *, ndim, q, slices, kind, dtype, device,
     update at a time, expanding by Neal's (2003) doubling procedure and
     shrinking with its acceptance test.
 
-    Returns ``fn(gen, packed_in, start_blob, scale, loglstar) -> (packed
-    (q, ndim + npdim + 5), blob)`` with columns ``u | v | logl | nc |
-    n_expand | n_contract | warn``; ``packed_in`` is ``u | v | logl | axes
-    (ndim*ndim)`` of the start points, ``start_blob`` their blobs.
-    ``nc`` counts out-of-cube probes too; ``warn`` flags an interval
-    stepped out more than 1000 times (the host then switches to doubling
-    when the dispatch is over)."""
+    Returns a :class:`SliceRoundFn`, called as ``fn(gen, packed_in,
+    start_blob, scale, loglstar) -> (packed (q, ndim + npdim + 5), blob)``
+    with columns ``u | v | logl | nc | n_expand | n_contract | warn``;
+    ``packed_in`` is ``u | v | logl | axes (ndim*ndim)`` of the start
+    points, ``start_blob`` their blobs.  ``nc`` counts out-of-cube probes
+    too; ``warn`` flags an interval stepped out more than 1000 times (the
+    host then switches to doubling when the dispatch is over)."""
     if kind not in ("slice", "rslice"):
         raise ValueError(f"Unknown slice kind '{kind}'")
-    device = torch.device(device)
-    npdim = like.npdim
-    nb = _bool_mask(nonperiodic, device)
-    maxlen = math.sqrt(ndim) / 2.0
-    n_steps = slices * ndim if kind == "slice" else slices
+    return SliceRoundFn(like, ndim, q, slices, kind, dtype, device,
+                        nonperiodic, doubling, max_shrink_iters, timings,
+                        rounds)
 
-    def cap(directions):
+
+class SliceRoundFn:
+    """The slice round of :func:`make_slice_round` in the parts a fused
+    round runs apart: :meth:`prepare` (the round shape's buffers),
+    :meth:`begin` (the directions' draws and the round's start, device
+    work only: a fused round's prologue captures it), :meth:`loop` (the
+    state machine's iterations or the doubling round's segments, one host
+    read each) and :meth:`finish` (the packed result, device work only:
+    the epilogue captures it).  Calling it runs all four with the gate
+    open."""
+
+    gate_read = True
+
+    def __init__(self, like, ndim, q, slices, kind, dtype, device,
+                 nonperiodic, doubling, max_shrink_iters, timings, rounds):
+        self.like, self.ndim, self.q = like, ndim, q
+        self.slices, self.kind, self.dtype = slices, kind, dtype
+        self.device = _device_of(device)
+        self.nb = _bool_mask(nonperiodic, self.device)
+        self.doubling, self.max_shrink_iters = doubling, max_shrink_iters
+        self.timings, self.rounds = timings, rounds
+        self.maxlen = math.sqrt(ndim) / 2.0
+        self.n_steps = slices * ndim if kind == "slice" else slices
+        self.entry = None
+
+    def cap(self, directions):
         """Each direction's length capped at the cube diagonal."""
         dirlen = torch.linalg.vector_norm(directions, dim=-1)
-        dirnorm = torch.where(dirlen > maxlen, dirlen / maxlen, 1.0)
+        dirnorm = torch.where(dirlen > self.maxlen, dirlen / self.maxlen,
+                              1.0)
         return directions / dirnorm[..., None]
 
-    def starts(packed_in):
-        return (packed_in[:, :ndim].to(dtype),
-                packed_in[:, ndim:ndim + npdim].to(dtype),
-                packed_in[:, ndim + npdim].to(dtype),
-                packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim))
+    def prepare(self):
+        """The round shape's :class:`SliceGraph` or
+        :class:`DoublingGraph` (kept as ``entry`` and returned)."""
+        make = doubling_graph if self.doubling else slice_graph
+        self.entry = make(self.rounds, self.like, self.q, self.n_steps,
+                          self.ndim, self.dtype, self.device, self.nb)
+        return self.entry
 
-    def round_fn(gen, packed_in, start_blob, scale, loglstar):
-        start_u, start_v, start_logl, axes = starts(packed_in)
-        directions = cap(slice_directions(gen, axes.to(dtype), scale, kind,
-                                          slices))
-        st, blob = doubling_round(
-            like, directions, gen, loglstar, start_u, start_v, start_logl,
-            start_blob, strict=nb, max_shrink_iters=max_shrink_iters,
-            timings=timings, rounds=rounds)
+    def begin(self, gen, packed_in, start_blob, scale, loglstar, gate=None):
+        ndim, npdim, q, dtype = self.ndim, self.like.npdim, self.q, \
+            self.dtype
+        start_u = packed_in[:, :ndim].to(dtype)
+        start_v = packed_in[:, ndim:ndim + npdim].to(dtype)
+        start_logl = packed_in[:, ndim + npdim].to(dtype)
+        axes = packed_in[:, ndim + npdim + 1:].reshape(q, ndim, ndim)
+        directions = self.cap(slice_directions(
+            gen, axes.to(dtype), scale, self.kind, self.slices))
+        if self.doubling:
+            doubling_start(self.entry, directions, loglstar, start_u,
+                           start_v, start_logl, start_blob, gate)
+        else:
+            r0 = torch.rand((q,), generator=gen, dtype=dtype,
+                            device=self.device)
+            slice_start(self.entry, directions, r0, loglstar, start_u,
+                        start_v, start_logl, start_blob, gate)
+
+    def loop(self, gen, gate_read=False):
+        run = doubling_loop if self.doubling else slice_loop
+        return run(self.entry, gen, max_shrink_iters=self.max_shrink_iters,
+                   timings=self.timings, gate_read=gate_read)
+
+    def finish(self):
+        st = self.entry.rb.st
         # the doubling procedure has no expansion warning
-        return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
-                            st["nc"], st["n_exp"], st["n_con"], False,
-                            device=device), blob
+        warn = torch.zeros((self.q,), dtype=self.dtype,
+                           device=self.device) if self.doubling \
+            else st["warn"]
+        return pack_columns(self.q, self.dtype, st["u"], st["v"], st["logl"],
+                            st["nc"], st["n_exp"], st["n_con"], warn,
+                            device=self.device), \
+            tree_map(torch.clone, self.entry.blob)
 
-    def round_fn_sm(gen, packed_in, start_blob, scale, loglstar):
-        start_u, start_v, start_logl, axes = starts(packed_in)
-        directions = cap(slice_directions(gen, axes.to(dtype), scale, kind,
-                                          slices))
-        r0 = torch.rand((q,), generator=gen, dtype=dtype, device=device)
-        st, blob = slice_state_machine(
-            like, directions, r0, gen, loglstar, start_u, start_v,
-            start_logl, start_blob, strict=nb,
-            max_shrink_iters=max_shrink_iters, timings=timings,
-            rounds=rounds)
-        return pack_columns(q, dtype, st["u"], st["v"], st["logl"],
-                            st["nc"], st["n_exp"], st["n_con"], st["warn"],
-                            device=device), blob
-
-    return round_fn if doubling else round_fn_sm
+    def __call__(self, gen, packed_in, start_blob, scale, loglstar):
+        self.prepare()
+        self.begin(gen, packed_in, start_blob, scale, loglstar)
+        self.loop(gen)
+        return self.finish()

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.misc import blob_row, tree_map
-from .fused import make_fused_round, select_starts, unpack_flat
+from .fused import Proposer, make_fused_round, select_starts, unpack_flat
 from .kernels import (make_ellipsoid_refit, make_rwalk_round,
                       make_slice_round, make_unif_round)
 
@@ -124,6 +124,7 @@ class InternalSampler:
         raise NotImplementedError
 
     def _build_propose_fn(self, ns, bound_kind):
+        """The :class:`~.fused.Proposer` of a fused round."""
         raise NotImplementedError
 
     def _fused_cfg_key(self):
@@ -162,7 +163,8 @@ class InternalSampler:
                 tune_fn=self.device_tune_fn(),
                 mode=ns.proposal_mode,
                 chain_stop_fn=self.device_chain_stop_fn(),
-                timings=ns.timings)
+                timings=ns.timings, cache=self._slice_cache(),
+                capture=_capture_rounds(ns))
             self._round_cache[cfg] = entry
         return entry
 
@@ -226,21 +228,14 @@ class InternalSampler:
         cfg = ("replay", ns.queue_size, ns.nlive, ns.proposal_mode)
         entry = self._round_cache.get(cfg)
         if entry is None:
-            ndim, il = self.ndim, self.ndim + ns.loglikelihood.npdim
-
-            def propose(gen, live, live_blob, axes_args, scale, loglstar):
-                prop = axes_args["prop"]
-                stats = (torch.zeros((), dtype=ns.dtype, device=ns.device),)
-                return (prop[:, :ndim], prop[:, ndim:il], prop[:, il],
-                        axes_args.get("prop_blob"),
-                        prop[:, il + 1].to(torch.int64), stats,
-                        prop[:, il + 2:il + 4])
-
             entry = make_fused_round(
-                propose, kind="replay", nlive=ns.nlive, ndim=ndim,
+                _ReplayProposer(ns.dtype, ns.device,
+                                self.ndim + ns.loglikelihood.npdim),
+                kind="replay", nlive=ns.nlive, ndim=self.ndim,
                 npdim=ns.loglikelihood.npdim, q=ns.queue_size,
                 dtype=ns.dtype, device=ns.device, mode=ns.proposal_mode,
-                timings=ns.timings)
+                timings=ns.timings, cache=self._slice_cache(),
+                capture=_capture_rounds(ns))
             self._round_cache[cfg] = entry
         return entry
 
@@ -271,7 +266,8 @@ class InternalSampler:
 
     def device_chain_stop_fn(self):
         """``(integ, counters, ctrl) -> bool tensor`` evaluated at every
-        chained round's start; None = no gate."""
+        chained round's start (``ctrl`` the control vector as a device
+        tensor of the live matrix's type); None = no gate."""
         return None
 
     def apply_fused_tuning(self, out):
@@ -308,6 +304,115 @@ class InternalSampler:
     def citations(self):
         """(name, link) pairs of the method's references."""
         return []
+
+
+def _capture_rounds(ns):
+    """Whether the fused rounds of ``ns`` may capture their prologue and
+    epilogue (they call no likelihood): on one device, not a mesh of
+    several."""
+    mesh = getattr(ns, "mesh", None)
+    return mesh is None or mesh.size <= 1
+
+
+class _ReplayProposer(Proposer):
+    """The consume-only round's proposals: the given block
+    ``axes_args['prop']`` (``u | v | logl | nc | lane stats``) and its
+    blob ``axes_args['prop_blob']``; no draw, no loop."""
+
+    capturable = True
+
+    def __init__(self, dtype, device, il):
+        self.dtype, self.device, self.il = dtype, device, il
+
+    def prepare(self, live, axes_args):
+        return self
+
+    def begin(self, *args):
+        pass
+
+    def loop(self, gen):
+        return False
+
+    def finish(self, axes_args):
+        prop, il = axes_args["prop"], self.il
+        stats = (torch.zeros((), dtype=self.dtype, device=self.device),)
+        return (prop, axes_args.get("prop_blob"),
+                prop[:, il + 1].to(torch.int64), stats,
+                prop[:, il + 2:il + 4])
+
+
+class _StartsProposer(Proposer):
+    """The proposals of a slice or walk round (``inner``, a
+    :class:`~.kernels.SliceRoundFn` or :class:`~.kernels.RWalkRoundFn`)
+    from ``q`` start rows drawn among the live points above the threshold
+    (:func:`~.fused.select_starts`), packed ``u | v | logl | axes``;
+    ``split(packed) -> (qnc, stats, lane_stats)`` reads the round's
+    result."""
+
+    capturable = True
+
+    def __init__(self, inner, ns, bound_kind, eye_dim, split):
+        self.inner, self.split = inner, split
+        self.gate_read = inner.gate_read
+        self.q, self.dtype = ns.queue_size, ns.dtype
+        self.il = inner.ndim + ns.loglikelihood.npdim
+        self.bound_kind, self.eye_dim = bound_kind, eye_dim
+
+    def prepare(self, live, axes_args):
+        return self.inner.prepare()
+
+    def begin(self, gen, live, live_blob, axes_args, scale, loglstar, gate):
+        q, il = self.q, self.il
+        idxs, starts, axes = select_starts(
+            gen, live, il, q, self.bound_kind, axes_args, self.dtype,
+            eye_dim=self.eye_dim, loglstar=loglstar)
+        packed_in = torch.cat([starts[:, :il + 1], axes.reshape(q, -1)],
+                              dim=1)
+        self.inner.begin(gen, packed_in,
+                         tree_map(lambda b: b[idxs], live_blob), scale,
+                         loglstar, gate)
+
+    def loop(self, gen):
+        return self.inner.loop(gen, gate_read=True)
+
+    def finish(self, axes_args):
+        packed, blob = self.inner.finish()
+        return (packed, blob) + tuple(self.split(packed))
+
+
+class _UnifProposer(Proposer):
+    """The proposals of a uniform round (``inner``, a
+    :class:`~.kernels.UnifRoundFn`) drawn from the dispatch's bound, or,
+    for an ellipsoid stack, from the stack re-fitted to the live points
+    (``refit``, run eagerly before the round's prologue)."""
+
+    capturable = True
+    gate_read = True
+
+    def __init__(self, inner, ns, refit, ncdim):
+        self.inner, self.refit, self.ncdim = inner, refit, ncdim
+        self.il = inner.ndim + ns.loglikelihood.npdim
+
+    def prepare(self, live, axes_args):
+        if self.refit is not None:
+            axes_args = dict(axes_args, **self.refit(live[:, :self.ncdim],
+                                                     axes_args))
+        return self.inner.prepare(axes_args)
+
+    def begin(self, gen, live, live_blob, axes_args, scale, loglstar, gate):
+        self.inner.begin(loglstar, gate)
+
+    def loop(self, gen):
+        return self.inner.loop(gen, gate_read=True)
+
+    def finish(self, axes_args):
+        packed, blob = self.inner.finish()
+        il = self.il
+        qnc = packed[:, il + 1].to(torch.int64)
+        stats = (packed[0, il + 2], packed[0, il + 3], packed[0, il + 4])
+        lane_stats = torch.stack(
+            [qnc.to(packed.dtype), torch.zeros_like(packed[:, 0])], dim=1)
+        return packed, blob, qnc, stats, lane_stats
 
 
 def _unpack_rows(out, ndim, npdim, extra_names, stats_fn, nc_from):
@@ -378,19 +483,7 @@ def _unif_propose_fn(sampler, ns, bound_kind):
                             if bound_kind == "custom" else None)
     refit = make_ellipsoid_refit(ncdim, dtype=ns.dtype) \
         if bound_kind == "ellipsoids" else None
-
-    def propose(gen, live, live_blob, axes_args, scale, loglstar):
-        if refit is not None:
-            axes_args = dict(axes_args, **refit(live[:, :ncdim], axes_args))
-        packed, blob = inner(gen, loglstar, axes_args)
-        qnc = packed[:, il + 1].to(torch.int64)
-        stats = (packed[0, il + 2], packed[0, il + 3], packed[0, il + 4])
-        lane_stats = torch.stack(
-            [qnc.to(packed.dtype), torch.zeros_like(packed[:, 0])], dim=1)
-        return (packed[:, :ndim], packed[:, ndim:il], packed[:, il], blob,
-                qnc, stats, lane_stats)
-
-    return propose
+    return _UnifProposer(inner, ns, refit, ncdim)
 
 
 class UnitCubeSampler(InternalSampler):
@@ -416,13 +509,13 @@ class UnitCubeSampler(InternalSampler):
     def device_chain_stop_fn(self):
         """First-bound-update trigger: stop chaining once the efficiency
         drops below min_eff with at least min_ncall calls spent (inputs
-        from ctrl[18:21])."""
+        from ctrl[18:21], a device tensor of the live matrix's type)."""
         def gate(integ, counters, ctrl):
-            ncall_now = float(ctrl[18]) + counters["nc_used"].to(
+            ncall_now = ctrl[18] + counters["nc_used"].to(
                 integ["logz"].dtype)
             eff = 100.0 * (integ["it"].to(ncall_now.dtype) - 1.0) / \
                 ncall_now.clamp_min(1.0)
-            return (eff < float(ctrl[20])) & (ncall_now >= float(ctrl[19]))
+            return (eff < ctrl[20]) & (ncall_now >= ctrl[19])
         return gate
 
 
@@ -479,11 +572,12 @@ class UniformBoundSampler(InternalSampler):
 
     def device_chain_stop_fn(self):
         """Host-refit-due trigger: stop the chain at the first round
-        boundary whose cumulative ncall reaches ctrl[21]."""
+        boundary whose cumulative ncall reaches ctrl[21] (``ctrl`` a device
+        tensor of the live matrix's type)."""
         def gate(integ, counters, ctrl):
-            ncall_now = float(ctrl[18]) + counters["nc_used"].to(
+            ncall_now = ctrl[18] + counters["nc_used"].to(
                 integ["logz"].dtype)
-            return ncall_now >= float(ctrl[21])
+            return ncall_now >= ctrl[21]
         return gate
 
     def consume_tuning(self, stats):
@@ -535,22 +629,13 @@ class RWalkSampler(InternalSampler):
             dtype=ns.dtype, device=ns.device, timings=ns.timings,
             rounds=self._slice_cache())
 
-        def propose(gen, live, live_blob, axes_args, scale, loglstar):
-            idxs, starts, axes = select_starts(
-                gen, live, il, q, bound_kind, axes_args, ns.dtype,
-                eye_dim=ncdim, loglstar=loglstar)
-            packed_in = torch.cat([starts[:, :il + 1], axes.reshape(q, -1)],
-                                  dim=1)
-            packed, blob = inner(gen, packed_in,
-                                 tree_map(lambda b: b[idxs], live_blob),
-                                 scale, loglstar)
+        def split(packed):
             qnc = torch.full((q,), walks, dtype=torch.int64,
                              device=packed.device)
             stats = (packed[:, il + 1].sum(), packed[:, il + 2].sum())
-            return (packed[:, :ndim], packed[:, ndim:il], packed[:, il],
-                    blob, qnc, stats, packed[:, il + 1:il + 3])
+            return qnc, stats, packed[:, il + 1:il + 3]
 
-        return propose
+        return _StartsProposer(inner, ns, bound_kind, ncdim, split)
 
     def propose_round(self, ns, loglstar, q, gen):
         like = ns.loglikelihood
@@ -648,22 +733,13 @@ class _SliceBase(InternalSampler):
             dtype=ns.dtype, device=ns.device, timings=ns.timings,
             rounds=self._slice_cache())
 
-        def propose(gen, live, live_blob, axes_args, scale, loglstar):
-            idxs, starts, axes = select_starts(
-                gen, live, il, q, bound_kind, axes_args, ns.dtype,
-                eye_dim=ndim, loglstar=loglstar)
-            packed_in = torch.cat([starts[:, :il + 1], axes.reshape(q, -1)],
-                                  dim=1)
-            packed, blob = inner(gen, packed_in,
-                                 tree_map(lambda b: b[idxs], live_blob),
-                                 scale, loglstar)
-            qnc = packed[:, il + 1].to(torch.int64)
+        def split(packed):
             stats = (packed[:, il + 2].sum(), packed[:, il + 3].sum(),
                      packed[:, il + 4].max())
-            return (packed[:, :ndim], packed[:, ndim:il], packed[:, il],
-                    blob, qnc, stats, packed[:, il + 2:il + 4])
+            return (packed[:, il + 1].to(torch.int64), stats,
+                    packed[:, il + 2:il + 4])
 
-        return propose
+        return _StartsProposer(inner, ns, bound_kind, ndim, split)
 
     def propose_round(self, ns, loglstar, q, gen):
         like = ns.loglikelihood

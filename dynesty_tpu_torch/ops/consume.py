@@ -1,5 +1,5 @@
-"""The consume scan of one fused round: a hand-written CUDA kernel and its
-plain PyTorch version.
+"""The consume scan of one fused round and the round's record and live
+assembly: hand-written CUDA kernels and their plain PyTorch versions.
 
 A fused round proposes ``q`` points, then consumes them in order against
 the live set: worst-point selection, plateau entry and exit, the
@@ -23,11 +23,21 @@ The integrator and counter state is a dict of 0-d tensors with the keys
 caller's tensors.  The per-step columns come back in the order (worsts,
 srcs, accepts, logl, logvol, logwt, logz, logzvar, h, nc, delta_logz,
 n): int64, int64, bool, then the state's type but nc (int64).
+
+:func:`round_assemble` takes those columns on: the round's record rows,
+its proposals block and the live matrix refilled with the last proposal
+accepted into each slot (the JAX package's ``one_round`` after the scan,
+``dynesty_tpu/internal/fused.py:146``).  On a CUDA tensor it launches
+``csrc/round_assemble.cu`` (two kernels), writing straight into a
+dispatch's output buffers at the round's index, which it reads from the
+device; on a CPU tensor it runs :func:`round_assemble_plain`, the eager
+assembly the kernels are held against bit for bit.
 """
 
 import contextlib
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
@@ -35,7 +45,9 @@ from .integrals import progress_integration_torch
 
 __all__ = ["consume_round", "consume_round_plain", "integrator_step",
            "chain_probe", "chain_probe_plain", "smem_layout",
-           "resident_limit", "path_counts", "zero_counts", "STATE_KEYS"]
+           "resident_limit", "path_counts", "zero_counts", "STATE_KEYS",
+           "device_limits", "round_assemble", "round_assemble_plain",
+           "round_assemble_plain_into", "assemble_buffers"]
 
 # the carried state: float (the sampler's dtype), then integer (int64) and
 # boolean entries, in the order the kernel packs them
@@ -213,7 +225,7 @@ _ENTRY = {}
 _PTR, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
     ctypes.c_longlong
 _ARGTYPES = {
-    "scan": [_PTR] * 17 + [_I] * 7 + [_D, _D, _LL, _LL, _D, _I, _PTR],
+    "scan": [_PTR] * 17 + [_I] * 7 + [_D, _D, _LL, _LL, _D, _I, _PTR, _PTR],
     "integrator": [_PTR] * 11 + [_I, _PTR],
     "chain_probe": [_PTR] * 3 + [_I, _I, _PTR],
 }
@@ -295,8 +307,10 @@ def path_counts():
 
 
 def zero_counts():
-    """Zero ``launches`` and the device path counters."""
+    """Zero ``launches`` (the consume scan's and :func:`round_assemble`'s)
+    and the device path counters."""
     consume_round.launches = 0
+    round_assemble.launches = 0
     for c in _PATH_COUNTS.values():
         c.zero_()
 
@@ -341,6 +355,32 @@ def _outputs(q, dtype, dev):
             buf[off_st + 120:off_st + 122].view(torch.bool))
 
 
+def _rounder(dtype):
+    """The comparisons of the eager loop take the limits in the state's
+    type: each limit as that type's nearest value, as a Python float."""
+    if dtype == torch.float64:
+        return float
+    return lambda x: float(torch.tensor(x, dtype=dtype))
+
+
+def device_limits(limits, dlv_default, dtype, out=None):
+    """The limits of :func:`consume_round` as the kernel reads them from
+    device memory (its ``Limits``: dlogz, logl_max and dlv_default rounded
+    to ``dtype`` as doubles, then max_accepts and max_nc), as an int64
+    (5,) CPU tensor, or copied into ``out`` (an int64 (5,) CUDA tensor,
+    given as ``limits['device']``): a launch captured in a CUDA graph then
+    reads each dispatch's limits."""
+    rnd = _rounder(dtype)
+    host = torch.from_numpy(np.concatenate([
+        np.array([rnd(limits["dlogz"]), rnd(limits["logl_max"]),
+                  rnd(dlv_default)], dtype=np.float64).view(np.int64),
+        np.array([int(limits["max_accepts"]), int(limits["max_nc"])],
+                 dtype=np.int64)]))
+    if out is None:
+        return host
+    return out.copy_(host)
+
+
 def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
     nlive, q = live_logl.shape[0], qlogl.shape[0]
     dtype, dev = live_logl.dtype, live_logl.device
@@ -359,10 +399,8 @@ def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
         scratch = torch.empty(nlive, dtype=dtype, device=dev)
         occupant = torch.empty(nlive, dtype=torch.int32, device=dev)
     fout, iout, accepts, fst_out, ist_out, bst_out = _outputs(q, dtype, dev)
-    # the comparisons of the eager loop take the limits in the state's
-    # type
-    rnd = float if dtype == torch.float64 else (
-        lambda x: float(torch.tensor(x, dtype=dtype)))
+    rnd = _rounder(dtype)
+    lim_dev = limits.get("device")
     with _on_device(dev) as stream:
         err = f(live_logl.data_ptr(), qlogl.data_ptr(), qnc.data_ptr(),
                 *thin_ptrs, state_in,
@@ -376,7 +414,8 @@ def _launch(st, live_logl, qlogl, qnc, limits, batch, dlv_default, thin):
                 int(thin is not None), int(lay["resident"]), lay["seg"],
                 lay["bytes"], rnd(limits["dlogz"]), rnd(limits["logl_max"]),
                 int(limits["max_accepts"]), int(limits["max_nc"]),
-                rnd(dlv_default), BLOCK, stream)
+                rnd(dlv_default), BLOCK,
+                None if lim_dev is None else lim_dev.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"consume_scan kernel launch failed (cudaError "
                            f"{err}) for nlive={nlive}, q={q}")
@@ -512,3 +551,206 @@ def chain_probe_plain(logwt, logz0):
     for j in range(logwt.shape[0]):
         logz = torch.logaddexp(logz, logwt[j])
     return logz
+
+
+# --------------------------------------------------------------------------
+# the round's record and live assembly
+
+
+def round_assemble_plain(outs, live, qu, qv, qlogl, qnc, lane_stats, it0,
+                         birth_new):
+    """The record and live assembly of one round as eager torch code.
+
+    ``outs``: the consume scan's twelve columns (:func:`consume_round`);
+    ``live`` (nlive, ndim + npdim + 4) the live matrix before the round;
+    ``qu``, ``qv``, ``qlogl``, ``qnc`` (int64) and ``lane_stats`` (q, 2)
+    the proposals; ``it0`` (0-d int64) the iteration at the round's start;
+    ``birth_new`` (0-d) the refills' birth threshold.  Returns ``(recs (q,
+    1 + ndim + npdim + 11), proposals (q, ndim + npdim + 4), live_out,
+    last (nlive,) int64: the entry that refilled each slot or -1)``."""
+    (worsts, srcs, accepts, r_logl, r_logvol, r_logwt, r_logz, r_logzvar,
+     r_h, r_nc, _r_dlogz, r_n) = outs
+    nlive, ndim = live.shape[0], qu.shape[1]
+    il = ndim + qv.shape[1]
+    ii, ib, ibirth = il + 1, il + 2, il + 3
+    dtype, device = live.dtype, live.device
+    i64 = torch.int64
+    q = worsts.shape[0]
+    lanes = torch.arange(q, dtype=i64, device=device)
+    acc_i = accepts.to(i64)
+    acc_before = torch.cumsum(acc_i, 0) - acc_i
+    entry_it = (it0 + acc_before).to(dtype)
+    from_orig = srcs < 0
+    srcc = srcs.clamp(min=0)
+    fo2 = from_orig[:, None]
+    u_dead = torch.where(fo2, live[worsts, :ndim], qu[srcc])
+    v_dead = torch.where(fo2, live[worsts, ndim:il], qv[srcc])
+    it_dead = torch.where(from_orig, live[worsts, ii], entry_it[srcc])
+    bound_dead = torch.where(from_orig, live[worsts, ib], -1.0)
+    birth_dead = torch.where(from_orig, live[worsts, ibirth], birth_new)
+    recs = torch.cat([
+        worsts.to(dtype)[:, None], u_dead, v_dead,
+        torch.stack([r_logl, r_logvol, r_logwt, r_logz, r_logzvar, r_h,
+                     r_nc.to(dtype), it_dead, bound_dead,
+                     r_n.to(dtype), birth_dead], dim=1),
+    ], dim=1)
+
+    # last accepted entry per live slot (slot nlive is the dump row)
+    idx = torch.where(accepts, worsts, nlive)
+    last = torch.full((nlive + 1,), -1, dtype=i64, device=device)
+    last = last.scatter_reduce(0, idx, lanes, reduce="amax")[:nlive]
+    replaced = last >= 0
+    lastc = last.clamp(min=0)
+    new_rows = torch.cat([
+        qu[lastc], qv[lastc],
+        torch.stack([qlogl[lastc], entry_it[lastc],
+                     torch.full((nlive,), -1.0, dtype=dtype,
+                                device=device),
+                     birth_new.to(dtype).expand(nlive)], dim=1),
+    ], dim=1)
+    live_out = torch.where(replaced[:, None], new_rows, live)
+    proposals = torch.cat([qu, qv, qlogl[:, None], qnc.to(dtype)[:, None],
+                           lane_stats.to(dtype)], dim=1)
+    return recs, proposals, live_out, last
+
+
+def assemble_buffers(rounds, q, nlive, ndim, npdim, dtype, device):
+    """The output buffers of a dispatch of ``rounds`` rounds that
+    :func:`round_assemble` writes: ``recs`` (rounds * q, 1 + ndim + npdim
+    + 11), ``props`` (rounds * q, ndim + npdim + 4), ``accepts``,
+    ``dlogz`` (rounds * q,), ``lane`` (rounds * q, 2) and ``thresholds``
+    (rounds,) of ``dtype``; ``last`` (nlive,) and the scratch ``entry_it``
+    (q,), int64.  Unfilled: the caller zeroes the outputs once a
+    dispatch."""
+    def e(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    n = rounds * q
+    return {"recs": e((n, 1 + ndim + npdim + 11)),
+            "props": e((n, ndim + npdim + 4)), "accepts": e((n,)),
+            "dlogz": e((n,)), "lane": e((n, 2)), "thresholds": e((rounds,)),
+            "last": e((nlive,), torch.int64),
+            "entry_it": e((q,), torch.int64)}
+
+
+def _check_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
+                    threshold, out, ridx, ndim):
+    fn = "round_assemble"
+    if not isinstance(live, torch.Tensor) or live.dim() != 2:
+        raise ValueError(f"{fn}: live must be a 2-d tensor")
+    dtype, dev = live.dtype, live.device
+    if dtype not in _DTYPES:
+        raise TypeError(f"{fn} takes float64 or float32, got {dtype}")
+    nlive, lw = live.shape
+    il, q = lw - 4, outs[0].shape[0]
+    if not 1 <= ndim <= il or q < 1:
+        raise ValueError(f"{fn}: bad shape (q={q}, ndim={ndim}, live "
+                         f"{tuple(live.shape)})")
+    _check("live", live, (nlive, lw), dtype, dev)
+    for name, t, dt in zip(("worsts", "srcs", "accepts"), outs[:3],
+                           (torch.int64, torch.int64, torch.bool)):
+        _check(name, t, (q,), dt, dev)
+    for k, t in enumerate(outs[3:]):
+        _check(f"column {k}", t, (q,),
+               torch.int64 if k == 6 else dtype, dev)
+    for name, t, width in (("qrows", qrows, il + 1),
+                           ("lane_stats", lane_stats, 2)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 2 or \
+                t.shape[0] != q or t.shape[1] < width or \
+                t.stride(1) != 1 or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{fn}: {name} must be ({q}, >= {width}) "
+                             f"{dtype} on {dev} with unit column stride")
+    _check("qnc", qnc, (q,), torch.int64, dev)
+    _check("it0", it0, (), torch.int64, dev)
+    for name, t in (("birth_new", birth_new), ("threshold", threshold)):
+        _check(name, t, (), dtype, dev)
+    if ridx is not None:
+        _check("ridx", ridx, (), torch.int64, dev)
+    n = out["thresholds"].shape[0] * q
+    for k, shape in (("recs", (n, il + 12)), ("props", (n, il + 4)),
+                     ("accepts", (n,)), ("dlogz", (n,)), ("lane", (n, 2)),
+                     ("thresholds", (n // q,))):
+        _check(k, out[k], shape, dtype, dev)
+    _check("last", out["last"], (nlive,), torch.int64, dev)
+    _check("entry_it", out["entry_it"], (q,), torch.int64, dev)
+
+
+def round_assemble_plain_into(outs, live, qrows, qnc, lane_stats, it0,
+                              birth_new, threshold, out, ridx=None, *,
+                              ndim):
+    """:func:`round_assemble_plain` with :func:`round_assemble`'s
+    arguments and effects (on any device; ``ridx`` read on the host)."""
+    q, il = outs[0].shape[0], live.shape[1] - 4
+    recs, props, live_out, last = round_assemble_plain(
+        outs, live, qrows[:, :ndim], qrows[:, ndim:il], qrows[:, il], qnc,
+        lane_stats[:, :2], it0, birth_new)
+    r = 0 if ridx is None else int(ridx)
+    rows = slice(r * q, (r + 1) * q)
+    for k, t in (("recs", recs), ("props", props),
+                 ("accepts", outs[2].to(live.dtype)), ("dlogz", outs[10]),
+                 ("lane", props[:, -2:])):
+        out[k][rows] = t
+    out["thresholds"][r] = threshold
+    out["last"].copy_(last)
+    live.copy_(live_out)
+
+
+def round_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
+                   threshold, out, ridx=None, *, ndim):
+    """Assemble one round after its consume scan, in place.
+
+    ``outs``: the scan's twelve columns (:func:`consume_round`); ``live``
+    (nlive, ndim + npdim + 4), refilled in place; ``qrows`` (q, >= ndim +
+    npdim + 1) the proposals' ``u | v | logl`` and ``lane_stats`` (q, >=
+    2), both with unit column stride; ``qnc`` (q,) int64; ``it0`` 0-d
+    int64; ``birth_new`` and ``threshold`` (the round's loglstar) 0-d of
+    the live matrix's type; ``out`` the dispatch's buffers
+    (:func:`assemble_buffers`), whose rows ``ridx * q`` on (``ridx`` a 0-d
+    int64 tensor on the live matrix's device, read there; None: round 0)
+    take the round's records, proposals, accepts (as 0 or 1), delta_logz
+    and lane stats, ``thresholds[ridx]`` its loglstar and ``last`` each
+    slot's refill (-1: kept).
+
+    On a CPU tensor this runs :func:`round_assemble_plain`
+    (:func:`round_assemble_plain_into`); on a CUDA tensor it launches the
+    two kernels of ``csrc/round_assemble.cu`` or raises.  ``launches``
+    counts the CUDA calls."""
+    _check_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
+                    threshold, out, ridx, ndim)
+    q, il = outs[0].shape[0], live.shape[1] - 4
+    if live.device.type == "cpu":
+        round_assemble_plain_into(outs, live, qrows, qnc, lane_stats, it0,
+                                  birth_new, threshold, out, ridx,
+                                  ndim=ndim)
+        return
+    if live.device.type != "cuda":
+        raise ValueError(f"no kernel for device {live.device}")
+    ptrs = (ctypes.c_void_p * 28)(*[None if t is None else t.data_ptr()
+                                    for t in (
+        *outs[:3], *outs[3:9], outs[9], outs[10], outs[11], live, qrows,
+        qnc, lane_stats, it0, birth_new, threshold, ridx, out["recs"],
+        out["props"], out["accepts"], out["dlogz"], out["lane"],
+        out["thresholds"], out["entry_it"], out["last"])])
+    f = _assemble_entry(_DTYPES[live.dtype])
+    with _on_device(live.device) as stream:
+        err = f(ptrs, q, live.shape[0], ndim, il - ndim, qrows.stride(0),
+                lane_stats.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"round_assemble kernel launch failed (cudaError "
+                           f"{err}) for nlive={live.shape[0]}, q={q}")
+    round_assemble.launches += 1
+
+
+round_assemble.launches = 0
+
+
+def _assemble_entry(tag):
+    key = ("assemble", tag)
+    f = _ENTRY.get(key)
+    if f is None:
+        lib = build.load_library("round_assemble")
+        f = getattr(lib, f"dynesty_round_assemble_{tag}")
+        f.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + [_I] * 6 + [_PTR]
+        f.restype = ctypes.c_int
+        _ENTRY[key] = f
+    return f

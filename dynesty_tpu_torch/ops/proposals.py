@@ -84,6 +84,17 @@ def _fresh(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _load_gate(buf, gate, active=None):
+    """Copy the round gate ``gate`` (a 0-d bool tensor; None: open) into
+    ``buf``, and clear ``active`` (a 0-d bool flag) where it is set."""
+    if gate is None:
+        buf.fill_(False)
+        return
+    buf.copy_(gate)
+    if active is not None:
+        active.masked_fill_(gate, False)
+
+
 # --------------------------------------------------------------------------
 # the stepping-out state machine
 
@@ -252,6 +263,9 @@ class SliceRound:
             return torch.empty(shape, dtype=dt, device=device)
 
         self.st = _slice_state(q, ndim, npdim, dtype, device)
+        # the flag the host reads and, beside it, the round gate
+        self.flags = e((2,), torch.bool)
+        self.st["any_active"], self.gate = self.flags[0], self.flags[1]
         self.directions = e((q, n_steps, ndim))
         self.loglstar = e(())
         self.draws = e((2, q))
@@ -269,11 +283,15 @@ class SliceRound:
         if device.type == "cuda":
             self._bind()
 
-    def start(self, start_u, start_v, start_logl, r0, directions, loglstar):
+    def start(self, start_u, start_v, start_logl, r0, directions, loglstar,
+              gate=None):
         """Load a round: the start state (:func:`slice_init`), the capped
         ``directions`` and the threshold (a number or a 0-d tensor,
-        copied once a round); returns the state."""
+        copied once a round); returns the state.  ``gate`` (a 0-d bool
+        tensor, None: open) is the fused round's gate: where it is set no
+        lane is active, and the host's first read of ``flags`` sees it."""
         st = slice_init(start_u, start_v, start_logl, r0, rb=self)
+        _load_gate(self.gate, gate, st["any_active"])
         self.directions.copy_(directions)
         if isinstance(loglstar, torch.Tensor):
             self.loglstar.copy_(loglstar)
@@ -708,7 +726,9 @@ class UnifRound:
             return torch.empty(shape, dtype=dt, device=device)
 
         self.state = e((7,), torch.int64)
-        self.done = e((), torch.bool)
+        # the done flag the host reads and, beside it, the round gate
+        self.flags = e((2,), torch.bool)
+        self.done, self.gate = self.flags[0], self.flags[1]
         self.loglstar = e(())
         self.valid, self.dest = e((q,), torch.bool), e((q,), torch.int64)
         self.slots = {"u": e((q + 1, ndim)), "v": e((q + 1, npdim)),
@@ -728,14 +748,23 @@ class UnifRound:
         if device.type == "cuda":
             self._bind()
 
-    def start(self, loglstar, arrays, max_waves):
+    def start(self, loglstar, arrays, max_waves, gate=None):
         """Load a round: the state of no wave run (the first wave launches
         every lane), unfilled slots (u 0.5, v 0, logl -inf, nc 0), the
-        threshold (a number or a 0-d tensor) and the bound's arrays,
-        copied once a round."""
-        self.state.copy_(torch.tensor([0, 0, 0, 0, 0, self.q, max_waves],
-                                      dtype=torch.int64))
+        threshold (a number or a 0-d tensor) and the bound's arrays
+        (:meth:`load_arrays`; None: loaded already), copied once a round,
+        with device work only.  ``gate`` (a 0-d bool tensor, None: open)
+        is the fused round's gate: where it is set the first wave's width
+        is 0 (no lane launched, the likelihood counts none), and the
+        host's read of ``flags`` after it sees the gate."""
+        self.state.zero_()
+        if gate is None:
+            self.state[U_WIDTH].fill_(self.q)
+        else:
+            self.state[U_WIDTH].copy_(torch.where(gate, 0, self.q))
+        self.state[U_MAX_WAVES].fill_(max_waves)
         self.done.fill_(max_waves < 1)
+        _load_gate(self.gate, gate)
         if isinstance(loglstar, torch.Tensor):
             self.loglstar.copy_(loglstar)
         else:
@@ -743,6 +772,11 @@ class UnifRound:
         for k, fill in (("u", 0.5), ("v", 0.0), ("logl", _NEG_INF),
                         ("nc", 0)):
             self.slots[k].fill_(fill)
+        if arrays is not None:
+            self.load_arrays(arrays)
+
+    def load_arrays(self, arrays):
+        """Copy the bound's arrays into the round's buffers."""
         for k, buf in self.arrays.items():
             buf.copy_(arrays[k])
 
@@ -1061,6 +1095,9 @@ class DoublingRound:
         self.q, self.n_steps, self.ndim, self.npdim = q, n_steps, ndim, npdim
         self.dtype, self.device = dtype, device
         self.st = _doubling_state(q, ndim, npdim, dtype, device)
+        # the flag the host reads and, beside it, the round gate
+        self.flags = torch.empty((2,), dtype=torch.bool, device=device)
+        self.st["any"], self.gate = self.flags[0], self.flags[1]
         self.directions = torch.empty((q, n_steps, ndim), dtype=dtype,
                                       device=device)
         self.loglstar = torch.empty((), dtype=dtype, device=device)
@@ -1075,11 +1112,17 @@ class DoublingRound:
         if device.type == "cuda":
             self._bind()
 
-    def start(self, start_u, start_v, start_logl, directions, loglstar):
+    def start(self, start_u, start_v, start_logl, directions, loglstar,
+              gate=None):
         """Load a round: the start points, zero tallies, the first step,
         the capped ``directions`` and the threshold (a number or a 0-d
-        tensor, copied once a round); returns the state."""
+        tensor, copied once a round); returns the state.  ``gate`` (a 0-d
+        bool tensor, None: open) is the fused round's gate: where it is set
+        the step's end probes count no lane (``internal/kernels.py``,
+        ``DoublingGraph.segment``), so no lane doubles, and the host's read
+        of ``flags`` after them sees the gate."""
         st = self.st
+        _load_gate(self.gate, gate)
         for k, t in (("u", start_u), ("v", start_v), ("logl", start_logl)):
             st[k].copy_(t)
         for k in ("nc", "n_exp", "n_con", "step"):

@@ -48,8 +48,9 @@ class Timings(dict):
     ``sync_wave`` (one per rejection wave of the uniform kernels),
     ``sync_slice`` (one per slice state-machine iteration; in doubling
     mode one per expansion, per shrink and per halving of the acceptance
-    test), ``sync_round`` (per-round skip gates, and on the CPU the
-    thin-path choice) and
+    test), ``sync_round`` (the round gate: the read that finds it set,
+    at most one a dispatch, or for the random walk and a plain propose
+    function one read a round; and on the CPU the thin-path choice) and
     ``sync_flat`` (one result download per dispatch).  The random-walk
     kernel adds none.  ``n_replay`` and ``n_continuation`` count the
     consume-only replays and the continuation dispatches of a resumed
@@ -61,7 +62,10 @@ class Timings(dict):
     one a round shape, each after one warm-up round run eagerly); the
     uniform waves on the card: ``n_unif_replay`` (waves run as one replay
     of the whole wave), ``n_unif_graph`` (waves captured, one a wave
-    shape, each after one warm-up wave run eagerly); and ``n_uncaptured``
+    shape, each after one warm-up wave run eagerly); the fused rounds'
+    prologue and epilogue on the card: ``n_round_replay`` (rounds run as
+    one replay of each), ``n_round_graph`` (pairs captured, one a round
+    shape, each after one round run eagerly); and ``n_uncaptured``
     (slice and walk rounds, and uniform waves, that replayed nothing: a
     random walk's warm-up round, a uniform warm-up wave, a wave over a
     user's bound drawn on the host, host mode, the evaluation history, a

@@ -36,6 +36,7 @@ from dynesty_tpu_torch.ops import build
 from dynesty_tpu_torch.ops import consume as cs
 from dynesty_tpu_torch.utils.convert import live_to_torch, to_numpy
 
+from torch_rounds import WholeRound
 from utils import get_rstate
 
 torch.set_num_threads(1)
@@ -181,7 +182,7 @@ def _torch_run(live, prop, rounds, mode, kind, ctrl, device="cpu",
                 p[:, IL + 2:IL + 4])
 
     fn, layout = tfused.make_fused_round(
-        propose, nlive=live.shape[0], ndim=NDIM, npdim=NPDIM,
+        WholeRound(propose), nlive=live.shape[0], ndim=NDIM, npdim=NPDIM,
         q=prop.shape[0], dtype=dtype, device=device, kind=kind,
         rounds=rounds, mode=mode)
     flat, _, live_out, _, _, _ = fn(

@@ -840,6 +840,15 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch):
     for name in ("doubling_point_plain", "doubling_expand_plain",
                  "doubling_halve_plain", "doubling_shrink_plain"):
         monkeypatch.setattr(pr, name, guarded(name))
+    # the uniform rounds behind a fused round's gate: one wave each, whose
+    # read counts as sync_round
+    gated, loop = [], tk.unif_loop
+
+    def unif_loop(*a, **kw):
+        gated.append(loop(*a, **kw))
+        return gated[-1]
+
+    monkeypatch.setattr(tk, "unif_loop", unif_loop)
     pr.zero_counts()
     s = dyt.NestedSampler(lambda x: -0.5 * (x @ x),
                           lambda u: 10.0 * (2.0 * u - 1.0), 3, nlive=200,
@@ -853,7 +862,8 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch):
     assert segments > 0 and t["n_doubling_graph"] == 5
     assert t["n_doubling_replay"] + 5 == segments
     # the warm-ups, and the unit-cube phase's eager waves
-    assert t["n_uncaptured"] - (t["sync_wave"] - t["n_unif_replay"]) == 5
+    assert t["n_uncaptured"] - (t["sync_wave"] + sum(gated) -
+                                t["n_unif_replay"]) == 5
 
 
 def _syncing_ll(x):
@@ -918,6 +928,55 @@ def test_a_later_capture_that_raises_leaves_the_shape_wholly_eager(
     (entry,) = cache.values()
     assert entry.graphs == {} and not entry.capturable
     assert t["n_doubling_graph"] > 0
+    assert t["n_doubling_replay"] + t["n_uncaptured"] == te["n_uncaptured"]
+    for (p, b, off), (pe, be, offe) in zip(got, ref):
+        assert torch.equal(p, pe) and torch.equal(b, be) and off == offe
+
+
+@pytest.mark.cuda
+def test_a_second_capture_that_raises_leaves_the_round_wholly_eager(
+        cuda, monkeypatch):
+    """The shape's second segment capture raises, after its first was
+    captured and replayed: from the raise on no segment replays (the
+    shape is wholly eager, as its warning says), and the rounds equal
+    eager ones bit for bit, the generator's offset included."""
+    segment, capture = tk.DoublingGraph.segment, tk.DoublingGraph.capture
+    replay = tk.DoublingGraph.replay
+    attempts, late = [], []
+
+    def counted(self, name):
+        attempts.append(name)
+        return capture(self, name)
+
+    def failing(self, name, fill=None):
+        if len(attempts) == 2 and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the second segment cannot be captured")
+        return segment(self, name, fill)
+
+    def checked(self, name, gen):
+        if not self.capturable:
+            late.append(name)
+        return replay(self, name, gen)
+
+    monkeypatch.setattr(tk.DoublingGraph, "capture", counted)
+    monkeypatch.setattr(tk.DoublingGraph, "segment", failing)
+    monkeypatch.setattr(tk.DoublingGraph, "replay", checked)
+    dtype, q = torch.float64, 64
+    like = _like(True, dtype, cuda)
+    eager = _EagerLike(blob_ll, lambda u: 2.0 * u - 1.0, 3, device=cuda,
+                       blob=True, dtype=dtype)
+    eager.eval_host(np.full((2, 3), 0.5))
+    cache, t, te = {}, Timings(), Timings()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = _card_rounds(like, q, "rslice", 2, dtype, cuda, (1, 2, 3),
+                           cache, t)
+    ref = _card_rounds(eager, q, "rslice", 2, dtype, cuda, (1, 2, 3), {}, te)
+    msgs = [str(x.message) for x in w if "CUDA graph" in str(x.message)]
+    assert len(msgs) == 1 and attempts[1] in msgs[0]
+    (entry,) = cache.values()
+    assert entry.graphs == {} and not entry.capturable and not late
+    assert t["n_doubling_graph"] == 1 and t["n_doubling_replay"] >= 1
     assert t["n_doubling_replay"] + t["n_uncaptured"] == te["n_uncaptured"]
     for (p, b, off), (pe, be, offe) in zip(got, ref):
         assert torch.equal(p, pe) and torch.equal(b, be) and off == offe

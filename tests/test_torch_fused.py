@@ -23,6 +23,7 @@ import dynesty_tpu.internal.fused as jfused
 import dynesty_tpu_torch.internal.fused as tfused
 from dynesty_tpu_torch.utils.convert import live_to_torch, to_numpy
 
+from torch_rounds import WholeRound
 from utils import get_rstate
 
 torch.set_num_threads(1)
@@ -88,7 +89,7 @@ def _torch_run(live, prop, rounds, mode, ctrl):
                 p[:, IL + 2:IL + 4])
 
     fn, layout = tfused.make_fused_round(
-        propose, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
+        WholeRound(propose), nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
         dtype=torch.float64, device="cpu", rounds=rounds, mode=mode)
     flat, _, live_out, _, _, _ = fn(0, live_to_torch(live, "cpu"), None,
                                     {"prop": torch.from_numpy(prop)}, ctrl)

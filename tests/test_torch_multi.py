@@ -37,6 +37,7 @@ from dynesty_tpu_torch.utils.convert import (bound_arrays_to_torch,
                                              bound_from_arrays, to_numpy)
 
 from test_torch_fused import _compare, _state
+from torch_rounds import WholeRound
 from utils import get_rstate
 
 torch.set_num_threads(1)
@@ -389,7 +390,7 @@ def test_chain_stops_at_first_boundary_past_refit_due(due_rounds):
                                    None, {"prop": jnp.asarray(prop)},
                                    jnp.asarray(ctrl))
     tfn, tlayout = tfused.make_fused_round(
-        tprop, nlive=nlive, ndim=ndim, npdim=npdim, q=q,
+        WholeRound(tprop), nlive=nlive, ndim=ndim, npdim=npdim, q=q,
         dtype=torch.float64, device="cpu", rounds=rounds,
         chain_stop_fn=tsam.UniformBoundSampler(
             ndim=ndim).device_chain_stop_fn())

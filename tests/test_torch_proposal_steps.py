@@ -733,24 +733,33 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
     for name in ("slice_propose_plain", "slice_advance_plain",
                  "rwalk_propose_plain", "rwalk_accept_plain"):
         monkeypatch.setattr(pr, name, guarded(name))
-    draws, walk_rounds = [], []
+    draws, walk_rounds, gated = [], [], []
     # the walk takes its round's walks steps; the state machine's
-    # iterations are its flag reads less one a round
-    real_walk, real_machine = tk.rwalk_walk, tk.slice_state_machine
+    # iterations are its flag reads less one a round (a round behind the
+    # fused round's gate reads once, as sync_round, and iterates none)
+    real_walk, real_machine = tk.rwalk_loop, tk.slice_loop
+    real_waves = tk.unif_loop
 
-    def walk(*a, walks, **kw):
-        walk_rounds.append(walks)
-        draws.extend(range(walks))
-        return real_walk(*a, walks=walks, **kw)
+    def walk(entry, draw, **kw):
+        walk_rounds.append(entry.walks)
+        draws.extend(range(entry.walks))
+        return real_walk(entry, draw, **kw)
 
-    def machine(*a, timings, **kw):
+    def machine(entry, draw, *, timings, **kw):
         n0 = timings.get("sync_slice", 0)
-        out = real_machine(*a, timings=timings, **kw)
-        draws.extend(range(timings["sync_slice"] - n0 - 1))
+        out = real_machine(entry, draw, timings=timings, **kw)
+        if not out:
+            draws.extend(range(timings["sync_slice"] - n0 - 1))
         return out
 
-    monkeypatch.setattr(tk, "rwalk_walk", walk)
-    monkeypatch.setattr(tk, "slice_state_machine", machine)
+    def waves(*a, **kw):
+        # a uniform round behind the gate: one wave read as sync_round
+        gated.append(real_waves(*a, **kw))
+        return gated[-1]
+
+    monkeypatch.setattr(tk, "rwalk_loop", walk)
+    monkeypatch.setattr(tk, "slice_loop", machine)
+    monkeypatch.setattr(tk, "unif_loop", waves)
     pr.zero_counts()
     s = dyt.NestedSampler(lambda x: -0.5 * (x @ x),
                           lambda u: 10.0 * (2.0 * u - 1.0), 3, nlive=200,
@@ -760,7 +769,7 @@ def test_a_card_run_never_takes_the_plain_steps(cuda, monkeypatch, sample):
     # the unit-cube phase's uniform waves: each replayed but the warm-up
     # wave of its shape, which counts n_uncaptured
     t = s.timings
-    unif_eager = t["sync_wave"] - t["n_unif_replay"]
+    unif_eager = t["sync_wave"] + sum(gated) - t["n_unif_replay"]
     assert unif_eager == t["n_unif_graph"] == 1
     if sample == "rslice":
         assert pr.slice_propose.launches == pr.slice_advance.launches == \

@@ -38,6 +38,7 @@ from dynesty_tpu_torch.utils.convert import live_to_torch
 from dynesty_tpu_torch.utils.misc import Timings, torch_generator
 
 from test_torch_fused import _state
+from torch_rounds import WholeRound
 from utils import get_rstate
 
 torch.set_num_threads(1)
@@ -364,7 +365,7 @@ def test_replay_round_never_takes_the_thin_path():
     for kind, reads in (("replay", 1), ("fixed", 2)):
         timings.clear()
         fn, _ = tfused.make_fused_round(
-            propose, kind=kind, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
+            WholeRound(propose), kind=kind, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
             dtype=torch.float64, device="cpu", timings=timings)
         fn(0, live_to_torch(live, "cpu"), None,
            {"prop": torch.from_numpy(prop)}, ctrl)
@@ -390,7 +391,7 @@ def test_round_seeds_do_not_depend_on_skipped_rounds():
 
     live, prop = _state()
     fn, _ = tfused.make_fused_round(
-        propose, nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
+        WholeRound(propose), nlive=NLIVE, ndim=NDIM, npdim=NPDIM, q=Q,
         dtype=torch.float64, device="cpu", rounds=4)
     args = (live_to_torch(live, "cpu"), None,
             {"prop": torch.from_numpy(prop)})

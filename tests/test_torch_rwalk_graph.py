@@ -389,7 +389,9 @@ def test_a_sampler_run_walks_on_its_round_cache():
                           queue_size=16, device="cpu", rstate=get_rstate())
     s.run_nested(print_progress=False, maxiter=400)
     cache = s.internal_sampler._slice_rounds
-    assert [k[:3] for k in cache] == [("rwalk", 16, 5)]
+    # beside the walk's round shape, the fused rounds' state ("round")
+    assert [k[:3] for k in cache if k[0] != "round"] == [("rwalk", 16, 5)]
+    assert [k[:2] for k in cache if k[0] == "round"] == [("round", "rwalk")]
     assert not any(k in s.timings for k in ("n_rwalk_replay",
                                             "n_rwalk_graph", "n_uncaptured"))
 

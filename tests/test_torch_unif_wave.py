@@ -497,9 +497,11 @@ def test_a_sampler_run_waves_on_its_round_cache():
                           device="cpu", rstate=get_rstate())
     s.run_nested(print_progress=False, maxiter=600)
     for sampler in (s.internal_sampler, s.internal_sampler_next):
-        assert sampler._slice_rounds
-        assert all(k[0] == "unif" and k[2] == 16
-                   for k in sampler._slice_rounds)
+        waves = [k for k in sampler._slice_rounds if k[0] != "round"]
+        assert waves and all(k[0] == "unif" and k[2] == 16 for k in waves)
+        # beside the waves' shapes, the fused rounds' state ("round")
+        assert [k[:2] for k in sampler._slice_rounds if k[0] == "round"] \
+            == [("round", sampler.name)]
     assert not any(k in s.timings for k in ("n_unif_replay", "n_unif_graph",
                                             "n_uncaptured"))
 
