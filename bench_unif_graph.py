@@ -44,7 +44,11 @@ is an upper bound on the unprofiled drive's.
 
 With ``--split``, the drive once more with host timers around the parts
 of a fused round (:func:`split_round`): the host ms of each part, summed
-over the drive's dispatches, exclusive of the parts inside it.
+over the drive's dispatches, exclusive of the parts inside it; and, for
+the prologue's and epilogue's replays and each wave's replay, the span
+between two CUDA events around the call (the device's time from
+reaching the call to the end of its work, the replay's launch latency
+included), in all and a call (``split_device_spans``).
 
 ``--root`` imports ``dynesty_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive`` into the git-ignored
@@ -154,7 +158,7 @@ SPLIT_PARTS = (
     ("kernels", "rwalk_loop", "loop"),
     ("fused", "consume_round", "consume_round"),
 )
-_SPLIT = {"stack": [], "parts": {}, "on": False}
+_SPLIT = {"stack": [], "parts": {}, "on": False, "events": []}
 
 
 def _timer(fn, part):
@@ -176,6 +180,36 @@ def _timer(fn, part):
             if stack:
                 stack[-1] += dt
     return call
+
+
+def _span_timer(fn, part):
+    """``fn`` between two CUDA events on the current stream (while the
+    split pass is on): the span on the device from the stream reaching
+    the call to the end of what it enqueued, summed by ``part`` after
+    the drive."""
+    def call(*a, **kw):
+        if not _SPLIT["on"]:
+            return fn(*a, **kw)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **kw)
+        e1.record()
+        _SPLIT["events"].append((part, e0, e1))
+        return out
+    return call
+
+
+def split_spans():
+    """The device spans of the split pass by part: ms in all, calls, and
+    ms a call."""
+    torch.cuda.synchronize()
+    spans = {}
+    for part, e0, e1 in _SPLIT["events"]:
+        ms, n = spans.get(part, (0.0, 0))
+        spans[part] = (ms + e0.elapsed_time(e1), n + 1)
+    return {k: {"ms": ms, "calls": n, "ms_per_call": ms / n}
+            for k, (ms, n) in sorted(spans.items())}
 
 
 def split_round():
@@ -207,9 +241,16 @@ def split_round():
     torch.Tensor.__bool__ = _timer(torch.Tensor.__bool__, "gate_read")
     if hasattr(tf, "RoundGraphs"):
         g = tf.RoundGraphs
-        g.replay_prologue = _timer(g.replay_prologue, "prologue_replay")
-        g.replay_epilogue = _timer(g.replay_epilogue, "epilogue_replay")
+        g.replay_prologue = _timer(_span_timer(
+            g.replay_prologue, "prologue_replay"), "prologue_replay")
+        g.replay_epilogue = _timer(_span_timer(
+            g.replay_epilogue, "epilogue_replay"), "epilogue_replay")
         g.capture = _timer(g.capture, "round_capture")
+    if hasattr(tk, "UnifGraph"):
+        # a wave's replay, its wait and its flag read (host: inside the
+        # loop's part)
+        tk.UnifGraph.replay = _span_timer(tk.UnifGraph.replay,
+                                          "wave_replay")
     si = ts.InternalSampler
     si.finish_fused = _timer(si.finish_fused, "download")
     for cls in [si] + si.__subclasses__() + [
@@ -375,9 +416,10 @@ def main(prog="bench_unif_graph", default_drives="heavy,default,balls"):
             print(json.dumps({"drive": f"{name}-profiled", "root": root,
                               "card": card, **rec}))
         if args.split:
-            _SPLIT.update(parts={}, on=True)
+            _SPLIT.update(parts={}, on=True, events=[])
             rec = run_drive(dyt, name)
             _SPLIT["on"] = False
+            rec["split_device_spans"] = split_spans()
             rounds = rec["timings"]["n_round"]
             rec["split_ms_per_round"] = {
                 k: 1e3 * v / rounds for k, v in sorted(

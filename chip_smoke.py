@@ -365,6 +365,10 @@ def _card():
     return out[0].strip()
 
 
+# profiler passes _device_ms tries before it falls back on CUDA events
+PROFILE_PASSES = 8
+
+
 def _time_ms(fn, iters):
     for _ in range(3):
         fn()
@@ -380,22 +384,41 @@ def _time_ms(fn, iters):
 
 
 def _device_ms(fn, iters=20, only=None):
-    """Device time per call: the summed durations of the kernels that
-    ``iters`` calls ran, from the profiler (no host gaps); with ``only``,
-    of the kernels whose name holds it."""
+    """Device time per call: the durations of the kernels that ``iters``
+    calls ran, from the profiler (no host gaps), summed over a call; with
+    ``only``, of the kernels whose name holds it.  The profiler on the
+    card's machine now and then drops a pass's kernel events or adds a
+    stray one from outside it, so each kernel name counts its mean
+    duration times its launches a call (its events over ``iters``,
+    rounded); a pass where a name rounds to none is run again, up to
+    ``PROFILE_PASSES`` times, and then the time by CUDA events (host gaps
+    included) is returned with a printed warning."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and
-             (only is None or only in e.name))
-    return us / iters / 1e3
+    for _ in range(PROFILE_PASSES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (only is None or
+                                                      only in e.name):
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        per_call = {k: round(len(v) / iters) for k, v in by_name.items()}
+        if by_name and all(per_call.values()):
+            return sum(sum(v) / len(v) * per_call[k]
+                       for k, v in by_name.items()) / 1e3
+    ms = _time_ms(fn, iters)
+    what = f" of {only}" if only else ""
+    print(f"warning: the profiler dropped kernel events in "
+          f"{PROFILE_PASSES} passes{what}; CUDA events time used: "
+          f"{ms:.5f} ms a call")
+    return ms
 
 
 def _points(n, d, shift=0.0):
@@ -2801,14 +2824,22 @@ STEP_LOGLSTAR = 0.25
 # main shapes, a replay round (five kills before it, its refills born at
 # birth0) and a general round whose proposals straddle the threshold
 # (some rejected, some accepted and killed later in the round: records
-# taken from the proposals)
+# taken from the proposals); then the queue shape at 16384 live points,
+# one lane, and the thin round with its accepts taken away ('none') or
+# every entry accepted into one slot ('one_slot')
 ASSEMBLE_CASES = ((2048, 256, "batch", "thin"), (2048, 256, "batch",
                                                   "general"),
                   (3000, 256, "batch", "thin"), (1000, 256, "queue",
                                                  "general"),
                   (2048, 256, "batch", "replay"),
-                  (2048, 256, "batch", "mixed"))
+                  (2048, 256, "batch", "mixed"),
+                  (16384, 256, "queue", "general"),
+                  (64, 1, "batch", "thin"),
+                  (2048, 256, "batch", "none"),
+                  (2048, 256, "batch", "one_slot"))
 ASSEMBLE_ROUNDS = 3
+# the paths of three rounds on one set of buffers
+ASSEMBLE_SEQUENCE = ("thin", "none", "one_slot")
 
 
 def assemble_inputs(nlive, q, mode, path):
@@ -2834,13 +2865,19 @@ def assemble_inputs(nlive, q, mode, path):
     sorted_logl, sort_idx = torch.sort(live_logl, stable=True)
     thin = (sort_idx, sorted_logl, torch.ones((), dtype=torch.bool,
                                               device="cuda")) \
-        if path == "thin" else None
+        if path in ("thin", "none", "one_slot") else None
     limits = {"dlogz": -math.inf, "logl_max": math.inf,
               "max_accepts": 2 ** 30, "max_nc": 2 ** 30}
     outs, _ = cs.consume_round(st, live_logl, prop_t[:, C_IL].contiguous(),
                                qnc, limits, batch=mode == "batch",
                                dlv_default=float(np.log1p(1.0 / nlive)),
                                thin=thin)
+    outs = list(outs)
+    if path == "none":
+        outs[2] = torch.zeros_like(outs[2])
+    elif path == "one_slot":
+        outs[0] = torch.full_like(outs[0], nlive // 3)
+        outs[2] = torch.ones_like(outs[2])
     thr = sorted_logl[q - 1] if mode == "batch" else live_logl.min()
     birth = thr if path != "replay" else torch.tensor(
         -3.5, dtype=torch.float64, device="cuda")
@@ -2917,6 +2954,9 @@ def assemble_case(nlive, q, mode, path):
     rec["ms"] = _time_ms(call(cs.round_assemble), 50)
     rec["device_ms"] = _device_ms(call(cs.round_assemble), 20,
                                   only="assemble")
+    for part in ("records", "refill"):
+        rec[f"{part}_device_ms"] = _device_ms(call(cs.round_assemble), 20,
+                                              only=f"assemble_{part}")
     rec["plain_ms"] = _time_ms(call(cs.round_assemble_plain_into), 5)
     cs.round_assemble.launches = n0
     rec["bytes"] = assemble_bytes(outs, res["kernel"]["last"], nlive, q,
@@ -2926,22 +2966,128 @@ def assemble_case(nlive, q, mode, path):
     return rec
 
 
+def assemble_sequence():
+    """The rounds of ``ASSEMBLE_SEQUENCE`` at (2048, 256) on one set of
+    buffers (round r at rows r * q, the kernels' mark carried from round
+    to round), launched eagerly and then replayed from one graph captured
+    on fixed inputs, against the plain version on its own buffers: every
+    output of every round bit for bit.  Returns (identical, total)."""
+    nlive, q = 2048, 256
+    rounds = [assemble_inputs(nlive, q, "batch", path)
+              for path in ASSEMBLE_SEQUENCE]
+    live = rounds[0][1]
+    n = len(rounds)
+
+    def fresh():
+        out = cs.assemble_buffers(n, q, nlive, C_NDIM, C_NPDIM,
+                                  torch.float64, "cuda")
+        for t in out.values():
+            t.zero_()
+        return out, live.clone(), torch.zeros((), dtype=torch.int64,
+                                              device="cuda")
+
+    def snap(out, lv):
+        return dict({k: t.clone() for k, t in out.items()
+                     if k != "entry_it"}, live=lv.clone())
+
+    def run(fn):
+        out, lv, ridx = fresh()
+        snaps = []
+        for outs, _, prop, qnc, it0, birth, thr in rounds:
+            fn(outs, lv, prop, qnc, prop[:, C_IL + 2:], it0, birth, thr,
+               out, ridx, ndim=C_NDIM)
+            torch.cuda.synchronize()
+            snaps.append(snap(out, lv))
+            ridx.add_(1)
+        return snaps
+
+    ref = run(cs.round_assemble_plain_into)
+    eager = run(cs.round_assemble)
+    # one graph of the call on fixed inputs, each round copied in
+    fixed = [[t.clone() for t in rounds[0][0]]] + \
+        [t.clone() for t in rounds[0][1:]]
+    out, lv, ridx = fresh()
+    outs, _, prop, qnc, it0, birth, thr = fixed
+    g = torch.cuda.CUDAGraph()
+    n0 = cs.round_assemble.launches
+    with torch.cuda.graph(g):
+        cs.round_assemble(outs, lv, prop, qnc, prop[:, C_IL + 2:], it0,
+                          birth, thr, out, ridx, ndim=C_NDIM)
+    cs.round_assemble.launches = n0
+    replayed = []
+    for r in range(n):
+        for d, t in zip(fixed[0], rounds[r][0]):
+            d.copy_(t)
+        for d, t in zip(fixed[1:], rounds[r][1:]):
+            d.copy_(t)
+        g.replay()
+        torch.cuda.synchronize()
+        replayed.append(snap(out, lv))
+        ridx.add_(1)
+    same = [torch.equal(a[k], b[k]) for got in (eager, replayed)
+            for a, b in zip(got, ref) for k in b]
+    return sum(same), len(same)
+
+
+def parent_times(root, card):
+    """``bench_assemble.py`` on the checkout at ``root`` and on this one,
+    in turns (parent, change, change, parent), a process each; prints
+    each case's times, all four runs side by side, and returns the first
+    run's records of each by ``parent`` / ``change``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bench.json")
+            subprocess.run([sys.executable,
+                            os.path.join(here, "bench_assemble.py"),
+                            "--root", root if name == "parent" else here,
+                            "--out", path], check=True, timeout=600,
+                           stdout=subprocess.DEVNULL)
+            with open(path) as f:
+                runs[name].append(json.load(f)["cases"])
+    for cases in zip(*runs["parent"], *runs["change"]):
+        p1, p2, c1, c2 = cases
+        what = (f"round_assemble ({p1['nlive']}, {p1['q']}) {p1['path']}"
+                if p1["kernel"] == "round_assemble" else
+                f"unif_place {p1['kind']} ({p1['q']}, {p1['ndim']}) "
+                f"{p1['dtype']}")
+        keys = ("both_device_us", "records_device_us", "refill_device_us") \
+            if p1["kernel"] == "round_assemble" else ("device_us",)
+        cols = "  ".join(
+            f"{k[:-3]} {c1[k]:.3f}, {c2[k]:.3f} / {p1[k]:.3f}, {p2[k]:.3f}"
+            for k in keys)
+        print(f"{what} us, change / parent (runs in turns): {cols}  events "
+              f"{c1['events_us']:.2f}, {c2['events_us']:.2f} / "
+              f"{p1['events_us']:.2f}, {p2['events_us']:.2f}  [{card}]")
+    return {k: v[0] for k, v in runs.items()}
+
+
 def round_assemble_phase(card):
     """The assembly's kernels against their plain version at the consume
-    scan's four main shapes and on a replay round; one line each."""
+    scan's main shapes, on a replay round and the edge cases, then three
+    rounds on one set of buffers eagerly and replayed; one line each."""
     cases = []
     for nlive, q, mode, path in ASSEMBLE_CASES:
         rec = assemble_case(nlive, q, mode, path)
         cases.append(rec)
         print(f"round_assemble ({nlive}, {q}) {mode} {path}: bit-identical "
-              f"{all(rec['same'].values())} ({len(rec['same'])} outputs, "
-              f"{rec['accepted']} accepted, {rec['from_originals']} dead "
+              f"{sum(rec['same'].values())}/{len(rec['same'])} outputs "
+              f"({rec['accepted']} accepted, {rec['from_originals']} dead "
               f"originals, {rec['refilled']} slots refilled)  max_abs_err "
               f"{rec['max_abs_err']:.3e}  per call: kernels (two launches) "
               f"{rec['ms']:.4f} ms events, {rec['device_ms']:.5f} ms device "
-              f"only; plain {rec['plain_ms']:.4f} ms  bound "
-              f"{rec['bound_ms']:.6f} ms ({rec['bytes']} bytes, "
+              f"only (records {rec['records_device_ms']:.5f}, refill "
+              f"{rec['refill_device_ms']:.5f}); plain {rec['plain_ms']:.4f} "
+              f"ms  bound {rec['bound_ms']:.6f} ms ({rec['bytes']} bytes, "
               f"{100 * rec['bound_share']:.1f} % of device)  [{card}]")
+    same, total = assemble_sequence()
+    print(f"round_assemble (2048, 256) rounds {', '.join(ASSEMBLE_SEQUENCE)} "
+          f"on one set of buffers, eager and replayed from one graph: "
+          f"bit-identical {same}/{total} outputs  [{card}]")
+    if same != total:
+        raise RuntimeError(f"round_assemble's rounds on one set of buffers "
+                           f"differ from the plain version: {same}/{total}")
     return cases
 
 
@@ -4536,6 +4682,11 @@ def main():
     ap.add_argument("--moving", default="sync_round",
                     help="with --compare: comma-separated counts that may "
                     "differ (listed with both values)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time the assembly and the placement of the "
+                         "checkout at DIR and of this one in turns "
+                         "(bench_assemble.py in a process each), printed "
+                         "in phase 34 beside this run's times")
     ap.add_argument("--profile", nargs="?", const="balls",
                     choices=["balls", "heavy"],
                     help="profile one drive (device time by kernel): the "
@@ -4997,6 +5148,15 @@ def main():
               f"{rec['device_us']:.3f} us  events (through the wrapper) "
               f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
               f"floor {floor['device_us']:.3f} us  [{card}]")
+    main_asm = assemble_cases[0]
+    print(f"round_assemble (2048, 256) thin float64 device only: both "
+          f"launches {1e3 * main_asm['device_ms']:.3f} us (records "
+          f"{1e3 * main_asm['records_device_ms']:.3f}, refill "
+          f"{1e3 * main_asm['refill_device_ms']:.3f})  events "
+          f"{1e3 * main_asm['ms']:.2f} us  bound "
+          f"{1e3 * main_asm['bound_ms']:.5f} us  launch floor "
+          f"{floor['device_us']:.3f} us  [{card}]")
+    parent = parent_times(args.parent, card) if args.parent else None
     cu = captured_unif["timing"]
     cu["replay_device_us"] = 1e3 * _device_ms(unif_timed.graph.replay)
     heavy["wave_replay_device_ms"] = _device_ms(heavy_wave.graph.replay, 5)
@@ -5131,6 +5291,15 @@ def main():
                 "launch_floor_ms": floor["device_us"] / 1e3,
                 "captured_segments": captured_doubling["timing"]}
 
+    def parent_of(kernel, **key):
+        """The parent's and this checkout's bench records of a case (with
+        ``--parent``), else None."""
+        if parent is None:
+            return None
+        return {k: next(c for c in parent[k] if c["kernel"] == kernel and
+                        all(c[f] == v for f, v in key.items()))
+                for k in ("parent", "change")}
+
     def unif_entry(name):
         """A wave kernel's line: the cube's wave at (256, 3) in float64,
         the largest difference over every case."""
@@ -5155,7 +5324,10 @@ def main():
                 "launch_floor_ms": floor["device_us"] / 1e3,
                 "captured_wave": captured_unif["timing"],
                 "heavy_wave_replay_device_ms":
-                    heavy["wave_replay_device_ms"]}
+                    heavy["wave_replay_device_ms"],
+                **({"parent_bench": parent_of(
+                    "unif_place", kind="cube", q=STEP_Q, dtype="float64")}
+                   if name == "unif_place" else {})}
 
     def step_entry(name):
         """A proposal-step kernel's line: its main drive's shape in
@@ -5205,7 +5377,6 @@ def main():
     if many:
         raise RuntimeError(f"drives that read the round gate more than once "
                            f"a dispatch: {many}")
-    main_asm = assemble_cases[0]
     assemble_entry = {
         "name": "round_assemble", "route": "cuda", "source": ASSEMBLE_SOURCE,
         "replaces": "dynesty_tpu/internal/fused.py:146",
@@ -5219,11 +5390,18 @@ def main():
         "library_ms": None,
         "library_note": "no one PyTorch call computes this step",
         "device_ms": main_asm["device_ms"],
+        "records_device_ms": main_asm["records_device_ms"],
+        "refill_device_ms": main_asm["refill_device_ms"],
+        "launch_floor_ms": floor["device_us"] / 1e3,
         "bound_share": main_asm["bound_share"], "shape": [2048, 256],
         "path": "thin",
+        "parent_bench": parent_of("round_assemble", nlive=2048, q=256,
+                                  path="thin"),
         "cases": [{k: c[k] for k in ("nlive", "q", "mode", "path", "ms",
-                                     "device_ms", "plain_ms", "bound_ms",
-                                     "bound_share", "max_abs_err")}
+                                     "device_ms", "records_device_ms",
+                                     "refill_device_ms", "plain_ms",
+                                     "bound_ms", "bound_share",
+                                     "max_abs_err")}
                   for c in assemble_cases],
         "captured_round": captured_round}
 

@@ -22,26 +22,39 @@
 //     accepted by the overlap test: nin = the valid slots whose quadratic
 //     form is < 1 (or, where none is, <= 1 + 1e-3), nin > 0 and
 //     u_accept < 1 / nin; over balls and cubes the eager acceptance flag.
-//   unif_place, one block: success = valid & logl > loglstar (logl masked
-//     to -inf off the valid lanes), each success's rank by a block scan
-//     in chunks of the block, its slot n_filled + rank (or the dump row q
-//     past the last free slot), the rows u, v, logl written there and the
-//     slot's share of the evaluations since the last successful wave
-//     (share + (rank < rem)); then the round's state (filled, waves,
-//     evaluations, launched lanes, pending evaluations), the next wave's
-//     width and the done flag.
+//   unif_place, one block: a warp a word of 32 lanes (up to 16 warps,
+//     each taking every 16th word past that) and one warp for the state.
+//     success = valid & logl > loglstar (logl masked to -inf off the
+//     valid lanes).  Each lane's flag, logl and the head of its u and v
+//     rows are loaded at once with the state; each warp ballots its words'
+//     successes and valid lanes, and the ballots' counts, exchanged once
+//     through shared memory (the kernel's one barrier up to 32 words, two
+//     past that), give every success's rank (the successes before its
+//     word plus __popc of its word's ballot below its lane) and the wave's
+//     totals.  Each success's slot is n_filled + rank (or the dump row q
+//     past the last free slot), where its rows u, v, logl and its share of
+//     the evaluations since the last successful wave (share + (rank <
+//     rem)) are written; meanwhile the state warp writes the round's
+//     state (filled, waves, evaluations, launched lanes, pending
+//     evaluations), the next wave's width and the done flag.
 //
-// What bounds it on this card: nothing the card measures.  A wave moves a
-// few rows of ndim values a lane (~30 kB at q 256, ndim 3 in float64: ~9
-// ns at 3.35 TB/s); a launch costs about a microsecond.  The design
-// answer is to take the host out of the wave: the width, the counts and
-// the compaction stay on the device, so that where the likelihood runs on
+// What bounds them on this card: launch latency.  A wave moves a few rows
+// of ndim values a lane (~30 kB at q 256, ndim 3 in float64: ~9 ns at
+// 3.35 TB/s); an empty launch costs ~0.8 us.  The design answer is to
+// take the host out of the wave: the width, the counts and the
+// compaction stay on the device, so that where the likelihood runs on
 // the card the whole wave -- the draws, the union's products, these two
 // kernels, the likelihood, the blob's indexed copy and the done flag's
 // copy to pinned host memory -- is one CUDA graph replay and one flag read
 // (internal/kernels.py, UnifGraph).  The kernels take only device
 // pointers, so a replay reads the round's state, threshold and bound from
-// the same buffers as an eager launch.
+// the same buffers as an eager launch.  Inside unif_place the time is
+// the launch (~0.8 us) and one chain: a trip to memory, the ballots, the
+// barrier, the scan, the stores.  Its first design (two block sums, then
+// a chunked rank scan that read the lanes again, at least seven barriers,
+// rows copied value by value with each load waited out before the next,
+// the state read again and written after the rows by one thread) took
+// ~3.2 us at q 256 on this card; this one ~2.2 us.
 //
 // Rounding: the comparisons are IEEE (NaN false), the counts integers, the
 // acceptance's 1 / nin one correctly rounded division (torch's reciprocal),
@@ -71,8 +84,9 @@ template <> struct Op<float> {
 
 // threads a block of unif_valid
 const int BLOCK = 128;
-// threads of unif_place's one block
-const int PLACE = 256;
+// the most threads of unif_place's one block: 16 warps of words and the
+// state's
+const int PLACE = 17 * 32;
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) unif_valid_kernel(
@@ -111,17 +125,21 @@ __global__ void __launch_bounds__(BLOCK) unif_valid_kernel(
   valid[k] = ok;
 }
 
-// the sum over the block (every thread gets it); `buf` holds a value a
-// warp
-__device__ __forceinline__ i64 block_sum(i64 x, i64* buf) {
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  __syncthreads();
-  if (lane == 0) buf[w] = x;
-  __syncthreads();
-  i64 s = 0;
-  for (int i = 0; i < PLACE / 32; ++i) s += buf[i];
-  return s;
+// n values from src to dst, each chunk's loads issued before its stores
+// (a loop of load-store pairs would wait out every load in turn)
+template <typename T>
+__device__ __forceinline__ void copy_values(T* __restrict__ dst,
+                                            const T* __restrict__ src,
+                                            int n) {
+  for (int i = 0; i < n; i += 8) {
+    T x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (i + j < n) x[j] = src[i + j];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (i + j < n) dst[i + j] = x[j];
+  }
 }
 
 // The host's numpy float32 width (internal/kernels.py before this kernel;
@@ -140,6 +158,27 @@ __device__ __forceinline__ i64 next_width(int q, i64 n_filled, i64 n_prop) {
   return (i64)(qf < est ? qf : est);
 }
 
+// values of a lane's u and v rows that unif_place loads with its flags,
+// before it knows the lane's slot
+const int ROW_REGS = 4;
+
+// avail / div and its remainder (avail >= 0, div >= 1), in 32 bits where
+// they fit: the same quotient, without the 64-bit division's subroutine
+__device__ __forceinline__ void share_of(i64 avail, i64 div, i64& share,
+                                         i64& rem) {
+  if (avail <= 0x7fffffff) {
+    const unsigned s32 = (unsigned)avail / (unsigned)div;
+    share = s32;
+    rem = avail - (i64)s32 * div;
+  } else {
+    share = avail / div;
+    rem = avail - share * div;
+  }
+}
+
+// The warps 0 .. nwarps - 1 take the words of 32 lanes (warp w the words
+// w, w + nwarps, ...); the last warp, with no word, writes the round's
+// state while they place their successes.
 template <typename T>
 __global__ void __launch_bounds__(PLACE) unif_place_kernel(
     const bool* __restrict__ valid, const T* __restrict__ u_prop,
@@ -149,78 +188,144 @@ __global__ void __launch_bounds__(PLACE) unif_place_kernel(
     bool* __restrict__ done, T* __restrict__ su, T* __restrict__ sv,
     T* __restrict__ sl, i64* __restrict__ snc, i64* __restrict__ dest,
     int q, int ndim, int npdim) {
-  __shared__ i64 buf[PLACE / 32];
-  __shared__ int warp_incl[PLACE / 32];
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  // the successes' ballot per word of 32 lanes, each warp's count of
+  // valid lanes, and (past 32 words) each word's count of the successes
+  // before it and their total
+  extern __shared__ unsigned smem[];
+  const unsigned FULL = 0xffffffffu;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = (blockDim.x >> 5) - 1, nw = (q + 31) >> 5;
+  const bool state_warp = warp == nwarps;
+  unsigned* sbal = smem;
+  int* wvalid = (int*)(smem + nw);
+  int* before = wvalid + 32;
+  const unsigned lt = (1u << lane) - 1u;
+
+  // Every load of the kernel but a long row's tail, issued at once: the
+  // threshold, the state (the state warp all of it), and for the lane of
+  // the thread's first word its flag, logl and the head of its u and v
+  // rows.
   const T lstar = *loglstar;
   const i64 n_filled = state[S_FILLED], pending = state[S_PENDING];
-
-  // the wave's successes and evaluations (a masked lane's -inf never
-  // beats the threshold)
-  i64 n_succ = 0, n_valid = 0;
-  for (int k = t; k < q; k += PLACE) {
-    const bool ok = valid[k];
-    n_valid += ok;
-    n_succ += ok && logl_prop[k] > lstar;
+  i64 waves = 0, nc = 0, n_prop = 0, width = 0, max_waves = 0;
+  if (state_warp) {
+    waves = state[S_WAVES];
+    nc = state[S_NC];
+    n_prop = state[S_PROP];
+    width = state[S_WIDTH];
+    max_waves = state[S_MAX_WAVES];
   }
-  n_succ = block_sum(n_succ, buf);
-  n_valid = block_sum(n_valid, buf);
+  const int k0 = (warp << 5) + lane;
+  const bool in0 = !state_warp && k0 < q;
+  const bool ok0 = in0 && valid[k0];
+  const T l0 = in0 ? logl_prop[k0] : (T)0;
+  T ur[ROW_REGS], vr[ROW_REGS];
+#pragma unroll
+  for (int i = 0; i < ROW_REGS; ++i) {
+    if (in0 && i < ndim) ur[i] = u_prop[(i64)k0 * ndim + i];
+    if (in0 && i < npdim) vr[i] = v_prop[(i64)k0 * npdim + i];
+  }
+
+  // the wave's successes (a masked lane's -inf never beats the
+  // threshold) and evaluations
+  if (!state_warp) {
+    int n_valid_w = 0;
+    for (int j = warp; j < nw; j += nwarps) {
+      const int k = (j << 5) + lane;
+      const bool first = j == warp;
+      const bool ok = first ? ok0 : k < q && valid[k];
+      const bool s = ok && (first ? l0 : logl_prop[k]) > lstar;
+      const unsigned sb = __ballot_sync(FULL, s);
+      n_valid_w += __popc(__ballot_sync(FULL, ok));
+      if (lane == 0) sbal[j] = sb;
+    }
+    if (lane == 0) wvalid[warp] = n_valid_w;
+  }
+  __syncthreads();
+
+  int x = lane < nwarps ? wvalid[lane] : 0;
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  const i64 n_valid = x;
+  // the words' counts scanned: by every warp at once up to 32 words (its
+  // lanes hold the exclusive prefixes), else by the state warp into
+  // shared memory
+  int excl = 0;
+  i64 n_succ;
+  if (nw <= 32) {
+    const int c = lane < nw ? __popc(sbal[lane]) : 0;
+    int y = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int z = __shfl_up_sync(FULL, y, o);
+      if (lane >= o) y += z;
+    }
+    excl = y - c;
+    n_succ = __shfl_sync(FULL, y, 31);
+  } else {
+    if (state_warp) {
+      int carry = 0;
+      for (int j0 = 0; j0 < nw; j0 += 32) {
+        const int j = j0 + lane;
+        const int c = j < nw ? __popc(sbal[j]) : 0;
+        int y = c;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int z = __shfl_up_sync(FULL, y, o);
+          if (lane >= o) y += z;
+        }
+        if (j < nw) before[j] = carry + y - c;
+        carry += __shfl_sync(FULL, y, 31);
+      }
+      if (lane == 0) before[nw] = carry;
+    }
+    __syncthreads();
+    n_succ = before[nw];
+  }
   const i64 free_slots = (i64)q - n_filled;
   const i64 n_new = n_succ < free_slots ? n_succ : free_slots;
   const i64 avail = pending + n_valid;
-  const i64 div = n_new > 1 ? n_new : 1;
-  const i64 share = avail / div, rem = avail - share * div;
 
-  // each success's rank: an inclusive scan over the lanes, a chunk of
-  // the block at a time, the chunks' totals carried
-  i64 carry = 0;
-  for (int base = 0; base < q; base += PLACE) {
-    const int k = base + t;
-    const bool in = k < q && valid[k];
-    const bool succ = in && logl_prop[k] > lstar;
-    int x = succ;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
+  if (state_warp) {
+    // every thread read the state before the first barrier
+    if (lane == 0) {
+      const i64 filled = n_filled + n_new;
+      const i64 prop = n_prop + width;
+      state[S_FILLED] = filled;
+      state[S_WAVES] = waves + 1;
+      state[S_NC] = nc + n_valid;
+      state[S_PROP] = prop;
+      state[S_PENDING] = n_new > 0 ? 0 : avail;
+      state[S_WIDTH] = next_width(q, filled, prop);
+      *done = filled >= q || waves + 1 >= max_waves;
     }
-    __syncthreads();
-    if (lane == 31) warp_incl[w] = x;
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int i = 0; i < PLACE / 32; ++i) {
-      before += i < w ? warp_incl[i] : 0;
-      total += warp_incl[i];
-    }
-    if (k < q) {
-      const i64 rank = carry + before + x - 1;
-      const i64 d = n_filled + rank;
-      if (succ && d < q) {
-        for (int j = 0; j < ndim; ++j)
-          su[d * ndim + j] = u_prop[(i64)k * ndim + j];
-        for (int j = 0; j < npdim; ++j)
-          sv[d * npdim + j] = v_prop[(i64)k * npdim + j];
-        sl[d] = logl_prop[k];
-        snc[d] = share + (rank < rem);
-        dest[k] = d;
-      } else {
-        dest[k] = q;  // the dump row, as the JAX package's mode="drop"
-      }
-    }
-    carry += total;
+    return;
   }
 
-  __syncthreads();
-  if (t == 0) {
-    const i64 filled = n_filled + n_new;
-    const i64 waves = state[S_WAVES] + 1;
-    const i64 n_prop = state[S_PROP] + state[S_WIDTH];
-    state[S_FILLED] = filled;
-    state[S_WAVES] = waves;
-    state[S_NC] += n_valid;
-    state[S_PROP] = n_prop;
-    state[S_PENDING] = n_new > 0 ? 0 : avail;
-    state[S_WIDTH] = next_width(q, filled, n_prop);
-    *done = filled >= q || waves >= state[S_MAX_WAVES];
+  // each success's rank, its slot n_filled + rank and the slot's rows
+  i64 share, rem;
+  share_of(avail, n_new > 1 ? n_new : 1, share, rem);
+  for (int j = warp; j < nw; j += nwarps) {
+    const int pre = nw <= 32 ? __shfl_sync(FULL, excl, j) : before[j];
+    const unsigned sb = sbal[j];
+    const int k = (j << 5) + lane;
+    if (k >= q) continue;
+    const i64 rank = pre + __popc(sb & lt);
+    const i64 d = n_filled + rank;
+    if ((sb >> lane & 1u) && d < q) {
+      const int hu = j == warp ? min(ndim, ROW_REGS) : 0;
+      const int hv = j == warp ? min(npdim, ROW_REGS) : 0;
+#pragma unroll
+      for (int i = 0; i < ROW_REGS; ++i) {
+        if (i < hu) su[d * ndim + i] = ur[i];
+        if (i < hv) sv[d * npdim + i] = vr[i];
+      }
+      copy_values(su + d * ndim + hu, u_prop + (i64)k * ndim + hu, ndim - hu);
+      copy_values(sv + d * npdim + hv, v_prop + (i64)k * npdim + hv,
+                  npdim - hv);
+      sl[d] = j == warp ? l0 : logl_prop[k];
+      snc[d] = share + (rank < rem);
+      dest[k] = d;
+    } else {
+      dest[k] = q;  // the dump row, as the JAX package's mode="drop"
+    }
   }
 }
 
@@ -242,7 +347,17 @@ int launch_place(void* const* p, int q, int ndim, int npdim, void* stream) {
   if (q < 1 || ndim < 1 || npdim < 0 || !p[1] || !p[3] ||
       (npdim > 0 && !p[2]))
     return (int)cudaErrorInvalidValue;
-  unif_place_kernel<T><<<1, PLACE, 0, (cudaStream_t)stream>>>(
+  // a warp a word of 32 lanes, up to the block's most, and the state's
+  const int nw = (q + 31) / 32;
+  const int threads = 32 * ((nw < PLACE / 32 - 1 ? nw : PLACE / 32 - 1) + 1);
+  const size_t smem = (size_t)nw * 8 + 33 * 4;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        unif_place_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  unif_place_kernel<T><<<1, threads, smem, (cudaStream_t)stream>>>(
       (const bool*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (i64*)p[5], (bool*)p[6], (T*)p[7], (T*)p[8],
       (T*)p[9], (i64*)p[10], (i64*)p[11], q, ndim, npdim);

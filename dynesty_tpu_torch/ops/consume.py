@@ -620,8 +620,10 @@ def assemble_buffers(rounds, q, nlive, ndim, npdim, dtype, device):
     + 11), ``props`` (rounds * q, ndim + npdim + 4), ``accepts``,
     ``dlogz`` (rounds * q,), ``lane`` (rounds * q, 2) and ``thresholds``
     (rounds,) of ``dtype``; ``last`` (nlive,) and the scratch ``entry_it``
-    (q,), int64.  Unfilled: the caller zeroes the outputs once a
-    dispatch."""
+    (q,), int64; and the kernels' scratch ``mark`` (nlive,) int32, made
+    zeroed, which they leave zeroed (the plain version never touches it).
+    The outputs are unfilled: the caller zeroes them once a dispatch (the
+    mark with them, which keeps it)."""
     def e(shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=device)
 
@@ -630,7 +632,8 @@ def assemble_buffers(rounds, q, nlive, ndim, npdim, dtype, device):
             "props": e((n, ndim + npdim + 4)), "accepts": e((n,)),
             "dlogz": e((n,)), "lane": e((n, 2)), "thresholds": e((rounds,)),
             "last": e((nlive,), torch.int64),
-            "entry_it": e((q,), torch.int64)}
+            "entry_it": e((q,), torch.int64),
+            "mark": torch.zeros((nlive,), dtype=torch.int32, device=device)}
 
 
 def _check_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
@@ -673,6 +676,7 @@ def _check_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
         _check(k, out[k], shape, dtype, dev)
     _check("last", out["last"], (nlive,), torch.int64, dev)
     _check("entry_it", out["entry_it"], (q,), torch.int64, dev)
+    _check("mark", out.get("mark"), (nlive,), torch.int32, dev)
 
 
 def round_assemble_plain_into(outs, live, qrows, qnc, lane_stats, it0,
@@ -709,12 +713,14 @@ def round_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
     int64 tensor on the live matrix's device, read there; None: round 0)
     take the round's records, proposals, accepts (as 0 or 1), delta_logz
     and lane stats, ``thresholds[ridx]`` its loglstar and ``last`` each
-    slot's refill (-1: kept).
+    slot's refill (-1: kept); ``mark`` is the kernels' scratch, zero
+    before and after the call.
 
     On a CPU tensor this runs :func:`round_assemble_plain`
-    (:func:`round_assemble_plain_into`); on a CUDA tensor it launches the
-    two kernels of ``csrc/round_assemble.cu`` or raises.  ``launches``
-    counts the CUDA calls."""
+    (:func:`round_assemble_plain_into`, which leaves ``mark`` as it is);
+    on a CUDA tensor it launches the two kernels of
+    ``csrc/round_assemble.cu`` or raises.  ``launches`` counts the CUDA
+    calls."""
     _check_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
                     threshold, out, ridx, ndim)
     q, il = outs[0].shape[0], live.shape[1] - 4
@@ -725,12 +731,12 @@ def round_assemble(outs, live, qrows, qnc, lane_stats, it0, birth_new,
         return
     if live.device.type != "cuda":
         raise ValueError(f"no kernel for device {live.device}")
-    ptrs = (ctypes.c_void_p * 28)(*[None if t is None else t.data_ptr()
+    ptrs = (ctypes.c_void_p * 29)(*[None if t is None else t.data_ptr()
                                     for t in (
         *outs[:3], *outs[3:9], outs[9], outs[10], outs[11], live, qrows,
         qnc, lane_stats, it0, birth_new, threshold, ridx, out["recs"],
         out["props"], out["accepts"], out["dlogz"], out["lane"],
-        out["thresholds"], out["entry_it"], out["last"])])
+        out["thresholds"], out["entry_it"], out["last"], out["mark"])])
     f = _assemble_entry(_DTYPES[live.dtype])
     with _on_device(live.device) as stream:
         err = f(ptrs, q, live.shape[0], ndim, il - ndim, qrows.stride(0),

@@ -5,14 +5,20 @@ plain version).
 
 On the CPU: the record and live assembly against the JAX package's
 ``one_round`` on the same live matrix and fixed proposal block (batch
-thin, batch general, queue and replay rounds, with and without blobs);
+thin, batch general, queue and replay rounds, and a queue round whose
+every entry is accepted into one slot, with and without blobs); the
+kernels' scratch mark from ``assemble_buffers``, the wrapper's checks on
+it and the plain version leaving it alone;
 a round that the device gate turns off; and whole dispatches of the
 rslice (stepping-out and doubling), unif and rwalk samplers with the
 gate on the device against the same dispatches with the gate read on
 the host before every round (the round as it ran before).  On a card
 (``cuda``-marked, skipped here): the kernels against
-``round_assemble_plain`` bit for bit, and a captured round against the
-eager round, the generator's offset included.
+``round_assemble_plain`` bit for bit, also over three rounds on one set
+of buffers (one with no accept, one with every accept into one slot,
+at (2048, 256), (16384, 256) and q = 1) eagerly and replayed from a
+captured graph, and a captured round against the eager round, the
+generator's offset included.
 
 Tolerances: copied and integer columns bit for bit; the integrator
 columns (logvol, logwt, logz, logzvar, h, delta_logz) against the JAX
@@ -80,7 +86,12 @@ def _state(seed=5, nlive=NLIVE, q=Q, below=False):
         rs.normal(size=(nlive, 1)) - 5.0], axis=1)
     srt = np.sort(logl)
     qlogl = srt[q - 1] + np.abs(rs.normal(size=q)) * 3.0 + 1e-3
-    if below:
+    if below == "chain":
+        # each proposal just above the one before, all below the second
+        # lowest live point: in queue mode every entry kills the slot that
+        # the entry before it refilled
+        qlogl = srt[0] + (srt[1] - srt[0]) * np.arange(1, q + 1) / (q + 1)
+    elif below:
         qlogl[q // 3] = srt[q - 1] - 1.0
     qu = rs.random((q, NDIM))
     prop = np.concatenate([qu, 10.0 * qu, qlogl[:, None],
@@ -106,6 +117,9 @@ CASES = {
     "queue": ("fixed", "queue", False, False, {}),
     "replay": ("replay", "batch", False, False,
                {"kills0": 3, "birth0": -2.5}),
+    # every accepted entry into one slot, each record from the proposal
+    # the entry before it placed there
+    "queue_chain": ("fixed", "queue", False, "chain", {}),
 }
 
 
@@ -240,6 +254,10 @@ def test_plain_assembly_is_the_records_of_the_round(case, monkeypatch):
     for s in range(NLIVE):
         hit = np.nonzero(acc & (outs[0].numpy() == s))[0]
         assert last[s] == (hit[-1] if len(hit) else -1)
+    if below == "chain":
+        # several accepts into one slot, records taken from the proposals
+        assert np.bincount(outs[0].numpy()[acc]).max() > 1
+        assert (outs[1] >= 0).sum() > 1
 
 
 def test_assembly_refuses_what_no_kernel_takes():
@@ -266,6 +284,58 @@ def test_assembly_refuses_what_no_kernel_takes():
     bad = dict(out, recs=out["recs"][:, :-1])
     with pytest.raises(ValueError, match="recs"):
         cs.round_assemble(outs, *args[:-1], bad, ndim=NDIM)
+
+
+def test_assembly_buffers_hold_the_kernels_zeroed_mark():
+    """``assemble_buffers`` makes the kernels' scratch mark, an int32 a
+    live slot, zeroed; zeroing every output once a dispatch keeps it."""
+    out = cs.assemble_buffers(2, Q, NLIVE, NDIM, NPDIM, torch.float64,
+                              "cpu")
+    mark = out["mark"]
+    assert mark.dtype == torch.int32 and tuple(mark.shape) == (NLIVE,)
+    assert mark.is_contiguous() and not mark.any()
+
+
+@pytest.mark.parametrize("bad,err", [("missing", TypeError),
+                                     ("short", ValueError),
+                                     ("int64", TypeError),
+                                     ("strided", ValueError)])
+def test_assembly_refuses_a_mark_the_kernels_cannot_use(bad, err):
+    outs, live, qrows = _card_state("cpu", NLIVE, Q, torch.float64)
+    out = cs.assemble_buffers(1, Q, NLIVE, NDIM, NPDIM, torch.float64,
+                              "cpu")
+    if bad == "missing":
+        del out["mark"]
+    else:
+        out["mark"] = {
+            "short": torch.zeros(NLIVE - 1, dtype=torch.int32),
+            "int64": torch.zeros(NLIVE, dtype=torch.int64),
+            "strided": torch.zeros(2 * NLIVE, dtype=torch.int32)[::2]}[bad]
+    with pytest.raises(err, match="mark"):
+        cs.round_assemble(outs, live, qrows,
+                          qrows[:, IL + 1].to(torch.int64), qrows[:, IL + 2:],
+                          torch.tensor(0), torch.tensor(0.0,
+                                                        dtype=torch.float64),
+                          torch.tensor(0.0, dtype=torch.float64), out,
+                          ndim=NDIM)
+
+
+def test_the_plain_assembly_leaves_the_mark_as_it_found_it():
+    """On the CPU ``round_assemble`` runs the plain version, which never
+    reads or writes the kernels' mark, whatever it holds."""
+    outs, live, qrows = _card_state("cpu", NLIVE, Q, torch.float64)
+    out = cs.assemble_buffers(1, Q, NLIVE, NDIM, NPDIM, torch.float64,
+                              "cpu")
+    pattern = torch.arange(NLIVE, dtype=torch.int32) * 7 - 100
+    out["mark"].copy_(pattern)
+    lv = live.clone()
+    cs.round_assemble(outs, lv, qrows, qrows[:, IL + 1].to(torch.int64),
+                      qrows[:, IL + 2:], torch.tensor(5),
+                      torch.tensor(-1.0, dtype=torch.float64),
+                      torch.tensor(0.5, dtype=torch.float64), out,
+                      ndim=NDIM)
+    assert torch.equal(out["mark"], pattern)
+    assert (out["last"] >= 0).any() and not torch.equal(lv, live)
 
 
 def test_source_names_the_jax_code_it_replaces():
@@ -500,7 +570,10 @@ def test_a_custom_round_reads_its_gate_before_drawing_on_the_host(gated):
 # on the card
 
 
-def _card_state(cuda, nlive, q, dtype, seed=11):
+def _card_state(cuda, nlive, q, dtype, seed=11, mode="random"):
+    """A round's consume columns, live matrix and proposal rows on
+    ``cuda`` (any device): with ``mode`` 'none' no entry accepted, with
+    'one_slot' every entry accepted into one slot."""
     rs = get_rstate(seed)
     live = torch.as_tensor(np.concatenate([
         rs.random((nlive, IL)), rs.normal(size=(nlive, 1)),
@@ -515,6 +588,11 @@ def _card_state(cuda, nlive, q, dtype, seed=11):
                                     rs.integers(0, q, q)), device=cuda)
     srcs = torch.minimum(srcs, torch.arange(q, device=cuda) - 1)
     accepts = torch.as_tensor(rs.random(q) < 0.8, device=cuda)
+    if mode == "none":
+        accepts.zero_()
+    elif mode == "one_slot":
+        worsts.fill_(nlive // 3)
+        accepts.fill_(True)
     cols = [torch.as_tensor(rs.normal(size=q), dtype=dtype, device=cuda)
             for _ in range(6)]
     outs = [worsts, srcs, accepts, *cols,
@@ -554,6 +632,95 @@ def test_kernels_match_plain_on_the_card(cuda, dtype, nlive, q):
     assert torch.equal(lv_k, lv_p)
     for k in out_k:
         assert torch.equal(out_k[k], out_p[k]), k
+
+
+# three rounds on one set of buffers: the mark left zeroed after each
+ROUND_MODES = ("random", "none", "one_slot")
+
+
+def _assemble_rounds(cuda, nlive, q, dtype):
+    """Each round of ``ROUND_MODES``' arguments after ``outs`` (round index
+    ``r``), made once."""
+    rounds = []
+    for r, mode in enumerate(ROUND_MODES):
+        outs, _, qrows = _card_state(cuda, nlive, q, dtype, seed=20 + r,
+                                     mode=mode)
+        rounds.append((outs, qrows, qrows[:, IL + 1].to(torch.int64),
+                       qrows[:, IL + 2:], torch.tensor(1000 + 7 * r,
+                                                       device=cuda),
+                       torch.tensor(-1.25 - r, dtype=dtype, device=cuda),
+                       torch.tensor(0.5 + r, dtype=dtype, device=cuda)))
+    return rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nlive,q", [(2048, 256), (16384, 256), (100, 1)])
+def test_kernels_match_plain_round_after_round_on_the_card(cuda, dtype,
+                                                           nlive, q):
+    """Three rounds on one set of buffers (one with no accept, one whose
+    every accepted entry kills one slot), eagerly and then replayed from
+    a graph captured once, against the plain assembly on its own
+    buffers, bit for bit after every round; the mark zero after each."""
+    _, live, _ = _card_state(cuda, nlive, q, dtype)
+    rounds = _assemble_rounds(cuda, nlive, q, dtype)
+    n = len(ROUND_MODES)
+    ref = cs.assemble_buffers(n, q, nlive, NDIM, NPDIM, dtype, cuda)
+    for t in ref.values():
+        t.zero_()
+    lv_ref = live.clone()
+    expect = []
+    for r, args in enumerate(rounds):
+        cs.round_assemble_plain_into(args[0], lv_ref, *args[1:], ref,
+                                     torch.tensor(r, device=cuda),
+                                     ndim=NDIM)
+        expect.append((lv_ref.clone(), {k: t.clone() for k, t in
+                                        ref.items() if k != "entry_it"}))
+
+    def check(lv, out, r):
+        lv_e, out_e = expect[r]
+        assert torch.equal(lv, lv_e), r
+        for k, t in out_e.items():
+            assert torch.equal(out[k], t), (r, k)
+
+    out = cs.assemble_buffers(n, q, nlive, NDIM, NPDIM, dtype, cuda)
+    for t in out.values():
+        t.zero_()
+    lv = live.clone()
+    ridx = torch.zeros((), dtype=torch.int64, device=cuda)
+    for r, args in enumerate(rounds):
+        n0 = cs.round_assemble.launches
+        cs.round_assemble(args[0], lv, *args[1:], out, ridx, ndim=NDIM)
+        torch.cuda.synchronize()
+        assert cs.round_assemble.launches - n0 == 1
+        check(lv, out, r)
+        ridx.add_(1)
+
+    # the same rounds from one captured call on fixed buffers
+    outs_s = [t.clone() for t in rounds[0][0]]
+    rest_s = [t.clone() for t in rounds[0][1:]]
+    qrows_s = rest_s[0]
+
+    def call():
+        cs.round_assemble(outs_s, lv, qrows_s, rest_s[1], qrows_s[:, IL + 2:],
+                          *rest_s[3:], out, ridx, ndim=NDIM)
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        call()
+    for t in out.values():
+        t.zero_()
+    lv.copy_(live)
+    ridx.zero_()
+    for r, args in enumerate(rounds):
+        for d, t in zip(outs_s, args[0]):
+            d.copy_(t)
+        for d, t in zip(rest_s, args[1:]):
+            d.copy_(t)
+        g.replay()
+        torch.cuda.synchronize()
+        check(lv, out, r)
+        ridx.add_(1)
 
 
 def _card_dispatch(cuda, capture, seed, gens):

@@ -10,7 +10,8 @@ dimensions and dimensions outside the bound, float64 and float32, 32 and
 more successes than free slots and a fill cut by the cap on waves; the
 plain placement on hand-made states against the eager wave's arithmetic;
 the width formula against the host's numpy float32 (counts past 2**24
-among them); the round-shape cache a sampler keeps; and, against the JAX
+among them); gated, all-fail and overflowing waves through the round
+buffers; the round-shape cache a sampler keeps; and, against the JAX
 package, a round over a user's bound (the same host draws and
 likelihood: integer columns and ``u`` equal, ``v`` and ``logl`` to 1e-12
 relative, as XLA and torch may round the likelihood's sum differently in
@@ -18,7 +19,8 @@ the last ulp; the threshold keeps every candidate 1e-9 away) and the
 union of ellipsoids' acceptance on the JAX package's own draws.
 
 On a card (``cuda``-marked, skipped here): the two kernels against the
-plain versions bit for bit, captured waves against eager ones (columns,
+plain versions bit for bit (the placement also on those edge waves at
+32, 256 and 700 lanes), captured waves against eager ones (columns,
 blob, generator offset, counts), a capture that raises, and a run that
 never reaches a plain version.  The JAX package is imported by a fixture
 only, so that on the card
@@ -394,6 +396,35 @@ def test_the_plain_placement_equals_the_eager_wave_on_hand_made_states():
     assert torch.equal(got, ref) and 0 < int(ref.sum()) < 40
 
 
+@pytest.mark.parametrize("situation", ["gated", "all_fail", "overflow"])
+def test_the_placement_on_edge_waves_through_the_round_buffers(situation):
+    """On the CPU ``unif_valid`` and ``unif_place`` on a ``UnifRound``
+    (their plain versions) in the card tests' edge waves: a gated wave
+    launches no lane and only counts the wave, a wave with no success
+    carries its evaluations, an overflow fills the two free slots and
+    drops the rest into row q."""
+    q = 48
+    rb, inp = _kernel_inputs("cube", q, 4, 3, torch.float64, "cpu")
+    _edge_wave(rb, inp, situation)
+    st0 = rb.state.clone()
+    pr.unif_valid(rb, inp["uc"])
+    pr.unif_place(rb, inp["u_prop"], inp["v"], inp["logl"])
+    n_valid = int(rb.valid.sum())
+    filled, waves, nc, n_prop, pending, width, cap = st0.tolist()
+    new = rb.state.tolist()
+    assert new[pr.U_WAVES] == waves + 1 and new[pr.U_NC] == nc + n_valid
+    assert new[pr.U_PROP] == n_prop + width
+    if situation == "overflow":
+        assert new[pr.U_FILLED] == q and bool(rb.done)
+        assert int((rb.dest < q).sum()) == 2 < n_valid
+        assert new[pr.U_PENDING] == 0
+    else:
+        assert (n_valid == 0) == (situation == "gated")
+        assert new[pr.U_FILLED] == filled and not bool(rb.done)
+        assert new[pr.U_PENDING] == pending + n_valid
+        assert bool((rb.dest == q).all())
+
+
 def _numpy_width(q, n_filled, n_prop):
     """The width as the host computed it before its kernel."""
     f32 = np.float32
@@ -689,6 +720,51 @@ def test_the_kernels_equal_the_plain_versions_on_the_card(cuda, kind, dtype,
     assert torch.equal(rb.done, done)
     for k in slots:
         assert torch.equal(rb.slots[k][:q], slots[k][:q]), k
+
+
+def _edge_wave(rb, inp, situation):
+    """Turn a hand-made wave into an edge case: 'gated' (width 0: no lane
+    launched), 'all_fail' (no candidate above the threshold) or
+    'overflow' (more successes than the two free slots)."""
+    q = rb.q
+    if situation == "gated":
+        rb.state[pr.U_WIDTH] = 0
+    elif situation == "all_fail":
+        inp["logl"] = -1.0 - inp["logl"].abs()
+    else:
+        rb.state[pr.U_FILLED] = q - 2
+        inp["logl"] = 1.0 + inp["logl"].abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("situation", ["gated", "all_fail", "overflow"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("q", [32, 256, 700])
+def test_the_placement_equals_its_plain_version_on_edge_waves_on_the_card(
+        cuda, situation, dtype, q):
+    rb, inp = _kernel_inputs("cube", q, 4, 3, dtype, cuda)
+    _edge_wave(rb, inp, situation)
+    pr.unif_valid(rb, inp["uc"], None, None, None)
+    torch.cuda.synchronize()
+    n_valid = int(rb.valid.sum())
+    assert (n_valid == 0) == (situation == "gated")
+    st0 = rb.state.clone()
+    slots = {k: t.clone() for k, t in rb.slots.items()}
+    state, dest, done = pr.unif_place_plain(st0.clone(), slots, rb.valid,
+                                            inp["u_prop"], inp["v"],
+                                            inp["logl"], rb.loglstar)
+    pr.unif_place(rb, inp["u_prop"], inp["v"], inp["logl"])
+    torch.cuda.synchronize()
+    assert torch.equal(rb.state, state) and torch.equal(rb.dest, dest)
+    assert torch.equal(rb.done, done)
+    for k in slots:
+        assert torch.equal(rb.slots[k][:q], slots[k][:q]), k
+    placed = int(state[pr.U_FILLED] - st0[pr.U_FILLED])
+    assert placed == {"gated": 0, "all_fail": 0, "overflow": 2}[situation]
+    if situation != "overflow":
+        assert int(state[pr.U_PENDING]) == int(st0[pr.U_PENDING]) + n_valid
+    else:
+        assert bool(done) and int((dest < q).sum()) == 2 < n_valid
 
 
 @pytest.mark.cuda
