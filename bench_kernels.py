@@ -1,0 +1,397 @@
+"""Time the port's hand-written kernels of a checkout on the card, case
+group by case group, at ``chip_smoke.py``'s inputs: device only (the
+profiler's kernel durations) and through the wrapper or the replay (CUDA
+events, back to back; the host clock with the wait and the flag read for
+a replay).
+
+    python3 bench_kernels.py [--root DIR] [--out FILE] [--generic-rows]
+
+``--root`` imports ``dynesty_tpu_torch`` from another checkout (an
+earlier commit unpacked with ``git archive`` into the git-ignored
+``build/``), so that two versions run in turns in one call to the card
+(``chip_smoke.py --parent DIR`` runs this script so); the inputs are made
+by this checkout's ``chip_smoke.py``, and a case a version lacks is
+called through that version's own signature.  A redesign adds its
+kernels' cases to ``GROUPS``.  The groups:
+
+* ``assemble``: the round's record and live assembly
+  (``round_assemble``, its two kernels apart and together) at each
+  phase-2h case;
+* ``place``: the wave's placement (``unif_place``) at each phase-2f case
+  in its overflow state, float64 and float32 (each call first restores
+  the round's state; that copy is timed alone and taken off);
+* ``doubling``: ``doubling_point`` in each mode it has in both versions
+  (the step's two end probes, a doubling, a shrink candidate); a
+  halving's device work between two likelihood calls (since the probe
+  was folded in, ``doubling_halve`` alone, which also probes the next
+  mid; before, ``doubling_point`` in its halving mode and
+  ``doubling_halve``); ``doubling_halve`` and ``doubling_shrink`` (a
+  candidate) alone, at (256, 3) in float64;
+* ``valid``: ``unif_valid`` over the cube and over unions of 1, 4 and 16
+  ellipsoids at (256, 3) in float64, alone and ``span``, every launch
+  between the draws and the likelihood (before the fold: the union's
+  subtraction and einsum, the kernel and the clamp);
+* ``replays``: the captured halving segment's and the captured waves'
+  (cube, three ellipsoids) replays.
+
+``--generic-rows`` also times ``unif_valid`` built with its generic row
+loop at every width (``-DUNIF_VALID_ROW_REGISTERS=0``) against the
+build that holds a row of 2 or 3 dimensions in registers, in turns on
+the ``valid`` group's inputs.
+
+Prints the card's name and power limit, one JSON line per record, and
+exits non-zero without CUDA.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+ITERS = 50
+# the generic-row build's flag (csrc/unif_wave.cu)
+GENERIC_ROWS = "#define UNIF_VALID_ROW_REGISTERS 0\n"
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+
+
+def _host_us(fn, n=200):
+    for _ in range(5):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def assemble_times(cm, torch):
+    """The assembly's device and events times at each phase-2h case."""
+    cs = cm.cs
+    recs = []
+    for nlive, q, mode, path in cm.ASSEMBLE_CASES:
+        outs, live, prop, qnc, it0, birth, thr = cm.assemble_inputs(
+            nlive, q, mode, path)
+        out = cs.assemble_buffers(cm.ASSEMBLE_ROUNDS, q, nlive, cm.C_NDIM,
+                                  cm.C_NPDIM, torch.float64, "cuda")
+        for t in out.values():
+            t.zero_()
+        lv = live.clone()
+        ridx = torch.tensor(1, device="cuda")
+
+        def call():
+            cs.round_assemble(outs, lv, prop, qnc, prop[:, cm.C_IL + 2:],
+                              it0, birth, thr, out, ridx, ndim=cm.C_NDIM)
+
+        rec = {"kernel": "round_assemble", "nlive": nlive, "q": q,
+               "mode": mode, "path": path, "dtype": "float64",
+               "events_us": 1e3 * cm._time_ms(call, 200)}
+        for part, only in (("both", "assemble"),
+                           ("records", "assemble_records"),
+                           ("refill", "assemble_refill")):
+            rec[f"{part}_device_us"] = 1e3 * cm._device_ms(call, ITERS,
+                                                            only=only)
+        recs.append(rec)
+    return recs
+
+
+def place_times(cm, torch):
+    """``unif_place``'s device and events times at each phase-2f case in
+    its overflow state, float64 and float32."""
+    pr = cm.pr
+    recs = []
+    for kind, ndim, ncdim, q in cm.UNIF_CASES:
+        for dtype in (torch.float64, torch.float32):
+            rb, inp = cm.unif_wave_round(kind, q, ndim, ncdim, dtype,
+                                         "overflow")
+            valid_calls(torch, pr, rb, inp)[0]()
+            st0 = rb.state.clone()
+
+            def call():
+                rb.state.copy_(st0)
+                pr.unif_place(rb, inp["u_prop"], inp["v"], inp["logl"])
+
+            restore_us = 1e3 * cm._time_ms(lambda: rb.state.copy_(st0), 200)
+            recs.append({
+                "kernel": "unif_place", "kind": kind, "ndim": ndim,
+                "ncdim": ncdim, "q": q, "dtype": str(dtype).split(".")[1],
+                "events_us": 1e3 * cm._time_ms(call, 200) - restore_us,
+                "device_us": 1e3 * cm._device_ms(call, ITERS,
+                                                 only="unif_place")})
+    return recs
+
+
+def folded(pr):
+    """Whether the checkout has the halving's probe and the lane checks'
+    forms folded into the kernels."""
+    return hasattr(pr, "unif_input_plain")
+
+
+def doubling_times(cm, torch):
+    """The doubling kernels' device and events times on phase 2g's
+    hand-made state at (256, 3) in float64, each call on its own copy of
+    the state."""
+    pr = cm.pr
+    q, ndim, dtype = cm.STEP_Q, cm.NDIM, torch.float64
+    st, inp = cm.doubling_state(q, ndim, ndim, dtype)
+    recs = []
+
+    def rec(kernel, call, only, **key):
+        r = {"kernel": kernel, **key, "q": q, "ndim": ndim,
+             "dtype": "float64",
+             "events_us": 1e3 * cm._time_ms(call, 200),
+             "device_us": 1e3 * cm._device_ms(call, ITERS, only=only)}
+        recs.append(r)
+
+    for mode in (pr.P_START_L, pr.P_START_R, pr.P_DOUBLE, pr.P_SHRINK):
+        rb = cm.doubling_round_on_card(cm._clone(st), inp, False)
+        rec("doubling_point", lambda rb=rb, m=mode: pr.doubling_point(rb, m),
+            "doubling_point", mode=mode)
+    rb = cm.doubling_round_on_card(cm._clone(st), inp, False)
+    halve = lambda: pr.doubling_halve(rb, inp["logl_x"])  # noqa: E731
+    rec("doubling_halve", halve, "doubling_halve")
+    if folded(pr):
+        one = halve
+    else:
+        def one():
+            pr.doubling_point(rb, pr.P_HALVE)
+            pr.doubling_halve(rb, inp["logl_x"])
+    rec("halving", one, "doubling_")
+    rb = cm.doubling_round_on_card(cm._clone(st), inp, False)
+    rec("doubling_shrink",
+        lambda: pr.doubling_shrink(rb, pr.S_CANDIDATE, inp["v_x"],
+                                   inp["logl_x"]), "doubling_shrink",
+        mode=pr.S_CANDIDATE)
+    return recs
+
+
+def valid_calls(torch, pr, rb, inp):
+    """``unif_valid`` on a wave's inputs through the checkout's own
+    signature, alone and with every launch a wave makes between its draws
+    and its likelihood (before the fold: the union's subtraction and
+    einsum, the kernel, the likelihood input's clamp)."""
+    if folded(pr):
+        def call():
+            pr.unif_valid(rb, inp["uc"], inp["ua"], inp["accept"],
+                          inp["u_ex"])
+        return call, call
+
+    def forms():
+        d = inp["uc"][:, None, :] - rb.arrays["ctrs"].to(rb.dtype)[None]
+        return torch.einsum("qmi,mij,qmj->qm", d,
+                            rb.arrays["ams"].to(rb.dtype), d).contiguous()
+
+    sq = forms() if rb.m else None
+
+    def call():
+        pr.unif_valid(rb, inp["uc"], sq, inp["ua"], inp["accept"])
+
+    def span():
+        s = forms() if rb.m else None
+        pr.unif_valid(rb, inp["uc"], s, inp["ua"], inp["accept"])
+        inp["uc"].clamp(0.0, 1.0)
+
+    return call, span
+
+
+def union_inputs(cm, torch, m):
+    """A round over the union of ``m`` ellipsoids at (256, 3) in float64
+    and one wave's draws, as ``chip_smoke.unif_union_cases`` makes them."""
+    import numpy as np
+    pr = cm.pr
+    dtype, q = torch.float64, cm.STEP_Q
+    rs = np.random.Generator(np.random.PCG64(cm.SEED + 7 * m))
+    arrays = cm.union_arrays(m, dtype)
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in pr.UNIF_ARRAYS["ellipsoids"]}
+    rb = pr.UnifRound(q, cm.NDIM, cm.NDIM, cm.NDIM, dtype, "cuda", None,
+                      layout)
+    rb.start(cm.STEP_LOGLSTAR, arrays, 1 << 30)
+    uc = rs.uniform(0.0, 1.0, (q, cm.NDIM))
+    ctrs = arrays["ctrs"].cpu().numpy()
+    near = np.arange(q) % 2 == 0
+    uc[near] = ctrs[np.arange(q)[near] % m] + \
+        rs.normal(0.0, 0.05, (int(near.sum()), cm.NDIM))
+    return rb, {"uc": cm._cuda_t(uc, dtype),
+                "ua": cm._cuda_t(rs.random(q), dtype), "accept": None,
+                "u_ex": None}
+
+
+def valid_cases(cm, torch):
+    """The ``valid`` group's rounds and draws: the cube (phase 2f's
+    overflow state) and the unions of 1, 4 and 16 ellipsoids."""
+    cases = [("cube", None) + cm.unif_wave_round(
+        "cube", cm.STEP_Q, cm.NDIM, cm.NDIM, torch.float64, "overflow")]
+    for m in cm.UNION_SLOTS:
+        cases.append(("ellipsoids", m) + union_inputs(cm, torch, m))
+    return cases
+
+
+def unif_times(cm, torch):
+    """``unif_valid``'s device and events times over the cube and the
+    unions, alone and with the launches around it."""
+    recs = []
+    for kind, m, rb, inp in valid_cases(cm, torch):
+        call, span = valid_calls(torch, cm.pr, rb, inp)
+        recs.append({
+            "kernel": "unif_valid", "kind": kind, "m": m, "q": rb.q,
+            "ndim": rb.ndim, "dtype": "float64",
+            "events_us": 1e3 * cm._time_ms(call, 200),
+            "device_us": 1e3 * cm._device_ms(call, ITERS, only="unif_valid"),
+            "span_events_us": 1e3 * cm._time_ms(span, 200),
+            "span_device_us": 1e3 * cm._device_ms(span, ITERS)})
+    return recs
+
+
+def generic_rows_times(cm, torch, root):
+    """``unif_valid`` built as the checkout builds it (a row of 2 or 3
+    dimensions in registers) and with the generic row loop at every width,
+    in turns (registers, generic, generic, registers) on the ``valid``
+    group's inputs; raises unless both builds write the same bits."""
+    from dynesty_tpu_torch.ops import build
+    pr = cm.pr
+    with open(os.path.join(root, "dynesty_tpu_torch", "csrc",
+                           "unif_wave.cu")) as f:
+        text = f.read()
+    if "UNIF_VALID_ROW_REGISTERS" not in text:
+        raise SystemExit("bench_kernels: this checkout's unif_wave.cu has "
+                         "no generic-row build")
+    path = os.path.join(root, "build", "unif_wave_generic_rows.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(GENERIC_ROWS + text)
+    ref = pr._entry("unif_wave", "unif_valid", "f64")
+    gen = getattr(build.load_library("unif_wave_generic_rows", src=path),
+                  "dynesty_unif_valid_f64")
+    gen.argtypes, gen.restype = ref.argtypes, ref.restype
+    recs = []
+    for kind, m, rb, inp in valid_cases(cm, torch):
+        draws = (inp["uc"], inp["ua"], inp["accept"], inp["u_ex"])
+        outs = {}
+        times = {"registers": [], "generic": []}
+        for variant in ("registers", "generic", "generic", "registers"):
+            rb._valid_fn = ref if variant == "registers" else gen
+            pr.unif_valid(rb, *draws)
+            torch.cuda.synchronize()
+            outs[variant] = [t.clone() for t in (rb.valid, rb.u_prop,
+                                                 rb.uclamp)]
+            times[variant].append(
+                (1e3 * cm._device_ms(lambda: pr.unif_valid(rb, *draws),
+                                     ITERS, only="unif_valid"),
+                 1e3 * cm._time_ms(lambda: pr.unif_valid(rb, *draws), 200)))
+        rb._valid_fn = ref
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(outs["registers"], outs["generic"]))
+        if not same:
+            raise RuntimeError(f"the generic-row build of unif_valid "
+                               f"differs at {kind} m {m}")
+        for variant, ts in times.items():
+            recs.append({"kernel": "unif_valid", "kind": kind, "m": m,
+                         "variant": variant, "q": rb.q, "ndim": rb.ndim,
+                         "dtype": "float64",
+                         "device_us": [t[0] for t in ts],
+                         "events_us": [t[1] for t in ts]})
+    return recs
+
+
+def replay_times(cm, torch):
+    """The captured halving segment's replay (rslice doubling at (256,
+    3)) and the captured waves' (cube and three ellipsoids, (256, 3)):
+    device only, back-to-back events, and the host clock around one
+    replay with its wait and flag read."""
+    from dynesty_tpu_torch.utils.misc import Timings
+    cm._gauss_setup()
+    dtype, q = torch.float64, cm.STEP_Q
+    cache = {}
+    cm._capture_rounds(cm._capture_like(False, dtype), "rslice",
+                       cm.NDIM + 3, q, dtype, (cm.SEED, cm.SEED + 1), cache,
+                       Timings(), doubling=True)
+    entry = next(iter(cache.values()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cm.SEED)
+    graph = entry.graphs["halve"]
+    recs = [{"kernel": "halve_segment", "q": q, "ndim": cm.NDIM,
+             "dtype": "float64",
+             "replay_device_us": 1e3 * cm._device_ms(graph.replay, ITERS),
+             "replay_events_us": 1e3 * cm._time_ms(graph.replay, 200),
+             "replay_host_us": _host_us(lambda: entry.replay("halve", gen))}]
+    for kind in ("cube", "ellipsoids"):
+        cache = {}
+        cm._capture_waves(cm._capture_like(False, dtype), kind, q, dtype,
+                          (cm.SEED, cm.SEED + 1), cache, Timings())
+        wave = next(iter(cache.values()))
+
+        def host():
+            wave.graph.replay()
+            torch.cuda.current_stream().synchronize()
+            return bool(wave.flag[1][0])
+
+        recs.append({
+            "kernel": "wave", "kind": kind, "q": q, "ndim": cm.NDIM,
+            "dtype": "float64",
+            "replay_device_us": 1e3 * cm._device_ms(wave.graph.replay,
+                                                    ITERS),
+            "replay_events_us": 1e3 * cm._time_ms(wave.graph.replay, 200),
+            "replay_host_us": _host_us(host)})
+    return recs
+
+
+# the case groups, in the order they run: each redesign adds its kernels'
+GROUPS = (("assemble", assemble_times), ("place", place_times),
+          ("doubling", doubling_times), ("valid", unif_times),
+          ("replays", replay_times))
+
+
+def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(prog="bench_kernels",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=here,
+                    help="the checkout whose dynesty_tpu_torch is timed")
+    ap.add_argument("--out", help="also write the records here (JSON)")
+    ap.add_argument("--generic-rows", action="store_true",
+                    help="also time unif_valid's generic-row build against "
+                         "the checkout's, in turns")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_kernels: no CUDA device")
+    # the checkout's package first: chip_smoke's own imports then find it
+    sys.path.insert(0, root)
+    import dynesty_tpu_torch  # noqa: F401
+    # this checkout's chip_smoke.py (the root's may be older), by its path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(here, "chip_smoke.py"))
+    cm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cm)
+    card = _card()
+    print(card)
+    print(json.dumps({"root": root, "package": os.path.dirname(
+        dynesty_tpu_torch.__file__), "folded": folded(cm.pr), "card": card}))
+    recs = []
+    for name, group in GROUPS:
+        for rec in group(cm, torch):
+            recs.append({"group": name, **rec})
+    if args.generic_rows:
+        recs += [{"group": "generic_rows", **rec}
+                 for rec in generic_rows_times(cm, torch, root)]
+    for rec in recs:
+        rec["root"] = root
+        print(json.dumps(rec))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "root": root, "folded": folded(cm.pr),
+                       "cases": recs}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -72,10 +72,14 @@ Phases, in order; any failure raises and exits non-zero:
    ``unif_place`` against their plain versions on hand-made states (a
    wave with more successes than free slots, and one with none, whose
    evaluations are carried) over the cube, three ellipsoids padded to
-   four slots, 64 balls, at (256, 3), (32, 3 of 4 dimensions) and 700
-   lanes (three chunks of ``unif_place``'s block), float64 and float32:
-   every output bit for bit, the kernels' and the plain versions' time
-   per call (events) and the byte bound.  Then captured-unif
+   four slots, 64 balls, at (256, 3), (32, 3 of 4 dimensions, the fourth
+   dimension's uniforms with NaN and values outside the cube) and 700
+   lanes (three chunks of ``unif_place``'s block), float64 and float32,
+   and ``unif_valid`` over unions of 1, 4 and 16 ellipsoids at (256, 3):
+   every output bit for bit (``unif_valid``'s valid lanes, the
+   likelihood's input and its clamp), the kernels' and the plain
+   versions' time per call (events) and the bound (bytes, or the
+   quadratic forms' operations).  Then captured-unif
    (``captured_unif_phase``): uniform rounds whose waves are captured as
    one CUDA graph each and replayed against the same rounds launched
    eagerly, over the cube and over ellipsoids (a ``torch.multinomial``
@@ -85,7 +89,8 @@ Phases, in order; any failure raises and exits non-zero:
    replay; the host time of one replayed wave with its wait and flag read
    against an eager wave's.  Then the doubling round
    (``doubling_kernels_phase``): ``doubling_point`` (each mode),
-   ``doubling_expand``, ``doubling_halve`` and ``doubling_shrink`` against
+   ``doubling_expand``, ``doubling_halve`` and ``doubling_shrink`` (the
+   last two with the next halving's probe they write) against
    their plain versions on hand-made states of 256 lanes (lanes that
    double, shrink and halve and lanes that do not, ``grow`` at its clamp,
    -inf and threshold values, a candidate on its interval's end) at 3 and
@@ -251,10 +256,18 @@ Phases, in order; any failure raises and exits non-zero:
     four proposal-step kernels at the main drives' shapes and of the
     launch floor, of one replay of the captured slice iteration at (256,
     3) and of the captured walk at (256, 15), of the two wave kernels at
-    (256, 3), of one replayed uniform wave over the cube at (256, 3) and
-    of one of the heavy drive's ellipsoid waves, of the four doubling
-    kernels at (256, 3) and of each replayed doubling segment, and of one
-    256-lane evaluation of the heavy likelihood.
+    (256, 3) (``unif_valid`` also over unions of 1, 4 and 16
+    ellipsoids), of one replayed uniform wave over the cube at (256, 3)
+    and of one of the heavy drive's ellipsoid waves, of the four doubling
+    kernels at (256, 3) (``doubling_point`` in each of its modes) and of
+    each replayed doubling segment, and of one 256-lane evaluation of the
+    heavy likelihood.  The cube wave's, one heavy ellipsoid wave's and
+    every doubling segment's kernels are read from the captured graph's
+    own nodes, as the CUDA runtime prints them: each wrapper's kernel is
+    in as many nodes as the capture counted launches (what each replay
+    adds to the drives' counts), and the halving's segment holds
+    ``doubling_halve`` once and no ``doubling_point``.  With ``--parent DIR``, ``bench_kernels.py`` on
+    the checkout at DIR and on this one in turns.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
@@ -277,7 +290,8 @@ and every wave but the warm-up wave of each shape is a replay
 wave eager) and the waves over custom-unif's box, drawn on the host; a
 wave run eagerly counts ``n_uncaptured``.  One JSON line lists them by
 drive.  Every segment of the doubling round launches its kernels once
-(``doubling_point`` twice at a step's start, none at a resolution) and
+(``doubling_point`` twice at a step's start, none at a halving or a
+resolution: the kernel before a halving probes its mid) and
 every flag read but the shrink loop's first (always true, read from no
 device) follows one segment: on every drive ``doubling_expand +
 doubling_halve + doubling_shrink`` == the segments == ``sync_slice`` less
@@ -303,6 +317,7 @@ import json
 import math
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -339,8 +354,10 @@ COMPARES = [
     (2048, 3, 2, 50.0, None), (16384, 64, 2, 50.0, None),
     (2048, 3, math.inf, 0.0, None), (16384, 64, math.inf, 0.0, None),
 ]
-# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W; FP64 on
+# the CUDA cores, outside the tensor cores)
 TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12
+FP64_FLOPS = 34e12
 SOURCE = "dynesty_tpu_torch/csrc/pairwise_min_dist.cu"
 CONSUME_SOURCE = "dynesty_tpu_torch/csrc/consume_scan.cu"
 SLICE_SOURCE = "dynesty_tpu_torch/csrc/slice_step.cu"
@@ -419,6 +436,42 @@ def _device_ms(fn, iters=20, only=None):
           f"{PROFILE_PASSES} passes{what}; CUDA events time used: "
           f"{ms:.5f} ms a call")
     return ms
+
+
+def _graph_nodes(graph):
+    """The nodes of a captured graph as the CUDA runtime prints them
+    (``graph.debug_dump``; the capture kept them, ``keep_nodes``), one
+    text a node: a kernel node's text names its kernel.  Read once: the
+    dump frees the nodes (the replays go on)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        if not os.path.exists(path):
+            raise RuntimeError("the CUDA runtime printed no captured graph")
+        with open(path) as f:
+            text = f.read()
+    nodes = re.split(r'\n\s*(?="?\w*node\w*"?\s*\[)', text)[1:]
+    if not nodes:
+        raise RuntimeError(f"no node in the printed graph: {text[:2000]}")
+    return nodes
+
+
+def check_replay_kernels(counted, graph, what):
+    """One replay's kernels, read from the captured ``graph``'s own
+    nodes, against what its capture counted (``counted``: the wrappers'
+    launches, which every replay adds to the drives' counts); raises
+    where a wrapper's kernel is in another number of nodes.  Returns the
+    hand-written kernels' nodes by name."""
+    nodes = _graph_nodes(graph)
+    got = {}
+    for w, n in counted[1]:
+        k = sum(f"{w.__name__}_kernel" in node for node in nodes)
+        got[w.__name__] = k
+        if k != n:
+            raise RuntimeError(f"{what} launches {w.__name__} {k} times a "
+                               f"replay, its capture counted {n} (graph of "
+                               f"{len(nodes)} nodes)")
+    return got
 
 
 def _points(n, d, shift=0.0):
@@ -787,8 +840,8 @@ def _counts(hk, eager=False, custom=False, raised=False):
     segs = sum(out["seg_" + n] for n in DOUBLING_SEGMENTS)
     if not (out["doubling_expand"] + out["doubling_halve"] +
             out["doubling_shrink"] == segs and
-            out["doubling_point"] == segs - out["seg_resolve"] +
-            out["seg_start"] and
+            out["doubling_point"] == segs - out["seg_resolve"] -
+            out["seg_halve"] + out["seg_start"] and
             out["doubling_expand"] == out["seg_start"] + out["seg_double"] and
             out["doubling_halve"] == out["seg_halve"] and
             out["doubling_shrink"] == out["seg_candidate"] +
@@ -3029,18 +3082,28 @@ def assemble_sequence():
     return sum(same), len(same)
 
 
+def _bench_case(c):
+    """A ``bench_kernels.py`` record's case, for the side-by-side line."""
+    what = c["kernel"]
+    for k in ("kind", "mode", "path", "m", "nlive", "q", "ndim", "ncdim",
+              "dtype"):
+        if c.get(k) is not None:
+            what += f" {k} {c[k]}"
+    return what
+
+
 def parent_times(root, card):
-    """``bench_assemble.py`` on the checkout at ``root`` and on this one,
-    in turns (parent, change, change, parent), a process each; prints
-    each case's times, all four runs side by side, and returns the first
-    run's records of each by ``parent`` / ``change``."""
+    """``bench_kernels.py`` on the checkout at ``root`` and on this one, in
+    turns (parent, change, change, parent), a process each; prints each
+    case's times, all four runs side by side, and returns the first run's
+    records of each by ``parent`` / ``change``."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
     for name in ("parent", "change", "change", "parent"):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "bench.json")
             subprocess.run([sys.executable,
-                            os.path.join(here, "bench_assemble.py"),
+                            os.path.join(here, "bench_kernels.py"),
                             "--root", root if name == "parent" else here,
                             "--out", path], check=True, timeout=600,
                            stdout=subprocess.DEVNULL)
@@ -3048,18 +3111,12 @@ def parent_times(root, card):
                 runs[name].append(json.load(f)["cases"])
     for cases in zip(*runs["parent"], *runs["change"]):
         p1, p2, c1, c2 = cases
-        what = (f"round_assemble ({p1['nlive']}, {p1['q']}) {p1['path']}"
-                if p1["kernel"] == "round_assemble" else
-                f"unif_place {p1['kind']} ({p1['q']}, {p1['ndim']}) "
-                f"{p1['dtype']}")
-        keys = ("both_device_us", "records_device_us", "refill_device_us") \
-            if p1["kernel"] == "round_assemble" else ("device_us",)
+        keys = [k for k in p1 if k.endswith("_us")]
         cols = "  ".join(
             f"{k[:-3]} {c1[k]:.3f}, {c2[k]:.3f} / {p1[k]:.3f}, {p2[k]:.3f}"
             for k in keys)
-        print(f"{what} us, change / parent (runs in turns): {cols}  events "
-              f"{c1['events_us']:.2f}, {c2['events_us']:.2f} / "
-              f"{p1['events_us']:.2f}, {p2['events_us']:.2f}  [{card}]")
+        print(f"{_bench_case(p1)}: us, change / parent (runs in turns): "
+              f"{cols}  [{card}]")
     return {k: v[0] for k, v in runs.items()}
 
 
@@ -3285,13 +3342,19 @@ def _bit_record(name, shape, dtype, pairs):
             "max_abs_err": err}
 
 
-def _step_time(rec, kernel, plain, bound_bytes):
+def _step_time(rec, kernel, plain, bound_bytes, bound_ops=0,
+               op_rate=FP64_FLOPS):
     """Per-call µs (events, warm, through the wrapper) of the kernel and
-    the plain version on the compared inputs, and the bound."""
+    the plain version on the compared inputs, and the bound: the larger
+    of the bytes over the memory rate and the operations (``bound_ops``,
+    at ``op_rate`` a second) over the card's peak for their type."""
     rec["us"] = 1e3 * _time_ms(kernel, 200)
     rec["plain_us"] = 1e3 * _time_ms(plain, 50)
-    rec["bound_bytes"] = bound_bytes
-    rec["bound_us"] = 1e6 * bound_bytes / HBM_BYTES
+    by_us = 1e6 * bound_bytes / HBM_BYTES
+    op_us = 1e6 * bound_ops / op_rate
+    rec["bound_bytes"], rec["bound_ops"] = bound_bytes, bound_ops
+    rec["bound_us"] = max(by_us, op_us)
+    rec["bound_by"] = "operations" if op_us > by_us else "bytes"
 
 
 def step_slice_round(st, inp):
@@ -3883,11 +3946,12 @@ def unif_arrays(kind, ncdim, dtype, seed=SEED):
 
 def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
     """A ``UnifRound`` on the card in a hand-made state and one wave's
-    inputs: candidates in and out of the cube (one loose dimension), the
-    union's quadratic forms (one slot at the rescue's 1 + 5e-4), the
-    acceptance draws, and a likelihood that leaves more successes than
-    free slots (``situation`` 'overflow') or none ('none', the wave's
-    evaluations carried)."""
+    inputs: candidates in and out of the cube (one loose dimension; over
+    ellipsoids half of them about the centres), the other dimensions'
+    uniforms (NaN and values outside the cube among them), the acceptance
+    draws, and a likelihood that leaves more successes than free slots
+    (``situation`` 'overflow') or none ('none', the wave's evaluations
+    carried)."""
     rs = np.random.Generator(np.random.PCG64(SEED + q + ndim))
     arrays = unif_arrays(kind, ncdim, dtype)
 
@@ -3901,18 +3965,50 @@ def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
     rb.state.copy_(torch.tensor([filled, 3, 40, 3 * q, 7, q - 9, 1 << 30]))
     m = rb.m
     above = situation == "overflow"
-    inp = {"uc": _cuda_t(rs.uniform(-0.1, 1.1, (q, ncdim)), dtype),
-           "sq": _cuda_t(rs.uniform(0.0, 1.6, (q, m)), dtype) if m else None,
+    uc = rs.uniform(-0.1, 1.1, (q, ncdim))
+    if m:
+        near = np.arange(q) % 2 == 0
+        ctrs = arrays["ctrs"].cpu().numpy()
+        uc[near] = ctrs[np.arange(q)[near] % 3] + \
+            rs.normal(0.0, 0.06, (int(near.sum()), ncdim))
+    inp = {"uc": _cuda_t(uc, dtype),
            "ua": _cuda_t(rs.random(q), dtype) if m else None,
            "accept": _cuda_t(rs.random(q) < 0.6, torch.bool)
            if kind == "balls" else None,
+           "u_ex": _cuda_t(rs.choice([math.nan, -0.2, 0.0, 0.4, 1.0, 1.3],
+                                     size=(q, ndim - ncdim)), dtype)
+           if ndim > ncdim else None,
            "u_prop": _cuda_t(rs.random((q, ndim)), dtype),
            "v": _cuda_t(rs.random((q, ndim)), dtype),
            "logl": _cuda_t(rs.choice([-math.inf, -1.0, 0.5, 2.0], size=q)
                            if above else rs.uniform(-3.0, 0.2, q), dtype)}
-    if m:
-        inp["sq"][:, 1] = 1.0 + 5e-4
     return rb, inp
+
+
+def unif_valid_bound(rb, inp, kind):
+    """The bytes ``unif_valid`` must move (each input read once -- the
+    candidates, the other dimensions, ua or the friends' flag, the union's
+    centres, matrices and mask, the cube check's mask, the width -- and
+    its outputs written once: valid, the likelihood's input and its clamp)
+    and the floating-point operations of the quadratic forms in the valid
+    slots (2 n^2 + 2 n - 1 a form)."""
+    q, ndim, n, m = rb.q, rb.ndim, rb.ncdim, rb.m
+    tb = torch.finfo(rb.dtype).bits // 8
+    m_valid = int(rb.arrays["mask"].sum()) if m else 0
+    by = q * ndim * tb + (q * tb if m else 0) + \
+        (q if kind in ("balls", "cubes") else 0) + \
+        m * (n + n * n) * tb + m + n + 8 + q + 2 * q * ndim * tb
+    ops = q * m_valid * (2 * n * n + 2 * n - 1)
+    return by, ops, FP64_FLOPS if rb.dtype == torch.float64 else FP32_FLOPS
+
+
+def unif_valid_refs(rb, inp):
+    """``unif_valid``'s plain outputs on the round's inputs: valid, the
+    likelihood's input and its clamp."""
+    forms = [rb.arrays[k] if rb.m else None for k in pr.UNIF_FORMS]
+    valid = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH], rb.strict,
+                                *forms, inp["ua"], inp["accept"])
+    return (valid,) + pr.unif_input_plain(inp["uc"], inp["u_ex"])
 
 
 def unif_wave_cases(ncase, dtype):
@@ -3924,16 +4020,19 @@ def unif_wave_cases(ncase, dtype):
     recs, calls = [], {}
     for situation in ("overflow", "none"):
         rb, inp = unif_wave_round(kind, q, ndim, ncdim, dtype, situation)
-        draws = (inp["uc"], inp["sq"], inp["ua"], inp["accept"])
-        mask = rb.arrays.get("mask")
-        ref = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH],
-                                  rb.strict, inp["sq"], mask, inp["ua"],
-                                  inp["accept"])
+        draws = (inp["uc"], inp["ua"], inp["accept"], inp["u_ex"])
+        ref, ref_u, ref_c = unif_valid_refs(rb, inp)
         pr.unif_valid(rb, *draws)
         torch.cuda.synchronize()
         valid = _bit_record("unif_valid", (q, ncdim), dtype,
-                            [("valid", rb.valid, ref)])
+                            [("valid", rb.valid, ref),
+                             ("u_prop", rb.u_prop, ref_u),
+                             ("uclamp", rb.uclamp, ref_c)])
+        valid["m"] = rb.m
         n_valid = int(ref.sum())
+        if rb.m and not 0 < n_valid < q:
+            raise RuntimeError(f"the ellipsoid wave case missed its "
+                               f"outcome at {ncase}: {n_valid} valid")
         st0, slots = rb.state.clone(), _clone(rb.slots)
         st, dest, done = pr.unif_place_plain(st0, slots, rb.valid,
                                              inp["u_prop"], inp["v"],
@@ -3957,17 +4056,13 @@ def unif_wave_cases(ncase, dtype):
                                f"outcome at {ncase}")
         for rec in (valid, place):
             rec.update(kind=kind, ncdim=ncdim, situation=situation)
-        # the byte bounds of this data: each input read once, each output
-        # written once (unif_place: the valid lanes' logl, the placed
-        # rows, dest and the state)
-        m = rb.m
+        # the bounds of this data: each input read once, each output
+        # written once (unif_valid: and the forms' operations;
+        # unif_place: the valid lanes' logl, the placed rows, dest and the
+        # state)
         _step_time(valid, lambda: pr.unif_valid(rb, *draws),
-                   lambda: pr.unif_valid_plain(
-                       inp["uc"], rb.state[pr.U_WIDTH], rb.strict,
-                       inp["sq"], mask, inp["ua"], inp["accept"]),
-                   q * (ncdim * tb + 1) + m * (q * tb + 1) +
-                   (q * tb if m else 0) + (q if kind == "balls" else 0) +
-                   ncdim + 8)
+                   lambda: unif_valid_refs(rb, inp),
+                   *unif_valid_bound(rb, inp, kind))
         if situation == "overflow":
             # each timed call from the compared state: the state's restore
             # is timed alone and taken off
@@ -3990,11 +4085,153 @@ def unif_wave_cases(ncase, dtype):
     return recs, calls
 
 
+# the padded slot counts of the unions whose lane checks are timed at
+# (256, 3)
+UNION_SLOTS = (1, 4, 16)
+# unif_valid's calls on those unions in float64, timed device-only in
+# phase 34 (unif_union_cases)
+_UNION_CALLS = {}
+
+
+def union_arrays(m, dtype, seed=SEED):
+    """``m`` ellipsoids (a power of two: no padded slot) about the 3-D
+    Gaussian's mass in the cube, overlapping."""
+    from dynesty_tpu_torch.bounding import MultiEllipsoid
+    from dynesty_tpu_torch.utils.convert import bound_arrays_to_torch
+    rs = np.random.Generator(np.random.PCG64(seed + m))
+    ctrs = 0.5 + rs.uniform(-0.12, 0.12, (m, NDIM))
+    covs = np.array([np.diag(rs.uniform(0.002, 0.01, NDIM))
+                     for _ in range(m)])
+    return bound_arrays_to_torch("ellipsoids", MultiEllipsoid(
+        NDIM, ctrs=ctrs, covs=covs).device_spec()[1], "cuda", dtype)
+
+
+def unif_union_cases(dtype):
+    """``unif_valid`` against its plain version over unions of 1, 4 and 16
+    ellipsoids at (256, 3), half the candidates about the centres; returns
+    the records (with times and bound) and fills ``_UNION_CALLS`` in
+    float64."""
+    recs = []
+    for m in UNION_SLOTS:
+        rs = np.random.Generator(np.random.PCG64(SEED + 7 * m))
+        arrays = union_arrays(m, dtype)
+        layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                      arrays[k].storage_offset(), arrays[k].dtype)
+                  for k in pr.UNIF_ARRAYS["ellipsoids"]}
+        q = STEP_Q
+        rb = pr.UnifRound(q, NDIM, NDIM, NDIM, dtype, "cuda", None, layout)
+        rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
+        if rb.m != m:
+            raise RuntimeError(f"a union of {m} ellipsoids took {rb.m} "
+                               f"slots")
+        uc = rs.uniform(0.0, 1.0, (q, NDIM))
+        ctrs = arrays["ctrs"].cpu().numpy()
+        near = np.arange(q) % 2 == 0
+        uc[near] = ctrs[np.arange(q)[near] % m] + \
+            rs.normal(0.0, 0.05, (int(near.sum()), NDIM))
+        inp = {"uc": _cuda_t(uc, dtype), "ua": _cuda_t(rs.random(q), dtype),
+               "accept": None, "u_ex": None}
+        draws = (inp["uc"], inp["ua"], None, None)
+        ref, ref_u, ref_c = unif_valid_refs(rb, inp)
+        pr.unif_valid(rb, *draws)
+        torch.cuda.synchronize()
+        rec = _bit_record("unif_valid", (q, NDIM), dtype,
+                          [("valid", rb.valid, ref),
+                           ("u_prop", rb.u_prop, ref_u),
+                           ("uclamp", rb.uclamp, ref_c)])
+        rec.update(kind="ellipsoids", ncdim=NDIM, m=m, situation="union")
+        if not 0 < int(ref.sum()) < q:
+            raise RuntimeError(f"the union of {m} ellipsoids missed its "
+                               f"outcome: {int(ref.sum())} valid")
+
+        def call(rb=rb, draws=draws):
+            pr.unif_valid(rb, *draws)
+
+        _step_time(rec, call, lambda: unif_valid_refs(rb, inp),
+                   *unif_valid_bound(rb, inp, "ellipsoids"))
+        if dtype == torch.float64:
+            _UNION_CALLS[m] = call
+        recs.append(rec)
+    return recs
+
+
+def unif_threshold_case(dtype, q=STEP_Q, device="cuda"):
+    """``unif_valid`` against its plain version on a union of six
+    ellipsoids (padded to eight slots, the two masked ones holding every
+    lane) whose forms lie exactly at the thresholds: lane k (k % 8 < 6)
+    has in slot k % 8 the form the largest float below 1, 1, the smallest
+    above 1, or the same about 1 + 1e-3 (the round-off rescue's bound),
+    forms above 4 in the other valid slots, and ua 0; the other lanes are
+    random.  Raises unless the target lanes come out as the thresholds
+    say and some lane is valid only through the rescue (no form < 1, one
+    <= 1 + 1e-3).  Returns the record."""
+    rs = np.random.Generator(np.random.PCG64(SEED + 11 + q))
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    one = torch.tensor(1.0, dtype=dtype)
+    loose = torch.tensor(1.0 + 1e-3, dtype=dtype)
+    targets = torch.stack([torch.nextafter(one, -one), one,
+                           torch.nextafter(one, 2 * one),
+                           torch.nextafter(loose, -one), loose,
+                           torch.nextafter(loose, 2 * one)])
+    m, n = 8, NDIM
+    ctrs = np.full((m, n), 0.5)
+    ctrs[:6, 0] = 0.25
+    ctrs[:6, 1] = 0.1 + 0.1 * np.arange(6)
+    ams = np.zeros((m, n, n))
+    ams[:6] = np.diag([0.0, 400.0, 400.0])
+    # d = (0.5, 0, 0) below: the form is 0.25 * (4 * target), exactly
+    ams[:6, 0, 0] = 4.0 * targets.double().numpy()
+    ams[6:] = 1e-6 * np.eye(n)
+    arrays = {"ctrs": t(ctrs), "ams": t(ams), "axes": t(ams),
+              "logvols": t(np.zeros(m)),
+              "mask": t(np.arange(m) < 6, torch.bool)}
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in pr.UNIF_ARRAYS["ellipsoids"]}
+    rb = pr.UnifRound(q, n, n, n, dtype, device, None, layout)
+    rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
+    lane = np.arange(q)
+    at = lane % 8 < 6
+    uc = rs.uniform(0.05, 0.95, (q, n))
+    uc[at, 0] = 0.75
+    uc[at, 1] = ctrs[lane[at] % 8, 1]
+    uc[at, 2] = 0.5
+    ua = rs.random(q)
+    ua[at] = 0.0
+    inp = {"uc": t(uc), "ua": t(ua), "accept": None, "u_ex": None}
+    ref, ref_u, ref_c = unif_valid_refs(rb, inp)
+    pr.unif_valid(rb, inp["uc"], inp["ua"], None, None)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rec = _bit_record("unif_valid", (q, n), dtype,
+                      [("valid", rb.valid, ref), ("u_prop", rb.u_prop, ref_u),
+                       ("uclamp", rb.uclamp, ref_c)])
+    rec.update(kind="ellipsoids", ncdim=n, m=m, situation="thresholds")
+    # the thresholds' outcomes: valid where a form is < 1, or (none being)
+    # at most 1 + 1e-3 (the rescue: the targets 1 to 1 + 1e-3)
+    expect = [True, True, True, True, True, False]
+    got = ref.cpu().numpy()
+    sq = pr.ellipsoid_forms_plain(inp["uc"], arrays["ctrs"], arrays["ams"])
+    sq = sq[:, :6]
+    rescued = ((sq >= 1.0).all(dim=1) & (sq <= float(loose)).any(dim=1) &
+               ref).cpu().numpy()
+    rec["rescued"] = int(rescued.sum())
+    if not (all(bool(got[k]) == expect[k % 8] for k in lane[at]) and
+            rescued[at].sum() == int(((lane % 8 >= 1) &
+                                      (lane % 8 <= 4)).sum())):
+        raise RuntimeError(f"the threshold case missed its outcome at q "
+                           f"{q}, {dtype}: {rec['rescued']} rescued")
+    return rec
+
+
 def unif_kernels_phase(card):
-    """Every case in float64 and float32; prints one line each, raises
-    unless every output is bit-identical, and returns the records and the
-    kernels' calls at the main shape (the cube's wave, (256, 3),
-    float64)."""
+    """Every case in float64 and float32, and the unions of 1, 4 and 16
+    ellipsoids; prints one line each, raises unless every output is
+    bit-identical, and returns the records and the kernels' calls at the
+    main shape (the cube's wave, (256, 3), float64)."""
     cases, main_calls = [], {}
     for ncase in UNIF_CASES:
         for dtype in (torch.float64, torch.float32):
@@ -4002,13 +4239,18 @@ def unif_kernels_phase(card):
             cases += recs
             if ncase == UNIF_CASES[0] and dtype == torch.float64:
                 main_calls = calls
+    for dtype in (torch.float64, torch.float32):
+        cases += unif_union_cases(dtype)
+        cases.append(unif_threshold_case(dtype))
     for c in cases:
         shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
                            c["outputs"].items())
         timed = f"  kernel {c['us']:.2f} us  plain {c['plain_us']:.2f} us" \
-            f"  bound {c['bound_us']:.5f} us (bytes)" if "us" in c else ""
+            f"  bound {c['bound_us']:.5f} us ({c['bound_by']})" \
+            if "us" in c else ""
+        slots = f" m {c['m']}" if c.get("m") else ""
         print(f"unif wave {c['kernel']} {c['kind']} {tuple(c['shape'])} "
-              f"ncdim {c['ncdim']} {c['situation']} {c['dtype']}: "
+              f"ncdim {c['ncdim']}{slots} {c['situation']} {c['dtype']}: "
               f"bit-identical {c['identical']}/{c['total']} ({shares})"
               f"{timed}  [{card}]")
     bad = [c for c in cases if c["identical"] != c["total"]]
@@ -4027,6 +4269,13 @@ def main_unif(cases, name):
     return next(c for c in cases if c["kernel"] == name and
                 c["kind"] == "cube" and c["dtype"] == "float64" and
                 c["shape"][0] == STEP_Q and c["situation"] == "overflow")
+
+
+def union_unif(cases, m):
+    """The record of ``unif_valid`` over the union of ``m`` ellipsoids at
+    (256, 3) in float64."""
+    return next(c for c in cases if c["situation"] == "union" and
+                c["m"] == m and c["dtype"] == "float64")
 
 
 def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
@@ -4158,19 +4407,19 @@ DOUBLING_KERNELS = ("doubling_point", "doubling_expand", "doubling_halve",
 # the JAX code each replaces (dynesty_tpu/internal/kernels.py)
 DOUBLING_REPLACES = {
     "doubling_point": ("dynesty_tpu/internal/kernels.py:555",
-                       [":594-607", ":646-649", ":574", ":673"]),
+                       [":594-607", ":646-649", ":673"]),
     "doubling_expand": ("dynesty_tpu/internal/kernels.py:640",
                         [":594-607", ":640-655"]),
     "doubling_halve": ("dynesty_tpu/internal/kernels.py:569",
                        [":569-585"]),
     "doubling_shrink": ("dynesty_tpu/internal/kernels.py:670",
-                        [":670-693", ":678-682"])}
+                        [":670-693", ":678-682", ":574"])}
 # (ndim, strict mask) of the kernels' cases: the doubling drives' 3-D and
 # 15-D, each without a mask and with every third dimension loose
 DOUBLING_CASES = [(3, False), (3, True), (15, False), (15, True)]
 # each kernel's calls: (mode, the flag the kernel before it clears)
 DOUBLING_CALLS = {
-    "doubling_point": [(m, None) for m in range(5)],
+    "doubling_point": [(m, None) for m in range(4)],
     "doubling_expand": [(0, "any"), (1, "any")],
     "doubling_halve": [(None, "any")],
     "doubling_shrink": [(0, "any"), (1, "any_shrink")]}
@@ -4180,6 +4429,9 @@ DOUBLING_TIMED = {"doubling_point": 2, "doubling_expand": 1,
                   "doubling_halve": None, "doubling_shrink": 0}
 DOUBLING_NSTEPS = 6
 DOUBLING_SEGMENTS = ("start", "double", "candidate", "halve", "resolve")
+# doubling_point's calls in each of its modes at the drives' (256, 3) in
+# float64, timed device-only in phase 34 (doubling_kernel_cases)
+_POINT_MODE_CALLS = {}
 
 
 def doubling_state(q, ndim, npdim, dtype, seed=SEED):
@@ -4249,6 +4501,7 @@ def doubling_round_on_card(st, inp, strict):
     rb.directions.copy_(inp["directions"])
     rb.draw.copy_(inp["draw"])
     rb.loglstar.copy_(inp["loglstar"])
+    rb.gate.fill_(False)
     return rb
 
 
@@ -4268,23 +4521,28 @@ def _doubling_plain(st, rb, name, mode, inp):
     """Kernel ``name``'s plain version in ``mode`` on the state ``st``,
     with ``rb``'s inputs."""
     if name == "doubling_point":
-        pr.doubling_point_plain(st, mode, rb.draw, rb.directions, rb.strict)
+        pr.doubling_point_plain(st, mode, rb.draw, rb.directions, rb.strict,
+                                rb.gate)
     elif name == "doubling_expand":
         pr.doubling_expand_plain(st, mode, inp["logl_x"], inp["logl_l"],
                                  rb.draw, rb.loglstar)
     elif name == "doubling_halve":
-        pr.doubling_halve_plain(st, inp["logl_x"], rb.loglstar)
+        pr.doubling_halve_plain(st, inp["logl_x"], rb.loglstar, rb.strict)
     else:
         pr.doubling_shrink_plain(st, mode, inp["v_x"], inp["logl_x"],
-                                 rb.loglstar)
+                                 rb.loglstar, rb.strict)
 
 
 def doubling_bytes(name, st, inp, q, ndim, npdim, tb):
     """The bytes kernel ``name`` must move in its timed mode on the
     hand-made state: each input read once, each output written once,
     the per-lane counters of the active lanes and the halving's
-    rejections of the lanes it rejects only."""
+    rejections of the lanes it rejects only.  The halving and a
+    candidate also probe the next halving's mid: the start and direction
+    rows and the cube check's mask in, the clamped row and the cube check
+    out."""
     n_act = int(st["active"].sum())
+    probe = 2 * q * ndim * tb + ndim + q * ndim * tb + q
     if name == "doubling_point":
         # draw, ends, mask, direction and start rows in; the clamped row,
         # the cube check and the flag out; the mask and the step index
@@ -4303,12 +4561,13 @@ def doubling_bytes(name, st, inp, q, ndim, npdim, tb):
         rej["reject"].zero_()
         pr.doubling_halve_plain(rej, inp["logl_x"], inp["loglstar"])
         n_rej = int(rej["reject"].sum())
-        return q * (6 * tb + 11) + tb + q * (4 * tb + 10) + n_rej + 1
+        return q * (6 * tb + 11) + tb + q * (4 * tb + 10) + n_rej + 1 + \
+            probe
     # a candidate: cube check, v, logl, mask, the doubling's interval and
     # end values, nc, n_con in; v, logl, nc, n_con, good, the test's start
     # (its mask, ends, end values, dflag, reject, d_nc) out; the two flags
     return q * (npdim * tb + 5 * tb + 18) + tb + \
-        q * (npdim * tb + 5 * tb + 28) + 2
+        q * (npdim * tb + 5 * tb + 28) + 2 + probe
 
 
 def doubling_kernel_cases(ndim, strict, dtype):
@@ -4355,6 +4614,12 @@ def doubling_kernel_cases(ndim, strict, dtype):
                    doubling_bytes(name, st, inp, q, ndim, npdim, tb))
         recs.append(rec)
         calls[name] = call
+        if name == "doubling_point" and (ndim, strict, dtype) == (
+                NDIM, False, torch.float64):
+            for m, _ in modes:
+                _POINT_MODE_CALLS[m] = _doubling_call(
+                    doubling_round_on_card(_clone(st), inp, strict), name,
+                    m, inp)
     if not all(covered):
         raise RuntimeError(f"the hand-made doubling state misses an outcome "
                            f"at ndim {ndim}: {covered}")
@@ -4683,10 +4948,10 @@ def main():
                     help="with --compare: comma-separated counts that may "
                     "differ (listed with both values)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time the assembly and the placement of the "
-                         "checkout at DIR and of this one in turns "
-                         "(bench_assemble.py in a process each), printed "
-                         "in phase 34 beside this run's times")
+                    help="also time the hand-written kernels and captured "
+                         "segments of the checkout at DIR and of this one "
+                         "in turns (bench_kernels.py in a process each), "
+                         "printed in phase 34 beside this run's times")
     ap.add_argument("--profile", nargs="?", const="balls",
                     choices=["balls", "heavy"],
                     help="profile one drive (device time by kernel): the "
@@ -4704,8 +4969,12 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import dynesty_tpu_torch as dyt
     from dynesty_tpu_torch.ops import build
+    from dynesty_tpu_torch.internal import kernels as tk
     from dynesty_tpu_torch.ops import hopper_kernels as hk
 
+    # every captured graph keeps its nodes: phase 34 reads a replay's
+    # kernels from them (check_replay_kernels)
+    tk._RoundGraph.keep_nodes = True
     card = _card()
     kind = torch.cuda.get_device_name(0)
     print(card)
@@ -5148,6 +5417,14 @@ def main():
               f"{rec['device_us']:.3f} us  events (through the wrapper) "
               f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
               f"floor {floor['device_us']:.3f} us  [{card}]")
+    for m, fn in _UNION_CALLS.items():
+        rec = union_unif(unif_cases, m)
+        rec["device_us"] = 1e3 * _device_ms(fn, only="unif_valid")
+        print(f"unif wave unif_valid ellipsoids m {m} (256, 3) float64 "
+              f"device only: kernel {rec['device_us']:.3f} us  events "
+              f"(through the wrapper) {rec['us']:.2f} us  bound "
+              f"{rec['bound_us']:.5f} us ({rec['bound_by']})  launch floor "
+              f"{floor['device_us']:.3f} us  [{card}]")
     main_asm = assemble_cases[0]
     print(f"round_assemble (2048, 256) thin float64 device only: both "
           f"launches {1e3 * main_asm['device_ms']:.3f} us (records "
@@ -5160,13 +5437,21 @@ def main():
     cu = captured_unif["timing"]
     cu["replay_device_us"] = 1e3 * _device_ms(unif_timed.graph.replay)
     heavy["wave_replay_device_ms"] = _device_ms(heavy_wave.graph.replay, 5)
+    cu["replay_kernels"] = check_replay_kernels(
+        unif_timed.counted, unif_timed.graph,
+        "the captured cube wave")
+    heavy["wave_replay_kernels"] = check_replay_kernels(
+        heavy_wave.counted, heavy_wave.graph,
+        "heavy's captured ellipsoid wave")
     print(f"captured-unif replay (256, 3) float64 device only: "
           f"{cu['replay_device_us']:.3f} us (every kernel of one wave, the "
           f"likelihood's included); host with its wait and flag read "
           f"{cu['replay_host_us']:.2f} us, eager wave "
           f"{cu['eager_wave_host_us']:.2f} us; heavy's ellipsoid wave "
           f"{tuple(heavy_wave.rb.arrays['ctrs'].shape)} replayed, device "
-          f"only {heavy['wave_replay_device_ms']:.3f} ms  [{card}]")
+          f"only {heavy['wave_replay_device_ms']:.3f} ms; hand-written "
+          f"kernels a replay (graph nodes) {cu['replay_kernels']}, heavy's "
+          f"{heavy['wave_replay_kernels']}  [{card}]")
     for name, fn in doubling_calls.items():
         rec = main_doubling(doubling_cases, name)
         rec["device_us"] = 1e3 * _device_ms(fn, only=name)
@@ -5174,15 +5459,36 @@ def main():
               f"{rec['device_us']:.3f} us  events (through the wrapper) "
               f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
               f"floor {floor['device_us']:.3f} us  [{card}]")
+    point = main_doubling(doubling_cases, "doubling_point")
+    point["mode_device_us"] = {}
+    for mode, fn in _POINT_MODE_CALLS.items():
+        point["mode_device_us"][mode] = 1e3 * _device_ms(
+            fn, only="doubling_point")
+        print(f"doubling doubling_point mode {mode} (256, 3) float64 device "
+              f"only: kernel {point['mode_device_us'][mode]:.3f} us  launch "
+              f"floor {floor['device_us']:.3f} us  [{card}]")
     cd = captured_doubling["timing"]["segments"]
     for name in DOUBLING_SEGMENTS:
         cd[name]["replay_device_us"] = 1e3 * _device_ms(
             doubling_timed.graphs[name].replay)
+        # the graph's own kernels: the drives' replay counts are what the
+        # capture counted; no halving launches doubling_point
+        cd[name]["replay_kernels"] = check_replay_kernels(
+            doubling_timed.counts[name],
+            doubling_timed.graphs[name],
+            f"the captured doubling segment {name}")
+        if name == "halve" and (
+                cd[name]["replay_kernels"]["doubling_point"] or
+                cd[name]["replay_kernels"]["doubling_halve"] != 1):
+            raise RuntimeError(f"the captured halving segment launched "
+                               f"{cd[name]['replay_kernels']}")
         print(f"captured-doubling replay of segment {name} (256, 3) float64 "
               f"device only: {cd[name]['replay_device_us']:.3f} us (every "
               f"kernel of the segment, the likelihood's included); host "
               f"with its wait and flag read {cd[name]['replay_host_us']:.2f}"
-              f" us, eager {cd[name]['eager_host_us']:.2f} us  [{card}]")
+              f" us, eager {cd[name]['eager_host_us']:.2f} us; "
+              f"hand-written kernels a replay (graph nodes) "
+              f"{cd[name]['replay_kernels']}  [{card}]")
     consume_device_times(consume, consume_calls, card)
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
@@ -5283,21 +5589,25 @@ def main():
                 "max_abs_err": max(c["max_abs_err"] for c in doubling_cases
                                    if c["kernel"] == name),
                 "ms": rec["us"] / 1e3, "plain_ms": rec["plain_us"] / 1e3,
-                "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
+                "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"],
                 "library_ms": None,
                 "library_note": "no one PyTorch call computes this step",
                 "shape": rec["shape"], "dtype": "float64",
                 "device_ms": rec["device_us"] / 1e3,
                 "launch_floor_ms": floor["device_us"] / 1e3,
-                "captured_segments": captured_doubling["timing"]}
+                **({"mode_device_ms": {m: us / 1e3 for m, us in
+                                       rec["mode_device_us"].items()}}
+                   if "mode_device_us" in rec else {}),
+                "captured_segments": captured_doubling["timing"],
+                **({"parent_bench": parent_of(name)} if parent else {})}
 
     def parent_of(kernel, **key):
-        """The parent's and this checkout's bench records of a case (with
-        ``--parent``), else None."""
+        """The parent's and this checkout's bench records of a kernel's
+        cases (with ``--parent``), else None."""
         if parent is None:
             return None
-        return {k: next(c for c in parent[k] if c["kernel"] == kernel and
-                        all(c[f] == v for f, v in key.items()))
+        return {k: [c for c in parent[k] if c["kernel"] == kernel and
+                    all(c.get(f) == v for f, v in key.items())]
                 for k in ("parent", "change")}
 
     def unif_entry(name):
@@ -5316,7 +5626,7 @@ def main():
                 "max_abs_err": max(c["max_abs_err"] for c in unif_cases
                                    if c["kernel"] == name),
                 "ms": rec["us"] / 1e3, "plain_ms": rec["plain_us"] / 1e3,
-                "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
+                "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"],
                 "library_ms": None,
                 "library_note": "no one PyTorch call computes this step",
                 "shape": rec["shape"], "dtype": "float64",
@@ -5325,9 +5635,12 @@ def main():
                 "captured_wave": captured_unif["timing"],
                 "heavy_wave_replay_device_ms":
                     heavy["wave_replay_device_ms"],
-                **({"parent_bench": parent_of(
-                    "unif_place", kind="cube", q=STEP_Q, dtype="float64")}
-                   if name == "unif_place" else {})}
+                **({"ellipsoid_unions": [
+                    {k: union_unif(unif_cases, m)[k] for k in (
+                        "m", "us", "plain_us", "device_us", "bound_us",
+                        "bound_by")} for m in UNION_SLOTS],
+                    **({"parent_bench": parent_of(name)} if parent else {})}
+                   if name == "unif_valid" else {})}
 
     def step_entry(name):
         """A proposal-step kernel's line: its main drive's shape in
@@ -5345,7 +5658,7 @@ def main():
                 "max_abs_err": max(c["max_abs_err"] for c in steps
                                    if c["kernel"] == name),
                 "ms": rec["us"] / 1e3, "plain_ms": rec["plain_us"] / 1e3,
-                "bound_ms": rec["bound_us"] / 1e3, "bound_by": "bytes",
+                "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"],
                 "library_ms": None,
                 "library_note": "no one PyTorch call computes this step",
                 "shape": rec["shape"], "dtype": "float64",

@@ -16,28 +16,33 @@
 // once):
 //   doubling_point: the position each likelihood call reads, by mode: the
 //     step's two end probes (its interval (-r0, 1 - r0), the step's capped
-//     direction and start point taken into the round's buffers), the side
-//     a doubling evaluates (where(go_left, l, r) after the doubling), a
-//     shrink candidate l + r * (right - left), or a halving's mid; then the
-//     point u0 + x * direction, its cube check with the lane's mask, and
-//     the point clamped into the cube (where the likelihood is evaluated).
-//     Zeroes the `any` flag for the kernel after the likelihood to raise.
+//     direction and start point taken into the round's buffers; behind a
+//     set round gate no lane counts), the side a doubling evaluates
+//     (where(go_left, l, r) after the doubling) or a shrink candidate
+//     l + r * (right - left); then the point u0 + x * direction, its cube
+//     check with the lane's mask, and the point clamped into the cube
+//     (where the likelihood is evaluated).  Zeroes the `any` flag for the
+//     kernel after the likelihood to raise.
 //   doubling_expand: after the end probes, the step's initial state; after
 //     a doubling, one side of each active lane's interval doubled (the side
 //     drawn at random), its end value, the evaluations, the expansion tally
 //     (grow clamped at 2^30), and whether the lane still expands.
 //   doubling_halve: one halving of the acceptance test for the lanes whose
 //     candidate is above the threshold: the sides, the divergence flag, the
-//     rejection, the evaluations.
+//     rejection, the evaluations; then the next halving's probe (its mid
+//     0.5 * (lhat + rhat), the point, its cube check with the lanes that
+//     halve on, the point clamped) and the `any` flag, in one block.
 //   doubling_shrink: a shrink candidate's outcome before the halvings (its
-//     logl, whether it is above the threshold, the test's start), and its
-//     resolution after them (the test's verdict and evaluations, the lane's
-//     point where it accepts, the shrunk interval where it rejects).
+//     logl, whether it is above the threshold, the test's start and the
+//     first halving's probe), and its resolution after them (the test's
+//     verdict and evaluations, the lane's point where it accepts, the
+//     shrunk interval where it rejects).
 //
 // What bounds it on this card: nothing the card measures.  A call moves a
 // few values a lane and a row of ndim values (~20 kB at q 256, ndim 3:
-// ~0.006 us at 3.35 TB/s); a launch costs microseconds of latency, and the
-// host's Python around it tens.  The design answer is to take the host
+// ~0.006 us at 3.35 TB/s); a launch costs ~0.8 us of latency and each
+// chain of dependent trips to memory ~1,000 SM cycles, and the host's
+// Python around it tens of us.  The design answer is to take the host
 // out of each loop turn: the round's buffers and the argument tables are
 // made once per round shape, the clamp and the -inf mask (once torch ops
 // around the likelihood) are folded in here, each kernel takes only device
@@ -46,10 +51,23 @@
 // candidate, a halving, a shrink's resolution: the draws, these kernels,
 // the batched likelihood, the blob's copy or select and the flag's copy to
 // pinned host memory -- is captured once as a CUDA graph and replayed, as
-// the JAX package traces its loop bodies once.  doubling_point runs one
-// thread per (lane, dimension) element, so that a warp's loads and stores
-// are neighbouring addresses (a lane's cube check is an AND over its
-// threads, as in rwalk_step.cu); the other three one thread a lane.
+// the JAX package traces its loop bodies once.  Then the launches in a
+// segment: a halving's probe reads only what the kernel before it wrote,
+// so that kernel (the candidate's doubling_shrink, or the last halving)
+// writes it, and a halving segment is the likelihood and doubling_halve;
+// the round gate is read in the end probes' kernel, not applied by torch
+// ops after it.  doubling_point and doubling_shrink run one thread per
+// (lane, dimension), so that a warp's loads and stores are neighbouring
+// addresses (a lane's cube check is an AND over its threads, as in
+// rwalk_step.cu); doubling_halve, one block that must also write the
+// flag, one thread per four dimensions of a lane (one a lane up to four
+// dimensions), so that up to 1,024 lanes take one pass (its first design,
+// a thread per (lane, dimension), took 2.8 us at (256, 3) on 1,024
+// threads; this one ~2.2 us on 256).  Each issues every load of
+// a lane at once (one trip to memory; doubling_point's step start reads
+// its direction's row by the step, a second) and writes the lane's
+// values after the group's vote, which orders its threads' loads before
+// them; doubling_expand one thread a lane.
 //
 // Rounding: each eager op rounds once, so every product and sum here is an
 // explicit round-to-nearest intrinsic, which nvcc never contracts into an
@@ -80,13 +98,121 @@ template <> struct Op<float> {
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 };
 
-// doubling_point's modes (ops/proposals.py, P_*)
-enum { P_START_L = 0, P_START_R = 1, P_DOUBLE = 2, P_SHRINK = 3, P_HALVE = 4 };
+// doubling_point's modes (ops/proposals.py, P_*); the halving's mid
+// (P_HALVE) is probed by the kernels before each halving
+enum { P_START_L = 0, P_START_R = 1, P_DOUBLE = 2, P_SHRINK = 3 };
 // doubling_expand's and doubling_shrink's (X_*, S_*)
 enum { X_INIT = 0, X_DOUBLE = 1 };
 enum { S_CANDIDATE = 0, S_RESOLVE = 1 };
 
 const int BLOCK = 128;
+// the threads of doubling_halve's one block
+const int HALVE_BLOCK = 1024;
+const unsigned FULL = 0xffffffffu;
+
+// A lane's cube check over its group of `width` threads (a power of two
+// <= 32, or a multiple of 32): the AND of their votes.  Every thread of a
+// warp calls it, and past 32 threads a lane every thread of the block
+// (two barriers, `warp_all` one entry a warp).
+__device__ __forceinline__ bool group_all(bool in, int width,
+                                          int* warp_all) {
+  const int t = threadIdx.x;
+  if (width <= 32) {
+    const unsigned vote = __ballot_sync(FULL, in);
+    const unsigned group =
+        width == 32 ? FULL : ((1u << width) - 1u) << ((t & 31) & ~(width - 1));
+    return (vote & group) == group;
+  }
+  const bool w = __all_sync(FULL, in);
+  if ((t & 31) == 0) warp_all[t >> 5] = w;
+  __syncthreads();
+  const int nw = width >> 5, first = (t / width) * nw;
+  bool all = true;
+  for (int i = 0; i < nw; ++i) all = all && warp_all[first + i] != 0;
+  __syncthreads();
+  return all;
+}
+
+// The thread's first H elements of a lane's start and direction rows and
+// of the cube check's mask (the dimensions sub, sub + width, ...), loaded
+// with the lane's values: where width * H >= ndim a thread has no other,
+// so a kernel's loads are one trip to memory.  doubling_point and
+// doubling_shrink take one (a thread per lane and dimension up to 128),
+// doubling_halve HEAD (fewer threads a lane, for more lanes a pass).
+const int HEAD = 4;
+
+template <typename T, int H>
+struct RowHead {
+  T base[H], dir[H];
+  bool tight[H];
+};
+
+template <typename T, int H>
+__device__ __forceinline__ void head_dirs(RowHead<T, H>& h, const T* dir,
+                                          int ndim, int sub, int width) {
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const int d = sub + r * width;
+    h.dir[r] = d < ndim ? dir[d] : (T)0.0;
+  }
+}
+
+template <typename T, int H>
+__device__ __forceinline__ RowHead<T, H> row_head(
+    const T* u0, const T* dir, const bool* strict, int ndim, int sub,
+    int width, bool dirs = true) {
+  RowHead<T, H> h;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const int d = sub + r * width;
+    h.base[r] = d < ndim ? u0[d] : (T)0.0;
+    h.tight[r] = d >= ndim || strict == nullptr || strict[d];
+  }
+  if (dirs) head_dirs(h, dir, ndim, sub, width);
+  return h;
+}
+
+// The point u0 + x * dir at one dimension: written clamped into `uclamp`
+// (torch's clamp: NaN passes, else min(max(p, 0), 1)) and, where `u_c` is
+// given, as it is; where `u0_out` is given, the start and direction
+// copied there (the step's start).  Returns whether it is in the cube
+// (loosely where the dimension is not bounded).
+template <typename T>
+__device__ __forceinline__ bool probe_one(T base, T dd, bool tight, T x,
+                                          int d, T* uclamp, T* u_c,
+                                          T* u0_out, T* dir_out) {
+  typedef Op<T> O;
+  const T p = O::add(base, O::mul(x, dd));
+  if (u0_out != nullptr) {
+    u0_out[d] = base;
+    dir_out[d] = dd;
+  }
+  if (u_c != nullptr) u_c[d] = p;
+  uclamp[d] = isnan(p) ? p : fmin(fmax(p, (T)0.0), (T)1.0);
+  return tight ? (p > (T)0.0 && p < (T)1.0) : (p > (T)-0.5 && p < (T)1.5);
+}
+
+// The thread's share of a lane's point (the dimensions sub, sub + width,
+// ...): the first H from its loaded head, the others (only where
+// width * H < ndim) loaded here.  Returns whether they are in the cube.
+template <typename T, int H>
+__device__ __forceinline__ bool probe_row(
+    const RowHead<T, H>& h, const T* u0, const T* dir, const bool* strict,
+    T* uclamp, T* u_c, T* u0_out, T* dir_out, T x, int ndim, int sub,
+    int width) {
+  bool in = true;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const int d = sub + r * width;
+    if (d < ndim)
+      in = probe_one(h.base[r], h.dir[r], h.tight[r], x, d, uclamp, u_c,
+                     u0_out, dir_out) && in;
+  }
+  for (int d = sub + H * width; d < ndim; d += width)
+    in = probe_one(u0[d], dir[d], strict == nullptr || strict[d], x, d,
+                   uclamp, u_c, u0_out, dir_out) && in;
+  return in;
+}
 
 template <typename T>
 struct PointArgs {
@@ -100,11 +226,9 @@ struct PointArgs {
   T* right;
   const T* sl;          // the shrink's interval
   const T* sr;
-  const T* lhat;        // the halving's interval
-  const T* rhat;
   const bool* active;   // the lanes that double
   const bool* s_active; // the lanes that shrink
-  const bool* h_active; // the lanes that halve
+  const bool* gate;     // the round gate: set, the end probes count no lane
   const bool* strict;   // (ndim,) or null: all strict
   T* uclamp;            // the point clamped into [0, 1], NaN kept
   bool* incube;         // cube check & the mode's lane mask
@@ -119,99 +243,79 @@ struct PointArgs {
 // (a power of two <= 32, or a multiple of 32 that loops over the
 // dimensions past it), `lanes` groups a block.  The lane's position is
 // computed by each of its threads; its first thread writes the lane's
-// values.
+// values.  Every load a mode needs is issued at once: the lane's draw,
+// interval ends and mask, the gate, the step index, and the direction and
+// start rows (P_START_L's direction row, indexed by the step, is the one
+// second trip).
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) doubling_point_kernel(
     PointArgs<T> a, int width, int lanes) {
   typedef Op<T> O;
-  __shared__ int lane_in[BLOCK / 32];
+  __shared__ int warp_all[BLOCK / 32];
   const int t = threadIdx.x;
   const int g = t / width, sub = t - g * width;
   const int k = blockIdx.x * lanes + g;
-  if (blockIdx.x == 0 && t == 0) *a.any = false;
-  if (width > 32 && sub == 0) lane_in[g] = 1;
-  __syncthreads();
+  const bool live = k < a.q;
+  const int mode = a.mode;
 
-  bool in = true, mask = true;
   T x = (T)0.0, l = (T)0.0, r = (T)0.0;
-  if (k < a.q) {
-    switch (a.mode) {
-      case P_START_L: {
-        const T r0 = a.draw[k];
-        l = -r0;
-        r = O::sub((T)1.0, r0);
-        x = l;
-        break;
-      }
-      case P_START_R:
-        x = a.right[k];
-        break;
-      case P_DOUBLE: {
-        mask = a.active[k];
-        const bool go_left = a.draw[k] < (T)0.5;
-        const T lo = a.left[k], hi = a.right[k];
-        const T w = O::sub(hi, lo);
-        const T l2 = (mask && go_left) ? O::sub(lo, w) : lo;
-        const T r2 = (mask && !go_left) ? O::add(hi, w) : hi;
-        x = go_left ? l2 : r2;
-        break;
-      }
-      case P_SHRINK: {
-        mask = a.s_active[k];
-        const T lo = a.sl[k];
-        x = O::add(lo, O::mul(a.draw[k], O::sub(a.sr[k], lo)));
-        break;
-      }
-      default:  // P_HALVE
-        mask = a.h_active[k];
-        x = O::mul((T)0.5, O::add(a.lhat[k], a.rhat[k]));
-    }
+  bool mask = true, in = true;
+  if (live) {
     const i64 row = (i64)k * a.ndim;
-    // the step index clamped to the last step, as a round never passes it
-    const i64 step = *a.step < a.n_steps - 1 ? *a.step : a.n_steps - 1;
-    const T* drow = a.dirs + ((i64)k * a.n_steps + step) * a.ndim;
-    for (int d = sub; d < a.ndim; d += width) {
-      T dd, base;
-      if (a.mode == P_START_L) {
-        dd = drow[d];
-        base = a.u[row + d];
-        a.dir[row + d] = dd;
-        a.u0[row + d] = base;
-      } else {
-        dd = a.dir[row + d];
-        base = a.u0[row + d];
-      }
-      const T p = O::add(base, O::mul(x, dd));
-      if (a.mode == P_SHRINK) a.u_c[row + d] = p;
-      // torch's CUDA clamp: NaN passes, else min(max(p, 0), 1)
-      a.uclamp[row + d] = isnan(p) ? p : fmin(fmax(p, (T)0.0), (T)1.0);
-      const bool strict = a.strict == nullptr || a.strict[d];
-      in = in && (strict ? (p > (T)0.0 && p < (T)1.0)
-                         : (p > (T)-0.5 && p < (T)1.5));
+    const bool start = mode == P_START_L;
+    // the step's start is the lane's point; the direction's row is
+    // indexed by the step, the one second trip
+    const T* base = start ? a.u + row : a.u0 + row;
+    const T* dir = a.dir + row;
+    RowHead<T, 1> h = row_head<T, 1>(base, dir, a.strict, a.ndim, sub,
+                                     width, !start);
+    if (start) {
+      const i64 s = *a.step;
+      const T r0 = a.draw[k];
+      mask = !*a.gate;
+      // the step index clamped to the last step, as a round never passes
+      // it
+      const i64 step = s < a.n_steps - 1 ? s : a.n_steps - 1;
+      l = -r0;
+      r = O::sub((T)1.0, r0);
+      x = l;
+      dir = a.dirs + ((i64)k * a.n_steps + step) * a.ndim;
+      head_dirs(h, dir, a.ndim, sub, width);
+    } else if (mode == P_START_R) {
+      x = a.right[k];
+      mask = !*a.gate;
+    } else if (mode == P_DOUBLE) {
+      const bool act = a.active[k];
+      const T dr = a.draw[k], lo = a.left[k], hi = a.right[k];
+      mask = act;
+      const bool go_left = dr < (T)0.5;
+      const T w = O::sub(hi, lo);
+      const T l2 = (act && go_left) ? O::sub(lo, w) : lo;
+      const T r2 = (act && !go_left) ? O::add(hi, w) : hi;
+      x = go_left ? l2 : r2;
+    } else {  // P_SHRINK
+      const bool act = a.s_active[k];
+      const T dr = a.draw[k], lo = a.sl[k], hi = a.sr[k];
+      mask = act;
+      x = O::add(lo, O::mul(dr, O::sub(hi, lo)));
     }
+    in = probe_row(h, base, dir, a.strict, a.uclamp + row,
+                   mode == P_SHRINK ? a.u_c + row : (T*)nullptr,
+                   start ? a.u0 + row : (T*)nullptr,
+                   start ? a.dir + row : (T*)nullptr, x, a.ndim, sub, width);
   }
   // the cube check: AND over the lane's threads (threads past q vote true)
-  bool all_in;
-  if (width <= 32) {
-    const unsigned vote = __ballot_sync(0xffffffffu, in);
-    const unsigned group =
-        width == 32 ? 0xffffffffu
-                    : ((1u << width) - 1u) << ((t & 31) & ~(width - 1));
-    all_in = (vote & group) == group;
-  } else {
-    if (!__all_sync(0xffffffffu, in) && (t & 31) == 0) lane_in[g] = 0;
-    __syncthreads();
-    all_in = lane_in[g] != 0;
-  }
-  if (sub != 0 || k >= a.q) return;
-  if (a.mode == P_START_L) {
-    a.incube_l[k] = all_in;
+  const bool all_in = group_all(in, width, warp_all);
+  if (blockIdx.x == 0 && t == 0) *a.any = false;
+  if (sub != 0 || !live) return;
+  if (mode == P_START_L) {
+    a.incube_l[k] = all_in && mask;
     a.left[k] = l;
     a.right[k] = r;
   } else {
     a.incube[k] = all_in && mask;
   }
-  if (a.mode == P_SHRINK) a.x1[k] = x;
+  if (mode == P_SHRINK) a.x1[k] = x;
 }
 
 template <typename T>
@@ -285,7 +389,7 @@ __global__ void __launch_bounds__(BLOCK) doubling_expand_kernel(
 
 template <typename T>
 struct HalveArgs {
-  const bool* incube;
+  bool* incube;         // the mid's cube check; then the next mid's
   const T* logl_x;      // the likelihood's raw values, masked here
   const T* loglstar;
   const T* x1;
@@ -298,47 +402,91 @@ struct HalveArgs {
   bool* h_active;
   i64* d_nc;
   bool* any;
-  int q;
+  const T* u0;          // (q, ndim): the step's start points
+  const T* dir;         // (q, ndim): the step's direction
+  const bool* strict;   // (ndim,) or null: all strict
+  T* uclamp;            // (q, ndim): the next mid's point, clamped
+  int q, ndim;
 };
 
+// One halving and the next halving's probe, in one block: the lanes in
+// groups of `width` threads as doubling_point's, `lanes` groups a pass,
+// passes until every lane is done.  The lane's values are loaded by each
+// of its threads at once with its start and direction rows; its first
+// thread writes the lane's values.  The `any` flag (does a lane halve on)
+// is the block's OR, written once by thread 0 after the last pass: no
+// other block, and no zeroing launch before it.
 template <typename T>
-__global__ void __launch_bounds__(BLOCK) doubling_halve_kernel(
-    HalveArgs<T> a) {
+__global__ void __launch_bounds__(HALVE_BLOCK) doubling_halve_kernel(
+    HalveArgs<T> a, int width, int lanes) {
   typedef Op<T> O;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= a.q) return;
-  const T ls = *a.loglstar, x1 = a.x1[k];
-  T lh = a.lhat[k], rh = a.rhat[k], flh = a.f_lhat[k], frh = a.f_rhat[k];
-  const T mid = O::mul((T)0.5, O::add(lh, rh));
-  const bool df = a.dflag[k] || ((T)0.0 < mid && mid <= x1) ||
-                  (x1 < mid && mid <= (T)0.0);
-  const bool go_right = x1 < mid;  // shrink the right side toward x1
-  const bool act = a.h_active[k];
-  const T lm = a.incube[k] ? a.logl_x[k] : (T)-INFINITY;
-  a.d_nc[k] += act;
-  if (act && go_right) {
-    frh = lm;
-    rh = mid;
+  __shared__ int warp_all[HALVE_BLOCK / 32];
+  const int t = threadIdx.x;
+  const int g = t / width, sub = t - g * width;
+  const T ls = *a.loglstar;
+  bool mine = false;
+  for (int base = 0; base < a.q; base += lanes) {
+    const int k = base + g;
+    const bool live = k < a.q;
+    bool in = true, still = false, newly = false, df = false, act = false;
+    T lh = (T)0.0, rh = (T)0.0, flh = (T)0.0, frh = (T)0.0;
+    i64 dnc = 0;
+    if (live) {
+      const i64 row = (i64)k * a.ndim;
+      const RowHead<T, HEAD> hd = row_head<T, HEAD>(
+          a.u0 + row, a.dir + row, a.strict, a.ndim, sub, width);
+      const T x1 = a.x1[k];
+      lh = a.lhat[k];
+      rh = a.rhat[k];
+      flh = a.f_lhat[k];
+      frh = a.f_rhat[k];
+      act = a.h_active[k];
+      const bool df0 = a.dflag[k], inc = a.incube[k];
+      const T lx = a.logl_x[k];
+      dnc = a.d_nc[k];
+      const T mid = O::mul((T)0.5, O::add(lh, rh));
+      df = df0 || ((T)0.0 < mid && mid <= x1) || (x1 < mid && mid <= (T)0.0);
+      const bool go_right = x1 < mid;  // shrink the right side toward x1
+      const T lm = inc ? lx : (T)-INFINITY;
+      if (act && go_right) {
+        frh = lm;
+        rh = mid;
+      }
+      if (act && !go_right) {
+        flh = lm;
+        lh = mid;
+      }
+      newly = act && df && ls >= flh && ls >= frh;
+      still = act && !newly && O::sub(rh, lh) > (T)1.1;
+      // the next halving's mid, probed as doubling_point's P_HALVE was
+      const T next = O::mul((T)0.5, O::add(lh, rh));
+      in = probe_row(hd, a.u0 + row, a.dir + row, a.strict, a.uclamp + row,
+                     (T*)nullptr, (T*)nullptr, (T*)nullptr, next, a.ndim,
+                     sub, width);
+    }
+    // the vote orders every thread's loads of its lane before the lane's
+    // first thread writes it
+    const bool all_in = group_all(in, width, warp_all);
+    if (live && sub == 0) {
+      a.d_nc[k] = dnc + act;
+      a.lhat[k] = lh;
+      a.rhat[k] = rh;
+      a.f_lhat[k] = flh;
+      a.f_rhat[k] = frh;
+      a.dflag[k] = df;
+      if (newly) a.reject[k] = true;
+      a.h_active[k] = still;
+      a.incube[k] = all_in && still;
+      mine = mine || still;
+    }
   }
-  if (act && !go_right) {
-    flh = lm;
-    lh = mid;
-  }
-  const bool newly = act && df && ls >= flh && ls >= frh;
-  const bool still = act && !newly && O::sub(rh, lh) > (T)1.1;
-  a.lhat[k] = lh;
-  a.rhat[k] = rh;
-  a.f_lhat[k] = flh;
-  a.f_rhat[k] = frh;
-  a.dflag[k] = df;
-  if (newly) a.reject[k] = true;
-  a.h_active[k] = still;
-  if (still) *a.any = true;
+  const bool any = __syncthreads_or(mine) != 0;
+  if (t == 0) *a.any = any;
 }
 
 template <typename T>
 struct ShrinkArgs {
-  const bool* incube;
+  const bool* incube;   // the candidate's cube check (S_CANDIDATE)
   const T* v_x;         // (q, npdim): the candidate's v (S_CANDIDATE)
   const T* logl_x;      // the candidate's raw values (S_CANDIDATE)
   const T* loglstar;
@@ -370,36 +518,78 @@ struct ShrinkArgs {
   bool* newly;          // the lanes that accept (the blob's select)
   bool* any;            // a flag: does any lane run the halving test
   bool* any_shrink;     // a flag: does any lane shrink on
+  const T* u0;          // (q, ndim): the step's start points
+  const T* dir;         // (q, ndim): the step's direction
+  const bool* strict;   // (ndim,) or null: all strict
+  T* uclamp;            // (q, ndim): the first halving's point, clamped
+  bool* incube_h;       // the first halving's cube check (= incube)
   int q, ndim, npdim, mode;
 };
 
+// Lanes in groups of `width` threads as doubling_point's.  S_CANDIDATE
+// also probes the first halving's mid (as doubling_point's P_HALVE was):
+// its point clamped into `uclamp` and its cube check with the lanes that
+// start the test.  The likelihood's v_x may be `uclamp` itself (an
+// identity prior transform returns its input): each thread reads its
+// elements of the v_x row before it writes the same elements of the
+// probe's row, and the probe's row of a lane is written by the lane's
+// own threads only, so no element is overwritten before it is read.
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) doubling_shrink_kernel(
-    ShrinkArgs<T> a) {
+    ShrinkArgs<T> a, int width, int lanes) {
   typedef Op<T> O;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a.mode == S_CANDIDATE && blockIdx.x == 0 && threadIdx.x == 0)
-    *a.any_shrink = false;
-  if (k >= a.q) return;
+  __shared__ int warp_all[BLOCK / 32];
+  const int t = threadIdx.x;
+  const int g = t / width, sub = t - g * width;
+  const int k = blockIdx.x * lanes + g;
+  const bool live = k < a.q;
   const T ls = *a.loglstar;
-  const bool act = a.s_active[k];
   if (a.mode == S_CANDIDATE) {
-    const T lx = a.incube[k] ? a.logl_x[k] : (T)-INFINITY;
-    for (int d = 0; d < a.npdim; ++d)
-      a.v_c[(i64)k * a.npdim + d] = a.v_x[(i64)k * a.npdim + d];
+    bool in = true, h = false, good = false, act = false;
+    T l = (T)0.0, r = (T)0.0, fl = (T)0.0, fr = (T)0.0, lx = (T)0.0;
+    i64 nc = 0, ncon = 0;
+    if (live) {
+      const i64 vrow = (i64)k * a.npdim, row = (i64)k * a.ndim;
+      const RowHead<T, 1> hd = row_head<T, 1>(
+          a.u0 + row, a.dir + row, a.strict, a.ndim, sub, width);
+      // the candidate's v, read before the probe's row is written (v_x
+      // may be uclamp)
+      const T v0 = sub < a.npdim ? a.v_x[vrow + sub] : (T)0.0;
+      const bool inc = a.incube[k];
+      act = a.s_active[k];
+      const T lx0 = a.logl_x[k];
+      l = a.left[k];
+      r = a.right[k];
+      fl = a.fl[k];
+      fr = a.fr[k];
+      nc = a.nc[k];
+      ncon = a.n_con[k];
+      if (sub < a.npdim) a.v_c[vrow + sub] = v0;
+      for (int d = sub + width; d < a.npdim; d += width)
+        a.v_c[vrow + d] = a.v_x[vrow + d];
+      lx = inc ? lx0 : (T)-INFINITY;
+      good = lx > ls;
+      // the acceptance test's start on the doubling's interval
+      h = O::sub(r, l) > (T)1.1 && act && good;
+      in = probe_row(hd, a.u0 + row, a.dir + row, a.strict, a.uclamp + row,
+                     (T*)nullptr, (T*)nullptr, (T*)nullptr,
+                     O::mul((T)0.5, O::add(l, r)), a.ndim, sub, width);
+    }
+    // the vote orders every thread's loads of its lane before the lane's
+    // first thread writes it
+    const bool all_in = group_all(in, width, warp_all);
+    if (blockIdx.x == 0 && t == 0) *a.any_shrink = false;
+    if (!live || sub != 0) return;
     a.logl_c[k] = lx;
-    a.nc[k] += act;
-    a.n_con[k] += act;
-    const bool good = lx > ls;
+    a.nc[k] = nc + act;
+    a.n_con[k] = ncon + act;
     a.good[k] = good;
-    // the acceptance test's start on the doubling's interval
-    const T l = a.left[k], r = a.right[k];
-    const bool h = O::sub(r, l) > (T)1.1 && act && good;
     a.h_active[k] = h;
+    a.incube_h[k] = all_in && h;
     a.lhat[k] = l;
     a.rhat[k] = r;
-    a.f_lhat[k] = a.fl[k];
-    a.f_rhat[k] = a.fr[k];
+    a.f_lhat[k] = fl;
+    a.f_rhat[k] = fr;
     a.dflag[k] = false;
     a.reject[k] = false;
     a.d_nc[k] = 0;
@@ -407,19 +597,36 @@ __global__ void __launch_bounds__(BLOCK) doubling_shrink_kernel(
     return;
   }
   // S_RESOLVE
-  const bool good0 = a.good[k];
-  if (act && good0) a.nc[k] += a.d_nc[k];
-  const bool good = good0 && !a.reject[k];
-  const bool newly = act && good;
-  if (newly) {
-    for (int d = 0; d < a.ndim; ++d)
-      a.u[(i64)k * a.ndim + d] = a.u_c[(i64)k * a.ndim + d];
-    for (int d = 0; d < a.npdim; ++d)
-      a.v[(i64)k * a.npdim + d] = a.v_c[(i64)k * a.npdim + d];
-    a.logl[k] = a.logl_c[k];
+  bool act = false, good0 = false, newly = false;
+  T x = (T)0.0;
+  i64 dnc = 0;
+  if (live) {
+    // the candidate's rows loaded with the lane's values, kept where it
+    // accepts
+    const i64 row = (i64)k * a.ndim, vrow = (i64)k * a.npdim;
+    const T u1 = sub < a.ndim ? a.u_c[row + sub] : (T)0.0;
+    const T v1 = sub < a.npdim ? a.v_c[vrow + sub] : (T)0.0;
+    act = a.s_active[k];
+    good0 = a.good[k];
+    const bool rej = a.reject[k];
+    x = a.x1[k];
+    dnc = a.d_nc[k];
+    newly = act && good0 && !rej;
+    if (newly) {
+      if (sub < a.ndim) a.u[row + sub] = u1;
+      if (sub < a.npdim) a.v[vrow + sub] = v1;
+      for (int d = sub + width; d < a.ndim; d += width)
+        a.u[row + d] = a.u_c[row + d];
+      for (int d = sub + width; d < a.npdim; d += width)
+        a.v[vrow + d] = a.v_c[vrow + d];
+    }
   }
-  const bool bad = act && !good;
-  const T x = a.x1[k];
+  // a barrier for the lane's threads: their loads before its writes
+  group_all(true, width, warp_all);
+  if (!live || sub != 0) return;
+  if (act && good0) a.nc[k] += dnc;
+  if (newly) a.logl[k] = a.logl_c[k];
+  const bool bad = act && !newly;
   if (bad && x < (T)0.0) a.sl[k] = x;
   if (bad && x > (T)0.0) a.sr[k] = x;
   a.s_active[k] = bad;
@@ -427,11 +634,19 @@ __global__ void __launch_bounds__(BLOCK) doubling_shrink_kernel(
   if (bad) *a.any_shrink = true;
 }
 
-// threads a lane for doubling_point
+// threads a lane for doubling_point, doubling_halve and doubling_shrink
 int lane_width(int ndim) {
   if (ndim > 32) return ndim >= BLOCK ? BLOCK : (ndim + 31) / 32 * 32;
   int w = 1;
   while (w < ndim) w *= 2;
+  return w;
+}
+
+// threads a lane for doubling_halve: a power of two up to a warp, each
+// thread HEAD dimensions (and a loop past them beyond 128)
+int halve_width(int ndim) {
+  int w = 1;
+  while (w * HEAD < ndim && w < 32) w *= 2;
   return w;
 }
 
@@ -441,17 +656,16 @@ template <typename T>
 int launch_point(void* const* p, int q, int ndim, int n_steps, int mode,
                  void* stream) {
   if (q < 1 || ndim < 1 || n_steps < 1 || mode < P_START_L ||
-      mode > P_HALVE)
+      mode > P_SHRINK || !p[12])
     return (int)cudaErrorInvalidValue;
-  PointArgs<T> a{(i64*)p[0],        (const T*)p[1],    (T*)p[2],
-                 (const T*)p[3],    (T*)p[4],          (const T*)p[5],
-                 (T*)p[6],          (T*)p[7],          (const T*)p[8],
-                 (const T*)p[9],    (const T*)p[10],   (const T*)p[11],
-                 (const bool*)p[12], (const bool*)p[13], (const bool*)p[14],
-                 (const bool*)p[15], (T*)p[16],        (bool*)p[17],
-                 (bool*)p[18],      (T*)p[19],         (T*)p[20],
-                 (bool*)p[21],      q,                 ndim,
-                 n_steps,           mode};
+  PointArgs<T> a{(i64*)p[0],         (const T*)p[1],     (T*)p[2],
+                 (const T*)p[3],     (T*)p[4],           (const T*)p[5],
+                 (T*)p[6],           (T*)p[7],           (const T*)p[8],
+                 (const T*)p[9],     (const bool*)p[10], (const bool*)p[11],
+                 (const bool*)p[12], (const bool*)p[13], (T*)p[14],
+                 (bool*)p[15],       (bool*)p[16],       (T*)p[17],
+                 (T*)p[18],          (bool*)p[19],       q,
+                 ndim,               n_steps,            mode};
   const int width = lane_width(ndim), lanes = BLOCK / width;
   doubling_point_kernel<T><<<(q + lanes - 1) / lanes, lanes * width, 0,
                              (cudaStream_t)stream>>>(a, width, lanes);
@@ -476,15 +690,24 @@ int launch_expand(void* const* p, int q, int mode, void* stream) {
 }
 
 template <typename T>
-int launch_halve(void* const* p, int q, void* stream) {
-  if (q < 1 || !p[1]) return (int)cudaErrorInvalidValue;
-  HalveArgs<T> a{(const bool*)p[0], (const T*)p[1], (const T*)p[2],
-                 (const T*)p[3],    (T*)p[4],       (T*)p[5],
-                 (T*)p[6],          (T*)p[7],       (bool*)p[8],
-                 (bool*)p[9],       (bool*)p[10],   (i64*)p[11],
-                 (bool*)p[12],      q};
-  doubling_halve_kernel<T><<<blocks(q), BLOCK, 0, (cudaStream_t)stream>>>(
-      a);
+int launch_halve(void* const* p, int q, int ndim, void* stream) {
+  if (q < 1 || ndim < 1 || !p[1]) return (int)cudaErrorInvalidValue;
+  HalveArgs<T> a{(bool*)p[0],        (const T*)p[1],  (const T*)p[2],
+                 (const T*)p[3],     (T*)p[4],        (T*)p[5],
+                 (T*)p[6],           (T*)p[7],        (bool*)p[8],
+                 (bool*)p[9],        (bool*)p[10],    (i64*)p[11],
+                 (bool*)p[12],       (const T*)p[13], (const T*)p[14],
+                 (const bool*)p[15], (T*)p[16],       q,
+                 ndim};
+  // one block: as many lanes a pass as fit (each thread HEAD dimensions
+  // of its lane, so a lane's threads are fewer than the other kernels'),
+  // the threads a whole number of warps
+  const int width = halve_width(ndim);
+  const int most = HALVE_BLOCK / width;
+  const int want = (q < most ? q : most) * width;
+  const int threads = (want + 31) / 32 * 32;
+  doubling_halve_kernel<T><<<1, threads, 0, (cudaStream_t)stream>>>(
+      a, width, threads / width);
   return (int)cudaGetLastError();
 }
 
@@ -495,20 +718,24 @@ int launch_shrink(void* const* p, int q, int ndim, int npdim, int mode,
       (mode != S_CANDIDATE && mode != S_RESOLVE) ||
       (mode == S_CANDIDATE && (!p[2] || (npdim > 0 && !p[1]))))
     return (int)cudaErrorInvalidValue;
-  ShrinkArgs<T> a{(const bool*)p[0], (const T*)p[1],  (const T*)p[2],
-                  (const T*)p[3],    (bool*)p[4],     (bool*)p[5],
-                  (const T*)p[6],    (const T*)p[7],  (const T*)p[8],
-                  (const T*)p[9],    (T*)p[10],       (T*)p[11],
-                  (T*)p[12],         (T*)p[13],       (bool*)p[14],
-                  (bool*)p[15],      (bool*)p[16],    (i64*)p[17],
-                  (T*)p[18],         (T*)p[19],       (i64*)p[20],
-                  (i64*)p[21],       (T*)p[22],       (T*)p[23],
-                  (T*)p[24],         (const T*)p[25], (const T*)p[26],
-                  (T*)p[27],         (T*)p[28],       (bool*)p[29],
-                  (bool*)p[30],      (bool*)p[31],    q,
-                  ndim,              npdim,           mode};
-  doubling_shrink_kernel<T><<<blocks(q), BLOCK, 0, (cudaStream_t)stream>>>(
-      a);
+  ShrinkArgs<T> a{(const bool*)p[0],  (const T*)p[1],  (const T*)p[2],
+                  (const T*)p[3],     (bool*)p[4],     (bool*)p[5],
+                  (const T*)p[6],     (const T*)p[7],  (const T*)p[8],
+                  (const T*)p[9],     (T*)p[10],       (T*)p[11],
+                  (T*)p[12],          (T*)p[13],       (bool*)p[14],
+                  (bool*)p[15],       (bool*)p[16],    (i64*)p[17],
+                  (T*)p[18],          (T*)p[19],       (i64*)p[20],
+                  (i64*)p[21],        (T*)p[22],       (T*)p[23],
+                  (T*)p[24],          (const T*)p[25], (const T*)p[26],
+                  (T*)p[27],          (T*)p[28],       (bool*)p[29],
+                  (bool*)p[30],       (bool*)p[31],    (const T*)p[32],
+                  (const T*)p[33],    (const bool*)p[34], (T*)p[35],
+                  (bool*)p[36],       q,               ndim,
+                  npdim,              mode};
+  const int width = lane_width(ndim > npdim ? ndim : npdim);
+  const int lanes = BLOCK / width;
+  doubling_shrink_kernel<T><<<(q + lanes - 1) / lanes, lanes * width, 0,
+                              (cudaStream_t)stream>>>(a, width, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -529,12 +756,11 @@ int launch_shrink(void* const* p, int q, int ndim, int npdim, int mode,
     return launch_expand<T>(p, q, mode, stream);                           \
   }                                                                        \
   extern "C" int dynesty_doubling_halve_##TAG(void* const* p, int q,       \
-                                              int unused1, int unused2,    \
-                                              int unused3, void* stream) { \
+                                              int ndim, int unused1,       \
+                                              int unused2, void* stream) { \
     (void)unused1;                                                         \
     (void)unused2;                                                         \
-    (void)unused3;                                                         \
-    return launch_halve<T>(p, q, stream);                                  \
+    return launch_halve<T>(p, q, ndim, stream);                            \
   }                                                                        \
   extern "C" int dynesty_doubling_shrink_##TAG(void* const* p, int q,      \
                                                int ndim, int npdim,        \

@@ -7,8 +7,8 @@
 // ellipsoids, _sample_ellipsoid_union :148 (:165-174).  XLA runs all of it
 // on the device.  The port's wave (dynesty_tpu_torch/internal/kernels.py,
 // UnifGraph.wave) draws its candidates with torch (the union's choice, the
-// ball, the products of the membership test, the acceptance uniform) and
-// calls the user's batched likelihood between these two kernels; the
+// ball and its map, the acceptance uniform) and calls the user's batched
+// likelihood between these two kernels; the
 // eager wave it replaces took ~30 small launches, the width on the host
 // and one device read in its middle.  That code stays as the plain
 // version (dynesty_tpu_torch/ops/proposals.py, unif_valid_plain and
@@ -16,12 +16,19 @@
 //
 // Two kernels a wave, on the round's own buffers (ops/proposals.py,
 // UnifRound: made once per wave shape, the argument tables filled once):
-//   unif_valid, one thread a lane: the lane is launched (lane < the
+//   unif_valid, a thread a lane (over a union of m ellipsoids up to 32
+//     threads a lane, a slot each): the lane is launched (lane < the
 //     wave's width, read from the round's state), its candidate is in the
 //     cube (loose where a dimension is not bounded) and, over ellipsoids,
-//     accepted by the overlap test: nin = the valid slots whose quadratic
-//     form is < 1 (or, where none is, <= 1 + 1e-3), nin > 0 and
-//     u_accept < 1 / nin; over balls and cubes the eager acceptance flag.
+//     accepted by the overlap test: each valid slot's quadratic form
+//     (x - c)^T A (x - c) computed here from the round's centres and
+//     matrices (once a subtraction and an einsum with (q, m, ncdim)
+//     temporaries in torch), nin = the slots whose form is < 1 (or, where
+//     none is, <= 1 + 1e-3), nin > 0 and u_accept < 1 / nin; over balls
+//     and cubes the eager acceptance flag.  It also writes the
+//     likelihood's input into the round's buffers: the candidate and the
+//     other dimensions' uniforms (once a torch cat) and the same clamped
+//     into the cube (once a torch clamp).
 //   unif_place, one block: a warp a word of 32 lanes (up to 16 warps,
 //     each taking every 16th word past that) and one warp for the state.
 //     success = valid & logl > loglstar (logl masked to -inf off the
@@ -43,10 +50,17 @@
 // 3.35 TB/s); an empty launch costs ~0.8 us.  The design answer is to
 // take the host out of the wave: the width, the counts and the
 // compaction stay on the device, so that where the likelihood runs on
-// the card the whole wave -- the draws, the union's products, these two
-// kernels, the likelihood, the blob's indexed copy and the done flag's
-// copy to pinned host memory -- is one CUDA graph replay and one flag read
-// (internal/kernels.py, UnifGraph).  The kernels take only device
+// the card the whole wave -- the draws, these two kernels, the
+// likelihood, the blob's indexed copy and the done flag's copy to pinned
+// host memory -- is one CUDA graph replay and one flag read
+// (internal/kernels.py, UnifGraph).  A launch costs ~0.8 us and each
+// chain of dependent trips to memory ~1,000 SM cycles, so unif_valid
+// takes in the torch launches on each side of it in the wave (the
+// union's membership products before it, the likelihood input's cat and
+// clamp after it) and issues its loads in one trip; the union's few
+// centres and matrices are read from shared memory, copied there once a
+// block, a candidate of 2 or 3 dimensions is held in registers, and a
+// lane's forms are spread over up to a warp of threads.  The kernels take only device
 // pointers, so a replay reads the round's state, threshold and bound from
 // the same buffers as an eager launch.  Inside unif_place the time is
 // the launch (~0.8 us) and one chain: a trip to memory, the ballots, the
@@ -58,8 +72,11 @@
 //
 // Rounding: the comparisons are IEEE (NaN false), the counts integers, the
 // acceptance's 1 / nin one correctly rounded division (torch's reciprocal),
-// and the width the host's numpy float32 formula with a round-to-nearest
-// intrinsic for every product, quotient, sum and conversion.
+// the quadratic forms in the fixed order of quad_form with a
+// round-to-nearest intrinsic for every difference, product and sum (never
+// contracted into an FMA), the clamp torch's (NaN passes), and the width
+// the host's numpy float32 formula with a round-to-nearest intrinsic for
+// every product, quotient, sum and conversion.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,10 +93,16 @@ template <typename T> struct Op;
 
 template <> struct Op<double> {
   static __device__ __forceinline__ double recip(int n) { return __ddiv_rn(1.0, (double)n); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 };
 
 template <> struct Op<float> {
   static __device__ __forceinline__ float recip(int n) { return __fdiv_rn(1.0f, (float)n); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 };
 
 // threads a block of unif_valid
@@ -89,40 +112,179 @@ const int BLOCK = 128;
 const int PLACE = 17 * 32;
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK) unif_valid_kernel(
-    const T* __restrict__ uc,          // (q, ncdim): the candidates
-    const T* __restrict__ sq,          // (q, m) quadratic forms, or null
-    const T* __restrict__ ua,          // (q,) acceptance uniforms (with sq)
-    const bool* __restrict__ accept,   // (q,) friends' acceptance, or null
-    const bool* __restrict__ mask,     // (m,) the valid slots (with sq)
-    const bool* __restrict__ strict,   // (ncdim,) or null: all bounded
-    const i64* __restrict__ state, bool* __restrict__ valid, int q,
-    int ncdim, int m) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= q) return;
-  bool ok = (i64)k < state[S_WIDTH];
-  for (int d = 0; d < ncdim; ++d) {
-    const T x = uc[(i64)k * ncdim + d];
-    ok = ok && ((strict == nullptr || strict[d])
-                    ? (x > (T)0.0 && x < (T)1.0)
-                    : (x > (T)-0.5 && x < (T)1.5));
-  }
-  if (sq != nullptr) {
-    // torch compares with the Python float 1.0 + 1e-3 cast to T
-    const T loose = (T)(1.0 + 1e-3);
-    int nin = 0, nin_loose = 0;
-    for (int j = 0; j < m; ++j) {
-      const T s = sq[(i64)k * m + j];
-      if (mask[j]) {
-        nin += s < (T)1.0;
-        nin_loose += s <= loose;
-      }
+struct ValidArgs {
+  const T* uc;          // (q, ncdim): the candidates
+  const T* u_ex;        // (q, ndim - ncdim): the other dimensions, or null
+  const T* ua;          // (q,) acceptance uniforms (over ellipsoids)
+  const bool* accept;   // (q,) friends' acceptance, or null
+  const T* ctrs;        // (m, ncdim): the union's centres (with ams)
+  const T* ams;         // (m, ncdim, ncdim): its quadratic forms' matrices
+  const bool* mask;     // (m,) the valid slots
+  const bool* strict;   // (ncdim,) or null: all bounded
+  const i64* state;
+  bool* valid;
+  T* u_prop;            // (q, ndim): the likelihood's input
+  T* uclamp;            // (q, ndim): the same, clamped into the cube
+  int q, ndim, ncdim, m;
+};
+
+// A candidate's quadratic form in slot j, (x - c)^T A (x - c), in this
+// order (ops/proposals.py, ellipsoid_forms_plain, computes the same):
+// d_l = x_l - c_l; t_i = A_i0 d_0 + A_i1 d_1 + ... + A_i(n-1) d_(n-1),
+// summed left to right; sq = d_0 t_0 + d_1 t_1 + ..., left to right;
+// every difference, product and sum rounded once (the intrinsics, never
+// an FMA).  NX > 0: n == NX, the candidate's row held in registers;
+// NX == 0: any n, each d_l formed again from the row where it is used
+// (the same rounding each time).
+template <typename T, int NX>
+__device__ __forceinline__ T quad_form(const T (&x)[NX > 0 ? NX : 1],
+                                       const T* xrow, const T* c,
+                                       const T* A, int n) {
+  typedef Op<T> O;
+  T sq = (T)0.0;
+  if (NX > 0) {
+    T d[NX > 0 ? NX : 1];
+#pragma unroll
+    for (int l = 0; l < NX; ++l) d[l] = O::sub(x[l], c[l]);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T t = O::mul(A[i * NX], d[0]);
+#pragma unroll
+      for (int l = 1; l < NX; ++l) t = O::add(t, O::mul(A[i * NX + l], d[l]));
+      const T p = O::mul(d[i], t);
+      sq = i == 0 ? p : O::add(sq, p);
     }
-    if (nin == 0) nin = nin_loose;  // the round-off rescue
-    ok = ok && nin > 0 && ua[k] < Op<T>::recip(nin);
+    return sq;
   }
-  if (accept != nullptr) ok = ok && accept[k];
-  valid[k] = ok;
+  for (int i = 0; i < n; ++i) {
+    T t = O::mul(A[i * n], O::sub(xrow[0], c[0]));
+    for (int l = 1; l < n; ++l)
+      t = O::add(t, O::mul(A[i * n + l], O::sub(xrow[l], c[l])));
+    const T p = O::mul(O::sub(xrow[i], c[i]), t);
+    sq = i == 0 ? p : O::add(sq, p);
+  }
+  return sq;
+}
+
+// torch's clamp into the cube: NaN passes, else min(max(x, 0), 1)
+template <typename T>
+__device__ __forceinline__ T clamp01(T x) {
+  return isnan(x) ? x : fmin(fmax(x, (T)0.0), (T)1.0);
+}
+
+// A dimension's value into the likelihood's input and its clamp; returns
+// its cube check (loose where the dimension is not bounded).
+template <typename T>
+__device__ __forceinline__ bool take(const ValidArgs<T>& a, i64 row, int i,
+                                     T xi, bool tight) {
+  a.u_prop[row + i] = xi;
+  a.uclamp[row + i] = clamp01(xi);
+  return tight ? (xi > (T)0.0 && xi < (T)1.0)
+               : (xi > (T)-0.5 && xi < (T)1.5);
+}
+
+// A lane is a group of W threads (a power of two up to a warp: the union's
+// slots, up to 32; one over the cube and the friends), BLOCK / W lanes a
+// block.  Every load of the lane is issued at once at the top (the
+// wave's width, the candidate's row and the cube check's mask, ua, the
+// friends' flag) with the block's copy of the union's centres, matrices
+// and mask into shared memory (`staged`; else they are read where they
+// are), before the block's one barrier.  Thread sub computes the forms of
+// the slots sub, sub + W, ... (the forms' dependent chains side by side
+// on W threads) and writes the dimensions sub, sub + W, ... of the
+// likelihood's input; the lane's counts are summed over its threads by
+// shuffles, its cube check by a ballot.
+template <typename T, int NX>
+__global__ void __launch_bounds__(BLOCK) unif_valid_kernel(ValidArgs<T> a,
+                                                           int staged,
+                                                           int W) {
+  extern __shared__ double smem_valid[];
+  const unsigned FULL = 0xffffffffu;
+  const int t = threadIdx.x, g = t / W, sub = t - g * W;
+  const int k = blockIdx.x * (BLOCK / W) + g;
+  const bool live = k < a.q;
+  const int n = NX > 0 ? NX : a.ncdim, m = a.m;
+  const T* xrow = a.uc + (i64)k * n;
+  const i64 width = a.state[S_WIDTH];
+  T x[NX > 0 ? NX : 1];
+  bool tight[NX > 0 ? NX : 1];
+  T ua = (T)0.0;
+  bool acc = true;
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      x[i] = xrow[i];
+      tight[i] = a.strict == nullptr || a.strict[i];
+    }
+    if (m > 0) ua = a.ua[k];
+    if (a.accept != nullptr) acc = a.accept[k];
+  }
+  const T* ctrs = a.ctrs;
+  const T* ams = a.ams;
+  const bool* mask = a.mask;
+  if (m > 0 && staged) {
+    T* sc = (T*)smem_valid;
+    T* sa = sc + m * n;
+    bool* sm = (bool*)(sa + m * n * n);
+    for (int j = t; j < m * n; j += BLOCK) sc[j] = a.ctrs[j];
+    for (int j = t; j < m * n * n; j += BLOCK) sa[j] = a.ams[j];
+    for (int j = t; j < m; j += BLOCK) sm[j] = a.mask[j];
+    __syncthreads();
+    ctrs = sc;
+    ams = sa;
+    mask = sm;
+  }
+
+  // the forms of the thread's slots, counted over the lane's threads
+  // (torch compares with the Python float 1.0 + 1e-3 cast to T)
+  const T loose = (T)(1.0 + 1e-3);
+  int nin = 0, nin_loose = 0;
+  if (live) {
+    for (int j = sub; j < m; j += W) {
+      if (!mask[j]) continue;
+      const T sq = quad_form<T, NX>(x, xrow, ctrs + j * n, ams + j * n * n,
+                                    n);
+      nin += sq < (T)1.0;
+      nin_loose += sq <= loose;
+    }
+  }
+  for (int o = W >> 1; o > 0; o >>= 1) {
+    nin += __shfl_xor_sync(FULL, nin, o);
+    nin_loose += __shfl_xor_sync(FULL, nin_loose, o);
+  }
+
+  // the cube check, and the candidate and the other dimensions into the
+  // likelihood's input: the thread's dimensions
+  bool in = true;
+  if (live) {
+    const i64 row = (i64)k * a.ndim;
+    if (NX > 0) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        if ((i & (W - 1)) == sub)
+          in = take(a, row, i, x[i], tight[i]) && in;
+    } else {
+      for (int i = sub; i < n; i += W)
+        in = take(a, row, i, xrow[i],
+                  a.strict == nullptr || a.strict[i]) && in;
+    }
+    const int nex = a.ndim - n;
+    for (int i = sub; i < nex; i += W) {
+      const T e = a.u_ex[(i64)k * nex + i];
+      a.u_prop[row + n + i] = e;
+      a.uclamp[row + n + i] = clamp01(e);
+    }
+  }
+  const unsigned vote = __ballot_sync(FULL, in);
+  const unsigned group =
+      W == 32 ? FULL : ((1u << W) - 1u) << ((t & 31) & ~(W - 1));
+  if (!live || sub != 0) return;
+  bool ok = (i64)k < width && (vote & group) == group;
+  if (m > 0) {
+    if (nin == 0) nin = nin_loose;  // the round-off rescue
+    ok = ok && nin > 0 && ua < Op<T>::recip(nin);
+  }
+  a.valid[k] = ok && acc;
 }
 
 // n values from src to dst, each chunk's loads issued before its stores
@@ -329,16 +491,51 @@ __global__ void __launch_bounds__(PLACE) unif_place_kernel(
   }
 }
 
+// Whether unif_valid holds a candidate's row in registers at the widths
+// the drives run (2 and 3 dimensions: a kernel each, every other width the
+// generic loop).  A build with -DUNIF_VALID_ROW_REGISTERS=0 takes the
+// generic loop at every width (bench_kernels.py --generic-rows times the
+// two against each other).
+#ifndef UNIF_VALID_ROW_REGISTERS
+#define UNIF_VALID_ROW_REGISTERS 1
+#endif
+
+template <typename T, int NX>
+void launch_valid_nx(const ValidArgs<T>& a, unsigned grid, size_t smem,
+                     int staged, int W, cudaStream_t stream) {
+  unif_valid_kernel<T, NX><<<grid, BLOCK, smem, stream>>>(a, staged, W);
+}
+
 template <typename T>
-int launch_valid(void* const* p, int q, int ncdim, int m, void* stream) {
-  if (q < 1 || ncdim < 1 || !p[0] || !p[6] || !p[7] ||
-      (p[1] && (m < 1 || !p[2] || !p[4])))
+int launch_valid(void* const* p, int q, int ndim, int ncdim, int m,
+                 void* stream) {
+  if (q < 1 || ncdim < 1 || ndim < ncdim || m < 0 || !p[0] || !p[8] ||
+      !p[9] || !p[10] || !p[11] || (ndim > ncdim && !p[1]) ||
+      (m > 0 && (!p[2] || !p[4] || !p[5] || !p[6])))
     return (int)cudaErrorInvalidValue;
-  unif_valid_kernel<T><<<(q + BLOCK - 1) / BLOCK, BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const bool*)p[3],
-      (const bool*)p[4], (const bool*)p[5], (const i64*)p[6], (bool*)p[7],
-      q, ncdim, m);
+  ValidArgs<T> a{(const T*)p[0],     (const T*)p[1],    (const T*)p[2],
+                 (const bool*)p[3],  (const T*)p[4],    (const T*)p[5],
+                 (const bool*)p[6],  (const bool*)p[7], (const i64*)p[8],
+                 (bool*)p[9],        (T*)p[10],         (T*)p[11],
+                 q,                  ndim,              ncdim,
+                 m};
+  // the union's arrays staged in shared memory where they fit the
+  // default 48 kB
+  const size_t bytes =
+      m > 0 ? (size_t)m * ncdim * (ncdim + 1) * sizeof(T) + m : 0;
+  const int staged = m > 0 && bytes <= 48 * 1024;
+  const size_t smem = staged ? bytes : 0;
+  // a lane's threads: the largest power of two up to its slots and a warp
+  int W = 1;
+  while (W * 2 <= m && W * 2 <= 32) W *= 2;
+  const unsigned grid = (unsigned)((q + BLOCK / W - 1) / (BLOCK / W));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (UNIF_VALID_ROW_REGISTERS && ncdim == 2)
+    launch_valid_nx<T, 2>(a, grid, smem, staged, W, st);
+  else if (UNIF_VALID_ROW_REGISTERS && ncdim == 3)
+    launch_valid_nx<T, 3>(a, grid, smem, staged, W, st);
+  else
+    launch_valid_nx<T, 0>(a, grid, smem, staged, W, st);
   return (int)cudaGetLastError();
 }
 
@@ -369,10 +566,9 @@ int launch_place(void* const* p, int q, int ndim, int npdim, void* stream) {
 // p: the tensors' pointers in the order of each kernel's parameters
 #define UNIF_ENTRY(TAG, T)                                                 \
   extern "C" int dynesty_unif_valid_##TAG(void* const* p, int q,           \
-                                          int ncdim, int m, int unused,    \
+                                          int ndim, int ncdim, int m,      \
                                           void* stream) {                  \
-    (void)unused;                                                          \
-    return launch_valid<T>(p, q, ncdim, m, stream);                        \
+    return launch_valid<T>(p, q, ndim, ncdim, m, stream);                  \
   }                                                                        \
   extern "C" int dynesty_unif_place_##TAG(void* const* p, int q, int ndim, \
                                           int npdim, int unused,           \

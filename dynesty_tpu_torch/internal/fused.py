@@ -60,7 +60,8 @@ from ..ops import consume as _consume
 from ..ops.consume import (STATE_KEYS, assemble_buffers, consume_round,
                            device_limits, round_assemble)
 from ..utils.convert import integ_from_vector
-from ..utils.misc import blob_where, torch_generator, tree_map
+from ..utils.misc import (blob_where, release_default_generator,
+                          torch_generator, tree_map)
 
 __all__ = ["make_fused_round", "unpack_flat", "record_columns",
            "select_starts", "round_seed", "Proposer", "RoundState"]
@@ -234,6 +235,7 @@ class RoundGraphs:
                     epi.capture_end()
         except Exception as err:  # noqa: BLE001 - reported, then eager
             self.capturable = False
+            release_default_generator(self.stream.device)
             warnings.warn(
                 f"the fused round's prologue and epilogue could not be "
                 f"captured as CUDA graphs ({type(err).__name__}: {err}); "

@@ -44,15 +44,16 @@ import numpy as np
 import torch
 
 from ..ops.geometry import randsphere_batch
-from ..ops.proposals import (P_DOUBLE, P_HALVE, P_SHRINK, P_START_L,
+from ..ops.proposals import (P_DOUBLE, P_SHRINK, P_START_L,
                              P_START_R, S_CANDIDATE, S_RESOLVE, UNIF_ARRAYS,
+                             UNIF_FORMS,
                              U_FILLED, U_NC, U_PENDING, U_PROP, X_DOUBLE,
                              X_INIT, DoublingRound, RWalkRound, SliceRound,
                              UnifRound, doubling_expand, doubling_halve,
                              doubling_point, doubling_shrink, rwalk_accept,
                              rwalk_propose, slice_advance, slice_propose,
                              unif_place, unif_valid)
-from ..utils.misc import tree_map
+from ..utils.misc import release_default_generator, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
            "UnifRoundFn", "UnifGraph", "unif_graph", "unif_waves",
@@ -160,15 +161,15 @@ def pad_ellipsoids(ctrs, axes, ams, logvols, min_pad=1):
 
 def _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype):
     """Draw ``q`` candidates from a union of ellipsoids: volume-weighted
-    ellipsoid choice, a ball sample mapped through its axes, and what the
-    1/q overlap rejection reads.  Random numbers come from ``gen`` in a
-    fixed order: choice, ball, acceptance.  Returns (points (q, ncdim),
-    their quadratic forms in every slot ``sq`` (q, m), the acceptance
-    uniforms (q,)); :func:`~dynesty_tpu_torch.ops.proposals.unif_valid`
-    counts the slots that hold each point and applies the test."""
+    ellipsoid choice, a ball sample mapped through its axes, and the
+    uniforms the 1/q overlap rejection reads.  Random numbers come from
+    ``gen`` in a fixed order: choice, ball, acceptance.  Returns (points
+    (q, ncdim), the acceptance uniforms (q,));
+    :func:`~dynesty_tpu_torch.ops.proposals.unif_valid` computes each
+    point's quadratic form in every slot, counts the slots that hold it
+    and applies the test."""
     ctrs = arrays["ctrs"].to(dtype)
     axes = arrays["axes"].to(dtype)
-    ams = arrays["ams"].to(dtype)
     mask = arrays["mask"]
     device = ctrs.device
     # masked slots get weight exp(-inf) = 0
@@ -177,10 +178,8 @@ def _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype):
                             replacement=True, generator=gen)
     ball = randsphere_batch(gen, (q,), ncdim, dtype, device)
     x = ctrs[idx] + torch.einsum("qij,qj->qi", axes[idx], ball)
-    d = x[:, None, :] - ctrs[None, :, :]
-    sq = torch.einsum("qmi,mij,qmj->qm", d, ams, d)
     ua = torch.rand((q,), generator=gen, dtype=dtype, device=device)
-    return x, sq, ua
+    return x, ua
 
 
 def _sample_friends_union(gen, arrays, q, ncdim, dtype, ftype):
@@ -388,6 +387,12 @@ class _RoundGraph:
     capture rule allows, a side stream and, once captured, the graph and
     the generator it draws from."""
 
+    # True (set before the captures) to keep every captured graph's nodes
+    # beside its instance, for ``graph.debug_dump``, the file in which the
+    # CUDA runtime names each node's kernel: ``chip_smoke.py`` reads a
+    # replay's kernels there
+    keep_nodes = False
+
     def __init__(self, like, rb):
         self.like, self.rb = like, rb
         self.blob = None
@@ -428,10 +433,15 @@ class _RoundGraph:
         draws from a generator of its own (or from ``gen``, which several
         graphs may share); True when it was captured.  A capture runs
         nothing, so what it counted (``ncall_launched``, the
-        ``wrappers``' launches) is put back.  A capture that raises leaves
-        the round shape eager (warned once, naming the error)."""
+        ``wrappers``' launches) is put back and kept as what each replay
+        runs (``counted``, added by :meth:`count_replay`).  A capture that
+        raises leaves the round shape eager (warned once, naming the
+        error) and the device's default generator drawing
+        (:func:`~dynesty_tpu_torch.utils.misc.release_default_generator`)."""
         rb, like = self.rb, self.like
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_nodes)
+        if self.keep_nodes:
+            graph.enable_debug_mode()
         if gen is None:
             gen = torch.Generator(device=rb.device)
         saved = (like.ncall_launched, [w.launches for w in wrappers])
@@ -445,20 +455,36 @@ class _RoundGraph:
                     body(gen)
                 finally:
                     graph.capture_end()
+            if self.keep_nodes:
+                graph.instantiate()
         except Exception as err:  # noqa: BLE001 - reported, then eager
             self.capturable = False
+            release_default_generator(rb.device)
             warnings.warn(
                 f"{what} could not be captured as a CUDA graph "
                 f"({type(err).__name__}: {err}); rounds of shape {shape} "
                 f"run eagerly", RuntimeWarning)
             return False
         finally:
+            counted = (like.ncall_launched - saved[0],
+                       [(w, w.launches - n)
+                        for w, n in zip(wrappers, saved[1])])
             like.ncall_launched = saved[0]
             for w, n in zip(wrappers, saved[1]):
                 w.launches = n
             main.wait_stream(self.stream)
-        self.graph, self.gen = graph, gen
+        self.graph, self.gen, self.counted = graph, gen, counted
         return True
+
+    def count_replay(self, counted=None):
+        """Count one replay (of the graph whose capture counted
+        ``counted``, by default the last one): the evaluations and the
+        kernel launches that its capture recorded, which the replay ran
+        without Python."""
+        ncall, launches = self.counted if counted is None else counted
+        self.like.ncall_launched += ncall
+        for w, n in launches:
+            w.launches += n
 
 
 # ==========================================================================
@@ -470,10 +496,10 @@ class UnifGraph(_RoundGraph):
     :class:`~dynesty_tpu_torch.ops.proposals.UnifRound` buffers, its blob
     slots (q + 1 rows, as the round's), and on the card, for a likelihood
     that :meth:`~.likelihood.LogLikelihood.capturable` allows and a bound
-    drawn on the card, one wave captured as a CUDA graph (the draws, the
-    union's products, ``unif_valid``, the clamp and the batched
-    likelihood, ``unif_place``, the blob's indexed copy, the done flag's
-    copy to pinned host memory) with the generator it draws from.  A
+    drawn on the card, one wave captured as a CUDA graph (the draws,
+    ``unif_valid``, the batched likelihood at its clamped input,
+    ``unif_place``, the blob's indexed copy, the done flag's copy to
+    pinned host memory) with the generator it draws from.  A
     sampler keeps one per wave shape (:func:`unif_graph`); it is never
     pickled and goes with the sampler."""
 
@@ -487,25 +513,24 @@ class UnifGraph(_RoundGraph):
             if getattr(like, "blob", False) else None
 
     def draws(self, gen, host_sampler=None):
-        """``draw() -> (uc, sq, ua, accept, u_ex)``: a wave's candidates
-        in the bound's dimensions, what the lane checks read (the
-        ellipsoids' quadratic forms and acceptance uniforms, the friends'
-        acceptance), and the other dimensions' uniforms (None when
-        ``ncdim == ndim``), drawn from ``gen`` in the eager round's order,
-        or over a user's bound from ``host_sampler()``."""
+        """``draw() -> (uc, ua, accept, u_ex)``: a wave's candidates in
+        the bound's dimensions, what the lane checks read (the ellipsoids'
+        acceptance uniforms, the friends' acceptance), and the other
+        dimensions' uniforms (None when ``ncdim == ndim``), drawn from
+        ``gen`` in the eager round's order, or over a user's bound from
+        ``host_sampler()``."""
         rb, kind = self.rb, self.kind
         q, ncdim, dtype, device = rb.q, rb.ncdim, rb.dtype, rb.device
         n_extra = rb.ndim - ncdim
 
         def draw():
-            sq = ua = accept = None
+            ua = accept = None
             if kind == "cube":
                 uc = torch.rand((q, ncdim), generator=gen, dtype=dtype,
                                 device=device)
             elif kind == "ellipsoids":
-                uc, sq, ua = _sample_ellipsoid_union(gen, rb.arrays, q,
-                                                     ncdim, dtype)
-                sq = sq.contiguous()
+                uc, ua = _sample_ellipsoid_union(gen, rb.arrays, q, ncdim,
+                                                 dtype)
             elif kind == "custom":
                 uc = torch.as_tensor(np.asarray(host_sampler()),
                                      dtype=dtype, device=device).contiguous()
@@ -514,31 +539,31 @@ class UnifGraph(_RoundGraph):
                                                    dtype, kind)
             u_ex = torch.rand((q, n_extra), generator=gen, dtype=dtype,
                               device=device) if n_extra > 0 else None
-            return uc, sq, ua, accept, u_ex
+            return uc, ua, accept, u_ex
 
         return draw
 
     def wave(self, draw, check=False):
         """One wave on the round's buffers, on the current stream: the
-        draws, ``unif_valid``, the likelihood at the clamped candidates
-        (counting the valid lanes), ``unif_place`` and the blob's copy
-        into the slots; with ``check`` (on the card) the draws and the
-        likelihood's outputs are held to what the kernels read."""
+        draws, ``unif_valid`` (the lane checks, and the likelihood's input
+        into ``rb.u_prop`` and ``rb.uclamp``), the likelihood at the
+        clamped candidates (counting the valid lanes), ``unif_place`` and
+        the blob's copy into the slots; with ``check`` (on the card) the
+        draws and the likelihood's outputs are held to what the kernels
+        read."""
         rb = self.rb
-        uc, sq, ua, accept, u_ex = draw()
-        u_prop = uc if u_ex is None else torch.cat([uc, u_ex], dim=1)
+        uc, ua, accept, u_ex = draw()
         check = check and rb.device.type == "cuda"
         if check:
-            rb.check_draws(uc, sq, ua, accept, u_prop)
-        unif_valid(rb, uc, sq, ua, accept)
-        v, logl, blob = self.like.batch_eval(u_prop.clamp(0.0, 1.0),
-                                             mask=rb.valid)
+            rb.check_draws(uc, ua, accept, u_ex)
+        unif_valid(rb, uc, ua, accept, u_ex)
+        v, logl, blob = self.like.batch_eval(rb.uclamp, mask=rb.valid)
         # the round's dtype, in the layout the kernel reads
         v = v.to(rb.dtype).contiguous()
         logl = logl.to(rb.dtype).contiguous()
         if check:
             rb.check_likelihood(v, logl)
-        unif_place(rb, u_prop, v, logl)
+        unif_place(rb, rb.u_prop, v, logl)
         if self.blob is not None:
             tree_map(lambda b, p: b.__setitem__(rb.dest, p), self.blob,
                      blob)
@@ -567,10 +592,7 @@ class UnifGraph(_RoundGraph):
         the done flag and the round gate."""
         self.graph.replay()
         torch.cuda.current_stream(self.rb.device).synchronize()
-        # the replay ran the kernels and the likelihood without Python
-        self.like.ncall_launched += self.rb.q
-        unif_valid.launches += 1
-        unif_place.launches += 1
+        self.count_replay()
         return bool(self.flag[1][0]), bool(self.flag[1][1])
 
     def finish(self):
@@ -598,13 +620,15 @@ def unif_graph(rounds, like, kind, q, ndim, ncdim, dtype, device,
     The shape includes the bound kind, the cube check's mask (read on the
     host: give it there), the blob, and the shapes, layouts and dtypes of
     the bound's arrays that a wave reads (the padded ellipsoid count
-    among them)."""
+    among them); of the union's ``UNIF_FORMS``, which the round lays out
+    itself, the shapes only."""
     layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
                   arrays[k].storage_offset(), arrays[k].dtype)
               for k in UNIF_ARRAYS[kind]}
     key = ("unif", kind, q, ndim, ncdim, like.npdim, dtype, str(device),
            _mask_key(strict), bool(getattr(like, "blob", False))) + \
-        tuple(sorted(layout.items()))
+        tuple(sorted((k, v[:1] if kind == "ellipsoids" and k in UNIF_FORMS
+                      else v) for k, v in layout.items()))
     entry = None if rounds is None else rounds.get(key)
     if entry is None or entry.like is not like:
         entry = UnifGraph(like, UnifRound(q, ndim, ncdim, like.npdim, dtype,
@@ -782,10 +806,7 @@ class RWalkGraph(_RoundGraph):
         self.gen.set_offset(gen.get_offset())
         self.graph.replay()
         gen.set_offset(self.gen.get_offset())
-        # the replay ran the kernels and the likelihood without Python
-        self.like.ncall_launched += self.rb.q * self.walks
-        rwalk_propose.launches += self.walks
-        rwalk_accept.launches += self.walks
+        self.count_replay()
 
 
 def _mask_key(m):
@@ -1090,10 +1111,7 @@ class SliceGraph(_RoundGraph):
         copy of ``any_active``."""
         self.graph.replay()
         torch.cuda.current_stream(self.rb.device).synchronize()
-        # the replay ran the kernels and the likelihood without Python
-        self.like.ncall_launched += self.rb.q
-        slice_propose.launches += 1
-        slice_advance.launches += 1
+        self.count_replay()
         return bool(self.flag[1][0])
 
 
@@ -1231,7 +1249,8 @@ class DoublingGraph(_RoundGraph):
 
     def __init__(self, like, rb):
         super().__init__(like, rb)
-        self.graphs, self.warm = {}, set()
+        # each captured segment and what its capture counted
+        self.graphs, self.counts, self.warm = {}, {}, set()
         self.blob_c = None
         # the round gate as the step's start segment last read it
         self.gated = False
@@ -1270,24 +1289,27 @@ class DoublingGraph(_RoundGraph):
         if fill is not None:
             fill()
         if name == "start":
-            # behind a set round gate the end probes count no lane
+            # behind a set round gate the end probes count no lane (the
+            # kernel reads the gate)
             doubling_point(rb, P_START_L)
-            st["incube_l"].masked_fill_(rb.gate, False)
             logl_l = self._eval(st["incube_l"])[1]
             doubling_point(rb, P_START_R)
-            st["incube"].masked_fill_(rb.gate, False)
             doubling_expand(rb, X_INIT, self._eval(st["incube"])[1], logl_l)
         elif name == "double":
             doubling_point(rb, P_DOUBLE)
             doubling_expand(rb, X_DOUBLE, self._eval(st["incube"])[1])
         elif name == "candidate":
+            # doubling_shrink also probes the first halving's mid, over
+            # the point the likelihood read: the blob is kept first
             doubling_point(rb, P_SHRINK)
             v, logl, blob = self._eval(st["incube"])
-            doubling_shrink(rb, S_CANDIDATE, v, logl)
             if self.blob_c is not None:
                 tree_map(lambda c, b: c.copy_(b), self.blob_c, blob)
+            doubling_shrink(rb, S_CANDIDATE, v, logl)
         elif name == "halve":
-            doubling_point(rb, P_HALVE)
+            # the mid was probed by the kernel before (the candidate's
+            # doubling_shrink, or the last halving), which doubling_halve
+            # does for the next one
             doubling_halve(rb, self._eval(st["incube"])[1])
         else:
             doubling_shrink(rb, S_RESOLVE)
@@ -1320,6 +1342,7 @@ class DoublingGraph(_RoundGraph):
             self.graphs.clear()
             return False
         self.graphs[name] = self.graph
+        self.counts[name] = self.counted
         return True
 
     def replay(self, name, gen):
@@ -1335,16 +1358,7 @@ class DoublingGraph(_RoundGraph):
         else:
             self.graphs[name].replay()
         torch.cuda.current_stream(self.rb.device).synchronize()
-        # the replay ran the kernels and the likelihood without Python
-        n_eval = {"start": 2, "resolve": 0}.get(name, 1)
-        self.like.ncall_launched += self.rb.q * n_eval
-        doubling_point.launches += n_eval
-        if name in ("start", "double"):
-            doubling_expand.launches += 1
-        elif name == "halve":
-            doubling_halve.launches += 1
-        else:
-            doubling_shrink.launches += 1
+        self.count_replay(self.counts[name])
         if name == "start":
             self.gated = bool(self.flag_np[1])
         return bool(self.flag_np[0])

@@ -19,22 +19,24 @@ are the kernels here:
   check) and :func:`rwalk_accept` (the likelihood's -inf mask outside the
   cube, the move, the tallies), ``csrc/rwalk_step.cu``;
 * :func:`unif_valid` (a uniform wave's lane checks: the wave's width, the
-  cube check, the union of ellipsoids' membership count and overlap test
-  or the friends' acceptance) and :func:`unif_place` (the likelihood's
+  cube check, the union of ellipsoids' quadratic forms, membership count
+  and overlap test or the friends' acceptance; and the likelihood's input,
+  the candidates with the other dimensions, clamped) and
+  :func:`unif_place` (the likelihood's
   -inf mask, the successes compacted into the round's free slots, the
   per-slot evaluations, the round's counts, the next wave's width and the
   done flag), ``csrc/unif_wave.cu``; the JAX package's wave is the body
   ``:366`` of ``make_unif_round``'s ``lax.while_loop``;
 * :func:`doubling_point` (the position of each likelihood call of the
-  doubling slice round: the step's end probes, a doubling's new end, a
-  shrink candidate or a halving's mid; the point, its cube check with the
-  lane's mask and the point clamped into the cube), :func:`doubling_expand`
-  (the step's start after its end probes, and one doubling),
-  :func:`doubling_halve` (one halving of Neal's acceptance test) and
-  :func:`doubling_shrink` (a shrink candidate's outcome and its
-  resolution), ``csrc/slice_doubling.cu``; the JAX package's loop bodies
-  ``:594-607``, ``:640-655``, ``:569-585`` and ``:670-693`` of the
-  doubling ``make_slice_round``.
+  doubling slice round: the step's end probes, a doubling's new end or a
+  shrink candidate; the point, its cube check with the lane's mask and
+  the point clamped into the cube), :func:`doubling_expand` (the step's
+  start after its end probes, and one doubling), :func:`doubling_halve`
+  (one halving of Neal's acceptance test and the next halving's probe)
+  and :func:`doubling_shrink` (a shrink candidate's outcome with the
+  first halving's probe, and its resolution), ``csrc/slice_doubling.cu``;
+  the JAX package's loop bodies ``:594-607``, ``:640-655``, ``:569-585``
+  and ``:670-693`` of the doubling ``make_slice_round``.
 
 Random draws and the matrix products stay torch calls (their Philox
 streams and reduction orders are torch's own).  On a CUDA tensor each
@@ -67,6 +69,7 @@ __all__ = ["SliceRound", "slice_init", "slice_propose",
            "rwalk_propose", "rwalk_propose_plain", "rwalk_accept",
            "rwalk_accept_plain", "UnifRound", "UNIF_ARRAYS",
            "unif_width_plain", "unif_valid", "unif_valid_plain",
+           "ellipsoid_forms_plain", "unif_input_plain", "UNIF_FORMS",
            "unif_place", "unif_place_plain", "DoublingRound",
            "doubling_point", "doubling_point_plain", "doubling_expand",
            "doubling_expand_plain", "doubling_halve",
@@ -607,6 +610,10 @@ UNIF_ARRAYS = {"cube": (), "custom": (),
                "ellipsoids": ("ctrs", "axes", "ams", "logvols", "mask"),
                "balls": ("ctrs", "axes", "axes_inv"),
                "cubes": ("ctrs", "axes", "axes_inv")}
+# the union of ellipsoids' arrays that unif_valid reads, which the round
+# lays out itself: contiguous, the centres and matrices in its dtype (the
+# draws' gather of the centres reads the same values in any layout)
+UNIF_FORMS = ("ctrs", "ams", "mask")
 
 
 def unif_width_plain(q, n_filled, n_prop):
@@ -625,20 +632,43 @@ def unif_width_plain(q, n_filled, n_prop):
                        q)
 
 
-def unif_valid_plain(uc, width, strict=None, sq=None, mask=None, ua=None,
-                     accept=None):
+def ellipsoid_forms_plain(uc, ctrs, ams):
+    """Each candidate's quadratic form in every slot of a union of
+    ellipsoids, ``(x - c)^T A (x - c)`` (q, m), for the candidates ``uc``
+    (q, n), the centres ``ctrs`` (m, n) and matrices ``ams`` (m, n, n), in
+    the ``unif_valid`` kernel's order, one elementwise op at a time (each
+    rounds once): ``d_l = x_l - c_l``; ``t_i = A_i0 d_0 + A_i1 d_1 + ...``
+    summed left to right; ``sq = d_0 t_0 + d_1 t_1 + ...`` left to
+    right."""
+    n = uc.shape[1]
+    d = uc[:, None, :] - ctrs[None, :, :]
+    prod = ams[None] * d[:, :, None, :]
+    t = prod[..., 0]
+    for j in range(1, n):
+        t = t + prod[..., j]
+    p = d * t
+    sq = p[..., 0]
+    for i in range(1, n):
+        sq = sq + p[..., i]
+    return sq
+
+
+def unif_valid_plain(uc, width, strict=None, ctrs=None, ams=None,
+                     mask=None, ua=None, accept=None):
     """Which lanes of a wave count as launched, valid proposals: the lane
     is below ``width``, its candidate ``uc`` (q, ncdim) is in the cube
     (loosely where ``strict`` is False), and over a union of ellipsoids
-    (``sq`` (q, m), the candidates' quadratic forms in every slot, ``mask``
-    (m,) the valid slots, ``ua`` (q,) the acceptance uniforms) it lies in
-    ``nin`` > 0 of them (the round-off rescue counting ``sq <= 1 + 1e-3``
-    where no ``sq < 1``) and passes the 1/nin overlap test; over balls and
-    cubes, where ``accept`` (q,) holds.  Returns ``valid`` (q,)."""
+    (``ctrs`` (m, ncdim) and ``ams`` (m, ncdim, ncdim), the candidates'
+    quadratic forms :func:`ellipsoid_forms_plain`; ``mask`` (m,) the valid
+    slots, ``ua`` (q,) the acceptance uniforms) it lies in ``nin`` > 0 of
+    them (the round-off rescue counting ``sq <= 1 + 1e-3`` where no ``sq <
+    1``) and passes the 1/nin overlap test; over balls and cubes, where
+    ``accept`` (q,) holds.  Returns ``valid`` (q,)."""
     lanes = torch.arange(uc.shape[0], device=uc.device)
     valid = (lanes < width) & unitcheck_batch(uc, strict)
-    if sq is not None:
-        sq = torch.where(mask[None, :], sq, math.inf)
+    if ams is not None:
+        sq = torch.where(mask[None, :], ellipsoid_forms_plain(uc, ctrs, ams),
+                         math.inf)
         nin = (sq < 1.0).sum(dim=1)
         nin_loose = (sq <= 1.0 + 1e-3).sum(dim=1)
         nin = torch.where(nin > 0, nin, nin_loose)  # round-off rescue
@@ -647,6 +677,15 @@ def unif_valid_plain(uc, width, strict=None, sq=None, mask=None, ua=None,
     if accept is not None:
         valid = valid & accept
     return valid
+
+
+def unif_input_plain(uc, u_ex=None):
+    """The likelihood's input of a wave: the candidates ``uc`` (q, ncdim)
+    with the other dimensions' uniforms ``u_ex`` (q, ndim - ncdim; None:
+    none), and the same clamped into the cube (torch's clamp: NaN
+    passes).  Returns ``(u_prop, uclamp)``."""
+    u_prop = uc if u_ex is None else torch.cat([uc, u_ex], dim=1)
+    return u_prop, u_prop.clamp(0.0, 1.0)
 
 
 def unif_place_plain(state, slots, valid, u_prop, v_prop, logl_prop,
@@ -696,10 +735,15 @@ class UnifRound:
     ``v``, ``logl``, ``nc``, q + 1 rows: row ``q`` takes the successes
     past the last free slot), the bound's ``arrays`` (laid out as
     ``arrays_layout`` says: ``{name: (shape, stride, storage offset,
-    dtype)}``, the caller's own layout, so that the union's products read
-    the layout they read before the buffers existed and sum in the order
-    they summed), the cube check's ``strict`` mask, and a wave's outputs
-    (``valid``, ``dest``: each lane's row, for the blob's indexed copy).
+    dtype)}``, the caller's own layout, so that the draws' products -- the
+    union's map through its axes, the friends' offsets -- read the layout
+    they read before the buffers existed and sum in the order they
+    summed; but a union of ellipsoids' ``UNIF_FORMS``, which the
+    ``unif_valid`` kernel reads, contiguous, the centres and matrices in
+    the round's dtype), the cube check's ``strict`` mask, and a wave's
+    outputs (``valid``; ``u_prop`` and ``uclamp`` (q, ndim), the
+    likelihood's input and the same clamped into the cube; ``dest``: each
+    lane's row, for the blob's indexed copy).
 
     Allocated, checked and, on the card, bound to the two kernels'
     argument tables once; :meth:`start` loads a round into it,
@@ -731,11 +775,16 @@ class UnifRound:
         self.done, self.gate = self.flags[0], self.flags[1]
         self.loglstar = e(())
         self.valid, self.dest = e((q,), torch.bool), e((q,), torch.int64)
+        self.u_prop, self.uclamp = e((q, ndim)), e((q, ndim))
         self.slots = {"u": e((q + 1, ndim)), "v": e((q + 1, npdim)),
                       "logl": e((q + 1,)), "nc": e((q + 1,), torch.int64)}
-        self.arrays = {k: _strided_empty(shape, stride, offset, dt, device)
-                       for k, (shape, stride, offset, dt) in
-                       (arrays_layout or {}).items()}
+        layout = arrays_layout or {}
+        forms = "ams" in layout
+        self.arrays = {
+            k: e(shape, torch.bool if k == "mask" else dtype)
+            if forms and k in UNIF_FORMS else
+            _strided_empty(shape, stride, offset, dt, device)
+            for k, (shape, stride, offset, dt) in layout.items()}
         self.m = self.arrays["mask"].shape[0] if "mask" in self.arrays \
             else 0
         self.strict = None
@@ -776,7 +825,9 @@ class UnifRound:
             self.load_arrays(arrays)
 
     def load_arrays(self, arrays):
-        """Copy the bound's arrays into the round's buffers."""
+        """Copy the bound's arrays into the round's buffers (the union's
+        centres and matrices converted to the round's dtype, as the
+        draws' ``.to(dtype)`` converted them)."""
         for k, buf in self.arrays.items():
             buf.copy_(arrays[k])
 
@@ -784,9 +835,10 @@ class UnifRound:
         """Fill both kernels' argument tables; a wave's candidates and
         draws and the likelihood's outputs are written into them at each
         launch."""
-        s = self.slots
-        valid = (None, None, None, None, self.arrays.get("mask"),
-                 self.strict, self.state, self.valid)
+        s, a = self.slots, self.arrays
+        valid = (None, None, None, None) + tuple(
+            a.get(k) if self.m else None for k in UNIF_FORMS) + (
+            self.strict, self.state, self.valid, self.u_prop, self.uclamp)
         place = (self.valid, None, None, None, self.loglstar, self.state,
                  self.done, s["u"], s["v"], s["logl"], s["nc"], self.dest)
         self._valid_args = _pointer_table(valid)
@@ -795,23 +847,27 @@ class UnifRound:
         self._valid_fn = _entry("unif_wave", "unif_valid", tag)
         self._place_fn = _entry("unif_wave", "unif_place", tag)
 
-    def check_draws(self, uc, sq, ua, accept, u_prop):
+    def check_draws(self, uc, ua, accept, u_ex):
         """Raise unless a wave's candidates and draws are what the kernels
-        read: ``uc`` (q, ncdim), over ellipsoids ``sq`` (q, m) and ``ua``
-        (q,), over balls and cubes ``accept`` (q,) bool, and ``u_prop``
-        (q, ndim), contiguous tensors of the round's dtype on its
-        device."""
+        read: ``uc`` (q, ncdim), over ellipsoids ``ua`` (q,), over balls
+        and cubes ``accept`` (q,) bool, and ``u_ex`` (q, ndim - ncdim;
+        None exactly where ncdim == ndim), contiguous tensors of the
+        round's dtype on its device."""
         q, dt, dev = self.q, self.dtype, self.device
         _check("unif_valid", "uc", uc, (q, self.ncdim), dt, dev)
-        if (sq is None) != (self.m == 0) or (sq is None) != (ua is None):
-            raise ValueError("unif_valid: sq and ua must be given exactly "
-                             "over a union of ellipsoids")
-        if sq is not None:
-            _check("unif_valid", "sq", sq, (q, self.m), dt, dev)
+        if (ua is None) != (self.m == 0):
+            raise ValueError("unif_valid: ua must be given exactly over a "
+                             "union of ellipsoids")
+        if ua is not None:
             _check("unif_valid", "ua", ua, (q,), dt, dev)
         if accept is not None:
             _check("unif_valid", "accept", accept, (q,), torch.bool, dev)
-        _check("unif_place", "u_prop", u_prop, (q, self.ndim), dt, dev)
+        if (u_ex is None) != (self.ncdim == self.ndim):
+            raise ValueError("unif_valid: u_ex must be given exactly where "
+                             "ncdim < ndim")
+        if u_ex is not None:
+            _check("unif_valid", "u_ex", u_ex, (q, self.ndim - self.ncdim),
+                   dt, dev)
 
     def check_likelihood(self, v_prop, logl_prop):
         """Raise unless the likelihood's outputs are what
@@ -822,24 +878,30 @@ class UnifRound:
             _check("unif_place", name, t, shape, self.dtype, self.device)
 
 
-def unif_valid(rb, uc, sq=None, ua=None, accept=None):
+def unif_valid(rb, uc, ua=None, accept=None, u_ex=None):
     """A wave's lane checks on the round ``rb`` (a :class:`UnifRound`)
-    for the candidates ``uc`` (q, ncdim), with ``sq`` and ``ua`` over a
-    union of ellipsoids and ``accept`` over balls and cubes:
-    :func:`unif_valid_plain` on the CPU (into ``rb.valid``), on the card
-    the ``unif_valid`` kernel of ``csrc/unif_wave.cu``, which takes the
-    draws as they are (:meth:`UnifRound.check_draws` holds them once a
-    round).  Reads the wave's width from ``rb.state`` and the bound's
-    mask and the cube check's from the round; writes ``rb.valid``."""
+    for the candidates ``uc`` (q, ncdim), with ``ua`` over a union of
+    ellipsoids (whose quadratic forms it computes from the round's
+    centres and matrices) and ``accept`` over balls and cubes, and the
+    likelihood's input with the other dimensions' uniforms ``u_ex``:
+    :func:`unif_valid_plain` and :func:`unif_input_plain` on the CPU, on
+    the card the ``unif_valid`` kernel of ``csrc/unif_wave.cu``, which
+    takes the draws as they are (:meth:`UnifRound.check_draws` holds them
+    once a round).  Reads the wave's width from ``rb.state`` and the
+    bound's arrays and the cube check's mask from the round; writes
+    ``rb.valid``, ``rb.u_prop`` and ``rb.uclamp``."""
     if rb.device.type == "cpu":
-        rb.valid.copy_(unif_valid_plain(
-            uc, rb.state[U_WIDTH], rb.strict, sq,
-            None if sq is None else rb.arrays["mask"], ua, accept))
+        forms = [rb.arrays[k] if rb.m else None for k in UNIF_FORMS]
+        rb.valid.copy_(unif_valid_plain(uc, rb.state[U_WIDTH], rb.strict,
+                                        *forms, ua, accept))
+        u_prop, uclamp = unif_input_plain(uc, u_ex)
+        rb.u_prop.copy_(u_prop)
+        rb.uclamp.copy_(uclamp)
         return
     table = rb._valid_args
-    for i, t in enumerate((uc, sq, ua, accept)):
+    for i, t in enumerate((uc, u_ex, ua, accept)):
         table[i] = None if t is None else t.data_ptr()
-    _run(rb._valid_fn, table, (rb.q, rb.ncdim, rb.m, 0), rb.device,
+    _run(rb._valid_fn, table, (rb.q, rb.ndim, rb.ncdim, rb.m), rb.device,
          "unif_valid")
     unif_valid.launches += 1
 
@@ -847,7 +909,8 @@ def unif_valid(rb, uc, sq=None, ua=None, accept=None):
 def unif_place(rb, u_prop, v_prop, logl_prop):
     """A wave's placement on the round ``rb`` after the likelihood's
     ``v_prop`` (q, npdim) and raw ``logl_prop`` (q,) at the candidates
-    ``u_prop`` (q, ndim), clamped (in the round's dtype):
+    ``u_prop`` (q, ndim; a wave passes ``rb.u_prop``), clamped (in the
+    round's dtype):
     :func:`unif_place_plain` on the CPU (the state, rows and flag copied
     into the round's buffers), on the card the ``unif_place`` kernel of
     ``csrc/unif_wave.cu``, one block that masks ``logl_prop`` off
@@ -873,7 +936,8 @@ def unif_place(rb, u_prop, v_prop, logl_prop):
 # the doubling slice round
 
 # doubling_point's modes: the step's left and right end probes, a
-# doubling's new end, a shrink candidate, a halving's mid
+# doubling's new end, a shrink candidate; and a halving's mid, which only
+# the plain version takes (doubling_shrink and doubling_halve probe it)
 P_START_L, P_START_R, P_DOUBLE, P_SHRINK, P_HALVE = range(5)
 # doubling_expand's: the step's start after its end probes, a doubling
 X_INIT, X_DOUBLE = 0, 1
@@ -914,7 +978,8 @@ def _doubling_state(q, ndim, npdim, dtype, device):
     return st
 
 
-def doubling_point_plain(st, mode, draw, directions, strict=None):
+def doubling_point_plain(st, mode, draw, directions, strict=None,
+                         gate=None):
     """The position of each lane's next likelihood call by ``mode``, and
     the point there: ``P_START_L`` takes the step's direction (row
     ``st['step']``, at most the last, of ``directions`` (q, n_steps,
@@ -926,7 +991,9 @@ def doubling_point_plain(st, mode, draw, directions, strict=None):
     ``P_HALVE`` the halving's mid ``0.5 * (lhat + rhat)``.  Sets
     ``uclamp``, the point ``u0 + x * dir`` clamped into the cube, and its
     cube check (loosely where ``strict`` is False) with the mode's lane
-    mask (``incube_l`` for the left end probe), and clears ``any``."""
+    mask (``incube_l`` for the left end probe; behind a set round ``gate``,
+    a 0-d bool tensor, the end probes count no lane), and clears
+    ``any``."""
     if mode == P_START_L:
         step = st["step"].clamp(max=directions.shape[1] - 1)
         st["dir"] = directions.index_select(1, step)[:, 0]
@@ -951,6 +1018,8 @@ def doubling_point_plain(st, mode, draw, directions, strict=None):
     incube = unitcheck_batch(u, strict)
     if mask is not None:
         incube = incube & mask
+    if gate is not None and mode in (P_START_L, P_START_R):
+        incube = incube & ~gate
     if mode == P_SHRINK:
         st["u_c"] = u
     st["incube_l" if mode == P_START_L else "incube"] = incube
@@ -997,7 +1066,16 @@ def doubling_expand_plain(st, mode, logl_x, logl_l, draw, loglstar):
     st["any"] = active.any()
 
 
-def doubling_halve_plain(st, logl_x, loglstar):
+def _halve_probe(st, strict):
+    """The next halving's probe, as :func:`doubling_point_plain` in mode
+    ``P_HALVE`` makes it (its mid, the point clamped into the cube, its
+    cube check with the lanes that halve), ``any`` kept."""
+    flag = st["any"]
+    doubling_point_plain(st, P_HALVE, None, None, strict)
+    st["any"] = flag
+
+
+def doubling_halve_plain(st, logl_x, loglstar, strict=None):
     """One halving of Neal's (2003) acceptance test (algorithm 6) after
     the likelihood's raw ``logl_x`` at the mid of each lane's
     ``(lhat, rhat)``: the divergence flag (the mid between 0 and the
@@ -1005,7 +1083,9 @@ def doubling_halve_plain(st, logl_x, loglstar):
     value, one evaluation a testing lane (``d_nc``), the lanes rejected
     (both ends at or below ``loglstar`` after a divergence), and the lanes
     whose interval is still wider than 1.1 testing on; ``any`` says
-    whether a lane tests on."""
+    whether a lane tests on.  Then the next halving's probe
+    (:func:`_halve_probe`, the cube check loose where ``strict`` is
+    False)."""
     x1, lhat, rhat = st["x1"], st["lhat"], st["rhat"]
     active = st["h_active"]
     mid = 0.5 * (lhat + rhat)
@@ -1023,16 +1103,20 @@ def doubling_halve_plain(st, logl_x, loglstar):
     active = active & ~newly & ((rhat - lhat) > 1.1)
     st.update(dflag=dflag, lhat=lhat, rhat=rhat, f_lhat=f_lhat,
               f_rhat=f_rhat, h_active=active, any=active.any())
+    _halve_probe(st, strict)
 
 
-def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar):
+def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar, strict=None):
     """``S_CANDIDATE``, after the likelihood's ``v_x`` and raw ``logl_x``
     at the shrink candidate: its v and masked logl kept (``v_c``,
     ``logl_c``), one evaluation and one contraction a shrinking lane,
     ``good`` where it is above ``loglstar``, and the acceptance test
     started on the doubling's interval for the shrinking lanes that are
     good and whose interval is wider than 1.1 (``any`` says whether one
-    is); ``any_shrink`` cleared.  ``S_RESOLVE``, after the test: its
+    is); ``any_shrink`` cleared; then the first halving's probe
+    (:func:`_halve_probe`, the cube check loose where ``strict`` is False;
+    ``v_x`` may be the probe's buffer, so it is copied first).
+    ``S_RESOLVE``, after the test: its
     evaluations billed to the good lanes, the lanes that pass take the
     candidate (``newly``), the others shrink their interval to it and
     shrink on (``any_shrink`` says whether one does)."""
@@ -1040,7 +1124,7 @@ def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar):
     if mode == S_CANDIDATE:
         logl_c = torch.where(st["incube"], logl_x, _NEG_INF)
         good = logl_c > loglstar
-        st["v_c"], st["logl_c"], st["good"] = v_x, logl_c, good
+        st["v_c"], st["logl_c"], st["good"] = v_x.clone(), logl_c, good
         st["nc"] = st["nc"] + active
         st["n_con"] = st["n_con"] + active
         st["h_active"] = ((st["right"] - st["left"]) > 1.1) & (active & good)
@@ -1051,6 +1135,7 @@ def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar):
             st[k] = torch.zeros_like(st[k])
         st["any"] = st["h_active"].any()
         st["any_shrink"] = torch.zeros_like(st["any_shrink"])
+        _halve_probe(st, strict)
         return
     good = st["good"]
     st["nc"] = st["nc"] + torch.where(active & good, st["d_nc"], 0)
@@ -1140,24 +1225,28 @@ class DoublingRound:
         st = self.st
         point = (st["step"], self.directions, st["dir"], st["u"], st["u0"],
                  self.draw, st["left"], st["right"], st["sl"], st["sr"],
-                 st["lhat"], st["rhat"], st["active"], st["s_active"],
-                 st["h_active"], self.strict, st["uclamp"], st["incube"],
-                 st["incube_l"], st["x1"], st["u_c"], st["any"])
+                 st["active"], st["s_active"], self.gate, self.strict,
+                 st["uclamp"], st["incube"], st["incube_l"], st["x1"],
+                 st["u_c"], st["any"])
         expand = (st["incube_l"], st["incube"], None, None, self.draw,
                   self.loglstar, st["left"], st["right"], st["fl"],
                   st["fr"], st["sl"], st["sr"], st["active"],
                   st["s_active"], st["grow"], st["nc"], st["n_exp"],
                   st["step"], st["any"])
+        # the next halving's probe: the step's rows, the clamped point and
+        # its cube check (doubling_halve and a candidate's doubling_shrink)
+        probe = (st["u0"], st["dir"], self.strict, st["uclamp"])
         halve = (st["incube"], None, self.loglstar, st["x1"], st["lhat"],
                  st["rhat"], st["f_lhat"], st["f_rhat"], st["dflag"],
-                 st["reject"], st["h_active"], st["d_nc"], st["any"])
+                 st["reject"], st["h_active"], st["d_nc"], st["any"]) + probe
         shrink = (st["incube"], None, None, self.loglstar, st["s_active"],
                   st["good"], st["left"], st["right"], st["fl"], st["fr"],
                   st["lhat"], st["rhat"], st["f_lhat"], st["f_rhat"],
                   st["dflag"], st["reject"], st["h_active"], st["d_nc"],
                   st["v_c"], st["logl_c"], st["nc"], st["n_con"], st["u"],
                   st["v"], st["logl"], st["u_c"], st["x1"], st["sl"],
-                  st["sr"], st["newly"], st["any"], st["any_shrink"])
+                  st["sr"], st["newly"], st["any"], st["any_shrink"]) + \
+            probe + (st["incube"],)
         tag = _DTYPES[self.dtype]
         self._args = {name: (_pointer_table(t), _entry("slice_doubling",
                                                        f"doubling_{name}",
@@ -1189,12 +1278,17 @@ def doubling_point(rb, mode):
     round ``rb`` (a :class:`DoublingRound`) by ``mode`` (``P_*``):
     :func:`doubling_point_plain` on the CPU, on the card the
     ``doubling_point`` kernel of ``csrc/slice_doubling.cu``.  Reads
-    ``rb.draw`` (``P_START_L``, ``P_DOUBLE``, ``P_SHRINK``) and
-    ``rb.directions``; writes ``uclamp`` and ``incube`` (``incube_l``) of
-    ``rb.st``."""
+    ``rb.draw`` (``P_START_L``, ``P_DOUBLE``, ``P_SHRINK``),
+    ``rb.directions`` and the round gate ``rb.gate`` (the end probes);
+    writes ``uclamp`` and ``incube`` (``incube_l``) of ``rb.st``.  A
+    halving's mid (``P_HALVE``) is refused: the kernel before each
+    halving probes it (:func:`doubling_shrink`, :func:`doubling_halve`)."""
+    if mode not in (P_START_L, P_START_R, P_DOUBLE, P_SHRINK):
+        raise ValueError(f"doubling_point: no mode {mode}; a halving's mid "
+                         f"is probed by doubling_shrink and doubling_halve")
     if rb.device.type == "cpu":
         rb._plain(doubling_point_plain, mode, rb.draw, rb.directions,
-                  rb.strict)
+                  rb.strict, rb.gate)
         return
     table, f = rb._args["point"]
     _run(f, table, (rb.q, rb.ndim, rb.n_steps, mode), rb.device,
@@ -1223,27 +1317,30 @@ def doubling_expand(rb, mode, logl_x, logl_l=None):
 
 def doubling_halve(rb, logl_x):
     """One halving of the acceptance test on the round ``rb`` after the
-    likelihood's raw ``logl_x`` (q,) at the mids: :func:`doubling_halve_plain`
-    on the CPU, on the card the ``doubling_halve`` kernel of
-    ``csrc/slice_doubling.cu``."""
+    likelihood's raw ``logl_x`` (q,) at the mids, and the next halving's
+    probe: :func:`doubling_halve_plain` on the CPU, on the card the
+    ``doubling_halve`` kernel of ``csrc/slice_doubling.cu`` (one block,
+    which also writes the ``any`` flag)."""
     if rb.device.type == "cpu":
-        rb._plain(doubling_halve_plain, logl_x, rb.loglstar)
+        rb._plain(doubling_halve_plain, logl_x, rb.loglstar, rb.strict)
         return
     table, f = rb._args["halve"]
     table[1] = logl_x.data_ptr()
-    _run(f, table, (rb.q, 0, 0, 0), rb.device, "doubling_halve")
+    _run(f, table, (rb.q, rb.ndim, 0, 0), rb.device, "doubling_halve")
     doubling_halve.launches += 1
 
 
 def doubling_shrink(rb, mode, v_x=None, logl_x=None):
     """A shrink candidate's outcome (``S_CANDIDATE``, after the
     likelihood's ``v_x`` (q, npdim) and raw ``logl_x`` (q,) at it, in the
-    round's dtype) or its resolution after the acceptance test
-    (``S_RESOLVE``) on the round ``rb``: :func:`doubling_shrink_plain` on
-    the CPU, on the card the ``doubling_shrink`` kernel of
-    ``csrc/slice_doubling.cu``."""
+    round's dtype; ``v_x`` may be ``rb.st['uclamp']`` itself, as an
+    identity prior transform returns it), with the first halving's probe,
+    or its resolution after the acceptance test (``S_RESOLVE``) on the
+    round ``rb``: :func:`doubling_shrink_plain` on the CPU, on the card
+    the ``doubling_shrink`` kernel of ``csrc/slice_doubling.cu``."""
     if rb.device.type == "cpu":
-        rb._plain(doubling_shrink_plain, mode, v_x, logl_x, rb.loglstar)
+        rb._plain(doubling_shrink_plain, mode, v_x, logl_x, rb.loglstar,
+                  rb.strict)
         return
     table, f = rb._args["shrink"]
     if mode == S_CANDIDATE:

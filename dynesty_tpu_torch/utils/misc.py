@@ -165,6 +165,19 @@ def torch_generator(seed, device):
     return gen
 
 
+def release_default_generator(device):
+    """Give the default CUDA generator of ``device`` a fresh state with
+    its seed and offset.  Every CUDA graph capture registers that
+    generator, and a capture whose end raised (its stream invalidated,
+    for example by a host read inside it) leaves it in capture mode, so
+    that its next draw outside a capture raises."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    default = torch.cuda.default_generators[index]
+    default.graphsafe_set_state(default.clone_state())
+
+
 def mean_and_cov(samples, weights):
     """Weighted mean and (frequency-weight corrected) covariance of
     ``samples`` (n, ndim) under ``weights`` (n,)."""

@@ -184,8 +184,10 @@ def test_cuda_ellipsoid_union_sampling_uniform(cuda):
     ctrs = np.array([[0.0, 0.0], [1.0, 0.0]])
     mb = MultiEllipsoid(2, ctrs=ctrs, covs=np.array([np.eye(2)] * 2))
     arrays = bound_arrays_to_torch("ellipsoids", mb.device_spec()[1], cuda)
-    x, sq, ua = _sample_ellipsoid_union(torch_generator(56432, cuda), arrays,
-                                        40000, 2, torch.float64)
+    from dynesty_tpu_torch.ops.proposals import ellipsoid_forms_plain
+    x, ua = _sample_ellipsoid_union(torch_generator(56432, cuda), arrays,
+                                    40000, 2, torch.float64)
+    sq = ellipsoid_forms_plain(x, arrays["ctrs"], arrays["ams"])
     # the union's overlap test, as unif_valid applies it, without the cube
     # check (these circles leave the cube)
     mask = arrays["mask"][None, :]

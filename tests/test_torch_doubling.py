@@ -36,7 +36,7 @@ import dynesty_tpu_torch.internal.kernels as tk
 from dynesty_tpu_torch.internal.likelihood import LogLikelihood
 from dynesty_tpu_torch.ops import proposals as pr
 from dynesty_tpu_torch.ops.geometry import unitcheck_batch
-from dynesty_tpu_torch.utils.misc import Timings, blob_where
+from dynesty_tpu_torch.utils.misc import Timings, blob_where, tree_map
 
 from utils import get_rstate
 
@@ -367,15 +367,16 @@ def test_plain_shrink_and_halving_equal_the_eager_body(dtype, strict):
     ref0 = {k: t.clone() for k, t in st.items()}
     pr.doubling_point_plain(st, pr.P_SHRINK, draw, inp["directions"], sm)
     seen = [(st["uclamp"], st["incube"])]
-    pr.doubling_shrink_plain(st, pr.S_CANDIDATE, inp["v_x"], raws[0], ls)
+    pr.doubling_shrink_plain(st, pr.S_CANDIDATE, inp["v_x"], raws[0], ls,
+                             sm)
     assert not bool(st["any_shrink"])
     halvings = 0
     while bool(st["any"]):
-        pr.doubling_point_plain(st, pr.P_HALVE, draw, inp["directions"], sm)
+        # each halving's mid, probed by the step before it
         seen.append((st["uclamp"], st["incube"]))
         halvings += 1
-        pr.doubling_halve_plain(st, raws[halvings], ls)
-    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls)
+        pr.doubling_halve_plain(st, raws[halvings], ls, sm)
+    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls, sm)
 
     # the eager shrink body on the hand-made state
     feval = _Probe(ref0["u0"], ref0["dir"], sm, raws)
@@ -681,6 +682,232 @@ def test_doubling_rounds_keep_a_cache_entry_of_their_own():
 
 
 # --------------------------------------------------------------------------
+# the halving's probe folded into the kernels before it
+
+
+def _parent_halve(st, logl_x, loglstar):
+    """The halving as it was before its probe moved into it."""
+    x1, lhat, rhat = st["x1"], st["lhat"], st["rhat"]
+    active = st["h_active"]
+    mid = 0.5 * (lhat + rhat)
+    dflag = st["dflag"] | (((0.0 < mid) & (mid <= x1)) |
+                           ((x1 < mid) & (mid <= 0.0)))
+    go_right = x1 < mid
+    logl_mid = torch.where(st["incube"], logl_x, _NEG_INF)
+    st["d_nc"] = st["d_nc"] + active
+    f_rhat = torch.where(active & go_right, logl_mid, st["f_rhat"])
+    rhat = torch.where(active & go_right, mid, rhat)
+    f_lhat = torch.where(active & ~go_right, logl_mid, st["f_lhat"])
+    lhat = torch.where(active & ~go_right, mid, lhat)
+    newly = active & dflag & (loglstar >= f_lhat) & (loglstar >= f_rhat)
+    st["reject"] = st["reject"] | newly
+    active = active & ~newly & ((rhat - lhat) > 1.1)
+    st.update(dflag=dflag, lhat=lhat, rhat=rhat, f_lhat=f_lhat,
+              f_rhat=f_rhat, h_active=active, any=active.any())
+
+
+def _parent_candidate(st, v_x, logl_x, loglstar):
+    """A shrink candidate's outcome as it was before the first halving's
+    probe moved into it."""
+    active = st["s_active"]
+    logl_c = torch.where(st["incube"], logl_x, _NEG_INF)
+    good = logl_c > loglstar
+    st["v_c"], st["logl_c"], st["good"] = v_x.clone(), logl_c, good
+    st["nc"] = st["nc"] + active
+    st["n_con"] = st["n_con"] + active
+    st["h_active"] = ((st["right"] - st["left"]) > 1.1) & (active & good)
+    for k, src in (("lhat", "left"), ("rhat", "right"),
+                   ("f_lhat", "fl"), ("f_rhat", "fr")):
+        st[k] = st[src].clone()
+    for k in ("dflag", "reject", "d_nc"):
+        st[k] = torch.zeros_like(st[k])
+    st["any"] = st["h_active"].any()
+    st["any_shrink"] = torch.zeros_like(st["any_shrink"])
+
+
+def _parent_segment(entry, name, fill=None):
+    """A segment in the parent's order: the round gate applied by torch
+    after the end probes, each halving's mid probed at its own segment's
+    start (``P_HALVE``), then the halving."""
+    rb, st = entry.rb, entry.rb.st
+    point = pr.doubling_point_plain
+    args = (rb.draw, rb.directions, rb.strict)
+    if fill is not None:
+        fill()
+    if name == "start":
+        rb._plain(point, pr.P_START_L, *args)
+        st["incube_l"].masked_fill_(rb.gate, False)
+        logl_l = entry._eval(st["incube_l"])[1]
+        rb._plain(point, pr.P_START_R, *args)
+        st["incube"].masked_fill_(rb.gate, False)
+        rb._plain(pr.doubling_expand_plain, pr.X_INIT,
+                  entry._eval(st["incube"])[1], logl_l, rb.draw,
+                  rb.loglstar)
+    elif name == "double":
+        rb._plain(point, pr.P_DOUBLE, *args)
+        rb._plain(pr.doubling_expand_plain, pr.X_DOUBLE,
+                  entry._eval(st["incube"])[1], None, rb.draw, rb.loglstar)
+    elif name == "candidate":
+        rb._plain(point, pr.P_SHRINK, *args)
+        v, logl, blob = entry._eval(st["incube"])
+        rb._plain(_parent_candidate, v, logl, rb.loglstar)
+        if entry.blob_c is not None:
+            tree_map(lambda c, b: c.copy_(b), entry.blob_c, blob)
+    elif name == "halve":
+        rb._plain(point, pr.P_HALVE, *args)
+        rb._plain(_parent_halve, entry._eval(st["incube"])[1], rb.loglstar)
+    else:
+        rb._plain(pr.doubling_shrink_plain, pr.S_RESOLVE, None, None,
+                  rb.loglstar)
+        entry.select_blob(st["newly"], entry.blob_c)
+
+
+def _recorded_rounds(monkeypatch, segment, q, blob, seeds, gate_second):
+    """Doubling rounds on the CPU through ``segment`` in place of
+    ``DoublingGraph.segment``: the state after every segment, the packed
+    columns and blobs, and the generators' states.  With ``gate_second``
+    the second round runs behind a set round gate (the fused round's
+    prologue)."""
+    snaps, outs = [], []
+
+    def recording(entry, name, fill=None):
+        segment(entry, name, fill)
+        snaps.append((name, {k: t.clone() for k, t in entry.rb.st.items()}))
+
+    monkeypatch.setattr(tk.DoublingGraph, "segment", recording)
+    dtype = torch.float64
+    like = _like(blob, dtype)
+    cache = {}
+    for i, seed in enumerate(seeds):
+        packed, start_blob, loglstar = _round_inputs(like, q, dtype,
+                                                     seed=seed)
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        entry = tk.doubling_graph(cache, like, q, 2, 3, dtype, "cpu",
+                                  torch.tensor([True, False, True]))
+        if not i:
+            # the buffers that no segment has written yet, alike in both
+            for t in entry.rb.st.values():
+                t.zero_()
+        axes = packed[:, 7:].reshape(q, 3, 3)
+        directions = tk.slice_directions(gen, axes, 1.3, "rslice", 2)
+        gate = torch.tensor(gate_second and i == 1)
+        tk.doubling_start(entry, directions, loglstar, packed[:, :3],
+                          packed[:, 3:6], packed[:, 6], start_blob, gate)
+        tk.doubling_loop(entry, gen, gate_read=True)
+        outs.append(({k: entry.rb.st[k].clone() for k in
+                      ("u", "v", "logl", "nc", "n_exp", "n_con")},
+                     tree_map(torch.clone, entry.blob), gen.get_state()))
+    monkeypatch.undo()
+    return snaps, outs
+
+
+@pytest.mark.parametrize("q", [1, 37, 256])
+def test_the_folded_halving_equals_the_parent_order(monkeypatch, q):
+    """Whole rounds with each halving's probe written by the kernel before
+    it (the candidate's ``doubling_shrink`` and each ``doubling_halve``)
+    and the round gate read by the end probes, against the same rounds in
+    the parent's order (the probe at the halving segment's start, the gate
+    applied after the probes): after every segment every entry of the
+    state is the parent's, but after a candidate, a halving or the
+    resolution after them, where the probe and its cube check are the
+    parent's state's next probe (``P_HALVE``) written early; the rounds'
+    outputs, blobs, generators and segments are the same."""
+    seeds, blob = (3, 4, 5), q != 256
+    new, new_out = _recorded_rounds(
+        monkeypatch, tk.DoublingGraph.segment, q, blob, seeds, True)
+    old, old_out = _recorded_rounds(monkeypatch, _parent_segment, q, blob,
+                                    seeds, True)
+    assert [n for n, _ in new] == [n for n, _ in old]
+    names = [n for n, _ in new]
+    assert names.count("halve") > 0 and names.count("candidate") > 0
+    strict = torch.tensor([True, False, True])
+    for (name, a), (_, b) in zip(new, old):
+        if name in ("candidate", "halve", "resolve"):
+            b = dict(b)
+            flag = b["any"]
+            pr.doubling_point_plain(b, pr.P_HALVE, None, None, strict)
+            b["any"] = flag
+        for k in b:
+            _same(a[k], b[k])
+    for (sa, ba, ga), (sb, bb, gb) in zip(new_out, old_out):
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+        assert (ba is None) == (not blob)
+        if blob:
+            assert torch.equal(ba, bb)
+        assert torch.equal(ga, gb)
+
+
+def test_an_identity_prior_transform_reads_its_probe_before_the_fold():
+    """With an identity prior transform the likelihood's v is the clamped
+    probe itself, which the candidate's ``doubling_shrink`` now overwrites
+    with the first halving's probe: the candidate's v is kept first, and
+    whole rounds equal the eager round as it was."""
+    q, dtype = 24, torch.float64
+
+    def ll(x):
+        return -0.5 * (x * x).sum(-1) / 0.3 ** 2
+
+    like = LogLikelihood(ll, lambda u: u, 3, device="cpu", dtype=dtype,
+                         mode="vectorized")
+    like.eval_host(np.full((2, 3), 0.5))
+    seen = []
+    orig = tk.DoublingGraph._eval
+
+    def spy(self, mask):
+        out = orig(self, mask)
+        seen.append(out[0].data_ptr() == self.rb.st["uclamp"].data_ptr())
+        return out
+
+    fn = tk.make_slice_round(like, ndim=3, q=q, slices=2, kind="rslice",
+                             dtype=dtype, device="cpu", doubling=True)
+    for seed in (3, 4):
+        packed, _, loglstar = _round_inputs(like, q, dtype, seed=seed)
+        g_new, g_old = torch.Generator(), torch.Generator()
+        g_new.manual_seed(seed)
+        g_old.manual_seed(seed)
+        tk.DoublingGraph._eval = spy
+        try:
+            got, _ = fn(g_new, packed, None, 1.3, loglstar)
+        finally:
+            tk.DoublingGraph._eval = orig
+        ref, _ = _parent_round(like, packed, None, g_old, "rslice", 2, 1.3,
+                               loglstar, None, dtype, Timings())
+        assert torch.equal(got, ref)
+        assert torch.equal(g_new.get_state(), g_old.get_state())
+    assert seen and all(seen)
+
+
+def test_the_plain_steps_keep_a_candidates_v_that_is_the_probe():
+    """``doubling_shrink_plain`` given the probe's own buffer as the
+    candidate's v keeps its values before the first halving's probe
+    overwrites it, through the round's buffers on the CPU."""
+    q, ndim = 16, 3
+    st, inp = _hand_state(q, ndim, ndim, torch.float64, seed=9)
+    rb = pr.DoublingRound(q, 4, ndim, ndim, torch.float64, "cpu")
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.st["uclamp"].copy_(inp["v_x"])
+    rb.loglstar.copy_(inp["loglstar"])
+    pr.doubling_shrink(rb, pr.S_CANDIDATE, rb.st["uclamp"], inp["logl"][0])
+    assert torch.equal(rb.st["v_c"], inp["v_x"])
+    ref = {k: t.clone() for k, t in st.items()}
+    ref["uclamp"] = inp["v_x"].clone()
+    pr.doubling_shrink_plain(ref, pr.S_CANDIDATE, inp["v_x"],
+                             inp["logl"][0], inp["loglstar"])
+    for k in ref:
+        _same(rb.st[k], ref[k])
+    assert not torch.equal(rb.st["uclamp"], inp["v_x"])
+
+
+def test_the_wrapper_refuses_a_halvings_probe():
+    rb = pr.DoublingRound(4, 2, 3, 3, torch.float64, "cpu")
+    with pytest.raises(ValueError, match="probed by doubling_shrink"):
+        pr.doubling_point(rb, pr.P_HALVE)
+
+
+# --------------------------------------------------------------------------
 # on the card
 
 
@@ -710,7 +937,6 @@ def _sequence(rb, st, inp, kernels):
         pr.doubling_shrink(rb, pr.S_CANDIDATE, inp["v_x"], next(raws))
         snap(d)
         while bool(d["any"]):
-            pr.doubling_point(rb, pr.P_HALVE)
             pr.doubling_halve(rb, next(raws))
             snap(d)
         pr.doubling_shrink(rb, pr.S_RESOLVE)
@@ -718,7 +944,7 @@ def _sequence(rb, st, inp, kernels):
         return states
     args = (draw, rb.directions, rb.strict)
     for mode in (pr.P_START_L, pr.P_START_R):
-        pr.doubling_point_plain(st, mode, *args)
+        pr.doubling_point_plain(st, mode, *args, rb.gate)
         snap(st)
     logl_r = next(raws)
     pr.doubling_expand_plain(st, pr.X_INIT, logl_r, next(raws), draw, ls)
@@ -727,13 +953,13 @@ def _sequence(rb, st, inp, kernels):
     pr.doubling_expand_plain(st, pr.X_DOUBLE, next(raws), None, draw, ls)
     snap(st)
     pr.doubling_point_plain(st, pr.P_SHRINK, *args)
-    pr.doubling_shrink_plain(st, pr.S_CANDIDATE, inp["v_x"], next(raws), ls)
+    pr.doubling_shrink_plain(st, pr.S_CANDIDATE, inp["v_x"], next(raws), ls,
+                             rb.strict)
     snap(st)
     while bool(st["any"]):
-        pr.doubling_point_plain(st, pr.P_HALVE, *args)
-        pr.doubling_halve_plain(st, next(raws), ls)
+        pr.doubling_halve_plain(st, next(raws), ls, rb.strict)
         snap(st)
-    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls)
+    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls, rb.strict)
     snap(st)
     return states
 
@@ -754,6 +980,7 @@ def test_kernels_match_plain_on_the_card(cuda, dtype, ndim, strict):
     rb.directions.copy_(inp["directions"] * (3.0 / ndim))
     rb.draw.copy_(inp["draw"])
     rb.loglstar.copy_(inp["loglstar"])
+    rb.gate.fill_(False)
     inp["logl"] = inp["logl"] * 4
     pr.zero_counts()
     got = _sequence(rb, None, inp, True)
@@ -765,10 +992,87 @@ def test_kernels_match_plain_on_the_card(cuda, dtype, ndim, strict):
         for k in b:
             _same(a[k], b[k])
     halvings = len(got) - 6
-    assert pr.doubling_point.launches == 4 + halvings
+    # the halvings' mids are probed by the kernels before them
+    assert pr.doubling_point.launches == 4
     assert pr.doubling_expand.launches == 2
     assert pr.doubling_halve.launches == halvings
     assert pr.doubling_shrink.launches == 2
+
+
+def _card_round(q, ndim, dtype, device, strict, seed=5):
+    """A ``DoublingRound`` on the card holding the hand-made state, its
+    steps short enough for some probes to stay in the cube; and the state
+    and a segment's inputs."""
+    st, inp = _hand_state(q, ndim, ndim, dtype, device, seed=seed)
+    rb = pr.DoublingRound(q, 4, ndim, ndim, dtype, device,
+                          inp["strict"] if strict else None)
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.directions.copy_(inp["directions"] * (3.0 / ndim))
+    rb.draw.copy_(inp["draw"])
+    rb.loglstar.copy_(inp["loglstar"])
+    rb.gate.fill_(False)
+    return rb, inp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [3, 48, 160])
+@pytest.mark.parametrize("q", [1, 256, 1500])
+def test_the_halving_writes_its_probe_and_flag_on_the_card(cuda, dtype,
+                                                          ndim, q):
+    """``doubling_halve`` (one block, passes over the lanes past its
+    threads; at 160 dimensions its threads loop past their loaded rows)
+    and a candidate's ``doubling_shrink`` with the next halving's
+    probe against their plain versions, every entry of the state bit for
+    bit, the halving from a stale ``any`` flag of either value; a state
+    where a lane halves on and one where none does."""
+    outcomes = set()
+    for name in ("halve", "candidate", "none_halve"):
+        for stale in (False, True):
+            rb, inp = _card_round(q, ndim, dtype, cuda, strict=True)
+            if name == "none_halve":
+                rb.st["h_active"].fill_(False)
+            # the candidate's flag is cleared by its doubling_point; the
+            # halving's is whatever the segment before it left
+            rb.st["any"].fill_(stale and name != "candidate")
+            ref = {k: t.clone() for k, t in rb.st.items()}
+            raw = inp["logl"][1] * 4
+            if name == "candidate":
+                pr.doubling_shrink(rb, pr.S_CANDIDATE, inp["v_x"], raw)
+                pr.doubling_shrink_plain(ref, pr.S_CANDIDATE, inp["v_x"],
+                                         raw, rb.loglstar, rb.strict)
+            else:
+                pr.doubling_halve(rb, raw)
+                pr.doubling_halve_plain(ref, raw, rb.loglstar, rb.strict)
+            torch.cuda.synchronize()
+            for k in ref:
+                _same(rb.st[k], ref[k])
+            outcomes.add(bool(ref["any"]))
+            if name == "none_halve":
+                assert not bool(rb.st["any"])
+    if q > 1:
+        assert outcomes == {False, True}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("gated", [False, True])
+def test_the_end_probes_read_the_round_gate_on_the_card(cuda, dtype, gated):
+    """``doubling_point``'s end probes against their plain versions with
+    the round gate set and clear: behind a set gate no lane counts."""
+    q, ndim = 256, 3
+    rb, inp = _card_round(q, ndim, dtype, cuda, strict=True)
+    rb.gate.fill_(gated)
+    ref = {k: t.clone() for k, t in rb.st.items()}
+    for mode, key in ((pr.P_START_L, "incube_l"), (pr.P_START_R, "incube")):
+        pr.doubling_point(rb, mode)
+        pr.doubling_point_plain(ref, mode, rb.draw, rb.directions,
+                                rb.strict, rb.gate)
+        torch.cuda.synchronize()
+        for k in ref:
+            _same(rb.st[k], ref[k])
+        assert bool(rb.st[key].any()) != gated
 
 
 def _card_rounds(like, q, kind, slices, dtype, device, seeds, cache,

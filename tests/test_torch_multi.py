@@ -32,6 +32,7 @@ import dynesty_tpu_torch.internal.fused as tfused
 import dynesty_tpu_torch.internal.kernels as tk
 import dynesty_tpu_torch.internal.samplers as tsam
 import dynesty_tpu_torch.ops.geometry as tgeo
+import dynesty_tpu_torch.ops.proposals as pr
 import dynesty_tpu_torch.utils.misc as tmisc
 from dynesty_tpu_torch.utils.convert import (bound_arrays_to_torch,
                                              bound_from_arrays, to_numpy)
@@ -223,8 +224,9 @@ def _two_circles():
 
 def _union_valid(sq, mask, ua):
     """The union's overlap test on the draws of ``_sample_ellipsoid_union``
-    (as ``unif_valid`` applies it, without the cube check: these circles
-    leave the cube): in ``nin`` > 0 slots, and ``ua < 1 / nin``."""
+    and their quadratic forms ``sq`` (as ``unif_valid`` applies it, without
+    the cube check: these circles leave the cube): in ``nin`` > 0 slots,
+    and ``ua < 1 / nin``."""
     inside = (sq < 1.0) & mask[None, :]
     nin = torch.where(inside.any(1), inside.sum(1),
                       ((sq <= 1.0 + 1e-3) & mask[None, :]).sum(1))
@@ -234,8 +236,9 @@ def _union_valid(sq, mask, ua):
 def test_ellipsoid_union_sampling_uniform():
     arrays = _two_circles()
     gen = tmisc.torch_generator(SEED, "cpu")
-    x, sq, ua = tk._sample_ellipsoid_union(gen, arrays, 40000, 2,
-                                           torch.float64)
+    x, ua = tk._sample_ellipsoid_union(gen, arrays, 40000, 2,
+                                       torch.float64)
+    sq = pr.ellipsoid_forms_plain(x, arrays["ctrs"], arrays["ams"])
     valid = _union_valid(sq, arrays["mask"], ua)
     xs = x[valid].numpy()
     n = len(xs)

@@ -492,3 +492,22 @@ def test_a_capture_that_raises_warns_once_and_runs_eagerly(cuda):
     assert "n_rwalk_graph" not in t
     for (p, _, off), (pe, _, offe) in zip(got, ref):
         assert torch.equal(p, pe) and off == offe
+
+
+@pytest.mark.cuda
+def test_a_capture_that_raises_leaves_the_default_generator_drawing(cuda):
+    """Every capture registers the device's default generator, and a
+    capture whose end raised left it in capture mode, so that the next
+    draw from it outside a graph raised; the capture's fallback releases
+    it, and it draws as seeded."""
+    like = _like(False, torch.float64, cuda, fn=_syncing_ll,
+                 mode="vectorized")
+    t = Timings()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        _card_rounds(like, 64, torch.float64, cuda, (1, 2), {}, t)
+    assert any("CUDA graph" in str(x.message) for x in w)
+    torch.cuda.manual_seed(3)
+    a = torch.randn(8, device=cuda)
+    torch.cuda.manual_seed(3)
+    assert torch.equal(a, torch.randn(8, device=cuda))

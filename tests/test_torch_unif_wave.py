@@ -378,22 +378,49 @@ def test_the_plain_placement_equals_the_eager_wave_on_hand_made_states():
             assert n_succ > 3 and bool(done) and (d == q).sum() > 0
 
     # the lane checks: width, cube (one loose dimension), the union's
-    # overlap test, the friends' acceptance
+    # quadratic forms and overlap test, the friends' acceptance
     uc = torch.as_tensor(rs.uniform(-0.6, 1.6, (q, ndim)))
+    uc[:8] = torch.as_tensor(rs.uniform(0.3, 0.7, (8, ndim)))
+    uc[0] = torch.tensor([0.55, 0.5, 0.5])
     strict = torch.tensor([True, False, True])
-    sq = torch.as_tensor(rs.uniform(0.0, 1.5, (q, 4)))
-    sq[0] = 1.0005  # only the rescue holds lane 0
+    ctrs = torch.as_tensor(np.array([[0.5] * 3, [0.2] * 3, [0.8] * 3,
+                                     rs.uniform(0.2, 0.8, ndim)]))
+    a = rs.normal(size=(4, ndim, ndim))
+    ams = torch.as_tensor(np.eye(ndim) * 40.0 +
+                          0.5 * (a + a.transpose(0, 2, 1)))
+    # only the rescue holds lane 0: its form in slot 0 is 1.0005
+    d0 = (uc[0] - ctrs[0]).numpy()
+    ams[0] = torch.as_tensor(np.eye(ndim) * 1.0005 / (d0 @ d0))
     mask = torch.tensor([True, True, True, False])
     ua = torch.as_tensor(rs.random(q))
+    ua[0] = 0.0
     acc = torch.as_tensor(rs.random(q) < 0.5)
-    got = pr.unif_valid_plain(uc, torch.tensor(40), strict, sq, mask, ua,
-                              acc)
+    acc[0] = True
+    got = pr.unif_valid_plain(uc, torch.tensor(40), strict, ctrs, ams, mask,
+                              ua, acc)
+    # the forms one product at a time, in the kernel's order
+    sq = torch.empty((q, 4), dtype=dtype)
+    for k in range(q):
+        for j in range(4):
+            d = [float(uc[k, i] - ctrs[j, i]) for i in range(ndim)]
+            f = None
+            for i in range(ndim):
+                t = None
+                for l in range(ndim):
+                    p = float(ams[j, i, l]) * d[l]
+                    t = p if t is None else t + p
+                f = d[i] * t if f is None else f + d[i] * t
+            sq[k, j] = f
+    assert torch.equal(pr.ellipsoid_forms_plain(uc, ctrs, ams), sq)
+    assert 1.0 < float(sq[0, 0]) <= 1.0 + 1e-3
+    assert not bool((sq[0, :3] < 1.0).any())
     sqm = torch.where(mask[None, :], sq, math.inf)
     nin = (sqm < 1.0).sum(1)
     nin = torch.where(nin > 0, nin, (sqm <= 1.0 + 1e-3).sum(1))
     ref = (torch.arange(q) < 40) & unitcheck_batch(uc, strict) & \
         (ua < 1.0 / nin.clamp_min(1).to(dtype)) & (nin > 0) & acc
     assert torch.equal(got, ref) and 0 < int(ref.sum()) < 40
+    assert bool(got[0])
 
 
 @pytest.mark.parametrize("situation", ["gated", "all_fail", "overflow"])
@@ -407,7 +434,7 @@ def test_the_placement_on_edge_waves_through_the_round_buffers(situation):
     rb, inp = _kernel_inputs("cube", q, 4, 3, torch.float64, "cpu")
     _edge_wave(rb, inp, situation)
     st0 = rb.state.clone()
-    pr.unif_valid(rb, inp["uc"])
+    pr.unif_valid(rb, inp["uc"], u_ex=inp["u_ex"])
     pr.unif_place(rb, inp["u_prop"], inp["v"], inp["logl"])
     n_valid = int(rb.valid.sum())
     filled, waves, nc, n_prop, pending, width, cap = st0.tolist()
@@ -508,10 +535,18 @@ def test_round_buffers_refuse_what_no_kernel_takes():
                       arrays_layout=layout)
     uc = torch.zeros((8, 3), dtype=torch.float64)
     with pytest.raises(ValueError, match="exactly over a union"):
-        rb.check_draws(uc, None, None, None, uc)
+        rb.check_draws(uc, None, None, None)
     with pytest.raises(TypeError, match="must be torch.float64"):
-        rb.check_draws(uc, torch.zeros((8, 4), dtype=torch.float32),
-                       torch.zeros(8, dtype=torch.float64), None, uc)
+        rb.check_draws(uc, torch.zeros(8, dtype=torch.float32), None, None)
+    with pytest.raises(ValueError, match="exactly where ncdim < ndim"):
+        rb.check_draws(uc, torch.zeros(8, dtype=torch.float64), None,
+                       torch.zeros((8, 1), dtype=torch.float64))
+    wide = pr.UnifRound(8, 4, 3, 1, torch.float64, "cpu")
+    with pytest.raises(ValueError, match="exactly where ncdim < ndim"):
+        wide.check_draws(uc, None, None, None)
+    with pytest.raises(ValueError, match="must have shape"):
+        wide.check_draws(uc, None, None,
+                         torch.zeros((8, 2), dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         rb.check_likelihood(torch.zeros((8, 1), dtype=torch.float64),
                             torch.zeros((8, 2), dtype=torch.float64)[:, 0])
@@ -606,33 +641,190 @@ def test_custom_round_equals_the_jax_packages(jx):
     assert min(np.abs(logl - t).min() for t in thresholds) > 1e-9
 
 
-def test_the_ellipsoid_acceptance_equals_the_jax_packages(jx):
+def _union_arrays(ncdim, n_ell, seed):
+    """A union of ``n_ell`` ellipsoids in ``ncdim`` dimensions inside the
+    cube, overlapping, padded to a power of two (numpy, float64)."""
+    rs = get_rstate(seed)
+    ctrs = 0.5 + rs.uniform(-1.0, 1.0, (n_ell, ncdim)) * 0.06 / ncdim
+    covs = []
+    for _ in range(n_ell):
+        a = rs.normal(size=(ncdim, ncdim))
+        w, vec = np.linalg.eigh(np.eye(ncdim) + 0.2 * (a + a.T) / ncdim)
+        covs.append((vec * np.abs(w)) @ vec.T * 0.1 ** 2 / ncdim)
+    mb = MultiEllipsoid(ncdim, ctrs=ctrs, covs=np.array(covs))
+    return bound_arrays_to_torch("ellipsoids", mb.device_spec()[1], "cpu")
+
+
+@pytest.mark.parametrize("ncdim", [2, 3, 15])
+@pytest.mark.parametrize("n_ell", [1, 4, 9])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_the_ellipsoid_acceptance_equals_the_jax_packages(jx, ncdim, n_ell,
+                                                          dtype):
     """``unif_valid_plain`` on the JAX package's own draws (its points,
-    the arrays, its acceptance uniforms from the key it splits) gives its
-    ``_sample_ellipsoid_union``'s ``valid``; every point lies in the
-    cube, so the lane checks add nothing."""
+    the arrays, its acceptance uniforms from the key it splits), the
+    quadratic forms computed in the kernel's order, gives its
+    ``_sample_ellipsoid_union``'s ``valid`` (its einsum sums in another
+    order: the draws keep every form 1e-9 (float64) or 2e-5 (float32)
+    away from both thresholds, and the comparison takes the lanes so far
+    away only, at least 99 % of them); every point lies in the cube, so
+    the lane checks add nothing."""
     jax, jnp, jk = jx
-    q, ncdim = 2000, 3
-    arrays = _arrays("ellipsoids", ncdim, torch.float64)
-    arrays = {k: v for k, v in arrays.items()}
-    ctrs = arrays["ctrs"].clone()
-    ctrs[2] = torch.tensor([0.55, 0.35, 0.45], dtype=torch.float64)
-    arrays["ctrs"] = ctrs
+    q = 2000
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    arrays = _union_arrays(ncdim, n_ell, 4 + ncdim + n_ell)
+    assert arrays["mask"].shape[0] == 1 << (n_ell - 1).bit_length()
     jarrays = {k: jnp.asarray(v.numpy()) for k, v in arrays.items()}
     key = jax.random.key(4)
-    x, valid = jk._sample_ellipsoid_union(key, jarrays, q, ncdim,
-                                          jnp.float64)
+    x, valid = jk._sample_ellipsoid_union(key, jarrays, q, ncdim, jdt)
     _, _, ka = jax.random.split(key, 3)
-    ua = torch.as_tensor(np.asarray(jax.random.uniform(ka, (q,),
-                                                       dtype=jnp.float64)))
-    x = torch.as_tensor(np.asarray(x))
-    d = x[:, None, :] - arrays["ctrs"][None, :, :]
-    sq = torch.einsum("qmi,mij,qmj->qm", d, arrays["ams"], d)
+    ua = torch.as_tensor(np.array(jax.random.uniform(ka, (q,), dtype=jdt)))
+    x = torch.as_tensor(np.array(x))
+    assert x.dtype == ua.dtype == dtype
+    ctrs, ams = arrays["ctrs"].to(dtype), arrays["ams"].to(dtype)
     assert bool(unitcheck_batch(x).all())
-    got = pr.unif_valid_plain(x, torch.tensor(q), None, sq, arrays["mask"],
-                              ua)
-    assert torch.equal(got, torch.as_tensor(np.asarray(valid)))
-    assert 0 < int(got.sum()) < q
+    got = pr.unif_valid_plain(x, torch.tensor(q), None, ctrs, ams,
+                              arrays["mask"], ua)
+    sq = pr.ellipsoid_forms_plain(x, ctrs, ams).double()
+    margin = 1e-9 if dtype == torch.float64 else 2e-5
+    loose = float(torch.tensor(1.0 + 1e-3, dtype=dtype))
+    far = (((sq - 1.0).abs() > margin) & ((sq - loose).abs() > margin) |
+           ~arrays["mask"][None, :]).all(1)
+    assert int(far.sum()) >= 0.99 * q
+    ref = torch.as_tensor(np.asarray(valid))
+    assert torch.equal(got[far], ref[far])
+    assert 0 < int(got.sum()) <= q and (int(got.sum()) == q) == (n_ell == 1)
+
+
+def test_the_forms_count_as_the_einsum_did_away_from_the_thresholds():
+    """The lane checks on the forms in the kernel's order against the
+    same checks on the einsum's forms (the union's products before the
+    kernel took them in): the same count, and the same ``valid``, on every
+    lane whose forms all lie farther than 1e-12 (float64) or 1e-4
+    (float32) from 1 and from 1 + 1e-3; the two orders' forms differ by a
+    few ulps at most."""
+    q = 4096
+    for ncdim, n_ell, dtype in ((2, 4, torch.float64), (3, 9, torch.float64),
+                                (15, 4, torch.float64),
+                                (3, 9, torch.float32)):
+        arrays = _union_arrays(ncdim, n_ell, 21 + ncdim)
+        gen = torch.Generator()
+        gen.manual_seed(ncdim)
+        x, ua = tk._sample_ellipsoid_union(gen, arrays, q, ncdim, dtype)
+        ctrs, ams = arrays["ctrs"].to(dtype), arrays["ams"].to(dtype)
+        mask = arrays["mask"]
+        d = x[:, None, :] - ctrs[None, :, :]
+        old = torch.einsum("qmi,mij,qmj->qm", d, ams, d)
+        new = pr.ellipsoid_forms_plain(x, ctrs, ams)
+        eps = torch.finfo(dtype).eps
+        assert bool(((new - old).abs() <= 64 * eps * old.abs()).all())
+        margin = 1e-12 if dtype == torch.float64 else 1e-4
+        loose = float(torch.tensor(1.0 + 1e-3, dtype=dtype))
+        far = (((new - 1.0).abs() > margin) &
+               ((new - loose).abs() > margin) | ~mask[None, :]).all(1)
+        assert int(far.sum()) > 0.99 * q
+
+        def count(sq):
+            sq = torch.where(mask[None, :], sq, math.inf)
+            nin = (sq < 1.0).sum(1)
+            return torch.where(nin > 0, nin, (sq <= 1.0 + 1e-3).sum(1))
+
+        assert torch.equal(count(new)[far], count(old)[far])
+        assert int((count(new) > 1).sum()) > 0
+        got = pr.unif_valid_plain(x, torch.tensor(q), None, ctrs, ams, mask,
+                                  ua)
+        nin = count(old)
+        ref = (ua < 1.0 / nin.clamp_min(1).to(dtype)) & (nin > 0) & \
+            unitcheck_batch(x)
+        assert torch.equal(got[far], ref[far])
+
+
+def _threshold_round(q, ndim, dtype, device):
+    """A round over a union of six ellipsoids (padded to eight slots, the
+    two masked ones holding every lane) and one wave's draws whose forms
+    lie exactly at the thresholds: lane k (k % 8 < 6) has the form
+    ``TARGETS[k % 8]`` in slot k % 8 (the largest float below 1, 1, the
+    smallest above 1, the same about 1 + 1e-3 in the round's dtype) and
+    forms above 4 in the other valid slots, and ua 0; the other lanes
+    are random, and the other dimensions' uniforms (ndim > 3) hold NaN,
+    values outside the cube and edges, as does one candidate (NaN)."""
+    rs = get_rstate(q + ndim)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    one = torch.tensor(1.0, dtype=dtype)
+    loose = torch.tensor(1.0 + 1e-3, dtype=dtype)
+    targets = torch.stack([torch.nextafter(one, -one), one,
+                           torch.nextafter(one, 2 * one),
+                           torch.nextafter(loose, -one), loose,
+                           torch.nextafter(loose, 2 * one)])
+    m, ncdim = 8, 3
+    ctrs = np.full((m, ncdim), 0.5)
+    ctrs[:6, 0] = 0.25
+    ctrs[:6, 1] = 0.1 + 0.1 * np.arange(6)
+    ams = np.zeros((m, ncdim, ncdim))
+    ams[:6] = np.diag([0.0, 400.0, 400.0])
+    ams[:6, 0, 0] = 4.0 * targets.double().numpy()  # 4 * target: exact
+    ams[6:] = 1e-6 * np.eye(ncdim)
+    arrays = {"ctrs": t(ctrs), "ams": t(ams), "axes": t(ams),
+              "logvols": t(np.zeros(m)),
+              "mask": t(np.arange(m) < 6, torch.bool)}
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in pr.UNIF_ARRAYS["ellipsoids"]}
+    rb = pr.UnifRound(q, ndim, ncdim, ndim, dtype, device, None, layout)
+    rb.start(0.0, arrays, 9)
+    lane = np.arange(q)
+    at = lane % 8 < 6
+    uc = rs.uniform(0.05, 0.95, (q, ncdim))
+    uc[at, 0] = 0.75  # d = (0.5, 0, 0): the form is exactly its target
+    uc[at, 1] = ctrs[lane[at] % 8, 1]
+    uc[at, 2] = 0.5
+    ua = rs.random(q)
+    ua[at] = 0.0
+    if q > 7:
+        uc[7, 1] = np.nan
+    u_ex = None
+    if ndim > ncdim:
+        u_ex = rs.choice([np.nan, -0.25, 0.0, 0.3, 1.0, 1.75],
+                         size=(q, ndim - ncdim))
+        u_ex = t(u_ex)
+    inp = {"uc": t(uc), "ua": t(ua), "u_ex": u_ex}
+    # the target lanes: valid where the form is < 1, or (none being) at
+    # most 1 + 1e-3
+    expect = t([True, True, True, True, True, False], torch.bool)
+    return rb, inp, targets, expect
+
+
+def _same_values(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [3, 5])
+def test_the_lane_checks_at_the_thresholds_and_the_likelihoods_input(
+        dtype, ndim):
+    """Through the round on the CPU (the plain versions): forms exactly at
+    1 and at 1 + 1e-3 and at their neighbouring floats count as the eager
+    checks said (the neighbour above the loose threshold alone fails),
+    the masked slots count for nothing, and the likelihood's input is
+    ``torch.cat(...).clamp(0, 1)`` of the draws, NaN included."""
+    q = 64
+    rb, inp, targets, expect = _threshold_round(q, ndim, dtype, "cpu")
+    sq = pr.ellipsoid_forms_plain(inp["uc"], rb.arrays["ctrs"],
+                                  rb.arrays["ams"])
+    lane = torch.arange(q)
+    at = lane % 8 < 6
+    assert torch.equal(sq[at, lane[at] % 8], targets[lane[at] % 8])
+    pr.unif_valid(rb, inp["uc"], inp["ua"], None, inp["u_ex"])
+    assert torch.equal(rb.valid[at], expect[lane[at] % 8])
+    u_prop = inp["uc"] if inp["u_ex"] is None else \
+        torch.cat([inp["uc"], inp["u_ex"]], dim=1)
+    assert _same_values(rb.u_prop, u_prop)
+    assert _same_values(rb.uclamp, u_prop.clamp(0.0, 1.0))
+    assert bool(rb.uclamp.isnan().any())
+    assert not bool(rb.valid[7])
 
 
 # --------------------------------------------------------------------------
@@ -667,8 +859,9 @@ def _card_rounds(like, kind, ndim, ncdim, nonbounded, q, dtype, device,
 
 def _kernel_inputs(kind, q, ndim, ncdim, dtype, device, seed=2):
     """A round on the card with a hand-made state, and one wave's inputs:
-    candidates in and out of the cube, the union's products, a likelihood
-    above and below the threshold."""
+    candidates in and out of the cube (over ellipsoids half of them about
+    the centres), the other dimensions' uniforms (NaN and values outside
+    the cube among them), a likelihood above and below the threshold."""
     rs = get_rstate(seed)
 
     def t(a, dt=dtype):
@@ -683,15 +876,19 @@ def _kernel_inputs(kind, q, ndim, ncdim, dtype, device, seed=2):
     rb.start(0.0, arrays, 9)
     rb.state.copy_(torch.tensor([q // 3, 2, 50, 3 * q, 5, q - 7, 9]))
     m = rb.m
-    inp = {"uc": t(rs.uniform(-0.6, 1.6, (q, ncdim))),
-           "sq": t(rs.uniform(0.0, 1.6, (q, m))) if m else None,
-           "ua": t(rs.random(q)) if m else None,
+    uc = rs.uniform(-0.6, 1.6, (q, ncdim))
+    if m:
+        near = np.arange(q) % 2 == 0
+        uc[near] = arrays["ctrs"].cpu().numpy()[np.arange(q)[near] % 3] + \
+            rs.normal(0.0, 0.08, (int(near.sum()), ncdim))
+    inp = {"uc": t(uc), "ua": t(rs.random(q)) if m else None,
            "accept": t(rs.random(q) < 0.6, torch.bool)
            if kind in ("balls", "cubes") else None,
+           "u_ex": t(rs.choice([np.nan, -0.2, 0.4, 1.0, 1.3],
+                               size=(q, ndim - ncdim)))
+           if ndim > ncdim else None,
            "u_prop": t(rs.random((q, ndim))), "v": t(rs.random((q, ndim))),
            "logl": t(rs.normal(size=q))}
-    if m:
-        inp["sq"][:, 1] = 1.0 + 5e-4  # the rescue
     return rb, inp
 
 
@@ -703,12 +900,15 @@ def test_the_kernels_equal_the_plain_versions_on_the_card(cuda, kind, dtype,
                                                           q):
     ndim, ncdim = 4, 3
     rb, inp = _kernel_inputs(kind, q, ndim, ncdim, dtype, cuda)
+    forms = [rb.arrays[k] if rb.m else None for k in pr.UNIF_FORMS]
     ref = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH], rb.strict,
-                              inp["sq"], rb.arrays.get("mask"), inp["ua"],
-                              inp["accept"])
-    pr.unif_valid(rb, inp["uc"], inp["sq"], inp["ua"], inp["accept"])
+                              *forms, inp["ua"], inp["accept"])
+    u_prop, uclamp = pr.unif_input_plain(inp["uc"], inp["u_ex"])
+    pr.unif_valid(rb, inp["uc"], inp["ua"], inp["accept"], inp["u_ex"])
     torch.cuda.synchronize()
     assert torch.equal(rb.valid, ref) and 0 < int(ref.sum()) < q
+    assert _same_values(rb.u_prop, u_prop)
+    assert _same_values(rb.uclamp, uclamp)
     slots = {k: t.clone() for k, t in rb.slots.items()}
     state, dest, done = pr.unif_place_plain(rb.state.clone(), slots,
                                             rb.valid, inp["u_prop"],
@@ -720,6 +920,71 @@ def test_the_kernels_equal_the_plain_versions_on_the_card(cuda, kind, dtype,
     assert torch.equal(rb.done, done)
     for k in slots:
         assert torch.equal(rb.slots[k][:q], slots[k][:q]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [3, 5])
+@pytest.mark.parametrize("q", [1, 256, 700, 1500])
+def test_the_lane_checks_at_the_thresholds_on_the_card(cuda, dtype, ndim,
+                                                       q):
+    """The kernel against its plain version on forms exactly at 1 and at
+    1 + 1e-3 and at their neighbouring floats, the likelihood's input
+    with NaN and values outside the cube among the draws: every output
+    bit for bit, the target lanes as the eager checks said."""
+    rb, inp, targets, expect = _threshold_round(q, ndim, dtype, cuda)
+    forms = [rb.arrays[k] for k in pr.UNIF_FORMS]
+    ref = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH], None,
+                              *forms, inp["ua"])
+    u_prop, uclamp = pr.unif_input_plain(inp["uc"], inp["u_ex"])
+    pr.unif_valid(rb, inp["uc"], inp["ua"], None, inp["u_ex"])
+    torch.cuda.synchronize()
+    assert torch.equal(rb.valid, ref)
+    lane = torch.arange(q, device=cuda)
+    at = lane % 8 < 6
+    assert torch.equal(rb.valid[at], expect[lane[at] % 8])
+    assert _same_values(rb.u_prop, u_prop)
+    assert _same_values(rb.uclamp, uclamp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ncdim", [2, 8, 15])
+@pytest.mark.parametrize("n_ell", [1, 4, 9, 40])
+def test_the_union_forms_equal_the_plain_version_on_the_card(cuda, dtype,
+                                                            ncdim, n_ell):
+    """``unif_valid`` over unions of 1, 4, 9 and 40 ellipsoids (padded
+    to 1, 4, 16 and 64 slots: one thread a lane up to a warp of them, and
+    a warp looping over the slots past 32), in 2 and 8 dimensions (the
+    row in registers) and 15 (read from memory), against its plain
+    version bit for bit, the likelihood's input with a fourth of the
+    dimensions outside the bound."""
+    q = 700
+    rs = get_rstate(ncdim + n_ell)
+    arrays = {k: v.to(cuda) for k, v in
+              _union_arrays(ncdim, n_ell, 5 + ncdim).items()}
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in pr.UNIF_ARRAYS["ellipsoids"]}
+    ndim = ncdim + max(1, ncdim // 4)
+    rb = pr.UnifRound(q, ndim, ncdim, ndim, dtype, cuda, None, layout)
+    rb.start(0.0, arrays, 9)
+    ctrs = arrays["ctrs"].cpu().numpy()
+    uc = ctrs[np.arange(q) % n_ell] + rs.normal(0.0, 0.1 / ncdim,
+                                                (q, ncdim))
+    inp = {"uc": torch.as_tensor(uc, dtype=dtype, device=cuda),
+           "ua": torch.as_tensor(rs.random(q), dtype=dtype, device=cuda),
+           "u_ex": torch.as_tensor(rs.random((q, ndim - ncdim)),
+                                   dtype=dtype, device=cuda)}
+    forms = [rb.arrays[k] for k in pr.UNIF_FORMS]
+    ref = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH], None,
+                              *forms, inp["ua"])
+    u_prop, uclamp = pr.unif_input_plain(inp["uc"], inp["u_ex"])
+    pr.unif_valid(rb, inp["uc"], inp["ua"], None, inp["u_ex"])
+    torch.cuda.synchronize()
+    assert torch.equal(rb.valid, ref) and 0 < int(ref.sum()) <= q
+    assert _same_values(rb.u_prop, u_prop)
+    assert _same_values(rb.uclamp, uclamp)
 
 
 def _edge_wave(rb, inp, situation):
@@ -744,7 +1009,7 @@ def test_the_placement_equals_its_plain_version_on_edge_waves_on_the_card(
         cuda, situation, dtype, q):
     rb, inp = _kernel_inputs("cube", q, 4, 3, dtype, cuda)
     _edge_wave(rb, inp, situation)
-    pr.unif_valid(rb, inp["uc"], None, None, None)
+    pr.unif_valid(rb, inp["uc"], None, None, inp["u_ex"])
     torch.cuda.synchronize()
     n_valid = int(rb.valid.sum())
     assert (n_valid == 0) == (situation == "gated")
