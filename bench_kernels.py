@@ -20,19 +20,23 @@ kernels' cases to ``GROUPS``.  The groups:
 * ``place``: the wave's placement (``unif_place``) at each phase-2f case
   in its overflow state, float64 and float32 (each call first restores
   the round's state; that copy is timed alone and taken off);
-* ``doubling``: ``doubling_point`` in each mode it has in both versions
-  (the step's two end probes, a doubling, a shrink candidate); a
-  halving's device work between two likelihood calls (since the probe
-  was folded in, ``doubling_halve`` alone, which also probes the next
-  mid; before, ``doubling_point`` in its halving mode and
-  ``doubling_halve``); ``doubling_halve`` and ``doubling_shrink`` (a
-  candidate) alone, at (256, 3) in float64;
+* ``doubling``: each doubling kernel alone in each mode both versions
+  have (``doubling_point``'s two end probes, ``doubling_expand``'s start
+  and doubling, ``doubling_shrink``'s candidate and resolution,
+  ``doubling_halve``), and each captured segment's device work outside
+  its likelihood (``segment_span``: its draws and hand-written kernels,
+  each version's own: since the doubling's and the candidate's probes
+  were folded in, a doubling is the draw and ``doubling_expand``, a
+  candidate ``doubling_shrink`` alone, a resolution the draw and
+  ``doubling_shrink``, and the start draws twice; before, a doubling and
+  a candidate drew and launched ``doubling_point`` first), at (256, 3)
+  in float64;
 * ``valid``: ``unif_valid`` over the cube and over unions of 1, 4 and 16
   ellipsoids at (256, 3) in float64, alone and ``span``, every launch
   between the draws and the likelihood (before the fold: the union's
   subtraction and einsum, the kernel and the clamp);
-* ``replays``: the captured halving segment's and the captured waves'
-  (cube, three ellipsoids) replays.
+* ``replays``: the five captured doubling segments' replays (rslice at
+  (256, 3)) and the captured waves' (cube, three ellipsoids).
 
 ``--generic-rows`` also times ``unif_valid`` built with its generic row
 loop at every width (``-DUNIF_VALID_ROW_REGISTERS=0``) against the
@@ -45,6 +49,7 @@ exits non-zero without CUDA.
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -134,13 +139,20 @@ def folded(pr):
     return hasattr(pr, "unif_input_plain")
 
 
+def probes_folded(pr):
+    """Whether the checkout's ``doubling_expand`` and resolution write the
+    next probes (its ``doubling_point`` the step's end probes only)."""
+    return "draw_x" in inspect.signature(pr.doubling_expand).parameters
+
+
 def doubling_times(cm, torch):
     """The doubling kernels' device and events times on phase 2g's
-    hand-made state at (256, 3) in float64, each call on its own copy of
-    the state."""
+    hand-made state at (256, 3) in float64, each kernel and mode on its
+    own copy of the state, and each segment's draws and kernels."""
     pr = cm.pr
     q, ndim, dtype = cm.STEP_Q, cm.NDIM, torch.float64
     st, inp = cm.doubling_state(q, ndim, ndim, dtype)
+    new = probes_folded(pr)
     recs = []
 
     def rec(kernel, call, only, **key):
@@ -150,25 +162,73 @@ def doubling_times(cm, torch):
              "device_us": 1e3 * cm._device_ms(call, ITERS, only=only)}
         recs.append(r)
 
-    for mode in (pr.P_START_L, pr.P_START_R, pr.P_DOUBLE, pr.P_SHRINK):
-        rb = cm.doubling_round_on_card(cm._clone(st), inp, False)
+    def fresh():
+        return cm.doubling_round_on_card(cm._clone(st), inp, False)
+
+    def expand(rb, mode):
+        if new:
+            pr.doubling_expand(rb, mode, inp["logl_x"], inp["logl_l"],
+                               rb.draw_x)
+        else:
+            pr.doubling_expand(rb, mode, inp["logl_x"], inp["logl_l"])
+
+    def shrink(rb, mode):
+        pr.doubling_shrink(rb, mode, inp["v_x"], inp["logl_x"])
+
+    for mode in (pr.P_START_L, pr.P_START_R):
+        rb = fresh()
         rec("doubling_point", lambda rb=rb, m=mode: pr.doubling_point(rb, m),
             "doubling_point", mode=mode)
-    rb = cm.doubling_round_on_card(cm._clone(st), inp, False)
-    halve = lambda: pr.doubling_halve(rb, inp["logl_x"])  # noqa: E731
-    rec("doubling_halve", halve, "doubling_halve")
-    if folded(pr):
-        one = halve
-    else:
-        def one():
-            pr.doubling_point(rb, pr.P_HALVE)
-            pr.doubling_halve(rb, inp["logl_x"])
-    rec("halving", one, "doubling_")
-    rb = cm.doubling_round_on_card(cm._clone(st), inp, False)
-    rec("doubling_shrink",
-        lambda: pr.doubling_shrink(rb, pr.S_CANDIDATE, inp["v_x"],
-                                   inp["logl_x"]), "doubling_shrink",
-        mode=pr.S_CANDIDATE)
+    for mode in (pr.X_INIT, pr.X_DOUBLE):
+        rb = fresh()
+        rec("doubling_expand", lambda rb=rb, m=mode: expand(rb, m),
+            "doubling_expand", mode=mode)
+    rb = fresh()
+    rec("doubling_halve", lambda: pr.doubling_halve(rb, inp["logl_x"]),
+        "doubling_halve")
+    for mode in (pr.S_CANDIDATE, pr.S_RESOLVE):
+        rb = fresh()
+        rec("doubling_shrink", lambda rb=rb, m=mode: shrink(rb, m),
+            "doubling_shrink", mode=mode)
+
+    # each segment's launches but its likelihood's, in the version's order
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cm.SEED)
+    rb = fresh()
+
+    def draw():
+        rb.draw.uniform_(generator=gen)
+
+    def start():
+        draw()
+        pr.doubling_point(rb, pr.P_START_L)
+        pr.doubling_point(rb, pr.P_START_R)
+        if new:
+            draw()
+        expand(rb, pr.X_INIT)
+
+    def double():
+        draw()
+        if not new:
+            pr.doubling_point(rb, pr.P_DOUBLE)
+        expand(rb, pr.X_DOUBLE)
+
+    def candidate():
+        if not new:
+            draw()
+            pr.doubling_point(rb, pr.P_SHRINK)
+        shrink(rb, pr.S_CANDIDATE)
+
+    def resolve():
+        if new:
+            draw()
+        shrink(rb, pr.S_RESOLVE)
+
+    for kind, fn in (("start", start), ("double", double),
+                     ("candidate", candidate),
+                     ("halve", lambda: pr.doubling_halve(rb, inp["logl_x"])),
+                     ("resolve", resolve)):
+        rec("segment_span", fn, None, kind=kind)
     return recs
 
 
@@ -303,9 +363,9 @@ def generic_rows_times(cm, torch, root):
 
 
 def replay_times(cm, torch):
-    """The captured halving segment's replay (rslice doubling at (256,
-    3)) and the captured waves' (cube and three ellipsoids, (256, 3)):
-    device only, back-to-back events, and the host clock around one
+    """The five captured doubling segments' replays (rslice doubling at
+    (256, 3)) and the captured waves' (cube and three ellipsoids, (256,
+    3)): device only, back-to-back events, and the host clock around one
     replay with its wait and flag read."""
     from dynesty_tpu_torch.utils.misc import Timings
     cm._gauss_setup()
@@ -317,12 +377,16 @@ def replay_times(cm, torch):
     entry = next(iter(cache.values()))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cm.SEED)
-    graph = entry.graphs["halve"]
-    recs = [{"kernel": "halve_segment", "q": q, "ndim": cm.NDIM,
-             "dtype": "float64",
-             "replay_device_us": 1e3 * cm._device_ms(graph.replay, ITERS),
-             "replay_events_us": 1e3 * cm._time_ms(graph.replay, 200),
-             "replay_host_us": _host_us(lambda: entry.replay("halve", gen))}]
+    recs = []
+    for name in cm.DOUBLING_SEGMENTS:
+        graph = entry.graphs[name]
+        recs.append({
+            "kernel": "doubling_segment", "kind": name, "q": q,
+            "ndim": cm.NDIM, "dtype": "float64",
+            "replay_device_us": 1e3 * cm._device_ms(graph.replay, ITERS),
+            "replay_events_us": 1e3 * cm._time_ms(graph.replay, 200),
+            "replay_host_us": _host_us(
+                lambda name=name: entry.replay(name, gen))})
     for kind in ("cube", "ellipsoids"):
         cache = {}
         cm._capture_waves(cm._capture_like(False, dtype), kind, q, dtype,

@@ -88,9 +88,11 @@ Phases, in order; any failure raises and exits non-zero:
    the generator's offset bit for bit, every wave but the warm-up a
    replay; the host time of one replayed wave with its wait and flag read
    against an eager wave's.  Then the doubling round
-   (``doubling_kernels_phase``): ``doubling_point`` (each mode),
-   ``doubling_expand``, ``doubling_halve`` and ``doubling_shrink`` (the
-   last two with the next halving's probe they write) against
+   (``doubling_kernels_phase``): ``doubling_point`` (the step's two end
+   probes), ``doubling_expand`` (both modes, with the next doubling's or
+   the first candidate's probe it writes), ``doubling_halve`` and
+   ``doubling_shrink`` (with the next halving's or, resolving, the next
+   candidate's probe they write) against
    their plain versions on hand-made states of 256 lanes (lanes that
    double, shrink and halve and lanes that do not, ``grow`` at its clamp,
    -inf and threshold values, a candidate on its interval's end) at 3 and
@@ -259,15 +261,17 @@ Phases, in order; any failure raises and exits non-zero:
     (256, 3) (``unif_valid`` also over unions of 1, 4 and 16
     ellipsoids), of one replayed uniform wave over the cube at (256, 3)
     and of one of the heavy drive's ellipsoid waves, of the four doubling
-    kernels at (256, 3) (``doubling_point`` in each of its modes) and of
+    kernels at (256, 3) (each in each of its modes) and of
     each replayed doubling segment, and of one 256-lane evaluation of the
     heavy likelihood.  The cube wave's, one heavy ellipsoid wave's and
     every doubling segment's kernels are read from the captured graph's
     own nodes, as the CUDA runtime prints them: each wrapper's kernel is
     in as many nodes as the capture counted launches (what each replay
-    adds to the drives' counts), and the halving's segment holds
-    ``doubling_halve`` once and no ``doubling_point``.  With ``--parent DIR``, ``bench_kernels.py`` on
-    the checkout at DIR and on this one in turns.
+    adds to the drives' counts), ``doubling_point`` is in the start
+    segment's nodes twice and in no other segment's, the halving's
+    segment holds ``doubling_halve`` once, and the candidate's draws
+    nothing (no node of torch's uniform kernel).  With ``--parent DIR``,
+    ``bench_kernels.py`` on the checkout at DIR and on this one in turns.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
 ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
@@ -290,8 +294,8 @@ and every wave but the warm-up wave of each shape is a replay
 wave eager) and the waves over custom-unif's box, drawn on the host; a
 wave run eagerly counts ``n_uncaptured``.  One JSON line lists them by
 drive.  Every segment of the doubling round launches its kernels once
-(``doubling_point`` twice at a step's start, none at a halving or a
-resolution: the kernel before a halving probes its mid) and
+(``doubling_point`` twice at a step's start and in no other segment:
+the kernel before every other probe writes it) and
 every flag read but the shrink loop's first (always true, read from no
 device) follows one segment: on every drive ``doubling_expand +
 doubling_halve + doubling_shrink`` == the segments == ``sync_slice`` less
@@ -456,13 +460,15 @@ def _graph_nodes(graph):
     return nodes
 
 
-def check_replay_kernels(counted, graph, what):
+def check_replay_kernels(counted, graph, what, nodes=None):
     """One replay's kernels, read from the captured ``graph``'s own
-    nodes, against what its capture counted (``counted``: the wrappers'
-    launches, which every replay adds to the drives' counts); raises
-    where a wrapper's kernel is in another number of nodes.  Returns the
-    hand-written kernels' nodes by name."""
-    nodes = _graph_nodes(graph)
+    nodes (or from ``nodes``, the ones :func:`_graph_nodes` read), against
+    what its capture counted (``counted``: the wrappers' launches, which
+    every replay adds to the drives' counts); raises where a wrapper's
+    kernel is in another number of nodes.  Returns the hand-written
+    kernels' nodes by name."""
+    if nodes is None:
+        nodes = _graph_nodes(graph)
     got = {}
     for w, n in counted[1]:
         k = sum(f"{w.__name__}_kernel" in node for node in nodes)
@@ -834,14 +840,14 @@ def _counts(hk, eager=False, custom=False, raised=False):
         raise RuntimeError(f"the uniform waves did not run as the capture "
                            f"rule says ({mode}): {out}")
     # the doubling round: each segment launches its kernels once (a
-    # replay counting its segment's launches), every slice step starts
-    # with one start segment, and each flag read but the shrink loop's
-    # first (always true, read from no device) follows one segment
+    # replay counting its segment's launches; doubling_point twice at a
+    # step's start and nowhere else), every slice step starts with one
+    # start segment, and each flag read but the shrink loop's first
+    # (always true, read from no device) follows one segment
     segs = sum(out["seg_" + n] for n in DOUBLING_SEGMENTS)
     if not (out["doubling_expand"] + out["doubling_halve"] +
             out["doubling_shrink"] == segs and
-            out["doubling_point"] == segs - out["seg_resolve"] -
-            out["seg_halve"] + out["seg_start"] and
+            out["doubling_point"] == 2 * out["seg_start"] and
             out["doubling_expand"] == out["seg_start"] + out["seg_double"] and
             out["doubling_halve"] == out["seg_halve"] and
             out["doubling_shrink"] == out["seg_candidate"] +
@@ -4407,31 +4413,36 @@ DOUBLING_KERNELS = ("doubling_point", "doubling_expand", "doubling_halve",
 # the JAX code each replaces (dynesty_tpu/internal/kernels.py)
 DOUBLING_REPLACES = {
     "doubling_point": ("dynesty_tpu/internal/kernels.py:555",
-                       [":594-607", ":646-649", ":673"]),
+                       [":594-607"]),
     "doubling_expand": ("dynesty_tpu/internal/kernels.py:640",
-                        [":594-607", ":640-655"]),
+                        [":594-607", ":640-655", ":646-649", ":673"]),
     "doubling_halve": ("dynesty_tpu/internal/kernels.py:569",
                        [":569-585"]),
     "doubling_shrink": ("dynesty_tpu/internal/kernels.py:670",
-                        [":670-693", ":678-682", ":574"])}
+                        [":670-693", ":678-682", ":574", ":673"])}
 # (ndim, strict mask) of the kernels' cases: the doubling drives' 3-D and
 # 15-D, each without a mask and with every third dimension loose
 DOUBLING_CASES = [(3, False), (3, True), (15, False), (15, True)]
-# each kernel's calls: (mode, the flag the kernel before it clears)
+# each kernel's calls: (mode, the flag that is false as it starts: a
+# candidate's ``any``, which the loop before it ended on; a resolution's
+# ``any_shrink``, which the candidate cleared); doubling_expand starts
+# from the hand-made state's stale ``any`` and clears it itself
 DOUBLING_CALLS = {
-    "doubling_point": [(m, None) for m in range(4)],
-    "doubling_expand": [(0, "any"), (1, "any")],
+    "doubling_point": [(0, None), (1, None)],
+    "doubling_expand": [(0, None), (1, None)],
     "doubling_halve": [(None, "any")],
     "doubling_shrink": [(0, "any"), (1, "any_shrink")]}
-# the mode each kernel is timed in: a doubling's probe and its update, a
-# halving, a shrink candidate's outcome
-DOUBLING_TIMED = {"doubling_point": 2, "doubling_expand": 1,
+# the mode each kernel is timed in: the right end probe, a doubling with
+# its next probe, a halving, a shrink candidate's outcome (every mode's
+# device time in phase 34)
+DOUBLING_TIMED = {"doubling_point": 1, "doubling_expand": 1,
                   "doubling_halve": None, "doubling_shrink": 0}
 DOUBLING_NSTEPS = 6
 DOUBLING_SEGMENTS = ("start", "double", "candidate", "halve", "resolve")
-# doubling_point's calls in each of its modes at the drives' (256, 3) in
-# float64, timed device-only in phase 34 (doubling_kernel_cases)
-_POINT_MODE_CALLS = {}
+# each kernel's calls in each of its modes at the drives' (256, 3) in
+# float64, by (kernel, mode), timed device-only in phase 34
+# (doubling_kernel_cases)
+_MODE_CALLS = {}
 
 
 def doubling_state(q, ndim, npdim, dtype, seed=SEED):
@@ -4486,6 +4497,14 @@ def doubling_state(q, ndim, npdim, dtype, seed=SEED):
            "logl_x": t(rs.choice(vals + [0.5, 2.0, math.inf], q)),
            "logl_l": t(rs.choice(vals + [0.5, 2.0], q)),
            "v_x": t(rs.random((q, npdim)))}
+    # the side each lane's doubling kept, a candidate's cube check and the
+    # first candidate's draw (some 0), where the checkout's round has them
+    if "go_left" in st:
+        st["go_left"] = t(draw < 0.5, torch.bool)
+        st["incube_s"] = mask(0.8)
+    draw_x = rs.random(q)
+    draw_x[lane % 5 == 2] = 0.0
+    inp["draw_x"] = t(draw_x)
     return st, inp
 
 
@@ -4500,6 +4519,8 @@ def doubling_round_on_card(st, inp, strict):
         rb.st[k].copy_(t)
     rb.directions.copy_(inp["directions"])
     rb.draw.copy_(inp["draw"])
+    if hasattr(rb, "draw_x"):
+        rb.draw_x.copy_(inp["draw_x"])
     rb.loglstar.copy_(inp["loglstar"])
     rb.gate.fill_(False)
     return rb
@@ -4511,7 +4532,7 @@ def _doubling_call(rb, name, mode, inp):
         return lambda: pr.doubling_point(rb, mode)
     if name == "doubling_expand":
         return lambda: pr.doubling_expand(rb, mode, inp["logl_x"],
-                                          inp["logl_l"])
+                                          inp["logl_l"], rb.draw_x)
     if name == "doubling_halve":
         return lambda: pr.doubling_halve(rb, inp["logl_x"])
     return lambda: pr.doubling_shrink(rb, mode, inp["v_x"], inp["logl_x"])
@@ -4525,56 +4546,96 @@ def _doubling_plain(st, rb, name, mode, inp):
                                 rb.gate)
     elif name == "doubling_expand":
         pr.doubling_expand_plain(st, mode, inp["logl_x"], inp["logl_l"],
-                                 rb.draw, rb.loglstar)
+                                 rb.draw, rb.draw_x, rb.loglstar, rb.strict)
     elif name == "doubling_halve":
         pr.doubling_halve_plain(st, inp["logl_x"], rb.loglstar, rb.strict)
     else:
         pr.doubling_shrink_plain(st, mode, inp["v_x"], inp["logl_x"],
-                                 rb.loglstar, rb.strict)
+                                 rb.loglstar, rb.strict, rb.draw)
 
 
-def doubling_bytes(name, st, inp, q, ndim, npdim, tb):
-    """The bytes kernel ``name`` must move in its timed mode on the
-    hand-made state: each input read once, each output written once,
-    the per-lane counters of the active lanes and the halving's
-    rejections of the lanes it rejects only.  The halving and a
-    candidate also probe the next halving's mid: the start and direction
-    rows and the cube check's mask in, the clamped row and the cube check
-    out."""
-    n_act = int(st["active"].sum())
-    probe = 2 * q * ndim * tb + ndim + q * ndim * tb + q
+def doubling_bytes(name, mode, st, inp, q, ndim, npdim, tb):
+    """The bytes kernel ``name`` must move in ``mode`` on the hand-made
+    state: each input read once, each output written once, a lane's
+    per-lane counters and the values of one kind of lane only where the
+    plain version changes them (the per-lane counts from its outcome).
+    The next probe's start and direction rows and the cube check's mask
+    in, its clamped row (and a shrink candidate's point and position) and
+    its cube checks out, where the kernel writes a probe."""
+    probe = 2 * q * ndim * tb + ndim + q * ndim * tb
     if name == "doubling_point":
-        # draw, ends, mask, direction and start rows in; the clamped row,
-        # the cube check and the flag out; the mask and the step index
-        return q * (3 * tb + 1) + 2 * q * ndim * tb + ndim + 8 + \
-            q * ndim * tb + q + 1
+        if mode == 0:
+            # r0 and the start and direction rows in; the step's rows, the
+            # clamped row, the cube check and the interval out; the gate,
+            # the mask and the step index
+            return q * tb + 2 * q * ndim * tb + ndim + 9 + \
+                3 * q * ndim * tb + q + 2 * q * tb
+        # the right end, the step's rows in; the clamped row and the cube
+        # check out; the gate and the mask
+        return q * tb + probe + q + 1
     if name == "doubling_expand":
-        # cube check, logl, draw, ends and end values, mask in; the ends,
-        # end values, the shrink's ends and the mask out; grow, nc, n_exp
-        # in and out where the lane is active
-        return q * (6 * tb + 2) + tb + q * (6 * tb + 1) + 48 * n_act + 1
+        ref = _clone(st)
+        pr.doubling_expand_plain(ref, mode, inp["logl_x"], inp["logl_l"],
+                                 inp["draw"], inp["draw_x"], inp["loglstar"])
+        n_on = int(ref["active"].sum())
+        n_stop = q - n_on
+        # a stopped lane's candidate: its position and point out, both
+        # cube checks and the side of a lane that doubles on out
+        nxt = n_stop * (tb + ndim * tb) + 2 * q + n_on + probe + 1
+        if mode == 0:
+            # both probes' cube checks and logl, the interval, both draws
+            # and nc in; the end values, the shrink's interval, the mask,
+            # nc, grow, s_active out; the step index in and out
+            return q * (2 + 6 * tb + 8) + tb + 16 + \
+                q * (4 * tb + 1 + 16 + 1) + nxt
+        n0 = int(st["active"].sum())
+        # the cube check, logl, the interval, both draws, the end values,
+        # the mask, the side and s_active in; nc, n_exp and grow in and
+        # out and one end out where the lane doubled; the end values, the
+        # shrink's interval and the mask out
+        return q * (1 + 6 * tb + 3) + tb + 24 * n0 + \
+            q * (4 * tb + 1) + n0 * (24 + tb) + nxt
     if name == "doubling_halve":
-        # the candidate's position, the test's ends and end values, logl,
-        # the cube check, dflag, the mask and d_nc in; the ends, end
-        # values, dflag, the mask and d_nc out, reject where it rejects
         rej = _clone(st)
         rej["reject"].zero_()
         pr.doubling_halve_plain(rej, inp["logl_x"], inp["loglstar"])
         n_rej = int(rej["reject"].sum())
+        # the candidate's position, the test's ends and end values, logl,
+        # the cube check, dflag, the mask and d_nc in; the ends, end
+        # values, dflag, the mask and d_nc out, reject where it rejects;
+        # the next mid's clamped row and cube check
         return q * (6 * tb + 11) + tb + q * (4 * tb + 10) + n_rej + 1 + \
-            probe
-    # a candidate: cube check, v, logl, mask, the doubling's interval and
-    # end values, nc, n_con in; v, logl, nc, n_con, good, the test's start
-    # (its mask, ends, end values, dflag, reject, d_nc) out; the two flags
-    return q * (npdim * tb + 5 * tb + 18) + tb + \
-        q * (npdim * tb + 5 * tb + 28) + 2 + probe
+            probe + q
+    if mode == 0:
+        # a candidate: cube check, v, logl, mask, the doubling's interval
+        # and end values, nc, n_con in; v, logl, nc, n_con, good, the
+        # test's start (its mask, ends, end values, dflag, reject, d_nc)
+        # out; the two flags; the first mid's clamped row and cube check
+        return q * (npdim * tb + 5 * tb + 18) + tb + \
+            q * (npdim * tb + 5 * tb + 28) + 2 + probe + q
+    ref = _clone(st)
+    pr.doubling_shrink_plain(ref, 1, None, None, inp["loglstar"], None,
+                             inp["draw"])
+    n_new = int(ref["newly"].sum())
+    n_bad = int(ref["s_active"].sum())
+    n_ag = int((st["s_active"] & st["good"]).sum())
+    # a resolution: the masks, the candidate's position, the interval and
+    # the draw in; d_nc and nc in and nc out where a good lane is billed;
+    # the candidate's rows and logl in and the lane's out where it
+    # accepts; one end out where it shrinks on; the masks out; the next
+    # candidate's position, point and clamped row and its cube check; the
+    # flag
+    return q * (3 + 4 * tb) + 24 * n_ag + \
+        2 * n_new * (ndim + npdim + 1) * tb + n_bad * tb + 2 * q + \
+        q * tb + q * ndim * tb + probe + q + 1
 
 
 def doubling_kernel_cases(ndim, strict, dtype):
     """Each of the four kernels, in each of its modes, against its plain
-    version from the hand-made state (the flag it raises cleared, as the
-    kernel before it in a segment leaves it): every entry of the state.
-    Returns the records and the kernels' calls in their timed modes."""
+    version from the hand-made state (the flag that is false as it
+    starts cleared): every entry of the state.  Returns the records (each
+    with every mode's byte bound) and the kernels' calls in their timed
+    modes."""
     q, npdim = STEP_Q, ndim
     st, inp = doubling_state(q, ndim, npdim, dtype)
     tb = torch.finfo(dtype).bits // 8
@@ -4592,8 +4653,16 @@ def doubling_kernel_cases(ndim, strict, dtype):
             _doubling_plain(ref, rb, name, mode, inp)
             torch.cuda.synchronize()
             pairs += [(f"{k}[{mode}]", rb.st[k], ref[k]) for k in sorted(ref)]
-            if (name, mode) == ("doubling_point", 2):
-                covered.append(bool((st["active"] & ~ref["incube"]).any()))
+            if name == "doubling_expand":
+                # its count word is zero after every launch
+                pairs.append((f"vote[{mode}]", rb.vote,
+                              torch.zeros_like(rb.vote)))
+                # lanes that double on and lanes that stop, a next probe
+                # out of the cube and one clamped
+                covered.append(bool(ref["active"].any()) and
+                               bool((~ref["active"]).any()))
+                covered.append(bool((ref["active"] &
+                                     ~ref["incube"]).any()))
                 covered.append(bool(((ref["uclamp"] == 0.0) |
                                      (ref["uclamp"] == 1.0)).any()))
             if (name, mode) == ("doubling_expand", 1):
@@ -4606,18 +4675,20 @@ def doubling_kernel_cases(ndim, strict, dtype):
                                bool(ref["s_active"].any()))
         rec = _bit_record(name, (q, ndim), dtype, pairs)
         rec["strict"] = strict
+        rec["mode_bound_us"] = {
+            m: 1e6 * doubling_bytes(name, m, st, inp, q, ndim, npdim, tb) /
+            HBM_BYTES for m, _ in modes}
         mode = DOUBLING_TIMED[name]
         rb_t = doubling_round_on_card(_clone(st), inp, strict)
         call = _doubling_call(rb_t, name, mode, inp)
         _step_time(rec, call,
                    lambda: _doubling_plain(dict(st), rb_t, name, mode, inp),
-                   doubling_bytes(name, st, inp, q, ndim, npdim, tb))
+                   doubling_bytes(name, mode, st, inp, q, ndim, npdim, tb))
         recs.append(rec)
         calls[name] = call
-        if name == "doubling_point" and (ndim, strict, dtype) == (
-                NDIM, False, torch.float64):
+        if (ndim, strict, dtype) == (NDIM, False, torch.float64):
             for m, _ in modes:
-                _POINT_MODE_CALLS[m] = _doubling_call(
+                _MODE_CALLS[(name, m)] = _doubling_call(
                     doubling_round_on_card(_clone(st), inp, strict), name,
                     m, inp)
     if not all(covered):
@@ -4732,7 +4803,7 @@ def captured_doubling_phase(card):
     def fill_of(entry, name):
         if name not in entry.DRAWS:
             return None
-        return lambda: entry.rb.draw.uniform_(generator=gen)
+        return entry._filler(gen, False)
 
     def eager_segment(name, read=True):
         def call():
@@ -4929,6 +5000,16 @@ def report_compare(parent, change, moving):
     for what, diffs in (("differs", bad), ("moved", moved)):
         for name, fields in diffs.items():
             print(f"compare: {name} {what}: {json.dumps(fields)}")
+    # a doubling drive's doubling_point against its segments: the start's
+    # two end probes are the change's only ones
+    for name, fields in moved.items():
+        if "launches.doubling_point" in fields:
+            a, b = fields["launches.doubling_point"]
+            seg = record_drives(change)[name]["launches"]
+            print(f"compare: {name} doubling_point {a} -> {b} (fell by "
+                  f"{a - b}; seg_double + seg_candidate "
+                  f"{seg['seg_double'] + seg['seg_candidate']}, 2 x "
+                  f"seg_start {2 * seg['seg_start']})")
     print(json.dumps({"compare": {
         "drives": len(record_drives(parent)), "fields": n,
         "differ": sum(len(v) for v in bad.values()),
@@ -5459,36 +5540,45 @@ def main():
               f"{rec['device_us']:.3f} us  events (through the wrapper) "
               f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
               f"floor {floor['device_us']:.3f} us  [{card}]")
-    point = main_doubling(doubling_cases, "doubling_point")
-    point["mode_device_us"] = {}
-    for mode, fn in _POINT_MODE_CALLS.items():
-        point["mode_device_us"][mode] = 1e3 * _device_ms(
-            fn, only="doubling_point")
-        print(f"doubling doubling_point mode {mode} (256, 3) float64 device "
-              f"only: kernel {point['mode_device_us'][mode]:.3f} us  launch "
-              f"floor {floor['device_us']:.3f} us  [{card}]")
+    for (name, mode), fn in _MODE_CALLS.items():
+        rec = main_doubling(doubling_cases, name)
+        rec.setdefault("mode_device_us", {})[mode] = 1e3 * _device_ms(
+            fn, only=name)
+        print(f"doubling {name} mode {mode} (256, 3) float64 device only: "
+              f"kernel {rec['mode_device_us'][mode]:.3f} us  bound "
+              f"{rec['mode_bound_us'][mode]:.5f} us (bytes)  launch floor "
+              f"{floor['device_us']:.3f} us  [{card}]")
     cd = captured_doubling["timing"]["segments"]
     for name in DOUBLING_SEGMENTS:
-        cd[name]["replay_device_us"] = 1e3 * _device_ms(
-            doubling_timed.graphs[name].replay)
+        graph = doubling_timed.graphs[name]
+        cd[name]["replay_device_us"] = 1e3 * _device_ms(graph.replay)
         # the graph's own kernels: the drives' replay counts are what the
-        # capture counted; no halving launches doubling_point
+        # capture counted; doubling_point only at the step's start (its
+        # two end probes), the halving's doubling_halve once, and no draw
+        # in a candidate's segment
+        nodes = _graph_nodes(graph)
         cd[name]["replay_kernels"] = check_replay_kernels(
-            doubling_timed.counts[name],
-            doubling_timed.graphs[name],
-            f"the captured doubling segment {name}")
-        if name == "halve" and (
-                cd[name]["replay_kernels"]["doubling_point"] or
-                cd[name]["replay_kernels"]["doubling_halve"] != 1):
-            raise RuntimeError(f"the captured halving segment launched "
-                               f"{cd[name]['replay_kernels']}")
+            doubling_timed.counts[name], graph,
+            f"the captured doubling segment {name}", nodes)
+        # torch's uniform_ (distribution_elementwise_grid_stride_kernel)
+        cd[name]["replay_draws"] = sum(
+            "distribution_elementwise" in node for node in nodes)
+        k = cd[name]["replay_kernels"]
+        if k["doubling_point"] != (2 if name == "start" else 0) or (
+                name == "halve" and k["doubling_halve"] != 1) or (
+                cd[name]["replay_draws"] != {"start": 2, "double": 1,
+                                             "resolve": 1}.get(name, 0)):
+            raise RuntimeError(f"the captured doubling segment {name} "
+                               f"launched {k}, "
+                               f"{cd[name]['replay_draws']} draws")
         print(f"captured-doubling replay of segment {name} (256, 3) float64 "
               f"device only: {cd[name]['replay_device_us']:.3f} us (every "
               f"kernel of the segment, the likelihood's included); host "
               f"with its wait and flag read {cd[name]['replay_host_us']:.2f}"
               f" us, eager {cd[name]['eager_host_us']:.2f} us; "
               f"hand-written kernels a replay (graph nodes) "
-              f"{cd[name]['replay_kernels']}  [{card}]")
+              f"{cd[name]['replay_kernels']}, draws "
+              f"{cd[name]['replay_draws']}  [{card}]")
     consume_device_times(consume, consume_calls, card)
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
@@ -5595,11 +5685,16 @@ def main():
                 "shape": rec["shape"], "dtype": "float64",
                 "device_ms": rec["device_us"] / 1e3,
                 "launch_floor_ms": floor["device_us"] / 1e3,
-                **({"mode_device_ms": {m: us / 1e3 for m, us in
-                                       rec["mode_device_us"].items()}}
-                   if "mode_device_us" in rec else {}),
+                "mode_device_ms": {m: us / 1e3 for m, us in
+                                   rec["mode_device_us"].items()},
+                "mode_bound_ms": {m: us / 1e3 for m, us in
+                                  rec["mode_bound_us"].items()},
                 "captured_segments": captured_doubling["timing"],
-                **({"parent_bench": parent_of(name)} if parent else {})}
+                **({"parent_bench": parent_of(name)} if parent else {}),
+                **({"parent_bench_segments": {
+                    "replays": parent_of("doubling_segment"),
+                    "spans": parent_of("segment_span")}}
+                   if parent and name == "doubling_expand" else {})}
 
     def parent_of(kernel, **key):
         """The parent's and this checkout's bench records of a kernel's

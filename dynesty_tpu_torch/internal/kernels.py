@@ -44,9 +44,8 @@ import numpy as np
 import torch
 
 from ..ops.geometry import randsphere_batch
-from ..ops.proposals import (P_DOUBLE, P_SHRINK, P_START_L,
-                             P_START_R, S_CANDIDATE, S_RESOLVE, UNIF_ARRAYS,
-                             UNIF_FORMS,
+from ..ops.proposals import (P_START_L, P_START_R, S_CANDIDATE, S_RESOLVE,
+                             UNIF_ARRAYS, UNIF_FORMS,
                              U_FILLED, U_NC, U_PENDING, U_PROP, X_DOUBLE,
                              X_INIT, DoublingRound, RWalkRound, SliceRound,
                              UnifRound, doubling_expand, doubling_halve,
@@ -1242,10 +1241,21 @@ class DoublingGraph(_RoundGraph):
     resolution, each ending with its flag's copy to pinned host memory.
     The three that draw share one generator.  A sampler keeps one per
     round shape (:func:`doubling_graph`); it is never pickled and goes
-    with the sampler."""
+    with the sampler.
 
-    # the segments that draw (r0, a doubling's side, a candidate)
-    DRAWS = ("start", "double", "candidate")
+    Each probe but the step's end probes is written by the kernel before
+    it, with the next uniform vector of the round's stream drawn just
+    before that kernel: the start and each doubling draw the vector of
+    the next doubling's side, which is the first candidate's position
+    where no lane doubles on, and a resolution the next candidate's.  The
+    stream keeps the eager round's order (r0, the sides, the candidates);
+    a vector drawn for a segment that does not follow (the gate set, the
+    step's last resolution, the shrink cap) is given back
+    (:meth:`rewind`)."""
+
+    # the segments that draw: r0 and the next probe's vector, the next
+    # probe's (a doubling's, a resolution's)
+    DRAWS = ("start", "double", "resolve")
 
     def __init__(self, like, rb):
         super().__init__(like, rb)
@@ -1254,6 +1264,10 @@ class DoublingGraph(_RoundGraph):
         self.blob_c = None
         # the round gate as the step's start segment last read it
         self.gated = False
+        # where the round's generator stood before the last segment's
+        # draw of the next probe's vector (its state on the CPU, its
+        # offset on the card)
+        self.undo = None
         if self.capturable:
             self.gen = torch.Generator(device=rb.device)
             # the flag a replay leaves (and, after a start segment, the
@@ -1283,26 +1297,28 @@ class DoublingGraph(_RoundGraph):
 
     def segment(self, name, fill=None):
         """The segment ``name`` on the round's buffers, on the current
-        stream; ``fill()`` fills ``rb.draw`` for the segments that
-        draw."""
+        stream.  ``fill(which)`` fills ``rb.draw`` for the segments that
+        draw: ``which`` 0 the step's r0, 1 the next probe's vector; it
+        returns the buffer of the first shrink candidate's position
+        (``rb.draw`` under a generator, which draws one vector)."""
         rb, st = self.rb, self.rb.st
-        if fill is not None:
-            fill()
         if name == "start":
             # behind a set round gate the end probes count no lane (the
             # kernel reads the gate)
+            fill(0)
             doubling_point(rb, P_START_L)
             logl_l = self._eval(st["incube_l"])[1]
             doubling_point(rb, P_START_R)
-            doubling_expand(rb, X_INIT, self._eval(st["incube"])[1], logl_l)
+            logl_r = self._eval(st["incube"])[1]
+            doubling_expand(rb, X_INIT, logl_r, logl_l, fill(1))
         elif name == "double":
-            doubling_point(rb, P_DOUBLE)
-            doubling_expand(rb, X_DOUBLE, self._eval(st["incube"])[1])
+            # the lanes that shrink next are probed too, uncounted
+            logl = self._eval(st["incube"])[1]
+            doubling_expand(rb, X_DOUBLE, logl, draw_x=fill(1))
         elif name == "candidate":
             # doubling_shrink also probes the first halving's mid, over
             # the point the likelihood read: the blob is kept first
-            doubling_point(rb, P_SHRINK)
-            v, logl, blob = self._eval(st["incube"])
+            v, logl, blob = self._eval(st["incube_s"])
             if self.blob_c is not None:
                 tree_map(lambda c, b: c.copy_(b), self.blob_c, blob)
             doubling_shrink(rb, S_CANDIDATE, v, logl)
@@ -1312,6 +1328,7 @@ class DoublingGraph(_RoundGraph):
             # does for the next one
             doubling_halve(rb, self._eval(st["incube"])[1])
         else:
+            fill(1)
             doubling_shrink(rb, S_RESOLVE)
             self.select_blob(st["newly"], self.blob_c)
 
@@ -1327,8 +1344,7 @@ class DoublingGraph(_RoundGraph):
         draws = name in self.DRAWS
 
         def body(gen):
-            self.segment(name, (lambda: rb.draw.uniform_(generator=gen))
-                         if draws else None)
+            self.segment(name, self._filler(gen, False) if draws else None)
             if name == "start":
                 self.flag.copy_(rb.flags, non_blocking=True)
             else:
@@ -1345,16 +1361,48 @@ class DoublingGraph(_RoundGraph):
         self.counts[name] = self.counted
         return True
 
+    def _filler(self, gen, mark=True):
+        """A segment's ``fill`` drawing each vector from ``gen`` into
+        ``rb.draw``; with ``mark`` it keeps where ``gen`` stood before the
+        next probe's vector (:meth:`rewind`)."""
+        rb = self.rb
+
+        def fill(which):
+            if which and mark:
+                self.undo = gen.get_state() if gen.device.type == "cpu" \
+                    else gen.get_offset()
+            rb.draw.uniform_(generator=gen)
+            return rb.draw
+        return fill
+
+    def rewind(self, gen):
+        """Give back the vector that the last drawing segment drew for the
+        next probe, which no segment reads: ``gen`` (the round's
+        generator; None, a draw function: nothing) then stands where the
+        eager round leaves it."""
+        if gen is None:
+            return
+        if gen.device.type == "cpu":
+            gen.set_state(self.undo)
+        else:
+            gen.set_offset(self.undo)
+
     def replay(self, name, gen):
         """The segment ``name`` by replay, drawing from ``gen``'s stream
         where the eager segment would (the shared generator takes its seed
-        and offset before and gives the offset back after); waits for it
-        and returns the host copy of its flag."""
+        and offset before and gives the offset back after, and the offset
+        before the next probe's vector is kept: the segment's vectors are
+        alike, each the same span of the stream); waits for it and returns
+        the host copy of its flag."""
         if name in self.DRAWS:
+            before = gen.get_offset()
             self.gen.manual_seed(gen.initial_seed())
-            self.gen.set_offset(gen.get_offset())
+            self.gen.set_offset(before)
             self.graphs[name].replay()
-            gen.set_offset(self.gen.get_offset())
+            after = self.gen.get_offset()
+            gen.set_offset(after)
+            self.undo = after - (after - before) // (
+                2 if name == "start" else 1)
         else:
             self.graphs[name].replay()
         torch.cuda.current_stream(self.rb.device).synchronize()
@@ -1369,8 +1417,8 @@ class DoublingGraph(_RoundGraph):
         on the side stream as the capture's warm-up the first time
         (``use_graph``), the next time captured (``n_doubling_graph``) and
         replayed; ``draw`` is the round's ``torch.Generator`` or a
-        function of no argument that fills ``rb.draw``.  Returns the host
-        copy of the segment's flag; an eager segment on the card counts
+        segment's ``fill`` (:meth:`segment`).  Returns the host copy of
+        the segment's flag; an eager segment on the card counts
         ``n_uncaptured``."""
         rb = self.rb
         if use_graph and self.capturable and name not in self.graphs and \
@@ -1382,8 +1430,8 @@ class DoublingGraph(_RoundGraph):
             return self.replay(name, draw)
         fill = None
         if name in self.DRAWS:
-            fill = (lambda: rb.draw.uniform_(generator=draw)) \
-                if isinstance(draw, torch.Generator) else draw
+            fill = self._filler(draw) if isinstance(draw, torch.Generator) \
+                else draw
         if use_graph and self.capturable:
             self.on_side_stream(lambda: self.segment(name, fill))
             self.warm.add(name)
@@ -1430,13 +1478,17 @@ def doubling_round(like, directions, draw, loglstar, start_u, start_v,
 
     ``draw`` is the round's ``torch.Generator`` (each draw a ``uniform_``
     into the round's draw buffer, which draws what ``torch.rand`` draws:
-    r0, then each doubling's side for every lane, then each candidate) or
+    r0, then each doubling's side for every lane, then each candidate;
+    each vector is drawn in the segment before the one that reads it) or
     a function ``draw(what, step, i) -> (q,)``, ``what`` one of ``'r0'``,
     ``'side'``, ``'x'`` and ``i`` the doubling's or candidate's index in
-    the step (the tests feed the JAX package's draws).  The updates around
-    each likelihood call are the kernels of ``ops/proposals.py`` on the
-    card (:class:`DoublingGraph`).  On the card, with a generator and a
-    likelihood that may be captured (:func:`~.likelihood.graph_capturable`)
+    the step (the tests feed the JAX package's draws: the start and each
+    doubling ask for the next side and the step's first candidate, each
+    resolution for the next candidate, the step's last one's unread).
+    The updates around each likelihood call are the kernels of
+    ``ops/proposals.py`` on the card (:class:`DoublingGraph`).  On the
+    card, with a generator and a likelihood that may be captured
+    (:func:`~.likelihood.graph_capturable`)
     each segment between two reads runs as one CUDA graph replay after one
     eager warm-up of its kind; ``rounds`` is the sampler's cache of round
     shapes (:func:`doubling_graph`), ``strict`` the cube check's bool mask
@@ -1472,38 +1524,59 @@ def doubling_loop(entry, draw, *, max_shrink_iters=10000, timings=None,
     ``gate_read`` the read after the first step's start also reports the
     round gate: where it is set (no lane probed, none doubles) the read
     counts as ``sync_round`` and the loop stops.  Returns whether it was
-    set."""
+    set.  Each step ends with the generator given back its last vector,
+    which the probe of a segment that does not follow read."""
     rb = entry.rb
     gen = draw if isinstance(draw, torch.Generator) else None
     use_graph = gen is not None
 
-    def run(name, what=None, s=0, i=0):
-        d = gen if gen is not None or what is None else \
-            (lambda: rb.draw.copy_(draw(what, s, i)))
+    def fills(name, s, i):
+        """A segment's ``fill`` from the draw function: the start's r0,
+        and the next doubling's side (``i`` + 1) with the step's first
+        candidate; a resolution's next candidate (``i`` + 1)."""
+        def fill(which):
+            if not which:
+                rb.draw.copy_(draw("r0", s, 0))
+                return rb.draw
+            if name == "resolve":
+                rb.draw.copy_(draw("x", s, i + 1))
+                return rb.draw
+            rb.draw.copy_(draw("side", s, i + 1))
+            rb.draw_x.copy_(draw("x", s, 0))
+            return rb.draw_x
+        return fill
+
+    def run(name, s=0, i=-1):
+        d = gen if gen is not None or name not in entry.DRAWS else \
+            fills(name, s, i)
         return entry.run(name, d, use_graph, timings)
 
     for s in range(rb.n_steps):
-        flag, i = run("start", "r0", s), 0
+        flag, i = run("start", s), 0
         if gate_read and s == 0 and entry.gated:
+            entry.rewind(gen)
             _count(timings, "sync_round")
             return True
         while True:
             _count(timings, "sync_slice")
             if not flag:
                 break
-            flag, i = run("double", "side", s, i), i + 1
+            flag, i = run("double", s, i), i + 1
         active = True
         for j in range(max_shrink_iters):
             _count(timings, "sync_slice")
             if not active:
                 break
-            flag = run("candidate", "x", s, j)
+            flag = run("candidate")
             while True:
                 _count(timings, "sync_slice")
                 if not flag:
                     break
                 flag = run("halve")
-            active = run("resolve")
+            active = run("resolve", s, j)
+        # the step's last vector (its last resolution's, or the one that
+        # ran into the shrink cap) is read by no segment
+        entry.rewind(gen)
     return False
 
 

@@ -27,14 +27,15 @@ are the kernels here:
   per-slot evaluations, the round's counts, the next wave's width and the
   done flag), ``csrc/unif_wave.cu``; the JAX package's wave is the body
   ``:366`` of ``make_unif_round``'s ``lax.while_loop``;
-* :func:`doubling_point` (the position of each likelihood call of the
-  doubling slice round: the step's end probes, a doubling's new end or a
-  shrink candidate; the point, its cube check with the lane's mask and
-  the point clamped into the cube), :func:`doubling_expand` (the step's
-  start after its end probes, and one doubling), :func:`doubling_halve`
-  (one halving of Neal's acceptance test and the next halving's probe)
-  and :func:`doubling_shrink` (a shrink candidate's outcome with the
-  first halving's probe, and its resolution), ``csrc/slice_doubling.cu``;
+* :func:`doubling_point` (the step's two end probes of the doubling
+  slice round: the point, its cube check with the round gate and the
+  point clamped into the cube), :func:`doubling_expand` (the step's
+  start after its end probes, and one doubling, each with the next
+  probe: the next doubling's new end or the first shrink candidate),
+  :func:`doubling_halve` (one halving of Neal's acceptance test and the
+  next halving's probe) and :func:`doubling_shrink` (a shrink
+  candidate's outcome with the first halving's probe, and its resolution
+  with the next candidate's probe), ``csrc/slice_doubling.cu``;
   the JAX package's loop bodies ``:594-607``, ``:640-655``, ``:569-585``
   and ``:670-693`` of the doubling ``make_slice_round``.
 
@@ -935,9 +936,9 @@ def unif_place(rb, u_prop, v_prop, logl_prop):
 # --------------------------------------------------------------------------
 # the doubling slice round
 
-# doubling_point's modes: the step's left and right end probes, a
-# doubling's new end, a shrink candidate; and a halving's mid, which only
-# the plain version takes (doubling_shrink and doubling_halve probe it)
+# doubling_point's modes: the step's left and right end probes; and, which
+# only the plain version takes, a doubling's new end, a shrink candidate and
+# a halving's mid (the kernel before each of them probes it)
 P_START_L, P_START_R, P_DOUBLE, P_SHRINK, P_HALVE = range(5)
 # doubling_expand's: the step's start after its end probes, a doubling
 X_INIT, X_DOUBLE = 0, 1
@@ -951,16 +952,18 @@ S_CANDIDATE, S_RESOLVE = 0, 1
 # position and logl, the halving's interval and end values; the round's
 # tallies and the doubling's growth (int64); the lanes that double,
 # shrink, halve, the candidate above the threshold, the halving's
-# divergence and rejection, the lanes that accept, the probes' cube
-# checks; the step index; and the two flags the host reads: ``any`` (does
-# a lane double on / run a halving) and ``any_shrink``
+# divergence and rejection, the lanes that accept, the side of a lane's
+# next doubling, the probes' cube checks (a doubling's or a halving's,
+# the left end probe's, a shrink candidate's); the step index; and the
+# two flags the host reads: ``any`` (does a lane double on / run a
+# halving) and ``any_shrink``
 _D_ROWS = ("u", "u0", "dir", "u_c", "uclamp")
 _D_VROWS = ("v", "v_c")
 _D_LANES = ("logl", "left", "right", "fl", "fr", "sl", "sr", "x1", "logl_c",
             "lhat", "rhat", "f_lhat", "f_rhat")
 _D_COUNTS = ("nc", "n_exp", "n_con", "grow", "d_nc")
 _D_MASKS = ("active", "s_active", "good", "h_active", "dflag", "reject",
-            "newly", "incube", "incube_l")
+            "newly", "go_left", "incube", "incube_l", "incube_s")
 
 
 def _doubling_state(q, ndim, npdim, dtype, device):
@@ -983,17 +986,19 @@ def doubling_point_plain(st, mode, draw, directions, strict=None,
     """The position of each lane's next likelihood call by ``mode``, and
     the point there: ``P_START_L`` takes the step's direction (row
     ``st['step']``, at most the last, of ``directions`` (q, n_steps,
-    ndim), capped) and start points, and its interval ``(-r0, 1 - r0)`` from ``draw`` (r0), and
-    probes its left end; ``P_START_R`` its right end; ``P_DOUBLE`` doubles
-    the active lanes' intervals to the side ``draw < 0.5`` picks (left)
-    and probes the new end of that side; ``P_SHRINK`` the shrink candidate
-    ``sl + draw * (sr - sl)`` (kept as ``x1``, its point as ``u_c``);
-    ``P_HALVE`` the halving's mid ``0.5 * (lhat + rhat)``.  Sets
-    ``uclamp``, the point ``u0 + x * dir`` clamped into the cube, and its
-    cube check (loosely where ``strict`` is False) with the mode's lane
-    mask (``incube_l`` for the left end probe; behind a set round ``gate``,
-    a 0-d bool tensor, the end probes count no lane), and clears
-    ``any``."""
+    ndim), capped) and start points, and its interval ``(-r0, 1 - r0)``
+    from ``draw`` (r0), and probes its left end; ``P_START_R`` its right
+    end; ``P_DOUBLE`` doubles the active lanes' intervals to the side
+    ``draw < 0.5`` picks (left, kept as ``go_left``) and probes the new
+    end of that side; ``P_SHRINK`` the shrink candidate ``sl + draw * (sr
+    - sl)`` (kept as ``x1``, its point as ``u_c``); ``P_HALVE`` the
+    halving's mid ``0.5 * (lhat + rhat)``.  Sets ``uclamp``, the point
+    ``u0 + x * dir`` clamped into the cube, and its cube check (loosely
+    where ``strict`` is False) with the mode's lane mask (``incube_l`` for
+    the left end probe; behind a set round ``gate``, a 0-d bool tensor,
+    the end probes count no lane).  The wrapper takes the end probes
+    only: the kernel before each other probe writes it, and its plain
+    version composes this one in."""
     if mode == P_START_L:
         step = st["step"].clamp(max=directions.shape[1] - 1)
         st["dir"] = directions.index_select(1, step)[:, 0]
@@ -1009,6 +1014,7 @@ def doubling_point_plain(st, mode, draw, directions, strict=None,
         left = torch.where(mask & go_left, left - width, left)
         right = torch.where(mask & ~go_left, right + width, right)
         x = torch.where(go_left, left, right)
+        st["go_left"] = go_left
     elif mode == P_SHRINK:
         x, mask = st["sl"] + draw * (st["sr"] - st["sl"]), st["s_active"]
         st["x1"] = x
@@ -1024,21 +1030,42 @@ def doubling_point_plain(st, mode, draw, directions, strict=None,
         st["u_c"] = u
     st["incube_l" if mode == P_START_L else "incube"] = incube
     st["uclamp"] = u.clamp(0.0, 1.0)
-    st["any"] = torch.zeros_like(st["any"])
 
 
-def doubling_expand_plain(st, mode, logl_x, logl_l, draw, loglstar):
-    """After the likelihood's raw ``logl_x`` (q,) at the point of
-    :func:`doubling_point_plain` (each probe's logl masked to -inf outside
-    its cube check): ``X_INIT`` (after both end probes, ``logl_l`` the
-    left one's) starts the step: its end values, two evaluations a lane,
-    ``grow`` 1, the lanes with an end above ``loglstar`` active, every
-    lane shrinking, the next step's index; ``X_DOUBLE`` applies a
-    doubling: the active lanes' interval doubled to the side of ``draw``,
-    that end's value, one evaluation and ``grow`` expansions a lane, the
-    growth doubled (clamped at 2^30), the lanes with an end still above
-    ``loglstar`` active.  The shrink's interval follows the doubling's;
-    ``any`` says whether a lane is active."""
+def _shrink_probe(st, draw, strict):
+    """The next shrink candidate's probe from ``draw``, as
+    :func:`doubling_point_plain` in mode ``P_SHRINK`` makes it (its
+    position ``x1``, its point ``u_c``, the point clamped into ``uclamp``,
+    its cube check with ``s_active`` in ``incube``), on a copy of the
+    state dict, which it returns."""
+    shr = dict(st)
+    doubling_point_plain(shr, P_SHRINK, draw, None, strict)
+    return shr
+
+
+def doubling_expand_plain(st, mode, logl_x, logl_l, draw, draw_x, loglstar,
+                          strict=None):
+    """After the likelihood's raw ``logl_x`` (q,) at the step's probe
+    (each probe's logl masked to -inf outside its cube check ``incube``):
+    ``X_INIT`` (after both end probes, ``logl_l`` the left one's, masked
+    by ``incube_l``) starts the step: its end values, two evaluations a
+    lane, ``grow`` 1, the lanes with an end above ``loglstar`` active,
+    every lane shrinking, the next step's index; ``X_DOUBLE`` applies a
+    doubling: the active lanes' interval doubled to the side ``go_left``
+    kept, that end's value, one evaluation and ``grow`` expansions a lane,
+    the growth doubled (clamped at 2^30), the lanes with an end still
+    above ``loglstar`` active.  The shrink's interval follows the
+    doubling's; ``any`` says whether a lane is active.
+
+    Then each lane's next probe (the cube check loose where ``strict`` is
+    False): a lane still active takes the next doubling's
+    (:func:`doubling_point_plain` in mode ``P_DOUBLE``, from ``draw``:
+    ``go_left``, ``uclamp``, its cube check in ``incube``), a lane that
+    stopped the first shrink candidate's (:func:`_shrink_probe`, from
+    ``draw_x``: ``x1``, ``u_c``, ``uclamp``, its cube check with
+    ``s_active`` in ``incube_s``); ``incube`` is false on the one kind and
+    ``incube_s`` on the other, and each lane keeps the other kind's
+    entries."""
     logl_new = torch.where(st["incube"], logl_x, _NEG_INF)
     if mode == X_INIT:
         fl = torch.where(st["incube_l"], logl_l, _NEG_INF)
@@ -1050,7 +1077,7 @@ def doubling_expand_plain(st, mode, logl_x, logl_l, draw, loglstar):
         st["step"] = st["step"] + 1
     else:
         active, left, right = st["active"], st["left"], st["right"]
-        go_left = draw < 0.5
+        go_left = st["go_left"]
         width = right - left
         st["left"] = torch.where(active & go_left, left - width, left)
         st["right"] = torch.where(active & ~go_left, right + width, right)
@@ -1064,15 +1091,15 @@ def doubling_expand_plain(st, mode, logl_x, logl_l, draw, loglstar):
     st["fl"], st["fr"], st["active"] = fl, fr, active
     st["sl"], st["sr"] = st["left"].clone(), st["right"].clone()
     st["any"] = active.any()
-
-
-def _halve_probe(st, strict):
-    """The next halving's probe, as :func:`doubling_point_plain` in mode
-    ``P_HALVE`` makes it (its mid, the point clamped into the cube, its
-    cube check with the lanes that halve), ``any`` kept."""
-    flag = st["any"]
-    doubling_point_plain(st, P_HALVE, None, None, strict)
-    st["any"] = flag
+    dbl = dict(st)
+    doubling_point_plain(dbl, P_DOUBLE, draw, None, strict)
+    shr = _shrink_probe(st, draw_x, strict)
+    st["go_left"] = torch.where(active, dbl["go_left"], st["go_left"])
+    st["x1"] = torch.where(active, st["x1"], shr["x1"])
+    st["u_c"] = torch.where(active[:, None], st["u_c"], shr["u_c"])
+    st["uclamp"] = torch.where(active[:, None], dbl["uclamp"],
+                               shr["uclamp"])
+    st["incube"], st["incube_s"] = dbl["incube"], shr["incube"] & ~active
 
 
 def doubling_halve_plain(st, logl_x, loglstar, strict=None):
@@ -1084,8 +1111,9 @@ def doubling_halve_plain(st, logl_x, loglstar, strict=None):
     (both ends at or below ``loglstar`` after a divergence), and the lanes
     whose interval is still wider than 1.1 testing on; ``any`` says
     whether a lane tests on.  Then the next halving's probe
-    (:func:`_halve_probe`, the cube check loose where ``strict`` is
-    False)."""
+    (:func:`doubling_point_plain` in mode ``P_HALVE``: its mid, the point
+    clamped into the cube, its cube check, loose where ``strict`` is
+    False, with the lanes that halve on)."""
     x1, lhat, rhat = st["x1"], st["lhat"], st["rhat"]
     active = st["h_active"]
     mid = 0.5 * (lhat + rhat)
@@ -1103,26 +1131,30 @@ def doubling_halve_plain(st, logl_x, loglstar, strict=None):
     active = active & ~newly & ((rhat - lhat) > 1.1)
     st.update(dflag=dflag, lhat=lhat, rhat=rhat, f_lhat=f_lhat,
               f_rhat=f_rhat, h_active=active, any=active.any())
-    _halve_probe(st, strict)
+    doubling_point_plain(st, P_HALVE, None, None, strict)
 
 
-def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar, strict=None):
+def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar, strict=None,
+                          draw=None):
     """``S_CANDIDATE``, after the likelihood's ``v_x`` and raw ``logl_x``
-    at the shrink candidate: its v and masked logl kept (``v_c``,
-    ``logl_c``), one evaluation and one contraction a shrinking lane,
-    ``good`` where it is above ``loglstar``, and the acceptance test
-    started on the doubling's interval for the shrinking lanes that are
-    good and whose interval is wider than 1.1 (``any`` says whether one
-    is); ``any_shrink`` cleared; then the first halving's probe
-    (:func:`_halve_probe`, the cube check loose where ``strict`` is False;
+    at the shrink candidate (masked by its cube check ``incube_s``): its
+    v and masked logl kept (``v_c``, ``logl_c``), one evaluation and one
+    contraction a shrinking lane, ``good`` where it is above ``loglstar``,
+    and the acceptance test started on the doubling's interval for the
+    shrinking lanes that are good and whose interval is wider than 1.1
+    (``any`` says whether one is); ``any_shrink`` cleared; then the first
+    halving's probe (:func:`doubling_point_plain` in mode ``P_HALVE``;
     ``v_x`` may be the probe's buffer, so it is copied first).
     ``S_RESOLVE``, after the test: its
     evaluations billed to the good lanes, the lanes that pass take the
     candidate (``newly``), the others shrink their interval to it and
-    shrink on (``any_shrink`` says whether one does)."""
+    shrink on (``any_shrink`` says whether one does); then the next
+    candidate's probe from ``draw`` (:func:`_shrink_probe`, on every
+    lane; its cube check with the lanes that shrink on in
+    ``incube_s``)."""
     active = st["s_active"]
     if mode == S_CANDIDATE:
-        logl_c = torch.where(st["incube"], logl_x, _NEG_INF)
+        logl_c = torch.where(st["incube_s"], logl_x, _NEG_INF)
         good = logl_c > loglstar
         st["v_c"], st["logl_c"], st["good"] = v_x.clone(), logl_c, good
         st["nc"] = st["nc"] + active
@@ -1135,7 +1167,7 @@ def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar, strict=None):
             st[k] = torch.zeros_like(st[k])
         st["any"] = st["h_active"].any()
         st["any_shrink"] = torch.zeros_like(st["any_shrink"])
-        _halve_probe(st, strict)
+        doubling_point_plain(st, P_HALVE, None, None, strict)
         return
     good = st["good"]
     st["nc"] = st["nc"] + torch.where(active & good, st["d_nc"], 0)
@@ -1149,6 +1181,9 @@ def doubling_shrink_plain(st, mode, v_x, logl_x, loglstar, strict=None):
     st["sl"] = torch.where(bad & (x1 < 0), x1, st["sl"])
     st["sr"] = torch.where(bad & (x1 > 0), x1, st["sr"])
     st.update(s_active=bad, newly=newly, any_shrink=bad.any())
+    shr = _shrink_probe(st, draw, strict)
+    st.update(x1=shr["x1"], u_c=shr["u_c"], uclamp=shr["uclamp"],
+              incube_s=shr["incube"])
 
 
 class DoublingRound:
@@ -1157,7 +1192,10 @@ class DoublingRound:
     as ``_doubling_state`` lays it out), the round's inputs
     (``directions`` (q, n_steps, ndim), capped; ``loglstar`` 0-d; the
     cube check's ``strict`` mask) and a segment's draws (``draw`` (q,):
-    the step's r0, a doubling's side, a shrink candidate's position).
+    the step's r0, a doubling's side, a shrink candidate's position; and
+    ``draw_x``, the first shrink candidate's position where it is not the
+    vector ``draw`` holds, as in the tests, which feed the JAX package's
+    draws).
 
     Allocated, checked and, on the card, bound to the four kernels'
     argument tables once; :meth:`start` loads a round into it,
@@ -1187,6 +1225,10 @@ class DoublingRound:
                                       device=device)
         self.loglstar = torch.empty((), dtype=dtype, device=device)
         self.draw = torch.empty((q,), dtype=dtype, device=device)
+        self.draw_x = torch.empty((q,), dtype=dtype, device=device)
+        # doubling_expand's count of blocks and their votes, zero between
+        # its launches (the kernel's last block zeroes it)
+        self.vote = torch.zeros((1,), dtype=torch.int64, device=device)
         self.strict = None
         if strict is not None:
             if not isinstance(strict, torch.Tensor):
@@ -1221,32 +1263,33 @@ class DoublingRound:
 
     def _bind(self):
         """Fill the four kernels' argument tables; the likelihood's outputs
-        are written into them at each launch."""
+        (and ``doubling_expand``'s candidate draw) are written into them
+        at each launch."""
         st = self.st
         point = (st["step"], self.directions, st["dir"], st["u"], st["u0"],
-                 self.draw, st["left"], st["right"], st["sl"], st["sr"],
-                 st["active"], st["s_active"], self.gate, self.strict,
-                 st["uclamp"], st["incube"], st["incube_l"], st["x1"],
-                 st["u_c"], st["any"])
-        expand = (st["incube_l"], st["incube"], None, None, self.draw,
+                 self.draw, st["left"], st["right"], self.gate, self.strict,
+                 st["uclamp"], st["incube"], st["incube_l"])
+        # the next probe: the step's rows, the clamped point (and a shrink
+        # candidate's point and position)
+        probe = (st["u0"], st["dir"], self.strict, st["uclamp"])
+        expand = (st["incube_l"], st["incube"], None, None, self.draw, None,
                   self.loglstar, st["left"], st["right"], st["fl"],
                   st["fr"], st["sl"], st["sr"], st["active"],
-                  st["s_active"], st["grow"], st["nc"], st["n_exp"],
-                  st["step"], st["any"])
-        # the next halving's probe: the step's rows, the clamped point and
-        # its cube check (doubling_halve and a candidate's doubling_shrink)
-        probe = (st["u0"], st["dir"], self.strict, st["uclamp"])
+                  st["s_active"], st["go_left"], st["grow"], st["nc"],
+                  st["n_exp"], st["step"]) + probe + (
+                      st["u_c"], st["x1"], st["incube_s"], st["any"],
+                      self.vote)
         halve = (st["incube"], None, self.loglstar, st["x1"], st["lhat"],
                  st["rhat"], st["f_lhat"], st["f_rhat"], st["dflag"],
                  st["reject"], st["h_active"], st["d_nc"], st["any"]) + probe
-        shrink = (st["incube"], None, None, self.loglstar, st["s_active"],
+        shrink = (st["incube_s"], None, None, self.loglstar, st["s_active"],
                   st["good"], st["left"], st["right"], st["fl"], st["fr"],
                   st["lhat"], st["rhat"], st["f_lhat"], st["f_rhat"],
                   st["dflag"], st["reject"], st["h_active"], st["d_nc"],
                   st["v_c"], st["logl_c"], st["nc"], st["n_con"], st["u"],
                   st["v"], st["logl"], st["u_c"], st["x1"], st["sl"],
                   st["sr"], st["newly"], st["any"], st["any_shrink"]) + \
-            probe + (st["incube"],)
+            probe + (st["incube"], self.draw)
         tag = _DTYPES[self.dtype]
         self._args = {name: (_pointer_table(t), _entry("slice_doubling",
                                                        f"doubling_{name}",
@@ -1274,18 +1317,18 @@ class DoublingRound:
 
 
 def doubling_point(rb, mode):
-    """The position and point of each lane's next likelihood call on the
-    round ``rb`` (a :class:`DoublingRound`) by ``mode`` (``P_*``):
-    :func:`doubling_point_plain` on the CPU, on the card the
-    ``doubling_point`` kernel of ``csrc/slice_doubling.cu``.  Reads
-    ``rb.draw`` (``P_START_L``, ``P_DOUBLE``, ``P_SHRINK``),
-    ``rb.directions`` and the round gate ``rb.gate`` (the end probes);
-    writes ``uclamp`` and ``incube`` (``incube_l``) of ``rb.st``.  A
-    halving's mid (``P_HALVE``) is refused: the kernel before each
-    halving probes it (:func:`doubling_shrink`, :func:`doubling_halve`)."""
-    if mode not in (P_START_L, P_START_R, P_DOUBLE, P_SHRINK):
-        raise ValueError(f"doubling_point: no mode {mode}; a halving's mid "
-                         f"is probed by doubling_shrink and doubling_halve")
+    """The step's end probes (``P_START_L``, ``P_START_R``) on the round
+    ``rb`` (a :class:`DoublingRound`): :func:`doubling_point_plain` on the
+    CPU, on the card the ``doubling_point`` kernel of
+    ``csrc/slice_doubling.cu``.  Reads ``rb.draw`` (r0, ``P_START_L``),
+    ``rb.directions`` and the round gate ``rb.gate``; writes ``uclamp``
+    and ``incube`` (``incube_l``) of ``rb.st``.  Every other probe is
+    refused: the kernel before it writes it (:func:`doubling_expand`,
+    :func:`doubling_shrink`, :func:`doubling_halve`)."""
+    if mode not in (P_START_L, P_START_R):
+        raise ValueError(f"doubling_point: no mode {mode}; a doubling's, a "
+                         f"shrink candidate's and a halving's probe is "
+                         f"written by the kernel before it")
     if rb.device.type == "cpu":
         rb._plain(doubling_point_plain, mode, rb.draw, rb.directions,
                   rb.strict, rb.gate)
@@ -1296,22 +1339,27 @@ def doubling_point(rb, mode):
     doubling_point.launches += 1
 
 
-def doubling_expand(rb, mode, logl_x, logl_l=None):
+def doubling_expand(rb, mode, logl_x, logl_l=None, draw_x=None):
     """The step's start (``X_INIT``, after both end probes: ``logl_l``
     the left one's raw values) or one doubling (``X_DOUBLE``) on the round
-    ``rb`` after the likelihood's raw ``logl_x`` (q,) in the round's dtype:
-    :func:`doubling_expand_plain` on the CPU, on the card the
+    ``rb`` after the likelihood's raw ``logl_x`` (q,) in the round's dtype,
+    with each lane's next probe from the vector just drawn into
+    ``rb.draw`` (the next doubling's side) and ``draw_x`` (the first
+    candidate's position; None: ``rb.draw``, the one vector a generator
+    drew): :func:`doubling_expand_plain` on the CPU, on the card the
     ``doubling_expand`` kernel of ``csrc/slice_doubling.cu``, which masks
-    the values outside their probes' cube checks and updates the state in
-    place."""
+    the values outside their probes' cube checks, updates the state in
+    place and writes the ``any`` flag."""
+    draw_x = rb.draw if draw_x is None else draw_x
     if rb.device.type == "cpu":
         rb._plain(doubling_expand_plain, mode, logl_x, logl_l, rb.draw,
-                  rb.loglstar)
+                  draw_x, rb.loglstar, rb.strict)
         return
     table, f = rb._args["expand"]
     table[2] = None if logl_l is None else logl_l.data_ptr()
     table[3] = logl_x.data_ptr()
-    _run(f, table, (rb.q, mode, 0, 0), rb.device, "doubling_expand")
+    table[5] = draw_x.data_ptr()
+    _run(f, table, (rb.q, rb.ndim, mode, 0), rb.device, "doubling_expand")
     doubling_expand.launches += 1
 
 
@@ -1335,12 +1383,13 @@ def doubling_shrink(rb, mode, v_x=None, logl_x=None):
     likelihood's ``v_x`` (q, npdim) and raw ``logl_x`` (q,) at it, in the
     round's dtype; ``v_x`` may be ``rb.st['uclamp']`` itself, as an
     identity prior transform returns it), with the first halving's probe,
-    or its resolution after the acceptance test (``S_RESOLVE``) on the
-    round ``rb``: :func:`doubling_shrink_plain` on the CPU, on the card
-    the ``doubling_shrink`` kernel of ``csrc/slice_doubling.cu``."""
+    or its resolution after the acceptance test (``S_RESOLVE``), with the
+    next candidate's probe from the vector just drawn into ``rb.draw``, on
+    the round ``rb``: :func:`doubling_shrink_plain` on the CPU, on the
+    card the ``doubling_shrink`` kernel of ``csrc/slice_doubling.cu``."""
     if rb.device.type == "cpu":
         rb._plain(doubling_shrink_plain, mode, v_x, logl_x, rb.loglstar,
-                  rb.strict)
+                  rb.strict, rb.draw)
         return
     table, f = rb._args["shrink"]
     if mode == S_CANDIDATE:

@@ -25,6 +25,7 @@ under ``tests/conftest.py`` (JAX on the CPU in float64); on the card:
 """
 
 import math
+import re
 import warnings
 from pathlib import Path
 
@@ -244,18 +245,26 @@ def _hand_state(q, ndim, npdim, dtype, device="cpu", n_steps=4, seed=5):
         "good": mask(0.5), "dflag": mask(0.3), "reject": mask(0.2),
         "step": t([n_steps - 2], i64)})
     for k in ("u_c", "uclamp", "v_c", "logl_c", "newly", "incube",
-              "incube_l"):
+              "incube_l", "incube_s"):
         st[k].zero_()
     st["any"].fill_(True)
     st["any_shrink"].fill_(True)
     draw = rs.random(q)
     draw[lane % 9 == 0] = 0.5
     draw[lane % 11 == 1] = 0.0
+    # the side of each lane's doubling, as the probe before it kept it
+    st["go_left"] = t(draw < 0.5, torch.bool)
     inp = {"directions": t(rs.normal(size=(q, n_steps, ndim)) * 0.4),
            "draw": t(draw), "loglstar": t(ls),
            "strict": t([d != 1 for d in range(ndim)], torch.bool),
            "logl": [t(rs.choice(vals + [0.5, 2.0], q)) for _ in range(8)],
            "v_x": t(rs.random((q, npdim)))}
+    # the vectors drawn for the next probes: a doubling's side (some
+    # exactly 0.5), a shrink candidate's position (some 0)
+    nxt, nxt_x = rs.random(q), rs.random(q)
+    nxt[lane % 7 == 3] = 0.5
+    nxt_x[lane % 5 == 2] = 0.0
+    inp.update(draw2=t(nxt), draw_x=t(nxt_x))
     return st, inp
 
 
@@ -288,21 +297,57 @@ def _same(a, b):
                                       .all())
 
 
+def _next_probe(u0, direction, strict, active, s_active, left, right,
+                side, x_draw):
+    """The eager loop's next probe after a doubling's update: the next
+    doubling's new end where a lane is ``active`` (its side ``side <
+    0.5``), else the first shrink candidate ``left + x_draw * (right -
+    left)`` (counted where ``s_active``): the clamped point, both cube
+    checks, the side, the candidate's position and point."""
+    go_left = side < 0.5
+    width = right - left
+    xd = torch.where(go_left, left - width, right + width)
+    xs = left + x_draw * (right - left)
+    ud = u0 + xd[:, None] * direction
+    us = u0 + xs[:, None] * direction
+    return {"uclamp": torch.where(active[:, None], ud.clamp(0.0, 1.0),
+                                  us.clamp(0.0, 1.0)),
+            "incube": unitcheck_batch(ud, strict) & active,
+            "incube_s": unitcheck_batch(us, strict) & s_active & ~active,
+            "go_left": go_left, "x1": xs, "u_c": us}
+
+
+def _check_next_probe(st, ref0, nxt):
+    """The state's next probe against :func:`_next_probe`'s: the clamped
+    point and both cube checks on every lane, the side on the lanes that
+    double on, the candidate on the others (their old values kept on the
+    lanes that double on)."""
+    act = st["active"]
+    for k in ("uclamp", "incube", "incube_s"):
+        _same(st[k], nxt[k])
+    _same(st["go_left"][act], nxt["go_left"][act])
+    for k in ("x1", "u_c"):
+        _same(st[k][~act], nxt[k][~act])
+        _same(st[k][act], ref0[k][act])
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("strict", [False, True])
 def test_plain_start_and_doubling_equal_the_eager_body(dtype, strict):
     st, inp = _hand_state(64, 3, 2, dtype)
     ls, draw = inp["loglstar"], inp["draw"]
+    side, x_draw = inp["draw2"], inp["draw_x"]
     sm = inp["strict"] if strict else None
     s = int(st["step"])
-    # the step's start: both end probes, then the start state
+    # the step's start: both end probes, then the start state and the
+    # next probe
     ref0 = {k: t.clone() for k, t in st.items()}
     pr.doubling_point_plain(st, pr.P_START_L, draw, inp["directions"], sm)
     seen = [(st["uclamp"], st["incube_l"])]
     pr.doubling_point_plain(st, pr.P_START_R, draw, inp["directions"], sm)
     seen.append((st["uclamp"], st["incube"]))
     pr.doubling_expand_plain(st, pr.X_INIT, inp["logl"][1], inp["logl"][0],
-                             draw, ls)
+                             side, x_draw, ls, sm)
     direction = inp["directions"][:, s]
     feval = _Probe(ref0["u"], direction, sm, inp["logl"][:2])
     r0 = draw
@@ -320,15 +365,22 @@ def test_plain_start_and_doubling_equal_the_eager_body(dtype, strict):
     assert torch.equal(st["grow"], torch.ones_like(st["grow"]))
     assert bool(st["s_active"].all()) and int(st["step"]) == s + 1
     assert bool(st["any"]) == bool(active.any())
+    _check_next_probe(st, ref0, _next_probe(
+        ref0["u"], direction, sm, active, torch.ones_like(active), left,
+        right, side, x_draw))
+    assert 0 < int(active.sum()) < 64
 
     # one doubling, from the hand-made state (grow at its clamp among it)
+    # and the probe the kernel before it wrote
     st, inp = _hand_state(64, 3, 2, dtype, seed=6)
+    dbl = dict(st)
+    pr.doubling_point_plain(dbl, pr.P_DOUBLE, draw, inp["directions"], sm)
+    for k in ("uclamp", "incube", "go_left"):
+        st[k] = dbl[k]
     ref0 = {k: t.clone() for k, t in st.items()}
-    pr.doubling_point_plain(st, pr.P_DOUBLE, draw, inp["directions"], sm)
     seen = (st["uclamp"], st["incube"])
-    assert not bool(st["any"])
-    pr.doubling_expand_plain(st, pr.X_DOUBLE, inp["logl"][2], None, draw,
-                             ls)
+    pr.doubling_expand_plain(st, pr.X_DOUBLE, inp["logl"][2], None, side,
+                             x_draw, ls, sm)
     feval = _Probe(ref0["u0"], ref0["dir"], sm, inp["logl"][2:3])
     active, left, right = ref0["active"], ref0["left"], ref0["right"]
     fl, fr, grow = ref0["fl"], ref0["fr"], ref0["grow"]
@@ -352,6 +404,11 @@ def test_plain_start_and_doubling_equal_the_eager_body(dtype, strict):
     assert bool(st["any"]) == bool(active.any())
     assert int(ref0["grow"].max()) == 1 << 30 == int(st["grow"].max())
     assert bool((ref0["active"] & (ref0["grow"] == 1 << 29)).any())
+    _check_next_probe(st, ref0, _next_probe(
+        ref0["u0"], ref0["dir"], sm, active, ref0["s_active"], left, right,
+        side, x_draw))
+    # lanes that double on and lanes that stop, some of them not shrinking
+    assert bool(active.any()) and bool((~active & ~ref0["s_active"]).any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -359,14 +416,19 @@ def test_plain_start_and_doubling_equal_the_eager_body(dtype, strict):
 def test_plain_shrink_and_halving_equal_the_eager_body(dtype, strict):
     """A shrink candidate, its halvings and its resolution against the
     eager shrink body with its acceptance test (``doubling_accept``),
-    both reading the same raw likelihoods call by call."""
+    both reading the same raw likelihoods call by call; the candidate
+    probed as the kernel before it writes it, the next candidate by the
+    resolution."""
     st, inp = _hand_state(64, 3, 2, dtype, seed=7)
     ls, draw = inp["loglstar"], inp["draw"]
     sm = inp["strict"] if strict else None
     raws = inp["logl"]
+    shr = pr._shrink_probe(st, draw, sm)
+    for k in ("x1", "u_c", "uclamp"):
+        st[k] = shr[k]
+    st["incube_s"] = shr["incube"]
     ref0 = {k: t.clone() for k, t in st.items()}
-    pr.doubling_point_plain(st, pr.P_SHRINK, draw, inp["directions"], sm)
-    seen = [(st["uclamp"], st["incube"])]
+    seen = [(st["uclamp"], st["incube_s"])]
     pr.doubling_shrink_plain(st, pr.S_CANDIDATE, inp["v_x"], raws[0], ls,
                              sm)
     assert not bool(st["any_shrink"])
@@ -376,7 +438,8 @@ def test_plain_shrink_and_halving_equal_the_eager_body(dtype, strict):
         seen.append((st["uclamp"], st["incube"]))
         halvings += 1
         pr.doubling_halve_plain(st, raws[halvings], ls, sm)
-    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls, sm)
+    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls, sm,
+                             inp["draw_x"])
 
     # the eager shrink body on the hand-made state
     feval = _Probe(ref0["u0"], ref0["dir"], sm, raws)
@@ -398,6 +461,9 @@ def test_plain_shrink_and_halving_equal_the_eager_body(dtype, strict):
     bad = active & ~good
     left = torch.where(bad & (x < 0), x, left)
     right = torch.where(bad & (x > 0), x, right)
+    # the next candidate of the lanes that shrink on
+    x_next = left + inp["draw_x"] * (right - left)
+    u_next = ref0["u0"] + x_next[:, None] * ref0["dir"]
 
     assert len(seen) == len(feval.seen) == halvings + 1 and halvings >= 2
     for (a, b), (c, d) in zip(seen, feval.seen):
@@ -406,7 +472,9 @@ def test_plain_shrink_and_halving_equal_the_eager_body(dtype, strict):
     for k, ref in (("u", u), ("v", v), ("logl", logl), ("nc", nc),
                    ("n_con", ref0["n_con"] + active), ("sl", left),
                    ("sr", right), ("s_active", bad), ("newly", newly),
-                   ("x1", x)):
+                   ("x1", x_next), ("u_c", u_next),
+                   ("uclamp", u_next.clamp(0.0, 1.0)),
+                   ("incube_s", unitcheck_batch(u_next, sm) & bad)):
         _same(st[k], ref)
     assert bool(st["any_shrink"]) == bool(bad.any())
     # rejected and accepted lanes, a lane that stops testing for its
@@ -438,11 +506,17 @@ def test_wrappers_take_the_plain_steps_on_the_cpu():
                        inp["strict"])),
                      (pr.doubling_expand_plain,
                       (pr.X_INIT, inp["logl"][1], inp["logl"][0],
-                       inp["draw"], rb.loglstar))):
+                       inp["draw"], inp["draw_x"], rb.loglstar,
+                       inp["strict"])),
+                     (pr.doubling_shrink_plain,
+                      (pr.S_RESOLVE, None, None, rb.loglstar,
+                       inp["strict"], inp["draw"]))):
         fn(ref, *args)
     pr.doubling_point(rb, pr.P_START_L)
     pr.doubling_point(rb, pr.P_START_R)
-    pr.doubling_expand(rb, pr.X_INIT, inp["logl"][1], inp["logl"][0])
+    pr.doubling_expand(rb, pr.X_INIT, inp["logl"][1], inp["logl"][0],
+                       inp["draw_x"])
+    pr.doubling_shrink(rb, pr.S_RESOLVE)
     for k in ref:
         _same(rb.st[k], ref[k])
     assert {k: t.data_ptr() for k, t in rb.st.items()} == ptrs
@@ -471,6 +545,48 @@ def test_source_names_the_jax_code_it_replaces():
         assert ref in src
     assert "__dmul_rn" in src and "__dadd_rn" in src and "FMA" in src
     assert "cudaGetLastError" in src and "sm_90a" in src
+
+
+def _struct_fields(src, name):
+    """The pointer fields of the argument struct ``name`` in the CUDA
+    source, in order."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        m = re.match(r"\s*(?:const\s+)?[\w\s]+?\*\s*(\w+);",
+                     line.split("//")[0])
+        if m:
+            fields.append(m.group(1))
+    return fields
+
+
+def test_the_argument_tables_follow_the_kernels_structs(monkeypatch):
+    """Each kernel's pointer table, as ``DoublingRound`` binds it on the
+    card, names the round's tensors in the order of the kernel's argument
+    struct in ``csrc/slice_doubling.cu``; the likelihood's outputs and the
+    first candidate's draw are left to each launch."""
+    monkeypatch.setattr(pr, "_entry", lambda *a: None)
+    rb = pr.DoublingRound(4, 2, 3, 2, torch.float64, "cpu",
+                          torch.tensor([True, False, True]))
+    rb._bind()
+    names = {t.data_ptr(): k for k, t in rb.st.items()}
+    for k, t in (("dirs", rb.directions), ("draw", rb.draw),
+                 ("draw_x", rb.draw_x), ("loglstar", rb.loglstar),
+                 ("gate", rb.gate), ("strict", rb.strict),
+                 ("vote", rb.vote)):
+        names[t.data_ptr()] = k
+    assert len(names) == len(rb.st) + 7
+    src = (Path(pr.__file__).resolve().parent.parent / "csrc" /
+           "slice_doubling.cu").read_text()
+    for kernel, struct in (("point", "PointArgs"), ("expand", "ExpandArgs"),
+                           ("halve", "HalveArgs"), ("shrink", "ShrinkArgs")):
+        table = rb._args[kernel][0]
+        want = _struct_fields(src, struct)
+        got = [names[p] if p is not None else None for p in table]
+        assert len(got) == len(want), kernel
+        for g, w in zip(got, want):
+            assert g == w or (g is None and w in (
+                "logl_l", "logl_x", "v_x", "draw_x")), (kernel, g, w)
 
 
 # --------------------------------------------------------------------------
@@ -682,7 +798,7 @@ def test_doubling_rounds_keep_a_cache_entry_of_their_own():
 
 
 # --------------------------------------------------------------------------
-# the halving's probe folded into the kernels before it
+# the probes folded into the kernels before them
 
 
 def _parent_halve(st, logl_x, loglstar):
@@ -708,7 +824,8 @@ def _parent_halve(st, logl_x, loglstar):
 
 def _parent_candidate(st, v_x, logl_x, loglstar):
     """A shrink candidate's outcome as it was before the first halving's
-    probe moved into it."""
+    probe moved into it: the candidate's logl masked by the cube check
+    ``incube`` that its own segment's probe wrote."""
     active = st["s_active"]
     logl_c = torch.where(st["incube"], logl_x, _NEG_INF)
     good = logl_c > loglstar
@@ -725,62 +842,170 @@ def _parent_candidate(st, v_x, logl_x, loglstar):
     st["any_shrink"] = torch.zeros_like(st["any_shrink"])
 
 
-def _parent_segment(entry, name, fill=None):
-    """A segment in the parent's order: the round gate applied by torch
-    after the end probes, each halving's mid probed at its own segment's
-    start (``P_HALVE``), then the halving."""
+def _parent_expand(st, mode, logl_x, logl_l, draw, loglstar):
+    """The step's start or a doubling as it was before the next probe
+    moved into it: a doubling's side read again from its own ``draw``."""
+    logl_new = torch.where(st["incube"], logl_x, _NEG_INF)
+    if mode == pr.X_INIT:
+        fl = torch.where(st["incube_l"], logl_l, _NEG_INF)
+        fr = logl_new
+        st["nc"] = st["nc"] + 2
+        st["grow"] = torch.ones_like(st["grow"])
+        active = (fl > loglstar) | (fr > loglstar)
+        st["s_active"] = torch.ones_like(st["s_active"])
+        st["step"] = st["step"] + 1
+    else:
+        active, left, right = st["active"], st["left"], st["right"]
+        go_left = draw < 0.5
+        width = right - left
+        st["left"] = torch.where(active & go_left, left - width, left)
+        st["right"] = torch.where(active & ~go_left, right + width, right)
+        fl = torch.where(active & go_left, logl_new, st["fl"])
+        fr = torch.where(active & ~go_left, logl_new, st["fr"])
+        grow = st["grow"]
+        st["nc"] = st["nc"] + active
+        st["n_exp"] = st["n_exp"] + active * grow
+        st["grow"] = torch.where(active, (grow * 2).clamp(max=1 << 30), grow)
+        active = active & ((fl > loglstar) | (fr > loglstar))
+    st["fl"], st["fr"], st["active"] = fl, fr, active
+    st["sl"], st["sr"] = st["left"].clone(), st["right"].clone()
+    st["any"] = active.any()
+
+
+def _parent_resolve(st, loglstar):
+    """A shrink's resolution as it was before the next candidate's probe
+    moved into it."""
+    active, good = st["s_active"], st["good"]
+    st["nc"] = st["nc"] + torch.where(active & good, st["d_nc"], 0)
+    good = good & ~st["reject"]
+    newly = active & good
+    st["u"] = torch.where(newly[:, None], st["u_c"], st["u"])
+    st["v"] = torch.where(newly[:, None], st["v_c"], st["v"])
+    st["logl"] = torch.where(newly, st["logl_c"], st["logl"])
+    bad = active & ~good
+    x1 = st["x1"]
+    st["sl"] = torch.where(bad & (x1 < 0), x1, st["sl"])
+    st["sr"] = torch.where(bad & (x1 > 0), x1, st["sr"])
+    st.update(s_active=bad, newly=newly, any_shrink=bad.any())
+
+
+def _parent_segment(entry, name, fill=None, probed=None):
+    """A segment in the parents' order, each probe at its own segment's
+    start: the round gate applied by torch after the end probes, each
+    doubling's new end, shrink candidate and halving's mid probed by
+    ``doubling_point_plain`` (``P_DOUBLE``, ``P_SHRINK``, ``P_HALVE``)
+    from the vector its own segment drew, then the update.  ``probed``
+    is called with the state right after each such probe."""
     rb, st = entry.rb, entry.rb.st
     point = pr.doubling_point_plain
     args = (rb.draw, rb.directions, rb.strict)
     if fill is not None:
         fill()
+
+    def probe(mode):
+        rb._plain(point, mode, *args)
+        if probed is not None:
+            probed(st)
+
     if name == "start":
         rb._plain(point, pr.P_START_L, *args)
         st["incube_l"].masked_fill_(rb.gate, False)
         logl_l = entry._eval(st["incube_l"])[1]
         rb._plain(point, pr.P_START_R, *args)
         st["incube"].masked_fill_(rb.gate, False)
-        rb._plain(pr.doubling_expand_plain, pr.X_INIT,
-                  entry._eval(st["incube"])[1], logl_l, rb.draw,
-                  rb.loglstar)
+        rb._plain(_parent_expand, pr.X_INIT, entry._eval(st["incube"])[1],
+                  logl_l, rb.draw, rb.loglstar)
     elif name == "double":
-        rb._plain(point, pr.P_DOUBLE, *args)
-        rb._plain(pr.doubling_expand_plain, pr.X_DOUBLE,
-                  entry._eval(st["incube"])[1], None, rb.draw, rb.loglstar)
+        probe(pr.P_DOUBLE)
+        rb._plain(_parent_expand, pr.X_DOUBLE, entry._eval(st["incube"])[1],
+                  None, rb.draw, rb.loglstar)
     elif name == "candidate":
-        rb._plain(point, pr.P_SHRINK, *args)
+        probe(pr.P_SHRINK)
         v, logl, blob = entry._eval(st["incube"])
         rb._plain(_parent_candidate, v, logl, rb.loglstar)
         if entry.blob_c is not None:
             tree_map(lambda c, b: c.copy_(b), entry.blob_c, blob)
     elif name == "halve":
-        rb._plain(point, pr.P_HALVE, *args)
+        probe(pr.P_HALVE)
         rb._plain(_parent_halve, entry._eval(st["incube"])[1], rb.loglstar)
     else:
-        rb._plain(pr.doubling_shrink_plain, pr.S_RESOLVE, None, None,
-                  rb.loglstar)
+        rb._plain(_parent_resolve, rb.loglstar)
         entry.select_blob(st["newly"], entry.blob_c)
 
 
-def _recorded_rounds(monkeypatch, segment, q, blob, seeds, gate_second):
-    """Doubling rounds on the CPU through ``segment`` in place of
-    ``DoublingGraph.segment``: the state after every segment, the packed
-    columns and blobs, and the generators' states.  With ``gate_second``
-    the second round runs behind a set round gate (the fused round's
-    prologue)."""
-    snaps, outs = [], []
+def _parent_loop(entry, gen, segment, max_shrink_iters, gate_read):
+    """The round's loop in the parents' order: each segment draws its own
+    vector (r0, a doubling's side, a candidate's position)."""
+    rb = entry.rb
+
+    def run(name):
+        fill = (lambda: rb.draw.uniform_(generator=gen)) \
+            if name in ("start", "double", "candidate") else None
+        segment(entry, name, fill)
+        if name == "start":
+            flag, entry.gated = rb.flags.tolist()
+            return flag
+        return bool(rb.st["any_shrink" if name == "resolve" else "any"])
+
+    for s in range(rb.n_steps):
+        flag = run("start")
+        if gate_read and s == 0 and entry.gated:
+            return True
+        while flag:
+            flag = run("double")
+        active = True
+        for _ in range(max_shrink_iters):
+            if not active:
+                break
+            flag = run("candidate")
+            while flag:
+                flag = run("halve")
+            active = run("resolve")
+    return False
+
+
+def _recorded_rounds(monkeypatch, parent, q, blob, seeds, gate_second,
+                     max_shrink_iters=10000, loglstar_max=False):
+    """Doubling rounds on the CPU through ``DoublingGraph`` (or, with
+    ``parent``, :func:`_parent_loop` and :func:`_parent_segment`): each
+    segment's name, the state after it and, in the parents' order, the
+    state after its probe; every likelihood call's counted lanes and
+    their points; the packed columns, blobs and the generators' states
+    after each round.  With ``gate_second`` the second round runs behind
+    a set round gate (the fused round's prologue); with ``loglstar_max``
+    the threshold is the best start's, so that candidates fail.  Asserts
+    that ``any`` is false as each candidate segment starts."""
+    snaps, calls, outs = [], [], []
+    segment = tk.DoublingGraph.segment
 
     def recording(entry, name, fill=None):
-        segment(entry, name, fill)
-        snaps.append((name, {k: t.clone() for k, t in entry.rb.st.items()}))
+        if name == "candidate":
+            assert not bool(entry.rb.st["any"]), "any set at a candidate"
+        probes = []
+        if parent:
+            _parent_segment(entry, name, fill, probed=lambda st: probes.append(
+                {k: t.clone() for k, t in st.items()}))
+        else:
+            segment(entry, name, fill)
+        snaps.append((name, {k: t.clone() for k, t in entry.rb.st.items()},
+                      probes[0] if probes else None))
+
+    orig = tk.DoublingGraph._eval
+
+    def spy(entry, mask):
+        calls.append((mask.clone(), entry.rb.st["uclamp"][mask].clone()))
+        return orig(entry, mask)
 
     monkeypatch.setattr(tk.DoublingGraph, "segment", recording)
+    monkeypatch.setattr(tk.DoublingGraph, "_eval", spy)
     dtype = torch.float64
     like = _like(blob, dtype)
     cache = {}
     for i, seed in enumerate(seeds):
         packed, start_blob, loglstar = _round_inputs(like, q, dtype,
                                                      seed=seed)
+        if loglstar_max:
+            loglstar = float(packed[:, 6].max())
         gen = torch.Generator()
         gen.manual_seed(seed)
         entry = tk.doubling_graph(cache, like, q, 2, 3, dtype, "cpu",
@@ -794,42 +1019,81 @@ def _recorded_rounds(monkeypatch, segment, q, blob, seeds, gate_second):
         gate = torch.tensor(gate_second and i == 1)
         tk.doubling_start(entry, directions, loglstar, packed[:, :3],
                           packed[:, 3:6], packed[:, 6], start_blob, gate)
-        tk.doubling_loop(entry, gen, gate_read=True)
+        if parent:
+            _parent_loop(entry, gen, recording, max_shrink_iters, True)
+        else:
+            tk.doubling_loop(entry, gen, max_shrink_iters=max_shrink_iters,
+                             gate_read=True)
         outs.append(({k: entry.rb.st[k].clone() for k in
                       ("u", "v", "logl", "nc", "n_exp", "n_con")},
                      tree_map(torch.clone, entry.blob), gen.get_state()))
     monkeypatch.undo()
-    return snaps, outs
+    return snaps, calls, outs
+
+
+# the entries a fold writes early, or on lanes that no later read
+# touches: each is checked where its next reader reads it
+_PROBE_ENTRIES = ("uclamp", "incube", "incube_s", "x1", "u_c", "go_left")
+
+
+def _check_against_the_parents_order(new, old):
+    """After every segment every entry of the state but the probes'
+    equals the parents'; each probe written early equals the parents'
+    probe at that segment's start (a doubling's and a halving's on the
+    lanes it counts, a candidate's on every lane; the cube check on every
+    lane); a candidate's position and point equal the parents' while its
+    test runs."""
+    assert [n for n, _, _ in new] == [n for n, _, _ in old]
+    for i, ((name, a, _), (_, b, _)) in enumerate(zip(new, old)):
+        for k in b:
+            if k not in _PROBE_ENTRIES:
+                _same(a[k], b[k])
+        if name in ("candidate", "halve"):
+            for k in ("x1", "u_c"):
+                _same(a[k], b[k])
+        if i + 1 == len(old) or old[i + 1][2] is None:
+            continue
+        nxt, p = old[i + 1][0], old[i + 1][2]
+        if nxt == "double":
+            lanes, mask = p["active"], "incube"
+            _same(a["go_left"][lanes], p["go_left"][lanes])
+        elif nxt == "candidate":
+            lanes, mask = torch.ones_like(p["s_active"]), "incube_s"
+            for k in ("x1", "u_c"):
+                _same(a[k], p[k])
+        else:
+            lanes, mask = p["h_active"], "incube"
+        _same(a[mask], p["incube"])
+        _same(a["uclamp"][lanes], p["uclamp"][lanes])
 
 
 @pytest.mark.parametrize("q", [1, 37, 256])
 def test_the_folded_halving_equals_the_parent_order(monkeypatch, q):
-    """Whole rounds with each halving's probe written by the kernel before
-    it (the candidate's ``doubling_shrink`` and each ``doubling_halve``)
-    and the round gate read by the end probes, against the same rounds in
-    the parent's order (the probe at the halving segment's start, the gate
-    applied after the probes): after every segment every entry of the
-    state is the parent's, but after a candidate, a halving or the
-    resolution after them, where the probe and its cube check are the
-    parent's state's next probe (``P_HALVE``) written early; the rounds'
-    outputs, blobs, generators and segments are the same."""
+    """Whole rounds with every probe but the step's end probes written by
+    the kernel before it -- the next doubling's or the first candidate's
+    by ``doubling_expand``, the next candidate's by the resolution, each
+    halving's by the candidate's ``doubling_shrink`` or the halving
+    before -- from a vector drawn just before that kernel, and the round
+    gate read by the end probes, against the same rounds in the parents'
+    order (each probe at its own segment's start, from the vector its
+    segment drew; the gate applied after the probes), the second round
+    behind a set gate: every entry of the state after every segment but
+    the probes', which equal the parents' where a later segment reads
+    them; every likelihood call's counted lanes and points; the rounds'
+    outputs, blobs and generators (a vector drawn for no segment given
+    back); ``any`` false as every candidate starts."""
     seeds, blob = (3, 4, 5), q != 256
-    new, new_out = _recorded_rounds(
-        monkeypatch, tk.DoublingGraph.segment, q, blob, seeds, True)
-    old, old_out = _recorded_rounds(monkeypatch, _parent_segment, q, blob,
-                                    seeds, True)
-    assert [n for n, _ in new] == [n for n, _ in old]
-    names = [n for n, _ in new]
-    assert names.count("halve") > 0 and names.count("candidate") > 0
-    strict = torch.tensor([True, False, True])
-    for (name, a), (_, b) in zip(new, old):
-        if name in ("candidate", "halve", "resolve"):
-            b = dict(b)
-            flag = b["any"]
-            pr.doubling_point_plain(b, pr.P_HALVE, None, None, strict)
-            b["any"] = flag
-        for k in b:
-            _same(a[k], b[k])
+    new, new_calls, new_out = _recorded_rounds(
+        monkeypatch, False, q, blob, seeds, True)
+    old, old_calls, old_out = _recorded_rounds(
+        monkeypatch, True, q, blob, seeds, True)
+    names = [n for n, _, _ in new]
+    assert names.count("halve") > 0 and names.count("double") > 0
+    _check_against_the_parents_order(new, old)
+    assert len(new_calls) == len(old_calls)
+    for (ma, ua), (mb, ub) in zip(new_calls, old_calls):
+        _same(ma, mb)
+        _same(ua, ub)
     for (sa, ba, ga), (sb, bb, gb) in zip(new_out, old_out):
         for k in sa:
             assert torch.equal(sa[k], sb[k]), k
@@ -837,6 +1101,37 @@ def test_the_folded_halving_equals_the_parent_order(monkeypatch, q):
         if blob:
             assert torch.equal(ba, bb)
         assert torch.equal(ga, gb)
+
+
+@pytest.mark.parametrize("q", [1, 37])
+def test_the_folded_probes_equal_the_parent_order_under_the_shrink_cap(
+        monkeypatch, q):
+    """Rounds cut by a shrink cap of one candidate a step, against the
+    same rounds in the parents' order: the resolution that runs into the
+    cap drew the next candidate's vector, which is given back, so every
+    later step and round draws what the parents' order draws."""
+    seeds = (8, 9)
+    new, new_calls, new_out = _recorded_rounds(
+        monkeypatch, False, q, False, seeds, False, max_shrink_iters=1,
+        loglstar_max=True)
+    old, old_calls, old_out = _recorded_rounds(
+        monkeypatch, True, q, False, seeds, False, max_shrink_iters=1,
+        loglstar_max=True)
+    _check_against_the_parents_order(new, old)
+    assert len(new_calls) == len(old_calls)
+    for (ma, ua), (mb, ub) in zip(new_calls, old_calls):
+        _same(ma, mb)
+        _same(ua, ub)
+    for (sa, _, ga), (sb, _, gb) in zip(new_out, old_out):
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+        assert torch.equal(ga, gb)
+    # every step ends on the cap: one candidate each, some lane still
+    # shrinking
+    names = [n for n, _, _ in new]
+    assert names.count("candidate") == names.count("start") == 4
+    cut = [st["any_shrink"] for n, st, _ in new if n == "resolve"]
+    assert any(bool(c) for c in cut)
 
 
 def test_an_identity_prior_transform_reads_its_probe_before_the_fold():
@@ -901,10 +1196,45 @@ def test_the_plain_steps_keep_a_candidates_v_that_is_the_probe():
     assert not torch.equal(rb.st["uclamp"], inp["v_x"])
 
 
+def test_the_resolution_keeps_a_candidates_v_that_was_the_probe():
+    """With an identity prior transform the candidate's v is the probe
+    buffer itself, which the resolution overwrites with the next
+    candidate's probe: the lanes that accept take the candidate's point
+    as their v (kept in ``v_c`` by the candidate's step), not the next
+    probe, through the round's buffers on the CPU."""
+    q, ndim = 64, 3
+    st, inp = _hand_state(q, ndim, ndim, torch.float64, seed=9)
+    rb = pr.DoublingRound(q, 4, ndim, ndim, torch.float64, "cpu")
+    for k, t in st.items():
+        rb.st[k].copy_(t)
+    rb.loglstar.copy_(inp["loglstar"])
+    # the candidate's probe, as the kernel before it writes it
+    shr = pr._shrink_probe(rb.st, inp["draw"], None)
+    for k in ("x1", "u_c", "uclamp"):
+        rb.st[k].copy_(shr[k])
+    rb.st["incube_s"].copy_(shr["incube"])
+    rb.st["any"].fill_(False)
+    cand = rb.st["uclamp"].clone()
+    pr.doubling_shrink(rb, pr.S_CANDIDATE, rb.st["uclamp"], inp["logl"][0])
+    raws = iter(inp["logl"][1:])
+    while bool(rb.st["any"]):
+        pr.doubling_halve(rb, next(raws))
+    rb.draw.copy_(inp["draw_x"])
+    pr.doubling_shrink(rb, pr.S_RESOLVE)
+    newly, bad = rb.st["newly"], rb.st["s_active"]
+    assert bool(newly.any()) and bool(bad.any())
+    assert torch.equal(rb.st["v"][newly], cand[newly])
+    assert not torch.equal(rb.st["uclamp"][newly], cand[newly])
+    assert torch.equal(rb.st["v"][~newly], st["v"][~newly])
+
+
 def test_the_wrapper_refuses_a_halvings_probe():
+    """The wrapper takes the step's end probes only: every other probe is
+    written by the kernel before it."""
     rb = pr.DoublingRound(4, 2, 3, 3, torch.float64, "cpu")
-    with pytest.raises(ValueError, match="probed by doubling_shrink"):
-        pr.doubling_point(rb, pr.P_HALVE)
+    for mode in (pr.P_DOUBLE, pr.P_SHRINK, pr.P_HALVE):
+        with pytest.raises(ValueError, match="by the kernel before it"):
+            pr.doubling_point(rb, mode)
 
 
 # --------------------------------------------------------------------------
@@ -913,10 +1243,12 @@ def test_the_wrapper_refuses_a_halvings_probe():
 
 def _sequence(rb, st, inp, kernels):
     """The segments' steps in the round's order on the hand-made state:
-    the step's start, a doubling, a candidate, its halvings, its
-    resolution; through the wrappers on ``rb`` (``kernels``) or through
-    the plain steps on ``st``.  Returns the state after each step."""
-    draw, ls = rb.draw, rb.loglstar
+    the step's start (its end probes, then its state and next probe), a
+    doubling with its next probe, a candidate, its halvings, its
+    resolution with the next candidate's probe; through the wrappers on
+    ``rb`` (``kernels``) or through the plain steps on ``st``.  Returns
+    the state after each step."""
+    draw, draw_x, ls = rb.draw, rb.draw_x, rb.loglstar
     raws = iter(inp["logl"])
     states = []
 
@@ -928,12 +1260,10 @@ def _sequence(rb, st, inp, kernels):
         for mode in (pr.P_START_L, pr.P_START_R):
             pr.doubling_point(rb, mode)
             snap(d)
-        pr.doubling_expand(rb, pr.X_INIT, next(raws), next(raws))
+        pr.doubling_expand(rb, pr.X_INIT, next(raws), next(raws), draw_x)
         snap(d)
-        pr.doubling_point(rb, pr.P_DOUBLE)
-        pr.doubling_expand(rb, pr.X_DOUBLE, next(raws))
+        pr.doubling_expand(rb, pr.X_DOUBLE, next(raws), draw_x=draw_x)
         snap(d)
-        pr.doubling_point(rb, pr.P_SHRINK)
         pr.doubling_shrink(rb, pr.S_CANDIDATE, inp["v_x"], next(raws))
         snap(d)
         while bool(d["any"]):
@@ -947,19 +1277,20 @@ def _sequence(rb, st, inp, kernels):
         pr.doubling_point_plain(st, mode, *args, rb.gate)
         snap(st)
     logl_r = next(raws)
-    pr.doubling_expand_plain(st, pr.X_INIT, logl_r, next(raws), draw, ls)
+    pr.doubling_expand_plain(st, pr.X_INIT, logl_r, next(raws), draw, draw_x,
+                             ls, rb.strict)
     snap(st)
-    pr.doubling_point_plain(st, pr.P_DOUBLE, *args)
-    pr.doubling_expand_plain(st, pr.X_DOUBLE, next(raws), None, draw, ls)
+    pr.doubling_expand_plain(st, pr.X_DOUBLE, next(raws), None, draw, draw_x,
+                             ls, rb.strict)
     snap(st)
-    pr.doubling_point_plain(st, pr.P_SHRINK, *args)
     pr.doubling_shrink_plain(st, pr.S_CANDIDATE, inp["v_x"], next(raws), ls,
                              rb.strict)
     snap(st)
     while bool(st["any"]):
         pr.doubling_halve_plain(st, next(raws), ls, rb.strict)
         snap(st)
-    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls, rb.strict)
+    pr.doubling_shrink_plain(st, pr.S_RESOLVE, None, None, ls, rb.strict,
+                             draw)
     snap(st)
     return states
 
@@ -979,6 +1310,7 @@ def test_kernels_match_plain_on_the_card(cuda, dtype, ndim, strict):
     # in the cube and run the acceptance test
     rb.directions.copy_(inp["directions"] * (3.0 / ndim))
     rb.draw.copy_(inp["draw"])
+    rb.draw_x.copy_(inp["draw_x"])
     rb.loglstar.copy_(inp["loglstar"])
     rb.gate.fill_(False)
     inp["logl"] = inp["logl"] * 4
@@ -992,11 +1324,12 @@ def test_kernels_match_plain_on_the_card(cuda, dtype, ndim, strict):
         for k in b:
             _same(a[k], b[k])
     halvings = len(got) - 6
-    # the halvings' mids are probed by the kernels before them
-    assert pr.doubling_point.launches == 4
+    # every probe but the end probes is written by the kernel before it
+    assert pr.doubling_point.launches == 2
     assert pr.doubling_expand.launches == 2
     assert pr.doubling_halve.launches == halvings
     assert pr.doubling_shrink.launches == 2
+    assert int(rb.vote) == 0
 
 
 def _card_round(q, ndim, dtype, device, strict, seed=5):
@@ -1010,8 +1343,13 @@ def _card_round(q, ndim, dtype, device, strict, seed=5):
         rb.st[k].copy_(t)
     rb.directions.copy_(inp["directions"] * (3.0 / ndim))
     rb.draw.copy_(inp["draw"])
+    rb.draw_x.copy_(inp["draw_x"])
     rb.loglstar.copy_(inp["loglstar"])
     rb.gate.fill_(False)
+    # the probes' cube checks: some lanes in the cube
+    rs = get_rstate(seed + 100)
+    for k in ("incube", "incube_l", "incube_s"):
+        rb.st[k].copy_(torch.as_tensor(rs.random(q) < 0.8))
     return rb, inp
 
 
@@ -1033,8 +1371,9 @@ def test_the_halving_writes_its_probe_and_flag_on_the_card(cuda, dtype,
             rb, inp = _card_round(q, ndim, dtype, cuda, strict=True)
             if name == "none_halve":
                 rb.st["h_active"].fill_(False)
-            # the candidate's flag is cleared by its doubling_point; the
-            # halving's is whatever the segment before it left
+            # a candidate starts with the flag false (the loop before it
+            # ended on it); a halving with whatever the segment before it
+            # left
             rb.st["any"].fill_(stale and name != "candidate")
             ref = {k: t.clone() for k, t in rb.st.items()}
             raw = inp["logl"][1] * 4
@@ -1053,6 +1392,80 @@ def test_the_halving_writes_its_probe_and_flag_on_the_card(cuda, dtype,
                 assert not bool(rb.st["any"])
     if q > 1:
         assert outcomes == {False, True}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [2, 3, 15])
+@pytest.mark.parametrize("q", [1, 256, 1500])
+def test_the_expansion_and_resolution_write_their_probes_on_the_card(
+        cuda, dtype, ndim, q):
+    """``doubling_expand`` in both modes, with the next probe of each lane
+    (the next doubling's or the first candidate's, from two draw
+    vectors), and the resolution's ``doubling_shrink`` with the next
+    candidate's, against their plain versions: every entry of the state
+    bit for bit, from a stale ``any`` flag of either value (the expansion
+    clears and raises it in one launch, its count word left zero; a
+    resolution starts with ``any_shrink`` false, as the candidate leaves
+    it)."""
+    kinds = set()
+    for name in ("init", "double", "resolve"):
+        for stale in (False, True):
+            rb, inp = _card_round(q, ndim, dtype, cuda, strict=True)
+            rb.st["any"].fill_(stale)
+            rb.st["any_shrink"].fill_(False)
+            ref = {k: t.clone() for k, t in rb.st.items()}
+            raw, raw_l = inp["logl"][1] * 4, inp["logl"][2] * 4
+            if name == "resolve":
+                pr.doubling_shrink(rb, pr.S_RESOLVE)
+                pr.doubling_shrink_plain(ref, pr.S_RESOLVE, None, None,
+                                         rb.loglstar, rb.strict, rb.draw)
+            else:
+                mode = pr.X_INIT if name == "init" else pr.X_DOUBLE
+                pr.doubling_expand(rb, mode, raw, raw_l, rb.draw_x)
+                pr.doubling_expand_plain(ref, mode, raw, raw_l, rb.draw,
+                                         rb.draw_x, rb.loglstar, rb.strict)
+                kinds.add((name, bool(ref["active"].any()),
+                           bool((~ref["active"]).any())))
+            torch.cuda.synchronize()
+            for k in ref:
+                _same(rb.st[k], ref[k])
+            assert int(rb.vote) == 0
+    if q > 1:
+        # lanes that double on and lanes that stop, in both modes
+        assert kinds == {("init", True, True), ("double", True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 32, 256, 1500])
+def test_the_expansion_flag_is_voted_across_blocks_on_the_card(cuda, q):
+    """The ``any`` flag of ``doubling_expand`` at 3 dimensions (32 lanes a
+    block: one block at q 1 and 32, 8 and 47 blocks at 256 and 1,500)
+    where no lane, only the first, only the last and every lane doubles
+    on, from a stale flag of either value, against the plain version."""
+    dtype = torch.float64
+    for lanes in ("none", "first", "last", "all"):
+        for stale in (False, True):
+            rb, inp = _card_round(q, 3, dtype, cuda, strict=False)
+            on = torch.zeros(q, dtype=torch.bool, device=cuda)
+            if lanes == "all":
+                on.fill_(True)
+            elif lanes != "none":
+                on[0 if lanes == "first" else q - 1] = True
+            rb.st["active"].copy_(on)
+            rb.st["fl"].fill_(3.0)
+            rb.st["fr"].fill_(3.0)
+            rb.st["any"].fill_(stale)
+            ref = {k: t.clone() for k, t in rb.st.items()}
+            raw = inp["logl"][1]
+            pr.doubling_expand(rb, pr.X_DOUBLE, raw, draw_x=rb.draw_x)
+            pr.doubling_expand_plain(ref, pr.X_DOUBLE, raw, None, rb.draw,
+                                     rb.draw_x, rb.loglstar, rb.strict)
+            torch.cuda.synchronize()
+            for k in ref:
+                _same(rb.st[k], ref[k])
+            assert bool(rb.st["any"]) == (lanes != "none")
+            assert int(rb.vote) == 0
 
 
 @pytest.mark.cuda
