@@ -36,7 +36,16 @@ kernels' cases to ``GROUPS``.  The groups:
   between the draws and the likelihood (before the fold: the union's
   subtraction and einsum, the kernel and the clamp);
 * ``replays``: the five captured doubling segments' replays (rslice at
-  (256, 3)) and the captured waves' (cube, three ellipsoids).
+  (256, 3)) and the captured waves' (cube, three ellipsoids);
+* ``refit``: the ellipsoid refit of a chained unif round at the heavy
+  drive's and the eggbox's stacks and at 3000 points in three
+  ellipsoids (phase 2i's inputs, float64) through
+  ``make_ellipsoid_refit``, which every version has (before the refit
+  kernels, the eager torch refit that ran between two rounds' prologues:
+  its span; since, the two kernels into new tensors), device only, by
+  events and by the host clock with the wait; and, where the checkout
+  has the kernels, the two on buffers made once, as a round's prologue
+  launches them (``kernels_*``).
 
 ``--generic-rows`` also times ``unif_valid`` built with its generic row
 loop at every width (``-DUNIF_VALID_ROW_REGISTERS=0``) against the
@@ -408,10 +417,57 @@ def replay_times(cm, torch):
     return recs
 
 
+def refit_times(cm, torch):
+    """The ellipsoid refit at the heavy drive's, the eggbox's and a
+    three-ellipsoid stack in float64: ``make_ellipsoid_refit``'s function
+    (the span), and the two
+    kernels on buffers made once where the checkout has them."""
+    import importlib.util as iu
+    from dynesty_tpu_torch.internal.kernels import make_ellipsoid_refit
+    has_kernels = iu.find_spec("dynesty_tpu_torch.ops.ellipsoid_refit")
+    recs = []
+    for name, n, k, m, d in cm.REFIT_CASES:
+        if name not in ("heavy", "multi", "eggbox"):
+            continue
+        live, arrays = cm.refit_inputs(n, k, m, d)
+        u = live[:, :d]
+        refit = make_ellipsoid_refit(d)
+
+        def span():
+            refit(u, arrays)
+
+        def waited():
+            span()
+            torch.cuda.current_stream().synchronize()
+
+        rec = {"kernel": "ellipsoid_refit", "kind": name, "nlive": n, "m": m,
+               "ndim": d, "dtype": "float64",
+               "span_device_us": 1e3 * cm._device_ms(span, ITERS),
+               "span_events_us": 1e3 * cm._time_ms(span, 200),
+               "span_host_us": _host_us(waited)}
+        if has_kernels:
+            from dynesty_tpu_torch.ops import ellipsoid_refit as rr
+            rf = rr.EllipsoidRefit(n, m, d, torch.float64, "cuda")
+            out = {key: torch.empty_like(arrays[key])
+                   for key in rr.REFIT_FIELDS}
+
+            def kernels():
+                rr.ellipsoid_refit(rf, u, arrays, out)
+
+            rec.update({
+                "kernels_device_us": 1e3 * cm._device_ms(kernels, ITERS),
+                "kernels_events_us": 1e3 * cm._time_ms(kernels, 200)})
+            for kernel in cm.REFIT_KERNELS:
+                rec[f"{kernel}_device_us"] = 1e3 * cm._device_ms(
+                    kernels, ITERS, only=kernel)
+        recs.append(rec)
+    return recs
+
+
 # the case groups, in the order they run: each redesign adds its kernels'
 GROUPS = (("assemble", assemble_times), ("place", place_times),
           ("doubling", doubling_times), ("valid", unif_times),
-          ("replays", replay_times))
+          ("replays", replay_times), ("refit", refit_times))
 
 
 def main():

@@ -148,6 +148,7 @@ SPLIT_PARTS = (
     ("fused", "torch_generator", "generator"),
     ("samplers", "select_starts", "select_starts"),
     ("samplers", "make_ellipsoid_refit", None),
+    ("samplers", "ellipsoid_refit", "refit_prologue"),
     ("kernels", "slice_state_machine", "loop"),
     ("kernels", "doubling_round", "loop"),
     ("kernels", "unif_waves", "loop"),
@@ -158,15 +159,16 @@ SPLIT_PARTS = (
     ("kernels", "rwalk_loop", "loop"),
     ("fused", "consume_round", "consume_round"),
 )
-_SPLIT = {"stack": [], "parts": {}, "on": False, "events": []}
+_SPLIT = {"stack": [], "parts": {}, "calls": {}, "on": False, "events": []}
 
 
 def _timer(fn, part):
     """``fn`` with its host time added to ``part``, exclusive of the
-    timed parts it calls."""
+    timed parts it calls, and its calls counted."""
     def call(*a, **kw):
         if not _SPLIT["on"]:
             return fn(*a, **kw)
+        _SPLIT["calls"][part] = _SPLIT["calls"].get(part, 0) + 1
         stack = _SPLIT["stack"]
         stack.append(0.0)
         t0 = time.perf_counter()
@@ -217,7 +219,11 @@ def split_round():
     (a part the checkout lacks is skipped): the round's generator, the
     batch threshold (``torch.sort``), ``select_starts``, the proposal
     loop, the consume scan, the device tuning and chain-stop functions,
-    the ellipsoid refit of a unif round, the captured prologue's and
+    the ellipsoid refit of a unif round (``ell_refit``: before the refit
+    kernels, the eager refit between two rounds' prologues; since, none,
+    and ``refit_prologue`` times the refit's calls inside an eager or a
+    captured prologue, while a replayed prologue runs it inside
+    ``prologue_replay``), the captured prologue's and
     epilogue's replays and their capture, host reads of a device flag
     outside the loops
     (``Tensor.__bool__``: the round gate), the flat result's download
@@ -268,6 +274,16 @@ def split_round():
         return _timer(fn, "rest"), layout
 
     tf.make_fused_round = ts.make_fused_round = make_fused_round
+
+
+def _refit_launches():
+    """The refit kernels' launches so far (a replayed prologue's
+    included), where the checkout has them."""
+    try:
+        from dynesty_tpu_torch.ops import ellipsoid_refit as rr
+    except ImportError:
+        return {}
+    return {w.__name__: w.launches for w in rr.WRAPPERS}
 
 
 def normal_loglike(x):
@@ -416,9 +432,16 @@ def main(prog="bench_unif_graph", default_drives="heavy,default,balls"):
             print(json.dumps({"drive": f"{name}-profiled", "root": root,
                               "card": card, **rec}))
         if args.split:
-            _SPLIT.update(parts={}, on=True, events=[])
+            # the eager refit between rounds reads 0 where there is none
+            _SPLIT.update(parts={"ell_refit": 0.0}, calls={"ell_refit": 0},
+                          on=True, events=[])
+            refit_launches = _refit_launches()
             rec = run_drive(dyt, name)
             _SPLIT["on"] = False
+            rec["split_refit_kernel_launches"] = {
+                k: v - refit_launches.get(k, 0)
+                for k, v in _refit_launches().items()}
+            rec["split_calls"] = dict(sorted(_SPLIT["calls"].items()))
             rec["split_device_spans"] = split_spans()
             rounds = rec["timings"]["n_round"]
             rec["split_ms_per_round"] = {

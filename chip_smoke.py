@@ -112,7 +112,21 @@ Phases, in order; any failure raises and exits non-zero:
    against ``round_assemble_plain`` on the same CUDA tensors at the
    consume scan's four shapes, a replay round and a round whose records
    come partly from its proposals, every output bit for bit, with their
-   times and byte bound.
+   times and byte bound.  Then the ellipsoid refit of a chained unif
+   round (``refit_phase``, phase 2i): ``refit_assign`` and ``refit_fit``
+   (``csrc/ellipsoid_refit.cu``) against the plain version on the same
+   CUDA tensors at the eggbox drive's stack (1000 points, 18 ellipsoids
+   in 32 slots, d 2), the heavy drive's (3000, one ellipsoid, d 3), 3000
+   points in 3 ellipsoids in 4 slots, a 15-D stack and 16384 points, and
+   on a slot of too few members, a covariance that
+   overflows, padding slots with no member and no ``expand``, float64
+   and float32: each point's slot equal wherever the plain version's two
+   smallest forms differ by more than 1e-12 relative, the fit within
+   1e-10 (float64) or 1e-4 (float32) of the plain fit of the same slots,
+   relative to each slot's largest entry, equal ``mask`` and re-fitted
+   slots, two launches and a captured replay the same bits; the maximum
+   relative error, the kernels' and the plain version's time per call
+   and the bound.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -262,19 +276,29 @@ Phases, in order; any failure raises and exits non-zero:
     ellipsoids), of one replayed uniform wave over the cube at (256, 3)
     and of one of the heavy drive's ellipsoid waves, of the four doubling
     kernels at (256, 3) (each in each of its modes) and of
-    each replayed doubling segment, and of one 256-lane evaluation of the
-    heavy likelihood.  The cube wave's, one heavy ellipsoid wave's and
+    each replayed doubling segment, of the two refit kernels at phase
+    2i's four stacks and of one replay of a heavy round's captured
+    prologue, and of one 256-lane evaluation of the heavy likelihood.
+    The cube wave's, one heavy ellipsoid wave's, that prologue's and
     every doubling segment's kernels are read from the captured graph's
     own nodes, as the CUDA runtime prints them: each wrapper's kernel is
     in as many nodes as the capture counted launches (what each replay
     adds to the drives' counts), ``doubling_point`` is in the start
     segment's nodes twice and in no other segment's, the halving's
-    segment holds ``doubling_halve`` once, and the candidate's draws
-    nothing (no node of torch's uniform kernel).  With ``--parent DIR``,
+    segment holds ``doubling_halve`` once, the candidate's draws
+    nothing (no node of torch's uniform kernel), and the prologue holds
+    each refit kernel once.  With ``--parent DIR``,
     ``bench_kernels.py`` on the checkout at DIR and on this one in turns.
 
 Every drive over ellipsoids prints its refits and the dispatches planned
-ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``).
+ahead of them (``n_prelaunch``, ``prelaunch``, ``n_refit``, ``refit``),
+and every drive whose chained unif rounds re-fit an ellipsoid stack its
+rounds and the refit kernels' launches: each round's prologue (eager,
+captured or replayed) launches ``refit_assign`` and ``refit_fit`` once,
+so each kernel's launches equal the drive's chained ellipsoid rounds
+(gated ones included), or the drive fails; one JSON line lists them by
+drive, and phase 34 reads both kernels once in the nodes of a captured
+prologue of the heavy drive.
 Every drive counts the proposal-step kernels' launches, the state
 machine's iterations (its flag reads less one a round) and the walk's
 steps (each eager step, and a replay's walks): ``slice_propose`` ==
@@ -335,6 +359,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from dynesty_tpu_torch.bounding import Bound  # noqa: E402
 from dynesty_tpu_torch.ops import consume as cs  # noqa: E402
+try:
+    from dynesty_tpu_torch.ops import ellipsoid_refit as rr  # noqa: E402
+except ImportError:
+    # a checkout before the refit kernels (bench_kernels.py --root reads
+    # this file's inputs over it)
+    rr = None
 from dynesty_tpu_torch.ops import proposals as pr  # noqa: E402
 
 NDIM = 3
@@ -368,6 +398,10 @@ SLICE_SOURCE = "dynesty_tpu_torch/csrc/slice_step.cu"
 RWALK_SOURCE = "dynesty_tpu_torch/csrc/rwalk_step.cu"
 UNIF_SOURCE = "dynesty_tpu_torch/csrc/unif_wave.cu"
 ASSEMBLE_SOURCE = "dynesty_tpu_torch/csrc/round_assemble.cu"
+REFIT_SOURCE = "dynesty_tpu_torch/csrc/ellipsoid_refit.cu"
+REFIT_REPLACES = "dynesty_tpu/internal/kernels.py:206"
+# the refit's kernels, each launched once a chained ellipsoid round
+REFIT_KERNELS = ("refit_assign", "refit_fit")
 # the JAX package's heavy bench (bench.py): a 3-D correlated Gaussian plus
 # a tanh matvec chain of this width and depth, at this live-point count
 H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
@@ -601,7 +635,8 @@ _LOOPS = dict.fromkeys(("slice_rounds", "slice_iters", "rwalk_rounds",
                         "doubling_gated", "seg_start", "seg_double",
                         "seg_candidate", "seg_halve", "seg_resolve",
                         "doubling_eager", "doubling_warmups",
-                        "slice_gated", "round_shapes", "round_warm") +
+                        "slice_gated", "round_shapes", "round_warm",
+                        "refit_rounds") +
                        CAPTURE_COUNTS, 0)
 # the fused rounds' graphs (their prologue and epilogue, one pair a round
 # shape) made since the counts were last zeroed (count_proposal_loops)
@@ -761,12 +796,26 @@ def count_proposal_loops():
         doubling_replay
     dg.on_side_stream = doubling_side
 
+    # the fused uniform rounds over an ellipsoid stack: each prepares once
+    # on the host, and its prologue (eager or replayed) re-fits the stack
+    from dynesty_tpu_torch.internal import samplers as ts
+    up = ts._UnifProposer
+    u_prepare = up.prepare
+
+    def unif_prepare(self, live, axes_args):
+        if self.refit:
+            _LOOPS["refit_rounds"] += 1
+        return u_prepare(self, live, axes_args)
+
+    up.prepare = unif_prepare
+
 
 def _zero_counts(hk):
     k = hk.pairwise_min_dist
     k.launches = k.launches_exact = k.launches_tc = 0
     cs.zero_counts()
     pr.zero_counts()
+    rr.zero_counts()
     _ROUNDS[0] = 0
     for key in _LOOPS:
         _LOOPS[key] = 0
@@ -796,6 +845,7 @@ def _counts(hk, eager=False, custom=False, raised=False):
            "consume_general": paths["general"], "rounds": _ROUNDS[0]}
     out.update({w.__name__: w.launches for w in pr.WRAPPERS})
     out["round_assemble"] = cs.round_assemble.launches
+    out.update({w.__name__: w.launches for w in rr.WRAPPERS})
     _LOOPS["round_shapes"] = len(_ROUND_GRAPHS)
     _LOOPS["round_warm"] = sum(g.warm for g in _ROUND_GRAPHS)
     out.update(_LOOPS)
@@ -812,6 +862,11 @@ def _counts(hk, eager=False, custom=False, raised=False):
             out["round_shapes"]):
         raise RuntimeError(f"the fused rounds did not run as the capture "
                            f"rule says: {out}")
+    # every chained ellipsoid round re-fits its stack in its prologue,
+    # each refit kernel once (a replay counting what its capture did)
+    if not (out["refit_assign"] == out["refit_fit"] == out["refit_rounds"]):
+        raise RuntimeError(f"refit kernel launches and the ellipsoid rounds "
+                           f"differ: {out}")
     if not (out["slice_propose"] == out["slice_advance"] ==
             out["slice_iters"]) or not (
                 out["rwalk_propose"] == out["rwalk_accept"] ==
@@ -1844,6 +1899,7 @@ def _print_phase(name, s, card):
             "shard_shape", "lane_devices", "larger_mesh_refused", "timings")
     print(json.dumps(dict({"phase": name, "card": card},
                           **{k: s[k] for k in keys if k in s})))
+    _print_refits(s)
 
 
 # states of a dynamic sampler in which a refit belongs to the base run
@@ -2180,6 +2236,7 @@ def _print_dynamic(name, s, card):
             "timings")
     print(json.dumps(dict({"phase": name, "card": card},
                           **{k: s[k] for k in keys if k in s})))
+    _print_refits(s)
 
 
 def heavy_weights():
@@ -2265,7 +2322,20 @@ def _print_unif_drive(name, s, card):
           f"{t.get('total', 0.0):.3f} s  n_dispatch {t.get('n_dispatch', 0)}"
           f"  sync_wave {t.get('sync_wave', 0)}  sync_round "
           f"{t.get('sync_round', 0)}  nc_launched {t.get('nc_launched', 0)}")
+    _print_refits(s)
     _print_planning(t)
+
+
+def _print_refits(s):
+    """A drive's ellipsoid rounds and its refit kernels' launches (each
+    round's prologue re-fits its stack: two kernels)."""
+    n = s.get("launches")
+    if n and n.get("refit_rounds"):
+        want = len(REFIT_KERNELS) * n["refit_rounds"]
+        print(f"  ellipsoid refit: {n['refit_rounds']} chained ellipsoid "
+              f"rounds, refit_assign {n['refit_assign']} + refit_fit "
+              f"{n['refit_fit']} launches (= {len(REFIT_KERNELS)} x rounds: "
+              f"{n['refit_assign'] + n['refit_fit'] == want})")
 
 
 def _print_planning(t):
@@ -3151,6 +3221,259 @@ def round_assemble_phase(card):
     if same != total:
         raise RuntimeError(f"round_assemble's rounds on one set of buffers "
                            f"differ from the plain version: {same}/{total}")
+    return cases
+
+
+# --------------------------------------------------------------------------
+# the ellipsoid refit of a chained unif round (phase 2i)
+
+# the refit's cases: (name, live points, ellipsoids, padded slots,
+# dimensions): the eggbox drive's stack (18 modes in 32 slots), the heavy
+# drive's (3000 points, one ellipsoid), 3000 points in three ellipsoids, a
+# 15-D stack and the widest live set the tests reach
+REFIT_CASES = (("eggbox", 1000, 18, 32, 2), ("heavy", 3000, 1, 1, 3),
+               ("multi", 3000, 3, 4, 3), ("d15", 1000, 5, 8, 15),
+               ("wide", 16384, 20, 32, 3))
+# the edge stacks at (200 points, 3 ellipsoids, 4 slots, 3 dimensions): a
+# slot of two members, a member whose covariance overflows, five padding
+# slots with no member (8 slots), and no expand
+REFIT_EDGES = ("degenerate", "overflow", "empty_pad", "no_expand")
+# the largest difference allowed, per slot and array, relative to the
+# slot's largest entry of the plain version's array: float64 (the card's
+# eager refit was held to the CPU's at 1e-10 too), float32
+REFIT_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# a point's slot must agree where the plain version's two smallest forms
+# differ by more than this, relative
+REFIT_TIE = 1e-12
+REFIT_ARRAYS = ("ctrs", "axes", "ams", "logvols")
+
+
+def refit_inputs(n, k, m, d, dtype=torch.float64, case=None, seed=SEED):
+    """Live points from ``k`` Gaussian clusters in the cube and the
+    dispatch's fit of them padded to ``m`` slots (each cluster's sample
+    covariance enlarged by 1.2, or its true one below d + 1 points), as a
+    fused round holds them: the points in the first ``d`` columns of a
+    live matrix of ``d + 6`` columns (the row stride the kernels read), the
+    arrays on the card in ``dtype``, ``expand`` 1.1.  ``case``: one of
+    ``REFIT_EDGES``."""
+    from dynesty_tpu_torch.internal.kernels import pad_ellipsoids
+    # the unit d-ball's log-volume (written out: bench_kernels.py makes
+    # these inputs for checkouts before the refit kernels too)
+    pref = (d / 2.0) * math.log(math.pi) - math.lgamma(d / 2.0 + 1.0)
+    rng = np.random.Generator(np.random.PCG64(seed))
+    ctrs = rng.uniform(0.25, 0.75, (k, d))
+    covs = np.empty((k, d, d))
+    for j in range(k):
+        a = rng.normal(size=(d, d))
+        covs[j] = 1e-3 * (a @ a.T / d + 0.5 * np.eye(d))
+    which = rng.integers(0, k, n)
+    if case == "degenerate":
+        which[which == k - 1] = 0
+        which[:2] = k - 1
+    z = rng.normal(size=(n, d))
+    u = ctrs[which] + np.einsum("nij,nj->ni", np.linalg.cholesky(covs)[which],
+                                z)
+    fit = {"ctrs": [], "axes": [], "ams": [], "logvols": []}
+    for j in range(k):
+        pts = u[which == j]
+        c = covs[j] if len(pts) <= d else np.cov(pts.T, bias=True) * 1.2
+        ax = np.linalg.cholesky(c)
+        fit["ctrs"].append(pts.mean(0) if len(pts) else ctrs[j])
+        fit["axes"].append(ax)
+        fit["ams"].append(np.linalg.inv(c))
+        fit["logvols"].append(np.log(np.diag(ax)).sum() + pref)
+    padded = pad_ellipsoids(*(np.asarray(fit[key]) for key in
+                              ("ctrs", "axes", "ams", "logvols")),
+                            min_pad=m)
+    if case == "overflow":
+        u[-1] = ctrs[k - 1] + 1e200
+    live = np.zeros((n, d + 6))
+    live[:, :d] = u
+    live[:, d:] = rng.uniform(size=(n, 6))
+    arrays = {key: torch.as_tensor(v, dtype=torch.bool if key == "mask"
+                                   else dtype, device="cuda")
+              for key, v in padded.items()}
+    if case != "no_expand":
+        arrays["expand"] = torch.tensor(1.1, dtype=dtype, device="cuda")
+    return torch.as_tensor(live, dtype=dtype, device="cuda"), arrays
+
+
+def refit_rel_err(a, b):
+    """The largest difference of ``a`` from ``b`` (both (m, ...)) in any
+    slot, over that slot's largest finite ``|b|`` (the difference itself
+    where there is none); 0 where both are equal (infinities too) or NaN,
+    inf where one is NaN or infinite and the other is not."""
+    a = a.double().reshape(a.shape[0], -1)
+    b = b.double().reshape(b.shape[0], -1)
+    same = (torch.isnan(a) & torch.isnan(b)) | (a == b)
+    diff = torch.where(same, 0.0, (a - b).abs())
+    diff = torch.where(torch.isnan(diff), math.inf, diff)
+    scale = torch.where(torch.isfinite(b), b.abs(), 0.0).amax(dim=1)
+    return float((diff.amax(dim=1) / torch.where(scale > 0, scale, 1.0))
+                 .max())
+
+
+def refit_bound(n, m, k, d, fsize, kernel):
+    """The least time of a refit kernel on these inputs, ms, and what
+    bounds it: the bytes it must move (each input read once, each output
+    written once) at 3.35 TB/s against the operations its ``k`` ellipsoids
+    and ``n`` points need at the card's float64 (or float32) rate."""
+    e = d * (d + 1) // 2
+    slot_bytes = m * ((d + 2 * d * d + 1) * fsize + 1)
+    if kernel == "refit_assign":
+        nbytes = n * d * fsize + m * (d + d * d) * fsize + m + n * 8
+        ops = n * k * (2 * d * d + 3 * d)
+    else:
+        # in: the points, their slots, the fit and expand; out: the fit
+        nbytes = n * d * fsize + n * 8 + 2 * slot_bytes + fsize + m
+        ops = n * (d + 3 * e + 2 * d * d + 3 * d) + k * (2 * d ** 3 +
+                                                         3 * d * d)
+    rate = FP64_FLOPS if fsize == 8 else FP32_FLOPS
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES, 1e3 * ops / rate
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else
+                                   "operations")
+
+
+def refit_case(name, n, k, m, d, dtype, case=None):
+    """The two refit kernels against the plain version on the same CUDA
+    tensors: each point's slot (equal wherever the plain version's two
+    smallest forms differ by more than ``REFIT_TIE``), then the fit
+    against the plain fit of the kernel's slots (within ``REFIT_RTOL`` on
+    every array, equal ``mask`` and slots re-fitted) and against the
+    whole plain refit; two launches and a captured replay equal bit for
+    bit."""
+    from dynesty_tpu_torch.ops import ellipsoid_refit as rr
+    live, arrays = refit_inputs(n, k, m, d, dtype, case)
+    u = live[:, :d]
+    rf = rr.EllipsoidRefit(n, m, d, dtype, "cuda")
+
+    def empty():
+        return {key: torch.empty_like(arrays[key])
+                for key in rr.REFIT_FIELDS}
+
+    out = empty()
+    rr.refit_assign(rf, u, arrays)
+    d2, idx_p = rr.refit_assign_plain(u, arrays["ctrs"], arrays["ams"],
+                                      arrays["mask"])
+    idx = rf.idx.clone()
+    srt = d2.sort(dim=1).values
+    decided = (srt[:, 1] - srt[:, 0] > REFIT_TIE * srt[:, 0].abs()) \
+        if m > 1 else torch.ones_like(idx, dtype=torch.bool)
+    rr.refit_fit(rf, u, arrays, out)
+    keep = rf.keep.clone()
+    ref, keep_p = rr.refit_fit_plain(u, idx, arrays, d, dtype,
+                                     with_keep=True)
+    whole = rr.ellipsoid_refit_plain(u, arrays, d, dtype)
+    # again, and captured then replayed: the same bits
+    again = empty()
+    rr.ellipsoid_refit(rf, u, arrays, again)
+    replayed = empty()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    n0 = [w.launches for w in rr.WRAPPERS]
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        rr.ellipsoid_refit(rf, u, arrays, replayed)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    for w, c in zip(rr.WRAPPERS, n0):
+        w.launches = c
+    same_bits = all(bool(_same_bits(x[key].cpu().numpy(),
+                                    out[key].cpu().numpy()).all())
+                    for x in (again, replayed) for key in REFIT_ARRAYS) and \
+        all(torch.equal(x["mask"], out["mask"]) for x in (again, replayed))
+    rec = {"name": name, "case": case, "n": n, "k": k, "m": m, "d": d,
+           "dtype": str(dtype).split(".")[-1],
+           "idx_equal": int((idx == idx_p).sum()),
+           "near_ties": int((~decided).sum()),
+           "idx_differ_decided": int(((idx != idx_p) & decided).sum()),
+           "idx_max_abs_err": int(((idx - idx_p).abs() * decided).max()),
+           "mask_equal": torch.equal(out["mask"], ref["mask"]),
+           "keep_equal": torch.equal(keep, keep_p),
+           "kept": int(keep.sum()),
+           "rel_err": {key: refit_rel_err(out[key], ref[key])
+                       for key in REFIT_ARRAYS},
+           "whole_rel_err": {key: refit_rel_err(out[key], whole[key])
+                             for key in REFIT_ARRAYS},
+           "max_abs_err": max(float(torch.nan_to_num(
+               (out[key] - ref[key]).abs(), nan=0.0).max())
+               for key in REFIT_ARRAYS),
+           "deterministic": same_bits}
+    rtol = REFIT_RTOL[dtype]
+    if rec["idx_differ_decided"] or not (
+            rec["mask_equal"] and rec["keep_equal"] and same_bits and
+            max(rec["rel_err"].values()) <= rtol and (
+                rec["idx_equal"] < n or
+                max(rec["whole_rel_err"].values()) <= rtol)):
+        raise RuntimeError(f"the refit kernels differ from the plain "
+                           f"version: {rec}")
+    if dtype == torch.float64 and case is None:
+        fs = 8
+        for kernel, fn, plain in (
+                ("refit_assign", lambda: rr.refit_assign(rf, u, arrays),
+                 lambda: rr.refit_assign_plain(u, arrays["ctrs"],
+                                               arrays["ams"],
+                                               arrays["mask"])),
+                ("refit_fit", lambda: rr.refit_fit(rf, u, arrays, out),
+                 lambda: rr.refit_fit_plain(u, idx, arrays, d, dtype))):
+            n0 = [w.launches for w in rr.WRAPPERS]
+            rec[f"{kernel}_ms"] = _time_ms(fn, 50)
+            rec[f"{kernel}_plain_ms"] = _time_ms(plain, 10)
+            for w, c in zip(rr.WRAPPERS, n0):
+                w.launches = c
+            rec[f"{kernel}_bound_ms"], rec[f"{kernel}_bound_by"] = \
+                refit_bound(n, m, k, d, fs, kernel)
+        n0 = [w.launches for w in rr.WRAPPERS]
+        rec["ms"] = _time_ms(lambda: rr.ellipsoid_refit(rf, u, arrays, out),
+                             50)
+        rec["plain_ms"] = _time_ms(
+            lambda: rr.ellipsoid_refit_plain(u, arrays, d, dtype), 10)
+        for w, c in zip(rr.WRAPPERS, n0):
+            w.launches = c
+        rec["call"] = lambda: rr.ellipsoid_refit(rf, u, arrays, out)
+    return rec
+
+
+def refit_phase(card):
+    """Phase 2i: the refit kernels against the plain version at the
+    drives' stacks and the edge stacks, float64 and float32; one line
+    each.  Returns the records (the float64 drive cases keep a ``call``
+    for phase 34's device times)."""
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        for name, n, k, m, d in REFIT_CASES:
+            cases.append(refit_case(name, n, k, m, d, dtype))
+        for case in REFIT_EDGES:
+            cases.append(refit_case(case, 200, 3, 8 if case == "empty_pad"
+                                    else 4, 3, dtype, case))
+    for rec in cases:
+        times = ""
+        if "ms" in rec:
+            times = (f"  per call: both kernels {rec['ms']:.4f} ms events, "
+                     f"plain {rec['plain_ms']:.4f} ms; refit_assign "
+                     f"{rec['refit_assign_ms']:.4f} ms (plain "
+                     f"{rec['refit_assign_plain_ms']:.4f}, bound "
+                     f"{rec['refit_assign_bound_ms']:.6f} ms "
+                     f"{rec['refit_assign_bound_by']}), refit_fit "
+                     f"{rec['refit_fit_ms']:.4f} ms (plain "
+                     f"{rec['refit_fit_plain_ms']:.4f}, bound "
+                     f"{rec['refit_fit_bound_ms']:.6f} ms "
+                     f"{rec['refit_fit_bound_by']})")
+        print(f"ellipsoid refit {rec['name']} ({rec['n']} points, "
+              f"{rec['k']} ellipsoids in {rec['m']} slots, d {rec['d']}) "
+              f"{rec['dtype']}: slots equal {rec['idx_equal']}/{rec['n']} "
+              f"(near ties {rec['near_ties']}, decided and different "
+              f"{rec['idx_differ_decided']}), mask equal "
+              f"{rec['mask_equal']}, re-fitted slots equal "
+              f"{rec['keep_equal']} ({rec['kept']} kept), max relative "
+              f"error {max(rec['rel_err'].values()):.3e} "
+              f"{json.dumps(rec['rel_err'])} (whole plain refit "
+              f"{max(rec['whole_rel_err'].values()):.3e}), max_abs_err "
+              f"{rec['max_abs_err']:.3e}, two launches and a replay the "
+              f"same bits {rec['deterministic']}{times}  [{card}]")
     return cases
 
 
@@ -4955,6 +5278,10 @@ def partial_capture_phase(dyt):
 
 
 STAY = ("niter", "ncall", "logz", "logzerr")
+# what may move on a drive whose rounds re-fit an ellipsoid stack on the
+# card: the refit kernels sum in other orders than the eager refit's
+# cuBLAS and cuSOLVER calls, so the bound and the points move by rounding
+REFIT_MOVES = ("logz", "logzerr")
 
 
 def record_drives(rec):
@@ -4969,7 +5296,10 @@ def compare_records(parent, change, moving):
     card type) drive by drive: for every drive of the parent, ``niter``,
     ``ncall``, ``logz`` and ``logzerr`` (exactly: the runs are
     deterministic on one kind of card) and every integer count in its
-    ``timings`` and ``launches``.  Counts named in ``moving`` may differ.
+    ``timings`` and ``launches``.  Counts named in ``moving`` may differ,
+    and so may ``REFIT_MOVES`` on a drive whose rounds re-fit an
+    ellipsoid stack on the card (``launches.refit_rounds`` in the
+    change's record).
     Returns (fields compared, {drive: {field: (parent, change)}} of the
     fields that must stay, the same of the moving ones)."""
     n, bad, moved = 0, {}, {}
@@ -4978,6 +5308,7 @@ def compare_records(parent, change, moving):
         if c is None:
             bad[name] = {"drive": ("present", "absent")}
             continue
+        refits = c.get("launches", {}).get("refit_rounds", 0) > 0
         pairs = [(k, p[k], c.get(k)) for k in STAY if k in p]
         for group in ("timings", "launches"):
             for k, v in p.get(group, {}).items():
@@ -4987,7 +5318,8 @@ def compare_records(parent, change, moving):
         for k, a, b in pairs:
             n += 1
             if a != b:
-                out = moved if k.split(".")[-1] in moving else bad
+                out = moved if k.split(".")[-1] in moving or (
+                    refits and k in REFIT_MOVES) else bad
                 out.setdefault(name, {})[k] = (a, b)
     return n, bad, moved
 
@@ -5056,6 +5388,8 @@ def main():
     # every captured graph keeps its nodes: phase 34 reads a replay's
     # kernels from them (check_replay_kernels)
     tk._RoundGraph.keep_nodes = True
+    from dynesty_tpu_torch.internal import fused as tf
+    tf.RoundGraphs.keep_nodes = True
     card = _card()
     kind = torch.cuda.get_device_name(0)
     print(card)
@@ -5068,7 +5402,8 @@ def main():
     # one nvcc for each, all started together
     t0 = time.perf_counter()
     libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step",
-            "unif_wave", "slice_doubling", "round_assemble")
+            "unif_wave", "slice_doubling", "round_assemble",
+            "ellipsoid_refit")
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
@@ -5124,6 +5459,10 @@ def main():
     # phase 2h: the round's record and live assembly against its plain
     # version
     assemble_cases = round_assemble_phase(card)
+
+    # phase 2i: the ellipsoid refit of a chained unif round against its
+    # plain version
+    refit_cases = refit_phase(card)
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -5198,6 +5537,13 @@ def main():
                        g.kind == "ellipsoids" and g.graph is not None), None)
     if heavy_wave is None:
         raise RuntimeError("the heavy drive captured no ellipsoid wave")
+    # and a captured prologue of one of its ellipsoid rounds (the refit)
+    heavy_round = next((g for g in reversed(_ROUND_GRAPHS) if
+                        g.prologue is not None and
+                        getattr(g.entry, "kind", None) == "ellipsoids"),
+                       None)
+    if heavy_round is None:
+        raise RuntimeError("the heavy drive captured no ellipsoid round")
     _print_unif_drive(f"heavy multi/unif nlive={H_NLIVE} (width {H_WIDTH}, "
                       f"depth {H_LAYERS})", heavy, card)
     report_profile(prof, heavy)
@@ -5514,6 +5860,40 @@ def main():
           f"{1e3 * main_asm['ms']:.2f} us  bound "
           f"{1e3 * main_asm['bound_ms']:.5f} us  launch floor "
           f"{floor['device_us']:.3f} us  [{card}]")
+    for rec in refit_cases:
+        call = rec.pop("call", None)
+        if call is None:
+            continue
+        rec["device_ms"] = _device_ms(call, only="refit_")
+        for kernel in REFIT_KERNELS:
+            rec[f"{kernel}_device_ms"] = _device_ms(call, only=kernel)
+        print(f"ellipsoid refit {rec['name']} ({rec['n']}, {rec['m']} slots, "
+              f"d {rec['d']}) float64 device only: both kernels "
+              f"{1e3 * rec['device_ms']:.3f} us (refit_assign "
+              f"{1e3 * rec['refit_assign_device_ms']:.3f}, refit_fit "
+              f"{1e3 * rec['refit_fit_device_ms']:.3f})  events "
+              f"{1e3 * rec['ms']:.2f} us  plain {1e3 * rec['plain_ms']:.1f} "
+              f"us  bound {1e3 * rec['refit_assign_bound_ms']:.5f} + "
+              f"{1e3 * rec['refit_fit_bound_ms']:.5f} us  launch floor "
+              f"{floor['device_us']:.3f} us  [{card}]")
+    # the refit inside heavy's captured round prologue: each kernel in as
+    # many of the prologue's nodes as its capture counted, once
+    pro_nodes = _graph_nodes(heavy_round.prologue)
+    heavy["prologue_kernels"] = check_replay_kernels(
+        (None, [(w, n) for w, k, n in heavy_round.counted["prologue"]
+                if k == "launches"]),
+        heavy_round.prologue, "heavy's captured round prologue", pro_nodes)
+    if heavy["prologue_kernels"] != dict.fromkeys(REFIT_KERNELS, 1):
+        raise RuntimeError(f"heavy's captured round prologue launches "
+                           f"{heavy['prologue_kernels']} of the refit")
+    heavy["prologue_replay_device_ms"] = _device_ms(
+        heavy_round.prologue.replay, 5)
+    print(f"heavy's captured round prologue "
+          f"{tuple(heavy_round.entry.rb.arrays['ctrs'].shape)} float64 "
+          f"device only: {1e3 * heavy['prologue_replay_device_ms']:.3f} us "
+          f"(the round gate, the threshold's sort, the refit, the wave's "
+          f"start); hand-written kernels a replay (graph nodes) "
+          f"{heavy['prologue_kernels']}  [{card}]")
     parent = parent_times(args.parent, card) if args.parent else None
     cu = captured_unif["timing"]
     cu["replay_device_us"] = 1e3 * _device_ms(unif_timed.graph.replay)
@@ -5665,6 +6045,60 @@ def main():
     if set(doubling_by_drive) != {"doubling", "doubling-balls"}:
         raise RuntimeError(f"the doubling round ran on other drives than "
                            f"the doubling drives: {list(doubling_by_drive)}")
+
+    refit_by_drive = {name: {k: d["launches"][k] for k in REFIT_KERNELS +
+                             ("refit_rounds",)}
+                      for name, d in drives.items()
+                      if d["launches"]["refit_rounds"]}
+    print(json.dumps({"refit_launches_by_drive": refit_by_drive,
+                      "card": card}))
+    absent = [k for k in ("heavy", "eggbox") if k not in refit_by_drive]
+    if absent:
+        raise RuntimeError(f"drives that re-fit no ellipsoid stack: {absent}")
+
+    def refit_entry(name):
+        """A refit kernel's line: the heavy drive's stack (3000 points,
+        one slot, d 3) in float64, the largest difference over every
+        float64 case."""
+        rec = next(c for c in refit_cases if c["name"] == "heavy" and
+                   c["dtype"] == "float64")
+        f64 = [c for c in refit_cases if c["dtype"] == "float64"]
+        by_drive = {k: c[name] for k, c in refit_by_drive.items()}
+        return {"name": name, "route": "cuda", "source": REFIT_SOURCE,
+                "replaces": REFIT_REPLACES,
+                "replaces_also": ["dynesty_tpu/internal/samplers.py:495"],
+                "launches": sum(by_drive.values()),
+                "launches_by_drive": by_drive,
+                "launches_note": "one launch a chained ellipsoid round, in "
+                                 "its prologue (a replay counts what its "
+                                 "capture did)",
+                "max_abs_err": max(c["idx_max_abs_err"] for c in f64)
+                if name == "refit_assign" else
+                max(c["max_abs_err"] for c in f64),
+                "max_rel_err": None if name == "refit_assign" else
+                max(max(c["rel_err"].values()) for c in f64),
+                "tolerance": "equal slots where the two smallest forms "
+                             f"differ by more than {REFIT_TIE:g} relative"
+                             if name == "refit_assign" else
+                             f"{REFIT_RTOL[torch.float64]:g} relative to "
+                             f"the slot's largest entry (float64), "
+                             f"{REFIT_RTOL[torch.float32]:g} (float32); "
+                             "equal mask and re-fitted slots",
+                "ms": rec[f"{name}_ms"], "plain_ms": rec[f"{name}_plain_ms"],
+                "bound_ms": rec[f"{name}_bound_ms"],
+                "bound_by": rec[f"{name}_bound_by"], "library_ms": None,
+                "library_note": "no one PyTorch call computes this step",
+                "shape": [rec["n"], rec["m"], rec["d"]], "dtype": "float64",
+                "device_ms": rec[f"{name}_device_ms"],
+                "launch_floor_ms": floor["device_us"] / 1e3,
+                "cases": [{k: c.get(k) for k in (
+                    "name", "case", "n", "k", "m", "d", "dtype", "rel_err",
+                    "near_ties", "idx_differ_decided", "kept",
+                    f"{name}_ms", f"{name}_plain_ms", f"{name}_device_ms",
+                    f"{name}_bound_ms", f"{name}_bound_by")}
+                    for c in refit_cases],
+                **({"parent_bench": parent_of("ellipsoid_refit")}
+                   if parent else {})}
 
     def doubling_entry(name):
         """A doubling kernel's line: (256, 3) in float64 without a mask,
@@ -5857,7 +6291,7 @@ def main():
     ] + [step_entry(name) for name in STEP_KERNELS] +
         [unif_entry(name) for name in UNIF_KERNELS] +
         [doubling_entry(name) for name in DOUBLING_KERNELS] +
-        [assemble_entry]}
+        [assemble_entry] + [refit_entry(name) for name in REFIT_KERNELS]}
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "compare": compares,
               "main": main, "cubes": cubes, "refit": refit,
@@ -5895,6 +6329,8 @@ def main():
               "round_assemble": assemble_cases,
               "captured_round": captured_round,
               "round_by_drive": round_by_drive,
+              "ellipsoid_refit": refit_cases,
+              "refit_by_drive": refit_by_drive,
               "proposal_steps_by_drive": steps_by_drive,
               "build_seconds": {k: build.build_log[k]["seconds"]
                                 for k in libs}}

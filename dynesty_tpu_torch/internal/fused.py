@@ -15,7 +15,8 @@ under its ``lax.cond`` gate, ``:629``):
   chain-stop flags), the batch threshold or the queue minimum, and the
   proposal's start (:meth:`Proposer.begin`: ``select_starts``, the start
   rows packed into the proposal loop's buffers, their blobs, the draws
-  the loop starts from), all device work;
+  the loop starts from; a uniform round's ellipsoid refit,
+  ``ops.ellipsoid_refit``, into its wave's buffers), all device work;
 * the proposal loop (:meth:`Proposer.loop`), from the host, whose first
   flag read also reports the gate (the walk reads the gate on its own);
 * the epilogue: the proposals packed, the consume scan
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from ..ops import consume as _consume
+from ..ops import ellipsoid_refit as _refit
 from ..ops.consume import (STATE_KEYS, assemble_buffers, consume_round,
                            device_limits, round_assemble)
 from ..utils.convert import integ_from_vector
@@ -193,11 +195,18 @@ class RoundGraphs:
     error).  ``P`` holds the captured prologue's outputs, which the
     epilogue reads."""
 
+    # True (set before the captures) to keep each captured graph's nodes,
+    # for ``graph.debug_dump`` (``chip_smoke.py`` reads a prologue's
+    # kernels there)
+    keep_nodes = False
+
     def __init__(self, owner, entry, device, capturable):
         self.owner, self.entry = owner, entry
         self.capturable = capturable
         self.warm = False
         self.prologue = self.epilogue = self.P = None
+        # what each part's capture counted: (wrapper, attribute, count)
+        self.counted = {"prologue": [], "epilogue": []}
         self.stream = torch.cuda.Stream(device) if capturable else None
         self.gen = torch.Generator(device=device) if capturable else None
 
@@ -215,10 +224,19 @@ class RoundGraphs:
         """Capture ``prologue(gen)`` and ``epilogue(P)`` (``P`` what the
         captured prologue returns); True when both were.  A capture runs
         nothing, so what it counted (the ``counted`` wrappers'
-        ``launches`` and ``calls``) is put back."""
+        ``launches`` and ``calls``) is put back, and kept, part by part, as
+        what each replay adds (:meth:`count_replay`)."""
         main = torch.cuda.current_stream(self.stream.device)
-        saved = [(w, dict(w.__dict__)) for w in counted]
-        pro, epi = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+
+        def snapshot():
+            return [(w, k, getattr(w, k)) for w in counted
+                    for k in ("launches", "calls") if hasattr(w, k)]
+
+        saved = snapshot()
+        pro, epi = (torch.cuda.CUDAGraph(keep_graph=self.keep_nodes)
+                    for _ in range(2))
+        if self.keep_nodes:
+            pro.enable_debug_mode()
         self.stream.wait_stream(main)
         try:
             pro.register_generator_state(self.gen)
@@ -228,11 +246,15 @@ class RoundGraphs:
                     P = prologue(self.gen)
                 finally:
                     pro.capture_end()
+                mid = snapshot()
                 epi.capture_begin(capture_error_mode="thread_local")
                 try:
                     epilogue(P)
                 finally:
                     epi.capture_end()
+            if self.keep_nodes:
+                pro.instantiate()
+                epi.instantiate()
         except Exception as err:  # noqa: BLE001 - reported, then eager
             self.capturable = False
             release_default_generator(self.stream.device)
@@ -242,13 +264,23 @@ class RoundGraphs:
                 f"rounds of shape {shape} run eagerly", RuntimeWarning)
             return False
         finally:
-            for w, d in saved:
-                for k in ("launches", "calls"):
-                    if k in d:
-                        setattr(w, k, d[k])
+            end = snapshot()
+            for w, k, n in saved:
+                setattr(w, k, n)
             main.wait_stream(self.stream)
         self.prologue, self.epilogue, self.P = pro, epi, P
+        for part, (a, b) in (("prologue", (saved, mid)),
+                             ("epilogue", (mid, end))):
+            self.counted[part] = [(w, k, n1 - n0) for (w, k, n0), (_, _, n1)
+                                  in zip(a, b) if n1 != n0]
         return True
+
+    def count_replay(self, part):
+        """Count one replay of ``part`` (``"prologue"`` or
+        ``"epilogue"``): what its capture counted, which the replay ran
+        without Python."""
+        for w, k, n in self.counted[part]:
+            setattr(w, k, getattr(w, k) + n)
 
     def replay_prologue(self, gen):
         """The prologue by replay, drawing from ``gen``'s stream where the
@@ -331,7 +363,8 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
     # the wrappers whose counts a capture puts back and a replay adds to
     # (the wrappers themselves: a caller may swap the names this module
     # calls for its own spies)
-    counted = (_consume.consume_round, _consume.round_assemble)
+    counted = (_consume.consume_round, _consume.round_assemble,
+               _refit.refit_assign, _refit.refit_fit)
 
     def count(key, n=1):
         if timings is not None:
@@ -491,6 +524,7 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         replay = g.capturable and g.prologue is not None
         if replay:
             P = g.replay_prologue(gen)
+            g.count_replay("prologue")
         elif g.capturable:
             P = g.on_side_stream(lambda: prologue(S, gen))
         else:
@@ -508,10 +542,7 @@ def make_fused_round(propose_fn, *, nlive, ndim, npdim, q, dtype, device,
         count("n_round")
         if replay:
             g.replay_epilogue()
-            # the replay ran the kernels without Python
-            counted[0].calls += 1
-            for w in counted:
-                w.launches += 1
+            g.count_replay("epilogue")
             count("n_round_replay")
         elif g.capturable:
             g.on_side_stream(lambda: epilogue(S, P))

@@ -43,6 +43,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..ops.ellipsoid_refit import (REFIT_FIELDS, EllipsoidRefit,
+                                   ellipsoid_refit, ellipsoid_refit_plain)
 from ..ops.geometry import randsphere_batch
 from ..ops.proposals import (P_START_L, P_START_R, S_CANDIDATE, S_RESOLVE,
                              UNIF_ARRAYS, UNIF_FORMS,
@@ -223,71 +225,25 @@ def make_ellipsoid_refit(ncdim, dtype=torch.float64):
     factor).  A slot with fewer than ``ncdim + 1`` members, or whose
     Cholesky factorization fails, keeps its previous fit.
 
-    Returns ``refit(u_live, arrays) -> arrays`` (the same padded
-    schema)."""
-    d = ncdim
-    eps_contain = 1e-3
-    # d-ball log-volume prefactor: device log-volumes on the host fit's
-    # scale (the two mix when a slot keeps its previous fit)
-    logvol_pref = (d / 2.0) * math.log(math.pi) - math.lgamma(d / 2.0 + 1.0)
+    Returns ``refit(u_live, arrays) -> arrays`` (the same padded schema):
+    on the CPU :func:`~dynesty_tpu_torch.ops.ellipsoid_refit.
+    ellipsoid_refit_plain`, on the card the two kernels of
+    ``csrc/ellipsoid_refit.cu`` into new tensors.  A fused round runs the
+    refit inside its prologue instead, into the wave's buffers
+    (``_UnifProposer.begin``)."""
 
     def refit(u, arrays):
-        ctrs0 = arrays["ctrs"].to(dtype)
-        axes0 = arrays["axes"].to(dtype)
-        ams0 = arrays["ams"].to(dtype)
-        logvols0 = arrays["logvols"].to(dtype)
-        mask = arrays["mask"]
-        expand = arrays.get("expand")
-        expand = 1.0 if expand is None else expand.to(dtype)
-        m = ctrs0.shape[0]
-        u = u.to(dtype)
-
-        diff = u[:, None, :] - ctrs0[None, :, :]
-        d2 = torch.einsum("nmi,mij,nmj->nm", diff, ams0, diff)
-        d2 = torch.where(mask[None, :], d2, math.inf)
-        idx = torch.argmin(d2, dim=1)
-        onehot = torch.nn.functional.one_hot(idx, m).to(dtype)
-        counts = onehot.sum(dim=0)
-        safe = counts.clamp_min(1.0)
-        ctr = (onehot.T @ u) / safe[:, None]
-        cent = u[:, None, :] - ctr[None, :, :]
-        cov = torch.einsum("nm,nmi,nmj->mij", onehot, cent,
-                           cent) / safe[:, None, None]
-        # conditioning floor keeps degenerate clusters factorizable
-        tr = torch.diagonal(cov, dim1=1, dim2=2).sum(dim=1) / d
-        eye = torch.eye(d, dtype=dtype, device=u.device)
-        cov = cov + (1e-10 * tr.clamp_min(1e-30))[:, None, None] * eye
-        # cholesky_ex reports a failed factorization in `info` instead of
-        # raising (jnp.linalg.cholesky returns NaN there)
-        chol, info = torch.linalg.cholesky_ex(cov)
-        ok = (info == 0) & torch.isfinite(chol.reshape(m, -1)).all(dim=1) \
-            & (counts >= d + 1)
-        chol_safe = torch.where(ok[:, None, None], chol, eye[None])
-        linv = torch.linalg.solve_triangular(
-            chol_safe, eye.expand(m, d, d), upper=False)
-        am = torch.einsum("mki,mkj->mij", linv, linv)  # cov^-1
-
-        # inflate to contain every member, then the host's calibration
-        dd = u - ctr[idx]
-        d2o = torch.einsum("ni,nij,nj->n", dd, am[idx], dd)
-        fmax = torch.zeros((m,), dtype=dtype, device=u.device).scatter_reduce(
-            0, idx, d2o, reduce="amax", include_self=True)
-        f = torch.sqrt(fmax.clamp_min(1e-30) / (1.0 - eps_contain)) * expand
-        axes = chol_safe * f[:, None, None]
-        am = am / (f ** 2)[:, None, None]
-        logvol = torch.log(torch.diagonal(chol_safe, dim1=1, dim2=2)
-                           .abs()).sum(dim=1) + d * torch.log(f) + \
-            logvol_pref
-
-        keep = mask & ok
-        k1, k3 = keep[:, None], keep[:, None, None]
-        return {
-            "ctrs": torch.where(k1, ctr, ctrs0),
-            "axes": torch.where(k3, axes, axes0),
-            "ams": torch.where(k3, am, ams0),
-            "logvols": torch.where(keep, logvol, logvols0),
-            "mask": mask,
-        }
+        if u.device.type != "cuda":
+            return ellipsoid_refit_plain(u, arrays, ncdim, dtype)
+        arrays = {k: (v if v.dtype == torch.bool else v.to(dtype))
+                  .contiguous() for k, v in arrays.items()
+                  if k in REFIT_FIELDS + ("expand",)}
+        u = u.to(dtype).contiguous()
+        rf = EllipsoidRefit(u.shape[0], arrays["ctrs"].shape[0], ncdim,
+                            dtype, u.device)
+        out = {k: torch.empty_like(arrays[k]) for k in REFIT_FIELDS}
+        ellipsoid_refit(rf, u, arrays, out)
+        return out
 
     return refit
 
@@ -346,14 +302,16 @@ class UnifRoundFn:
             np.asarray(nonbounded, dtype=bool)[:ncdim], "cpu")
         self.entry = None
 
-    def prepare(self, arrays):
+    def prepare(self, arrays, load=True):
         """The wave shape of ``arrays`` (its :class:`UnifGraph`, kept as
-        ``entry`` and returned), with the arrays copied into its
-        buffers."""
+        ``entry`` and returned), with the arrays copied into its buffers
+        where ``load`` (False: the round's start fills them, as a fused
+        round's ellipsoid refit does)."""
         self.entry = unif_graph(self.rounds, self.like, self.kind, self.q,
                                 self.ndim, self.ncdim, self.dtype,
                                 self.device, self.nb, arrays)
-        self.entry.rb.load_arrays(arrays)
+        if load:
+            self.entry.rb.load_arrays(arrays)
         return self.entry
 
     def begin(self, loglstar, gate=None):

@@ -17,10 +17,10 @@ import warnings
 import numpy as np
 import torch
 
+from ..ops.ellipsoid_refit import ellipsoid_refit, refit_buffers
 from ..utils.misc import blob_row, tree_map
 from .fused import Proposer, make_fused_round, select_starts, unpack_flat
-from .kernels import (make_ellipsoid_refit, make_rwalk_round,
-                      make_slice_round, make_unif_round)
+from .kernels import make_rwalk_round, make_slice_round, make_unif_round
 
 __all__ = ["InternalSampler", "UnitCubeSampler", "UniformBoundSampler",
            "RWalkSampler", "SliceSampler", "RSliceSampler",
@@ -383,8 +383,11 @@ class _StartsProposer(Proposer):
 class _UnifProposer(Proposer):
     """The proposals of a uniform round (``inner``, a
     :class:`~.kernels.UnifRoundFn`) drawn from the dispatch's bound, or,
-    for an ellipsoid stack, from the stack re-fitted to the live points
-    (``refit``, run eagerly before the round's prologue)."""
+    for an ellipsoid stack (``refit``), from the stack re-fitted to the
+    live points, every round from the dispatch's fit, by the round's
+    prologue (:func:`~dynesty_tpu_torch.ops.ellipsoid_refit.
+    ellipsoid_refit`: on the card two kernels that the prologue's capture
+    records, writing straight into the wave's buffers)."""
 
     capturable = True
     gate_read = True
@@ -392,14 +395,25 @@ class _UnifProposer(Proposer):
     def __init__(self, inner, ns, refit, ncdim):
         self.inner, self.refit, self.ncdim = inner, refit, ncdim
         self.il = inner.ndim + ns.loglikelihood.npdim
+        # the refit's scratch by shape, kept as long as the rounds whose
+        # captured prologues hold its addresses
+        self._refits = {}
+        self.rf = None
 
     def prepare(self, live, axes_args):
-        if self.refit is not None:
-            axes_args = dict(axes_args, **self.refit(live[:, :self.ncdim],
-                                                     axes_args))
-        return self.inner.prepare(axes_args)
+        # the refit keeps the arrays' shapes: the wave shape is the
+        # dispatch's, and the prologue fills its buffers
+        entry = self.inner.prepare(axes_args, load=not self.refit)
+        if self.refit:
+            self.rf = refit_buffers(self._refits, live.shape[0], entry.rb.m,
+                                    self.ncdim, self.inner.dtype,
+                                    self.inner.device)
+        return entry
 
     def begin(self, gen, live, live_blob, axes_args, scale, loglstar, gate):
+        if self.refit:
+            ellipsoid_refit(self.rf, live[:, :self.ncdim], axes_args,
+                            self.inner.entry.rb.arrays)
         self.inner.begin(loglstar, gate)
 
     def loop(self, gen):
@@ -460,7 +474,7 @@ def _warn_unif_inefficiency(n_prop, q):
 
 def _unif_propose_fn(sampler, ns, bound_kind):
     """The propose function of the uniform kernels.  Ellipsoid stacks are
-    re-fitted to the live points before every chained round."""
+    re-fitted to the live points in every chained round's prologue."""
     like = ns.loglikelihood
     ndim, q = sampler.ndim, ns.queue_size
     il = ndim + like.npdim
@@ -481,9 +495,7 @@ def _unif_propose_fn(sampler, ns, bound_kind):
                             rounds=sampler._slice_cache(),
                             host_sampler=host_sampler
                             if bound_kind == "custom" else None)
-    refit = make_ellipsoid_refit(ncdim, dtype=ns.dtype) \
-        if bound_kind == "ellipsoids" else None
-    return _UnifProposer(inner, ns, refit, ncdim)
+    return _UnifProposer(inner, ns, bound_kind == "ellipsoids", ncdim)
 
 
 class UnitCubeSampler(InternalSampler):
