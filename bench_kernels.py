@@ -37,15 +37,20 @@ kernels' cases to ``GROUPS``.  The groups:
   subtraction and einsum, the kernel and the clamp);
 * ``replays``: the five captured doubling segments' replays (rslice at
   (256, 3)) and the captured waves' (cube, three ellipsoids);
-* ``refit``: the ellipsoid refit of a chained unif round at the heavy
-  drive's and the eggbox's stacks and at 3000 points in three
-  ellipsoids (phase 2i's inputs, float64) through
-  ``make_ellipsoid_refit``, which every version has (before the refit
-  kernels, the eager torch refit that ran between two rounds' prologues:
-  its span; since, the two kernels into new tensors), device only, by
-  events and by the host clock with the wait; and, where the checkout
-  has the kernels, the two on buffers made once, as a round's prologue
-  launches them (``kernels_*``).
+* ``refit``: the ellipsoid refit of a chained unif round at every
+  phase-2i stack (the eggbox's, the heavy drive's, 3000 points in three
+  ellipsoids, 15 dimensions, 16384 points in 20 ellipsoids, and past
+  ``refit_fit``'s shared-memory ceiling 16384 members of one slot and 40
+  dimensions; float64) through ``make_ellipsoid_refit``, which every
+  version has (before the refit kernels, the eager torch refit that ran
+  between two rounds' prologues: its span; since, the two kernels into
+  new tensors), device only, by events and by the host clock with the
+  wait; and, where the checkout has the kernels, the two on buffers made
+  once, as a round's prologue launches them (``kernels_*``), with the
+  sha256 of their outputs' bytes (``digest``); then that digest alone at
+  every phase-2i stack and edge stack in float64 and float32 on the
+  inputs of ``REFIT_SEEDS`` (``ellipsoid_refit_bits``):
+  ``chip_smoke.py --parent`` reports where two versions' bits differ.
 
 ``--generic-rows`` also times ``unif_valid`` built with its generic row
 loop at every width (``-DUNIF_VALID_ROW_REGISTERS=0``) against the
@@ -57,6 +62,7 @@ exits non-zero without CUDA.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -66,6 +72,8 @@ import sys
 import time
 
 ITERS = 50
+# the seeds of the refit's inputs whose outputs' bits two versions compare
+REFIT_SEEDS = (56432, 1, 2)
 # the generic-row build's flag (csrc/unif_wave.cu)
 GENERIC_ROWS = "#define UNIF_VALID_ROW_REGISTERS 0\n"
 
@@ -417,18 +425,27 @@ def replay_times(cm, torch):
     return recs
 
 
+def refit_digest(torch, rr, rf, out):
+    """The sha256 of the refit's outputs' bytes: each point's slot, the
+    slots re-fitted and the wave's arrays."""
+    h = hashlib.sha256()
+    for t in (rf.idx, rf.keep) + tuple(out[k] for k in rr.REFIT_FIELDS):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def refit_times(cm, torch):
-    """The ellipsoid refit at the heavy drive's, the eggbox's and a
-    three-ellipsoid stack in float64: ``make_ellipsoid_refit``'s function
-    (the span), and the two
-    kernels on buffers made once where the checkout has them."""
+    """The ellipsoid refit at every phase-2i stack in float64:
+    ``make_ellipsoid_refit``'s function (the span), and the two kernels
+    on buffers made once where the checkout has them, with the digest of
+    their outputs; then the digests alone at every phase-2i stack and
+    edge stack, float64 and float32, on the inputs of ``REFIT_SEEDS``
+    (``ellipsoid_refit_bits``), which two versions' runs compare."""
     import importlib.util as iu
     from dynesty_tpu_torch.internal.kernels import make_ellipsoid_refit
     has_kernels = iu.find_spec("dynesty_tpu_torch.ops.ellipsoid_refit")
     recs = []
     for name, n, k, m, d in cm.REFIT_CASES:
-        if name not in ("heavy", "multi", "eggbox"):
-            continue
         live, arrays = cm.refit_inputs(n, k, m, d)
         u = live[:, :d]
         refit = make_ellipsoid_refit(d)
@@ -454,6 +471,8 @@ def refit_times(cm, torch):
             def kernels():
                 rr.ellipsoid_refit(rf, u, arrays, out)
 
+            kernels()
+            rec["digest"] = refit_digest(torch, rr, rf, out)
             rec.update({
                 "kernels_device_us": 1e3 * cm._device_ms(kernels, ITERS),
                 "kernels_events_us": 1e3 * cm._time_ms(kernels, 200)})
@@ -461,6 +480,27 @@ def refit_times(cm, torch):
                 rec[f"{kernel}_device_us"] = 1e3 * cm._device_ms(
                     kernels, ITERS, only=kernel)
         recs.append(rec)
+    if not has_kernels:
+        return recs
+    from dynesty_tpu_torch.ops import ellipsoid_refit as rr
+    stacks = [(name, n, k, m, d, None) for name, n, k, m, d in
+              cm.REFIT_CASES] + \
+        [(case, 200, 3, 8 if case == "empty_pad" else 4, 3, case)
+         for case in cm.REFIT_EDGES]
+    for name, n, k, m, d, case in stacks:
+        for dtype in (torch.float64, torch.float32):
+            for seed in REFIT_SEEDS:
+                live, arrays = cm.refit_inputs(n, k, m, d, dtype, case,
+                                               seed)
+                rf = rr.EllipsoidRefit(n, m, d, dtype, "cuda")
+                out = {key: torch.empty_like(arrays[key])
+                       for key in rr.REFIT_FIELDS}
+                rr.ellipsoid_refit(rf, live[:, :d], arrays, out)
+                recs.append({"kernel": "ellipsoid_refit_bits", "kind": name,
+                             "nlive": n, "m": m, "ndim": d,
+                             "dtype": str(dtype).split(".")[1],
+                             "seed": seed,
+                             "digest": refit_digest(torch, rr, rf, out)})
     return recs
 
 

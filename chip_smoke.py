@@ -117,16 +117,19 @@ Phases, in order; any failure raises and exits non-zero:
    (``csrc/ellipsoid_refit.cu``) against the plain version on the same
    CUDA tensors at the eggbox drive's stack (1000 points, 18 ellipsoids
    in 32 slots, d 2), the heavy drive's (3000, one ellipsoid, d 3), 3000
-   points in 3 ellipsoids in 4 slots, a 15-D stack and 16384 points, and
+   points in 3 ellipsoids in 4 slots, a 15-D stack, 16384 points, and two
+   stacks past ``refit_fit``'s shared-memory ceiling (16384 members of
+   one slot, d 3; 2000 points in 2 ellipsoids in 4 slots, d 40: their
+   members summed in stages), and
    on a slot of too few members, a covariance that
    overflows, padding slots with no member and no ``expand``, float64
    and float32: each point's slot equal wherever the plain version's two
    smallest forms differ by more than 1e-12 relative, the fit within
    1e-10 (float64) or 1e-4 (float32) of the plain fit of the same slots,
    relative to each slot's largest entry, equal ``mask`` and re-fitted
-   slots, two launches and a captured replay the same bits; the maximum
-   relative error, the kernels' and the plain version's time per call
-   and the bound.
+   slots, two launches and a captured replay the same bits; the kernels'
+   layout (members staged at a time), the maximum relative error, the
+   kernels' and the plain version's time per call and the bound.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -277,7 +280,8 @@ Phases, in order; any failure raises and exits non-zero:
     and of one of the heavy drive's ellipsoid waves, of the four doubling
     kernels at (256, 3) (each in each of its modes) and of
     each replayed doubling segment, of the two refit kernels at phase
-    2i's four stacks and of one replay of a heavy round's captured
+    2i's seven stacks (each beside its byte or operation bound and the
+    launch floor) and of one replay of a heavy round's captured
     prologue, and of one 256-lane evaluation of the heavy likelihood.
     The cube wave's, one heavy ellipsoid wave's, that prologue's and
     every doubling segment's kernels are read from the captured graph's
@@ -3162,7 +3166,7 @@ def _bench_case(c):
     """A ``bench_kernels.py`` record's case, for the side-by-side line."""
     what = c["kernel"]
     for k in ("kind", "mode", "path", "m", "nlive", "q", "ndim", "ncdim",
-              "dtype"):
+              "dtype", "seed"):
         if c.get(k) is not None:
             what += f" {k} {c[k]}"
     return what
@@ -3188,12 +3192,29 @@ def parent_times(root, card):
     for cases in zip(*runs["parent"], *runs["change"]):
         p1, p2, c1, c2 = cases
         keys = [k for k in p1 if k.endswith("_us")]
+        if not keys:
+            continue
         cols = "  ".join(
             f"{k[:-3]} {c1[k]:.3f}, {c2[k]:.3f} / {p1[k]:.3f}, {p2[k]:.3f}"
             for k in keys)
         print(f"{_bench_case(p1)}: us, change / parent (runs in turns): "
               f"{cols}  [{card}]")
-    return {k: v[0] for k, v in runs.items()}
+    # the outputs' bits, case by case (each version's two runs too)
+    bits = {"compared": 0, "equal": 0, "differ": [], "runs_differ": []}
+    for p1, p2, c1, c2 in zip(*runs["parent"], *runs["change"]):
+        if "digest" not in p1 or "digest" not in c1:
+            continue
+        bits["compared"] += 1
+        if p1["digest"] == c1["digest"]:
+            bits["equal"] += 1
+        else:
+            bits["differ"].append(_bench_case(p1))
+        if p1["digest"] != p2["digest"] or c1["digest"] != c2["digest"]:
+            bits["runs_differ"].append(_bench_case(p1))
+    print(f"output bits equal to the parent's: {bits['equal']}/"
+          f"{bits['compared']} cases; differ: {bits['differ']}; a version's "
+          f"two runs differ: {bits['runs_differ']}  [{card}]")
+    return {"bits": bits, **{k: v[0] for k, v in runs.items()}}
 
 
 def round_assemble_phase(card):
@@ -3230,10 +3251,13 @@ def round_assemble_phase(card):
 # the refit's cases: (name, live points, ellipsoids, padded slots,
 # dimensions): the eggbox drive's stack (18 modes in 32 slots), the heavy
 # drive's (3000 points, one ellipsoid), 3000 points in three ellipsoids, a
-# 15-D stack and the widest live set the tests reach
+# 15-D stack, the widest live set the tests reach, and two stacks past
+# refit_fit's shared-memory ceiling in float64 (16384 members of one
+# slot; about 1000 members a slot in 40 dimensions)
 REFIT_CASES = (("eggbox", 1000, 18, 32, 2), ("heavy", 3000, 1, 1, 3),
                ("multi", 3000, 3, 4, 3), ("d15", 1000, 5, 8, 15),
-               ("wide", 16384, 20, 32, 3))
+               ("wide", 16384, 20, 32, 3), ("ceiling", 16384, 1, 1, 3),
+               ("d40", 2000, 2, 4, 40))
 # the edge stacks at (200 points, 3 ellipsoids, 4 slots, 3 dimensions): a
 # slot of two members, a member whose covariance overflows, five padding
 # slots with no member (8 slots), and no expand
@@ -3401,7 +3425,8 @@ def refit_case(name, n, k, m, d, dtype, case=None):
            "max_abs_err": max(float(torch.nan_to_num(
                (out[key] - ref[key]).abs(), nan=0.0).max())
                for key in REFIT_ARRAYS),
-           "deterministic": same_bits}
+           "deterministic": same_bits,
+           "fit_layout": rf.fit_layout}
     rtol = REFIT_RTOL[dtype]
     if rec["idx_differ_decided"] or not (
             rec["mask_equal"] and rec["keep_equal"] and same_bits and
@@ -3462,9 +3487,13 @@ def refit_phase(card):
                      f"{rec['refit_fit_plain_ms']:.4f}, bound "
                      f"{rec['refit_fit_bound_ms']:.6f} ms "
                      f"{rec['refit_fit_bound_by']})")
+        lay = rec["fit_layout"]
+        staging = (f", members staged {lay['cap']} at a time "
+                   f"({'all' if lay['staged'] else 'past the ceiling'})")
         print(f"ellipsoid refit {rec['name']} ({rec['n']} points, "
               f"{rec['k']} ellipsoids in {rec['m']} slots, d {rec['d']}) "
-              f"{rec['dtype']}: slots equal {rec['idx_equal']}/{rec['n']} "
+              f"{rec['dtype']}{staging}: slots equal "
+              f"{rec['idx_equal']}/{rec['n']} "
               f"(near ties {rec['near_ties']}, decided and different "
               f"{rec['idx_differ_decided']}), mask equal "
               f"{rec['mask_equal']}, re-fitted slots equal "
@@ -5278,10 +5307,6 @@ def partial_capture_phase(dyt):
 
 
 STAY = ("niter", "ncall", "logz", "logzerr")
-# what may move on a drive whose rounds re-fit an ellipsoid stack on the
-# card: the refit kernels sum in other orders than the eager refit's
-# cuBLAS and cuSOLVER calls, so the bound and the points move by rounding
-REFIT_MOVES = ("logz", "logzerr")
 
 
 def record_drives(rec):
@@ -5296,10 +5321,8 @@ def compare_records(parent, change, moving):
     card type) drive by drive: for every drive of the parent, ``niter``,
     ``ncall``, ``logz`` and ``logzerr`` (exactly: the runs are
     deterministic on one kind of card) and every integer count in its
-    ``timings`` and ``launches``.  Counts named in ``moving`` may differ,
-    and so may ``REFIT_MOVES`` on a drive whose rounds re-fit an
-    ellipsoid stack on the card (``launches.refit_rounds`` in the
-    change's record).
+    ``timings`` and ``launches``.  Counts named in ``moving`` may
+    differ.
     Returns (fields compared, {drive: {field: (parent, change)}} of the
     fields that must stay, the same of the moving ones)."""
     n, bad, moved = 0, {}, {}
@@ -5308,7 +5331,6 @@ def compare_records(parent, change, moving):
         if c is None:
             bad[name] = {"drive": ("present", "absent")}
             continue
-        refits = c.get("launches", {}).get("refit_rounds", 0) > 0
         pairs = [(k, p[k], c.get(k)) for k in STAY if k in p]
         for group in ("timings", "launches"):
             for k, v in p.get(group, {}).items():
@@ -5318,8 +5340,7 @@ def compare_records(parent, change, moving):
         for k, a, b in pairs:
             n += 1
             if a != b:
-                out = moved if k.split(".")[-1] in moving or (
-                    refits and k in REFIT_MOVES) else bad
+                out = moved if k.split(".")[-1] in moving else bad
                 out.setdefault(name, {})[k] = (a, b)
     return n, bad, moved
 
@@ -5867,15 +5888,16 @@ def main():
         rec["device_ms"] = _device_ms(call, only="refit_")
         for kernel in REFIT_KERNELS:
             rec[f"{kernel}_device_ms"] = _device_ms(call, only=kernel)
+        each = "  ".join(
+            f"{kernel} {1e3 * rec[f'{kernel}_device_ms']:.3f} us (bound "
+            f"{1e3 * rec[f'{kernel}_bound_ms']:.5f} us, "
+            f"{rec[f'{kernel}_bound_by']})" for kernel in REFIT_KERNELS)
         print(f"ellipsoid refit {rec['name']} ({rec['n']}, {rec['m']} slots, "
               f"d {rec['d']}) float64 device only: both kernels "
-              f"{1e3 * rec['device_ms']:.3f} us (refit_assign "
-              f"{1e3 * rec['refit_assign_device_ms']:.3f}, refit_fit "
-              f"{1e3 * rec['refit_fit_device_ms']:.3f})  events "
+              f"{1e3 * rec['device_ms']:.3f} us: {each}  events "
               f"{1e3 * rec['ms']:.2f} us  plain {1e3 * rec['plain_ms']:.1f} "
-              f"us  bound {1e3 * rec['refit_assign_bound_ms']:.5f} + "
-              f"{1e3 * rec['refit_fit_bound_ms']:.5f} us  launch floor "
-              f"{floor['device_us']:.3f} us  [{card}]")
+              f"us  launch floor {floor['device_us']:.3f} us a kernel  "
+              f"[{card}]")
     # the refit inside heavy's captured round prologue: each kernel in as
     # many of the prologue's nodes as its capture counted, once
     pro_nodes = _graph_nodes(heavy_round.prologue)
@@ -6097,8 +6119,8 @@ def main():
                     f"{name}_ms", f"{name}_plain_ms", f"{name}_device_ms",
                     f"{name}_bound_ms", f"{name}_bound_by")}
                     for c in refit_cases],
-                **({"parent_bench": parent_of("ellipsoid_refit")}
-                   if parent else {})}
+                **({"parent_bench": parent_of("ellipsoid_refit"),
+                    "parent_bits": parent["bits"]} if parent else {})}
 
     def doubling_entry(name):
         """A doubling kernel's line: (256, 3) in float64 without a mask,

@@ -14,16 +14,21 @@ host's bootstrap x enlarge linear factor).  A slot with fewer than
 fit.
 
 On the card the refit is ``csrc/ellipsoid_refit.cu``:
-:func:`refit_assign` (a thread a point: its slot) and :func:`refit_fit`
-(a block a slot: the members' moments, the factor, its inverse, the
-containment and the slot's outputs, written straight into the wave's
-buffers), which a fused round's prologue launches and its capture records
-(``internal/samplers.py``, ``_UnifProposer.begin``).  Their sums run in
-fixed orders, so they reproduce themselves bit for bit, and agree with
-the plain version (:func:`ellipsoid_refit_plain`, whose orders are
-cuBLAS's and cuSOLVER's on the card) to rounding.  On a CPU tensor each
-wrapper runs its stage of the plain version, the CPU path; on a CUDA
-tensor it launches its kernel or raises.
+:func:`refit_assign` (a thread per (point, slot): the forms, the slot
+arrays staged in shared memory, a point's lanes meeting by shuffles) and
+:func:`refit_fit` (a block a slot: its members listed and their
+coordinates gathered into shared memory in one trip, then the moments,
+the factor on one warp (one thread at 2 and 3 dimensions), its inverse,
+the containment and the slot's outputs, written straight into the wave's
+buffers), which a fused round's
+prologue launches and its capture records (``internal/samplers.py``,
+``_UnifProposer.begin``).  Their sums run in fixed orders, whatever the
+grid or the staging (:func:`fit_layout`, :func:`assign_layout`), so they
+reproduce themselves bit for bit, and agree with the plain version
+(:func:`ellipsoid_refit_plain`, whose orders are cuBLAS's and cuSOLVER's
+on the card) to rounding.  On a CPU tensor each wrapper runs its stage of
+the plain version, the CPU path; on a CUDA tensor it launches its kernel
+or raises.
 """
 
 import math
@@ -35,12 +40,20 @@ from .proposals import _DTYPES, _check, _entry, _pointer_table, _run
 __all__ = ["EllipsoidRefit", "REFIT_FIELDS", "refit_buffers",
            "refit_assign", "refit_assign_plain", "refit_fit",
            "refit_fit_plain", "ellipsoid_refit", "ellipsoid_refit_plain",
-           "logvol_prefactor", "zero_counts", "WRAPPERS"]
+           "logvol_prefactor", "assign_layout", "fit_layout",
+           "zero_counts", "WRAPPERS"]
 
 # the refit's outputs: the padded stack's arrays a wave reads
 REFIT_FIELDS = ("ctrs", "axes", "ams", "logvols", "mask")
 # the worst member's distance below 1 after the inflation
 EPS_CONTAIN = 1e-3
+# the kernels' block, the dynamic shared memory a block takes at most and
+# the parts staged there only up to a size (csrc/ellipsoid_refit.cu)
+BLOCK = 256
+SMEM_BUDGET = 224 * 1024
+MATS_MAX = 64 * 1024
+POINTS_MAX = 64 * 1024
+_FSIZE = {torch.float64: 8, torch.float32: 4}
 
 
 def logvol_prefactor(d):
@@ -139,16 +152,67 @@ def ellipsoid_refit_plain(u, arrays, ncdim, dtype=torch.float64):
 # the kernels
 
 
+def assign_layout(nlive, m, ncdim, dtype):
+    """``refit_assign``'s grid and shared memory for a shape, as
+    ``csrc/ellipsoid_refit.cu`` carves them: ``group`` lanes a point (the
+    power of 2 >= ``m``, at most 32; lane g takes the slots g, g + group,
+    ...), ``points`` a block, ``blocks`` (one ``nonfinite`` flag each),
+    ``tile`` slots' ``ams`` and ``ctrs`` staged in shared memory at a
+    time, whether the block's points and a tile fit (``staged``: else
+    all is read in place) and the dynamic shared memory's ``bytes``.
+    One slot needs no form (``tile`` 0): its points are staged only to be
+    checked and packed (``rows``)."""
+    fsize, d = _FSIZE[dtype], ncdim
+    group = 1
+    while group < m and group < 32:
+        group *= 2
+    points = BLOCK // group
+    pts, slot = points * d * fsize, (d * d + d) * fsize
+    tile = (SMEM_BUDGET - pts) // slot
+    out = {"group": group, "points": points,
+           "blocks": -(-nlive // points), "tile": 0, "staged": False,
+           "bytes": 0}
+    if pts <= POINTS_MAX and (m == 1 or tile >= 1):
+        tile = min(tile, m) if m > 1 else 0
+        out.update(tile=tile, staged=True, bytes=pts + tile * slot)
+    return out
+
+
+def fit_layout(nlive, ncdim, dtype):
+    """``refit_fit``'s shared memory for a shape, as
+    ``csrc/ellipsoid_refit.cu`` carves it: ``BLOCK`` partials, the slot's
+    matrices and mean where they fit in ``MATS_MAX`` (``shared_mats``;
+    else the global ``work`` row), then ``cap`` members' coordinates, each
+    coordinate's row ``pitch`` (odd: ``cap`` or ``cap + 1``) apart.  A
+    slot of at most ``cap`` members is staged once (``staged``: every slot
+    is, ``cap`` == ``nlive``); past that ceiling its sums run in stages of
+    ``cap`` members.  Returns ``{"cap", "pitch", "shared_mats", "staged",
+    "bytes"}``."""
+    fsize, d = _FSIZE[dtype], ncdim
+    mats = (3 * d * d + d) * fsize
+    shared = mats <= MATS_MAX
+    fixed = BLOCK * fsize + (mats if shared else 0)
+    member, room = d * fsize, SMEM_BUDGET - fixed
+    cap = min(nlive, room // member)
+    if (cap | 1) * member > room:
+        cap -= 1  # an even cap at the budget
+    return {"cap": cap, "pitch": cap | 1, "shared_mats": shared,
+            "staged": cap == nlive, "bytes": fixed + (cap | 1) * member}
+
+
 class EllipsoidRefit:
     """The refit's buffers for one shape (``nlive`` points, ``m`` slots,
     ``ncdim`` dimensions, ``dtype``) on one device: each point's slot
     ``idx`` (int64 (nlive,)) and the slots re-fitted ``keep`` (bool
-    (m,)), which both versions write; the kernels' scratch: each slot's
-    member list ``members`` (int32 (m, nlive)), its matrices and mean
-    ``work`` ((m, 3 ncdim^2 + ncdim)), a flag a block of 256 points
-    ``nonfinite`` and the d-ball's log-volume prefactor ``pref`` (0-d);
-    and on the card the two kernels' argument tables, whose inputs and
-    outputs each launch fills in.  Made once (:func:`refit_buffers`),
+    (m,)), which both versions write; the kernels' layouts
+    (:func:`assign_layout`, :func:`fit_layout`) and scratch: a flag a
+    ``refit_assign`` block ``nonfinite``, the points' ``ncdim``
+    coordinates packed by ``refit_assign`` for ``refit_fit`` (``rows``,
+    (nlive, ncdim)), each slot's matrices and mean
+    ``work`` ((m, 3 ncdim^2 + ncdim)) where they do not fit in shared
+    memory (else None), and the d-ball's log-volume prefactor ``pref``
+    (0-d); and on the card the two kernels' argument tables, whose inputs
+    and outputs each launch fills in.  Made once (:func:`refit_buffers`),
     before any capture: a captured prologue keeps the addresses."""
 
     def __init__(self, nlive, m, ncdim, dtype, device):
@@ -165,17 +229,23 @@ class EllipsoidRefit:
         self.nlive, self.m, self.ncdim = nlive, m, ncdim
         self.dtype, self.device = dtype, device
         d = ncdim
+        self.assign_layout = assign_layout(nlive, m, d, dtype)
+        self.fit_layout = fit_layout(nlive, d, dtype)
+        if self.fit_layout["cap"] < 1:
+            raise ValueError(f"{fn}: {d} dimensions leave no shared memory "
+                             f"for a member")
 
         def e(shape, dt=dtype):
             return torch.empty(shape, dtype=dt, device=device)
 
         self.idx, self.keep = e((nlive,), torch.int64), e((m,), torch.bool)
-        self.members = e((m, nlive), torch.int32)
-        # refit_assign's block of 256 points holds a coordinate that is
-        # not finite (every slot then keeps its fit, as in the plain
-        # version, whose one-hot product makes every mean NaN)
-        self.nonfinite = e(((nlive + 255) // 256,), torch.int32)
-        self.work = e((m, 3 * d * d + d))
+        # a refit_assign block's points hold a coordinate that is not
+        # finite (every slot then keeps its fit, as in the plain version,
+        # whose one-hot product makes every mean NaN)
+        self.nonfinite = e((self.assign_layout["blocks"],), torch.int32)
+        self.rows = e((nlive, d))
+        self.work = None if self.fit_layout["shared_mats"] else \
+            e((m, 3 * d * d + d))
         self.pref = torch.tensor(logvol_prefactor(d), dtype=dtype,
                                  device=device)
         self._assign_args = self._fit_args = None
@@ -186,11 +256,10 @@ class EllipsoidRefit:
         """Both kernels' argument tables, with the scratch in place; a
         launch writes its inputs and outputs into them."""
         self._assign_args = _pointer_table(
-            (None, None, None, None, self.idx, self.nonfinite))
+            (None, None, None, None, self.idx, self.nonfinite, self.rows))
         self._fit_args = _pointer_table(
-            (None, self.idx) + (None,) * 6 + (self.pref, self.members,
-                                              self.work) + (None,) * 5 +
-            (self.keep, self.nonfinite))
+            (self.rows, self.idx) + (None,) * 6 + (self.pref, self.work) +
+            (None,) * 5 + (self.keep, self.nonfinite))
         tag = _DTYPES[self.dtype]
         self._assign_fn = _entry("ellipsoid_refit", "refit_assign", tag)
         self._fit_fn = _entry("ellipsoid_refit", "refit_fit", tag)
@@ -260,7 +329,9 @@ def refit_fit(rf, u, arrays, out):
     ``out`` (the wave's buffers, :data:`REFIT_FIELDS`), and the slots
     re-fitted into ``rf.keep``: :func:`refit_fit_plain` on the CPU (copied
     into ``out``), on the card the ``refit_fit`` kernel of
-    ``csrc/ellipsoid_refit.cu``."""
+    ``csrc/ellipsoid_refit.cu``, which reads the points as
+    :func:`refit_assign` packed them (``rf.rows``): it follows that
+    launch."""
     if rf.device.type == "cpu":
         res, keep = refit_fit_plain(u, rf.idx, arrays, rf.ncdim, rf.dtype,
                                     with_keep=True)
@@ -271,10 +342,9 @@ def refit_fit(rf, u, arrays, out):
     rf.check(u, arrays, out)
     table = rf._fit_args
     expand = arrays.get("expand")
-    table[0] = u.data_ptr()
     for i, k in enumerate(("ctrs", "axes", "ams", "logvols", "mask")):
         table[2 + i] = arrays[k].data_ptr()
-        table[11 + i] = out[k].data_ptr()
+        table[10 + i] = out[k].data_ptr()
     table[7] = None if expand is None else expand.data_ptr()
     _run(rf._fit_fn, table, (rf.nlive, rf.m, rf.ncdim, u.stride(0)),
          rf.device, "refit_fit")

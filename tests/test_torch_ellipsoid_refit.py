@@ -7,15 +7,18 @@ dimensions, 1, 4 and 32 slots, the degenerate, overflow and empty-padding
 stacks, with and without ``expand``; the stage wrappers against the whole
 plain refit, bit for bit; a run whose rounds re-fit in their prologue
 against the same run re-fitting before it (the parent's place), records
-bit for bit; and the kernels' argument tables against their structs in
-the CUDA source.  The JAX package is imported inside its one test, so
+bit for bit; the kernels' argument tables against their structs in the
+CUDA source, with and without the global matrices' scratch; and the
+kernels' layouts (staged, and past the shared-memory ceiling) against
+the source's constants.  The JAX package is imported inside its one test, so
 that the card's tests run where JAX is not installed.
 
 Marked ``cuda`` (skipped without a card): the kernels against the plain
-version at the heavy drive's, the eggbox's and a 15-D stack and at 16384
-points; two launches the same bits; a round's captured prologue against
-the eager one; a run stopped, saved, restored and resumed against the
-uninterrupted run.
+version at the heavy drive's, the eggbox's and a 15-D stack, at 16384
+points, and past the shared-memory ceiling (16384 members of one slot;
+40 dimensions); two launches and a captured replay the same bits at each
+of those; a round's captured prologue against the eager one; a run
+stopped, saved, restored and resumed against the uninterrupted run.
 """
 
 import math
@@ -180,8 +183,67 @@ def test_refit_buffers_are_kept_by_shape():
     assert rr.refit_buffers(cache, 100, 4, 3, torch.float64, "cpu") is a
     b = rr.refit_buffers(cache, 200, 4, 3, torch.float64, "cpu")
     assert b is not a and len(cache) == 2
-    assert a.members.shape == (4, 100) and a.work.shape == (4, 3 * 9 + 3)
-    assert a.nonfinite.shape == (1,) and b.idx.shape == (200,)
+    # four slots: four lanes a point, 64 points a refit_assign block
+    assert a.nonfinite.shape == (2,) and b.idx.shape == (200,)
+    # the matrices of 3 dimensions fit in shared memory, of 60 do not
+    assert a.work is None
+    c = rr.refit_buffers(cache, 100, 4, 60, torch.float64, "cpu")
+    assert c.work.shape == (4, 3 * 3600 + 60)
+
+
+# (nlive, slots, ncdim, dtype): refit_fit's cap, whether every slot is
+# staged, and refit_assign's lanes a point, blocks and slots a tile
+LAYOUTS = [
+    # heavy's stack: every member of its one slot in shared memory
+    ((3000, 1, 3, torch.float64), 3000, True, 1, 12, 0),
+    # past the ceiling: 16384 members of one slot, staged 9461 at a time
+    ((16384, 1, 3, torch.float64), 9461, False, 1, 64, 0),
+    # the same points in float32 fit
+    ((16384, 1, 3, torch.float32), 16384, True, 1, 64, 0),
+    # the eggbox's stack: 32 lanes a point
+    ((1000, 32, 2, torch.float64), 1000, True, 32, 125, 32),
+    # 40 dimensions: 589 members at a time, the matrices beside them
+    ((2000, 4, 40, torch.float64), 589, False, 4, 32, 4),
+    # 60 dimensions: the matrices in global memory, 7 slots a tile
+    ((500, 64, 60, torch.float64), 473, False, 32, 63, 7),
+]
+
+
+@pytest.mark.parametrize("shape,cap,staged,group,blocks,tile", LAYOUTS)
+def test_the_layouts_stage_or_chunk_past_the_ceiling(shape, cap, staged,
+                                                     group, blocks, tile):
+    """``EllipsoidRefit`` sizes the kernels' shared memory and scratch
+    for its shape: ``refit_fit`` stages every member where the budget
+    holds them and ``cap`` at a time past it (one member more would not
+    fit), its matrices in shared memory up to ``MATS_MAX`` (else a
+    ``work`` row a slot); ``refit_assign`` a flag a block.  The budgets
+    are the CUDA source's."""
+    n, m, d, dtype = shape
+    rf = rr.EllipsoidRefit(n, m, d, dtype, "cpu")
+    fs = 8 if dtype == torch.float64 else 4
+    fit, asg = rf.fit_layout, rf.assign_layout
+    assert (fit["cap"], fit["staged"]) == (cap, staged)
+    mats = (3 * d * d + d) * fs
+    assert fit["shared_mats"] == (mats <= rr.MATS_MAX) == (rf.work is None)
+    # each coordinate's row an odd pitch apart
+    assert fit["pitch"] in (cap, cap + 1) and fit["pitch"] % 2 == 1
+    assert fit["bytes"] == 256 * fs + mats * fit["shared_mats"] + \
+        fit["pitch"] * d * fs <= rr.SMEM_BUDGET
+    if not staged:
+        assert fit["bytes"] + 2 * d * fs > rr.SMEM_BUDGET
+    else:
+        assert cap == n
+    if rf.work is not None:
+        assert rf.work.shape == (m, 3 * d * d + d)
+    assert (asg["group"], asg["blocks"], asg["tile"]) == (group, blocks, tile)
+    assert asg["points"] * asg["group"] == 256
+    assert rf.nonfinite.shape == (blocks,) and rf.rows.shape == (n, d)
+    assert asg["staged"] and asg["bytes"] <= rr.SMEM_BUDGET
+    src = SRC.read_text()
+    for name in ("SMEM_BUDGET", "MATS_MAX", "POINTS_MAX"):
+        kb = re.search(r"const i64 %s = (\d+) \* 1024;" % name, src)
+        assert int(kb.group(1)) * 1024 == getattr(rr, name), name
+    assert re.search(r"const int BLOCK = (\d+);", src).group(1) == "256"
 
 
 def test_the_wrapper_checks_its_inputs():
@@ -227,18 +289,21 @@ def _struct_fields(src, name):
     return fields
 
 
-def test_the_argument_tables_follow_the_kernels_structs(monkeypatch):
+@pytest.mark.parametrize("d", [3, 60])
+def test_the_argument_tables_follow_the_kernels_structs(monkeypatch, d):
     """Each kernel's pointer table, as ``EllipsoidRefit`` binds it and
     each wrapper fills it at a launch, names the tensors in the order of
     the kernel's argument struct in ``csrc/ellipsoid_refit.cu``; only
-    ``expand`` may be absent."""
+    ``expand`` may be absent, and ``work`` where the slot's matrices fit
+    in shared memory (3 dimensions; not 60)."""
     monkeypatch.setattr(rr, "_entry", lambda *a: None)
     tables = []
     monkeypatch.setattr(rr, "_run", lambda f, ptrs, ints, device, fn:
                         tables.append((fn, list(ptrs), ints)))
-    u, padded = stack(300, 3, 4, 3)
-    tu, arrays = to_torch(u, padded, cols=9)
-    rf = rr.EllipsoidRefit(300, 4, 3, torch.float64, "cpu")
+    u, padded = stack(300, 3, 4, d)
+    tu, arrays = to_torch(u, padded, cols=d + 6)
+    rf = rr.EllipsoidRefit(300, 4, d, torch.float64, "cpu")
+    assert (rf.work is None) == (d == 3)
     rf._bind()
     # the kernel's branch of each wrapper, its checks left out
     rf.device = torch.device("cuda", 0)
@@ -251,14 +316,17 @@ def test_the_argument_tables_follow_the_kernels_structs(monkeypatch):
             key, key + "0")
     for key, t in out.items():
         names[t.data_ptr()] = "mask_out" if key == "mask" else key
-    for key in ("idx", "keep", "members", "work", "pref", "nonfinite"):
-        names[getattr(rf, key).data_ptr()] = key
+    for key in ("idx", "keep", "work", "pref", "nonfinite", "rows"):
+        if getattr(rf, key) is not None:
+            names[getattr(rf, key).data_ptr()] = key
+    # an absent work row is a null entry in its place
+    names[None] = "work"
     src = SRC.read_text()
     assert [t[0] for t in tables] == ["refit_assign", "refit_fit"]
     for (fn, table, ints), struct in zip(tables, ("AssignArgs", "FitArgs")):
         assert [names[p] for p in table] == _struct_fields(src, struct), fn
         # n, m, d and the points' row stride
-        assert ints == (300, 4, 3, 9)
+        assert ints == (300, 4, d, d + 6)
     rr.zero_counts()
     # without expand, its entry is null
     tables.clear()
@@ -331,9 +399,13 @@ def test_the_refit_in_the_prologue_gives_the_parents_run(monkeypatch,
 # on the card
 
 
+# (name, points, ellipsoids, slots, dimensions); the last two cross
+# refit_fit's shared-memory ceiling (float64): 16384 members of one slot,
+# and about 1000 members a slot in 40 dimensions
 CUDA_CASES = [("eggbox", 1000, 18, 32, 2), ("heavy", 3000, 1, 1, 3),
               ("multi", 3000, 3, 4, 3), ("d15", 1000, 5, 8, 15),
-              ("wide", 16384, 20, 32, 3)]
+              ("wide", 16384, 20, 32, 3), ("ceiling", 16384, 1, 1, 3),
+              ("d40", 2000, 2, 4, 40)]
 
 
 @pytest.mark.cuda
@@ -371,6 +443,56 @@ def test_cuda_kernels_match_the_plain_version(cuda, name, n, k, m, d,
     assert torch.equal(rf.idx, idx)
     for key in rr.REFIT_FIELDS:
         assert torch.equal(again[key], out[key]), key
+    rr.zero_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name,n,k,m,d", CUDA_CASES)
+def test_cuda_kernels_are_deterministic(cuda, name, n, k, m, d, dtype):
+    """Two launches of both kernels and a captured replay of them on the
+    same inputs give the same bits: the slots, the re-fitted slots and
+    every output (the sums' orders do not depend on the grid, the
+    staging or the launch)."""
+    u, padded = stack(n, k, m, d, seed=13)
+    tu, arrays = to_torch(u, padded, cuda, dtype, cols=d + 6)
+    rf = rr.EllipsoidRefit(n, m, d, dtype, cuda)
+
+    def fresh():
+        return {key: torch.full_like(arrays[key], 7)
+                for key in rr.REFIT_FIELDS}
+
+    runs = []
+    for _ in range(2):
+        out = fresh()
+        rr.ellipsoid_refit(rf, tu, arrays, out)
+        runs.append((out, rf.idx.clone(), rf.keep.clone()))
+    out = fresh()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        rr.ellipsoid_refit(rf, tu, arrays, out)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    rf.idx.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs.append((out, rf.idx.clone(), rf.keep.clone()))
+    first = runs[0]
+    assert int(first[2].sum()) == k
+    for other in runs[1:]:
+        assert torch.equal(other[1], first[1])
+        assert torch.equal(other[2], first[2])
+        for key in rr.REFIT_FIELDS:
+            a, b = other[0][key], first[0][key]
+            if key != "mask":
+                a, b = a.view(torch.int64 if dtype == torch.float64
+                              else torch.int32), \
+                    b.view(torch.int64 if dtype == torch.float64
+                           else torch.int32)
+            assert torch.equal(a, b), key
     rr.zero_counts()
 
 
