@@ -34,9 +34,16 @@ kernels' cases to ``GROUPS``.  The groups:
 * ``valid``: ``unif_valid`` over the cube and over unions of 1, 4 and 16
   ellipsoids at (256, 3) in float64, alone and ``span``, every launch
   between the draws and the likelihood (before the fold: the union's
-  subtraction and einsum, the kernel and the clamp);
+  subtraction and einsum, the kernel and the clamp), with the sha256 of
+  its outputs' bytes (``digest``); and over balls and cubes about 2048
+  and 16384 centres in 3 dimensions and 2048 in 15 (phase 2f's friends
+  cases), its friends mode from the draws (before it: the eager union,
+  the centres' gather, the candidate's matrix product, the distances'
+  einsum, norm or largest entry, count and test, then the kernel, as
+  ``span``);
 * ``replays``: the five captured doubling segments' replays (rslice at
-  (256, 3)) and the captured waves' (cube, three ellipsoids);
+  (256, 3)) and the captured waves' (cube, three ellipsoids, balls and
+  cubes about 2048 centres);
 * ``refit``: the ellipsoid refit of a chained unif round at every
   phase-2i stack (the eggbox's, the heavy drive's, 3000 points in three
   ellipsoids, 15 dimensions, 16384 points in 20 ellipsoids, and past
@@ -133,7 +140,7 @@ def place_times(cm, torch):
         for dtype in (torch.float64, torch.float32):
             rb, inp = cm.unif_wave_round(kind, q, ndim, ncdim, dtype,
                                          "overflow")
-            valid_calls(torch, pr, rb, inp)[0]()
+            valid_calls(torch, pr, rb, inp, kind)[0]()
             st0 = rb.state.clone()
 
             def call():
@@ -154,6 +161,29 @@ def folded(pr):
     """Whether the checkout has the halving's probe and the lane checks'
     forms folded into the kernels."""
     return hasattr(pr, "unif_input_plain")
+
+
+def friends_folded(pr):
+    """Whether the checkout's ``unif_valid`` forms the friends' candidates
+    and overlap test from the draws."""
+    return hasattr(pr, "friends_union_plain")
+
+
+def eager_friends_union(torch, kind, rb, inp):
+    """The friends' union as the wave ran it before ``unif_valid``'s
+    friends mode, from the draws: the candidates and their acceptance."""
+    a = rb.arrays
+    ctrs, axes, axes_inv = (a[k].to(rb.dtype) for k in
+                            ("ctrs", "axes", "axes_inv"))
+    x = ctrs[inp["idx"]] + inp["uc"] @ axes
+    dt = torch.einsum("qmi,ij->qmj", ctrs[None, :, :] - x[:, None, :],
+                      axes_inv)
+    if kind == "balls":
+        dist = torch.linalg.vector_norm(dt, dim=-1)
+    else:
+        dist = dt.abs().amax(dim=-1)
+    nin = (dist <= 1.0).sum(dim=1).clamp_min(1)
+    return x, inp["ua"] < 1.0 / nin.to(rb.dtype)
 
 
 def probes_folded(pr):
@@ -249,14 +279,25 @@ def doubling_times(cm, torch):
     return recs
 
 
-def valid_calls(torch, pr, rb, inp):
+def valid_calls(torch, pr, rb, inp, kind):
     """``unif_valid`` on a wave's inputs through the checkout's own
     signature, alone and with every launch a wave makes between its draws
     and its likelihood (before the fold: the union's subtraction and
-    einsum, the kernel, the likelihood input's clamp)."""
+    einsum, the kernel, the likelihood input's clamp; over balls and
+    cubes before the friends' mode: the eager union and the kernel)."""
+    if kind in ("balls", "cubes") and not friends_folded(pr):
+        x, acc = eager_friends_union(torch, kind, rb, inp)
+
+        def call():
+            pr.unif_valid(rb, x, None, acc, inp["u_ex"])
+
+        def span():
+            xs, accs = eager_friends_union(torch, kind, rb, inp)
+            pr.unif_valid(rb, xs, None, accs, inp["u_ex"])
+        return call, span
     if folded(pr):
         def call():
-            pr.unif_valid(rb, inp["uc"], inp["ua"], inp["accept"],
+            pr.unif_valid(rb, inp["uc"], inp["ua"], inp.get("idx"),
                           inp["u_ex"])
         return call, call
 
@@ -268,11 +309,11 @@ def valid_calls(torch, pr, rb, inp):
     sq = forms() if rb.m else None
 
     def call():
-        pr.unif_valid(rb, inp["uc"], sq, inp["ua"], inp["accept"])
+        pr.unif_valid(rb, inp["uc"], sq, inp["ua"], None)
 
     def span():
         s = forms() if rb.m else None
-        pr.unif_valid(rb, inp["uc"], s, inp["ua"], inp["accept"])
+        pr.unif_valid(rb, inp["uc"], s, inp["ua"], None)
         inp["uc"].clamp(0.0, 1.0)
 
     return call, span
@@ -298,33 +339,74 @@ def union_inputs(cm, torch, m):
     uc[near] = ctrs[np.arange(q)[near] % m] + \
         rs.normal(0.0, 0.05, (int(near.sum()), cm.NDIM))
     return rb, {"uc": cm._cuda_t(uc, dtype),
-                "ua": cm._cuda_t(rs.random(q), dtype), "accept": None,
+                "ua": cm._cuda_t(rs.random(q), dtype), "idx": None,
                 "u_ex": None}
+
+
+def friends_inputs(cm, torch, kind, nctrs, n):
+    """A round over ``kind`` about ``nctrs`` centres in ``n`` of ``n + 1``
+    dimensions at q 256 in float64 and one wave's draws, as
+    ``chip_smoke.unif_friends_cases`` makes them."""
+    import numpy as np
+    dtype, q = torch.float64, cm.STEP_Q
+    arrays = cm.unif_arrays(kind, n, dtype, cm.SEED + n, nctrs)
+    strict = torch.ones(n, dtype=torch.bool)
+    strict[1] = False
+    rb = cm._unif_round(kind, q, n + 1, n, dtype, strict, arrays)
+    rb.start(cm.STEP_LOGLSTAR, arrays, 1 << 30)
+    inp = cm.friends_draws(rb, cm.SEED + nctrs + n)
+    inp["u_ex"] = cm._cuda_t(np.random.Generator(np.random.PCG64(
+        cm.SEED + n)).uniform(-0.2, 1.2, (q, 1)), dtype)
+    return rb, inp
 
 
 def valid_cases(cm, torch):
     """The ``valid`` group's rounds and draws: the cube (phase 2f's
-    overflow state) and the unions of 1, 4 and 16 ellipsoids."""
+    overflow state), the unions of 1, 4 and 16 ellipsoids and the
+    friends' cases."""
     cases = [("cube", None) + cm.unif_wave_round(
         "cube", cm.STEP_Q, cm.NDIM, cm.NDIM, torch.float64, "overflow")]
     for m in cm.UNION_SLOTS:
         cases.append(("ellipsoids", m) + union_inputs(cm, torch, m))
+    for kind in cm.FRIENDS:
+        for nctrs, n in cm.FRIENDS_CASES:
+            cases.append((kind, (nctrs, n)) + friends_inputs(
+                cm, torch, kind, nctrs, n))
     return cases
 
 
+def valid_digest(torch, rb):
+    """The sha256 of ``unif_valid``'s outputs' bytes: valid, the
+    likelihood's input and its clamp."""
+    h = hashlib.sha256()
+    for t in (rb.valid, rb.u_prop, rb.uclamp):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def unif_times(cm, torch):
-    """``unif_valid``'s device and events times over the cube and the
-    unions, alone and with the launches around it."""
+    """``unif_valid``'s device and events times over the cube, the unions
+    and the friends, alone and with the launches around it; over the cube
+    and the unions the digest of its outputs, which two versions
+    compare."""
     recs = []
     for kind, m, rb, inp in valid_cases(cm, torch):
-        call, span = valid_calls(torch, cm.pr, rb, inp)
-        recs.append({
-            "kernel": "unif_valid", "kind": kind, "m": m, "q": rb.q,
-            "ndim": rb.ndim, "dtype": "float64",
+        call, span = valid_calls(torch, cm.pr, rb, inp, kind)
+        rec = {"kernel": "unif_valid", "kind": kind, "q": rb.q,
+               "ndim": rb.ndim, "dtype": "float64"}
+        if kind in cm.FRIENDS:
+            rec.update(nctrs=m[0], ncdim=m[1])
+        else:
+            rec["m"] = m
+            span()
+            torch.cuda.synchronize()
+            rec["digest"] = valid_digest(torch, rb)
+        rec.update({
             "events_us": 1e3 * cm._time_ms(call, 200),
             "device_us": 1e3 * cm._device_ms(call, ITERS, only="unif_valid"),
             "span_events_us": 1e3 * cm._time_ms(span, 200),
             "span_device_us": 1e3 * cm._device_ms(span, ITERS)})
+        recs.append(rec)
     return recs
 
 
@@ -351,7 +433,9 @@ def generic_rows_times(cm, torch, root):
     gen.argtypes, gen.restype = ref.argtypes, ref.restype
     recs = []
     for kind, m, rb, inp in valid_cases(cm, torch):
-        draws = (inp["uc"], inp["ua"], inp["accept"], inp["u_ex"])
+        if kind in cm.FRIENDS:
+            continue
+        draws = (inp["uc"], inp["ua"], inp.get("idx"), inp["u_ex"])
         outs = {}
         times = {"registers": [], "generic": []}
         for variant in ("registers", "generic", "generic", "registers"):
@@ -381,9 +465,10 @@ def generic_rows_times(cm, torch, root):
 
 def replay_times(cm, torch):
     """The five captured doubling segments' replays (rslice doubling at
-    (256, 3)) and the captured waves' (cube and three ellipsoids, (256,
-    3)): device only, back-to-back events, and the host clock around one
-    replay with its wait and flag read."""
+    (256, 3)) and the captured waves' (cube, three ellipsoids, balls and
+    cubes about 2048 centres, (256, 3)): device only, back-to-back
+    events, and the host clock around one replay with its wait and flag
+    read."""
     from dynesty_tpu_torch.utils.misc import Timings
     cm._gauss_setup()
     dtype, q = torch.float64, cm.STEP_Q
@@ -404,7 +489,7 @@ def replay_times(cm, torch):
             "replay_events_us": 1e3 * cm._time_ms(graph.replay, 200),
             "replay_host_us": _host_us(
                 lambda name=name: entry.replay(name, gen))})
-    for kind in ("cube", "ellipsoids"):
+    for kind in ("cube", "ellipsoids") + tuple(cm.FRIENDS):
         cache = {}
         cm._capture_waves(cm._capture_like(False, dtype), kind, q, dtype,
                           (cm.SEED, cm.SEED + 1), cache, Timings())

@@ -10,7 +10,10 @@ waves are ``unif``:
 * default: ``NestedSampler(loglike, ptform, 3)`` with every other
   argument at its default (multi / unif / bootstrap 5, nlive 500);
 * balls: ``nlive=2048, bound='balls', sample='rslice'``, whose unit-cube
-  phase is its only ``unif`` work.
+  phase is its only ``unif`` work;
+* balls-unif and cubes-unif: ``nlive=2048, bound='balls'|'cubes',
+  sample='unif'``, every other argument at its default (bootstrap 5):
+  every wave over the friends' union of the 2048 live points.
 
 And two with the sampler given as ``RSliceSampler(slice_doubling=True)``
 (``bench_doubling_graph.py`` runs these by default):
@@ -317,6 +320,10 @@ DRIVES = {
     "default": lambda dyt: (gauss_loglike, {}),
     "balls": lambda dyt: (gauss_loglike, dict(nlive=2048, bound="balls",
                                               sample="rslice")),
+    "balls-unif": lambda dyt: (gauss_loglike, dict(
+        nlive=2048, bound="balls", sample="unif")),
+    "cubes-unif": lambda dyt: (gauss_loglike, dict(
+        nlive=2048, bound="cubes", sample="unif")),
     "doubling": _doubling(500, "single"),
     "doubling-balls": _doubling(2048, "balls"),
     "rwalk": _rwalk,

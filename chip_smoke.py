@@ -72,18 +72,24 @@ Phases, in order; any failure raises and exits non-zero:
    ``unif_place`` against their plain versions on hand-made states (a
    wave with more successes than free slots, and one with none, whose
    evaluations are carried) over the cube, three ellipsoids padded to
-   four slots, 64 balls, at (256, 3), (32, 3 of 4 dimensions, the fourth
-   dimension's uniforms with NaN and values outside the cube) and 700
-   lanes (three chunks of ``unif_place``'s block), float64 and float32,
-   and ``unif_valid`` over unions of 1, 4 and 16 ellipsoids at (256, 3):
-   every output bit for bit (``unif_valid``'s valid lanes, the
-   likelihood's input and its clamp), the kernels' and the plain
+   four slots, balls about 2048 centres (the friends' draws: offsets,
+   centre indices, acceptance uniforms), at (256, 3), (32, 3 of 4
+   dimensions, the fourth dimension's uniforms with NaN and values
+   outside the cube) and 700 lanes (three chunks of ``unif_place``'s
+   block), float64 and float32; ``unif_valid`` over unions of 1, 4 and
+   16 ellipsoids at (256, 3); its friends mode over balls and cubes
+   about 2048 and 16384 centres in 3 dimensions and 2048 in 15 (of 4
+   and 16, one loose) at q 256, and on lanes whose distances lie
+   exactly at 1 and at its neighbouring floats (a square root that
+   rounds to 1): every output bit for bit (``unif_valid``'s valid lanes,
+   the likelihood's input and its clamp), the kernels' and the plain
    versions' time per call (events) and the bound (bytes, or the
-   quadratic forms' operations).  Then captured-unif
+   quadratic forms' or the distances' operations).  Then captured-unif
    (``captured_unif_phase``): uniform rounds whose waves are captured as
    one CUDA graph each and replayed against the same rounds launched
-   eagerly, over the cube and over ellipsoids (a ``torch.multinomial``
-   inside the graph), float64 and float32, widths 256 and 32, three
+   eagerly, over the cube, over ellipsoids (a ``torch.multinomial``
+   inside the graph) and over balls and cubes about 2048 centres,
+   float64 and float32, widths 256 and 32, three
    rounds each on one round cache with a blob: every column, the blob and
    the generator's offset bit for bit, every wave but the warm-up a
    replay; the host time of one replayed wave with its wait and flag read
@@ -143,6 +149,12 @@ Phases, in order; any failure raises and exits non-zero:
    epilogue eager, then captured: results, the rounds' generator offsets
    and the counts equal; the replays' device and host times.
 4. The same drive with ``bound='cubes'``: the exact L-inf path must run.
+   4b. balls-unif and cubes-unif: ``nlive=2048, bound='balls'|'cubes',
+   sample='unif'``, every other argument at its default (bootstrap 5:
+   the radius from the host, no NN launch), through the evidence gate,
+   every wave through ``unif_valid``'s friends mode (its launches the
+   waves' ``sync_wave`` and the gated rounds' waves of no lane); the
+   host refit's share of the wall.
 5. A friends refit (``RadFriends.update``) of a live set at the
    tensor-core path's switch point: the tensor-core path must run.
 6. A drive with ``bound='single'`` (nlive=500): no kernel may run.
@@ -276,7 +288,11 @@ Phases, in order; any failure raises and exits non-zero:
     launch floor, of one replay of the captured slice iteration at (256,
     3) and of the captured walk at (256, 15), of the two wave kernels at
     (256, 3) (``unif_valid`` also over unions of 1, 4 and 16
-    ellipsoids), of one replayed uniform wave over the cube at (256, 3)
+    ellipsoids and at phase 2f's friends cases), of one replayed uniform
+    wave over the cube at (256, 3) and over balls and cubes about 2048
+    centres (their graphs' nodes holding ``unif_valid``'s friends mode
+    once and none of the eager union's matrix products, gathers or
+    reductions: as many as the cube wave's but the ball draws' norm)
     and of one of the heavy drive's ellipsoid waves, of the four doubling
     kernels at (256, 3) (each in each of its modes) and of
     each replayed doubling segment, of the two refit kernels at phase
@@ -496,6 +512,50 @@ def _graph_nodes(graph):
     if not nodes:
         raise RuntimeError(f"no node in the printed graph: {text[:2000]}")
     return nodes
+
+
+# what the eager friends' union launched in a wave and the kernel does
+# not: the candidate's and the distances' matrix products, the gather of
+# the chosen centres, the distances' and the counts' reductions
+EAGER_UNION_OPS = ("gemm", "index", "reduce_kernel")
+
+
+def _kernel_names(nodes):
+    """The kernel names of a printed graph's kernel nodes."""
+    names = []
+    for node in nodes:
+        m = re.search(r"\w*[Kk]ernel\w*", node)
+        if m:
+            names.append(m.group(0)[:80])
+    return names
+
+
+def friends_wave_kernels(entry, kind, cube_nodes):
+    """A captured friends wave's kernels, read from its graph's own nodes:
+    the hand-written ones as its capture counted (``unif_valid`` once: its
+    friends mode), and of ``EAGER_UNION_OPS`` as many as the cube wave's
+    graph holds (the same likelihood, blob copy and placement), but the
+    ball draws' one norm; the eager union added two matrix products, a
+    gather and two reductions.  Raises where that differs."""
+    nodes = _graph_nodes(entry.graph)
+    kernels = check_replay_kernels(entry.counted, entry.graph,
+                                   f"the captured {kind} wave", nodes)
+
+    def ops(ns):
+        return {k: sum(k in n.lower() for n in ns) for k in EAGER_UNION_OPS}
+
+    got, cube = ops(nodes), ops(cube_nodes)
+    want = dict(cube, reduce_kernel=cube["reduce_kernel"] +
+                (kind == "balls"))
+    rec = {"kernels": kernels, "ops": got, "cube_ops": cube,
+           "nodes": len(nodes), "cube_nodes": len(cube_nodes),
+           "names": _kernel_names(nodes)}
+    if kernels.get("unif_valid") != 1 or got != want or not any(
+            "unif_valid_kernel_friends" in n for n in nodes):
+        raise RuntimeError(f"the captured {kind} wave holds the eager "
+                           f"union's launches or misses the friends "
+                           f"kernel: {rec}")
+    return rec
 
 
 def check_replay_kernels(counted, graph, what, nodes=None):
@@ -2313,6 +2373,42 @@ def unif_drive(dyt, loglike, truth, profile=None, **kw):
     return summary
 
 
+def friends_drive(dyt, hk, bound, card):
+    """``NestedSampler(nlive=2048, bound=bound, sample='unif')`` on the 3-D
+    Gaussian, every other argument at its default (bootstrap 5, enlarge
+    1, q 256), launch counts from zero: through the evidence gate, no
+    NN-kernel launch (the bootstrap radius comes from the host), every
+    wave through ``unif_valid`` (its launches the waves read, ``sync_wave``,
+    and the gated rounds' waves of no lane), every friends wave shape
+    about the 2048 live points.
+    Returns its summary with the launches, the host refit's share of the
+    wall and ``dispatch``'s."""
+    _zero_counts(hk)
+    s = unif_drive(dyt, gauss_loglike, LOGZ_TRUTH, nlive=FRIENDS_NLIVE,
+                   bound=bound, sample="unif")
+    n = s["launches"] = _counts(hk)
+    t = s["timings"]
+    shapes = [g for g in _UNIF_GRAPHS if g.kind == bound]
+    s["friends_shapes"] = len(shapes)
+    s["refit_share"] = t.get("refit", 0.0) / s["wall_s"]
+    s["dispatch_share"] = t.get("dispatch", 0.0) / s["wall_s"]
+    if (s["config"]["bootstrap"], s["config"]["sample"]) != (5, "unif") or \
+            n["launches"] != 0 or \
+            n["unif_valid"] != n["sync_wave"] + n["unif_gated"] or \
+            not shapes or \
+            any(g.rb.nctrs != FRIENDS_NLIVE for g in shapes):
+        raise RuntimeError(f"the {bound}-unif drive ran {s['config']} with "
+                           f"{len(shapes)} friends wave shapes: {n}")
+    _print_unif_drive(f"{bound}-unif {bound}/unif nlive={FRIENDS_NLIVE} "
+                      f"(bootstrap 5)", s, card)
+    print(f"  {bound}-unif: unif_valid {n['unif_valid']} = sync_wave "
+          f"{n['sync_wave']} + gated {n['unif_gated']}; replays "
+          f"{n['n_unif_replay']}, warm-ups {n['unif_warmups']}; refit share "
+          f"of the wall {s['refit_share']:.4f}, dispatch share "
+          f"{s['dispatch_share']:.4f}  [{card}]")
+    return s
+
+
 def _print_unif_drive(name, s, card):
     t = s["timings"]
     print(f"{name}: wall {s['wall_s']:.2f} s  niter {s['niter']}  ncall "
@@ -3165,8 +3261,8 @@ def assemble_sequence():
 def _bench_case(c):
     """A ``bench_kernels.py`` record's case, for the side-by-side line."""
     what = c["kernel"]
-    for k in ("kind", "mode", "path", "m", "nlive", "q", "ndim", "ncdim",
-              "dtype", "seed"):
+    for k in ("kind", "mode", "path", "m", "nctrs", "nlive", "q", "ndim",
+              "ncdim", "dtype", "seed"):
         if c.get(k) is not None:
             what += f" {k} {c[k]}"
     return what
@@ -4274,15 +4370,24 @@ def captured_rwalk_phase(card, dyt):
 # every drive's unit-cube phase and the heavy drive's ellipsoid wave at
 # (256, 3), a friends' wave, the narrow width (32) over ellipsoids in 3 of
 # 4 dimensions, and 700 lanes (three chunks of unif_place's block)
+# the friends' bounds, and the balls-unif and cubes-unif drives' live
+# points (the friends' centres)
+FRIENDS = ("balls", "cubes")
+FRIENDS_NLIVE = 2048
+# the friends' cases of phase 2f: (centres, ncdim) at q 256
+FRIENDS_CASES = ((FRIENDS_NLIVE, 3), (16384, 3), (FRIENDS_NLIVE, 15))
 UNIF_CASES = [("cube", 3, 3, STEP_Q), ("ellipsoids", 3, 3, STEP_Q),
               ("balls", 3, 3, STEP_Q), ("ellipsoids", 4, 3, 32),
               ("cube", 3, 3, 700)]
 
 
-def unif_arrays(kind, ncdim, dtype, seed=SEED):
+def unif_arrays(kind, ncdim, dtype, seed=SEED, nctrs=FRIENDS_NLIVE):
     """A bound's device arrays for the wave cases: three ellipsoids around
     the 3-D Gaussian's mass in the cube (padded to four slots, one
-    reaching past the cube), or 64 live points as friends' centres."""
+    reaching past the cube), or ``nctrs`` live points in [0.2, 0.8]^n as
+    friends' centres (balls or cubes), their axes symmetric (a sqrtm, as
+    the friends' fit gives) and sized so that a candidate lies in ~2.5 of
+    them on average."""
     from dynesty_tpu_torch.bounding import MultiEllipsoid
     from dynesty_tpu_torch.utils.convert import bound_arrays_to_torch
     rs = np.random.Generator(np.random.PCG64(seed))
@@ -4293,13 +4398,42 @@ def unif_arrays(kind, ncdim, dtype, seed=SEED):
                          for _ in ctrs])
         return bound_arrays_to_torch(kind, MultiEllipsoid(
             ncdim, ctrs=ctrs, covs=covs).device_spec()[1], "cuda", dtype)
-    if kind == "balls":
-        axes = 0.06 * np.eye(ncdim)
+    if kind in FRIENDS:
+        a = rs.normal(size=(ncdim, ncdim))
+        w, vec = np.linalg.eigh(np.eye(ncdim) + 0.1 * (a + a.T))
+        unit = math.pi ** (ncdim / 2) / math.gamma(ncdim / 2 + 1)
+        if kind == "cubes":
+            unit = 2.0 ** ncdim
+        r = 0.6 * (2.5 / (nctrs * unit)) ** (1.0 / ncdim)
+        axes = (vec * np.sqrt(np.abs(w))) @ vec.T * r
         return {k: torch.as_tensor(v, dtype=dtype, device="cuda")
-                for k, v in (("ctrs", rs.uniform(0.2, 0.8, (64, ncdim))),
+                for k, v in (("ctrs", rs.uniform(0.2, 0.8, (nctrs, ncdim))),
                              ("axes", axes),
                              ("axes_inv", np.linalg.inv(axes)))}
     return {}
+
+
+def _unif_round(kind, q, ndim, ncdim, dtype, strict, arrays):
+    """A ``UnifRound`` on the card over ``arrays`` (a checkout before the
+    friends' kernel takes no friends kind: ``bench_kernels.py --root``)."""
+    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
+                  arrays[k].storage_offset(), arrays[k].dtype)
+              for k in pr.UNIF_ARRAYS[kind]}
+    friends = (kind,) if kind in FRIENDS and hasattr(pr, "UNIF_FRIENDS") \
+        else ()
+    return pr.UnifRound(q, ndim, ncdim, ndim, dtype, "cuda", strict, layout,
+                        *friends)
+
+
+def friends_draws(rb, seed):
+    """A friends wave's draws on the round ``rb``: offsets in and about
+    the unit ball or cube, each lane's centre and its acceptance
+    uniform."""
+    rs = np.random.Generator(np.random.PCG64(seed))
+    q, nctrs = rb.q, rb.arrays["ctrs"].shape[0]
+    return {"uc": _cuda_t(rs.uniform(-1.1, 1.1, (q, rb.ncdim)), rb.dtype),
+            "ua": _cuda_t(rs.random(q), rb.dtype),
+            "idx": _cuda_t(rs.integers(0, nctrs, q), torch.int64)}
 
 
 def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
@@ -4312,12 +4446,8 @@ def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
     carried)."""
     rs = np.random.Generator(np.random.PCG64(SEED + q + ndim))
     arrays = unif_arrays(kind, ncdim, dtype)
-
-    layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
-                  arrays[k].storage_offset(), arrays[k].dtype)
-              for k in pr.UNIF_ARRAYS[kind]}
     strict = torch.tensor([True, False, True][:ncdim])
-    rb = pr.UnifRound(q, ndim, ncdim, ndim, dtype, "cuda", strict, layout)
+    rb = _unif_round(kind, q, ndim, ncdim, dtype, strict, arrays)
     rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
     filled = q - 2 if situation == "overflow" else q // 3
     rb.state.copy_(torch.tensor([filled, 3, 40, 3 * q, 7, q - 9, 1 << 30]))
@@ -4330,9 +4460,7 @@ def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
         uc[near] = ctrs[np.arange(q)[near] % 3] + \
             rs.normal(0.0, 0.06, (int(near.sum()), ncdim))
     inp = {"uc": _cuda_t(uc, dtype),
-           "ua": _cuda_t(rs.random(q), dtype) if m else None,
-           "accept": _cuda_t(rs.random(q) < 0.6, torch.bool)
-           if kind == "balls" else None,
+           "ua": _cuda_t(rs.random(q), dtype) if m else None, "idx": None,
            "u_ex": _cuda_t(rs.choice([math.nan, -0.2, 0.0, 0.4, 1.0, 1.3],
                                      size=(q, ndim - ncdim)), dtype)
            if ndim > ncdim else None,
@@ -4340,33 +4468,46 @@ def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
            "v": _cuda_t(rs.random((q, ndim)), dtype),
            "logl": _cuda_t(rs.choice([-math.inf, -1.0, 0.5, 2.0], size=q)
                            if above else rs.uniform(-3.0, 0.2, q), dtype)}
+    if kind in FRIENDS:
+        inp.update(friends_draws(rb, SEED + 3 * q + ndim))
     return rb, inp
 
 
 def unif_valid_bound(rb, inp, kind):
     """The bytes ``unif_valid`` must move (each input read once -- the
-    candidates, the other dimensions, ua or the friends' flag, the union's
-    centres, matrices and mask, the cube check's mask, the width -- and
-    its outputs written once: valid, the likelihood's input and its clamp)
-    and the floating-point operations of the quadratic forms in the valid
-    slots (2 n^2 + 2 n - 1 a form)."""
+    candidates or the friends' offsets, the other dimensions, ua and the
+    friends' centre indices, the union's centres, matrices and mask or
+    the friends' centres and two axes matrices, the cube check's mask,
+    the width -- and its outputs written once: valid, the likelihood's
+    input and its clamp) and the floating-point operations of the
+    quadratic forms in the valid slots (2 n^2 + 2 n - 1 a form) or of the
+    friends' distances (2 n^2 + 2 n a lane and centre: the n differences,
+    the map's n^2 products and n (n - 1) sums, and over balls the squares,
+    their sums and the root, over cubes the n magnitudes and their n - 1
+    maxima; the candidate's own 2 n^2 a lane left out)."""
     q, ndim, n, m = rb.q, rb.ndim, rb.ncdim, rb.m
     tb = torch.finfo(rb.dtype).bits // 8
     m_valid = int(rb.arrays["mask"].sum()) if m else 0
+    nctrs = rb.arrays["ctrs"].shape[0] if kind in FRIENDS else 0
     by = q * ndim * tb + (q * tb if m else 0) + \
-        (q if kind in ("balls", "cubes") else 0) + \
         m * (n + n * n) * tb + m + n + 8 + q + 2 * q * ndim * tb
     ops = q * m_valid * (2 * n * n + 2 * n - 1)
+    if nctrs:
+        by += q * tb + q * 8 + nctrs * n * tb + 2 * n * n * tb
+        ops = q * nctrs * (2 * n * n + 2 * n)
     return by, ops, FP64_FLOPS if rb.dtype == torch.float64 else FP32_FLOPS
 
 
 def unif_valid_refs(rb, inp):
     """``unif_valid``'s plain outputs on the round's inputs: valid, the
     likelihood's input and its clamp."""
-    forms = [rb.arrays[k] if rb.m else None for k in pr.UNIF_FORMS]
-    valid = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH], rb.strict,
-                                *forms, inp["ua"], inp["accept"])
-    return (valid,) + pr.unif_input_plain(inp["uc"], inp["u_ex"])
+    return pr.unif_valid_round_plain(rb, inp["uc"], inp["ua"], inp["idx"],
+                                     inp["u_ex"])
+
+
+def unif_draws(inp):
+    """A wave's draws as ``unif_valid`` takes them."""
+    return (inp["uc"], inp["ua"], inp["idx"], inp["u_ex"])
 
 
 def unif_wave_cases(ncase, dtype):
@@ -4378,7 +4519,7 @@ def unif_wave_cases(ncase, dtype):
     recs, calls = [], {}
     for situation in ("overflow", "none"):
         rb, inp = unif_wave_round(kind, q, ndim, ncdim, dtype, situation)
-        draws = (inp["uc"], inp["ua"], inp["accept"], inp["u_ex"])
+        draws = unif_draws(inp)
         ref, ref_u, ref_c = unif_valid_refs(rb, inp)
         pr.unif_valid(rb, *draws)
         torch.cuda.synchronize()
@@ -4488,7 +4629,7 @@ def unif_union_cases(dtype):
         uc[near] = ctrs[np.arange(q)[near] % m] + \
             rs.normal(0.0, 0.05, (int(near.sum()), NDIM))
         inp = {"uc": _cuda_t(uc, dtype), "ua": _cuda_t(rs.random(q), dtype),
-               "accept": None, "u_ex": None}
+               "idx": None, "u_ex": None}
         draws = (inp["uc"], inp["ua"], None, None)
         ref, ref_u, ref_c = unif_valid_refs(rb, inp)
         pr.unif_valid(rb, *draws)
@@ -4511,6 +4652,105 @@ def unif_union_cases(dtype):
             _UNION_CALLS[m] = call
         recs.append(rec)
     return recs
+
+
+# unif_valid's calls on the friends' cases in float64, timed device-only
+# in phase 34 (unif_friends_cases)
+_FRIENDS_CALLS = {}
+
+
+def unif_friends_cases(dtype):
+    """``unif_valid``'s friends mode against its plain version at q 256 over
+    balls and cubes about ``FRIENDS_CASES``' centres, with a loose
+    dimension and one dimension outside the bound; returns the records
+    (with times and bound) and fills ``_FRIENDS_CALLS`` in float64."""
+    recs = []
+    for kind in FRIENDS:
+        for nctrs, n in FRIENDS_CASES:
+            arrays = unif_arrays(kind, n, dtype, SEED + n, nctrs)
+            strict = torch.ones(n, dtype=torch.bool)
+            strict[1] = False
+            rb = _unif_round(kind, STEP_Q, n + 1, n, dtype, strict, arrays)
+            rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
+            inp = friends_draws(rb, SEED + nctrs + n)
+            inp["u_ex"] = _cuda_t(np.random.Generator(np.random.PCG64(
+                SEED + n)).uniform(-0.2, 1.2, (STEP_Q, 1)), dtype)
+            draws = unif_draws(inp)
+            ref, ref_u, ref_c = unif_valid_refs(rb, inp)
+            pr.unif_valid(rb, *draws)
+            torch.cuda.synchronize()
+            rec = _bit_record("unif_valid", (STEP_Q, n), dtype,
+                              [("valid", rb.valid, ref),
+                               ("u_prop", rb.u_prop, ref_u),
+                               ("uclamp", rb.uclamp, ref_c)])
+            rec.update(kind=kind, ncdim=n, nctrs=nctrs, situation="friends")
+            if not 0 < int(ref.sum()) < STEP_Q:
+                raise RuntimeError(f"the friends case {kind} {nctrs} {n} "
+                                   f"missed its outcome: {int(ref.sum())} "
+                                   f"valid")
+
+            def call(rb=rb, draws=draws):
+                pr.unif_valid(rb, *draws)
+
+            _step_time(rec, call, lambda: unif_valid_refs(rb, inp),
+                       *unif_valid_bound(rb, inp, kind))
+            if dtype == torch.float64:
+                _FRIENDS_CALLS[(kind, nctrs, n)] = call
+            recs.append(rec)
+    return recs
+
+
+def friends_threshold_case(kind, dtype):
+    """``unif_valid``'s friends mode against its plain version on draws
+    whose distances lie exactly at the thresholds: eight lane kinds, each
+    candidate at its own centre (offset 0) with a second centre ``d``
+    away in the bound's units (the inverse axes 16 I; the kinds 1.75
+    apart there; every coordinate and difference exact in either dtype):
+    ``d`` along the first axis the largest float below 1, 1, the smallest
+    above 1 (over cubes also with other axes at +-0.5 and 0.25), and (1,
+    h), (1, 2 h) with h the square root of half an ulp of 1, whose
+    squared length rounds to 1 + 1 ulp (its root to 1: within) and to 1
+    + 4 ulp (not); ua 0.6, so that a lane accepts exactly where its second
+    centre lies past 1.  Raises unless the lanes come out so.  Returns
+    the record."""
+    one = torch.tensor(1.0, dtype=dtype)
+    below, above = torch.nextafter(one, -one), torch.nextafter(one, 2 * one)
+    h = 2.0 ** -26 if dtype == torch.float64 else 2.0 ** -12
+    kinds = [(below, 0.0), (one, 0.0), (above, 0.0), (one, h),
+             (one, 2 * h), (below, 0.5), (one, -0.5), (above, 0.25)]
+    nk = len(kinds)
+    ctrs = np.zeros((2 * nk, NDIM))
+    expect = []
+    for r, (t0, t1) in enumerate(kinds):
+        x = np.array([1.0 / 16, (1.0 + 1.75 * r) / 16, 0.5])
+        ctrs[2 * r] = x
+        ctrs[2 * r + 1] = [(1.0 - float(t0)) / 16, x[1] - t1 / 16, x[2]]
+        t1 = torch.tensor(t1, dtype=dtype)
+        dist = torch.sqrt(t0 * t0 + t1 * t1) if kind == "balls" else \
+            torch.maximum(t0, t1.abs())
+        expect.append(not bool(dist <= 1.0))
+    arrays = {"ctrs": _cuda_t(ctrs, dtype),
+              "axes": _cuda_t(np.eye(NDIM) / 16, dtype),
+              "axes_inv": _cuda_t(16 * np.eye(NDIM), dtype)}
+    q = STEP_Q
+    rb = _unif_round(kind, q, NDIM, NDIM, dtype, None, arrays)
+    rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
+    lanes = np.arange(q)
+    inp = {"uc": _cuda_t(np.zeros((q, NDIM)), dtype),
+           "ua": _cuda_t(np.full(q, 0.6), dtype),
+           "idx": _cuda_t(2 * (lanes % nk), torch.int64), "u_ex": None}
+    ref, ref_u, ref_c = unif_valid_refs(rb, inp)
+    pr.unif_valid(rb, *unif_draws(inp))
+    torch.cuda.synchronize()
+    rec = _bit_record("unif_valid", (q, NDIM), dtype,
+                      [("valid", rb.valid, ref), ("u_prop", rb.u_prop, ref_u),
+                       ("uclamp", rb.uclamp, ref_c)])
+    rec.update(kind=kind, ncdim=NDIM, nctrs=2 * nk, situation="thresholds")
+    want = np.array(expect)[lanes % nk]
+    if not (np.array_equal(ref.cpu().numpy(), want) and 0 < want.sum() < q):
+        raise RuntimeError(f"the friends threshold case missed its outcome "
+                           f"over {kind}, {dtype}")
+    return rec
 
 
 def unif_threshold_case(dtype, q=STEP_Q, device="cuda"):
@@ -4559,7 +4799,7 @@ def unif_threshold_case(dtype, q=STEP_Q, device="cuda"):
     uc[at, 2] = 0.5
     ua = rs.random(q)
     ua[at] = 0.0
-    inp = {"uc": t(uc), "ua": t(ua), "accept": None, "u_ex": None}
+    inp = {"uc": t(uc), "ua": t(ua), "idx": None, "u_ex": None}
     ref, ref_u, ref_c = unif_valid_refs(rb, inp)
     pr.unif_valid(rb, inp["uc"], inp["ua"], None, None)
     if device == "cuda":
@@ -4600,13 +4840,16 @@ def unif_kernels_phase(card):
     for dtype in (torch.float64, torch.float32):
         cases += unif_union_cases(dtype)
         cases.append(unif_threshold_case(dtype))
+        cases += unif_friends_cases(dtype)
+        cases += [friends_threshold_case(kind, dtype) for kind in FRIENDS]
     for c in cases:
         shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
                            c["outputs"].items())
         timed = f"  kernel {c['us']:.2f} us  plain {c['plain_us']:.2f} us" \
             f"  bound {c['bound_us']:.5f} us ({c['bound_by']})" \
             if "us" in c else ""
-        slots = f" m {c['m']}" if c.get("m") else ""
+        slots = f" m {c['m']}" if c.get("m") else \
+            f" N {c['nctrs']}" if c.get("nctrs") else ""
         print(f"unif wave {c['kernel']} {c['kind']} {tuple(c['shape'])} "
               f"ncdim {c['ncdim']}{slots} {c['situation']} {c['dtype']}: "
               f"bit-identical {c['identical']}/{c['total']} ({shares})"
@@ -4629,6 +4872,14 @@ def main_unif(cases, name):
                 c["shape"][0] == STEP_Q and c["situation"] == "overflow")
 
 
+def friends_unif(cases, kind, nctrs, n):
+    """The record of ``unif_valid``'s friends mode over ``kind`` about
+    ``nctrs`` centres in ``n`` dimensions at q 256 in float64."""
+    return next(c for c in cases if c["situation"] == "friends" and
+                (c["kind"], c["nctrs"], c["ncdim"]) == (kind, nctrs, n) and
+                c["dtype"] == "float64")
+
+
 def union_unif(cases, m):
     """The record of ``unif_valid`` over the union of ``m`` ellipsoids at
     (256, 3) in float64."""
@@ -4638,11 +4889,12 @@ def union_unif(cases, m):
 
 def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
     """``len(seeds)`` uniform rounds of ``q`` lanes on one round cache:
-    the balls drive's Gaussian with a blob, over the cube or three
-    ellipsoids around its mass, at a threshold that 4 % (over the cube)
-    or 0.5 % (over the ellipsoids) of the cube's points beat, so that a
-    round takes several waves.  Returns each round's packed columns, blob
-    and generator offset."""
+    the balls drive's Gaussian with a blob, over the cube, three
+    ellipsoids around its mass, or balls or cubes about 2048 centres, at a
+    threshold that 4 % (over the cube and the friends) or 0.5 % (over the
+    ellipsoids) of the cube's points beat, so that a round takes several
+    waves.  Returns each round's packed columns, blob and generator
+    offset."""
     from dynesty_tpu_torch.internal import kernels as tk
     arrays = unif_arrays(kind, NDIM, dtype)
     fn = tk.make_unif_round(like, ndim=NDIM, q=q, bound_kind=kind,
@@ -4650,7 +4902,7 @@ def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
                             rounds=cache)
     u = np.random.Generator(np.random.PCG64(SEED)).random((4000, NDIM))
     loglstar = float(np.quantile(like.eval_host(u)[1],
-                                 0.96 if kind == "cube" else 0.995))
+                                 0.995 if kind == "ellipsoids" else 0.96))
     outs = []
     for seed in seeds:
         gen = torch.Generator(device="cuda")
@@ -4663,21 +4915,23 @@ def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
 
 def captured_unif_phase(card):
     """Captured uniform waves against eager-launched ones on the same
-    inputs: the cube's waves and the ellipsoids' (their choice a
-    ``torch.multinomial`` inside the graph), float64 and float32, the
-    main width (256) and the narrow width (32), three rounds each on one
-    round cache (the first wave warms up, the second captures, every
-    later one replays), with a blob: every column, the blob and the
-    generator's offset bit for bit.  Then, for the cube's wave at (256,
-    3) in float64, the host time of one replayed wave with its wait and
-    flag read against one eager wave's, and CUDA events around
-    back-to-back replays; the replay's device-only time comes in the last
-    phase.  Returns the records and the timed graph."""
+    inputs: the cube's waves, the ellipsoids' (their choice a
+    ``torch.multinomial`` inside the graph) and the friends' over balls
+    and cubes about 2048 centres (the draws and ``unif_valid``'s friends
+    mode), float64 and float32, the main width (256) and the narrow width
+    (32), three rounds each on one round cache (the first wave warms up,
+    the second captures, every later one replays), with a blob: every
+    column, the blob and the generator's offset bit for bit.  Then, for
+    the cube's wave at (256, 3) in float64, the host time of one replayed
+    wave with its wait and flag read against one eager wave's, and CUDA
+    events around back-to-back replays; the replay's device-only time
+    comes in the last phase.  Returns the records, the timed graph and the
+    friends' float64 graphs at width 256 by kind."""
     from dynesty_tpu_torch.utils.misc import Timings
     _gauss_setup()
-    cases, timed = [], None
+    cases, timed, friends_timed = [], None, {}
     seeds = (SEED, SEED + 1, SEED + 2)
-    for kind in ("cube", "ellipsoids"):
+    for kind in ("cube", "ellipsoids") + FRIENDS:
         for dtype in (torch.float64, torch.float32):
             for q in (STEP_Q, 32):
                 tg, te, cache = Timings(), Timings(), {}
@@ -4712,6 +4966,8 @@ def captured_unif_phase(card):
                                        f"the eager-launched one: {rec}")
                 if (kind, dtype, q) == ("cube", torch.float64, STEP_Q):
                     timed = next(iter(cache.values()))
+                if kind in FRIENDS and (dtype, q) == (torch.float64, STEP_Q):
+                    friends_timed[kind] = next(iter(cache.values()))
                 print(f"captured-unif {kind} q {q} {rec['dtype']}: "
                       f"{len(seeds)} rounds bit-identical (columns, blob, "
                       f"generator offset), waves {waves} = replays "
@@ -4751,7 +5007,7 @@ def captured_unif_phase(card):
           f"{timing['eager_wave_events_us']:.2f} us  [{card}]")
     print(json.dumps({"phase": "captured-unif", "card": card,
                       "cases": cases, "timing": timing}))
-    return {"cases": cases, "timing": timing}, timed
+    return {"cases": cases, "timing": timing}, timed, friends_timed
 
 
 # --------------------------------------------------------------------------
@@ -5412,7 +5668,7 @@ def main():
     from dynesty_tpu_torch.internal import fused as tf
     tf.RoundGraphs.keep_nodes = True
     card = _card()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -5470,7 +5726,7 @@ def main():
     # phase 2f: the uniform wave's kernels against their plain versions,
     # and captured uniform waves against eager-launched ones
     unif_cases, unif_calls = unif_kernels_phase(card)
-    captured_unif, unif_timed = captured_unif_phase(card)
+    captured_unif, unif_timed, friends_timed = captured_unif_phase(card)
 
     # phase 2g: the doubling round's kernels against their plain versions,
     # and captured doubling rounds against eager-launched ones
@@ -5518,6 +5774,12 @@ def main():
     _print_drive("cubes/rslice nlive=2048", cubes, cubes["launches"], card)
     print(f"cubes refits against the plain version: max abs err "
           f"{cubes['refit_max_abs_err']:.3e}")
+
+    # phase 4b: balls-unif and cubes-unif, the main drive's problem and
+    # width sampled uniformly in its friends bound (bootstrap 5: the radius
+    # on the host), every wave through unif_valid's friends mode
+    friends_drives = {bound: friends_drive(dyt, hk, bound, card)
+                      for bound in FRIENDS}
 
     # phase 5: a refit large enough for the tensor-core path
     refit = refit_drive(dyt, hk)
@@ -5920,9 +6182,35 @@ def main():
     cu = captured_unif["timing"]
     cu["replay_device_us"] = 1e3 * _device_ms(unif_timed.graph.replay)
     heavy["wave_replay_device_ms"] = _device_ms(heavy_wave.graph.replay, 5)
+    cube_nodes = _graph_nodes(unif_timed.graph)
     cu["replay_kernels"] = check_replay_kernels(
         unif_timed.counted, unif_timed.graph,
-        "the captured cube wave")
+        "the captured cube wave", cube_nodes)
+    # the friends' waves: unif_valid's friends mode once a replay, and
+    # none of the eager union's launches left in the graph
+    cu["friends"] = {}
+    for fkind, wave in friends_timed.items():
+        rec = friends_wave_kernels(wave, fkind, cube_nodes)
+        rec["replay_device_us"] = 1e3 * _device_ms(wave.graph.replay)
+        cu["friends"][fkind] = rec
+        print(f"captured-unif {fkind} wave (256, 2048 centres, 3) float64 "
+              f"replay device only: {rec['replay_device_us']:.3f} us; "
+              f"hand-written kernels a replay (graph nodes) "
+              f"{rec['kernels']}; {rec['nodes']} kernel nodes (the cube "
+              f"wave's {rec['cube_nodes']}), matrix products, gathers, "
+              f"reductions {rec['ops']} (the cube wave's "
+              f"{rec['cube_ops']})  [{card}]")
+        print(f"  kernels: {rec['names']}")
+    for fcase, fn in _FRIENDS_CALLS.items():
+        rec = friends_unif(unif_cases, *fcase)
+        rec["device_us"] = 1e3 * _device_ms(fn, only="unif_valid")
+        print(f"unif wave unif_valid {fcase[0]} N {fcase[1]} (256, "
+              f"{fcase[2]}) float64 device only: kernel "
+              f"{rec['device_us']:.3f} us  "
+              f"events (through the wrapper) {rec['us']:.2f} us  plain "
+              f"{rec['plain_us']:.1f} us  bound {rec['bound_us']:.5f} us "
+              f"({rec['bound_by']})  launch floor {floor['device_us']:.3f} "
+              f"us  [{card}]")
     heavy["wave_replay_kernels"] = check_replay_kernels(
         heavy_wave.counted, heavy_wave.graph,
         "heavy's captured ellipsoid wave")
@@ -6007,7 +6295,9 @@ def main():
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
 
     # every drive consumed each of its fused rounds through the kernel
-    drives = {"balls": main, "cubes": cubes, "single": single,
+    drives = {"balls": main, "cubes": cubes,
+              "balls-unif": friends_drives["balls"],
+              "cubes-unif": friends_drives["cubes"], "single": single,
               "heavy": heavy, "default": default, "rwalk": rwalk,
               "slice": sl, "doubling": doubling, "doubling-balls": dballs,
               "resume": resumed, "dynamic3": dyn3, "dynamic-balls": dynballs,
@@ -6170,7 +6460,8 @@ def main():
                 "replaces": "dynesty_tpu/internal/kernels.py:148"
                 if name == "unif_valid" else
                 "dynesty_tpu/internal/kernels.py:366",
-                **({"replaces_also": ["dynesty_tpu/internal/kernels.py:366"]}
+                **({"replaces_also": ["dynesty_tpu/internal/kernels.py:366",
+                                      "dynesty_tpu/internal/kernels.py:178"]}
                    if name == "unif_valid" else {}),
                 "launches": sum(by_drive.values()),
                 "launches_by_drive": by_drive,
@@ -6190,6 +6481,15 @@ def main():
                     {k: union_unif(unif_cases, m)[k] for k in (
                         "m", "us", "plain_us", "device_us", "bound_us",
                         "bound_by")} for m in UNION_SLOTS],
+                    "friends": [
+                        {k: friends_unif(unif_cases, *key)[k] for k in (
+                            "kind", "nctrs", "ncdim", "us", "plain_us",
+                            "device_us", "bound_us", "bound_by")}
+                        for key in _FRIENDS_CALLS],
+                    "captured_friends": {
+                        fkind: {k: v for k, v in frec.items()
+                                if k != "names"}
+                        for fkind, frec in cu["friends"].items()},
                     **({"parent_bench": parent_of(name)} if parent else {})}
                    if name == "unif_valid" else {})}
 
@@ -6317,6 +6617,8 @@ def main():
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "compare": compares,
               "main": main, "cubes": cubes, "refit": refit,
+              "balls_unif": friends_drives["balls"],
+              "cubes_unif": friends_drives["cubes"],
               "single": single, "heavy": heavy,
               "default": default, "rwalk": rwalk, "slice": sl,
               "doubling": doubling, "doubling_balls": dballs,
@@ -6368,7 +6670,7 @@ def main():
                                  "the parent's record")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
 
 

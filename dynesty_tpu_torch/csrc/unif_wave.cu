@@ -3,9 +3,11 @@
 // Replaces the body of the JAX package's jitted lax.while_loop over the
 // rejection waves: dynesty_tpu/internal/kernels.py:366 body, :384-399 the
 // adaptive width and the lane's checks, :401-429 the compaction into the
-// round's slots, loop :433; and the membership count of the union of
-// ellipsoids, _sample_ellipsoid_union :148 (:165-174).  XLA runs all of it
-// on the device.  The port's wave (dynesty_tpu_torch/internal/kernels.py,
+// round's slots, loop :433; the membership count of the union of
+// ellipsoids, _sample_ellipsoid_union :148 (:165-174); and, after its
+// draws, the friends' union of balls or cubes, _sample_friends_union :178
+// (the candidate :194, the distances and overlap test :196-203).  XLA
+// runs all of it on the device.  The port's wave (dynesty_tpu_torch/internal/kernels.py,
 // UnifGraph.wave) draws its candidates with torch (the union's choice, the
 // ball and its map, the acceptance uniform) and calls the user's batched
 // likelihood between these two kernels; the
@@ -24,11 +26,18 @@
 //     (x - c)^T A (x - c) computed here from the round's centres and
 //     matrices (once a subtraction and an einsum with (q, m, ncdim)
 //     temporaries in torch), nin = the slots whose form is < 1 (or, where
-//     none is, <= 1 + 1e-3), nin > 0 and u_accept < 1 / nin; over balls
-//     and cubes the eager acceptance flag.  It also writes the
-//     likelihood's input into the round's buffers: the candidate and the
-//     other dimensions' uniforms (once a torch cat) and the same clamped
-//     into the cube (once a torch clamp).
+//     none is, <= 1 + 1e-3), nin > 0 and u_accept < 1 / nin.  Over
+//     balls and cubes its friends mode (unif_valid_kernel_friends, four
+//     warps a lane) forms each lane's candidate from its drawn centre and
+//     offset, x = c + offset @ axes, and counts the centres within
+//     distance 1 of it, each centre's (c_j - x) @ axes_inv measured by
+//     its Euclidean norm (balls) or its largest entry (cubes): nin = that
+//     count, at least 1, and u_accept < 1 / nin (once a gather, a cuBLAS
+//     product, two (q, N, ncdim) temporaries and ~8 more launches in
+//     torch).  It also writes the likelihood's input into the round's
+//     buffers: the candidate and the other dimensions' uniforms (once a
+//     torch cat) and the same clamped into the cube (once a torch
+//     clamp).
 //   unif_place, one block: a warp a word of 32 lanes (up to 16 warps,
 //     each taking every 16th word past that) and one warp for the state.
 //     success = valid & logl > loglstar (logl masked to -inf off the
@@ -60,7 +69,18 @@
 // clamp after it) and issues its loads in one trip; the union's few
 // centres and matrices are read from shared memory, copied there once a
 // block, a candidate of 2 or 3 dimensions is held in registers, and a
-// lane's forms are spread over up to a warp of threads.  The kernels take only device
+// lane's forms are spread over up to a warp of threads.  The friends'
+// mode has N centres, not a few slots: up to ~16,384 live points in 15
+// dimensions (1.97 MB in float64, past a block's shared memory), and
+// q N ncdim^2 products a wave, so it is bound by operations at large N
+// and ncdim and by the launch below.  Its design, simple first: four
+// warps a lane (its 128 threads over the centres j = sub, sub + 128, ...:
+// at q 256 only ~8 warps an SM, so each thread's chains are kept short
+// and side by side), two lanes a block sharing the centres, which pass
+// through shared memory in tiles of ~16 kB (any N), the inverse axes
+// staged once a block (held in registers at 2 and 3 dimensions, with the
+// candidate; else four entries of a distance summed side by side), the
+// counts summed by shuffles and shared memory.  The kernels take only device
 // pointers, so a replay reads the round's state, threshold and bound from
 // the same buffers as an eager launch.  Inside unif_place the time is
 // the launch (~0.8 us) and one chain: a trip to memory, the ballots, the
@@ -72,9 +92,12 @@
 //
 // Rounding: the comparisons are IEEE (NaN false), the counts integers, the
 // acceptance's 1 / nin one correctly rounded division (torch's reciprocal),
-// the quadratic forms in the fixed order of quad_form with a
-// round-to-nearest intrinsic for every difference, product and sum (never
-// contracted into an FMA), the clamp torch's (NaN passes), and the width
+// the quadratic forms in the fixed order of quad_form and the friends'
+// candidate and distances in the fixed order of friends_union_plain
+// (ops/proposals.py), with a round-to-nearest intrinsic for every
+// difference, product, sum and square root (never contracted into an
+// FMA), the cubes' largest entry NaN wherever one is NaN (torch's
+// maximum), the clamp torch's (NaN passes), and the width
 // the host's numpy float32 formula with a round-to-nearest intrinsic for
 // every product, quotient, sum and conversion.
 
@@ -96,6 +119,8 @@ template <> struct Op<double> {
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
+  static __device__ __forceinline__ double abs(double a) { return fabs(a); }
 };
 
 template <> struct Op<float> {
@@ -103,6 +128,8 @@ template <> struct Op<float> {
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
+  static __device__ __forceinline__ float abs(float a) { return fabsf(a); }
 };
 
 // threads a block of unif_valid
@@ -116,7 +143,6 @@ struct ValidArgs {
   const T* uc;          // (q, ncdim): the candidates
   const T* u_ex;        // (q, ndim - ncdim): the other dimensions, or null
   const T* ua;          // (q,) acceptance uniforms (over ellipsoids)
-  const bool* accept;   // (q,) friends' acceptance, or null
   const T* ctrs;        // (m, ncdim): the union's centres (with ams)
   const T* ams;         // (m, ncdim, ncdim): its quadratic forms' matrices
   const bool* mask;     // (m,) the valid slots
@@ -126,6 +152,24 @@ struct ValidArgs {
   T* u_prop;            // (q, ndim): the likelihood's input
   T* uclamp;            // (q, ndim): the same, clamped into the cube
   int q, ndim, ncdim, m;
+};
+
+// the friends' mode: a union of N identical balls or cubes
+template <typename T>
+struct FriendsArgs {
+  const T* offset;      // (q, ncdim): the draws in the unit ball or cube
+  const T* u_ex;        // (q, ndim - ncdim): the other dimensions, or null
+  const T* ua;          // (q,) acceptance uniforms
+  const i64* idx;       // (q,) each lane's centre
+  const T* ctrs;        // (N, ncdim): the centres
+  const T* axes;        // (ncdim, ncdim): the unit ball or cube to one
+  const T* axes_inv;    // (ncdim, ncdim): and back
+  const bool* strict;   // (ncdim,) or null: all bounded
+  const i64* state;
+  bool* valid;
+  T* u_prop;            // (q, ndim): the likelihood's input
+  T* uclamp;            // (q, ndim): the same, clamped into the cube
+  int q, ndim, ncdim, nctrs;
 };
 
 // A candidate's quadratic form in slot j, (x - c)^T A (x - c), in this
@@ -174,9 +218,9 @@ __device__ __forceinline__ T clamp01(T x) {
 
 // A dimension's value into the likelihood's input and its clamp; returns
 // its cube check (loose where the dimension is not bounded).
-template <typename T>
-__device__ __forceinline__ bool take(const ValidArgs<T>& a, i64 row, int i,
-                                     T xi, bool tight) {
+template <typename A, typename T>
+__device__ __forceinline__ bool take(const A& a, i64 row, int i, T xi,
+                                     bool tight) {
   a.u_prop[row + i] = xi;
   a.uclamp[row + i] = clamp01(xi);
   return tight ? (xi > (T)0.0 && xi < (T)1.0)
@@ -184,10 +228,10 @@ __device__ __forceinline__ bool take(const ValidArgs<T>& a, i64 row, int i,
 }
 
 // A lane is a group of W threads (a power of two up to a warp: the union's
-// slots, up to 32; one over the cube and the friends), BLOCK / W lanes a
-// block.  Every load of the lane is issued at once at the top (the
-// wave's width, the candidate's row and the cube check's mask, ua, the
-// friends' flag) with the block's copy of the union's centres, matrices
+// slots, up to 32; one over the cube), BLOCK / W lanes a block.  Every
+// load of the lane is issued at once at the top (the wave's width, the
+// candidate's row and the cube check's mask, ua) with the block's copy of
+// the union's centres, matrices
 // and mask into shared memory (`staged`; else they are read where they
 // are), before the block's one barrier.  Thread sub computes the forms of
 // the slots sub, sub + W, ... (the forms' dependent chains side by side
@@ -209,7 +253,6 @@ __global__ void __launch_bounds__(BLOCK) unif_valid_kernel(ValidArgs<T> a,
   T x[NX > 0 ? NX : 1];
   bool tight[NX > 0 ? NX : 1];
   T ua = (T)0.0;
-  bool acc = true;
   if (live) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
@@ -217,7 +260,6 @@ __global__ void __launch_bounds__(BLOCK) unif_valid_kernel(ValidArgs<T> a,
       tight[i] = a.strict == nullptr || a.strict[i];
     }
     if (m > 0) ua = a.ua[k];
-    if (a.accept != nullptr) acc = a.accept[k];
   }
   const T* ctrs = a.ctrs;
   const T* ams = a.ams;
@@ -284,7 +326,175 @@ __global__ void __launch_bounds__(BLOCK) unif_valid_kernel(ValidArgs<T> a,
     if (nin == 0) nin = nin_loose;  // the round-off rescue
     ok = ok && nin > 0 && ua < Op<T>::recip(nin);
   }
-  a.valid[k] = ok && acc;
+  a.valid[k] = ok;
+}
+
+// NaN wherever either is NaN, else the larger (torch's maximum)
+template <typename T>
+__device__ __forceinline__ T max_nan(T m, T v) {
+  return (v > m || isnan(v)) ? v : m;
+}
+
+// A lane's distance to a centre folded in, entry i of t = (c - x) @ B:
+// over balls acc + t_i t_i (t_0 t_0 first), over cubes the larger of acc
+// and |t_i| (NaN wherever one is NaN).
+template <typename T, bool CUBES>
+__device__ __forceinline__ T fold(T acc, T t, int i) {
+  typedef Op<T> O;
+  if (CUBES) return i == 0 ? O::abs(t) : max_nan(acc, O::abs(t));
+  const T p = O::mul(t, t);
+  return i == 0 ? p : O::add(acc, p);
+}
+
+// entries of t summed side by side in the generic loop
+const int SIDE = 4;
+
+// Whether the candidate lies within distance 1 of the centre c: t = (c -
+// x) @ B (B the inverse axes), t_i = d_0 B_0i + d_1 B_1i + ... left to
+// right with d_l = c_l - x_l; over balls sqrt(t_0 t_0 + t_1 t_1 + ...),
+// left to right, over cubes the largest |t_i|, at most 1 (NaN: not
+// within).  NX > 0: n == NX, the candidate and B in registers; NX == 0:
+// any n, read where they lie, SIDE entries of t at a time (their sums'
+// chains side by side, each d_l formed once for them: the same rounding
+// each time).
+template <typename T, int NX, bool CUBES>
+__device__ __forceinline__ bool within(const T (&x)[NX > 0 ? NX : 1],
+                                       const T (&b)[NX > 0 ? NX * NX : 1],
+                                       const T* xs, const T* bs, const T* c,
+                                       int n) {
+  typedef Op<T> O;
+  T acc = (T)0.0;
+  if (NX > 0) {
+    T d[NX > 0 ? NX : 1];
+#pragma unroll
+    for (int l = 0; l < NX; ++l) d[l] = O::sub(c[l], x[l]);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T t = O::mul(d[0], b[i]);
+#pragma unroll
+      for (int l = 1; l < NX; ++l) t = O::add(t, O::mul(d[l], b[l * NX + i]));
+      acc = fold<T, CUBES>(acc, t, i);
+    }
+  } else {
+    for (int i0 = 0; i0 < n; i0 += SIDE) {
+      T t[SIDE];
+      const T d0 = O::sub(c[0], xs[0]);
+#pragma unroll
+      for (int r = 0; r < SIDE; ++r)
+        t[r] = i0 + r < n ? O::mul(d0, bs[i0 + r]) : (T)0.0;
+      for (int l = 1; l < n; ++l) {
+        const T d = O::sub(c[l], xs[l]);
+#pragma unroll
+        for (int r = 0; r < SIDE; ++r)
+          if (i0 + r < n) t[r] = O::add(t[r], O::mul(d, bs[l * n + i0 + r]));
+      }
+#pragma unroll
+      for (int r = 0; r < SIDE; ++r)
+        if (i0 + r < n) acc = fold<T, CUBES>(acc, t[r], i0 + r);
+    }
+  }
+  if (!CUBES) acc = O::sqrt(acc);
+  return acc <= (T)1.0;
+}
+
+// The friends' mode's block: lanes of FRIENDS_WARPS warps each (a lane's
+// threads over its centres: ~8 warps an SM at q 256), two a block
+const int FRIENDS_WARPS = 4;
+const int FRIENDS_W = 32 * FRIENDS_WARPS;
+const int FRIENDS_BLOCK = 2 * FRIENDS_W;
+const int FRIENDS_LANES = FRIENDS_BLOCK / FRIENDS_W;
+
+// The friends' mode: threads g W .. g W + W - 1 of the block (W =
+// FRIENDS_W) are lane k.  Thread sub forms the candidate's dimensions
+// sub, sub + W, ... (x_i = c_i + (o_0 A_0i + o_1 A_1i + ...), left to
+// right), writes them into the likelihood's input and the block's copy
+// of the candidate, with the cube check (a ballot a warp); the block
+// stages the inverse axes (`staged`) and then, tile by tile of `tile`
+// centres, copies the centres into shared memory, where thread sub
+// counts the tile's centres sub, sub + W, ... that hold x.  The counts
+// and cube checks meet by shuffles and shared memory; thread 0 writes
+// the lane's flag.
+template <typename T, int NX, bool CUBES>
+__global__ void __launch_bounds__(FRIENDS_BLOCK) unif_valid_kernel_friends(
+    FriendsArgs<T> a, int tile, int staged) {
+  typedef Op<T> O;
+  extern __shared__ double smem_friends[];
+  __shared__ int scount[FRIENDS_LANES * FRIENDS_WARPS];
+  __shared__ int svote[FRIENDS_LANES * FRIENDS_WARPS];
+  const unsigned FULL = 0xffffffffu;
+  const int t = threadIdx.x, g = t / FRIENDS_W, sub = t - g * FRIENDS_W;
+  const int k = blockIdx.x * FRIENDS_LANES + g;
+  const bool live = k < a.q;
+  const int n = NX > 0 ? NX : a.ncdim;
+  T* sb = (T*)smem_friends;                 // n * n where staged
+  T* sx = sb + (staged ? n * n : 0);        // FRIENDS_LANES * n
+  T* sc = sx + FRIENDS_LANES * n;           // tile * n
+  const i64 width = a.state[S_WIDTH];
+  i64 c = 0;
+  T ua = (T)0.0;
+  if (live) {
+    c = a.idx[k];
+    ua = a.ua[k];
+  }
+  if (staged)
+    for (int j = t; j < n * n; j += FRIENDS_BLOCK) sb[j] = a.axes_inv[j];
+
+  // the candidate and the likelihood's input: the thread's dimensions
+  bool in = true;
+  if (live) {
+    const T* o = a.offset + (i64)k * n;
+    const T* cr = a.ctrs + c * n;
+    const i64 row = (i64)k * a.ndim;
+    for (int i = sub; i < n; i += FRIENDS_W) {
+      T s = O::mul(o[0], a.axes[i]);
+      for (int l = 1; l < n; ++l) s = O::add(s, O::mul(o[l], a.axes[l * n + i]));
+      const T xi = O::add(cr[i], s);
+      sx[g * n + i] = xi;
+      in = take(a, row, i, xi, a.strict == nullptr || a.strict[i]) && in;
+    }
+    const int nex = a.ndim - n;
+    for (int i = sub; i < nex; i += FRIENDS_W) {
+      const T e = a.u_ex[(i64)k * nex + i];
+      a.u_prop[row + n + i] = e;
+      a.uclamp[row + n + i] = clamp01(e);
+    }
+  }
+  const unsigned vote = __ballot_sync(FULL, in);
+  if ((t & 31) == 0) svote[t >> 5] = vote == FULL;
+  __syncthreads();
+  const T* xs = sx + g * n;
+  const T* bs = staged ? sb : a.axes_inv;
+  T x[NX > 0 ? NX : 1];
+  T b[NX > 0 ? NX * NX : 1];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xs[i];
+#pragma unroll
+  for (int j = 0; j < NX * NX; ++j) b[j] = bs[j];
+
+  // the centres within distance 1, tile by tile
+  int nin = 0;
+  for (int j0 = 0; j0 < a.nctrs; j0 += tile) {
+    const int nt = min(tile, a.nctrs - j0);
+    if (j0 > 0) __syncthreads();  // every lane is done with the last tile
+    const T* src = a.ctrs + (i64)j0 * n;
+    for (int e = t; e < nt * n; e += FRIENDS_BLOCK) sc[e] = src[e];
+    __syncthreads();
+    if (live)
+      for (int j = sub; j < nt; j += FRIENDS_W)
+        nin += within<T, NX, CUBES>(x, b, xs, bs, sc + j * n, n);
+  }
+  for (int o = 16; o > 0; o >>= 1) nin += __shfl_xor_sync(FULL, nin, o);
+  if ((t & 31) == 0) scount[t >> 5] = nin;
+  __syncthreads();
+  if (!live || sub != 0) return;
+  int all = 0;
+  bool cube = true;
+  for (int w = 0; w < FRIENDS_WARPS; ++w) {
+    all += scount[g * FRIENDS_WARPS + w];
+    cube = cube && svote[g * FRIENDS_WARPS + w];
+  }
+  // the chosen centre holds x: nin is at least 1
+  a.valid[k] = (i64)k < width && cube && ua < O::recip(all > 1 ? all : 1);
 }
 
 // n values from src to dst, each chunk's loads issued before its stores
@@ -509,16 +719,15 @@ void launch_valid_nx(const ValidArgs<T>& a, unsigned grid, size_t smem,
 template <typename T>
 int launch_valid(void* const* p, int q, int ndim, int ncdim, int m,
                  void* stream) {
-  if (q < 1 || ncdim < 1 || ndim < ncdim || m < 0 || !p[0] || !p[8] ||
-      !p[9] || !p[10] || !p[11] || (ndim > ncdim && !p[1]) ||
-      (m > 0 && (!p[2] || !p[4] || !p[5] || !p[6])))
+  if (q < 1 || ncdim < 1 || ndim < ncdim || m < 0 || !p[0] || !p[7] ||
+      !p[8] || !p[9] || !p[10] || (ndim > ncdim && !p[1]) ||
+      (m > 0 && (!p[2] || !p[3] || !p[4] || !p[5])))
     return (int)cudaErrorInvalidValue;
-  ValidArgs<T> a{(const T*)p[0],     (const T*)p[1],    (const T*)p[2],
-                 (const bool*)p[3],  (const T*)p[4],    (const T*)p[5],
-                 (const bool*)p[6],  (const bool*)p[7], (const i64*)p[8],
-                 (bool*)p[9],        (T*)p[10],         (T*)p[11],
-                 q,                  ndim,              ncdim,
-                 m};
+  ValidArgs<T> a{(const T*)p[0],    (const T*)p[1],    (const T*)p[2],
+                 (const T*)p[3],    (const T*)p[4],    (const bool*)p[5],
+                 (const bool*)p[6], (const i64*)p[7],  (bool*)p[8],
+                 (T*)p[9],          (T*)p[10],         q,
+                 ndim,              ncdim,             m};
   // the union's arrays staged in shared memory where they fit the
   // default 48 kB
   const size_t bytes =
@@ -537,6 +746,55 @@ int launch_valid(void* const* p, int q, int ndim, int ncdim, int m,
   else
     launch_valid_nx<T, 0>(a, grid, smem, staged, W, st);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NX, bool CUBES>
+int launch_friends_nx(const FriendsArgs<T>& a, unsigned grid, size_t smem,
+                      int tile, int staged, cudaStream_t stream) {
+  if (smem > 47 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        unif_valid_kernel_friends<T, NX, CUBES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  unif_valid_kernel_friends<T, NX, CUBES>
+      <<<grid, FRIENDS_BLOCK, smem, stream>>>(a, tile, staged);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool CUBES>
+int launch_friends(void* const* p, int q, int ndim, int ncdim, int nctrs,
+                   void* stream) {
+  if (q < 1 || ncdim < 1 || ndim < ncdim || nctrs < 1 || !p[0] || !p[2] ||
+      !p[3] || !p[4] || !p[5] || !p[6] || !p[8] || !p[9] || !p[10] ||
+      !p[11] || (ndim > ncdim && !p[1]))
+    return (int)cudaErrorInvalidValue;
+  FriendsArgs<T> a{(const T*)p[0],    (const T*)p[1],   (const T*)p[2],
+                   (const i64*)p[3],  (const T*)p[4],   (const T*)p[5],
+                   (const T*)p[6],    (const bool*)p[7], (const i64*)p[8],
+                   (bool*)p[9],       (T*)p[10],        (T*)p[11],
+                   q,                 ndim,             ncdim,
+                   nctrs};
+  // a tile of centres of ~16 kB, a whole number of a lane's threads'
+  // worth, no more than N rounded up to that; the lanes' candidates; the
+  // inverse axes staged where all three fit the default 48 kB beside the
+  // static counts (else read where they lie)
+  const size_t sz = sizeof(T);
+  int tile = (int)(16384 / ((size_t)ncdim * sz)) / FRIENDS_W * FRIENDS_W;
+  tile = tile < FRIENDS_W ? FRIENDS_W : tile > 1024 ? 1024 : tile;
+  const int need = (nctrs + FRIENDS_W - 1) / FRIENDS_W * FRIENDS_W;
+  tile = tile < need ? tile : need;
+  const size_t base = (size_t)(FRIENDS_LANES + tile) * ncdim * sz;
+  const size_t inv = (size_t)ncdim * ncdim * sz;
+  const int staged = base + inv <= 47 * 1024;
+  const size_t smem = base + (staged ? inv : 0);
+  const unsigned grid = (unsigned)((q + FRIENDS_LANES - 1) / FRIENDS_LANES);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (UNIF_VALID_ROW_REGISTERS && ncdim == 2)
+    return launch_friends_nx<T, 2, CUBES>(a, grid, smem, tile, staged, st);
+  if (UNIF_VALID_ROW_REGISTERS && ncdim == 3)
+    return launch_friends_nx<T, 3, CUBES>(a, grid, smem, tile, staged, st);
+  return launch_friends_nx<T, 0, CUBES>(a, grid, smem, tile, staged, st);
 }
 
 template <typename T>
@@ -569,6 +827,16 @@ int launch_place(void* const* p, int q, int ndim, int npdim, void* stream) {
                                           int ndim, int ncdim, int m,      \
                                           void* stream) {                  \
     return launch_valid<T>(p, q, ndim, ncdim, m, stream);                  \
+  }                                                                        \
+  extern "C" int dynesty_unif_balls_##TAG(void* const* p, int q,           \
+                                          int ndim, int ncdim, int nctrs,  \
+                                          void* stream) {                  \
+    return launch_friends<T, false>(p, q, ndim, ncdim, nctrs, stream);     \
+  }                                                                        \
+  extern "C" int dynesty_unif_cubes_##TAG(void* const* p, int q,           \
+                                          int ndim, int ncdim, int nctrs,  \
+                                          void* stream) {                  \
+    return launch_friends<T, true>(p, q, ndim, ncdim, nctrs, stream);      \
   }                                                                        \
   extern "C" int dynesty_unif_place_##TAG(void* const* p, int q, int ndim, \
                                           int npdim, int unused,           \

@@ -47,13 +47,14 @@ from ..ops.ellipsoid_refit import (REFIT_FIELDS, EllipsoidRefit,
                                    ellipsoid_refit, ellipsoid_refit_plain)
 from ..ops.geometry import randsphere_batch
 from ..ops.proposals import (P_START_L, P_START_R, S_CANDIDATE, S_RESOLVE,
-                             UNIF_ARRAYS, UNIF_FORMS,
+                             UNIF_ARRAYS, UNIF_FRIENDS,
                              U_FILLED, U_NC, U_PENDING, U_PROP, X_DOUBLE,
                              X_INIT, DoublingRound, RWalkRound, SliceRound,
                              UnifRound, doubling_expand, doubling_halve,
-                             doubling_point, doubling_shrink, rwalk_accept,
+                             doubling_point, doubling_shrink,
+                             friends_union_plain, rwalk_accept,
                              rwalk_propose, slice_advance, slice_propose,
-                             unif_place, unif_valid)
+                             unif_laid_out, unif_place, unif_valid)
 from ..utils.misc import release_default_generator, tree_map
 
 __all__ = ["f32_precision", "pack_columns", "make_unif_round",
@@ -183,34 +184,32 @@ def _sample_ellipsoid_union(gen, arrays, q, ncdim, dtype):
     return x, ua
 
 
-def _sample_friends_union(gen, arrays, q, ncdim, dtype, ftype):
-    """Draw ``q`` candidates from a union of identical balls/cubes centred
-    at ``arrays['ctrs']`` (the live points of the last refit), with 1/q
-    overlap rejection.  Random numbers from ``gen`` in a fixed order:
-    centre, offset, acceptance."""
-    ctrs = arrays["ctrs"].to(dtype)
-    axes = arrays["axes"].to(dtype)
-    axes_inv = arrays["axes_inv"].to(dtype)
-    device = ctrs.device
-    idx = torch.randint(0, ctrs.shape[0], (q,), generator=gen,
-                        device=device)
+def _friends_draws(gen, nctrs, q, ncdim, dtype, ftype, device):
+    """The draws of a wave over a union of ``nctrs`` identical balls or
+    cubes, from ``gen`` in a fixed order: each lane's centre, its offset
+    in the unit ball (``ftype`` 'balls') or cube, its acceptance uniform.
+    Returns ``(idx (q,), offset (q, ncdim), ua (q,))``."""
+    idx = torch.randint(0, nctrs, (q,), generator=gen, device=device)
     if ftype == "balls":
         offset = randsphere_batch(gen, (q,), ncdim, dtype, device)
     else:
         offset = torch.rand((q, ncdim), generator=gen, dtype=dtype,
                             device=device) * 2.0 - 1.0
-    x = ctrs[idx] + offset @ axes  # axes is symmetric (sqrtm)
+    ua = torch.rand((q,), generator=gen, dtype=dtype, device=device)
+    return idx, offset, ua
 
-    dt = torch.einsum("qmi,ij->qmj", ctrs[None, :, :] - x[:, None, :],
-                      axes_inv)
-    if ftype == "balls":
-        dist = torch.linalg.vector_norm(dt, dim=-1)
-    else:
-        dist = dt.abs().amax(dim=-1)
-    nin = (dist <= 1.0).sum(dim=1).clamp_min(1)  # the chosen centre holds x
-    accept = torch.rand((q,), generator=gen, dtype=dtype, device=device) < \
-        1.0 / nin.to(dtype)
-    return x, accept
+
+def _sample_friends_union(gen, arrays, q, ncdim, dtype, ftype):
+    """Draw ``q`` candidates from a union of identical balls/cubes centred
+    at ``arrays['ctrs']`` (the live points of the last refit), with 1/q
+    overlap rejection: :func:`_friends_draws`, then
+    :func:`~dynesty_tpu_torch.ops.proposals.friends_union_plain` (a wave
+    on the card passes the draws to ``unif_valid``, whose kernel forms
+    the same).  Returns (points (q, ncdim), acceptance (q,))."""
+    ctrs, axes, axes_inv = (arrays[k].to(dtype) for k in UNIF_FRIENDS)
+    idx, offset, ua = _friends_draws(gen, ctrs.shape[0], q, ncdim, dtype,
+                                     ftype, ctrs.device)
+    return friends_union_plain(ftype, idx, offset, ua, ctrs, axes, axes_inv)
 
 
 def make_ellipsoid_refit(ncdim, dtype=torch.float64):
@@ -470,18 +469,18 @@ class UnifGraph(_RoundGraph):
             if getattr(like, "blob", False) else None
 
     def draws(self, gen, host_sampler=None):
-        """``draw() -> (uc, ua, accept, u_ex)``: a wave's candidates in
-        the bound's dimensions, what the lane checks read (the ellipsoids'
-        acceptance uniforms, the friends' acceptance), and the other
-        dimensions' uniforms (None when ``ncdim == ndim``), drawn from
-        ``gen`` in the eager round's order, or over a user's bound from
-        ``host_sampler()``."""
+        """``draw() -> (uc, ua, idx, u_ex)``: a wave's candidates in the
+        bound's dimensions (over balls and cubes their offsets from their
+        centres ``idx``), the acceptance uniforms (over ellipsoids, balls
+        and cubes), and the other dimensions' uniforms (None when ``ncdim
+        == ndim``), drawn from ``gen`` in the eager round's order, or over
+        a user's bound from ``host_sampler()``."""
         rb, kind = self.rb, self.kind
         q, ncdim, dtype, device = rb.q, rb.ncdim, rb.dtype, rb.device
         n_extra = rb.ndim - ncdim
 
         def draw():
-            ua = accept = None
+            ua = idx = None
             if kind == "cube":
                 uc = torch.rand((q, ncdim), generator=gen, dtype=dtype,
                                 device=device)
@@ -492,11 +491,11 @@ class UnifGraph(_RoundGraph):
                 uc = torch.as_tensor(np.asarray(host_sampler()),
                                      dtype=dtype, device=device).contiguous()
             else:
-                uc, accept = _sample_friends_union(gen, rb.arrays, q, ncdim,
-                                                   dtype, kind)
+                idx, uc, ua = _friends_draws(gen, rb.nctrs, q, ncdim, dtype,
+                                             kind, device)
             u_ex = torch.rand((q, n_extra), generator=gen, dtype=dtype,
                               device=device) if n_extra > 0 else None
-            return uc, ua, accept, u_ex
+            return uc, ua, idx, u_ex
 
         return draw
 
@@ -509,11 +508,11 @@ class UnifGraph(_RoundGraph):
         draws and the likelihood's outputs are held to what the kernels
         read."""
         rb = self.rb
-        uc, ua, accept, u_ex = draw()
+        uc, ua, idx, u_ex = draw()
         check = check and rb.device.type == "cuda"
         if check:
-            rb.check_draws(uc, ua, accept, u_ex)
-        unif_valid(rb, uc, ua, accept, u_ex)
+            rb.check_draws(uc, ua, idx, u_ex)
+        unif_valid(rb, uc, ua, idx, u_ex)
         v, logl, blob = self.like.batch_eval(rb.uclamp, mask=rb.valid)
         # the round's dtype, in the layout the kernel reads
         v = v.to(rb.dtype).contiguous()
@@ -577,19 +576,23 @@ def unif_graph(rounds, like, kind, q, ndim, ncdim, dtype, device,
     The shape includes the bound kind, the cube check's mask (read on the
     host: give it there), the blob, and the shapes, layouts and dtypes of
     the bound's arrays that a wave reads (the padded ellipsoid count
-    among them); of the union's ``UNIF_FORMS``, which the round lays out
-    itself, the shapes only."""
+    among them: over balls and cubes the centres' count); of the arrays
+    that the round lays out itself (the union's ``UNIF_FORMS``, the
+    friends' ``UNIF_FRIENDS``), the shapes only."""
     layout = {k: (tuple(arrays[k].shape), arrays[k].stride(),
                   arrays[k].storage_offset(), arrays[k].dtype)
               for k in UNIF_ARRAYS[kind]}
+    friends = kind if kind in ("balls", "cubes") else None
+    own = unif_laid_out(layout, friends)
     key = ("unif", kind, q, ndim, ncdim, like.npdim, dtype, str(device),
            _mask_key(strict), bool(getattr(like, "blob", False))) + \
-        tuple(sorted((k, v[:1] if kind == "ellipsoids" and k in UNIF_FORMS
-                      else v) for k, v in layout.items()))
+        tuple(sorted((k, v[:1] if k in own else v)
+                     for k, v in layout.items()))
     entry = None if rounds is None else rounds.get(key)
     if entry is None or entry.like is not like:
         entry = UnifGraph(like, UnifRound(q, ndim, ncdim, like.npdim, dtype,
-                                          device, strict, layout), kind)
+                                          device, strict, layout, friends),
+                          kind)
         if rounds is not None:
             rounds[key] = entry
     return entry

@@ -20,8 +20,10 @@ are the kernels here:
   cube, the move, the tallies), ``csrc/rwalk_step.cu``;
 * :func:`unif_valid` (a uniform wave's lane checks: the wave's width, the
   cube check, the union of ellipsoids' quadratic forms, membership count
-  and overlap test or the friends' acceptance; and the likelihood's input,
-  the candidates with the other dimensions, clamped) and
+  and overlap test, or over balls and cubes the candidate from its
+  centre and offset, its distance to every centre, the count and the
+  overlap test; and the likelihood's input, the candidates with the
+  other dimensions, clamped) and
   :func:`unif_place` (the likelihood's
   -inf mask, the successes compacted into the round's free slots, the
   per-slot evaluations, the round's counts, the next wave's width and the
@@ -39,10 +41,13 @@ are the kernels here:
   the JAX package's loop bodies ``:594-607``, ``:640-655``, ``:569-585``
   and ``:670-693`` of the doubling ``make_slice_round``.
 
-Random draws and the matrix products stay torch calls (their Philox
-streams and reduction orders are torch's own).  On a CUDA tensor each
-wrapper launches its kernel or raises; on a CPU tensor it runs its plain
-version, the eager code the kernel is held against bit for bit.
+Random draws and the matrix products around them stay torch calls
+(their Philox streams and reduction orders are torch's own), but for the
+products that ``unif_valid`` forms itself in a fixed order (the union of
+ellipsoids' quadratic forms, the friends' candidates and distances).  On
+a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its plain version, the eager code the kernel is held
+against bit for bit.
 
 A slice round runs on a :class:`SliceRound` (a :class:`DoublingRound` in
 doubling mode), a random-walk round on an :class:`RWalkRound`, a uniform
@@ -71,6 +76,8 @@ __all__ = ["SliceRound", "slice_init", "slice_propose",
            "rwalk_accept_plain", "UnifRound", "UNIF_ARRAYS",
            "unif_width_plain", "unif_valid", "unif_valid_plain",
            "ellipsoid_forms_plain", "unif_input_plain", "UNIF_FORMS",
+           "UNIF_FRIENDS", "unif_laid_out", "friends_union_plain",
+           "unif_valid_round_plain",
            "unif_place", "unif_place_plain", "DoublingRound",
            "doubling_point", "doubling_point_plain", "doubling_expand",
            "doubling_expand_plain", "doubling_halve",
@@ -615,6 +622,18 @@ UNIF_ARRAYS = {"cube": (), "custom": (),
 # lays out itself: contiguous, the centres and matrices in its dtype (the
 # draws' gather of the centres reads the same values in any layout)
 UNIF_FORMS = ("ctrs", "ams", "mask")
+# the friends' arrays (balls and cubes) that unif_valid reads, all laid out
+# by the round: contiguous, in its dtype (the draws read none of them)
+UNIF_FRIENDS = ("ctrs", "axes", "axes_inv")
+
+
+def unif_laid_out(layout, friends=None):
+    """The bound's arrays of ``layout`` that a :class:`UnifRound` lays out
+    itself, contiguous in its dtype, for the ``unif_valid`` kernel: over
+    balls and cubes (``friends``) ``UNIF_FRIENDS``, over a union of
+    ellipsoids ``UNIF_FORMS``, else none."""
+    return UNIF_FRIENDS if friends else \
+        UNIF_FORMS if "ams" in layout else ()
 
 
 def unif_width_plain(q, n_filled, n_prop):
@@ -654,6 +673,44 @@ def ellipsoid_forms_plain(uc, ctrs, ams):
     return sq
 
 
+def friends_union_plain(ftype, idx, offset, ua, ctrs, axes, axes_inv):
+    """A wave's candidates and acceptance over a union of ``N`` identical
+    balls or cubes (``ftype`` 'balls' or 'cubes') about the centres
+    ``ctrs`` (N, n), from its draws: each lane's centre ``idx`` (q,), its
+    offset in the unit ball or cube ``offset`` (q, n) and its acceptance
+    uniform ``ua`` (q,); ``axes`` and ``axes_inv`` (n, n) map the unit
+    ball or cube onto one ball or cube and back.  In the ``unif_valid``
+    kernel's order, one elementwise op at a time (each rounds once): the
+    candidate ``x_i = c_i + (o_0 A_0i + o_1 A_1i + ...)``, the sum left
+    to right; for every centre ``d = c_j - x`` and ``t_i = d_0 B_0i + d_1
+    B_1i + ...`` (B the inverse), left to right; its distance, over balls
+    the square root of ``t_0 t_0 + t_1 t_1 + ...`` (left to right), over
+    cubes the largest ``|t_i|`` (NaN where any is NaN); ``nin``, the
+    centres at distance <= 1, at least 1 (the chosen centre holds x);
+    and ``ua < 1 / nin``.  Returns ``(x (q, n), accept (q,))``."""
+    n = offset.shape[1]
+    s = offset[:, :1] * axes[0]
+    for l in range(1, n):
+        s = s + offset[:, l:l + 1] * axes[l]
+    x = ctrs[idx] + s
+    d = ctrs[None, :, :] - x[:, None, :]
+    t = d[..., :1] * axes_inv[0]
+    for l in range(1, n):
+        t = t + d[..., l:l + 1] * axes_inv[l]
+    if ftype == "balls":
+        dist = t[..., 0] * t[..., 0]
+        for i in range(1, n):
+            dist = dist + t[..., i] * t[..., i]
+        dist = torch.sqrt(dist)
+    else:
+        a = t.abs()
+        dist = a[..., 0]
+        for i in range(1, n):
+            dist = torch.maximum(dist, a[..., i])
+    nin = (dist <= 1.0).sum(dim=1).clamp_min(1)
+    return x, ua < 1.0 / nin.to(ua.dtype)
+
+
 def unif_valid_plain(uc, width, strict=None, ctrs=None, ams=None,
                      mask=None, ua=None, accept=None):
     """Which lanes of a wave count as launched, valid proposals: the lane
@@ -664,7 +721,8 @@ def unif_valid_plain(uc, width, strict=None, ctrs=None, ams=None,
     slots, ``ua`` (q,) the acceptance uniforms) it lies in ``nin`` > 0 of
     them (the round-off rescue counting ``sq <= 1 + 1e-3`` where no ``sq <
     1``) and passes the 1/nin overlap test; over balls and cubes, where
-    ``accept`` (q,) holds.  Returns ``valid`` (q,)."""
+    ``accept`` (q,) holds (:func:`friends_union_plain`'s).  Returns
+    ``valid`` (q,)."""
     lanes = torch.arange(uc.shape[0], device=uc.device)
     valid = (lanes < width) & unitcheck_batch(uc, strict)
     if ams is not None:
@@ -678,6 +736,23 @@ def unif_valid_plain(uc, width, strict=None, ctrs=None, ams=None,
     if accept is not None:
         valid = valid & accept
     return valid
+
+
+def unif_valid_round_plain(rb, uc, ua=None, idx=None, u_ex=None):
+    """What :func:`unif_valid` writes on the round ``rb`` for a wave's
+    draws, from the round's state, arrays and mask: ``(valid, u_prop,
+    uclamp)``; over balls and cubes ``uc`` holds the offsets and the
+    candidates are :func:`friends_union_plain`'s."""
+    accept = None
+    if rb.friends is not None:
+        a = rb.arrays
+        uc, accept = friends_union_plain(rb.friends, idx, uc, ua,
+                                         *(a[k] for k in UNIF_FRIENDS))
+        ua = None
+    forms = [rb.arrays[k] if rb.m else None for k in UNIF_FORMS]
+    valid = unif_valid_plain(uc, rb.state[U_WIDTH], rb.strict, *forms, ua,
+                             accept)
+    return (valid,) + unif_input_plain(uc, u_ex)
 
 
 def unif_input_plain(uc, u_ex=None):
@@ -741,7 +816,9 @@ class UnifRound:
     they read before the buffers existed and sum in the order they
     summed; but a union of ellipsoids' ``UNIF_FORMS``, which the
     ``unif_valid`` kernel reads, contiguous, the centres and matrices in
-    the round's dtype), the cube check's ``strict`` mask, and a wave's
+    the round's dtype, and so every array of a union of balls or cubes,
+    ``UNIF_FRIENDS``, where ``friends`` names it: 'balls' or 'cubes'),
+    the cube check's ``strict`` mask, and a wave's
     outputs (``valid``; ``u_prop`` and ``uclamp`` (q, ndim), the
     likelihood's input and the same clamped into the cube; ``dest``: each
     lane's row, for the blob's indexed copy).
@@ -753,7 +830,7 @@ class UnifRound:
     captured as a CUDA graph."""
 
     def __init__(self, q, ndim, ncdim, npdim, dtype, device, strict=None,
-                 arrays_layout=None):
+                 arrays_layout=None, friends=None):
         fn = "UnifRound"
         device = torch.device(device)
         if device.type not in ("cpu", "cuda"):
@@ -780,14 +857,22 @@ class UnifRound:
         self.slots = {"u": e((q + 1, ndim)), "v": e((q + 1, npdim)),
                       "logl": e((q + 1,)), "nc": e((q + 1,), torch.int64)}
         layout = arrays_layout or {}
-        forms = "ams" in layout
+        if friends not in (None, "balls", "cubes"):
+            raise ValueError(f"{fn}: no friends kind {friends!r}")
+        if friends is not None and set(layout) != set(UNIF_FRIENDS):
+            raise ValueError(f"{fn}: {friends} take the arrays "
+                             f"{UNIF_FRIENDS}, got {tuple(layout)}")
+        self.friends = friends
+        own = unif_laid_out(layout, friends)
         self.arrays = {
             k: e(shape, torch.bool if k == "mask" else dtype)
-            if forms and k in UNIF_FORMS else
+            if k in own else
             _strided_empty(shape, stride, offset, dt, device)
             for k, (shape, stride, offset, dt) in layout.items()}
         self.m = self.arrays["mask"].shape[0] if "mask" in self.arrays \
             else 0
+        # the friends' centres
+        self.nctrs = self.arrays["ctrs"].shape[0] if friends else 0
         self.strict = None
         if strict is not None:
             if not isinstance(strict, torch.Tensor):
@@ -833,36 +918,53 @@ class UnifRound:
             buf.copy_(arrays[k])
 
     def _bind(self):
-        """Fill both kernels' argument tables; a wave's candidates and
-        draws and the likelihood's outputs are written into them at each
-        launch."""
+        """Fill both kernels' argument tables (``unif_valid``'s in the
+        order of its kernel's struct: ``ValidArgs``, over balls and cubes
+        ``FriendsArgs``); a wave's candidates and draws and the
+        likelihood's outputs are written into them at each launch."""
         s, a = self.slots, self.arrays
-        valid = (None, None, None, None) + tuple(
-            a.get(k) if self.m else None for k in UNIF_FORMS) + (
-            self.strict, self.state, self.valid, self.u_prop, self.uclamp)
+        outs = (self.strict, self.state, self.valid, self.u_prop,
+                self.uclamp)
+        tag = _DTYPES[self.dtype]
+        if self.friends:
+            valid = (None,) * 4 + tuple(a[k] for k in UNIF_FRIENDS) + outs
+            self._valid_fn = _entry("unif_wave", f"unif_{self.friends}",
+                                    tag)
+        else:
+            valid = (None,) * 3 + tuple(
+                a.get(k) if self.m else None for k in UNIF_FORMS) + outs
+            self._valid_fn = _entry("unif_wave", "unif_valid", tag)
+        self._valid_ints = (self.q, self.ndim, self.ncdim,
+                            self.nctrs if self.friends else self.m)
         place = (self.valid, None, None, None, self.loglstar, self.state,
                  self.done, s["u"], s["v"], s["logl"], s["nc"], self.dest)
         self._valid_args = _pointer_table(valid)
         self._place_args = _pointer_table(place)
-        tag = _DTYPES[self.dtype]
-        self._valid_fn = _entry("unif_wave", "unif_valid", tag)
         self._place_fn = _entry("unif_wave", "unif_place", tag)
 
-    def check_draws(self, uc, ua, accept, u_ex):
+    def check_draws(self, uc, ua, idx, u_ex):
         """Raise unless a wave's candidates and draws are what the kernels
-        read: ``uc`` (q, ncdim), over ellipsoids ``ua`` (q,), over balls
-        and cubes ``accept`` (q,) bool, and ``u_ex`` (q, ndim - ncdim;
-        None exactly where ncdim == ndim), contiguous tensors of the
-        round's dtype on its device."""
+        read: ``uc`` (q, ncdim; over balls and cubes the offsets), over
+        ellipsoids, balls and cubes ``ua`` (q,), over balls and cubes
+        ``idx`` (q,) int64, each lane's centre (checked to lie in range:
+        one device read), and ``u_ex`` (q, ndim - ncdim; None exactly
+        where ncdim == ndim), contiguous tensors of the round's dtype on
+        its device."""
         q, dt, dev = self.q, self.dtype, self.device
         _check("unif_valid", "uc", uc, (q, self.ncdim), dt, dev)
-        if (ua is None) != (self.m == 0):
+        if (ua is None) != (self.m == 0 and self.friends is None):
             raise ValueError("unif_valid: ua must be given exactly over a "
-                             "union of ellipsoids")
+                             "union of ellipsoids, balls or cubes")
         if ua is not None:
             _check("unif_valid", "ua", ua, (q,), dt, dev)
-        if accept is not None:
-            _check("unif_valid", "accept", accept, (q,), torch.bool, dev)
+        if (idx is None) != (self.friends is None):
+            raise ValueError("unif_valid: idx must be given exactly over "
+                             "balls and cubes")
+        if idx is not None:
+            _check("unif_valid", "idx", idx, (q,), torch.int64, dev)
+            if not bool(((idx >= 0) & (idx < self.nctrs)).all()):
+                raise ValueError(f"unif_valid: a centre index outside [0, "
+                                 f"{self.nctrs})")
         if (u_ex is None) != (self.ncdim == self.ndim):
             raise ValueError("unif_valid: u_ex must be given exactly where "
                              "ncdim < ndim")
@@ -879,31 +981,30 @@ class UnifRound:
             _check("unif_place", name, t, shape, self.dtype, self.device)
 
 
-def unif_valid(rb, uc, ua=None, accept=None, u_ex=None):
+def unif_valid(rb, uc, ua=None, idx=None, u_ex=None):
     """A wave's lane checks on the round ``rb`` (a :class:`UnifRound`)
     for the candidates ``uc`` (q, ncdim), with ``ua`` over a union of
     ellipsoids (whose quadratic forms it computes from the round's
-    centres and matrices) and ``accept`` over balls and cubes, and the
-    likelihood's input with the other dimensions' uniforms ``u_ex``:
-    :func:`unif_valid_plain` and :func:`unif_input_plain` on the CPU, on
-    the card the ``unif_valid`` kernel of ``csrc/unif_wave.cu``, which
+    centres and matrices); over balls and cubes for the draws ``uc``
+    (the offsets in the unit ball or cube), ``idx`` (each lane's centre)
+    and ``ua``, from which it forms the candidates and their overlap test
+    (:func:`friends_union_plain`); and the likelihood's input with the
+    other dimensions' uniforms ``u_ex``: :func:`unif_valid_round_plain`
+    on the CPU, on the card the ``unif_valid`` kernel of
+    ``csrc/unif_wave.cu`` (over balls and cubes its friends mode), which
     takes the draws as they are (:meth:`UnifRound.check_draws` holds them
     once a round).  Reads the wave's width from ``rb.state`` and the
     bound's arrays and the cube check's mask from the round; writes
     ``rb.valid``, ``rb.u_prop`` and ``rb.uclamp``."""
     if rb.device.type == "cpu":
-        forms = [rb.arrays[k] if rb.m else None for k in UNIF_FORMS]
-        rb.valid.copy_(unif_valid_plain(uc, rb.state[U_WIDTH], rb.strict,
-                                        *forms, ua, accept))
-        u_prop, uclamp = unif_input_plain(uc, u_ex)
-        rb.u_prop.copy_(u_prop)
-        rb.uclamp.copy_(uclamp)
+        for buf, t in zip((rb.valid, rb.u_prop, rb.uclamp),
+                          unif_valid_round_plain(rb, uc, ua, idx, u_ex)):
+            buf.copy_(t)
         return
     table = rb._valid_args
-    for i, t in enumerate((uc, u_ex, ua, accept)):
+    for i, t in enumerate((uc, u_ex, ua, idx)[:4 if rb.friends else 3]):
         table[i] = None if t is None else t.data_ptr()
-    _run(rb._valid_fn, table, (rb.q, rb.ndim, rb.ncdim, rb.m), rb.device,
-         "unif_valid")
+    _run(rb._valid_fn, table, rb._valid_ints, rb.device, "unif_valid")
     unif_valid.launches += 1
 
 

@@ -872,7 +872,9 @@ def _kernel_inputs(kind, q, ndim, ncdim, dtype, device, seed=2):
                   arrays[k].storage_offset(), arrays[k].dtype)
               for k in pr.UNIF_ARRAYS[kind]}
     strict = torch.tensor([True, False, True][:ncdim])
-    rb = pr.UnifRound(q, ndim, ncdim, ndim, dtype, device, strict, layout)
+    friends = kind if kind in ("balls", "cubes") else None
+    rb = pr.UnifRound(q, ndim, ncdim, ndim, dtype, device, strict, layout,
+                      friends)
     rb.start(0.0, arrays, 9)
     rb.state.copy_(torch.tensor([q // 3, 2, 50, 3 * q, 5, q - 7, 9]))
     m = rb.m
@@ -881,9 +883,12 @@ def _kernel_inputs(kind, q, ndim, ncdim, dtype, device, seed=2):
         near = np.arange(q) % 2 == 0
         uc[near] = arrays["ctrs"].cpu().numpy()[np.arange(q)[near] % 3] + \
             rs.normal(0.0, 0.08, (int(near.sum()), ncdim))
-    inp = {"uc": t(uc), "ua": t(rs.random(q)) if m else None,
-           "accept": t(rs.random(q) < 0.6, torch.bool)
-           if kind in ("balls", "cubes") else None,
+    if friends:
+        # the friends' draws: offsets in and about the unit ball or cube
+        uc = rs.uniform(-1.2, 1.2, (q, ncdim))
+    inp = {"uc": t(uc), "ua": t(rs.random(q)) if m or friends else None,
+           "idx": t(rs.integers(0, rb.nctrs, q), torch.int64)
+           if friends else None,
            "u_ex": t(rs.choice([np.nan, -0.2, 0.4, 1.0, 1.3],
                                size=(q, ndim - ncdim)))
            if ndim > ncdim else None,
@@ -900,11 +905,9 @@ def test_the_kernels_equal_the_plain_versions_on_the_card(cuda, kind, dtype,
                                                           q):
     ndim, ncdim = 4, 3
     rb, inp = _kernel_inputs(kind, q, ndim, ncdim, dtype, cuda)
-    forms = [rb.arrays[k] if rb.m else None for k in pr.UNIF_FORMS]
-    ref = pr.unif_valid_plain(inp["uc"], rb.state[pr.U_WIDTH], rb.strict,
-                              *forms, inp["ua"], inp["accept"])
-    u_prop, uclamp = pr.unif_input_plain(inp["uc"], inp["u_ex"])
-    pr.unif_valid(rb, inp["uc"], inp["ua"], inp["accept"], inp["u_ex"])
+    draws = (inp["uc"], inp["ua"], inp["idx"], inp["u_ex"])
+    ref, u_prop, uclamp = pr.unif_valid_round_plain(rb, *draws)
+    pr.unif_valid(rb, *draws)
     torch.cuda.synchronize()
     assert torch.equal(rb.valid, ref) and 0 < int(ref.sum()) < q
     assert _same_values(rb.u_prop, u_prop)
@@ -1092,6 +1095,7 @@ def test_a_card_run_never_takes_the_plain_versions(cuda, monkeypatch):
         raise AssertionError("a plain version ran on the card")
 
     monkeypatch.setattr(pr, "unif_valid_plain", refuse)
+    monkeypatch.setattr(pr, "friends_union_plain", refuse)
     monkeypatch.setattr(pr, "unif_place_plain", refuse)
     pr.zero_counts()
     t = Timings()
