@@ -4,7 +4,8 @@ profiler's kernel durations) and through the wrapper or the replay (CUDA
 events, back to back; the host clock with the wait and the flag read for
 a replay).
 
-    python3 bench_kernels.py [--root DIR] [--out FILE] [--generic-rows]
+    python3 bench_kernels.py [--root DIR] [--out FILE] [--groups a,b]
+                             [--generic-rows]
 
 ``--root`` imports ``dynesty_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive`` into the git-ignored
@@ -37,10 +38,10 @@ kernels' cases to ``GROUPS``.  The groups:
   subtraction and einsum, the kernel and the clamp), with the sha256 of
   its outputs' bytes (``digest``); and over balls and cubes about 2048
   and 16384 centres in 3 dimensions and 2048 in 15 (phase 2f's friends
-  cases), its friends mode from the draws (before it: the eager union,
-  the centres' gather, the candidate's matrix product, the distances'
-  einsum, norm or largest entry, count and test, then the kernel, as
-  ``span``);
+  cases) in float64 and float32, its friends mode from the draws (before
+  it: the eager union, the centres' gather, the candidate's matrix
+  product, the distances' einsum, norm or largest entry, count and test,
+  then the kernel, as ``span``), with the same digest;
 * ``replays``: the five captured doubling segments' replays (rslice at
   (256, 3)) and the captured waves' (cube, three ellipsoids, balls and
   cubes about 2048 centres);
@@ -343,35 +344,19 @@ def union_inputs(cm, torch, m):
                 "u_ex": None}
 
 
-def friends_inputs(cm, torch, kind, nctrs, n):
-    """A round over ``kind`` about ``nctrs`` centres in ``n`` of ``n + 1``
-    dimensions at q 256 in float64 and one wave's draws, as
-    ``chip_smoke.unif_friends_cases`` makes them."""
-    import numpy as np
-    dtype, q = torch.float64, cm.STEP_Q
-    arrays = cm.unif_arrays(kind, n, dtype, cm.SEED + n, nctrs)
-    strict = torch.ones(n, dtype=torch.bool)
-    strict[1] = False
-    rb = cm._unif_round(kind, q, n + 1, n, dtype, strict, arrays)
-    rb.start(cm.STEP_LOGLSTAR, arrays, 1 << 30)
-    inp = cm.friends_draws(rb, cm.SEED + nctrs + n)
-    inp["u_ex"] = cm._cuda_t(np.random.Generator(np.random.PCG64(
-        cm.SEED + n)).uniform(-0.2, 1.2, (q, 1)), dtype)
-    return rb, inp
-
-
 def valid_cases(cm, torch):
     """The ``valid`` group's rounds and draws: the cube (phase 2f's
     overflow state), the unions of 1, 4 and 16 ellipsoids and the
-    friends' cases."""
+    friends' cases in float64 and float32."""
     cases = [("cube", None) + cm.unif_wave_round(
         "cube", cm.STEP_Q, cm.NDIM, cm.NDIM, torch.float64, "overflow")]
     for m in cm.UNION_SLOTS:
         cases.append(("ellipsoids", m) + union_inputs(cm, torch, m))
-    for kind in cm.FRIENDS:
-        for nctrs, n in cm.FRIENDS_CASES:
-            cases.append((kind, (nctrs, n)) + friends_inputs(
-                cm, torch, kind, nctrs, n))
+    for dtype in (torch.float64, torch.float32):
+        for kind in cm.FRIENDS:
+            for nctrs, n in cm.FRIENDS_CASES:
+                cases.append((kind, (nctrs, n)) + cm.friends_case_round(
+                    kind, nctrs, n, dtype))
     return cases
 
 
@@ -386,21 +371,20 @@ def valid_digest(torch, rb):
 
 def unif_times(cm, torch):
     """``unif_valid``'s device and events times over the cube, the unions
-    and the friends, alone and with the launches around it; over the cube
-    and the unions the digest of its outputs, which two versions
-    compare."""
+    and the friends, alone and with the launches around it, and the
+    digest of its outputs, which two versions compare."""
     recs = []
     for kind, m, rb, inp in valid_cases(cm, torch):
         call, span = valid_calls(torch, cm.pr, rb, inp, kind)
         rec = {"kernel": "unif_valid", "kind": kind, "q": rb.q,
-               "ndim": rb.ndim, "dtype": "float64"}
+               "ndim": rb.ndim, "dtype": str(rb.dtype).split(".")[-1]}
         if kind in cm.FRIENDS:
             rec.update(nctrs=m[0], ncdim=m[1])
         else:
             rec["m"] = m
-            span()
-            torch.cuda.synchronize()
-            rec["digest"] = valid_digest(torch, rb)
+        span()
+        torch.cuda.synchronize()
+        rec["digest"] = valid_digest(torch, rb)
         rec.update({
             "events_us": 1e3 * cm._time_ms(call, 200),
             "device_us": 1e3 * cm._device_ms(call, ITERS, only="unif_valid"),
@@ -602,6 +586,9 @@ def main():
     ap.add_argument("--root", default=here,
                     help="the checkout whose dynesty_tpu_torch is timed")
     ap.add_argument("--out", help="also write the records here (JSON)")
+    ap.add_argument("--groups", default=",".join(g for g, _ in GROUPS),
+                    help="comma-separated case groups to run (default: "
+                         "all)")
     ap.add_argument("--generic-rows", action="store_true",
                     help="also time unif_valid's generic-row build against "
                          "the checkout's, in turns")
@@ -623,7 +610,10 @@ def main():
     print(json.dumps({"root": root, "package": os.path.dirname(
         dynesty_tpu_torch.__file__), "folded": folded(cm.pr), "card": card}))
     recs = []
+    groups = args.groups.split(",")
     for name, group in GROUPS:
+        if name not in groups:
+            continue
         for rec in group(cm, torch):
             recs.append({"group": name, **rec})
     if args.generic_rows:

@@ -386,6 +386,7 @@ except ImportError:
     # this file's inputs over it)
     rr = None
 from dynesty_tpu_torch.ops import proposals as pr  # noqa: E402
+from dynesty_tpu_torch.ops.geometry import unitcheck_batch  # noqa: E402
 
 NDIM = 3
 SEED = 56432
@@ -4481,10 +4482,12 @@ def unif_valid_bound(rb, inp, kind):
     the width -- and its outputs written once: valid, the likelihood's
     input and its clamp) and the floating-point operations of the
     quadratic forms in the valid slots (2 n^2 + 2 n - 1 a form) or of the
-    friends' distances (2 n^2 + 2 n a lane and centre: the n differences,
-    the map's n^2 products and n (n - 1) sums, and over balls the squares,
-    their sums and the root, over cubes the n magnitudes and their n - 1
-    maxima; the candidate's own 2 n^2 a lane left out)."""
+    friends' distances of the lanes that need them (:func:`friends_lanes`;
+    2 n^2 + 2 n a lane and centre: the n differences, the map's n^2
+    products and n (n - 1) sums, and over balls the squares, their sums
+    and the root (which the kernel replaces by a threshold on the
+    square), over cubes the n magnitudes and their n - 1 maxima; the
+    candidate's own 2 n^2 a lane left out)."""
     q, ndim, n, m = rb.q, rb.ndim, rb.ncdim, rb.m
     tb = torch.finfo(rb.dtype).bits // 8
     m_valid = int(rb.arrays["mask"].sum()) if m else 0
@@ -4494,8 +4497,20 @@ def unif_valid_bound(rb, inp, kind):
     ops = q * m_valid * (2 * n * n + 2 * n - 1)
     if nctrs:
         by += q * tb + q * 8 + nctrs * n * tb + 2 * n * n * tb
-        ops = q * nctrs * (2 * n * n + 2 * n)
+        ops = friends_lanes(rb, inp) * nctrs * (2 * n * n + 2 * n)
     return by, ops, FP64_FLOPS if rb.dtype == torch.float64 else FP32_FLOPS
+
+
+def friends_lanes(rb, inp):
+    """The lanes of a friends wave whose distances its outputs need: those
+    below the width whose candidate (:func:`pr.friends_union_plain`'s) is
+    in the cube; any other lane's flag is false whatever its count, and
+    the kernel counts nothing for it."""
+    x, _ = pr.friends_union_plain(rb.friends, inp["idx"], inp["uc"],
+                                  inp["ua"], *(rb.arrays[k]
+                                               for k in pr.UNIF_FRIENDS))
+    lanes = torch.arange(rb.q, device=x.device) < rb.state[pr.U_WIDTH]
+    return int((lanes & unitcheck_batch(x, rb.strict)).sum())
 
 
 def unif_valid_refs(rb, inp):
@@ -4654,50 +4669,139 @@ def unif_union_cases(dtype):
     return recs
 
 
-# unif_valid's calls on the friends' cases in float64, timed device-only
-# in phase 34 (unif_friends_cases)
+# unif_valid's calls on the friends' cases by (kind, centres, ncdim,
+# dtype), timed device-only in phase 34 (unif_friends_cases)
 _FRIENDS_CALLS = {}
+# the widths phase 2f narrows a friends wave of q 256 to, and the launches
+# and replays of its repeat case
+FRIENDS_WIDTHS = (0, 1, 37, STEP_Q - 1)
+FRIENDS_REPEATS = 20
+
+
+def friends_case_round(kind, nctrs, n, dtype):
+    """A round over ``kind`` about ``nctrs`` centres in ``n`` of ``n + 1``
+    dimensions at q 256 (a loose dimension, one outside the bound) and
+    one wave's draws, as phase 2f's friends cases and ``bench_kernels.py``
+    make them."""
+    arrays = unif_arrays(kind, n, dtype, SEED + n, nctrs)
+    strict = torch.ones(n, dtype=torch.bool)
+    strict[1] = False
+    rb = _unif_round(kind, STEP_Q, n + 1, n, dtype, strict, arrays)
+    rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
+    inp = friends_draws(rb, SEED + nctrs + n)
+    inp["u_ex"] = _cuda_t(np.random.Generator(np.random.PCG64(
+        SEED + n)).uniform(-0.2, 1.2, (STEP_Q, 1)), dtype)
+    return rb, inp
+
+
+def _friends_record(rb, refs, dtype, **what):
+    """The bit record of ``unif_valid``'s friends outputs on ``rb``
+    against ``refs``, with its counts held to zero."""
+    ref, ref_u, ref_c = refs
+    rec = _bit_record("unif_valid", (rb.q, rb.ncdim), dtype, [
+        ("valid", rb.valid, ref), ("u_prop", rb.u_prop, ref_u),
+        ("uclamp", rb.uclamp, ref_c),
+        ("counts", rb.counts, torch.zeros_like(rb.counts))])
+    rec.update(kind=rb.friends, ncdim=rb.ncdim, nctrs=rb.nctrs,
+               chunks=rb.geometry.chunks, per=rb.geometry.per, **what)
+    return rec
 
 
 def unif_friends_cases(dtype):
     """``unif_valid``'s friends mode against its plain version at q 256 over
     balls and cubes about ``FRIENDS_CASES``' centres, with a loose
     dimension and one dimension outside the bound; returns the records
-    (with times and bound) and fills ``_FRIENDS_CALLS`` in float64."""
+    (with times, the lanes whose distances the outputs need, the bound
+    and the fp64 or fp32 issue bound: twice the operations' time, as no
+    FMA is allowed) and fills ``_FRIENDS_CALLS``."""
     recs = []
     for kind in FRIENDS:
         for nctrs, n in FRIENDS_CASES:
-            arrays = unif_arrays(kind, n, dtype, SEED + n, nctrs)
-            strict = torch.ones(n, dtype=torch.bool)
-            strict[1] = False
-            rb = _unif_round(kind, STEP_Q, n + 1, n, dtype, strict, arrays)
-            rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
-            inp = friends_draws(rb, SEED + nctrs + n)
-            inp["u_ex"] = _cuda_t(np.random.Generator(np.random.PCG64(
-                SEED + n)).uniform(-0.2, 1.2, (STEP_Q, 1)), dtype)
+            rb, inp = friends_case_round(kind, nctrs, n, dtype)
             draws = unif_draws(inp)
-            ref, ref_u, ref_c = unif_valid_refs(rb, inp)
+            ref = unif_valid_refs(rb, inp)
             pr.unif_valid(rb, *draws)
             torch.cuda.synchronize()
-            rec = _bit_record("unif_valid", (STEP_Q, n), dtype,
-                              [("valid", rb.valid, ref),
-                               ("u_prop", rb.u_prop, ref_u),
-                               ("uclamp", rb.uclamp, ref_c)])
-            rec.update(kind=kind, ncdim=n, nctrs=nctrs, situation="friends")
-            if not 0 < int(ref.sum()) < STEP_Q:
+            rec = _friends_record(rb, ref, dtype, situation="friends")
+            if not 0 < int(ref[0].sum()) < STEP_Q:
                 raise RuntimeError(f"the friends case {kind} {nctrs} {n} "
-                                   f"missed its outcome: {int(ref.sum())} "
-                                   f"valid")
+                                   f"missed its outcome: "
+                                   f"{int(ref[0].sum())} valid")
 
             def call(rb=rb, draws=draws):
                 pr.unif_valid(rb, *draws)
 
-            _step_time(rec, call, lambda: unif_valid_refs(rb, inp),
-                       *unif_valid_bound(rb, inp, kind))
-            if dtype == torch.float64:
-                _FRIENDS_CALLS[(kind, nctrs, n)] = call
+            bound = unif_valid_bound(rb, inp, kind)
+            _step_time(rec, call, lambda: unif_valid_refs(rb, inp), *bound)
+            rec["lanes"] = friends_lanes(rb, inp)
+            rec["issue_bound_us"] = 2e6 * bound[1] / bound[2]
+            _FRIENDS_CALLS[(kind, nctrs, n, rec["dtype"])] = call
             recs.append(rec)
     return recs
+
+
+def friends_width_cases(dtype):
+    """``unif_valid``'s friends mode at the drives' shape (q 256, 2048
+    centres in 3-D) narrowed to each of ``FRIENDS_WIDTHS``: bit for bit
+    with the plain version, the lanes past the width invalid; returns the
+    records."""
+    recs = []
+    for kind in FRIENDS:
+        for width in FRIENDS_WIDTHS:
+            rb, inp = friends_case_round(kind, FRIENDS_NLIVE, NDIM, dtype)
+            rb.state[pr.U_WIDTH] = width
+            ref = unif_valid_refs(rb, inp)
+            rb.valid.fill_(True)
+            pr.unif_valid(rb, *unif_draws(inp))
+            torch.cuda.synchronize()
+            recs.append(_friends_record(rb, ref, dtype,
+                                        situation=f"width {width}"))
+            if bool(rb.valid[width:].any()) or \
+                    width > 1 and not bool(rb.valid.any()):
+                raise RuntimeError(f"the friends wave narrowed to {width} "
+                                   f"lanes missed its outcome over {kind}")
+    return recs
+
+
+def friends_repeat_case(kind, dtype):
+    """``FRIENDS_REPEATS`` launches of ``unif_valid``'s friends mode back
+    to back, then as many replays of a captured launch, at the drives'
+    shape: each (its outputs poisoned before it) bit for bit with the
+    plain version, its counts zero after it.  Returns one
+    record over all of them."""
+    rb, inp = friends_case_round(kind, FRIENDS_NLIVE, NDIM, dtype)
+    draws = unif_draws(inp)
+    ref = unif_valid_refs(rb, inp)
+
+    def checked(run):
+        rb.valid.fill_(True)
+        rb.u_prop.fill_(-7.0)
+        rb.uclamp.fill_(-7.0)
+        run()
+        torch.cuda.synchronize()
+        return _friends_record(rb, ref, dtype, situation="repeats")
+
+    recs = [checked(lambda: pr.unif_valid(rb, *draws))
+            for _ in range(FRIENDS_REPEATS)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pr.unif_valid(rb, *draws)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pr.unif_valid(rb, *draws)
+    recs += [checked(graph.replay) for _ in range(FRIENDS_REPEATS)]
+    rec = recs[0]
+    for out in rec["outputs"]:
+        rec["outputs"][out] = [sum(r["outputs"][out][i] for r in recs)
+                               for i in (0, 1)]
+    rec["identical"] = sum(r["identical"] for r in recs)
+    rec["total"] = sum(r["total"] for r in recs)
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+    rec["situation"] = f"{FRIENDS_REPEATS} launches, {FRIENDS_REPEATS} " \
+        f"replays"
+    return rec
 
 
 def friends_threshold_case(kind, dtype):
@@ -4842,6 +4946,8 @@ def unif_kernels_phase(card):
         cases.append(unif_threshold_case(dtype))
         cases += unif_friends_cases(dtype)
         cases += [friends_threshold_case(kind, dtype) for kind in FRIENDS]
+        cases += friends_width_cases(dtype)
+        cases += [friends_repeat_case(kind, dtype) for kind in FRIENDS]
     for c in cases:
         shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
                            c["outputs"].items())
@@ -4872,12 +4978,12 @@ def main_unif(cases, name):
                 c["shape"][0] == STEP_Q and c["situation"] == "overflow")
 
 
-def friends_unif(cases, kind, nctrs, n):
+def friends_unif(cases, kind, nctrs, n, dtype="float64"):
     """The record of ``unif_valid``'s friends mode over ``kind`` about
-    ``nctrs`` centres in ``n`` dimensions at q 256 in float64."""
+    ``nctrs`` centres in ``n`` dimensions at q 256 in ``dtype``."""
     return next(c for c in cases if c["situation"] == "friends" and
-                (c["kind"], c["nctrs"], c["ncdim"]) == (kind, nctrs, n) and
-                c["dtype"] == "float64")
+                (c["kind"], c["nctrs"], c["ncdim"], c["dtype"]) ==
+                (kind, nctrs, n, dtype))
 
 
 def union_unif(cases, m):
@@ -4885,6 +4991,38 @@ def union_unif(cases, m):
     (256, 3) in float64."""
     return next(c for c in cases if c["situation"] == "union" and
                 c["m"] == m and c["dtype"] == "float64")
+
+
+def friends_registers(output):
+    """Each friends kernel's registers and spill bytes from ``nvcc -Xptxas
+    -v``'s output: ``{"float64 balls": {width: [registers, spill stores,
+    spill loads]}, ...}`` (width 0: the generic loop).  Raises where a
+    kernel of the widths the drives and phase 2f run (2, 3 and 15)
+    spills."""
+    regs, name = {}, None
+    pat = re.compile(r"unif_valid_kernel_friendsI([df])Li(\d+)ELb([01])E")
+    for line in output.splitlines():
+        m = pat.search(line)
+        if m:
+            name = ("float64" if m.group(1) == "d" else "float32") + \
+                (" cubes" if m.group(3) == "1" else " balls"), int(m.group(2))
+            regs.setdefault(name[0], {}).setdefault(name[1], [0, 0, 0])
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            regs[name[0]][name[1]][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs[name[0]][name[1]][0] = int(m.group(1))
+            name = None
+    spills = [(k, nx) for k, by_nx in regs.items() for nx, r in by_nx.items()
+              if nx in (2, 3, 15) and (r[1] or r[2])]
+    if spills:
+        raise RuntimeError(f"friends kernels spill at {spills}: {regs}")
+    return regs
 
 
 def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
@@ -5689,6 +5827,14 @@ def main():
         print(f"build {name}: nvcc {log['seconds']:.2f} s")
         print(log["output"].strip())
     print(f"build: {time.perf_counter() - t0:.2f} s")
+    friends_regs = friends_registers(build.build_log["unif_wave"]["output"])
+    if not friends_regs:
+        raise RuntimeError("no friends kernel in unif_wave's build report")
+    for key, by_nx in friends_regs.items():
+        print(f"unif_valid friends {key} registers/spill bytes (stores, "
+              f"loads) by candidate width (0: the generic loop): " +
+              ", ".join(f"{nx}: {r}/{st},{ld}" for nx, (r, st, ld) in
+                        sorted(by_nx.items())) + f"  [{card}]")
     count_rounds()
     count_proposal_loops()
 
@@ -6205,11 +6351,14 @@ def main():
         rec = friends_unif(unif_cases, *fcase)
         rec["device_us"] = 1e3 * _device_ms(fn, only="unif_valid")
         print(f"unif wave unif_valid {fcase[0]} N {fcase[1]} (256, "
-              f"{fcase[2]}) float64 device only: kernel "
+              f"{fcase[2]}) {fcase[3]} device only: kernel "
               f"{rec['device_us']:.3f} us  "
               f"events (through the wrapper) {rec['us']:.2f} us  plain "
               f"{rec['plain_us']:.1f} us  bound {rec['bound_us']:.5f} us "
-              f"({rec['bound_by']})  launch floor {floor['device_us']:.3f} "
+              f"({rec['bound_by']}), issue bound "
+              f"{rec['issue_bound_us']:.5f} us  ({rec['lanes']} of 256 "
+              f"lanes in the cube)  grid {rec['chunks']} chunks "
+              f"of {rec['per']}  launch floor {floor['device_us']:.3f} "
               f"us  [{card}]")
     heavy["wave_replay_kernels"] = check_replay_kernels(
         heavy_wave.counted, heavy_wave.graph,
@@ -6483,9 +6632,11 @@ def main():
                         "bound_by")} for m in UNION_SLOTS],
                     "friends": [
                         {k: friends_unif(unif_cases, *key)[k] for k in (
-                            "kind", "nctrs", "ncdim", "us", "plain_us",
-                            "device_us", "bound_us", "bound_by")}
+                            "kind", "nctrs", "ncdim", "dtype", "chunks",
+                            "per", "lanes", "us", "plain_us", "device_us",
+                            "bound_us", "bound_by", "issue_bound_us")}
                         for key in _FRIENDS_CALLS],
+                    "friends_registers": friends_regs,
                     "captured_friends": {
                         fkind: {k: v for k, v in frec.items()
                                 if k != "names"}

@@ -27,8 +27,9 @@
 //     matrices (once a subtraction and an einsum with (q, m, ncdim)
 //     temporaries in torch), nin = the slots whose form is < 1 (or, where
 //     none is, <= 1 + 1e-3), nin > 0 and u_accept < 1 / nin.  Over
-//     balls and cubes its friends mode (unif_valid_kernel_friends, four
-//     warps a lane) forms each lane's candidate from its drawn centre and
+//     balls and cubes its friends mode (unif_valid_kernel_friends, a
+//     thread a lane, the centres split over the grid) forms each lane's
+//     candidate from its drawn centre and
 //     offset, x = c + offset @ axes, and counts the centres within
 //     distance 1 of it, each centre's (c_j - x) @ axes_inv measured by
 //     its Euclidean norm (balls) or its largest entry (cubes): nin = that
@@ -72,15 +73,30 @@
 // lane's forms are spread over up to a warp of threads.  The friends'
 // mode has N centres, not a few slots: up to ~16,384 live points in 15
 // dimensions (1.97 MB in float64, past a block's shared memory), and
-// q N ncdim^2 products a wave, so it is bound by operations at large N
-// and ncdim and by the launch below.  Its design, simple first: four
-// warps a lane (its 128 threads over the centres j = sub, sub + 128, ...:
-// at q 256 only ~8 warps an SM, so each thread's chains are kept short
-// and side by side), two lanes a block sharing the centres, which pass
-// through shared memory in tiles of ~16 kB (any N), the inverse axes
-// staged once a block (held in registers at 2 and 3 dimensions, with the
-// candidate; else four entries of a distance summed side by side), the
-// counts summed by shuffles and shared memory.  The kernels take only device
+// q N (2 ncdim^2 + 2 ncdim) adds and multiplies a wave, each its own
+// instruction (the fixed orders forbid an FMA), so it is bound by the
+// fp64 issue rate at large N and ncdim and by the launch below.  Its
+// design: a thread a lane and the centres split over the grid
+// (ops/proposals.py, friends_geometry, picks it): a block is eight warps
+// over the same 32 lanes, and the grid ceil(q / 32) lane groups times C
+// chunks of ~N / C centres, C chosen for ~two blocks an SM, so that each
+// centre is read from L2 once a lane group. A block's chunk (and the
+// inverse axes) goes into shared memory by cp.async issued first, while
+// warp 0 forms its lanes' candidates; one wait and one barrier, then each
+// warp counts its eighth of the chunk, all 32 threads reading one centre
+// at a time (a broadcast). Up to 16 dimensions the candidate is in
+// registers, up to 4 the inverse axes too, and two to four centres' sums
+// run side by side sharing each 16-byte read of four columns of the
+// inverse axes (asm loads, which the compiler cannot hoist out of the
+// centres' loop into n^2 registers); above, the generic loop. A lane's
+// count is summed over the block's warps in shared memory and added, with
+// one for the block, to the lane's 64-bit word in one atomic (integer
+// sums: the same bits in any order); the lane's last block, which sees the
+// grid's count, writes its flag and zeroes the word. (A 32-bit count with
+// a ticket a lane group and a __threadfence took two more dependent trips:
+// 5.26 against 4.42 us at q 256, 2048 centres in 3-D, float64, on an
+// H100.) Lanes past the wave's width or outside the cube count nothing.
+// The square root is not taken: see Dist.  The kernels take only device
 // pointers, so a replay reads the round's state, threshold and bound from
 // the same buffers as an eager launch.  Inside unif_place the time is
 // the launch (~0.8 us) and one chain: a trip to memory, the ballots, the
@@ -95,9 +111,11 @@
 // the quadratic forms in the fixed order of quad_form and the friends'
 // candidate and distances in the fixed order of friends_union_plain
 // (ops/proposals.py), with a round-to-nearest intrinsic for every
-// difference, product, sum and square root (never contracted into an
-// FMA), the cubes' largest entry NaN wherever one is NaN (torch's
-// maximum), the clamp torch's (NaN passes), and the width
+// difference, product and sum (never contracted into an FMA), the balls'
+// rounded square root compared with 1 by its exact threshold on the
+// square and the cubes' largest entry (NaN wherever one is NaN, torch's
+// maximum) by every entry's test (Dist), the clamp torch's (NaN passes),
+// and the width
 // the host's numpy float32 formula with a round-to-nearest intrinsic for
 // every product, quotient, sum and conversion.
 
@@ -119,8 +137,11 @@ template <> struct Op<double> {
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
   static __device__ __forceinline__ double abs(double a) { return fabs(a); }
+  // the float after 1: 1 + 2^-52
+  static __device__ __forceinline__ double one_up() {
+    return 0x1.0000000000001p0;
+  }
 };
 
 template <> struct Op<float> {
@@ -128,8 +149,9 @@ template <> struct Op<float> {
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
   static __device__ __forceinline__ float abs(float a) { return fabsf(a); }
+  // the float after 1: 1 + 2^-23
+  static __device__ __forceinline__ float one_up() { return 0x1.000002p0f; }
 };
 
 // threads a block of unif_valid
@@ -169,6 +191,9 @@ struct FriendsArgs {
   bool* valid;
   T* u_prop;            // (q, ndim): the likelihood's input
   T* uclamp;            // (q, ndim): the same, clamped into the cube
+  // (32 groups,): each lane's count (high 32 bits) and its blocks done
+  // (low 32), zero between launches
+  unsigned long long* counts;
   int q, ndim, ncdim, nctrs;
 };
 
@@ -329,172 +354,395 @@ __global__ void __launch_bounds__(BLOCK) unif_valid_kernel(ValidArgs<T> a,
   a.valid[k] = ok;
 }
 
-// NaN wherever either is NaN, else the larger (torch's maximum)
-template <typename T>
-__device__ __forceinline__ T max_nan(T m, T v) {
-  return (v > m || isnan(v)) ? v : m;
-}
+// A lane's distance to a centre, folded entry by entry of t = (c - x) @ B
+// (first, then add), and whether it is at most 1 (within): the root's
+// threshold on the square over balls, every entry's test over cubes.
+template <typename T, bool CUBES> struct Dist;
 
-// A lane's distance to a centre folded in, entry i of t = (c - x) @ B:
-// over balls acc + t_i t_i (t_0 t_0 first), over cubes the larger of acc
-// and |t_i| (NaN wherever one is NaN).
-template <typename T, bool CUBES>
-__device__ __forceinline__ T fold(T acc, T t, int i) {
-  typedef Op<T> O;
-  if (CUBES) return i == 0 ? O::abs(t) : max_nan(acc, O::abs(t));
-  const T p = O::mul(t, t);
-  return i == 0 ? p : O::add(acc, p);
-}
+// Over balls the sum t_0 t_0 + t_1 t_1 + ..., left to right, which the
+// plain version compares, through its correctly rounded square root, with
+// 1: that holds exactly where the sum is <= 1 + u, u the spacing of the
+// floats above 1 (2^-52 in float64, 2^-23 in float32; Op::one_up).  The
+// root is monotone; sqrt(1 + u) < 1 + u / 2 (its square is 1 + u + u^2 /
+// 4), the midpoint of 1 and 1 + u, so it rounds to 1; sqrt(1 + 2u) > 1 +
+// u / 2, so it rounds to 1 + u or above; no float lies between 1 + u and
+// 1 + 2u.  NaN and inf fail both tests, 0 passes both, and a sum of
+// rounded squares is never below -0.  tests/test_torch_friends_union.py
+// checks the equivalence with torch over every float within 2,000 ulps
+// of 1.
+template <typename T> struct Dist<T, false> {
+  T s;
+  __device__ __forceinline__ void first(T t) { s = Op<T>::mul(t, t); }
+  __device__ __forceinline__ void add(T t) {
+    s = Op<T>::add(s, Op<T>::mul(t, t));
+  }
+  __device__ __forceinline__ bool within() const {
+    return s <= Op<T>::one_up();
+  }
+};
 
+// Over cubes the plain version's largest |t_i|, NaN wherever one is
+// (torch's maximum), is <= 1 exactly where every |t_i| <= 1 (a NaN one
+// fails): that is kept instead of the largest.
+template <typename T> struct Dist<T, true> {
+  bool in;
+  __device__ __forceinline__ void first(T t) {
+    in = Op<T>::abs(t) <= (T)1.0;
+  }
+  __device__ __forceinline__ void add(T t) {
+    in = in & (Op<T>::abs(t) <= (T)1.0);
+  }
+  __device__ __forceinline__ bool within() const { return in; }
+};
+
+// the friends' block: FRIENDS_WARPS warps over the same 32 lanes
+const int FRIENDS_WARPS = 8;
+const int FRIENDS_BLOCK = 32 * FRIENDS_WARPS;
+// the dynamic shared memory a block takes without asking and at most (the
+// 48 kB default and the 227 kB ceiling less the kernel's static counts;
+// ops/proposals.py, friends_geometry, holds a chunk to them)
+const size_t FRIENDS_SMEM_DEFAULT = 46 * 1024;
+const size_t FRIENDS_SMEM_MAX = 225 * 1024;
+static_assert(FRIENDS_SMEM_DEFAULT + (FRIENDS_WARPS + 1) * 32 * 4 <=
+                      48 * 1024 &&
+                  FRIENDS_SMEM_MAX + (FRIENDS_WARPS + 1) * 32 * 4 <= 232448,
+              "the friends kernel's static counts leave its budgets");
+// the widest candidate held in registers (a kernel each width up to it),
+// and the widest whose inverse axes are held there whole
+const int FRIENDS_NX = 16;
+const int FRIENDS_BREG = 4;
+// centres whose sums run side by side (sharing each read of the inverse
+// axes) at a candidate width: four up to FRIENDS_BREG, two up to 8, one
+// above; columns of the inverse axes read at once (t's entries side by
+// side)
+__host__ __device__ constexpr int friends_p(int nx) {
+  return nx <= FRIENDS_BREG ? 4 : nx <= 8 ? 2 : 1;
+}
+const int FRIENDS_CB = 4;
 // entries of t summed side by side in the generic loop
 const int SIDE = 4;
 
-// Whether the candidate lies within distance 1 of the centre c: t = (c -
-// x) @ B (B the inverse axes), t_i = d_0 B_0i + d_1 B_1i + ... left to
-// right with d_l = c_l - x_l; over balls sqrt(t_0 t_0 + t_1 t_1 + ...),
-// left to right, over cubes the largest |t_i|, at most 1 (NaN: not
-// within).  NX > 0: n == NX, the candidate and B in registers; NX == 0:
-// any n, read where they lie, SIDE entries of t at a time (their sums'
-// chains side by side, each d_l formed once for them: the same rounding
-// each time).
+// The shared memory's row strides: the inverse axes' rows padded to a
+// whole number of FRIENDS_CB values, the centres' to 16 bytes
+// (ops/proposals.py, friends_layout, computes the same).
+__host__ __device__ constexpr int pad_b(int n) {
+  return (n + FRIENDS_CB - 1) / FRIENDS_CB * FRIENDS_CB;
+}
+template <typename T>
+__host__ __device__ constexpr int pad_c(int n) {
+  return (n + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T)) *
+         (16 / (int)sizeof(T));
+}
+
+// A block's shared memory: the inverse axes (n rows of pad_b, where
+// staged), the chunk's centres (per rows of pad_c), the lanes' candidates
+// (32 rows of n).
+template <typename T>
+size_t friends_smem(int n, int per, int staged) {
+  return ((staged ? (size_t)n * pad_b(n) : 0) + (size_t)per * pad_c<T>(n) +
+          (size_t)32 * n) *
+         sizeof(T);
+}
+
+// a 16-byte load's values
+template <typename T> struct Vec16;
+template <> struct Vec16<double> {
+  typedef double2 V;
+  static __device__ __forceinline__ double at(const V& v, int u) {
+    return u == 0 ? v.x : v.y;
+  }
+};
+template <> struct Vec16<float> {
+  typedef float4 V;
+  static __device__ __forceinline__ float at(const V& v, int u) {
+    return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+  }
+};
+
+// N values of shared memory from src (16-byte aligned) by 16-byte loads
+template <typename T, int N>
+__device__ __forceinline__ void load16(T (&dst)[N], const T* src) {
+  typedef Vec16<T> W;
+  const int V = 16 / sizeof(T);
+#pragma unroll
+  for (int v = 0; v < (N + V - 1) / V; ++v) {
+    const typename W::V w = reinterpret_cast<const typename W::V*>(src)[v];
+#pragma unroll
+    for (int u = 0; u < V; ++u)
+      if (v * V + u < N) dst[v * V + u] = W::at(w, u);
+  }
+}
+
+// The same as an asm load the compiler keeps where it stands: a plain
+// load of the inverse axes, the same at every centre, is hoisted out of
+// the centres' loop, all n^2 values held in registers (spilled past ~9
+// dimensions in float64).  Read after the barrier that shows the copy.
+__device__ __forceinline__ void lds16(double (&dst)[FRIENDS_CB],
+                                      const double* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile("ld.shared.v2.f64 {%0, %1}, [%4];\n"
+               "ld.shared.v2.f64 {%2, %3}, [%4+16];\n"
+               : "=d"(dst[0]), "=d"(dst[1]), "=d"(dst[2]), "=d"(dst[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void lds16(float (&dst)[FRIENDS_CB],
+                                      const float* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(dst[0]), "=f"(dst[1]), "=f"(dst[2]), "=f"(dst[3])
+               : "r"(a));
+}
+
+// One value copied from device to shared memory without a register
+// (cp.async): a thread's copies are all in flight at once.  copies_done()
+// waits for the thread's own; a barrier after it shows them to the block.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(to),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The centres lo .. hi - 1 of the block's copy `sc` within distance 1 of
+// the candidate x (n == NX <= FRIENDS_NX, in registers): for each, d_l =
+// c_l - x_l and t_i = d_0 B_0i + d_1 B_1i + ... left to right (B the
+// inverse axes, `sb`), folded t_0, t_1, ... in order.  friends_p(NX)
+// centres at a time, their sums side by side; B's columns FRIENDS_CB at a
+// time, each row's read once for them (B whole in registers up to
+// FRIENDS_BREG dimensions).  The same operations in the same order as the
+// plain version's: every sum's bits are its.
 template <typename T, int NX, bool CUBES>
-__device__ __forceinline__ bool within(const T (&x)[NX > 0 ? NX : 1],
-                                       const T (&b)[NX > 0 ? NX * NX : 1],
-                                       const T* xs, const T* bs, const T* c,
-                                       int n) {
+__device__ __forceinline__ int count_nx(const T (&x)[NX], const T* sb,
+                                        const T* sc, int lo, int hi) {
   typedef Op<T> O;
-  T acc = (T)0.0;
-  if (NX > 0) {
-    T d[NX > 0 ? NX : 1];
+  constexpr int PB = pad_b(NX), PC = pad_c<T>(NX), P = friends_p(NX);
+  constexpr bool BREG = NX <= FRIENDS_BREG;
+  T breg[BREG ? NX * NX : 1];
+  if (BREG) {
 #pragma unroll
-    for (int l = 0; l < NX; ++l) d[l] = O::sub(c[l], x[l]);
+    for (int l = 0; l < NX; ++l)
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T t = O::mul(d[0], b[i]);
+      for (int i = 0; i < NX; ++i) breg[l * NX + i] = sb[l * PB + i];
+  }
+  int nin = 0;
+  for (int j = lo; j < hi; j += P) {
+    // the last group past hi repeats centre j, counted once
+    T d[P][NX];
 #pragma unroll
-      for (int l = 1; l < NX; ++l) t = O::add(t, O::mul(d[l], b[l * NX + i]));
-      acc = fold<T, CUBES>(acc, t, i);
+    for (int p = 0; p < P; ++p) {
+      T c[NX];
+      load16(c, sc + (j + p < hi ? j + p : j) * PC);
+#pragma unroll
+      for (int l = 0; l < NX; ++l) d[p][l] = O::sub(c[l], x[l]);
     }
-  } else {
+    Dist<T, CUBES> dist[P];
+#pragma unroll
+    for (int i0 = 0; i0 < NX; i0 += FRIENDS_CB) {
+      T tt[P][FRIENDS_CB];
+#pragma unroll
+      for (int l = 0; l < NX; ++l) {
+        T b[FRIENDS_CB];
+        if (BREG) {
+#pragma unroll
+          for (int r = 0; r < FRIENDS_CB; ++r)
+            b[r] = i0 + r < NX ? breg[l * NX + i0 + r] : (T)0.0;
+        } else {
+          lds16(b, sb + l * PB + i0);
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int r = 0; r < FRIENDS_CB; ++r)
+            if (i0 + r < NX)
+              tt[p][r] = l == 0 ? O::mul(d[p][0], b[r])
+                                : O::add(tt[p][r], O::mul(d[p][l], b[r]));
+      }
+#pragma unroll
+      for (int r = 0; r < FRIENDS_CB; ++r)
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (i0 + r == 0)
+            dist[p].first(tt[p][r]);
+          else if (i0 + r < NX)
+            dist[p].add(tt[p][r]);
+        }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) nin += (j + p < hi) && dist[p].within();
+  }
+  return nin;
+}
+
+// The same at any n: the candidate's row `xs` and B (`bs`, rows of
+// `bstride`) read where they lie, SIDE entries of t at a time (their
+// sums' chains side by side, each d_l formed again for them: the same
+// rounding each time).
+template <typename T, bool CUBES>
+__device__ int count_any(const T* xs, const T* bs, int bstride, const T* sc,
+                         int pc, int n, int lo, int hi) {
+  typedef Op<T> O;
+  int nin = 0;
+  for (int j = lo; j < hi; ++j) {
+    const T* c = sc + j * pc;
+    Dist<T, CUBES> dist;
     for (int i0 = 0; i0 < n; i0 += SIDE) {
-      T t[SIDE];
+      T tt[SIDE];
       const T d0 = O::sub(c[0], xs[0]);
 #pragma unroll
       for (int r = 0; r < SIDE; ++r)
-        t[r] = i0 + r < n ? O::mul(d0, bs[i0 + r]) : (T)0.0;
+        tt[r] = i0 + r < n ? O::mul(d0, bs[i0 + r]) : (T)0.0;
       for (int l = 1; l < n; ++l) {
         const T d = O::sub(c[l], xs[l]);
 #pragma unroll
         for (int r = 0; r < SIDE; ++r)
-          if (i0 + r < n) t[r] = O::add(t[r], O::mul(d, bs[l * n + i0 + r]));
+          if (i0 + r < n)
+            tt[r] = O::add(tt[r], O::mul(d, bs[l * bstride + i0 + r]));
       }
 #pragma unroll
-      for (int r = 0; r < SIDE; ++r)
-        if (i0 + r < n) acc = fold<T, CUBES>(acc, t[r], i0 + r);
+      for (int r = 0; r < SIDE; ++r) {
+        if (i0 + r == 0)
+          dist.first(tt[r]);
+        else if (i0 + r < n)
+          dist.add(tt[r]);
+      }
     }
+    nin += dist.within();
   }
-  if (!CUBES) acc = O::sqrt(acc);
-  return acc <= (T)1.0;
+  return nin;
 }
 
-// The friends' mode's block: lanes of FRIENDS_WARPS warps each (a lane's
-// threads over its centres: ~8 warps an SM at q 256), two a block
-const int FRIENDS_WARPS = 4;
-const int FRIENDS_W = 32 * FRIENDS_WARPS;
-const int FRIENDS_BLOCK = 2 * FRIENDS_W;
-const int FRIENDS_LANES = FRIENDS_BLOCK / FRIENDS_W;
-
-// The friends' mode: threads g W .. g W + W - 1 of the block (W =
-// FRIENDS_W) are lane k.  Thread sub forms the candidate's dimensions
-// sub, sub + W, ... (x_i = c_i + (o_0 A_0i + o_1 A_1i + ...), left to
-// right), writes them into the likelihood's input and the block's copy
-// of the candidate, with the cube check (a ballot a warp); the block
-// stages the inverse axes (`staged`) and then, tile by tile of `tile`
-// centres, copies the centres into shared memory, where thread sub
-// counts the tile's centres sub, sub + W, ... that hold x.  The counts
-// and cube checks meet by shuffles and shared memory; thread 0 writes
-// the lane's flag.
+// The friends' mode: block b is lane group b / chunks (lanes 32 g .. 32 g
+// + 31, thread `lane` of every warp) and chunk b % chunks of the centres
+// (per centres from chunk * per, fewer in the last).  Its copies of the
+// chunk and (`staged`) the inverse axes are issued first; meanwhile warp
+// 0 forms each lane's candidate x_i = c_i + (o_0 A_0i + o_1 A_1i + ...),
+// left to right, into shared memory, its cube check and whether it counts
+// (launched and in the cube), and the chunk-0 block writes the
+// likelihood's input.  After one wait and one barrier each warp counts its
+// share of the chunk for every lane that counts; warp 0 sums a lane's
+// counts over the warps and adds them to the lane's word with the
+// block's arrival, and the lane's last block writes its flag from the
+// total (the chosen centre holds x: nin is at least 1) and zeroes the
+// word.
 template <typename T, int NX, bool CUBES>
-__global__ void __launch_bounds__(FRIENDS_BLOCK) unif_valid_kernel_friends(
-    FriendsArgs<T> a, int tile, int staged) {
+__global__ void __launch_bounds__(FRIENDS_BLOCK, 2) unif_valid_kernel_friends(
+    FriendsArgs<T> a, int chunks, int per, int staged) {
   typedef Op<T> O;
-  extern __shared__ double smem_friends[];
-  __shared__ int scount[FRIENDS_LANES * FRIENDS_WARPS];
-  __shared__ int svote[FRIENDS_LANES * FRIENDS_WARPS];
+  extern __shared__ __align__(16) double smem_friends[];
+  __shared__ int scount[FRIENDS_WARPS][32];
+  __shared__ int sact[32];
   const unsigned FULL = 0xffffffffu;
-  const int t = threadIdx.x, g = t / FRIENDS_W, sub = t - g * FRIENDS_W;
-  const int k = blockIdx.x * FRIENDS_LANES + g;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int group = blockIdx.x / chunks, chunk = blockIdx.x - group * chunks;
+  const int k = group * 32 + lane;
   const bool live = k < a.q;
   const int n = NX > 0 ? NX : a.ncdim;
-  T* sb = (T*)smem_friends;                 // n * n where staged
-  T* sx = sb + (staged ? n * n : 0);        // FRIENDS_LANES * n
-  T* sc = sx + FRIENDS_LANES * n;           // tile * n
-  const i64 width = a.state[S_WIDTH];
-  i64 c = 0;
-  T ua = (T)0.0;
-  if (live) {
-    c = a.idx[k];
-    ua = a.ua[k];
+  const int pb = pad_b(n), pc = pad_c<T>(n);
+  const int j0 = chunk * per, nc = min(per, a.nctrs - j0);
+  T* sb = (T*)smem_friends;
+  T* sc = sb + (staged ? n * pb : 0);
+  T* sx = sc + per * pc;
+
+  const T* src = a.ctrs + (i64)j0 * n;
+  for (int e = t; e < nc * n; e += FRIENDS_BLOCK) {
+    const int j = e / n;
+    copy_async(sc + j * pc + (e - j * n), src + e);
   }
   if (staged)
-    for (int j = t; j < n * n; j += FRIENDS_BLOCK) sb[j] = a.axes_inv[j];
-
-  // the candidate and the likelihood's input: the thread's dimensions
-  bool in = true;
-  if (live) {
-    const T* o = a.offset + (i64)k * n;
-    const T* cr = a.ctrs + c * n;
-    const i64 row = (i64)k * a.ndim;
-    for (int i = sub; i < n; i += FRIENDS_W) {
-      T s = O::mul(o[0], a.axes[i]);
-      for (int l = 1; l < n; ++l) s = O::add(s, O::mul(o[l], a.axes[l * n + i]));
-      const T xi = O::add(cr[i], s);
-      sx[g * n + i] = xi;
-      in = take(a, row, i, xi, a.strict == nullptr || a.strict[i]) && in;
+    for (int e = t; e < n * n; e += FRIENDS_BLOCK) {
+      const int l = e / n;
+      copy_async(sb + l * pb + (e - l * n), a.axes_inv + e);
     }
-    const int nex = a.ndim - n;
-    for (int i = sub; i < nex; i += FRIENDS_W) {
-      const T e = a.u_ex[(i64)k * nex + i];
-      a.u_prop[row + n + i] = e;
-      a.uclamp[row + n + i] = clamp01(e);
+
+  // warp 0: the lanes' candidates, cube checks, acceptance uniforms and
+  // widths (kept for the flags), and in chunk 0 the likelihood's input
+  bool in = live, launched = false;
+  T ua = (T)0.0;
+  if (warp == 0) {
+    launched = live && (i64)k < a.state[S_WIDTH];
+    if (live) {
+      ua = a.ua[k];
+      const T* o = a.offset + (i64)k * n;
+      const T* cr = a.ctrs + a.idx[k] * n;
+      const i64 row = (i64)k * a.ndim;
+      T* xs = sx + lane * n;
+      auto put = [&](int i, T xi) {
+        xs[i] = xi;
+        const bool tight = a.strict == nullptr || a.strict[i];
+        in = in && (tight ? (xi > (T)0.0 && xi < (T)1.0)
+                          : (xi > (T)-0.5 && xi < (T)1.5));
+        if (chunk == 0) {
+          a.u_prop[row + i] = xi;
+          a.uclamp[row + i] = clamp01(xi);
+        }
+      };
+      if constexpr (NX > 0) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          T s = O::mul(o[0], a.axes[i]);
+#pragma unroll
+          for (int l = 1; l < NX; ++l)
+            s = O::add(s, O::mul(o[l], a.axes[l * NX + i]));
+          put(i, O::add(cr[i], s));
+        }
+      } else {
+        for (int i = 0; i < n; ++i) {
+          T s = O::mul(o[0], a.axes[i]);
+          for (int l = 1; l < n; ++l)
+            s = O::add(s, O::mul(o[l], a.axes[l * n + i]));
+          put(i, O::add(cr[i], s));
+        }
+      }
+      if (chunk == 0) {
+        const int nex = a.ndim - n;
+        for (int i = 0; i < nex; ++i) {
+          const T e = a.u_ex[(i64)k * nex + i];
+          a.u_prop[row + n + i] = e;
+          a.uclamp[row + n + i] = clamp01(e);
+        }
+      }
+    }
+    sact[lane] = launched && in;
+  }
+  copies_done();
+  __syncthreads();
+
+  // the warp's share of the chunk
+  const int share = (nc + FRIENDS_WARPS - 1) / FRIENDS_WARPS;
+  const int lo = warp * share, hi = min(nc, lo + share);
+  int cnt = 0;
+  if (sact[lane] && lo < hi) {
+    if constexpr (NX > 0) {
+      T x[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = sx[lane * NX + i];
+      cnt = count_nx<T, NX, CUBES>(x, sb, sc, lo, hi);
+    } else {
+      cnt = count_any<T, CUBES>(sx + lane * n, staged ? sb : a.axes_inv,
+                                staged ? pb : n, sc, pc, n, lo, hi);
     }
   }
-  const unsigned vote = __ballot_sync(FULL, in);
-  if ((t & 31) == 0) svote[t >> 5] = vote == FULL;
+  scount[warp][lane] = cnt;
   __syncthreads();
-  const T* xs = sx + g * n;
-  const T* bs = staged ? sb : a.axes_inv;
-  T x[NX > 0 ? NX : 1];
-  T b[NX > 0 ? NX * NX : 1];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xs[i];
-#pragma unroll
-  for (int j = 0; j < NX * NX; ++j) b[j] = bs[j];
+  if (warp != 0) return;
 
-  // the centres within distance 1, tile by tile
-  int nin = 0;
-  for (int j0 = 0; j0 < a.nctrs; j0 += tile) {
-    const int nt = min(tile, a.nctrs - j0);
-    if (j0 > 0) __syncthreads();  // every lane is done with the last tile
-    const T* src = a.ctrs + (i64)j0 * n;
-    for (int e = t; e < nt * n; e += FRIENDS_BLOCK) sc[e] = src[e];
-    __syncthreads();
-    if (live)
-      for (int j = sub; j < nt; j += FRIENDS_W)
-        nin += within<T, NX, CUBES>(x, b, xs, bs, sc + j * n, n);
-  }
-  for (int o = 16; o > 0; o >>= 1) nin += __shfl_xor_sync(FULL, nin, o);
-  if ((t & 31) == 0) scount[t >> 5] = nin;
-  __syncthreads();
-  if (!live || sub != 0) return;
-  int all = 0;
-  bool cube = true;
-  for (int w = 0; w < FRIENDS_WARPS; ++w) {
-    all += scount[g * FRIENDS_WARPS + w];
-    cube = cube && svote[g * FRIENDS_WARPS + w];
-  }
-  // the chosen centre holds x: nin is at least 1
-  a.valid[k] = (i64)k < width && cube && ua < O::recip(all > 1 ? all : 1);
+  // the lane's count and its block done over the grid in one atomic: the
+  // lane's last block writes its flag and zeroes the word
+  if (!live) return;
+  int add = 0;
+#pragma unroll
+  for (int w = 0; w < FRIENDS_WARPS; ++w) add += scount[w][lane];
+  const unsigned long long inc = (unsigned long long)add << 32 | 1ull;
+  const unsigned long long old = atomicAdd(a.counts + k, inc);
+  if ((unsigned)old != (unsigned)(chunks - 1)) return;
+  a.counts[k] = 0ull;
+  const int all = (int)((old + inc) >> 32);
+  a.valid[k] = launched && in && ua < O::recip(all > 1 ? all : 1);
 }
 
 // n values from src to dst, each chunk's loads issued before its stores
@@ -702,7 +950,8 @@ __global__ void __launch_bounds__(PLACE) unif_place_kernel(
 }
 
 // Whether unif_valid holds a candidate's row in registers at the widths
-// the drives run (2 and 3 dimensions: a kernel each, every other width the
+// the drives run (over ellipsoids 2 and 3 dimensions, the friends' mode
+// every width up to FRIENDS_NX: a kernel each, every other width the
 // generic loop).  A build with -DUNIF_VALID_ROW_REGISTERS=0 takes the
 // generic loop at every width (bench_kernels.py --generic-rows times the
 // two against each other).
@@ -749,52 +998,61 @@ int launch_valid(void* const* p, int q, int ndim, int ncdim, int m,
 }
 
 template <typename T, int NX, bool CUBES>
-int launch_friends_nx(const FriendsArgs<T>& a, unsigned grid, size_t smem,
-                      int tile, int staged, cudaStream_t stream) {
-  if (smem > 47 * 1024) {
+int launch_friends_kernel(const FriendsArgs<T>& a, unsigned grid, int chunks,
+                          int per, int staged, size_t smem,
+                          cudaStream_t stream) {
+  if (smem > FRIENDS_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > FRIENDS_SMEM_DEFAULT) {
     cudaError_t err = cudaFuncSetAttribute(
         unif_valid_kernel_friends<T, NX, CUBES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   unif_valid_kernel_friends<T, NX, CUBES>
-      <<<grid, FRIENDS_BLOCK, smem, stream>>>(a, tile, staged);
+      <<<grid, FRIENDS_BLOCK, smem, stream>>>(a, chunks, per, staged);
   return (int)cudaGetLastError();
 }
 
+// the kernel of the candidate's width: NX = ncdim up to FRIENDS_NX, else
+// the generic loop (every width in a -DUNIF_VALID_ROW_REGISTERS=0 build)
+template <typename T, bool CUBES, int NX = FRIENDS_NX>
+int launch_friends_nx(const FriendsArgs<T>& a, unsigned grid, int chunks,
+                      int per, int staged, size_t smem, cudaStream_t stream) {
+  if constexpr (NX == 0) {
+    return launch_friends_kernel<T, 0, CUBES>(a, grid, chunks, per, staged,
+                                              smem, stream);
+  } else {
+    if (UNIF_VALID_ROW_REGISTERS && a.ncdim == NX)
+      return launch_friends_kernel<T, NX, CUBES>(a, grid, chunks, per,
+                                                 staged, smem, stream);
+    return launch_friends_nx<T, CUBES, NX - 1>(a, grid, chunks, per, staged,
+                                               smem, stream);
+  }
+}
+
+// chunks, per and staged: ops/proposals.py, friends_geometry
 template <typename T, bool CUBES>
 int launch_friends(void* const* p, int q, int ndim, int ncdim, int nctrs,
-                   void* stream) {
-  if (q < 1 || ncdim < 1 || ndim < ncdim || nctrs < 1 || !p[0] || !p[2] ||
-      !p[3] || !p[4] || !p[5] || !p[6] || !p[8] || !p[9] || !p[10] ||
-      !p[11] || (ndim > ncdim && !p[1]))
+                   int chunks, int per, int staged, void* stream) {
+  if (q < 1 || ncdim < 1 || ndim < ncdim || nctrs < 1 || chunks < 1 ||
+      per < 1 || (i64)(chunks - 1) * per >= nctrs ||
+      (i64)chunks * per < nctrs || !p[0] || !p[2] || !p[3] || !p[4] ||
+      !p[5] || !p[6] || !p[8] || !p[9] || !p[10] || !p[11] || !p[12] ||
+      (ndim > ncdim && !p[1]) ||
+      (!staged && UNIF_VALID_ROW_REGISTERS && ncdim <= FRIENDS_NX))
     return (int)cudaErrorInvalidValue;
+  const i64 blocks = (i64)((q + 31) / 32) * chunks;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   FriendsArgs<T> a{(const T*)p[0],    (const T*)p[1],   (const T*)p[2],
                    (const i64*)p[3],  (const T*)p[4],   (const T*)p[5],
                    (const T*)p[6],    (const bool*)p[7], (const i64*)p[8],
                    (bool*)p[9],       (T*)p[10],        (T*)p[11],
-                   q,                 ndim,             ncdim,
-                   nctrs};
-  // a tile of centres of ~16 kB, a whole number of a lane's threads'
-  // worth, no more than N rounded up to that; the lanes' candidates; the
-  // inverse axes staged where all three fit the default 48 kB beside the
-  // static counts (else read where they lie)
-  const size_t sz = sizeof(T);
-  int tile = (int)(16384 / ((size_t)ncdim * sz)) / FRIENDS_W * FRIENDS_W;
-  tile = tile < FRIENDS_W ? FRIENDS_W : tile > 1024 ? 1024 : tile;
-  const int need = (nctrs + FRIENDS_W - 1) / FRIENDS_W * FRIENDS_W;
-  tile = tile < need ? tile : need;
-  const size_t base = (size_t)(FRIENDS_LANES + tile) * ncdim * sz;
-  const size_t inv = (size_t)ncdim * ncdim * sz;
-  const int staged = base + inv <= 47 * 1024;
-  const size_t smem = base + (staged ? inv : 0);
-  const unsigned grid = (unsigned)((q + FRIENDS_LANES - 1) / FRIENDS_LANES);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (UNIF_VALID_ROW_REGISTERS && ncdim == 2)
-    return launch_friends_nx<T, 2, CUBES>(a, grid, smem, tile, staged, st);
-  if (UNIF_VALID_ROW_REGISTERS && ncdim == 3)
-    return launch_friends_nx<T, 3, CUBES>(a, grid, smem, tile, staged, st);
-  return launch_friends_nx<T, 0, CUBES>(a, grid, smem, tile, staged, st);
+                   (unsigned long long*)p[12],          q,
+                   ndim,              ncdim,            nctrs};
+  return launch_friends_nx<T, CUBES>(a, (unsigned)blocks, chunks, per,
+                                     staged,
+                                     friends_smem<T>(ncdim, per, staged),
+                                     (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -828,15 +1086,17 @@ int launch_place(void* const* p, int q, int ndim, int npdim, void* stream) {
                                           void* stream) {                  \
     return launch_valid<T>(p, q, ndim, ncdim, m, stream);                  \
   }                                                                        \
-  extern "C" int dynesty_unif_balls_##TAG(void* const* p, int q,           \
-                                          int ndim, int ncdim, int nctrs,  \
-                                          void* stream) {                  \
-    return launch_friends<T, false>(p, q, ndim, ncdim, nctrs, stream);     \
+  extern "C" int dynesty_unif_balls_##TAG(                                \
+      void* const* p, int q, int ndim, int ncdim, int nctrs, int chunks,   \
+      int per, int staged, void* stream) {                                 \
+    return launch_friends<T, false>(p, q, ndim, ncdim, nctrs, chunks, per, \
+                                    staged, stream);                       \
   }                                                                        \
-  extern "C" int dynesty_unif_cubes_##TAG(void* const* p, int q,           \
-                                          int ndim, int ncdim, int nctrs,  \
-                                          void* stream) {                  \
-    return launch_friends<T, true>(p, q, ndim, ncdim, nctrs, stream);      \
+  extern "C" int dynesty_unif_cubes_##TAG(                                \
+      void* const* p, int q, int ndim, int ncdim, int nctrs, int chunks,   \
+      int per, int staged, void* stream) {                                 \
+    return launch_friends<T, true>(p, q, ndim, ncdim, nctrs, chunks, per,  \
+                                   staged, stream);                        \
   }                                                                        \
   extern "C" int dynesty_unif_place_##TAG(void* const* p, int q, int ndim, \
                                           int npdim, int unused,           \

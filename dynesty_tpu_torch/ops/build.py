@@ -66,11 +66,16 @@ def load_library(name, src=None):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src.name}:\n"
                                f"{proc.stdout}{proc.stderr}")
+        # the compiler's report (-Xptxas -v) beside the library, for a
+        # later process that finds the library built
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
         build_log[name] = {"seconds": time.perf_counter() - t0,
                            "output": proc.stdout + proc.stderr}
     else:
-        build_log[name] = {"seconds": 0.0, "output": "(cached)"}
+        log = out.with_suffix(".log")
+        build_log[name] = {"seconds": 0.0, "output": "(cached)\n" + (
+            log.read_text() if log.exists() else "")}
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib

@@ -61,6 +61,7 @@ its entries and the wrapper copies them back, the kernel writes them in
 place.
 """
 
+import collections
 import ctypes
 import math
 
@@ -77,6 +78,7 @@ __all__ = ["SliceRound", "slice_init", "slice_propose",
            "unif_width_plain", "unif_valid", "unif_valid_plain",
            "ellipsoid_forms_plain", "unif_input_plain", "UNIF_FORMS",
            "UNIF_FRIENDS", "unif_laid_out", "friends_union_plain",
+           "friends_layout", "friends_geometry",
            "unif_valid_round_plain",
            "unif_place", "unif_place_plain", "DoublingRound",
            "doubling_point", "doubling_point_plain", "doubling_expand",
@@ -625,6 +627,18 @@ UNIF_FORMS = ("ctrs", "ams", "mask")
 # the friends' arrays (balls and cubes) that unif_valid reads, all laid out
 # by the round: contiguous, in its dtype (the draws read none of them)
 UNIF_FRIENDS = ("ctrs", "axes", "axes_inv")
+# unif_valid's friends mode (csrc/unif_wave.cu, which has the same
+# constants): a block of FRIENDS_WARPS warps over the same 32 lanes, about
+# two blocks on each of the card's SMs (FRIENDS_SMS, an H100 SXM's count,
+# where the round is on no card), each warp given at least
+# FRIENDS_MIN_WARP centres; the dynamic shared memory a block takes
+# without asking (the 48 kB default less the kernel's static counts) and
+# at most (sm_90's 227 kB less the same)
+FRIENDS_WARPS = 8
+FRIENDS_SMS = 132
+FRIENDS_MIN_WARP = 8
+FRIENDS_SMEM_DEFAULT = 46 * 1024
+FRIENDS_SMEM_MAX = 225 * 1024
 
 
 def unif_laid_out(layout, friends=None):
@@ -634,6 +648,52 @@ def unif_laid_out(layout, friends=None):
     ellipsoids ``UNIF_FORMS``, else none."""
     return UNIF_FRIENDS if friends else \
         UNIF_FORMS if "ams" in layout else ()
+
+
+def friends_layout(ncdim, per, itemsize, staged=True):
+    """The bytes of a block's shared memory in ``unif_valid``'s friends
+    mode, as the kernel lays it out (``friends_smem``): where ``staged``,
+    the inverse axes (``ncdim`` rows padded to a multiple of four values);
+    ``per`` centres (rows padded to 16 bytes); the 32 lanes' candidates
+    (rows of ``ncdim``); values of ``itemsize`` bytes."""
+    pad_b = -(-ncdim // 4) * 4
+    v = 16 // itemsize
+    pad_c = -(-ncdim // v) * v
+    return ((ncdim * pad_b if staged else 0) + per * pad_c + 32 * ncdim) * \
+        itemsize
+
+
+FriendsGeometry = collections.namedtuple(
+    "FriendsGeometry", "groups chunks per staged")
+
+
+def friends_geometry(q, nctrs, ncdim, itemsize, sms=FRIENDS_SMS):
+    """The launch of ``unif_valid``'s friends mode for ``q`` lanes and
+    ``nctrs`` centres in ``ncdim`` dimensions of ``itemsize`` bytes on a
+    card of ``sms`` SMs: the lane groups (32 lanes each), the chunks of
+    centres, the centres of a chunk (the last one's the rest), and
+    whether the inverse axes are staged in shared memory.  The grid
+    (groups x chunks blocks) holds about two blocks an SM where every
+    warp still gets ``FRIENDS_MIN_WARP`` centres, and a chunk
+    (:func:`friends_layout`) fits ``FRIENDS_SMEM_DEFAULT``
+    (``FRIENDS_SMEM_MAX`` where the candidates alone do not).  Raises
+    where not even one centre fits."""
+    groups = -(-q // 32)
+    want = max(1, round(2 * sms / groups))
+    want = min(want, max(1, nctrs // (FRIENDS_WARPS * FRIENDS_MIN_WARP)))
+    staged = friends_layout(ncdim, 1, itemsize) <= FRIENDS_SMEM_DEFAULT
+    fixed = friends_layout(ncdim, 0, itemsize, staged)
+    row = friends_layout(ncdim, 1, itemsize, staged) - fixed
+    budget = FRIENDS_SMEM_DEFAULT if fixed + row <= FRIENDS_SMEM_DEFAULT \
+        else FRIENDS_SMEM_MAX
+    most = (budget - fixed) // row
+    if most < 1:
+        raise ValueError(f"unif_valid: no friends kernel for {ncdim} "
+                         f"dimensions of {itemsize} bytes (a block's "
+                         f"shared memory holds no centre)")
+    per = min(-(-nctrs // want), most)
+    chunks = -(-nctrs // per)
+    return FriendsGeometry(groups, chunks, per, staged)
 
 
 def unif_width_plain(q, n_filled, n_prop):
@@ -818,7 +878,8 @@ class UnifRound:
     ``unif_valid`` kernel reads, contiguous, the centres and matrices in
     the round's dtype, and so every array of a union of balls or cubes,
     ``UNIF_FRIENDS``, where ``friends`` names it: 'balls' or 'cubes'),
-    the cube check's ``strict`` mask, and a wave's
+    the cube check's ``strict`` mask, over balls and cubes the friends
+    kernel's ``counts`` (int64, zero between launches), and a wave's
     outputs (``valid``; ``u_prop`` and ``uclamp`` (q, ndim), the
     likelihood's input and the same clamped into the cube; ``dest``: each
     lane's row, for the blob's indexed copy).
@@ -871,8 +932,14 @@ class UnifRound:
             for k, (shape, stride, offset, dt) in layout.items()}
         self.m = self.arrays["mask"].shape[0] if "mask" in self.arrays \
             else 0
-        # the friends' centres
+        # the friends' centres, and the friends kernel's counts (each
+        # lane's count in the high 32 bits, its blocks done in the low 32;
+        # zero between launches: the lane's last block zeroes it)
         self.nctrs = self.arrays["ctrs"].shape[0] if friends else 0
+        self.counts = self.geometry = None
+        if friends:
+            self.counts = torch.zeros(32 * -(-q // 32), dtype=torch.int64,
+                                      device=device)
         self.strict = None
         if strict is not None:
             if not isinstance(strict, torch.Tensor):
@@ -920,22 +987,31 @@ class UnifRound:
     def _bind(self):
         """Fill both kernels' argument tables (``unif_valid``'s in the
         order of its kernel's struct: ``ValidArgs``, over balls and cubes
-        ``FriendsArgs``); a wave's candidates and draws and the
-        likelihood's outputs are written into them at each launch."""
+        ``FriendsArgs``, with the launch's :func:`friends_geometry` in
+        ``geometry``); a wave's candidates and draws and the likelihood's
+        outputs are written into them at each launch."""
         s, a = self.slots, self.arrays
         outs = (self.strict, self.state, self.valid, self.u_prop,
                 self.uclamp)
         tag = _DTYPES[self.dtype]
         if self.friends:
-            valid = (None,) * 4 + tuple(a[k] for k in UNIF_FRIENDS) + outs
+            sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count \
+                if self.device.type == "cuda" else FRIENDS_SMS
+            g = self.geometry = friends_geometry(
+                self.q, self.nctrs, self.ncdim,
+                torch.finfo(self.dtype).bits // 8, sms)
+            valid = (None,) * 4 + tuple(a[k] for k in UNIF_FRIENDS) + \
+                outs + (self.counts,)
             self._valid_fn = _entry("unif_wave", f"unif_{self.friends}",
-                                    tag)
+                                    tag, 7)
+            self._valid_ints = (self.q, self.ndim, self.ncdim, self.nctrs,
+                                g.chunks, g.per, int(g.staged))
         else:
             valid = (None,) * 3 + tuple(
                 a.get(k) if self.m else None for k in UNIF_FORMS) + outs
             self._valid_fn = _entry("unif_wave", "unif_valid", tag)
-        self._valid_ints = (self.q, self.ndim, self.ncdim,
-                            self.nctrs if self.friends else self.m)
+            self._valid_ints = (self.q, self.ndim, self.ncdim, self.m)
         place = (self.valid, None, None, None, self.loglstar, self.state,
                  self.done, s["u"], s["v"], s["logl"], s["nc"], self.dest)
         self._valid_args = _pointer_table(valid)
@@ -1507,13 +1583,13 @@ def doubling_shrink(rb, mode, v_x=None, logl_x=None):
 _ENTRY = {}
 
 
-def _entry(lib, fn, tag):
+def _entry(lib, fn, tag, nints=4):
     key = (fn, tag)
     f = _ENTRY.get(key)
     if f is None:
         f = getattr(build.load_library(lib), f"dynesty_{fn}_{tag}")
         f.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_int] * nints + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _ENTRY[key] = f
     return f
@@ -1528,7 +1604,7 @@ def _pointer_table(tensors):
 
 def _run(f, ptrs, ints, device, fn):
     """Launch entry ``f`` on ``device``'s current stream with the pointer
-    table ``ptrs`` and four ints; raises on a refused launch."""
+    table ``ptrs`` and the ints ``ints``; raises on a refused launch."""
     if torch.cuda.current_device() != device.index:
         with torch.cuda.device(device):
             return _run(f, ptrs, ints, device, fn)

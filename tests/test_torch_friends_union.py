@@ -18,15 +18,18 @@ equal; candidates that are NaN or outside the cube, a loose dimension and
 dimensions outside the bound through the round's buffers; distances
 exactly at 1 and at their neighbouring floats (a square root that rounds
 to 1 counts as 1; a NaN entry of a cube's distance is NaN, as ``amax``
-gives); the kernels' argument tables against their structs; and whole
-balls/unif and cubes/unif runs against the JAX package's (logz within 4
-combined errors, niter within 10 %).
+gives); the root's test as the kernel's threshold on the square; the
+kernel's launch geometry; the kernels' argument tables against their
+structs; and whole balls/unif and cubes/unif runs against the JAX
+package's (logz within 4 combined errors, niter within 10 %).
 
 On a card (``cuda``-marked, skipped here): the kernel against the plain
 version bit for bit at q 1, 37 and 256, N 1, 2048 and 16384 and ncdim 3,
-15 and 40 in both dtypes, on the threshold lanes, and a captured friends
-wave against an eager one.  The JAX package is imported by a fixture
-only, so that on the card
+15 and 40 in both dtypes, on the threshold lanes, at narrowed widths,
+where no chunk divides the centres (widths 1 to 17 and 70), over twenty
+launches and twenty replays that each leave the counts zero, and a
+captured friends wave against an eager one.  The JAX package is
+imported by a fixture only, so that on the card
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_friends_union.py
@@ -353,6 +356,79 @@ def test_a_nan_entry_of_a_distance_is_nan(ftype):
     assert not bool(acc.any())
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_the_root_test_is_a_threshold_on_the_square(dtype):
+    """The friends kernel's ball test takes no root: ``sqrt(s) <= 1``
+    (torch's correctly rounded root, the plain version's test) holds
+    exactly where ``s <= nextafter(1, 2)``, over every float within 2,000
+    ulps of 1, 10^5 uniform ``s`` in [0, 4), and at 0, -0, NaN and inf;
+    the kernel's threshold constants (``Op::one_up`` in
+    ``csrc/unif_wave.cu``) are that float."""
+    one = torch.tensor(1.0, dtype=dtype)
+    lim = torch.nextafter(one, 2 * one)
+    ibits = torch.int64 if dtype == torch.float64 else torch.int32
+    near = (one.view(ibits) + torch.arange(-2000, 2001, dtype=ibits)) \
+        .view(dtype)
+    rand = torch.as_tensor(get_rstate(SEED).uniform(0.0, 4.0, 10 ** 5),
+                           dtype=dtype)
+    special = torch.tensor([0.0, -0.0, math.nan, math.inf], dtype=dtype)
+    s = torch.cat([near, rand, special])
+    assert torch.equal(torch.sqrt(s) <= 1.0, s <= lim)
+    assert bool(torch.sqrt(lim) <= 1.0)
+    assert not bool(torch.sqrt(torch.nextafter(lim, 2 * one)) <= 1.0)
+    src = (Path(pr.__file__).resolve().parent.parent / "csrc" /
+           "unif_wave.cu").read_text()
+    f64, f32 = re.findall(
+        r"one_up\(\) \{\s*return (0x[0-9a-f.]+p[0-9]+)f?;\s*\}", src)
+    assert float.fromhex(f64 if dtype == torch.float64 else f32) == \
+        float(lim)
+
+
+@pytest.mark.parametrize("nctrs", [1, 31, 2048, 16384])
+@pytest.mark.parametrize("q", [1, 37, 256])
+def test_the_friends_geometry_covers_every_centre_once(q, nctrs):
+    """``friends_geometry``: groups of 32 lanes covering the wave, chunks
+    that cover every centre exactly once (only the last one short), a
+    block's shared memory as ``friends_layout`` lays it out and within the
+    budget (the 46 kB default where a chunk of one centre fits it), the
+    inverse axes staged wherever the kernel holds the candidate in
+    registers, every warp given ``FRIENDS_MIN_WARP`` centres where there
+    are enough, and at the drives' shape (q 256, 2048 centres) 32 chunks
+    on an H100 SXM's 132 SMs (28 on a card of 114): about two blocks an
+    SM."""
+    for ncdim in (1, 3, 15, 16, 17, 40, 200):
+        for itemsize in (8, 4):
+            g = pr.friends_geometry(q, nctrs, ncdim, itemsize)
+            assert (g.groups - 1) * 32 < q <= g.groups * 32
+            cover = np.zeros(nctrs, dtype=int)
+            for c in range(g.chunks):
+                cover[c * g.per:(c + 1) * g.per] += 1
+            assert (cover == 1).all()
+            assert (g.chunks - 1) * g.per < nctrs <= g.chunks * g.per
+            one = pr.friends_layout(ncdim, 1, itemsize, g.staged)
+            assert pr.friends_layout(ncdim, g.per, itemsize, g.staged) <= (
+                pr.FRIENDS_SMEM_DEFAULT if one <= pr.FRIENDS_SMEM_DEFAULT
+                else pr.FRIENDS_SMEM_MAX)
+            assert g.staged or ncdim > 16
+            assert g.per >= min(nctrs, pr.FRIENDS_WARPS *
+                                pr.FRIENDS_MIN_WARP) or g.chunks > 1 and \
+                pr.friends_layout(ncdim, g.per + 1, itemsize, g.staged) > \
+                pr.FRIENDS_SMEM_DEFAULT
+    if (q, nctrs) == (256, 2048):
+        g = pr.friends_geometry(q, nctrs, 3, 8)
+        assert (g.groups, g.chunks, g.per) == (8, 32, 64)
+        g = pr.friends_geometry(q, nctrs, 3, 8, 114)
+        assert (g.groups, g.chunks, g.per) == (8, 28, 74)
+    # the kernel's own constants are the geometry's
+    src = (Path(pr.__file__).resolve().parent.parent / "csrc" /
+           "unif_wave.cu").read_text()
+    for name in ("FRIENDS_WARPS", "FRIENDS_SMEM_DEFAULT", "FRIENDS_SMEM_MAX"):
+        value = re.search(r"const (?:int|size_t) %s = ([\d *]+);" % name,
+                          src).group(1)
+        assert math.prod(int(f) for f in value.split("*")) == \
+            getattr(pr, name)
+
+
 def _friends_round(ftype, q, ndim, ncdim, nctrs, dtype, device, strict=None,
                    seed=3):
     """A round over ``nctrs`` friends about the cube's middle on ``device``
@@ -476,8 +552,9 @@ def test_the_argument_tables_follow_the_kernels_structs(monkeypatch, kind):
     """``unif_valid``'s pointer table, as ``UnifRound`` binds it on the
     card, names the round's tensors in the order of its kernel's struct
     in ``csrc/unif_wave.cu`` (``ValidArgs``; over balls and cubes
-    ``FriendsArgs``), the draws left to each launch; the launch's ints
-    carry the centres' count over balls and cubes, the slots' over
+    ``FriendsArgs``, the friends kernel's counts last), the
+    draws left to each launch; the launch's ints carry the centres' count
+    and the launch's geometry over balls and cubes, the slots' count over
     ellipsoids."""
     entries = []
     monkeypatch.setattr(pr, "_entry", lambda *a: entries.append(a[1]))
@@ -498,7 +575,8 @@ def test_the_argument_tables_follow_the_kernels_structs(monkeypatch, kind):
                       torch.tensor([True, False, True]), layout, friends)
     rb._bind()
     names = {t.data_ptr(): k for k, t in rb.arrays.items()}
-    for k in ("strict", "state", "valid", "u_prop", "uclamp"):
+    for k in ("strict", "state", "valid", "u_prop", "uclamp") + \
+            (("counts",) if friends else ()):
         names[getattr(rb, k).data_ptr()] = k
     src = (Path(pr.__file__).resolve().parent.parent / "csrc" /
            "unif_wave.cu").read_text()
@@ -511,7 +589,15 @@ def test_the_argument_tables_follow_the_kernels_structs(monkeypatch, kind):
         assert g == w or (g is None and (w in draws or kind != "ellipsoids"
                                          and w in pr.UNIF_FORMS)), (g, w)
     assert entries[0] == (f"unif_{friends}" if friends else "unif_valid")
-    assert rb._valid_ints == (8, 4, 3, 37 if friends else rb.m)
+    if friends:
+        g = rb.geometry
+        assert g == pr.friends_geometry(8, 37, 3, 8)
+        assert rb._valid_ints == (8, 4, 3, 37, g.chunks, g.per, 1)
+        assert rb.counts.shape == (32,) and rb.counts.dtype == torch.int64
+        assert not bool(rb.counts.any())
+    else:
+        assert rb._valid_ints == (8, 4, 3, rb.m)
+        assert rb.counts is None
 
 
 # --------------------------------------------------------------------------
@@ -618,6 +704,105 @@ def test_a_nan_entry_of_a_distance_on_the_card(cuda, ftype):
     pr.unif_valid(rb, offset, ua, idx)
     torch.cuda.synchronize()
     assert torch.equal(rb.valid, ref[0]) and bool(rb.valid.all())
+
+
+def _same_outputs(rb, ref):
+    """``unif_valid``'s outputs on ``rb`` bit for bit with ``ref``, and the
+    friends kernel's counts all zero."""
+    return all(torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+               for got, want in zip((rb.valid, rb.u_prop, rb.uclamp),
+                                    ref)) and not bool(rb.counts.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", FTYPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("width", [0, 1, 37, 255])
+def test_a_narrowed_width_on_the_card(cuda, ftype, dtype, width):
+    """A wave narrowed to ``width`` of q 256 lanes (2048 centres in 3-D):
+    the lanes past it count nothing and are invalid, their likelihood
+    input still written; every output bit for bit with the plain
+    version."""
+    q = 256
+    rb, d = _friends_round(ftype, q, NDIM + 2, NDIM, 2048, dtype, cuda)
+    rb.state[pr.U_WIDTH] = width
+    draws = (d["uc"], d["ua"], d["idx"], d["u_ex"])
+    ref = pr.unif_valid_round_plain(rb, *draws)
+    rb.valid.fill_(True)
+    pr.unif_valid(rb, *draws)
+    torch.cuda.synchronize()
+    assert _same_outputs(rb, ref)
+    assert not bool(rb.valid[width:].any())
+    if width > 1:
+        assert int(rb.valid.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", FTYPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_repeated_launches_and_replays_on_the_card(cuda, ftype, dtype):
+    """Twenty launches back to back, then twenty replays of a captured
+    launch, at the drives' shape (q 256, 2048 centres in 3-D) and at 15-D:
+    each writes the plain version's bits (the outputs poisoned before
+    it), and leaves the counts zero."""
+    for ncdim in (NDIM, 15):
+        rb, d = _friends_round(ftype, 256, ncdim + 2, ncdim, 2048, dtype,
+                               cuda)
+        draws = (d["uc"], d["ua"], d["idx"], d["u_ex"])
+        ref = pr.unif_valid_round_plain(rb, *draws)
+
+        def poison():
+            rb.valid.fill_(True)
+            rb.u_prop.fill_(-7.0)
+            rb.uclamp.fill_(-7.0)
+
+        for _ in range(20):
+            poison()
+            pr.unif_valid(rb, *draws)
+            torch.cuda.synchronize()
+            assert _same_outputs(rb, ref)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pr.unif_valid(rb, *draws)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            pr.unif_valid(rb, *draws)
+        for _ in range(20):
+            poison()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert _same_outputs(rb, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", FTYPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ncdim", [1, 2, 4, 5, 8, 16, 17, 70])
+@pytest.mark.parametrize("q,nctrs", [(37, 200), (256, 2047)])
+def test_chunks_that_do_not_divide_the_centres_on_the_card(
+        cuda, ftype, dtype, ncdim, q, nctrs):
+    """Centre counts that no chunk divides (a short last chunk), at the
+    register kernels' widths either side of their limits (B whole in
+    registers up to 4 dimensions, the candidate up to 16), the generic
+    loop's 17 and 70 (in float64 the inverse axes past the shared-memory
+    default, read from device memory): bit for bit with the plain
+    version."""
+    strict = None
+    if ncdim > 1:
+        strict = torch.ones(ncdim, dtype=torch.bool)
+        strict[1] = False
+    rb, d = _friends_round(ftype, q, ncdim + 1, ncdim, nctrs, dtype, cuda,
+                           strict)
+    assert nctrs % rb.geometry.per != 0 and rb.geometry.chunks > 1
+    assert rb.geometry.staged == (ncdim < 70 or dtype == torch.float32)
+    draws = (d["uc"], d["ua"], d["idx"], d["u_ex"])
+    ref = pr.unif_valid_round_plain(rb, *draws)
+    pr.unif_valid(rb, *draws)
+    torch.cuda.synchronize()
+    assert _same_outputs(rb, ref)
+    assert int(rb.valid.sum()) > 0
 
 
 class _EagerLike(LogLikelihood):
