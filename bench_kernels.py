@@ -58,7 +58,14 @@ kernels' cases to ``GROUPS``.  The groups:
   sha256 of their outputs' bytes (``digest``); then that digest alone at
   every phase-2i stack and edge stack in float64 and float32 on the
   inputs of ``REFIT_SEEDS`` (``ellipsoid_refit_bits``):
-  ``chip_smoke.py --parent`` reports where two versions' bits differ.
+  ``chip_smoke.py --parent`` reports where two versions' bits differ;
+* ``prior``: the beta-prior drive's prior (three Betas) vmapped over
+  (256, 3), as a wave calls it: one call by events, its device time and
+  kernel count from the profiler, whether a CUDA graph capture of it
+  raises (before the Beta kernels: the eager bisection's ~4.7e5 launches
+  and its copy from the host), a replay where it does not, and the
+  sha256 of its output.  It runs last, so that a capture that raises
+  follows every other group.
 
 ``--generic-rows`` also times ``unif_valid`` built with its generic row
 loop at every width (``-DUNIF_VALID_ROW_REGISTERS=0``) against the
@@ -573,10 +580,53 @@ def refit_times(cm, torch):
     return recs
 
 
+def prior_times(cm, torch):
+    """The beta-prior drive's prior, three Betas, vmapped over a (256, 3)
+    batch as a wave calls it, in float64: one call by events, its device
+    time and kernel count from one profiled call, whether a
+    ``torch.cuda.graph`` capture of it raises (and with what), a replay's
+    events time where it does not, and the sha256 of its output's bytes.
+    Before the Beta kernels this is the eager bisection: ~4.7e5 launches
+    a call, whose copy of ``a`` from the host no capture takes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynesty_tpu_torch import models
+    pt = models.PriorTransform([models.Beta(a, b)
+                                for a, b in cm.BETA_DRIVE_AB])
+    u = torch.as_tensor(cm.np.random.Generator(cm.np.random.PCG64(
+        cm.SEED)).random((256, 3)), device="cuda")
+    call = torch.func.vmap(pt)
+    out = call(u)
+    rec = {"kernel": "prior_transform", "ndim": 3, "q": 256,
+           "dtype": "float64", "events_us": 1e3 * cm._once_ms(
+               lambda: call(u))}
+    h = hashlib.sha256()
+    h.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    rec["digest"] = h.hexdigest()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call(u)
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    rec["kernels"], rec["device_us"] = len(spans), float(sum(spans))
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            call(u)
+        rec["capture"] = "captured"
+        rec["replay_us"] = 1e3 * cm._time_ms(graph.replay, 20)
+    except Exception as err:  # noqa: BLE001 - the outcome is the record
+        rec["capture"] = f"raises {type(err).__name__}: {err}"[:300]
+    return [rec]
+
+
 # the case groups, in the order they run: each redesign adds its kernels'
 GROUPS = (("assemble", assemble_times), ("place", place_times),
           ("doubling", doubling_times), ("valid", unif_times),
-          ("replays", replay_times), ("refit", refit_times))
+          ("replays", replay_times), ("refit", refit_times),
+          ("prior", prior_times))
 
 
 def main():

@@ -135,7 +135,18 @@ Phases, in order; any failure raises and exits non-zero:
    relative to each slot's largest entry, equal ``mask`` and re-fitted
    slots, two launches and a captured replay the same bits; the kernels'
    layout (members staged at a time), the maximum relative error, the
-   kernels' and the plain version's time per call and the bound.
+   kernels' and the plain version's time per call and the bound.  Then
+   the Beta prior (``beta_phase``, phase 2j): ``beta_ppf`` and
+   ``betainc`` (``csrc/beta_prior.cu``) against their plain versions on
+   the same CUDA tensors over 25 (a, b) pairs (0.5, 1, 2, 5, 30 each), u
+   and x with 0, 1, 1e-12, 1 - 1e-12 and NaN, at (256,) and (2^20,),
+   float64 and float32, bit for bit; the beta-prior drive's prior (three
+   Betas) under ``torch.func.vmap`` on (256, 3), three launches a call;
+   the same and both kernels called directly, captured in one CUDA graph
+   and replayed 20 times, the same bits each time; each kernel's time at
+   Beta(2, 5) (events), the plain version's, the one-thread chain (the
+   kernel on one element), the operations bound (the plain version's
+   elementwise ops an element at the type's rate) and the byte bound.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -246,7 +257,16 @@ Phases, in order; any failure raises and exits non-zero:
 27. priors: a ``PriorTransform`` of the six priors (``Beta(2, 5)`` among
     them) on 2^20 seeded uniforms on the card, against scipy's quantiles
     (1e-8 absolute); ``_betainc`` on the card against its CPU value and
-    ``scipy.special.betainc`` (1e-10 absolute); ms per million points.
+    ``scipy.special.betainc`` (1e-10 absolute); ms per million points;
+    the Beta kernels' launches.  27b. beta-prior: ``NestedSampler(
+    beta_loglike, PriorTransform([Beta(2, 5), Beta(0.5, 0.5), Beta(5,
+    2)]), 3, nlive=2048)``, every other argument at its default (multi /
+    unif, bootstrap 5, q 256), the likelihood a product of Gaussians of
+    width 0.02 about (0.25, 0.5, 0.75): the evidence within 4 logzerr of
+    ``scipy.integrate.quad``'s, no capture warning, every wave but one
+    warm-up a shape replayed, ``beta_ppf`` launched 3 times a prior call
+    on the card (replays included), and a captured wave holding 3
+    ``beta_ppf`` nodes.
 28. mesh-balls: phase 3's drive with ``mesh=make_mesh()`` (the one card):
     equal to phase 3's run bit for bit (niter, ncall, logl, logz,
     samples, scale) with the same launches, every lane of the last
@@ -298,7 +318,10 @@ Phases, in order; any failure raises and exits non-zero:
     each replayed doubling segment, of the two refit kernels at phase
     2i's seven stacks (each beside its byte or operation bound and the
     launch floor) and of one replay of a heavy round's captured
-    prologue, and of one 256-lane evaluation of the heavy likelihood.
+    prologue, of one 256-lane evaluation of the heavy likelihood, of
+    each Beta kernel at phase 2j's timed cases and its one-thread chain,
+    and of a replay of the beta-prior drive's wave (its ``beta_ppf``
+    nodes apart).
     The cube wave's, one heavy ellipsoid wave's, that prologue's and
     every doubling segment's kernels are read from the captured graph's
     own nodes, as the CUDA runtime prints them: each wrapper's kernel is
@@ -319,6 +342,9 @@ so each kernel's launches equal the drive's chained ellipsoid rounds
 (gated ones included), or the drive fails; one JSON line lists them by
 drive, and phase 34 reads both kernels once in the nodes of a captured
 prologue of the heavy drive.
+Every drive counts the Beta kernels' launches: none but the beta-prior
+drive may launch them, and every captured graph of a proposal loop holds
+``beta_ppf`` in as many nodes as its capture counted.
 Every drive counts the proposal-step kernels' launches, the state
 machine's iterations (its flag reads less one a round) and the walk's
 steps (each eager step, and a replay's walks): ``slice_propose`` ==
@@ -385,6 +411,11 @@ except ImportError:
     # a checkout before the refit kernels (bench_kernels.py --root reads
     # this file's inputs over it)
     rr = None
+try:
+    from dynesty_tpu_torch.ops import beta_prior as bp  # noqa: E402
+except ImportError:
+    # a checkout before the Beta prior's kernels (bench_kernels.py --root)
+    bp = None
 from dynesty_tpu_torch.ops import proposals as pr  # noqa: E402
 from dynesty_tpu_torch.ops.geometry import unitcheck_batch  # noqa: E402
 
@@ -881,6 +912,8 @@ def _zero_counts(hk):
     cs.zero_counts()
     pr.zero_counts()
     rr.zero_counts()
+    if bp is not None:
+        bp.zero_counts()
     _ROUNDS[0] = 0
     for key in _LOOPS:
         _LOOPS[key] = 0
@@ -911,6 +944,8 @@ def _counts(hk, eager=False, custom=False, raised=False):
     out.update({w.__name__: w.launches for w in pr.WRAPPERS})
     out["round_assemble"] = cs.round_assemble.launches
     out.update({w.__name__: w.launches for w in rr.WRAPPERS})
+    if bp is not None:
+        out.update({w.__name__: w.launches for w in bp.WRAPPERS})
     _LOOPS["round_shapes"] = len(_ROUND_GRAPHS)
     _LOOPS["round_warm"] = sum(g.warm for g in _ROUND_GRAPHS)
     out.update(_LOOPS)
@@ -2348,10 +2383,12 @@ def heavy_loglike_plain():
     return loglike
 
 
-def unif_drive(dyt, loglike, truth, profile=None, **kw):
+def unif_drive(dyt, loglike, truth, profile=None, keep=None, **kw):
     """One ``NestedSampler(loglike, ptform, 3, **kw)`` run on the card's
     default device through the evidence gate (under ``profile`` if
-    given); returns its summary."""
+    given); returns its summary.  The sampler is appended to ``keep``
+    where given: a graph of its waves that a later phase replays reads
+    the sampler's arrays, which must outlive it."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sampler = dyt.NestedSampler(
@@ -2371,6 +2408,8 @@ def unif_drive(dyt, loglike, truth, profile=None, **kw):
     summary["nells"] = int(getattr(sampler.bound, "nells", 1))
     summary["max_last_expand"] = max(expands) if expands else None
     _gate(sampler, summary, f"unif drive {kw}")
+    if keep is not None:
+        keep.append(sampler)
     return summary
 
 
@@ -5700,6 +5739,367 @@ def partial_capture_phase(dyt):
     return out
 
 
+# --------------------------------------------------------------------------
+# the Beta prior's kernels (phase 2j) and the beta-prior drive (phase 27b)
+
+BETA_SOURCE = "dynesty_tpu_torch/csrc/beta_prior.cu"
+BETA_REPLACES = "dynesty_tpu/models/priors.py:83"
+# jax.scipy.special.betainc, whose 50 calls the JAX Beta's bisection makes
+BETA_REPLACES_ALSO = ["dynesty_tpu/models/priors.py:11"]
+BETA_KERNELS = ("beta_ppf", "betainc")
+# the sweep's (a, b): every pair of these values
+# (tests/test_torch_models.py's betainc grid)
+BETA_VALUES = (0.5, 1.0, 2.0, 5.0, 30.0)
+BETA_PAIRS = [(a, b) for a in BETA_VALUES for b in BETA_VALUES]
+# u and x at their ends, and a NaN (a NaN comparison is false: hi moves)
+BETA_EDGES = (0.0, 1.0, 1e-12, 1 - 1e-12, math.nan)
+# a wave's lanes, and the priors phase's points
+BETA_SHAPES = (256, PRIOR_POINTS)
+# the beta-prior drive: Beta(2, 5), Beta(0.5, 0.5), Beta(5, 2) under a
+# product of Gaussians of these means and this width, nlive 2048, every
+# other argument at its default (multi / unif, bootstrap 5, q 256)
+BETA_DRIVE_AB = ((2.0, 5.0), (0.5, 0.5), (5.0, 2.0))
+BETA_MU, BETA_SIGMA, BETA_NLIVE = (0.25, 0.5, 0.75), 0.02, 2048
+# the card's peak rate for each type's operations
+_RATE = {torch.float64: FP64_FLOPS, torch.float32: FP32_FLOPS}
+
+
+def beta_inputs(n, dtype, seed=SEED):
+    """Seeded uniforms on the card, the edges first, each repeated once a
+    pair (``i = k mod 25`` is pair k's at (2^20,))."""
+    k = len(BETA_PAIRS)
+    u = np.random.Generator(np.random.PCG64(seed)).random(n)
+    u[:len(BETA_EDGES) * k] = np.repeat(BETA_EDGES, k)
+    return torch.as_tensor(u, dtype=dtype, device="cuda")
+
+
+def _same_or_nan(a, b):
+    """Equal bits where both are numbers and NaN at the same places; and
+    the largest difference."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    same = bool(a.shape == b.shape and torch.equal(na, nb) and
+                torch.equal(a[~na], b[~nb]))
+    both = ~(na | nb)
+    diff = (a[both] - b[both]).abs()
+    return same, float(diff.max()) if diff.numel() else 0.0
+
+
+def _once_ms(fn):
+    """CUDA-event ms of one call (the plain versions: ~1.5 s a call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def plain_ops_per_element(fn, n):
+    """The elementwise operations one element costs the plain version:
+    the dispatched ops' outputs of ``n`` elements, counted while ``fn``
+    runs, over ``n`` (the 0-d ops on the numbers a, b are per call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor) and o.numel() == n:
+                    Count.ops += n
+            return out
+
+    with Count():
+        fn()
+    return Count.ops / n
+
+
+def beta_bounds(ops, n, dtype, tensors=2):
+    """The least time of ``n`` elements: the operations at the type's
+    rate, or ``tensors`` arrays of n read or written once at 3.35 TB/s;
+    (bound_ms, bound_by, ops_ms, bytes_ms)."""
+    ops_ms = 1e3 * ops * n / _RATE[dtype]
+    bytes_ms = 1e3 * tensors * n * torch.finfo(dtype).bits / 8 / HBM_BYTES
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
+
+
+def beta_sweep(name, n, dtype):
+    """One kernel over the 25 pairs at (n,): numbers a, b against the
+    plain version with a and b per element, all in one plain call (at
+    (256,) a (25, 256) batch, each pair over all of u; at (2^20,) the
+    pairs cycling over u's elements, pair k held at i = k mod 25), which
+    on the card gives the plain version's bits with numbers; Beta(2, 5)
+    also against the plain version with numbers.  ``betainc`` also with
+    its a and b as per-element tensors in one call."""
+    k = len(BETA_PAIRS)
+    u = beta_inputs(n, dtype)
+    pa = torch.tensor([p[0] for p in BETA_PAIRS], dtype=dtype, device="cuda")
+    pb = torch.tensor([p[1] for p in BETA_PAIRS], dtype=dtype, device="cuda")
+    kern = bp.beta_ppf if name == "beta_ppf" else \
+        (lambda x, a, b: bp.betainc(a, b, x))
+    plain = bp.beta_ppf_plain if name == "beta_ppf" else \
+        (lambda x, a, b: bp.betainc_plain(a, b, x))
+    batch = n <= 4096
+    if batch:
+        a, b, x = pa[:, None], pb[:, None], u.expand(k, n)
+    else:
+        reps = -(-n // k)
+        a, b, x = pa.repeat(reps)[:n], pb.repeat(reps)[:n], u
+    want = plain(x, a, b)
+    same, err, compared = True, 0.0, 0
+    for i, (va, vb) in enumerate(BETA_PAIRS):
+        got, ref = kern(u, va, vb), want[i] if batch else want[i::k]
+        s, e = _same_or_nan(got if batch else got[i::k], ref)
+        same, err, compared = same and s, max(err, e), compared + ref.numel()
+    numbers, e = _same_or_nan(kern(u, 2.0, 5.0), plain(u, 2.0, 5.0))
+    same, err = same and numbers, max(err, e)
+    rec = {"kernel": name, "n": n, "dtype": str(dtype).split(".")[1],
+           "pairs": k, "compared": compared, "numbers_case_equal": numbers,
+           "equal": same, "max_abs_err": err}
+    if name == "betainc":
+        s, e = _same_or_nan(bp.betainc(a, b, x), want)
+        rec["tensor_ab_equal"] = s
+        rec["equal"], rec["max_abs_err"] = same and s, max(err, e)
+    return rec
+
+
+def beta_timed(name, n, dtype, floor_us):
+    """The drive's Beta(2, 5) at (n,): the kernel's events ms (back to
+    back), the plain version's (one call; ``betainc``'s three), the
+    plain version's operations an element, the bounds; and the calls that
+    phase 34 times device only (the kernel, and its one-thread chain: the
+    kernel on one element)."""
+    u = beta_inputs(n, dtype)
+    one = u[-1:].clone()  # a seeded uniform, not an edge
+    if name == "beta_ppf":
+        call = lambda: bp.beta_ppf(u, 2.0, 5.0)  # noqa: E731
+        chain = lambda: bp.beta_ppf(one, 2.0, 5.0)  # noqa: E731
+        plain = lambda: bp.beta_ppf_plain(u, 2.0, 5.0)  # noqa: E731
+        plain_ms = _once_ms(plain)
+    else:
+        call = lambda: bp.betainc(2.0, 5.0, u)  # noqa: E731
+        chain = lambda: bp.betainc(2.0, 5.0, one)  # noqa: E731
+        plain = lambda: bp.betainc_plain(2.0, 5.0, u)  # noqa: E731
+        plain_ms = _time_ms(plain, 3)
+    ms = _time_ms(call, 20 if n <= 4096 else 5)
+    small = u[:256]
+    ops = plain_ops_per_element(
+        (lambda: bp.beta_ppf_plain(small, 2.0, 5.0)) if name == "beta_ppf"
+        else (lambda: bp.betainc_plain(2.0, 5.0, small)), 256)
+    bound, by, ops_ms, bytes_ms = beta_bounds(ops, n, dtype)
+    return {"kernel": name, "n": n, "dtype": str(dtype).split(".")[1],
+            "a": 2.0, "b": 5.0, "ms": ms, "plain_ms": plain_ms,
+            "chain_ms": _time_ms(chain, 10), "ops_per_element": ops,
+            "bound_ms": bound, "bound_by": by, "ops_bound_ms": ops_ms,
+            "bytes_bound_ms": bytes_ms, "launch_floor_us": floor_us,
+            "call": call, "chain_call": chain}
+
+
+def beta_vmap_replay(dtype):
+    """The beta-prior drive's prior (three Betas) on a (256, 3) batch
+    under ``torch.func.vmap``, and ``beta_ppf`` and ``betainc`` called
+    directly: against the plain versions, then captured once in a CUDA
+    graph (the wrappers count the capture's launches: the vmapped prior 3,
+    the direct calls 1 each) and replayed 20 times, each replay's outputs
+    zeroed before and the same bits after."""
+    from dynesty_tpu_torch import models
+    pt = models.PriorTransform([models.Beta(a, b) for a, b in BETA_DRIVE_AB])
+    u = torch.as_tensor(np.random.Generator(np.random.PCG64(SEED)).random(
+        (256, 3)), dtype=dtype, device="cuda")
+    u[0] = 0.0
+    u[1] = 1.0
+    want = torch.stack([bp.beta_ppf_plain(u[:, i].contiguous(), a, b)
+                        for i, (a, b) in enumerate(BETA_DRIVE_AB)], 1)
+    x = u[:, 0].contiguous()
+    want_d = (bp.beta_ppf_plain(x, 2.0, 5.0), bp.betainc_plain(2.0, 5.0, x))
+    n0 = bp.beta_ppf.launches
+    vm_same, vm_err = _same_or_nan(torch.func.vmap(pt)(u), want)
+    vm_launches = bp.beta_ppf.launches - n0
+    counts0 = (bp.beta_ppf.launches, bp.betainc.launches)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        outs = (torch.func.vmap(pt)(u), bp.beta_ppf(x, 2.0, 5.0),
+                bp.betainc(2.0, 5.0, x))
+    captured = (bp.beta_ppf.launches - counts0[0],
+                bp.betainc.launches - counts0[1])
+    replays_same = 0
+    for _ in range(20):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays_same += all(_same_or_nan(o, w)[0] for o, w in
+                            zip(outs, (want,) + want_d))
+    return {"dtype": str(dtype).split(".")[1], "vmap_equal": vm_same,
+            "vmap_max_abs_err": vm_err, "vmap_launches": vm_launches,
+            "captured_launches": list(captured), "replays": 20,
+            "replays_equal": replays_same,
+            "vmap_ms": _time_ms(lambda: torch.func.vmap(pt)(u), 10),
+            "replay_ms": _time_ms(graph.replay, 20), "graph": graph}
+
+
+def beta_phase(card, floor_us):
+    """Phase 2j: ``beta_ppf`` and ``betainc`` against their plain versions
+    over the sweep at (256,) and (2^20,), float64 and float32, under vmap
+    and replayed; then each kernel's time at the drive's Beta(2, 5) beside
+    the plain version's and the bounds.  Raises where a bit differs."""
+    sweep = [beta_sweep(name, n, dtype) for dtype in (torch.float64,
+                                                      torch.float32)
+             for n in BETA_SHAPES for name in BETA_KERNELS]
+    for r in sweep:
+        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']}: {r['pairs']} "
+              f"(a, b) pairs, {r['compared']} elements: bit-identical "
+              f"{r['equal']} (Beta(2, 5) against the plain version with "
+              f"numbers {r['numbers_case_equal']}"
+              + (f", a and b per element {r['tensor_ab_equal']}"
+                 if "tensor_ab_equal" in r else "") +
+              f"), max_abs_err {r['max_abs_err']:.3e}  [{card}]")
+    vr = [beta_vmap_replay(dt) for dt in (torch.float64, torch.float32)]
+    for r in vr:
+        print(f"beta under vmap (256, 3) {r['dtype']} (the beta-prior "
+              f"drive's prior): bit-identical {r['vmap_equal']}, "
+              f"{r['vmap_launches']} launches a call, {r['vmap_ms']:.4f} ms "
+              f"(events); captured with the direct calls (beta_ppf, "
+              f"betainc launches counted at the capture "
+              f"{r['captured_launches']}), {r['replays_equal']}/"
+              f"{r['replays']} replays bit-identical, a replay "
+              f"{r['replay_ms']:.4f} ms  [{card}]")
+    timed = [beta_timed(name, n, dtype, floor_us)
+             for dtype in (torch.float64, torch.float32)
+             for n in BETA_SHAPES for name in BETA_KERNELS]
+    for r in timed:
+        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']} Beta(2, 5): "
+              f"kernel {1e3 * r['ms']:.2f} us (events), plain "
+              f"{1e3 * r['plain_ms']:.1f} us, one-thread chain "
+              f"{1e3 * r['chain_ms']:.2f} us (events), operations bound "
+              f"{1e3 * r['ops_bound_ms']:.3f} us ({r['ops_per_element']:.0f}"
+              f" plain ops an element), bytes bound "
+              f"{1e3 * r['bytes_bound_ms']:.5f} us, launch floor "
+              f"{r['launch_floor_us']:.2f} us (events)  [{card}]")
+    bad = [r for r in sweep if not r["equal"]] + \
+        [r for r in vr if not (r["vmap_equal"] and r["vmap_launches"] == 3
+                               and r["captured_launches"] == [4, 1] and
+                               r["replays_equal"] == r["replays"])]
+    if bad:
+        raise RuntimeError(f"the Beta kernels differ from their plain "
+                           f"versions: {bad}")
+    return {"sweep": sweep, "vmap_replay": vr, "timed": timed}
+
+
+class CountingPrior:
+    """The user's prior transform, counting its calls on the card (eager,
+    or recorded by a capture: a replay runs it without Python)."""
+
+    def __init__(self, pt):
+        self.pt, self.calls = pt, 0
+
+    def __call__(self, u):
+        self.calls += getattr(getattr(u, "device", None), "type",
+                              None) == "cuda"
+        return self.pt(u)
+
+
+# the beta-prior drive's means on the card and its normalisation
+_BETA = {}
+
+
+def beta_loglike(x):
+    return -0.5 * (((x - _BETA["mu"]) / BETA_SIGMA) ** 2).sum() + \
+        _BETA["lnorm"]
+
+
+def beta_truth():
+    """log Z: the product of each dimension's Beta density and Gaussian,
+    integrated by ``scipy.integrate.quad`` over [0, 1]."""
+    import scipy.integrate as si
+    import scipy.stats as st
+
+    out = 0.0
+    for (a, b), mu in zip(BETA_DRIVE_AB, BETA_MU):
+        v, _ = si.quad(lambda x: st.beta.pdf(x, a, b) *
+                       st.norm.pdf(x, mu, BETA_SIGMA), 0.0, 1.0,
+                       points=[mu], limit=200)
+        out += math.log(v)
+    return out
+
+
+def beta_prior_drive(dyt, hk, card, keep):
+    """Phase 27b: ``NestedSampler(beta_loglike, PriorTransform([Beta(2,
+    5), Beta(0.5, 0.5), Beta(5, 2)]), 3, nlive=2048)``, every other
+    argument at its default, on the card, counts from zero: the evidence
+    within 4 logzerr of the quadrature's, no capture warning, every wave
+    but one warm-up a shape replayed, ``beta_ppf`` launched 3 times a
+    prior call on the card (the eager calls and every replay), no
+    ``betainc``, and each captured wave holding ``beta_ppf`` in 3 of its
+    kernel nodes.  Returns the summary and the last captured wave; the
+    sampler goes to ``keep`` (phase 34 replays that wave)."""
+    from dynesty_tpu_torch import models
+    _BETA["mu"] = torch.tensor(BETA_MU, dtype=torch.float64, device="cuda")
+    _BETA["lnorm"] = -len(BETA_MU) * math.log(BETA_SIGMA *
+                                              math.sqrt(2 * math.pi))
+    truth = beta_truth()
+    prior = CountingPrior(models.PriorTransform(
+        [models.Beta(a, b) for a, b in BETA_DRIVE_AB]))
+    _zero_counts(hk)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = dyt.NestedSampler(
+            beta_loglike, prior, len(BETA_MU), nlive=BETA_NLIVE,
+            rstate=np.random.Generator(np.random.PCG64(SEED)))
+        if sampler.device.type != "cuda":
+            raise RuntimeError(f"the default device is {sampler.device}")
+        sampler.run_nested(print_progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s = _summary(sampler, wall, truth, bootstrap=sampler.bound_bootstrap)
+    s["nells"] = int(getattr(sampler.bound, "nells", 1))
+    s["max_last_expand"] = None
+    _gate(sampler, s, "the beta-prior drive")
+    keep.append(sampler)
+    n = s["launches"] = _counts(hk)
+    warned = [str(w.message) for w in caught
+              if "could not be captured" in str(w.message)]
+    runs = prior.calls - n["n_unif_graph"] + n["n_unif_replay"]
+    s["prior_calls"] = {"python": prior.calls, "on_card": runs}
+    waves = [g for g in _UNIF_GRAPHS if g.graph is not None]
+    nodes = _graph_nodes(waves[-1].graph) if waves else []
+    s["wave_kernels"] = check_replay_kernels(
+        waves[-1].counted, waves[-1].graph, "the beta-prior drive's "
+        "captured wave", nodes) if waves else {}
+    s["wave_nodes"] = len(nodes)
+    s["capture_warnings"] = warned
+    cfg = s["config"]
+    if warned or (cfg["bound"], cfg["sample"]) != ("multi", "unif") or \
+            n["n_uncaptured"] != n["unif_warmups"] or \
+            n["n_slice_graph"] + n["n_rwalk_graph"] + \
+            n["n_doubling_graph"] != 0 or \
+            n["beta_ppf"] != len(BETA_DRIVE_AB) * runs or \
+            n["betainc"] != 0 or n["n_unif_replay"] < 1 or \
+            s["wave_kernels"].get("beta_ppf") != len(BETA_DRIVE_AB):
+        raise RuntimeError(f"the beta-prior drive did not run its waves "
+                           f"through the Beta kernel as captured: {s}")
+    _print_unif_drive(f"beta-prior multi/unif nlive={BETA_NLIVE} (Beta(2, "
+                      f"5), Beta(0.5, 0.5), Beta(5, 2))", s, card)
+    print(f"  beta-prior: beta_ppf {n['beta_ppf']} = 3 x {runs} prior calls "
+          f"on the card ({prior.calls} from Python - {n['n_unif_graph']} "
+          f"captures + {n['n_unif_replay']} replays); waves "
+          f"{n['unif_waves']} (replays {n['n_unif_replay']}, warm-ups "
+          f"{n['unif_warmups']}, n_uncaptured {n['n_uncaptured']}, "
+          f"n_unif_graph {n['n_unif_graph']}); capture warnings "
+          f"{len(warned)}; one captured wave: {s['wave_nodes']} kernel "
+          f"nodes, hand-written {s['wave_kernels']}; Timings "
+          f"{json.dumps(s['timings'])}  [{card}]")
+    return s, waves[-1]
+
+
 STAY = ("niter", "ncall", "logz", "logzerr")
 
 
@@ -5818,7 +6218,7 @@ def main():
     t0 = time.perf_counter()
     libs = ("pairwise_min_dist", "consume_scan", "slice_step", "rwalk_step",
             "unif_wave", "slice_doubling", "round_assemble",
-            "ellipsoid_refit")
+            "ellipsoid_refit", "beta_prior")
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(build.load_library, name) for name in libs]:
             fut.result()
@@ -5887,6 +6287,10 @@ def main():
     # plain version
     refit_cases = refit_phase(card)
 
+    # phase 2j: the Beta prior's kernels against their plain versions,
+    # under vmap and replayed
+    beta = beta_phase(card, floor["us"])
+
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
     prof = new_profile(args.profile == "balls")
@@ -5954,9 +6358,12 @@ def main():
                            f"version: {got.numpy()} vs {ref}")
     prof = new_profile(args.profile == "heavy")
     _zero_counts(hk)
-    heavy = unif_drive(dyt, like, H_TRUTH, profile=prof, nlive=H_NLIVE,
-                       bound="multi", sample="unif", queue_size=H_QUEUE,
-                       rounds_per_dispatch=H_ROUNDS)
+    # the samplers whose captured graphs phase 34 replays, kept alive to
+    # it (a replay reads their arrays)
+    kept_samplers = []
+    heavy = unif_drive(dyt, like, H_TRUTH, profile=prof, keep=kept_samplers,
+                       nlive=H_NLIVE, bound="multi", sample="unif",
+                       queue_size=H_QUEUE, rounds_per_dispatch=H_ROUNDS)
     heavy["launches"] = _counts(hk)
     if hk.pairwise_min_dist.launches != 0:
         raise RuntimeError("the multi/unif drive launched the friends "
@@ -6167,9 +6574,16 @@ def main():
     eggballs = eggbox_balls_drive(dyt, dyt.models, hk)
     _print_phase("eggbox-balls", eggballs, card)
 
-    # phase 27: the six priors on the card against scipy, betainc
+    # phase 27: the six priors on the card against scipy, betainc; the
+    # Beta kernels' launches counted from zero
+    _zero_counts(hk)
     priors = priors_phase(dyt.models)
+    priors["launches"] = {w.__name__: w.launches for w in bp.WRAPPERS}
     print(json.dumps(dict({"phase": "priors", "card": card}, **priors)))
+
+    # phase 27b: beta-prior, a sampler whose prior is three Betas: every
+    # wave's prior through the Beta kernel, replayed
+    beta_drive, beta_wave = beta_prior_drive(dyt, hk, card, kept_samplers)
 
     # phases 28 and 29: the balls drive and dynamic3 under mesh=make_mesh()
     meshballs = mesh_balls_drive(dyt, hk, main, main_sampler)
@@ -6419,6 +6833,49 @@ def main():
               f"{cd[name]['replay_kernels']}, draws "
               f"{cd[name]['replay_draws']}  [{card}]")
     consume_device_times(consume, consume_calls, card)
+    for r in beta["timed"]:
+        name = r["kernel"]
+        r["device_ms"] = _device_ms(r.pop("call"), 20 if r["n"] <= 4096
+                                    else 5, only=f"{name}_kernel")
+        r["chain_device_ms"] = _device_ms(r.pop("chain_call"), 10,
+                                          only=f"{name}_kernel")
+        r["launch_floor_device_us"] = floor["device_us"]
+        r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        print(f"beta {name} ({r['n']},) {r['dtype']} Beta(2, 5) device "
+              f"only: kernel {1e3 * r['device_ms']:.2f} us  events "
+              f"{1e3 * r['ms']:.2f} us  plain {1e3 * r['plain_ms']:.1f} us  "
+              f"one-thread chain {1e3 * r['chain_device_ms']:.2f} us  "
+              f"operations bound {1e3 * r['ops_bound_ms']:.3f} us  bytes "
+              f"bound {1e3 * r['bytes_bound_ms']:.5f} us  bound share "
+              f"{r['bound_share']:.4f}  launch floor "
+              f"{floor['device_us']:.3f} us  [{card}]")
+    for r in beta["vmap_replay"]:
+        graph = r.pop("graph")
+        r["replay_device_ms"] = _device_ms(graph.replay, 10)
+        print(f"beta captured (256, 3) prior and direct calls {r['dtype']} "
+              f"replay device only: {1e3 * r['replay_device_ms']:.2f} us  "
+              f"[{card}]")
+    beta_drive["wave_replay_device_ms"] = _device_ms(beta_wave.graph.replay,
+                                                     5)
+    beta_drive["wave_beta_device_ms"] = _device_ms(
+        beta_wave.graph.replay, 5, only="beta_ppf_kernel")
+    print(f"beta-prior's captured wave {tuple(beta_wave.rb.u_prop.shape)} "
+          f"replay device only: {beta_drive['wave_replay_device_ms']:.3f} ms"
+          f", of which its {beta_drive['wave_kernels']['beta_ppf']} "
+          f"beta_ppf nodes {beta_drive['wave_beta_device_ms']:.3f} ms; "
+          f"{beta_drive['wave_nodes']} kernel nodes  [{card}]")
+    if parent:
+        for who in ("parent", "change"):
+            for c in parent[who]:
+                if c["kernel"] == "prior_transform":
+                    print(f"prior_transform (256, 3) three Betas, {who}: "
+                          f"events {c['events_us'] / 1e3:.3f} ms a call, "
+                          f"device {c['device_us'] / 1e3:.3f} ms over "
+                          f"{c['kernels']} kernels (profiler), capture: "
+                          f"{c['capture']}"
+                          + (f", replay {c['replay_us'] / 1e3:.3f} ms"
+                             if c.get("replay_us") is not None else "") +
+                          f"  [{card}]")
     batch = torch.rand((H_QUEUE, NDIM), dtype=torch.float64, device="cuda")
     heavy_eval = torch.func.vmap(like)
     heavy["eval_device_ms"] = _device_ms(lambda: heavy_eval(batch), 5)
@@ -6458,7 +6915,13 @@ def main():
               "eggbox-balls": eggballs, "mesh-balls": meshballs,
               "mesh-dynamic3": meshdyn3, "pipeline-resume": piperesume,
               "example-quickstart": example, "uncapturable": uncapturable,
-              "queue-balls": queueballs}
+              "queue-balls": queueballs, "beta-prior": beta_drive}
+    # the Beta kernels only where a Beta prior is
+    stray = [k for k, d in drives.items() if k != "beta-prior" and any(
+        d["launches"].get(name) for name in BETA_KERNELS)]
+    if stray:
+        raise RuntimeError(f"drives without a Beta prior launched its "
+                           f"kernels: {stray}")
     consume_by_drive = {name: {
         "launches": d["launches"]["consume"],
         "thin": d["launches"]["consume_thin"],
@@ -6720,6 +7183,49 @@ def main():
                   for c in assemble_cases],
         "captured_round": captured_round}
 
+    def beta_entry(name):
+        """A Beta kernel's line: a wave's 256 lanes in float64 at the
+        drive's Beta(2, 5), the largest difference over the sweep."""
+        rec = next(r for r in beta["timed"] if r["kernel"] == name and
+                   r["n"] == 256 and r["dtype"] == "float64")
+        by_drive = {"beta-prior": beta_drive["launches"][name],
+                    "priors": priors["launches"][name]}
+        return {"name": name, "route": "cuda", "source": BETA_SOURCE,
+                "replaces": BETA_REPLACES,
+                "replaces_also": BETA_REPLACES_ALSO,
+                "launches": sum(by_drive.values()),
+                "launches_by_drive": by_drive,
+                "launches_note": "one launch a Beta dimension of each "
+                                 "prior call on the card (a replayed "
+                                 "wave counts what its capture did); "
+                                 "priors: phase 27's calls",
+                "max_abs_err": max(r["max_abs_err"] for r in beta["sweep"]
+                                   if r["kernel"] == name),
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "bound_share": rec["bound_share"],
+                "chain_bound_ms": rec["chain_device_ms"],
+                "bound_note": "operations: the plain version's elementwise "
+                              "ops an element at the type's rate; the "
+                              "one-thread chain (the kernel on one "
+                              "element) bounds a wave's 256 lanes by "
+                              "latency",
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes the "
+                                "regularized incomplete beta function "
+                                "(torch.special has none)",
+                "shape": [256], "dtype": "float64",
+                "device_ms": rec["device_ms"],
+                "launch_floor_ms": floor["device_us"] / 1e3,
+                "cases": [{k: r[k] for k in (
+                    "n", "dtype", "ms", "device_ms", "plain_ms", "chain_ms",
+                    "chain_device_ms", "ops_per_element", "ops_bound_ms",
+                    "bytes_bound_ms", "bound_ms", "bound_by",
+                    "bound_share")} for r in beta["timed"]
+                    if r["kernel"] == name],
+                **({"parent_bench": parent_of("prior_transform")}
+                   if parent and name == "beta_ppf" else {})}
+
     main_round = round_at(2048, "batch", "thin")
     kernels = {"kernels": [
         entry("pairwise_min_dist_l2_exact", MAIN_SHAPE, 2, "exact",
@@ -6764,7 +7270,8 @@ def main():
     ] + [step_entry(name) for name in STEP_KERNELS] +
         [unif_entry(name) for name in UNIF_KERNELS] +
         [doubling_entry(name) for name in DOUBLING_KERNELS] +
-        [assemble_entry] + [refit_entry(name) for name in REFIT_KERNELS]}
+        [assemble_entry] + [refit_entry(name) for name in REFIT_KERNELS] +
+        [beta_entry(name) for name in BETA_KERNELS]}
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "compare": compares,
               "main": main, "cubes": cubes, "refit": refit,
@@ -6783,6 +7290,7 @@ def main():
               "custom_resume": customresume, "plots": plots,
               "eggbox": rows["eggbox"], "shells": rows["shells"],
               "eggbox_balls": eggballs, "priors": priors,
+              "beta_prior": beta_drive, "beta_kernels": beta,
               "mesh_balls": meshballs,
               "mesh_dynamic3": meshdyn3, "scaling": scaling,
               "pipeline_resume": piperesume,

@@ -43,6 +43,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..ops import beta_prior as _beta
 from ..ops.ellipsoid_refit import (REFIT_FIELDS, EllipsoidRefit,
                                    ellipsoid_refit, ellipsoid_refit_plain)
 from ..ops.geometry import randsphere_batch
@@ -389,12 +390,15 @@ class _RoundGraph:
         draws from a generator of its own (or from ``gen``, which several
         graphs may share); True when it was captured.  A capture runs
         nothing, so what it counted (``ncall_launched``, the
-        ``wrappers``' launches) is put back and kept as what each replay
-        runs (``counted``, added by :meth:`count_replay`).  A capture that
+        ``wrappers``' launches, and those of the Beta prior's kernels,
+        which a user's ``ptform`` inside ``body`` may launch) is put back
+        and kept as what each replay runs (``counted``, added by
+        :meth:`count_replay`).  A capture that
         raises leaves the round shape eager (warned once, naming the
         error) and the device's default generator drawing
         (:func:`~dynesty_tpu_torch.utils.misc.release_default_generator`)."""
         rb, like = self.rb, self.like
+        wrappers = tuple(wrappers) + _beta.WRAPPERS
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_nodes)
         if self.keep_nodes:
             graph.enable_debug_mode()

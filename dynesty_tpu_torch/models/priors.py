@@ -8,61 +8,32 @@ the proposal rounds on any device.  Compose per-dimension priors with
 :class:`PriorTransform`.
 
 ``torch.special`` has no regularized incomplete beta function, so
-:func:`_betainc` computes it here: the continued fraction of Numerical
-Recipes (``betacf``, modified Lentz) with a fixed iteration count, so that
-it has no data-dependent control flow.
+:func:`_betainc` and :class:`Beta` go through ``ops.beta_prior``: on the
+card one launch of a hand-written CUDA kernel (``csrc/beta_prior.cu``)
+each, which runs under ``torch.func.vmap`` and inside a captured wave; on
+the CPU the plain versions there (``betainc_plain``: the continued
+fraction of Numerical Recipes' ``betacf``, modified Lentz, with a fixed
+iteration count, so that it has no data-dependent control flow;
+``beta_ppf_plain``: the bisection).
 """
 
 import math
 
 import torch
 
+from ..ops import beta_prior
+
 __all__ = [
     "Prior", "TopHat", "Normal", "ClippedNormal", "LogNormal",
     "LogUniform", "Beta", "PriorTransform",
 ]
 
-# continued-fraction terms: enough for a, b up to a few thousand (held to
-# scipy.special.betainc in tests/test_torch_models.py)
-_BETAINC_ITERS = 64
-# Lentz's guard against a zero denominator
-_TINY = 1e-300
-
-
-def _guard(t):
-    return torch.where(t.abs() < _TINY, _TINY, t)
-
 
 def _betainc(a, b, x):
     """Regularized incomplete beta function I_x(a, b), elementwise over
     ``x`` (a tensor; ``a``, ``b`` numbers or tensors broadcasting with
-    it), in ``x``'s floating dtype.
-
-    The prefactor x^a (1-x)^b / (a B(a, b)) comes from ``lgamma``; the
-    continued fraction converges fast for x < (a+1)/(a+b+2), and above
-    that the symmetry I_x(a, b) = 1 - I_{1-x}(b, a) is used."""
-    x = torch.as_tensor(x)
-    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
-    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
-    swap = x > (a + 1.0) / (a + b + 2.0)
-    p = torch.where(swap, b, a)
-    q = torch.where(swap, a, b)
-    y = torch.where(swap, 1.0 - x, x)
-    log_front = (torch.lgamma(a + b) - torch.lgamma(a) - torch.lgamma(b) +
-                 a * torch.log(x) + b * torch.log1p(-x))
-    qab, qap, qam = p + q, p + 1.0, p - 1.0
-    c = torch.ones_like(y)
-    d = 1.0 / _guard(1.0 - qab * y / qap)
-    h = d
-    for m in range(1, _BETAINC_ITERS + 1):
-        m2 = 2 * m
-        for aa in (m * (q - m) * y / ((qam + m2) * (p + m2)),
-                   -(p + m) * (qab + m) * y / ((p + m2) * (qap + m2))):
-            d = 1.0 / _guard(1.0 + aa * d)
-            c = _guard(1.0 + aa / c)
-            h = h * d * c
-    front = torch.exp(log_front) * h / p
-    return torch.where(swap, 1.0 - front, front)
+    it), in ``x``'s floating dtype (``ops.beta_prior.betainc``)."""
+    return beta_prior.betainc(a, b, x)
 
 
 class Prior:
@@ -134,21 +105,15 @@ class LogUniform(Prior):
 
 class Beta(Prior):
     """Beta(alpha, beta) by bisection of the regularized incomplete beta
-    function (a fixed iteration count, as the JAX package's)."""
+    function (a fixed iteration count, as the JAX package's;
+    ``ops.beta_prior.beta_ppf``)."""
 
     def __init__(self, alpha, beta, niter=50):
         self.alpha, self.beta = alpha, beta
         self.niter = niter
 
     def __call__(self, u):
-        lo = torch.zeros_like(u)
-        hi = torch.ones_like(u)
-        for _ in range(self.niter):
-            mid = 0.5 * (lo + hi)
-            below = _betainc(self.alpha, self.beta, mid) < u
-            lo = torch.where(below, mid, lo)
-            hi = torch.where(below, hi, mid)
-        return 0.5 * (lo + hi)
+        return beta_prior.beta_ppf(u, self.alpha, self.beta, self.niter)
 
 
 class PriorTransform:
