@@ -64,8 +64,14 @@ kernels' cases to ``GROUPS``.  The groups:
   kernel count from the profiler, whether a CUDA graph capture of it
   raises (before the Beta kernels: the eager bisection's ~4.7e5 launches
   and its copy from the host), a replay where it does not, and the
-  sha256 of its output.  It runs last, so that a capture that raises
-  follows every other group.
+  sha256 of its output; then ``beta_ppf`` at (256,), (768,) and (2^20,)
+  in float64 and float32 (device only and events, with a digest), the
+  digests of phase 2j's 25-pair sweep at (256,), either side of the
+  tree walk's level switch and (2^20,), the vmapped prior of a mixed
+  three-Beta table at 256 rows and either side of the switch (device
+  only, its ``beta_ppf`` kernels and digest), and of two Beta(2, 5)
+  columns of 2^19 rows (the (2^20,) call's elements as a table).  It
+  runs last, so that a capture that raises follows every other group.
 
 ``--generic-rows`` also times ``unif_valid`` built with its generic row
 loop at every width (``-DUNIF_VALID_ROW_REGISTERS=0``) against the
@@ -580,6 +586,13 @@ def refit_times(cm, torch):
     return recs
 
 
+def _digest(torch, *outs):
+    h = hashlib.sha256()
+    for out in outs:
+        h.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def prior_times(cm, torch):
     """The beta-prior drive's prior, three Betas, vmapped over a (256, 3)
     batch as a wave calls it, in float64: one call by events, its device
@@ -587,7 +600,17 @@ def prior_times(cm, torch):
     ``torch.cuda.graph`` capture of it raises (and with what), a replay's
     events time where it does not, and the sha256 of its output's bytes.
     Before the Beta kernels this is the eager bisection: ~4.7e5 launches
-    a call, whose copy of ``a`` from the host no capture takes."""
+    a call, whose copy of ``a`` from the host no capture takes.  Then,
+    through calls every version with the kernels has: ``beta_ppf`` at
+    Beta(2, 5) on phase 2j's inputs at (256,), the grouped drive call's
+    768 elements and (2^20,), float64 and float32, device only (the
+    profiler, ``beta_ppf_kernel``'s launches) and by events, with its
+    output's digest; the digest of phase 2j's 25-pair sweep at (256,),
+    either side of the tree walk's level switch and (2^20,); and the
+    vmapped prior of ``BETA_TABLE``'s three Betas at 256 rows and either
+    side of the switch (three launches before the grouped kernel, one
+    since), device only, its kernels and digest; and of two Beta(2, 5)
+    columns of 2^19 rows (two launches before, one since)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -601,9 +624,7 @@ def prior_times(cm, torch):
     rec = {"kernel": "prior_transform", "ndim": 3, "q": 256,
            "dtype": "float64", "events_us": 1e3 * cm._once_ms(
                lambda: call(u))}
-    h = hashlib.sha256()
-    h.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    rec["digest"] = h.hexdigest()
+    rec["digest"] = _digest(torch, out)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call(u)
@@ -619,7 +640,60 @@ def prior_times(cm, torch):
         rec["replay_us"] = 1e3 * cm._time_ms(graph.replay, 20)
     except Exception as err:  # noqa: BLE001 - the outcome is the record
         rec["capture"] = f"raises {type(err).__name__}: {err}"[:300]
-    return [rec]
+    recs = [rec]
+    if cm.bp is None:
+        return recs
+    bp = cm.bp
+    switch = cm.beta_switch()
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[1]
+        for n in (256, 768, cm.PRIOR_POINTS):
+            x = cm.beta_inputs(n, dtype)
+            ppf = lambda: bp.beta_ppf(x, 2.0, 5.0)  # noqa: E731
+            iters = 20 if n <= 4096 else 5
+            recs.append({
+                "kernel": "beta_ppf", "kind": "Beta(2, 5)", "n": n,
+                "dtype": tag, "digest": _digest(torch, ppf()),
+                "device_us": 1e3 * cm._device_ms(ppf, iters,
+                                                 only="beta_ppf_kernel"),
+                "events_us": 1e3 * cm._time_ms(ppf, iters)})
+        for n in (256, switch, switch + 1, cm.PRIOR_POINTS):
+            x = cm.beta_inputs(n, dtype)
+            recs.append({"kernel": "beta_ppf", "kind": "sweep", "n": n,
+                         "dtype": tag, "digest": _digest(
+                             torch, *(bp.beta_ppf(x, a, b)
+                                      for a, b in cm.BETA_PAIRS))})
+        cols = [c for c, _, _ in cm.BETA_TABLE]
+        table = torch.func.vmap(models.PriorTransform(
+            [models.Beta(a, b) for _, a, b in cm.BETA_TABLE]))
+        for rows in (256, switch // 3, switch // 3 + 1):
+            x = torch.as_tensor(cm.np.random.Generator(cm.np.random.PCG64(
+                cm.SEED)).random((rows, 5)), dtype=dtype,
+                device="cuda")[:, cols]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                table(x)
+                torch.cuda.synchronize()
+            kernels = sum(e.device_type == DeviceType.CUDA and
+                          "beta_ppf_kernel" in e.name for e in prof.events())
+            recs.append({
+                "kernel": "prior_transform", "kind": "table", "rows": rows,
+                "dtype": tag, "digest": _digest(torch, table(x)),
+                "beta_ppf_kernels": kernels,
+                "device_us": 1e3 * cm._device_ms(lambda: table(x), 10),
+                "events_us": 1e3 * cm._time_ms(lambda: table(x), 10)})
+        # two Beta(2, 5) columns of 2^19 rows: the (2^20,) call's
+        # elements as a table (one thread an element for both)
+        pair = torch.func.vmap(models.PriorTransform(
+            [models.Beta(2.0, 5.0), models.Beta(2.0, 5.0)]))
+        x = cm.beta_inputs(cm.PRIOR_POINTS, dtype).reshape(-1, 2)
+        recs.append({
+            "kernel": "prior_transform", "kind": "two columns",
+            "rows": x.shape[0], "dtype": tag, "digest": _digest(
+                torch, pair(x)),
+            "device_us": 1e3 * cm._device_ms(lambda: pair(x), 5,
+                                             only="beta_ppf_kernel"),
+            "events_us": 1e3 * cm._time_ms(lambda: pair(x), 5)})
+    return recs
 
 
 # the case groups, in the order they run: each redesign adds its kernels'

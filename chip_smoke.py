@@ -140,13 +140,22 @@ Phases, in order; any failure raises and exits non-zero:
    ``betainc`` (``csrc/beta_prior.cu``) against their plain versions on
    the same CUDA tensors over 25 (a, b) pairs (0.5, 1, 2, 5, 30 each), u
    and x with 0, 1, 1e-12, 1 - 1e-12 and NaN, at (256,) and (2^20,),
-   float64 and float32, bit for bit; the beta-prior drive's prior (three
-   Betas) under ``torch.func.vmap`` on (256, 3), three launches a call;
-   the same and both kernels called directly, captured in one CUDA graph
-   and replayed 20 times, the same bits each time; each kernel's time at
-   Beta(2, 5) (events), the plain version's, the one-thread chain (the
-   kernel on one element), the operations bound (the plain version's
-   elementwise ops an element at the type's rate) and the byte bound.
+   and ``beta_ppf`` also either side of its level switch (the most
+   elements it walks a warp an element, ``beta_switch()``, and one
+   more), float64 and float32, bit for bit; ``beta_ppf``'s mixed
+   three-column table (``BETA_TABLE``) at 256 rows and either side of
+   the switch, directly and under vmap, one launch a call; its time at
+   every level count of the walk (1 to 5) from 256 to 32 times the
+   switch's elements, each count's output bit for bit the others' (the
+   data behind the level rule); the beta-prior drive's prior (three Betas) under ``torch.func.vmap`` on
+   (256, 3), one launch a call (its three Betas in one table); the same
+   and both kernels called directly, captured in one CUDA graph and
+   replayed 20 times, the same bits each time; each kernel's time at
+   Beta(2, 5) (events) at a wave's 256 lanes, ``beta_ppf`` at the
+   grouped drive call's 768 elements, and at 2^20, the plain version's,
+   the chain (the kernel on one element), the operations bound (the
+   plain version's elementwise ops an element at the type's rate) and
+   the byte bound.
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -264,9 +273,9 @@ Phases, in order; any failure raises and exits non-zero:
     unif, bootstrap 5, q 256), the likelihood a product of Gaussians of
     width 0.02 about (0.25, 0.5, 0.75): the evidence within 4 logzerr of
     ``scipy.integrate.quad``'s, no capture warning, every wave but one
-    warm-up a shape replayed, ``beta_ppf`` launched 3 times a prior call
-    on the card (replays included), and a captured wave holding 3
-    ``beta_ppf`` nodes.
+    warm-up a shape replayed, ``beta_ppf`` launched once a prior call on
+    the card (its three Betas in one table; replays included), and a
+    captured wave holding one ``beta_ppf`` node.
 28. mesh-balls: phase 3's drive with ``mesh=make_mesh()`` (the one card):
     equal to phase 3's run bit for bit (niter, ncall, logl, logz,
     samples, scale) with the same launches, every lane of the last
@@ -319,9 +328,9 @@ Phases, in order; any failure raises and exits non-zero:
     2i's seven stacks (each beside its byte or operation bound and the
     launch floor) and of one replay of a heavy round's captured
     prologue, of one 256-lane evaluation of the heavy likelihood, of
-    each Beta kernel at phase 2j's timed cases and its one-thread chain,
-    and of a replay of the beta-prior drive's wave (its ``beta_ppf``
-    nodes apart).
+    each Beta kernel at phase 2j's timed cases and its chain, of the
+    vmapped (256, 3) three-Beta prior, and of a replay of the beta-prior
+    drive's wave (its ``beta_ppf`` node apart).
     The cube wave's, one heavy ellipsoid wave's, that prologue's and
     every doubling segment's kernels are read from the captured graph's
     own nodes, as the CUDA runtime prints them: each wrapper's kernel is
@@ -3302,7 +3311,7 @@ def _bench_case(c):
     """A ``bench_kernels.py`` record's case, for the side-by-side line."""
     what = c["kernel"]
     for k in ("kind", "mode", "path", "m", "nctrs", "nlive", "q", "ndim",
-              "ncdim", "dtype", "seed"):
+              "ncdim", "n", "rows", "dtype", "seed"):
         if c.get(k) is not None:
             what += f" {k} {c[k]}"
     return what
@@ -5064,6 +5073,42 @@ def friends_registers(output):
     return regs
 
 
+def beta_registers(output):
+    """Each Beta kernel's registers and spill bytes from ``nvcc -Xptxas
+    -v``'s output: ``{"float64 beta_ppf levels 5": [registers, spill
+    stores, spill loads], ...}``.  Raises where one spills, or where a
+    ``beta_ppf`` of some level count is missing."""
+    regs, name = {}, None
+    pat = re.compile(
+        r"(beta_ppf|betainc)_kernelI([df])(?:Li(\d)ELb([01])E)?E")
+    for line in output.splitlines():
+        m = pat.search(line)
+        if m:
+            name = ("float64 " if m.group(2) == "d" else "float32 ") + \
+                m.group(1) + (f" levels {m.group(3)}" if m.group(3) else "") \
+                + (" one entry" if m.group(4) == "1" else "")
+            regs.setdefault(name, [0, 0, 0])
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            regs[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs[name][0] = int(m.group(1))
+            name = None
+    want = {f"{t} beta_ppf levels {lv}" for t in ("float64", "float32")
+            for lv in range(1, 6)} | \
+        {f"{t} beta_ppf levels 1 one entry" for t in ("float64", "float32")}
+    spills = [k for k, r in regs.items() if r[1] or r[2]]
+    if spills or not want <= set(regs):
+        raise RuntimeError(f"Beta kernels spill at {spills} or are missing "
+                           f"({sorted(want - set(regs))}): {regs}")
+    return regs
+
+
 def _capture_waves(like, kind, q, dtype, seeds, cache, timings):
     """``len(seeds)`` uniform rounds of ``q`` lanes on one round cache:
     the balls drive's Gaussian with a blob, over the cube, three
@@ -5753,8 +5798,18 @@ BETA_VALUES = (0.5, 1.0, 2.0, 5.0, 30.0)
 BETA_PAIRS = [(a, b) for a in BETA_VALUES for b in BETA_VALUES]
 # u and x at their ends, and a NaN (a NaN comparison is false: hi moves)
 BETA_EDGES = (0.0, 1.0, 1e-12, 1 - 1e-12, math.nan)
-# a wave's lanes, and the priors phase's points
+# a wave's lanes, and the priors phase's points (betainc's sweep;
+# beta_ppf's adds the shapes either side of its level switch,
+# beta_shapes())
 BETA_SHAPES = (256, PRIOR_POINTS)
+# beta_ppf's mixed table: (column of a five-column u, a, b)
+BETA_TABLE = ((4, 2.0, 5.0), (1, 0.5, 0.5), (3, 30.0, 1.0))
+# the drive's three Betas in one table: one beta_ppf launch a prior call
+BETA_DRIVE_LAUNCHES = 1
+# the timed shapes of each kernel: a wave's lanes, beta_ppf's grouped
+# drive call (256 rows of three Betas), the priors phase's points
+BETA_TIMED = {"beta_ppf": (256, 768, PRIOR_POINTS),
+              "betainc": (256, PRIOR_POINTS)}
 # the beta-prior drive: Beta(2, 5), Beta(0.5, 0.5), Beta(5, 2) under a
 # product of Gaussians of these means and this width, nlive 2048, every
 # other argument at its default (multi / unif, bootstrap 5, q 256)
@@ -5762,6 +5817,34 @@ BETA_DRIVE_AB = ((2.0, 5.0), (0.5, 0.5), (5.0, 2.0))
 BETA_MU, BETA_SIGMA, BETA_NLIVE = (0.25, 0.5, 0.75), 0.02, 2048
 # the card's peak rate for each type's operations
 _RATE = {torch.float64: FP64_FLOPS, torch.float32: FP32_FLOPS}
+
+
+def beta_lanes():
+    """The threads the card keeps busy with ``beta_ppf_kernel``: 16 warps
+    an SM (its level rule's budget)."""
+    return 512 * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def beta_switch():
+    """The most elements a ``beta_ppf`` launch walks a warp an element
+    (five levels a round): a warp for each must fit the budget."""
+    return beta_lanes() // 32
+
+
+def beta_levels(n):
+    """The levels a round of a ``beta_ppf`` launch of ``n`` elements (the
+    package's rule; 1 for a checkout before the tree walk)."""
+    levels = getattr(bp, "beta_levels", None)
+    return levels(n, beta_lanes()) if levels else 1
+
+
+def beta_shapes(name):
+    """The sweep's shapes of a Beta kernel: a wave's lanes and the
+    priors phase's points; for ``beta_ppf`` also the switch's two sides
+    (the most elements walked a warp an element, and one more)."""
+    if name != "beta_ppf":
+        return BETA_SHAPES
+    return (256, beta_switch(), beta_switch() + 1, PRIOR_POINTS)
 
 
 def beta_inputs(n, dtype, seed=SEED):
@@ -5859,12 +5942,92 @@ def beta_sweep(name, n, dtype):
     same, err = same and numbers, max(err, e)
     rec = {"kernel": name, "n": n, "dtype": str(dtype).split(".")[1],
            "pairs": k, "compared": compared, "numbers_case_equal": numbers,
-           "equal": same, "max_abs_err": err}
+           "equal": same, "max_abs_err": err,
+           "levels": beta_levels(n) if name == "beta_ppf" else None}
     if name == "betainc":
         s, e = _same_or_nan(bp.betainc(a, b, x), want)
         rec["tensor_ab_equal"] = s
         rec["equal"], rec["max_abs_err"] = same and s, max(err, e)
     return rec
+
+
+def beta_table_case(rows, dtype):
+    """``beta_ppf`` over the mixed three-column table (``BETA_TABLE``) of
+    a seeded (rows, 5) u, the edges in each column read, called directly
+    and under ``torch.func.vmap`` (rows batched): against the plain
+    version with a and b per element over the three columns in one call
+    (on the card the numbers' bits), one launch a call."""
+    cols, a, b = (list(c) for c in zip(*BETA_TABLE))
+    u = torch.as_tensor(np.random.Generator(np.random.PCG64(SEED)).random(
+        (rows, 5)), dtype=dtype, device="cuda")
+    for c in cols:
+        u[:len(BETA_EDGES), c] = torch.tensor(BETA_EDGES, dtype=dtype)
+    want = bp.beta_ppf_plain(
+        u[:, cols], torch.tensor(a, dtype=dtype, device="cuda"),
+        torch.tensor(b, dtype=dtype, device="cuda"))
+    n0 = bp.beta_ppf.launches
+    direct = _same_or_nan(bp.beta_ppf_columns(u, cols, a, b), want)
+    vmapped = _same_or_nan(torch.func.vmap(
+        lambda r: bp.beta_ppf_columns(r, cols, a, b))(u), want)
+    return {"kernel": "beta_ppf", "case": "table", "rows": rows,
+            "n": rows * len(cols), "dtype": str(dtype).split(".")[1],
+            "levels": beta_levels(rows * len(cols)),
+            "launches": bp.beta_ppf.launches - n0,
+            "equal": direct[0] and vmapped[0], "direct_equal": direct[0],
+            "vmap_equal": vmapped[0], "max_abs_err": max(direct[1],
+                                                         vmapped[1])}
+
+
+def beta_level_sweep(card):
+    """``beta_ppf``'s time (CUDA events, back to back) at Beta(2, 5), 50
+    steps, for every level count of the walk (1 to 5) at element counts
+    from a wave's 256 to 32 times the switch, float64 and float32,
+    through the ctypes entry (timing launches: no wrapper counts them);
+    every level count's output must have the same bits.  The data behind
+    the level rule: prints each count's times, the rule's choice and the
+    fastest."""
+    import ctypes
+    switch = beta_switch()
+    shapes = (256, 768, 2048, switch, switch + 1, 4096, 4 * switch,
+              4 * switch + 1, 8 * switch, 16 * switch, 32 * switch)
+    table = ((ctypes.c_longlong * 1)(0), (ctypes.c_double * 1)(2.0),
+             (ctypes.c_double * 1)(5.0))
+    stream = torch.cuda.current_stream().cuda_stream
+    recs = []
+    for dtype in (torch.float64, torch.float32):
+        f = bp._entry("beta_ppf", dtype)
+        for n in shapes:
+            u = beta_inputs(n, dtype)
+            outs, ms = [], {}
+            for levels in range(1, 6):
+                out = torch.empty_like(u)
+
+                def call():
+                    if f(u.data_ptr(), 1, 0, out.data_ptr(), 1, n, 1,
+                         *table, 50, levels, stream):
+                        raise RuntimeError("beta_ppf launch refused")
+
+                ms[levels] = _time_ms(call, 10 if n <= 4096 else 3)
+                outs.append(out)
+            same = all(_same_or_nan(o, outs[0])[0] for o in outs[1:])
+            rec = {"n": n, "dtype": str(dtype).split(".")[1], "ms": ms,
+                   "rule": beta_levels(n), "fastest": min(ms, key=ms.get),
+                   "levels_equal": same}
+            recs.append(rec)
+            print(f"beta_ppf levels sweep ({n},) {rec['dtype']} Beta(2, 5)"
+                  f": ms by levels " + ", ".join(
+                      f"{lv}: {t:.4f}" for lv, t in ms.items()) +
+                  f" (events); the rule takes {rec['rule']}, fastest "
+                  f"{rec['fastest']}; outputs bit-identical across levels "
+                  f"{same}  [{card}]")
+    if not all(r["levels_equal"] for r in recs):
+        raise RuntimeError(f"beta_ppf's level counts disagree: {recs}")
+    return recs
+
+
+# the plain version's elementwise operations an element, by kernel and
+# dtype (counted once)
+_BETA_OPS = {}
 
 
 def beta_timed(name, n, dtype, floor_us):
@@ -5887,11 +6050,15 @@ def beta_timed(name, n, dtype, floor_us):
         plain_ms = _time_ms(plain, 3)
     ms = _time_ms(call, 20 if n <= 4096 else 5)
     small = u[:256]
-    ops = plain_ops_per_element(
-        (lambda: bp.beta_ppf_plain(small, 2.0, 5.0)) if name == "beta_ppf"
-        else (lambda: bp.betainc_plain(2.0, 5.0, small)), 256)
+    if (name, dtype) not in _BETA_OPS:
+        _BETA_OPS[name, dtype] = plain_ops_per_element(
+            (lambda: bp.beta_ppf_plain(small, 2.0, 5.0))
+            if name == "beta_ppf"
+            else (lambda: bp.betainc_plain(2.0, 5.0, small)), 256)
+    ops = _BETA_OPS[name, dtype]
     bound, by, ops_ms, bytes_ms = beta_bounds(ops, n, dtype)
     return {"kernel": name, "n": n, "dtype": str(dtype).split(".")[1],
+            "levels": beta_levels(n) if name == "beta_ppf" else None,
             "a": 2.0, "b": 5.0, "ms": ms, "plain_ms": plain_ms,
             "chain_ms": _time_ms(chain, 10), "ops_per_element": ops,
             "bound_ms": bound, "bound_by": by, "ops_bound_ms": ops_ms,
@@ -5903,9 +6070,10 @@ def beta_vmap_replay(dtype):
     """The beta-prior drive's prior (three Betas) on a (256, 3) batch
     under ``torch.func.vmap``, and ``beta_ppf`` and ``betainc`` called
     directly: against the plain versions, then captured once in a CUDA
-    graph (the wrappers count the capture's launches: the vmapped prior 3,
-    the direct calls 1 each) and replayed 20 times, each replay's outputs
-    zeroed before and the same bits after."""
+    graph (the wrappers count the capture's launches: the vmapped prior 1,
+    its three Betas in one table, the direct calls 1 each) and replayed 20
+    times, each replay's outputs zeroed before and the same bits after;
+    and the vmapped prior's call for phase 34's device time."""
     from dynesty_tpu_torch import models
     pt = models.PriorTransform([models.Beta(a, b) for a, b in BETA_DRIVE_AB])
     u = torch.as_tensor(np.random.Generator(np.random.PCG64(SEED)).random(
@@ -5941,25 +6109,45 @@ def beta_vmap_replay(dtype):
             "captured_launches": list(captured), "replays": 20,
             "replays_equal": replays_same,
             "vmap_ms": _time_ms(lambda: torch.func.vmap(pt)(u), 10),
-            "replay_ms": _time_ms(graph.replay, 20), "graph": graph}
+            "replay_ms": _time_ms(graph.replay, 20), "graph": graph,
+            "vmap_call": lambda: torch.func.vmap(pt)(u)}
 
 
 def beta_phase(card, floor_us):
     """Phase 2j: ``beta_ppf`` and ``betainc`` against their plain versions
-    over the sweep at (256,) and (2^20,), float64 and float32, under vmap
-    and replayed; then each kernel's time at the drive's Beta(2, 5) beside
-    the plain version's and the bounds.  Raises where a bit differs."""
+    over the sweep at (256,) and (2^20,) (``beta_ppf`` also either side of
+    its level switch, and its mixed three-column table at 256 rows and
+    either side of the switch), float64 and float32, under vmap and
+    replayed; then each kernel's time at the drive's Beta(2, 5) beside
+    the plain version's and the bounds.  Raises where a bit differs or a
+    call launched other than once."""
+    lanes, switch = beta_lanes(), beta_switch()
+    rule = [bp.beta_levels(n, lanes) for n in (switch, switch + 1)]
+    print(f"beta_ppf level rule: {lanes} busy threads, a warp an "
+          f"element up to {switch} elements (levels {rule[0]}), "
+          f"{switch + 1}: levels {rule[1]}  [{card}]")
     sweep = [beta_sweep(name, n, dtype) for dtype in (torch.float64,
                                                       torch.float32)
-             for n in BETA_SHAPES for name in BETA_KERNELS]
+             for name in BETA_KERNELS for n in beta_shapes(name)]
     for r in sweep:
-        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']}: {r['pairs']} "
-              f"(a, b) pairs, {r['compared']} elements: bit-identical "
-              f"{r['equal']} (Beta(2, 5) against the plain version with "
-              f"numbers {r['numbers_case_equal']}"
+        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']}"
+              + (f" levels {r['levels']}" if r["levels"] else "") +
+              f": {r['pairs']} (a, b) pairs, {r['compared']} elements: "
+              f"bit-identical {r['equal']} (Beta(2, 5) against the plain "
+              f"version with numbers {r['numbers_case_equal']}"
               + (f", a and b per element {r['tensor_ab_equal']}"
                  if "tensor_ab_equal" in r else "") +
               f"), max_abs_err {r['max_abs_err']:.3e}  [{card}]")
+    tables = [beta_table_case(rows, dtype)
+              for dtype in (torch.float64, torch.float32)
+              for rows in (256, switch // 3, switch // 3 + 1)]
+    for r in tables:
+        print(f"beta beta_ppf table {BETA_TABLE} ({r['rows']}, 5) "
+              f"{r['dtype']}, {r['n']} elements, levels {r['levels']}: "
+              f"bit-identical directly {r['direct_equal']}, under vmap "
+              f"{r['vmap_equal']}, {r['launches']} launches in the two "
+              f"calls, max_abs_err {r['max_abs_err']:.3e}  [{card}]")
+    levels = beta_level_sweep(card)
     vr = [beta_vmap_replay(dt) for dt in (torch.float64, torch.float32)]
     for r in vr:
         print(f"beta under vmap (256, 3) {r['dtype']} (the beta-prior "
@@ -5972,24 +6160,32 @@ def beta_phase(card, floor_us):
               f"{r['replay_ms']:.4f} ms  [{card}]")
     timed = [beta_timed(name, n, dtype, floor_us)
              for dtype in (torch.float64, torch.float32)
-             for n in BETA_SHAPES for name in BETA_KERNELS]
+             for name in BETA_KERNELS for n in BETA_TIMED[name]]
     for r in timed:
-        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']} Beta(2, 5): "
-              f"kernel {1e3 * r['ms']:.2f} us (events), plain "
+        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']} Beta(2, 5)"
+              + (f" levels {r['levels']}" if r["levels"] else "") +
+              f": kernel {1e3 * r['ms']:.2f} us (events), plain "
               f"{1e3 * r['plain_ms']:.1f} us, one-thread chain "
               f"{1e3 * r['chain_ms']:.2f} us (events), operations bound "
               f"{1e3 * r['ops_bound_ms']:.3f} us ({r['ops_per_element']:.0f}"
               f" plain ops an element), bytes bound "
               f"{1e3 * r['bytes_bound_ms']:.5f} us, launch floor "
               f"{r['launch_floor_us']:.2f} us (events)  [{card}]")
-    bad = [r for r in sweep if not r["equal"]] + \
-        [r for r in vr if not (r["vmap_equal"] and r["vmap_launches"] == 3
-                               and r["captured_launches"] == [4, 1] and
+    bad = [r for r in sweep + tables if not r["equal"]] + \
+        [r for r in tables if r["launches"] != 2] + \
+        [r for r in vr if not (r["vmap_equal"] and
+                               r["vmap_launches"] == BETA_DRIVE_LAUNCHES
+                               and r["captured_launches"] ==
+                               [BETA_DRIVE_LAUNCHES + 1, 1] and
                                r["replays_equal"] == r["replays"])]
+    if rule != [5, 4]:
+        bad.append({"level_rule": rule, "switch": switch})
     if bad:
         raise RuntimeError(f"the Beta kernels differ from their plain "
                            f"versions: {bad}")
-    return {"sweep": sweep, "vmap_replay": vr, "timed": timed}
+    return {"sweep": sweep, "tables": tables, "vmap_replay": vr,
+            "timed": timed, "lanes": lanes, "switch": switch,
+            "level_sweep": levels}
 
 
 class CountingPrior:
@@ -6034,11 +6230,12 @@ def beta_prior_drive(dyt, hk, card, keep):
     5), Beta(0.5, 0.5), Beta(5, 2)]), 3, nlive=2048)``, every other
     argument at its default, on the card, counts from zero: the evidence
     within 4 logzerr of the quadrature's, no capture warning, every wave
-    but one warm-up a shape replayed, ``beta_ppf`` launched 3 times a
-    prior call on the card (the eager calls and every replay), no
-    ``betainc``, and each captured wave holding ``beta_ppf`` in 3 of its
-    kernel nodes.  Returns the summary and the last captured wave; the
-    sampler goes to ``keep`` (phase 34 replays that wave)."""
+    but one warm-up a shape replayed, ``beta_ppf`` launched once a prior
+    call on the card (the three Betas in one table; the eager calls and
+    every replay), no ``betainc``, and each captured wave holding
+    ``beta_ppf`` in one of its kernel nodes.  Returns the summary and the
+    last captured wave; the sampler goes to ``keep`` (phase 34 replays
+    that wave)."""
     from dynesty_tpu_torch import models
     _BETA["mu"] = torch.tensor(BETA_MU, dtype=torch.float64, device="cuda")
     _BETA["lnorm"] = -len(BETA_MU) * math.log(BETA_SIGMA *
@@ -6081,14 +6278,15 @@ def beta_prior_drive(dyt, hk, card, keep):
             n["n_uncaptured"] != n["unif_warmups"] or \
             n["n_slice_graph"] + n["n_rwalk_graph"] + \
             n["n_doubling_graph"] != 0 or \
-            n["beta_ppf"] != len(BETA_DRIVE_AB) * runs or \
+            n["beta_ppf"] != BETA_DRIVE_LAUNCHES * runs or \
             n["betainc"] != 0 or n["n_unif_replay"] < 1 or \
-            s["wave_kernels"].get("beta_ppf") != len(BETA_DRIVE_AB):
+            s["wave_kernels"].get("beta_ppf") != BETA_DRIVE_LAUNCHES:
         raise RuntimeError(f"the beta-prior drive did not run its waves "
                            f"through the Beta kernel as captured: {s}")
     _print_unif_drive(f"beta-prior multi/unif nlive={BETA_NLIVE} (Beta(2, "
                       f"5), Beta(0.5, 0.5), Beta(5, 2))", s, card)
-    print(f"  beta-prior: beta_ppf {n['beta_ppf']} = 3 x {runs} prior calls "
+    print(f"  beta-prior: beta_ppf {n['beta_ppf']} = {BETA_DRIVE_LAUNCHES} x "
+          f"{runs} prior calls "
           f"on the card ({prior.calls} from Python - {n['n_unif_graph']} "
           f"captures + {n['n_unif_replay']} replays); waves "
           f"{n['unif_waves']} (replays {n['n_unif_replay']}, warm-ups "
@@ -6235,6 +6433,10 @@ def main():
               f"loads) by candidate width (0: the generic loop): " +
               ", ".join(f"{nx}: {r}/{st},{ld}" for nx, (r, st, ld) in
                         sorted(by_nx.items())) + f"  [{card}]")
+    beta_regs = beta_registers(build.build_log["beta_prior"]["output"])
+    print("beta_prior registers/spill bytes (stores, loads): " +
+          ", ".join(f"{k}: {r[0]}/{r[1]},{r[2]}"
+                    for k, r in sorted(beta_regs.items())) + f"  [{card}]")
     count_rounds()
     count_proposal_loops()
 
@@ -6290,6 +6492,7 @@ def main():
     # phase 2j: the Beta prior's kernels against their plain versions,
     # under vmap and replayed
     beta = beta_phase(card, floor["us"])
+    beta["registers"] = beta_regs
 
     # phase 3: the main path, with launch counts zeroed just before
     _gauss_setup()
@@ -6852,8 +7055,14 @@ def main():
     for r in beta["vmap_replay"]:
         graph = r.pop("graph")
         r["replay_device_ms"] = _device_ms(graph.replay, 10)
+        call = r.pop("vmap_call")
+        r["vmap_device_ms"] = _device_ms(call, 10)
+        r["vmap_beta_device_ms"] = _device_ms(call, 10,
+                                              only="beta_ppf_kernel")
         print(f"beta captured (256, 3) prior and direct calls {r['dtype']} "
-              f"replay device only: {1e3 * r['replay_device_ms']:.2f} us  "
+              f"replay device only: {1e3 * r['replay_device_ms']:.2f} us; "
+              f"the vmapped prior alone {1e3 * r['vmap_device_ms']:.2f} us, "
+              f"its beta_ppf {1e3 * r['vmap_beta_device_ms']:.2f} us  "
               f"[{card}]")
     beta_drive["wave_replay_device_ms"] = _device_ms(beta_wave.graph.replay,
                                                      5)
@@ -6867,7 +7076,7 @@ def main():
     if parent:
         for who in ("parent", "change"):
             for c in parent[who]:
-                if c["kernel"] == "prior_transform":
+                if c["kernel"] == "prior_transform" and "kind" not in c:
                     print(f"prior_transform (256, 3) three Betas, {who}: "
                           f"events {c['events_us'] / 1e3:.3f} ms a call, "
                           f"device {c['device_us'] / 1e3:.3f} ms over "
@@ -7195,11 +7404,13 @@ def main():
                 "replaces_also": BETA_REPLACES_ALSO,
                 "launches": sum(by_drive.values()),
                 "launches_by_drive": by_drive,
-                "launches_note": "one launch a Beta dimension of each "
-                                 "prior call on the card (a replayed "
-                                 "wave counts what its capture did); "
-                                 "priors: phase 27's calls",
-                "max_abs_err": max(r["max_abs_err"] for r in beta["sweep"]
+                "launches_note": "one launch a prior call on the card "
+                                 "for all its Beta dimensions of one "
+                                 "niter (a replayed wave counts what its "
+                                 "capture did); priors: phase 27's "
+                                 "calls",
+                "max_abs_err": max(r["max_abs_err"] for r in
+                                   beta["sweep"] + beta["tables"]
                                    if r["kernel"] == name),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -7207,8 +7418,9 @@ def main():
                 "chain_bound_ms": rec["chain_device_ms"],
                 "bound_note": "operations: the plain version's elementwise "
                               "ops an element at the type's rate; the "
-                              "one-thread chain (the kernel on one "
-                              "element) bounds a wave's 256 lanes by "
+                              "chain (the kernel on one element: for "
+                              "beta_ppf a warp's ten rounds of five "
+                              "levels) bounds a wave's 256 lanes by "
                               "latency",
                 "library_ms": None,
                 "library_note": "no one PyTorch call computes the "
@@ -7218,7 +7430,8 @@ def main():
                 "device_ms": rec["device_ms"],
                 "launch_floor_ms": floor["device_us"] / 1e3,
                 "cases": [{k: r[k] for k in (
-                    "n", "dtype", "ms", "device_ms", "plain_ms", "chain_ms",
+                    "n", "dtype", "levels", "ms", "device_ms", "plain_ms",
+                    "chain_ms",
                     "chain_device_ms", "ops_per_element", "ops_bound_ms",
                     "bytes_bound_ms", "bound_ms", "bound_by",
                     "bound_share")} for r in beta["timed"]

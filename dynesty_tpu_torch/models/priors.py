@@ -10,11 +10,12 @@ the proposal rounds on any device.  Compose per-dimension priors with
 ``torch.special`` has no regularized incomplete beta function, so
 :func:`_betainc` and :class:`Beta` go through ``ops.beta_prior``: on the
 card one launch of a hand-written CUDA kernel (``csrc/beta_prior.cu``)
-each, which runs under ``torch.func.vmap`` and inside a captured wave; on
-the CPU the plain versions there (``betainc_plain``: the continued
-fraction of Numerical Recipes' ``betacf``, modified Lentz, with a fixed
-iteration count, so that it has no data-dependent control flow;
-``beta_ppf_plain``: the bisection).
+each, which runs under ``torch.func.vmap`` and inside a captured wave (a
+:class:`PriorTransform`'s Beta dimensions all in one launch); on the CPU
+the plain versions there (``betainc_plain``: the continued fraction of
+Numerical Recipes' ``betacf``, modified Lentz, with a fixed iteration
+count, so that it has no data-dependent control flow; ``beta_ppf_plain``:
+the bisection).
 """
 
 import math
@@ -117,10 +118,31 @@ class Beta(Prior):
 
 
 class PriorTransform:
-    """Stack per-dimension priors into a prior_transform callable."""
+    """Stack per-dimension priors into a prior_transform callable.
+
+    The dimensions whose prior is a :class:`Beta` (that class, not a
+    subclass) of one ``niter`` run as one call
+    (``ops.beta_prior.beta_ppf_columns``: on the card one launch for them
+    all, each dimension's bits those of its own call); every other prior
+    is called on its own dimension."""
 
     def __init__(self, priors):
         self.priors = list(priors)
 
     def __call__(self, u):
-        return torch.stack([p(u[i]) for i, p in enumerate(self.priors)])
+        out = [None] * len(self.priors)
+        groups = {}
+        for i, p in enumerate(self.priors):
+            if type(p) is Beta:
+                groups.setdefault(p.niter, []).append(i)
+        for niter, dims in groups.items():
+            # u's first axis holds the dimensions; the columns are read in
+            # place (no index tensor, no copy from the host)
+            x = beta_prior.beta_ppf_columns(
+                u.movedim(0, -1), dims, [self.priors[i].alpha for i in dims],
+                [self.priors[i].beta for i in dims], niter)
+            for i, xi in zip(dims, x.unbind(-1)):
+                out[i] = xi
+        return torch.stack([p(u[i]) if x is None else x
+                            for i, (p, x) in enumerate(zip(self.priors,
+                                                           out))])

@@ -9,22 +9,36 @@ compiles into one device program.  ``torch.special`` has no ``betainc``,
 so the port computes it (:func:`betainc_plain`: the continued fraction of
 Numerical Recipes' ``betacf``, modified Lentz, a fixed 64 terms, no
 data-dependent control flow) and bisects on it (:func:`beta_ppf_plain`):
-some 1.6e5 elementwise operations a call.  On the card these are
-``csrc/beta_prior.cu``'s two kernels, one thread an element, bit for bit
-with the plain versions.
+some 1.4e5 elementwise operations a call.  On the card these are
+``csrc/beta_prior.cu``'s two kernels, bit for bit with the plain versions.
+
+``beta_ppf_kernel`` takes a table of up to :data:`TABLE` Beta dimensions
+(a column of ``u`` and its ``a``, ``b`` each), so a ``PriorTransform``
+runs every Beta dimension of a call in one launch
+(:func:`beta_ppf_columns`; :func:`beta_ppf` is the one-column case).  Each
+element gets a group of lanes that walks the bisection several levels a
+round: the lanes evaluate ``betainc`` at every node of the round's tree at
+once, each node's mid computed along its path as the serial loop computes
+it, then replay the serial loop's comparisons from them, so the bits are
+the serial loop's.  How many levels (:func:`beta_levels`) follows the
+call's element count: five (a warp an element, ten rounds for 50 steps)
+where a warp for every element fits in 16 warps an SM (what keeps the
+card's pipes busy), fewer above, down to one thread an element; the
+count never changes a bit.
 
 Each is a ``torch.library.custom_op`` (``dynesty_tpu_torch::beta_ppf``,
 ``dynesty_tpu_torch::betainc``): its ``"cuda"`` kernel launches the
 ctypes entry on the current stream into an output made by
-``torch.empty`` (no host sync, no copy from the host: a captured wave
-records it), counts ``launches`` on the public wrapper and raises where
-the launch fails or the dtype is not float32 or float64; its CPU
-implementation runs the plain version on contiguous inputs; a vmap rule
-calls the operator once on the batched tensor, so that a prior under
-``torch.func.vmap`` (every proposal wave evaluates ``ptform`` so,
-``internal/likelihood.py``) launches one kernel a Beta dimension.  A CUDA
-tensor never reaches the plain version: the default implementation
-raises for any device but the CPU.
+``torch.empty`` (no host sync, no copy from the host: the table travels
+in the kernel's parameters, so a captured wave records it), counts
+``launches`` on :func:`beta_ppf` or :func:`betainc` and raises where the
+launch fails or the dtype is not float32 or float64; its CPU
+implementation runs the plain version on contiguous inputs (a column at a
+time); a vmap rule calls the operator once on the batched tensor, so that
+a prior under ``torch.func.vmap`` (every proposal wave evaluates
+``ptform`` so, ``internal/likelihood.py``) launches one kernel for its
+Beta dimensions.  A CUDA tensor never reaches the plain version: the
+default implementation raises for any device but the CPU.
 """
 
 import ctypes
@@ -33,14 +47,19 @@ import torch
 
 from . import build
 
-__all__ = ["beta_ppf", "beta_ppf_plain", "betainc", "betainc_plain",
-           "ENTRY_ARGTYPES", "zero_counts", "WRAPPERS"]
+__all__ = ["beta_ppf", "beta_ppf_columns", "beta_ppf_plain", "betainc",
+           "betainc_plain", "beta_levels", "ENTRY_ARGTYPES", "TABLE",
+           "zero_counts", "WRAPPERS"]
 
 # continued-fraction terms: enough for a, b up to a few thousand (held to
 # scipy.special.betainc in tests/test_torch_models.py)
 _BETAINC_ITERS = 64
 # Lentz's guard against a zero denominator
 _TINY = 1e-300
+# Beta dimensions one beta_ppf launch takes (csrc/beta_prior.cu's TABLE)
+TABLE = 32
+# the most bisection levels a round: 31 nodes, a warp an element
+MAX_LEVELS = 5
 
 
 # --------------------------------------------------------------------------
@@ -101,11 +120,13 @@ def beta_ppf_plain(u, alpha, beta, niter=50):
 # the kernels
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
-_P, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
+_P, _I, _N = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # each entry's arguments after its name's type tag, as csrc/beta_prior.cu
 # declares them (the stream last)
 ENTRY_ARGTYPES = {
-    "beta_ppf": [_P, _I, _P, _I, _D, _D, ctypes.c_int, _P],
+    "beta_ppf": [_P, _I, _I, _P, _I, _I, _N, ctypes.POINTER(_I),
+                 ctypes.POINTER(ctypes.c_double),
+                 ctypes.POINTER(ctypes.c_double), _N, _N, _P],
     "betainc": [_P, _I, _P, _I, _P, _I, _P, _I, _P],
 }
 _ENTRY = {}
@@ -160,10 +181,52 @@ def _cpu_only(fn, *tensors):
                                f"version)")
 
 
-def _beta_ppf_default(u: torch.Tensor, a: float, b: float,
-                      niter: int) -> torch.Tensor:
+def beta_levels(n, lanes):
+    """The bisection levels a round of a ``beta_ppf`` launch of ``n``
+    elements on a card that keeps ``lanes`` threads busy
+    (:func:`_busy_lanes`): the most levels, up to :data:`MAX_LEVELS` (a
+    warp an element), whose groups of 2^L lanes for every element fit,
+    and one thread an element (1) where not even four lanes do.  It never
+    changes a bit."""
+    for levels in range(MAX_LEVELS, 1, -1):
+        if n << levels <= lanes:
+            return levels
+    return 1
+
+
+# threads an SM keeps busy with beta_ppf_kernel: 16 warps fill its pipes
+# (PERF.md, chip_smoke.py's level sweep on an H100: past that a call is
+# throughput-bound and another level costs more than it saves)
+LANES_PER_SM = 512
+_LANES = {}
+
+
+def _busy_lanes(device):
+    """The threads ``device`` keeps busy: its SMs times
+    :data:`LANES_PER_SM`."""
+    lanes = _LANES.get(device.index)
+    if lanes is None:
+        lanes = _LANES[device.index] = LANES_PER_SM * \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return lanes
+
+
+def _check_table(u, cols, a, b):
+    if not (len(cols) == len(a) == len(b)) or not cols:
+        raise ValueError(f"beta_ppf: a table of columns, a and b of one "
+                         f"length >= 1, got {len(cols)}, {len(a)}, "
+                         f"{len(b)}")
+    if u.dim() < 1 or any(not 0 <= c < u.shape[-1] for c in cols):
+        raise ValueError(f"beta_ppf: columns {list(cols)} outside u's last "
+                         f"axis (shape {tuple(u.shape)})")
+
+
+def _beta_ppf_default(u: torch.Tensor, cols: list[int], a: list[float],
+                      b: list[float], niter: int) -> torch.Tensor:
     _cpu_only("beta_ppf", u)
-    return beta_ppf_plain(u.contiguous(), a, b, niter)
+    _check_table(u, cols, a, b)
+    return torch.stack([beta_ppf_plain(u[..., c].contiguous(), x, y, niter)
+                        for c, x, y in zip(cols, a, b)], -1)
 
 
 _beta_ppf_op = torch.library.custom_op("dynesty_tpu_torch::beta_ppf",
@@ -171,25 +234,42 @@ _beta_ppf_op = torch.library.custom_op("dynesty_tpu_torch::beta_ppf",
 
 
 @_beta_ppf_op.register_kernel("cuda")
-def _beta_ppf_cuda(u, a, b, niter):
+def _beta_ppf_cuda(u, cols, a, b, niter):
     f = _entry("beta_ppf", u.dtype)
-    src, su = _operand(u, u.shape)
-    out = torch.empty(u.shape, dtype=u.dtype, device=u.device)
-    if out.numel():
-        _launch(f, (src.data_ptr(), su, out.data_ptr(), out.numel(), a, b,
-                    niter), u.device, "beta_ppf")
+    _check_table(u, cols, a, b)
+    k = len(cols)
+    out = torch.empty(u.shape[:-1] + (k,), dtype=u.dtype, device=u.device)
+    if not out.numel():
+        return out
+    # rows by the row stride where u's leading axes flatten to one (a
+    # view), else a contiguous copy on the card
+    src = u.reshape(-1, u.shape[-1])
+    rows = src.shape[0]
+    lanes = _busy_lanes(u.device)
+    for j0 in range(0, k, TABLE):
+        j1 = min(j0 + TABLE, k)
+        kc = j1 - j0
+        table = ((ctypes.c_longlong * kc)(*cols[j0:j1]),
+                 (ctypes.c_double * kc)(*a[j0:j1]),
+                 (ctypes.c_double * kc)(*b[j0:j1]))
+        _launch(f, (src.data_ptr(), src.stride(0), src.stride(1),
+                    out.data_ptr() + j0 * out.element_size(), k, rows, kc,
+                    *table, niter, beta_levels(rows * kc, lanes)),
+                u.device, "beta_ppf")
         beta_ppf.launches += 1
     return out
 
 
 @_beta_ppf_op.register_fake
-def _beta_ppf_fake(u, a, b, niter):
-    return torch.empty(u.shape, dtype=u.dtype, device=u.device)
+def _beta_ppf_fake(u, cols, a, b, niter):
+    return torch.empty(u.shape[:-1] + (len(cols),), dtype=u.dtype,
+                       device=u.device)
 
 
-def _beta_ppf_vmap(info, in_dims, u, a, b, niter):
-    # elementwise in its one tensor: the batched tensor goes through whole
-    return _beta_ppf_op(u, a, b, niter), in_dims[0]
+def _beta_ppf_vmap(info, in_dims, u, cols, a, b, niter):
+    # the columns are u's last axis: the batch dimension first, one call on
+    # the lot
+    return _beta_ppf_op(u.movedim(in_dims[0], 0), cols, a, b, niter), 0
 
 
 _beta_ppf_op.register_vmap(_beta_ppf_vmap)
@@ -256,7 +336,21 @@ def beta_ppf(u, alpha, beta, niter=50):
     float tensor) by ``niter`` bisection steps: on the card one launch of
     ``csrc/beta_prior.cu``'s ``beta_ppf_kernel``, on the CPU
     :func:`beta_ppf_plain`.  Runs under ``torch.func.vmap``."""
-    return _beta_ppf_op(u, float(alpha), float(beta), int(niter))
+    return beta_ppf_columns(u.unsqueeze(-1), [0], [alpha], [beta],
+                            niter).squeeze(-1)
+
+
+def beta_ppf_columns(u, cols, alpha, beta, niter=50):
+    """The quantiles of several Beta priors in one call: column ``j`` of
+    the result (its last axis) is Beta(``alpha[j]``, ``beta[j]``) at
+    ``u[..., cols[j]]`` by ``niter`` bisection steps, bit for bit as
+    :func:`beta_ppf` gives it.  On the card one launch of
+    ``beta_ppf_kernel`` for every :data:`TABLE` columns, reading ``u`` by
+    its strides; on the CPU :func:`beta_ppf_plain` a column at a time.
+    Runs under ``torch.func.vmap``."""
+    return _beta_ppf_op(u, [int(c) for c in cols],
+                        [float(x) for x in alpha],
+                        [float(x) for x in beta], int(niter))
 
 
 def betainc(a, b, x):

@@ -16,8 +16,10 @@ disabled, which raises without reaching the plain version.
 On a card (``cuda``-marked, skipped here): each kernel against its plain
 version bit for bit over 25 (a, b) pairs at (256,) and (2^20,), under
 ``vmap`` and replayed from a captured graph, and a sampler whose waves
-replay its Beta kernel, counted once a call and once a replay.  The JAX
-package is imported by a fixture only, so that on the card
+replay its Beta kernel, counted once a call and once a replay (a
+``PriorTransform``'s Beta dimensions in one launch; the grouped kernel's
+own tests are ``tests/test_torch_beta_tree.py``).  The JAX package is
+imported by a fixture only, so that on the card
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_beta_prior.py
@@ -340,6 +342,13 @@ def test_the_kernel_constants_are_the_plain_versions():
     tiny = re.search(r"const double TINY = ([\d.e+-]+);", src).group(1)
     assert int(iters) == bp._BETAINC_ITERS == 64
     assert float(tiny) == bp._TINY == 1e-300
+    # beta_ppf's table capacity and its most levels a round (a warp an
+    # element: 2^5 - 1 nodes in 32 lanes)
+    table = re.search(r"const int TABLE = (\d+);", src).group(1)
+    levels = re.search(r"const int MAX_LEVELS = (\d+);", src).group(1)
+    assert int(table) == bp.TABLE == 32
+    assert int(levels) == bp.MAX_LEVELS == 5
+    assert re.search(r"int col\[TABLE\];\s+T a\[TABLE\], b\[TABLE\];", src)
     assert re.search(r"float guard\(float t\) \{ return t; \}", src)
     assert re.search(r"double guard\(double t\) \{ return fabs\(t\) < TINY "
                      r"\? TINY : t; \}", src)
@@ -353,7 +362,9 @@ def test_the_kernel_constants_are_the_plain_versions():
 
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "i64": ctypes.c_longlong, "double": ctypes.c_double,
-           "int": ctypes.c_int}
+           "int": ctypes.c_int,
+           "const i64*": ctypes.POINTER(ctypes.c_longlong),
+           "const double*": ctypes.POINTER(ctypes.c_double)}
 
 
 @pytest.mark.parametrize("fn", sorted(bp.ENTRY_ARGTYPES))
@@ -371,9 +382,10 @@ def test_each_entry_argtypes_follow_its_c_signature(fn):
 def test_a_cuda_call_without_build_raises_before_any_plain_step(
         monkeypatch, fn):
     """The operators' CUDA kernels (called here as the dispatcher calls
-    them on a CUDA tensor) with building disabled raise and never reach
-    the plain versions; the default implementation refuses a tensor off
-    the CPU; another dtype raises on the card."""
+    them on a CUDA tensor; ``beta_ppf`` with one column and with a
+    three-column table) with building disabled raise and never reach the
+    plain versions; the default implementation refuses a tensor off the
+    CPU; another dtype raises on the card."""
     monkeypatch.setenv("DYNESTY_TPU_TORCH_NO_BUILD", "1")
     monkeypatch.setattr(build, "_LIBS", {})
     monkeypatch.setattr(bp, "_ENTRY", {})
@@ -387,16 +399,24 @@ def test_a_cuda_call_without_build_raises_before_any_plain_step(
     launches = getattr(bp, fn).launches
     with pytest.raises(RuntimeError, match="disabled"):
         if fn == "beta_ppf":
-            bp._beta_ppf_cuda(x, 2.0, 5.0, 50)
+            bp._beta_ppf_cuda(x[:, None], [0], [2.0], [5.0], 50)
         else:
             bp._betainc_cuda(x[:1], x[:1], x)
+    if fn == "beta_ppf":
+        with pytest.raises(RuntimeError, match="disabled"):
+            bp._beta_ppf_cuda(x.reshape(2, 4), [3, 0, 1], [2.0, 0.5, 5.0],
+                              [5.0, 0.5, 2.0], 50)
     assert getattr(bp, fn).launches == launches
     meta = torch.empty(8, dtype=torch.float64, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         if fn == "beta_ppf":
-            bp._beta_ppf_default(meta, 2.0, 5.0, 50)
+            bp._beta_ppf_default(meta[:, None], [0], [2.0], [5.0], 50)
         else:
             bp._betainc_default(meta, meta, meta)
+    if fn == "beta_ppf":
+        with pytest.raises(RuntimeError, match="no kernel"):
+            bp._beta_ppf_default(meta.reshape(2, 4), [3, 0, 1],
+                                 [2.0, 0.5, 5.0], [5.0, 0.5, 2.0], 50)
     with pytest.raises(TypeError, match="float64 or float32"):
         bp._entry(fn, torch.float16)
 
@@ -441,8 +461,9 @@ def test_the_kernels_match_the_plain_versions_on_the_card(cuda, dtype, n):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_under_vmap_and_replayed_on_the_card(cuda, dtype):
     """A (256, 3) prior of three Betas under vmap: the plain version's
-    bits, three launches; captured once (three launches counted at the
-    capture), replayed 20 times, the same bits each time."""
+    bits, one launch (the three Beta dimensions in one table); captured
+    once (one launch counted at the capture), replayed 20 times, the same
+    bits each time."""
     ab = [(2.0, 5.0), (0.5, 0.5), (5.0, 2.0)]
     pt = tm.PriorTransform([tm.Beta(a, b) for a, b in ab])
     u = _u((256, 3), dtype, seed=11, device=cuda)
@@ -450,11 +471,11 @@ def test_under_vmap_and_replayed_on_the_card(cuda, dtype):
                         for i, (a, b) in enumerate(ab)], 1)
     n0 = bp.beta_ppf.launches
     assert _same(torch.func.vmap(pt)(u), want)
-    assert bp.beta_ppf.launches == n0 + 3
+    assert bp.beta_ppf.launches == n0 + 1
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = torch.func.vmap(pt)(u)
-    assert bp.beta_ppf.launches == n0 + 6
+    assert bp.beta_ppf.launches == n0 + 2
     for _ in range(20):
         out.zero_()
         graph.replay()
@@ -479,16 +500,18 @@ class _CountingPrior:
 
 @pytest.mark.cuda
 def test_a_sampler_replays_its_beta_kernel_on_the_card(cuda):
-    """A run with one Beta dimension on the card: no capture warning,
+    """A run with two Beta dimensions on the card: no capture warning,
     every wave but one warm-up a shape replayed, and ``beta_ppf`` counted
-    once a prior call and once a replay (a capture records the call
-    without running it)."""
+    once a prior call and once a replay (the two Betas in one launch; a
+    capture records the call without running it).  The likelihood reads
+    the first dimension only, so the others add nothing to log Z."""
     prior = _CountingPrior(tm.PriorTransform([tm.Beta(2.0, 5.0),
-                                              tm.TopHat(0.0, 1.0)]))
+                                              tm.TopHat(0.0, 1.0),
+                                              tm.Beta(0.5, 0.5)]))
     bp.zero_counts()
     with warnings.catch_warnings():
         warnings.simplefilter("error", RuntimeWarning)
-        s = dyt.NestedSampler(_beta_loglike, prior, 2, nlive=200,
+        s = dyt.NestedSampler(_beta_loglike, prior, 3, nlive=200,
                               bound="single", sample="unif", queue_size=64,
                               rstate=get_rstate())
         s.run_nested(print_progress=False, dlogz=0.5)
