@@ -310,12 +310,36 @@ Phases, in order; any failure raises and exits non-zero:
     consumed after the last accepted one to no record, in the JAX package
     too (``tests/test_torch_queue_billing.py``), so the difference is
     printed, not gated.
+35. The JAX package's own bench configurations at its own precision
+    (``bench.py`` runs in float32: it never turns x64 on), counts from
+    zero around each drive, each through its evidence gate, the run's
+    dtype held by the sampler, its likelihood and every tensor it keeps
+    (a float32 run holds none in float64) and every kernel of its path
+    launched: headline (``bench.py``'s 25-D correlated Gaussian, rho
+    0.4, single/rslice, 25 slices, nlive 500, q 250, 24 rounds a
+    dispatch, 4 logzerr of -25 ln 20) in float64 and headline-f32 in
+    float32 (the precision matrix float32) in turns, f64, f32, f32, f64:
+    each second run bit for bit the first, both walls and ``dispatch``
+    printed; headline-f32 stopped at half its iterations, saved,
+    restored and resumed on the card, bit for bit the uninterrupted run;
+    heavy-f32 (phase 7 in float32, the Gaussian term's constants float32
+    too), balls-f32 (phase 3 in float32) and dynamic3-f32 (phase 13 in
+    float32, 5 logzerr and n_effective 10,000).  headline-f32's and
+    heavy-f32's ncall over the JAX package's float32 run
+    (``BENCH_r05.json``: a count, not a time; it records no niter).
+    Phases 2b, 2c, 2f and 2h hold the kernels these drives launch at
+    their shapes and dtypes: consume and ``round_assemble`` at (500, 250)
+    in 25-D (float32 and float64) and (3000, 256) in float32, the slice
+    steps at (250, 25) with 25 slices and the cube's wave at (250, 25),
+    both dtypes, bit for bit.
 34. Device-only times (profiler kernel durations) of every comparison,
-    of the consume rounds with their chain bound (the device time of a
-    step of a one-thread chain of dependent logaddexps, times q), of the
-    four proposal-step kernels at the main drives' shapes and of the
-    launch floor, of one replay of the captured slice iteration at (256,
-    3) and of the captured walk at (256, 15), of the two wave kernels at
+    of the consume rounds (the bench drives' among them) with their chain
+    bound (the device time of a step of a one-thread chain of dependent
+    logaddexps, times q), of the four proposal-step kernels at the main
+    drives' shapes (and the slice steps and the cube's wave at the
+    headline's (250, 25), both dtypes) and of the launch floor, of one
+    replay of the captured slice iteration at (256, 3) and of the
+    captured walk at (256, 15), of the two wave kernels at
     (256, 3) (``unif_valid`` also over unions of 1, 4 and 16
     ellipsoids and at phase 2f's friends cases), of one replayed uniform
     wave over the cube at (256, 3) and over balls and cubes about 2048
@@ -469,6 +493,14 @@ H_WIDTH, H_LAYERS, H_NLIVE, H_QUEUE, H_ROUNDS = 256, 384, 3000, 256, 12
 H_TRUTH = -NDIM * math.log(20.0)  # the 1e-6 chain term is negligible
 R_NDIM, R_NLIVE = 15, 1000
 R_TRUTH = -R_NDIM * math.log(20.0)
+# bench.py's headline (bench.py:62-68, 320-362): the 25-D correlated
+# Gaussian (rho 0.4, prior +-10), single/rslice, 25 slices, nlive 500,
+# queue_size 256 (the port, as the JAX package, takes nlive // 2 = 250
+# lanes), 24 rounds a dispatch
+HL_NDIM, HL_RHO, HL_NLIVE, HL_SLICES = 25, 0.4, 500, 25
+HL_QUEUE, HL_ROUNDS = 256, 24
+HL_LANES = HL_NLIVE // 2
+HL_TRUTH = -HL_NDIM * math.log(20.0)
 REPLACES = {2: "dynesty_tpu/ops/pallas_kernels.py:31",
             math.inf: "dynesty_tpu/ops/pallas_kernels.py:80"}
 
@@ -1076,12 +1108,19 @@ def _gauss_setup():
     cov[cov == 0] = 0.95
     _GAUSS["cinv"] = torch.as_tensor(np.linalg.inv(cov), device="cuda")
     _GAUSS["cinv_host"] = _GAUSS["cinv"].cpu()
+    _GAUSS["cinv32"] = _GAUSS["cinv"].to(torch.float32)
     _GAUSS["lnorm"] = -0.5 * (np.log(2 * np.pi) * NDIM +
                               np.log(np.linalg.det(cov)))
 
 
 def gauss_loglike(x):
     return -0.5 * (x @ _GAUSS["cinv"] @ x) + _GAUSS["lnorm"]
+
+
+def gauss_loglike32(x):
+    """The 3-D Gaussian with float32 constants, for the float32 drives
+    (``x @`` a float64 matrix would raise: torch does not promote)."""
+    return -0.5 * (x @ _GAUSS["cinv32"] @ x) + _GAUSS["lnorm"]
 
 
 def box_ptform(u):
@@ -1099,11 +1138,18 @@ def _bound_name(bounding):
         type(bounding).__name__
 
 
+def _config(config):
+    """A drive's arguments for its JSON record (a torch dtype by name)."""
+    return {k: str(v).split(".")[-1] if isinstance(v, torch.dtype) else v
+            for k, v in config.items()}
+
+
 def _summary(sampler, wall, truth, **config):
     res = sampler.results
     stats = [p for p in res.proposal_stats if p]
     return {
-        "config": dict(config, nlive=sampler.nlive, ndim=sampler.ndim,
+        "config": dict(_config(config), nlive=sampler.nlive,
+                       ndim=sampler.ndim,
                        bound=_bound_name(sampler.bounding),
                        sample=sampler.internal_sampler.name, seed=SEED,
                        queue_size=sampler.queue_size),
@@ -1131,18 +1177,20 @@ def _gate(sampler, s, what):
 
 
 def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None,
-          loglike=None, ptform=None, gate=None, **kw):
+          loglike=None, ptform=None, gate=None, ndim=NDIM, truth=LOGZ_TRUTH,
+          **kw):
     """One run on the 3-D Gaussian on the card's default device, through
     the evidence gate (``gate``, by default :func:`_gate`); with
     ``maxiter`` the run is stopped there without its live points and
     returned ungated.  ``loglike``/``ptform`` replace the Gaussian's (a
-    blob or host-mode form of it), ``kw`` goes to the sampler.  Returns
-    (summary, sampler)."""
+    blob or host-mode form of it, or another problem of ``ndim``
+    dimensions and evidence ``truth``), ``kw`` goes to the sampler.
+    Returns (summary, sampler)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # no device argument: the port runs on the card by default
     sampler = dyt.NestedSampler(
-        loglike or gauss_loglike, ptform or box_ptform, NDIM, nlive=nlive,
+        loglike or gauss_loglike, ptform or box_ptform, ndim, nlive=nlive,
         bound=bound, sample=sample,
         rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
     if sampler.device.type != "cuda":
@@ -1157,7 +1205,7 @@ def drive(dyt, nlive, bound, sample="rslice", profile=None, maxiter=None,
     wall = time.perf_counter() - t0
     if maxiter is not None:
         return {"wall_s": wall, "niter": sampler.it - 1}, sampler
-    summary = _summary(sampler, wall, LOGZ_TRUTH)
+    summary = _summary(sampler, wall, truth)
     (gate or _gate)(sampler, summary, f"drive {_bound_name(bound)}/"
                     f"{summary['config']['sample']} nlive={nlive}")
     return summary, sampler
@@ -2027,7 +2075,7 @@ def _dyn_summary(dns, wall, **config):
     per_record = (t.get("dyn_base", 0.0) + t.get("dyn_batch", 0.0) -
                   inner) / max(int(res.niter), 1)
     return {
-        "config": dict(config, ndim=dns.ndim, bound=dns.bounding,
+        "config": dict(_config(config), ndim=dns.ndim, bound=dns.bounding,
                        sample=dns.sampling.name, seed=SEED,
                        queue_size=dns.queue_size),
         "wall_s": wall, "niter": int(res.niter), "ncall": int(dns.ncall),
@@ -2059,13 +2107,14 @@ def _dyn_gate(dns, s, what, neff=None):
         raise RuntimeError(f"{what} failed its gate: {s}")
 
 
-def dynamic_drive(dyt, run_kw, **kw):
+def dynamic_drive(dyt, run_kw, loglike=None, **kw):
     """One ``DynamicNestedSampler(...).run_nested(**run_kw)`` on the 3-D
-    Gaussian on the card's default device; returns (summary, sampler)."""
+    Gaussian (``loglike``, by default :func:`gauss_loglike`) on the card's
+    default device; returns (summary, sampler)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dns = dyt.DynamicNestedSampler(
-        gauss_loglike, box_ptform, NDIM,
+        loglike or gauss_loglike, box_ptform, NDIM,
         rstate=np.random.Generator(np.random.PCG64(SEED)), **kw)
     if dns.device.type != "cuda":
         raise RuntimeError(f"the default device is {dns.device}")
@@ -2362,13 +2411,16 @@ def heavy_weights():
     return a, w, np.linalg.inv(cov), lnorm
 
 
-def heavy_loglike():
-    """The heavy likelihood on the card: the Gaussian in float64 plus
-    1e-6 times the sum of a float32 tanh chain (TF32 off)."""
+def heavy_loglike(dtype=torch.float64):
+    """The heavy likelihood on the card: the Gaussian in ``dtype`` plus
+    1e-6 times the sum of a float32 tanh chain (TF32 off); in float32
+    every constant is float32, as ``bench.py``'s JAX form runs without
+    x64."""
     a, w, cinv, lnorm = heavy_weights()
     a_t = torch.as_tensor(a, dtype=torch.float32, device="cuda")
     w_t = torch.as_tensor(w, dtype=torch.float32, device="cuda")
-    cinv_t = torch.as_tensor(cinv, device="cuda")
+    cinv_t = torch.as_tensor(cinv, dtype=dtype, device="cuda")
+    lnorm = float(lnorm)
 
     def loglike(x):
         h = torch.tanh(w_t @ x.to(torch.float32))
@@ -2658,11 +2710,34 @@ CONSUME_F32 = [(2048, 256, "batch", "thin"),
                (2048, 256, "batch", "plateau_at_step"),
                (1000, 256, "queue", "queue"),
                (2048, 256, "queue", "queue_plateau_at_step")]
-# the timed rounds (float64): (nlive, q, mode, thin allowed)
+# the bench drives' rounds at their own shapes and dtypes: (nlive, q,
+# mode, case, ndim, dtype): the headline's (500, 250) in 25-D, float32
+# and float64, and heavy's (3000, 256) in float32 (each round that does
+# not stop also with the thin path forbidden: the general path's layout)
+CONSUME_BENCH = [(HL_NLIVE, HL_LANES, "batch", "thin", HL_NDIM,
+                  torch.float32),
+                 (HL_NLIVE, HL_LANES, "batch", "below_threshold", HL_NDIM,
+                  torch.float32),
+                 (HL_NLIVE, HL_LANES, "batch", "plateau_at_step", HL_NDIM,
+                  torch.float32),
+                 (HL_NLIVE, HL_LANES, "batch", "dlogz_stop_mid_round",
+                  HL_NDIM, torch.float32),
+                 (HL_NLIVE, HL_LANES, "batch", "thin", HL_NDIM,
+                  torch.float64),
+                 (H_NLIVE, H_QUEUE, "batch", "thin", NDIM, torch.float32),
+                 (H_NLIVE, H_QUEUE, "batch", "below_threshold", NDIM,
+                  torch.float32)]
+# the timed rounds: (nlive, q, mode, thin allowed[, dtype]), float64
+# unless given: then the bench drives' rounds (headline's (500, 250) in
+# both dtypes, heavy's (3000, 256) in float32)
 CONSUME_TIMED = [(2048, 256, "batch", True), (2048, 256, "batch", False),
                  (3000, 256, "batch", True), (3000, 256, "batch", False),
                  (1000, 256, "queue", False), (2048, 256, "queue", False),
-                 (16384, 256, "queue", False)]
+                 (16384, 256, "queue", False),
+                 (HL_NLIVE, HL_LANES, "batch", True, torch.float32),
+                 (HL_NLIVE, HL_LANES, "batch", False, torch.float32),
+                 (HL_NLIVE, HL_LANES, "batch", True, torch.float64),
+                 (H_NLIVE, H_QUEUE, "batch", True, torch.float32)]
 # passes of the chain probe over a round's q steps, whose device time per
 # step sizes the chain bound
 CHAIN_PROBE_REPS = 64
@@ -2674,10 +2749,11 @@ INTEGRATOR_SWEEP = 10 ** 6
 
 
 def consume_state(nlive, q, plateau=False, below=False, neg_inf=False,
-                  tie_at=None, nan_at=None):
+                  tie_at=None, nan_at=None, ndim=C_NDIM):
     """A live matrix (u | v | logl | it | bound | birth) and a proposal
     block (u | v | logl | nc | 2 lane stats) above the round's threshold,
-    from the seed with numpy (``tests/test_torch_fused.py``'s state).
+    from the seed with numpy (``tests/test_torch_fused.py``'s state), in
+    ``ndim`` dimensions (v as many).
     ``tie_at``: three points tied at that rank of the sorted logl ('mid':
     q // 2), a plateau that first appears at that kill; ``nan_at``: a NaN
     logl at that row."""
@@ -2691,7 +2767,8 @@ def consume_state(nlive, q, plateau=False, below=False, neg_inf=False,
         rank = q // 2 if tie_at == "mid" else tie_at
         order = np.argsort(logl)
         logl[order[rank:rank + 3]] = logl[order[rank]]
-    u = rs.random((nlive, C_NDIM))
+    il = 2 * ndim
+    u = rs.random((nlive, ndim))
     live = np.concatenate([
         u, 10.0 * u, logl[:, None],
         rs.integers(0, 50, nlive)[:, None].astype(float),
@@ -2707,8 +2784,8 @@ def consume_state(nlive, q, plateau=False, below=False, neg_inf=False,
     if below:
         qlogl[q // 3] = thr - 1.0  # one proposal under the threshold
     if nan_at is not None:
-        live[nan_at, C_IL] = np.nan
-    qu = rs.random((q, C_NDIM))
+        live[nan_at, il] = np.nan
+    qu = rs.random((q, ndim))
     prop = np.concatenate([qu, 10.0 * qu, qlogl[:, None],
                            rs.integers(1, 30, q)[:, None].astype(float),
                            rs.integers(0, 9, (q, 2)).astype(float)], axis=1)
@@ -2729,7 +2806,8 @@ def consume_ctrl(rounds_active=1, dlogz=0.01, max_accepts=2 ** 30, kills0=0,
 
 
 def run_fixed_round(live, prop, rounds, mode, ctrl, kind="fixed",
-                    dtype=torch.float64, plain=False, force_general=False):
+                    dtype=torch.float64, plain=False, force_general=False,
+                    ndim=C_NDIM):
     """One fused dispatch on the card over a fixed proposal block (the
     pattern of the replay round): the consume and assembly kernels, or
     with ``plain`` their plain versions on the same CUDA tensors.
@@ -2742,8 +2820,8 @@ def run_fixed_round(live, prop, rounds, mode, ctrl, kind="fixed",
     prop_t = torch.as_tensor(prop, dtype=dtype, device="cuda")
     # the replay round's proposer over the block, every round eager
     fn, layout = fused_mod.make_fused_round(
-        _ReplayProposer(dtype, "cuda", C_IL), nlive=nlive, ndim=C_NDIM,
-        npdim=C_NPDIM, q=q, dtype=dtype, device="cuda", kind=kind,
+        _ReplayProposer(dtype, "cuda", 2 * ndim), nlive=nlive, ndim=ndim,
+        npdim=ndim, q=q, dtype=dtype, device="cuda", kind=kind,
         rounds=rounds, mode=mode, capture=False)
     saved = (fused_mod.consume_round, fused_mod.round_assemble,
              fused_mod._FORCE_GENERAL_CONSUME)
@@ -2768,7 +2846,7 @@ def _same_bits(a, b):
     return (a.view(ints) == b.view(ints)) | (np.isnan(a) & np.isnan(b))
 
 
-def compare_flat(got, ref, layout):
+def compare_flat(got, ref, layout, ndim=C_NDIM):
     """Kernel against plain: every integer and copied column, the counters
     and the live matrix bit for bit; the integrator columns counted bit
     for bit and held to :data:`CONSUME_RTOL` where a bit differs.
@@ -2776,7 +2854,7 @@ def compare_flat(got, ref, layout):
     from dynesty_tpu_torch.internal.fused import record_columns, unpack_flat
 
     g, r = unpack_flat(got[0], layout), unpack_flat(ref[0], layout)
-    cols = record_columns(C_NDIM, C_NPDIM)
+    cols = record_columns(ndim, ndim)
     fcols = [i for i, c in enumerate(cols) if c in CONSUME_FLOAT_COLS]
     ecols = [i for i in range(len(cols)) if i not in fcols]
     exact = {
@@ -2816,21 +2894,22 @@ def compare_flat(got, ref, layout):
     return out
 
 
-def consume_case(nlive, q, mode, name, dtype=torch.float64):
+def consume_case(nlive, q, mode, name, dtype=torch.float64, ndim=C_NDIM):
     """One case at one shape: the kernel against the plain version, and in
     batch mode (but replay) the kernel's general path against its thin
     path.  Returns the comparison record."""
     kw, rounds, ckw = CONSUME_CASES[mode][name]
     ckw = dict(ckw)
-    live, prop = consume_state(nlive, q, **kw)
+    live, prop = consume_state(nlive, q, ndim=ndim, **kw)
+    il = 2 * ndim
     kind = "replay" if "kills0" in ckw or ckw.pop("replay", False) \
         else "fixed"
-    srt = np.sort(live[:, C_IL])
+    srt = np.sort(live[:, il])
     if kind == "replay":
         ckw["birth0"] = float(srt[q - 1] if mode == "batch" else srt[0])
     if ckw.get("max_nc") == "mid":
         # the evaluations of the first half: the stop falls mid-round
-        ckw["max_nc"] = int(prop[:q // 2, C_IL + 1].sum())
+        ckw["max_nc"] = int(prop[:q // 2, il + 1].sum())
     if ckw.get("logl_max") == "mid":
         # loglstar passes the middle victim's logl after the middle kill
         ckw["logl_max"] = float(srt[q // 2])
@@ -2844,24 +2923,26 @@ def consume_case(nlive, q, mode, name, dtype=torch.float64):
         ckw["dlogz"] = -np.inf
         flat, _, layout = run_fixed_round(live, prop, rounds, mode,
                                           consume_ctrl(**ckw), kind, dtype,
-                                          plain=True)
+                                          plain=True, ndim=ndim)
         from dynesty_tpu_torch.internal.fused import unpack_flat
         ckw["dlogz"] = float(np.nextafter(
             unpack_flat(flat, layout)["delta_logz"][q // 2], np.inf))
     ctrl = consume_ctrl(**ckw)
     ref = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype,
-                          plain=True)
-    got = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype)
+                          plain=True, ndim=ndim)
+    got = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype,
+                          ndim=ndim)
     out = {"nlive": nlive, "q": q, "mode": mode, "case": name,
-           "dtype": str(dtype).split(".")[-1]}
-    out.update(compare_flat(got[:2], ref[:2], got[2]))
+           "dtype": str(dtype).split(".")[-1], "ndim": ndim}
+    out.update(compare_flat(got[:2], ref[:2], got[2], ndim))
     if mode == "batch" and kind != "replay" and "stop" not in name:
         # past a stop the two paths fill the unaccepted rows differently
         gen = run_fixed_round(live, prop, rounds, mode, ctrl, kind, dtype,
-                              force_general=True)
+                              force_general=True, ndim=ndim)
         ref_gen = run_fixed_round(live, prop, rounds, mode, ctrl, kind,
-                                  dtype, plain=True, force_general=True)
-        compare_flat(gen[:2], ref_gen[:2], gen[2])
+                                  dtype, plain=True, force_general=True,
+                                  ndim=ndim)
+        compare_flat(gen[:2], ref_gen[:2], gen[2], ndim)
         out["general_equals_thin"] = bool(
             _same_bits(gen[0], got[0]).all() and
             _same_bits(gen[1], got[1]).all())
@@ -2908,18 +2989,19 @@ def integrator_sweep(dtype=torch.float64, n=INTEGRATOR_SWEEP):
     return out
 
 
-def consume_times(nlive, q, mode, thin, iters=20):
+def consume_times(nlive, q, mode, thin, dtype=torch.float64, iters=20):
     """Per-call times (CUDA events, warm) of one consume round through the
     kernel's wrapper and through the plain version, on the state of the
-    'thin' case (``thin``: the round may take the thin path).  Returns the
-    record and the kernel's call, for its device-only time."""
+    'thin' case (``thin``: the round may take the thin path) in
+    ``dtype``.  Returns the record and the kernel's call, for its
+    device-only time."""
     from dynesty_tpu_torch.ops import consume as cs
 
     live, prop = consume_state(nlive, q)
-    live_logl = torch.as_tensor(live[:, C_IL], device="cuda")
-    qlogl = torch.as_tensor(prop[:, C_IL], device="cuda")
+    live_logl = torch.as_tensor(live[:, C_IL], dtype=dtype, device="cuda")
+    qlogl = torch.as_tensor(prop[:, C_IL], dtype=dtype, device="cuda")
     qnc = torch.as_tensor(prop[:, C_IL + 1], device="cuda").to(torch.int64)
-    f = torch.zeros((), dtype=torch.float64, device="cuda")
+    f = torch.zeros((), dtype=dtype, device="cuda")
     i = torch.zeros((), dtype=torch.int64, device="cuda")
     b = torch.zeros((), dtype=torch.bool, device="cuda")
     st = {k: (f - 1e30 if k in ("logz", "loglstar") else f)
@@ -2944,9 +3026,11 @@ def consume_times(nlive, q, mode, thin, iters=20):
     chain_in = (call()[0][5].clone(), st["logz"])
     return {"nlive": nlive, "q": q, "mode": mode,
             "path": "thin" if thin else "general",
-            "resident": cs.smem_layout(nlive, torch.float64)["resident"],
+            "dtype": str(dtype).split(".")[-1],
+            "resident": cs.smem_layout(nlive, dtype)["resident"],
             "ms": ms, "plain_ms": plain_ms,
-            "byte_bound_ms": consume_bound_ms(nlive, q, thin)}, \
+            "byte_bound_ms": consume_bound_ms(
+                nlive, q, thin, torch.finfo(dtype).bits // 8)}, \
         (call, chain_in)
 
 
@@ -2995,8 +3079,9 @@ def chain_step_ms(chain_in, reps=CHAIN_PROBE_REPS):
 
 def consume_phase(card):
     """Every case at every shape (float64), the layout boundary, the
-    float32 rounds, the integrator sweep, the chain probe and the times;
-    prints one line each and returns the records and the timed calls."""
+    float32 rounds, the bench drives' rounds, the integrator sweep, the
+    chain probe and the times; prints one line each and returns the
+    records and the timed calls."""
     cases = []
 
     def show(rec, what):
@@ -3029,6 +3114,11 @@ def consume_phase(card):
         rec = consume_case(nlive, q, mode, name, dtype=torch.float32)
         cases.append(rec)
         show(rec, f"float32 {mode}")
+    for nlive, q, mode, name, ndim, dtype in CONSUME_BENCH:
+        rec = consume_case(nlive, q, mode, name, dtype=dtype, ndim=ndim)
+        rec["resident"] = cs.smem_layout(nlive, dtype)["resident"]
+        cases.append(rec)
+        show(rec, f"bench {rec['dtype']} {ndim}-D {mode}")
     sweep = [integrator_sweep(dt) for dt in (torch.float64, torch.float32)]
     for s in sweep:
         print(f"integrator step, {s['states']} states ({s['edge_states']} "
@@ -3041,9 +3131,9 @@ def consume_phase(card):
           f"round's chain: bit-identical {probe}  [{card}]")
     for t in times:
         print(f"consume round {t['mode']} ({t['nlive']}, {t['q']}) "
-              f"{t['path']}: kernel {t['ms']:.4f} ms (events, through the "
-              f"wrapper)  plain {t['plain_ms']:.1f} ms  byte bound "
-              f"{t['byte_bound_ms']:.3e} ms  [{card}]")
+              f"{t['path']} {t['dtype']}: kernel {t['ms']:.4f} ms (events, "
+              f"through the wrapper)  plain {t['plain_ms']:.1f} ms  byte "
+              f"bound {t['byte_bound_ms']:.3e} ms  [{card}]")
     ident = sum(c["float_identical"] for c in cases)
     total = sum(c["float_total"] for c in cases)
     print(f"consume: {len(cases)} rounds, float columns bit-identical "
@@ -3069,7 +3159,8 @@ def consume_device_times(consume, calls, card):
             t["byte_bound_ms"] else "bytes"
         t["bound_share"] = t["bound_ms"] / t["device_ms"]
         print(f"consume round {t['mode']} ({t['nlive']}, {t['q']}) "
-              f"{t['path']} device only: kernel {t['device_ms']:.4f} ms  "
+              f"{t['path']} {t['dtype']} device only: kernel "
+              f"{t['device_ms']:.4f} ms  "
               f"events {t['ms']:.4f} ms  chain bound "
               f"{t['chain_bound_ms']:.4f} ms ({1e6 * t['chain_step_ms']:.1f} "
               f"ns a step)  byte bound "
@@ -3093,6 +3184,9 @@ STEP_CASES = [("slice", 3, None, None), ("slice", 15, None, None),
     for masks in (False, True)]
 # slice updates per lane (rslice's default)
 STEP_NSTEPS = 5
+# the kernels' calls at the bench drives' shapes, timed device-only in
+# phase 34: {(kernel, shape, dtype): call}
+_BENCH_CALLS = {}
 STEP_LOGLSTAR = 0.25
 
 # --------------------------------------------------------------------------
@@ -3115,22 +3209,36 @@ ASSEMBLE_CASES = ((2048, 256, "batch", "thin"), (2048, 256, "batch",
                   (64, 1, "batch", "thin"),
                   (2048, 256, "batch", "none"),
                   (2048, 256, "batch", "one_slot"))
+# the bench drives' rounds: (nlive, q, mode, path, dtype, ndim): the
+# headline's (500, 250) in 25-D in float32 and float64, heavy's (3000,
+# 256) in float32
+ASSEMBLE_BENCH = ((HL_NLIVE, HL_LANES, "batch", "thin", torch.float32,
+                   HL_NDIM),
+                  (HL_NLIVE, HL_LANES, "batch", "general", torch.float32,
+                   HL_NDIM),
+                  (HL_NLIVE, HL_LANES, "batch", "mixed", torch.float32,
+                   HL_NDIM),
+                  (HL_NLIVE, HL_LANES, "batch", "thin", torch.float64,
+                   HL_NDIM),
+                  (H_NLIVE, H_QUEUE, "batch", "thin", torch.float32, NDIM))
 ASSEMBLE_ROUNDS = 3
 # the paths of three rounds on one set of buffers
 ASSEMBLE_SEQUENCE = ("thin", "none", "one_slot")
 
 
-def assemble_inputs(nlive, q, mode, path):
-    """``consume_state``'s live matrix and proposals on the card, the
-    consume kernel's columns for them, and the round's it0, birth and
-    threshold."""
-    live, prop = consume_state(nlive, q)
+def assemble_inputs(nlive, q, mode, path, dtype=torch.float64,
+                    ndim=C_NDIM):
+    """``consume_state``'s live matrix and proposals (``ndim`` dimensions)
+    on the card in ``dtype``, the consume kernel's columns for them, and
+    the round's it0, birth and threshold."""
+    il = 2 * ndim
+    live, prop = consume_state(nlive, q, ndim=ndim)
     if path == "mixed":
         rs = np.random.Generator(np.random.PCG64(SEED + 1))
-        prop[:, C_IL] = np.sort(live[:, C_IL])[q - 1] + rs.normal(size=q)
-    live_t = torch.as_tensor(live, device="cuda")
-    prop_t = torch.as_tensor(prop, device="cuda")
-    f = torch.zeros((), dtype=torch.float64, device="cuda")
+        prop[:, il] = np.sort(live[:, il])[q - 1] + rs.normal(size=q)
+    live_t = torch.as_tensor(live, dtype=dtype, device="cuda")
+    prop_t = torch.as_tensor(prop, dtype=dtype, device="cuda")
+    f = torch.zeros((), dtype=dtype, device="cuda")
     i = torch.zeros((), dtype=torch.int64, device="cuda")
     b = torch.zeros((), dtype=torch.bool, device="cuda")
     st = {k: (f - 1e30 if k in ("logz", "loglstar") else f)
@@ -3138,15 +3246,15 @@ def assemble_inputs(nlive, q, mode, path):
     st.update({k: (b if k in cs.BOOL_KEYS else i) for k in cs.INT_KEYS})
     if path == "replay":
         st["racc"] = i + 5
-    live_logl = live_t[:, C_IL].contiguous()
-    qnc = prop_t[:, C_IL + 1].to(torch.int64)
+    live_logl = live_t[:, il].contiguous()
+    qnc = prop_t[:, il + 1].to(torch.int64)
     sorted_logl, sort_idx = torch.sort(live_logl, stable=True)
     thin = (sort_idx, sorted_logl, torch.ones((), dtype=torch.bool,
                                               device="cuda")) \
         if path in ("thin", "none", "one_slot") else None
     limits = {"dlogz": -math.inf, "logl_max": math.inf,
               "max_accepts": 2 ** 30, "max_nc": 2 ** 30}
-    outs, _ = cs.consume_round(st, live_logl, prop_t[:, C_IL].contiguous(),
+    outs, _ = cs.consume_round(st, live_logl, prop_t[:, il].contiguous(),
                                qnc, limits, batch=mode == "batch",
                                dlv_default=float(np.log1p(1.0 / nlive)),
                                thin=thin)
@@ -3158,7 +3266,7 @@ def assemble_inputs(nlive, q, mode, path):
         outs[2] = torch.ones_like(outs[2])
     thr = sorted_logl[q - 1] if mode == "batch" else live_logl.min()
     birth = thr if path != "replay" else torch.tensor(
-        -3.5, dtype=torch.float64, device="cuda")
+        -3.5, dtype=dtype, device="cuda")
     it0 = torch.tensor(987654, device="cuda")
     return outs, live_t, prop_t, qnc, it0, birth, thr
 
@@ -3182,24 +3290,26 @@ def assemble_bytes(outs, last, nlive, q, il, fsize=8):
     return by
 
 
-def assemble_case(nlive, q, mode, path):
+def assemble_case(nlive, q, mode, path, dtype=torch.float64,
+                  ndim=C_NDIM):
     """The kernels against ``round_assemble_plain`` on the same CUDA
     tensors (the plain version writing the same buffers), every output
     bit for bit, and both timed; the byte bound from this case's data."""
-    outs, live, prop, qnc, it0, birth, thr = assemble_inputs(nlive, q, mode,
-                                                             path)
+    outs, live, prop, qnc, it0, birth, thr = assemble_inputs(
+        nlive, q, mode, path, dtype, ndim)
     ridx = torch.tensor(1, device="cuda")
-    lane = prop[:, C_IL + 2:]
+    il, fsize = 2 * ndim, torch.finfo(dtype).bits // 8
+    lane = prop[:, il + 2:]
     res = {}
     for name, fn in (("kernel", cs.round_assemble),
                      ("plain", cs.round_assemble_plain_into)):
-        out = cs.assemble_buffers(ASSEMBLE_ROUNDS, q, nlive, C_NDIM, C_NPDIM,
-                                  torch.float64, "cuda")
+        out = cs.assemble_buffers(ASSEMBLE_ROUNDS, q, nlive, ndim, ndim,
+                                  dtype, "cuda")
         for t in out.values():
             t.zero_()
         lv = live.clone()
         fn(outs, lv, prop, qnc, lane, it0, birth, thr, out, ridx,
-           ndim=C_NDIM)
+           ndim=ndim)
         torch.cuda.synchronize()
         out.pop("entry_it")
         res[name] = dict(out, live=lv)
@@ -3213,6 +3323,7 @@ def assemble_case(nlive, q, mode, path):
                 d = np.abs(a - b)
             err = max(err, float(np.nanmax(d)) if d.size else 0.0)
     rec = {"nlive": nlive, "q": q, "mode": mode, "path": path,
+           "dtype": str(dtype).split(".")[-1], "ndim": ndim,
            "same": same, "max_abs_err": err,
            "accepted": int(outs[2].sum()),
            "from_originals": int((outs[1] < 0).sum()),
@@ -3220,13 +3331,13 @@ def assemble_case(nlive, q, mode, path):
     if not all(same.values()):
         raise RuntimeError(f"round_assemble differs from its plain version: "
                            f"{rec}")
-    out = cs.assemble_buffers(ASSEMBLE_ROUNDS, q, nlive, C_NDIM, C_NPDIM,
-                              torch.float64, "cuda")
+    out = cs.assemble_buffers(ASSEMBLE_ROUNDS, q, nlive, ndim, ndim,
+                              dtype, "cuda")
     lv = live.clone()
 
     def call(fn):
         return lambda: fn(outs, lv, prop, qnc, lane, it0, birth, thr, out,
-                          ridx, ndim=C_NDIM)
+                          ridx, ndim=ndim)
 
     n0 = cs.round_assemble.launches
     rec["ms"] = _time_ms(call(cs.round_assemble), 50)
@@ -3238,7 +3349,7 @@ def assemble_case(nlive, q, mode, path):
     rec["plain_ms"] = _time_ms(call(cs.round_assemble_plain_into), 5)
     cs.round_assemble.launches = n0
     rec["bytes"] = assemble_bytes(outs, res["kernel"]["last"], nlive, q,
-                                  C_IL)
+                                  il, fsize)
     rec["bound_ms"] = 1e3 * rec["bytes"] / HBM_BYTES
     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
     return rec
@@ -3367,10 +3478,11 @@ def round_assemble_phase(card):
     scan's main shapes, on a replay round and the edge cases, then three
     rounds on one set of buffers eagerly and replayed; one line each."""
     cases = []
-    for nlive, q, mode, path in ASSEMBLE_CASES:
-        rec = assemble_case(nlive, q, mode, path)
+    for nlive, q, mode, path, *bench in ASSEMBLE_CASES + ASSEMBLE_BENCH:
+        rec = assemble_case(nlive, q, mode, path, *bench)
         cases.append(rec)
-        print(f"round_assemble ({nlive}, {q}) {mode} {path}: bit-identical "
+        print(f"round_assemble ({nlive}, {q}) {mode} {path} {rec['dtype']} "
+              f"{rec['ndim']}-D: bit-identical "
               f"{sum(rec['same'].values())}/{len(rec['same'])} outputs "
               f"({rec['accepted']} accepted, {rec['from_originals']} dead "
               f"originals, {rec['refilled']} slots refilled)  max_abs_err "
@@ -3744,7 +3856,8 @@ def _cuda_t(a, dtype):
     return torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
 
 
-def step_slice_state(q, ndim, npdim, dtype, seed=SEED):
+def step_slice_state(q, ndim, npdim, dtype, seed=SEED,
+                     n_steps=STEP_NSTEPS):
     """A hand-made state machine state and one iteration's inputs on the
     card: every phase, lanes done, intervals on both sides of 0, exp
     counts at the warning's 1000, likelihood values above, below and at
@@ -3754,8 +3867,8 @@ def step_slice_state(q, ndim, npdim, dtype, seed=SEED):
     i64 = torch.int64
     choice = [-math.inf, -1.0, STEP_LOGLSTAR, 1.0]
     st = {
-        "s": _cuda_t(np.where(lane % 7 == 6, STEP_NSTEPS,
-                              (lane // 5) % STEP_NSTEPS), i64),
+        "s": _cuda_t(np.where(lane % 7 == 6, n_steps,
+                              (lane // 5) % n_steps), i64),
         "phase": _cuda_t(lane % 5, i64),
         "left": _cuda_t(-rs.random(q) * 2.0, dtype),
         "right": _cuda_t(rs.random(q) * 2.0, dtype),
@@ -3775,7 +3888,7 @@ def step_slice_state(q, ndim, npdim, dtype, seed=SEED):
     inp = {
         "u_sh": _cuda_t(rs.random(q), dtype),
         "u_r0": _cuda_t(rs.random(q), dtype),
-        "directions": _cuda_t(rs.normal(size=(q, STEP_NSTEPS, ndim)) * 0.3,
+        "directions": _cuda_t(rs.normal(size=(q, n_steps, ndim)) * 0.3,
                               dtype),
         "logl_x": _cuda_t(rs.choice([-math.inf, -2.0, STEP_LOGLSTAR, 0.5,
                                      3.0, math.inf], size=q), dtype),
@@ -3875,12 +3988,12 @@ def step_slice_round(st, inp):
     return rb
 
 
-def slice_step_cases(ndim, dtype):
+def slice_step_cases(ndim, dtype, q=STEP_Q, n=STEP_NSTEPS):
     """``slice_propose`` and ``slice_advance`` against their plain
-    versions on one hand-made state; returns their records and the
-    kernels' calls at these inputs."""
-    q, npdim, n = STEP_Q, ndim, STEP_NSTEPS
-    st, inp = step_slice_state(q, ndim, npdim, dtype)
+    versions on one hand-made state of ``q`` lanes and ``n`` slices;
+    returns their records and the kernels' calls at these inputs."""
+    npdim = ndim
+    st, inp = step_slice_state(q, ndim, npdim, dtype, n_steps=n)
     tb = torch.finfo(dtype).bits // 8
     args = (inp["u_sh"], inp["directions"], inp["strict"])
     rb_p = step_slice_round(st, inp)
@@ -4063,6 +4176,13 @@ def proposal_steps_phase(card):
                     ("slice", NDIM, None, None),
                     ("rwalk", R_NDIM, R_NDIM, False)):
                 main_calls.update(calls)
+    # the headline's shape: 250 lanes, 25 slices in 25 dimensions
+    for dtype in (torch.float64, torch.float32):
+        recs, calls = slice_step_cases(HL_NDIM, dtype, q=HL_LANES,
+                                       n=HL_SLICES)
+        cases += recs
+        for name, fn in calls.items():
+            _BENCH_CALLS[(name, (HL_LANES, HL_NDIM), dtype)] = fn
     for c in cases:
         shares = "  ".join(f"{k} {i}/{n}" for k, (i, n) in
                            c["outputs"].items())
@@ -4427,7 +4547,7 @@ FRIENDS_NLIVE = 2048
 FRIENDS_CASES = ((FRIENDS_NLIVE, 3), (16384, 3), (FRIENDS_NLIVE, 15))
 UNIF_CASES = [("cube", 3, 3, STEP_Q), ("ellipsoids", 3, 3, STEP_Q),
               ("balls", 3, 3, STEP_Q), ("ellipsoids", 4, 3, 32),
-              ("cube", 3, 3, 700)]
+              ("cube", 3, 3, 700), ("cube", HL_NDIM, HL_NDIM, HL_LANES)]
 
 
 def unif_arrays(kind, ncdim, dtype, seed=SEED, nctrs=FRIENDS_NLIVE):
@@ -4495,14 +4615,17 @@ def unif_wave_round(kind, q, ndim, ncdim, dtype, situation):
     carried)."""
     rs = np.random.Generator(np.random.PCG64(SEED + q + ndim))
     arrays = unif_arrays(kind, ncdim, dtype)
-    strict = torch.tensor([True, False, True][:ncdim])
+    # every third dimension loose; in many dimensions the candidates'
+    # spread past the cube narrowed, so that a share stays in it
+    strict = torch.tensor([i % 3 != 1 for i in range(ncdim)])
+    pad = 0.1 if ncdim <= 3 else 0.3 / ncdim
     rb = _unif_round(kind, q, ndim, ncdim, dtype, strict, arrays)
     rb.start(STEP_LOGLSTAR, arrays, 1 << 30)
     filled = q - 2 if situation == "overflow" else q // 3
     rb.state.copy_(torch.tensor([filled, 3, 40, 3 * q, 7, q - 9, 1 << 30]))
     m = rb.m
     above = situation == "overflow"
-    uc = rs.uniform(-0.1, 1.1, (q, ncdim))
+    uc = rs.uniform(-pad, 1.0 + pad, (q, ncdim))
     if m:
         near = np.arange(q) % 2 == 0
         ctrs = arrays["ctrs"].cpu().numpy()
@@ -4989,6 +5112,9 @@ def unif_kernels_phase(card):
             cases += recs
             if ncase == UNIF_CASES[0] and dtype == torch.float64:
                 main_calls = calls
+            if ncase[1:] == (HL_NDIM, HL_NDIM, HL_LANES):
+                for name, fn in calls.items():
+                    _BENCH_CALLS[(name, (HL_LANES, HL_NDIM), dtype)] = fn
     for dtype in (torch.float64, torch.float32):
         cases += unif_union_cases(dtype)
         cases.append(unif_threshold_case(dtype))
@@ -5016,6 +5142,15 @@ def unif_kernels_phase(card):
           f"{sum(c['identical'] for c in cases)}/"
           f"{sum(c['total'] for c in cases)}  [{card}]")
     return cases, main_calls
+
+
+def bench_case(cases, name, shape, dtype):
+    """The record of kernel ``name`` at a bench drive's ``shape`` in
+    ``dtype`` (a wave's at the overflow state)."""
+    return next(c for c in cases if c["kernel"] == name and
+                tuple(c["shape"]) == tuple(shape) and
+                c["dtype"] == str(dtype).split(".")[-1] and
+                c.get("situation", "overflow") == "overflow")
 
 
 def main_unif(cases, name):
@@ -6298,6 +6433,250 @@ def beta_prior_drive(dyt, hk, card, keep):
     return s, waves[-1]
 
 
+# --------------------------------------------------------------------------
+# the JAX package's own bench configurations at its own precision
+# (float32: bench.py never turns x64 on)
+
+HL_KW = dict(nlive=HL_NLIVE, bound="single", sample="rslice",
+             slices=HL_SLICES, queue_size=HL_QUEUE,
+             rounds_per_dispatch=HL_ROUNDS, ndim=HL_NDIM, truth=HL_TRUTH)
+# the JAX package's float32 run of these configurations on its TPU
+# (BENCH_r05.json): its counts only, never its times; the record holds
+# no niter
+JAX_F32 = {"headline": {"ncall": 2326859, "niter": None, "logz": -75.04,
+                        "logzerr": 0.52},
+           "heavy": {"ncall": 125317, "niter": None, "logz": -9.001,
+                     "logzerr": 0.225}}
+# the kernels each bench drive must launch (counted from zero just before
+# it, read just after)
+BENCH_KERNELS = {
+    "headline": ("consume", "round_assemble", "slice_propose",
+                 "slice_advance", "unif_valid", "unif_place"),
+    "heavy": ("consume", "round_assemble", "unif_valid", "unif_place",
+              "refit_assign", "refit_fit"),
+    "balls": ("exact", "consume", "round_assemble", "slice_propose",
+              "slice_advance", "unif_valid", "unif_place"),
+    "dynamic3": ("consume", "round_assemble", "unif_valid", "unif_place",
+                 "refit_assign", "refit_fit")}
+_HEADLINE = {}
+
+
+def _headline_setup():
+    cov = np.identity(HL_NDIM)
+    cov[cov == 0] = HL_RHO
+    for dtype in (torch.float64, torch.float32):
+        _HEADLINE[dtype] = torch.as_tensor(np.linalg.inv(cov), dtype=dtype,
+                                           device="cuda")
+    _HEADLINE["lnorm"] = float(-0.5 * (np.log(2 * np.pi) * HL_NDIM +
+                                       np.log(np.linalg.det(cov))))
+
+
+def headline_loglike(x):
+    """bench.py's headline likelihood in its order (``x . (C^-1 x)``), the
+    precision matrix in the points' dtype: float32 in a float32 run, as
+    bench.py's under JAX without x64."""
+    return -0.5 * (x @ (_HEADLINE[x.dtype] @ x)) + _HEADLINE["lnorm"]
+
+
+def float64_tensors(sampler):
+    """The floating tensors of dtype float64 that a sampler and its inner
+    sampler hold (their round caches and buffers, four levels deep): a
+    float32 run must hold none, as nothing of it may widen."""
+    found = []
+
+    def walk(obj, path, depth):
+        if isinstance(obj, torch.Tensor):
+            if obj.dtype == torch.float64:
+                found.append(path)
+        elif depth < 4 and isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, f"{path}[{k!r}]", depth + 1)
+        elif depth < 4 and isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(v, f"{path}[{i}]", depth + 1)
+        elif depth < 4 and type(obj).__module__.startswith(
+                "dynesty_tpu_torch") and hasattr(obj, "__dict__"):
+            for k, v in vars(obj).items():
+                walk(v, f"{path}.{k}", depth + 1)
+
+    walk(sampler, "sampler", 0)
+    walk(sampler.internal_sampler, "inner", 0)
+    return found
+
+
+def _bench_checks(sampler, s, what, dtype, kernels):
+    """A bench drive's checks beyond its gate: the run's dtype held by
+    the sampler, its likelihood and every tensor it keeps (float32: none
+    in float64), and every kernel of its path launched."""
+    wide = float64_tensors(sampler) if dtype == torch.float32 else []
+    idle = [k for k in kernels if s["launches"][k] < 1]
+    s["dtype"] = str(dtype).split(".")[-1]
+    if sampler.dtype != dtype or sampler.loglikelihood.dtype != dtype or \
+            wide or idle:
+        raise RuntimeError(f"{what} ran {sampler.dtype} (float64 tensors "
+                           f"{wide[:8]}) or never launched {idle}: {s}")
+
+
+def _jax_ratio(s, row):
+    """The drive's ncall and niter over the JAX package's float32 run's
+    (``JAX_F32``; a count, not a time; None where the record has none)."""
+    ref = JAX_F32[row]
+    s["jax_f32"] = dict(ref, **{
+        f"{k}_ratio": None if ref[k] is None else s[k] / ref[k]
+        for k in ("ncall", "niter")})
+    return s["jax_f32"]
+
+
+def headline_drive(dyt, hk, dtype, card, maxiter=None):
+    """bench.py's headline with ``dtype`` on the card, counts from zero:
+    the evidence gate (4 logzerr of -25 ln 20), the dtype held, and every
+    kernel of its path (the unit-cube phase's waves at (250, 25), the
+    slice steps at (250, 25), consume and assembly at (500, 250))
+    launched.  Returns (summary, sampler)."""
+    name = "headline" + ("-f32" if dtype == torch.float32 else "")
+    _zero_counts(hk)
+    s, sampler = drive(dyt, loglike=headline_loglike, dtype=dtype,
+                       maxiter=maxiter, **HL_KW)
+    if maxiter is not None:
+        return s, sampler
+    s["launches"] = _counts(hk)
+    _bench_checks(sampler, s, name, dtype, BENCH_KERNELS["headline"])
+    if sampler.queue_size != HL_LANES or hk.pairwise_min_dist.launches:
+        raise RuntimeError(f"{name} ran q {sampler.queue_size} with "
+                           f"{hk.pairwise_min_dist.launches} NN launches")
+    _print_drive(f"{name} single/rslice slices {HL_SLICES} nlive "
+                 f"{HL_NLIVE} ndim {HL_NDIM} {s['dtype']}", s,
+                 s["launches"], card)
+    print(f"  {name} timings: {json.dumps(s['timings'])}")
+    if dtype == torch.float32:
+        r = _jax_ratio(s, "headline")
+        print(f"  {name} against the JAX package's float32 run "
+              f"(BENCH_r05.json, counts): ncall {s['ncall']} / "
+              f"{r['ncall']} = {r['ncall_ratio']:.4f}; niter {s['niter']} "
+              f"(the record has none); logz {s['logz']:.3f} +/- "
+              f"{s['logzerr']:.3f} against {r['logz']} +/- {r['logzerr']}")
+    return s, sampler
+
+
+def _same_run(a, b):
+    """Two samplers' results, field by field: equal bit for bit."""
+    ra, rb = a.results, b.results
+    same = {k: bool(np.array_equal(np.asarray(ra[k]), np.asarray(rb[k])))
+            for k in ("logl", "logz", "logzerr", "samples", "ncall")}
+    same["niter"] = ra.niter == rb.niter
+    same["ncall_total"] = a.ncall == b.ncall
+    return same
+
+
+def headline_phase(dyt, hk, card):
+    """Phase 35: the headline in float64 and float32 in turns (f64, f32,
+    f32, f64; each second run equal to the first bit for bit, and both
+    walls and ``dispatch`` printed), then headline-f32 stopped at half
+    its iterations, saved, restored and resumed on the card, equal to the
+    uninterrupted run bit for bit.  Returns the float64 and float32
+    summaries (the first run of each, with the turns and the resume)."""
+    _headline_setup()
+    runs = []
+    for dtype in (torch.float64, torch.float32, torch.float32,
+                  torch.float64):
+        runs.append((dtype,) + headline_drive(dyt, hk, dtype, card))
+    out, turns = {}, []
+    for dtype in (torch.float64, torch.float32):
+        (s, first), (s2, second) = [r[1:] for r in runs if r[0] == dtype]
+        same = _same_run(first, second)
+        if not all(same.values()) or s["launches"] != s2["launches"]:
+            raise RuntimeError(f"headline {dtype} repeated differs: {same}")
+        s["repeat"] = {"wall_s": s2["wall_s"],
+                       "dispatch_s": s2["timings"].get("dispatch"),
+                       "same": same}
+        out[dtype] = (s, first)
+    for dtype, s, _ in runs:
+        turns.append({"dtype": str(dtype).split(".")[-1],
+                      "wall_s": s["wall_s"],
+                      "dispatch_s": s["timings"].get("dispatch")})
+    print("headline in turns (f64, f32, f32, f64): " + "; ".join(
+        f"{t['dtype']} wall {t['wall_s']:.3f} s dispatch "
+        f"{t['dispatch_s']:.3f} s" for t in turns) + f"  [{card}]")
+    s32, full32 = out[torch.float32]
+    _zero_counts(hk)
+    res = resume_drive(dyt, full32, s32["niter"] // 2,
+                       loglike=headline_loglike, dtype=torch.float32, **HL_KW)
+    res["launches"] = _counts(hk)
+    print(f"headline-f32 resume: stopped at {res['niter_first']} of "
+          f"{res['niter']} iterations ({res['wall_first_s']:.2f} s), "
+          f"checkpoint {res['checkpoint_bytes']} bytes, resumed "
+          f"{res['wall_resumed_s']:.2f} s, bit-identical: {res['same']}  "
+          f"[{card}]")
+    out[torch.float64][0]["turns"] = s32["turns"] = turns
+    return out[torch.float64][0], s32, res
+
+
+def heavy_f32_drive(dyt, hk, card):
+    """heavy-f32: phase 7's configuration (nlive 3000, multi/unif, q 256,
+    12 rounds a dispatch) in float32, the Gaussian term's constants in
+    float32 too (``bench.py``'s JAX form without x64), counts from zero:
+    the evidence gate, the dtype held, the wave and refit kernels
+    launched; ncall over the JAX package's float32 run."""
+    like = heavy_loglike(torch.float32)
+    _zero_counts(hk)
+    keep = []
+    s = unif_drive(dyt, like, H_TRUTH, keep=keep, nlive=H_NLIVE,
+                   bound="multi", sample="unif", queue_size=H_QUEUE,
+                   rounds_per_dispatch=H_ROUNDS, dtype=torch.float32)
+    s["launches"] = _counts(hk)
+    _bench_checks(keep[0], s, "heavy-f32", torch.float32,
+                  BENCH_KERNELS["heavy"])
+    if hk.pairwise_min_dist.launches:
+        raise RuntimeError("heavy-f32 launched the friends kernel")
+    _print_unif_drive(f"heavy-f32 multi/unif nlive={H_NLIVE} (width "
+                      f"{H_WIDTH}, depth {H_LAYERS}) float32", s, card)
+    print(f"  heavy-f32 launches {s['launches']}")
+    print(f"  heavy-f32 timings: {json.dumps(s['timings'])}")
+    r = _jax_ratio(s, "heavy")
+    print(f"  heavy-f32 against the JAX package's float32 run "
+          f"(BENCH_r05.json, counts): ncall {s['ncall']} / {r['ncall']} = "
+          f"{r['ncall_ratio']:.4f}; niter {s['niter']} (the record has "
+          f"none); logz {s['logz']:.3f} +/- {s['logzerr']:.3f} against "
+          f"{r['logz']} +/- {r['logzerr']}  [{card}]")
+    return s
+
+
+def balls_f32_drive(dyt, hk, card):
+    """balls-f32: the main drive (nlive 2048, balls/rslice) in float32,
+    counts from zero: the gate, the dtype held, the NN kernel (its input
+    float32 in either dtype) and the slice kernels launched."""
+    _zero_counts(hk)
+    s, sampler = drive(dyt, 2048, "balls", loglike=gauss_loglike32,
+                       dtype=torch.float32)
+    s["launches"] = _counts(hk)
+    _bench_checks(sampler, s, "balls-f32", torch.float32,
+                  BENCH_KERNELS["balls"])
+    _print_drive("balls-f32 balls/rslice nlive=2048 float32", s,
+                 s["launches"], card)
+    print(f"  balls-f32 timings: {json.dumps(s['timings'])}")
+    return s
+
+
+def dynamic3_f32_drive(dyt, hk, card):
+    """dynamic3-f32: ``examples/baseline_suite.py:161-172`` (multi/unif,
+    q 256, every other default, to n_effective 10,000) in float32, counts
+    from zero: the dynamic gate (5 logzerr, n_effective >= 10,000), the
+    dtype held by the base sampler, the wave and refit kernels
+    launched."""
+    _zero_counts(hk)
+    s, dns = dynamic_drive(dyt, {}, loglike=gauss_loglike32, bound="multi",
+                           sample="unif", queue_size=256,
+                           dtype=torch.float32)
+    s["launches"] = _counts(hk)
+    _dyn_gate(dns, s, "dynamic3-f32 drive", neff=DYN_NEFF)
+    _bench_checks(dns.sampler, s, "dynamic3-f32", torch.float32,
+                  BENCH_KERNELS["dynamic3"])
+    if hk.pairwise_min_dist.launches:
+        raise RuntimeError("dynamic3-f32 launched the friends kernel")
+    _print_dynamic("dynamic3-f32", s, card)
+    return s
+
+
 STAY = ("niter", "ncall", "logz", "logzerr")
 
 
@@ -6838,6 +7217,14 @@ def main():
                       "ncall_unrecorded": queueballs["ncall_unrecorded"],
                       "plain_replay": queueballs["plain_replay"]}))
 
+    # phase 35: the JAX package's own bench configurations at its own
+    # precision: the headline in float64 and float32 in turns and the
+    # float32 one resumed, then heavy, balls and dynamic3 in float32
+    headline, headline32, headline_resume = headline_phase(dyt, hk, card)
+    heavy32 = heavy_f32_drive(dyt, hk, card)
+    balls32 = balls_f32_drive(dyt, hk, card)
+    dyn3_32 = dynamic3_f32_drive(dyt, hk, card)
+
     # phase 34: device-only times, last: once a profiler has run, every
     # later launch in the process is slower
     for c, (n, d, p, shift, path) in zip(compares, COMPARES):
@@ -6890,6 +7277,18 @@ def main():
               f"{rec['device_us']:.3f} us  events (through the wrapper) "
               f"{rec['us']:.2f} us  bound {rec['bound_us']:.5f} us  launch "
               f"floor {floor['device_us']:.3f} us  [{card}]")
+    # the slice steps and the cube's wave at the headline's (250, 25)
+    for (name, shape, dtype), fn in _BENCH_CALLS.items():
+        rec = bench_case(steps + unif_cases, name, shape, dtype)
+        rec["device_us"] = 1e3 * _device_ms(
+            fn, only=name if name.startswith("unif") else None)
+        print(f"{'unif wave' if name.startswith('unif') else 'proposal step'}"
+              f" {name} {shape} {rec['dtype']} (the headline's shape) "
+              f"device only: kernel {rec['device_us']:.3f} us  events "
+              f"(through the wrapper) {rec['us']:.2f} us  plain "
+              f"{rec['plain_us']:.1f} us  bound {rec['bound_us']:.5f} us "
+              f"({rec['bound_by']})  launch floor {floor['device_us']:.3f} "
+              f"us  [{card}]")
     for m, fn in _UNION_CALLS.items():
         rec = union_unif(unif_cases, m)
         rec["device_us"] = 1e3 * _device_ms(fn, only="unif_valid")
@@ -7124,7 +7523,10 @@ def main():
               "eggbox-balls": eggballs, "mesh-balls": meshballs,
               "mesh-dynamic3": meshdyn3, "pipeline-resume": piperesume,
               "example-quickstart": example, "uncapturable": uncapturable,
-              "queue-balls": queueballs, "beta-prior": beta_drive}
+              "queue-balls": queueballs, "beta-prior": beta_drive,
+              "headline": headline, "headline-f32": headline32,
+              "headline-f32-resume": headline_resume, "heavy-f32": heavy32,
+              "balls-f32": balls32, "dynamic3-f32": dyn3_32}
     # the Beta kernels only where a Beta prior is
     stray = [k for k, d in drives.items() if k != "beta-prior" and any(
         d["launches"].get(name) for name in BETA_KERNELS)]
@@ -7298,6 +7700,7 @@ def main():
                 "captured_wave": captured_unif["timing"],
                 "heavy_wave_replay_device_ms":
                     heavy["wave_replay_device_ms"],
+                "bench_shapes": bench_shapes(name),
                 **({"ellipsoid_unions": [
                     {k: union_unif(unif_cases, m)[k] for k in (
                         "m", "us", "plain_us", "device_us", "bound_us",
@@ -7315,6 +7718,15 @@ def main():
                         for fkind, frec in cu["friends"].items()},
                     **({"parent_bench": parent_of(name)} if parent else {})}
                    if name == "unif_valid" else {})}
+
+    def bench_shapes(name):
+        """A kernel's records at the headline's (250, 25), both dtypes."""
+        return [{k: c.get(k) for k in (
+            "shape", "dtype", "identical", "total", "us", "device_us",
+            "plain_us", "bound_us", "bound_by")}
+            for c in steps + unif_cases if c["kernel"] == name and
+            tuple(c["shape"]) == (HL_LANES, HL_NDIM) and
+            c.get("situation", "overflow") == "overflow"]
 
     def step_entry(name):
         """A proposal-step kernel's line: its main drive's shape in
@@ -7338,7 +7750,8 @@ def main():
                 "shape": rec["shape"], "dtype": "float64",
                 "device_ms": rec["device_us"] / 1e3,
                 "launch_floor_ms": floor["device_us"] / 1e3,
-                **({"captured_iteration": captured["timing"]} if slice_
+                **({"captured_iteration": captured["timing"],
+                    "bench_shapes": bench_shapes(name)} if slice_
                    else {"captured_walk": {k: rwalk[k] for k in (
                        "rwalk_round_ms", "replay_round_ms",
                        "eager_round_host_ms", "replay_round_host_ms",
@@ -7346,7 +7759,8 @@ def main():
 
     def round_at(nlive, mode, path):
         return next(t for t in consume["times"] if (
-            t["nlive"], t["mode"], t["path"]) == (nlive, mode, path))
+            t["nlive"], t["mode"], t["path"], t["dtype"]) == (
+                nlive, mode, path, "float64"))
 
     # every drive assembled each fused round through the kernel, and on
     # the card replayed every round's prologue and epilogue but the first
@@ -7452,7 +7866,8 @@ def main():
                "blob-resume": blobresume["launches"]["exact"],
                "eggbox-balls": eggballs["launches"]["exact"],
                "mesh-balls": meshballs["launches"]["exact"],
-               "queue-balls": queueballs["launches"]["exact"]}),
+               "queue-balls": queueballs["launches"]["exact"],
+               "balls-f32": balls32["launches"]["exact"]}),
         entry("pairwise_min_dist_linf_exact", MAIN_SHAPE, math.inf, "exact",
               {"cubes": cubes["launches"]["exact"]}),
         entry("pairwise_min_dist_l2_tc", TC_SHAPE, 2, "tc",
@@ -7479,7 +7894,12 @@ def main():
          "general": {k: round_at(2048, "batch", "general")[k] for k in (
              "ms", "device_ms", "plain_ms", "byte_bound_ms",
              "chain_bound_ms", "bound_ms", "bound_by", "bound_share")},
-         "library_ms": None, "shape": [2048, 256], "path": "thin"},
+         "library_ms": None, "shape": [2048, 256], "path": "thin",
+         "bench_rounds": [{k: t[k] for k in (
+             "nlive", "q", "path", "dtype", "resident", "ms", "device_ms",
+             "plain_ms", "byte_bound_ms", "chain_bound_ms", "bound_ms",
+             "bound_share")} for t in consume["times"]
+             if t["dtype"] != "float64" or t["nlive"] == HL_NLIVE]},
     ] + [step_entry(name) for name in STEP_KERNELS] +
         [unif_entry(name) for name in UNIF_KERNELS] +
         [doubling_entry(name) for name in DOUBLING_KERNELS] +
@@ -7510,6 +7930,10 @@ def main():
               "example_quickstart": example,
               "uncapturable": uncapturable,
               "queue_balls": queueballs,
+              "headline": headline, "headline_f32": headline32,
+              "headline_f32_resume": headline_resume,
+              "heavy_f32": heavy32, "balls_f32": balls32,
+              "dynamic3_f32": dyn3_32,
               "consume": consume,
               "consume_by_drive": consume_by_drive,
               "proposal_steps": steps,

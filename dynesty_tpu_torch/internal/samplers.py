@@ -523,6 +523,10 @@ class UnitCubeSampler(InternalSampler):
         drops below min_eff with at least min_ncall calls spent (inputs
         from ctrl[18:21], a device tensor of the live matrix's type)."""
         def gate(integ, counters, ctrl):
+            # the count in the live matrix's type, as the JAX package's:
+            # in a float32 run exact up to 2**24 (16.8 M) calls, past it
+            # the stop may move by a round (bench.py's 25-D headline
+            # spends 2.3 M)
             ncall_now = ctrl[18] + counters["nc_used"].to(
                 integ["logz"].dtype)
             eff = 100.0 * (integ["it"].to(ncall_now.dtype) - 1.0) / \
@@ -587,6 +591,8 @@ class UniformBoundSampler(InternalSampler):
         boundary whose cumulative ncall reaches ctrl[21] (``ctrl`` a device
         tensor of the live matrix's type)."""
         def gate(integ, counters, ctrl):
+            # float32 counts exactly up to 2**24 calls (as the unit-cube
+            # gate above)
             ncall_now = ctrl[18] + counters["nc_used"].to(
                 integ["logz"].dtype)
             return ncall_now >= ctrl[21]

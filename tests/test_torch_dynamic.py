@@ -655,22 +655,26 @@ def test_dynamic_progress_line(monkeypatch):
     assert (short.logz, short.logzvar) == (-np.inf, 0.0)
 
 
-def test_bench_25d_configuration_capped():
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_bench_25d_configuration_capped(dtype):
     """The JAX package's headline bench configuration (25-D correlated
     normal, single/rslice, slices 25, nlive 500, width 256, 24 rounds a
     dispatch), capped with ``maxiter``: the unit-cube phase, the first
-    bound and the first slice rounds run at the full dimension."""
+    bound and the first slice rounds run at the full dimension; in
+    float64 and at the JAX package's own precision, float32 (the
+    likelihood's constants in the run's dtype)."""
     ndim = 25
     cov = np.identity(ndim)
     cov[cov == 0] = 0.4
-    cinv = torch.as_tensor(np.linalg.inv(cov))
+    cinv = torch.as_tensor(np.linalg.inv(cov), dtype=dtype)
     lnorm = -0.5 * (np.log(2 * np.pi) * ndim + np.log(np.linalg.det(cov)))
     s = dyt.NestedSampler(lambda x: -0.5 * (x @ cinv @ x) + lnorm,
                           lambda u: 10.0 * (2.0 * u - 1.0), ndim, nlive=500,
                           bound="single", sample="rslice", slices=25,
                           queue_size=256, rounds_per_dispatch=24,
-                          device="cpu", rstate=get_rstate(SEED))
-    assert s.queue_size == 250
+                          dtype=dtype, device="cpu", rstate=get_rstate(SEED))
+    assert s.queue_size == 250 and s.dtype == dtype
     _quiet(s.run_nested, maxiter=1500, print_progress=False, add_live=False)
     res = s.results
     assert res.niter >= 1500 and s.interrupted_budget
