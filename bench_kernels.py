@@ -70,7 +70,13 @@ kernels' cases to ``GROUPS``.  The groups:
   tree walk's level switch and (2^20,), the vmapped prior of a mixed
   three-Beta table at 256 rows and either side of the switch (device
   only, its ``beta_ppf`` kernels and digest), and of two Beta(2, 5)
-  columns of 2^19 rows (the (2^20,) call's elements as a table).  It
+  columns of 2^19 rows (the (2^20,) call's elements as a table); and
+  ``betainc`` on one element (its chain), at (256,) with the edges and
+  with seeded uniforms only, at the beta-interval drive's call (256
+  lanes of six, a and b per element) and at (2^20,), float64 and
+  float32 (device only and events, with a digest), and the digest of
+  phase 2j's 25-pair sweep at (256,) and (2^20,); and the SASS of the
+  checkout's ``betainc_kernel`` loops (``chip_smoke.betainc_sass``).  It
   runs last, so that a capture that raises follows every other group.
 
 ``--generic-rows`` also times ``unif_valid`` built with its generic row
@@ -693,7 +699,36 @@ def prior_times(cm, torch):
             "device_us": 1e3 * cm._device_ms(lambda: pair(x), 5,
                                              only="beta_ppf_kernel"),
             "events_us": 1e3 * cm._time_ms(lambda: pair(x), 5)})
-    return recs
+        for kind, n, (x, a, b) in betainc_inputs(cm, dtype):
+            inc = lambda: bp.betainc(a, b, x)  # noqa: E731
+            iters = 20 if n <= 4096 else 5
+            recs.append({
+                "kernel": "betainc", "kind": kind, "n": n, "dtype": tag,
+                "digest": _digest(torch, inc()),
+                "device_us": 1e3 * cm._device_ms(inc, iters,
+                                                 only="betainc_kernel"),
+                "events_us": 1e3 * cm._time_ms(inc, iters)})
+        for n in (256, cm.PRIOR_POINTS):
+            x = cm.beta_inputs(n, dtype)
+            recs.append({"kernel": "betainc", "kind": "sweep", "n": n,
+                         "dtype": tag, "digest": _digest(
+                             torch, *(bp.betainc(a, b, x)
+                                      for a, b in cm.BETA_PAIRS))})
+    from dynesty_tpu_torch.ops import build
+    sass = cm.betainc_sass(build.load_library("beta_prior")._name)
+    return recs + [{"kernel": "betainc", "kind": "sass", "dtype": tag,
+                    "loops": sass.get(tag, [])}
+                   for tag in ("float64", "float32")]
+
+
+def betainc_inputs(cm, dtype):
+    """``betainc``'s timed cases, (kind, n, (x, a, b)): one element (the
+    chain: a seeded uniform at Beta(2, 5)), then ``chip_smoke.py``'s
+    (``BETA_TIMED``, ``betainc_case``)."""
+    cases = [(kind, n, cm.betainc_case(kind, n, dtype))
+             for kind, n in cm.BETA_TIMED["betainc"]]
+    x, a, b = cm.betainc_case("interior", 256, dtype)
+    return [("one", 1, (x[-1:].clone(), a, b))] + cases
 
 
 # the case groups, in the order they run: each redesign adds its kernels'

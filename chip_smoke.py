@@ -151,11 +151,24 @@ Phases, in order; any failure raises and exits non-zero:
    (256, 3), one launch a call (its three Betas in one table); the same
    and both kernels called directly, captured in one CUDA graph and
    replayed 20 times, the same bits each time; each kernel's time at
-   Beta(2, 5) (events) at a wave's 256 lanes, ``beta_ppf`` at the
-   grouped drive call's 768 elements, and at 2^20, the plain version's,
-   the chain (the kernel on one element), the operations bound (the
-   plain version's elementwise ops an element at the type's rate) and
-   the byte bound.
+   Beta(2, 5) (events) at a wave's 256 lanes (``betainc`` with the
+   edges and with seeded uniforms only), ``beta_ppf`` at the grouped
+   drive call's 768 elements, ``betainc`` at the beta-interval drive's
+   call (256 lanes of six, a and b per element), and at 2^20, the plain
+   version's, the chain (the kernel on one element), the operations
+   bound (the plain version's elementwise ops an element at the type's
+   rate), the byte bound and ``betainc``'s issue bound (the SASS of its
+   continued fraction's loop, read from this run's library by
+   ``cuobjdump``: the loop's instructions a half-term on the busiest of
+   the fp64 or fp32 pipe, the special-function unit and issue, times
+   the 128 half-terms, ``betainc_sass``), each timed case's output held
+   to the plain version's bit for bit; and the quotients' fast path
+   (``Quot``, a / b and 1 / b, through ``div_check_kernel``) against
+   ``__ddiv_rn`` and ``__fdiv_rn`` bit for bit wherever its operand test
+   passes, on 10^8 random pairs a dtype (bit patterns, exponents over
+   the whole range and over a moderate one) and every pair of special
+   operands (signed zeros, subnormals, the fast range's ends and their
+   neighbours, infinities, NaN).
 3. Drive the main path: ``NestedSampler(nlive=2048, bound='balls',
    sample='rslice')`` on the card's default device, on the 3-D correlated
    Gaussian (rho = 0.95, prior box +-10, seed 56432), with every kernel's
@@ -275,7 +288,15 @@ Phases, in order; any failure raises and exits non-zero:
     ``scipy.integrate.quad``'s, no capture warning, every wave but one
     warm-up a shape replayed, ``beta_ppf`` launched once a prior call on
     the card (its three Betas in one table; replays included), and a
-    captured wave holding one ``beta_ppf`` node.
+    captured wave holding one ``beta_ppf`` node.  27c. beta-interval:
+    ``NestedSampler(interval_loglike, unit_cube, 3, nlive=1000)``, every
+    other argument at its default, float64, the likelihood the
+    probability that a Beta(a_d, b_d) variable falls within 0.01 of
+    theta_d, (a, b) = (20, 30), (5, 5), (30, 20), one ``betainc`` call
+    on six stacked elements a point (``models.priors.betainc``): the
+    evidence within 4 logzerr of ``scipy.integrate.quad``'s, no capture
+    warning, waves replayed, ``betainc`` launched once a likelihood call
+    on the card (replays included) and ``beta_ppf`` never.
 28. mesh-balls: phase 3's drive with ``mesh=make_mesh()`` (the one card):
     equal to phase 3's run bit for bit (niter, ncall, logl, logz,
     samples, scale) with the same launches, every lane of the last
@@ -376,7 +397,8 @@ so each kernel's launches equal the drive's chained ellipsoid rounds
 drive, and phase 34 reads both kernels once in the nodes of a captured
 prologue of the heavy drive.
 Every drive counts the Beta kernels' launches: none but the beta-prior
-drive may launch them, and every captured graph of a proposal loop holds
+drive may launch ``beta_ppf`` and none but the beta-interval drive
+``betainc``, and every captured graph of a proposal loop holds
 ``beta_ppf`` in as many nodes as its capture counted.
 Every drive counts the proposal-step kernels' launches, the state
 machine's iterations (its flag reads less one a round) and the walk's
@@ -3470,6 +3492,11 @@ def parent_times(root, card):
     print(f"output bits equal to the parent's: {bits['equal']}/"
           f"{bits['compared']} cases; differ: {bits['differ']}; a version's "
           f"two runs differ: {bits['runs_differ']}  [{card}]")
+    for name in ("parent", "change"):
+        for r in runs[name][0]:
+            if r.get("kind") == "sass":
+                print(f"beta betainc_kernel SASS {r['dtype']} ({name}): "
+                      f"{_sass_line(r['loops'])}  [{card}]")
     return {"bits": bits, **{k: v[0] for k, v in runs.items()}}
 
 
@@ -5941,15 +5968,41 @@ BETA_SHAPES = (256, PRIOR_POINTS)
 BETA_TABLE = ((4, 2.0, 5.0), (1, 0.5, 0.5), (3, 30.0, 1.0))
 # the drive's three Betas in one table: one beta_ppf launch a prior call
 BETA_DRIVE_LAUNCHES = 1
-# the timed shapes of each kernel: a wave's lanes, beta_ppf's grouped
-# drive call (256 rows of three Betas), the priors phase's points
-BETA_TIMED = {"beta_ppf": (256, 768, PRIOR_POINTS),
-              "betainc": (256, PRIOR_POINTS)}
+# the timed cases of each kernel, (kind, n): a wave's lanes (for betainc
+# with the edges first, and seeded uniforms only), beta_ppf's grouped
+# drive call (256 rows of three Betas), betainc's beta-interval drive
+# call (256 lanes of six elements, a and b per element), the priors
+# phase's points
+BETA_TIMED = {"beta_ppf": (("edges", 256), ("edges", 768),
+                           ("edges", PRIOR_POINTS)),
+              "betainc": (("edges", 256), ("interior", 256),
+                          ("drive", 256 * 6), ("edges", PRIOR_POINTS))}
+# the SASS opcodes of each unit that betainc's issue bound counts: the
+# fp64 and fp32 FMA pipes and the special-function unit; and the card's
+# rate of each in thread-instructions a second (an FMA pipe: half its
+# rate in operations; the SFU: 16 results a clock an SM, an eighth of
+# the fp32 pipe's 128; issue: four warp schedulers an SM, one
+# instruction a clock each, the fp32 pipe's rate)
+SASS_UNITS = {"fp64": (("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"),
+                       FP64_FLOPS / 2),
+              "fp32": (("FFMA", "FMUL", "FADD"), FP32_FLOPS / 2),
+              "mufu": (("MUFU",), FP32_FLOPS / 16)}
+SASS_ISSUE_RATE = FP32_FLOPS / 2
+# the continued fraction's half-terms (64 terms of two)
+BETAINC_HALF_TERMS = 128
+# the division check: random pairs a dtype, in chunks
+DIV_CHECK_PAIRS, DIV_CHECK_CHUNK = 10 ** 8, 1 << 25
 # the beta-prior drive: Beta(2, 5), Beta(0.5, 0.5), Beta(5, 2) under a
 # product of Gaussians of these means and this width, nlive 2048, every
 # other argument at its default (multi / unif, bootstrap 5, q 256)
 BETA_DRIVE_AB = ((2.0, 5.0), (0.5, 0.5), (5.0, 2.0))
 BETA_MU, BETA_SIGMA, BETA_NLIVE = (0.25, 0.5, 0.75), 0.02, 2048
+# the beta-interval drive: log P(|X_d - theta_d| <= W) summed over three
+# Betas X_d, theta on the unit cube, nlive 1000, every other argument at
+# its default (multi / unif, bootstrap 5, q 256); the floor keeps logL
+# finite where both CDFs round to 1 (a Beta's far upper tail)
+INTERVAL_AB = ((20.0, 30.0), (5.0, 5.0), (30.0, 20.0))
+INTERVAL_W, INTERVAL_FLOOR, INTERVAL_NLIVE = 0.01, 1e-300, 1000
 # the card's peak rate for each type's operations
 _RATE = {torch.float64: FP64_FLOPS, torch.float32: FP32_FLOPS}
 
@@ -5989,6 +6042,19 @@ def beta_inputs(n, dtype, seed=SEED):
     u = np.random.Generator(np.random.PCG64(seed)).random(n)
     u[:len(BETA_EDGES) * k] = np.repeat(BETA_EDGES, k)
     return torch.as_tensor(u, dtype=dtype, device="cuda")
+
+
+def interval_inputs(lanes, dtype, seed=SEED):
+    """The beta-interval drive's betainc call on ``lanes`` seeded points
+    of the unit cube: x = (min(theta + W, 1), max(theta - W, 0)) a lane,
+    flattened to (lanes * 6,), with a and b per element."""
+    theta = torch.as_tensor(np.random.Generator(np.random.PCG64(
+        seed)).random((lanes, len(INTERVAL_AB))), dtype=dtype, device="cuda")
+    x = torch.cat([torch.clamp(theta + INTERVAL_W, max=1.0),
+                   torch.clamp(theta - INTERVAL_W, min=0.0)], 1)
+    a, b = (torch.tensor([ab[i] for ab in INTERVAL_AB] * 2, dtype=dtype,
+                         device="cuda").repeat(lanes) for i in (0, 1))
+    return x.reshape(-1), a, b
 
 
 def _same_or_nan(a, b):
@@ -6033,6 +6099,103 @@ def plain_ops_per_element(fn, n):
     with Count():
         fn()
     return Count.ops / n
+
+
+def _sass_loop(body, dtype):
+    """A loop's SASS ``body`` (instructions without their addresses):
+    its instructions, those of each unit (``SASS_UNITS``), its division
+    fast paths (one ``MUFU.RCP64H`` in float64, ``MUFU.RCP`` in float32,
+    each), slow-path calls, ``FCHK`` tests and predicated branches, and
+    its straight-line blocks (cut at each branch and call) with the most
+    fast paths in one: two divisions overlap only within a block."""
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", s).split()[0] for s in body]
+    rcp = "MUFU.RCP64H" if dtype == "float64" else "MUFU.RCP"
+    blocks, cur = [], 0
+    for op in ops:
+        cur += op == rcp
+        if op.split(".")[0] in ("BRA", "CALL", "RET", "EXIT", "BRX"):
+            blocks.append(cur)
+            cur = 0
+    rec = {"instructions": len(ops), "fast_paths": ops.count(rcp),
+           "calls": sum(op.startswith("CALL") for op in ops),
+           "fchk": sum(op.startswith("FCHK") for op in ops),
+           "predicated_branches": sum(s.startswith("@") and op == "BRA"
+                                      for s, op in zip(body, ops)),
+           "blocks": len(blocks) + (cur > 0),
+           "most_fast_paths_in_a_block": max(blocks + [cur])}
+    for unit, (names, _) in SASS_UNITS.items():
+        rec[unit] = sum(op.split(".")[0] in names for op in ops)
+    return rec
+
+
+def betainc_sass(lib):
+    """What ptxas made of ``betainc_kernel``'s continued fraction, read
+    with ``cuobjdump -sass`` (the toolkit's, beside ``nvcc``) from the
+    built library ``lib``: ``{dtype: [loop, ...]}``, every loop of the
+    kernel (a backward branch's span, ``_sass_loop``) in address order.
+    A loop with fast paths and no call is the pipelined fraction (three
+    quotients a half-term); the serial one calls the slow-path routine."""
+    from dynesty_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
+    out = {}
+    for name, insns in funcs.items():
+        m = re.search(r"betainc_kernelI([df])E", name)
+        if not m:
+            continue
+        dtype = "float64" if m.group(1) == "d" else "float32"
+        at = {a: i for i, (a, _) in enumerate(insns)}
+        out[dtype] = [
+            {"first": f"{t:#x}", **_sass_loop(
+                [x for _, x in insns[at[t]:end + 1]], dtype)}
+            for end, (a, s) in enumerate(insns)
+            for m in [re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", s)]
+            if m for t in [int(m.group(1), 16)] if t < a and t in at]
+    return out
+
+
+def _sass_line(loops):
+    """``betainc_sass``'s loops of one kernel, for a line."""
+    return "; ".join(
+        f"loop at {r['first']}: {r['instructions']} instructions (fp64 "
+        f"{r['fp64']}, fp32 {r['fp32']}, MUFU {r['mufu']}), "
+        f"{r['fast_paths']} division fast paths, {r['calls']} CALL, "
+        f"{r['fchk']} FCHK, {r['predicated_branches']} predicated "
+        f"branches, {r['blocks']} blocks, at most "
+        f"{r['most_fast_paths_in_a_block']} fast paths a block"
+        for r in loops)
+
+
+def betainc_issue(loops):
+    """The least time an element of ``betainc_kernel`` takes to issue,
+    from its pipelined loop's SASS (``betainc_sass``; the loop with fast
+    paths and no call, three a half-term): the 128 half-terms' work on the
+    busiest of its units and of issue, each at its rate; the prologue
+    and a serial rerun left out, so a floor.  ``(seconds an element,
+    the busiest, instructions a half-term by unit)``."""
+    loop = max((r for r in loops if r["fast_paths"] and not r["calls"]),
+               key=lambda r: r["fast_paths"], default=None)
+    if loop is None or loop["fast_paths"] % 3:
+        raise RuntimeError(f"no pipelined loop in betainc's SASS: {loops}")
+    halves = loop["fast_paths"] // 3
+    per = {u: loop[u] / halves for u in SASS_UNITS}
+    per["issue"] = loop["instructions"] / halves
+    rate = {u: r for u, (_, r) in SASS_UNITS.items()}
+    rate["issue"] = SASS_ISSUE_RATE
+    secs = {u: BETAINC_HALF_TERMS * per[u] / rate[u] for u in per}
+    by = max(secs, key=secs.get)
+    return secs[by], by, per
 
 
 def beta_bounds(ops, n, dtype, tensors=2):
@@ -6113,6 +6276,103 @@ def beta_table_case(rows, dtype):
                                                          vmapped[1])}
 
 
+def _beta_what(r):
+    """A timed case's inputs, for its line."""
+    return {"edges": "Beta(2, 5)", "interior": "Beta(2, 5), seeded "
+            "uniforms only", "drive": "beta-interval's call (a lane's six "
+            "elements, a and b per element)"}[r.get("kind", "edges")]
+
+
+def _div_specials(dtype):
+    """Operands of every class the quotients' fast path must hold to the
+    intrinsic: signed zeros, subnormals, the smallest and largest normals,
+    infinities, NaN, ordinary values, and each end of the fast range with
+    its neighbours (``csrc/beta_prior.cu``'s ``Quot``: [2^-500, 2^500) in
+    float64, [2^-60, 2^61) in float32; and in float64 the ends of ptxas's
+    own test, |a| 2^-967, |q| 2^-1022, |b| 2^1017)."""
+    fi = torch.finfo(dtype)
+    ends = (2.0 ** -500, 2.0 ** 500, 2.0 ** -967, 2.0 ** -1022,
+            2.0 ** 1017, 2.0 ** 250, 2.0 ** -250) \
+        if dtype == torch.float64 else \
+        (2.0 ** -60, 2.0 ** 61, 2.0 ** 30, 2.0 ** -30, 2.0 ** -126)
+    base = torch.tensor([math.nan, 0.0, fi.tiny / 2 ** 10, fi.tiny / 2,
+                         fi.tiny, fi.max, math.inf, 1.0, 3.0, 1.0 / 3.0,
+                         0.7, 1.9999999] + list(ends), dtype=dtype)
+    up = torch.nextafter(base, torch.tensor(math.inf, dtype=dtype))
+    down = torch.nextafter(base, torch.tensor(-math.inf, dtype=dtype))
+    vals = torch.cat([base, up[1:], down[1:]])
+    return torch.cat([vals, -vals[1:]])
+
+
+def beta_div_check(dtype, card):
+    """The quotients' fast path (``Quot``: a / b and 1 / b, through
+    ``div_check_kernel``) against the intrinsic bit for bit wherever its
+    operand test passes (elsewhere the kernels discard it and divide
+    serially): ``DIV_CHECK_PAIRS`` random pairs (a quarter random bit
+    patterns, a quarter with exponents over the type's whole range, half
+    with exponents in [-30, 30], random signs) and every pair of
+    ``_div_specials``."""
+    f = bp._entry("div_check", dtype)
+    tag, ints = (("f64", torch.int64) if dtype == torch.float64 else
+                 ("f32", torch.int32))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    emax = 1024 if dtype == torch.float64 else 128
+    counts = {"pairs": 0, "quotients": 0, "fast": 0, "differ": 0}
+    worst = []
+
+    def run(num, den):
+        n = num.numel()
+        out = torch.empty(2 * n, dtype=dtype, device="cuda")
+        ref = torch.empty_like(out)
+        fast = torch.empty(2 * n, dtype=torch.bool, device="cuda")
+        if f(num.data_ptr(), den.data_ptr(), out.data_ptr(), ref.data_ptr(),
+             fast.data_ptr(), n, stream):
+            raise RuntimeError("div_check launch refused")
+        diff = fast & (out.view(ints) != ref.view(ints))
+        counts["pairs"] += n
+        counts["quotients"] += 2 * n
+        counts["fast"] += int(fast.sum())
+        counts["differ"] += int(diff.sum())
+        if diff.any() and len(worst) < 8:
+            i = diff.nonzero()[:8 - len(worst), 0]
+            one = torch.ones_like(num)
+            worst.extend(zip(torch.cat([num, one])[i].tolist(),
+                             torch.cat([den, den])[i].tolist(),
+                             out[i].tolist(), ref[i].tolist()))
+
+    def draw(m, kind):
+        if kind == "bits":
+            bits = torch.randint(-2 ** 62, 2 ** 62, (m,), device="cuda",
+                                 generator=g, dtype=torch.int64)
+            if dtype == torch.float64:
+                return (bits * 2).view(torch.float64)
+            return bits.to(torch.int32).view(torch.float32)
+        lo = -emax + 2 if kind == "wide" else -30
+        e = torch.randint(lo, -lo, (m,), device="cuda", generator=g)
+        sign = torch.randint(0, 2, (m,), device="cuda", generator=g) * 2 - 1
+        mant = 1.0 + torch.rand(m, device="cuda", generator=g,
+                                dtype=torch.float64)
+        return (sign * mant * torch.exp2(e.double())).to(dtype)
+
+    for c in range(-(-DIV_CHECK_PAIRS // DIV_CHECK_CHUNK)):
+        kind = ("bits", "wide", "moderate", "moderate")[c % 4]
+        run(draw(DIV_CHECK_CHUNK, kind), draw(DIV_CHECK_CHUNK, kind))
+    sp = _div_specials(dtype).cuda()
+    a, b = (t.reshape(-1) for t in torch.meshgrid(sp, sp, indexing="ij"))
+    run(a.contiguous(), b.contiguous())
+    rec = {"dtype": str(dtype).split(".")[1], "specials": len(sp),
+           **counts, "examples": worst}
+    print(f"beta quotients' fast path {tag} (Quot, div_check_kernel) "
+          f"against {'__ddiv_rn' if tag == 'f64' else '__fdiv_rn'}: "
+          f"{rec['pairs']} pairs ({len(sp)} special operands, every pair), "
+          f"a / b and 1 / b: {rec['fast']} of {rec['quotients']} quotients "
+          f"passed the operand test, {rec['differ']} of them differ  "
+          f"[{card}]")
+    return rec
+
+
 def beta_level_sweep(card):
     """``beta_ppf``'s time (CUDA events, back to back) at Beta(2, 5), 50
     steps, for every level count of the walk (1 to 5) at element counts
@@ -6165,24 +6425,47 @@ def beta_level_sweep(card):
 _BETA_OPS = {}
 
 
-def beta_timed(name, n, dtype, floor_us):
-    """The drive's Beta(2, 5) at (n,): the kernel's events ms (back to
-    back), the plain version's (one call; ``betainc``'s three), the
-    plain version's operations an element, the bounds; and the calls that
-    phase 34 times device only (the kernel, and its one-thread chain: the
-    kernel on one element)."""
-    u = beta_inputs(n, dtype)
-    one = u[-1:].clone()  # a seeded uniform, not an edge
+def betainc_case(kind, n, dtype):
+    """``betainc``'s timed inputs (x, a, b): the drive's Beta(2, 5) as 0-d
+    a and b over phase 2j's inputs (the edges first) or over seeded
+    uniforms alone (``interior``), or the beta-interval drive's call
+    (``drive``: its six elements a lane, a and b per element)."""
+    if kind == "drive":
+        return interval_inputs(n // 6, dtype)
+    x = beta_inputs(n, dtype) if kind == "edges" else torch.as_tensor(
+        np.random.Generator(np.random.PCG64(SEED)).random(n), dtype=dtype,
+        device="cuda")
+    return (x,) + tuple(torch.full((), v, dtype=dtype, device="cuda")
+                        for v in (2.0, 5.0))
+
+
+def beta_timed(name, kind, n, dtype, floor_us, sass):
+    """A kernel's timed case at (n,): the drive's Beta(2, 5) (``betainc``
+    also the beta-interval drive's call, ``betainc_case``): the kernel's
+    output and its one-element chain's against the plain version's, bit
+    for bit; the kernel's events ms (back to back), the plain version's
+    (one call; ``betainc``'s three), the plain version's operations an
+    element, the bounds (``betainc``'s issue bound too, from ``sass``,
+    ``betainc_issue``); and the calls that phase 34 times device only
+    (the kernel, and its one-thread chain: the kernel on one element)."""
     if name == "beta_ppf":
+        u = beta_inputs(n, dtype)
+        one = u[-1:].clone()  # a seeded uniform, not an edge
         call = lambda: bp.beta_ppf(u, 2.0, 5.0)  # noqa: E731
         chain = lambda: bp.beta_ppf(one, 2.0, 5.0)  # noqa: E731
         plain = lambda: bp.beta_ppf_plain(u, 2.0, 5.0)  # noqa: E731
         plain_ms = _once_ms(plain)
     else:
-        call = lambda: bp.betainc(2.0, 5.0, u)  # noqa: E731
-        chain = lambda: bp.betainc(2.0, 5.0, one)  # noqa: E731
-        plain = lambda: bp.betainc_plain(2.0, 5.0, u)  # noqa: E731
+        u, a, b = betainc_case(kind, n, dtype)
+        one = (u[-1:].clone(), a.reshape(-1)[-1:].clone(),
+               b.reshape(-1)[-1:].clone())
+        call = lambda: bp.betainc(a, b, u)  # noqa: E731
+        chain = lambda: bp.betainc(one[1], one[2], one[0])  # noqa: E731
+        plain = lambda: bp.betainc_plain(a, b, u)  # noqa: E731
         plain_ms = _time_ms(plain, 3)
+    want = plain()
+    same, err = _same_or_nan(call(), want)
+    c_same, c_err = _same_or_nan(chain(), want[-1:])
     ms = _time_ms(call, 20 if n <= 4096 else 5)
     small = u[:256]
     if (name, dtype) not in _BETA_OPS:
@@ -6191,14 +6474,26 @@ def beta_timed(name, n, dtype, floor_us):
             if name == "beta_ppf"
             else (lambda: bp.betainc_plain(2.0, 5.0, small)), 256)
     ops = _BETA_OPS[name, dtype]
-    bound, by, ops_ms, bytes_ms = beta_bounds(ops, n, dtype)
-    return {"kernel": name, "n": n, "dtype": str(dtype).split(".")[1],
-            "levels": beta_levels(n) if name == "beta_ppf" else None,
-            "a": 2.0, "b": 5.0, "ms": ms, "plain_ms": plain_ms,
-            "chain_ms": _time_ms(chain, 10), "ops_per_element": ops,
-            "bound_ms": bound, "bound_by": by, "ops_bound_ms": ops_ms,
-            "bytes_bound_ms": bytes_ms, "launch_floor_us": floor_us,
-            "call": call, "chain_call": chain}
+    bound, by, ops_ms, bytes_ms = beta_bounds(
+        ops, n, dtype, tensors=2 if name == "beta_ppf" or kind != "drive"
+        else 4)
+    rec = {"kernel": name, "kind": kind, "n": n,
+           "dtype": str(dtype).split(".")[1],
+           "levels": beta_levels(n) if name == "beta_ppf" else None,
+           "a": 2.0 if kind != "drive" else "per element",
+           "b": 5.0 if kind != "drive" else "per element",
+           "equal": same and c_same, "max_abs_err": max(err, c_err),
+           "chain_equal": c_same, "ms": ms,
+           "plain_ms": plain_ms, "chain_ms": _time_ms(chain, 10),
+           "ops_per_element": ops,
+           "bound_ms": bound, "bound_by": by, "ops_bound_ms": ops_ms,
+           "bytes_bound_ms": bytes_ms, "launch_floor_us": floor_us,
+           "call": call, "chain_call": chain}
+    if name == "betainc":
+        secs, unit, per = betainc_issue(sass[rec["dtype"]])
+        rec.update(issue_bound_ms=1e3 * secs * n, issue_by=unit,
+                   sass_per_half_term=per)
+    return rec
 
 
 def beta_vmap_replay(dtype):
@@ -6293,20 +6588,38 @@ def beta_phase(card, floor_us):
               f"{r['captured_launches']}), {r['replays_equal']}/"
               f"{r['replays']} replays bit-identical, a replay "
               f"{r['replay_ms']:.4f} ms  [{card}]")
-    timed = [beta_timed(name, n, dtype, floor_us)
+    from dynesty_tpu_torch.ops import build
+    sass = betainc_sass(build.load_library("beta_prior")._name)
+    for dtype, loops in sass.items():
+        print(f"beta betainc_kernel SASS {dtype}: {_sass_line(loops)}  "
+              f"[{card}]")
+    timed = [beta_timed(name, kind, n, dtype, floor_us, sass)
              for dtype in (torch.float64, torch.float32)
-             for name in BETA_KERNELS for n in BETA_TIMED[name]]
+             for name in BETA_KERNELS for kind, n in BETA_TIMED[name]]
     for r in timed:
-        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']} Beta(2, 5)"
+        print(f"beta {r['kernel']} ({r['n']},) {r['dtype']} {_beta_what(r)}"
               + (f" levels {r['levels']}" if r["levels"] else "") +
-              f": kernel {1e3 * r['ms']:.2f} us (events), plain "
+              f": bit-identical to the plain version {r['equal']} (its "
+              f"one-element chain {r['chain_equal']}), max_abs_err "
+              f"{r['max_abs_err']:.3e}; kernel {1e3 * r['ms']:.2f} us "
+              f"(events), plain "
               f"{1e3 * r['plain_ms']:.1f} us, one-thread chain "
               f"{1e3 * r['chain_ms']:.2f} us (events), operations bound "
               f"{1e3 * r['ops_bound_ms']:.3f} us ({r['ops_per_element']:.0f}"
               f" plain ops an element), bytes bound "
-              f"{1e3 * r['bytes_bound_ms']:.5f} us, launch floor "
-              f"{r['launch_floor_us']:.2f} us (events)  [{card}]")
-    bad = [r for r in sweep + tables if not r["equal"]] + \
+              f"{1e3 * r['bytes_bound_ms']:.5f} us"
+              + (f", issue bound {1e3 * r['issue_bound_ms']:.3f} us (the "
+                 f"SASS loop's instructions a half-term " + ", ".join(
+                     f"{u} {v:g}" for u, v in
+                     r["sass_per_half_term"].items()) +
+                 f"; {r['issue_by']} the busiest)"
+                 if "issue_bound_ms" in r else "") +
+              f", launch floor {r['launch_floor_us']:.2f} us (events)  "
+              f"[{card}]")
+    divs = [beta_div_check(dtype, card) for dtype in (torch.float64,
+                                                      torch.float32)]
+    bad = [r for r in sweep + tables + timed if not r["equal"]] + \
+        [r for r in divs if r["differ"]] + \
         [r for r in tables if r["launches"] != 2] + \
         [r for r in vr if not (r["vmap_equal"] and
                                r["vmap_launches"] == BETA_DRIVE_LAUNCHES
@@ -6320,12 +6633,13 @@ def beta_phase(card, floor_us):
                            f"versions: {bad}")
     return {"sweep": sweep, "tables": tables, "vmap_replay": vr,
             "timed": timed, "lanes": lanes, "switch": switch,
-            "level_sweep": levels}
+            "level_sweep": levels, "div_check": divs, "sass": sass}
 
 
-class CountingPrior:
-    """The user's prior transform, counting its calls on the card (eager,
-    or recorded by a capture: a replay runs it without Python)."""
+class CountingCalls:
+    """A user's prior transform or likelihood, counting its calls on the
+    card (eager, or recorded by a capture: a replay runs it without
+    Python)."""
 
     def __init__(self, pt):
         self.pt, self.calls = pt, 0
@@ -6376,7 +6690,7 @@ def beta_prior_drive(dyt, hk, card, keep):
     _BETA["lnorm"] = -len(BETA_MU) * math.log(BETA_SIGMA *
                                               math.sqrt(2 * math.pi))
     truth = beta_truth()
-    prior = CountingPrior(models.PriorTransform(
+    prior = CountingCalls(models.PriorTransform(
         [models.Beta(a, b) for a, b in BETA_DRIVE_AB]))
     _zero_counts(hk)
     with warnings.catch_warnings(record=True) as caught:
@@ -6431,6 +6745,98 @@ def beta_prior_drive(dyt, hk, card, keep):
           f"nodes, hand-written {s['wave_kernels']}; Timings "
           f"{json.dumps(s['timings'])}  [{card}]")
     return s, waves[-1]
+
+
+# the beta-interval drive's a and b (per element of its six) on the card
+_INTERVAL = {}
+
+
+def interval_loglike(theta):
+    """log P(|X_d - theta_d| <= W), X_d ~ Beta(a_d, b_d), summed over the
+    three dimensions: one ``betainc`` call on the six CDF points
+    (``models.priors.betainc``, the JAX module's name)."""
+    from dynesty_tpu_torch.models import priors
+    x = torch.cat([torch.clamp(theta + INTERVAL_W, max=1.0),
+                   torch.clamp(theta - INTERVAL_W, min=0.0)])
+    cdf = priors.betainc(_INTERVAL["a"], _INTERVAL["b"], x)
+    return torch.log(cdf[:3] - cdf[3:] + INTERVAL_FLOOR).sum()
+
+
+def unit_cube(u):
+    return u
+
+
+def interval_truth():
+    """log Z: each dimension's integral over theta of the interval's
+    probability, by ``scipy.integrate.quad`` of ``scipy.special
+    .betainc``."""
+    import scipy.integrate as si
+    import scipy.special as ss
+
+    out = 0.0
+    for a, b in INTERVAL_AB:
+        v, _ = si.quad(lambda t: ss.betainc(a, b, min(t + INTERVAL_W, 1.0))
+                       - ss.betainc(a, b, max(t - INTERVAL_W, 0.0)) +
+                       INTERVAL_FLOOR, 0.0, 1.0, points=[a / (a + b)],
+                       limit=200)
+        out += math.log(v)
+    return out
+
+
+def beta_interval_drive(dyt, hk, card):
+    """Phase 27c: ``NestedSampler(interval_loglike, unit_cube, 3,
+    nlive=1000)``, every other argument at its default, float64, on the
+    card, counts from zero: the evidence within 4 logzerr of the
+    quadrature's, no capture warning, waves replayed, ``betainc``
+    launched once a likelihood call on the card (each a vmapped call of
+    q lanes of six elements; the eager calls and every replay), and no
+    ``beta_ppf``."""
+    for i, k in enumerate("ab"):
+        _INTERVAL[k] = torch.tensor([ab[i] for ab in INTERVAL_AB] * 2,
+                                    dtype=torch.float64, device="cuda")
+    truth = interval_truth()
+    like = CountingCalls(interval_loglike)
+    _zero_counts(hk)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = dyt.NestedSampler(
+            like, unit_cube, len(INTERVAL_AB), nlive=INTERVAL_NLIVE,
+            rstate=np.random.Generator(np.random.PCG64(SEED)))
+        if sampler.device.type != "cuda":
+            raise RuntimeError(f"the default device is {sampler.device}")
+        sampler.run_nested(print_progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s = _summary(sampler, wall, truth, bootstrap=sampler.bound_bootstrap)
+    s["nells"] = int(getattr(sampler.bound, "nells", 1))
+    s["max_last_expand"] = None
+    _gate(sampler, s, "the beta-interval drive")
+    n = s["launches"] = _counts(hk)
+    warned = [str(w.message) for w in caught
+              if "could not be captured" in str(w.message)]
+    runs = like.calls - n["n_unif_graph"] + n["n_unif_replay"]
+    s["likelihood_calls"] = {"python": like.calls, "on_card": runs}
+    s["capture_warnings"] = warned
+    cfg = s["config"]
+    if warned or (cfg["bound"], cfg["sample"]) != ("multi", "unif") or \
+            sampler.dtype != torch.float64 or \
+            n["n_uncaptured"] != n["unif_warmups"] or \
+            n["betainc"] != runs or n["beta_ppf"] != 0 or \
+            n["n_unif_replay"] < 1:
+        raise RuntimeError(f"the beta-interval drive did not run its "
+                           f"likelihood through betainc as captured: {s}")
+    _print_unif_drive(f"beta-interval multi/unif nlive={INTERVAL_NLIVE} "
+                      f"(Beta{INTERVAL_AB}, within {INTERVAL_W})", s, card)
+    print(f"  beta-interval: betainc {n['betainc']} = {runs} likelihood "
+          f"calls on the card ({like.calls} from Python - "
+          f"{n['n_unif_graph']} captures + {n['n_unif_replay']} replays), "
+          f"beta_ppf {n['beta_ppf']}; waves {n['unif_waves']} (replays "
+          f"{n['n_unif_replay']}, warm-ups {n['unif_warmups']}); capture "
+          f"warnings {len(warned)}; Timings {json.dumps(s['timings'])}  "
+          f"[{card}]")
+    return s
 
 
 # --------------------------------------------------------------------------
@@ -7167,6 +7573,10 @@ def main():
     # wave's prior through the Beta kernel, replayed
     beta_drive, beta_wave = beta_prior_drive(dyt, hk, card, kept_samplers)
 
+    # phase 27c: beta-interval, a likelihood that calls betainc: every
+    # call one betainc launch, replayed in the captured waves
+    beta_interval = beta_interval_drive(dyt, hk, card)
+
     # phases 28 and 29: the balls drive and dynamic3 under mesh=make_mesh()
     meshballs = mesh_balls_drive(dyt, hk, main, main_sampler)
     _print_phase("mesh-balls", meshballs, card)
@@ -7443,14 +7853,18 @@ def main():
                                           only=f"{name}_kernel")
         r["launch_floor_device_us"] = floor["device_us"]
         r["bound_share"] = r["bound_ms"] / r["device_ms"]
-        print(f"beta {name} ({r['n']},) {r['dtype']} Beta(2, 5) device "
-              f"only: kernel {1e3 * r['device_ms']:.2f} us  events "
+        if "issue_bound_ms" in r:
+            r["issue_share"] = r["issue_bound_ms"] / r["device_ms"]
+        print(f"beta {name} ({r['n']},) {r['dtype']} {_beta_what(r)} "
+              f"device only: kernel {1e3 * r['device_ms']:.2f} us  events "
               f"{1e3 * r['ms']:.2f} us  plain {1e3 * r['plain_ms']:.1f} us  "
               f"one-thread chain {1e3 * r['chain_device_ms']:.2f} us  "
               f"operations bound {1e3 * r['ops_bound_ms']:.3f} us  bytes "
               f"bound {1e3 * r['bytes_bound_ms']:.5f} us  bound share "
-              f"{r['bound_share']:.4f}  launch floor "
-              f"{floor['device_us']:.3f} us  [{card}]")
+              f"{r['bound_share']:.4f}"
+              + (f"  issue bound {1e3 * r['issue_bound_ms']:.3f} us (share "
+                 f"{r['issue_share']:.4f})" if "issue_share" in r else "") +
+              f"  launch floor {floor['device_us']:.3f} us  [{card}]")
     for r in beta["vmap_replay"]:
         graph = r.pop("graph")
         r["replay_device_ms"] = _device_ms(graph.replay, 10)
@@ -7524,15 +7938,19 @@ def main():
               "mesh-dynamic3": meshdyn3, "pipeline-resume": piperesume,
               "example-quickstart": example, "uncapturable": uncapturable,
               "queue-balls": queueballs, "beta-prior": beta_drive,
-              "headline": headline, "headline-f32": headline32,
+              "beta-interval": beta_interval, "headline": headline,
+              "headline-f32": headline32,
               "headline-f32-resume": headline_resume, "heavy-f32": heavy32,
               "balls-f32": balls32, "dynamic3-f32": dyn3_32}
-    # the Beta kernels only where a Beta prior is
-    stray = [k for k, d in drives.items() if k != "beta-prior" and any(
-        d["launches"].get(name) for name in BETA_KERNELS)]
+    # beta_ppf only where a Beta prior is, betainc only where the
+    # likelihood calls it
+    owner = {"beta_ppf": "beta-prior", "betainc": "beta-interval"}
+    stray = [k for k, d in drives.items() if any(
+        d["launches"].get(name) and k != owner[name]
+        for name in BETA_KERNELS)]
     if stray:
-        raise RuntimeError(f"drives without a Beta prior launched its "
-                           f"kernels: {stray}")
+        raise RuntimeError(f"drives launched a Beta kernel not theirs: "
+                           f"{stray}")
     consume_by_drive = {name: {
         "launches": d["launches"]["consume"],
         "thin": d["launches"]["consume_thin"],
@@ -7807,25 +8225,31 @@ def main():
         "captured_round": captured_round}
 
     def beta_entry(name):
-        """A Beta kernel's line: a wave's 256 lanes in float64 at the
-        drive's Beta(2, 5), the largest difference over the sweep."""
+        """A Beta kernel's line in float64 at its drive's call (beta_ppf:
+        a wave's 256 lanes at Beta(2, 5); betainc: the beta-interval
+        wave's 256 lanes of six), the largest difference over the
+        sweep."""
+        kind, n = ("edges", 256) if name == "beta_ppf" else ("drive", 1536)
         rec = next(r for r in beta["timed"] if r["kernel"] == name and
-                   r["n"] == 256 and r["dtype"] == "float64")
+                   r["kind"] == kind and r["n"] == n and
+                   r["dtype"] == "float64")
         by_drive = {"beta-prior": beta_drive["launches"][name],
+                    "beta-interval": beta_interval["launches"][name],
                     "priors": priors["launches"][name]}
         return {"name": name, "route": "cuda", "source": BETA_SOURCE,
                 "replaces": BETA_REPLACES,
                 "replaces_also": BETA_REPLACES_ALSO,
                 "launches": sum(by_drive.values()),
                 "launches_by_drive": by_drive,
-                "launches_note": "one launch a prior call on the card "
-                                 "for all its Beta dimensions of one "
-                                 "niter (a replayed wave counts what its "
+                "launches_note": "beta_ppf: one launch a prior call on "
+                                 "the card for all its Beta dimensions of "
+                                 "one niter; betainc: one a likelihood "
+                                 "call (a replayed wave counts what its "
                                  "capture did); priors: phase 27's "
                                  "calls",
                 "max_abs_err": max(r["max_abs_err"] for r in
-                                   beta["sweep"] + beta["tables"]
-                                   if r["kernel"] == name),
+                                   beta["sweep"] + beta["tables"] +
+                                   beta["timed"] if r["kernel"] == name),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "bound_share": rec["bound_share"],
@@ -7840,16 +8264,19 @@ def main():
                 "library_note": "no one PyTorch call computes the "
                                 "regularized incomplete beta function "
                                 "(torch.special has none)",
-                "shape": [256], "dtype": "float64",
+                "shape": [n], "dtype": "float64",
                 "device_ms": rec["device_ms"],
                 "launch_floor_ms": floor["device_us"] / 1e3,
-                "cases": [{k: r[k] for k in (
-                    "n", "dtype", "levels", "ms", "device_ms", "plain_ms",
-                    "chain_ms",
+                "cases": [{k: r.get(k) for k in (
+                    "kind", "n", "dtype", "levels", "ms", "device_ms",
+                    "plain_ms", "chain_ms",
                     "chain_device_ms", "ops_per_element", "ops_bound_ms",
-                    "bytes_bound_ms", "bound_ms", "bound_by",
-                    "bound_share")} for r in beta["timed"]
+                    "bytes_bound_ms", "issue_bound_ms", "issue_by",
+                    "sass_per_half_term", "bound_ms", "bound_by",
+                    "bound_share", "equal")} for r in beta["timed"]
                     if r["kernel"] == name],
+                **({"div_check": beta["div_check"], "sass": beta["sass"]}
+                   if name == "betainc" else {}),
                 **({"parent_bench": parent_of("prior_transform")}
                    if parent and name == "beta_ppf" else {})}
 
@@ -7923,7 +8350,8 @@ def main():
               "custom_resume": customresume, "plots": plots,
               "eggbox": rows["eggbox"], "shells": rows["shells"],
               "eggbox_balls": eggballs, "priors": priors,
-              "beta_prior": beta_drive, "beta_kernels": beta,
+              "beta_prior": beta_drive, "beta_interval": beta_interval,
+              "beta_kernels": beta,
               "mesh_balls": meshballs,
               "mesh_dynamic3": meshdyn3, "scaling": scaling,
               "pipeline_resume": piperesume,

@@ -7,8 +7,12 @@ LogUniform, Beta) as plain functions of tensors, built on
 the proposal rounds on any device.  Compose per-dimension priors with
 :class:`PriorTransform`.
 
+As the JAX module binds ``jax.scipy.special``'s ``ndtri`` and
+``betainc``, this one binds :data:`ndtri` (``torch.special.ndtri``) and
+:data:`betainc` (``ops.beta_prior.betainc``, also as ``_betainc``), so a
+likelihood written against either module's names finds them here.
 ``torch.special`` has no regularized incomplete beta function, so
-:func:`_betainc` and :class:`Beta` go through ``ops.beta_prior``: on the
+:data:`betainc` and :class:`Beta` go through ``ops.beta_prior``: on the
 card one launch of a hand-written CUDA kernel (``csrc/beta_prior.cu``)
 each, which runs under ``torch.func.vmap`` and inside a captured wave (a
 :class:`PriorTransform`'s Beta dimensions all in one launch); on the CPU
@@ -30,11 +34,10 @@ __all__ = [
 ]
 
 
-def _betainc(a, b, x):
-    """Regularized incomplete beta function I_x(a, b), elementwise over
-    ``x`` (a tensor; ``a``, ``b`` numbers or tensors broadcasting with
-    it), in ``x``'s floating dtype (``ops.beta_prior.betainc``)."""
-    return beta_prior.betainc(a, b, x)
+# the JAX module's names for jax.scipy.special.ndtri and .betainc
+ndtri = torch.special.ndtri
+betainc = beta_prior.betainc
+_betainc = betainc
 
 
 class Prior:

@@ -11,6 +11,10 @@ Numerical Recipes' ``betacf``, modified Lentz, a fixed 64 terms, no
 data-dependent control flow) and bisects on it (:func:`beta_ppf_plain`):
 some 1.4e5 elementwise operations a call.  On the card these are
 ``csrc/beta_prior.cu``'s two kernels, bit for bit with the plain versions.
+Both evaluate the continued fraction with each half-term's quotients by
+their fast paths, the next coefficient divided beside the current
+recurrences, and one operand-range test an evaluation (where it fails,
+the evaluation reruns serially with the IEEE intrinsics).
 
 ``beta_ppf_kernel`` takes a table of up to :data:`TABLE` Beta dimensions
 (a column of ``u`` and its ``a``, ``b`` each), so a ``PriorTransform``
@@ -128,6 +132,8 @@ ENTRY_ARGTYPES = {
                  ctypes.POINTER(ctypes.c_double),
                  ctypes.POINTER(ctypes.c_double), _N, _N, _P],
     "betainc": [_P, _I, _P, _I, _P, _I, _P, _I, _P],
+    # the quotients' fast path against the intrinsics (chip_smoke.py)
+    "div_check": [_P, _P, _P, _P, _P, _I, _P],
 }
 _ENTRY = {}
 

@@ -360,6 +360,33 @@ def test_the_kernel_constants_are_the_plain_versions():
     assert g.tolist() == [1e-300, 1e-300, 1e-299]
 
 
+def test_the_fast_quotients_operand_ranges_are_as_stated():
+    """``Quot``'s operand test in ``csrc/beta_prior.cu`` (the magnitude's
+    bits, offset and compared unsigned) accepts exactly [2^-500, 2^500)
+    in float64 (on the high word) and [2^-60, 2^61) in float32, the
+    ranges its comment and chip_smoke.py's special operands state."""
+    src = SRC.read_text()
+    d = re.search(r"__double2hiint\(x\) & 0x7fffffff\) - (0x[0-9a-f]+)\) <"
+                  r"\s+(0x[0-9a-f]+)u", src)
+    f = re.search(r"__float_as_uint\(x\) & 0x7fffffffu\) - (0x[0-9a-f]+)u "
+                  r"< (0x[0-9a-f]+)u", src)
+    for m, dtype, lo, hi in ((d, np.float64, 2.0 ** -500, 2.0 ** 500),
+                             (f, np.float32, 2.0 ** -60, 2.0 ** 61)):
+        off, size = int(m.group(1), 16), int(m.group(2), 16)
+        wide = np.uint64 if dtype == np.float64 else np.uint32
+        shift = 32 if dtype == np.float64 else 0
+
+        def accepts(x):
+            bits = int(np.array(x, dtype=dtype).view(wide)) >> shift
+            return ((bits & 0x7fffffff) - off) % 2 ** 32 < size
+
+        below = np.nextafter(dtype(lo), dtype(0))
+        top = np.nextafter(dtype(hi), dtype(0))
+        assert accepts(lo) and accepts(-lo) and accepts(top)
+        assert not (accepts(below) or accepts(hi) or accepts(-hi))
+        assert not (accepts(0.0) or accepts(np.inf) or accepts(np.nan))
+
+
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "i64": ctypes.c_longlong, "double": ctypes.c_double,
            "int": ctypes.c_int,
